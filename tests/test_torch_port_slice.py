@@ -1,0 +1,161 @@
+"""The port's UnlgFormer eval slice on CPU vs the JAX package.
+
+Same weights (a flax tree mapped with `lgteun_from_flax`), same float32
+inputs: the port's plain path must match the JAX Method (flax module
+path) and the channel-major `lgteun_fast_forward` within 5e-4 max-abs,
+the port bound of ROADMAP.md.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from lgteun_tpu.config import Config, load_config as jax_load_config
+from lgteun_tpu.metrics.jax_metrics import psnr_batch as jax_psnr_batch
+from lgteun_tpu.models.lgteun_fast import lgteun_fast_forward
+from lgteun_tpu.registry import build_model as build_jax_model
+from lgteun_tpu_torch.config import Config as PortConfig, load_config
+from lgteun_tpu_torch.convert.from_jax import lgteun_from_flax
+from lgteun_tpu_torch.data.pipeline import data_denormalize, eval_batches
+from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.registry import build_model
+from lgteun_tpu_torch.runner import Runner
+
+sys.path.insert(0, os.path.dirname(__file__))
+from test_torch_port_convert import flax_params  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cfg(c, config=Config, **kw):
+    return config(ms_chans=c, model_cfg={"core_module": {"stage": 2}}, **kw)
+
+
+def _port(c, tree):
+    port = build_model("UnlgFormer", _cfg(c, PortConfig), device="cpu")
+    port.load_state_dict(lgteun_from_flax(tree))
+    return port
+
+
+@pytest.mark.parametrize("c", [4, 8])
+def test_unlgformer_matches_jax(c):
+    rng = np.random.default_rng(11)
+    batch = {"input_lr": rng.uniform(0, 1, (2, 8, 8, c)).astype(np.float32),
+             "input_pan": rng.uniform(0, 1, (2, 32, 32, 1)).astype(np.float32)}
+    tree = flax_params(c, seed=c)
+    got = _port(c, tree).apply(batch).numpy()
+    jtree = jax.tree.map(jnp.asarray, tree)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    method = build_jax_model("UnlgFormer", _cfg(c))
+    want_module = jax.jit(method.apply)({"core_module": jtree}, jbatch)
+    want_fast = jax.jit(lambda p, ms, pan: lgteun_fast_forward(
+        p, ms, pan, stage=2))(jtree, jbatch["input_lr"], jbatch["input_pan"])
+    assert got.shape == (2, 32, 32, c) and np.isfinite(got).all()
+    for want in (want_module, want_fast):
+        err = float(np.max(np.abs(got - np.asarray(want))))
+        assert err <= 5e-4, err
+
+
+class _MemoryDataset:
+    """PSDataset-shaped items (NHWC, 11-bit DN) held in memory."""
+
+    def __init__(self, n, c, seed=0):
+        rng = np.random.default_rng(seed)
+        self.items = [{
+            "input_lr": rng.uniform(0, 2047, (8, 8, c)).astype(np.float32),
+            "input_pan": rng.uniform(0, 2047, (32, 32, 1)).astype(np.float32),
+            "target": rng.uniform(0, 2047, (32, 32, c)).astype(np.float32),
+        } for _ in range(n)]
+        self.pairs = [(f"img{i}",) for i in range(n)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def test_runner_psnr_matches_jax_metric():
+    """Runner.test over 3 images at batch 2 (a padded, ragged tail)
+    scores the same PSNR as the JAX psnr_batch on the same predictions
+    (float32 metric in both: <= 1e-4 dB)."""
+    c = 4
+    cfg = _cfg(c, PortConfig, eval_batch_size=2)
+    ds = _MemoryDataset(3, c)
+    runner = Runner(cfg, build_model("UnlgFormer", cfg, device="cpu"), "cpu")
+    runner.load(lgteun_from_flax(flax_params(c)))
+    mean, std = runner.test(ds)["psnr"]
+    want = []
+    for batch, n_valid in eval_batches(ds, 2):
+        pred = runner.predict(runner.to_device(batch)).numpy()
+        scores = jax_psnr_batch(
+            data_denormalize(jnp.asarray(pred), cfg.bit_depth),
+            data_denormalize(jnp.asarray(batch["target"], jnp.float32),
+                             cfg.bit_depth),
+            dynamic_range=2.0 ** cfg.bit_depth - 0.5)
+        want.extend(np.asarray(scores)[:n_valid].tolist())
+    assert len(want) == 3
+    assert abs(mean - np.mean(want)) <= 1e-4
+    assert abs(std - np.std(want)) <= 1e-4
+    assert runner.last_time_per_image > 0
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_port_imports_no_jax():
+    """The port runs a forward in a fresh process without jax, flax or
+    the JAX package."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np, torch
+        from lgteun_tpu_torch.config import Config
+        from lgteun_tpu_torch.registry import build_model
+        cfg = Config(ms_chans=4, model_cfg={"core_module": {"stage": 2}})
+        m = build_model("UnlgFormer", cfg, device="cpu")
+        m.init_params(torch.Generator().manual_seed(0))
+        out = m.apply({"input_lr": np.zeros((1, 8, 8, 4), np.float32),
+                       "input_pan": np.zeros((1, 32, 32, 1), np.float32)})
+        assert out.shape == (1, 32, 32, 4) and torch.isfinite(out).all()
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "lgteun_tpu"))
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_shipped_config_loads_as_in_the_jax_package():
+    """The port's load_config reads the shipped UnlgFormer config into
+    the same values as the JAX package's, for every field it keeps."""
+    path = os.path.join(REPO, "lgteun_tpu", "configs", "unlg_former.py")
+    got, want = load_config(path), jax_load_config(path)
+    for f in dataclasses.fields(PortConfig):
+        if f.name != "extras":
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert (got.model_type, got.ms_chans, got.eval_batch_size) == (
+        "UnlgFormer", 8, 16)
+    assert got.get("max_iter") == want.max_iter
+    assert got.get("step") == want.get("step")
+
+
+def test_kernel_loader_raises_without_nvcc(tmp_path, monkeypatch):
+    """No nvcc -> the loader raises; it never hands back a missing
+    library for a caller to skip."""
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _cuda.build_library(tmp_path / "build")
+    assert not (tmp_path / "build").exists()

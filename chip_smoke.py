@@ -3,19 +3,25 @@
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from `lgteun_tpu_torch/csrc` with nvcc,
-holds each kernel against its plain PyTorch version at the main path's
-shapes, then drives the UnlgFormer eval path (shipped config: WV-3,
-8 bands, K=2, random weights from a seed) through `Runner.test` at the
-config's eval batch size, checks that every block went through the three
-kernels and that the output agrees with a CPU run of the plain path, and
-times batch-1 latency and batch-16 throughput. It also prints where the
-card-vs-CPU difference of the slice comes from: the card with the
+holds each kernel against its plain PyTorch version at the main paths'
+shapes, then drives each ported eval path through `Runner.test` at its
+config's eval batch size, with random weights from a seed:
+
+- UnlgFormer (LGTEUN, WV-3, 8 bands, K=2): three kernels per LGB block;
+- lightnet (WV-3, 8 bands): the SpanConv stack kernel;
+- MDCUN (WV-3, 8 bands, T=4): the neighbourhood-attention kernel.
+
+For each path it checks that every forward went through its kernels,
+that the output agrees with a CPU run of the plain path, and times
+batch-1 latency and batch-16 throughput. It also prints where the
+card-vs-CPU difference of each path comes from: the card with the
 kernels, the card on the kernels' plain versions and the CPU plain path,
 each against a float64 run of the CPU plain path.
 
-`--profile` adds a torch.profiler (CUPTI) pass over a few forwards at
-batch 1 and at the eval batch: device kernels per forward, device busy
-time, idle share and each device kernel's share of the busy time.
+`--profile` adds a torch.profiler (CUPTI) pass over a few forwards of
+each path at batch 1 and at the eval batch: device kernels per forward,
+device busy time, idle share and each device kernel's share of the busy
+time.
 
 Any failed phase raises (non-zero exit). With no CUDA device the script
 exits non-zero before printing any result. The last line of stdout is
@@ -29,6 +35,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import importlib
 import json
 import logging
 import os
@@ -41,14 +48,55 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-CONFIG = os.path.join(REPO, "lgteun_tpu", "configs", "unlg_former.py")
+CONFIGS = os.path.join(REPO, "lgteun_tpu", "configs")
 SEED = 19971118
 KERNEL_BATCH = 4            # kernel checks at the main path's shapes
 # (C, H=W) of the prior's LGB blocks: 4 full-res blocks, 1 bottleneck
 BLOCK_SHAPES = ((32, 128), (64, 64))
 KERNEL_REL_TOL = 1e-4       # max|kernel - plain| / max|plain|
-SLICE_ABS_TOL = 5e-4        # card vs CPU plain path, max-abs
 N_IMAGES = 64
+
+# name -> (module under lgteun_tpu_torch/ops holding the wrapper and its
+# plain version, the model module that calls it, CUDA source, the TPU
+# kernel it replaces, the shape whose times the JSON line reports)
+KERNELS = {
+    "ln_mixer_head": ("spectral_kernel", "lgteun_tpu_torch.models.common.lgt",
+                      "lgteun_tpu_torch/csrc/spectral_head.cu",
+                      "lgteun_tpu/ops/spectral_kernel.py:281", "4x32x128x128"),
+    "window_attention": ("window_attention",
+                         "lgteun_tpu_torch.models.common.lgt",
+                         "lgteun_tpu_torch/csrc/window_attention.cu",
+                         "lgteun_tpu/ops/window_attention.py:274",
+                         "4x32x128x128"),
+    "block_tail": ("ffn_kernel", "lgteun_tpu_torch.models.common.lgt",
+                   "lgteun_tpu_torch/csrc/block_tail.cu",
+                   "lgteun_tpu/ops/ffn_kernel.py:458", "4x32x128x128"),
+    "lightnet_stack": ("lightnet_kernel", "lgteun_tpu_torch.models.lightnet",
+                       "lgteun_tpu_torch/csrc/lightnet.cu",
+                       "lgteun_tpu/ops/lightnet_kernel.py:163", "4x9x128x128"),
+    "neighborhood_attention": (
+        "nonlocal_kernel", "lgteun_tpu_torch.models.mdcun",
+        "lgteun_tpu_torch/csrc/neighborhood_attention.cu",
+        "lgteun_tpu/ops/nonlocal_kernel.py:120", "4x8x128x128"),
+}
+
+# (config file, {kernel: launches per forward}, card-vs-CPU max-abs bound,
+#  images of the CPU comparison). The bounds: UnlgFormer the port's 5e-4
+# (ROADMAP.md); lightnet 1e-4 and MDCUN 1e-3, those
+# tests/test_torch_parity.py holds the JAX package to against the
+# reference.
+SLICES = (
+    ("unlg_former.py", {"ln_mixer_head": 5, "window_attention": 5,
+                        "block_tail": 5}, 5e-4, 2),
+    ("lightnet.py", {"lightnet_stack": 3}, 1e-4, 2),
+    ("MDCUN.py", {"neighborhood_attention": 4}, 1e-3, 1),
+)
+
+
+def kernel_fns(name: str):
+    """(wrapper, plain version) of kernel `name`."""
+    mod = importlib.import_module(f"lgteun_tpu_torch.ops.{KERNELS[name][0]}")
+    return getattr(mod, name), getattr(mod, f"{name}_ref")
 
 
 def sh(*cmd: str) -> str:
@@ -127,36 +175,49 @@ def kernel_cases(gen: torch.Generator):
     yield ("ln_mixer_head", f"1x{c}x{hw}x{hw}-zero", ln_mixer_head,
            ln_mixer_head_ref, zero)
 
-
-KERNEL_INFO = {
-    "ln_mixer_head": ("lgteun_tpu_torch/csrc/spectral_head.cu",
-                      "lgteun_tpu/ops/spectral_kernel.py:281"),
-    "window_attention": ("lgteun_tpu_torch/csrc/window_attention.cu",
-                         "lgteun_tpu/ops/window_attention.py:274"),
-    "block_tail": ("lgteun_tpu_torch/csrc/block_tail.cu",
-                   "lgteun_tpu/ops/ffn_kernel.py:458"),
-}
+    # LightNet's stack at 8 bands: x = pan + lms (9 channels), kaiming
+    # weights, biases U(+-0.1) so that the border zeroing matters
+    from lgteun_tpu_torch.ops.lightnet_kernel import (lightnet_layers,
+                                                      lightnet_stack,
+                                                      lightnet_stack_ref)
+    bands, hw = 8, 128
+    layers = []
+    for _n, cin, cout, _r in lightnet_layers(bands):
+        span = []
+        for _branch in range(2):
+            span += [n(cout, cin, 1, 1, scale=(2 / cout) ** 0.5),
+                     0.1 * n(cout), n(cout, 1, 3, 3, scale=(2 / 9 / cout)
+                                      ** 0.5), 0.1 * n(cout)]
+        layers.append(tuple(span))
+    lms = n(b, bands, hw, hw)
+    x = torch.cat([n(b, 1, hw, hw), lms], dim=1)
+    yield ("lightnet_stack", f"{b}x{bands + 1}x{hw}x{hw}", lightnet_stack,
+           lightnet_stack_ref, (x, lms, layers))
+    # MDCUN's blockNL at 8 bands, and one ragged shape for the borders
+    from lgteun_tpu_torch.ops.nonlocal_kernel import (
+        neighborhood_attention, neighborhood_attention_ref)
+    for shape in ((b, bands, hw, hw), (1, bands, 72, 100)):
+        na = (n(*shape),) + tuple(n(bands, bands, scale=bands ** -0.5)
+                                  for _ in range(4)) + (15,)
+        yield ("neighborhood_attention", "x".join(map(str, shape)),
+               neighborhood_attention, neighborhood_attention_ref, na)
 
 
 @contextlib.contextmanager
-def plain_blocks():
-    """Run the LGB blocks on their kernels' plain versions (for the
-    numeric split only; the wrappers count no launch meanwhile)."""
-    from lgteun_tpu_torch.models.common import lgt
-    from lgteun_tpu_torch.ops.ffn_kernel import block_tail_ref
-    from lgteun_tpu_torch.ops.spectral_kernel import ln_mixer_head_ref
-    from lgteun_tpu_torch.ops.window_attention import window_attention_ref
-    plain = {"ln_mixer_head": ln_mixer_head_ref,
-             "window_attention": window_attention_ref,
-             "block_tail": block_tail_ref}
-    saved = {k: getattr(lgt, k) for k in plain}
-    for k, fn in plain.items():
-        setattr(lgt, k, fn)
+def plain_kernels(names):
+    """Run kernels `names` on their plain versions in the models that
+    call them (for the numeric split only; the wrappers count no launch
+    meanwhile)."""
+    saved = []
     try:
+        for name in names:
+            user = importlib.import_module(KERNELS[name][1])
+            saved.append((user, name, getattr(user, name)))
+            setattr(user, name, kernel_fns(name)[1])
         yield
     finally:
-        for k, fn in saved.items():
-            setattr(lgt, k, fn)
+        for user, name, fn in saved:
+            setattr(user, name, fn)
 
 
 def float64_forward(method, batch: dict) -> torch.Tensor:
@@ -237,21 +298,14 @@ class SceneDataset:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler pass at batch 1 and the "
-                         "eval batch")
+                    help="add a torch.profiler pass of each path at batch 1 "
+                         "and the eval batch")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from lgteun_tpu_torch.config import load_config
-    from lgteun_tpu_torch.data.pipeline import eval_batches
     from lgteun_tpu_torch.ops import _cuda
-    from lgteun_tpu_torch.ops.ffn_kernel import block_tail
-    from lgteun_tpu_torch.ops.spectral_kernel import ln_mixer_head
-    from lgteun_tpu_torch.ops.window_attention import window_attention
-    from lgteun_tpu_torch.registry import build_model
-    from lgteun_tpu_torch.runner import Runner
 
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="%(message)s")
@@ -292,58 +346,88 @@ def main() -> int:
         rec["by_shape"][shape] = {"rel_err": rel, "ms": ms,
                                   "plain_ms": plain_ms}
 
-    # 3. the slice: shipped config, seeded weights, Runner.test
-    cfg = load_config(CONFIG)
+    # 3. each slice: shipped config, seeded weights, Runner.test
+    launches = {}
+    for config, per_forward, abs_tol, n_cmp in SLICES:
+        launches.update(run_slice(os.path.join(CONFIGS, config), per_forward,
+                                  abs_tol, n_cmp, card, opts.profile))
+
+    kernels = []
+    for name, (_op, _user, src, replaces, main_shape) in KERNELS.items():
+        rec = record[name]
+        full = rec["by_shape"][main_shape]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": rec["max_abs_err"],
+                        "ms": full["ms"], "plain_ms": full["plain_ms"],
+                        "by_shape": rec["by_shape"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_slice(config: str, per_forward: dict, abs_tol: float, n_cmp: int,
+              card: str, profile: bool) -> dict:
+    """Drive one eval path through Runner.test on the card and check
+    it; returns {kernel: launches in the Runner.test run}."""
+    from lgteun_tpu_torch.config import load_config
+    from lgteun_tpu_torch.data.pipeline import eval_batches
+    from lgteun_tpu_torch.registry import build_model
+    from lgteun_tpu_torch.runner import Runner
+
+    cfg = load_config(config)
+    tag = f"slice {cfg.model_type}"
     print(f"config: {cfg.model_type} {cfg.datas} ms_chans={cfg.ms_chans} "
-          f"stage={cfg.model_cfg['core_module']['stage']} "
-          f"eval_batch_size={cfg.eval_batch_size}")
+          f"model_cfg={cfg.model_cfg} eval_batch_size={cfg.eval_batch_size}")
     method = build_model(cfg.model_type, cfg, device="cuda")
     runner = Runner(cfg, method, "cuda").init(SEED)
     ds = SceneDataset(N_IMAGES, cfg.ms_chans, SEED)
     runner.predict(runner.to_device(next(eval_batches(
         ds, cfg.eval_batch_size))[0]))  # warm-up outside the counted run
     torch.cuda.synchronize()
-    wrappers = {"ln_mixer_head": ln_mixer_head,
-                "window_attention": window_attention,
-                "block_tail": block_tail}
+    wrappers = {k: kernel_fns(k)[0] for k in per_forward}
     for fn in wrappers.values():
         fn.launches = 0
     results = runner.test(ds)
     launches = {k: fn.launches for k, fn in wrappers.items()}
     forwards = -(-N_IMAGES // cfg.eval_batch_size)
-    print(f"slice: psnr {results['psnr'][0]:.4f} dB (random weights), "
+    print(f"{tag}: psnr {results['psnr'][0]:.4f} dB (random weights), "
           f"{forwards} forwards, launches {launches}")
     for k, n in launches.items():
-        if n != 5 * forwards:
-            raise AssertionError(f"{k}: {n} launches, want 5 per forward "
-                                 f"x {forwards}")
+        if n != per_forward[k] * forwards:
+            raise AssertionError(f"{k}: {n} launches, want {per_forward[k]} "
+                                 f"per forward x {forwards}")
 
-    first2 = {k: v[:2] for k, v in next(eval_batches(ds, 2))[0].items()
-              if k != "image_id"}
-    got = runner.predict(runner.to_device(first2)).cpu()
+    first = {k: v[:n_cmp] for k, v in next(eval_batches(ds, n_cmp))[
+        0].items() if k != "image_id"}
+    got = runner.predict(runner.to_device(first)).cpu()
     cpu = build_model(cfg.model_type, cfg, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in
                          method.module.state_dict().items()})
-    want = cpu.apply(first2)
+    want = cpu.apply(first)
     err = (got - want).abs().max().item()
-    print(f"slice: output {tuple(got.shape)} finite="
+    print(f"{tag}: output {tuple(got.shape)} finite="
           f"{bool(torch.isfinite(got).all())}  max|card - cpu plain| "
-          f"{err:.3e} (max|cpu| {want.abs().max().item():.3f})")
-    if not torch.isfinite(got).all() or not err <= SLICE_ABS_TOL:
-        raise AssertionError(f"slice output: max-abs {err:.3e} > "
-                             f"{SLICE_ABS_TOL} or not finite")
+          f"{err:.3e} (max|cpu| {want.abs().max().item():.3f}, bound "
+          f"{abs_tol:g})")
+    if not torch.isfinite(got).all() or not err <= abs_tol:
+        raise AssertionError(f"{tag} output: max-abs {err:.3e} > "
+                             f"{abs_tol} or not finite")
     # where that difference comes from (printed, not checked)
-    with plain_blocks():
-        card_plain = runner.predict(runner.to_device(first2)).cpu()
-    exact = float64_forward(cpu, first2)
+    with plain_kernels(per_forward):
+        card_plain = runner.predict(runner.to_device(first)).cpu()
+    exact = float64_forward(cpu, first)
     d = lambda a, b: (a.double() - b.double()).abs().max().item()
-    print(f"slice split: max|card kernels - card plain| "
+    print(f"{tag} split: max|card kernels - card plain| "
           f"{d(got, card_plain):.3e}  max|card plain - cpu plain| "
           f"{d(card_plain, want):.3e}; vs float64 cpu plain: card kernels "
           f"{d(got, exact):.3e}, card plain {d(card_plain, exact):.3e}, "
           f"cpu plain {d(want, exact):.3e}")
 
-    # 4. latency and throughput of the predict path
+    # latency and throughput of the predict path
     items = next(eval_batches(ds, cfg.eval_batch_size))[0]
     b1 = runner.to_device({k: v[:1] for k, v in items.items()
                            if k != "image_id"})
@@ -359,36 +443,23 @@ def main() -> int:
         lat.append(time.perf_counter() - t0)
     b16_ms = time_ms(lambda: runner.predict(b16), iters=10)
     ips = cfg.eval_batch_size / (b16_ms / 1e3)
-    print(f"slice: batch-1 latency median {statistics.median(lat) * 1e3:.3f}"
-          f" ms (min {min(lat) * 1e3:.3f}); batch-{cfg.eval_batch_size} "
-          f"{b16_ms:.3f} ms = {ips:.1f} images/s; Runner.test "
-          f"{runner.last_time_per_image * 1e3:.3f} ms/img  [{card}]")
+    print(f"{tag}: batch-1 latency median "
+          f"{statistics.median(lat) * 1e3:.3f} ms (min {min(lat) * 1e3:.3f})"
+          f"; batch-{cfg.eval_batch_size} {b16_ms:.3f} ms = {ips:.1f} "
+          f"images/s; Runner.test {runner.last_time_per_image * 1e3:.3f} "
+          f"ms/img  [{card}]")
 
-    if opts.profile:
+    if profile:
         for label, batch in (("batch-1", b1),
                              (f"batch-{cfg.eval_batch_size}", b16)):
             prof = device_profile(runner, batch)
             top = "; ".join(f"{share:.3f} {name}"
                             for name, share in prof.pop("top"))
-            print(f"profile {label}: " + "  ".join(
+            print(f"profile {cfg.model_type} {label}: " + "  ".join(
                 f"{k} {v:.4g}" for k, v in prof.items()) + f"  [{card}]")
-            print(f"profile {label} top device kernels: {top}")
-
-    kernels = []
-    for name, (src, replaces) in KERNEL_INFO.items():
-        rec = record[name]
-        full = rec["by_shape"][f"{KERNEL_BATCH}x32x128x128"]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": rec["max_abs_err"],
-                        "ms": full["ms"], "plain_ms": full["plain_ms"],
-                        "by_shape": rec["by_shape"]})
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+            print(f"profile {cfg.model_type} {label} top device kernels: "
+                  f"{top}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,16 +1,19 @@
-"""JAX (flax) LGTEUN params -> the port's reference-keyed state_dict.
+"""JAX (flax) params -> the port's reference-keyed state_dicts.
 
-The exact inverse of `lgteun_tpu/convert/torch_import.py::convert_lgteun`
-(which maps reference torch keys onto the flax tree), so
-`convert_state_dict("UnlgFormer", lgteun_from_flax(tree))` gives `tree`
-back bit for bit. Layouts:
+Each converter is the exact inverse of its counterpart in
+`lgteun_tpu/convert/torch_import.py` (which maps reference torch keys
+onto the flax tree): `lgteun_from_flax` of `convert_lgteun`,
+`lightnet_from_flax` of `convert_lightnet` and `mdcun_from_flax` of
+`convert_mdcun`, so e.g. `convert_state_dict("UnlgFormer",
+lgteun_from_flax(tree))` gives `tree` back bit for bit. Layouts:
 
 - conv kernels: flax HWIO [kh, kw, in/g, out] -> torch OIHW
 - pos_emb: flax [heads, S, S] -> torch [1, heads, S, S]
 - amp_scale / pha_scale: flax [1, 1, 1, C] -> torch [C, 1, 1, 1]
   (the reference's 1x1 depthwise convs; the generic kernel rule)
-- the fused-FFN raw params (w1 [C, 4C], dw [3, 3, 1, 4C], ...) are
-  HWIO kernels too.
+- the fused-FFN raw params (w1 [C, 4C], dw [3, 3, 1, 4C], ...) and
+  MDCUN's non-local projections ([1, 1, C, C]) are HWIO kernels too
+- MDCUN's scalars and PReLU slopes: flax [] -> torch [1]
 
 Takes the flax `core_module` tree as nested dicts of numpy arrays (no jax
 import); returns {key: float32 torch.Tensor}.
@@ -21,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["lgteun_from_flax"]
+__all__ = ["lgteun_from_flax", "lightnet_from_flax", "mdcun_from_flax"]
 
 
 def _hwio(k) -> np.ndarray:
@@ -31,6 +34,40 @@ def _hwio(k) -> np.ndarray:
 
 def _ident(v) -> np.ndarray:
     return np.asarray(v)
+
+
+def _one(v) -> np.ndarray:
+    """A flax scalar [] -> torch's one-value [1]."""
+    return np.asarray(v).reshape(1)
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts -> {"a/b/leaf": array}."""
+    out = {}
+    for key, node in tree.items():
+        if isinstance(node, dict):
+            out.update(_flat(node, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = node
+    return out
+
+
+def _from_table(tree: dict, table: dict, name: str) -> dict:
+    """Map every flax leaf through `table` {flax path: (torch keys,
+    transform)}; a leaf the table lacks is refused."""
+    out = {}
+    for path, val in _flat(tree).items():
+        if path not in table:
+            raise KeyError(f"unmapped {name} key: {path}")
+        keys, tf = table[path]
+        for key in keys:
+            out[key] = tf(val)
+    return out
+
+
+def _tensors(sd: dict) -> dict:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
 
 
 def _conv(out: dict, t_prefix: str, node: dict) -> None:
@@ -123,5 +160,80 @@ def lgteun_from_flax(params: dict) -> dict:
             _lgt(out, f"prior_module.{key[6:]}", node)
         else:
             raise KeyError(f"unmapped LGTEUN key: {key}")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in out.items()}
+    return _tensors(out)
+
+
+def _conv_rows(t_prefix: str, f_prefix: str, *aliases: str) -> dict:
+    """Table rows of a flax Conv leaf pair under `f_prefix` (kernel,
+    optional bias) -> `t_prefix` and any aliases of it."""
+    keys = (t_prefix, *aliases)
+    return {f"{f_prefix}/kernel": ([f"{k}.weight" for k in keys], _hwio),
+            f"{f_prefix}/bias": ([f"{k}.bias" for k in keys], _ident)}
+
+
+def lightnet_from_flax(params: dict) -> dict:
+    """flax LightNetModule tree -> reference-keyed state_dict of float32
+    tensors (the inverse of `convert_lightnet`)."""
+    seq = {"head0": "head_conv.0", "head1": "head_conv.1",
+           "head2": "head_conv.2", "belly0/conv1": "belly_conv.0.conv1",
+           "belly0/conv2": "belly_conv.0.conv2",
+           "belly1/conv1": "belly_conv.1.conv1",
+           "belly1/conv2": "belly_conv.1.conv2", "tail0": "tail_conv.0",
+           "tail1": "tail_conv.1", "tail2": "tail_conv.2"}
+    branch = {"pw1": "point_wise_1", "dw1": "depth_wise_1",
+              "pw2": "point_wise_2", "dw2": "depth_wise_2"}
+    table = {}
+    for f_span, t_span in seq.items():
+        for f_leaf, t_leaf in branch.items():
+            table.update(_conv_rows(f"{t_span}.{t_leaf}",
+                                    f"{f_span}/{f_leaf}"))
+    return _tensors(_from_table(params, table, "lightnet"))
+
+
+def mdcun_from_flax(params: dict, seed: int = 0) -> dict:
+    """flax PanUnfolding tree -> reference-keyed state_dict of float32
+    tensors (the inverse of `convert_mdcun`).
+
+    Fills the reference keys that have no flax leaf: each ResnetBlock's
+    aliases (`layers.0`/`layers.2` = conv1/conv2, `layers.1`/`layers.3`
+    = act) get the same arrays, and a 4-band model's `conv1x1`, which
+    the reference creates but never runs, gets values drawn from
+    `seed` (torch-default bounds); `convert_mdcun` drops them again."""
+    stages = sum(1 for k in params if k.startswith("u_"))
+    ms_chans = np.asarray(params["nl"]["t"]).shape[-1]
+    table = {}
+    for t_leaf, f_leaf in (("conv_up.body.0", "conv_up/body"),
+                           ("conv_up.tail.1", "conv_up/tail0"),
+                           ("conv_up.tail.2", "conv_up/tail1"),
+                           ("conv_down.body.0", "conv_down/body"),
+                           ("conv_down.tail.1", "conv_down/tail0"),
+                           ("conv_down.tail.2", "conv_down/tail1"),
+                           ("hf_pan", "hf_pan"), ("conv1x1", "conv1x1")):
+        table.update(_conv_rows(t_leaf, f"{f_leaf}/Conv_0"))
+    for i in range(stages):
+        for j in range(2):
+            table.update(_conv_rows(f"conv_u.{i}.{j}",
+                                    f"conv_u_{i}_{j}/Conv_0"))
+        for nm in ("u", "eta", "gama", "delta"):
+            table[f"{nm}_{i}"] = ([f"{nm}.{i}"], _one)
+    table.update(_conv_rows("rm1.block.0.conv", "rm1/head/Conv_0"))
+    table["rm1/head_act/alpha"] = (["rm1.block.0.act.weight"], _one)
+    for i in range(3):
+        t_res, f_res = f"rm1.block.{i + 1}", f"rm1/res_{i}"
+        table.update(_conv_rows(f"{t_res}.conv1", f"{f_res}/conv1/Conv_0",
+                                f"{t_res}.layers.0"))
+        table.update(_conv_rows(f"{t_res}.conv2", f"{f_res}/conv2/Conv_0",
+                                f"{t_res}.layers.2"))
+        table[f"{f_res}/act/alpha"] = ([f"{t_res}.act.weight",
+                                        f"{t_res}.layers.1.weight",
+                                        f"{t_res}.layers.3.weight"], _one)
+    table.update(_conv_rows("rm1.spatial.conv", "rm1/spatial/Conv_0"))
+    table["rm1/spatial_act/alpha"] = (["rm1.spatial.act.weight"], _one)
+    for nm in ("t", "p", "g", "w"):
+        table[f"nl/{nm}"] = ([f"NLBlock.{nm}.weight"], _hwio)
+    out = _from_table(params, table, "MDCUN")
+    if "conv1x1" not in params:
+        rng = np.random.default_rng(seed)
+        out["conv1x1.weight"] = rng.uniform(-0.5, 0.5, (ms_chans, 4, 1, 1))
+        out["conv1x1.bias"] = rng.uniform(-0.5, 0.5, (ms_chans,))
+    return _tensors(out)

@@ -3,9 +3,11 @@ ported method into `lgteun_tpu_torch.registry.MODELS`."""
 
 from lgteun_tpu_torch.models.base import TorchMethod
 from lgteun_tpu_torch.models.lgteun import LGTEUN
+from lgteun_tpu_torch.models.lightnet import LightNetModule
+from lgteun_tpu_torch.models.mdcun import PanUnfolding
 from lgteun_tpu_torch.registry import MODELS
 
-__all__ = ["UnlgFormer", "TorchMethod"]
+__all__ = ["UnlgFormer", "lightnet", "MDCUN", "TorchMethod"]
 
 
 @MODELS.register()
@@ -18,3 +20,25 @@ class UnlgFormer(TorchMethod):
         g_cfg = dict(self.cfg.model_cfg.get("core_module", {}))
         return LGTEUN(ms_chans=self.cfg.ms_chans,
                       stage=g_cfg.get("stage", 5))
+
+
+@MODELS.register()
+class lightnet(TorchMethod):  # noqa: N801  (the reference's name)
+    """LightNet (reference models/lightnet.py:138-139), eval path: the
+    SpanConv stack runs as `lightnet_stack`."""
+
+    def make_module(self):
+        return LightNetModule(ms_chans=self.cfg.ms_chans)
+
+
+@MODELS.register()
+class MDCUN(TorchMethod):
+    """MDCUN (reference models/MDCUN.py:422-464), eval path:
+    `model_cfg["core_module"]` may set `mid_channels` (default 64) and
+    `T` stages (default 4)."""
+
+    def make_module(self):
+        g_cfg = dict(self.cfg.model_cfg.get("core_module", {}))
+        return PanUnfolding(ms_chans=self.cfg.ms_chans,
+                            mid_channels=g_cfg.get("mid_channels", 64),
+                            stages=g_cfg.get("T", 4))

@@ -26,16 +26,17 @@ class Conv(nn.Conv2d):
     torch-default init."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1,
-                 groups: int = 1):
+                 groups: int = 1, bias: bool = True):
         super().__init__(in_ch, out_ch, kernel_size,
-                         padding=kernel_size // 2, groups=groups)
+                         padding=kernel_size // 2, groups=groups, bias=bias)
 
     @torch.no_grad()
     def reset_from(self, generator: torch.Generator) -> None:
         fan_in = self.weight.shape[1] * self.weight.shape[2] * self.weight.shape[3]
         bound = 1.0 / math.sqrt(fan_in)
         self.weight.uniform_(-bound, bound, generator=generator)
-        self.bias.uniform_(-bound, bound, generator=generator)
+        if self.bias is not None:
+            self.bias.uniform_(-bound, bound, generator=generator)
 
 
 class PointConv(Conv):

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (`lgteun_tpu_torch/csrc/*.cu`).
 
-At first use, `nvcc` compiles every `csrc/*.cu` into one shared library
-for sm_90a with a plain C interface (no PyTorch headers: seconds, not
-minutes). The library is keyed by a hash of the sources and flags and
+At first use, `nvcc` compiles every `csrc/*.cu` for sm_90a with a plain
+C interface (no PyTorch headers: seconds, not minutes), one process per
+source, all started together, and links the objects into one shared
+library. The library is keyed by a hash of the sources and flags and
 lives in `build/lgteun_tpu_torch/` at the repository root. It is loaded
 with ctypes; every pointer and the stream pass as `c_void_p`.
 
@@ -23,12 +24,12 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "kernels", "launch",
-           "check_cuda_f32"]
+           "check_cuda_f32", "weight_layout"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lgteun_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes; each returns cudaGetLastError() after its launches
@@ -40,6 +41,10 @@ SIGNATURES = {
     # x, x1, x2, wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T, b3,
     # out, B, C, C4, H, W, eps, stream
     "lgteun_block_tail": [_P] * 16 + [_I] * 5 + [_F, _P],
+    # in, in_c, lms, wts, out, table (host), n, B, H, W, stream
+    "lgteun_lightnet_group": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
+    # x, wt, wp, wg, ww, out, B, C, H, W, fs, stream
+    "lgteun_neighborhood_attention": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 
@@ -70,12 +75,31 @@ def build_library(build_dir: Path = BUILD_DIR) -> Path:
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    try:
+        errors = []
+        for cmd, proc in zip(compiles, procs):
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed (exit {proc.returncode}): "
+                              f"{' '.join(cmd)}\n{log}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}): "
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -106,6 +130,29 @@ def check_cuda_f32(name: str, device: torch.device, **tensors) -> None:
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(f"{name}: {key} requires grad, but the "
                                "kernel has no backward")
+
+
+# Weights in a kernel's own layout, made once per weight version. Key:
+# (tag, the sources' data pointers, shapes, strides and devices); value:
+# (sources, versions, result). The entry holds its sources, so no other
+# tensor can take those addresses while it lives; a changed `_version`
+# (load_state_dict, an optimizer step) remakes the result.
+_LAYOUTS: dict = {}
+_LAYOUTS_MAX = 64
+
+
+def weight_layout(tag: str, sources, make):
+    """`make()`, cached for `tag` and the current versions of the tensors
+    `sources` it is made from."""
+    key = (tag, tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.device)
+                      for t in sources))
+    versions = tuple(t._version for t in sources)
+    hit = _LAYOUTS.get(key)
+    if hit is None or hit[1] != versions:
+        if hit is None and len(_LAYOUTS) >= _LAYOUTS_MAX:
+            _LAYOUTS.clear()
+        hit = _LAYOUTS[key] = (tuple(sources), versions, make())
+    return hit[2]
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -39,25 +39,11 @@ def block_tail_ref(x, x1, x2, proj_w, proj_b, ffn: dict,
     return xm + pw(h, ffn["w3"], ffn["b3"])
 
 
-# [in, out] copies of the 1x1 weights, made once per weight version.
-# Key: (data_ptr, shape, stride, device); value: (source, version, copy).
-# The entry holds its source, so no other tensor can take that address
-# while the entry lives; a changed `_version` (load_state_dict, an
-# optimizer step) remakes the copy.
-_IN_OUT: dict = {}
-_IN_OUT_MAX = 64
-
-
 def _in_out(wt: torch.Tensor) -> torch.Tensor:
-    """`wt.t().contiguous()`, cached. The kernel reads weights as
-    [in, out] so that a warp's output channels are one coalesced row."""
-    key = (wt.data_ptr(), tuple(wt.shape), wt.stride(), wt.device)
-    hit = _IN_OUT.get(key)
-    if hit is None or hit[1] != wt._version:
-        if hit is None and len(_IN_OUT) >= _IN_OUT_MAX:
-            _IN_OUT.clear()
-        hit = _IN_OUT[key] = (wt, wt._version, wt.t().contiguous())
-    return hit[2]
+    """`wt.t().contiguous()`, made once per weight version. The kernel
+    reads weights as [in, out] so that a warp's output channels are one
+    coalesced row."""
+    return _cuda.weight_layout("in_out", (wt,), lambda: wt.t().contiguous())
 
 
 def block_tail(x, x1, x2, proj_w, proj_b, ffn: dict, eps: float = 1e-5):

@@ -1,0 +1,77 @@
+"""MDCUN's 15x15 neighbourhood non-local attention (blockNL) on
+[B, C, H, W].
+
+Counterpart of `lgteun_tpu/ops/nonlocal_kernel.py::
+fused_neighborhood_attention` (Pallas) and `neighborhood_attention_xla`
+(its plain version). Per pixel p and offset f of the fs x fs
+neighbourhood:
+
+    att(p, f) = softmax_f( theta(x)[p] . phi(x)[p + f] )
+    out[p]    = W_w ( sum_f att(p, f) g(x)[p + f] ) + x[p]
+
+theta/phi/g/w are bias-free 1x1 convs, given here as [C_out, C_in]
+matrices (torch's conv weight [:, :, 0, 0]; the JAX package holds their
+transposes). phi and g are zero outside the image, as `F.unfold` pads
+them: such a neighbour enters the softmax with logit 0 and adds
+nothing to the sum, so it dilutes the attention at the borders.
+
+`neighborhood_attention` launches `csrc/neighborhood_attention.cu` for a
+CUDA tensor and runs `neighborhood_attention_ref` for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from lgteun_tpu_torch.ops import _cuda
+
+__all__ = ["neighborhood_attention", "neighborhood_attention_ref"]
+
+_TILE = 16                  # csrc/neighborhood_attention.cu kT
+_MAX_C = 32                 # largest channel count the kernel is built for
+_SMEM_MAX = 232448          # bytes of shared memory a block may use
+
+
+def neighborhood_attention_ref(x, wt, wp, wg, ww, fs: int = 15):
+    """Plain version with F.unfold (mirrors the reference's blockNL)."""
+    b, c, h, w = x.shape
+    pw = lambda t, m: F.conv2d(t, m[:, :, None, None])
+    theta, phi, g = pw(x, wt), pw(x, wp), pw(x, wg)
+    unfold = lambda t: F.unfold(t, fs, padding=fs // 2).view(
+        b, c, fs * fs, h, w)
+    att = torch.einsum("bchw,bcfhw->bfhw", theta, unfold(phi)).softmax(dim=1)
+    out = torch.einsum("bfhw,bcfhw->bchw", att, unfold(g))
+    return pw(out, ww) + x
+
+
+def _smem_bytes(c: int, fs: int) -> int:
+    """Shared memory of one block (csrc/neighborhood_attention.cu)."""
+    e = _TILE + 2 * (fs // 2)
+    return 4 * (2 * c * e * e + 4 * c * c)
+
+
+def neighborhood_attention(x, wt, wp, wg, ww, fs: int = 15):
+    """x [B, C, H, W], weights [C, C] (out, in), odd fs."""
+    if x.device.type == "cpu":
+        return neighborhood_attention_ref(x, wt, wp, wg, ww, fs)
+    if x.device.type != "cuda":
+        raise ValueError(f"neighborhood_attention: unsupported device "
+                         f"{x.device}")
+    b, c, h, w = x.shape
+    mats = {"wt": wt, "wp": wp, "wg": wg, "ww": ww}
+    bad = [k for k, m in mats.items() if tuple(m.shape) != (c, c)]
+    if bad or fs % 2 == 0 or c > _MAX_C or _smem_bytes(c, fs) > _SMEM_MAX:
+        raise ValueError(f"neighborhood_attention: need [C, C] weights, odd "
+                         f"fs, C <= {_MAX_C} and at most {_SMEM_MAX} B of "
+                         f"shared memory (x {tuple(x.shape)}, fs {fs}, "
+                         f"{_smem_bytes(c, fs)} B); bad: {bad}")
+    _cuda.check_cuda_f32("neighborhood_attention", x.device, x=x, **mats)
+    out = torch.empty_like(x)
+    _cuda.launch("lgteun_neighborhood_attention", x.device, x, wt, wp, wg,
+                 ww, out, b, c, h, w, fs)
+    neighborhood_attention.launches += 1
+    return out
+
+
+neighborhood_attention.launches = 0

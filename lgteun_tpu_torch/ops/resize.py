@@ -1,5 +1,6 @@
-"""Scale-factor bicubic resize on [B, C, H, W] (counterpart of
-`lgteun_tpu/ops/resize.py::sample_scale_cm`).
+"""Bicubic and bilinear resizes on [B, C, H, W] (counterparts of
+`lgteun_tpu/ops/resize.py::sample_scale_cm`, `resize_bicubic` and
+`resize_bilinear`).
 
 The JAX package builds torch-equivalent resize matrices because the TPU
 has no bicubic op; here `F.interpolate` is the reference's own op."""
@@ -9,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["sample_scale"]
+__all__ = ["sample_scale", "resize_bicubic", "resize_bilinear"]
 
 
 def sample_scale(x: torch.Tensor, s_factor: float,
@@ -20,3 +21,17 @@ def sample_scale(x: torch.Tensor, s_factor: float,
         return x
     return F.interpolate(x, scale_factor=s_factor, mode=mode,
                          align_corners=False)
+
+
+def resize_bicubic(x: torch.Tensor, out_hw: tuple[int, int],
+                   align_corners: bool = False) -> torch.Tensor:
+    """Bicubic resize to `out_hw` (a = -0.75, clamped border taps)."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bicubic",
+                         align_corners=align_corners)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize to `out_hw` (no antialiasing)."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                         align_corners=align_corners)

@@ -21,6 +21,11 @@ from lgteun_tpu.ops.window_attention import (
     fused_window_attention_v3_packed, window_attention_xla)
 from lgteun_tpu_torch.ops.ffn_kernel import (_in_out, block_tail,
                                              block_tail_ref)
+from lgteun_tpu_torch.ops.lightnet_kernel import (lightnet_layers,
+                                                  lightnet_stack,
+                                                  lightnet_stack_ref)
+from lgteun_tpu_torch.ops.nonlocal_kernel import (neighborhood_attention,
+                                                  neighborhood_attention_ref)
 from lgteun_tpu_torch.ops.resize import sample_scale
 from lgteun_tpu_torch.ops.spectral_kernel import (ln_mixer_head,
                                                   ln_mixer_head_ref)
@@ -168,8 +173,9 @@ def test_wrappers_run_plain_version_on_cpu():
     values) and counts no launch; a tensor that is neither on the CPU
     nor on a CUDA device is refused."""
     rng = np.random.default_rng(5)
-    before = (ln_mixer_head.launches, window_attention.launches,
-              block_tail.launches)
+    wrappers = (ln_mixer_head, window_attention, block_tail, lightnet_stack,
+                neighborhood_attention)
+    before = [fn.launches for fn in wrappers]
     x, params = _head_inputs(rng, (1, 8, 8, 16))
     tp = [torch.from_numpy(p) for p in params]
     y1, x2 = ln_mixer_head(torch.from_numpy(x), *tp)
@@ -184,10 +190,25 @@ def test_wrappers_run_plain_version_on_cpu():
         torch.from_numpy(np.ascontiguousarray(proj.T)), torch.from_numpy(pb),
         _port_ffn(ffn)]
     assert torch.equal(block_tail(*targs), block_tail_ref(*targs))
-    assert (ln_mixer_head.launches, window_attention.launches,
-            block_tail.launches) == before
+    c = 4
+    lms = torch.from_numpy(f32(rng, 1, c, 8, 8))
+    x = torch.cat([torch.from_numpy(f32(rng, 1, 1, 8, 8)), lms], dim=1)
+    layers = [tuple(torch.from_numpy(f32(rng, *shp, scale=0.3)) for shp in
+                    ((co, ci, 1, 1), (co,), (co, 1, 3, 3), (co,)) * 2)
+              for _n, ci, co, _r in lightnet_layers(c)]
+    assert torch.equal(lightnet_stack(x, lms, layers),
+                       lightnet_stack_ref(x, lms, layers))
+    na = [torch.from_numpy(f32(rng, 1, c, 8, 12))] + [
+        torch.from_numpy(f32(rng, c, c, scale=0.3)) for _ in range(4)]
+    assert torch.equal(neighborhood_attention(*na, 5),
+                       neighborhood_attention_ref(*na, 5))
+    assert [fn.launches for fn in wrappers] == before
     with pytest.raises(ValueError, match="unsupported device"):
         window_attention(a[0].to("meta"), *a[1:], 2, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lightnet_stack(x.to("meta"), lms, layers)
+    with pytest.raises(ValueError, match="unsupported device"):
+        neighborhood_attention(na[0].to("meta"), *na[1:], 5)
 
 
 def test_block_tail_weight_copy_follows_version():

@@ -112,19 +112,23 @@ def test_runner_psnr_matches_jax_metric():
 
 
 def test_port_imports_no_jax():
-    """The port runs a forward in a fresh process without jax, flax or
-    the JAX package."""
+    """The port runs a forward of every registered method in a fresh
+    process without jax, flax or the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np, torch
         from lgteun_tpu_torch.config import Config
-        from lgteun_tpu_torch.registry import build_model
-        cfg = Config(ms_chans=4, model_cfg={"core_module": {"stage": 2}})
-        m = build_model("UnlgFormer", cfg, device="cpu")
-        m.init_params(torch.Generator().manual_seed(0))
-        out = m.apply({"input_lr": np.zeros((1, 8, 8, 4), np.float32),
-                       "input_pan": np.zeros((1, 32, 32, 1), np.float32)})
-        assert out.shape == (1, 32, 32, 4) and torch.isfinite(out).all()
+        from lgteun_tpu_torch.registry import MODELS, build_model
+        batch = {"input_lr": np.zeros((1, 8, 8, 4), np.float32),
+                 "input_pan": np.zeros((1, 32, 32, 1), np.float32)}
+        for name in ("UnlgFormer", "lightnet", "MDCUN"):
+            cfg = Config(model_type=name, ms_chans=4,
+                         model_cfg={"core_module": {"stage": 2}})
+            m = build_model(name, cfg, device="cpu")
+            m.init_params(torch.Generator().manual_seed(0))
+            out = m.apply(batch)
+            assert out.shape == (1, 32, 32, 4) and torch.isfinite(out).all()
+        assert sorted(MODELS._entries) == ["MDCUN", "UnlgFormer", "lightnet"]
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "lgteun_tpu"))
@@ -159,3 +163,48 @@ def test_kernel_loader_raises_without_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda.build_library(tmp_path / "build")
     assert not (tmp_path / "build").exists()
+
+
+def test_kernel_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """One nvcc per csrc/*.cu (all started before any is waited for),
+    then one link into the hash-keyed library; no object is left
+    behind, and a failing compile raises with its log. A stand-in nvcc
+    records its arguments and writes its -o file."""
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text(textwrap.dedent(f"""\
+        #!{sys.executable}
+        import sys
+        args = sys.argv[1:]
+        with open({str(tmp_path / "calls.txt")!r}, "a") as f:
+            f.write(" ".join(args) + "\\n")
+        if any(a.endswith("broken.cu") for a in args):
+            print("error: bad source")
+            sys.exit(2)
+        open(args[args.index("-o") + 1], "w").close()
+        """))
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", str(fake.parent))
+    lib = _cuda.build_library(tmp_path / "build")
+    calls = (tmp_path / "calls.txt").read_text().splitlines()
+    sources = sorted(p.name for p in _cuda.CSRC.glob("*.cu"))
+    assert "lightnet.cu" in sources and "neighborhood_attention.cu" in sources
+    compiles = [c for c in calls if " -c " in c]
+    assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in compiles) == \
+        sources
+    assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
+    assert calls[-1].startswith("-shared -o ") and len(calls) == \
+        len(sources) + 1
+    assert lib.is_file() and sorted(p.name for p in lib.parent.iterdir()) \
+        == [lib.name]
+    assert _cuda.build_library(tmp_path / "build") == lib
+    assert len((tmp_path / "calls.txt").read_text().splitlines()) == \
+        len(calls)
+    bad = tmp_path / "csrc"
+    bad.mkdir()
+    (bad / "fine.cu").write_text("")
+    (bad / "broken.cu").write_text("")
+    monkeypatch.setattr(_cuda, "CSRC", bad)
+    with pytest.raises(RuntimeError, match="bad source"):
+        _cuda.build_library(tmp_path / "build2")
+    assert not any((tmp_path / "build2").iterdir())

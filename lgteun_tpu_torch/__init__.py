@@ -1,16 +1,17 @@
 """lgteun_tpu_torch — the PyTorch/CUDA port of lgteun_tpu for one NVIDIA H100.
 
 The JAX package `lgteun_tpu` stays the reference; this package holds the
-port, slice by slice. It runs three eval paths: UnlgFormer (LGTEUN, K=2),
-lightnet and MDCUN, with
+port, slice by slice. It runs four eval paths: UnlgFormer (LGTEUN, K=2),
+lightnet, MDCUN and INNT, with
 
 - plain PyTorch for what the JAX package left to XLA: the unfolding
   steps, resamples and the convs outside the kernels;
 - hand-written Hopper kernels (`csrc/*.cu`, built with nvcc for sm_90a
   and bound with ctypes) for the Pallas kernels on those paths (`ops/`):
   the three of every LGB block (the LN + FFT mixer head, 8x8-window
-  attention, the proj + LN + FFN block tail), LightNet's SpanConv stack
-  and MDCUN's neighbourhood attention.
+  attention, the proj + LN + FFN block tail), LightNet's SpanConv stack,
+  MDCUN's neighbourhood attention and INNT's texture-match and
+  patch-match searches.
 
 Every kernel wrapper runs its plain PyTorch version for a CPU tensor and
 launches its kernel (or raises) for a CUDA tensor. The package never

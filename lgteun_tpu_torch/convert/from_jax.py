@@ -3,8 +3,8 @@
 Each converter is the exact inverse of its counterpart in
 `lgteun_tpu/convert/torch_import.py` (which maps reference torch keys
 onto the flax tree): `lgteun_from_flax` of `convert_lgteun`,
-`lightnet_from_flax` of `convert_lightnet` and `mdcun_from_flax` of
-`convert_mdcun`, so e.g. `convert_state_dict("UnlgFormer",
+`lightnet_from_flax` of `convert_lightnet`, `mdcun_from_flax` of
+`convert_mdcun` and `innt_from_flax` of `convert_innt`, so e.g. `convert_state_dict("UnlgFormer",
 lgteun_from_flax(tree))` gives `tree` back bit for bit. Layouts:
 
 - conv kernels: flax HWIO [kh, kw, in/g, out] -> torch OIHW
@@ -14,6 +14,8 @@ lgteun_from_flax(tree))` gives `tree` back bit for bit. Layouts:
 - the fused-FFN raw params (w1 [C, 4C], dw [3, 3, 1, 4C], ...) and
   MDCUN's non-local projections ([1, 1, C, C]) are HWIO kernels too
 - MDCUN's scalars and PReLU slopes: flax [] -> torch [1]
+- INNT's invertible 1x1 convs: the flax `lu` leaves, with the buffers
+  under `frozen_*`, -> `invconv.{p, sign_s, l, log_s, u}` as they are
 
 Takes the flax `core_module` tree as nested dicts of numpy arrays (no jax
 import); returns {key: float32 torch.Tensor}.
@@ -24,7 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["lgteun_from_flax", "lightnet_from_flax", "mdcun_from_flax"]
+__all__ = ["lgteun_from_flax", "lightnet_from_flax", "mdcun_from_flax",
+           "innt_from_flax"]
 
 
 def _hwio(k) -> np.ndarray:
@@ -237,3 +240,42 @@ def mdcun_from_flax(params: dict, seed: int = 0) -> dict:
         out["conv1x1.weight"] = rng.uniform(-0.5, 0.5, (ms_chans, 4, 1, 1))
         out["conv1x1.bias"] = rng.uniform(-0.5, 0.5, (ms_chans,))
     return _tensors(out)
+
+
+def innt_from_flax(params: dict) -> dict:
+    """flax GPPNNINNT tree -> reference-keyed state_dict of float32
+    tensors (the inverse of `convert_innt`)."""
+    table = {}
+    for t_leaf, f_leaf in (("conv_process.convms", "convms"),
+                           ("conv_process.convpan", "convpan"),
+                           ("conv_fusion.conv", "conv_fusion"),
+                           ("transform_fusion.fuse.conv_trans.0",
+                            "transform_fusion/fuse/trans0"),
+                           ("transform_fusion.fuse.conv_trans.2",
+                            "transform_fusion/fuse/trans1"),
+                           ("extract.fuse", "extract_fuse"),
+                           ("refine.conv_in", "refine/conv_in"),
+                           ("refine.conv_last", "refine/conv_last"),
+                           ("refine.process.0.process.0",
+                            "refine/ca_0/process0"),
+                           ("refine.process.0.process.2",
+                            "refine/ca_0/process1"),
+                           ("refine.process.0.conv_du.0", "refine/ca_0/du0"),
+                           ("refine.process.0.conv_du.2", "refine/ca_0/du1")):
+        table.update(_conv_rows(t_leaf, f"{f_leaf}/Conv_0"))
+    blocks = sum(1 for k in params if k.startswith("inv_"))
+    for i in range(blocks):
+        t_op, f_op = f"extract.operations.{i}", f"inv_{i}"
+        for f_leaf, t_leaf in (("frozen_p", "p"), ("frozen_sign_s", "sign_s"),
+                               ("l", "l"), ("log_s", "log_s"), ("u", "u")):
+            table[f"{f_op}/invconv/lu/{f_leaf}"] = (
+                [f"{t_op}.invconv.{t_leaf}"], _ident)
+        for sub in ("F", "G", "H"):
+            for blk in ("conv1", "conv2"):
+                t_hin, f_hin = f"{t_op}.{sub}.{blk}", f"{f_op}/{sub}/{blk}"
+                for leaf in ("identity", "conv_1", "conv_2"):
+                    table.update(_conv_rows(f"{t_hin}.{leaf}",
+                                            f"{f_hin}/{leaf}/Conv_0"))
+                table[f"{f_hin}/in_gamma"] = ([f"{t_hin}.norm.weight"], _ident)
+                table[f"{f_hin}/in_beta"] = ([f"{t_hin}.norm.bias"], _ident)
+    return _tensors(_from_table(params, table, "INNT"))

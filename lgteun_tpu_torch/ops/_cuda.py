@@ -45,6 +45,10 @@ SIGNATURES = {
     "lgteun_lightnet_group": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     # x, wt, wp, wg, ww, out, B, C, H, W, fs, stream
     "lgteun_neighborhood_attention": [_P] * 6 + [_I] * 5 + [_P],
+    # lr, ref, t, s, N, C, side, stream
+    "lgteun_texture_match": [_P] * 4 + [_I] * 3 + [_P],
+    # lr_n, ref_n, ref_u, t, s, N, L, K, stream
+    "lgteun_patch_match": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 

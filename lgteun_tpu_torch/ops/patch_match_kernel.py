@@ -1,0 +1,66 @@
+"""INNT's patch search and transfer on pre-normalised unfolds.
+
+Counterpart of `lgteun_tpu/ops/patch_match_kernel.py::fused_patch_match`
+(Pallas) and `patch_match_xla` (its plain version); reference
+INNT.py:100-143 without the unfold, norm and fold around it:
+
+    R[n, i, j] = ref_n[n, i] . lr_n[n, j]
+    S[n, j]    = max_i R[n, i, j];  idx = the first i reaching it
+    T[n, :, j] = ref_u[n, :, idx]
+
+`patch_match` launches `csrc/texture_match.cu` (the same search routine
+as `texture_match`) for a CUDA tensor and runs `patch_match_ref` for a
+CPU tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lgteun_tpu_torch.ops import _cuda
+
+__all__ = ["patch_match", "patch_match_ref"]
+
+_MAX_K = 72                 # longest sub-patch vector the kernel is built for
+_SMEM_MAX = 232448          # bytes of shared memory a block may use
+
+
+def patch_match_ref(lr_n, ref_n, ref_u):
+    """Plain version with bmm / max / gather."""
+    r = torch.bmm(ref_n, lr_n.transpose(1, 2))    # [N, L(ref), L(query)]
+    s, idx = r.max(dim=1)
+    t = torch.gather(ref_u, 2, idx[:, None, :].expand(-1, ref_u.shape[1], -1))
+    return t, s
+
+
+def _smem_bytes(k: int, ll: int) -> int:
+    """Shared memory of one block: the ref vectors padded to 36 or 72."""
+    return 4 * ll * (36 if k <= 36 else 72)
+
+
+def patch_match(lr_n, ref_n, ref_u):
+    """lr_n, ref_n [N, L, K], ref_u [N, K, L] f32 -> (T [N, K, L],
+    S [N, L])."""
+    if lr_n.device.type == "cpu":
+        return patch_match_ref(lr_n, ref_n, ref_u)
+    if lr_n.device.type != "cuda":
+        raise ValueError(f"patch_match: unsupported device {lr_n.device}")
+    n, ll, k = lr_n.shape
+    if tuple(ref_n.shape) != (n, ll, k) or tuple(ref_u.shape) != (n, k, ll) \
+            or k > _MAX_K or _smem_bytes(k, ll) > _SMEM_MAX:
+        raise ValueError(f"patch_match: need lr_n, ref_n [N, L, K] and "
+                         f"ref_u [N, K, L] with K <= {_MAX_K} and at most "
+                         f"{_SMEM_MAX} B of shared memory (lr_n "
+                         f"{tuple(lr_n.shape)}, ref_n {tuple(ref_n.shape)}, "
+                         f"ref_u {tuple(ref_u.shape)})")
+    _cuda.check_cuda_f32("patch_match", lr_n.device, lr_n=lr_n, ref_n=ref_n,
+                         ref_u=ref_u)
+    t = torch.empty_like(ref_u)
+    s = lr_n.new_empty(n, ll)
+    _cuda.launch("lgteun_patch_match", lr_n.device, lr_n, ref_n, ref_u, t, s,
+                 n, ll, k)
+    patch_match.launches += 1
+    return t, s
+
+
+patch_match.launches = 0

@@ -1,0 +1,92 @@
+"""INNT's whole-chain texture match on channel-major patch images
+[N, C, side*side].
+
+Counterpart of `lgteun_tpu/ops/texture_match_kernel.py::
+fused_texture_match` (Pallas) and `texture_match_xla` (its plain
+version); reference INNT.py:100-143. Per patch-image:
+
+    lr_u, ref_u = unfold3x3(lr), unfold3x3(ref)      (zero padding 1)
+    lr_n, ref_n = u / (||u||_2 + 1e-12)              (per sub-patch)
+    R[i, j]     = ref_n[i] . lr_n[j]                 ([side², side²])
+    s[j]        = max_i R[i, j];  idx[j] = first i reaching it
+    t           = fold3x3(ref_u[:, idx]) / 9         (raw ref sub-patches)
+
+`texture_match` launches `csrc/texture_match.cu` for a CUDA tensor and
+runs `texture_match_ref` for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from lgteun_tpu_torch.ops import _cuda
+
+__all__ = ["texture_match", "texture_match_ref", "row_normalize"]
+
+_MAX_C = 8                  # largest channel count the kernel is built for
+_SMEM_MAX = 232448          # bytes of shared memory a block may use
+
+
+def row_normalize(u: torch.Tensor, dim: int) -> torch.Tensor:
+    """u / (||u||_2 + 1e-12) along `dim` (the reference's divide; an
+    all-zero sub-patch stays exactly 0)."""
+    return u / (torch.linalg.vector_norm(u, dim=dim, keepdim=True) + 1e-12)
+
+
+def _side(q: int) -> int:
+    side = math.isqrt(q)
+    if side * side != q:
+        raise ValueError(f"texture_match: {q} pixels is not a square image")
+    return side
+
+
+def texture_match_ref(lr, ref):
+    """Plain version with F.unfold / bmm / max / gather / F.fold."""
+    n, c, q = lr.shape
+    side = _side(q)
+    unfold = lambda v: F.unfold(v.reshape(n, c, side, side), 3, padding=1)
+    lr_u, ref_u = unfold(lr), unfold(ref)                   # [N, 9C, Q]
+    r = torch.bmm(row_normalize(ref_u, 1).transpose(1, 2),
+                  row_normalize(lr_u, 1))                   # [N, ref, query]
+    s, idx = r.max(dim=1)
+    t_u = torch.gather(ref_u, 2, idx[:, None, :].expand(-1, 9 * c, -1))
+    t = F.fold(t_u, (side, side), 3, padding=1) / 9.0
+    return t.reshape(n, c, q), s
+
+
+def _smem_bytes(c: int, q: int) -> int:
+    """Shared memory of one block (csrc/texture_match.cu): the raw lr
+    and ref planes, the normalised ref unfold padded to 36 or 72 values
+    a row, and the chosen index per query."""
+    kp = 36 if 9 * c <= 36 else 72
+    return 4 * (2 * c * q + q * kp + q)
+
+
+def texture_match(lr, ref):
+    """lr, ref [N, C, side*side] f32 -> (t [N, C, side*side],
+    s [N, side*side])."""
+    if lr.device.type == "cpu":
+        return texture_match_ref(lr, ref)
+    if lr.device.type != "cuda":
+        raise ValueError(f"texture_match: unsupported device {lr.device}")
+    n, c, q = lr.shape
+    side = _side(q)
+    if tuple(ref.shape) != (n, c, q) or c > _MAX_C \
+            or _smem_bytes(c, q) > _SMEM_MAX:
+        raise ValueError(f"texture_match: need lr and ref of one shape, "
+                         f"C <= {_MAX_C} and at most {_SMEM_MAX} B of shared "
+                         f"memory (lr {tuple(lr.shape)}, ref "
+                         f"{tuple(ref.shape)}, {_smem_bytes(c, q)} B)")
+    _cuda.check_cuda_f32("texture_match", lr.device, lr=lr, ref=ref)
+    t = torch.empty_like(lr)
+    s = lr.new_empty(n, q)
+    _cuda.launch("lgteun_texture_match", lr.device, lr, ref, t, s, n, c,
+                 side)
+    texture_match.launches += 1
+    return t, s
+
+
+texture_match.launches = 0

@@ -26,9 +26,13 @@ from lgteun_tpu_torch.ops.lightnet_kernel import (lightnet_layers,
                                                   lightnet_stack_ref)
 from lgteun_tpu_torch.ops.nonlocal_kernel import (neighborhood_attention,
                                                   neighborhood_attention_ref)
+from lgteun_tpu_torch.ops.patch_match_kernel import (patch_match,
+                                                     patch_match_ref)
 from lgteun_tpu_torch.ops.resize import sample_scale
 from lgteun_tpu_torch.ops.spectral_kernel import (ln_mixer_head,
                                                   ln_mixer_head_ref)
+from lgteun_tpu_torch.ops.texture_match_kernel import (texture_match,
+                                                       texture_match_ref)
 from lgteun_tpu_torch.ops.window_attention import (window_attention,
                                                    window_attention_ref)
 
@@ -174,7 +178,7 @@ def test_wrappers_run_plain_version_on_cpu():
     nor on a CUDA device is refused."""
     rng = np.random.default_rng(5)
     wrappers = (ln_mixer_head, window_attention, block_tail, lightnet_stack,
-                neighborhood_attention)
+                neighborhood_attention, texture_match, patch_match)
     before = [fn.launches for fn in wrappers]
     x, params = _head_inputs(rng, (1, 8, 8, 16))
     tp = [torch.from_numpy(p) for p in params]
@@ -202,6 +206,13 @@ def test_wrappers_run_plain_version_on_cpu():
         torch.from_numpy(f32(rng, c, c, scale=0.3)) for _ in range(4)]
     assert torch.equal(neighborhood_attention(*na, 5),
                        neighborhood_attention_ref(*na, 5))
+    tm = [torch.from_numpy(f32(rng, 3, c, 64)) for _ in range(2)]
+    for got, want in zip(texture_match(*tm), texture_match_ref(*tm)):
+        assert torch.equal(got, want)
+    pm = [torch.from_numpy(f32(rng, *shp)) for shp in
+          ((2, 16, 36), (2, 16, 36), (2, 36, 16))]
+    for got, want in zip(patch_match(*pm), patch_match_ref(*pm)):
+        assert torch.equal(got, want)
     assert [fn.launches for fn in wrappers] == before
     with pytest.raises(ValueError, match="unsupported device"):
         window_attention(a[0].to("meta"), *a[1:], 2, 8)
@@ -209,6 +220,10 @@ def test_wrappers_run_plain_version_on_cpu():
         lightnet_stack(x.to("meta"), lms, layers)
     with pytest.raises(ValueError, match="unsupported device"):
         neighborhood_attention(na[0].to("meta"), *na[1:], 5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        texture_match(tm[0].to("meta"), tm[1].to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        patch_match(*(t.to("meta") for t in pm))
 
 
 def test_block_tail_weight_copy_follows_version():

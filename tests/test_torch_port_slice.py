@@ -121,14 +121,15 @@ def test_port_imports_no_jax():
         from lgteun_tpu_torch.registry import MODELS, build_model
         batch = {"input_lr": np.zeros((1, 8, 8, 4), np.float32),
                  "input_pan": np.zeros((1, 32, 32, 1), np.float32)}
-        for name in ("UnlgFormer", "lightnet", "MDCUN"):
+        for name in ("UnlgFormer", "lightnet", "MDCUN", "INNT"):
             cfg = Config(model_type=name, ms_chans=4,
                          model_cfg={"core_module": {"stage": 2}})
             m = build_model(name, cfg, device="cpu")
             m.init_params(torch.Generator().manual_seed(0))
             out = m.apply(batch)
             assert out.shape == (1, 32, 32, 4) and torch.isfinite(out).all()
-        assert sorted(MODELS._entries) == ["MDCUN", "UnlgFormer", "lightnet"]
+        assert sorted(MODELS._entries) == ["INNT", "MDCUN", "UnlgFormer",
+                                           "lightnet"]
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "lgteun_tpu"))
@@ -188,7 +189,8 @@ def test_kernel_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     lib = _cuda.build_library(tmp_path / "build")
     calls = (tmp_path / "calls.txt").read_text().splitlines()
     sources = sorted(p.name for p in _cuda.CSRC.glob("*.cu"))
-    assert "lightnet.cu" in sources and "neighborhood_attention.cu" in sources
+    assert {"lightnet.cu", "neighborhood_attention.cu",
+            "texture_match.cu"} <= set(sources)
     compiles = [c for c in calls if " -c " in c]
     assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in compiles) == \
         sources

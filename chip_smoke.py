@@ -4,14 +4,26 @@
 
 Builds the port's CUDA kernels from `lgteun_tpu_torch/csrc` with nvcc,
 holds each kernel against its plain PyTorch version at the main paths'
-shapes, then drives each ported eval path through `Runner.test` at its
-config's eval batch size, with random weights from a seed:
+shapes (and the scene engine's three LGB kernels at 144^2 / 72^2), then
+drives each ported eval path through `Runner.test` at its config's eval
+batch size, with random weights from a seed:
 
-- UnlgFormer (LGTEUN, WV-3, 8 bands, K=2): three kernels per LGB block;
+- UnlgFormer (LGTEUN, WV-3, 8 bands, K=2): three kernels per LGB block
+  (LGTEUN_FUSE_LEVEL 2, the default), then again at level 1 (window
+  attention, the global mixer and LN + FFN per block) and at level 3
+  (the whole block in one kernel);
 - lightnet (WV-3, 8 bands): the SpanConv stack kernel;
 - MDCUN (WV-3, 8 bands, T=4): the neighbourhood-attention kernel;
 - INNT (WV-3, 8 bands, n_feat 8): the texture-match kernel, and in a
   second pass with LGTEUN_FUSED_TM=0 the patch-match kernel.
+
+Then the whole-scene engine (`parallel.scene.fuse_scene`, UnlgFormer at
+level 2, batch 32) on a seeded synthetic WV-3 scene (PAN 1024x1024,
+LrMS 256x256x8, 11-bit DN) at tile 128 / halo 16 and tile 144 / halo 8:
+tiles, kernel launches per tile forward, MP/s, and the card against the
+CPU plain path on a 256^2 and a 272^2 crop at batch 32; and the CLI
+(`python -m lgteun_tpu_torch.fuse`) once on that scene's TIFFs, written
+under `build/`, against a direct `fuse_scene` call.
 
 For each path it checks that every forward went through its kernels
 (and launched no other), that the output agrees with a CPU run of the
@@ -74,6 +86,10 @@ NEAR_TIE = 1e-5             # float64 gap below a query's best similarity
 NEAR_TIE_MAX_SHARE = 0.01   # of the transferred values a near tie may mask
 PSNR_TOL_DB = 0.01          # INNT card vs CPU, only when a near tie flipped
 N_IMAGES = 64
+SCENE = 1024                # PAN side of the synthetic scene
+SCENE_BATCH = 32
+# (tile, halo, side of the crop compared with the CPU plain path)
+SCENE_TILINGS = ((128, 16, 256), (144, 8, 272))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published, at 700 W
 FP32_FLOPS_PER_S = 67e12    # H100 SXM FP32 outside the tensor cores
 
@@ -99,6 +115,22 @@ KERNELS = {
                    "lgteun_tpu/ops/ffn_kernel.py:458", "4x32x128x128",
                    "proj + LN + 1x1/depthwise FFN with GELU is no single "
                    "call"),
+    "global_mixer": ("spectral_kernel", "lgteun_tpu_torch.models.common.lgt",
+                     "lgteun_tpu_torch/csrc/spectral_head.cu",
+                     "lgteun_tpu/ops/spectral_kernel.py:221",
+                     "4x16x128x128",
+                     "FFT + amp/phase affine + inverse FFT is no single "
+                     "call"),
+    "ln_ffn": ("ffn_kernel", "lgteun_tpu_torch.models.common.lgt",
+               "lgteun_tpu_torch/csrc/block_tail.cu",
+               "lgteun_tpu/ops/ffn_kernel.py:617", "4x32x128x128",
+               "LN + a chain of 1x1/depthwise convs with GELU is no single "
+               "call"),
+    "lgb_block": ("lgb_block_kernel", "lgteun_tpu_torch.models.common.lgt",
+                  "lgteun_tpu_torch/csrc/lgb_block.cu",
+                  "lgteun_tpu/ops/lgb_block_kernel.py:286", "4x32x128x128",
+                  "LN + FFT mixer + window attention + proj + the FFN's "
+                  "convs is no single call"),
     "lightnet_stack": ("lightnet_kernel", "lgteun_tpu_torch.models.lightnet",
                        "lgteun_tpu_torch/csrc/lightnet.cu",
                        "lgteun_tpu/ops/lightnet_kernel.py:163", "4x9x128x128",
@@ -130,6 +162,11 @@ KERNELS = {
 SLICES = (
     ("unlg_former.py", {"ln_mixer_head": 5, "window_attention": 5,
                         "block_tail": 5}, 5e-4, 2, {}, N_IMAGES),
+    ("unlg_former.py", {"window_attention": 5, "global_mixer": 5,
+                        "ln_ffn": 5}, 5e-4, 2, {"LGTEUN_FUSE_LEVEL": "1"},
+     N_IMAGES),
+    ("unlg_former.py", {"lgb_block": 5}, 5e-4, 2,
+     {"LGTEUN_FUSE_LEVEL": "3"}, N_IMAGES),
     ("lightnet.py", {"lightnet_stack": 3}, 1e-4, 2, {}, N_IMAGES),
     ("MDCUN.py", {"neighborhood_attention": 4}, 1e-3, 1, {}, N_IMAGES),
     ("INNT.py", {"texture_match": 1}, 5e-4, 1, {}, N_IMAGES),
@@ -182,8 +219,12 @@ def rel_err(got, want) -> tuple[float, float]:
 
 def kernel_cases(gen: torch.Generator):
     """(name, wrapper, plain, args) per kernel and main-path shape."""
-    from lgteun_tpu_torch.ops.ffn_kernel import block_tail, block_tail_ref
-    from lgteun_tpu_torch.ops.spectral_kernel import (ln_mixer_head,
+    from lgteun_tpu_torch.ops.ffn_kernel import (block_tail, block_tail_ref,
+                                                 ln_ffn, ln_ffn_ref)
+    from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block, lgb_block_ref
+    from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
+                                                      global_mixer_ref,
+                                                      ln_mixer_head,
                                                       ln_mixer_head_ref)
     from lgteun_tpu_torch.ops.window_attention import (window_attention,
                                                        window_attention_ref)
@@ -192,16 +233,15 @@ def kernel_cases(gen: torch.Generator):
         return (torch.randn(*shape, generator=gen) * scale).cuda()
 
     b = KERNEL_BATCH
-    for c, hw in BLOCK_SHAPES:
+
+    def lgb_args(c, hw):
+        """The args of ln_mixer_head, window_attention, block_tail and
+        the FFN weights for an LGB block of C channels at hw^2."""
         c2, c4 = c // 2, 4 * c
-        shape = f"{b}x{c}x{hw}x{hw}"
         head = (n(b, c, hw, hw), 1 + 0.1 * n(c), 0.1 * n(c), n(c2),
                 0.1 * n(c2), n(c2), 0.1 * n(c2))
-        yield "ln_mixer_head", shape, ln_mixer_head, ln_mixer_head_ref, head
         attn = (n(b, c2, hw, hw), n(3 * c2, c2, scale=c2 ** -0.5),
                 0.1 * n(3 * c2), n(2, 64, 64), 2, 8)
-        yield ("window_attention", shape, window_attention,
-               window_attention_ref, attn)
         ffn = {"ln_w": 1 + 0.1 * n(c), "ln_b": 0.1 * n(c),
                "w1": n(c4, c, scale=c ** -0.5), "b1": 0.1 * n(c4),
                "w2": n(c4, c4, scale=c4 ** -0.5), "b2": 0.1 * n(c4),
@@ -209,7 +249,37 @@ def kernel_cases(gen: torch.Generator):
                "w3": n(c, c4, scale=c4 ** -0.5), "b3": 0.1 * n(c)}
         tail = (n(b, c, hw, hw), n(b, c2, hw, hw), n(b, c2, hw, hw),
                 n(c, c, scale=c ** -0.5), 0.1 * n(c), ffn)
+        return head, attn, ffn, tail
+
+    for c, hw in BLOCK_SHAPES:
+        shape = f"{b}x{c}x{hw}x{hw}"
+        head, attn, ffn, tail = lgb_args(c, hw)
+        yield "ln_mixer_head", shape, ln_mixer_head, ln_mixer_head_ref, head
+        yield ("window_attention", shape, window_attention,
+               window_attention_ref, attn)
         yield "block_tail", shape, block_tail, block_tail_ref, tail
+        yield "ln_ffn", shape, ln_ffn, ln_ffn_ref, (tail[0], ffn)
+        blk = dict(zip(("ln_w", "ln_b", "amp_w", "amp_b", "pha_w",
+                        "pha_b"), head[1:]), wqkv=attn[1], bqkv=attn[2],
+                   pos=attn[3], proj_w=tail[3], proj_b=tail[4], ffn=ffn)
+        yield "lgb_block", shape, lgb_block, lgb_block_ref, (head[0], blk)
+        yield ("global_mixer", f"{b}x{c // 2}x{hw}x{hw}", global_mixer,
+               global_mixer_ref, (attn[0],) + head[3:])
+    # the scene engine's LGB sizes at tile 144: 144^2 (C 32), 72^2 (C 64),
+    # each through the three kernels of its path (level 2)
+    for c, hw in ((32, 144), (64, 72)):
+        shape = f"{b}x{c}x{hw}x{hw}"
+        head, attn, _ffn, tail = lgb_args(c, hw)
+        yield "ln_mixer_head", shape, ln_mixer_head, ln_mixer_head_ref, head
+        yield ("window_attention", shape, window_attention,
+               window_attention_ref, attn)
+        yield "block_tail", shape, block_tail, block_tail_ref, tail
+    # and any even size: the shared-memory limit (168^2) and odd parts 5, 7
+    for shape in ((b, 16, 72, 72), (1, 4, 168, 168), (2, 8, 40, 56)):
+        c = shape[1]
+        yield ("global_mixer", "x".join(map(str, shape)), global_mixer,
+               global_mixer_ref, (n(*shape), n(c), 0.1 * n(c), n(c),
+                                  0.1 * n(c)))
     # x = 0 and LN bias = 0: every frequency bin is exactly zero, which
     # takes the mixer's zero-bin path (amp = pha = 0) everywhere
     c, hw = BLOCK_SHAPES[0]
@@ -373,24 +443,34 @@ def kernel_flops(name: str, args) -> float:
     from its shapes: what the algorithm needs, not what the kernel
     recomputes."""
     x = args[0]
-    if name == "ln_mixer_head":
+    if name in ("ln_mixer_head", "global_mixer"):
         b, c, h, w = x.shape
-        planes, n = b * c // 2, h * w
-        # LN ~8 an element; rfft2 + irfft2 5 N log2 N a plane; the
-        # amp/phase mixer ~20 a frequency bin
-        return 8 * x.numel() + planes * (5 * n * np.log2(n)
-                                         + 20 * h * (w // 2 + 1))
+        planes, n = (b * c // 2, h * w) if name == "ln_mixer_head" else (
+            b * c, h * w)
+        # LN ~8 an element (head only); rfft2 + irfft2 5 N log2 N a
+        # plane; the amp/phase mixer ~20 a frequency bin
+        return (8 * x.numel() if name == "ln_mixer_head" else 0) + planes * (
+            5 * n * np.log2(n) + 20 * h * (w // 2 + 1))
     if name == "window_attention":
         b, c2, h, w = x.shape
         heads, s = args[4], args[5] ** 2
         # qkv 1x1; q.k and att.v over the window; bias, max, exp, sum, div
         return b * h * w * (6 * c2 * c2 + 4 * s * c2 + 5 * s * heads)
-    if name == "block_tail":
+    if name in ("block_tail", "ln_ffn"):
         b, c, h, w = x.shape
         c4 = 4 * c
-        # proj, LN, w1, w2, depthwise 3x3, erf GELU (~10), w3, residuals
-        return b * h * w * (2 * c * c + 8 * c + 2 * c * c4 + 2 * c4 * c4
-                            + 18 * c4 + 10 * c4 + 2 * c4 * c + 2 * c)
+        # (proj,) LN, w1, w2, depthwise 3x3, erf GELU (~10), w3, residuals
+        proj = 2 * c * c + c if name == "block_tail" else 0
+        return b * h * w * (proj + 8 * c + 2 * c * c4 + 2 * c4 * c4
+                            + 18 * c4 + 10 * c4 + 2 * c4 * c + c)
+    if name == "lgb_block":
+        b, c, h, w = x.shape
+        c2 = c // 2
+        # the three stages of the block on their own tensors
+        return (kernel_flops("ln_mixer_head", (x,))
+                + kernel_flops("window_attention",
+                               (x[:, :c2], None, None, None, 2, 8))
+                + kernel_flops("block_tail", (x,)))
     if name == "lightnet_stack":
         from lgteun_tpu_torch.ops.lightnet_kernel import lightnet_layers
         b, _, h, w = x.shape
@@ -450,20 +530,21 @@ def float64_forward(method, batch: dict) -> torch.Tensor:
                       nchw(batch["input_pan"])).permute(0, 2, 3, 1)
 
 
-def device_profile(runner, batch: dict, n: int = 5) -> dict:
-    """torch.profiler over `n` synchronised forwards: device kernels and
-    copies per forward, device busy ms per forward (union of the device
-    intervals), idle share (1 - busy / host wall of the loop, profiler
-    on) and the top device kernels' shares of the busy time."""
+def device_profile(call, n: int = 5) -> dict:
+    """torch.profiler over `n` synchronised calls of `call` (a forward,
+    or a whole scene): device kernels and copies per call, device busy
+    ms per call (union of the device intervals), idle share (1 - busy /
+    host wall of the loop, profiler on) and the top device kernels'
+    shares of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    runner.predict(batch)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            runner.predict(batch)
+            call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -481,10 +562,10 @@ def device_profile(runner, batch: dict, n: int = 5) -> dict:
         by_name[e.name] += e.time_range.end - e.time_range.start
     total = sum(by_name.values())
     copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev)
-    return {"kernels_per_forward": (len(dev) - copies) / n,
-            "copies_per_forward": copies / n,
-            "busy_ms_per_forward": busy / n / 1e3,
-            "wall_ms_per_forward": wall_us / n / 1e3,
+    return {"kernels_per_call": (len(dev) - copies) / n,
+            "copies_per_call": copies / n,
+            "busy_ms_per_call": busy / n / 1e3,
+            "wall_ms_per_call": wall_us / n / 1e3,
             "idle_share": 1 - busy / wall_us,
             "top": [(name[:100], t / total)
                     for name, t in by_name.most_common(10)]}
@@ -574,13 +655,18 @@ def main() -> int:
                                   "bound_by": bound_by}
 
     # 3. each slice: shipped config, seeded weights, Runner.test
+    #    (a kernel's launches are those of the first path that runs it)
     launches = {}
     for config, per_forward, abs_tol, n_cmp, env, n_images in SLICES:
         counted = run_slice(os.path.join(CONFIGS, config), per_forward,
                             abs_tol, n_cmp, env, n_images, card,
                             opts.profile)
         for k in per_forward:
-            launches[k] = counted[k]
+            launches.setdefault(k, counted[k])
+
+    # 4. the scene engine, then the CLI on the same scene
+    method = run_scene(card, opts.profile)
+    run_cli(method, card)
 
     kernels = []
     for name, (_op, _user, src, replaces, main_shape, no_library) in \
@@ -601,6 +687,146 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def synthetic_scene(side: int, bands: int, seed: int):
+    """A seeded WV-3-shaped scene in 11-bit DN: a smooth 8-band target
+    (a 32-pixel grid of band levels plus N(0, 40) texture), its 4x4
+    block mean as LrMS [side/4, side/4, bands] and its band mean as PAN
+    [side, side]; float32."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(200, 1800, (side // 32, side // 32, bands))
+    target = np.repeat(np.repeat(coarse, 32, 0), 32, 1) + rng.normal(
+        0, 40, (side, side, bands))
+    target = np.clip(target, 0, 2047).astype(np.float32)
+    lr = target.reshape(side // 4, 4, side // 4, 4, bands).mean(axis=(1, 3))
+    return lr.astype(np.float32), target.mean(axis=-1).astype(np.float32)
+
+
+def unlgformer(device: str):
+    """UnlgFormer of the shipped WV-3 config at fuse level 2."""
+    from lgteun_tpu_torch.config import load_config
+    from lgteun_tpu_torch.registry import build_model
+    cfg = load_config(os.path.join(CONFIGS, "unlg_former.py"))
+    with mock.patch.dict(os.environ, {"LGTEUN_FUSE_LEVEL": "2"}):
+        return cfg, build_model(cfg.model_type, cfg, device=device)
+
+
+def print_profile(tag: str, prof: dict, card: str) -> None:
+    top = "; ".join(f"{share:.3f} {name}" for name, share in prof.pop("top"))
+    print(f"profile {tag}: " + "  ".join(f"{k} {v:.4g}" for k, v in
+                                         prof.items()) + f"  [{card}]")
+    print(f"profile {tag} top device kernels: {top}")
+
+
+def run_scene(card: str, profile: bool):
+    """The whole-scene engine on the card at each of SCENE_TILINGS (and
+    a profiler pass of each with `profile`); returns the card's method
+    (seeded weights)."""
+    from lgteun_tpu_torch.parallel.scene import fuse_scene
+    from lgteun_tpu_torch.runner import Runner
+
+    cfg, method = unlgformer("cuda")
+    Runner(cfg, method, "cuda").init(SEED)
+    _, cpu = unlgformer("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         method.module.state_dict().items()})
+    scale = 2.0 ** cfg.bit_depth - 0.5
+    lr, pan = synthetic_scene(SCENE, cfg.ms_chans, SEED)
+    lr, pan = lr / scale, pan / scale
+    lr_d, pan_d = torch.from_numpy(lr).cuda(), torch.from_numpy(pan).cuda()
+    wrappers = {k: kernel_fns(k)[0] for k in KERNELS}
+    path = ("ln_mixer_head", "window_attention", "block_tail")
+    for tile, halo, crop in SCENE_TILINGS:
+        tag = f"scene {SCENE}x{SCENE}x{cfg.ms_chans} tile {tile} halo {halo}"
+        stride = tile - 2 * halo
+        n_side = -(-(SCENE - tile) // stride) + 1
+        forwards = -(-n_side ** 2 // SCENE_BATCH)
+        run = lambda: fuse_scene(method, lr_d, pan_d, tile=tile, halo=halo,
+                                 batch=SCENE_BATCH)
+        out = run()   # warm-up
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counted = {k: fn.launches for k, fn in wrappers.items()}
+        for k, n in counted.items():
+            want = 3 * forwards * 5 if k in path else 0
+            if n != want:
+                raise AssertionError(f"{tag}: {k} launched {n} times, want "
+                                     f"{want}")
+        if tuple(out.shape) != (SCENE, SCENE, cfg.ms_chans) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"{tag}: output {tuple(out.shape)} is not "
+                                 "a finite scene")
+        best = min(times)
+        print(f"{tag}: {n_side ** 2} tiles in {forwards} forwards of "
+              f"{SCENE_BATCH}, launches per tile forward "
+              f"{ {k: counted[k] // (3 * forwards) for k in path} }; "
+              f"{statistics.median(times) * 1e3:.2f} ms median of 3 "
+              f"(best {best * 1e3:.2f}) = "
+              f"{SCENE * SCENE / statistics.median(times) / 1e6:.2f} MP/s "
+              f"[{card}]")
+        # the card against the CPU plain path on a crop, at the timed
+        # run's batch (one forward of the crop's tiles and padding tiles)
+        lc, pc = lr[:crop // 4, :crop // 4], pan[:crop, :crop]
+        n_crop = (-(-(crop - tile) // stride) + 1) ** 2
+        got = fuse_scene(method, lc, pc, tile=tile, halo=halo,
+                         batch=SCENE_BATCH).cpu()
+        want = fuse_scene(cpu, lc, pc, tile=tile, halo=halo,
+                          batch=SCENE_BATCH)
+        err = (got - want).abs().max().item()
+        print(f"{tag}: {crop}x{crop} crop ({n_crop} tiles, batch "
+              f"{SCENE_BATCH}) max|card - cpu plain| {err:.3e} (bound 5e-4; "
+              f"max|cpu| {want.abs().max().item():.3f})")
+        # where that difference comes from (printed, not checked)
+        with swapped_kernels(path, lambda name, fn: kernel_fns(name)[1]):
+            card_plain = fuse_scene(method, lc, pc, tile=tile, halo=halo,
+                                    batch=SCENE_BATCH).cpu()
+        print(f"{tag} split: max|card kernels - card plain| "
+              f"{(got - card_plain).abs().max().item():.3e}  max|card plain "
+              f"- cpu plain| {(card_plain - want).abs().max().item():.3e}")
+        if not err <= 5e-4:
+            raise AssertionError(f"{tag}: card vs CPU plain {err:.3e}")
+        if profile:
+            print_profile(tag, device_profile(run, n=2), card)
+    return method
+
+
+def run_cli(method, card: str) -> None:
+    """`python -m lgteun_tpu_torch.fuse` once on the synthetic scene's
+    TIFFs (seeded init, as the method of `run_scene`) against a direct
+    fuse_scene call: within 1 DN of the uint16 rounding."""
+    from lgteun_tpu_torch import fuse
+    from lgteun_tpu_torch.data.tiff import read_tiff, write_tiff
+    from lgteun_tpu_torch.parallel.scene import fuse_scene
+
+    tile, halo, _ = SCENE_TILINGS[-1]
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    lr, pan = synthetic_scene(SCENE, 8, SEED + 1)
+    paths = {k: os.path.join(out_dir, f"{k}.tif") for k in ("lr", "pan",
+                                                            "fused")}
+    write_tiff(paths["lr"], np.round(lr).astype(np.uint16))
+    write_tiff(paths["pan"], np.round(pan).astype(np.uint16))
+    fuse.cli(["--lr", paths["lr"], "--pan", paths["pan"], "-o",
+              paths["fused"], "--tile", str(tile), "--halo", str(halo),
+              "--batch", str(SCENE_BATCH), "--device", "cuda"])
+    got = read_tiff(paths["fused"]).astype(np.float64)
+    scale = 2.0 ** 11 - 0.5
+    want = fuse_scene(method, np.round(lr) / scale, np.round(pan) / scale,
+                      tile=tile, halo=halo, batch=SCENE_BATCH).cpu().numpy()
+    want = np.clip(np.round(want * scale), 0, 2047)
+    err = float(np.abs(got - want).max())
+    print(f"cli: {paths['fused']} {got.shape} max|cli - fuse_scene| "
+          f"{err:g} DN (bound 1) [{card}]")
+    if got.shape != (SCENE, SCENE, 8) or not err <= 1.0:
+        raise AssertionError(f"cli output {got.shape} differs by {err} DN")
 
 
 def run_slice(config: str, per_forward: dict, abs_tol: float, n_cmp: int,
@@ -724,12 +950,8 @@ def run_slice(config: str, per_forward: dict, abs_tol: float, n_cmp: int,
     if profile:
         for label, batch in (("batch-1", b1),
                              (f"batch-{cfg.eval_batch_size}", b16)):
-            prof = device_profile(runner, batch)
-            top = "; ".join(f"{share:.3f} {name}"
-                            for name, share in prof.pop("top"))
-            print(f"profile {tag[6:]} {label}: " + "  ".join(
-                f"{k} {v:.4g}" for k, v in prof.items()) + f"  [{card}]")
-            print(f"profile {tag[6:]} {label} top device kernels: {top}")
+            print_profile(f"{tag[6:]} {label}",
+                          device_profile(lambda: runner.predict(batch)), card)
     return launches
 
 

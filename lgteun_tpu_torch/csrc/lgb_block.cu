@@ -1,0 +1,189 @@
+// Whole LGB block in one launch for Hopper (sm_90a).
+//
+// Replaces: lgteun_tpu/ops/lgb_block_kernel.py::fused_lgb_block_cm
+//           (Pallas `_kernel`), on [B, C, H, W]:
+//
+//   y  = LN(x);  x1 = window_MHSA(y[:C/2]);  x2 = global_mixer(y[C/2:])
+//   xm = x + proj([x1; x2]);  out = xm + FFN(LN(xm))
+//
+// What bounds it here: the work of its three phases, as in B1-B3 (the
+// FFN's 4C x 4C product on the FP32 cores, the FFT's shared-memory
+// stages, the window products); fusing saves only the launches between
+// them, not HBM traffic worth having: the TPU kernel kept a whole image in
+// VMEM, while one H100 block holds at most 227 KB, a third of one image's
+// activations at 128x128 / C = 32.
+//
+// Design: a persistent cooperative kernel, grid = the blocks that fit on
+// the card at once (one 512-thread block an SM: the phases need up to
+// 216 KB of shared memory), phases separated by grid.sync():
+//   A. LN + split, one thread per pixel: y1 and y2 into global scratch;
+//   B. a work list of the (image, channel) FFT mixer planes (y2 -> x2 in
+//      place) followed by the windows (y1 -> x1), taken from an atomic
+//      counter so the long planes start first and the windows fill in;
+//   C. the tail on 8x8 tiles with a 1-pixel halo, x + proj([x1; x2]) then
+//      LN + FFN + residual, into `out`.
+// Every phase runs the device code of B1-B3 (fft_mixer.cuh,
+// window_attention.cuh, block_tail.cuh), so the block computes what the
+// three-kernel chain computes. The TPU kernel's window-pair packing, its
+// permutation matrices, the -1e9 block-diagonal table and the tanh-form
+// exp are not carried over. Scratch is read through L2 (loads.cuh): it is
+// written earlier in the same launch, on other SMs.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "block_tail.cuh"
+#include "fft_mixer.cuh"
+#include "window_attention.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 512;
+
+struct LgbBlockArgs {
+  const float *x, *ln_w, *ln_b, *amp_w, *amp_b, *pha_w, *pha_b;
+  const float *wqkv, *bqkv, *pos;
+  TailWeights tail;
+  float *y1, *x2, *x1;  // scratch, [B, C/2, H, W] each
+  int* counter;         // the phase-B work list
+  float* out;
+  int B, C, C4, H, W, heads, win;
+  float scale, eps;
+  FftLen fh, fw;
+  int smem_item;        // float offset of the shared work-item slot
+};
+
+__global__ void __launch_bounds__(kThreads) lgb_block_kernel(LgbBlockArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  int* item = reinterpret_cast<int*>(sm + a.smem_item);
+  cg::grid_group grid = cg::this_grid();
+  const int C2 = a.C / 2, HW = a.H * a.W;
+
+  // A. LN + split
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.counter = 0;
+  const int pixels = a.B * HW;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < pixels;
+       i += gridDim.x * blockDim.x)
+    ln_split_pixel(a.x, a.ln_w, a.ln_b, a.y1, a.x2, a.C, HW, i / HW, i % HW,
+                   a.eps);
+  grid.sync();
+
+  // B. mixer planes, then windows (the barrier after taking an item also
+  // keeps the previous item's shared memory until every thread is done)
+  const int planes = a.B * C2;
+  const int nwin = (a.H / a.win) * (a.W / a.win);
+  const int items = planes + a.B * nwin;
+  for (;;) {
+    if (threadIdx.x == 0) *item = atomicAdd(a.counter, 1);
+    __syncthreads();
+    const int it = *item;
+    __syncthreads();
+    if (it >= items) break;
+    if (it < planes) {
+      const int c = it % C2;
+      float* plane = a.x2 + (size_t)it * HW;
+      fft_mixer_plane(plane, plane, reinterpret_cast<float2*>(sm), a.H, a.W,
+                      a.fh, a.fw, a.amp_w[c], a.amp_b[c], a.pha_w[c],
+                      a.pha_b[c]);
+    } else {
+      const int w = it - planes;
+      window_attention_window<true>(a.y1, a.wqkv, a.bqkv, a.pos, a.x1, sm, C2,
+                                    a.H, a.W, a.heads, a.win, a.scale,
+                                    w / nwin, w % nwin);
+    }
+  }
+  grid.sync();
+
+  // C. tail
+  const int tiles = (a.H / kTailT) * (a.W / kTailT);
+  for (int t = blockIdx.x; t < a.B * tiles; t += gridDim.x) {
+    block_tail_tile<true, true>(a.x, a.x1, a.x2, a.tail, a.out, sm, a.C,
+                                a.C4, a.H, a.W, a.eps, t / tiles, t % tiles);
+    __syncthreads();  // shared memory is reused by the next tile
+  }
+}
+
+}  // namespace
+
+// out = one LGB block of x, both [B, C, H, W]. C % 4 == 0, C4 = 4C, H and
+// W divisible by win and 8, win*win <= 64, C/2 divisible by heads, the
+// mixer plane within shared memory (checked by the Python wrapper).
+// Weights: wqkv [3C/2][C/2] (out, in), pos [heads][S][S], the tail's as
+// in lgteun_block_tail. scratch: 3 * B * C/2 * H * W floats; counter: one
+// int (zeroed by the kernel).
+extern "C" int lgteun_lgb_block(
+    const float* x, const float* ln_w, const float* ln_b, const float* amp_w,
+    const float* amp_b, const float* pha_w, const float* pha_b,
+    const float* wqkv, const float* bqkv, const float* pos, const float* wpT,
+    const float* bp, const float* fln_w, const float* fln_b,
+    const float* w1T, const float* b1, const float* w2T, const float* b2,
+    const float* dw, const float* bdw, const float* w3T, const float* b3,
+    float* scratch, int* counter, float* out, int B, int C, int C4, int H,
+    int W, int heads, int win, float scale, float eps, cudaStream_t stream) {
+  LgbBlockArgs a;
+  a.x = x;
+  a.ln_w = ln_w;
+  a.ln_b = ln_b;
+  a.amp_w = amp_w;
+  a.amp_b = amp_b;
+  a.pha_w = pha_w;
+  a.pha_b = pha_b;
+  a.wqkv = wqkv;
+  a.bqkv = bqkv;
+  a.pos = pos;
+  a.tail = TailWeights{wpT, bp, fln_w, fln_b, w1T, b1, w2T, b2, dw, bdw,
+                       w3T, b3};
+  const size_t plane = (size_t)B * (C / 2) * H * W;
+  a.y1 = scratch;
+  a.x2 = scratch + plane;
+  a.x1 = scratch + 2 * plane;
+  a.counter = counter;
+  a.out = out;
+  a.B = B;
+  a.C = C;
+  a.C4 = C4;
+  a.H = H;
+  a.W = W;
+  a.heads = heads;
+  a.win = win;
+  a.scale = scale;
+  a.eps = eps;
+  a.fh = fft_len(H);
+  a.fw = fft_len(W);
+  if (a.fh.p < 2 || a.fw.p < 2 || a.fh.m > kThreads || a.fw.m > kThreads)
+    return (int)cudaErrorInvalidValue;
+
+  size_t smem = fft_mixer_smem(H, W);
+  if (window_attention_smem(C / 2, heads, win) > smem)
+    smem = window_attention_smem(C / 2, heads, win);
+  if (block_tail_smem(C, C4) > smem) smem = block_tail_smem(C, C4);
+  a.smem_item = (int)((smem + 15) / 16 * 4);
+  smem = sizeof(float) * (size_t)a.smem_item + 16;
+
+  cudaError_t err = cudaFuncSetAttribute(
+      lgb_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, lgb_block_kernel, kThreads, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel((void*)lgb_block_kernel,
+                                    dim3(per_sm * sms), dim3(kThreads),
+                                    params, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}

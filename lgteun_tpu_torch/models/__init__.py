@@ -8,6 +8,7 @@ from lgteun_tpu_torch.models.innt import GPPNNINNT
 from lgteun_tpu_torch.models.lgteun import LGTEUN
 from lgteun_tpu_torch.models.lightnet import LightNetModule
 from lgteun_tpu_torch.models.mdcun import PanUnfolding
+from lgteun_tpu_torch.ops import fuse_level
 from lgteun_tpu_torch.registry import MODELS
 
 __all__ = ["UnlgFormer", "lightnet", "MDCUN", "INNT", "TorchMethod"]
@@ -17,12 +18,14 @@ __all__ = ["UnlgFormer", "lightnet", "MDCUN", "INNT", "TorchMethod"]
 class UnlgFormer(TorchMethod):
     """LGTEUN flagship (reference models/unlg_former.py:70-113), eval
     path: K = `model_cfg["core_module"]["stage"]` unfolding steps
-    (default 5, as in the JAX Method), embed 4 * ms_chans."""
+    (default 5, as in the JAX Method), embed 4 * ms_chans. Each LGB block
+    runs as `LGTEUN_FUSE_LEVEL` says when the method is built
+    (`ops.fuse_level`)."""
 
     def make_module(self):
         g_cfg = dict(self.cfg.model_cfg.get("core_module", {}))
         return LGTEUN(ms_chans=self.cfg.ms_chans,
-                      stage=g_cfg.get("stage", 5))
+                      stage=g_cfg.get("stage", 5), level=fuse_level())
 
 
 @MODELS.register()

@@ -10,12 +10,28 @@ The module tree keeps the reference's attribute names, so `state_dict()`
 carries the reference's keys (e.g. `encoder_layers.0.0.blocks.0.0.fn.fn.
 local_mixer.to_qkv.weight`) and `lgteun_tpu.convert.convert_state_dict`
 maps it onto the flax tree. `_Residual` / `_PreNorm` / `LGMixer` /
-`GlobalMixer` / `FeedForward` hold parameters under those names; each LGB
-block runs as three kernels (`LGB.forward`):
+`GlobalMixer` / `FeedForward` hold parameters under those names. How each
+LGB block runs is chosen by `LGTEUN_FUSE_LEVEL` when the method is built
+(`ops.fuse_level`, the JAX package's switch) and passed down as `level`
+(`LGB.forward`):
 
-    y1, x2 = ln_mixer_head(x)          LN, split, FFT global mixer
-    x1     = window_attention(y1)      the local mixer
-    x      = block_tail(x, x1, x2)     proj + residual, LN + FFN + residual
+    level 2 (default)  y1, x2 = ln_mixer_head(x)     LN, split, FFT mixer
+                       x1 = window_attention(y1)     the local mixer
+                       x = block_tail(x, x1, x2)     proj + residual, LN +
+                                                     FFN + residual
+    level 1            y = LN(x); x1 = window_attention(y[:, :C/2]);
+                       x2 = global_mixer(y[:, C/2:]);
+                       x = ln_ffn(x + proj([x1; x2]))
+    level 3            x = lgb_block(x)              the block in one kernel
+
+The JAX fast path also tests shapes for the TPU's lanes (H*W % 128,
+W % 128, window-pair parity: `lgteun_tpu/models/lgteun_fast.py:251,
+273, 315, 347-355`), leaves the mixer to XLA at level 1 and has a level
+0 without kernels; here every kernel takes every shape of the path and
+levels below 1 read as 2, so no plain version runs on a card (on a CPU
+tensor every wrapper runs its plain version). The LN and the 1x1 proj
+of level 1 are plain torch, as `_ln_cm` / `_pointconv_cm` are plain XLA
+in JAX.
 
 Dropout(0.1) after the mixer proj is inert at eval and is not modelled
 (training is a later slice).
@@ -26,6 +42,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lgteun_tpu_torch.models.common.layers import (
@@ -36,8 +53,11 @@ from lgteun_tpu_torch.models.common.layers import (
     Resample,
     trunc_normal_,
 )
-from lgteun_tpu_torch.ops.ffn_kernel import block_tail
-from lgteun_tpu_torch.ops.spectral_kernel import ln_mixer_head
+from lgteun_tpu_torch.ops.ffn_kernel import block_tail, ln_ffn
+from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block
+from lgteun_tpu_torch.ops.norm import channel_layer_norm
+from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
+                                                  ln_mixer_head)
 from lgteun_tpu_torch.ops.window_attention import window_attention
 
 __all__ = ["LocalMixer", "GlobalMixer", "LGMixer", "FeedForward", "LGB",
@@ -60,17 +80,12 @@ class LocalMixer(nn.Module):
         trunc_normal_(self.pos_emb, std=1.0, a=-2.0, b=2.0,
                       generator=generator)
 
-    def forward(self, y: torch.Tensor) -> torch.Tensor:
-        c = y.shape[1]
-        return window_attention(y, self.to_qkv.weight.view(3 * c, c),
-                                self.to_qkv.bias, self.pos_emb[0],
-                                self.heads, self.win)
-
 
 class GlobalMixer(nn.Module):
     """Per-channel affine on FFT amplitude and phase: the reference's
     1x1 depthwise conv_amp / conv_pha (reference LGT.py:149-180). Its
-    computation runs inside `ln_mixer_head`."""
+    computation runs inside `ln_mixer_head`, `global_mixer` or
+    `lgb_block`."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -105,8 +120,8 @@ class _DepthwiseConv(nn.Module):
 
 class FeedForward(nn.Module):
     """point(4x) -> GELU -> point+depthwise -> GELU -> point
-    (reference LGT.py:91-109). Its computation runs inside
-    `block_tail`."""
+    (reference LGT.py:91-109). Its computation runs inside `block_tail`,
+    `ln_ffn` or `lgb_block`."""
 
     def __init__(self, ch: int, ratio: int = 4):
         super().__init__()
@@ -128,38 +143,98 @@ class _Residual(nn.Module):
         self.fn = fn
 
 
+class _Views(dict):
+    """Block index -> `LGB._block_params(i)`. A copy or a pickle of the
+    module starts empty: its views would be of the old parameters."""
+
+    def __reduce__(self):
+        return type(self), ()
+
+
 class LGB(nn.Module):
     """num_blocks x [x += mixer(LN(x)); x += ffn(LN(x))]
-    (reference LGT.py:222-248), each block as the three kernels."""
+    (reference LGT.py:222-248), each block as `level` says (module
+    docstring)."""
 
     def __init__(self, ch: int, num_blocks: int, win: int = 8,
-                 heads: int = 2):
+                 heads: int = 2, level: int = 2):
         super().__init__()
+        self.win, self.heads, self.level = win, heads, level
         self.blocks = nn.ModuleList(
             nn.ModuleList([
                 _Residual(_PreNorm(ch, LGMixer(ch, win, heads))),
                 _Residual(_PreNorm(ch, FeedForward(ch))),
             ]) for _ in range(num_blocks))
+        self._views = _Views()
+
+    def _apply(self, fn, *args, **kwargs):
+        self._views.clear()     # .to(), .double() replace the weights' data
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._views.clear()     # load_state_dict(assign=True) replaces them
+        super()._load_from_state_dict(*args, **kwargs)
+
+    def _params(self, i: int) -> dict:
+        """`_block_params(i)`, made once while gradients are off (views
+        made then carry no autograd history); in-place weight updates
+        (load_state_dict, init) show through the views."""
+        if torch.is_grad_enabled():
+            return self._block_params(i)
+        blk = self._views.get(i)
+        if blk is None:
+            blk = self._views[i] = self._block_params(i)
+        return blk
+
+    def _block_params(self, i: int) -> dict:
+        """Block i's weights as the kernels take them (`lgb_block`'s
+        `blk`): views of the parameters, no copies."""
+        mix_res, ffn_res = self.blocks[i]
+        norm, mixer = mix_res.fn.norm, mix_res.fn.fn
+        ffn_norm, net = ffn_res.fn.norm, ffn_res.fn.fn.net
+        c, c4 = norm.weight.shape[0], net[0].weight.shape[0]
+        c2 = c // 2
+        local = mixer.local_mixer
+        amp_w, amp_b, pha_w, pha_b = mixer.global_mixer.affine()
+        return {"ln_w": norm.weight, "ln_b": norm.bias, "amp_w": amp_w,
+                "amp_b": amp_b, "pha_w": pha_w, "pha_b": pha_b,
+                "wqkv": local.to_qkv.weight.view(3 * c2, c2),
+                "bqkv": local.to_qkv.bias, "pos": local.pos_emb[0],
+                "proj_w": mixer.proj.weight.view(c, c),
+                "proj_b": mixer.proj.bias,
+                "ffn": {"ln_w": ffn_norm.weight, "ln_b": ffn_norm.bias,
+                        "w1": net[0].weight.view(c4, c), "b1": net[0].bias,
+                        "w2": net[2].point_conv.weight.view(c4, c4),
+                        "b2": net[2].point_conv.bias,
+                        "dw": net[2].depth_conv.weight.view(c4, 3, 3),
+                        "bdw": net[2].depth_conv.bias,
+                        "w3": net[4].weight.view(c, c4),
+                        "b3": net[4].bias}}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = x.shape[1]
-        for mix_res, ffn_res in self.blocks:
-            norm, mixer = mix_res.fn.norm, mix_res.fn.fn
-            y1, x2 = ln_mixer_head(x, norm.weight, norm.bias,
-                                   *mixer.global_mixer.affine(),
-                                   eps=norm.eps)
-            x1 = mixer.local_mixer(y1)
-            ffn_norm, net = ffn_res.fn.norm, ffn_res.fn.fn.net
-            c4 = net[0].weight.shape[0]
-            ffn = {"ln_w": ffn_norm.weight, "ln_b": ffn_norm.bias,
-                   "w1": net[0].weight.view(c4, c), "b1": net[0].bias,
-                   "w2": net[2].point_conv.weight.view(c4, c4),
-                   "b2": net[2].point_conv.bias,
-                   "dw": net[2].depth_conv.weight.view(c4, 3, 3),
-                   "bdw": net[2].depth_conv.bias,
-                   "w3": net[4].weight.view(c, c4), "b3": net[4].bias}
-            x = block_tail(x, x1, x2, mixer.proj.weight.view(c, c),
-                           mixer.proj.bias, ffn, eps=ffn_norm.eps)
+        heads, win = self.heads, self.win
+        for i, (mix_res, _) in enumerate(self.blocks):
+            eps = mix_res.fn.norm.eps
+            blk = self._params(i)
+            mixer = [blk[k] for k in ("amp_w", "amp_b", "pha_w", "pha_b")]
+            attn = (blk["wqkv"], blk["bqkv"], blk["pos"], heads, win)
+            if self.level >= 3:
+                x = lgb_block(x, blk, heads, win, eps)
+            elif self.level == 1:
+                y = channel_layer_norm(x, blk["ln_w"], blk["ln_b"], eps)
+                c2 = x.shape[1] // 2
+                x1 = window_attention(y[:, :c2].contiguous(), *attn)
+                x2 = global_mixer(y[:, c2:].contiguous(), *mixer)
+                x = x + F.conv2d(torch.cat([x1, x2], dim=1),
+                                 blk["proj_w"][:, :, None, None],
+                                 blk["proj_b"])
+                x = ln_ffn(x, blk["ffn"], eps=eps)
+            else:
+                y1, x2 = ln_mixer_head(x, blk["ln_w"], blk["ln_b"], *mixer,
+                                       eps=eps)
+                x1 = window_attention(y1, *attn)
+                x = block_tail(x, x1, x2, blk["proj_w"], blk["proj_b"],
+                               blk["ffn"], eps=eps)
         return x
 
 
@@ -182,7 +257,8 @@ class LGT(nn.Module):
     [B, in_ch, H, W] -> [B, in_ch, H, W] with a residual add."""
 
     def __init__(self, in_ch: int, embed: int, win: int = 8,
-                 num_block: Sequence[int] = (2, 1), heads: int = 2):
+                 num_block: Sequence[int] = (2, 1), heads: int = 2,
+                 level: int = 2):
         super().__init__()
         self.patch_embed = _PatchEmbed(in_ch, embed)
         scales = len(num_block)
@@ -190,17 +266,18 @@ class LGT(nn.Module):
         enc = []
         for i in range(scales - 1):
             enc.append(nn.ModuleList([
-                LGB(ch, num_block[i], win, heads),
+                LGB(ch, num_block[i], win, heads, level),
                 nn.Sequential(Resample(0.5), PointConv(ch, ch * 2))]))
             ch *= 2
         self.encoder_layers = nn.ModuleList(enc)
-        self.bottleneck = LGB(ch, num_block[-1], win, heads)
+        self.bottleneck = LGB(ch, num_block[-1], win, heads, level)
         dec = []
         for i in range(scales - 1):
             dec.append(nn.ModuleList([
                 nn.Sequential(Resample(2), PointConv(ch, ch // 2)),
                 PointConv(ch, ch // 2),
-                LGB(ch // 2, num_block[scales - 2 - i], win, heads)]))
+                LGB(ch // 2, num_block[scales - 2 - i], win, heads,
+                    level)]))
             ch //= 2
         self.decoder_layers = nn.ModuleList(dec)
         self.tail = nn.Sequential(Resample(1), PointConv(embed, in_ch))

@@ -33,7 +33,7 @@ class LGTEUN(nn.Module):
     """ms [B, C, h, w] + pan [B, 1, 4h, 4w] -> HrMS [B, C, 4h, 4w]."""
 
     def __init__(self, ms_chans: int, stage: int = 2, window_size: int = 8,
-                 num_heads: int = 2):
+                 num_heads: int = 2, level: int = 2):
         super().__init__()
         c = ms_chans
         self.stage = stage
@@ -46,7 +46,7 @@ class LGTEUN(nn.Module):
         self.eta = nn.ParameterList(
             nn.Parameter(torch.empty(())) for _ in range(stage))
         self.prior_module = nn.ModuleList(
-            LGT(c, c * 4, window_size, (2, 1), num_heads)
+            LGT(c, c * 4, window_size, (2, 1), num_heads, level)
             for _ in range(stage))
 
     @torch.no_grad()

@@ -36,6 +36,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b, y1, x2, B, C, H, W, eps, stream
     "lgteun_ln_mixer_head": [_P] * 9 + [_I] * 4 + [_F, _P],
+    # x, amp_w, amp_b, pha_w, pha_b, out, B, C, H, W, stream
+    "lgteun_global_mixer": [_P] * 6 + [_I] * 4 + [_P],
+    # x, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T, b3, out, B, C, C4, H,
+    # W, eps, stream
+    "lgteun_ln_ffn": [_P] * 12 + [_I] * 5 + [_F, _P],
+    # x, 6 mixer weights, wqkv, bqkv, pos, wpT, bp, 10 FFN weights,
+    # scratch, counter, out, B, C, C4, H, W, heads, win, scale, eps, stream
+    "lgteun_lgb_block": [_P] * 25 + [_I] * 7 + [_F, _F, _P],
     # x, wqkv, bqkv, pos, out, B, C, H, W, heads, win, scale, stream
     "lgteun_window_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
     # x, x1, x2, wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T, b3,

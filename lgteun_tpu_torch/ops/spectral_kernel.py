@@ -1,7 +1,9 @@
-"""LGB mixer head: channel LayerNorm, split, FFT amp/phase global mixer.
+"""LGB mixer head (channel LayerNorm, split, FFT amp/phase global mixer)
+and the global mixer alone.
 
-Counterpart of `lgteun_tpu/ops/spectral_kernel.py::fused_ln_mixer_head_cm`
-(Pallas) and `ln_mixer_head_xla_cm` (its plain version):
+Counterparts of `lgteun_tpu/ops/spectral_kernel.py::fused_ln_mixer_head_cm`
+and `fused_global_mixer_cm` (Pallas), and of `ln_mixer_head_xla_cm` and
+`global_mixer_xla_cm` (their plain versions):
 
     y  = LN(x)                       channel LayerNorm per pixel, eps 1e-5
     y1 = y[:, :C/2]                  -> window attention
@@ -9,8 +11,13 @@ Counterpart of `lgteun_tpu/ops/spectral_kernel.py::fused_ln_mixer_head_cm`
          with amp, pha = |rfft2(y[:, C/2:])|, angle(...) (0 at zero bins)
          and amp' = amp*amp_w + amp_b, pha' = pha*pha_w + pha_b
 
-`ln_mixer_head` launches `csrc/spectral_head.cu` for a CUDA tensor and
-runs `ln_mixer_head_ref` for a CPU tensor.
+`ln_mixer_head` and `global_mixer` launch `csrc/spectral_head.cu` for a
+CUDA tensor and run `ln_mixer_head_ref` / `global_mixer_ref` for a CPU
+tensor. The kernel holds one complex plane in shared memory, so it takes
+any even H, W (2^a * odd, a >= 1, the odd part at most 512) whose plane
+fits: 8 * (H*W + H + W + odd(H) + odd(W)) + 4 * (W/2 + 1) bytes <=
+232,448 (the H100's shared memory a block), e.g. 168 x 168; beyond that
+the wrappers raise.
 
 Branch cut: bins with exactly zero imaginary part and a negative real
 part have phase +-pi by the sign of that zero, and the learned phase
@@ -26,7 +33,11 @@ import torch
 from lgteun_tpu_torch.ops import _cuda
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 
-__all__ = ["ln_mixer_head", "ln_mixer_head_ref", "global_mixer_ref"]
+__all__ = ["ln_mixer_head", "ln_mixer_head_ref", "global_mixer",
+           "global_mixer_ref"]
+
+# shared memory one block may hold on the H100 (227 KB)
+FFT_SMEM_BYTES = 232_448
 
 
 def global_mixer_ref(x: torch.Tensor, amp_w: torch.Tensor,
@@ -77,8 +88,18 @@ def ln_mixer_head_ref(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
     return y[:, :c2], global_mixer_ref(y[:, c2:], amp_w, amp_b, pha_w, pha_b)
 
 
-def _pow2(n: int) -> bool:
-    return n >= 2 and n & (n - 1) == 0
+def _check_plane(name: str, x: torch.Tensor) -> None:
+    """Raise unless the mixer kernel takes x's [H, W] planes."""
+    h, w = x.shape[-2:]
+    odd = lambda n: n // (n & -n)
+    smem = 8 * (h * w + h + w + odd(h) + odd(w)) + 4 * (w // 2 + 1)
+    if h % 2 or w % 2 or odd(h) > 512 or odd(w) > 512 \
+            or smem > FFT_SMEM_BYTES:
+        raise ValueError(
+            f"{name}: the FFT kernel holds one complex plane in shared "
+            f"memory and needs even H, W (odd part <= 512) with "
+            f"8 * (H*W + H + W + odd(H) + odd(W)) + 4 * (W/2 + 1) <= "
+            f"{FFT_SMEM_BYTES} bytes, got {tuple(x.shape)} ({smem} bytes)")
 
 
 def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
@@ -92,9 +113,9 @@ def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
         raise ValueError(f"ln_mixer_head: unsupported device {x.device}")
     b, c, h, w = x.shape
     c2 = c // 2
-    if c % 2 or not (_pow2(h) and _pow2(w)) or h * w > 128 * 128:
-        raise ValueError(f"ln_mixer_head: need even C and power-of-two "
-                         f"H, W with H*W <= 16384, got {tuple(x.shape)}")
+    if c % 2:
+        raise ValueError(f"ln_mixer_head: need even C, got {tuple(x.shape)}")
+    _check_plane("ln_mixer_head", x)
     if ln_w.shape != (c,) or ln_b.shape != (c,) or any(
             p.shape != (c2,) for p in (amp_w, amp_b, pha_w, pha_b)):
         raise ValueError("ln_mixer_head: parameter shapes do not match C")
@@ -110,3 +131,26 @@ def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
 
 
 ln_mixer_head.launches = 0
+
+
+def global_mixer(x, amp_w, amp_b, pha_w, pha_b):
+    """FFT amp/phase mixer on [B, C, H, W] -> [B, C, H, W] (same
+    contract as `global_mixer_ref`); amp_w/amp_b/pha_w/pha_b: [C]."""
+    if x.device.type == "cpu":
+        return global_mixer_ref(x, amp_w, amp_b, pha_w, pha_b)
+    if x.device.type != "cuda":
+        raise ValueError(f"global_mixer: unsupported device {x.device}")
+    b, c, h, w = x.shape
+    _check_plane("global_mixer", x)
+    if any(p.shape != (c,) for p in (amp_w, amp_b, pha_w, pha_b)):
+        raise ValueError("global_mixer: parameter shapes do not match C")
+    _cuda.check_cuda_f32("global_mixer", x.device, x=x, amp_w=amp_w,
+                         amp_b=amp_b, pha_w=pha_w, pha_b=pha_b)
+    out = torch.empty_like(x)
+    _cuda.launch("lgteun_global_mixer", x.device, x, amp_w, amp_b, pha_w,
+                 pha_b, out, b, c, h, w)
+    global_mixer.launches += 1
+    return out
+
+
+global_mixer.launches = 0

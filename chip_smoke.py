@@ -4,14 +4,19 @@
 
 Builds the port's CUDA kernels from `lgteun_tpu_torch/csrc` with nvcc,
 holds each kernel against its plain PyTorch version at the main paths'
-shapes (and the scene engine's three LGB kernels at 144^2 / 72^2), then
-drives each ported eval path through `Runner.test` at its config's eval
-batch size, with random weights from a seed:
+shapes (and the scene engine's three LGB kernels at 144^2 / 72^2; the
+window attention also in its [N, C, S] and [N*S, C] layouts, the block
+tail also with a seeded dropout mask), holds the differentiable wrappers'
+forward and gradients (kernel forward, recompute backward) against plain
+autograd on the card, then drives each ported eval path through
+`Runner.test` at its config's eval batch size, with random weights from
+a seed:
 
 - UnlgFormer (LGTEUN, WV-3, 8 bands, K=2): three kernels per LGB block
   (LGTEUN_FUSE_LEVEL 2, the default), then again at level 1 (window
-  attention, the global mixer and LN + FFN per block) and at level 3
-  (the whole block in one kernel);
+  attention, the global mixer and LN + FFN per block), at level 3 (the
+  whole block in one kernel) and with LGTEUN_FUSED_ATTENTION=v2 (the
+  window attention on [N, C, S] windows);
 - lightnet (WV-3, 8 bands): the SpanConv stack kernel;
 - MDCUN (WV-3, 8 bands, T=4): the neighbourhood-attention kernel;
 - INNT (WV-3, 8 bands, n_feat 8): the texture-match kernel, and in a
@@ -24,6 +29,19 @@ tiles, kernel launches per tile forward, MP/s, and the card against the
 CPU plain path on a 256^2 and a 272^2 crop at batch 32; and the CLI
 (`python -m lgteun_tpu_torch.fuse`) once on that scene's TIFFs, written
 under `build/`, against a direct `fuse_scene` call.
+
+Then the training path: a seeded synthetic WV-3 Wald dataset written
+under `build/chip_smoke/` with the port's `make_synthetic_dataset` and
+read back with `PSDataset`, and `Runner.init().set_optim().train()` on
+the shipped UnlgFormer config (Adam lr 1.5e-3, StepLR, l1, batch 4,
+dropout 0.1) for TRAIN_ITERS iterations: the logged l1 loss (finite,
+lower at the end), kernel launches per training forward (the masked
+block tail in place of the plain one; never the whole-block kernel),
+step time and images/s at batch 4 and 16, a checkpoint saved and resumed
+against the uninterrupted run, one drop-0 step's loss and every
+gradient on the card against the CPU plain path (with a split line),
+and a few training steps at level 1, level 3 and with
+LGTEUN_FUSED_ATTENTION=v2.
 
 For each path it checks that every forward went through its kernels
 (and launched no other), that the output agrees with a CPU run of the
@@ -45,9 +63,9 @@ the H100 SXM's published HBM and FP32 rates at 700 W) and the time of
 one PyTorch call that computes the same function, where there is one.
 
 `--profile` adds a torch.profiler (CUPTI) pass over a few forwards of
-each path at batch 1 and at the eval batch: device kernels per forward,
-device busy time, idle share and each device kernel's share of the busy
-time.
+each path at batch 1 and at the eval batch, and over a few training
+steps at batch 4 and 16: device kernels per call, device busy time,
+idle share and each device kernel's share of the busy time.
 
 Any failed phase raises (non-zero exit). With no CUDA device the script
 exits non-zero before printing any result. The last line of stdout is
@@ -92,6 +110,43 @@ SCENE_BATCH = 32
 SCENE_TILINGS = ((128, 16, 256), (144, 8, 272))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published, at 700 W
 FP32_FLOPS_PER_S = 67e12    # H100 SXM FP32 outside the tensor cores
+DROP_RATE = 0.1             # the kernel cases' dropout mask
+# a differentiable wrapper vs plain autograd on the card: the backward is
+# the same plain graph on the same saved inputs and the loss is linear in
+# the outputs, so only the backward's own run-to-run order may differ
+GRAD_REL_TOL = 1e-5         # max|grad - plain grad| / max|plain grad|
+AUTOGRAD_SHAPES = ("4x32x128x128", "4x64x64x64", "4x16x128x128",
+                   "4x32x64x64", "1024x16x64", "256x32x64")
+TRAIN_IMAGES = 16           # synthetic WV-3 training pairs (and 4 test)
+TRAIN_ITERS = 50
+TRAIN_LOG = 10
+TRAIN_TIMED = 20            # timed steps at each of TRAIN_BATCHES
+TRAIN_BATCHES = (4, 16)
+RESUME_STEPS = 5
+# resumed vs uninterrupted: the first resumed step's loss must be equal
+# (same weights, batch and dropout mask); after it the bicubic backward's
+# unordered atomic adds change the last bits of the gradients, which
+# Adam's normalised step can turn into O(lr) moves of parameters whose
+# gradients are near zero: an H100 read 2.4e-4 here, and two resumed
+# runs differ by as much (printed); a wrong restore of the moments moves
+# the loss by far more.
+RESUME_LOSS_REL = 1e-3
+# card vs CPU plain, one drop-0 step on 2 images (run_grad_split): each
+# gradient relative to its tensor's largest where that is at least
+# GRAD_LEVEL of the largest of all; every tensor allclose with an atol of
+# GRAD_ATOL times the largest of all (rounding-level tensors). float32
+# itself reaches only about 1.4e-3 of float64 on the worst tensor (the
+# first block's LN bias: a sum over every pixel with cancellation; an
+# H100 read 1.2e-3 card vs CPU, 2.2e-3 card vs float64), so the bound
+# leaves room for another summation order; a wrong gradient is off by
+# O(1)
+TRAIN_GRAD_TOL = 1e-2
+GRAD_LEVEL = 1e-3
+GRAD_ATOL = 1e-5
+# the training forward at level 2 (and at level 3, which trains through
+# level 2's chain): launches per forward
+TRAIN_ROUTE = {"ln_mixer_head": 5, "window_attention": 5,
+               "block_tail_masked": 5}
 
 # name -> (module under lgteun_tpu_torch/ops holding the wrapper and its
 # plain version, the model module that calls it, CUDA source, the TPU
@@ -115,6 +170,21 @@ KERNELS = {
                    "lgteun_tpu/ops/ffn_kernel.py:458", "4x32x128x128",
                    "proj + LN + 1x1/depthwise FFN with GELU is no single "
                    "call"),
+    "block_tail_masked": ("ffn_kernel", "lgteun_tpu_torch.models.common.lgt",
+                          "lgteun_tpu_torch/csrc/block_tail.cu",
+                          "lgteun_tpu/ops/ffn_kernel.py:566", "4x32x128x128",
+                          "proj + mask + LN + 1x1/depthwise FFN with GELU "
+                          "is no single call"),
+    "window_attention_windows": (
+        "window_attention", "lgteun_tpu_torch.models.common.lgt",
+        "lgteun_tpu_torch/csrc/window_attention.cu",
+        "lgteun_tpu/ops/window_attention.py:172", "1024x16x64",
+        "qkv 1x1 + biased attention is no single call"),
+    "window_attention_rows": (
+        "window_attention", "lgteun_tpu_torch.models.common.lgt",
+        "lgteun_tpu_torch/csrc/window_attention.cu",
+        "lgteun_tpu/ops/window_attention.py:425", "1024x64x16",
+        "qkv 1x1 + biased attention is no single call"),
     "global_mixer": ("spectral_kernel", "lgteun_tpu_torch.models.common.lgt",
                      "lgteun_tpu_torch/csrc/spectral_head.cu",
                      "lgteun_tpu/ops/spectral_kernel.py:221",
@@ -167,6 +237,9 @@ SLICES = (
      N_IMAGES),
     ("unlg_former.py", {"lgb_block": 5}, 5e-4, 2,
      {"LGTEUN_FUSE_LEVEL": "3"}, N_IMAGES),
+    ("unlg_former.py", {"ln_mixer_head": 5, "window_attention_windows": 5,
+                        "block_tail": 5}, 5e-4, 2,
+     {"LGTEUN_FUSED_ATTENTION": "v2"}, N_IMAGES),
     ("lightnet.py", {"lightnet_stack": 3}, 1e-4, 2, {}, N_IMAGES),
     ("MDCUN.py", {"neighborhood_attention": 4}, 1e-3, 1, {}, N_IMAGES),
     ("INNT.py", {"texture_match": 1}, 5e-4, 1, {}, N_IMAGES),
@@ -219,15 +292,20 @@ def rel_err(got, want) -> tuple[float, float]:
 
 def kernel_cases(gen: torch.Generator):
     """(name, wrapper, plain, args) per kernel and main-path shape."""
-    from lgteun_tpu_torch.ops.ffn_kernel import (block_tail, block_tail_ref,
-                                                 ln_ffn, ln_ffn_ref)
+    from lgteun_tpu_torch.ops.ffn_kernel import (block_tail,
+                                                 block_tail_masked,
+                                                 block_tail_masked_ref,
+                                                 block_tail_ref, ln_ffn,
+                                                 ln_ffn_ref)
     from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block, lgb_block_ref
     from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
                                                       global_mixer_ref,
                                                       ln_mixer_head,
                                                       ln_mixer_head_ref)
-    from lgteun_tpu_torch.ops.window_attention import (window_attention,
-                                                       window_attention_ref)
+    from lgteun_tpu_torch.ops.window_attention import (
+        window_attention, window_attention_ref, window_attention_rows,
+        window_attention_rows_ref, window_attention_windows,
+        window_attention_windows_ref, window_partition)
 
     def n(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).cuda()
@@ -265,6 +343,19 @@ def kernel_cases(gen: torch.Generator):
         yield "lgb_block", shape, lgb_block, lgb_block_ref, (head[0], blk)
         yield ("global_mixer", f"{b}x{c // 2}x{hw}x{hw}", global_mixer,
                global_mixer_ref, (attn[0],) + head[3:])
+        # the training tail with a seeded rate-0.1 dropout mask
+        yield "block_tail_masked", shape, block_tail_masked, \
+            block_tail_masked_ref, tail[:3] + (dropout_mask(tail[0]),) + \
+            tail[3:]
+        # the same windows as [N, C, S] (B6) and [N, S, C] (B7)
+        xt = window_partition(attn[0], 8)
+        xw = xt.transpose(1, 2).contiguous()
+        yield ("window_attention_windows", "x".join(map(str, xt.shape)),
+               window_attention_windows, window_attention_windows_ref,
+               (xt,) + attn[1:5])
+        yield ("window_attention_rows", "x".join(map(str, xw.shape)),
+               window_attention_rows, window_attention_rows_ref,
+               (xw,) + attn[1:5])
     # the scene engine's LGB sizes at tile 144: 144^2 (C 32), 72^2 (C 64),
     # each through the three kernels of its path (level 2)
     for c, hw in ((32, 144), (64, 72)):
@@ -451,16 +542,23 @@ def kernel_flops(name: str, args) -> float:
         # plane; the amp/phase mixer ~20 a frequency bin
         return (8 * x.numel() if name == "ln_mixer_head" else 0) + planes * (
             5 * n * np.log2(n) + 20 * h * (w // 2 + 1))
-    if name == "window_attention":
-        b, c2, h, w = x.shape
-        heads, s = args[4], args[5] ** 2
+    if name.startswith("window_attention"):
+        if name == "window_attention":
+            b, c2, h, w = x.shape
+            tokens, heads, s = b * h * w, args[4], args[5] ** 2
+        else:   # [N, C, S] or [N, S, C] windows
+            n, c2, s = (x.shape if name.endswith("windows")
+                        else (x.shape[0], x.shape[2], x.shape[1]))
+            tokens, heads = n * s, args[4]
         # qkv 1x1; q.k and att.v over the window; bias, max, exp, sum, div
-        return b * h * w * (6 * c2 * c2 + 4 * s * c2 + 5 * s * heads)
-    if name in ("block_tail", "ln_ffn"):
+        return tokens * (6 * c2 * c2 + 4 * s * c2 + 5 * s * heads)
+    if name in ("block_tail", "block_tail_masked", "ln_ffn"):
         b, c, h, w = x.shape
         c4 = 4 * c
-        # (proj,) LN, w1, w2, depthwise 3x3, erf GELU (~10), w3, residuals
-        proj = 2 * c * c + c if name == "block_tail" else 0
+        # (proj (and mask),) LN, w1, w2, depthwise 3x3, erf GELU (~10),
+        # w3, residuals
+        proj = {"block_tail": 2 * c * c + c, "block_tail_masked":
+                2 * c * c + 2 * c, "ln_ffn": 0}[name]
         return b * h * w * (proj + 8 * c + 2 * c * c4 + 2 * c4 * c4
                             + 18 * c4 + 10 * c4 + 2 * c4 * c + c)
     if name == "lgb_block":
@@ -654,7 +752,10 @@ def main() -> int:
                                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                                   "bound_by": bound_by}
 
-    # 3. each slice: shipped config, seeded weights, Runner.test
+    # 3. the differentiable wrappers against plain autograd
+    run_autograd(torch.Generator().manual_seed(SEED + 2))
+
+    # 4. each slice: shipped config, seeded weights, Runner.test
     #    (a kernel's launches are those of the first path that runs it)
     launches = {}
     for config, per_forward, abs_tol, n_cmp, env, n_images in SLICES:
@@ -664,9 +765,17 @@ def main() -> int:
         for k in per_forward:
             launches.setdefault(k, counted[k])
 
-    # 4. the scene engine, then the CLI on the same scene
+    # 5. the scene engine, then the CLI on the same scene
     method = run_scene(card, opts.profile)
     run_cli(method, card)
+
+    # 6. training: Runner.train on a synthetic dataset, resume, card vs
+    #    CPU gradients, the other routes' training steps
+    train_ds, counted = run_training(card, opts.profile)
+    launches["block_tail_masked"] = counted["block_tail_masked"]
+    launches.setdefault("window_attention_rows", 0)   # on no model path
+    run_grad_split(train_ds, card)
+    run_train_variants(train_ds, card)
 
     kernels = []
     for name, (_op, _user, src, replaces, main_shape, no_library) in \
@@ -687,6 +796,14 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def dropout_mask(x: torch.Tensor, seed: int = SEED) -> torch.Tensor:
+    """A seeded rate-DROP_RATE dropout mask of x's shape (0 or 1/keep)."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = 1.0 - DROP_RATE
+    return (torch.rand(x.shape, generator=gen, device=x.device) < keep).to(
+        x.dtype) * (1.0 / keep)
 
 
 def synthetic_scene(side: int, bands: int, seed: int):
@@ -735,7 +852,6 @@ def run_scene(card: str, profile: bool):
     lr, pan = synthetic_scene(SCENE, cfg.ms_chans, SEED)
     lr, pan = lr / scale, pan / scale
     lr_d, pan_d = torch.from_numpy(lr).cuda(), torch.from_numpy(pan).cuda()
-    wrappers = {k: kernel_fns(k)[0] for k in KERNELS}
     path = ("ln_mixer_head", "window_attention", "block_tail")
     for tile, halo, crop in SCENE_TILINGS:
         tag = f"scene {SCENE}x{SCENE}x{cfg.ms_chans} tile {tile} halo {halo}"
@@ -746,20 +862,15 @@ def run_scene(card: str, profile: bool):
                                  batch=SCENE_BATCH)
         out = run()   # warm-up
         torch.cuda.synchronize()
-        for fn in wrappers.values():
-            fn.launches = 0
+        wrappers = reset_launches()
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
             out = run()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        counted = {k: fn.launches for k, fn in wrappers.items()}
-        for k, n in counted.items():
-            want = 3 * forwards * 5 if k in path else 0
-            if n != want:
-                raise AssertionError(f"{tag}: {k} launched {n} times, want "
-                                     f"{want}")
+        counted = check_launches(tag, wrappers, dict.fromkeys(path, 5),
+                                 3 * forwards)
         if tuple(out.shape) != (SCENE, SCENE, cfg.ms_chans) or not bool(
                 torch.isfinite(out).all()):
             raise AssertionError(f"{tag}: output {tuple(out.shape)} is not "
@@ -854,20 +965,14 @@ def run_slice(config: str, per_forward: dict, abs_tol: float, n_cmp: int,
     runner.predict(runner.to_device(next(eval_batches(
         ds, cfg.eval_batch_size))[0]))  # warm-up outside the counted run
     torch.cuda.synchronize()
-    wrappers = {k: kernel_fns(k)[0] for k in KERNELS}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = reset_launches()
     results = runner.test(ds)
-    launches = {k: fn.launches for k, fn in wrappers.items()}
     forwards = -(-n_images // cfg.eval_batch_size)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
     print(f"{tag}: psnr {results['psnr'][0]:.4f} dB (random weights), "
           f"{forwards} forwards, launches "
           f"{ {k: launches[k] for k in per_forward} }")
-    for k, n in launches.items():
-        if n != per_forward.get(k, 0) * forwards:
-            raise AssertionError(f"{k}: {n} launches, want "
-                                 f"{per_forward.get(k, 0)} per forward x "
-                                 f"{forwards}")
+    check_launches(tag, wrappers, per_forward, forwards)
 
     first = {k: v[:n_cmp] for k, v in next(eval_batches(ds, n_cmp))[
         0].items() if k != "image_id"}
@@ -953,6 +1058,313 @@ def run_slice(config: str, per_forward: dict, abs_tol: float, n_cmp: int,
             print_profile(f"{tag[6:]} {label}",
                           device_profile(lambda: runner.predict(batch)), card)
     return launches
+
+
+def run_autograd(gen: torch.Generator) -> None:
+    """Each differentiable wrapper (B1-B6) at the main path's shapes:
+    its forward (KERNEL_REL_TOL) and the gradients of a loss linear in
+    its outputs, with respect to every input and weight (the dropout
+    mask excepted), against plain autograd through its plain version on
+    the card (GRAD_REL_TOL)."""
+    names = ("ln_mixer_head", "window_attention", "block_tail",
+             "block_tail_masked", "global_mixer", "ln_ffn",
+             "window_attention_windows")
+    for name, shape, kernel, plain, args in kernel_cases(gen):
+        if name not in names or shape not in AUTOGRAD_SHAPES:
+            continue
+        leaf = lambda t: t.detach().clone().requires_grad_()
+        args = [({k: leaf(v) for k, v in a.items()} if isinstance(a, dict)
+                 else leaf(a) if isinstance(a, torch.Tensor) and not (
+                     name == "block_tail_masked" and i == 3) else a)
+                for i, a in enumerate(args)]
+        leaves = [t for a in args for t in (
+            a.values() if isinstance(a, dict) else [a])
+                  if isinstance(t, torch.Tensor) and t.requires_grad]
+        weights = None
+        results = []
+        for fn in (kernel, plain):
+            outs = fn(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            if weights is None:
+                weights = [torch.randn(o.shape, generator=gen).cuda()
+                           for o in outs]
+            loss = sum((o * w).sum() for o, w in zip(outs, weights))
+            results.append(([o.detach() for o in outs],
+                            torch.autograd.grad(loss, leaves)))
+        (k_out, k_grads), (p_out, p_grads) = results
+        fwd, _ = rel_err(k_out, p_out)
+        grad = max(rel_err([g], [w])[0] for g, w in zip(k_grads, p_grads))
+        print(f"autograd {name:24s} {shape:14s} forward rel err {fwd:.3e}  "
+              f"grads of {len(leaves)} tensors rel err {grad:.3e} (bounds "
+              f"{KERNEL_REL_TOL:g}, {GRAD_REL_TOL:g})")
+        if not (fwd <= KERNEL_REL_TOL and grad <= GRAD_REL_TOL):
+            raise AssertionError(f"autograd {name} {shape}: forward {fwd:.3e}"
+                                 f", grads {grad:.3e}")
+
+
+def train_method(cfg, env: dict | None = None):
+    """The shipped UnlgFormer on the card, built under `env` (fuse level
+    2 and the image-layout attention unless it says otherwise)."""
+    from lgteun_tpu_torch.registry import build_model
+    base = {"LGTEUN_FUSE_LEVEL": "2", "LGTEUN_FUSED_ATTENTION": "1"}
+    with mock.patch.dict(os.environ, dict(base, **(env or {}))):
+        return build_model(cfg.model_type, cfg, device="cuda")
+
+
+def reset_launches() -> dict:
+    wrappers = {k: kernel_fns(k)[0] for k in KERNELS}
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def check_launches(tag: str, wrappers: dict, per_forward: dict,
+                   forwards: int) -> dict:
+    counted = {k: fn.launches for k, fn in wrappers.items()}
+    for k, n in counted.items():
+        if n != per_forward.get(k, 0) * forwards:
+            raise AssertionError(f"{tag}: {k} launched {n} times, want "
+                                 f"{per_forward.get(k, 0)} per forward x "
+                                 f"{forwards}")
+    return counted
+
+
+def run_training(card: str, profile: bool):
+    """Runner.train on a seeded synthetic WV-3 dataset, the shipped
+    config at batch 4 with dropout; then step times at TRAIN_BATCHES and
+    a resume check. Returns (the training dataset, launches in the
+    train() run)."""
+    from lgteun_tpu_torch.config import load_config
+    from lgteun_tpu_torch.data.dataset import PSDataset
+    from lgteun_tpu_torch.data.pipeline import train_iterator
+    from lgteun_tpu_torch.data.synthetic import make_synthetic_dataset
+    from lgteun_tpu_torch.runner import Runner
+
+    cfg = load_config(os.path.join(CONFIGS, "unlg_former.py"))
+    root = os.path.join(REPO, "build", "chip_smoke", "train")
+    t0 = time.perf_counter()
+    dirs = make_synthetic_dataset(root, TRAIN_IMAGES, 4, bands=cfg.ms_chans,
+                                  size=128, seed=SEED, sensor="WV3")
+    train_ds = PSDataset([dirs["train"]], bit_depth=cfg.bit_depth)
+    test_ds = PSDataset([dirs["test"]], bit_depth=cfg.bit_depth)
+    print(f"train data: {len(train_ds)} + {len(test_ds)} synthetic WV-3 Wald "
+          f"pairs (LrMS 32x32x{cfg.ms_chans}, PAN 128x128) in "
+          f"{time.perf_counter() - t0:.1f} s under {root}")
+    cfg.max_iter, cfg.log_freq, cfg.work_dir = TRAIN_ITERS, TRAIN_LOG, root
+    cfg.save_freq = cfg.eval_freq = 0
+    bs = cfg.train_set_cfg.batch_size
+    drop = cfg.model_cfg["core_module"].get("drop_rate", 0.1)
+    print(f"train config: {cfg.optim_cfg['core_module']} {cfg.sched_cfg} "
+          f"{cfg.loss_cfg} batch {bs} drop_rate {drop} max_iter "
+          f"{cfg.max_iter}")
+    runner = Runner(cfg, train_method(cfg), "cuda", train_ds=train_ds,
+                    test_ds=test_ds).init(SEED).set_optim()
+    before = runner.test(test_ds)["psnr"][0]
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    runner.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = check_launches("train", wrappers, TRAIN_ROUTE, TRAIN_ITERS)
+    print(f"train: {TRAIN_ITERS} iterations in {wall:.2f} s "
+          f"({wall / TRAIN_ITERS * 1e3:.2f} ms an iteration, data included)"
+          f"; launches per training forward "
+          f"{ {k: counted[k] // TRAIN_ITERS for k in TRAIN_ROUTE} }, "
+          f"lgb_block {counted['lgb_block']}, block_tail "
+          f"{counted['block_tail']}  [{card}]")
+    curve = [(it, parts["rec_loss"]) for it, parts in runner.loss_log]
+    for it, loss in curve:
+        print(f"train: iter {it} l1 {loss:.6f}")
+    if not all(np.isfinite([l for _, l in curve])) or not \
+            curve[-1][1] < curve[0][1]:
+        raise AssertionError(f"train: l1 curve {curve} is not finite and "
+                             "falling")
+    after = runner.test(test_ds)["psnr"][0]
+    print(f"train: test psnr {before:.4f} -> {after:.4f} dB over "
+          f"{TRAIN_ITERS} iterations (4 synthetic pairs)")
+
+    # resume: a checkpoint at TRAIN_ITERS, loaded into a new Runner; both
+    # run RESUME_STEPS more iterations
+    path = runner.save(TRAIN_ITERS)
+    cfg.max_iter, cfg.log_freq = TRAIN_ITERS + RESUME_STEPS, 1
+    def resume():
+        r = Runner(cfg, train_method(cfg), "cuda", train_ds=train_ds)
+        return r.load_checkpoint(path).set_optim().train()
+
+    n0 = len(runner.loss_log)
+    runner.train()
+    resumed, again = resume(), resume()
+    losses = lambda r, n=0: [parts["full_loss"] for _, parts in
+                             r.loss_log[n:]]
+
+    def gap(r1, l1, r2, l2):
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(l1, l2))
+        s1, s2 = r1.method.module.state_dict(), r2.method.module.state_dict()
+        return loss_rel, max((s1[k] - s2[k]).abs().max().item() for k in s1)
+
+    a, b = losses(runner, n0), losses(resumed)
+    loss_rel, w_err = gap(runner, a, resumed, b)
+    spread = gap(resumed, b, again, losses(again))
+    lr = cfg.optim_cfg["core_module"].lr
+    print(f"resume: {RESUME_STEPS} steps after iteration {TRAIN_ITERS}: "
+          f"first step loss equal {a[0] == b[0]}, losses rel err "
+          f"{loss_rel:.3e} (bound {RESUME_LOSS_REL:g}), weights max-abs "
+          f"{w_err:.3e} (bound 2 lr x steps = {2 * lr * RESUME_STEPS:g}); "
+          f"two resumed runs: losses {spread[0]:.3e}, weights "
+          f"{spread[1]:.3e} (the bicubic backward's atomic adds are not "
+          f"ordered on CUDA)")
+    if len(a) != RESUME_STEPS or len(b) != RESUME_STEPS or a[0] != b[0] \
+            or not (loss_rel <= RESUME_LOSS_REL
+                    and w_err <= 2 * lr * RESUME_STEPS):
+        raise AssertionError("resumed run departs from the uninterrupted one")
+
+    # step time at each batch: the device step (forward, backward, Adam)
+    for bsz in TRAIN_BATCHES:
+        batch = runner.to_device(next(train_iterator(
+            train_ds, bsz, bit_depth=cfg.bit_depth, seed=SEED)))
+        times = []
+        for i in range(3 + TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.train_step(batch, i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times[3:])
+        print(f"train step batch {bsz}: median {med * 1e3:.3f} ms (min "
+              f"{min(times[3:]) * 1e3:.3f}) of {TRAIN_TIMED} = "
+              f"{bsz / med:.1f} images/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB  "
+              f"[{card}]")
+        if profile:
+            print_profile(f"train step batch-{bsz}", device_profile(
+                lambda: runner.train_step(batch, 0)), card)
+    return train_ds, counted
+
+
+def run_grad_split(train_ds, card: str) -> None:
+    """One drop-0 step (train mode, no generator) from the same weights
+    on 2 images: the loss and every parameter's gradient on the card
+    against the CPU plain path, and where the difference comes from (card
+    kernels vs card plain, card plain vs CPU plain, each path vs a float64
+    run of the CPU plain path).
+
+    A gradient is held relative to its tensor's largest (TRAIN_GRAD_TOL)
+    where that is at least GRAD_LEVEL of the largest gradient of all;
+    below that level (the position biases and amplitude biases at a
+    seeded init, 1e-7 to 1e-5 of it) float32 rounding itself is of the
+    gradient's size (the CPU float32 run against float64 shows it), and
+    every tensor is held as allclose: |a - b| <= TRAIN_GRAD_TOL |b|max +
+    GRAD_ATOL times the largest gradient of all."""
+    from lgteun_tpu_torch.data.pipeline import train_iterator
+    from lgteun_tpu_torch.runner import Runner
+
+    cfg, method = unlgformer("cuda")
+    Runner(cfg, method, "cuda").init(SEED + 3)
+    _, cpu = unlgformer("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         method.module.state_dict().items()})
+    batch = next(train_iterator(train_ds, 2, bit_depth=cfg.bit_depth,
+                                seed=SEED + 3))
+
+    def step(m):
+        m.train()
+        m.module.zero_grad(set_to_none=True)
+        total, _ = m.losses(batch)
+        total.backward()
+        return total.item(), {k: p.grad.detach().cpu().double() for k, p in
+                              m.module.named_parameters()
+                              if p.grad is not None}
+
+    def step64(m):
+        module = copy.deepcopy(m.module).double().train()
+        nchw = lambda k: torch.from_numpy(np.asarray(batch[k], np.float64)
+                                          ).permute(0, 3, 1, 2)
+        out = module(nchw("input_lr"), nchw("input_pan"))
+        total = (out - nchw("target")).abs().mean()
+        total.backward()
+        return total.item(), {k: p.grad for k, p in module.named_parameters()
+                              if p.grad is not None}
+
+    card_k = step(method)
+    with swapped_kernels(("ln_mixer_head", "window_attention", "block_tail"),
+                         lambda name, fn: kernel_fns(name)[1]):
+        card_p = step(method)
+    want = step(cpu)
+    exact = step64(cpu)
+    scale = max(g.abs().max().item() for g in exact[1].values())
+    level = {k for k, g in exact[1].items()
+             if g.abs().max().item() >= GRAD_LEVEL * scale}
+
+    def diff(a, b):
+        """(|loss a - loss b|, the worst relative error among the tensors
+        above GRAD_LEVEL and its tensor, allclose of every tensor)."""
+        assert a[1].keys() == b[1].keys()
+        rel = {k: (a[1][k] - b[1][k]).abs().max().item()
+               / b[1][k].abs().max().item() for k in level}
+        worst = max(rel, key=rel.get)
+        close = all(((a[1][k] - b[1][k]).abs() <= TRAIN_GRAD_TOL
+                     * b[1][k].abs().max() + GRAD_ATOL * scale).all()
+                    for k in b[1])
+        return abs(a[0] - b[0]), rel[worst], worst, close
+
+    loss_err, grad_err, worst, close = diff(card_k, want)
+    print(f"train grads: drop-0 step on 2 images, loss {want[0]:.6f}, "
+          f"{len(want[1])} parameters with a gradient, {len(level)} of them "
+          f"above {GRAD_LEVEL:g} of the largest ({scale:.4g}): |card - cpu "
+          f"plain| loss {loss_err:.3e}, worst gradient rel err "
+          f"{grad_err:.3e} ({worst}; bound {TRAIN_GRAD_TOL:g} of the "
+          f"tensor's max), every tensor allclose (rtol {TRAIN_GRAD_TOL:g}, "
+          f"atol {GRAD_ATOL:g} x {scale:.4g}): {close}  [{card}]")
+    for tag, a, b in (("card kernels vs card plain", card_k, card_p),
+                      ("card plain vs cpu plain", card_p, want),
+                      ("card kernels vs float64", card_k, exact),
+                      ("cpu plain vs float64", want, exact)):
+        d = diff(a, b)
+        below = max(((a[1][k] - b[1][k]).abs().max()
+                     / b[1][k].abs().max()).item()
+                    for k in b[1].keys() - level) if b[1].keys() - level \
+            else 0.0
+        print(f"train grads split, {tag}: loss {d[0]:.3e}, worst rel err "
+              f"{d[1]:.3e} above the level, {below:.3e} below it")
+    if not (loss_err <= 5e-4 * abs(want[0]) and grad_err <= TRAIN_GRAD_TOL
+            and close):
+        raise AssertionError(f"train grads: loss {loss_err:.3e}, gradients "
+                             f"{grad_err:.3e}, allclose {close}")
+
+
+def run_train_variants(train_ds, card: str, steps: int = 3) -> None:
+    """A few training steps (dropout on) through the other routes: level
+    1 (window attention, global mixer, LN + FFN; the mask in plain
+    torch), level 3 (trains through level 2's chain, never the
+    whole-block kernel) and LGTEUN_FUSED_ATTENTION=v2 ([N, C, S]
+    windows)."""
+    from lgteun_tpu_torch.config import load_config
+    from lgteun_tpu_torch.data.pipeline import train_iterator
+    from lgteun_tpu_torch.runner import Runner
+
+    cfg = load_config(os.path.join(CONFIGS, "unlg_former.py"))
+    batch = next(train_iterator(train_ds, cfg.train_set_cfg.batch_size,
+                                bit_depth=cfg.bit_depth, seed=SEED + 4))
+    for env, route in (
+            ({"LGTEUN_FUSE_LEVEL": "1"}, {"window_attention": 5,
+                                          "global_mixer": 5, "ln_ffn": 5}),
+            ({"LGTEUN_FUSE_LEVEL": "3"}, TRAIN_ROUTE),
+            ({"LGTEUN_FUSED_ATTENTION": "v2"}, {
+                "ln_mixer_head": 5, "window_attention_windows": 5,
+                "block_tail_masked": 5})):
+        runner = Runner(cfg, train_method(cfg, env), "cuda").init(
+            SEED).set_optim()
+        dev = runner.to_device(batch)
+        runner.train_step(dev, 0)   # warm-up outside the count
+        wrappers = reset_launches()
+        losses = [runner.train_step(dev, i + 1)["full_loss"].item()
+                  for i in range(steps)]
+        check_launches(f"train {env}", wrappers, route, steps)
+        print(f"train {env}: {steps} steps, l1 "
+              f"{', '.join(f'{v:.6f}' for v in losses)}; launches per "
+              f"forward {route}  [{card}]")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train {env}: loss not finite")
 
 
 if __name__ == "__main__":

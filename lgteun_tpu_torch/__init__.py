@@ -2,8 +2,11 @@
 
 The JAX package `lgteun_tpu` stays the reference; this package holds the
 port, slice by slice. It runs four eval paths: UnlgFormer (LGTEUN, K=2),
-lightnet, MDCUN and INNT, and the whole-scene engine and its CLI
-(`parallel/scene.py`, `python -m lgteun_tpu_torch.fuse`), with
+lightnet, MDCUN and INNT; UnlgFormer's training (`runner.py`:
+Adam/StepLR, l1, dropout, checkpoints; `data/`: the train iterator, the
+PSDataset reader and the synthetic Wald generator); and the whole-scene
+engine and its CLI (`parallel/scene.py`, `python -m
+lgteun_tpu_torch.fuse`), with
 
 - plain PyTorch for what the JAX package left to XLA: the unfolding
   steps, resamples and the convs outside the kernels;
@@ -11,12 +14,15 @@ lightnet, MDCUN and INNT, and the whole-scene engine and its CLI
   and bound with ctypes) for the Pallas kernels on those paths (`ops/`):
   the LGB block's (the LN + FFT mixer head, 8x8-window attention, the
   proj + LN + FFN block tail by default; the global mixer and LN + FFN,
-  or the whole block in one kernel, as `LGTEUN_FUSE_LEVEL` selects),
-  LightNet's SpanConv stack, MDCUN's neighbourhood attention and INNT's
-  texture-match and patch-match searches.
+  or the whole block in one kernel, as `LGTEUN_FUSE_LEVEL` selects; the
+  attention also on [N, C, S] windows and [N*S, C] rows; the tail also
+  with a dropout mask), LightNet's SpanConv stack, MDCUN's neighbourhood
+  attention and INNT's texture-match and patch-match searches.
 
 Every kernel wrapper runs its plain PyTorch version for a CPU tensor and
-launches its kernel (or raises) for a CUDA tensor. The package never
+launches its kernel (or raises) for a CUDA tensor; the LGB block's
+wrappers are differentiable there (`ops/autograd.py`: the kernel
+forward, the plain version's backward). The package never
 imports jax, flax or `lgteun_tpu`: it has its own config loader
 (`config.py`) and registry, and reads the JAX package's shipped config
 files as plain Python.

@@ -1,7 +1,8 @@
 // Device code shared by block_tail.cu (B3, B5) and lgb_block.cu (B8): one
 // 8x8 output tile of
 //
-//   xm  = x + Wp . [x1; x2] + bp                  (kProj; else xm = x)
+//   xm  = x + M * (Wp . [x1; x2] + bp)            (kProj; else xm = x;
+//                                                  M = 1 unless kMask)
 //   out = xm + W3 . GELU(DW3x3(W2 . GELU(W1 . LN(xm) + b1) + b2) + bdw) + b3
 //
 // with a 1-pixel halo (10x10 = 100 pixels). proj -> LN -> W1 -> GELU -> W2
@@ -15,6 +16,9 @@
 // [100][C] stages alias h2) and the interior xm [64][C]: 216 KB at C = 64.
 // The out-of-image halo of h2 is zeroed after W2, before the depthwise
 // taps: the zero padding applies to the conv's input. Exact-erf GELU.
+// With kMask the dropout mask M [B, C, H, W] is read at the halo pixels
+// too (the halo's xm feeds the depthwise taps of the interior), into a
+// fourth [100][C] buffer aliasing h2.
 
 #pragma once
 
@@ -41,18 +45,20 @@ __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
 }
 
-// out[p][o] (+)= bias[o] + sum_i in[p][i] * wT[i][o], p < P.
-// in: shared [P][I]; wT: global [I][O]; out: shared [P][O]; I, O
+// out[p][o] (+)= (bias[o] + sum_i in[p][i] * wT[i][o]) (* mul[p][o]), p < P.
+// in: shared [P][I]; wT: global [I][O]; out, mul: shared [P][O]; I, O
 // multiples of 4 (16-byte aligned rows), P % kPB == 0. Each thread
 // computes kPB pixels x kOB output channels, so one float4 of inputs
 // (a broadcast within the warp) and one float4 of weights (a coalesced
 // row) feed 16 FMAs.
-template <bool kGelu, bool kAccum>
+template <bool kGelu, bool kAccum, bool kMul = false>
 __device__ __forceinline__ void pointwise(const float* __restrict__ in,
                                           int I, const float* __restrict__ wT,
                                           const float* __restrict__ bias,
                                           float* __restrict__ out, int O,
-                                          int P) {
+                                          int P,
+                                          const float* __restrict__ mul =
+                                              nullptr) {
   const int no = O / kOB, nchunk = P / kPB;
   for (int t = threadIdx.x; t < no * nchunk; t += blockDim.x) {
     const int o = (t % no) * kOB, p0 = (t / no) * kPB;
@@ -86,6 +92,7 @@ __device__ __forceinline__ void pointwise(const float* __restrict__ in,
       for (int j = 0; j < kOB; ++j) {
         r[j] = acc[q][j] + b[j];
         if (kGelu) r[j] = gelu(r[j]);
+        if (kMul) r[j] *= mul[(p0 + q) * O + o + j];
       }
       float4* dst = reinterpret_cast<float4*>(out + (p0 + q) * O + o);
       float4 res = make_float4(r[0], r[1], r[2], r[3]);
@@ -107,18 +114,19 @@ struct TailWeights {
 };
 
 // Tile ti of image b. x/out [B, C, H, W]; x1/x2 [B, C/2, H, W] (kProj);
-// kCoherent: see loads.cuh.
-template <bool kProj, bool kCoherent>
+// mask [B, C, H, W] (kMask, with kProj); kCoherent: see loads.cuh.
+template <bool kProj, bool kCoherent, bool kMask = false>
 __device__ __forceinline__ void block_tail_tile(
     const float* x, const float* x1, const float* x2, const TailWeights& wt,
     float* out, float* sm, int C, int C4, int H, int W, float eps, int b,
-    int ti) {
+    int ti, const float* mask = nullptr) {
   float* h1 = sm;                       // [kNP][C4]; later the taps' output
   float* h2 = h1 + kTailNP * C4;        // [kNP][C4]
   float* xmi = h2 + kTailNP * C4;       // [kNI][C] interior xm, then out
   float* cat = h2;                      // [kNP][C] x1;x2   (aliases h2)
   float* xm = h2 + kTailNP * C;         // [kNP][C]         (aliases h2)
   float* yln = h2 + 2 * kTailNP * C;    // [kNP][C] LN(xm)  (aliases h2)
+  float* mk = h2 + 3 * kTailNP * C;     // [kNP][C] mask    (aliases h2)
 
   const int ntx = W / kTailT;
   const int y0 = (ti / ntx) * kTailT - 1, x0 = (ti % ntx) * kTailT - 1;
@@ -132,7 +140,7 @@ __device__ __forceinline__ void block_tail_tile(
   // halo loads (zero outside the image; those pixels' h2 is zeroed below)
   for (int i = threadIdx.x; i < kTailNP * C; i += blockDim.x) {
     const int c = i / kTailNP, p = i % kTailNP;
-    float xv = 0.f, cv = 0.f;
+    float xv = 0.f, cv = 0.f, mv = 0.f;
     if (inside(p)) {
       const size_t off = (size_t)(y0 + p / kTailHT) * W + (x0 + p % kTailHT);
       xv = load_act<kCoherent>(x + ((size_t)b * C + c) * HW + off);
@@ -140,15 +148,17 @@ __device__ __forceinline__ void block_tail_tile(
         cv = load_act<kCoherent>(
             c < C2 ? x1 + ((size_t)b * C2 + c) * HW + off
                    : x2 + ((size_t)b * C2 + (c - C2)) * HW + off);
+      if (kMask) mv = load_act<kCoherent>(mask + ((size_t)b * C + c) * HW + off);
     }
     xm[p * C + c] = xv;
     if (kProj) cat[p * C + c] = cv;
+    if (kMask) mk[p * C + c] = mv;
   }
   __syncthreads();
 
   if (kProj) {
-    pointwise<false, true>(cat, C, wt.wpT, wt.bp, xm, C, kTailNP);
-    __syncthreads();                    // xm = x + proj
+    pointwise<false, true, kMask>(cat, C, wt.wpT, wt.bp, xm, C, kTailNP, mk);
+    __syncthreads();                    // xm = x + (mask *) proj
   }
 
   // channel LayerNorm per pixel (one warp per pixel); keep interior xm

@@ -1,0 +1,150 @@
+"""Wald-protocol synthetic dataset generator (a copy of
+`lgteun_tpu/data/synthetic.py`, numpy and scipy only, with the MTF
+filter design of `lgteun_tpu/metrics/numpy_ref.py::
+mtf_kernel_from_alpha`): a seed gives the same TIFF triples as the JAX
+package's generator.
+
+1. render a full-resolution multispectral scene HrMS [H, W, C] (smooth
+   random fields plus band tints and shared detail, 11-bit)
+2. PAN = band mean of HrMS plus mild detail
+3. LrMS = sensor simulation, decimated x4 (reference
+   model_based_utils.py:144-234 `downgrade_images`): `sensor=None` the
+   default 9x9 Gaussian (wrap border, decimated from offset 0), a sensor
+   name of SENSOR_GNYQ the per-band 41-tap MTF FIR (`nearest` border,
+   decimated from ratio // 2), the recipe of the real training pairs
+4. write `{id}_lr.tif`, `{id}_pan.tif`, `{id}_mul.tif` as uint16 TIFFs
+
+The JAX package's `downgrade_images` also degrades PAN (with PIL in its
+sensor branch), which its scene generator discards; the copy simulates
+only the LrMS.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+from scipy import ndimage, signal
+
+from lgteun_tpu_torch.data.tiff import write_tiff
+
+__all__ = ["make_synthetic_scene", "make_synthetic_dataset", "SENSOR_GNYQ"]
+
+# Per-sensor MTF gains at Nyquist (band array, PAN), reference
+# model_based_utils.py:157-181; dtypes as the reference builds them.
+SENSOR_GNYQ = {
+    "QB": (np.asarray([0.34, 0.32, 0.30, 0.22], dtype="float32"), 0.15),
+    "IKONOS": (np.asarray([0.26, 0.28, 0.29, 0.28], dtype="float32"), 0.17),
+    "GeoEye1": (np.asarray([0.23, 0.23, 0.23, 0.23], dtype="float32"), 0.16),
+    "WV2": (np.asarray([0.35] * 7 + [0.27]), 0.11),
+    "WV3": (0.29 * np.ones(8), 0.15),
+}
+
+
+def _mtf_kernel_from_alpha(alpha: float, n: int = 41) -> np.ndarray:
+    """Gaussian response, radial Kaiser window (beta 0.5) and the window
+    method's FIR design for the Gaussian std `alpha` (reference
+    metrics.py:190-236)."""
+    t = np.arange(-(n - 1) // 2, (n + 2) // 2, dtype=np.float64)
+    t1, t2 = np.meshgrid(t, t)
+    h = np.exp(-0.5 * (t1 / alpha) ** 2) * np.exp(-0.5 * (t2 / alpha) ** 2)
+    hd = h / h.max()
+    tk = t / float(n - 1)
+    t1k, t2k = np.meshgrid(tk, tk)
+    radius = np.sqrt(t1k * t1k + t2k * t2k)
+    w = np.interp(radius, tk, np.kaiser(n, 0.5))
+    w[radius > tk[-1]] = 0
+    w[radius < tk[0]] = 0
+    hd_r = np.rot90(np.fft.fftshift(np.rot90(hd, 2)), 2)
+    fir = np.rot90(np.fft.fftshift(np.fft.ifft2(hd_r)), 2) * w
+    return np.real(fir / fir.sum())
+
+
+def _mtf_fir(gnyq, ratio: int, n: int = 41) -> np.ndarray:
+    """41-tap MTF lowpass for one Nyquist gain, alpha computed with
+    `downgrade_images`' own arithmetic (float64 fcut against the gain
+    table's dtype, reference model_based_utils.py:153, 206)."""
+    fcut = 1 / np.double(ratio)
+    alpha = np.sqrt(((n - 1) * (fcut / 2)) ** 2 / (-2 * np.log(gnyq)))
+    return _mtf_kernel_from_alpha(float(alpha), n)
+
+
+def _default_gaussian_kernel(ratio: int) -> np.ndarray:
+    """9x9 separable Gaussian of the default branch (reference
+    model_based_utils.py:184-186)."""
+    sig = (1.0 / (2.0 * 2.772587 / ratio**2)) ** 0.5
+    x = np.arange(9) - 4.0
+    g = np.exp(-(x * x) / (2 * sig * sig))
+    g /= g.sum()
+    return np.outer(g, g)
+
+
+def _degrade_ms(ms: np.ndarray, ratio: int, sensor: str | None):
+    """LrMS [h, w, C] float64 of the reference's `downgrade_images`."""
+    ms = np.double(ms)
+    if sensor is None:
+        kernel = _default_gaussian_kernel(ratio)
+        return np.stack([
+            signal.convolve2d(ms[..., b], kernel, mode="same",
+                              boundary="wrap")[::ratio, ::ratio]
+            for b in range(ms.shape[-1])], axis=-1)
+    if sensor not in SENSOR_GNYQ:
+        raise KeyError(f"unknown sensor {sensor!r}; known: "
+                       f"{sorted(SENSOR_GNYQ)} (or None for the default "
+                       f"Gaussian branch)")
+    gnyq = SENSOR_GNYQ[sensor][0]
+    if len(gnyq) < ms.shape[-1]:
+        raise ValueError(f"sensor {sensor} has {len(gnyq)} bands; "
+                         f"MS has {ms.shape[-1]}")
+    start = ratio // 2
+    ms_lp = np.stack([ndimage.correlate(ms[..., b], _mtf_fir(gnyq[b], ratio),
+                                        mode="nearest")
+                      for b in range(ms.shape[-1])], axis=-1)
+    return ms_lp[start:-1:ratio, start:-1:ratio]
+
+
+def _smooth_field(rng: np.random.Generator, h: int, w: int,
+                  sigma: float) -> np.ndarray:
+    x = rng.standard_normal((h, w))
+    x = ndimage.gaussian_filter(x, sigma, mode="wrap")
+    x -= x.min()
+    x /= max(x.max(), 1e-9)
+    return x
+
+
+def make_synthetic_scene(rng: np.random.Generator, size: int = 128,
+                         bands: int = 4, ratio: int = 4,
+                         sensor: str | None = None):
+    """(lrms [s/r, s/r, C], pan [s, s], hrms [s, s, C]) uint16."""
+    base = _smooth_field(rng, size, size, sigma=8.0)
+    detail = _smooth_field(rng, size, size, sigma=1.5)
+    hrms = np.zeros((size, size, bands))
+    for b in range(bands):
+        band_tint = _smooth_field(rng, size, size, sigma=16.0)
+        hrms[..., b] = 0.55 * base + 0.3 * band_tint + 0.15 * detail
+    hrms = np.clip(hrms, 0, 1) * 1800.0 + 100.0  # inside the 11-bit range
+    pan = hrms.mean(axis=-1) * 0.9 + 0.1 * detail * 1800.0
+    lr = _degrade_ms(hrms, ratio, sensor)
+    to_u16 = lambda a: np.clip(np.round(a), 0, 2047).astype(np.uint16)
+    return to_u16(lr), to_u16(pan), to_u16(hrms)
+
+
+def make_synthetic_dataset(root: str, n_train: int = 8, n_test: int = 4,
+                           bands: int = 4, size: int = 128,
+                           seed: int = 19971118,
+                           sensor: str | None = None) -> dict:
+    """Write train/ and test/ splits of synthetic TIFF triples
+    ({id}_lr/_pan/_mul.tif); returns {'train': dir, 'test': dir}."""
+    rng = np.random.default_rng(seed)
+    dirs = {}
+    for split, n in (("train", n_train), ("test", n_test)):
+        d = os.path.join(root, split)
+        os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            lr, pan, hr = make_synthetic_scene(rng, size, bands,
+                                               sensor=sensor)
+            write_tiff(os.path.join(d, f"{split}{i:03d}_lr.tif"), lr)
+            write_tiff(os.path.join(d, f"{split}{i:03d}_pan.tif"), pan)
+            write_tiff(os.path.join(d, f"{split}{i:03d}_mul.tif"), hr)
+        dirs[split] = d
+    return dirs

@@ -8,7 +8,7 @@ from lgteun_tpu_torch.models.innt import GPPNNINNT
 from lgteun_tpu_torch.models.lgteun import LGTEUN
 from lgteun_tpu_torch.models.lightnet import LightNetModule
 from lgteun_tpu_torch.models.mdcun import PanUnfolding
-from lgteun_tpu_torch.ops import fuse_level
+from lgteun_tpu_torch.ops import fuse_level, windows_layout_attention
 from lgteun_tpu_torch.registry import MODELS
 
 __all__ = ["UnlgFormer", "lightnet", "MDCUN", "INNT", "TorchMethod"]
@@ -17,15 +17,22 @@ __all__ = ["UnlgFormer", "lightnet", "MDCUN", "INNT", "TorchMethod"]
 @MODELS.register()
 class UnlgFormer(TorchMethod):
     """LGTEUN flagship (reference models/unlg_former.py:70-113), eval
-    path: K = `model_cfg["core_module"]["stage"]` unfolding steps
-    (default 5, as in the JAX Method), embed 4 * ms_chans. Each LGB block
-    runs as `LGTEUN_FUSE_LEVEL` says when the method is built
-    (`ops.fuse_level`)."""
+    and training: K = `model_cfg["core_module"]["stage"]` unfolding steps
+    (default 5, as in the JAX Method), embed 4 * ms_chans, Dropout
+    `drop_rate` (default 0.1) after each mixer proj in training. Each LGB
+    block runs as `LGTEUN_FUSE_LEVEL` and `LGTEUN_FUSED_ATTENTION` say
+    when the method is built (`ops.fuse_level`,
+    `ops.windows_layout_attention`)."""
 
     def make_module(self):
         g_cfg = dict(self.cfg.model_cfg.get("core_module", {}))
         return LGTEUN(ms_chans=self.cfg.ms_chans,
-                      stage=g_cfg.get("stage", 5), level=fuse_level())
+                      stage=g_cfg.get("stage", 5), level=fuse_level(),
+                      drop_rate=g_cfg.get("drop_rate", 0.1),
+                      windows=windows_layout_attention())
+
+    def forward(self, ms, pan, generator=None):
+        return self.module(ms, pan, generator)
 
 
 @MODELS.register()

@@ -4,9 +4,18 @@
 A `TorchMethod` owns one `nn.Module` (the reference's `core_module`) on
 an explicit device. The module is built on the meta device and gets
 storage from `init_params(generator)` (seeded torch-default init) or
-`load_state_dict` (reference-keyed weights). `apply(batch)` keeps the
-JAX Method's batch layout: NHWC `input_lr` [B, h, w, C] and `input_pan`
-[B, 4h, 4w, 1] in, NHWC [B, 4h, 4w, C] out.
+`load_state_dict` (reference-keyed weights). It starts in eval mode;
+`train()` / `eval()` switch it. Both entries keep the JAX Method's batch
+layout, NHWC `input_lr` [B, h, w, C] and `input_pan` [B, 4h, 4w, 1]:
+
+    apply(batch)                  inference (torch.inference_mode), NHWC
+                                  [B, 4h, 4w, C] out
+    losses(batch, generator)      the training loss with its autograd
+                                  graph: weighted reconstruction losses
+                                  against batch["target"] plus
+                                  "full_loss", as `Method.losses`
+                                  (`lgteun_tpu/models/base.py:56-88`);
+                                  `generator` draws the dropout masks
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ import torch
 from torch import nn
 
 from lgteun_tpu_torch.config import Config
+from lgteun_tpu_torch.losses import build_loss_weights, reconstruction_loss
 from lgteun_tpu_torch.models.common.layers import init_parameters
 
 __all__ = ["TorchMethod"]
@@ -29,8 +39,7 @@ def _nchw(a, device: torch.device) -> torch.Tensor:
 
 
 class TorchMethod:
-    """One core module on one device, eval only (training is a later
-    slice)."""
+    """One core module on one device."""
 
     def __init__(self, cfg: Config, device):
         self.cfg = cfg
@@ -42,6 +51,12 @@ class TorchMethod:
     def make_module(self) -> nn.Module:
         raise NotImplementedError
 
+    def forward(self, ms: torch.Tensor, pan: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """The module on NCHW inputs; `generator` is for a module with
+        dropout (UnlgFormer) and ignored here."""
+        return self.module(ms, pan)
+
     def init_params(self, generator: torch.Generator) -> "TorchMethod":
         """Allocate on `self.device` and draw every parameter from
         `generator` (a CPU generator: the draws are made on the CPU and
@@ -52,12 +67,22 @@ class TorchMethod:
         return self
 
     def load_state_dict(self, state_dict: dict, strict: bool = True):
-        """Load reference-keyed weights (see `convert/from_jax.py`)."""
-        self.module.to_empty(device=self.device)
+        """Load reference-keyed weights (see `convert/from_jax.py`), in
+        place once the module has storage (an optimizer keeps its
+        parameters)."""
+        if any(p.is_meta for p in self.module.parameters()):
+            self.module.to_empty(device=self.device)
         return self.module.load_state_dict(state_dict, strict=strict)
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.module.parameters())
+
+    def train(self, mode: bool = True) -> "TorchMethod":
+        self.module.train(mode)
+        return self
+
+    def eval(self) -> "TorchMethod":
+        return self.train(False)
 
     @torch.inference_mode()
     def apply(self, batch: dict) -> torch.Tensor:
@@ -65,4 +90,20 @@ class TorchMethod:
         `self.device`."""
         ms = _nchw(batch["input_lr"], self.device)
         pan = _nchw(batch["input_pan"], self.device)
-        return self.module(ms, pan).permute(0, 2, 3, 1)
+        return self.forward(ms, pan).permute(0, 2, 3, 1)
+
+    def losses(self, batch: dict, generator: torch.Generator | None = None):
+        """-> (total, {name: value}) with gradients; batch as `apply`'s
+        plus `target` [B, 4h, 4w, C]."""
+        out = self.forward(_nchw(batch["input_lr"], self.device),
+                           _nchw(batch["input_pan"], self.device), generator)
+        target = _nchw(batch["target"], self.device)
+        total = torch.zeros((), device=self.device)
+        parts = {}
+        for name, lcfg in build_loss_weights(self.cfg.loss_cfg).items():
+            if "rec_loss" not in name:
+                continue
+            parts[name] = reconstruction_loss(out, target, lcfg.type)
+            total = total + lcfg.w * parts[name]
+        parts["full_loss"] = total
+        return total, parts

@@ -24,6 +24,24 @@ LGB block runs is chosen by `LGTEUN_FUSE_LEVEL` when the method is built
                        x = ln_ffn(x + proj([x1; x2]))
     level 3            x = lgb_block(x)              the block in one kernel
 
+With `LGTEUN_FUSED_ATTENTION=v2` (`ops.windows_layout_attention`, read
+when the method is built) levels 1 and 2 run the local mixer as the JAX
+module path's `LocalMixer` does with that flag (`lgteun_tpu/models/
+common/lgt.py:112-138`): partition into [N, C, S] windows,
+`window_attention_windows`, unpartition. Level 3 ignores the flag.
+
+Training (`module.train()` and a `generator`): the reference's
+Dropout(drop_rate) after the mixer proj draws one mask per block from
+the generator, on x's device, as `lgteun_tpu/models/lgteun_fast.py::
+_lgb_cm` draws one per block from its rng (a different random stream:
+torch's, not JAX's). At level 2 the mask goes into `block_tail_masked`;
+at level 1 it multiplies the proj output in plain torch before
+`ln_ffn`. Without a generator no mask is drawn (as the JAX path's
+rng=None). The whole-block kernel has no backward and no mask, so level
+3 runs level 2's chain whenever a gradient is recorded or a mask is
+drawn. Every other wrapper is differentiable on the card (its kernel
+forward with the plain version's backward, `ops.autograd`).
+
 The JAX fast path also tests shapes for the TPU's lanes (H*W % 128,
 W % 128, window-pair parity: `lgteun_tpu/models/lgteun_fast.py:251,
 273, 315, 347-355`), leaves the mixer to XLA at level 1 and has a level
@@ -32,9 +50,6 @@ levels below 1 read as 2, so no plain version runs on a card (on a CPU
 tensor every wrapper runs its plain version). The LN and the 1x1 proj
 of level 1 are plain torch, as `_ln_cm` / `_pointconv_cm` are plain XLA
 in JAX.
-
-Dropout(0.1) after the mixer proj is inert at eval and is not modelled
-(training is a later slice).
 """
 
 from __future__ import annotations
@@ -53,12 +68,16 @@ from lgteun_tpu_torch.models.common.layers import (
     Resample,
     trunc_normal_,
 )
-from lgteun_tpu_torch.ops.ffn_kernel import block_tail, ln_ffn
+from lgteun_tpu_torch.ops.ffn_kernel import (block_tail, block_tail_masked,
+                                             ln_ffn)
 from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
                                                   ln_mixer_head)
-from lgteun_tpu_torch.ops.window_attention import window_attention
+from lgteun_tpu_torch.ops.window_attention import (window_attention,
+                                                   window_attention_windows,
+                                                   window_partition,
+                                                   window_unpartition)
 
 __all__ = ["LocalMixer", "GlobalMixer", "LGMixer", "FeedForward", "LGB",
            "LGT"]
@@ -157,9 +176,11 @@ class LGB(nn.Module):
     docstring)."""
 
     def __init__(self, ch: int, num_blocks: int, win: int = 8,
-                 heads: int = 2, level: int = 2):
+                 heads: int = 2, level: int = 2, drop_rate: float = 0.1,
+                 windows: bool = False):
         super().__init__()
         self.win, self.heads, self.level = win, heads, level
+        self.drop_rate, self.windows = drop_rate, windows
         self.blocks = nn.ModuleList(
             nn.ModuleList([
                 _Residual(_PreNorm(ch, LGMixer(ch, win, heads))),
@@ -211,30 +232,52 @@ class LGB(nn.Module):
                         "w3": net[4].weight.view(c, c4),
                         "b3": net[4].bias}}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _local_mixer(self, y1: torch.Tensor, blk: dict) -> torch.Tensor:
+        attn = (blk["wqkv"], blk["bqkv"], blk["pos"], self.heads)
+        if not self.windows:
+            return window_attention(y1, *attn, self.win)
+        h, w = y1.shape[-2:]
+        out = window_attention_windows(window_partition(y1, self.win), *attn)
+        return window_unpartition(out, self.win, h, w)
+
+    def _drop_mask(self, x: torch.Tensor, generator):
+        """The block's dropout mask [B, C, H, W] (0 or 1/keep), or None
+        outside training, at rate 0 or without a generator."""
+        if not (self.training and self.drop_rate > 0
+                and generator is not None):
+            return None
+        keep = 1.0 - self.drop_rate
+        draw = torch.rand(x.shape, generator=generator, device=x.device)
+        return (draw < keep).to(x.dtype) * (1.0 / keep)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         heads, win = self.heads, self.win
         for i, (mix_res, _) in enumerate(self.blocks):
             eps = mix_res.fn.norm.eps
             blk = self._params(i)
             mixer = [blk[k] for k in ("amp_w", "amp_b", "pha_w", "pha_b")]
-            attn = (blk["wqkv"], blk["bqkv"], blk["pos"], heads, win)
-            if self.level >= 3:
+            mask = self._drop_mask(x, generator)
+            if (self.level >= 3 and mask is None
+                    and not torch.is_grad_enabled()):
                 x = lgb_block(x, blk, heads, win, eps)
             elif self.level == 1:
                 y = channel_layer_norm(x, blk["ln_w"], blk["ln_b"], eps)
                 c2 = x.shape[1] // 2
-                x1 = window_attention(y[:, :c2].contiguous(), *attn)
+                x1 = self._local_mixer(y[:, :c2].contiguous(), blk)
                 x2 = global_mixer(y[:, c2:].contiguous(), *mixer)
-                x = x + F.conv2d(torch.cat([x1, x2], dim=1),
+                mixed = F.conv2d(torch.cat([x1, x2], dim=1),
                                  blk["proj_w"][:, :, None, None],
                                  blk["proj_b"])
+                x = x + (mixed if mask is None else mixed * mask)
                 x = ln_ffn(x, blk["ffn"], eps=eps)
             else:
                 y1, x2 = ln_mixer_head(x, blk["ln_w"], blk["ln_b"], *mixer,
                                        eps=eps)
-                x1 = window_attention(y1, *attn)
-                x = block_tail(x, x1, x2, blk["proj_w"], blk["proj_b"],
-                               blk["ffn"], eps=eps)
+                x1 = self._local_mixer(y1, blk)
+                tail = (blk["proj_w"], blk["proj_b"], blk["ffn"])
+                x = (block_tail(x, x1, x2, *tail, eps=eps) if mask is None
+                     else block_tail_masked(x, x1, x2, mask, *tail, eps=eps))
         return x
 
 
@@ -258,39 +301,41 @@ class LGT(nn.Module):
 
     def __init__(self, in_ch: int, embed: int, win: int = 8,
                  num_block: Sequence[int] = (2, 1), heads: int = 2,
-                 level: int = 2):
+                 level: int = 2, drop_rate: float = 0.1,
+                 windows: bool = False):
         super().__init__()
         self.patch_embed = _PatchEmbed(in_ch, embed)
         scales = len(num_block)
+        lgb = lambda c, n: LGB(c, n, win, heads, level, drop_rate, windows)
         ch = embed
         enc = []
         for i in range(scales - 1):
             enc.append(nn.ModuleList([
-                LGB(ch, num_block[i], win, heads, level),
+                lgb(ch, num_block[i]),
                 nn.Sequential(Resample(0.5), PointConv(ch, ch * 2))]))
             ch *= 2
         self.encoder_layers = nn.ModuleList(enc)
-        self.bottleneck = LGB(ch, num_block[-1], win, heads, level)
+        self.bottleneck = lgb(ch, num_block[-1])
         dec = []
         for i in range(scales - 1):
             dec.append(nn.ModuleList([
                 nn.Sequential(Resample(2), PointConv(ch, ch // 2)),
                 PointConv(ch, ch // 2),
-                LGB(ch // 2, num_block[scales - 2 - i], win, heads,
-                    level)]))
+                lgb(ch // 2, num_block[scales - 2 - i])]))
             ch //= 2
         self.decoder_layers = nn.ModuleList(dec)
         self.tail = nn.Sequential(Resample(1), PointConv(embed, in_ch))
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         fea = self.patch_embed(z)
         skips = []
         for lgb, down in self.encoder_layers:
-            fea = lgb(fea)
+            fea = lgb(fea, generator)
             skips.append(fea)
             fea = down(fea)
-        fea = self.bottleneck(fea)
+        fea = self.bottleneck(fea, generator)
         for up, fuse, lgb in self.decoder_layers:
             fea = fuse(torch.cat([up(fea), skips.pop()], dim=1))
-            fea = lgb(fea)
+            fea = lgb(fea, generator)
         return self.tail(fea) + z

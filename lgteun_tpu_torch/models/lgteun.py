@@ -10,7 +10,8 @@ The reference records every prior's output but never feeds it back into
 Z and returns only the last one, so the earlier priors are dead code.
 They keep their parameters (checkpoints carry them) but are not run:
 torch has no dead-code elimination, and running them would double the
-prior's cost for outputs the reference throws away.
+prior's cost for outputs the reference throws away. In training they get
+no gradient (`.grad` stays None; JAX's is exactly zero).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ class LGTEUN(nn.Module):
     """ms [B, C, h, w] + pan [B, 1, 4h, 4w] -> HrMS [B, C, 4h, 4w]."""
 
     def __init__(self, ms_chans: int, stage: int = 2, window_size: int = 8,
-                 num_heads: int = 2, level: int = 2):
+                 num_heads: int = 2, level: int = 2, drop_rate: float = 0.1,
+                 windows: bool = False):
         super().__init__()
         c = ms_chans
         self.stage = stage
@@ -46,7 +48,8 @@ class LGTEUN(nn.Module):
         self.eta = nn.ParameterList(
             nn.Parameter(torch.empty(())) for _ in range(stage))
         self.prior_module = nn.ModuleList(
-            LGT(c, c * 4, window_size, (2, 1), num_heads, level)
+            LGT(c, c * 4, window_size, (2, 1), num_heads, level, drop_rate,
+                windows)
             for _ in range(stage))
 
     @torch.no_grad()
@@ -54,10 +57,13 @@ class LGTEUN(nn.Module):
         for eta in self.eta:
             eta.fill_(0.1)
 
-    def forward(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
+    def forward(self, ms: torch.Tensor, pan: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """`generator` draws the priors' dropout masks in training
+        (`common/lgt.py`)."""
         z = sampling(ms, 4)
         for eta in self.eta:
             ms_term = self.DT(self.D(z) - ms)
             pan_term = self.RT(self.R(z) - pan)
             z = z - eta * (ms_term + pan_term)
-        return self.prior_module[self.stage - 1](z)
+        return self.prior_module[self.stage - 1](z, generator)

@@ -26,3 +26,14 @@ def fuse_level() -> int:
     except ValueError:
         return 2
     return level if level >= 1 else 2
+
+
+def windows_layout_attention() -> bool:
+    """True when env LGTEUN_FUSED_ATTENTION is "v2" (read when a method
+    is built): the local mixer of fuse levels 1 and 2 then partitions
+    its input into [N, C, S] windows and runs `window_attention_windows`
+    (B6, the JAX package's pinned v2 kernel) instead of
+    `window_attention` on the image. Level 3 ignores it, as the JAX fast
+    path does. Every other value, the JAX package's "0" (its XLA path)
+    included, reads as the default: a card always runs kernels."""
+    return _os.environ.get("LGTEUN_FUSED_ATTENTION", "1") == "v2"

@@ -24,7 +24,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "kernels", "launch",
-           "check_cuda_f32", "weight_layout"]
+           "plain_on_cpu", "check_cuda_f32", "weight_layout"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lgteun_tpu_torch"
@@ -46,9 +46,12 @@ SIGNATURES = {
     "lgteun_lgb_block": [_P] * 25 + [_I] * 7 + [_F, _F, _P],
     # x, wqkv, bqkv, pos, out, B, C, H, W, heads, win, scale, stream
     "lgteun_window_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
-    # x, x1, x2, wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T, b3,
-    # out, B, C, C4, H, W, eps, stream
-    "lgteun_block_tail": [_P] * 16 + [_I] * 5 + [_F, _P],
+    # x, wqkv, bqkv, pos, out, N, C, heads, win, scale, stream
+    "lgteun_window_attention_windows": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "lgteun_window_attention_rows": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # x, x1, x2, mask (or null), wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw,
+    # bdw, w3T, b3, out, B, C, C4, H, W, eps, stream
+    "lgteun_block_tail": [_P] * 17 + [_I] * 5 + [_F, _P],
     # in, in_c, lms, wts, out, table (host), n, B, H, W, stream
     "lgteun_lightnet_group": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     # x, wt, wp, wg, ww, out, B, C, H, W, fs, stream
@@ -128,10 +131,19 @@ def kernels() -> ctypes.CDLL:
     return lib
 
 
+def plain_on_cpu(name: str, x: torch.Tensor) -> bool:
+    """True when x lies on the CPU (the wrapper runs its plain version);
+    False on a CUDA device; raise on any other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type == "cpu"
+
+
 def check_cuda_f32(name: str, device: torch.device, **tensors) -> None:
     """Raise unless every tensor is a contiguous float32 tensor on
-    `device` and none needs a gradient (the kernels have no backward
-    yet)."""
+    `device` and none needs a gradient: a kernel has no backward of its
+    own, and the wrappers that are differentiable launch it inside
+    `ops.autograd.recompute`, where gradients are off."""
     for key, t in tensors.items():
         if t.device != device or t.dtype != torch.float32 \
                 or not t.is_contiguous():
@@ -174,7 +186,7 @@ def launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-                for a in args]
+                for a in args]   # None passes as a null pointer
         err = getattr(lib, name)(*conv, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} "

@@ -12,8 +12,9 @@ and `fused_global_mixer_cm` (Pallas), and of `ln_mixer_head_xla_cm` and
          and amp' = amp*amp_w + amp_b, pha' = pha*pha_w + pha_b
 
 `ln_mixer_head` and `global_mixer` launch `csrc/spectral_head.cu` for a
-CUDA tensor and run `ln_mixer_head_ref` / `global_mixer_ref` for a CPU
-tensor. The kernel holds one complex plane in shared memory, so it takes
+CUDA tensor, differentiable there (`ops.autograd.recompute`: the kernel
+forward, the plain version's backward), and run `ln_mixer_head_ref` /
+`global_mixer_ref` for a CPU tensor. The kernel holds one complex plane in shared memory, so it takes
 any even H, W (2^a * odd, a >= 1, the odd part at most 512) whose plane
 fits: 8 * (H*W + H + W + odd(H) + odd(W)) + 4 * (W/2 + 1) bytes <=
 232,448 (the H100's shared memory a block), e.g. 168 x 168; beyond that
@@ -31,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 
 __all__ = ["ln_mixer_head", "ln_mixer_head_ref", "global_mixer",
@@ -52,7 +54,11 @@ def global_mixer_ref(x: torch.Tensor, amp_w: torch.Tensor,
     across the branch cut), and the inverse is an explicit H inverse
     followed by a c2r along W that drops the imaginary parts of bins 0
     and W/2 (irfft2's semantics; cuFFT's 2-D c2r is undefined for the
-    non-hermitian spectrum the mixer makes)."""
+    non-hermitian spectrum the mixer makes).
+
+    The gradient stays finite at exactly zero bins (a constant plane):
+    the double `where` hands |z| and angle(z) a safe point there, as
+    `lgteun_tpu/models/common/lgt.py:173-181` does (ROADMAP C.2)."""
     h, w = x.shape[-2:]
     z = torch.fft.rfft2(x, norm="backward")
     re, im = z.real, z.imag.clone()
@@ -106,28 +112,33 @@ def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
                   eps: float = 1e-5):
     """Mixer head on [B, C, H, W] -> (y1, x2), each [B, C/2, H, W].
     ln_w/ln_b: [C]; amp_w/amp_b/pha_w/pha_b: [C/2]."""
-    if x.device.type == "cpu":
+    if _cuda.plain_on_cpu("ln_mixer_head", x):
         return ln_mixer_head_ref(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
                                  eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"ln_mixer_head: unsupported device {x.device}")
-    b, c, h, w = x.shape
-    c2 = c // 2
-    if c % 2:
-        raise ValueError(f"ln_mixer_head: need even C, got {tuple(x.shape)}")
-    _check_plane("ln_mixer_head", x)
-    if ln_w.shape != (c,) or ln_b.shape != (c,) or any(
-            p.shape != (c2,) for p in (amp_w, amp_b, pha_w, pha_b)):
-        raise ValueError("ln_mixer_head: parameter shapes do not match C")
-    _cuda.check_cuda_f32("ln_mixer_head", x.device, x=x, ln_w=ln_w,
-                         ln_b=ln_b, amp_w=amp_w, amp_b=amp_b, pha_w=pha_w,
-                         pha_b=pha_b)
-    y1 = torch.empty((b, c2, h, w), device=x.device, dtype=x.dtype)
-    x2 = torch.empty_like(y1)
-    _cuda.launch("lgteun_ln_mixer_head", x.device, x, ln_w, ln_b, amp_w,
-                 amp_b, pha_w, pha_b, y1, x2, b, c, h, w, eps)
-    ln_mixer_head.launches += 1
-    return y1, x2
+
+    def kernel(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b):
+        b, c, h, w = x.shape
+        c2 = c // 2
+        if c % 2:
+            raise ValueError(f"ln_mixer_head: need even C, got "
+                             f"{tuple(x.shape)}")
+        _check_plane("ln_mixer_head", x)
+        if ln_w.shape != (c,) or ln_b.shape != (c,) or any(
+                p.shape != (c2,) for p in (amp_w, amp_b, pha_w, pha_b)):
+            raise ValueError("ln_mixer_head: parameter shapes do not match "
+                             "C")
+        _cuda.check_cuda_f32("ln_mixer_head", x.device, x=x, ln_w=ln_w,
+                             ln_b=ln_b, amp_w=amp_w, amp_b=amp_b,
+                             pha_w=pha_w, pha_b=pha_b)
+        y1 = torch.empty((b, c2, h, w), device=x.device, dtype=x.dtype)
+        x2 = torch.empty_like(y1)
+        _cuda.launch("lgteun_ln_mixer_head", x.device, x, ln_w, ln_b, amp_w,
+                     amp_b, pha_w, pha_b, y1, x2, b, c, h, w, eps)
+        ln_mixer_head.launches += 1
+        return y1, x2
+
+    return recompute(kernel, lambda *t: ln_mixer_head_ref(*t, eps), x, ln_w,
+                     ln_b, amp_w, amp_b, pha_w, pha_b)
 
 
 ln_mixer_head.launches = 0
@@ -136,21 +147,23 @@ ln_mixer_head.launches = 0
 def global_mixer(x, amp_w, amp_b, pha_w, pha_b):
     """FFT amp/phase mixer on [B, C, H, W] -> [B, C, H, W] (same
     contract as `global_mixer_ref`); amp_w/amp_b/pha_w/pha_b: [C]."""
-    if x.device.type == "cpu":
+    if _cuda.plain_on_cpu("global_mixer", x):
         return global_mixer_ref(x, amp_w, amp_b, pha_w, pha_b)
-    if x.device.type != "cuda":
-        raise ValueError(f"global_mixer: unsupported device {x.device}")
-    b, c, h, w = x.shape
-    _check_plane("global_mixer", x)
-    if any(p.shape != (c,) for p in (amp_w, amp_b, pha_w, pha_b)):
-        raise ValueError("global_mixer: parameter shapes do not match C")
-    _cuda.check_cuda_f32("global_mixer", x.device, x=x, amp_w=amp_w,
-                         amp_b=amp_b, pha_w=pha_w, pha_b=pha_b)
-    out = torch.empty_like(x)
-    _cuda.launch("lgteun_global_mixer", x.device, x, amp_w, amp_b, pha_w,
-                 pha_b, out, b, c, h, w)
-    global_mixer.launches += 1
-    return out
+
+    def kernel(x, amp_w, amp_b, pha_w, pha_b):
+        b, c, h, w = x.shape
+        _check_plane("global_mixer", x)
+        if any(p.shape != (c,) for p in (amp_w, amp_b, pha_w, pha_b)):
+            raise ValueError("global_mixer: parameter shapes do not match C")
+        _cuda.check_cuda_f32("global_mixer", x.device, x=x, amp_w=amp_w,
+                             amp_b=amp_b, pha_w=pha_w, pha_b=pha_b)
+        out = torch.empty_like(x)
+        _cuda.launch("lgteun_global_mixer", x.device, x, amp_w, amp_b, pha_w,
+                     pha_b, out, b, c, h, w)
+        global_mixer.launches += 1
+        return out
+
+    return recompute(kernel, global_mixer_ref, x, amp_w, amp_b, pha_w, pha_b)
 
 
 global_mixer.launches = 0

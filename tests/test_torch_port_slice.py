@@ -111,14 +111,20 @@ def test_runner_psnr_matches_jax_metric():
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
-def test_port_imports_no_jax():
-    """The port runs a forward of every registered method in a fresh
-    process without jax, flax or the JAX package."""
+def test_port_imports_no_jax(tmp_path):
+    """The port runs a forward of every registered method, and one
+    UnlgFormer training step on a synthetic dataset, in a fresh process
+    without jax, flax or the JAX package."""
     code = textwrap.dedent("""
-        import sys
+        import sys, tempfile
         import numpy as np, torch
-        from lgteun_tpu_torch.config import Config
+        from lgteun_tpu_torch import losses
+        from lgteun_tpu_torch.config import Config, LoaderCfg, LossCfg
+        from lgteun_tpu_torch.data.dataset import PSDataset
+        from lgteun_tpu_torch.data.synthetic import make_synthetic_dataset
+        from lgteun_tpu_torch.ops import autograd
         from lgteun_tpu_torch.registry import MODELS, build_model
+        from lgteun_tpu_torch.runner import Runner
         batch = {"input_lr": np.zeros((1, 8, 8, 4), np.float32),
                  "input_pan": np.zeros((1, 32, 32, 1), np.float32)}
         for name in ("UnlgFormer", "lightnet", "MDCUN", "INNT"):
@@ -130,6 +136,15 @@ def test_port_imports_no_jax():
             assert out.shape == (1, 32, 32, 4) and torch.isfinite(out).all()
         assert sorted(MODELS._entries) == ["INNT", "MDCUN", "UnlgFormer",
                                            "lightnet"]
+        root = tempfile.mkdtemp(dir=sys.argv[1])
+        data = make_synthetic_dataset(root, 2, 0, bands=4, size=32, seed=0)
+        cfg = Config(ms_chans=4, max_iter=1, save_freq=0, work_dir=root,
+                     model_cfg={"core_module": {"stage": 2}},
+                     train_set_cfg=LoaderCfg(batch_size=2),
+                     loss_cfg={"rec_loss": LossCfg("l1")})
+        runner = Runner(cfg, build_model("UnlgFormer", cfg, device="cpu"),
+                        "cpu", train_ds=PSDataset([data["train"]]))
+        assert runner.init().train().last_iter == 1
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "lgteun_tpu"))
@@ -137,19 +152,30 @@ def test_port_imports_no_jax():
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 def test_shipped_config_loads_as_in_the_jax_package():
     """The port's load_config reads the shipped UnlgFormer config into
-    the same values as the JAX package's, for every field it keeps."""
+    the same values as the JAX package's, for every field it keeps (the
+    nested configs field by field: they are the port's own
+    dataclasses)."""
     path = os.path.join(REPO, "lgteun_tpu", "configs", "unlg_former.py")
     got, want = load_config(path), jax_load_config(path)
+
+    def plain(v):
+        if dataclasses.is_dataclass(v):
+            return dataclasses.asdict(v)
+        return {k: plain(x) for k, x in v.items()} if isinstance(
+            v, dict) else v
+
     for f in dataclasses.fields(PortConfig):
         if f.name != "extras":
-            assert getattr(got, f.name) == getattr(want, f.name), f.name
+            assert plain(getattr(got, f.name)) == plain(
+                getattr(want, f.name)), f.name
     assert (got.model_type, got.ms_chans, got.eval_batch_size) == (
         "UnlgFormer", 8, 16)
     assert got.get("max_iter") == want.max_iter

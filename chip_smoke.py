@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from `lgteun_tpu_torch/csrc` with nvcc,
 holds each kernel against its plain PyTorch version at the main paths'
 shapes (and the scene engine's three LGB kernels at 144^2 / 72^2; the
 window attention also in its [N, C, S] and [N*S, C] layouts, the block
-tail also with a seeded dropout mask), holds the differentiable wrappers'
+tail also with a seeded dropout mask, and the tails with and without
+the mask and LN + FFN at 144^2 / 72^2 too and at channel counts the
+tail kernel pads, 12 and 40), holds the differentiable wrappers'
 forward and gradients (kernel forward, recompute backward) against plain
 autograd on the card, then drives each ported eval path through
 `Runner.test` at its config's eval batch size, with random weights from
@@ -61,6 +63,14 @@ For each kernel the JSON line gives its time, its plain version's time,
 its bound (the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s,
 the H100 SXM's published HBM and FP32 rates at 700 W) and the time of
 one PyTorch call that computes the same function, where there is one.
+The block tails, whose 1x1 products run on the tensor cores with the
+3xTF32 split, also get a second bound (those products' operations x 3 at
+495 TFLOP/s TF32, the rest at the FP32 rate) and their achieved TFLOP/s.
+The tails' weight layout (`lgteun_tail_fragments`, TF32 hi/lo slabs in
+wgmma's order) is held bit for bit against its plain version and counted
+a training step; the whole-block kernel is launched B8_REPEATS more times
+on the same inputs and must give the same bits each time; a block wider
+than the tail's tile (C = 96) must be refused by the wrapper's check.
 
 `--profile` adds a torch.profiler (CUPTI) pass over a few forwards of
 each path at batch 1 and at the eval batch, and over a few training
@@ -110,6 +120,9 @@ SCENE_BATCH = 32
 SCENE_TILINGS = ((128, 16, 256), (144, 8, 272))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published, at 700 W
 FP32_FLOPS_PER_S = 67e12    # H100 SXM FP32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
+# the block tails, whose 1x1 products run on the tensor cores (3xTF32)
+TAILS = ("block_tail", "block_tail_masked", "ln_ffn")
 DROP_RATE = 0.1             # the kernel cases' dropout mask
 # a differentiable wrapper vs plain autograd on the card: the backward is
 # the same plain graph on the same saved inputs and the loss is linear in
@@ -147,6 +160,10 @@ GRAD_ATOL = 1e-5
 # level 2's chain): launches per forward
 TRAIN_ROUTE = {"ln_mixer_head": 5, "window_attention": 5,
                "block_tail_masked": 5}
+# the tails' weight layouts remade a training step: proj, W1, W2, W3 of
+# each of the 5 blocks, after every optimizer step
+FRAGMENTS_PER_STEP = 20
+B8_REPEATS = 8              # extra whole-block launches on the same inputs
 
 # name -> (module under lgteun_tpu_torch/ops holding the wrapper and its
 # plain version, the model module that calls it, CUDA source, the TPU
@@ -360,11 +377,28 @@ def kernel_cases(gen: torch.Generator):
     # each through the three kernels of its path (level 2)
     for c, hw in ((32, 144), (64, 72)):
         shape = f"{b}x{c}x{hw}x{hw}"
-        head, attn, _ffn, tail = lgb_args(c, hw)
+        head, attn, ffn, tail = lgb_args(c, hw)
         yield "ln_mixer_head", shape, ln_mixer_head, ln_mixer_head_ref, head
         yield ("window_attention", shape, window_attention,
                window_attention_ref, attn)
         yield "block_tail", shape, block_tail, block_tail_ref, tail
+        yield "ln_ffn", shape, ln_ffn, ln_ffn_ref, (tail[0], ffn)
+        yield "block_tail_masked", shape, block_tail_masked, \
+            block_tail_masked_ref, tail[:3] + (dropout_mask(tail[0]),) + \
+            tail[3:]
+    # channel counts the tail kernel pads (to 32 and to 64 channels)
+    for c, (h, w) in ((12, (16, 24)), (40, (24, 16))):
+        x = n(2, c, h, w)
+        ffn = {"ln_w": 1 + 0.1 * n(c), "ln_b": 0.1 * n(c),
+               "w1": n(4 * c, c, scale=c ** -0.5), "b1": 0.1 * n(4 * c),
+               "w2": n(4 * c, 4 * c, scale=(4 * c) ** -0.5),
+               "b2": 0.1 * n(4 * c), "dw": n(4 * c, 3, 3, scale=1 / 3),
+               "bdw": 0.1 * n(4 * c), "w3": n(c, 4 * c, scale=(4 * c) ** -0.5),
+               "b3": 0.1 * n(c)}
+        yield "block_tail", f"2x{c}x{h}x{w}", block_tail, block_tail_ref, (
+            x, n(2, c // 2, h, w), n(2, c // 2, h, w),
+            n(c, c, scale=c ** -0.5), 0.1 * n(c), ffn)
+        yield "ln_ffn", f"2x{c}x{h}x{w}", ln_ffn, ln_ffn_ref, (x, ffn)
     # and any even size: the shared-memory limit (168^2) and odd parts 5, 7
     for shape in ((b, 16, 72, 72), (1, 4, 168, 168), (2, 8, 40, 56)):
         c = shape[1]
@@ -602,6 +636,24 @@ def bound(name: str, args, outs) -> tuple[float, str]:
                                          else "operations")
 
 
+def tail_pointwise_flops(name: str, x) -> float:
+    """The operations of a tail's four (three for ln_ffn) 1x1 products,
+    which kernel_flops counts among the rest."""
+    b, c, h, w = x.shape
+    return 2 * b * h * w * ((c * c if name != "ln_ffn" else 0) + 24 * c * c)
+
+
+def tc_bound(name: str, args, outs) -> float:
+    """The least ms of a tail with its 1x1 products on the tensor cores:
+    their operations x 3 (the 3xTF32 passes) at the TF32 rate plus the
+    rest at the FP32 rate, or the bytes, whichever is longer."""
+    pw = tail_pointwise_flops(name, args[0])
+    by_ops = (3 * pw / TF32_FLOPS_PER_S
+              + (kernel_flops(name, args) - pw) / FP32_FLOPS_PER_S)
+    by_bytes = (tensor_bytes(args) + tensor_bytes(outs)) / HBM_BYTES_PER_S
+    return max(by_ops, by_bytes) * 1e3
+
+
 @contextlib.contextmanager
 def swapped_kernels(names, replace):
     """In the models that call kernels `names`, call `replace(name, fn)`
@@ -751,6 +803,23 @@ def main() -> int:
         rec["by_shape"][shape] = {"rel_err": rel, "ms": ms,
                                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                                   "bound_by": bound_by}
+        if name == "lgb_block":
+            same = all(torch.equal(kernel(*args), got[0])
+                       for _ in range(B8_REPEATS))
+            print(f"kernel {name:17s} {shape:14s} {B8_REPEATS} more launches "
+                  f"on the same inputs bit-identical: {same}")
+            if not same:
+                raise AssertionError(f"{name} {shape}: not deterministic")
+        if name in TAILS:
+            tc_ms = tc_bound(name, args, want)
+            tflops = kernel_flops(name, args) / ms / 1e9
+            print(f"kernel {name:17s} {shape:14s} tensor-core bound "
+                  f"{tc_ms:.4f} ms (3xTF32 1x1 at {TF32_FLOPS_PER_S / 1e12:g}"
+                  f" TFLOP/s, the rest at {FP32_FLOPS_PER_S / 1e12:g}; share "
+                  f"{tc_ms / ms:.3f})  achieved {tflops:.2f} TFLOP/s")
+            rec["by_shape"][shape].update(tc_bound_ms=tc_ms, tflops=tflops)
+
+    check_tail_layout(gen)
 
     # 3. the differentiable wrappers against plain autograd
     run_autograd(torch.Generator().manual_seed(SEED + 2))
@@ -796,6 +865,41 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def check_tail_layout(gen: torch.Generator) -> None:
+    """The tails' weight layout on the card (lgteun_tail_fragments) bit
+    for bit against ffn_kernel.tail_fragments on the CPU, for each tail
+    matrix at C = 12, 32, 40 and 64 with values over many binades; and the
+    wrapper's refusal of a block wider than the tile holds (C = 96)."""
+    from lgteun_tpu_torch.ops.ffn_kernel import (_fragments, block_tail,
+                                                 tail_fragments, tail_width)
+    n_cases, launches = 0, _fragments.launches
+    for c in (12, 32, 40, 64):
+        cp = tail_width(c)
+        for n, k in ((c, c), (4 * c, c), (4 * c, 4 * c), (c, 4 * c)):
+            w = torch.randn(n, k, generator=gen) * torch.exp2(
+                torch.randint(-40, 40, (n, k), generator=gen).float())
+            got = _fragments(w.cuda(), c).cpu()
+            want = tail_fragments(w, n // c * cp, k // c * cp, cp)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"tail_fragments C {c} [{n}, {k}]: the "
+                                     "card's bits differ from the plain ones")
+            n_cases += 1
+    print(f"tail_fragments: {n_cases} matrices (C 12, 32, 40, 64) bit-equal "
+          f"to the plain layout, {_fragments.launches - launches} launches")
+    c, hw = 96, 16
+    n = lambda *shape: torch.randn(*shape, generator=gen).cuda()
+    ffn = {"ln_w": n(c), "ln_b": n(c), "w1": n(4 * c, c), "b1": n(4 * c),
+           "w2": n(4 * c, 4 * c), "b2": n(4 * c), "dw": n(4 * c, 3, 3),
+           "bdw": n(4 * c), "w3": n(c, 4 * c), "b3": n(c)}
+    try:
+        block_tail(n(1, c, hw, hw), n(1, c // 2, hw, hw),
+                   n(1, c // 2, hw, hw), n(c, c), n(c), ffn)
+    except ValueError as e:
+        print(f"block_tail at C = {c}: refused before any launch ({e})")
+    else:
+        raise AssertionError(f"block_tail at C = {c} was not refused")
 
 
 def dropout_mask(x: torch.Tensor, seed: int = SEED) -> torch.Tensor:
@@ -1219,10 +1323,12 @@ def run_training(card: str, profile: bool):
         raise AssertionError("resumed run departs from the uninterrupted one")
 
     # step time at each batch: the device step (forward, backward, Adam)
+    from lgteun_tpu_torch.ops.ffn_kernel import _fragments
     for bsz in TRAIN_BATCHES:
         batch = runner.to_device(next(train_iterator(
             train_ds, bsz, bit_depth=cfg.bit_depth, seed=SEED)))
         times = []
+        made = _fragments.launches
         for i in range(3 + TRAIN_TIMED):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1230,11 +1336,15 @@ def run_training(card: str, profile: bool):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         med = statistics.median(times[3:])
+        made = (_fragments.launches - made) / (3 + TRAIN_TIMED)
         print(f"train step batch {bsz}: median {med * 1e3:.3f} ms (min "
               f"{min(times[3:]) * 1e3:.3f}) of {TRAIN_TIMED} = "
               f"{bsz / med:.1f} images/s; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB  "
-              f"[{card}]")
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"tail_fragments launches a step {made:g}  [{card}]")
+        if made != FRAGMENTS_PER_STEP:
+            raise AssertionError(f"tail_fragments: {made} launches a step, "
+                                 f"want {FRAGMENTS_PER_STEP}")
         if profile:
             print_profile(f"train step batch-{bsz}", device_profile(
                 lambda: runner.train_step(batch, 0)), card)

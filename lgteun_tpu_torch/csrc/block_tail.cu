@@ -12,15 +12,40 @@
 //                                        ln_ffn: xm = x)
 //   out = xm + W3 . GELU(DW3x3(W2 . GELU(W1 . LN(xm) + b1) + b2) + bdw) + b3
 //
-// What bounds it here: the 4C x 4C product W2 (16*C*C multiply-adds per
-// pixel, 65 K at the 64x64 bottleneck's C = 64) on the FP32 cores; the
-// TPU kernels kept a whole image in 100 MB of VMEM, while a Hopper block
-// has at most 227 KB of shared memory and w2 alone is 256 KB at C = 64.
+// What bounds it here: the four 1x1 products, 50 C^2 of the (50 C^2 + 122
+// C) operations a pixel (93 % at C = 32), 42 C^2 of them recomputed on
+// the 1-pixel halo (128 rows for 64 outputs). The FP32-core version ran
+// them as scalar FMAs fed by __ldg weight loads: 0.3449 ms at 128^2/C32
+// and 0.4288 at 64^2/C64, batch 4 (H100 80GB HBM3, 700 W; chip_smoke.py).
+// The TPU kernels kept a whole image in VMEM; a Hopper block has 227 KB
+// and w2 alone is 256 KB at C = 64.
 //
-// Design: one block per 8x8 output tile with a 1-pixel halo whose
-// intermediates never leave the block (block_tail.cuh); the template flags
-// kProj and kMask select the proj prologue and its mask. Any H, W
-// divisible by 8 and C % 4 == 0.
+// Design (block_tail.cuh, block_tail_tile_tc): every 1x1 product on the
+// tensor cores as wgmma m64nNk8 TF32 (A from registers, B from shared
+// memory), FP32-accurate by the 3xTF32 split; the weights split once per
+// weight version (ops/ffn_kernel.py::tail_fragments, one
+// lgteun_tail_fragments launch a matrix on the card) into wgmma's
+// core-matrix order and staged through a cp.async ring, one global read
+// per block shared by its warps; W2 -> depthwise -> GELU -> W3 by chunks
+// of CP hidden channels, which frees the second [100][4C] buffer: 106 KB
+// of shared memory at C <= 32, so two blocks share an SM (each of two
+// warpgroups, m64n32 products; see tail_wg), and 222 KB at C <= 64 (one
+// block an SM of four warpgroups, W2's products pipelined one slab behind
+// its A loads). Tiles stay 8x8: any H, W divisible by 8 tile exactly (the
+// scene engine's 72^2 is no multiple of 16), and batch 1 at 64^2 keeps its
+// 64 blocks. Any C % 4 == 0 up to 64 (zero-padded to 32 or 64 channels);
+// above 64, h1 [112][4C] alone passes the 227 KB a block may have (as the
+// FP32-core tile's 3456 C bytes did), and the wrapper refuses the shape.
+//
+// Measured (H100 80GB HBM3, 700 W; PERF.md §6): about 0.22 ms at
+// 128^2/C32 and 0.17 at 64^2/C64 (batch 4), 1.6x and 2.5x the FP32-core
+// version. What bounds it now is latency between the per-slab barriers,
+// not a pipe: clock stamps in a copy of the kernel (scripts/
+// torch_kernel_ab.py --phases) put most of a tile in W2 and W1, each
+// warpgroup waiting for its group of twelve wgmma before the next slab,
+// and little in waiting for the weight slabs. With four warpgroups at C32
+// the 64 registers a thread of two blocks an SM made ptxas serialize the
+// wgmma (0.29 ms); one block an SM measured slower still.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -29,36 +54,57 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+// Warpgroups of a B3 / B5 block of kNT (CP / 16): at CP = 32 two blocks
+// share an SM (shared memory), and with 4 warpgroups each the 64
+// registers a thread that leaves made ptxas serialize the wgmma; with 2
+// (m64n32 products) a thread has 128. At CP = 64 one block an SM of 4.
+__host__ __device__ constexpr int tail_wg(int kNT) { return kNT == 2 ? 2 : 4; }
 
 // The weights come as __restrict__ pointers, not as a TailWeights
 // parameter, which measured 2 % slower on an H100
 // (scripts/torch_kernel_ab.py).
-template <bool kProj, bool kMask>
-__global__ void __launch_bounds__(kThreads)
+template <int kNT, bool kProj, bool kMask>
+__global__ void __launch_bounds__(128 * tail_wg(kNT), kNT == 2 ? 2 : 1)
 block_tail_kernel(const float* __restrict__ x, const float* __restrict__ x1,
                   const float* __restrict__ x2,
                   const float* __restrict__ mask,  // [B][C][H][W] or null
-                  const float* __restrict__ wpT,  // [C][C]   in, out
+                  const float* __restrict__ wpT,  // TF32 slabs
                   const float* __restrict__ bp,
                   const float* __restrict__ ln_w,
                   const float* __restrict__ ln_b,
-                  const float* __restrict__ w1T,  // [C][C4]
+                  const float* __restrict__ w1T,  // TF32 slabs
                   const float* __restrict__ b1,
-                  const float* __restrict__ w2T,  // [C4][C4]
+                  const float* __restrict__ w2T,  // TF32 slabs
                   const float* __restrict__ b2,
                   const float* __restrict__ dw,   // [C4][3][3]
                   const float* __restrict__ bdw,
-                  const float* __restrict__ w3T,  // [C4][C]
+                  const float* __restrict__ w3T,  // TF32 slabs
                   const float* __restrict__ b3, float* __restrict__ out,
-                  int C, int C4, int H, int W, float eps) {
+                  int C, int H, int W, float eps) {
   extern __shared__ __align__(16) float sm[];
   const TailWeights wt{wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T,
                        b3};
   const int tiles = (H / kTailT) * (W / kTailT);
-  block_tail_tile<kProj, false, kMask>(x, x1, x2, wt, out, sm, C, C4, H, W,
-                                       eps, blockIdx.x / tiles,
-                                       blockIdx.x % tiles, mask);
+  block_tail_tile_tc<kNT, kProj, kMask, false, tail_wg(kNT)>(
+      x, x1, x2, mask, wt, out, sm, C, H, W, eps, blockIdx.x / tiles,
+      blockIdx.x % tiles);
+}
+
+template <int kNT, bool kProj, bool kMask>
+int launch_tc(const float* x, const float* x1, const float* x2,
+              const float* mask, const TailWeights& wt, float* out, int B,
+              int C, int H, int W, float eps, cudaStream_t stream) {
+  const size_t smem = block_tail_tc_smem(16 * kNT);
+  const cudaError_t err = cudaFuncSetAttribute(
+      block_tail_kernel<kNT, kProj, kMask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = B * (H / kTailT) * (W / kTailT);
+  block_tail_kernel<kNT, kProj, kMask>
+      <<<blocks, 128 * tail_wg(kNT), smem, stream>>>(
+          x, x1, x2, mask, wt.wpT, wt.bp, wt.ln_w, wt.ln_b, wt.w1T, wt.b1,
+          wt.w2T, wt.b2, wt.dw, wt.bdw, wt.w3T, wt.b3, out, C, H, W, eps);
+  return (int)cudaGetLastError();
 }
 
 template <bool kProj, bool kMask>
@@ -66,24 +112,26 @@ int launch_block_tail(const float* x, const float* x1, const float* x2,
                       const float* mask, const TailWeights& wt, float* out,
                       int B, int C, int C4, int H, int W, float eps,
                       cudaStream_t stream) {
-  const size_t smem = block_tail_smem(C, C4);
-  const cudaError_t err = cudaFuncSetAttribute(
-      block_tail_kernel<kProj, kMask>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = B * (H / kTailT) * (W / kTailT);
-  block_tail_kernel<kProj, kMask><<<blocks, kThreads, smem, stream>>>(
-      x, x1, x2, mask, wt.wpT, wt.bp, wt.ln_w, wt.ln_b, wt.w1T, wt.b1, wt.w2T,
-      wt.b2, wt.dw, wt.bdw, wt.w3T, wt.b3, out, C, C4, H, W, eps);
-  return (int)cudaGetLastError();
+  if (C4 != 4 * C || C % 4) return (int)cudaErrorInvalidValue;
+  switch (tail_tc_width(C)) {
+    case 32:
+      return launch_tc<2, kProj, kMask>(x, x1, x2, mask, wt, out, B, C, H, W,
+                                        eps, stream);
+    case 64:
+      return launch_tc<4, kProj, kMask>(x, x1, x2, mask, wt, out, B, C, H, W,
+                                        eps, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // out = block tail of (x, x1, x2) on [B, C, H, W], the proj output times
-// `mask` [B, C, H, W] unless mask is null; C % 4 == 0, C4 = 4C, H and W
-// divisible by 8 (checked by the Python wrapper). Weights as [in][out]; dw
-// as [C4][3][3].
+// `mask` [B, C, H, W] unless mask is null; C % 4 == 0, C <= 64, C4 = 4C,
+// H and W divisible by 8 (checked by the Python wrapper). The matrices
+// wpT, w1T, w2T, w3T as TF32 slabs of padded width tail_tc_width(C)
+// (lgteun_tail_fragments); the vectors as [C] / [C4]; dw as [C4][3][3].
 extern "C" int lgteun_block_tail(const float* x, const float* x1,
                                  const float* x2, const float* mask,
                                  const float* wpT,
@@ -117,3 +165,54 @@ extern "C" int lgteun_ln_ffn(const float* x, const float* ln_w,
   return launch_block_tail<false, false>(x, nullptr, nullptr, nullptr, wt, out,
                                          B, C, C4, H, W, eps, stream);
 }
+
+namespace {
+
+__global__ void tail_fragments_kernel(const float* __restrict__ w, int N,
+                                      int K, int n_pad, int k_pad, int cp,
+                                      float* __restrict__ out) {
+  const size_t total = 2 * (size_t)n_pad * k_pad;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    // i = (((((chunk, slab), hi/lo), n-group), k-quad), n % 8, k % 4)
+    size_t t = i;
+    const int e = t % 4; t /= 4;
+    const int r = t % 8; t /= 8;
+    const int kq = t % 8; t /= 8;
+    const int ng = t % (cp / 8); t /= cp / 8;
+    const int part = t % 2; t /= 2;
+    const int slab = t % (k_pad / kSlabK);
+    const int chunk = (int)(t / (k_pad / kSlabK));
+    const int n = chunk * cp + ng * 8 + r, k = slab * kSlabK + kq * 4 + e;
+    const float v = n < N && k < K ? w[(size_t)n * K + k] : 0.f;
+    const uint32_t hi = tf32_rna(v);
+    out[i] = part ? __uint_as_float(tf32_rna(v - __uint_as_float(hi)))
+                  : __uint_as_float(hi);
+  }
+}
+
+}  // namespace
+
+// out = w [N, K] (out, in) zero-padded to [n_pad, k_pad], split into
+// TF32 hi/lo parts and laid out as the tile's weight slabs (the same
+// bits as ops/ffn_kernel.py::tail_fragments): [n_pad / cp chunks][k_pad /
+// 32 slabs][hi, lo][cp / 8 n-groups][8 k-quads][8][4]. n_pad % cp == 0,
+// k_pad % 32 == 0, cp % 8 == 0.
+extern "C" int lgteun_tail_fragments(const float* w, int N, int K, int n_pad,
+                                     int k_pad, int cp, float* out,
+                                     cudaStream_t stream) {
+  if (n_pad % cp || k_pad % kSlabK || cp % 8 || N > n_pad || K > k_pad)
+    return (int)cudaErrorInvalidValue;
+  const size_t total = 2 * (size_t)n_pad * k_pad;
+  const int blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256
+                                                       : 1024);
+  tail_fragments_kernel<<<blocks, 256, 0, stream>>>(w, N, K, n_pad, k_pad,
+                                                    cp, out);
+  return (int)cudaGetLastError();
+}
+
+// The weight layout this library's lgteun_block_tail, lgteun_ln_ffn and
+// lgteun_lgb_block take: 3 = TF32 slabs in wgmma's core-matrix order (2:
+// mma.sync fragment slabs; the [in][out] rows of earlier versions had no
+// such entry).
+extern "C" int lgteun_block_tail_layout() { return 3; }

@@ -15,7 +15,7 @@
 //
 // Design: a persistent cooperative kernel, grid = the blocks that fit on
 // the card at once (one 512-thread block an SM: the phases need up to
-// 216 KB of shared memory), phases separated by grid.sync():
+// 222 KB of shared memory), phases separated by grid.sync():
 //   A. LN + split, one thread per pixel: y1 and y2 into global scratch;
 //   B. a work list of the (image, channel) FFT mixer planes (y2 -> x2 in
 //      place) followed by the windows (y1 -> x1), taken from an atomic
@@ -23,11 +23,14 @@
 //   C. the tail on 8x8 tiles with a 1-pixel halo, x + proj([x1; x2]) then
 //      LN + FFN + residual, into `out`.
 // Every phase runs the device code of B1-B3 (fft_mixer.cuh,
-// window_attention.cuh, block_tail.cuh), so the block computes what the
-// three-kernel chain computes. The TPU kernel's window-pair packing, its
-// permutation matrices, the -1e9 block-diagonal table and the tanh-form
-// exp are not carried over. Scratch is read through L2 (loads.cuh): it is
-// written earlier in the same launch, on other SMs.
+// window_attention.cuh, block_tail.cuh; phase C B3's tensor-core tile,
+// whose 512 threads and block_tail_tc_smem are this launch's thread count
+// and fit its one shared-memory budget), so the block computes what the
+// three-kernel chain computes to FP32 rounding. The TPU kernel's
+// window-pair packing, its permutation matrices, the -1e9 block-diagonal
+// table and the tanh-form exp are not carried over. Scratch is read
+// through L2 (loads.cuh): it is written earlier in the same launch, on
+// other SMs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -42,6 +45,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 512;
+static_assert(kThreads == kTcThreads, "phase C runs the tail's tile");
 
 struct LgbBlockArgs {
   const float *x, *ln_w, *ln_b, *amp_w, *amp_b, *pha_w, *pha_b;
@@ -100,20 +104,28 @@ __global__ void __launch_bounds__(kThreads) lgb_block_kernel(LgbBlockArgs a) {
   // C. tail
   const int tiles = (a.H / kTailT) * (a.W / kTailT);
   for (int t = blockIdx.x; t < a.B * tiles; t += gridDim.x) {
-    block_tail_tile<true, true>(a.x, a.x1, a.x2, a.tail, a.out, sm, a.C,
-                                a.C4, a.H, a.W, a.eps, t / tiles, t % tiles);
+    if (a.C <= 32)
+      block_tail_tile_tc<2, true, false, true>(a.x, a.x1, a.x2, nullptr,
+                                               a.tail, a.out, sm, a.C, a.H,
+                                               a.W, a.eps, t / tiles,
+                                               t % tiles);
+    else
+      block_tail_tile_tc<4, true, false, true>(a.x, a.x1, a.x2, nullptr,
+                                               a.tail, a.out, sm, a.C, a.H,
+                                               a.W, a.eps, t / tiles,
+                                               t % tiles);
     __syncthreads();  // shared memory is reused by the next tile
   }
 }
 
 }  // namespace
 
-// out = one LGB block of x, both [B, C, H, W]. C % 4 == 0, C4 = 4C, H and
-// W divisible by win and 8, win*win <= 64, C/2 divisible by heads, the
-// mixer plane within shared memory (checked by the Python wrapper).
-// Weights: wqkv [3C/2][C/2] (out, in), pos [heads][S][S], the tail's as
-// in lgteun_block_tail. scratch: 3 * B * C/2 * H * W floats; counter: one
-// int (zeroed by the kernel).
+// out = one LGB block of x, both [B, C, H, W]. C % 4 == 0, C <= 64, C4 =
+// 4C, H and W divisible by win and 8, win*win <= 64, C/2 divisible by
+// heads, the mixer plane within shared memory (checked by the Python
+// wrapper). Weights: wqkv [3C/2][C/2] (out, in), pos [heads][S][S], the
+// tail's as in lgteun_block_tail (TF32 slabs). scratch: 3 * B * C/2 * H *
+// W floats; counter: one int (zeroed by the kernel).
 extern "C" int lgteun_lgb_block(
     const float* x, const float* ln_w, const float* ln_b, const float* amp_w,
     const float* amp_b, const float* pha_w, const float* pha_b,
@@ -153,13 +165,15 @@ extern "C" int lgteun_lgb_block(
   a.eps = eps;
   a.fh = fft_len(H);
   a.fw = fft_len(W);
-  if (a.fh.p < 2 || a.fw.p < 2 || a.fh.m > kThreads || a.fw.m > kThreads)
+  const int cp = tail_tc_width(C);
+  if (a.fh.p < 2 || a.fw.p < 2 || a.fh.m > kThreads || a.fw.m > kThreads ||
+      !cp || C4 != 4 * C)
     return (int)cudaErrorInvalidValue;
 
   size_t smem = fft_mixer_smem(H, W);
   if (window_attention_smem(C / 2, heads, win) > smem)
     smem = window_attention_smem(C / 2, heads, win);
-  if (block_tail_smem(C, C4) > smem) smem = block_tail_smem(C, C4);
+  if (block_tail_tc_smem(cp) > smem) smem = block_tail_tc_smem(cp);
   a.smem_item = (int)((smem + 15) / 16 * 4);
   smem = sizeof(float) * (size_t)a.smem_item + 16;
 

@@ -1,0 +1,132 @@
+// Tensor-core primitives of the block tail's FP32-accurate products
+// (block_tail.cuh): the TF32 rounding of the 3xTF32 split, the
+// warpgroup-wide wgmma m64nNk8 TF32 product (A from registers, B from
+// shared memory, FP32 accumulation) with its fences, and the cp.async
+// copies that stage weight slabs in shared memory.
+//
+// 3xTF32: an FP32 value a is a_hi = tf32_rna(a) plus a_lo = tf32_rna(a -
+// a_hi) (round to nearest, as cvt.rna.tf32); a product a.b is taken as
+// a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, each pass exact in the tensor core
+// (11-bit significands) and summed in FP32, which keeps about FP32's
+// accuracy (a_lo.b_lo is below 2^-22 of a.b).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// Round to the nearest TF32 value (ties away from zero); the low 13
+// mantissa bits of the result are zero. The same bits as PTX
+// cvt.rna.tf32.f32 for every finite v, in two integer instructions: ptxas
+// expands cvt.rna to four (an inf/NaN guard the finite activations do not
+// need), and the tail is faster this way (PERF.md §6).
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// Shared-memory matrix descriptor of wgmma for a K-major operand without
+// swizzle: core matrices of 8 rows x 16 bytes (4 TF32 along K), each 128
+// contiguous bytes; `lbo` bytes between core matrices adjacent in K,
+// `sbo` bytes between core matrices adjacent in N (PTX ISA, "Matrix
+// Descriptor Format").
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem);
+  return (uint64_t)((a & 0x3FFFFu) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32;
+}
+
+// d += A . B for one warpgroup: A 64x8 TF32 in registers (warp w % 4 of
+// the group holds rows 16 (w % 4) ..; lane 4g + t: {A[g][t], A[g+8][t],
+// A[g][t+4], A[g+8][t+4]}), B 8xN from the descriptor (K-major: B[k][n]
+// at row n, column k), d 64xN FP32 (d[j] = {D[g][8j+2t], D[g][8j+2t+1],
+// D[g+8][8j+2t], D[g+8][8j+2t+1]} of the warp's 16 rows). Asynchronous:
+// issue after wgmma_fence(), then wgmma_commit() and wgmma_wait().
+__device__ __forceinline__ void wgmma_tf32(float (&d)[1][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[2][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "
+      "1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[4][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products (as CUTLASS's warpgroup_fence_operand).
+template <int NJ>
+__device__ __forceinline__ void wgmma_fence_acc(float (&d)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) asm volatile("" : "+f"(d[j][q])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Make this thread's earlier shared-memory writes (st.shared, cp.async)
+// visible to wgmma's reads, which go through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16 bytes global -> shared, asynchronously (L2 only: the weight slabs
+// are read once per block).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+}  // namespace

@@ -13,9 +13,11 @@
   at the model's native size, fused in batches on `--device` (the card
   by default), cosine-blended seams; `--tile 0` fuses the whole scene in
   one forward;
-- `--checkpoint` takes a reference-keyed torch state_dict file (what
-  `convert/from_jax.py` produces, saved with `torch.save`); without it
-  the method warns and fuses with seeded-init weights;
+- `--checkpoint` takes a Runner checkpoint (`Runner.save`) or a
+  reference-keyed torch state_dict file (what `convert/from_jax.py`
+  produces, saved with `torch.save`), both through
+  `Runner.load_checkpoint`; without it the method warns and fuses with
+  seeded-init weights;
 - output: uint16 TIFF; `--geo ref` stamps the reference's GeoTIFF tags,
   `--geo none` writes a bare TIFF. The log line gives MP/s.
 """
@@ -27,7 +29,6 @@ import logging
 import time
 
 import numpy as np
-import torch
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -40,8 +41,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--method", default="UnlgFormer",
                    help="registry name (default UnlgFormer)")
     p.add_argument("--checkpoint", default=None,
-                   help="reference-keyed torch state_dict file (omitted: "
-                        "warn and fuse with seeded-init weights)")
+                   help="a Runner checkpoint or a reference-keyed torch "
+                        "state_dict file (omitted: warn and fuse with "
+                        "seeded-init weights)")
     p.add_argument("--tile", type=int, default=128,
                    help="0 = fuse the whole scene in ONE forward (no "
                         "tiling); DL methods should keep their native "
@@ -84,8 +86,7 @@ def fuse_scene_files(args, logger=None) -> str:
     method = build_model(args.method, cfg, device=args.device)
     runner = Runner(cfg, method, args.device, logger=logger)
     if args.checkpoint:
-        runner.load(torch.load(args.checkpoint, map_location="cpu",
-                               weights_only=True))
+        runner.load_checkpoint(args.checkpoint)
     else:
         logger.warning("method %s without --checkpoint: fusing with "
                        "seeded-init weights (seed %d)", args.method,

@@ -94,15 +94,24 @@ class TorchMethod:
 
     def losses(self, batch: dict, generator: torch.Generator | None = None):
         """-> (total, {name: value}) with gradients; batch as `apply`'s
-        plus `target` [B, 4h, 4w, C]."""
+        plus `target` [B, 4h, 4w, C]. Each weighted `loss_cfg` entry
+        whose name holds `rec_loss` is an output-vs-target
+        reconstruction; any other weighted entry (`QNR_loss`,
+        `*adv_loss*`) raises NotImplementedError rather than train
+        without it."""
+        weights = build_loss_weights(self.cfg.loss_cfg)
+        for name in weights:
+            if "rec_loss" not in name:
+                raise NotImplementedError(
+                    f"loss_cfg entry {name!r}: the port computes only the "
+                    "*rec_loss* reconstruction terms; QNR and adversarial "
+                    "losses are not ported yet (ROADMAP A.7)")
         out = self.forward(_nchw(batch["input_lr"], self.device),
                            _nchw(batch["input_pan"], self.device), generator)
         target = _nchw(batch["target"], self.device)
         total = torch.zeros((), device=self.device)
         parts = {}
-        for name, lcfg in build_loss_weights(self.cfg.loss_cfg).items():
-            if "rec_loss" not in name:
-                continue
+        for name, lcfg in weights.items():
             parts[name] = reconstruction_loss(out, target, lcfg.type)
             total = total + lcfg.w * parts[name]
         parts["full_loss"] = total

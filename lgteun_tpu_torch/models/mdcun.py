@@ -37,12 +37,26 @@ from lgteun_tpu_torch.ops.resize import resize_bicubic, resize_bilinear
 __all__ = ["AttSpatial", "BlockNL", "PanUnfolding"]
 
 
+def _scalar_as_one(state_dict: dict, key: str) -> None:
+    """A 0-d entry `key` of `state_dict` (the flax tree's form) as the
+    shape [1] the module holds; any other shape is left to the strict
+    load, which raises on it."""
+    t = state_dict.get(key)
+    if isinstance(t, torch.Tensor) and t.dim() == 0:
+        state_dict[key] = t.reshape(1)
+
+
 class _PReLU(nn.Module):
-    """nn.PReLU with one shared slope, initialised to 0.5."""
+    """nn.PReLU with one shared slope, initialised to 0.5. Loads the
+    slope as [1] or [] (stored as [1])."""
 
     def __init__(self):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(1))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        _scalar_as_one(state_dict, prefix + "weight")
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     @torch.no_grad()
     def reset_from(self, generator: torch.Generator) -> None:
@@ -133,9 +147,18 @@ class _Resampler(nn.Module):
         return self.tail(self.body(x))
 
 
+class _Scalars(nn.ParameterList):
+    """One [1] parameter a stage; loads each as [1] or [] (stored as
+    [1])."""
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        for i in range(len(self)):
+            _scalar_as_one(state_dict, f"{prefix}{i}")
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
 def _scalars(stages: int) -> nn.ParameterList:
-    return nn.ParameterList(nn.Parameter(torch.empty(1))
-                            for _ in range(stages))
+    return _Scalars(nn.Parameter(torch.empty(1)) for _ in range(stages))
 
 
 class PanUnfolding(nn.Module):

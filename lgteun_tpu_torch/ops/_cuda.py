@@ -39,10 +39,11 @@ SIGNATURES = {
     # x, amp_w, amp_b, pha_w, pha_b, out, B, C, H, W, stream
     "lgteun_global_mixer": [_P] * 6 + [_I] * 4 + [_P],
     # x, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T, b3, out, B, C, C4, H,
-    # W, eps, stream
+    # W, eps, stream (the matrices as TF32 slabs, ffn_kernel.tail_fragments)
     "lgteun_ln_ffn": [_P] * 12 + [_I] * 5 + [_F, _P],
-    # x, 6 mixer weights, wqkv, bqkv, pos, wpT, bp, 10 FFN weights,
-    # scratch, counter, out, B, C, C4, H, W, heads, win, scale, eps, stream
+    # x, 6 mixer weights, wqkv, bqkv, pos, wpT, bp, 10 FFN weights (the
+    # matrices as for lgteun_ln_ffn), scratch, counter, out, B, C, C4, H,
+    # W, heads, win, scale, eps, stream
     "lgteun_lgb_block": [_P] * 25 + [_I] * 7 + [_F, _F, _P],
     # x, wqkv, bqkv, pos, out, B, C, H, W, heads, win, scale, stream
     "lgteun_window_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
@@ -50,8 +51,11 @@ SIGNATURES = {
     "lgteun_window_attention_windows": [_P] * 5 + [_I] * 4 + [_F, _P],
     "lgteun_window_attention_rows": [_P] * 5 + [_I] * 4 + [_F, _P],
     # x, x1, x2, mask (or null), wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw,
-    # bdw, w3T, b3, out, B, C, C4, H, W, eps, stream
+    # bdw, w3T, b3, out, B, C, C4, H, W, eps, stream (matrices as for
+    # lgteun_ln_ffn)
     "lgteun_block_tail": [_P] * 17 + [_I] * 5 + [_F, _P],
+    # w, N, K, n_pad, k_pad, cp, out, stream
+    "lgteun_tail_fragments": [_P] + [_I] * 5 + [_P, _P],
     # in, in_c, lms, wts, out, table (host), n, B, H, W, stream
     "lgteun_lightnet_group": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     # x, wt, wp, wg, ww, out, B, C, H, W, fs, stream

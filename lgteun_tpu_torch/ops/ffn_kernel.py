@@ -18,7 +18,12 @@ the mixer proj).
 The three launch `csrc/block_tail.cu` (one kernel; the proj prologue and
 the mask are template flags) for a CUDA tensor, differentiable there
 (`ops.autograd.recompute`; the mask gets no gradient), and run
-`block_tail_ref` / `ln_ffn_ref` for a CPU tensor. `ffn` holds the
+`block_tail_ref` / `ln_ffn_ref` for a CPU tensor. The kernel runs the
+four 1x1 products on the tensor cores (wgmma) with the 3xTF32 split: its
+matrices come split into hi/lo TF32 parts and in wgmma's core-matrix
+order (`tail_fragments`), made once per weight version (one
+`lgteun_tail_fragments` launch a matrix on the card). C is at most
+`TAIL_MAX_C`. `ffn` holds the
 FeedForward's weights in torch conv layout: ln_w/ln_b [C], w1 [4C, C],
 b1 [4C], w2 [4C, 4C], b2 [4C], dw [4C, 3, 3], bdw [4C], w3 [C, 4C],
 b3 [C].
@@ -34,10 +39,16 @@ from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 
 __all__ = ["block_tail", "block_tail_ref", "block_tail_masked",
-           "block_tail_masked_ref", "ln_ffn", "ln_ffn_ref", "FFN_KEYS"]
+           "block_tail_masked_ref", "ln_ffn", "ln_ffn_ref", "FFN_KEYS",
+           "tf32_round", "tf32_split", "tail_fragments", "tail_width",
+           "TAIL_MAX_C"]
 
 # the order in which `ffn`'s tensors pass through `recompute`
 FFN_KEYS = ("ln_w", "ln_b", "w1", "b1", "w2", "b2", "dw", "bdw", "w3", "b3")
+# the widest block the kernel's tile holds: its h1 [112][4C] in shared
+# memory beside the other buffers (the FP32-core tile before it, 3456 C
+# bytes, stopped at the same C)
+TAIL_MAX_C = 64
 
 
 def _pw(t, wt, bias):
@@ -71,11 +82,65 @@ def block_tail_masked_ref(x, x1, x2, mask, proj_w, proj_b, ffn: dict,
     return block_tail_ref(x, x1, x2, proj_w, proj_b, ffn, eps, mask)
 
 
-def _in_out(wt: torch.Tensor) -> torch.Tensor:
-    """`wt.t().contiguous()`, made once per weight version. The kernel
-    reads weights as [in, out] so that a warp's output channels are one
-    coalesced row."""
-    return _cuda.weight_layout("in_out", (wt,), lambda: wt.t().contiguous())
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 `t` rounded to the nearest TF32 value, ties away from zero
+    (PTX `cvt.rna.tf32.f32`): the low 13 mantissa bits become zero."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor) -> tuple:
+    """(hi, lo) TF32 parts of float32 `t`: hi = tf32(t), lo = tf32(t -
+    hi); |lo| <= 2^-11 |t| and |t - hi - lo| <= 2^-22 |t|."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def tail_width(c: int) -> int:
+    """The kernel's padded channel width for C <= TAIL_MAX_C channels: 32
+    or 64."""
+    return 32 if c <= 32 else 64
+
+
+def tail_fragments(w: torch.Tensor, n_pad: int, k_pad: int,
+                   cp: int) -> torch.Tensor:
+    """w [N, K] (out, in), zero-padded to [n_pad, k_pad] and split into
+    TF32 hi/lo parts, as the kernel's slabs: [n_pad / cp chunks][k_pad /
+    32 slabs][hi, lo][cp / 8 n-groups][8 k-quads][8][4], element (n, k)
+    at n-group n // 8, k-quad k // 4, [n % 8][k % 4] within the slab. Each
+    [8][4] is one core matrix of wgmma's K-major operand without swizzle
+    (8 rows of 16 bytes, B[k][n] = w[n][k]): the next k-quad 128 bytes
+    on, the next n-group 1024. Flat float32. `lgteun_tail_fragments`
+    makes the same bits on the card."""
+    n, k = w.shape
+    hi, lo = tf32_split(F.pad(w.float(), (0, k_pad - k, 0, n_pad - n)))
+    t = torch.stack([hi, lo]).view(2, n_pad // cp, cp // 8, 8, k_pad // 32,
+                                   8, 4)
+    # (hi/lo, chunk, n-group, n % 8, slab, k-quad, k % 4) -> slab order
+    return t.permute(1, 4, 0, 2, 5, 3, 6).contiguous().view(-1)
+
+
+def _fragments(w: torch.Tensor, c: int) -> torch.Tensor:
+    """`tail_fragments` of a tail matrix of a C-channel block (each dim C
+    or 4C, padded to the kernel's width), made once per weight version:
+    by `lgteun_tail_fragments` for a CUDA tensor (one launch)."""
+    cp = tail_width(c)
+    n_pad, k_pad = w.shape[0] // c * cp, w.shape[1] // c * cp
+
+    def make():
+        if w.device.type != "cuda":
+            return tail_fragments(w, n_pad, k_pad, cp)
+        _cuda.check_cuda_f32("tail_fragments", w.device, w=w)
+        out = torch.empty(2 * n_pad * k_pad, device=w.device)
+        _cuda.launch("lgteun_tail_fragments", w.device, w, w.shape[0],
+                     w.shape[1], n_pad, k_pad, cp, out)
+        _fragments.launches += 1
+        return out
+
+    return _cuda.weight_layout(f"tf32x3/{c}", (w,), make)
+
+
+_fragments.launches = 0
 
 
 def _ffn_shapes(c: int, c4: int) -> dict:
@@ -86,22 +151,26 @@ def _ffn_shapes(c: int, c4: int) -> dict:
 
 def check_tail_args(name: str, x, got: dict, want: dict) -> None:
     """Raise unless x [B, C, H, W] and the tensors of `got` suit the tail
-    kernel: shapes as in `want`, C % 4 == 0, a 4C hidden width, H and W
-    divisible by 8, contiguous float32 on x's CUDA device."""
+    kernel: shapes as in `want`, C % 4 == 0 and C <= TAIL_MAX_C, a 4C
+    hidden width, H and W divisible by 8, contiguous float32 on x's CUDA
+    device."""
     b, c, h, w = x.shape
     c4 = got["w1"].shape[0]
     bad = [k for k, shp in want.items() if tuple(got[k].shape) != shp]
-    if bad or c % 4 or c4 != 4 * c or h % 8 or w % 8:
-        raise ValueError(f"{name}: need C % 4 == 0, 4C hidden and H, W "
-                         f"divisible by 8 (x {tuple(x.shape)}); bad: {bad}")
+    if bad or c % 4 or c > TAIL_MAX_C or c4 != 4 * c or h % 8 or w % 8:
+        raise ValueError(f"{name}: need C % 4 == 0, C <= {TAIL_MAX_C}, 4C "
+                         f"hidden and H, W divisible by 8 (x "
+                         f"{tuple(x.shape)}); bad: {bad}")
     _cuda.check_cuda_f32(name, x.device, x=x, **got)
 
 
 def tail_weights(ffn: dict) -> tuple:
-    """The FFN's weights in the kernel's argument order and layout."""
-    return (ffn["ln_w"], ffn["ln_b"], _in_out(ffn["w1"]), ffn["b1"],
-            _in_out(ffn["w2"]), ffn["b2"], ffn["dw"], ffn["bdw"],
-            _in_out(ffn["w3"]), ffn["b3"])
+    """The FFN's weights in the tensor-core kernel's argument order and
+    layout."""
+    c = ffn["ln_w"].shape[0]
+    return (ffn["ln_w"], ffn["ln_b"], _fragments(ffn["w1"], c), ffn["b1"],
+            _fragments(ffn["w2"], c), ffn["b2"], ffn["dw"], ffn["bdw"],
+            _fragments(ffn["w3"], c), ffn["b3"])
 
 
 def _split(t):
@@ -127,8 +196,8 @@ def _tail(name, wrapper, tensors, eps):
         check_tail_args(name, x, got, want)
         out = torch.empty_like(x)
         _cuda.launch("lgteun_block_tail", x.device, x, x1, x2, mask,
-                     _in_out(proj_w), proj_b, *tail_weights(ffn), out, b, c,
-                     c4, h, w, eps)
+                     _fragments(proj_w, c), proj_b, *tail_weights(ffn), out,
+                     b, c, c4, h, w, eps)
         wrapper.launches += 1
         return out
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from lgteun_tpu_torch.ops import _cuda
-from lgteun_tpu_torch.ops.ffn_kernel import (_ffn_shapes, _in_out,
+from lgteun_tpu_torch.ops.ffn_kernel import (_ffn_shapes, _fragments,
                                              block_tail_ref, check_tail_args,
                                              tail_weights)
 from lgteun_tpu_torch.ops.spectral_kernel import (_check_plane,
@@ -77,9 +77,9 @@ def lgb_block(x, blk: dict, heads: int = 2, win: int = 8,
     out = torch.empty_like(x)
     _cuda.launch("lgteun_lgb_block", x.device, x,
                  *(blk[k] for k in _MIXER), blk["wqkv"], blk["bqkv"],
-                 blk["pos"], _in_out(blk["proj_w"]), blk["proj_b"],
-                 *tail_weights(blk["ffn"]), scratch, counter, out, b, c, c4,
-                 h, w, heads, win, (c2 // heads) ** -0.5, eps)
+                 blk["pos"], _fragments(blk["proj_w"], c), blk["proj_b"],
+                 *tail_weights(blk["ffn"]), scratch, counter, out, b,
+                 c, c4, h, w, heads, win, (c2 // heads) ** -0.5, eps)
     lgb_block.launches += 1
     return out
 

@@ -22,7 +22,9 @@ staircase=True)`. A checkpoint is a `torch.save` of the reference-keyed
 state_dict, the optimizer's and scheduler's states and `iter_num`.
 
 Left out: the JAX Runner's device prefetch and multi-step dispatch (TPU
-round-trip workarounds), `remat`, mixed precision, the full metric suite,
+round-trip workarounds; `steps_per_dispatch` is read by nothing, which
+changes no number), `remat` and mixed precision (a config that sets
+either raises), the full metric suite,
 no-reference scoring (`test_freq`) and saving outputs.
 
 Numerics: the JAX scoring engine runs float32 at `highest` precision,
@@ -46,7 +48,7 @@ from lgteun_tpu_torch.data.pipeline import (data_denormalize, eval_batches,
 from lgteun_tpu_torch.metrics.torch_metrics import psnr_batch
 from lgteun_tpu_torch.models.base import TorchMethod
 
-__all__ = ["Runner", "make_optimizer", "step_generator"]
+__all__ = ["Runner", "make_optimizer", "read_checkpoint", "step_generator"]
 
 
 def make_optimizer(params, ocfg: OptimCfg) -> torch.optim.Optimizer:
@@ -76,6 +78,18 @@ def step_generator(seed: int, iter_id: int,
     return torch.Generator(device=device).manual_seed(int(state) >> 1)
 
 
+def read_checkpoint(path: str, map_location) -> tuple:
+    """(state_dict, iter_num or None, {"optimizer", "scheduler"} or None)
+    of a Runner checkpoint (`Runner.save`: a dict with "state_dict" and
+    "iter_num") or of a bare state_dict, which gives (it, None, None)."""
+    payload = torch.load(path, map_location=map_location, weights_only=True)
+    if not isinstance(payload.get("state_dict"), dict):
+        return payload, None, None
+    restored = ({k: payload[k] for k in ("optimizer", "scheduler")}
+                if "optimizer" in payload else None)
+    return payload["state_dict"], int(payload["iter_num"]), restored
+
+
 class Runner:
     """Owns the train/eval/checkpoint lifecycle of one TorchMethod on one
     device."""
@@ -89,6 +103,12 @@ class Runner:
         if method.device != self.device:
             raise ValueError(f"method is on {method.device}, runner on "
                              f"{self.device}")
+        for flag, item in (("mixed_precision", "A.5.5"), ("remat", "A.5.4")):
+            if cfg.get(flag):
+                raise NotImplementedError(
+                    f"config sets {flag}=True, which the port does not "
+                    f"implement yet (ROADMAP {item}); unset it to train in "
+                    "float32")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.logger = logger or logging.getLogger("lgteun_torch")
@@ -256,15 +276,17 @@ class Runner:
         return path
 
     def load_checkpoint(self, path: str) -> "Runner":
-        """Weights, optimizer and scheduler states and last_iter, so that
-        train() resumes mid-schedule; a weights-only file loads too."""
-        payload = torch.load(path, map_location=self.device,
-                             weights_only=True)
-        self.method.load_state_dict(payload["state_dict"], strict=True)
-        self.last_iter = int(payload["iter_num"])
-        if "optimizer" in payload:
-            self._restored = {k: payload[k] for k in ("optimizer",
-                                                      "scheduler")}
+        """Weights from a Runner checkpoint (`save`) or a bare state_dict
+        (the CLI's form, `convert/from_jax.py`'s output). A Runner
+        checkpoint also restores last_iter and the optimizer and
+        scheduler states, so that train() resumes mid-schedule; a bare
+        state_dict sets neither."""
+        state_dict, iter_num, restored = read_checkpoint(path, self.device)
+        self.method.load_state_dict(state_dict, strict=True)
+        if iter_num is not None:
+            self.last_iter = iter_num
+        if restored is not None:
+            self._restored = restored
             if self.optimizer is not None:
                 self.set_optim()
         self.logger.info(f"loaded checkpoint {path} (iter {self.last_iter})")

@@ -1,0 +1,225 @@
+"""The port's mended faults (ROADMAP C.14, C.27, C.28, C.29), on the CPU.
+
+- C.14: MDCUN's stage scalars and PReLU slopes load from a state_dict
+  that holds them as [1] or as [] (the flax tree's form), stored as [1];
+- C.27: `TorchMethod.losses` raises on a weighted loss entry it does not
+  compute (QNR, adversarial) instead of training without it;
+- C.28: one checkpoint loader takes a Runner checkpoint and a bare
+  state_dict, in `Runner.load_checkpoint` and in the scene CLI;
+- C.29: `mixed_precision` and `remat` raise instead of being ignored.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from lgteun_tpu_torch.config import Config, LossCfg, OptimCfg, load_config
+from lgteun_tpu_torch.data.tiff import read_tiff, write_tiff
+from lgteun_tpu_torch.fuse import build_argparser, fuse_scene_files
+from lgteun_tpu_torch.parallel import scene
+from lgteun_tpu_torch.registry import build_model
+from lgteun_tpu_torch.runner import Runner
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHIPPED = os.path.join(REPO, "lgteun_tpu", "configs", "unlg_former.py")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Small CPU ops on one thread (the suite runs in parallel workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _batch(rng, bands, b=1, side=32):
+    u = lambda *s: rng.uniform(0, 1, s).astype(np.float32)
+    return {"input_lr": u(b, side // 4, side // 4, bands),
+            "input_pan": u(b, side, side, 1),
+            "target": u(b, side, side, bands)}
+
+
+# ---------------------------------------------------------------- C.14
+
+def _mdcun():
+    cfg = Config(model_type="MDCUN", ms_chans=4, model_cfg={
+        "core_module": {"mid_channels": 16, "T": 2}})
+    return build_model("MDCUN", cfg, device="cpu")
+
+
+def _is_scalar_key(key: str, group: str) -> bool:
+    """The PReLU slopes (`...act.weight`) or the stage scalars
+    (`u.0`, `eta.1`, ...) of MDCUN's state_dict."""
+    if group == "prelu":
+        return key.endswith("act.weight")
+    return key.split(".")[-2] in ("u", "eta", "gama", "delta")
+
+
+@pytest.mark.parametrize("groups", [("prelu", "stage"), ("stage",),
+                                    ("prelu",)],
+                         ids=["all-0d", "stage-0d", "prelu-0d"])
+def test_mdcun_loads_scalars_as_1_or_0d(groups):
+    """A strict load of a state_dict whose scalars are [] (all, or only
+    one group, the rest [1]) gives the forward of the [1] form, and the
+    module keeps [1]."""
+    src = _mdcun().init_params(torch.Generator().manual_seed(3))
+    with torch.no_grad():       # distinct values, so a mix-up shows
+        for i, p in enumerate(src.module.parameters()):
+            if p.numel() == 1:
+                p.fill_(0.3 + 0.01 * i)
+    sd = src.module.state_dict()
+    zero_d = {k: (v.reshape(()) if any(_is_scalar_key(k, g) for g in groups)
+                  else v) for k, v in sd.items()}
+    assert sum(v.dim() == 0 for v in zero_d.values()) >= 5 * len(groups)
+    dst = _mdcun()
+    dst.load_state_dict(zero_d, strict=True)
+    assert all(p.shape == q.shape for p, q in zip(
+        dst.module.parameters(), src.module.parameters()))
+    batch = _batch(np.random.default_rng(4), 4, side=32)
+    assert torch.equal(dst.apply(batch), src.apply(batch))
+
+
+def test_mdcun_other_scalar_shape_still_raises():
+    """Only [1] and [] are accepted for a scalar: [2] raises."""
+    sd = _mdcun().init_params(torch.Generator().manual_seed(3)) \
+        .module.state_dict()
+    key = next(k for k in sd if _is_scalar_key(k, "stage"))
+    sd[key] = torch.zeros(2)
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        _mdcun().load_state_dict(sd, strict=True)
+
+
+# ---------------------------------------------------------------- C.27
+
+def _unlg(loss_cfg, **kw):
+    cfg = Config(ms_chans=4, model_cfg={"core_module": {"stage": 1}},
+                 loss_cfg=loss_cfg, **kw)
+    return cfg, build_model("UnlgFormer", cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["QNR_loss", "adv_loss"])
+def test_unported_weighted_loss_raises(name):
+    """A weighted QNR or adversarial entry raises, naming the entry and
+    ROADMAP A.7, rather than training without that term."""
+    _, method = _unlg({"rec_loss": LossCfg("l1", 1.0),
+                       name: LossCfg("l1", 0.1)})
+    method.init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match=rf"{name}.*A\.7"):
+        method.losses(_batch(np.random.default_rng(1), 4))
+
+
+def test_zero_weight_loss_entry_is_skipped():
+    """An entry of weight 0 is no term of the loss: the total equals the
+    l1 alone, and no part is reported for it."""
+    rec = {"rec_loss": LossCfg("l1", 1.0)}
+    _, alone = _unlg(rec)
+    _, with_zero = _unlg(dict(rec, QNR_loss=LossCfg("l1", 0.0),
+                              adv_loss=LossCfg("l1", 0.0)))
+    alone.init_params(torch.Generator().manual_seed(0))
+    with_zero.init_params(torch.Generator().manual_seed(0))
+    batch = _batch(np.random.default_rng(2), 4)
+    with torch.no_grad():
+        (a, _), (b, parts) = alone.losses(batch), with_zero.losses(batch)
+    assert torch.equal(a, b) and set(parts) == {"rec_loss", "full_loss"}
+
+
+def test_shipped_unlg_former_config_trains():
+    """The shipped config (l1 only) takes a training step: a finite loss
+    and a gradient on the live parameters."""
+    cfg = load_config(SHIPPED)
+    runner = Runner(cfg, build_model("UnlgFormer", cfg, device="cpu"),
+                    "cpu").init().set_optim()
+    parts = runner.train_step(runner.to_device(
+        _batch(np.random.default_rng(5), cfg.ms_chans)), 0)
+    assert torch.isfinite(parts["full_loss"]) and float(parts["rec_loss"]) > 0
+    grads = [p.grad for p in runner.method.module.parameters()
+             if p.grad is not None]
+    assert grads and all(torch.isfinite(g).all() for g in grads)
+
+
+# ---------------------------------------------------------------- C.28
+
+def _trained_runner(tmp_path):
+    """A 4-band stage-1 UnlgFormer (the CLI's architecture for
+    `--stage 1`) after 2 Adam steps, saved at iteration 2."""
+    cfg, method = _unlg({"rec_loss": LossCfg("l1", 1.0)},
+                        optim_cfg={"core_module": OptimCfg(lr=1e-3)},
+                        work_dir=str(tmp_path / "runs"))
+    runner = Runner(cfg, method, "cpu").init(7).set_optim()
+    batch = runner.to_device(_batch(np.random.default_rng(8), 4))
+    for it in range(2):
+        runner.train_step(batch, it)
+    method.eval()
+    return runner, runner.save(2)
+
+
+def test_cli_fuses_with_a_runner_checkpoint(tmp_path):
+    """train 2 steps -> Runner.save -> the scene CLI with --checkpoint on
+    that file gives a direct fuse_scene's output with those weights
+    (within 1 DN of the uint16 rounding)."""
+    runner, path = _trained_runner(tmp_path)
+    rng = np.random.default_rng(9)
+    lr = rng.integers(0, 2047, (16, 24, 4)).astype(np.uint16)
+    pan = rng.integers(0, 2047, (64, 96)).astype(np.uint16)
+    write_tiff(str(tmp_path / "lr.tif"), lr)
+    write_tiff(str(tmp_path / "pan.tif"), pan)
+    out = str(tmp_path / "fused.tif")
+    args = build_argparser().parse_args([
+        "--lr", str(tmp_path / "lr.tif"), "--pan", str(tmp_path / "pan.tif"),
+        "-o", out, "--stage", "1", "--tile", "32", "--halo", "8",
+        "--batch", "2", "--device", "cpu", "--checkpoint", path])
+    assert fuse_scene_files(args) == out
+    got = read_tiff(out).astype(np.float64)
+    scale = 2 ** 11 - 0.5
+    want = scene.fuse_scene(runner.method, lr / scale,
+                            pan[:, :, None] / scale, tile=32, halo=8,
+                            batch=2).numpy()
+    want = np.clip(np.round(want * scale), 0, 2047)
+    assert got.shape == (64, 96, 4)
+    assert float(np.max(np.abs(got - want))) <= 1.0
+
+
+def test_load_checkpoint_takes_a_bare_state_dict(tmp_path):
+    """A bare state_dict (the CLI's and convert/from_jax.py's form)
+    loads through Runner.load_checkpoint: the same weights, and no
+    iteration or optimizer state; a Runner checkpoint still restores
+    both."""
+    runner, path = _trained_runner(tmp_path)
+    bare = tmp_path / "bare.pt"
+    torch.save(runner.method.module.state_dict(), bare)
+    cfg, method = _unlg({"rec_loss": LossCfg("l1", 1.0)})
+    fresh = Runner(cfg, method, "cpu").init(11)
+    fresh.load_checkpoint(str(bare))
+    want = runner.method.module.state_dict()
+    got = fresh.method.module.state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert fresh.last_iter == 0 and fresh._restored is None
+    fresh.load_checkpoint(path)
+    assert fresh.last_iter == 2 and fresh._restored is not None
+
+
+# ---------------------------------------------------------------- C.29
+
+@pytest.mark.parametrize("flag,item", [("mixed_precision", "A.5.5"),
+                                       ("remat", "A.5.4")])
+def test_unported_config_flag_raises(flag, item):
+    """A config that sets mixed_precision or remat raises, naming its
+    ROADMAP item, instead of training in float32 without remat."""
+    cfg, method = _unlg({"rec_loss": LossCfg("l1", 1.0)},
+                        extras={flag: True})
+    with pytest.raises(NotImplementedError, match=rf"{flag}.*{item}"):
+        Runner(cfg, method, "cpu")
+
+
+def test_shipped_config_flags_do_not_raise():
+    """The shipped config sets neither flag (steps_per_dispatch stays
+    ignored), and a Runner is built from it; a flag set to False is
+    accepted too."""
+    cfg = load_config(SHIPPED)
+    assert not cfg.get("mixed_precision") and not cfg.get("remat")
+    Runner(cfg, build_model("UnlgFormer", cfg, device="cpu"), "cpu")
+    cfg.extras.update(mixed_precision=False, remat=False)
+    Runner(cfg, build_model("UnlgFormer", cfg, device="cpu"), "cpu")

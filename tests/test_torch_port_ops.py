@@ -19,8 +19,8 @@ from lgteun_tpu.ops.spectral_kernel import (fused_ln_mixer_head_cm,
                                             ln_mixer_head_xla_cm)
 from lgteun_tpu.ops.window_attention import (
     fused_window_attention_v3_packed, window_attention_xla)
-from lgteun_tpu_torch.ops.ffn_kernel import (_in_out, block_tail,
-                                             block_tail_ref)
+from lgteun_tpu_torch.ops.ffn_kernel import (_fragments, block_tail,
+                                             block_tail_ref, tail_fragments)
 from lgteun_tpu_torch.ops.lightnet_kernel import (lightnet_layers,
                                                   lightnet_stack,
                                                   lightnet_stack_ref)
@@ -227,17 +227,18 @@ def test_wrappers_run_plain_version_on_cpu():
 
 
 def test_block_tail_weight_copy_follows_version():
-    """The block tail's [in, out] weight copy is made once per weight
-    version: a fresh view of the same parameter reuses it, an in-place
-    update (load_state_dict, an optimizer step) remakes it."""
+    """The block tail's TF32 weight slabs are made once per weight
+    version: a fresh view of the same parameter reuses them, an in-place
+    update (load_state_dict, an optimizer step) remakes them."""
     w = torch.nn.Parameter(torch.from_numpy(f32(np.random.default_rng(6),
-                                                 8, 4, 1, 1)))
+                                                 16, 4, 1, 1)))
     with torch.inference_mode():
-        first = _in_out(w.view(8, 4))
-        assert torch.equal(first, w.view(8, 4).t())
-        assert _in_out(w.view(8, 4)) is first
+        first = _fragments(w.view(16, 4), 4)
+        assert torch.equal(first, tail_fragments(w.view(16, 4), 128, 32, 32))
+        assert _fragments(w.view(16, 4), 4) is first
     with torch.no_grad():
         w.mul_(2.0)
     with torch.inference_mode():
-        again = _in_out(w.view(8, 4))
-        assert again is not first and torch.equal(again, w.view(8, 4).t())
+        again = _fragments(w.view(16, 4), 4)
+        assert again is not first and torch.equal(
+            again, tail_fragments(w.view(16, 4), 128, 32, 32))

@@ -5,14 +5,15 @@
 Builds the port's CUDA kernels from `lgteun_tpu_torch/csrc` with nvcc,
 holds each kernel against its plain PyTorch version at the main paths'
 shapes (and the scene engine's three LGB kernels at 144^2 / 72^2; the
-window attention also in its [N, C, S] and [N*S, C] layouts, the block
-tail also with a seeded dropout mask, and the tails with and without
-the mask and LN + FFN at 144^2 / 72^2 too and at channel counts the
-tail kernel pads, 12 and 40), holds the differentiable wrappers'
-forward and gradients (kernel forward, recompute backward) against plain
-autograd on the card, then drives each ported eval path through
-`Runner.test` at its config's eval batch size, with random weights from
-a seed:
+window attention also in its [N, C, S] and [N*S, C] layouts, at head
+widths 4 and 32 and on 4x4 windows, which its FP32-core branch runs; the
+block tail also with a seeded dropout mask, and the tails with and
+without the mask and LN + FFN at 144^2 / 72^2 too, at channel counts the
+tail kernel pads, 12 and 40, and on the wide tile at 96 and 128; the
+whole block at C = 128 too), holds the differentiable wrappers' forward
+and gradients (kernel forward, recompute backward) against plain autograd
+on the card, then drives each ported eval path through `Runner.test` at
+its config's eval batch size, with random weights from a seed:
 
 - UnlgFormer (LGTEUN, WV-3, 8 bands, K=2): three kernels per LGB block
   (LGTEUN_FUSE_LEVEL 2, the default), then again at level 1 (window
@@ -23,6 +24,11 @@ a seed:
 - MDCUN (WV-3, 8 bands, T=4): the neighbourhood-attention kernel;
 - INNT (WV-3, 8 bands, n_feat 8): the texture-match kernel, and in a
   second pass with LGTEUN_FUSED_TM=0 the patch-match kernel.
+
+Then a 16-band UnlgFormer (embed 64: blocks of C = 64 and, at the
+bottleneck, C = 128 on the wide tail tile) at levels 1, 2 and 3, batch 4:
+the card's distance from float64 against the CPU float32 plain path's,
+and (printed) the card against the CPU plain path.
 
 Then the whole-scene engine (`parallel.scene.fuse_scene`, UnlgFormer at
 level 2, batch 32) on a seeded synthetic WV-3 scene (PAN 1024x1024,
@@ -59,18 +65,23 @@ sub-patch in another summation order. Their transferred values are held
 only outside the near ties' footprint, which must stay under 1 % of the
 output; the count is printed.
 
-For each kernel the JSON line gives its time, its plain version's time,
+For each kernel the JSON line gives its time (device time a call, from
+the profiler: at a few tens of microseconds the CUDA-event time of a
+wrapper call is the host's), its plain version's time (CUDA events),
 its bound (the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s,
 the H100 SXM's published HBM and FP32 rates at 700 W) and the time of
 one PyTorch call that computes the same function, where there is one.
-The block tails, whose 1x1 products run on the tensor cores with the
-3xTF32 split, also get a second bound (those products' operations x 3 at
-495 TFLOP/s TF32, the rest at the FP32 rate) and their achieved TFLOP/s.
-The tails' weight layout (`lgteun_tail_fragments`, TF32 hi/lo slabs in
-wgmma's order) is held bit for bit against its plain version and counted
-a training step; the whole-block kernel is launched B8_REPEATS more times
-on the same inputs and must give the same bits each time; a block wider
-than the tail's tile (C = 96) must be refused by the wrapper's check.
+The block tails and the window attention, whose products run on the
+tensor cores with the 3xTF32 split, also get a second bound (those
+products' operations x 3 at 495 TFLOP/s TF32, the rest at the FP32 rate)
+and their achieved TFLOP/s. The weight layouts of the tails
+(`lgteun_tail_fragments`, TF32 hi/lo slabs in wgmma's order) and of the
+window attention (`lgteun_attention_fragments`) are held bit for bit
+against their plain versions and counted a training step; the window
+attention and the whole-block kernel are launched REPEATS more times on
+the same inputs and must give the same bits each time; every branch of
+the window attention (tensor cores, FP32 cores) and of the tails (the
+tile, the wide tile) must have been launched.
 
 `--profile` adds a torch.profiler (CUPTI) pass over a few forwards of
 each path at batch 1 and at the eval batch, and over a few training
@@ -123,6 +134,13 @@ FP32_FLOPS_PER_S = 67e12    # H100 SXM FP32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 # the block tails, whose 1x1 products run on the tensor cores (3xTF32)
 TAILS = ("block_tail", "block_tail_masked", "ln_ffn")
+# the window attention's entries (B2, B6, B7): the tensor cores too
+ATTENTION = ("window_attention", "window_attention_windows",
+             "window_attention_rows")
+# kernel -> the branches it must have launched in the kernel checks
+BRANCHES = {**dict.fromkeys(ATTENTION, ("tc", "fp32")),
+            **dict.fromkeys(TAILS, ("tile", "wide")),
+            "lgb_block": ("tc", "tile", "wide")}
 DROP_RATE = 0.1             # the kernel cases' dropout mask
 # a differentiable wrapper vs plain autograd on the card: the backward is
 # the same plain graph on the same saved inputs and the loss is linear in
@@ -160,10 +178,24 @@ GRAD_ATOL = 1e-5
 # level 2's chain): launches per forward
 TRAIN_ROUTE = {"ln_mixer_head": 5, "window_attention": 5,
                "block_tail_masked": 5}
-# the tails' weight layouts remade a training step: proj, W1, W2, W3 of
-# each of the 5 blocks, after every optimizer step
+# the weight layouts remade a training step, after every optimizer step:
+# the tails' proj, W1, W2, W3 and the window attention's wqkv of each of
+# the 5 blocks
 FRAGMENTS_PER_STEP = 20
-B8_REPEATS = 8              # extra whole-block launches on the same inputs
+ATTN_FRAGMENTS_PER_STEP = 5
+REPEATS = 8                 # extra launches on the same inputs (B2, B8)
+# the 16-band UnlgFormer (C 64 and 128) at each level: launches per
+# forward and the tail variants of those launches
+SIXTEEN = (({"LGTEUN_FUSE_LEVEL": "1"}, {"window_attention": 5,
+                                         "global_mixer": 5, "ln_ffn": 5},
+            "ln_ffn"),
+           ({"LGTEUN_FUSE_LEVEL": "2"}, {"ln_mixer_head": 5,
+                                         "window_attention": 5,
+                                         "block_tail": 5}, "block_tail"),
+           ({"LGTEUN_FUSE_LEVEL": "3"}, {"lgb_block": 5}, "lgb_block"))
+# max|card - float64| - max|cpu plain - float64| of the 16-band model
+# (the 8-band paths' card-vs-CPU bound; see run_sixteen_bands)
+SIXTEEN_TOL = 5e-4
 
 # name -> (module under lgteun_tpu_torch/ops holding the wrapper and its
 # plain version, the model module that calls it, CUDA source, the TPU
@@ -386,8 +418,27 @@ def kernel_cases(gen: torch.Generator):
         yield "block_tail_masked", shape, block_tail_masked, \
             block_tail_masked_ref, tail[:3] + (dropout_mask(tail[0]),) + \
             tail[3:]
-    # channel counts the tail kernel pads (to 32 and to 64 channels)
-    for c, (h, w) in ((12, (16, 24)), (40, (24, 16))):
+    # the window attention at head widths 4 (C/2 = 8, padded to 8) and 32
+    # (a 16-band model's bottleneck) on the tensor cores, and on 4x4
+    # windows (S = 16), which the FP32-core branch runs; in each layout
+    for c2, hw, win in ((8, 128, 8), (64, 64, 8), (16, 32, 4)):
+        s = win * win
+        attn = (n(b, c2, hw, hw), n(3 * c2, c2, scale=c2 ** -0.5),
+                0.1 * n(3 * c2), n(2, s, s), 2, win)
+        yield ("window_attention", f"{b}x{c2}x{hw}x{hw}w{win}",
+               window_attention, window_attention_ref, attn)
+        xt = window_partition(attn[0], win)
+        yield ("window_attention_windows", "x".join(map(str, xt.shape)),
+               window_attention_windows, window_attention_windows_ref,
+               (xt,) + attn[1:5])
+        xw = xt.transpose(1, 2).contiguous()
+        yield ("window_attention_rows", "x".join(map(str, xw.shape)),
+               window_attention_rows, window_attention_rows_ref,
+               (xw,) + attn[1:5])
+    # channel counts the tail kernel pads (to 32 and to 64 channels) and
+    # the wide tile's (C > 64, padded to 128)
+    for c, (h, w) in ((12, (16, 24)), (40, (24, 16)), (96, (16, 24)),
+                      (128, (32, 32))):
         x = n(2, c, h, w)
         ffn = {"ln_w": 1 + 0.1 * n(c), "ln_b": 0.1 * n(c),
                "w1": n(4 * c, c, scale=c ** -0.5), "b1": 0.1 * n(4 * c),
@@ -395,10 +446,23 @@ def kernel_cases(gen: torch.Generator):
                "b2": 0.1 * n(4 * c), "dw": n(4 * c, 3, 3, scale=1 / 3),
                "bdw": 0.1 * n(4 * c), "w3": n(c, 4 * c, scale=(4 * c) ** -0.5),
                "b3": 0.1 * n(c)}
-        yield "block_tail", f"2x{c}x{h}x{w}", block_tail, block_tail_ref, (
-            x, n(2, c // 2, h, w), n(2, c // 2, h, w),
-            n(c, c, scale=c ** -0.5), 0.1 * n(c), ffn)
+        tail = (x, n(2, c // 2, h, w), n(2, c // 2, h, w),
+                n(c, c, scale=c ** -0.5), 0.1 * n(c), ffn)
+        yield "block_tail", f"2x{c}x{h}x{w}", block_tail, block_tail_ref, tail
         yield "ln_ffn", f"2x{c}x{h}x{w}", ln_ffn, ln_ffn_ref, (x, ffn)
+        if c > 64:
+            yield ("block_tail_masked", f"2x{c}x{h}x{w}", block_tail_masked,
+                   block_tail_masked_ref,
+                   tail[:3] + (dropout_mask(x),) + tail[3:])
+    # the whole block at a 16-band model's bottleneck (C = 128: the wide
+    # tile in phase C, head width 32 in phase B)
+    c, hw = 128, 64
+    head, attn, ffn, tail = lgb_args(c, hw)
+    blk = dict(zip(("ln_w", "ln_b", "amp_w", "amp_b", "pha_w", "pha_b"),
+                   head[1:]), wqkv=attn[1], bqkv=attn[2], pos=attn[3],
+               proj_w=tail[3], proj_b=tail[4], ffn=ffn)
+    yield "lgb_block", f"{b}x{c}x{hw}x{hw}", lgb_block, lgb_block_ref, (
+        head[0], blk)
     # and any even size: the shared-memory limit (168^2) and odd parts 5, 7
     for shape in ((b, 16, 72, 72), (1, 4, 168, 168), (2, 8, 40, 56)):
         c = shape[1]
@@ -636,18 +700,33 @@ def bound(name: str, args, outs) -> tuple[float, str]:
                                          else "operations")
 
 
-def tail_pointwise_flops(name: str, x) -> float:
-    """The operations of a tail's four (three for ln_ffn) 1x1 products,
-    which kernel_flops counts among the rest."""
+def attention_shape(name: str, args) -> tuple:
+    """(C, heads, win) of a window attention call's args."""
+    x, heads = args[0], args[4]
+    if name == "window_attention":
+        return x.shape[1], heads, args[5]
+    c = x.shape[1] if name == "window_attention_windows" else x.shape[2]
+    s = x.shape[2] if name == "window_attention_windows" else x.shape[1]
+    return c, heads, int(round(s ** 0.5))
+
+
+def product_flops(name: str, args) -> float:
+    """The operations of the products a kernel runs on the tensor cores,
+    which kernel_flops counts among the rest: a tail's four (three for
+    ln_ffn) 1x1 products; the window attention's qkv, logits and A.V."""
+    x = args[0]
+    if name in ATTENTION:
+        c, _heads, win = attention_shape(name, args)
+        return x.numel() // c * (6 * c * c + 4 * win * win * c)
     b, c, h, w = x.shape
     return 2 * b * h * w * ((c * c if name != "ln_ffn" else 0) + 24 * c * c)
 
 
 def tc_bound(name: str, args, outs) -> float:
-    """The least ms of a tail with its 1x1 products on the tensor cores:
+    """The least ms of a kernel with its products on the tensor cores:
     their operations x 3 (the 3xTF32 passes) at the TF32 rate plus the
     rest at the FP32 rate, or the bytes, whichever is longer."""
-    pw = tail_pointwise_flops(name, args[0])
+    pw = product_flops(name, args)
     by_ops = (3 * pw / TF32_FLOPS_PER_S
               + (kernel_flops(name, args) - pw) / FP32_FLOPS_PER_S)
     by_bytes = (tensor_bytes(args) + tensor_bytes(outs)) / HBM_BYTES_PER_S
@@ -779,8 +858,10 @@ def main() -> int:
     #    and matmuls)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from lgteun_tpu_torch.ops.window_attention import attention_branch
     gen = torch.Generator().manual_seed(SEED)
     record = {}
+    wrappers = reset_launches()
     for name, shape, kernel, plain, args in kernel_cases(gen):
         got, want = kernel(*args), plain(*args)
         got = got if isinstance(got, tuple) else (got,)
@@ -789,36 +870,43 @@ def main() -> int:
             rel, ab = check_search(name, shape, got, want, args)
         else:
             rel, ab = rel_err(got, want)
-        ms, plain_ms = in_turns(lambda: plain(*args), lambda: kernel(*args))
+        event_ms, plain_ms = in_turns(lambda: plain(*args),
+                                      lambda: kernel(*args))
+        ms = device_profile(lambda: kernel(*args), n=20)["busy_ms_per_call"]
         bound_ms, bound_by = bound(name, args, want)
         print(f"kernel {name:17s} {shape:14s} rel err {rel:.3e} "
-              f"(max-abs {ab:.3e})  kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}; "
-              f"roofline share {bound_ms / ms:.3f})")
+              f"(max-abs {ab:.3e})  kernel {ms:.4f} ms (device; events "
+              f"{event_ms:.4f})  plain {plain_ms:.4f} ms  bound "
+              f"{bound_ms:.4f} ms ({bound_by}; roofline share "
+              f"{bound_ms / ms:.3f})")
         if not rel <= KERNEL_REL_TOL:
             raise AssertionError(f"{name} {shape}: rel err {rel:.3e} > "
                                  f"{KERNEL_REL_TOL}")
         rec = record.setdefault(name, {"max_abs_err": 0.0, "by_shape": {}})
         rec["max_abs_err"] = max(rec["max_abs_err"], ab)
         rec["by_shape"][shape] = {"rel_err": rel, "ms": ms,
+                                  "event_ms": event_ms,
                                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                                   "bound_by": bound_by}
-        if name == "lgb_block":
+        if name in ("lgb_block", "window_attention"):
             same = all(torch.equal(kernel(*args), got[0])
-                       for _ in range(B8_REPEATS))
-            print(f"kernel {name:17s} {shape:14s} {B8_REPEATS} more launches "
+                       for _ in range(REPEATS))
+            print(f"kernel {name:17s} {shape:14s} {REPEATS} more launches "
                   f"on the same inputs bit-identical: {same}")
             if not same:
                 raise AssertionError(f"{name} {shape}: not deterministic")
-        if name in TAILS:
+        if name in TAILS or (name in ATTENTION and attention_branch(
+                *attention_shape(name, args)) == "tc"):
             tc_ms = tc_bound(name, args, want)
             tflops = kernel_flops(name, args) / ms / 1e9
             print(f"kernel {name:17s} {shape:14s} tensor-core bound "
-                  f"{tc_ms:.4f} ms (3xTF32 1x1 at {TF32_FLOPS_PER_S / 1e12:g}"
-                  f" TFLOP/s, the rest at {FP32_FLOPS_PER_S / 1e12:g}; share "
-                  f"{tc_ms / ms:.3f})  achieved {tflops:.2f} TFLOP/s")
+                  f"{tc_ms:.4f} ms (3xTF32 products at "
+                  f"{TF32_FLOPS_PER_S / 1e12:g} TFLOP/s, the rest at "
+                  f"{FP32_FLOPS_PER_S / 1e12:g}; share {tc_ms / ms:.3f})  "
+                  f"achieved {tflops:.2f} TFLOP/s")
             rec["by_shape"][shape].update(tc_bound_ms=tc_ms, tflops=tflops)
 
+    check_branches(wrappers)
     check_tail_layout(gen)
 
     # 3. the differentiable wrappers against plain autograd
@@ -833,6 +921,9 @@ def main() -> int:
                             opts.profile)
         for k in per_forward:
             launches.setdefault(k, counted[k])
+
+    # 4b. a 16-band UnlgFormer (the wide tail at its bottleneck)
+    run_sixteen_bands(card)
 
     # 5. the scene engine, then the CLI on the same scene
     method = run_scene(card, opts.profile)
@@ -867,15 +958,30 @@ def main() -> int:
     return 0
 
 
+def check_branches(wrappers: dict) -> None:
+    """Every branch of BRANCHES was launched in the kernel checks (the
+    counts since `wrappers` were reset)."""
+    for name, branches in BRANCHES.items():
+        got = dict(wrappers[name].variants)
+        print(f"kernel {name:17s} launches by branch {got}")
+        missing = [b for b in branches if not got.get(b)]
+        if missing:
+            raise AssertionError(f"{name}: branches {missing} never launched")
+
+
 def check_tail_layout(gen: torch.Generator) -> None:
-    """The tails' weight layout on the card (lgteun_tail_fragments) bit
-    for bit against ffn_kernel.tail_fragments on the CPU, for each tail
-    matrix at C = 12, 32, 40 and 64 with values over many binades; and the
-    wrapper's refusal of a block wider than the tile holds (C = 96)."""
-    from lgteun_tpu_torch.ops.ffn_kernel import (_fragments, block_tail,
-                                                 tail_fragments, tail_width)
+    """The weight layouts on the card bit for bit against their plain
+    versions on the CPU, with values over many binades: the tails'
+    (lgteun_tail_fragments vs ffn_kernel.tail_fragments) for each tail
+    matrix at C = 12, 32, 40, 64, 96 and 128, and the window attention's
+    (lgteun_attention_fragments vs window_attention.attention_fragments)
+    at head widths 4 to 32."""
+    from lgteun_tpu_torch.ops.ffn_kernel import (_fragments, tail_fragments,
+                                                 tail_width)
+    from lgteun_tpu_torch.ops.window_attention import (_wqkv_fragments,
+                                                       attention_fragments)
     n_cases, launches = 0, _fragments.launches
-    for c in (12, 32, 40, 64):
+    for c in (12, 32, 40, 64, 96, 128):
         cp = tail_width(c)
         for n, k in ((c, c), (4 * c, c), (4 * c, 4 * c), (c, 4 * c)):
             w = torch.randn(n, k, generator=gen) * torch.exp2(
@@ -886,20 +992,22 @@ def check_tail_layout(gen: torch.Generator) -> None:
                 raise AssertionError(f"tail_fragments C {c} [{n}, {k}]: the "
                                      "card's bits differ from the plain ones")
             n_cases += 1
-    print(f"tail_fragments: {n_cases} matrices (C 12, 32, 40, 64) bit-equal "
-          f"to the plain layout, {_fragments.launches - launches} launches")
-    c, hw = 96, 16
-    n = lambda *shape: torch.randn(*shape, generator=gen).cuda()
-    ffn = {"ln_w": n(c), "ln_b": n(c), "w1": n(4 * c, c), "b1": n(4 * c),
-           "w2": n(4 * c, 4 * c), "b2": n(4 * c), "dw": n(4 * c, 3, 3),
-           "bdw": n(4 * c), "w3": n(c, 4 * c), "b3": n(c)}
-    try:
-        block_tail(n(1, c, hw, hw), n(1, c // 2, hw, hw),
-                   n(1, c // 2, hw, hw), n(c, c), n(c), ffn)
-    except ValueError as e:
-        print(f"block_tail at C = {c}: refused before any launch ({e})")
-    else:
-        raise AssertionError(f"block_tail at C = {c} was not refused")
+    print(f"tail_fragments: {n_cases} matrices (C 12, 32, 40, 64, 96, 128) "
+          f"bit-equal to the plain layout, {_fragments.launches - launches} "
+          "launches")
+    n_cases, launches = 0, _wqkv_fragments.launches
+    for c, heads in ((8, 2), (16, 2), (32, 2), (64, 2), (12, 3), (24, 1)):
+        w = torch.randn(3 * c, c, generator=gen) * torch.exp2(
+            torch.randint(-40, 40, (3 * c, c), generator=gen).float())
+        got = _wqkv_fragments(w.cuda(), heads).cpu()
+        want = attention_fragments(w, heads)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"attention_fragments C {c} heads {heads}: "
+                                 "the card's bits differ from the plain ones")
+        n_cases += 1
+    print(f"attention_fragments: {n_cases} matrices (C 8 to 64, 1 to 3 "
+          f"heads) bit-equal to the plain layout, "
+          f"{_wqkv_fragments.launches - launches} launches")
 
 
 def dropout_mask(x: torch.Tensor, seed: int = SEED) -> torch.Tensor:
@@ -1164,6 +1272,75 @@ def run_slice(config: str, per_forward: dict, abs_tol: float, n_cmp: int,
     return launches
 
 
+def run_sixteen_bands(card: str) -> None:
+    """The shipped UnlgFormer config at 16 bands (embed 64: four blocks of
+    C = 64 and a bottleneck block of C = 128, which the tails run on the
+    wide tile) at each level of SIXTEEN: one batch-4 forward on the card,
+    its launches and their branches, and its distance from a float64 run
+    of the CPU plain path, which may exceed the CPU float32 plain path's
+    own distance from it by at most SIXTEEN_TOL max-abs; the card against
+    the CPU plain path and the card's plain versions are printed.
+
+    At 16 bands no two float32 runs of the model agree to the 8-band
+    paths' 5e-4: the mixer's amplitude bias lifts frequency bins whose
+    magnitude is rounding noise to a full amplitude with a noise-given
+    phase. On an H100 at level 1 the CPU plain path lay 6.8e-4 from
+    float64, the card's plain path (no kernel) 6.2e-4 from the CPU's, and
+    at level 2 the card with kernels 7.6e-4 from the card's plain path
+    but 4.9e-4 from float64. So each float32 run is held to the exact
+    answer, with the CPU float32 run's error as the allowance for
+    float32 itself."""
+    from lgteun_tpu_torch.config import load_config
+    from lgteun_tpu_torch.data.pipeline import eval_batches
+    from lgteun_tpu_torch.registry import build_model
+    from lgteun_tpu_torch.runner import Runner
+
+    cfg = load_config(os.path.join(CONFIGS, "unlg_former.py"))
+    cfg.ms_chans = 16
+    batch = {k: v for k, v in next(eval_batches(SceneDataset(
+        4, cfg.ms_chans, SEED + 5), 4))[0].items() if k != "image_id"}
+    for env, route, tail in SIXTEEN:
+        tag = f"sixteen bands {env}"
+        with mock.patch.dict(os.environ, env):
+            method = build_model(cfg.model_type, cfg, device="cuda")
+            cpu = build_model(cfg.model_type, cfg, device="cpu")
+        runner = Runner(cfg, method, "cuda").init(SEED)
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             method.module.state_dict().items()})
+        runner.predict(runner.to_device(batch))   # warm-up
+        torch.cuda.synchronize()
+        wrappers = reset_launches()
+        got = runner.predict(runner.to_device(batch)).cpu()
+        check_launches(tag, wrappers, route, 1)
+        want = cpu.apply(batch)
+        err = (got - want).abs().max().item()
+        branches = {k: dict(wrappers[k].variants) for k in route
+                    if hasattr(wrappers[k], "variants")}
+        print(f"{tag}: output {tuple(got.shape)} finite "
+              f"{bool(torch.isfinite(got).all())}, launches {route}, by "
+              f"branch {branches}; max|card - cpu plain| {err:.3e} (max|cpu| "
+              f"{want.abs().max().item():.3f})  [{card}]")
+        with swapped_kernels(route, lambda name, fn: kernel_fns(name)[1]):
+            card_plain = runner.predict(runner.to_device(batch)).cpu()
+        exact = float64_forward(cpu, batch)
+        d = lambda a, b: (a.double() - b.double()).abs().max().item()
+        print(f"{tag} split: max|card kernels - card plain| "
+              f"{d(got, card_plain):.3e}  max|card plain - cpu plain| "
+              f"{d(card_plain, want):.3e}; vs float64 cpu plain: card kernels "
+              f"{d(got, exact):.3e}, card plain {d(card_plain, exact):.3e}, "
+              f"cpu plain {d(want, exact):.3e}")
+        if wrappers[tail].variants.get("wide") != 1:
+            raise AssertionError(f"{tag}: {tail} ran the wide tile "
+                                 f"{wrappers[tail].variants.get('wide')} "
+                                 "times, want 1 (the bottleneck block)")
+        excess = d(got, exact) - d(want, exact)
+        print(f"{tag}: max|card - float64| exceeds max|cpu plain - float64| "
+              f"by {excess:.3e} (bound {SIXTEEN_TOL:g})")
+        if not (torch.isfinite(got).all() and excess <= SIXTEEN_TOL):
+            raise AssertionError(f"{tag}: card {d(got, exact):.3e} from "
+                                 f"float64, CPU float32 {d(want, exact):.3e}")
+
+
 def run_autograd(gen: torch.Generator) -> None:
     """Each differentiable wrapper (B1-B6) at the main path's shapes:
     its forward (KERNEL_REL_TOL) and the gradients of a loss linear in
@@ -1219,6 +1396,8 @@ def reset_launches() -> dict:
     wrappers = {k: kernel_fns(k)[0] for k in KERNELS}
     for fn in wrappers.values():
         fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants.clear()
     return wrappers
 
 
@@ -1324,11 +1503,12 @@ def run_training(card: str, profile: bool):
 
     # step time at each batch: the device step (forward, backward, Adam)
     from lgteun_tpu_torch.ops.ffn_kernel import _fragments
+    from lgteun_tpu_torch.ops.window_attention import _wqkv_fragments
     for bsz in TRAIN_BATCHES:
         batch = runner.to_device(next(train_iterator(
             train_ds, bsz, bit_depth=cfg.bit_depth, seed=SEED)))
         times = []
-        made = _fragments.launches
+        made, made_attn = _fragments.launches, _wqkv_fragments.launches
         for i in range(3 + TRAIN_TIMED):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1337,14 +1517,19 @@ def run_training(card: str, profile: bool):
             times.append(time.perf_counter() - t0)
         med = statistics.median(times[3:])
         made = (_fragments.launches - made) / (3 + TRAIN_TIMED)
+        made_attn = (_wqkv_fragments.launches - made_attn) / (
+            3 + TRAIN_TIMED)
         print(f"train step batch {bsz}: median {med * 1e3:.3f} ms (min "
               f"{min(times[3:]) * 1e3:.3f}) of {TRAIN_TIMED} = "
               f"{bsz / med:.1f} images/s; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
-              f"tail_fragments launches a step {made:g}  [{card}]")
-        if made != FRAGMENTS_PER_STEP:
-            raise AssertionError(f"tail_fragments: {made} launches a step, "
-                                 f"want {FRAGMENTS_PER_STEP}")
+              f"tail_fragments launches a step {made:g}, "
+              f"attention_fragments {made_attn:g}  [{card}]")
+        if (made, made_attn) != (FRAGMENTS_PER_STEP, ATTN_FRAGMENTS_PER_STEP):
+            raise AssertionError(
+                f"weight layouts: {made} tail and {made_attn} attention "
+                f"launches a step, want {FRAGMENTS_PER_STEP} and "
+                f"{ATTN_FRAGMENTS_PER_STEP}")
         if profile:
             print_profile(f"train step batch-{bsz}", device_profile(
                 lambda: runner.train_step(batch, 0)), card)

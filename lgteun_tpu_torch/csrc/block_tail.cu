@@ -33,9 +33,13 @@
 // block an SM of four warpgroups, W2's products pipelined one slab behind
 // its A loads). Tiles stay 8x8: any H, W divisible by 8 tile exactly (the
 // scene engine's 72^2 is no multiple of 16), and batch 1 at 64^2 keeps its
-// 64 blocks. Any C % 4 == 0 up to 64 (zero-padded to 32 or 64 channels);
-// above 64, h1 [112][4C] alone passes the 227 KB a block may have (as the
-// FP32-core tile's 3456 C bytes did), and the wrapper refuses the shape.
+// 64 blocks. Any C % 4 == 0 up to 64 (zero-padded to 32 or 64 channels)
+// on that tile. Above 64 (up to 128, padded to 128: a 16-band UnlgFormer's
+// bottleneck) h1 [112][4C] alone passes the 227 KB a block may have, so
+// the wide entries (lgteun_block_tail_wide, lgteun_ln_ffn_wide) run the
+// same tile with h1 in a global scratch slot of each block (229 KB, L2-
+// resident at one persistent block an SM) and the rest in 182 KB of
+// shared memory; the Python wrapper picks the entry by C.
 //
 // Measured (H100 80GB HBM3, 700 W; PERF.md §6): about 0.22 ms at
 // 128^2/C32 and 0.17 at 64^2/C64 (batch 4), 1.6x and 2.5x the FP32-core
@@ -86,8 +90,43 @@ block_tail_kernel(const float* __restrict__ x, const float* __restrict__ x1,
                        b3};
   const int tiles = (H / kTailT) * (W / kTailT);
   block_tail_tile_tc<kNT, kProj, kMask, false, tail_wg(kNT)>(
-      x, x1, x2, mask, wt, out, sm, C, H, W, eps, blockIdx.x / tiles,
-      blockIdx.x % tiles);
+      x, x1, x2, mask, wt, out, sm, nullptr, C, H, W, eps,
+      blockIdx.x / tiles, blockIdx.x % tiles);
+}
+
+// The wide tile (CP = 128, four warpgroups, one block an SM): persistent,
+// each block walks the tiles t = blockIdx.x, + gridDim.x, ... with its h1
+// in its own slot of `scratch` (tail_h1_floats(128) floats a block).
+template <bool kProj, bool kMask>
+__global__ void __launch_bounds__(kTcThreads, 1)
+block_tail_wide_kernel(const float* __restrict__ x,
+                       const float* __restrict__ x1,
+                       const float* __restrict__ x2,
+                       const float* __restrict__ mask,
+                       const float* __restrict__ wpT,
+                       const float* __restrict__ bp,
+                       const float* __restrict__ ln_w,
+                       const float* __restrict__ ln_b,
+                       const float* __restrict__ w1T,
+                       const float* __restrict__ b1,
+                       const float* __restrict__ w2T,
+                       const float* __restrict__ b2,
+                       const float* __restrict__ dw,
+                       const float* __restrict__ bdw,
+                       const float* __restrict__ w3T,
+                       const float* __restrict__ b3, float* __restrict__ out,
+                       float* __restrict__ scratch, int B, int C, int H,
+                       int W, float eps) {
+  extern __shared__ __align__(16) float sm[];
+  const TailWeights wt{wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T,
+                       b3};
+  const int tiles = (H / kTailT) * (W / kTailT);
+  float* h1 = scratch + blockIdx.x * tail_h1_floats(128);
+  for (int t = blockIdx.x; t < B * tiles; t += gridDim.x) {
+    block_tail_tile_tc<8, kProj, kMask>(x, x1, x2, mask, wt, out, sm, h1, C,
+                                        H, W, eps, t / tiles, t % tiles);
+    __syncthreads();  // shared memory and h1 are reused by the next tile
+  }
 }
 
 template <int kNT, bool kProj, bool kMask>
@@ -104,6 +143,27 @@ int launch_tc(const float* x, const float* x1, const float* x2,
       <<<blocks, 128 * tail_wg(kNT), smem, stream>>>(
           x, x1, x2, mask, wt.wpT, wt.bp, wt.ln_w, wt.ln_b, wt.w1T, wt.b1,
           wt.w2T, wt.b2, wt.dw, wt.bdw, wt.w3T, wt.b3, out, C, H, W, eps);
+  return (int)cudaGetLastError();
+}
+
+template <bool kProj, bool kMask>
+int launch_wide(const float* x, const float* x1, const float* x2,
+                const float* mask, const TailWeights& wt, float* out,
+                float* scratch, int slots, int B, int C, int C4, int H,
+                int W, float eps, cudaStream_t stream) {
+  if (C4 != 4 * C || C % 4 || tail_tc_width(C) != 128 || slots < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = block_tail_tc_smem(128);
+  const cudaError_t err = cudaFuncSetAttribute(
+      block_tail_wide_kernel<kProj, kMask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = B * (H / kTailT) * (W / kTailT);
+  block_tail_wide_kernel<kProj, kMask>
+      <<<tiles < slots ? tiles : slots, kTcThreads, smem, stream>>>(
+          x, x1, x2, mask, wt.wpT, wt.bp, wt.ln_w, wt.ln_b, wt.w1T, wt.b1,
+          wt.w2T, wt.b2, wt.dw, wt.bdw, wt.w3T, wt.b3, out, scratch, B, C, H,
+          W, eps);
   return (int)cudaGetLastError();
 }
 
@@ -128,7 +188,8 @@ int launch_block_tail(const float* x, const float* x1, const float* x2,
 }  // namespace
 
 // out = block tail of (x, x1, x2) on [B, C, H, W], the proj output times
-// `mask` [B, C, H, W] unless mask is null; C % 4 == 0, C <= 64, C4 = 4C,
+// `mask` [B, C, H, W] unless mask is null; C % 4 == 0, C <= 64 (wider:
+// lgteun_block_tail_wide), C4 = 4C,
 // H and W divisible by 8 (checked by the Python wrapper). The matrices
 // wpT, w1T, w2T, w3T as TF32 slabs of padded width tail_tc_width(C)
 // (lgteun_tail_fragments); the vectors as [C] / [C4]; dw as [C4][3][3].
@@ -151,6 +212,25 @@ extern "C" int lgteun_block_tail(const float* x, const float* x1,
                                                C, C4, H, W, eps, stream);
 }
 
+// The same for 64 < C <= 128 on the wide tile: scratch holds `slots` x
+// tail_h1_floats(128) floats (slots: at most one block a slot, e.g. one
+// an SM), the matrices as TF32 slabs of padded width 128.
+extern "C" int lgteun_block_tail_wide(
+    const float* x, const float* x1, const float* x2, const float* mask,
+    const float* wpT, const float* bp, const float* ln_w, const float* ln_b,
+    const float* w1T, const float* b1, const float* w2T, const float* b2,
+    const float* dw, const float* bdw, const float* w3T, const float* b3,
+    float* out, float* scratch, int slots, int B, int C, int C4, int H,
+    int W, float eps, cudaStream_t stream) {
+  const TailWeights wt{wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T,
+                       b3};
+  return mask ? launch_wide<true, true>(x, x1, x2, mask, wt, out, scratch,
+                                        slots, B, C, C4, H, W, eps, stream)
+              : launch_wide<true, false>(x, x1, x2, nullptr, wt, out,
+                                         scratch, slots, B, C, C4, H, W, eps,
+                                         stream);
+}
+
 // out = x + FFN(LN(x)) on [B, C, H, W]; the same contract without the proj.
 extern "C" int lgteun_ln_ffn(const float* x, const float* ln_w,
                              const float* ln_b, const float* w1T,
@@ -164,6 +244,24 @@ extern "C" int lgteun_ln_ffn(const float* x, const float* ln_w,
                        bdw, w3T, b3};
   return launch_block_tail<false, false>(x, nullptr, nullptr, nullptr, wt, out,
                                          B, C, C4, H, W, eps, stream);
+}
+
+// The same for 64 < C <= 128 on the wide tile (scratch and slots as for
+// lgteun_block_tail_wide).
+extern "C" int lgteun_ln_ffn_wide(const float* x, const float* ln_w,
+                                  const float* ln_b, const float* w1T,
+                                  const float* b1, const float* w2T,
+                                  const float* b2, const float* dw,
+                                  const float* bdw, const float* w3T,
+                                  const float* b3, float* out,
+                                  float* scratch, int slots, int B, int C,
+                                  int C4, int H, int W, float eps,
+                                  cudaStream_t stream) {
+  const TailWeights wt{nullptr, nullptr, ln_w, ln_b, w1T, b1, w2T, b2, dw,
+                       bdw, w3T, b3};
+  return launch_wide<false, false>(x, nullptr, nullptr, nullptr, wt, out,
+                                   scratch, slots, B, C, C4, H, W, eps,
+                                   stream);
 }
 
 namespace {

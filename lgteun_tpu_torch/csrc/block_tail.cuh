@@ -19,12 +19,13 @@
 // are the rows (M): the 100 halo pixels padded to 128 (2 x m64); for
 // proj, W1 and W2 warpgroup g takes rows 64 (g % 2) .. and part g / 2 of
 // the output channels of each CP-wide chunk (m64n32 with 2 warpgroups or
-// at CP = 64, m64n16 with 4 at CP = 32), for W3 the 64 interior rows
-// and part g of the output channels. Rows 112-127 hold no buffer: the
-// warp that owns them gives zeros as its A fragments and stores nothing.
-// The channels are padded to CP = 32 (C <= 32) or 64 (C <= 64), the
-// hidden width to 4 CP (zero weights and biases, so the padded channels
-// stay zero). A comes from registers, split into hi/lo TF32 parts as
+// at CP = 64, m64n16 with 4 at CP = 32, m64n64 at CP = 128), for W3 the
+// 64 interior rows and part g of the output channels. Rows 112-127 hold
+// no buffer: the warp that owns them gives zeros as its A fragments and
+// stores nothing. The channels are padded to CP = 32 (C <= 32), 64 (C <=
+// 64) or 128 (C <= 128, the wide tile: h1 in a global scratch slot of
+// the block, see tail_wide), the hidden width to 4 CP (zero weights and
+// biases, so the padded channels stay zero). A comes from registers, split into hi/lo TF32 parts as
 // each warp loads its fragments from shared memory; B, the weights, comes
 // pre-split (ops/ffn_kernel.py::tail_fragments) as slabs of CP output
 // channels x 32 input channels (hi, then lo, each in wgmma's K-major
@@ -71,20 +72,34 @@ __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
 }
 
-// Padded channel width of the tile for C channels: 32 or 64 (0: C > 64,
-// which the tile does not take: h1 [112][4C] would not fit in shared
-// memory beside the other buffers).
-inline int tail_tc_width(int C) { return C <= 32 ? 32 : C <= 64 ? 64 : 0; }
+// Padded channel width of the tile for C channels: 32, 64 or, for the
+// wide tile, 128 (0: C > 128, which no tile takes).
+inline int tail_tc_width(int C) {
+  return C <= 32 ? 32 : C <= 64 ? 64 : C <= 128 ? 128 : 0;
+}
+
+// The wide tile (CP = 128): h1 [112][4CP+4] (229 KB) no longer fits in
+// shared memory beside the other buffers, so it lives in a global
+// scratch slot of its block (read back through L1/L2), and the rest of
+// the tile stays in shared memory.
+__host__ __device__ constexpr bool tail_wide(int CP) { return CP > 64; }
+
+// Floats of h1 [112][4CP+4]: the wide tile's global scratch slot.
+__host__ __device__ constexpr size_t tail_h1_floats(int CP) {
+  return (size_t)kTcRows * (4 * CP + 4);
+}
 
 // Shared memory (bytes) of one tile of padded width CP: tail_ring(CP)
 // weight slabs of 64 CP floats (first, so that wgmma's core matrices are
 // aligned); h1 [112][4CP+4] (early: xm, [x1;x2] and the mask,
-// [112][CP+4] each); yln [112][CP+4], later the chunk's h2 [100][CP+4]
-// and g [64][CP+4]; the interior xm [64][CP+4]. 106 KB at CP = 32 (two
-// blocks an SM), 222 KB at 64.
+// [112][CP+4] each; the wide tile's is in global memory); yln
+// [112][CP+4], later the chunk's h2 [100][CP+4] and g [64][CP+4]; the
+// interior xm [64][CP+4]. 106 KB at CP = 32 (two blocks an SM), 222 KB at
+// 64, 182 KB at 128.
 inline size_t block_tail_tc_smem(int CP) {
-  const size_t ldc = CP + 4, ldh = 4 * CP + 4;
-  return sizeof(float) * (tail_ring(CP) * (size_t)64 * CP + kTcRows * ldh +
+  const size_t ldc = CP + 4;
+  return sizeof(float) * (tail_ring(CP) * (size_t)64 * CP +
+                          (tail_wide(CP) ? 0 : tail_h1_floats(CP)) +
                           (kTailNP + kTailNI) * ldc + kTailNI * ldc);
 }
 
@@ -192,14 +207,15 @@ __device__ __forceinline__ void each_frag(const float (&acc)[NJ][4], int row0,
 // wt's matrices are TF32 slabs (wpT [1][CP/32 slabs], w1T [4][CP/32],
 // w2T [4][4CP/32], w3T [1][4CP/32]); vectors as given ([C], [4C]); dw
 // [4C][3][3]. 128 kWG threads; sm holds block_tail_tc_smem(CP) bytes,
-// 16-byte aligned.
+// 16-byte aligned; h1g: the wide tile's h1 slot (tail_h1_floats(CP),
+// this block's alone; unused below CP = 128).
 template <int kNT, bool kProj, bool kMask, bool kCoherent = false,
           int kWG = 4>
 __device__ __forceinline__ void block_tail_tile_tc(
     const float* __restrict__ x, const float* __restrict__ x1,
     const float* __restrict__ x2, const float* __restrict__ mask,
-    const TailWeights& wt, float* __restrict__ out, float* sm, int C, int H,
-    int W, float eps, int b, int ti) {
+    const TailWeights& wt, float* __restrict__ out, float* sm, float* h1g,
+    int C, int H, int W, float eps, int b, int ti) {
   constexpr int CP = 16 * kNT, HP = 4 * CP;
   constexpr int kThreads = 128 * kWG;
   constexpr int NH = 2 * CP / kWG, N3W = CP / kWG;  // outputs a warpgroup:
@@ -213,12 +229,14 @@ __device__ __forceinline__ void block_tail_tile_tc(
   constexpr int N2 = HP / kSlabK;                // W2 and W3 a hidden chunk
   constexpr int N3 = CP / kSlabK;
   constexpr int NSLAB = NP + N1 + 4 * (N2 + N3);
+  constexpr bool kWide = tail_wide(CP);
   float* stage = sm;                             // kRing x SLAB
-  float* h1 = stage + kRing * SLAB;              // [112][LDH]
+  float* h1 = kWide ? h1g : stage + kRing * SLAB;  // [112][LDH]
   float* xm = h1;                                // [112][LDC] (in h1)
   float* cat = xm + kTcRows * LDC;               // [112][LDC] (in h1)
   float* mk = cat + kTcRows * LDC;               // [112][LDC] (in h1)
-  float* yln = h1 + kTcRows * LDH;               // [112][LDC]
+  float* yln = kWide ? stage + kRing * SLAB      // [112][LDC]
+                     : h1 + kTcRows * LDH;
   float* h2 = yln;                               // [100][LDC] (on yln)
   float* g = h2 + kTailNP * LDC;                 // [64][LDC]
   float* xmi = g + kTailNI * LDC;                // [64][LDC]

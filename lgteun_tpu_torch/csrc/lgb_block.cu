@@ -7,11 +7,11 @@
 //   xm = x + proj([x1; x2]);  out = xm + FFN(LN(xm))
 //
 // What bounds it here: the work of its three phases, as in B1-B3 (the
-// FFN's 4C x 4C product on the FP32 cores, the FFT's shared-memory
-// stages, the window products); fusing saves only the launches between
-// them, not HBM traffic worth having: the TPU kernel kept a whole image in
-// VMEM, while one H100 block holds at most 227 KB, a third of one image's
-// activations at 128x128 / C = 32.
+// FFN's products, the FFT's shared-memory stages, the window products);
+// fusing saves only the launches between them, not HBM traffic worth
+// having: the TPU kernel kept a whole image in VMEM, while one H100 block
+// holds at most 227 KB, a third of one image's activations at 128x128 /
+// C = 32.
 //
 // Design: a persistent cooperative kernel, grid = the blocks that fit on
 // the card at once (one 512-thread block an SM: the phases need up to
@@ -19,14 +19,26 @@
 //   A. LN + split, one thread per pixel: y1 and y2 into global scratch;
 //   B. a work list of the (image, channel) FFT mixer planes (y2 -> x2 in
 //      place) followed by the windows (y1 -> x1), taken from an atomic
-//      counter so the long planes start first and the windows fill in;
+//      counter so the long planes start first and the windows fill in.
+//      The windows run B2's tensor-core body (window_attention_tc.cuh)
+//      where it takes the shape and 4 is a multiple of the heads: an item
+//      is 4 (window, head) pairs, one a warpgroup, so warpgroup wg always
+//      has head wg % heads and keeps its position bias in registers; the
+//      block copies the weight fragments to shared memory at its first
+//      window item (no plane comes after it). Otherwise an item is one
+//      window on the FP32-core body (window_attention.cuh), and wqkv is
+//      given as [3C/2][C/2] rows. An item's result does not depend on the
+//      block that takes it, so the racy work list gives the same bits;
 //   C. the tail on 8x8 tiles with a 1-pixel halo, x + proj([x1; x2]) then
-//      LN + FFN + residual, into `out`.
+//      LN + FFN + residual, into `out`. C > 64 takes B3's wide tile in
+//      this launch too: its 182 KB of shared memory fit the budget, and
+//      its h1 slot is block blockIdx.x's part of the scratch (one block
+//      an SM, which that shared memory makes certain).
 // Every phase runs the device code of B1-B3 (fft_mixer.cuh,
-// window_attention.cuh, block_tail.cuh; phase C B3's tensor-core tile,
-// whose 512 threads and block_tail_tc_smem are this launch's thread count
-// and fit its one shared-memory budget), so the block computes what the
-// three-kernel chain computes to FP32 rounding. The TPU kernel's
+// window_attention(_tc).cuh, block_tail.cuh; phase C B3's tensor-core
+// tile, whose 512 threads and block_tail_tc_smem are this launch's thread
+// count and fit its one shared-memory budget), so the block computes what
+// the three-kernel chain computes to FP32 rounding. The TPU kernel's
 // window-pair packing, its permutation matrices, the -1e9 block-diagonal
 // table and the tanh-form exp are not carried over. Scratch is read
 // through L2 (loads.cuh): it is written earlier in the same launch, on
@@ -39,6 +51,7 @@
 #include "block_tail.cuh"
 #include "fft_mixer.cuh"
 #include "window_attention.cuh"
+#include "window_attention_tc.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -52,13 +65,55 @@ struct LgbBlockArgs {
   const float *wqkv, *bqkv, *pos;
   TailWeights tail;
   float *y1, *x2, *x1;  // scratch, [B, C/2, H, W] each
+  float* h1;            // scratch: the wide tile's h1 slots, one a block
   int* counter;         // the phase-B work list
+  int attn;             // the tensor-core attention's shape, -1: FP32 core
+  int attn_w;           // floats of its weight fragments
   float* out;
   int B, C, C4, H, W, heads, win;
   float scale, eps;
   FftLen fh, fw;
   int smem_item;        // float offset of the shared work-item slot
 };
+
+// The tensor-core attention's (HDP, CP) shapes, indexed by
+// LgbBlockArgs::attn.
+constexpr int kAttnShapes[][2] = {{8, 8},   {8, 16},  {8, 32},
+                                  {8, 64},  {16, 16}, {16, 32},
+                                  {16, 64}, {32, 32}, {32, 64}};
+
+// Work item `grp` of the windows: (window, head) pair 4 grp + wg on
+// warpgroup wg; pos: head wg % heads.
+template <int HDP, int CP>
+__device__ __forceinline__ void attention_group(const LgbBlockArgs& a,
+                                                float* sm,
+                                                const float (&pos)[8][4],
+                                                int grp) {
+  const int C2 = a.C / 2, wg = threadIdx.x >> 7, pair = 4 * grp + wg;
+  const int w = pair / a.heads;
+  if (w >= a.B * (a.H / 8) * (a.W / 8)) return;
+  float* kv = sm + a.heads * 6 * HDP * CP + wg * 4 * kAttnS * HDP;
+  window_attention_head_tc<HDP, CP, true>(
+      a.y1, sm, a.bqkv, a.x1, kv, pos, C2, C2 / a.heads, pair % a.heads,
+      a.scale, ImageWindow::of(w, C2, a.H, a.W, 8), wg);
+}
+
+// The same for the launch's shape a.attn.
+__device__ __forceinline__ void attention_item(const LgbBlockArgs& a,
+                                               float* sm,
+                                               const float (&pos)[8][4],
+                                               int grp) {
+  switch (a.attn) {
+#define LGTEUN_SHAPE(i)                                                   \
+  case i:                                                                 \
+    attention_group<kAttnShapes[i][0], kAttnShapes[i][1]>(a, sm, pos, grp); \
+    break;
+    LGTEUN_SHAPE(0) LGTEUN_SHAPE(1) LGTEUN_SHAPE(2) LGTEUN_SHAPE(3)
+    LGTEUN_SHAPE(4) LGTEUN_SHAPE(5) LGTEUN_SHAPE(6) LGTEUN_SHAPE(7)
+    LGTEUN_SHAPE(8)
+#undef LGTEUN_SHAPE
+  }
+}
 
 __global__ void __launch_bounds__(kThreads) lgb_block_kernel(LgbBlockArgs a) {
   extern __shared__ __align__(16) float sm[];
@@ -79,7 +134,11 @@ __global__ void __launch_bounds__(kThreads) lgb_block_kernel(LgbBlockArgs a) {
   // keeps the previous item's shared memory until every thread is done)
   const int planes = a.B * C2;
   const int nwin = (a.H / a.win) * (a.W / a.win);
-  const int items = planes + a.B * nwin;
+  const bool tc = a.attn >= 0;
+  const int items = planes + (tc ? (a.B * nwin * a.heads + 3) / 4
+                                 : a.B * nwin);
+  bool loaded = false;  // the attention weights in shared memory
+  float pos[8][4];
   for (;;) {
     if (threadIdx.x == 0) *item = atomicAdd(a.counter, 1);
     __syncthreads();
@@ -92,6 +151,14 @@ __global__ void __launch_bounds__(kThreads) lgb_block_kernel(LgbBlockArgs a) {
       fft_mixer_plane(plane, plane, reinterpret_cast<float2*>(sm), a.H, a.W,
                       a.fh, a.fw, a.amp_w[c], a.amp_b[c], a.pha_w[c],
                       a.pha_b[c]);
+    } else if (tc) {
+      if (!loaded) {
+        attention_load_weights(sm, a.wqkv, a.attn_w);
+        attention_pos(pos, a.pos, (threadIdx.x >> 7) % a.heads);
+        __syncthreads();
+        loaded = true;
+      }
+      attention_item(a, sm, pos, it - planes);
     } else {
       const int w = it - planes;
       window_attention_window<true>(a.y1, a.wqkv, a.bqkv, a.pos, a.x1, sm, C2,
@@ -106,26 +173,34 @@ __global__ void __launch_bounds__(kThreads) lgb_block_kernel(LgbBlockArgs a) {
   for (int t = blockIdx.x; t < a.B * tiles; t += gridDim.x) {
     if (a.C <= 32)
       block_tail_tile_tc<2, true, false, true>(a.x, a.x1, a.x2, nullptr,
-                                               a.tail, a.out, sm, a.C, a.H,
-                                               a.W, a.eps, t / tiles,
-                                               t % tiles);
-    else
+                                               a.tail, a.out, sm, nullptr,
+                                               a.C, a.H, a.W, a.eps,
+                                               t / tiles, t % tiles);
+    else if (a.C <= 64)
       block_tail_tile_tc<4, true, false, true>(a.x, a.x1, a.x2, nullptr,
-                                               a.tail, a.out, sm, a.C, a.H,
-                                               a.W, a.eps, t / tiles,
-                                               t % tiles);
+                                               a.tail, a.out, sm, nullptr,
+                                               a.C, a.H, a.W, a.eps,
+                                               t / tiles, t % tiles);
+    else
+      block_tail_tile_tc<8, true, false, true>(
+          a.x, a.x1, a.x2, nullptr, a.tail, a.out, sm,
+          a.h1 + blockIdx.x * tail_h1_floats(128), a.C, a.H, a.W, a.eps,
+          t / tiles, t % tiles);
     __syncthreads();  // shared memory is reused by the next tile
   }
 }
 
 }  // namespace
 
-// out = one LGB block of x, both [B, C, H, W]. C % 4 == 0, C <= 64, C4 =
+// out = one LGB block of x, both [B, C, H, W]. C % 4 == 0, C <= 128, C4 =
 // 4C, H and W divisible by win and 8, win*win <= 64, C/2 divisible by
 // heads, the mixer plane within shared memory (checked by the Python
-// wrapper). Weights: wqkv [3C/2][C/2] (out, in), pos [heads][S][S], the
-// tail's as in lgteun_block_tail (TF32 slabs). scratch: 3 * B * C/2 * H *
-// W floats; counter: one int (zeroed by the kernel).
+// wrapper). Weights: wqkv as lgteun_attention_fragments lays it out where
+// attention_tc_takes(C/2, heads, win) and 4 % heads == 0, else [3C/2][C/2]
+// (out, in); pos [heads][S][S]; the tail's as in lgteun_block_tail (TF32
+// slabs of width tail_tc_width(C)). scratch: 3 * B * C/2 * H * W floats,
+// and for C > 64 then one tail_h1_floats(128) slot an SM; counter: one
+// int (zeroed by the kernel).
 extern "C" int lgteun_lgb_block(
     const float* x, const float* ln_w, const float* ln_b, const float* amp_w,
     const float* amp_b, const float* pha_w, const float* pha_b,
@@ -152,6 +227,7 @@ extern "C" int lgteun_lgb_block(
   a.y1 = scratch;
   a.x2 = scratch + plane;
   a.x1 = scratch + 2 * plane;
+  a.h1 = scratch + 3 * plane;
   a.counter = counter;
   a.out = out;
   a.B = B;
@@ -170,9 +246,18 @@ extern "C" int lgteun_lgb_block(
       !cp || C4 != 4 * C)
     return (int)cudaErrorInvalidValue;
 
+  a.attn = -1;
+  a.attn_w = (int)attn_wfrag_floats(C / 2, heads);
+  if (attention_tc_takes(C / 2, heads, win) && 4 % heads == 0)
+    for (int i = 0; i < 9; ++i)
+      if (kAttnShapes[i][0] == attn_pad(C / 2 / heads) &&
+          kAttnShapes[i][1] == attn_pad(C / 2))
+        a.attn = i;
+  const size_t attn_smem = a.attn >= 0
+                               ? attention_tc_smem(C / 2, heads, 4)
+                               : window_attention_smem(C / 2, heads, win);
   size_t smem = fft_mixer_smem(H, W);
-  if (window_attention_smem(C / 2, heads, win) > smem)
-    smem = window_attention_smem(C / 2, heads, win);
+  if (attn_smem > smem) smem = attn_smem;
   if (block_tail_tc_smem(cp) > smem) smem = block_tail_tc_smem(cp);
   a.smem_item = (int)((smem + 15) / 16 * 4);
   smem = sizeof(float) * (size_t)a.smem_item + 16;
@@ -194,6 +279,8 @@ extern "C" int lgteun_lgb_block(
            &per_sm, lgb_block_kernel, kThreads, smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // the wide tile's h1: one slot an SM in the scratch
+  if (cp == 128 && per_sm != 1) return (int)cudaErrorInvalidConfiguration;
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel((void*)lgb_block_kernel,
                                     dim3(per_sm * sms), dim3(kThreads),

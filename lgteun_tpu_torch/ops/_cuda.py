@@ -45,15 +45,26 @@ SIGNATURES = {
     # matrices as for lgteun_ln_ffn), scratch, counter, out, B, C, C4, H,
     # W, heads, win, scale, eps, stream
     "lgteun_lgb_block": [_P] * 25 + [_I] * 7 + [_F, _F, _P],
-    # x, wqkv, bqkv, pos, out, B, C, H, W, heads, win, scale, stream
+    # x, wqkv, bqkv, pos, out, B, C, H, W, heads, win, scale, stream (wqkv
+    # as window_attention.attention_fragments; the _fp32 entries take it as
+    # [3C][C] rows)
     "lgteun_window_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "lgteun_window_attention_fp32": [_P] * 5 + [_I] * 6 + [_F, _P],
     # x, wqkv, bqkv, pos, out, N, C, heads, win, scale, stream
     "lgteun_window_attention_windows": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "lgteun_window_attention_windows_fp32": [_P] * 5 + [_I] * 4 + [_F, _P],
     "lgteun_window_attention_rows": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "lgteun_window_attention_rows_fp32": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # wqkv, C, heads, hdp, cp, out, stream
+    "lgteun_attention_fragments": [_P] + [_I] * 4 + [_P, _P],
     # x, x1, x2, mask (or null), wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw,
     # bdw, w3T, b3, out, B, C, C4, H, W, eps, stream (matrices as for
     # lgteun_ln_ffn)
     "lgteun_block_tail": [_P] * 17 + [_I] * 5 + [_F, _P],
+    # the same with scratch and slots after out (the wide tile, C > 64)
+    "lgteun_block_tail_wide": [_P] * 18 + [_I] * 6 + [_F, _P],
+    # lgteun_ln_ffn's arguments with scratch and slots after out
+    "lgteun_ln_ffn_wide": [_P] * 13 + [_I] * 6 + [_F, _P],
     # w, N, K, n_pad, k_pad, cp, out, stream
     "lgteun_tail_fragments": [_P] + [_I] * 5 + [_P, _P],
     # in, in_c, lms, wts, out, table (host), n, B, H, W, stream

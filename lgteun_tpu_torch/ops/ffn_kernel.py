@@ -23,13 +23,18 @@ four 1x1 products on the tensor cores (wgmma) with the 3xTF32 split: its
 matrices come split into hi/lo TF32 parts and in wgmma's core-matrix
 order (`tail_fragments`), made once per weight version (one
 `lgteun_tail_fragments` launch a matrix on the card). C is at most
-`TAIL_MAX_C`. `ffn` holds the
+`TAIL_MAX_WIDTH`: up to 64 channels on the kernel's shared-memory tile,
+above that on its wide tile, whose h1 lives in a global scratch slot of
+each block (`tail_variant`; each wrapper counts its launches of either in
+`variants`). `ffn` holds the
 FeedForward's weights in torch conv layout: ln_w/ln_b [C], w1 [4C, C],
 b1 [4C], w2 [4C, 4C], b2 [4C], dw [4C, 3, 3], bdw [4C], w3 [C, 4C],
 b3 [C].
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.nn.functional as F
@@ -41,14 +46,15 @@ from lgteun_tpu_torch.ops.norm import channel_layer_norm
 __all__ = ["block_tail", "block_tail_ref", "block_tail_masked",
            "block_tail_masked_ref", "ln_ffn", "ln_ffn_ref", "FFN_KEYS",
            "tf32_round", "tf32_split", "tail_fragments", "tail_width",
-           "TAIL_MAX_C"]
+           "tail_variant", "TAIL_MAX_WIDTH"]
 
 # the order in which `ffn`'s tensors pass through `recompute`
 FFN_KEYS = ("ln_w", "ln_b", "w1", "b1", "w2", "b2", "dw", "bdw", "w3", "b3")
-# the widest block the kernel's tile holds: its h1 [112][4C] in shared
-# memory beside the other buffers (the FP32-core tile before it, 3456 C
-# bytes, stopped at the same C)
-TAIL_MAX_C = 64
+# the kernel's padded channel widths: the shared-memory tile at 32 and
+# 64, the wide tile (h1 [112][4C + 4] in global scratch) at 128
+TAIL_MAX_WIDTH = 128
+# floats of the wide tile's h1 scratch slot, one a block
+_WIDE_SLOT = 112 * (4 * TAIL_MAX_WIDTH + 4)
 
 
 def _pw(t, wt, bias):
@@ -97,9 +103,35 @@ def tf32_split(t: torch.Tensor) -> tuple:
 
 
 def tail_width(c: int) -> int:
-    """The kernel's padded channel width for C <= TAIL_MAX_C channels: 32
-    or 64."""
-    return 32 if c <= 32 else 64
+    """The kernel's padded channel width for C <= TAIL_MAX_WIDTH channels:
+    32, 64 or 128."""
+    return 32 if c <= 32 else 64 if c <= 64 else TAIL_MAX_WIDTH
+
+
+def tail_variant(c: int) -> str:
+    """The tile that runs a C-channel tail: "tile" (h1 in shared memory,
+    C <= 64) or "wide" (h1 in a global scratch slot, 64 < C <= 128)."""
+    return "tile" if c <= 64 else "wide"
+
+
+def _wide_scratch(device: torch.device) -> tuple:
+    """(scratch, slots) of the wide tile: one h1 slot an SM (the wide
+    kernel's persistent blocks, one an SM)."""
+    slots = torch.cuda.get_device_properties(device).multi_processor_count
+    return torch.empty(slots * _WIDE_SLOT, device=device), slots
+
+
+def _launch_tail(entry: str, wrapper, x, args: tuple, dims: tuple) -> None:
+    """Launch tail entry `entry` (`lgteun_block_tail` or `lgteun_ln_ffn`)
+    or its wide twin, chosen by x's C, on `args` (up to `out`) and `dims`
+    (B, C, C4, H, W, eps); count the launch and its variant."""
+    variant = tail_variant(x.shape[1])
+    if variant == "wide":
+        entry += "_wide"
+        args += _wide_scratch(x.device)
+    _cuda.launch(entry, x.device, *args, *dims)
+    wrapper.launches += 1
+    wrapper.variants[variant] += 1
 
 
 def tail_fragments(w: torch.Tensor, n_pad: int, k_pad: int,
@@ -151,15 +183,15 @@ def _ffn_shapes(c: int, c4: int) -> dict:
 
 def check_tail_args(name: str, x, got: dict, want: dict) -> None:
     """Raise unless x [B, C, H, W] and the tensors of `got` suit the tail
-    kernel: shapes as in `want`, C % 4 == 0 and C <= TAIL_MAX_C, a 4C
+    kernel: shapes as in `want`, C % 4 == 0 and C <= TAIL_MAX_WIDTH, a 4C
     hidden width, H and W divisible by 8, contiguous float32 on x's CUDA
     device."""
     b, c, h, w = x.shape
     c4 = got["w1"].shape[0]
     bad = [k for k, shp in want.items() if tuple(got[k].shape) != shp]
-    if bad or c % 4 or c > TAIL_MAX_C or c4 != 4 * c or h % 8 or w % 8:
-        raise ValueError(f"{name}: need C % 4 == 0, C <= {TAIL_MAX_C}, 4C "
-                         f"hidden and H, W divisible by 8 (x "
+    if bad or c % 4 or c > TAIL_MAX_WIDTH or c4 != 4 * c or h % 8 or w % 8:
+        raise ValueError(f"{name}: need C % 4 == 0, C <= {TAIL_MAX_WIDTH}, "
+                         f"4C hidden and H, W divisible by 8 (x "
                          f"{tuple(x.shape)}); bad: {bad}")
     _cuda.check_cuda_f32(name, x.device, x=x, **got)
 
@@ -195,10 +227,9 @@ def _tail(name, wrapper, tensors, eps):
             got["mask"], want["mask"] = mask, (b, c, h, w)
         check_tail_args(name, x, got, want)
         out = torch.empty_like(x)
-        _cuda.launch("lgteun_block_tail", x.device, x, x1, x2, mask,
-                     _fragments(proj_w, c), proj_b, *tail_weights(ffn), out,
-                     b, c, c4, h, w, eps)
-        wrapper.launches += 1
+        _launch_tail("lgteun_block_tail", wrapper, x, (
+            x, x1, x2, mask, _fragments(proj_w, c), proj_b,
+            *tail_weights(ffn), out), (b, c, c4, h, w, eps))
         return out
 
     def plain(*t):
@@ -217,6 +248,7 @@ def block_tail(x, x1, x2, proj_w, proj_b, ffn: dict, eps: float = 1e-5):
 
 
 block_tail.launches = 0
+block_tail.variants = collections.Counter()
 
 
 def block_tail_masked(x, x1, x2, mask, proj_w, proj_b, ffn: dict,
@@ -230,6 +262,7 @@ def block_tail_masked(x, x1, x2, mask, proj_w, proj_b, ffn: dict,
 
 
 block_tail_masked.launches = 0
+block_tail_masked.variants = collections.Counter()
 
 
 def ln_ffn(x, ffn: dict, eps: float = 1e-5):
@@ -243,9 +276,8 @@ def ln_ffn(x, ffn: dict, eps: float = 1e-5):
         c4 = ffn["w1"].shape[0]
         check_tail_args("ln_ffn", x, ffn, _ffn_shapes(c, c4))
         out = torch.empty_like(x)
-        _cuda.launch("lgteun_ln_ffn", x.device, x, *tail_weights(ffn), out,
-                     b, c, c4, h, w, eps)
-        ln_ffn.launches += 1
+        _launch_tail("lgteun_ln_ffn", ln_ffn, x,
+                     (x, *tail_weights(ffn), out), (b, c, c4, h, w, eps))
         return out
 
     return recompute(kernel, lambda x, *t: ln_ffn_ref(
@@ -253,3 +285,4 @@ def ln_ffn(x, ffn: dict, eps: float = 1e-5):
 
 
 ln_ffn.launches = 0
+ln_ffn.variants = collections.Counter()

@@ -12,9 +12,17 @@ windows lie in memory:
     window_attention_rows     xw [N, S, C] ([N*S, C] rows; B7, the first
                               kernel, on no model path in either package)
 
-Each launches `csrc/window_attention.cu` (one block per window, read and
-written in place in its layout: no partition copy, no window-pair
-packing) for a CUDA tensor and runs its `*_ref` for a CPU tensor.
+Each launches `csrc/window_attention.cu` for a CUDA tensor and runs its
+`*_ref` for a CPU tensor. The kernel reads and writes each window in
+place in its layout (no partition copy, no window-pair packing). Where
+`attention_branch` gives "tc" (8x8 windows, a head of at most 32
+channels, C <= 64, heads x padded head <= 64: every UnlgFormer block)
+it runs the tensor-core body (one warpgroup a window and head, every
+product as wgmma TF32 with the 3xTF32 split), which takes wqkv as
+`attention_fragments` (made once per weight version, one
+`lgteun_attention_fragments` launch on the card); other shapes run the
+FP32-core body ("fp32", the `*_fp32` entries) on the rows of wqkv. Each
+wrapper counts its launches in `launches` and by branch in `variants`.
 `window_attention` and `window_attention_windows` are differentiable on
 the card (`ops.autograd.recompute`: the kernel forward, the plain
 version's backward). The weights keep torch's layout: wqkv [3C, C] (out,
@@ -23,15 +31,20 @@ in, the to_qkv conv weight), bqkv [3C], pos [heads, S, S].
 
 from __future__ import annotations
 
+import collections
+
 import torch
+import torch.nn.functional as F
 
 from lgteun_tpu_torch.ops import _cuda
 from lgteun_tpu_torch.ops.autograd import recompute
+from lgteun_tpu_torch.ops.ffn_kernel import tf32_split
 
 __all__ = ["window_attention", "window_attention_ref",
            "window_attention_windows", "window_attention_windows_ref",
            "window_attention_rows", "window_attention_rows_ref",
-           "window_partition", "window_unpartition"]
+           "window_partition", "window_unpartition", "attention_branch",
+           "attention_fragments", "attention_pad"]
 
 
 def window_partition(y, win: int):
@@ -75,6 +88,79 @@ def window_attention_ref(y, wqkv, bqkv, pos, heads: int, win: int):
         window_partition(y, win), wqkv, bqkv, pos, heads), win, h, w)
 
 
+def attention_pad(v: int) -> int:
+    """The tensor-core body's padded width of v channels: the least power
+    of two >= max(v, 8)."""
+    return max(8, 1 << (v - 1).bit_length())
+
+
+def attention_branch(c: int, heads: int, win: int) -> str:
+    """The body that runs C channels in `heads` heads of win x win
+    windows: "tc" (the tensor cores: win 8, a padded head <= 32, padded C
+    <= 64, heads x padded head <= 64) or "fp32" (every other shape)."""
+    if win != 8 or c % heads:
+        return "fp32"
+    hdp, cp = attention_pad(c // heads), attention_pad(c)
+    return "tc" if hdp <= 32 and cp <= 64 and heads * hdp <= 64 else "fp32"
+
+
+def attention_fragments(wqkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """wqkv [3C, C] (out, in) as the tensor-core body's weights: per head,
+    its q, k and v rows (hd of each) zero-padded to [HDP, CP], split into
+    TF32 hi/lo parts, each part wgmma's K-major B operand without swizzle:
+    [heads][q, k, v][hi, lo][HDP / 8 n-groups][CP / 4 k-quads][8][4],
+    element (d, c) at n-group d // 8, k-quad c // 4, [d % 8][c % 4] (core
+    matrices of 8 rows x 16 bytes; the next k-quad 128 bytes on, the next
+    n-group 32 CP bytes). Flat float32. `lgteun_attention_fragments` makes
+    the same bits on the card."""
+    c = wqkv.shape[1]
+    hd = c // heads
+    hdp, cp = attention_pad(hd), attention_pad(c)
+    w = wqkv.float().reshape(3, heads, hd, c)
+    w = F.pad(w, (0, cp - c, 0, hdp - hd)).transpose(0, 1)
+    hi, lo = tf32_split(w.contiguous())
+    t = torch.stack([hi, lo], dim=2).view(heads, 3, 2, hdp // 8, 8, cp // 4,
+                                          4)
+    return t.permute(0, 1, 2, 3, 5, 4, 6).contiguous().view(-1)
+
+
+def _wqkv_fragments(wqkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """`attention_fragments` of wqkv, made once per weight version: by
+    `lgteun_attention_fragments` for a CUDA tensor (one launch)."""
+    def make():
+        if wqkv.device.type != "cuda":
+            return attention_fragments(wqkv, heads)
+        c = wqkv.shape[1]
+        _cuda.check_cuda_f32("attention_fragments", wqkv.device, wqkv=wqkv)
+        hdp, cp = attention_pad(c // heads), attention_pad(c)
+        out = torch.empty(heads * 6 * hdp * cp, device=wqkv.device)
+        _cuda.launch("lgteun_attention_fragments", wqkv.device, wqkv, c,
+                     heads, hdp, cp, out)
+        _wqkv_fragments.launches += 1
+        return out
+
+    return _cuda.weight_layout(f"attn/{heads}", (wqkv,), make)
+
+
+_wqkv_fragments.launches = 0
+
+
+def _launch(entry: str, wrapper, x, wqkv, bqkv, pos, out, dims: tuple,
+            c: int, heads: int, win: int) -> None:
+    """Launch `entry` (the tensor-core body, on wqkv's fragments) or its
+    FP32-core twin `entry`_fp32 (on wqkv), as `attention_branch` picks,
+    with the trailing arguments `dims`; count the launch and its branch on
+    `wrapper`."""
+    branch = attention_branch(c, heads, win)
+    if branch == "tc":
+        wt = _wqkv_fragments(wqkv, heads)
+    else:
+        entry, wt = entry + "_fp32", wqkv
+    _cuda.launch(entry, x.device, x, wt, bqkv, pos, out, *dims)
+    wrapper.launches += 1
+    wrapper.variants[branch] += 1
+
+
 def _check(name, x, c, heads, win, wqkv, bqkv, pos):
     s = win * win
     if c % heads or s > 64:
@@ -99,9 +185,9 @@ def window_attention(y, wqkv, bqkv, pos, heads: int, win: int):
     def kernel(y, wqkv, bqkv, pos):
         _check("window_attention", y, c, heads, win, wqkv, bqkv, pos)
         out = torch.empty_like(y)
-        _cuda.launch("lgteun_window_attention", y.device, y, wqkv, bqkv, pos,
-                     out, b, c, h, w, heads, win, (c // heads) ** -0.5)
-        window_attention.launches += 1
+        _launch("lgteun_window_attention", window_attention, y, wqkv, bqkv,
+                pos, out, (b, c, h, w, heads, win, (c // heads) ** -0.5), c,
+                heads, win)
         return out
 
     return recompute(kernel, lambda *t: window_attention_ref(*t, heads, win),
@@ -109,18 +195,22 @@ def window_attention(y, wqkv, bqkv, pos, heads: int, win: int):
 
 
 window_attention.launches = 0
+window_attention.variants = collections.Counter()
 
 
-def _launch_windows(entry, name, x, wqkv, bqkv, pos, heads, channel_dim):
-    """Launch `entry` on the windows of x ([N, C, S] or [N, S, C])."""
+def _launch_windows(entry, wrapper, x, wqkv, bqkv, pos, heads,
+                    channel_dim):
+    """Launch `entry` (or its FP32-core twin) on the windows of x ([N, C,
+    S] or [N, S, C]) and count it on `wrapper`."""
+    name = wrapper.__name__
     n, c, s = x.shape[0], x.shape[channel_dim], x.shape[3 - channel_dim]
     win = int(round(s ** 0.5))
     if win * win != s:
         raise ValueError(f"{name}: S must be a square, got {tuple(x.shape)}")
     _check(name, x, c, heads, win, wqkv, bqkv, pos)
     out = torch.empty_like(x)
-    _cuda.launch(entry, x.device, x, wqkv, bqkv, pos, out, n, c, heads, win,
-                 (c // heads) ** -0.5)
+    _launch(entry, wrapper, x, wqkv, bqkv, pos, out,
+            (n, c, heads, win, (c // heads) ** -0.5), c, heads, win)
     return out
 
 
@@ -130,11 +220,9 @@ def window_attention_windows(xt, wqkv, bqkv, pos, heads: int):
         return window_attention_windows_ref(xt, wqkv, bqkv, pos, heads)
 
     def kernel(xt, wqkv, bqkv, pos):
-        out = _launch_windows("lgteun_window_attention_windows",
-                              "window_attention_windows", xt, wqkv, bqkv,
-                              pos, heads, 1)
-        window_attention_windows.launches += 1
-        return out
+        return _launch_windows("lgteun_window_attention_windows",
+                               window_attention_windows, xt, wqkv, bqkv,
+                               pos, heads, 1)
 
     return recompute(kernel,
                      lambda *t: window_attention_windows_ref(*t, heads),
@@ -142,6 +230,7 @@ def window_attention_windows(xt, wqkv, bqkv, pos, heads: int):
 
 
 window_attention_windows.launches = 0
+window_attention_windows.variants = collections.Counter()
 
 
 def window_attention_rows(xw, wqkv, bqkv, pos, heads: int):
@@ -149,11 +238,10 @@ def window_attention_rows(xw, wqkv, bqkv, pos, heads: int):
     On no model path: forward only, as its JAX counterpart."""
     if _cuda.plain_on_cpu("window_attention_rows", xw):
         return window_attention_rows_ref(xw, wqkv, bqkv, pos, heads)
-    out = _launch_windows("lgteun_window_attention_rows",
-                          "window_attention_rows", xw, wqkv, bqkv, pos,
-                          heads, 2)
-    window_attention_rows.launches += 1
-    return out
+    return _launch_windows("lgteun_window_attention_rows",
+                           window_attention_rows, xw, wqkv, bqkv, pos, heads,
+                           2)
 
 
 window_attention_rows.launches = 0
+window_attention_rows.variants = collections.Counter()

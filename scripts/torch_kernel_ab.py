@@ -17,11 +17,15 @@ two). Each is built with
 the port's nvcc flags into a shared library of its own; both run on the
 same inputs, each tail's matrices in the layout its library declares
 (`lgteun_block_tail_layout` 3: TF32 slabs in wgmma's core-matrix order,
-as the block tail and the whole block take them since PR 6; without it,
-the [in][out] rows of earlier versions). The LGB cases are the mixer head,
-the global mixer, the block tail with and without a seeded dropout mask
-and LN + FFN at every size, and the window attention and the whole block
-(whose scratch is not compared) at 128^2 and 64^2.
+as the block tail and the whole block take them; without it, the
+[in][out] rows of earlier versions), and the window attention's qkv
+weights likewise (`lgteun_window_attention_layout` 2: the tensor-core
+body's TF32 fragments, `window_attention.attention_fragments`, as the
+window attention and the whole block take them; without it, the [3C][C]
+rows). The LGB cases are the mixer head, the global mixer,
+the window attention, the block tail with and without a seeded dropout
+mask and LN + FFN at every size, and the whole block (whose scratch is
+not compared) at 128^2 and 64^2.
 The script checks that B's outputs equal A's bit for bit or, with `--tol
 REL`, that max|B - A| / max|A| <= REL (and prints that figure), times
 both in turns A, B, B, A with CUDA events (mean of 20 calls after 3
@@ -105,18 +109,21 @@ def caller(dll: ctypes.CDLL, name: str, *args):
 
 
 def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
-    """label -> (C entry, {tail layout: inputs}, output allocator,
-    trailing arguments) of the LGB kernels at the UnlgFormer block shapes
-    (C 32 at 128^2, C 64 at 64^2) and the scene engine's (C 32 at 144^2,
-    C 64 at 72^2). Layout 1 gives the tails' matrices as [in][out] rows,
-    layout 3 as TF32 wgmma slabs."""
+    """label -> (C entry, inputs(layouts), output allocator, trailing
+    arguments) of the LGB kernels at the UnlgFormer block shapes (C 32 at
+    128^2, C 64 at 64^2) and the scene engine's (C 32 at 144^2, C 64 at
+    72^2). `layouts` is a library's (tail, attention) layouts (see
+    `layouts`): tail 1 gives the tails' matrices as [in][out] rows, 3 as
+    TF32 wgmma slabs; attention 1 gives wqkv as [3C][C] rows, 2 as the
+    tensor-core body's fragments."""
     from lgteun_tpu_torch.ops.ffn_kernel import _fragments
+    from lgteun_tpu_torch.ops.window_attention import _wqkv_fragments
 
     def n(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).cuda()
 
-    def both(t):
-        return {1: t, 3: t}
+    def same(t):
+        return lambda lay: t
 
     cases = {}
     channels = {128: 32, 64: 64, 144: 32, 72: 64}
@@ -130,21 +137,23 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
         mix = (n(c2), 0.1 * n(c2), n(c2), 0.1 * n(c2))
         head = (1 + 0.1 * n(c), 0.1 * n(c)) + mix
         cases[f"ln_mixer_head {tag}"] = (
-            "lgteun_ln_mixer_head", both((x,) + head),
+            "lgteun_ln_mixer_head", same((x,) + head),
             lambda half=half: (half(), half()), (b, c, hw, hw, 1e-5))
         cases[f"global_mixer {b}x{c2}x{hw}x{hw}"] = (
-            "lgteun_global_mixer", both((n(b, c2, hw, hw),) + mix),
+            "lgteun_global_mixer", same((n(b, c2, hw, hw),) + mix),
             lambda half=half: (half(),), (b, c2, hw, hw))
-        # the window attention and the whole block at the block shapes,
+        # the whole block at the block shapes, the window attention and
         # the tails at the scene engine's too
         block = hw not in (144, 72)
-        attn = (n(3 * c2, c2, scale=c2 ** -0.5), 0.1 * n(3 * c2),
-                n(2, 64, 64))
-        if block:
-            cases[f"window_attention {b}x{c2}x{hw}x{hw}"] = (
-                "lgteun_window_attention", both((n(b, c2, hw, hw),) + attn),
-                lambda half=half: (half(),),
-                (b, c2, hw, hw, 2, 8, (c2 // 2) ** -0.5))
+        wqkv = n(3 * c2, c2, scale=c2 ** -0.5)
+        rest = (0.1 * n(3 * c2), n(2, 64, 64))
+        attn = {1: (wqkv,) + rest, 2: (_wqkv_fragments(wqkv, 2),) + rest}
+        y1 = n(b, c2, hw, hw)
+        cases[f"window_attention {b}x{c2}x{hw}x{hw}"] = (
+            "lgteun_window_attention",
+            lambda lay, y1=y1, attn=attn: (y1,) + attn[lay[1]],
+            lambda half=half: (half(),),
+            (b, c2, hw, hw, 2, 8, (c2 // 2) ** -0.5))
         # torch conv layout [out, in]
         w = {"p": n(c, c, scale=c ** -0.5), "1": n(c4, c, scale=c ** -0.5),
              "2": n(c4, c4, scale=c4 ** -0.5),
@@ -162,32 +171,39 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
         for label, m in (("block_tail", None), ("block_tail_masked", mask)):
             cases[f"{label} {tag}"] = (
                 "lgteun_block_tail",
-                {lay: (x, x1, x2, m, mats[lay]["p"], bp) + ffn[lay]
-                 for lay in mats},
+                lambda lay, m=m, mats=mats, ffn=ffn, x=x, x1=x1, x2=x2, bp=bp:
+                (x, x1, x2, m, mats[lay[0]]["p"], bp) + ffn[lay[0]],
                 full, (b, c, c4, hw, hw, 1e-5))
-        cases[f"ln_ffn {tag}"] = ("lgteun_ln_ffn",
-                                  {lay: (x,) + ffn[lay] for lay in mats},
-                                  full, (b, c, c4, hw, hw, 1e-5))
+        cases[f"ln_ffn {tag}"] = (
+            "lgteun_ln_ffn", lambda lay, x=x, ffn=ffn: (x,) + ffn[lay[0]],
+            full, (b, c, c4, hw, hw, 1e-5))
         if block:
             cases[f"lgb_block {tag}"] = (
-                "lgteun_lgb_block", {lay: (x,) + head + attn
-                                     + (mats[lay]["p"], bp) + ffn[lay]
-                                     for lay in mats},
-                lambda s=(b, c, hw, hw): (
-                    torch.empty(3 * b * c2 * hw * hw, device="cuda"),
+                "lgteun_lgb_block",
+                lambda lay, x=x, head=head, attn=attn, mats=mats, bp=bp,
+                ffn=ffn: (x,) + head + attn[lay[1]] + (mats[lay[0]]["p"], bp)
+                + ffn[lay[0]],
+                # the scratch's size bound now, not at the call (after the
+                # loop, b, c2 and hw would be the last size's)
+                lambda s=(b, c, hw, hw), size=3 * b * c2 * hw * hw: (
+                    torch.empty(size, device="cuda"),
                     torch.empty(1, device="cuda", dtype=torch.int32),
                     torch.empty(s, device="cuda")),
                 (b, c, c4, hw, hw, 2, 8, (c2 // 2) ** -0.5, 1e-5))
     return cases
 
 
-def tail_layout(dll: ctypes.CDLL) -> int:
-    """The layout of the tails' matrices that `dll` takes (see
-    lgb_cases)."""
-    if not hasattr(dll, "lgteun_block_tail_layout"):
-        return 1
-    dll.lgteun_block_tail_layout.restype = ctypes.c_int
-    return dll.lgteun_block_tail_layout()
+def layouts(dll: ctypes.CDLL) -> tuple:
+    """(tail, attention): the layouts of the tails' matrices and of the
+    window attention's wqkv that `dll` takes (see lgb_cases)."""
+    got = []
+    for entry, default in (("lgteun_block_tail_layout", 1),
+                           ("lgteun_window_attention_layout", 1)):
+        fn = getattr(dll, entry, None)
+        if fn is not None:
+            fn.restype = ctypes.c_int
+        got.append(fn() if fn is not None else default)
+    return tuple(got)
 
 
 def rel_diff(a, b) -> float:
@@ -387,11 +403,12 @@ def tail_phases(card: str, batch: int, tmp: str) -> None:
     dll.lgteun_read_stamps.restype = ctypes.c_int
     cases = lgb_cases(batch, (128, 64),
                       torch.Generator().manual_seed(19971118))
+    lay = layouts(dll)
     for label in (f"block_tail {batch}x32x128x128",
                   f"block_tail {batch}x64x64x64"):
         entry, ins, alloc, dims = cases[label]
         outs = alloc()
-        call = caller(dll, entry, *ins[3], *outs, *dims)
+        call = caller(dll, entry, *ins(lay), *outs, *dims)
         for _ in range(3):
             call()
         torch.cuda.synchronize()
@@ -462,18 +479,17 @@ def main() -> int:
     ref_n = row_normalize(ref_u, 1).transpose(1, 2).contiguous()
     cases = {
         f"texture_match {n}x{c}x{q}": (
-            "lgteun_texture_match", {1: (lr, ref), 3: (lr, ref)},
+            "lgteun_texture_match", lambda lay: (lr, ref),
             lambda: (torch.empty(n, c, q, device="cuda"),
                      torch.empty(n, q, device="cuda")), (n, c, side)),
         f"patch_match {n}x{q}x{9 * c}": (
-            "lgteun_patch_match", {1: (lr_n, ref_n, ref_u),
-                                   3: (lr_n, ref_n, ref_u)},
+            "lgteun_patch_match", lambda lay: (lr_n, ref_n, ref_u),
             lambda: (torch.empty(n, 9 * c, q, device="cuda"),
                      torch.empty(n, q, device="cuda")), (n, q, 9 * c)),
     }
     cases.update(lgb_cases(opts.batch, map(int, opts.sizes.split(",")),
                            gen))
-    layouts = {tag: tail_layout(dll) for tag, dll in libs.items()}
+    lays = {tag: layouts(dll) for tag, dll in libs.items()}
     failed = []
     for label, (entry, ins, alloc, dims) in cases.items():
         if not all(hasattr(dll, entry) for dll in libs.values()):
@@ -481,7 +497,7 @@ def main() -> int:
         outs, calls = {}, {}
         for tag, dll in libs.items():
             outs[tag] = alloc()
-            calls[tag] = caller(dll, entry, *ins[layouts[tag]], *outs[tag],
+            calls[tag] = caller(dll, entry, *ins(lays[tag]), *outs[tag],
                                 *dims)
             calls[tag]()
         torch.cuda.synchronize()

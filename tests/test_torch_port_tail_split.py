@@ -19,17 +19,26 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from lgteun_tpu.models.lgteun_fast import lgteun_fast_forward
 from lgteun_tpu.ops.ffn_kernel import block_tail_xla
+from lgteun_tpu_torch.config import Config
+from lgteun_tpu_torch.convert.from_jax import lgteun_from_flax
+from lgteun_tpu_torch.models.common import lgt
 from lgteun_tpu_torch.ops import ffn_kernel
-from lgteun_tpu_torch.ops.ffn_kernel import (TAIL_MAX_C, _ffn_shapes,
+from lgteun_tpu_torch.ops.ffn_kernel import (TAIL_MAX_WIDTH, _ffn_shapes,
                                              block_tail_ref, check_tail_args,
                                              ln_ffn_ref, tail_fragments,
-                                             tail_weights, tail_width,
-                                             tf32_round, tf32_split)
+                                             tail_variant, tail_weights,
+                                             tail_width, tf32_round,
+                                             tf32_split)
+
+from lgteun_tpu_torch.registry import build_model
 
 sys.path.insert(0, os.path.dirname(__file__))
+from test_torch_port_convert import flax_params  # noqa: E402
 from test_torch_port_ops import (_port_ffn, _tail_inputs, f32,  # noqa: E402
                                  max_err)
 
@@ -92,7 +101,7 @@ def _reference_fragments(w, n_pad, k_pad, cp):
     return out
 
 
-@pytest.mark.parametrize("c", [4, 12, 32, 40])
+@pytest.mark.parametrize("c", [4, 12, 32, 40, 96])
 def test_fragment_layout_is_the_mma_b_fragment(c):
     """tail_fragments of each tail matrix of a C-channel block (proj C x
     C, W1 4C x C, W2 4C x 4C, W3 C x 4C) equals the element-by-element
@@ -115,7 +124,7 @@ def _unpack(frag, n_pad, k_pad, cp):
     return t[0], t[1]
 
 
-@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("c", [32, 64, 128])
 def test_fragment_layout_round_trips(c):
     """Unpacking the fragments gives tf32_split of w back, hi + lo = w
     within 2^-21, and zeros in the padding."""
@@ -135,18 +144,25 @@ def test_fragment_layout_round_trips(c):
 
 
 @pytest.mark.parametrize("c", [68, 96, 128])
-def test_tail_refuses_blocks_wider_than_the_tile(c):
-    """Above TAIL_MAX_C channels the kernel's tile does not fit in shared
-    memory: the wrapper's check says so before any launch; C = 64 and a
-    padded 60 pass it."""
-    x = torch.zeros(1, c, 8, 8)
-    ffn = {k: torch.zeros(s) for k, s in _ffn_shapes(c, 4 * c).items()}
-    with pytest.raises(ValueError, match=f"C <= {TAIL_MAX_C}"):
-        check_tail_args("block_tail", x, ffn, _ffn_shapes(c, 4 * c))
-    for ok in (60, TAIL_MAX_C):
-        x = torch.zeros(1, ok, 8, 8)
-        ffn = {k: torch.zeros(s) for k, s in _ffn_shapes(ok, 4 * ok).items()}
-        check_tail_args("block_tail", x, ffn, _ffn_shapes(ok, 4 * ok))
+def test_tail_takes_blocks_wider_than_the_tile(c):
+    """C.31: above 64 channels the shared-memory tile's h1 does not fit,
+    and the wrapper's check passes the shape on to the wide tile (h1 in
+    a global scratch slot, padded to 128 channels), while C <= 64 keeps
+    the tile; above TAIL_MAX_WIDTH (and for C % 4 != 0) the check still
+    refuses before any launch."""
+    def check(ch):
+        x = torch.zeros(1, ch, 8, 8)
+        ffn = {k: torch.zeros(s) for k, s in _ffn_shapes(ch, 4 * ch).items()}
+        check_tail_args("block_tail", x, ffn, _ffn_shapes(ch, 4 * ch))
+
+    check(c)
+    assert tail_variant(c) == "wide" and tail_width(c) == TAIL_MAX_WIDTH
+    for ok in (12, 60, 64):
+        check(ok)
+        assert tail_variant(ok) == "tile" and tail_width(ok) in (32, 64)
+    for bad in (c + 2, TAIL_MAX_WIDTH + 4):
+        with pytest.raises(ValueError, match=f"C <= {TAIL_MAX_WIDTH}"):
+            check(bad)
 
 
 def tf32x3_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -181,7 +197,8 @@ def _pw_tf32x3(t, wt, bias):
     return y.view(b, h, w, -1).permute(0, 3, 1, 2)
 
 
-@pytest.mark.parametrize("shape", [(2, 32, 16, 16), (1, 64, 8, 16)])
+@pytest.mark.parametrize("shape", [(2, 32, 16, 16), (1, 64, 8, 16),
+                                   (1, 96, 8, 16)])
 def test_tail_through_tf32x3_matches_plain_and_jax(shape, monkeypatch):
     """block_tail_ref and ln_ffn_ref with every 1x1 product through the
     3-pass emulation stay within 1e-5 of the plain float32 versions, and
@@ -220,3 +237,47 @@ def test_tail_weights_cached_per_weight_version():
     again = tail_weights(ffn)
     assert again[4] is not first[4] and again[2] is first[2]
     assert torch.equal(again[4], tail_fragments(ffn["w2"], 128, 128, 32))
+
+
+@pytest.fixture(scope="module")
+def sixteen_bands():
+    """A 16-band UnlgFormer's weights (embed 64: blocks of C = 64 at full
+    resolution and C = 128 at the bottleneck), a small batch and JAX
+    lgteun_fast_forward's output on the CPU."""
+    tree = flax_params(16, seed=6)
+    rng = np.random.default_rng(31)
+    batch = {"input_lr": rng.uniform(0, 1, (1, 8, 8, 16)).astype(np.float32),
+             "input_pan": rng.uniform(0, 1, (1, 32, 32, 1)).astype(
+                 np.float32)}
+    want = jax.jit(lambda p, ms, pan: lgteun_fast_forward(p, ms, pan,
+                                                          stage=2))(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(batch["input_lr"]),
+        jnp.asarray(batch["input_pan"]))
+    return tree, batch, np.asarray(want)
+
+
+@pytest.mark.parametrize("level,entry", [(1, "ln_ffn"), (2, "block_tail"),
+                                         (3, "lgb_block")])
+def test_sixteen_band_unlgformer_matches_jax(level, entry, monkeypatch,
+                                             sixteen_bands):
+    """C.31's model: a 16-band UnlgFormer, whose bottleneck block has C =
+    128, through each fuse level's plain path vs the JAX package's XLA
+    forward, within the port's 5e-4 max-abs; the level's tail entry sees
+    C = 64 and 128."""
+    tree, batch, want = sixteen_bands
+    monkeypatch.setenv("LGTEUN_FUSE_LEVEL", str(level))
+    port = build_model("UnlgFormer", Config(
+        ms_chans=16, model_cfg={"core_module": {"stage": 2}}), device="cpu")
+    port.load_state_dict(lgteun_from_flax(tree))
+    widths = set()
+    fn = getattr(lgt, entry)
+
+    def spy(x, *args, **kw):
+        widths.add(x.shape[1])
+        return fn(x, *args, **kw)
+
+    monkeypatch.setattr(lgt, entry, spy)
+    got = port.apply(batch).numpy()
+    assert widths == {64, 128}
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert max_err(got, want) <= 5e-4

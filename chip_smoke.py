@@ -58,6 +58,18 @@ prints where the card-vs-CPU difference of each path comes from: the
 card with the kernels, the card on the kernels' plain versions and the
 CPU plain path, each against a float64 run of the CPU plain path.
 
+The FFT mixer (the mixer head B1, the global mixer B4 and the whole
+block's planes, one device body on the half spectrum) is also held on
+planes constant along H and along W at 128^2, 144^2 and 72^2 against
+the CPU plain version (pocketfft keeps their zero bins exactly zero
+there; a bin that is not would carry a noise phase into the output),
+the head is launched REPEATS more times on the same inputs (same bits),
+its twiddle and position tables (`lgteun_fft_tables`) are held against
+their plain version, ptxas's registers and spills of the mixer's and the
+whole block's kernels are printed from the build, and beside the
+mixer's times stands cuFFT's rfft2 + irfft2 on the same planes, a
+yardstick of the transforms alone.
+
 The two INNT searches pick, per query, the first maximum of a
 similarity; a query whose best value lies within 1e-5 of the next lower
 one (a near tie, found in float64 on the card) may pick another
@@ -115,7 +127,7 @@ import torch
 import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-CONFIGS = os.path.join(REPO, "lgteun_tpu", "configs")
+CONFIGS = os.path.join(REPO, "lgteun_tpu_torch", "configs")
 SEED = 19971118
 KERNEL_BATCH = 4            # kernel checks at the main path's shapes
 # (C, H=W) of the prior's LGB blocks: 4 full-res blocks, 1 bottleneck
@@ -139,6 +151,8 @@ ATTENTION = ("window_attention", "window_attention_windows",
              "window_attention_rows")
 # kernel -> the branches it must have launched in the kernel checks
 BRANCHES = {**dict.fromkeys(ATTENTION, ("tc", "fp32")),
+            **dict.fromkeys(("ln_mixer_head", "global_mixer"),
+                            ("pair", "block512", "block256")),
             **dict.fromkeys(TAILS, ("tile", "wide")),
             "lgb_block": ("tc", "tile", "wide")}
 DROP_RATE = 0.1             # the kernel cases' dropout mask
@@ -183,7 +197,12 @@ TRAIN_ROUTE = {"ln_mixer_head": 5, "window_attention": 5,
 # the 5 blocks
 FRAGMENTS_PER_STEP = 20
 ATTN_FRAGMENTS_PER_STEP = 5
-REPEATS = 8                 # extra launches on the same inputs (B2, B8)
+REPEATS = 8                 # extra launches on the same inputs (B1, B2, B8)
+# sides of the constant-plane mixer cases (B1, B4), and of the mixer's
+# tables held against their plain version
+CONST_SIDES = (128, 144, 72)
+TABLE_SIZES = ((128, 128), (64, 64), (144, 144), (72, 72), (168, 168),
+               (40, 56))
 # the 16-band UnlgFormer (C 64 and 128) at each level: launches per
 # forward and the tail variants of those launches
 SIXTEEN = (({"LGTEUN_FUSE_LEVEL": "1"}, {"window_attention": 5,
@@ -361,12 +380,13 @@ def kernel_cases(gen: torch.Generator):
 
     b = KERNEL_BATCH
 
-    def lgb_args(c, hw):
-        """The args of ln_mixer_head, window_attention, block_tail and
-        the FFN weights for an LGB block of C channels at hw^2."""
+    def lgb_args(c, hw, x=None):
+        """The args of ln_mixer_head (on x, if given), window_attention,
+        block_tail and the FFN weights for an LGB block of C channels at
+        hw^2."""
         c2, c4 = c // 2, 4 * c
-        head = (n(b, c, hw, hw), 1 + 0.1 * n(c), 0.1 * n(c), n(c2),
-                0.1 * n(c2), n(c2), 0.1 * n(c2))
+        head = (n(b, c, hw, hw) if x is None else x, 1 + 0.1 * n(c),
+                0.1 * n(c), n(c2), 0.1 * n(c2), n(c2), 0.1 * n(c2))
         attn = (n(b, c2, hw, hw), n(3 * c2, c2, scale=c2 ** -0.5),
                 0.1 * n(3 * c2), n(2, 64, 64), 2, 8)
         ffn = {"ln_w": 1 + 0.1 * n(c), "ln_b": 0.1 * n(c),
@@ -463,8 +483,14 @@ def kernel_cases(gen: torch.Generator):
                proj_w=tail[3], proj_b=tail[4], ffn=ffn)
     yield "lgb_block", f"{b}x{c}x{hw}x{hw}", lgb_block, lgb_block_ref, (
         head[0], blk)
-    # and any even size: the shared-memory limit (168^2) and odd parts 5, 7
-    for shape in ((b, 16, 72, 72), (1, 4, 168, 168), (2, 8, 40, 56)):
+    # the mixer at the eval batch (256 planes: two 256-thread blocks an SM)
+    c, hw = BLOCK_SHAPES[0]
+    yield ("ln_mixer_head", f"16x{c}x{hw}x{hw}", ln_mixer_head,
+           ln_mixer_head_ref, (n(16, c, hw, hw),) + lgb_args(c, hw)[0][1:])
+    # and any even size: 168^2, the shared-memory limit (240^2), odd parts
+    # 5, 7, and the eval batch
+    for shape in ((b, 16, 72, 72), (1, 4, 168, 168), (1, 4, 240, 240),
+                  (2, 8, 40, 56), (16, 16, 128, 128)):
         c = shape[1]
         yield ("global_mixer", "x".join(map(str, shape)), global_mixer,
                global_mixer_ref, (n(*shape), n(c), 0.1 * n(c), n(c),
@@ -477,6 +503,20 @@ def kernel_cases(gen: torch.Generator):
             0.1 * n(c // 2))
     yield ("ln_mixer_head", f"1x{c}x{hw}x{hw}-zero", ln_mixer_head,
            ln_mixer_head_ref, zero)
+    # planes constant along H (equal rows) or along W (constant rows): the
+    # bins that are zero in exact arithmetic must be exactly zero, or
+    # their phase is noise that pha_w and pha_b carry into the output
+    for hw in CONST_SIDES:
+        for axis in "HW":
+            const = lambda c: n(b, c, 1, hw) if axis == "H" else n(
+                b, c, hw, 1)
+            x = const(32).expand(b, 32, hw, hw).contiguous()
+            yield ("ln_mixer_head", f"{b}x32x{hw}x{hw}-const{axis}",
+                   ln_mixer_head, ln_mixer_head_ref, lgb_args(32, hw, x)[0])
+            x = const(16).expand(b, 16, hw, hw).contiguous()
+            yield ("global_mixer", f"{b}x16x{hw}x{hw}-const{axis}",
+                   global_mixer, global_mixer_ref,
+                   (x, n(16), 0.1 * n(16), n(16), 0.1 * n(16)))
 
     # LightNet's stack at 8 bands: x = pan + lms (9 channels), kaiming
     # weights, biases U(+-0.1) so that the border zeroing matters
@@ -769,15 +809,20 @@ def device_profile(call, n: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
+    # CUPTI now and then hands back an empty trace (seen once in about a
+    # hundred short windows on an H100): trace the window again then
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    else:
         raise RuntimeError("profiler recorded no device activity")
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, (lo, hi) = 0.0, spans[0]
@@ -853,6 +898,7 @@ def main() -> int:
     _cuda.kernels()
     print(f"build: {lib_path.name} ({' '.join(_cuda.NVCC_FLAGS)}) "
           f"in {time.perf_counter() - t0:.1f} s")
+    print_ptxas(lib_path)
 
     # 2. each kernel vs its plain version (TF32 off for the plain convs
     #    and matmuls)
@@ -866,6 +912,15 @@ def main() -> int:
         got, want = kernel(*args), plain(*args)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
+        if "-const" in shape:
+            # against the CPU plain version (pocketfft keeps those bins
+            # exactly zero at 2^a 3^b; cuFFT's are printed)
+            cpu = plain(*(a.cpu() for a in args))
+            cpu = tuple(t.cuda() for t in (cpu if isinstance(cpu, tuple)
+                                           else (cpu,)))
+            print(f"kernel {name:17s} {shape:14s} card plain vs CPU plain "
+                  f"{rel_err(want, cpu)[0]:.3e}")
+            want = cpu
         if name in ("texture_match", "patch_match"):
             rel, ab = check_search(name, shape, got, want, args)
         else:
@@ -888,8 +943,14 @@ def main() -> int:
                                   "event_ms": event_ms,
                                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                                   "bound_by": bound_by}
-        if name in ("lgb_block", "window_attention"):
-            same = all(torch.equal(kernel(*args), got[0])
+        if name in ("ln_mixer_head", "global_mixer") and "-" not in shape:
+            yard = cufft_ms(mixer_planes(name, args))
+            print(f"kernel {name:17s} {shape:14s} cuFFT rfft2 + irfft2 on "
+                  f"the same planes {yard:.4f} ms (a yardstick only)")
+            rec["by_shape"][shape]["cufft_ms"] = yard
+        if name in ("lgb_block", "window_attention") or (
+                name == "ln_mixer_head" and "-" not in shape):
+            same = all(all(map(torch.equal, as_tuple(kernel(*args)), got))
                        for _ in range(REPEATS))
             print(f"kernel {name:17s} {shape:14s} {REPEATS} more launches "
                   f"on the same inputs bit-identical: {same}")
@@ -908,6 +969,7 @@ def main() -> int:
 
     check_branches(wrappers)
     check_tail_layout(gen)
+    check_fft_tables()
 
     # 3. the differentiable wrappers against plain autograd
     run_autograd(torch.Generator().manual_seed(SEED + 2))
@@ -956,6 +1018,81 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def mixer_planes(name: str, args) -> torch.Tensor:
+    """The planes the FFT mixer of B1 (the second half of the LN
+    output's channels) or B4 transforms, for the cuFFT yardstick."""
+    x = args[0]
+    return x[:, x.shape[1] // 2:].contiguous() if name == "ln_mixer_head" \
+        else x
+
+
+def cufft_ms(planes: torch.Tensor) -> float:
+    """Device ms of torch.fft.rfft2 + irfft2 (cuFFT) on the planes: a
+    yardstick of the transforms alone, two library calls without the
+    mixer between them (not the same function, not used by the port)."""
+    size = planes.shape[-2:]
+    return device_profile(lambda: torch.fft.irfft2(torch.fft.rfft2(planes),
+                                                   s=size),
+                          n=20)["busy_ms_per_call"]
+
+
+def check_fft_tables() -> None:
+    """The FFT mixer's tables as the card makes them (lgteun_fft_tables)
+    against their plain version (fft_tables_ref, in long double): the
+    plan at their head and the positions bit-equal (the kernel's plan is
+    the Python mirror's), the twiddles within 6e-8 with the same exact
+    zeros."""
+    from lgteun_tpu_torch.ops.spectral_kernel import (FFT_PLAN_FLOATS,
+                                                      fft_mixer_plan,
+                                                      fft_tables,
+                                                      fft_tables_ref)
+    worst, head = 0.0, FFT_PLAN_FLOATS
+    for h, w in TABLE_SIZES:
+        got = fft_tables(h, w, torch.device("cuda")).cpu()
+        want = fft_tables_ref(h, w)
+        k = fft_mixer_plan(h, w)["pos_row"]
+        bits = lambda t: t.view(torch.int32)
+        err = (got[head:k] - want[head:k]).abs().max().item()
+        worst = max(worst, err)
+        if err > 6e-8 or \
+                not torch.equal(got[head:k] == 0, want[head:k] == 0) or \
+                not torch.equal(bits(got[:head]), bits(want[:head])) or \
+                not torch.equal(bits(got[k:]), bits(want[k:])):
+            raise AssertionError(f"fft tables {h}x{w}: the card's differ from "
+                                 f"the plain ones (twiddles {err:.2e})")
+    print(f"fft_tables: {len(TABLE_SIZES)} sizes, plan and positions "
+          f"bit-equal to the plain tables, twiddles within {worst:.2e} with "
+          "the same exact zeros")
+
+
+# functions of the FFT mixer and the whole block whose ptxas report the
+# smoke prints (the whole block calls the mixer's body as mixer_plane)
+PTXAS_NAMES = ("fft_mixer_pair_kernel", "fft_mixer_kernel", "mixer_plane",
+               "fft_pass_generic", "lgb_block_kernel")
+
+
+def print_ptxas(lib_path) -> None:
+    """ptxas's registers, stack and spills of the FFT mixer's kernels and
+    functions and of the whole-block kernel, from the build's log."""
+    import re
+    from lgteun_tpu_torch.ops import _cuda
+    entry = None
+    for line in _cuda.ptxas_log(lib_path).read_text().splitlines():
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            mangled = line.split("'")[1] if "'" in line else line.split()[-1]
+            name = next((k for k in PTXAS_NAMES if k in mangled), None)
+            threads = re.search(r"fft_mixer_kernelILi(\d+)E", mangled)
+            entry = name and name + (f"<{threads.group(1)}>" if threads
+                                     else "")
+        elif entry and ("spill" in line or "Used" in line):
+            print(f"ptxas {entry}: {line.split(':', 1)[-1].strip()}")
 
 
 def check_branches(wrappers: dict) -> None:

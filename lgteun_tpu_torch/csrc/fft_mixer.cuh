@@ -1,36 +1,64 @@
 // Device code shared by spectral_head.cu (mixer head B1, global mixer B4)
 // and lgb_block.cu (whole LGB block B8): the channel LayerNorm + split of
 // one pixel, and the FFT amplitude/phase mixer of one [H, W] plane held
-// whole in shared memory.
+// in shared memory as its half spectrum.
 //
 // The mixer (semantics of lgteun_tpu_torch/ops/spectral_kernel.py::
-// global_mixer_ref): forward FFTs along W then H on the W/2+1 columns the
-// half spectrum needs, the amp/phase chain, the inverse along H, a
-// hermitian fill that makes the W inverse a c2r (the imaginary parts of
-// columns 0 and W/2 are dropped, as irfft does), and the inverse along W.
+// global_mixer_ref) on real data:
+//  - W forward as a real transform: row r read as N = W/2 complex values
+//    z[n] = x[2n] + i x[2n+1] (the row itself, as float2), an N-point
+//    complex FFT, then the split into the half spectrum X[0..N]:
+//    X[k] = E[k] + w_W^k O[k], E = (Z[k] + conj Z[N-k]) / 2, O = (Z[k] -
+//    conj Z[N-k]) / 2i, with X[0] = Re Z0 + Im Z0 and X[N] = Re Z0 - Im Z0
+//    written as exactly real. Each row takes the same arithmetic, so equal
+//    rows give equal bits (a plane constant along H keeps exactly zero
+//    H-bins); a constant row gives Z[k != 0] = 0 and Re Z0 = Im Z0 bit for
+//    bit, so X[k != 0] = 0 exactly.
+//  - H forward on the N + 1 columns, the amp/phase chain, H inverse.
+//  - W inverse as a c2r of the same half length: the imaginary parts of
+//    X[0] and X[N] are dropped (irfft's semantics), Z'[k] = (X[k] + conj
+//    X[N-k]) + i conj(w_W^k) (X[k] - conj X[N-k]), an N-point inverse FFT,
+//    and x[2n], x[2n+1] = Re, Im z'[n].
 //
-// Lengths: any n = p * m with p = 2^a >= 2 and m odd (the scene engine's
-// 48, 72, 80, 144, ... as well as the powers of two). A forward pass is a
-// radix-m decimation-in-frequency stage (a direct m-point DFT per group,
-// skipped when m = 1) followed by radix-2 DIF stages on the m interleaved
-// p-point sub-lines: natural order in, and bin k = m * bitrev(q) + s out
-// at position s * p + q. The inverse runs the transposed passes (radix-2
-// decimation in time, then the radix-m stage), so it takes that order in
-// and gives natural order out; no permutation pass either way.
+// Transforms: mixed-radix passes, decimation in frequency forward (natural
+// order in, digit-reversed out) and in time inverse (the transposed
+// passes), so no permutation pass either way. A pass of radix r over
+// span L (stride s = L / r) gives each thread whole groups: it loads the
+// r elements j + s t of a group into registers, runs the r-point DFT
+// there, applies the twiddles w_L^(jk) and stores them back; one barrier a
+// pass. Radices 2, 4, 8 and 16 run as radix-2 stages in registers, 3, 5,
+// 7 and 9 as a direct DFT in the symmetric form (pairs t, r - t); a
+// larger odd prime factor takes a pass of one thread per output with
+// two barriers a round (fft_pass_generic). The first W pass reads the
+// plane from global memory and the last W inverse pass writes the output
+// there; the amp/phase chain takes one bin a thread between the H
+// passes. At 128^2: 10 barriers a plane.
+//
+// Twiddles come from tables made once per (H, W) by fft_tables_kernel
+// (spectral_head.cu) and read through the read-only cache; the radix-2^k
+// stages in registers use the correctly rounded constants of w_16.
 //
 // Exactness the mixer relies on (the learned phase scale turns a 2*pi
-// ambiguity into a value change): twiddles are computed in double with
-// sincospi and exact zeros snapped; the four self-conjugate bins get an
-// exactly zero imaginary part; `im + 0.0f` maps -0 to +0 before atan2f,
-// which puts the branch cut on +pi as numpy/torch do; the radix-m stage
-// sums (x_j - x_0) * w^jk for the bins k != 0 (the w^jk sum to zero), so a
-// plane that is constant along an axis keeps exactly zero bins there at
-// any length. Built without fast-math for the same reason.
+// ambiguity into a value change): table twiddles are computed in double
+// with sincospi and exact zeros snapped; the four self-conjugate bins get
+// an exactly zero imaginary part; `im + 0.0f` maps -0 to +0 before atan2f,
+// which puts the branch cut on +pi as numpy/torch do; every butterfly
+// works on differences (a - b in radix 2; x_t - x_0 at odd radices, where
+// the w^tk sum to zero) and the DC path only on sums, so a plane that is
+// constant along an axis keeps exactly zero bins there at any length.
+// Built without fast-math for the same reason.
+//
+// Shared memory: the half spectrum [H][ld] of float2, ld = N + 1 rounded
+// up to odd, so that threads on neighbouring rows hit distinct banks;
+// column passes give neighbouring threads neighbouring columns.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <utility>
 
 namespace {
 
@@ -47,283 +75,702 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
 __device__ __forceinline__ float2 cmulc(float2 a, float2 b) {
   return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
 }
+__device__ __forceinline__ float2 cconj(float2 a) {
+  return make_float2(a.x, -a.y);
+}
 
-// Transform length n = p * m, p = 2^log_p >= 2, m odd.
-struct FftLen {
-  int p, m, log_p;
+constexpr int kFftMaxPass = 8;
+constexpr int kFftMaxPrime = 512;  // fft_pass_generic: 2 outputs a thread
+
+// The passes of an n-point transform in decimation-in-frequency order.
+struct FftPlan {
+  int n, npass;
+  int radix[kFftMaxPass];
 };
 
-inline FftLen fft_len(int n) {
-  FftLen f{1, n, 0};
-  while (f.m % 2 == 0) {
-    f.m /= 2;
-    f.p *= 2;
-    ++f.log_p;
+__host__ __device__ __forceinline__ bool fft_register_radix(int r) {
+  return r == 2 || r == 4 || r == 8 || r == 16 || r == 3 || r == 5 ||
+         r == 7 || r == 9;
+}
+
+// The plan of an n-point transform: the power of two in ceil(a / 4)
+// passes of 2^3-2^4 (as even as they go, larger first), then the odd part
+// as 9s, 3s, 5s, 7s and its other primes (a row's first pass, which reads
+// global memory, is then a register radix wherever W % 4 == 0). npass =
+// -1 when the passes exceed kFftMaxPass.
+inline FftPlan fft_plan(int n) {
+  FftPlan p{};
+  p.n = n;
+  int a = 0, m = n;
+  while (m % 2 == 0) {
+    m /= 2;
+    ++a;
   }
-  return f;
-}
-
-__device__ __forceinline__ int bitrev(int q, int log_p) {
-  return (int)(__brev((unsigned)q) >> (32 - log_p));
-}
-// Position of bin k after a forward pass, and the bin at position q.
-__device__ __forceinline__ int bin_pos(int k, FftLen f) {
-  if (f.m == 1) return bitrev(k, f.log_p);
-  return f.p * (k % f.m) + bitrev(k / f.m, f.log_p);
-}
-__device__ __forceinline__ int pos_bin(int q, FftLen f) {
-  return f.m * bitrev(q & (f.p - 1), f.log_p) + (q >> f.log_p);
-}
-
-// tw[j] = exp(-2 pi i j / n) for j < n, exact zeros kept exact (+0).
-__device__ __forceinline__ void make_twiddles(float2* tw, int n) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    double s, c;
-    sincospi(2.0 * j / n, &s, &c);
-    tw[j] = make_float2(fabs(c) < 1e-12 ? 0.f : (float)c,
-                        fabs(s) < 1e-12 ? 0.f : (float)-s);
-  }
-}
-
-// Line l of a row transform starts at l * ld (elements contiguous).
-struct RowLines {
-  int ld;
-  __device__ int operator()(int l) const { return l * ld; }
-};
-
-// The columns of the half spectrum (W-bins 0..W/2) in increasing
-// position, from a table in shared memory: neighbouring threads of a
-// column pass then touch neighbouring columns (in bin order they would
-// sit at bit-reversed positions, many on one bank).
-struct HalfSpectrumColumns {
-  const int* pos;
-  __device__ int operator()(int l) const { return pos[l]; }
-};
-
-// After the radix-m stage a line holds m interleaved p-point sub-lines;
-// sub-line s = (line, k) starts at lines(line) + k * p * es. With
-// kLineFastest neighbouring s are neighbouring lines.
-template <bool kLineFastest, class Lines>
-struct SubLines {
-  Lines lines;
-  int nlines, m, span;
-  __device__ int operator()(int s) const {
-    if (m == 1) return lines(s);
-    return kLineFastest ? lines(s % nlines) + (s / nlines) * span
-                        : lines(s / m) + (s % m) * span;
-  }
-};
-
-// Radix-2 decimation in frequency on `nsub` sub-lines of p points
-// (element stride es): natural order in, bit-reversed order out.
-// kLineFastest maps neighbouring threads to neighbouring sub-lines (for
-// column transforms, where elements are a row apart).
-template <bool kLineFastest, class Sub>
-__device__ __forceinline__ void fft_dif(float2* A, const float2* tw,
-                                        FftLen f, int nsub, int es,
-                                        Sub sub) {
-  const int nbf = f.p >> 1;
-  for (int half = nbf, ts = f.m; half >= 1; half >>= 1, ts <<= 1) {
-    for (int t = threadIdx.x; t < nsub * nbf; t += blockDim.x) {
-      const int s = kLineFastest ? t % nsub : t >> (f.log_p - 1);
-      const int bf = kLineFastest ? t / nsub : t & (nbf - 1);
-      const int j = bf & (half - 1);
-      const int i0 = ((bf - j) << 1) + j;
-      float2* a = A + sub(s) + i0 * es;
-      float2* b = a + half * es;
-      const float2 u = *a, v = *b;
-      *a = cadd(u, v);
-      *b = cmul(csub(u, v), tw[j * ts]);
+  int odd[kFftMaxPass + 1], nodd = 0;
+  for (int r : {9, 3, 5, 7})
+    while (m % r == 0 && nodd <= kFftMaxPass) {
+      odd[nodd++] = r;
+      m /= r;
     }
-    __syncthreads();
-  }
-}
-
-// Inverse radix-2 decimation in time (twiddles conjugated, no 1/n):
-// bit-reversed order in, natural order out.
-template <bool kLineFastest, class Sub>
-__device__ __forceinline__ void fft_dit_inverse(float2* A, const float2* tw,
-                                                FftLen f, int nsub, int es,
-                                                Sub sub) {
-  const int nbf = f.p >> 1;
-  for (int half = 1, ts = nbf * f.m; half < f.p; half <<= 1, ts >>= 1) {
-    for (int t = threadIdx.x; t < nsub * nbf; t += blockDim.x) {
-      const int s = kLineFastest ? t % nsub : t >> (f.log_p - 1);
-      const int bf = kLineFastest ? t / nsub : t & (nbf - 1);
-      const int j = bf & (half - 1);
-      const int i0 = ((bf - j) << 1) + j;
-      float2* a = A + sub(s) + i0 * es;
-      float2* b = a + half * es;
-      const float2 u = *a, v = cmulc(*b, tw[j * ts]);
-      *a = cadd(u, v);
-      *b = csub(u, v);
+  for (int q = 11; m > 1 && nodd <= kFftMaxPass; q += 2)
+    while (m % q == 0 && nodd <= kFftMaxPass) {
+      odd[nodd++] = q;
+      m /= q;
     }
-    __syncthreads();
+  const int np2 = (a + 3) / 4;
+  if (m > 1 || np2 + nodd > kFftMaxPass) {
+    p.npass = -1;
+    return p;
+  }
+  int pow2[kFftMaxPass];
+  for (int i = 0; i < np2; ++i) pow2[i] = 1 << (a / np2 + (i < a % np2));
+  p.npass = np2 + nodd;
+  for (int i = 0; i < np2; ++i) p.radix[i] = pow2[i];
+  for (int i = 0; i < nodd; ++i) p.radix[np2 + i] = odd[i];
+  return p;
+}
+
+// Position of bin k after the forward passes of plan p: digit i of k (in
+// the mixed radix of the passes, first pass least significant) weighs
+// n / (r_1 ... r_i).
+__host__ __device__ __forceinline__ int fft_pos(const FftPlan& p, int k) {
+  int span = p.n, pos = 0;
+  for (int i = 0; i < p.npass; ++i) {
+    const int r = p.radix[i];
+    span /= r;
+    pos += (k % r) * span;
+    k /= r;
+  }
+  return pos;
+}
+
+// Everything the mixer of an H x W plane needs: the row plan (N = W/2
+// points), the column plan (H points), the row pitch, the position of
+// H-bin H/2, and the float offsets in its tables (fft_tables_kernel),
+// which begin with this plan itself (kFftPlanFloats floats), then hold
+// the row twiddles w_N^j (N float2), the half twiddles w_W^k (N + 1), the
+// column twiddles w_H^j (H) and the row positions fft_pos(row, k) (N
+// ints). Each block copies the plan into the head of its shared memory
+// and reads it from there where it is used: held in registers, in a
+// kernel's parameters or behind read-only loads (which the compiler
+// merges into one register for the whole kernel), its values spilled at
+// 128 registers a thread or moved the parameters to local memory.
+struct FftMixerPlan {
+  FftPlan row, col;
+  int ld, qh;
+  int tw_row, tw_half, tw_col, pos_row, floats;
+};
+constexpr int kFftPlanFloats = 28;
+static_assert(sizeof(FftMixerPlan) <= 4 * kFftPlanFloats, "plan header");
+
+inline bool fft_mixer_plan(int H, int W, FftMixerPlan* p) {
+  if (H < 2 || W < 2 || H % 2 || W % 2) return false;
+  const int N = W / 2;
+  p->row = fft_plan(N);
+  p->col = fft_plan(H);
+  if (p->row.npass < 0 || p->col.npass < 0) return false;
+  for (const FftPlan* f : {&p->row, &p->col})
+    for (int i = 0; i < f->npass; ++i)
+      if (f->radix[i] > kFftMaxPrime) return false;
+  p->ld = (N + 1) % 2 ? N + 1 : N + 2;
+  p->qh = fft_pos(p->col, H / 2);
+  p->tw_row = kFftPlanFloats;
+  p->tw_half = p->tw_row + 2 * N;
+  p->tw_col = p->tw_half + 2 * N + 2;
+  p->pos_row = p->tw_col + 2 * H;
+  p->floats = p->pos_row + N;
+  return true;
+}
+
+// Shared memory the mixer of one H x W plane needs: the plan, then the
+// half spectrum.
+inline size_t fft_mixer_smem(int H, int W) {
+  const int N = W / 2;
+  return sizeof(float) * kFftPlanFloats +
+         sizeof(float2) * (size_t)H * ((N + 1) % 2 ? N + 1 : N + 2);
+}
+
+// exp(-2 pi i j / n) in double, exact zeros kept exact (+0).
+__device__ __forceinline__ float2 fft_twiddle(int j, int n) {
+  double s, c;
+  sincospi(2.0 * j / n, &s, &c);
+  return make_float2(fabs(c) < 1e-12 ? 0.f : (float)c,
+                     fabs(s) < 1e-12 ? 0.f : (float)-s);
+}
+
+// z * w_16^e for e < 8: the correctly rounded roots; e = 0 and 4 exact.
+__device__ __forceinline__ float2 mul_root16(float2 z, int e) {
+  constexpr float c1 = 0.923879532511286756f, s1 = 0.382683432365089772f,
+                  h = 0.707106781186547524f;
+  switch (e) {
+    case 0: return z;
+    case 1: return cmul(z, make_float2(c1, -s1));
+    case 2: return cmul(z, make_float2(h, -h));
+    case 3: return cmul(z, make_float2(s1, -c1));
+    case 4: return make_float2(z.y, -z.x);
+    case 5: return cmul(z, make_float2(-s1, -c1));
+    case 6: return cmul(z, make_float2(-h, -h));
+    default: return cmul(z, make_float2(-c1, -s1));
   }
 }
 
-// The radix-m stage, in place. Group (line, j1) holds the m elements
-// j1 + p * j2; output k lands on element j1 + p * k:
-//   forward  y_k = w_n^(j1 k) * sum_j2 x_j2 w_m^(j2 k)
-//   inverse  x_j = sum_k conj(w_m^(j k) w_n^(j1 k)) y_k
-// One thread per output; a pass takes whole groups (blockDim / m of
-// them), reads them into registers, syncs, and writes them back. `root`
-// holds w_m^e = tw[p * e] for e < m contiguously: read from `tw` at
-// stride p, the m roots a warp needs would sit on one bank.
-template <bool kInverse, bool kLineFastest, class Lines>
-__device__ __forceinline__ void fft_odd_stage(float2* A, const float2* tw,
-                                              const float2* root, FftLen f,
-                                              int nlines, int es,
-                                              Lines lines) {
-  const int m = f.m, p = f.p;
-  const int groups = nlines * p, per = blockDim.x / m;
-  const int t = threadIdx.x;
+// log2(R) and the bit reversal of I in B bits as template constants: a
+// recursive constexpr function called in device code was evaluated at run
+// time, which put the registers it indexes into local memory.
+template <int R>
+struct Log2 {
+  static constexpr int value = 1 + Log2<R / 2>::value;
+};
+template <>
+struct Log2<1> {
+  static constexpr int value = 0;
+};
+template <int I, int B>
+struct BitRev {
+  static constexpr int value = ((I & 1) << (B - 1)) |
+                               BitRev<(I >> 1), B - 1>::value;
+};
+template <int I>
+struct BitRev<I, 0> {
+  static constexpr int value = 0;
+};
+
+template <int R, int... I>
+__device__ __forceinline__ void bit_reverse(float2 (&v)[R],
+                                            std::integer_sequence<int, I...>) {
+  const float2 t[R] = {v[BitRev<I, Log2<R>::value>::value]...};
+  ((v[I] = t[I]), ...);
+}
+
+// In-place R-point DFT in registers, natural order in and out: radix-2
+// decimation-in-frequency stages, then the bit reversal as a renaming.
+template <int R>
+__device__ __forceinline__ void dft_pow2(float2 (&v)[R]) {
+#pragma unroll
+  for (int st = 0; st < Log2<R>::value; ++st) {
+    const int half = R >> (st + 1);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (i & half) continue;
+      const float2 u = v[i], w = v[i + half];
+      v[i] = cadd(u, w);
+      v[i + half] = mul_root16(csub(u, w), (i & (half - 1)) * (8 / half));
+    }
+  }
+  bit_reverse(v, std::make_integer_sequence<int, R>{});
+}
+
+// In-place R-point DFT for odd R, w[e - 1] = w_R^e for e <= (R - 1) / 2:
+// y_0 = sum x_t; for k != 0, with d_t = x_t - x_0, a_t = d_t + d_(R-t)
+// and b_t = d_t - d_(R-t): y_k = A_k - i B_k and y_(R-k) = A_k + i B_k,
+// A_k = sum_t a_t cos(2 pi t k / R), B_k = sum_t b_t sin(2 pi t k / R).
+template <int R>
+__device__ __forceinline__ void dft_odd(float2 (&v)[R], const float2 (&w)[4]) {
+  constexpr int Q = (R - 1) / 2;
+  float2 a[Q], b[Q];
+  float2 y0 = v[0];
+#pragma unroll
+  for (int t = 1; t < R; ++t) y0 = cadd(y0, v[t]);
+#pragma unroll
+  for (int t = 1; t <= Q; ++t) {
+    const float2 d1 = csub(v[t], v[0]), d2 = csub(v[R - t], v[0]);
+    a[t - 1] = cadd(d1, d2);
+    b[t - 1] = csub(d1, d2);
+  }
+#pragma unroll
+  for (int k = 1; k <= Q; ++k) {
+    float2 A = make_float2(0.f, 0.f), B = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int t = 1; t <= Q; ++t) {
+      const int e = t * k % R;
+      // cos and sin of 2 pi e / R from w_R^min(e, R-e) = (cos, -sin);
+      // e = 0 where R is composite (9)
+      const float c = e == 0 ? 1.f : e <= Q ? w[e - 1].x : w[R - e - 1].x;
+      const float s = e == 0 ? 0.f : e <= Q ? -w[e - 1].y : w[R - e - 1].y;
+      A = make_float2(A.x + a[t - 1].x * c, A.y + a[t - 1].y * c);
+      B = make_float2(B.x + b[t - 1].x * s, B.y + b[t - 1].y * s);
+    }
+    v[k] = make_float2(A.x + B.y, A.y - B.x);
+    v[R - k] = make_float2(A.x - B.y, A.y + B.x);
+  }
+  v[0] = y0;
+}
+
+template <int R>
+__device__ __forceinline__ void dft(float2 (&v)[R], const float2 (&w)[4]) {
+  if constexpr ((R & (R - 1)) == 0)
+    dft_pow2<R>(v);
+  else
+    dft_odd<R>(v, w);
+}
+
+// The inverse (conjugate roots, no 1/R): conj(DFT(conj(v))).
+template <int R>
+__device__ __forceinline__ void idft(float2 (&v)[R], const float2 (&w)[4]) {
+#pragma unroll
+  for (int t = 0; t < R; ++t) v[t] = cconj(v[t]);
+  dft<R>(v, w);
+#pragma unroll
+  for (int t = 0; t < R; ++t) v[t] = cconj(v[t]);
+}
+
+// The lines a pass runs over: line l starts at l * lstride, its
+// elements es apart (float2 of shared memory); line_fast gives
+// neighbouring threads neighbouring lines, else neighbouring groups of
+// one line.
+struct FftLines {
+  int count, lstride, es;
+  bool line_fast;
+};
+
+// Where a pass reads and writes: shared memory only, the plane's rows
+// from global memory into shared memory (first forward row pass), or
+// shared memory to |.| * norm in global memory (last inverse row pass).
+enum FftIo { kFftShared, kFftLoad, kFftStore };
+
+// x / d for 0 <= x < 2^20 by a float reciprocal, in place of an integer
+// division: (x + 0.5) / d lies at least 0.5 / d from an integer, more than
+// the rounding error of the product (below 2^20 / d * 2^-23).
+struct FftDiv {
+  int d;
+  float inv;
+  __device__ explicit FftDiv(int divisor)
+      : d(divisor), inv(1.0f / (float)divisor) {}
+  __device__ __forceinline__ int operator()(int x) const {
+    return __float2int_rz(((float)x + 0.5f) * inv);
+  }
+};
+
+// The groups of a pass of span L and stride s over lines ln, n / R of a
+// line.
+struct FftGroups {
+  FftDiv count, per_line, s;
+  int L;
+  bool line_fast;
+  __device__ FftGroups(const FftLines& ln, int n, int R, int span)
+      : count(ln.count), per_line(n / R), s(span / R), L(span),
+        line_fast(ln.line_fast) {}
+  // group g: its line, the element index of its first element (b L + j),
+  // and j
+  __device__ __forceinline__ void operator()(int g, int* line, int* e0,
+                                             int* j) const {
+    int q;
+    if (line_fast) {
+      q = count(g);
+      *line = g - q * count.d;
+    } else {
+      *line = per_line(g);
+      q = g - *line * per_line.d;
+    }
+    const int b = s(q);
+    *j = q - b * s.d;
+    *e0 = b * L + *j;
+  }
+};
+
+// One radix-R pass over span L of n-point lines: forward (DIF: DFT, then
+// the twiddles w_L^(jk)) or inverse (DIT: the conjugate twiddles, then the
+// inverse DFT). `tw` holds w_n^i for i < n; gin / gout are the plane's
+// rows as float2 (n a row) for kFftLoad / kFftStore.
+template <int R, bool kInv, int kIo>
+__device__ __forceinline__ void fft_pass(float2* A, const FftLines ln,
+                                         int n, int L, const float2* tw,
+                                         const float2* gin, float2* gout,
+                                         float norm) {
+  const int s = L / R, twstep = n / L;
+  const int groups = ln.count * (n / R);
+  const FftGroups group(ln, n, R, L);
+  float2 w[4] = {};
+  if constexpr ((R & (R - 1)) != 0) {
+#pragma unroll
+    for (int e = 1; e <= (R - 1) / 2; ++e) w[e - 1] = __ldg(tw + e * (n / R));
+  }
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    int line, e0, j;
+    group(g, &line, &e0, &j);
+    float2* base = A + line * ln.lstride + e0 * ln.es;
+    const int step = s * ln.es;
+    float2 v[R];
+#pragma unroll
+    for (int t = 0; t < R; ++t)
+      v[t] = kIo == kFftLoad ? __ldcg(gin + line * n + e0 + s * t)
+                             : base[t * step];
+    if (!kInv) {
+      dft<R>(v, w);
+      if (j) {
+#pragma unroll
+        for (int k = 1; k < R; ++k)
+          v[k] = cmul(v[k], __ldg(tw + j * k * twstep));
+      }
+    } else {
+      if (j) {
+#pragma unroll
+        for (int k = 1; k < R; ++k)
+          v[k] = cmulc(v[k], __ldg(tw + j * k * twstep));
+      }
+      idft<R>(v, w);
+    }
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      if (kIo == kFftStore)
+        gout[line * n + e0 + s * t] =
+            make_float2(fabsf(v[t].x * norm), fabsf(v[t].y * norm));
+      else
+        base[t * step] = v[t];
+    }
+  }
+}
+
+// A pass of odd prime radix r > 9 (<= kFftMaxPrime): one thread per
+// output, two outputs a thread, whole groups a round; each round reads
+// into registers, syncs, writes and syncs. Forward output k of group j:
+// w_L^(jk) * (sum_t x_t for k = 0, else sum_(t>=1) (x_t - x_0) w_r^(tk));
+// inverse output t: sum_k conj(w_r^(tk) w_L^(jk)) y_k.
+template <bool kInv>
+__device__ __noinline__ void fft_pass_generic(float2* A, const FftLines ln,
+                                              int n, int L, int r,
+                                              const float2* tw) {
+  const int s = L / r, twstep = n / L, rs = n / r;
+  const int groups = ln.count * (n / r);
+  const int per = 2 * (int)blockDim.x / r;  // whole groups a round
+  const FftGroups group(ln, n, r, L);
   for (int g0 = 0; g0 < groups; g0 += per) {
-    const int g = g0 + t / m, k = t % m;
-    const bool active = t < per * m && g < groups;
-    float2 acc = make_float2(0.f, 0.f);
-    float2* base = A;
-    if (active) {
-      const int line = kLineFastest ? g % nlines : g / p;
-      const int j1 = kLineFastest ? g / nlines : g % p;
-      base = A + lines(line) + j1 * es;
-      const int step = p * es;
-      if (kInverse) {
-        int e = 0;  // (k * j2) mod m with k the output index
-        for (int j2 = 0; j2 < m; ++j2) {
-          const float2 y = cmulc(base[j2 * step], tw[j1 * j2]);
-          acc = cadd(acc, cmulc(y, root[e]));
+    float2 acc[2];
+    int dst[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int o = threadIdx.x + u * blockDim.x;
+      const int g = g0 + o / r, k = o % r;
+      dst[u] = -1;
+      if (o >= per * r || g >= groups) continue;
+      int line, e0, j;
+      group(g, &line, &e0, &j);
+      const float2* base = A + line * ln.lstride + e0 * ln.es;
+      const int step = s * ln.es;
+      float2 a = make_float2(0.f, 0.f);
+      if (kInv) {
+        for (int t = 0, e = 0; t < r; ++t) {
+          const float2 y = cmulc(base[t * step], __ldg(tw + j * t * twstep));
+          a = cadd(a, cmulc(y, __ldg(tw + e * rs)));
           e += k;
-          if (e >= m) e -= m;
+          if (e >= r) e -= r;
         }
       } else if (k == 0) {
-        for (int j2 = 0; j2 < m; ++j2) acc = cadd(acc, base[j2 * step]);
+        for (int t = 0; t < r; ++t) a = cadd(a, base[t * step]);
       } else {
         const float2 x0 = base[0];
-        int e = k;
-        for (int j2 = 1; j2 < m; ++j2) {
-          acc = cadd(acc, cmul(csub(base[j2 * step], x0), root[e]));
+        for (int t = 1, e = k; t < r; ++t) {
+          a = cadd(a, cmul(csub(base[t * step], x0), __ldg(tw + e * rs)));
           e += k;
-          if (e >= m) e -= m;
+          if (e >= r) e -= r;
         }
-        acc = cmul(acc, tw[j1 * k]);
+        a = cmul(a, __ldg(tw + j * k * twstep));
+      }
+      acc[u] = a;
+      dst[u] = line * ln.lstride + (e0 + s * k) * ln.es;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (dst[u] >= 0) A[dst[u]] = acc[u];
+    __syncthreads();
+  }
+}
+
+// fft_pass for the radix r of a plan (kFftLoad / kFftStore only for the
+// register radices: the mixer reads and writes global memory in separate
+// sweeps otherwise).
+template <bool kInv, int kIo>
+__device__ __forceinline__ void fft_pass_any(int r, float2* A,
+                                             const FftLines& ln, int n,
+                                             int L, const float2* tw,
+                                             const float2* gin, float2* gout,
+                                             float norm) {
+  switch (r) {
+#define LGTEUN_RADIX(R)                                              \
+  case R:                                                            \
+    fft_pass<R, kInv, kIo>(A, ln, n, L, tw, gin, gout, norm);        \
+    break;
+    LGTEUN_RADIX(2) LGTEUN_RADIX(4) LGTEUN_RADIX(8) LGTEUN_RADIX(16)
+    LGTEUN_RADIX(3) LGTEUN_RADIX(5) LGTEUN_RADIX(7) LGTEUN_RADIX(9)
+#undef LGTEUN_RADIX
+    default:
+      if (kIo == kFftShared) fft_pass_generic<kInv>(A, ln, n, L, r, tw);
+  }
+}
+
+// The amp/phase chain on one bin, with the reference's zero-bin
+// convention and epsilons; self_conj: one of the four self-conjugate bins
+// (exactly real). Each bin is its own item: the chain's atan2f and sincosf
+// are most of a plane's instructions, so they are spread over all threads
+// evenly.
+__device__ __forceinline__ float2 mix_bin(float2 z, bool self_conj, float aw,
+                                          float ab, float pw, float pb) {
+  const float re = z.x;
+  float im = self_conj ? 0.f : z.y;
+  im = im + 0.0f;  // -0 -> +0: branch cut at +pi
+  const bool zero = (re == 0.0f) && (im == 0.0f);
+  float amp = zero ? 0.0f : sqrtf(re * re + im * im);
+  float pha = zero ? 0.0f : atan2f(im, re);
+  amp = amp * aw + ab;
+  pha = pha * pw + pb;
+  float sn, cs;
+  sincosf(pha, &sn, &cs);
+  return make_float2(amp * cs + 1e-8f + 1e-8f, amp * sn + 1e-8f);
+}
+
+// One plane's mixer in three parts over ranges of rows or of columns, so
+// that one block runs all of it (fft_mixer_plane) or a cluster of two
+// blocks splits it (fft_mixer_plane_pair). A part begins after, and ends
+// before, a point where its caller synchronises. The plan stays in the
+// tables (FftMixerPlan).
+struct FftPlane {
+  // the tables, and shared memory: the plan's copy, then the half
+  // spectrum; every value of the plan is read where it is used
+  const float* tab;
+  const FftMixerPlan* hdr;
+  float2* A;   // [H][ld]: W-bins 0..N-1 at fft_pos(row, k), N at N
+
+  __device__ FftPlane(const float* tables, float2* sm)
+      : tab(tables),
+        hdr(reinterpret_cast<const FftMixerPlan*>(sm)),
+        A(sm + kFftPlanFloats / 2) {}
+
+  // the plan into shared memory (the caller syncs before using it)
+  __device__ __forceinline__ void load_plan() const {
+    float* dst = reinterpret_cast<float*>(const_cast<FftMixerPlan*>(hdr));
+    for (int i = threadIdx.x; i < kFftPlanFloats; i += blockDim.x)
+      dst[i] = __ldg(tab + i);
+  }
+  __device__ __forceinline__ const FftMixerPlan& plan() const { return *hdr; }
+  __device__ __forceinline__ int get(const int& field) const { return field; }
+  __device__ __forceinline__ const float2* twiddles(const int& offset) const {
+    return reinterpret_cast<const float2*>(tab + get(offset));
+  }
+  // the first W pass reads, the last writes global memory
+  __device__ __forceinline__ bool fused() const {
+    return get(plan().row.npass) > 0 &&
+           fft_register_radix(get(plan().row.radix[0]));
+  }
+
+  // W forward and split of rows [r0, r0 + nr); in2: the plane's rows as
+  // N complex values each
+  __device__ __forceinline__ void rows_forward(const float2* in2, int r0,
+                                               int nr) const {
+    const int N = get(plan().row.n), ld = get(plan().ld);
+    const bool fused = this->fused();
+    const float2* tw_row = twiddles(plan().tw_row);
+    float2* Ar = A + r0 * ld;
+    const float2* inr = in2 + r0 * N;
+    FftLines rows{nr, ld, 1, false};
+
+    // W forward: the N-point FFT of each row read as complex, its first
+    // pass reading the plane from global memory (neighbouring threads on
+    // neighbouring elements)
+    if (!fused) {
+      for (int i = threadIdx.x; i < nr * N; i += blockDim.x)
+        Ar[i / N * ld + i % N] = __ldcg(inr + i);
+      __syncthreads();
+    }
+    for (int i = 0, L = N, passes = get(plan().row.npass); i < passes; ++i) {
+      const int r = get(plan().row.radix[i]);
+      rows.line_fast = i > 0 && L / r < 16;
+      if (i == 0 && fused)
+        fft_pass_any<false, kFftLoad>(r, Ar, rows, N, L, tw_row, inr,
+                                      nullptr, 0.f);
+      else
+        fft_pass_any<false, kFftShared>(r, Ar, rows, N, L, tw_row, nullptr,
+                                        nullptr, 0.f);
+      __syncthreads();
+      L /= r;
+    }
+
+    // split: the half spectrum X[0..N] of each real row, pairs (k, N - k)
+    const float2* tw_half = twiddles(plan().tw_half);
+    const int* pos = reinterpret_cast<const int*>(twiddles(plan().pos_row));
+    const FftDiv rows_div(nr);
+#pragma unroll 4
+    for (int t = threadIdx.x; t < nr * (N / 2 + 1); t += blockDim.x) {
+      const int k = rows_div(t);
+      float2* a = Ar + (t - k * nr) * ld;
+      if (k == 0) {
+        const float2 z = a[0];
+        a[0] = make_float2(z.x + z.y, 0.f);
+        a[N] = make_float2(z.x - z.y, 0.f);
+        continue;
+      }
+      const int pk = __ldg(pos + k), pm = __ldg(pos + N - k);
+      const float2 zk = a[pk], zm = a[pm];
+      const float2 e = make_float2((zk.x + zm.x) * 0.5f, (zk.y - zm.y) * 0.5f);
+      // o = (zk - conj zm) / 2i
+      const float2 o = make_float2((zk.y + zm.y) * 0.5f, (zm.x - zk.x) * 0.5f);
+      const float2 wo = cmul(__ldg(tw_half + k), o);
+      a[pk] = cadd(e, wo);
+      if (pm != pk) a[pm] = cconj(csub(e, wo));
+    }
+  }
+
+  // H forward, amp/phase and H inverse of columns [c0, c0 + nc)
+  __device__ __forceinline__ void columns(int c0, int nc, float aw, float ab,
+                                          float pw, float pb) const {
+    const int N = get(plan().row.n), H = get(plan().col.n);
+    const int ld = get(plan().ld), passes = get(plan().col.npass);
+    const float2* tw_col = twiddles(plan().tw_col);
+    float2* Ac = A + c0;
+    const FftLines cols{nc, 1, ld, true};
+
+    // H forward on the columns
+    int L = H;
+    for (int i = 0; i < passes; ++i) {
+      const int r = get(plan().col.radix[i]);
+      fft_pass_any<false, kFftShared>(r, Ac, cols, H, L, tw_col, nullptr,
+                                      nullptr, 0.f);
+      __syncthreads();
+      L /= r;
+    }
+
+    // amp/phase, one bin a thread; columns 0 and N hold W-bins 0 and W/2,
+    // positions 0 and qh of a column H-bins 0 and H/2
+    const FftDiv cols_div(nc);
+    const int qh = get(plan().qh);
+#pragma unroll 4
+    for (int t = threadIdx.x; t < H * nc; t += blockDim.x) {
+      const int q = cols_div(t), c = t - q * nc;
+      float2* z = Ac + c + q * ld;
+      const bool edge = c0 + c == 0 || c0 + c == N;
+      *z = mix_bin(*z, edge && (q == 0 || q == qh), aw, ab, pw, pb);
+    }
+    __syncthreads();
+
+    // H inverse: the passes transposed, in reverse order
+    for (int i = passes - 1; i >= 0; --i) {
+      const int r = get(plan().col.radix[i]);
+      L *= r;
+      fft_pass_any<true, kFftShared>(r, Ac, cols, H, L, tw_col, nullptr,
+                                     nullptr, 0.f);
+      if (i > 0) __syncthreads();
+    }
+  }
+
+  // c2r, W inverse and |.| / (H W) into out2 for rows [r0, r0 + nr)
+  __device__ __forceinline__ void rows_inverse(float2* out2, int r0,
+                                               int nr) const {
+    const int N = get(plan().row.n), ld = get(plan().ld);
+    float2* Ar = A + r0 * ld;
+    float2* outr = out2 + r0 * N;
+    FftLines rows{nr, ld, 1, false};
+    const float2* tw_half = twiddles(plan().tw_half);
+    const int* pos = reinterpret_cast<const int*>(twiddles(plan().pos_row));
+
+    // c2r: Z'[k] = (X[k] + conj X[N-k]) + i conj(w_W^k) (X[k] - conj
+    // X[N-k]) with the imaginary parts of X[0] and X[N] dropped
+    const FftDiv rows_div(nr);
+#pragma unroll 4
+    for (int t = threadIdx.x; t < nr * (N / 2 + 1); t += blockDim.x) {
+      const int k = rows_div(t);
+      float2* a = Ar + (t - k * nr) * ld;
+      if (k == 0) {
+        const float x0 = a[0].x, xn = a[N].x;
+        a[0] = make_float2(x0 + xn, x0 - xn);
+        continue;
+      }
+      const int pk = __ldg(pos + k), pm = __ldg(pos + N - k);
+      const float2 xk = a[pk], xm = a[pm];
+      const float2 e = make_float2(xk.x + xm.x, xk.y - xm.y);
+      const float2 o = cmulc(make_float2(xk.x - xm.x, xk.y + xm.y),
+                             __ldg(tw_half + k));
+      a[pk] = make_float2(e.x - o.y, e.y + o.x);
+      if (pm != pk) a[pm] = make_float2(e.x + o.y, o.x - e.y);
+    }
+    __syncthreads();
+
+    // W inverse: the row passes transposed, in reverse order; the last one
+    // writes x[2n], x[2n+1] = |Re|, |Im| z'[n] / (H W) to global memory
+    const float norm = 1.0f / (float)(get(plan().col.n) * 2 * N);
+    const bool fused = this->fused();
+    const float2* tw_row = twiddles(plan().tw_row);
+    for (int i = get(plan().row.npass) - 1, L = 1; i >= 0; --i) {
+      const int r = get(plan().row.radix[i]);
+      L *= r;
+      rows.line_fast = i > 0 && L / r < 16;
+      if (i == 0 && fused) {
+        fft_pass_any<true, kFftStore>(r, Ar, rows, N, L, tw_row, nullptr,
+                                      outr, norm);
+      } else {
+        fft_pass_any<true, kFftShared>(r, Ar, rows, N, L, tw_row, nullptr,
+                                       nullptr, 0.f);
+        __syncthreads();
       }
     }
-    __syncthreads();
-    if (active) base[k * p * es] = acc;
-    __syncthreads();
+    if (!fused)
+      for (int i = threadIdx.x; i < nr * N; i += blockDim.x) {
+        const float2 z = Ar[i / N * ld + i % N];
+        outr[i] = make_float2(fabsf(z.x * norm), fabsf(z.y * norm));
+      }
   }
-}
+};
 
-template <bool kLineFastest, class Lines>
-__device__ __forceinline__ void fft_forward(float2* A, const float2* tw,
-                                            const float2* root, FftLen f,
-                                            int nlines, int es, Lines lines) {
-  if (f.m > 1)
-    fft_odd_stage<false, kLineFastest>(A, tw, root, f, nlines, es, lines);
-  const SubLines<kLineFastest, Lines> sub{lines, nlines, f.m, f.p * es};
-  fft_dif<kLineFastest>(A, tw, f, nlines * f.m, es, sub);
-}
-
-template <bool kLineFastest, class Lines>
-__device__ __forceinline__ void fft_inverse(float2* A, const float2* tw,
-                                            const float2* root, FftLen f,
-                                            int nlines, int es, Lines lines) {
-  const SubLines<kLineFastest, Lines> sub{lines, nlines, f.m, f.p * es};
-  fft_dit_inverse<kLineFastest>(A, tw, f, nlines * f.m, es, sub);
-  if (f.m > 1)
-    fft_odd_stage<true, kLineFastest>(A, tw, root, f, nlines, es, lines);
-}
-
-// Shared memory the mixer of one H x W plane needs: the complex plane,
-// the two twiddle tables, the two tables of m-th roots and the half
-// spectrum's column positions.
-inline size_t fft_mixer_smem(int H, int W) {
-  return sizeof(float2) * ((size_t)H * W + H + W + fft_len(H).m +
-                           fft_len(W).m) +
-         sizeof(int) * (W / 2 + 1);
-}
-
-// out = global mixer of the plane `in` (both [H, W]; they may alias, and
-// `in` may have been written earlier in the same launch: it is read
-// through L2),
-// with the channel's affine (aw, ab) on the amplitude and (pw, pb) on the
-// phase. `sm` holds fft_mixer_smem(H, W) bytes.
-__device__ __forceinline__ void fft_mixer_plane(
-    const float* in, float* out, float2* sm, int H, int W, FftLen fh,
-    FftLen fw, float aw, float ab, float pw, float pb) {
-  const int half_w = W / 2, half_h = H / 2, nk = half_w + 1;
-  float2* A = sm;                 // [H][W] complex plane
-  float2* tw_w = A + H * W;       // [W]
-  float2* tw_h = tw_w + W;        // [H]
-  float2* root_w = tw_h + H;      // [m of W]
-  float2* root_h = root_w + fw.m;  // [m of H]
-  int* colpos = reinterpret_cast<int*>(root_h + fh.m);  // [W/2 + 1]
-  make_twiddles(tw_w, W);
-  make_twiddles(tw_h, H);
-  make_twiddles(root_w, fw.m);
-  make_twiddles(root_h, fh.m);
-  if (threadIdx.x < 32) {  // warp 0: a ballot prefix over the positions
-    for (int q0 = 0, l = 0; q0 < W; q0 += 32) {
-      const int q = q0 + threadIdx.x;
-      const bool half = q < W && pos_bin(q, fw) <= half_w;
-      const unsigned mask = __ballot_sync(0xffffffffu, half);
-      if (half) colpos[l + __popc(mask & ((1u << threadIdx.x) - 1u))] = q;
-      l += __popc(mask);
-    }
-  }
-  for (int i = threadIdx.x; i < H * W; i += blockDim.x)
-    A[i] = make_float2(__ldcg(in + i), 0.f);  // L2: see loads.cuh
+// out = global mixer of the plane `in` (both [H, W] floats, 8-byte
+// aligned; they may alias, and `in` may have been written earlier in the
+// same launch: it is read through L2), with the channel's affine (aw, ab)
+// on the amplitude and (pw, pb) on the phase. `sm` holds fft_mixer_smem(H,
+// W) bytes; `tab` the tables of fft_tables_kernel for (H, W).
+__device__ __forceinline__ void fft_mixer_plane(const float* in, float* out,
+                                                float2* sm, const float* tab,
+                                                float aw, float ab, float pw,
+                                                float pb) {
+  const FftPlane plane(tab, sm);
+  plane.load_plan();
   __syncthreads();
-
-  const HalfSpectrumColumns cols{colpos};
-  fft_forward<false>(A, tw_w, root_w, fw, H, 1, RowLines{W});
-  fft_forward<true>(A, tw_h, root_h, fh, nk, W, cols);
-
-  // amp/phase chain with the reference's zero-bin convention and epsilons
-  for (int t = threadIdx.x; t < H * nk; t += blockDim.x) {
-    const int r = t / nk, l = t % nk;
-    float2* z = A + r * W + cols(l);
-    const float re = z->x;
-    float im = z->y;
-    const int kw = pos_bin(cols(l), fw);
-    if (kw == 0 || kw == half_w) {
-      const int kh = pos_bin(r, fh);
-      if (kh == 0 || kh == half_h) im = 0.f;  // self-conjugate: real
-    }
-    im = im + 0.0f;  // -0 -> +0: branch cut at +pi
-    const bool zero = (re == 0.0f) && (im == 0.0f);
-    float amp = zero ? 0.0f : sqrtf(re * re + im * im);
-    float pha = zero ? 0.0f : atan2f(im, re);
-    amp = amp * aw + ab;
-    pha = pha * pw + pb;
-    float sn, cs;
-    sincosf(pha, &sn, &cs);
-    *z = make_float2(amp * cs + 1e-8f + 1e-8f, amp * sn + 1e-8f);
-  }
+  const int H = plane.get(plane.plan().col.n);
+  plane.rows_forward(reinterpret_cast<const float2*>(in), 0, H);
   __syncthreads();
-
-  fft_inverse<true>(A, tw_h, root_h, fh, nk, W, cols);
-
-  // hermitian fill: bins k > W/2 of each row are conj(bin W - k); the
-  // imaginary parts of bins 0 and W/2 are dropped (c2r semantics)
-  for (int t = threadIdx.x; t < H * W; t += blockDim.x) {
-    const int row = t / W, q = t % W;
-    const int k = pos_bin(q, fw);
-    float2* z = A + row * W + q;
-    if (k == 0 || k == half_w) {
-      z->y = 0.f;
-    } else if (k > half_w) {
-      const float2 s = A[row * W + bin_pos(W - k, fw)];
-      *z = make_float2(s.x, -s.y);
-    }
-  }
+  plane.columns(0, plane.get(plane.plan().row.n) + 1, aw, ab, pw, pb);
   __syncthreads();
+  plane.rows_inverse(reinterpret_cast<float2*>(out), 0, H);
+}
 
-  fft_inverse<false>(A, tw_w, root_w, fw, H, 1, RowLines{W});
-  const float norm = 1.0f / (float)(H * W);
-  for (int i = threadIdx.x; i < H * W; i += blockDim.x)
-    out[i] = fabsf(A[i].x * norm);
+// The same on a cluster of two blocks, each with its own copy of the
+// half spectrum in `sm`: block `rank` takes rows [rank H/2, (rank + 1)
+// H/2) and half of the columns, and after each part hands the other block
+// the values it will read (its columns of my rows, then its rows of my
+// columns) through distributed shared memory.
+__device__ __forceinline__ void fft_mixer_plane_pair(
+    const float* in, float* out, float2* sm, const float* tab, float aw,
+    float ab, float pw, float pb) {
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const FftPlane plane(tab, sm);
+  plane.load_plan();
+  cluster.sync();  // the other block runs: its shared memory may be written
+  const int N = plane.get(plane.plan().row.n);
+  const int hr = plane.get(plane.plan().col.n) / 2;
+  const int ld = plane.get(plane.plan().ld);
+  const int half = (N + 1) / 2, c0 = rank ? half : 0;
+  const int nc = rank ? N + 1 - half : half;
+  float2* A = plane.A;
+  float2* peer = cluster.map_shared_rank(A, rank ^ 1);
+  plane.rows_forward(reinterpret_cast<const float2*>(in), rank * hr, hr);
+  __syncthreads();
+  // my rows of the other block's columns
+  const int pc0 = rank ? 0 : half, pnc = N + 1 - nc;
+  const FftDiv pnc_div(pnc);
+  for (int t = threadIdx.x; t < hr * pnc; t += blockDim.x) {
+    const int r = pnc_div(t), i = (rank * hr + r) * ld + pc0 + t - r * pnc;
+    peer[i] = A[i];
+  }
+  cluster.sync();
+  plane.columns(c0, nc, aw, ab, pw, pb);
+  __syncthreads();
+  // my columns of the other block's rows
+  const FftDiv nc_div(nc);
+  for (int t = threadIdx.x; t < hr * nc; t += blockDim.x) {
+    const int r = nc_div(t), i = ((rank ^ 1) * hr + r) * ld + c0 + t - r * nc;
+    peer[i] = A[i];
+  }
+  cluster.sync();
+  plane.rows_inverse(reinterpret_cast<float2*>(out), rank * hr, hr);
 }
 
 // y1 = LN(x)[:C/2], y2 = LN(x)[C/2:] at pixel p of image b ([B, C, H*W]

@@ -14,11 +14,12 @@
 // C = 32.
 //
 // Design: a persistent cooperative kernel, grid = the blocks that fit on
-// the card at once (one 512-thread block an SM: the phases need up to
-// 222 KB of shared memory), phases separated by grid.sync():
+// the card at once (one 512-thread block an SM: at 128 registers a
+// thread it fills the register file), phases separated by grid.sync():
 //   A. LN + split, one thread per pixel: y1 and y2 into global scratch;
 //   B. a work list of the (image, channel) FFT mixer planes (y2 -> x2 in
-//      place) followed by the windows (y1 -> x1), taken from an atomic
+//      place, B1's half-spectrum body in a call of its own, mixer_plane)
+//      followed by the windows (y1 -> x1), taken from an atomic
 //      counter so the long planes start first and the windows fill in.
 //      The windows run B2's tensor-core body (window_attention_tc.cuh)
 //      where it takes the shape and 4 is a multiple of the heads: an item
@@ -62,6 +63,7 @@ static_assert(kThreads == kTcThreads, "phase C runs the tail's tile");
 
 struct LgbBlockArgs {
   const float *x, *ln_w, *ln_b, *amp_w, *amp_b, *pha_w, *pha_b;
+  const float* fft_tab;  // the mixer's tables (lgteun_fft_tables)
   const float *wqkv, *bqkv, *pos;
   TailWeights tail;
   float *y1, *x2, *x1;  // scratch, [B, C/2, H, W] each
@@ -72,7 +74,6 @@ struct LgbBlockArgs {
   float* out;
   int B, C, C4, H, W, heads, win;
   float scale, eps;
-  FftLen fh, fw;
   int smem_item;        // float offset of the shared work-item slot
 };
 
@@ -115,6 +116,15 @@ __device__ __forceinline__ void attention_item(const LgbBlockArgs& a,
   }
 }
 
+// The mixer of one plane in place, as a call of its own: inlined, its
+// passes shared one register allocation with the window attention and the
+// tail, and ptxas spilled more of both.
+__device__ __noinline__ void mixer_plane(float* plane, float2* sm,
+                                         const float* tab, float aw,
+                                         float ab, float pw, float pb) {
+  fft_mixer_plane(plane, plane, sm, tab, aw, ab, pw, pb);
+}
+
 __global__ void __launch_bounds__(kThreads) lgb_block_kernel(LgbBlockArgs a) {
   extern __shared__ __align__(16) float sm[];
   int* item = reinterpret_cast<int*>(sm + a.smem_item);
@@ -148,9 +158,8 @@ __global__ void __launch_bounds__(kThreads) lgb_block_kernel(LgbBlockArgs a) {
     if (it < planes) {
       const int c = it % C2;
       float* plane = a.x2 + (size_t)it * HW;
-      fft_mixer_plane(plane, plane, reinterpret_cast<float2*>(sm), a.H, a.W,
-                      a.fh, a.fw, a.amp_w[c], a.amp_b[c], a.pha_w[c],
-                      a.pha_b[c]);
+      mixer_plane(plane, reinterpret_cast<float2*>(sm), a.fft_tab, a.amp_w[c],
+                  a.amp_b[c], a.pha_w[c], a.pha_b[c]);
     } else if (tc) {
       if (!loaded) {
         attention_load_weights(sm, a.wqkv, a.attn_w);
@@ -198,16 +207,18 @@ __global__ void __launch_bounds__(kThreads) lgb_block_kernel(LgbBlockArgs a) {
 // wrapper). Weights: wqkv as lgteun_attention_fragments lays it out where
 // attention_tc_takes(C/2, heads, win) and 4 % heads == 0, else [3C/2][C/2]
 // (out, in); pos [heads][S][S]; the tail's as in lgteun_block_tail (TF32
-// slabs of width tail_tc_width(C)). scratch: 3 * B * C/2 * H * W floats,
-// and for C > 64 then one tail_h1_floats(128) slot an SM; counter: one
-// int (zeroed by the kernel).
+// slabs of width tail_tc_width(C)); fft_tables: lgteun_fft_tables of (H,
+// W). scratch: 3 * B * C/2 * H * W floats, and for C > 64 then one
+// tail_h1_floats(128) slot an SM; counter: one int (zeroed by the
+// kernel).
 extern "C" int lgteun_lgb_block(
     const float* x, const float* ln_w, const float* ln_b, const float* amp_w,
     const float* amp_b, const float* pha_w, const float* pha_b,
-    const float* wqkv, const float* bqkv, const float* pos, const float* wpT,
-    const float* bp, const float* fln_w, const float* fln_b,
-    const float* w1T, const float* b1, const float* w2T, const float* b2,
-    const float* dw, const float* bdw, const float* w3T, const float* b3,
+    const float* fft_tables, const float* wqkv, const float* bqkv,
+    const float* pos, const float* wpT, const float* bp, const float* fln_w,
+    const float* fln_b, const float* w1T, const float* b1, const float* w2T,
+    const float* b2, const float* dw, const float* bdw, const float* w3T,
+    const float* b3,
     float* scratch, int* counter, float* out, int B, int C, int C4, int H,
     int W, int heads, int win, float scale, float eps, cudaStream_t stream) {
   LgbBlockArgs a;
@@ -218,6 +229,7 @@ extern "C" int lgteun_lgb_block(
   a.amp_b = amp_b;
   a.pha_w = pha_w;
   a.pha_b = pha_b;
+  a.fft_tab = fft_tables;
   a.wqkv = wqkv;
   a.bqkv = bqkv;
   a.pos = pos;
@@ -239,11 +251,9 @@ extern "C" int lgteun_lgb_block(
   a.win = win;
   a.scale = scale;
   a.eps = eps;
-  a.fh = fft_len(H);
-  a.fw = fft_len(W);
   const int cp = tail_tc_width(C);
-  if (a.fh.p < 2 || a.fw.p < 2 || a.fh.m > kThreads || a.fw.m > kThreads ||
-      !cp || C4 != 4 * C)
+  FftMixerPlan fft;
+  if (!fft_mixer_plan(H, W, &fft) || !cp || C4 != 4 * C)
     return (int)cudaErrorInvalidValue;
 
   a.attn = -1;

@@ -23,28 +23,32 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "kernels", "launch",
-           "plain_on_cpu", "check_cuda_f32", "weight_layout"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "ptxas_log",
+           "kernels", "launch", "plain_on_cpu", "check_cuda_f32",
+           "weight_layout"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lgteun_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes; each returns cudaGetLastError() after its launches
 SIGNATURES = {
-    # x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b, y1, x2, B, C, H, W, eps, stream
-    "lgteun_ln_mixer_head": [_P] * 9 + [_I] * 4 + [_F, _P],
-    # x, amp_w, amp_b, pha_w, pha_b, out, B, C, H, W, stream
-    "lgteun_global_mixer": [_P] * 6 + [_I] * 4 + [_P],
+    # x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b, tables, y1, x2, B, C, H, W,
+    # eps, stream (tables: lgteun_fft_tables of (H, W))
+    "lgteun_ln_mixer_head": [_P] * 10 + [_I] * 4 + [_F, _P],
+    # x, amp_w, amp_b, pha_w, pha_b, tables, out, B, C, H, W, stream
+    "lgteun_global_mixer": [_P] * 7 + [_I] * 4 + [_P],
+    # tables, floats, H, W, stream
+    "lgteun_fft_tables": [_P] + [_I] * 3 + [_P],
     # x, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T, b3, out, B, C, C4, H,
     # W, eps, stream (the matrices as TF32 slabs, ffn_kernel.tail_fragments)
     "lgteun_ln_ffn": [_P] * 12 + [_I] * 5 + [_F, _P],
-    # x, 6 mixer weights, wqkv, bqkv, pos, wpT, bp, 10 FFN weights (the
-    # matrices as for lgteun_ln_ffn), scratch, counter, out, B, C, C4, H,
-    # W, heads, win, scale, eps, stream
-    "lgteun_lgb_block": [_P] * 25 + [_I] * 7 + [_F, _F, _P],
+    # x, 6 mixer weights, the mixer's tables, wqkv, bqkv, pos, wpT, bp, 10
+    # FFN weights (the matrices as for lgteun_ln_ffn), scratch, counter,
+    # out, B, C, C4, H, W, heads, win, scale, eps, stream
+    "lgteun_lgb_block": [_P] * 26 + [_I] * 7 + [_F, _F, _P],
     # x, wqkv, bqkv, pos, out, B, C, H, W, heads, win, scale, stream (wqkv
     # as window_attention.attention_fragments; the _fp32 entries take it as
     # [3C][C] rows)
@@ -93,7 +97,9 @@ def find_nvcc() -> str:
 
 def build_library(build_dir: Path = BUILD_DIR) -> Path:
     """Compile csrc/*.cu into build_dir (skipped when the hash-keyed
-    library exists) and return its path. Raises on any failure."""
+    library exists) and return its path; ptxas's report of each kernel's
+    registers, shared memory and spills goes to `ptxas_log(path)`.
+    Raises on any failure."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources + sorted(CSRC.glob("*.cuh")):
@@ -112,25 +118,34 @@ def build_library(build_dir: Path = BUILD_DIR) -> Path:
                               stderr=subprocess.STDOUT, text=True)
              for cmd in compiles]
     try:
-        errors = []
+        errors, logs = [], []
         for cmd, proc in zip(compiles, procs):
             log = proc.communicate()[0]
+            logs.append(f"== {cmd[-1]}\n{log}")
             if proc.returncode != 0:
                 errors.append(f"nvcc failed (exit {proc.returncode}): "
                               f"{' '.join(cmd)}\n{log}")
         if errors:
             raise RuntimeError("\n".join(errors))
+        ptxas_log(tmp).write_text("".join(logs))
         link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed (exit {proc.returncode}): "
                                f"{' '.join(link)}\n{proc.stdout}"
                                f"{proc.stderr}")
+        os.replace(ptxas_log(tmp), ptxas_log(out))
         os.replace(tmp, out)
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
+        ptxas_log(tmp).unlink(missing_ok=True)
     return out
+
+
+def ptxas_log(lib: Path) -> Path:
+    """The compile log (`-Xptxas -v`) kept beside library `lib`."""
+    return lib.with_name(f"{lib.name}.ptxas.log")
 
 
 @functools.lru_cache(maxsize=1)

@@ -34,7 +34,7 @@ from lgteun_tpu_torch.ops.ffn_kernel import (_WIDE_SLOT, _ffn_shapes,
                                              _fragments, block_tail_ref,
                                              check_tail_args, tail_variant,
                                              tail_weights)
-from lgteun_tpu_torch.ops.spectral_kernel import (_check_plane,
+from lgteun_tpu_torch.ops.spectral_kernel import (_check_plane, fft_tables,
                                                   ln_mixer_head_ref)
 from lgteun_tpu_torch.ops.window_attention import (_wqkv_fragments,
                                                    attention_branch,
@@ -102,8 +102,9 @@ def lgb_block(x, blk: dict, heads: int = 2, win: int = 8,
     counter = torch.empty(1, device=x.device, dtype=torch.int32)
     out = torch.empty_like(x)
     _cuda.launch("lgteun_lgb_block", x.device, x,
-                 *(blk[k] for k in _MIXER), wqkv, blk["bqkv"],
-                 blk["pos"], _fragments(blk["proj_w"], c), blk["proj_b"],
+                 *(blk[k] for k in _MIXER), fft_tables(h, w, x.device), wqkv,
+                 blk["bqkv"], blk["pos"], _fragments(blk["proj_w"], c),
+                 blk["proj_b"],
                  *tail_weights(blk["ffn"]), scratch, counter, out, b,
                  c, c4, h, w, heads, win, (c2 // heads) ** -0.5, eps)
     lgb_block.launches += 1

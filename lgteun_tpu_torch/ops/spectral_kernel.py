@@ -14,11 +14,18 @@ and `fused_global_mixer_cm` (Pallas), and of `ln_mixer_head_xla_cm` and
 `ln_mixer_head` and `global_mixer` launch `csrc/spectral_head.cu` for a
 CUDA tensor, differentiable there (`ops.autograd.recompute`: the kernel
 forward, the plain version's backward), and run `ln_mixer_head_ref` /
-`global_mixer_ref` for a CPU tensor. The kernel holds one complex plane in shared memory, so it takes
-any even H, W (2^a * odd, a >= 1, the odd part at most 512) whose plane
-fits: 8 * (H*W + H + W + odd(H) + odd(W)) + 4 * (W/2 + 1) bytes <=
-232,448 (the H100's shared memory a block), e.g. 168 x 168; beyond that
-the wrappers raise.
+`global_mixer_ref` for a CPU tensor. The kernel holds one plane's half
+spectrum in shared memory, so it takes any even H, W whose odd prime
+factors are at most 512 and whose half spectrum fits: 112 + 8 * H * ld
+bytes (the plan, then the half spectrum) <= 232,448 (the H100's shared
+memory a block), ld = W/2 + 1 rounded up to odd, e.g. 240 x 240; beyond
+that the wrappers raise. Its plan, twiddle and position tables are made
+once per (H, W) and device (`fft_tables`).
+`fft_plan` / `fft_mixer_plan` mirror the kernel's plan
+(`csrc/fft_mixer.cuh`) and `fft_tables_ref` its tables, for the tests
+and for `chip_smoke.py`, which holds the card's tables to them. The
+wrappers count their launches by the block layout the kernel picks
+(`mixer_variant`, `variants`).
 
 Branch cut: bins with exactly zero imaginary part and a negative real
 part have phase +-pi by the sign of that zero, and the learned phase
@@ -29,6 +36,8 @@ to +0, so both land on +pi (as numpy/torch and the JAX kernel's atan2).
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from lgteun_tpu_torch.ops import _cuda
@@ -36,10 +45,14 @@ from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 
 __all__ = ["ln_mixer_head", "ln_mixer_head_ref", "global_mixer",
-           "global_mixer_ref"]
+           "global_mixer_ref", "fft_plan", "fft_pos", "fft_mixer_plan",
+           "fft_tables_ref", "fft_tables", "mixer_variant"]
 
 # shared memory one block may hold on the H100 (227 KB)
 FFT_SMEM_BYTES = 232_448
+FFT_MAX_PASS = 8          # fft_mixer.cuh: kFftMaxPass
+FFT_MAX_PRIME = 512       # kFftMaxPrime
+FFT_PLAN_FLOATS = 28      # kFftPlanFloats: the plan at the tables' head
 
 
 def global_mixer_ref(x: torch.Tensor, amp_w: torch.Tensor,
@@ -94,18 +107,142 @@ def ln_mixer_head_ref(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
     return y[:, :c2], global_mixer_ref(y[:, c2:], amp_w, amp_b, pha_w, pha_b)
 
 
+def fft_plan(n: int) -> list[int] | None:
+    """The radices of the kernel's n-point transform in its forward pass
+    order (`fft_mixer.cuh::fft_plan`): the power of two 2^a in ceil(a/4)
+    passes as even as they go (larger first), then the odd part as 9s, 3s,
+    5s, 7s and its other primes. None beyond FFT_MAX_PASS passes."""
+    a, m = 0, n
+    while m % 2 == 0:
+        m, a = m // 2, a + 1
+    odd = []
+    for r in (9, 3, 5, 7):
+        while m % r == 0 and len(odd) <= FFT_MAX_PASS:
+            odd.append(r)
+            m //= r
+    q = 11
+    while m > 1 and len(odd) <= FFT_MAX_PASS:
+        while m % q == 0 and len(odd) <= FFT_MAX_PASS:
+            odd.append(q)
+            m //= q
+        q += 2
+    np2 = (a + 3) // 4
+    if m > 1 or np2 + len(odd) > FFT_MAX_PASS:
+        return None
+    return [1 << (a // np2 + (i < a % np2)) for i in range(np2)] + odd
+
+
+def fft_pos(radices: list[int], n: int, k: int) -> int:
+    """Position of bin k after the forward passes `radices` of an n-point
+    transform (digit i of k, first pass least significant, weighs n /
+    (r_1 ... r_i))."""
+    span, pos = n, 0
+    for r in radices:
+        span //= r
+        pos += (k % r) * span
+        k //= r
+    return pos
+
+
+def fft_mixer_plan(h: int, w: int) -> dict | None:
+    """The kernel's plan of an H x W plane (`fft_mixer.cuh::
+    fft_mixer_plan`): row radices (N = W/2 points), column radices, row
+    pitch ld (float2), the position qh of H-bin H/2, the tables' float
+    offsets and size (the plan itself first), and the shared memory; None
+    where the kernel refuses the size (odd H or W, or a plan it has no
+    passes for)."""
+    if h < 2 or w < 2 or h % 2 or w % 2:
+        return None
+    n = w // 2
+    row, col = fft_plan(n), fft_plan(h)
+    if row is None or col is None or max(row + col) > FFT_MAX_PRIME:
+        return None
+    ld = n + 1 if (n + 1) % 2 else n + 2
+    tw_half = FFT_PLAN_FLOATS + 2 * n
+    tw_col = tw_half + 2 * n + 2
+    return {"row": row, "col": col, "ld": ld, "qh": fft_pos(col, h, h // 2),
+            "tw_row": FFT_PLAN_FLOATS, "tw_half": tw_half, "tw_col": tw_col,
+            "pos_row": tw_col + 2 * h, "floats": tw_col + 2 * h + n,
+            "smem": 4 * FFT_PLAN_FLOATS + 8 * h * ld}
+
+
+def fft_tables_ref(h: int, w: int) -> torch.Tensor:
+    """The kernel's tables of an H x W plane as float32 [floats]: the
+    plan as the struct FftMixerPlan lays it out (int32 bits: per FftPlan
+    n, npass, 8 radices; then ld, qh, the five offsets; zero padding),
+    row twiddles w_N^j, half twiddles w_W^k (k <= N), column twiddles
+    w_H^j (interleaved re, im; computed in long double, exact zeros
+    snapped) and the row positions fft_pos (int32 bits)."""
+    import numpy as np
+    plan = fft_mixer_plan(h, w)
+    n = w // 2
+    out = np.zeros(plan["floats"], np.float32)
+    head = []
+    for radices, length in ((plan["row"], n), (plan["col"], h)):
+        head += [length, len(radices)] + radices + [0] * (
+            FFT_MAX_PASS - len(radices))
+    head += [plan[k] for k in ("ld", "qh", "tw_row", "tw_half", "tw_col",
+                               "pos_row", "floats")]
+    out[:len(head)] = np.array(head, np.int32).view(np.float32)
+
+    def tw(count, length):   # in long double, then rounded
+        ang = 2.0 * np.arange(count, dtype=np.longdouble) / length
+        c = np.cos(np.pi * ang).astype(np.float64)
+        s = -np.sin(np.pi * ang).astype(np.float64)
+        c[np.abs(c) < 1e-12], s[np.abs(s) < 1e-12] = 0.0, 0.0
+        return np.stack([c, s], 1).astype(np.float32).reshape(-1)
+
+    out[plan["tw_row"]:plan["tw_row"] + 2 * n] = tw(n, n)
+    out[plan["tw_half"]:plan["tw_half"] + 2 * n + 2] = tw(n + 1, w)
+    out[plan["tw_col"]:plan["tw_col"] + 2 * h] = tw(h, h)
+    pos = np.array([fft_pos(plan["row"], n, k) for k in range(n)], np.int32)
+    out[plan["pos_row"]:] = pos.view(np.float32)
+    return torch.from_numpy(out)
+
+
+_TABLES: dict = {}
+
+
+def fft_tables(h: int, w: int, device: torch.device) -> torch.Tensor:
+    """The kernel's tables of an H x W plane on a CUDA device, made by
+    one `lgteun_fft_tables` launch the first time (size, device) is
+    asked for."""
+    key = (h, w, torch.device(device))
+    if key not in _TABLES:
+        floats = fft_mixer_plan(h, w)["floats"]
+        tab = torch.empty(floats, device=device, dtype=torch.float32)
+        _cuda.launch("lgteun_fft_tables", tab.device, tab, floats, h, w)
+        fft_tables.launches += 1
+        _TABLES[key] = tab
+    return _TABLES[key]
+
+
+fft_tables.launches = 0
+
+
+def mixer_variant(planes: int, device: torch.device) -> str:
+    """The launch the kernel picks for `planes` planes
+    (`spectral_head.cu::launch_fft_mixer`): "pair" (a cluster of two
+    512-thread blocks a plane) where twice the planes fit on the SMs,
+    "block512" (one 512-thread block a plane) where the planes do, else
+    "block256" (256-thread blocks, two an SM)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return ("pair" if 2 * planes <= sms else
+            "block512" if planes <= sms else "block256")
+
+
 def _check_plane(name: str, x: torch.Tensor) -> None:
     """Raise unless the mixer kernel takes x's [H, W] planes."""
     h, w = x.shape[-2:]
-    odd = lambda n: n // (n & -n)
-    smem = 8 * (h * w + h + w + odd(h) + odd(w)) + 4 * (w // 2 + 1)
-    if h % 2 or w % 2 or odd(h) > 512 or odd(w) > 512 \
-            or smem > FFT_SMEM_BYTES:
+    plan = fft_mixer_plan(h, w)
+    if plan is None or plan["smem"] > FFT_SMEM_BYTES:
+        smem = f"{plan['smem']} bytes" if plan else "no plan"
         raise ValueError(
-            f"{name}: the FFT kernel holds one complex plane in shared "
-            f"memory and needs even H, W (odd part <= 512) with "
-            f"8 * (H*W + H + W + odd(H) + odd(W)) + 4 * (W/2 + 1) <= "
-            f"{FFT_SMEM_BYTES} bytes, got {tuple(x.shape)} ({smem} bytes)")
+            f"{name}: the FFT kernel holds one plane's half spectrum in "
+            f"shared memory and needs even H, W with odd prime factors <= "
+            f"{FFT_MAX_PRIME} and 112 + 8 * H * ld <= {FFT_SMEM_BYTES} bytes "
+            f"(ld = W/2 + 1 rounded up to odd), got {tuple(x.shape)} "
+            f"({smem})")
 
 
 def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
@@ -133,8 +270,10 @@ def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
         y1 = torch.empty((b, c2, h, w), device=x.device, dtype=x.dtype)
         x2 = torch.empty_like(y1)
         _cuda.launch("lgteun_ln_mixer_head", x.device, x, ln_w, ln_b, amp_w,
-                     amp_b, pha_w, pha_b, y1, x2, b, c, h, w, eps)
+                     amp_b, pha_w, pha_b, fft_tables(h, w, x.device), y1, x2,
+                     b, c, h, w, eps)
         ln_mixer_head.launches += 1
+        ln_mixer_head.variants[mixer_variant(b * c2, x.device)] += 1
         return y1, x2
 
     return recompute(kernel, lambda *t: ln_mixer_head_ref(*t, eps), x, ln_w,
@@ -142,6 +281,7 @@ def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
 
 
 ln_mixer_head.launches = 0
+ln_mixer_head.variants = collections.Counter()
 
 
 def global_mixer(x, amp_w, amp_b, pha_w, pha_b):
@@ -157,13 +297,17 @@ def global_mixer(x, amp_w, amp_b, pha_w, pha_b):
             raise ValueError("global_mixer: parameter shapes do not match C")
         _cuda.check_cuda_f32("global_mixer", x.device, x=x, amp_w=amp_w,
                              amp_b=amp_b, pha_w=pha_w, pha_b=pha_b)
+        if x.data_ptr() % 8:  # the kernel reads the rows as float2
+            x = x.clone()
         out = torch.empty_like(x)
         _cuda.launch("lgteun_global_mixer", x.device, x, amp_w, amp_b, pha_w,
-                     pha_b, out, b, c, h, w)
+                     pha_b, fft_tables(h, w, x.device), out, b, c, h, w)
         global_mixer.launches += 1
+        global_mixer.variants[mixer_variant(b * c, x.device)] += 1
         return out
 
     return recompute(kernel, global_mixer_ref, x, amp_w, amp_b, pha_w, pha_b)
 
 
 global_mixer.launches = 0
+global_mixer.variants = collections.Counter()

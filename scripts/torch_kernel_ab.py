@@ -42,18 +42,21 @@ with A from registers and B from shared memory, in groups of 12 issued
 back to back and waited for, as the tail issues them, at 1 to 4
 warpgroups an SM.
 
-`--phases` instead shows where the block tail's time goes: it copies
-`lgteun_tpu_torch/csrc`, adds clock64() stamps to the tail's tile
-(`block_tail.cuh::block_tail_tile_tc`) at its phase boundaries (halo
-loads, proj, LN, W1, and per hidden chunk W2, depthwise + GELU, W3; then
-the output) and around the two waits of each weight slab (the cp.async
-wait and the barrier after it), builds that copy and runs
+`--phases` instead shows where the block tail's and the FFT mixer's time
+goes: it copies `lgteun_tpu_torch/csrc`, adds clock64() stamps to the
+tail's tile (`block_tail.cuh::block_tail_tile_tc`) at its phase
+boundaries (halo loads, proj, LN, W1, and per hidden chunk W2, depthwise
++ GELU, W3; then the output) and around the two waits of each weight
+slab (the cp.async wait and the barrier after it), and to the mixer's
+plane (`fft_mixer.cuh::fft_mixer_plane`) at the barrier that ends each
+of its phases (MIXER_PHASES), builds that copy and runs
 `lgteun_block_tail` at the UnlgFormer block shapes (C 32 at 128^2, C 64
-at 64^2). Thread 0 of each block adds up the clocks of each phase; the
-line gives the mean over the blocks of one launch, in clocks a tile and
-as shares of the tile. The stamps cost time themselves, so read the
-shares; at C 32 two blocks share an SM, and a phase's clocks include the
-other block's issue.
+at 64^2) and `lgteun_ln_mixer_head` at those and the scene engine's
+(144^2, 72^2). Thread 0 of each block adds up the clocks of each phase;
+the line gives the mean over the blocks of one launch, in clocks a tile
+or a plane and as shares of it. The stamps cost time themselves, so read
+the shares; where blocks share an SM, a phase's clocks include the other
+blocks' issue.
 """
 
 from __future__ import annotations
@@ -88,11 +91,22 @@ def build(src: str, out_dir: str, tag: str) -> ctypes.CDLL:
         subprocess.run([_cuda.find_nvcc(), *_cuda.NVCC_FLAGS, "-shared",
                         "-o", lib, src], check=True)
     dll = ctypes.CDLL(lib)
-    for name, argtypes in _cuda.SIGNATURES.items():
+    old = ({} if hasattr(dll, "lgteun_fft_mixer_layout")
+           else MIXER_WITHOUT_TABLES)
+    for name, argtypes in {**_cuda.SIGNATURES, **old}.items():
         if hasattr(dll, name):
             getattr(dll, name).argtypes = argtypes
             getattr(dll, name).restype = ctypes.c_int
     return dll
+
+
+# the mixer entries of a library without lgteun_fft_mixer_layout (no
+# tables argument)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+MIXER_WITHOUT_TABLES = {
+    "lgteun_ln_mixer_head": [_P] * 9 + [_I] * 4 + [_F, _P],
+    "lgteun_global_mixer": [_P] * 6 + [_I] * 4 + [_P],
+    "lgteun_lgb_block": [_P] * 25 + [_I] * 7 + [_F, _F, _P]}
 
 
 def caller(dll: ctypes.CDLL, name: str, *args):
@@ -112,18 +126,20 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
     """label -> (C entry, inputs(layouts), output allocator, trailing
     arguments) of the LGB kernels at the UnlgFormer block shapes (C 32 at
     128^2, C 64 at 64^2) and the scene engine's (C 32 at 144^2, C 64 at
-    72^2). `layouts` is a library's (tail, attention) layouts (see
+    72^2). `layouts` is a library's (tail, attention, tables) layouts (see
     `layouts`): tail 1 gives the tails' matrices as [in][out] rows, 3 as
     TF32 wgmma slabs; attention 1 gives wqkv as [3C][C] rows, 2 as the
-    tensor-core body's fragments."""
+    tensor-core body's fragments; tables, where not None, makes the FFT
+    mixer's tables of an (H, W), which the mixer entries then take after
+    pha_b."""
     from lgteun_tpu_torch.ops.ffn_kernel import _fragments
     from lgteun_tpu_torch.ops.window_attention import _wqkv_fragments
 
     def n(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).cuda()
 
-    def same(t):
-        return lambda lay: t
+    def mixer(lay, hw):
+        return () if lay[2] is None else (lay[2](hw, hw),)
 
     cases = {}
     channels = {128: 32, 64: 64, 144: 32, 72: 64}
@@ -137,10 +153,13 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
         mix = (n(c2), 0.1 * n(c2), n(c2), 0.1 * n(c2))
         head = (1 + 0.1 * n(c), 0.1 * n(c)) + mix
         cases[f"ln_mixer_head {tag}"] = (
-            "lgteun_ln_mixer_head", same((x,) + head),
+            "lgteun_ln_mixer_head",
+            lambda lay, x=x, head=head, hw=hw: (x,) + head + mixer(lay, hw),
             lambda half=half: (half(), half()), (b, c, hw, hw, 1e-5))
         cases[f"global_mixer {b}x{c2}x{hw}x{hw}"] = (
-            "lgteun_global_mixer", same((n(b, c2, hw, hw),) + mix),
+            "lgteun_global_mixer",
+            lambda lay, x=n(b, c2, hw, hw), mix=mix, hw=hw: (x,) + mix
+            + mixer(lay, hw),
             lambda half=half: (half(),), (b, c2, hw, hw))
         # the whole block at the block shapes, the window attention and
         # the tails at the scene engine's too
@@ -181,8 +200,8 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
             cases[f"lgb_block {tag}"] = (
                 "lgteun_lgb_block",
                 lambda lay, x=x, head=head, attn=attn, mats=mats, bp=bp,
-                ffn=ffn: (x,) + head + attn[lay[1]] + (mats[lay[0]]["p"], bp)
-                + ffn[lay[0]],
+                ffn=ffn, hw=hw: (x,) + head + mixer(lay, hw) + attn[lay[1]]
+                + (mats[lay[0]]["p"], bp) + ffn[lay[0]],
                 # the scratch's size bound now, not at the call (after the
                 # loop, b, c2 and hw would be the last size's)
                 lambda s=(b, c, hw, hw), size=3 * b * c2 * hw * hw: (
@@ -194,16 +213,31 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
 
 
 def layouts(dll: ctypes.CDLL) -> tuple:
-    """(tail, attention): the layouts of the tails' matrices and of the
-    window attention's wqkv that `dll` takes (see lgb_cases)."""
+    """(tail, attention, tables): the layouts of the tails' matrices and
+    of the window attention's wqkv that `dll` takes, and for a library
+    whose mixer entries take tables (`lgteun_fft_mixer_layout` 2) a
+    function (H, W) -> the tables, made by its `lgteun_fft_tables` (see
+    lgb_cases); else None."""
     got = []
     for entry, default in (("lgteun_block_tail_layout", 1),
-                           ("lgteun_window_attention_layout", 1)):
+                           ("lgteun_window_attention_layout", 1),
+                           ("lgteun_fft_mixer_layout", 1)):
         fn = getattr(dll, entry, None)
         if fn is not None:
             fn.restype = ctypes.c_int
         got.append(fn() if fn is not None else default)
-    return tuple(got)
+    if got[2] != 2:
+        return got[0], got[1], None
+    from lgteun_tpu_torch.ops.spectral_kernel import fft_mixer_plan
+    made = {}
+
+    def tables(h, w):
+        if (h, w) not in made:
+            floats = fft_mixer_plan(h, w)["floats"]
+            made[h, w] = torch.empty(floats, device="cuda")
+            caller(dll, "lgteun_fft_tables", made[h, w], floats, h, w)()
+        return made[h, w]
+    return got[0], got[1], tables
 
 
 def rel_diff(a, b) -> float:
@@ -382,11 +416,65 @@ STAMPS = [
 ]
 
 
+# the FFT mixer's passes (fft_mixer.cuh::FftPlane), thread 0 of each block
+# stamping at the start of each phase into global arrays (the phases lie
+# in three functions): the W forward passes (the first one reading the
+# plane from global memory), the split into the half spectrum, the H
+# forward passes, the amp/phase chain, the H inverse passes, the c2r
+# combination (on a cluster of two blocks, with the exchange before it),
+# the W inverse passes (the last one writing global memory; stamped after
+# a barrier)
+MIXER_PHASES = ("W forward", "split", "H forward", "amp/phase", "H inverse",
+                "c2r", "W inverse")
+NM = len(MIXER_PHASES)
+_FST = (f"if (threadIdx.x == 0 && blockIdx.x < {MAX_BLOCKS}) {{ long long n_ = "
+        "clock64(); lgteun_fft_stamps[blockIdx.x][i] += n_ - "
+        "lgteun_fft_t0[blockIdx.x]; lgteun_fft_t0[blockIdx.x] = n_; }")
+_FST0 = (f"  if (threadIdx.x == 0 && blockIdx.x < {MAX_BLOCKS}) {{\n"
+         "    lgteun_fft_t0[blockIdx.x] = clock64();\n"
+         f"    for (int i = 0; i < {NM}; ++i) lgteun_fft_stamps[blockIdx.x][i] "
+         "= 0;\n  }\n")
+MIXER_STAMPS = [
+    ("fft_mixer.cuh", "namespace {\n\n__device__ __forceinline__ float2 cadd",
+     f"namespace {{\n__device__ long long lgteun_fft_stamps[{MAX_BLOCKS}]"
+     f"[{NM}];\n__device__ long long lgteun_fft_t0[{MAX_BLOCKS}];\n"
+     f"#define FST(i) {_FST}\n\n__device__ __forceinline__ float2 cadd"),
+    ("fft_mixer.cuh", "  const FftPlane plane(tab, sm);\n  plane.load_plan();\n"
+     "  __syncthreads();\n",
+     "  const FftPlane plane(tab, sm);\n" + _FST0 + "  plane.load_plan();\n"
+     "  __syncthreads();\n"),
+    ("fft_mixer.cuh",
+     "  float2* peer = cluster.map_shared_rank(A, rank ^ 1);\n",
+     "  float2* peer = cluster.map_shared_rank(A, rank ^ 1);\n" + _FST0),
+    ("fft_mixer.cuh", "    // split: the half spectrum",
+     "    FST(0)\n    // split: the half spectrum"),
+    ("fft_mixer.cuh", "    // H forward on the columns",
+     "    FST(1)\n    // H forward on the columns"),
+    ("fft_mixer.cuh", "    // amp/phase, one bin a thread",
+     "    FST(2)\n    // amp/phase, one bin a thread"),
+    ("fft_mixer.cuh", "    // H inverse: the passes transposed",
+     "    FST(3)\n    // H inverse: the passes transposed"),
+    ("fft_mixer.cuh", "    // c2r: Z'[k]", "    FST(4)\n    // c2r: Z'[k]"),
+    ("fft_mixer.cuh", "    // W inverse: the row passes",
+     "    FST(5)\n    // W inverse: the row passes"),
+    ("fft_mixer.cuh",
+     "        outr[i] = make_float2(fabsf(z.x * norm), fabsf(z.y * norm));\n"
+     "      }\n  }\n",
+     "        outr[i] = make_float2(fabsf(z.x * norm), fabsf(z.y * norm));\n"
+     "      }\n    __syncthreads();\n    FST(6)\n  }\n"),
+    ("spectral_head.cu", 'extern "C" int lgteun_fft_mixer_layout()',
+     'extern "C" int lgteun_read_fft_stamps(long long* h) {\n'
+     "  return (int)cudaMemcpyFromSymbol(h, lgteun_fft_stamps,\n"
+     "                                   sizeof(lgteun_fft_stamps));\n}\n"
+     'extern "C" int lgteun_fft_mixer_layout()'),
+]
+
+
 def stamped_copy(dst: Path) -> None:
-    """csrc with the stamps of STAMPS, into dst."""
+    """csrc with the stamps of STAMPS and MIXER_STAMPS, into dst."""
     from lgteun_tpu_torch.ops import _cuda
     shutil.copytree(_cuda.CSRC, dst)
-    for name, anchor, text in STAMPS:
+    for name, anchor, text in STAMPS + MIXER_STAMPS:
         f = dst / name
         src = f.read_text()
         if src.count(anchor) != 1:
@@ -395,35 +483,55 @@ def stamped_copy(dst: Path) -> None:
         f.write_text(src.replace(anchor, text))
 
 
-def tail_phases(card: str, batch: int, tmp: str) -> None:
-    """Print the block tail's clocks a tile by phase (see --phases)."""
+def read_stamps(dll: ctypes.CDLL, entry: str, blocks: int,
+                cols: int) -> tuple[list, int]:
+    """(the mean, the number of blocks averaged) over the first `blocks`
+    blocks with stamps of the [MAX_BLOCKS, cols] stamps that C entry
+    `entry` of `dll` copies out."""
+    fn = getattr(dll, entry)
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    h = torch.zeros(MAX_BLOCKS, cols, dtype=torch.int64)
+    err = fn(ctypes.c_void_p(h.data_ptr()))
+    if err:
+        raise RuntimeError(f"reading the stamps: CUDA error {err}")
+    h = h[:min(blocks, MAX_BLOCKS)]
+    h = h[h.sum(1) > 0]
+    return h.double().mean(0).tolist(), h.shape[0]
+
+
+def phases(card: str, batch: int, tmp: str) -> None:
+    """Print the block tail's clocks a tile and the FFT mixer's clocks a
+    plane by phase (see --phases)."""
     stamped_copy(Path(tmp) / "csrc")
     dll = build(str(Path(tmp) / "csrc"), tmp, "stamped")
-    dll.lgteun_read_stamps.argtypes = [ctypes.c_void_p]
-    dll.lgteun_read_stamps.restype = ctypes.c_int
-    cases = lgb_cases(batch, (128, 64),
+    cases = lgb_cases(batch, (128, 64, 144, 72),
                       torch.Generator().manual_seed(19971118))
     lay = layouts(dll)
-    for label in (f"block_tail {batch}x32x128x128",
-                  f"block_tail {batch}x64x64x64"):
+    labels = [f"block_tail {batch}x32x128x128", f"block_tail {batch}x64x64x64",
+              f"ln_mixer_head {batch}x32x128x128",
+              f"ln_mixer_head {batch}x64x64x64",
+              f"ln_mixer_head {batch}x32x144x144",
+              f"ln_mixer_head {batch}x64x72x72"]
+    for label in labels:
         entry, ins, alloc, dims = cases[label]
         outs = alloc()
         call = caller(dll, entry, *ins(lay), *outs, *dims)
         for _ in range(3):
             call()
         torch.cuda.synchronize()
-        h = torch.zeros(MAX_BLOCKS, N, dtype=torch.int64)
-        err = dll.lgteun_read_stamps(ctypes.c_void_p(h.data_ptr()))
-        if err:
-            raise RuntimeError(f"reading the stamps: CUDA error {err}")
-        hw = int(label.split("x")[-1])
-        blocks = min(MAX_BLOCKS, batch * (hw // 8) ** 2)
-        m = h[:blocks].double().mean(0).tolist()
-        tile = sum(m[:len(PHASES)])
-        parts = "  ".join(f"{p} {v:.0f} ({v / tile:.3f})"
-                          for p, v in zip(PHASES + WAITS, m))
-        print(f"phases {label}: {tile:.0f} clocks a tile (thread 0, mean of "
-              f"{blocks} blocks): {parts}  [{card}]")
+        _b, c, _h, hw = (int(v) for v in label.split()[1].split("x"))
+        if entry == "lgteun_block_tail":
+            m, blocks = read_stamps(dll, "lgteun_read_stamps",
+                                    batch * (hw // 8) ** 2, N)
+            total, names, unit = sum(m[:len(PHASES)]), PHASES + WAITS, "tile"
+        else:   # one or two blocks a plane
+            m, blocks = read_stamps(dll, "lgteun_read_fft_stamps",
+                                    batch * c, NM)
+            total, names, unit = sum(m), MIXER_PHASES, "plane"
+        parts = "  ".join(f"{p} {v:.0f} ({v / total:.3f})"
+                          for p, v in zip(names, m))
+        print(f"phases {label}: {total:.0f} clocks a {unit} (thread 0, mean "
+              f"of {blocks} blocks): {parts}  [{card}]")
 
 
 def main() -> int:
@@ -433,7 +541,8 @@ def main() -> int:
     ap.add_argument("--mma-rate", action="store_true",
                     help="measure the TF32 tensor-core rates instead")
     ap.add_argument("--phases", action="store_true",
-                    help="time the block tail's phases instead")
+                    help="time the block tail's and the FFT mixer's phases "
+                         "instead")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--sizes", default="128,64,144,72",
                     help="H = W of the LGB cases (C 32 at 128 and 144, "
@@ -446,7 +555,7 @@ def main() -> int:
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from chip_smoke import sh, time_ms
+    from chip_smoke import device_profile, sh, time_ms
     from lgteun_tpu_torch.ops.texture_match_kernel import row_normalize
 
     card = sh("nvidia-smi", "--query-gpu=name,power.limit",
@@ -456,7 +565,7 @@ def main() -> int:
             if opts.mma_rate:
                 mma_rate(card, tmp)
             else:
-                tail_phases(card, opts.batch, tmp)
+                phases(card, opts.batch, tmp)
         return 0
     if not (opts.a and opts.b):
         ap.error("A and B are needed without --mma-rate or --phases")
@@ -507,8 +616,12 @@ def main() -> int:
         same = all(torch.equal(x, y) for x, y in zip(got["A"], got["B"]))
         rel = 0.0 if same else rel_diff(got["A"], got["B"])
         a1, b1, b2, a2 = (time_ms(calls[t]) for t in "ABBA")
+        dev = {t: device_profile(calls[t], n=20)["busy_ms_per_call"]
+               for t in "AB"}
         print(f"ab {label}: A {a1:.4f}/{a2:.4f} ms  B "
               f"{b1:.4f}/{b2:.4f} ms  A/B {(a1 + a2) / (b1 + b2):.3f}  "
+              f"device A {dev['A']:.4f} B {dev['B']:.4f} ms A/B "
+              f"{dev['A'] / dev['B']:.3f}  "
               f"outputs bit-equal {same}, max|B - A| / max|A| {rel:.3e}  "
               f"[{card}]")
         if not (same or (opts.tol is not None and rel <= opts.tol)):

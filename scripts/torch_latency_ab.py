@@ -60,7 +60,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = load_config(os.path.join(REPO, "lgteun_tpu", "configs",
+    cfg = load_config(os.path.join(REPO, "lgteun_tpu_torch", "configs",
                                    "unlg_former.py"))
     with mock.patch.dict(os.environ, {"LGTEUN_FUSE_LEVEL": str(opts.level)}):
         method = build_model(cfg.model_type, cfg, device="cuda")

@@ -236,14 +236,16 @@ def test_new_wrappers_run_plain_version_on_cpu():
 @pytest.mark.parametrize("shape,ok", [((1, 4, 168, 168), True),
                                       ((1, 4, 144, 144), True),
                                       ((1, 4, 72, 80), True),
-                                      ((1, 4, 176, 176), False),
+                                      ((1, 4, 176, 176), True),
+                                      ((1, 4, 240, 240), True),
+                                      ((1, 4, 248, 248), False),
                                       ((1, 4, 72, 71), False),
                                       ((1, 4, 8, 8208), False)])
 def test_mixer_kernel_size_limit(shape, ok):
-    """The card's mixer takes every even H, W (odd part <= 512) whose
-    complex plane, twiddles and column table fit one block's 232,448
-    bytes of shared memory (168^2 does, 176^2 does not), and raises
-    naming that limit otherwise."""
+    """The card's mixer takes every even H, W (odd prime factors <= 512)
+    whose plan and half spectrum H x (W/2 + 1, rounded up to odd) fit one
+    block's 232,448 bytes of shared memory (240^2 does, 248^2 does not),
+    and raises naming that limit otherwise."""
     x = torch.empty(shape, device="meta")
     if ok:
         _check_plane("global_mixer", x)

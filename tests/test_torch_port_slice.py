@@ -195,7 +195,8 @@ def test_kernel_loader_raises_without_nvcc(tmp_path, monkeypatch):
 def test_kernel_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     """One nvcc per csrc/*.cu (all started before any is waited for),
     then one link into the hash-keyed library; no object is left
-    behind, and a failing compile raises with its log. A stand-in nvcc
+    behind (the compile log, ptxas's report, is kept beside the
+    library), and a failing compile raises with its log. A stand-in nvcc
     records its arguments and writes its -o file."""
     fake = tmp_path / "bin" / "nvcc"
     fake.parent.mkdir()
@@ -224,7 +225,7 @@ def test_kernel_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     assert calls[-1].startswith("-shared -o ") and len(calls) == \
         len(sources) + 1
     assert lib.is_file() and sorted(p.name for p in lib.parent.iterdir()) \
-        == [lib.name]
+        == [lib.name, _cuda.ptxas_log(lib).name]
     assert _cuda.build_library(tmp_path / "build") == lib
     assert len((tmp_path / "calls.txt").read_text().splitlines()) == \
         len(calls)

@@ -70,6 +70,16 @@ whole block's kernels are printed from the build, and beside the
 mixer's times stands cuFFT's rfft2 + irfft2 on the same planes, a
 yardstick of the transforms alone.
 
+The whole block (B8) is held at batch 16 too (128^2, C 32), launched
+REPEATS more times on the same inputs and on grids of 1, 3 and 17 blocks
+(its work list must give the full grid's bits), timed beside the
+level-2 chain B1 -> B2 -> B3 on the same inputs (the only other
+computation of the same function in the port, a yardstick), and
+cuobjdump counts the local-memory loads and stores in its SASS (in all,
+and in the window items' raised-register region). Beside the INNT
+searches stands torch.bmm of their normalised vectors, the correlation
+alone (a yardstick: no library call also takes the first max).
+
 The two INNT searches pick, per query, the first maximum of a
 similarity; a query whose best value lies within 1e-5 of the next lower
 one (a near tie, found in float64 on the card) may pick another
@@ -482,6 +492,14 @@ def kernel_cases(gen: torch.Generator):
                    head[1:]), wqkv=attn[1], bqkv=attn[2], pos=attn[3],
                proj_w=tail[3], proj_b=tail[4], ffn=ffn)
     yield "lgb_block", f"{b}x{c}x{hw}x{hw}", lgb_block, lgb_block_ref, (
+        head[0], blk)
+    # the whole block at the eval batch (128^2, C 32)
+    c, hw = BLOCK_SHAPES[0]
+    head, attn, ffn, tail = lgb_args(c, hw, n(16, c, hw, hw))
+    blk = dict(zip(("ln_w", "ln_b", "amp_w", "amp_b", "pha_w", "pha_b"),
+                   head[1:]), wqkv=attn[1], bqkv=attn[2], pos=attn[3],
+               proj_w=tail[3], proj_b=tail[4], ffn=ffn)
+    yield "lgb_block", f"16x{c}x{hw}x{hw}", lgb_block, lgb_block_ref, (
         head[0], blk)
     # the mixer at the eval batch (256 planes: two 256-thread blocks an SM)
     c, hw = BLOCK_SHAPES[0]
@@ -899,6 +917,7 @@ def main() -> int:
     print(f"build: {lib_path.name} ({' '.join(_cuda.NVCC_FLAGS)}) "
           f"in {time.perf_counter() - t0:.1f} s")
     print_ptxas(lib_path)
+    print_sass(lib_path)
 
     # 2. each kernel vs its plain version (TF32 off for the plain convs
     #    and matmuls)
@@ -906,7 +925,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from lgteun_tpu_torch.ops.window_attention import attention_branch
     gen = torch.Generator().manual_seed(SEED)
-    record = {}
+    record, lgb_inputs = {}, {}
     wrappers = reset_launches()
     for name, shape, kernel, plain, args in kernel_cases(gen):
         got, want = kernel(*args), plain(*args)
@@ -948,6 +967,20 @@ def main() -> int:
             print(f"kernel {name:17s} {shape:14s} cuFFT rfft2 + irfft2 on "
                   f"the same planes {yard:.4f} ms (a yardstick only)")
             rec["by_shape"][shape]["cufft_ms"] = yard
+        if name == "lgb_block":
+            chain = device_profile(lambda: level2_chain(*args),
+                                   n=20)["busy_ms_per_call"]
+            print(f"kernel {name:17s} {shape:14s} the level-2 chain B1 -> "
+                  f"B2 -> B3 on the same inputs {chain:.4f} ms (device; a "
+                  f"yardstick only): B8 / chain {ms / chain:.3f}")
+            rec["by_shape"][shape]["chain_ms"] = chain
+            lgb_inputs[shape] = args
+        if name in ("texture_match", "patch_match"):
+            yard = bmm_ms(*search_inputs(name, args))
+            print(f"kernel {name:17s} {shape:14s} torch.bmm of the "
+                  f"normalised vectors (the correlation alone, no first-max)"
+                  f" {yard:.4f} ms (a yardstick only)")
+            rec["by_shape"][shape]["bmm_ms"] = yard
         if name in ("lgb_block", "window_attention") or (
                 name == "ln_mixer_head" and "-" not in shape):
             same = all(all(map(torch.equal, as_tuple(kernel(*args)), got))
@@ -968,6 +1001,7 @@ def main() -> int:
             rec["by_shape"][shape].update(tc_bound_ms=tc_ms, tflops=tflops)
 
     check_branches(wrappers)
+    check_lgb_grids(lgb_inputs)
     check_tail_layout(gen)
     check_fft_tables()
 
@@ -1040,6 +1074,84 @@ def cufft_ms(planes: torch.Tensor) -> float:
     return device_profile(lambda: torch.fft.irfft2(torch.fft.rfft2(planes),
                                                    s=size),
                           n=20)["busy_ms_per_call"]
+
+
+def level2_chain(x, blk):
+    """The level-2 chain B1 -> B2 -> B3 on the whole block's inputs (2
+    heads, 8x8 windows): what `lgb_block` computes in three launches."""
+    from lgteun_tpu_torch.ops.ffn_kernel import block_tail
+    from lgteun_tpu_torch.ops.spectral_kernel import ln_mixer_head
+    from lgteun_tpu_torch.ops.window_attention import window_attention
+    y1, x2 = ln_mixer_head(x, *(blk[k] for k in ("ln_w", "ln_b", "amp_w",
+                                                 "amp_b", "pha_w", "pha_b")))
+    x1 = window_attention(y1, blk["wqkv"], blk["bqkv"], blk["pos"], 2, 8)
+    return block_tail(x, x1, x2, blk["proj_w"], blk["proj_b"], blk["ffn"])
+
+
+def bmm_ms(lr_n, ref_n) -> float:
+    """Device ms of torch.bmm(lr_n, ref_n^T) in float32: the searches'
+    correlation alone ([N, L, K] x [N, K, L]), a yardstick for rows 10
+    and 11 (no library call also takes the first max and gathers)."""
+    a = lr_n.float().contiguous()
+    bt = ref_n.float().transpose(1, 2).contiguous()
+    return device_profile(lambda: torch.bmm(a, bt), n=20)["busy_ms_per_call"]
+
+
+# the whole block's shapes whose output must not depend on the grid, and
+# the grids (blocks) held to the full grid's bits
+LGB_GRID_SHAPES = ("4x32x128x128", "4x128x64x64")
+LGB_GRIDS = (1, 3, 17)
+
+
+def check_lgb_grids(lgb_inputs: dict) -> None:
+    """B8 on grids of LGB_GRIDS blocks bit-equal to the full grid (one
+    block an SM) at LGB_GRID_SHAPES: the work list gives the same bits
+    wherever and whenever an item runs, and one block runs it in order."""
+    from lgteun_tpu_torch.ops.lgb_block_kernel import _launch
+    for shape in LGB_GRID_SHAPES:
+        x, blk = lgb_inputs[shape]
+        full = _launch(x, blk, 2, 8, 1e-5, 0)
+        same = {}
+        for blocks in LGB_GRIDS:
+            t0 = time.perf_counter()
+            got = _launch(x, blk, 2, 8, 1e-5, blocks)
+            torch.cuda.synchronize()
+            same[blocks] = (torch.equal(got, full),
+                            round((time.perf_counter() - t0) * 1e3, 1))
+        print(f"kernel lgb_block         {shape:14s} grids of "
+              f"{', '.join(map(str, LGB_GRIDS))} blocks bit-equal to the "
+              f"full grid (host ms): {same}")
+        if not all(v[0] for v in same.values()):
+            raise AssertionError(f"lgb_block {shape}: the output depends on "
+                                 f"the grid: {same}")
+
+
+def print_sass(lib_path) -> None:
+    """Local-memory loads and stores (LDL / STL) in the SASS of the whole
+    block's kernel (its calls, the mixer's plane and the tail's tile,
+    included): in all, and between the attention's raising setmaxnreg and
+    the one that returns the registers (the window items' region)."""
+    import re
+    from lgteun_tpu_torch.ops import _cuda
+    cuobjdump = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = "lgb_block_kernel"
+        if name not in fn.split("\n", 1)[0]:
+            continue
+        total = raised = 0
+        inside = False
+        for line in fn.splitlines():
+            if "USETMAXREG.TRY_ALLOC" in line and "0x80" not in line:
+                inside = True
+            elif "USETMAXREG.DEALLOC" in line and "0x80" in line:
+                inside = False
+            if re.search(r"\b(LDL|STL)\b", line):
+                total += 1
+                raised += inside
+        print(f"sass {name}: LDL/STL {total}, of them {raised} in the "
+              f"window items' raised-register regions")
 
 
 def check_fft_tables() -> None:

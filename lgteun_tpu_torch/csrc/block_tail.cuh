@@ -1,5 +1,5 @@
 // Device code shared by block_tail.cu (B3, masked B3, B5) and
-// lgb_block.cu (B8's phase C): one 8x8 output tile of
+// lgb_block.cu (B8's tail items): one 8x8 output tile of
 //
 //   xm  = x + M * (Wp . [x1; x2] + bp)            (kProj; else xm = x;
 //                                                  M = 1 unless kMask)
@@ -15,7 +15,7 @@
 //
 // The four 1x1 products run on the tensor cores as wgmma m64nNk8 TF32,
 // FP32-accurate through the 3xTF32 split (tc_tf32.cuh), on kWG
-// warpgroups (4, or 2 for B3 / B5 at CP = 32; see block_tail.cu). Pixels
+// warpgroups (4, or 2 for B3 / B5 and B8's pairs at CP = 32). Pixels
 // are the rows (M): the 100 halo pixels padded to 128 (2 x m64); for
 // proj, W1 and W2 warpgroup g takes rows 64 (g % 2) .. and part g / 2 of
 // the output channels of each CP-wide chunk (m64n32 with 2 warpgroups or
@@ -202,15 +202,34 @@ __device__ __forceinline__ void each_frag(const float (&acc)[NJ][4], int row0,
       f(row0 + gq + (q >> 1) * 8, n0 + j * 8 + 2 * tq + (q & 1), acc[j][q]);
 }
 
+// The threads that run one tile and their barrier: the whole block (B3,
+// B5, and B8 at C > 32), or one of the two pairs of warpgroups of a
+// 512-thread block (B8 at C <= 32, two tiles in flight a block as B3 has
+// two blocks an SM), each pair with a named barrier of its own (5 and 6:
+// 0 is __syncthreads, 1-4 the attention's warpgroups).
+struct TileBlock {
+  __device__ static int tid() { return threadIdx.x; }
+  __device__ static void sync() { __syncthreads(); }
+};
+struct TilePair {
+  __device__ static int tid() { return threadIdx.x & 255; }
+  __device__ static void sync() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(5 + (threadIdx.x >> 8))
+                 : "memory");
+  }
+};
+
 // Tile ti of image b (kNT = CP / 16). x/out [B, C, H, W]; x1/x2 [B, C/2,
-// H, W] (kProj); mask [B, C, H, W] (kMask); kCoherent: see loads.cuh.
+// H, W] (kProj); mask [B, C, H, W] (kMask); kCoherent: see loads.cuh (x,
+// the block's input, is read through __ldg in every caller).
 // wt's matrices are TF32 slabs (wpT [1][CP/32 slabs], w1T [4][CP/32],
 // w2T [4][4CP/32], w3T [1][4CP/32]); vectors as given ([C], [4C]); dw
 // [4C][3][3]. 128 kWG threads; sm holds block_tail_tc_smem(CP) bytes,
 // 16-byte aligned; h1g: the wide tile's h1 slot (tail_h1_floats(CP),
-// this block's alone; unused below CP = 128).
+// this block's alone; unused below CP = 128). Group: the threads that run
+// the tile (TileBlock, or TilePair with kWG = 2).
 template <int kNT, bool kProj, bool kMask, bool kCoherent = false,
-          int kWG = 4>
+          int kWG = 4, class Group = TileBlock>
 __device__ __forceinline__ void block_tail_tile_tc(
     const float* __restrict__ x, const float* __restrict__ x1,
     const float* __restrict__ x2, const float* __restrict__ mask,
@@ -241,7 +260,7 @@ __device__ __forceinline__ void block_tail_tile_tc(
   float* g = h2 + kTailNP * LDC;                 // [64][LDC]
   float* xmi = g + kTailNI * LDC;                // [64][LDC]
 
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = Group::tid(), warp = tid >> 5;
   // halo products: this warp's 16 rows and its warpgroup's NH outputs
   const int row0 = (warp % 8) * 16, n0 = (warp / 8) * NH;
   const bool live = row0 < kTcRows;
@@ -284,7 +303,7 @@ __device__ __forceinline__ void block_tail_tile_tc(
   auto next_slab = [&]() -> const float* {
     cp_async_wait_all();
     fence_proxy_async();
-    __syncthreads();
+    Group::sync();
     issue(slab + 1);
     const float* cur = stage + (slab % kRing) * SLAB;
     ++slab;
@@ -298,7 +317,7 @@ __device__ __forceinline__ void block_tail_tile_tc(
     float xv = 0.f, cv = 0.f, mv = 0.f;
     if (c < C && inside(p)) {
       const size_t off = (size_t)(y0 + p / kTailHT) * W + (x0 + p % kTailHT);
-      xv = load_act<kCoherent>(x + ((size_t)b * C + c) * HW + off);
+      xv = __ldg(x + ((size_t)b * C + c) * HW + off);  // never written
       if (kProj)
         cv = load_act<kCoherent>(
             c < C2 ? x1 + ((size_t)b * C2 + c) * HW + off
@@ -310,7 +329,7 @@ __device__ __forceinline__ void block_tail_tile_tc(
     if (kProj) cat[p * LDC + c] = cv;
     if (kMask) mk[p * LDC + c] = mv;
   }
-  __syncthreads();
+  Group::sync();
 
   if (kProj) {                                   // xm += M * (Wp cat + bp)
     float acc[NJ][4] = {};
@@ -324,7 +343,7 @@ __device__ __forceinline__ void block_tail_tile_tc(
         xm[r * LDC + c] += v;
       }
     });
-    __syncthreads();
+    Group::sync();
   }
 
   // channel LayerNorm per pixel, 4 threads a pixel (each every 4th
@@ -353,7 +372,7 @@ __device__ __forceinline__ void block_tail_tile_tc(
       if (interior) xmi[((hy - 1) * kTailT + (hx - 1)) * LDC + c] = v[c];
     }
   }
-  __syncthreads();
+  Group::sync();
 
   // h1 = GELU(W1 yln + b1), by 4 chunks of CP hidden channels
   for (int nc = 0; nc < 4; ++nc) {
@@ -399,7 +418,7 @@ __device__ __forceinline__ void block_tail_tile_tc(
           h2[r * LDC + c] = inside(r) && o < C4 ? v + __ldg(wt.b2 + o) : 0.f;
       });
     }
-    __syncthreads();
+    Group::sync();
     // depthwise 3x3 + bdw + GELU on the interior: a thread keeps the 9
     // taps of channel tid % CP in registers and walks every kPG-th pixel
     {
@@ -429,7 +448,7 @@ __device__ __forceinline__ void block_tail_tile_tc(
   }
   each_frag(acc3, row3, n3,
             [&](int r, int c, float v) { xmi[r * LDC + c] += v; });
-  __syncthreads();
+  Group::sync();
   for (int i = tid; i < C * kTailNI; i += kThreads) {
     const int c = i / kTailNI, pi = i % kTailNI;
     out[((size_t)b * C + c) * HW + (size_t)(y0 + 1 + pi / kTailT) * W +

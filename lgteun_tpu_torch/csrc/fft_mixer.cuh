@@ -773,29 +773,56 @@ __device__ __forceinline__ void fft_mixer_plane_pair(
   plane.rows_inverse(reinterpret_cast<float2*>(out), rank * hr, hr);
 }
 
-// y1 = LN(x)[:C/2], y2 = LN(x)[C/2:] at pixel p of image b ([B, C, H*W]
-// in, [B, C/2, H*W] out).
-__device__ __forceinline__ void ln_split_pixel(
+// y1 = LN(x)[:C/2], y2 = LN(x)[C/2:] at the kP pixels p + k stride of
+// image b (k < kP; those at or past `end` computed on a pixel inside and
+// not stored; [B, C, H*W] in, [B, C/2, H*W] out). Each pixel's arithmetic
+// is the same for any kP; the kP loads of a channel are independent, so
+// their latencies overlap (kP = 4 in lgb_block.cu's LN items, on one
+// 512-thread block an SM).
+template <int kP>
+__device__ __forceinline__ void ln_split_pixels(
     const float* x, const float* ln_w, const float* ln_b, float* y1,
-    float* y2, int C, int HW, int b, int p, float eps) {
-  const float* xp = x + (size_t)b * C * HW + p;
-  float mu = 0.f;
-  for (int c = 0; c < C; ++c) mu += xp[(size_t)c * HW];
-  mu /= (float)C;
-  float var = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float d = xp[(size_t)c * HW] - mu;
-    var += d * d;
+    float* y2, int C, int HW, int b, int p, int stride, int end, float eps) {
+  const float* xb = x + (size_t)b * C * HW;
+  int q[kP];
+  float mu[kP], var[kP], r[kP];
+#pragma unroll
+  for (int k = 0; k < kP; ++k) {
+    q[k] = min(p + k * stride, end - 1);
+    mu[k] = var[k] = 0.f;
   }
-  var /= (float)C;
-  const float r = rsqrtf(var + eps);
-  const int C2 = C / 2;
-  float* o1 = y1 + (size_t)b * C2 * HW + p;
-  float* o2 = y2 + (size_t)b * C2 * HW + p;
   for (int c = 0; c < C; ++c) {
-    const float v = (xp[(size_t)c * HW] - mu) * r * ln_w[c] + ln_b[c];
-    if (c < C2) o1[(size_t)c * HW] = v;
-    else o2[(size_t)(c - C2) * HW] = v;
+    float v[kP];
+#pragma unroll
+    for (int k = 0; k < kP; ++k) v[k] = xb[(size_t)c * HW + q[k]];
+#pragma unroll
+    for (int k = 0; k < kP; ++k) mu[k] += v[k];
+  }
+#pragma unroll
+  for (int k = 0; k < kP; ++k) mu[k] /= (float)C;
+  for (int c = 0; c < C; ++c) {
+    float v[kP];
+#pragma unroll
+    for (int k = 0; k < kP; ++k) v[k] = xb[(size_t)c * HW + q[k]];
+#pragma unroll
+    for (int k = 0; k < kP; ++k) {
+      const float d = v[k] - mu[k];
+      var[k] += d * d;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r[k] = rsqrtf(var[k] / (float)C + eps);
+  const int C2 = C / 2;
+  for (int c = 0; c < C; ++c) {
+    float v[kP];
+#pragma unroll
+    for (int k = 0; k < kP; ++k) v[k] = xb[(size_t)c * HW + q[k]];
+    float* o = c < C2 ? y1 + ((size_t)b * C2 + c) * HW
+                      : y2 + ((size_t)b * C2 + (c - C2)) * HW;
+    const float w = ln_w[c], bias = ln_b[c];
+#pragma unroll
+    for (int k = 0; k < kP; ++k)
+      if (p + k * stride < end) o[q[k]] = (v[k] - mu[k]) * r[k] * w + bias;
   }
 }
 

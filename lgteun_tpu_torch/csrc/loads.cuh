@@ -1,7 +1,7 @@
 // Loads of activations for the device code shared by the kernels: a
 // standalone kernel reads its inputs through the read-only path (they do
 // not change during the launch); lgb_block.cu reads its scratch, which an
-// earlier phase of the same launch wrote on other SMs, through L2 only
+// earlier item of the same launch wrote on other SMs, through L2 only
 // (ld.global.cg), never from a possibly stale L1 or read-only cache line.
 
 #pragma once

@@ -45,7 +45,8 @@ ln_split_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
                 float* __restrict__ y2, int C, int HW, float eps) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= HW) return;
-  ln_split_pixel(x, ln_w, ln_b, y1, y2, C, HW, blockIdx.y, p, eps);
+  ln_split_pixels<1>(x, ln_w, ln_b, y1, y2, C, HW, blockIdx.y, p, 0, HW,
+                    eps);
 }
 
 // `in` and `out` may alias (no __restrict__): every plane is read whole

@@ -1,6 +1,6 @@
 // Device code of window MHSA on the tensor cores, shared by
-// window_attention.cu (B2, B6, B7) and lgb_block.cu (B8's phase B): one
-// head of one 8x8 window (S = 64 tokens) on one warpgroup, in any of the
+// window_attention.cu (B2, B6, B7) and lgb_block.cu (B8's window items):
+// one head of one 8x8 window (S = 64 tokens) on one warpgroup, in any of the
 // layouts of window_attention.cuh (the layout changes only which thread
 // loads and stores which value, so every layout gives the same bits).
 //

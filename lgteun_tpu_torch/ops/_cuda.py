@@ -46,9 +46,10 @@ SIGNATURES = {
     # W, eps, stream (the matrices as TF32 slabs, ffn_kernel.tail_fragments)
     "lgteun_ln_ffn": [_P] * 12 + [_I] * 5 + [_F, _P],
     # x, 6 mixer weights, the mixer's tables, wqkv, bqkv, pos, wpT, bp, 10
-    # FFN weights (the matrices as for lgteun_ln_ffn), scratch, counter,
-    # out, B, C, C4, H, W, heads, win, scale, eps, stream
-    "lgteun_lgb_block": [_P] * 26 + [_I] * 7 + [_F, _F, _P],
+    # FFN weights (the matrices as for lgteun_ln_ffn), scratch, counters
+    # (zeroed), out, B, C, C4, H, W, heads, win, the work list's 7 numbers
+    # (host memory), blocks, scale, eps, stream
+    "lgteun_lgb_block": [_P] * 26 + [_I] * 7 + [_P, _I, _F, _F, _P],
     # x, wqkv, bqkv, pos, out, B, C, H, W, heads, win, scale, stream (wqkv
     # as window_attention.attention_fragments; the _fp32 entries take it as
     # [3C][C] rows)

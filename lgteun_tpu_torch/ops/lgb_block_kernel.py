@@ -7,15 +7,20 @@ Counterpart of `lgteun_tpu/ops/lgb_block_kernel.py::fused_lgb_block_cm`
     x1     = window_attention(y1)            8x8-window MHSA
     out    = block_tail(x, x1, x2)           proj + residual, LN + FFN
 
-`lgb_block` launches `csrc/lgb_block.cu` (a persistent cooperative kernel
-that runs the three stages as phases separated by grid syncs, with the
-intermediates in a scratch buffer it allocates) for a CUDA tensor, and
-runs `lgb_block_ref`, the plain composition, for a CPU tensor. Its
-phase B runs B2's tensor-core body where `lgb_attention_branch` gives
-"tc" (wqkv then passes as `attention_fragments`), else B2's FP32-core
-body; its phase C runs B3's tile, or the wide tile above 64 channels
-(with one h1 slot an SM in the scratch). `lgb_block.variants` counts the
-launches by attention branch and by tail variant.
+`lgb_block` launches `csrc/lgb_block.cu` for a CUDA tensor, and runs
+`lgb_block_ref`, the plain composition, for a CPU tensor. The kernel is
+persistent and cooperative: its blocks take items from one work list in
+order (LN items, mixer planes, window items, tail items, each image by
+image) and wait on per-image dependency counters, not on grid barriers.
+`lgb_schedule` computes the list's numbers, which the wrapper passes to
+the kernel, and `lgb_work_list` / `lgb_item_needs` spell the list and its
+waits out (the CPU tests simulate it). The window items run B2's
+tensor-core body where `lgb_attention_branch` gives "tc" (wqkv then
+passes as `attention_fragments`), else B2's FP32-core body; the tail
+items B3's tile (at C <= 32 on each pair of a block's warpgroups, which
+take tiles on their own), or the wide tile above 64 channels (with one h1
+slot an SM in the scratch). `lgb_block.variants` counts the launches by
+attention branch and by tail variant.
 
 `blk` holds the block's weights: ln_w/ln_b [C] (the mixer's LN),
 amp_w/amp_b/pha_w/pha_b [C/2], wqkv [3C/2, C/2] (out, in), bqkv [3C/2],
@@ -33,14 +38,15 @@ from lgteun_tpu_torch.ops import _cuda
 from lgteun_tpu_torch.ops.ffn_kernel import (_WIDE_SLOT, _ffn_shapes,
                                              _fragments, block_tail_ref,
                                              check_tail_args, tail_variant,
-                                             tail_weights)
+                                             tail_weights, tail_width)
 from lgteun_tpu_torch.ops.spectral_kernel import (_check_plane, fft_tables,
                                                   ln_mixer_head_ref)
 from lgteun_tpu_torch.ops.window_attention import (_wqkv_fragments,
                                                    attention_branch,
                                                    window_attention_ref)
 
-__all__ = ["lgb_block", "lgb_block_ref", "lgb_attention_branch"]
+__all__ = ["lgb_block", "lgb_block_ref", "lgb_attention_branch",
+           "lgb_schedule", "lgb_work_list", "lgb_item_needs", "KINDS"]
 
 _MIXER = ("ln_w", "ln_b", "amp_w", "amp_b", "pha_w", "pha_b")
 
@@ -56,13 +62,86 @@ def lgb_block_ref(x, blk: dict, heads: int = 2, win: int = 8,
 
 
 def lgb_attention_branch(c2: int, heads: int, win: int) -> str:
-    """The window attention body of the kernel's phase B for C/2 = c2
-    channels: "tc" where B2's tensor-core body takes the shape and 4 is a
-    multiple of the heads (a work item is 4 (window, head) pairs, one for
-    each of the block's warpgroups, whose heads must stay fixed), else
-    "fp32"."""
+    """The window attention body of the kernel's window items for C/2 =
+    c2 channels: "tc" where B2's tensor-core body takes the shape and 4 is
+    a multiple of the heads (a window item's pairs alternate over its two
+    warpgroups, so each keeps the position bias of one head, or of two at
+    4 heads), else "fp32"."""
     tc = attention_branch(c2, heads, win) == "tc" and 4 % heads == 0
     return "tc" if tc else "fp32"
+
+
+# the kinds of work item, in the order the list holds them
+KINDS = ("ln", "planes", "windows", "tails")
+# pixels an LN item: 512 (one a thread of the 512) up to 2048 (four a
+# thread, normalised at once), so that there are about LN_ITEMS LN items
+# (about one an SM: the planes wait for them)
+LN_ITEMS = 128
+
+
+def ln_pixels(pixels: int) -> int:
+    """Pixels an LN item for `pixels` pixels in all (B H W)."""
+    return 512 * max(1, min(4, pixels // (512 * LN_ITEMS)))
+# (window, head) pairs a tensor-core window item: about PAIR_CHANNELS /
+# (C/2), so that an item is about the same work at any width (8 at C/2 =
+# 16, 4 at 32), even (the item's two warpgroups take every other pair and
+# so keep one head each at 2 heads), within 2-16
+PAIR_CHANNELS = 128
+
+
+def pairs_per_item(c2: int) -> int:
+    """(window, head) pairs a tensor-core window item at C/2 = c2."""
+    return 2 * max(1, min(8, PAIR_CHANNELS // c2 // 2))
+
+
+def lgb_schedule(b: int, c: int, h: int, w: int, heads: int = 2,
+                 win: int = 8) -> dict:
+    """The numbers of the kernel's work list for x [b, c, h, w]: items of
+    each kind an image (`per_image`: LN items of `ln_px` pixels, C/2
+    mixer planes, window items of `per_item` (window, head) pairs on the
+    "tc" branch (`pairs_per_item`) or of one window on "fp32", and tail
+    items of one 8x8 tile,
+    which at C <= 32 each pair of a block's warpgroups takes on its own:
+    `tail_workers` 2 a block, else 1), and `pairs` (the image's (window,
+    head) pairs, or windows on "fp32")."""
+    branch = lgb_attention_branch(c // 2, heads, win)
+    nwin = (h // win) * (w // win)
+    pairs = nwin * heads if branch == "tc" else nwin
+    per_item = pairs_per_item(c // 2) if branch == "tc" else 1
+    ln_px = ln_pixels(b * h * w)
+    per = {"ln": -(-h * w // ln_px), "planes": c // 2,
+           "windows": -(-pairs // per_item), "tails": (h // 8) * (w // 8)}
+    return {"images": b, "per_image": per, "ln_px": ln_px,
+            "pairs": pairs, "per_item": per_item, "branch": branch,
+            "tail_workers": 2 if tail_width(c) == 32 else 1}
+
+
+def _schedule_ints(s: dict) -> list:
+    """The 7 numbers lgteun_lgb_block takes (its LgbSchedule)."""
+    return [s["per_image"][k] for k in KINDS] + [s["ln_px"], s["pairs"],
+                                                 s["per_item"]]
+
+
+def lgb_work_list(s: dict) -> list:
+    """(kind, image, index within the image) of every item, in the order
+    the kernel hands them out: by kind (KINDS), then image by image."""
+    return [(k, b, j) for k in KINDS for b in range(s["images"])
+            for j in range(s["per_image"][k])]
+
+
+def lgb_item_needs(s: dict, kind: str, image: int) -> dict:
+    """{(kind, image): count}: the done-counters an item of `kind` and
+    `image` waits for, and the counts they must reach (an item counts
+    itself done in the (kind, image) counter when it ends). A plane or a
+    window item needs its image's LN items; a tail item all of its
+    image's planes (the mixer is global over a plane) and window items."""
+    per = s["per_image"]
+    if kind in ("planes", "windows"):
+        return {("ln", image): per["ln"]}
+    if kind == "tails":
+        return {("planes", image): per["planes"],
+                ("windows", image): per["windows"]}
+    return {}
 
 
 def lgb_block(x, blk: dict, heads: int = 2, win: int = 8,
@@ -71,6 +150,18 @@ def lgb_block(x, blk: dict, heads: int = 2, win: int = 8,
     `lgb_block_ref`)."""
     if x.device.type == "cpu":
         return lgb_block_ref(x, blk, heads, win, eps)
+    out = _launch(x, blk, heads, win, eps, 0)
+    branch = lgb_attention_branch(x.shape[1] // 2, heads, win)
+    lgb_block.launches += 1
+    lgb_block.variants[branch] += 1
+    lgb_block.variants[tail_variant(x.shape[1])] += 1
+    return out
+
+
+def _launch(x, blk: dict, heads: int, win: int, eps: float, blocks: int):
+    """Check the arguments and launch the kernel on a grid of `blocks`
+    blocks (0: one an SM, as `lgb_block` runs it; fewer only to exercise
+    the work list: its output is the same bit for bit); return out."""
     if x.device.type != "cuda":
         raise ValueError(f"lgb_block: unsupported device {x.device}")
     b, c, h, w = x.shape
@@ -99,17 +190,21 @@ def lgb_block(x, blk: dict, heads: int = 2, win: int = 8,
              if tail_variant(c) == "wide" else 0)
     scratch = torch.empty(3 * b * c2 * h * w + slots * _WIDE_SLOT,
                           device=x.device, dtype=x.dtype)
-    counter = torch.empty(1, device=x.device, dtype=torch.int32)
+    # the list's head and each image's LN, plane and window counts, one
+    # 128-byte line each: zero before the launch (nothing in the kernel
+    # zeroes them)
+    counters = torch.zeros((1 + 3 * b) * 32, device=x.device,
+                           dtype=torch.int32)
+    sched = torch.tensor(_schedule_ints(lgb_schedule(b, c, h, w, heads,
+                                                     win)),
+                         dtype=torch.int32)   # host memory, read at launch
     out = torch.empty_like(x)
     _cuda.launch("lgteun_lgb_block", x.device, x,
                  *(blk[k] for k in _MIXER), fft_tables(h, w, x.device), wqkv,
                  blk["bqkv"], blk["pos"], _fragments(blk["proj_w"], c),
-                 blk["proj_b"],
-                 *tail_weights(blk["ffn"]), scratch, counter, out, b,
-                 c, c4, h, w, heads, win, (c2 // heads) ** -0.5, eps)
-    lgb_block.launches += 1
-    lgb_block.variants[branch] += 1
-    lgb_block.variants[tail_variant(c)] += 1
+                 blk["proj_b"], *tail_weights(blk["ffn"]), scratch, counters,
+                 out, b, c, c4, h, w, heads, win, sched, blocks,
+                 (c2 // heads) ** -0.5, eps)
     return out
 
 

@@ -4,6 +4,7 @@
                                        [--tol REL]
     python3 scripts/torch_kernel_ab.py --mma-rate
     python3 scripts/torch_kernel_ab.py --phases [--batch 4]
+    python3 scripts/torch_kernel_ab.py --b8-phases [CSRC]
 
 A and B are two versions either of `lgteun_tpu_torch/csrc/
 texture_match.cu` (the INNT searches `lgteun_texture_match` and
@@ -57,6 +58,19 @@ the line gives the mean over the blocks of one launch, in clocks a tile
 or a plane and as shares of it. The stamps cost time themselves, so read
 the shares; where blocks share an SM, a phase's clocks include the other
 blocks' issue.
+
+`--b8-phases` shows where the whole block's time goes (B8,
+`csrc/lgb_block.cu`, of CSRC, default the port's): it builds a copy whose
+kernel adds up, in thread 0 of each block, the clocks of each kind of
+work (LN, mixer planes, window items, tail items, the waits on the grid
+barrier or the dependency counters, taking an item; B8_PHASES) and
+counts them, through the stamps the kernel declares under
+LGTEUN_LGB_STAMPS or, in the earlier grid-barrier kernel, at the anchors of
+B8_GRID_STAMPS. It runs `lgb_block` at 128^2/C32, 64^2/C64 and
+[B,128,64,64], batch 4 and 16, and prints each kind's clocks a block,
+its share and its share of the device time of an unstamped launch,
+beside the device times of B1, B2 and B3 (the level-2 chain) on the same
+inputs. `--only TEXT` runs the A/B cases whose label contains TEXT.
 """
 
 from __future__ import annotations
@@ -93,6 +107,8 @@ def build(src: str, out_dir: str, tag: str) -> ctypes.CDLL:
     dll = ctypes.CDLL(lib)
     old = ({} if hasattr(dll, "lgteun_fft_mixer_layout")
            else MIXER_WITHOUT_TABLES)
+    if not hasattr(dll, "lgteun_lgb_block_layout"):
+        old = {**LGB_WITHOUT_SCHEDULE, **old}
     for name, argtypes in {**_cuda.SIGNATURES, **old}.items():
         if hasattr(dll, name):
             getattr(dll, name).argtypes = argtypes
@@ -107,6 +123,10 @@ MIXER_WITHOUT_TABLES = {
     "lgteun_ln_mixer_head": [_P] * 9 + [_I] * 4 + [_F, _P],
     "lgteun_global_mixer": [_P] * 6 + [_I] * 4 + [_P],
     "lgteun_lgb_block": [_P] * 25 + [_I] * 7 + [_F, _F, _P]}
+# the whole block of a library without lgteun_lgb_block_layout (one
+# counter it zeroes itself; no work-list numbers, no block count)
+LGB_WITHOUT_SCHEDULE = {
+    "lgteun_lgb_block": [_P] * 26 + [_I] * 7 + [_F, _F, _P]}
 
 
 def caller(dll: ctypes.CDLL, name: str, *args):
@@ -131,8 +151,12 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
     TF32 wgmma slabs; attention 1 gives wqkv as [3C][C] rows, 2 as the
     tensor-core body's fragments; tables, where not None, makes the FFT
     mixer's tables of an (H, W), which the mixer entries then take after
-    pha_b."""
+    pha_b; lgb 2 passes the whole block the work list's numbers, zeroed
+    counters and a block count (0), 1 one counter. `dims` is a tuple, or
+    a function of the layouts for the whole block."""
     from lgteun_tpu_torch.ops.ffn_kernel import _fragments
+    from lgteun_tpu_torch.ops.lgb_block_kernel import (_schedule_ints,
+                                                       lgb_schedule)
     from lgteun_tpu_torch.ops.window_attention import _wqkv_fragments
 
     def n(*shape, scale=1.0):
@@ -206,28 +230,34 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
                 # loop, b, c2 and hw would be the last size's)
                 lambda s=(b, c, hw, hw), size=3 * b * c2 * hw * hw: (
                     torch.empty(size, device="cuda"),
-                    torch.empty(1, device="cuda", dtype=torch.int32),
+                    torch.zeros((1 + 3 * s[0]) * 32, device="cuda",
+                                dtype=torch.int32),
                     torch.empty(s, device="cuda")),
-                (b, c, c4, hw, hw, 2, 8, (c2 // 2) ** -0.5, 1e-5))
+                lambda lay, d=(b, c, c4, hw, hw, 2, 8), sched=torch.tensor(
+                    _schedule_ints(lgb_schedule(b, c, hw, hw)),
+                    dtype=torch.int32), scale=(c2 // 2) ** -0.5: d + (
+                    (sched, 0) if lay[3] == 2 else ()) + (scale, 1e-5))
     return cases
 
 
 def layouts(dll: ctypes.CDLL) -> tuple:
-    """(tail, attention, tables): the layouts of the tails' matrices and
-    of the window attention's wqkv that `dll` takes, and for a library
+    """(tail, attention, tables, lgb): the layouts of the tails' matrices
+    and of the window attention's wqkv that `dll` takes, for a library
     whose mixer entries take tables (`lgteun_fft_mixer_layout` 2) a
-    function (H, W) -> the tables, made by its `lgteun_fft_tables` (see
-    lgb_cases); else None."""
+    function (H, W) -> the tables, made by its `lgteun_fft_tables`, else
+    None, and the whole block's arguments (`lgteun_lgb_block_layout`, 1
+    without it; see lgb_cases)."""
     got = []
     for entry, default in (("lgteun_block_tail_layout", 1),
                            ("lgteun_window_attention_layout", 1),
-                           ("lgteun_fft_mixer_layout", 1)):
+                           ("lgteun_fft_mixer_layout", 1),
+                           ("lgteun_lgb_block_layout", 1)):
         fn = getattr(dll, entry, None)
         if fn is not None:
             fn.restype = ctypes.c_int
         got.append(fn() if fn is not None else default)
     if got[2] != 2:
-        return got[0], got[1], None
+        return got[0], got[1], None, got[3]
     from lgteun_tpu_torch.ops.spectral_kernel import fft_mixer_plan
     made = {}
 
@@ -237,7 +267,7 @@ def layouts(dll: ctypes.CDLL) -> tuple:
             made[h, w] = torch.empty(floats, device="cuda")
             caller(dll, "lgteun_fft_tables", made[h, w], floats, h, w)()
         return made[h, w]
-    return got[0], got[1], tables
+    return got[0], got[1], tables, got[3]
 
 
 def rel_diff(a, b) -> float:
@@ -381,12 +411,12 @@ STAMPS = [
     ("block_tail.cuh", "    cp_async_wait_all();\n",
      "    long long w0 = clock64();\n    cp_async_wait_all();\n"
      "    ph[8] += clock64() - w0;\n"),
-    ("block_tail.cuh", "    __syncthreads();\n    issue(slab + 1);",
-     "    long long w1 = clock64();\n    __syncthreads();\n"
+    ("block_tail.cuh", "    Group::sync();\n    issue(slab + 1);",
+     "    long long w1 = clock64();\n    Group::sync();\n"
      "    ph[9] += clock64() - w1;\n    issue(slab + 1);"),
     ("block_tail.cuh",
-     "    if (kMask) mk[p * LDC + c] = mv;\n  }\n  __syncthreads();\n",
-     "    if (kMask) mk[p * LDC + c] = mv;\n  }\n  __syncthreads();\n"
+     "    if (kMask) mk[p * LDC + c] = mv;\n  }\n  Group::sync();\n",
+     "    if (kMask) mk[p * LDC + c] = mv;\n  }\n  Group::sync();\n"
      "  ST(0)\n"),
     ("block_tail.cuh", "  // channel LayerNorm per pixel",
      "  ST(1)\n  // channel LayerNorm per pixel"),
@@ -394,8 +424,8 @@ STAMPS = [
      "  ST(2)\n  // h1 = GELU(W1 yln + b1)"),
     ("block_tail.cuh", "  float acc3[NJ3][4] = {};",
      "  ST(3)\n  float acc3[NJ3][4] = {};"),
-    ("block_tail.cuh", "    __syncthreads();\n    // depthwise 3x3",
-     "    ST(4)\n    __syncthreads();\n    // depthwise 3x3"),
+    ("block_tail.cuh", "    Group::sync();\n    // depthwise 3x3",
+     "    ST(4)\n    Group::sync();\n    // depthwise 3x3"),
     ("block_tail.cuh", "    // acc3 += W3[:, chunk] g",
      "    ST(5)\n    // acc3 += W3[:, chunk] g"),
     ("block_tail.cuh", "                          n3);\n  }\n",
@@ -534,6 +564,153 @@ def phases(card: str, batch: int, tmp: str) -> None:
               f"of {blocks} blocks): {parts}  [{card}]")
 
 
+# --b8-phases: the whole block's kinds of work (csrc/lgb_block.cu), thread
+# 0 of each block adding up the clocks of each and counting its events:
+# the LN, the mixer planes, the windows, the tail items, the waits (a grid
+# barrier, or a spin on an image's dependency counters) and taking an
+# item from the work list
+B8_PHASES = ("LN", "planes", "windows", "tails", "waits", "take")
+NB8 = len(B8_PHASES)
+B8_STAMP_DEFS = (
+    f"__device__ long long lgteun_lgb_stamps[{MAX_BLOCKS}][{2 * NB8}];\n"
+    "#define LGB_STAMP_INIT long long tp_ = clock64(), "
+    f"ph_[{2 * NB8}] = {{}};\n"
+    "#define LGB_STAMP(i) { const long long n_ = clock64(); "
+    f"ph_[i] += n_ - tp_; ph_[{NB8} + (i)] += 1; tp_ = n_; }}\n"
+    f"#define LGB_STAMP_END if (threadIdx.x == 0 && blockIdx.x < {MAX_BLOCKS}) "
+    f"for (int i_ = 0; i_ < {2 * NB8}; ++i_) "
+    "lgteun_lgb_stamps[blockIdx.x][i_] = ph_[i_];\n")
+B8_READ = ('extern "C" int lgteun_read_lgb_stamps(long long* h) {\n'
+           "  return (int)cudaMemcpyFromSymbol(h, lgteun_lgb_stamps,\n"
+           "                                   sizeof(lgteun_lgb_stamps));\n"
+           "}\n")
+# the earlier kernel, whose phases were separated by grid.sync(): anchors
+B8_GRID_STAMPS = [
+    ("namespace cg = cooperative_groups;\n",
+     "namespace cg = cooperative_groups;\n" + B8_STAMP_DEFS),
+    ("  // A. LN + split\n", "  LGB_STAMP_INIT\n  // A. LN + split\n"),
+    ("                   a.eps);\n  grid.sync();\n",
+     "                   a.eps);\n  LGB_STAMP(0)\n  grid.sync();\n"
+     "  LGB_STAMP(4)\n"),
+    ("    const int it = *item;\n    __syncthreads();\n",
+     "    const int it = *item;\n    __syncthreads();\n    LGB_STAMP(5)\n"),
+    ("                                    w / nwin, w % nwin);\n    }\n  }\n"
+     "  grid.sync();\n",
+     "                                    w / nwin, w % nwin);\n    }\n"
+     "    LGB_STAMP(it < planes ? 1 : 2)\n  }\n  grid.sync();\n"
+     "  LGB_STAMP(4)\n"),
+    ("    __syncthreads();  // shared memory is reused by the next tile\n"
+     "  }\n}\n",
+     "    __syncthreads();  // shared memory is reused by the next tile\n"
+     "    LGB_STAMP(3)\n  }\n  LGB_STAMP_END\n}\n"),
+]
+
+
+def b8_stamped_copy(src: Path, dst: Path, only: int = 0) -> None:
+    """csrc dir `src` into dst with clock stamps in lgb_block.cu: through
+    the stamps that a kernel declares under LGTEUN_LGB_STAMPS (and, with
+    `only`, its LGTEUN_LGB_ONLY: 1 the LN and plane items alone, 2 the
+    tail items alone), or, in the grid-barrier kernel, at the anchors of
+    B8_GRID_STAMPS."""
+    shutil.copytree(src, dst)
+    f = dst / "lgb_block.cu"
+    text = f.read_text()
+    if "LGTEUN_LGB_STAMPS" in text:
+        text = (f"#define LGTEUN_LGB_STAMPS {MAX_BLOCKS}\n"
+                f"#define LGTEUN_LGB_ONLY {only}\n" + text)
+    else:
+        for anchor, new in B8_GRID_STAMPS:
+            if text.count(anchor) != 1:
+                raise RuntimeError(f"lgb_block.cu: anchor {anchor!r} occurs "
+                                   f"{text.count(anchor)} times")
+            text = text.replace(anchor, new)
+        text += B8_READ
+    f.write_text(text)
+
+
+def b8_inputs(b: int, c: int, hw: int, gen: torch.Generator) -> tuple:
+    """x [b, c, hw, hw] and the block's weights (2 heads, 8x8 windows),
+    seeded, on the card."""
+    def n(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+    c2, c4 = c // 2, 4 * c
+    blk = {"ln_w": 1 + 0.1 * n(c), "ln_b": 0.1 * n(c), "amp_w": n(c2),
+           "amp_b": 0.1 * n(c2), "pha_w": n(c2), "pha_b": 0.1 * n(c2),
+           "wqkv": n(3 * c2, c2, scale=c2 ** -0.5), "bqkv": 0.1 * n(3 * c2),
+           "pos": n(2, 64, 64), "proj_w": n(c, c, scale=c ** -0.5),
+           "proj_b": 0.1 * n(c),
+           "ffn": {"ln_w": 1 + 0.1 * n(c), "ln_b": 0.1 * n(c),
+                   "w1": n(c4, c, scale=c ** -0.5), "b1": 0.1 * n(c4),
+                   "w2": n(c4, c4, scale=c4 ** -0.5), "b2": 0.1 * n(c4),
+                   "dw": n(c4, 3, 3, scale=1 / 3), "bdw": 0.1 * n(c4),
+                   "w3": n(c, c4, scale=c4 ** -0.5), "b3": 0.1 * n(c)}}
+    return n(b, c, hw, hw), blk
+
+
+B8_SHAPES = ((32, 128), (64, 64), (128, 64))
+
+
+def b8_phases(card: str, tmp: str, src: str | None, only: int = 0) -> None:
+    """Print the whole block's clocks by kind of work beside the device
+    times of B1, B2 and B3 (the level-2 chain) on the same inputs, at
+    B8_SHAPES and batch 4 and 16 (see --b8-phases); with `only`, of the
+    stamped build that runs some kinds of item alone (b8_stamped_copy),
+    whose device time is then the one given."""
+    from chip_smoke import device_profile
+    from lgteun_tpu_torch.ops import _cuda, lgb_block_kernel
+    from lgteun_tpu_torch.ops.ffn_kernel import block_tail
+    from lgteun_tpu_torch.ops.spectral_kernel import ln_mixer_head
+    from lgteun_tpu_torch.ops.window_attention import window_attention
+    b8_stamped_copy(Path(src) if src else _cuda.CSRC, Path(tmp) / "csrc",
+                    only)
+    stamped = build(str(Path(tmp) / "csrc"), tmp, "b8stamped")
+    plain_lib = _cuda.kernels()
+    gen = torch.Generator().manual_seed(19971118)
+    dev_ms = lambda call: device_profile(call, n=20)["busy_ms_per_call"]
+    for b in (4, 16):
+        for c, hw in B8_SHAPES:
+            x, blk = b8_inputs(b, c, hw, gen)
+            mix = [blk[k] for k in ("ln_w", "ln_b", "amp_w", "amp_b",
+                                    "pha_w", "pha_b")]
+            y1, x2 = ln_mixer_head(x, *mix)
+            x1 = window_attention(y1, blk["wqkv"], blk["bqkv"], blk["pos"],
+                                  2, 8)
+            chain = {
+                "B1": dev_ms(lambda: ln_mixer_head(x, *mix)),
+                "B2": dev_ms(lambda: window_attention(
+                    y1, blk["wqkv"], blk["bqkv"], blk["pos"], 2, 8)),
+                "B3": dev_ms(lambda: block_tail(x, x1, x2, blk["proj_w"],
+                                                blk["proj_b"], blk["ffn"]))}
+            whole = (dev_ms(lambda: lgb_block_kernel.lgb_block(x, blk))
+                     if not only else None)
+            _cuda.kernels = lambda: stamped
+            try:
+                if only:
+                    whole = dev_ms(lambda: lgb_block_kernel.lgb_block(x, blk))
+                for _ in range(3):
+                    lgb_block_kernel.lgb_block(x, blk)
+                torch.cuda.synchronize()
+                m, blocks = read_stamps(stamped, "lgteun_read_lgb_stamps",
+                                        MAX_BLOCKS, 2 * NB8)
+            finally:
+                _cuda.kernels = lambda: plain_lib
+            total = sum(m[:NB8])
+            per_us = total / (whole * 1e3)   # clocks a microsecond
+            each = [v / max(n, 1e-9) / per_us
+                    for v, n in zip(m[:NB8], m[NB8:])]   # us an event
+            parts = "  ".join(
+                f"{p} {v:.0f} ({v / total:.3f}, {v / total * whole:.4f} ms; "
+                f"{m[NB8 + i]:.1f} a block, {each[i]:.2f} us each)"
+                for i, (p, v) in enumerate(zip(B8_PHASES, m)))
+            print(f"b8 phases{f' (only {only})' if only else ''} "
+                  f"{b}x{c}x{hw}x{hw}: lgb_block {whole:.4f} ms "
+                  f"(device), {total:.0f} clocks a block (thread 0, mean of "
+                  f"{blocks} blocks): {parts}  |  chain B1 {chain['B1']:.4f} "
+                  f"+ B2 {chain['B2']:.4f} + B3 {chain['B3']:.4f} = "
+                  f"{sum(chain.values()):.4f} ms  B8 / chain "
+                  f"{whole / sum(chain.values()):.3f}  [{card}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("a", nargs="?")
@@ -543,10 +720,19 @@ def main() -> int:
     ap.add_argument("--phases", action="store_true",
                     help="time the block tail's and the FFT mixer's phases "
                          "instead")
+    ap.add_argument("--b8-phases", nargs="?", const="", default=None,
+                    metavar="CSRC",
+                    help="time the whole block's kinds of work instead, "
+                         "in CSRC (default: the port's csrc)")
+    ap.add_argument("--b8-only", type=int, default=0, choices=(0, 1, 2),
+                    help="with --b8-phases: 1 times the LN and plane items "
+                         "alone, 2 the tail items alone")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--sizes", default="128,64,144,72",
                     help="H = W of the LGB cases (C 32 at 128 and 144, "
                          "C 64 at 64 and 72)")
+    ap.add_argument("--only", default="", metavar="TEXT",
+                    help="run only the cases whose label contains TEXT")
     ap.add_argument("--tol", type=float, default=None, metavar="REL",
                     help="accept max|B - A| / max|A| <= REL (default: "
                          "bit-equal outputs)")
@@ -560,10 +746,12 @@ def main() -> int:
 
     card = sh("nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader").splitlines()[0]
-    if opts.mma_rate or opts.phases:
+    if opts.mma_rate or opts.phases or opts.b8_phases is not None:
         with tempfile.TemporaryDirectory() as tmp:
             if opts.mma_rate:
                 mma_rate(card, tmp)
+            elif opts.b8_phases is not None:
+                b8_phases(card, tmp, opts.b8_phases or None, opts.b8_only)
             else:
                 phases(card, opts.batch, tmp)
         return 0
@@ -601,13 +789,18 @@ def main() -> int:
     lays = {tag: layouts(dll) for tag, dll in libs.items()}
     failed = []
     for label, (entry, ins, alloc, dims) in cases.items():
-        if not all(hasattr(dll, entry) for dll in libs.values()):
+        if opts.only not in label or not all(hasattr(dll, entry)
+                                             for dll in libs.values()):
             continue
         outs, calls = {}, {}
         for tag, dll in libs.items():
             outs[tag] = alloc()
             calls[tag] = caller(dll, entry, *ins(lays[tag]), *outs[tag],
-                                *dims)
+                                *(dims(lays[tag]) if callable(dims)
+                                  else dims))
+            if entry == "lgteun_lgb_block":   # counters zero at each launch
+                calls[tag] = (lambda call, counters: lambda: (
+                    counters.zero_(), call()))(calls[tag], outs[tag][1])
             calls[tag]()
         torch.cuda.synchronize()
         # the whole block's scratch and work counter are no output

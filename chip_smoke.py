@@ -80,6 +80,15 @@ and in the window items' raised-register region). Beside the INNT
 searches stands torch.bmm of their normalised vectors, the correlation
 alone (a yardstick: no library call also takes the first max).
 
+The INNT searches run on the tensor cores (wgmma TF32, 3xTF32) where
+their shape allows it and on the FP32 cores elsewhere: each case prints
+its branch, both branches of both searches must have been launched (a
+C = 8 texture match at side 24 and a K = 72 patch match take the FP32
+cores; a patch match at L = 100 ends inside a 64-query tile), the
+wrappers' branch rule must equal the library's on every shape the
+kernels take, and the tensor-core cases get the tensor-core bound, their
+achieved TFLOP/s and cuobjdump's LDL/STL and HGMMA counts.
+
 The two INNT searches pick, per query, the first maximum of a
 similarity; a query whose best value lies within 1e-5 of the next lower
 one (a near tie, found in float64 on the card) may pick another
@@ -91,12 +100,13 @@ For each kernel the JSON line gives its time (device time a call, from
 the profiler: at a few tens of microseconds the CUDA-event time of a
 wrapper call is the host's), its plain version's time (CUDA events),
 its bound (the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s,
-the H100 SXM's published HBM and FP32 rates at 700 W) and the time of
-one PyTorch call that computes the same function, where there is one.
-The block tails and the window attention, whose products run on the
-tensor cores with the 3xTF32 split, also get a second bound (those
-products' operations x 3 at 495 TFLOP/s TF32, the rest at the FP32 rate)
-and their achieved TFLOP/s. The weight layouts of the tails
+the H100 SXM's published HBM and FP32 rates at 700 W; for the block
+tails, the window attention and the INNT searches where their products
+run on the tensor cores with the 3xTF32 split, those products'
+operations x 3 at 495 TFLOP/s TF32 and the rest at the FP32 rate, with
+the all-FP32 figure and the achieved TFLOP/s printed beside it) and the
+time of one PyTorch call that computes the same function, where there
+is one. The weight layouts of the tails
 (`lgteun_tail_fragments`, TF32 hi/lo slabs in wgmma's order) and of the
 window attention (`lgteun_attention_fragments`) are held bit for bit
 against their plain versions and counted a training step; the window
@@ -164,7 +174,9 @@ BRANCHES = {**dict.fromkeys(ATTENTION, ("tc", "fp32")),
             **dict.fromkeys(("ln_mixer_head", "global_mixer"),
                             ("pair", "block512", "block256")),
             **dict.fromkeys(TAILS, ("tile", "wide")),
-            "lgb_block": ("tc", "tile", "wide")}
+            "lgb_block": ("tc", "tile", "wide"),
+            **dict.fromkeys(("texture_match", "patch_match"), ("tc",
+                                                               "fp32"))}
 DROP_RATE = 0.1             # the kernel cases' dropout mask
 # a differentiable wrapper vs plain autograd on the card: the backward is
 # the same plain graph on the same saved inputs and the loss is linear in
@@ -583,15 +595,28 @@ def kernel_cases(gen: torch.Generator):
                                patch_images(nimg, c, side)))
     yield ("texture_match", "64x8x64", texture_match, texture_match_ref,
            (n(64, 8, 64), n(64, 8, 64)))
+    # C = 8 at side 24: the FP32-core branch (hi/lo refs would not fit)
+    yield ("texture_match", "64x8x576", texture_match, texture_match_ref,
+           (patch_images(64, 8, side), patch_images(64, 8, side)))
     yield ("texture_match", "64x4x576-tie", texture_match, texture_match_ref,
            (n(64, 4, 576), torch.full((64, 4, 576), 0.37).cuda()))
-    unf = lambda v: F.unfold(v.view(nimg, c, side, side), 3, padding=1)
-    lr_u, ref_u = unf(patch_images(nimg, c, side)), unf(patch_images(
-        nimg, c, side))
-    pm = (row_normalize(lr_u, 1).transpose(1, 2).contiguous(),
-          row_normalize(ref_u, 1).transpose(1, 2).contiguous(), ref_u)
+
+    def pm_args(nimg, c, side):
+        unf = lambda v: F.unfold(v.view(nimg, c, side, side), 3, padding=1)
+        lr_u, ref_u = unf(patch_images(nimg, c, side)), unf(patch_images(
+            nimg, c, side))
+        return (row_normalize(lr_u, 1).transpose(1, 2).contiguous(),
+                row_normalize(ref_u, 1).transpose(1, 2).contiguous(), ref_u)
+
+    pm = pm_args(nimg, c, side)
     yield ("patch_match", f"{nimg}x{side * side}x{9 * c}", patch_match,
            patch_match_ref, pm)
+    # L = 100, not a multiple of the 64-query tile; K = 72 (C = 8): the
+    # FP32-core branch
+    yield ("patch_match", "256x100x36", patch_match, patch_match_ref,
+           pm_args(256, c, 10))
+    yield ("patch_match", "64x576x72", patch_match, patch_match_ref,
+           pm_args(64, 8, side))
     # every ref row equal: T must be ref_u's first column everywhere
     tie = (pm[0][:64], pm[1][:64, :1].expand(-1, side * side, -1)
            .contiguous(), pm[2][:64])
@@ -748,12 +773,19 @@ def kernel_flops(name: str, args) -> float:
     raise KeyError(name)
 
 
-def bound(name: str, args, outs) -> tuple[float, str]:
+def bound(name: str, args, outs,
+          fp32_only: bool = False) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations"): each
     input read once and each output written once at the HBM rate, or
-    the operations at the FP32 rate, whichever is longer."""
+    the operations at their type's rate, whichever is longer. Where this
+    call runs its products on the tensor cores (and not `fp32_only`),
+    those products count three times (the 3xTF32 passes) at the TF32
+    rate and the rest at the FP32 rate; else all at the FP32 rate."""
     by_bytes = (tensor_bytes(args) + tensor_bytes(outs)) / HBM_BYTES_PER_S
-    by_ops = kernel_flops(name, args) / FP32_FLOPS_PER_S
+    pw = (product_flops(name, args)
+          if not fp32_only and on_tensor_cores(name, args) else 0.0)
+    by_ops = (3 * pw / TF32_FLOPS_PER_S
+              + (kernel_flops(name, args) - pw) / FP32_FLOPS_PER_S)
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
                                          else "operations")
 
@@ -768,27 +800,48 @@ def attention_shape(name: str, args) -> tuple:
     return c, heads, int(round(s ** 0.5))
 
 
+def search_branch(name: str, args) -> str:
+    """The branch ("tc" or "fp32") a search kernel takes for its args."""
+    from lgteun_tpu_torch.ops.patch_match_kernel import patch_match_branch
+    from lgteun_tpu_torch.ops.texture_match_kernel import \
+        texture_match_branch
+    x = args[0]
+    if name == "texture_match":
+        return texture_match_branch(x.shape[1], int(round(x.shape[2]
+                                                          ** 0.5)))
+    return patch_match_branch(x.shape[2], x.shape[1])
+
+
+def on_tensor_cores(name: str, args) -> bool:
+    """Whether this call of kernel `name` runs its products on the tensor
+    cores (3xTF32)."""
+    if name in TAILS:
+        return True
+    if name in ATTENTION:
+        from lgteun_tpu_torch.ops.window_attention import attention_branch
+        return attention_branch(*attention_shape(name, args)) == "tc"
+    if name in ("texture_match", "patch_match"):
+        return search_branch(name, args) == "tc"
+    return False
+
+
 def product_flops(name: str, args) -> float:
     """The operations of the products a kernel runs on the tensor cores,
     which kernel_flops counts among the rest: a tail's four (three for
-    ln_ffn) 1x1 products; the window attention's qkv, logits and A.V."""
+    ln_ffn) 1x1 products; the window attention's qkv, logits and A.V;
+    the searches' R = ref_n . lr_n^T."""
     x = args[0]
+    if name == "texture_match":
+        nimg, c, q = x.shape
+        return nimg * 2 * q * q * 9 * c
+    if name == "patch_match":
+        nimg, ll, k = x.shape
+        return nimg * 2 * ll * ll * k
     if name in ATTENTION:
         c, _heads, win = attention_shape(name, args)
         return x.numel() // c * (6 * c * c + 4 * win * win * c)
     b, c, h, w = x.shape
     return 2 * b * h * w * ((c * c if name != "ln_ffn" else 0) + 24 * c * c)
-
-
-def tc_bound(name: str, args, outs) -> float:
-    """The least ms of a kernel with its products on the tensor cores:
-    their operations x 3 (the 3xTF32 passes) at the TF32 rate plus the
-    rest at the FP32 rate, or the bytes, whichever is longer."""
-    pw = product_flops(name, args)
-    by_ops = (3 * pw / TF32_FLOPS_PER_S
-              + (kernel_flops(name, args) - pw) / FP32_FLOPS_PER_S)
-    by_bytes = (tensor_bytes(args) + tensor_bytes(outs)) / HBM_BYTES_PER_S
-    return max(by_ops, by_bytes) * 1e3
 
 
 @contextlib.contextmanager
@@ -923,7 +976,6 @@ def main() -> int:
     #    and matmuls)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from lgteun_tpu_torch.ops.window_attention import attention_branch
     gen = torch.Generator().manual_seed(SEED)
     record, lgb_inputs = {}, {}
     wrappers = reset_launches()
@@ -989,18 +1041,23 @@ def main() -> int:
                   f"on the same inputs bit-identical: {same}")
             if not same:
                 raise AssertionError(f"{name} {shape}: not deterministic")
-        if name in TAILS or (name in ATTENTION and attention_branch(
-                *attention_shape(name, args)) == "tc"):
-            tc_ms = tc_bound(name, args, want)
+        if name in ("texture_match", "patch_match"):
+            print(f"kernel {name:17s} {shape:14s} branch "
+                  f"{search_branch(name, args)}")
+        if on_tensor_cores(name, args):
+            fp32_ms = bound(name, args, want, fp32_only=True)[0]
             tflops = kernel_flops(name, args) / ms / 1e9
             print(f"kernel {name:17s} {shape:14s} tensor-core bound "
-                  f"{tc_ms:.4f} ms (3xTF32 products at "
+                  f"{bound_ms:.4f} ms (3xTF32 products at "
                   f"{TF32_FLOPS_PER_S / 1e12:g} TFLOP/s, the rest at "
-                  f"{FP32_FLOPS_PER_S / 1e12:g}; share {tc_ms / ms:.3f})  "
-                  f"achieved {tflops:.2f} TFLOP/s")
-            rec["by_shape"][shape].update(tc_bound_ms=tc_ms, tflops=tflops)
+                  f"{FP32_FLOPS_PER_S / 1e12:g}; share {bound_ms / ms:.3f}; "
+                  f"all at the FP32 rate {fp32_ms:.4f} ms)  achieved "
+                  f"{tflops:.2f} TFLOP/s")
+            rec["by_shape"][shape].update(fp32_bound_ms=fp32_ms,
+                                          tflops=tflops)
 
     check_branches(wrappers)
+    check_search_rule()
     check_lgb_grids(lgb_inputs)
     check_tail_layout(gen)
     check_fft_tables()
@@ -1130,15 +1187,24 @@ def print_sass(lib_path) -> None:
     """Local-memory loads and stores (LDL / STL) in the SASS of the whole
     block's kernel (its calls, the mixer's plane and the tail's tile,
     included): in all, and between the attention's raising setmaxnreg and
-    the one that returns the registers (the window items' region)."""
+    the one that returns the registers (the window items' region); and in
+    the searches' tensor-core kernels, with their wgmma (HGMMA) count."""
     import re
     from lgteun_tpu_torch.ops import _cuda
     cuobjdump = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        head = fn.split("\n", 1)[0]
+        search = next((k for k in ("tm_tc_kernel", "pm_tc_kernel")
+                       if k in head), None)
+        if search:
+            local = len(re.findall(r"\b(?:LDL|STL)\b", fn))
+            print(f"sass {search}: LDL/STL {local}, HGMMA "
+                  f"{len(re.findall(r'HGMMA', fn))}")
+            continue
         name = "lgb_block_kernel"
-        if name not in fn.split("\n", 1)[0]:
+        if name not in head:
             continue
         total = raised = 0
         inside = False
@@ -1186,7 +1252,8 @@ def check_fft_tables() -> None:
 # functions of the FFT mixer and the whole block whose ptxas report the
 # smoke prints (the whole block calls the mixer's body as mixer_plane)
 PTXAS_NAMES = ("fft_mixer_pair_kernel", "fft_mixer_kernel", "mixer_plane",
-               "fft_pass_generic", "lgb_block_kernel")
+               "fft_pass_generic", "lgb_block_kernel", "tm_tc_kernel",
+               "pm_tc_kernel")
 
 
 def print_ptxas(lib_path) -> None:
@@ -1216,6 +1283,36 @@ def check_branches(wrappers: dict) -> None:
         missing = [b for b in branches if not got.get(b)]
         if missing:
             raise AssertionError(f"{name}: branches {missing} never launched")
+
+
+def check_search_rule() -> None:
+    """The searches' branch rule in Python (which the wrappers count)
+    equals the library's (which the C entries follow) on every shape the
+    kernels take: C 1-8 at sides 1-40, K 1-72 at L 1-1614."""
+    from lgteun_tpu_torch.ops import _cuda
+    from lgteun_tpu_torch.ops.patch_match_kernel import (_smem_bytes as pm_smem,
+                                                         patch_match_branch)
+    from lgteun_tpu_torch.ops.texture_match_kernel import (
+        _SMEM_MAX, _smem_bytes as tm_smem, texture_match_branch)
+    lib = _cuda.kernels()
+    shapes = {"texture_match": [(c, side) for c in range(1, 9)
+                                for side in range(1, 41)
+                                if tm_smem(c, side * side) <= _SMEM_MAX],
+              "patch_match": [(k, ll) for k in range(1, 73)
+                              for ll in range(1, 1615)
+                              if pm_smem(k, ll) <= _SMEM_MAX]}
+    rules = {"texture_match": (texture_match_branch,
+                               lib.lgteun_texture_match_tc),
+             "patch_match": (patch_match_branch, lib.lgteun_patch_match_tc)}
+    for name, (python, library) in rules.items():
+        differ = [sh for sh in shapes[name]
+                  if (python(*sh) == "tc") != bool(library(*sh))]
+        n_tc = sum(python(*sh) == "tc" for sh in shapes[name])
+        print(f"kernel {name:17s} branch rule: {len(shapes[name])} shapes, "
+              f"{n_tc} tc, the library agrees on all but {len(differ)}")
+        if differ:
+            raise AssertionError(f"{name}: the library's branch differs at "
+                                 f"{differ[:5]}")
 
 
 def check_tail_layout(gen: torch.Generator) -> None:

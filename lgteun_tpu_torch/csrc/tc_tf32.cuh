@@ -1,8 +1,9 @@
-// Tensor-core primitives of the block tail's FP32-accurate products
-// (block_tail.cuh): the TF32 rounding of the 3xTF32 split, the
-// warpgroup-wide wgmma m64nNk8 TF32 product (A from registers, B from
-// shared memory, FP32 accumulation) with its fences, and the cp.async
-// copies that stage weight slabs in shared memory.
+// Tensor-core primitives of the FP32-accurate products of the block tail
+// (block_tail.cuh), the window attention (window_attention_tc.cuh) and
+// the INNT searches (texture_match_tc.cuh): the TF32 rounding of the
+// 3xTF32 split, the warpgroup-wide wgmma m64nNk8 TF32 product (A from
+// registers, B from shared memory, FP32 accumulation) with its fences,
+// and the cp.async copies that stage weight slabs in shared memory.
 //
 // 3xTF32: an FP32 value a is a_hi = tf32_rna(a) plus a_lo = tf32_rna(a -
 // a_hi) (round to nearest, as cvt.rna.tf32); a product a.b is taken as
@@ -103,6 +104,26 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[8][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// v as its TF32 parts: hi = tf32(v), lo = tf32(v - hi).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// d += A . B (3xTF32) for one k-step: A's hi/lo fragments, B's hi and lo
+// parts at bh / bl (two core matrices along K, 128 bytes apart), `sbo`
+// bytes between n-groups.
+template <int NJ>
+__device__ __forceinline__ void mma3(float (&d)[NJ][4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const float* bh,
+                                     const float* bl, uint32_t sbo) {
+  const uint64_t dh = wgmma_desc(bh, 128, sbo), dl = wgmma_desc(bl, 128, sbo);
+  wgmma_tf32(d, al, dh);
+  wgmma_tf32(d, ah, dl);
+  wgmma_tf32(d, ah, dh);
+}
+
 // Keep the compiler from moving reads or writes of an accumulator across
 // the asynchronous products (as CUTLASS's warpgroup_fence_operand).
 template <int NJ>
@@ -127,6 +148,12 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Barrier of the 128 threads of warpgroup `wg` (named barrier 1 + wg; 0
+// is __syncthreads).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
 // Make this thread's earlier shared-memory writes (st.shared, cp.async)
 // visible to wgmma's reads, which go through the async proxy.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -138,6 +165,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(gmem) : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(dst), "l"(gmem) : "memory");
 }
 

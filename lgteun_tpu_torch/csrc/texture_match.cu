@@ -15,35 +15,54 @@
 //   T[:, j] = ref_u[:, idx[j]]       (patch_match).
 //
 // What bounds it here: R is side^4 * 9C multiply-adds per patch-image
-// (11.9 M at side 24, C = 4), against 18 KB in and 11.5 KB out, so it is
-// bound by the FP32 cores (about 0.37 ms at batch 4, N = 1024, at
-// 67 TFLOP/s). The plain version writes and reads R (1.36 GB at
+// (11.9 M at side 24, C = 4), against 18 KB in and 11.5 KB out: it is
+// bound by operations. The plain version writes and reads R (1.36 GB at
 // batch 4). The TPU kernel built R on the MXU in bf16 passes, found the
 // first maximum with an integer min over a [q, q] iota and transferred
 // with a one-hot matmul split into two bf16 words; none of that is
 // needed here.
 //
-// Design: one block per patch-image. Shared memory holds the normalised
-// ref vectors [Q][KP] (KP = 36 or 72: 9C zero-padded to a multiple of
-// four, so the padding adds exact zeros), and for texture_match also the
-// raw lr and ref planes [C][Q] and the chosen index per query (about
-// 104 KB at side 24, C = 4: two blocks an SM). Each thread owns QPT
-// queries, keeps their normalised vectors in registers and walks the Q
-// ref vectors, four a step, with a running maximum that moves only on a
-// strictly greater value, so the first maximum wins on exact ties; all
-// threads read the same ref vector at once (a shared-memory broadcast,
-// float4 a load). The loop is bound by how many warps hide its latency:
-// at C = 4, 288 threads with two queries each and launch bounds for two
-// blocks an SM (96 registers, 18 warps an SM) took 0.80 ms at batch 4,
-// against 1.10 ms at one block an SM and 1.50 ms at four queries a
-// thread (NVIDIA H100 80GB HBM3, scripts/torch_kernel_ab.py). The fold
-// then sums, for each output pixel and channel, the
-// nine raw ref values its 3x3 neighbourhood of queries chose, in the
-// (ky, kx) order F.fold uses, with 2-D bounds on both the query and the
-// ref neighbour. Every f32 op is exact IEEE (division, sqrtf).
+// Design: one block per patch-image, two branches chosen by shape (the
+// wrappers mirror the rule and count each branch; the `_tc` exports
+// below give it).
+//
+// - Tensor cores (vectors of at most 40 values, 9C or K <= 40, where the
+//   staging fits in shared memory: INNT's C = 4 at side 24): R as wgmma
+//   TF32 with the 3xTF32 split and the first maximum taken from the
+//   accumulators (texture_match_tc.cuh), 3 warpgroups a block, one block
+//   an SM at side 24. Shared memory holds the normalised ref vectors
+//   staged hi/lo in wgmma's core-matrix order ([576][40] x 2, 184 KB at
+//   side 24) and for texture_match also the raw lr and ref planes, the
+//   query norms and the chosen pixels (207 KB in all); patch_match's
+//   warpgroups transfer each finished tile while the others multiply.
+//   The products' operations x 3 at 495 TFLOP/s and the rest at 67 bound
+//   it at 0.156 / 0.153 ms at batch 4 (texture / patch match); it took
+//   0.3614 / 0.3486 ms there (NVIDIA H100 80GB HBM3, 700 W,
+//   scripts/torch_kernel_ab.py against the FP32-core body in one run),
+//   a block's time going to the staging and the fold, which no other
+//   block overlaps, and to the accumulators' folds between products.
+// - FP32 cores (the other shapes, C 5-8 or K 41-72, whose hi/lo refs at
+//   side 24 would need 332 KB, and sides too large for the tensor-core
+//   staging): shared memory holds the normalised ref vectors [Q][KP] (KP
+//   = 36 or 72) and for texture_match the planes and the indices; each
+//   thread owns QPT queries in registers and walks the refs, four a step,
+//   with a running maximum that moves only on a strictly greater value.
+//   As the only body it took 0.8047 ms for texture_match at
+//   [1024,4,576] and 0.8157 ms for patch_match at [1024,576,36] (NVIDIA
+//   H100 80GB HBM3, 700 W; 288 threads with two queries each, two blocks
+//   an SM: bound by how many warps hide the loop's latency).
+//
+// Both branches unfold and normalise with the same exact IEEE code
+// (sqrtf, division; a zero value is its own quotient), so the vectors
+// entering the split are the FP32 body's. The fold then sums, for each
+// output pixel and channel, the nine raw ref values its 3x3
+// neighbourhood of queries chose, in the (ky, kx) order F.fold uses, with
+// 2-D bounds on both the query and the ref neighbour, then divides by 9.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "texture_match_tc.cuh"
 
 namespace {
 
@@ -124,26 +143,99 @@ __device__ __forceinline__ void search(const float* __restrict__ rn, int L,
   for (; i < L; ++i) search_step<KP, QPT, 1>(rn, i, q, best, arg);
 }
 
-// The normalised 3x3 sub-patch of pixel p of a [C][side*side] plane,
-// (c, ky, kx) order, zero outside the image and past 9C.
+// Value k of the 3x3 sub-patch of pixel (py, px) of a [C][side*side]
+// plane, (c, ky, kx) order, zero outside the image and past 9C.
+__device__ __forceinline__ float unfold_at(const float* plane, int C,
+                                           int side, int py, int px, int k) {
+  const int c = k / 9, o = k % 9;
+  const int y = py + o / 3 - 1, x = px + o % 3 - 1;
+  return (c < C && y >= 0 && y < side && x >= 0 && x < side)
+             ? plane[(c * side + y) * side + x] : 0.f;
+}
+
+// The sub-patch of pixel p into v and its norm + 1e-12 (summed in k
+// order; the zero padding past 9C adds exact zeros).
+template <int KP>
+__device__ __forceinline__ float unfold_norm(const float* plane, int C,
+                                             int side, int p,
+                                             float (&v)[KP]) {
+  const int py = p / side, px = p % side;
+#pragma unroll
+  for (int k = 0; k < KP; ++k) v[k] = unfold_at(plane, C, side, py, px, k);
+  float n2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < KP; ++k) n2 = fmaf(v[k], v[k], n2);
+  return sqrtf(n2) + 1e-12f;
+}
+
+// v / nrm for nrm > 0, exact IEEE; a zero v is its own quotient and skips
+// the division, whose slow path a zero dividend takes.
+__device__ __forceinline__ float normalize(float v, float nrm) {
+  return v != 0.f ? v / nrm : v;
+}
+
+// The normalised sub-patch of pixel p.
 template <int KP>
 __device__ __forceinline__ void unfold_normalized(const float* plane, int C,
                                                   int side, int p,
                                                   float (&v)[KP]) {
-  const int py = p / side, px = p % side, q = side * side;
+  const float nrm = unfold_norm<KP>(plane, C, side, p, v);
 #pragma unroll
-  for (int k = 0; k < KP; ++k) {
-    const int c = k / 9, o = k % 9;
-    const int y = py + o / 3 - 1, x = px + o % 3 - 1;
-    v[k] = (c < C && y >= 0 && y < side && x >= 0 && x < side)
-               ? plane[c * q + y * side + x] : 0.f;
+  for (int k = 0; k < KP; ++k) v[k] = normalize(v[k], nrm);
+}
+
+// This patch-image's raw lr and ref planes (n floats each) into shared
+// memory, every copy in flight at once, then a barrier.
+__device__ __forceinline__ void load_planes(const float* __restrict__ lr,
+                                            const float* __restrict__ ref,
+                                            float* lr_s, float* ref_s,
+                                            int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    cp_async4(lr_s + e, lr + e);
+    cp_async4(ref_s + e, ref + e);
   }
-  float n2 = 0.f;
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// Ref pixel i of a side x side image as (row << 16) | column: what the
+// searches record for the fold.
+__device__ __forceinline__ int pack_pixel(int i, int side) {
+  return (i / side) << 16 | (i % side);
+}
+
+// fold: out[c, y, x] = sum over (ky, kx) of the raw ref value at offset
+// (ky-1, kx-1) from the ref pixel chosen by query (y-ky+1, x-kx+1)
+// (`chosen`, pack_pixel), where both lie in the image; then / 9. One
+// pixel a thread, every channel (C <= 8) summed in (ky, kx) order.
+__device__ __forceinline__ void fold_chosen(const float* ref_s,
+                                            const int* chosen,
+                                            float* __restrict__ out, int C,
+                                            int side) {
+  const int Q = side * side;
+  for (int p = threadIdx.x; p < Q; p += blockDim.x) {
+    const int y = p / side, x = p - y * side;
+    float acc[8] = {};
+    for (int ky = 0; ky < 3; ++ky) {
+      const int qy = y - ky + 1;
+      if (qy < 0 || qy >= side) continue;
+      for (int kx = 0; kx < 3; ++kx) {
+        const int qx = x - kx + 1;
+        if (qx < 0 || qx >= side) continue;
+        const int i = chosen[qy * side + qx];
+        const int iy = (i >> 16) + ky - 1, ix = (i & 0xFFFF) + kx - 1;
+        if (iy < 0 || iy >= side || ix < 0 || ix >= side) continue;
+        const float* r = ref_s + iy * side + ix;
 #pragma unroll
-  for (int k = 0; k < KP; ++k) n2 = fmaf(v[k], v[k], n2);
-  const float nrm = sqrtf(n2) + 1e-12f;
+        for (int c = 0; c < 8; ++c)
+          if (c < C) acc[c] += r[c * Q];
+      }
+    }
 #pragma unroll
-  for (int k = 0; k < KP; ++k) v[k] = v[k] / nrm;
+    for (int c = 0; c < 8; ++c)
+      if (c < C) out[c * Q + p] = acc[c] / 9.f;
+  }
 }
 
 template <int KP>
@@ -157,14 +249,10 @@ tm_kernel(const float* __restrict__ lr, const float* __restrict__ ref,
   float* rn = reinterpret_cast<float*>(smem_raw);   // [Q][KP]
   float* lr_s = rn + (size_t)Q * KP;                 // [C][Q]
   float* ref_s = lr_s + (size_t)C * Q;               // [C][Q]
-  int* idx = reinterpret_cast<int*>(ref_s + (size_t)C * Q);  // [Q]
+  int* idx = reinterpret_cast<int*>(ref_s + (size_t)C * Q);  // [Q] packed
 
   const size_t base = (size_t)blockIdx.x * C * Q;
-  for (int e = threadIdx.x; e < C * Q; e += blockDim.x) {
-    lr_s[e] = lr[base + e];
-    ref_s[e] = ref[base + e];
-  }
-  __syncthreads();
+  load_planes(lr + base, ref + base, lr_s, ref_s, C * Q);
   for (int i = threadIdx.x; i < Q; i += blockDim.x) {
     float v[KP];
     unfold_normalized<KP>(ref_s, C, side, i, v);
@@ -195,33 +283,13 @@ tm_kernel(const float* __restrict__ lr, const float* __restrict__ ref,
     for (int t = 0; t < QPT; ++t) {
       const int j = j0 + t * blockDim.x + threadIdx.x;
       if (j < Q) {
-        idx[j] = arg[t];
+        idx[j] = pack_pixel(arg[t], side);
         s_out[(size_t)blockIdx.x * Q + j] = best[t];
       }
     }
   }
   __syncthreads();
-
-  // fold: out[c, y, x] = sum over (ky, kx) of the raw ref value at
-  // offset (ky-1, kx-1) from the ref pixel chosen by query
-  // (y-ky+1, x-kx+1), where both lie in the image; then / 9
-  for (int e = threadIdx.x; e < C * Q; e += blockDim.x) {
-    const int c = e / Q, p = e % Q, y = p / side, x = p % side;
-    float acc = 0.f;
-    for (int ky = 0; ky < 3; ++ky) {
-      const int qy = y - ky + 1;
-      if (qy < 0 || qy >= side) continue;
-      for (int kx = 0; kx < 3; ++kx) {
-        const int qx = x - kx + 1;
-        if (qx < 0 || qx >= side) continue;
-        const int i = idx[qy * side + qx];
-        const int iy = i / side + ky - 1, ix = i % side + kx - 1;
-        if (iy >= 0 && iy < side && ix >= 0 && ix < side)
-          acc += ref_s[c * Q + iy * side + ix];
-      }
-    }
-    t_out[base + e] = acc / 9.f;
-  }
+  fold_chosen(ref_s, idx, t_out + base, C, side);
 }
 
 template <int KP>
@@ -264,6 +332,201 @@ pm_kernel(const float* __restrict__ lr_n, const float* __restrict__ ref_n,
   }
 }
 
+// Shared memory (bytes) of the tensor-core kernels: the staged refs (hi,
+// lo), and for texture_match the two planes, the query norms and the
+// chosen indices; for patch_match the chosen indices.
+size_t tm_tc_smem(int C, int side) {
+  const size_t q = (size_t)side * side;
+  return sizeof(float) *
+         (2 * (size_t)search_pad((int)q) * kSearchKP + 2 * C * q + 2 * q);
+}
+
+size_t pm_tc_smem(int L) {
+  return sizeof(float) * (2 * (size_t)search_pad(L) * kSearchKP + L);
+}
+
+// Whether the tensor-core branch takes a shape (the other shapes run the
+// FP32-core kernels).
+bool tm_tc_takes(int C, int side) {
+  return 9 * C <= kSearchKP && tm_tc_smem(C, side) <= (size_t)kSmemMax;
+}
+
+bool pm_tc_takes(int K, int L) {
+  return K <= kSearchKP && pm_tc_smem(L) <= (size_t)kSmemMax;
+}
+
+// A query pixel of texture_match's tensor-core search: its lr plane
+// pointer, row, column and the norm of its sub-patch.
+struct QueryPixel {
+  const float* p;
+  int y, x;
+  float nrm;
+};
+
+__global__ void __launch_bounds__(kSearchWarpgroups * 128, 1)
+tm_tc_kernel(const float* __restrict__ lr, const float* __restrict__ ref,
+             float* __restrict__ t_out, float* __restrict__ s_out, int C,
+             int side) {
+  extern __shared__ float4 smem_raw[];
+  const int Q = side * side, QP = search_pad(Q);
+  float* hi = reinterpret_cast<float*>(smem_raw);   // staged refs
+  float* lo = hi + (size_t)QP * kSearchKP;
+  float* lr_s = lo + (size_t)QP * kSearchKP;         // [C][Q]
+  float* ref_s = lr_s + (size_t)C * Q;               // [C][Q]
+  float* nrm = ref_s + (size_t)C * Q;                // [Q] query norms
+  int* idx = reinterpret_cast<int*>(nrm + Q);        // [Q] packed
+
+  const SearchStamps st;
+  const size_t base = (size_t)blockIdx.x * C * Q;
+  load_planes(lr + base, ref + base, lr_s, ref_s, C * Q);
+  // the refs (normalised, split, staged; zero vectors past Q), then the
+  // queries' norms
+  for (int i = threadIdx.x; i < QP + Q; i += blockDim.x) {
+    float v[kSearchKP] = {};
+    if (i >= QP) {
+      nrm[i - QP] = unfold_norm<kSearchKP>(lr_s, C, side, i - QP, v);
+      continue;
+    }
+    if (i < Q) unfold_normalized<kSearchKP>(ref_s, C, side, i, v);
+#pragma unroll
+    for (int kq = 0; kq < kSearchKQ; ++kq) {
+      const float w[4] = {v[4 * kq], v[4 * kq + 1], v[4 * kq + 2],
+                          v[4 * kq + 3]};
+      search_stage(hi, lo, i, kq, w);
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  st.at(0);
+
+  // this thread's values k = 4m + t of a sub-patch: channel, row and
+  // column offsets, and the plane offset (c, dy, dx) -> c Q + dy side + dx;
+  // a query row: its pixel's plane pointer, row, column and norm
+  const int t = threadIdx.x & 3;
+  int kc[kSearchKQ], kdy[kSearchKQ], kdx[kSearchKQ], koff[kSearchKQ];
+#pragma unroll
+  for (int m = 0; m < kSearchKQ; ++m) {
+    const int k = 4 * m + t, o = k % 9;
+    kc[m] = k / 9;
+    kdy[m] = o / 3 - 1;
+    kdx[m] = o % 3 - 1;
+    koff[m] = kc[m] * Q + kdy[m] * side + kdx[m];
+  }
+  float* s = s_out + (size_t)blockIdx.x * Q;
+  search_tc(
+      hi, lo, Q,
+      [&](int j) {
+        const int y = j / side;
+        return QueryPixel{lr_s + j, y, j - y * side, j < Q ? nrm[j] : 1.f};
+      },
+      [&](const QueryPixel& r, int m) -> float {   // unfold_at(.., 4m + t)
+        const int y = r.y + kdy[m], x = r.x + kdx[m];
+        return kc[m] < C && y >= 0 && y < side && x >= 0 && x < side
+                   ? r.p[koff[m]] : 0.f;
+      },
+      [](const QueryPixel& r, float v) { return normalize(v, r.nrm); },
+      [&](int j, float v, int i) {
+        idx[j] = pack_pixel(i, side);
+        s[j] = v;
+      },
+      [](int) {}, st);
+  __syncthreads();
+  st.at(5);
+  fold_chosen(ref_s, idx, t_out + base, C, side);
+  st.at(6);
+  st.end();
+}
+
+__global__ void __launch_bounds__(kSearchWarpgroups * 128, 1)
+pm_tc_kernel(const float* __restrict__ lr_n, const float* __restrict__ ref_n,
+             const float* __restrict__ ref_u, float* __restrict__ t_out,
+             float* __restrict__ s_out, int L, int K) {
+  extern __shared__ float4 smem_raw[];
+  const int LP = search_pad(L);
+  float* hi = reinterpret_cast<float*>(smem_raw);   // staged refs
+  float* lo = hi + (size_t)LP * kSearchKP;
+  int* idx = reinterpret_cast<int*>(lo + (size_t)LP * kSearchKP);  // [L]
+  const SearchStamps st;
+  const size_t base = (size_t)blockIdx.x * L * K;
+  const float* lrb = lr_n + base;
+  const float* rnb = ref_n + base;
+  const float* rub = ref_u + base;
+
+  // items (k-quad kq, ref i), k-quad-major, so that consecutive threads
+  // stage consecutive refs; four items a thread in flight, each one
+  // 16-byte load where the rows are 16-byte aligned
+  const int items = kSearchKQ * LP;
+  const bool quads = K % 4 == 0 && (reinterpret_cast<size_t>(rnb) & 15) == 0;
+  for (int e0 = threadIdx.x; e0 < items; e0 += 4 * blockDim.x) {
+    float v[4][4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int e = e0 + h * blockDim.x, kq = e / LP, i = e - kq * LP;
+      const float* r = rnb + (size_t)i * K + 4 * kq;
+      const bool row = e < items && i < L;
+      if (quads) {
+        const float4 x = row && 4 * kq < K
+                             ? __ldg(reinterpret_cast<const float4*>(r))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[h][0] = x.x;
+        v[h][1] = x.y;
+        v[h][2] = x.z;
+        v[h][3] = x.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[h][u] = row && 4 * kq + u < K ? __ldg(r + u) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int e = e0 + h * blockDim.x, kq = e / LP;
+      if (e < items) search_stage(hi, lo, e - kq * LP, kq, v[h]);
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  st.at(0);
+
+  const int t = threadIdx.x & 3, wg = threadIdx.x >> 7;
+  float* s = s_out + (size_t)blockIdx.x * L;
+  search_tc(
+      hi, lo, L, [&](int j) { return lrb + (size_t)j * K; },
+      [&](const float* r, int m) -> float {
+        const int k = 4 * m + t;
+        return k < K ? __ldg(r + k) : 0.f;
+      },
+      [](const float*, float v) { return v; },
+      [&](int j, float v, int i) {
+        idx[j] = i;
+        s[j] = v;
+      },
+      [&](int tile) {
+        // T[:, j] = ref_u[:, idx[j]] for the tile's queries, by its
+        // warpgroup while the others multiply; rows of 64 in order,
+        // six gathers in flight a thread
+        warpgroup_sync(wg);
+        const int j0 = tile * kSearchTile, n = K * kSearchTile;
+        for (int e0 = threadIdx.x & 127; e0 < n; e0 += 6 * 128) {
+          float v[6];
+#pragma unroll
+          for (int h = 0; h < 6; ++h) {
+            const int e = e0 + 128 * h, j = j0 + (e & 63);
+            v[h] = e < n && j < L
+                       ? __ldg(rub + (size_t)(e >> 6) * L + idx[j]) : 0.f;
+          }
+#pragma unroll
+          for (int h = 0; h < 6; ++h) {
+            const int e = e0 + 128 * h, j = j0 + (e & 63);
+            if (e < n && j < L) t_out[base + (size_t)(e >> 6) * L + j] = v[h];
+          }
+        }
+      },
+      st);
+  st.at(6);
+  st.end();
+}
+
 // Threads of a block: as few passes of QPT queries a thread as
 // `max_threads` allow, the threads rounded up to whole warps.
 int block_threads(int queries, int qpt, int max_threads) {
@@ -304,6 +567,36 @@ int launch_pm(const float* lr_n, const float* ref_n, const float* ref_u,
   return (int)cudaGetLastError();
 }
 
+// Tensor-core launches: one block of up to kSearchWarpgroups warpgroups
+// (one a query tile) per patch-image.
+int search_tc_threads(int L) {
+  const int tiles = search_pad(L) / kSearchTile;
+  return 128 * (tiles < kSearchWarpgroups ? tiles : kSearchWarpgroups);
+}
+
+int launch_tm_tc(const float* lr, const float* ref, float* t, float* s,
+                 int N, int C, int side, cudaStream_t stream) {
+  const size_t smem = tm_tc_smem(C, side);
+  const cudaError_t err = cudaFuncSetAttribute(
+      tm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  tm_tc_kernel<<<N, search_tc_threads(side * side), smem, stream>>>(
+      lr, ref, t, s, C, side);
+  return (int)cudaGetLastError();
+}
+
+int launch_pm_tc(const float* lr_n, const float* ref_n, const float* ref_u,
+                 float* t, float* s, int N, int L, int K,
+                 cudaStream_t stream) {
+  const size_t smem = pm_tc_smem(L);
+  const cudaError_t err = cudaFuncSetAttribute(
+      pm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  pm_tc_kernel<<<N, search_tc_threads(L), smem, stream>>>(
+      lr_n, ref_n, ref_u, t, s, L, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // (t, s) = texture match of lr, ref [N, C, side*side]; t [N, C,
@@ -313,6 +606,8 @@ extern "C" int lgteun_texture_match(const float* lr, const float* ref,
                                     int side, cudaStream_t stream) {
   if (N < 0 || C < 1 || C > 8 || side < 1) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
+  if (tm_tc_takes(C, side))
+    return launch_tm_tc(lr, ref, t, s, N, C, side, stream);
   return 9 * C <= 36 ? launch_tm<36>(lr, ref, t, s, N, C, side, stream)
                      : launch_tm<72>(lr, ref, t, s, N, C, side, stream);
 }
@@ -324,6 +619,20 @@ extern "C" int lgteun_patch_match(const float* lr_n, const float* ref_n,
                                   int N, int L, int K, cudaStream_t stream) {
   if (N < 0 || L < 1 || K < 1 || K > 72) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
+  if (pm_tc_takes(K, L))
+    return launch_pm_tc(lr_n, ref_n, ref_u, t, s, N, L, K, stream);
   return K <= 36 ? launch_pm<36>(lr_n, ref_n, ref_u, t, s, N, L, K, stream)
                  : launch_pm<72>(lr_n, ref_n, ref_u, t, s, N, L, K, stream);
+}
+
+// 1 where lgteun_texture_match runs the tensor-core branch for C channels
+// at side x side, else 0 (the FP32-core branch).
+extern "C" int lgteun_texture_match_tc(int C, int side) {
+  return tm_tc_takes(C, side) ? 1 : 0;
+}
+
+// 1 where lgteun_patch_match runs the tensor-core branch for L vectors of
+// K values, else 0.
+extern "C" int lgteun_patch_match_tc(int K, int L) {
+  return pm_tc_takes(K, L) ? 1 : 0;
 }

@@ -88,12 +88,6 @@ inline size_t attention_tc_smem(int C, int heads, int nwg) {
                           nwg * attn_kv_floats(attn_pad(C / heads)));
 }
 
-// Barrier of the 128 threads of warpgroup `wg` (named barrier 1 + wg; 0
-// is __syncthreads).
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
 // pos[h] in the logits accumulator's layout: p[j][q] = pos[h][row][col],
 // row = 16 (warp % 4) + g + 8 (q / 2), col = 8j + 2t + q % 2.
 __device__ __forceinline__ void attention_pos(float (&p)[8][4],
@@ -118,25 +112,6 @@ __device__ __forceinline__ void attention_load_weights(
   float4* d = reinterpret_cast<float4*>(dst);
   for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d[i] = __ldg(s + i);
   fence_proxy_async();
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(v - __uint_as_float(hi));
-}
-
-// d += A . B (3xTF32) for one k-step: A's hi/lo fragments, B's hi and lo
-// parts at bh / bl (two core matrices along K), `sbo` bytes between
-// n-groups.
-template <int NJ>
-__device__ __forceinline__ void mma3(float (&d)[NJ][4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], const float* bh,
-                                     const float* bl, uint32_t sbo) {
-  const uint64_t dh = wgmma_desc(bh, 128, sbo), dl = wgmma_desc(bl, 128, sbo);
-  wgmma_tf32(d, al, dh);
-  wgmma_tf32(d, ah, dl);
-  wgmma_tf32(d, ah, dh);
 }
 
 // Head h of one window on the calling warpgroup (wg: its index in the

@@ -80,6 +80,10 @@ SIGNATURES = {
     "lgteun_texture_match": [_P] * 4 + [_I] * 3 + [_P],
     # lr_n, ref_n, ref_u, t, s, N, L, K, stream
     "lgteun_patch_match": [_P] * 5 + [_I] * 3 + [_P],
+    # not launches: 1 where the search above takes its tensor-core branch
+    # for (C, side) / (K, L), else 0
+    "lgteun_texture_match_tc": [_I] * 2,
+    "lgteun_patch_match_tc": [_I] * 2,
 }
 
 

@@ -8,18 +8,23 @@ INNT.py:100-143 without the unfold, norm and fold around it:
     S[n, j]    = max_i R[n, i, j];  idx = the first i reaching it
     T[n, :, j] = ref_u[n, :, idx]
 
-`patch_match` launches `csrc/texture_match.cu` (the same search routine
+`patch_match` launches `csrc/texture_match.cu` (the same search bodies
 as `texture_match`) for a CUDA tensor and runs `patch_match_ref` for a
-CPU tensor.
+CPU tensor. Its branches ("tc": tensor cores where K <= SEARCH_KP and
+the staged refs fit; "fp32" otherwise) are chosen by shape
+(`patch_match_branch`) and counted in `patch_match.variants`.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops.texture_match_kernel import SEARCH_KP, search_pad
 
-__all__ = ["patch_match", "patch_match_ref"]
+__all__ = ["patch_match", "patch_match_ref", "patch_match_branch"]
 
 _MAX_K = 72                 # longest sub-patch vector the kernel is built for
 _SMEM_MAX = 232448          # bytes of shared memory a block may use
@@ -34,8 +39,18 @@ def patch_match_ref(lr_n, ref_n, ref_u):
 
 
 def _smem_bytes(k: int, ll: int) -> int:
-    """Shared memory of one block: the ref vectors padded to 36 or 72."""
+    """Shared memory of one FP32-core block: the ref vectors padded to 36
+    or 72. The shapes where it fits are the kernel's."""
     return 4 * ll * (36 if k <= 36 else 72)
+
+
+def patch_match_branch(k: int, ll: int) -> str:
+    """"tc" where the kernel searches on the tensor cores (K <= SEARCH_KP
+    and the staged hi/lo refs [search_pad(L)][SEARCH_KP] x 2 and the
+    indices fit in shared memory), else "fp32" (csrc/texture_match.cu,
+    `pm_tc_takes`)."""
+    smem = 4 * (2 * search_pad(ll) * SEARCH_KP + ll)
+    return "tc" if k <= SEARCH_KP and smem <= _SMEM_MAX else "fp32"
 
 
 def patch_match(lr_n, ref_n, ref_u):
@@ -60,7 +75,9 @@ def patch_match(lr_n, ref_n, ref_u):
     _cuda.launch("lgteun_patch_match", lr_n.device, lr_n, ref_n, ref_u, t, s,
                  n, ll, k)
     patch_match.launches += 1
+    patch_match.variants[patch_match_branch(k, ll)] += 1
     return t, s
 
 
 patch_match.launches = 0
+patch_match.variants = collections.Counter()

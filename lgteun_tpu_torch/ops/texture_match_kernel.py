@@ -12,11 +12,17 @@ version); reference INNT.py:100-143. Per patch-image:
     t           = fold3x3(ref_u[:, idx]) / 9         (raw ref sub-patches)
 
 `texture_match` launches `csrc/texture_match.cu` for a CUDA tensor and
-runs `texture_match_ref` for a CPU tensor.
+runs `texture_match_ref` for a CPU tensor. The kernel has two branches,
+chosen by shape (`texture_match_branch`) and counted in
+`texture_match.variants`: "tc", the search on the tensor cores (wgmma
+TF32, 3xTF32 split, the first maximum from the accumulators), where 9C
+<= SEARCH_KP and its shared memory fits (INNT's C = 4 at side 24), and
+"fp32", the search on the FP32 cores, for every other shape.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -24,10 +30,13 @@ import torch.nn.functional as F
 
 from lgteun_tpu_torch.ops import _cuda
 
-__all__ = ["texture_match", "texture_match_ref", "row_normalize"]
+__all__ = ["texture_match", "texture_match_ref", "row_normalize",
+           "texture_match_branch", "search_pad", "SEARCH_KP", "SEARCH_TILE"]
 
 _MAX_C = 8                  # largest channel count the kernel is built for
 _SMEM_MAX = 232448          # bytes of shared memory a block may use
+SEARCH_KP = 40              # tensor-core branch: vectors zero-padded to 40
+SEARCH_TILE = 64            # ... queries a warpgroup tile, refs a chunk
 
 
 def row_normalize(u: torch.Tensor, dim: int) -> torch.Tensor:
@@ -58,11 +67,27 @@ def texture_match_ref(lr, ref):
 
 
 def _smem_bytes(c: int, q: int) -> int:
-    """Shared memory of one block (csrc/texture_match.cu): the raw lr
-    and ref planes, the normalised ref unfold padded to 36 or 72 values
-    a row, and the chosen index per query."""
+    """Shared memory of one FP32-core block (csrc/texture_match.cu): the
+    raw lr and ref planes, the normalised ref unfold padded to 36 or 72
+    values a row, and the chosen index per query. The shapes where it
+    fits are the kernel's."""
     kp = 36 if 9 * c <= 36 else 72
     return 4 * (2 * c * q + q * kp + q)
+
+
+def search_pad(n: int) -> int:
+    """n vectors rounded up to whole tensor-core chunks of SEARCH_TILE."""
+    return -(-n // SEARCH_TILE) * SEARCH_TILE
+
+
+def texture_match_branch(c: int, side: int) -> str:
+    """"tc" where the kernel searches on the tensor cores (9C <= SEARCH_KP
+    and the staged hi/lo refs [search_pad(Q)][SEARCH_KP] x 2, the two
+    planes, the query norms and the indices fit in shared memory), else
+    "fp32" (csrc/texture_match.cu, `tm_tc_takes`)."""
+    q = side * side
+    smem = 4 * (2 * search_pad(q) * SEARCH_KP + 2 * c * q + 2 * q)
+    return "tc" if 9 * c <= SEARCH_KP and smem <= _SMEM_MAX else "fp32"
 
 
 def texture_match(lr, ref):
@@ -86,7 +111,9 @@ def texture_match(lr, ref):
     _cuda.launch("lgteun_texture_match", lr.device, lr, ref, t, s, n, c,
                  side)
     texture_match.launches += 1
+    texture_match.variants[texture_match_branch(c, side)] += 1
     return t, s
 
 
 texture_match.launches = 0
+texture_match.variants = collections.Counter()

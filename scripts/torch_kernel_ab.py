@@ -1,10 +1,11 @@
 """A/B of two versions of the port's kernels on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_ab.py A B [--batch 4] [--sizes 128,64,144,72]
-                                       [--tol REL]
+                                       [--tol REL] [--only TEXT] [--innt]
     python3 scripts/torch_kernel_ab.py --mma-rate
     python3 scripts/torch_kernel_ab.py --phases [--batch 4]
     python3 scripts/torch_kernel_ab.py --b8-phases [CSRC]
+    python3 scripts/torch_kernel_ab.py --search-phases [CSRC] [--batch 4]
 
 A and B are two versions either of `lgteun_tpu_torch/csrc/
 texture_match.cu` (the INNT searches `lgteun_texture_match` and
@@ -28,7 +29,11 @@ the window attention, the block tail with and without a seeded dropout
 mask and LN + FFN at every size, and the whole block (whose scratch is
 not compared) at 128^2 and 64^2.
 The script checks that B's outputs equal A's bit for bit or, with `--tol
-REL`, that max|B - A| / max|A| <= REL (and prints that figure), times
+REL`, that max|B - A| / max|A| <= REL (and prints that figure); for the
+two searches, whose picks may flip at float64 near ties (`chip_smoke.
+near_ties`, a gap of 1e-5), that the transferred values are bit-equal
+outside the near ties' footprint and s within KERNEL_REL_TOL relative
+(or REL), printing the near ties and the masked share. It times
 both in turns A, B, B, A with CUDA events (mean of 20 calls after 3
 warm-up calls each), and prints one line per case with the card's name
 and power limit. It exits non-zero without a CUDA device or when the
@@ -71,6 +76,19 @@ B8_GRID_STAMPS. It runs `lgb_block` at 128^2/C32, 64^2/C64 and
 its share and its share of the device time of an unstamped launch,
 beside the device times of B1, B2 and B3 (the level-2 chain) on the same
 inputs. `--only TEXT` runs the A/B cases whose label contains TEXT.
+`--innt` instead times INNT's eval forward (batch 16 and 1, with and
+without LGTEUN_FUSED_TM=0) with A's and B's searches in turns.
+
+`--search-phases` shows where the INNT searches' time goes on their
+tensor-core branch (`csrc/texture_match_tc.cuh`, of CSRC, default the
+port's): a copy built with LGTEUN_SEARCH_STAMPS, whose kernels add up
+in thread 0 of each block the clocks of each phase (SEARCH_PHASES) and
+record the block's span on the global timer and its SM. It runs
+`lgteun_texture_match` and `lgteun_patch_match` at INNT's shapes and
+prints each phase's clocks a block, its share and that share of an
+unstamped launch's device time, the clocks a chunk of the products and
+of the fold, and the blocks' clock rate, blocks an SM and the gaps
+between them.
 """
 
 from __future__ import annotations
@@ -513,11 +531,11 @@ def stamped_copy(dst: Path) -> None:
         f.write_text(src.replace(anchor, text))
 
 
-def read_stamps(dll: ctypes.CDLL, entry: str, blocks: int,
-                cols: int) -> tuple[list, int]:
+def read_stamps(dll: ctypes.CDLL, entry: str, blocks: int, cols: int,
+                mean: bool = True):
     """(the mean, the number of blocks averaged) over the first `blocks`
     blocks with stamps of the [MAX_BLOCKS, cols] stamps that C entry
-    `entry` of `dll` copies out."""
+    `entry` of `dll` copies out; with mean=False those blocks' rows."""
     fn = getattr(dll, entry)
     fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
     h = torch.zeros(MAX_BLOCKS, cols, dtype=torch.int64)
@@ -526,7 +544,7 @@ def read_stamps(dll: ctypes.CDLL, entry: str, blocks: int,
         raise RuntimeError(f"reading the stamps: CUDA error {err}")
     h = h[:min(blocks, MAX_BLOCKS)]
     h = h[h.sum(1) > 0]
-    return h.double().mean(0).tolist(), h.shape[0]
+    return (h.double().mean(0).tolist(), h.shape[0]) if mean else h
 
 
 def phases(card: str, batch: int, tmp: str) -> None:
@@ -711,6 +729,141 @@ def b8_phases(card: str, tmp: str, src: str | None, only: int = 0) -> None:
                   f"{whole / sum(chain.values()):.3f}  [{card}]")
 
 
+SEARCH_PHASES = ("staging", "A fragments", "products", "fold", "merge",
+                 "end barrier", "fold/transfer")
+
+
+def search_phases(card: str, batch: int, tmp: str, src: str | None) -> None:
+    """Print the INNT searches' clocks by phase on the tensor-core branch
+    (thread 0 of each block, warpgroup 0's; see --search-phases): a copy
+    of CSRC built with LGTEUN_SEARCH_STAMPS, `lgteun_texture_match` and
+    `lgteun_patch_match` at INNT's shapes (N = 256 patch-images an image,
+    C = 4, side 24), each phase's clocks a block, its share and that
+    share of the device time of an unstamped launch."""
+    from chip_smoke import device_profile
+    from lgteun_tpu_torch.ops import _cuda
+    from lgteun_tpu_torch.ops.texture_match_kernel import row_normalize
+    dst = Path(tmp) / "csrc"
+    shutil.copytree(Path(src) if src else _cuda.CSRC, dst)
+    f = dst / "texture_match.cu"
+    f.write_text(f"#define LGTEUN_SEARCH_STAMPS {MAX_BLOCKS}\n"
+                 + f.read_text())
+    stamped = build(str(dst), tmp, "searchstamped")
+    plain = build(src, tmp, "search") if src else _cuda.kernels()
+    gen = torch.Generator().manual_seed(19971118)
+    n, c, side = 256 * batch, 4, 24
+    q = side * side
+    lr, ref = (torch.randn(n, c, q, generator=gen).cuda() for _ in range(2))
+    unf = lambda v: F.unfold(v.view(n, c, side, side), 3, padding=1)
+    ref_u = unf(ref)
+    lr_n = row_normalize(unf(lr), 1).transpose(1, 2).contiguous()
+    ref_n = row_normalize(ref_u, 1).transpose(1, 2).contiguous()
+    t, s = torch.empty(n, c, q, device="cuda"), torch.empty(n, q,
+                                                            device="cuda")
+    tt = torch.empty(n, 9 * c, q, device="cuda")
+    cases = {"texture_match": ("lgteun_texture_match", (lr, ref, t, s, n, c,
+                                                        side)),
+             "patch_match": ("lgteun_patch_match", (lr_n, ref_n, ref_u, tt,
+                                                    s, n, q, 9 * c))}
+    for name, (entry, args) in cases.items():
+        whole = device_profile(caller(plain, entry, *args),
+                               n=20)["busy_ms_per_call"]
+        run = caller(stamped, entry, *args)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        h = read_stamps(stamped, "lgteun_read_search_stamps", MAX_BLOCKS,
+                        12, mean=False)
+        m = h.double().mean(0).tolist()
+        total = sum(m[:7])
+        parts = "  ".join(f"{p} {v:.0f} ({v / total:.3f}, "
+                          f"{v / total * whole:.4f} ms)"
+                          for p, v in zip(SEARCH_PHASES, m))
+        # per SM: the blocks' global-timer spans, the gaps between them,
+        # and the clock rate (clocks / ns)
+        span = (h[:, 9] - h[:, 8]).double()
+        ghz = (h[:, 11].double() / span).mean().item()
+        gaps, per_sm = [], []
+        for sm in h[:, 10].unique():
+            b = h[h[:, 10] == sm]
+            b = b[b[:, 8].argsort()]
+            gaps += (b[1:, 8] - b[:-1, 9]).tolist()
+            per_sm.append(len(b))
+        launch_ns = (h[:, 9].max() - h[:, 8].min()).item()
+        print(f"search phases {name} {n}x{c}x{q}: {whole:.4f} ms (device), "
+              f"{total:.0f} clocks a block (thread 0, mean of {len(h)} "
+              f"blocks; {m[7]:.0f} chunks: products {m[2] / m[7]:.0f}, fold "
+              f"{m[3] / m[7]:.0f} clocks a chunk): {parts}; a block "
+              f"{span.mean().item() / 1e3:.2f} us at {ghz:.3f} GHz, "
+              f"{min(per_sm)}-{max(per_sm)} blocks an SM, gaps between "
+              f"them {sum(gaps) / max(len(gaps), 1) / 1e3:.2f} us, first "
+              f"start to last end {launch_ns / 1e6:.4f} ms  [{card}]")
+
+
+def innt_ab(card: str, libs: dict) -> None:
+    """INNT's eval forward (the shipped config, seeded weights, seeded WV-3
+    images) with library A's and B's searches in turns A B B A twice, with
+    and without LGTEUN_FUSED_TM=0: batch-16 ms (CUDA events, 10 calls),
+    batch-1 latency (median of 15 synchronised calls), device busy time
+    and the top device kernels (profiler) and max|A - B| of the output,
+    which near-tie picks may move."""
+    import statistics
+    import time
+    from chip_smoke import CONFIGS, SEED, SceneDataset, device_profile, \
+        time_ms
+    from lgteun_tpu_torch.config import load_config
+    from lgteun_tpu_torch.data.pipeline import eval_batches
+    from lgteun_tpu_torch.ops import _cuda
+    from lgteun_tpu_torch.registry import build_model
+    from lgteun_tpu_torch.runner import Runner
+    from unittest import mock
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    own = _cuda.kernels
+    try:
+        for env in ({}, {"LGTEUN_FUSED_TM": "0"}):
+            cfg = load_config(os.path.join(CONFIGS, "INNT.py"))
+            with mock.patch.dict(os.environ, env):
+                method = build_model(cfg.model_type, cfg, device="cuda")
+            runner = Runner(cfg, method, "cuda").init(SEED)
+            items = next(eval_batches(SceneDataset(16, cfg.ms_chans, SEED),
+                                      16))[0]
+            b16 = runner.to_device(items)
+            b1 = runner.to_device({k: v[:1] for k, v in items.items()
+                                   if k != "image_id"})
+            ms, lat, prof, out = {"A": [], "B": []}, {"A": [], "B": []}, \
+                {}, {}
+            for tag in "ABBAABBA":
+                _cuda.kernels = (lambda lib: lambda: lib)(libs[tag])
+                for _ in range(3):
+                    runner.predict(b16)
+                ms[tag].append(time_ms(lambda: runner.predict(b16), iters=10))
+                for _ in range(15):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runner.predict(b1)
+                    torch.cuda.synchronize()
+                    lat[tag].append((time.perf_counter() - t0) * 1e3)
+                if tag not in prof:
+                    prof[tag] = device_profile(lambda: runner.predict(b16))
+                    out[tag] = runner.predict(b16).cpu()
+            for tag in "AB":
+                p, med = prof[tag], statistics.median(ms[tag])
+                top = "; ".join(f"{share:.3f} {name[:40]}"
+                                for name, share in p["top"][:6])
+                print(f"innt {env} {tag}: batch-16 "
+                      f"{[round(x, 3) for x in ms[tag]]} ms, median {med:.3f}"
+                      f" = {16e3 / med:.1f} images/s; batch-1 median "
+                      f"{statistics.median(lat[tag]):.3f} ms; device busy "
+                      f"{p['busy_ms_per_call']:.3f} of "
+                      f"{p['wall_ms_per_call']:.3f} ms (idle "
+                      f"{p['idle_share']:.3f}); top: {top}  [{card}]")
+            print(f"innt {env}: max|B - A| of the batch-16 output "
+                  f"{(out['A'] - out['B']).abs().max().item():.3e}")
+    finally:
+        _cuda.kernels = own
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("a", nargs="?")
@@ -724,6 +877,10 @@ def main() -> int:
                     metavar="CSRC",
                     help="time the whole block's kinds of work instead, "
                          "in CSRC (default: the port's csrc)")
+    ap.add_argument("--search-phases", nargs="?", const="", default=None,
+                    metavar="CSRC",
+                    help="time the INNT searches' phases instead, in CSRC "
+                         "(default: the port's csrc)")
     ap.add_argument("--b8-only", type=int, default=0, choices=(0, 1, 2),
                     help="with --b8-phases: 1 times the LN and plane items "
                          "alone, 2 the tail items alone")
@@ -731,6 +888,9 @@ def main() -> int:
     ap.add_argument("--sizes", default="128,64,144,72",
                     help="H = W of the LGB cases (C 32 at 128 and 144, "
                          "C 64 at 64 and 72)")
+    ap.add_argument("--innt", action="store_true",
+                    help="time INNT's eval forward with A's and B's "
+                         "searches instead of the kernel cases")
     ap.add_argument("--only", default="", metavar="TEXT",
                     help="run only the cases whose label contains TEXT")
     ap.add_argument("--tol", type=float, default=None, metavar="REL",
@@ -741,15 +901,20 @@ def main() -> int:
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from chip_smoke import device_profile, sh, time_ms
+    from chip_smoke import (KERNEL_REL_TOL, device_profile, near_tie_mask,
+                            sh, time_ms)
     from lgteun_tpu_torch.ops.texture_match_kernel import row_normalize
 
     card = sh("nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader").splitlines()[0]
-    if opts.mma_rate or opts.phases or opts.b8_phases is not None:
+    if opts.mma_rate or opts.phases or opts.b8_phases is not None \
+            or opts.search_phases is not None:
         with tempfile.TemporaryDirectory() as tmp:
             if opts.mma_rate:
                 mma_rate(card, tmp)
+            elif opts.search_phases is not None:
+                search_phases(card, opts.batch, tmp,
+                              opts.search_phases or None)
             elif opts.b8_phases is not None:
                 b8_phases(card, tmp, opts.b8_phases or None, opts.b8_only)
             else:
@@ -759,6 +924,9 @@ def main() -> int:
         ap.error("A and B are needed without --mma-rate or --phases")
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"A": build(opts.a, tmp, "a"), "B": build(opts.b, tmp, "b")}
+    if opts.innt:
+        innt_ab(card, libs)
+        return 0
     gen = torch.Generator().manual_seed(19971118)
     n, c, side = 256 * opts.batch, 4, 24
     q = side * side
@@ -808,6 +976,21 @@ def main() -> int:
                for t, o in outs.items()}
         same = all(torch.equal(x, y) for x, y in zip(got["A"], got["B"]))
         rel = 0.0 if same else rel_diff(got["A"], got["B"])
+        verdict = f"outputs bit-equal {same}"
+        ok = same or (opts.tol is not None and rel <= opts.tol)
+        search = label.split()[0]
+        if search in ("texture_match", "patch_match"):
+            (ta, sa), (tb, sb) = got["A"], got["B"]
+            mask, n_near = near_tie_mask(search, ins(None), ta)
+            picks = torch.equal(ta * ~mask, tb * ~mask)
+            rel = rel_diff((sa,), (sb,))
+            print(f"ab {label}: near-tie queries {n_near}, masked "
+                  f"{int(mask.sum())} of {ta.numel()} transferred values; "
+                  f"transferred values bit-equal outside them {picks}; "
+                  f"s max|B - A| / max|A| {rel:.3e}")
+            ok = picks and rel <= (opts.tol if opts.tol is not None
+                                   else KERNEL_REL_TOL)
+            verdict = f"picks equal and s within the bound {ok}"
         a1, b1, b2, a2 = (time_ms(calls[t]) for t in "ABBA")
         dev = {t: device_profile(calls[t], n=20)["busy_ms_per_call"]
                for t in "AB"}
@@ -815,9 +998,8 @@ def main() -> int:
               f"{b1:.4f}/{b2:.4f} ms  A/B {(a1 + a2) / (b1 + b2):.3f}  "
               f"device A {dev['A']:.4f} B {dev['B']:.4f} ms A/B "
               f"{dev['A'] / dev['B']:.3f}  "
-              f"outputs bit-equal {same}, max|B - A| / max|A| {rel:.3e}  "
-              f"[{card}]")
-        if not (same or (opts.tol is not None and rel <= opts.tol)):
+              f"{verdict}, max|B - A| / max|A| {rel:.3e}  [{card}]")
+        if not ok:
             failed.append(f"{label} ({rel:.3e})")
     if failed:
         raise AssertionError("B's outputs differ from A's"

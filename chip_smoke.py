@@ -20,7 +20,7 @@ its config's eval batch size, with random weights from a seed:
   attention, the global mixer and LN + FFN per block), at level 3 (the
   whole block in one kernel) and with LGTEUN_FUSED_ATTENTION=v2 (the
   window attention on [N, C, S] windows);
-- lightnet (WV-3, 8 bands): the SpanConv stack kernel;
+- lightnet (WV-3, 8 bands): the SpanConv stack kernel (five launches);
 - MDCUN (WV-3, 8 bands, T=4): the neighbourhood-attention kernel;
 - INNT (WV-3, 8 bands, n_feat 8): the texture-match kernel, and in a
   second pass with LGTEUN_FUSED_TM=0 the patch-match kernel.
@@ -61,8 +61,13 @@ CPU plain path, each against a float64 run of the CPU plain path.
 The FFT mixer (the mixer head B1, the global mixer B4 and the whole
 block's planes, one device body on the half spectrum) is also held on
 planes constant along H and along W at 128^2, 144^2 and 72^2 against
-the CPU plain version (pocketfft keeps their zero bins exactly zero
-there; a bin that is not would carry a noise phase into the output),
+the CPU plain version (which keeps their zero bins exactly zero whatever
+the host's FFT library leaves there; a bin that is not would carry a
+noise phase into the output), with a `c33` line per case: hashes of the
+input and of the kernel's, the card's plain and the CPU's plain output,
+the kernel's bits over REPEATS launches, the CPU side's capability, MKL
+and threads, the planes' values off the constant and non-zero bins, and
+the CPU output at 1 thread against N (ROADMAP C.33),
 the head is launched REPEATS more times on the same inputs (same bits),
 its twiddle and position tables (`lgteun_fft_tables`) are held against
 their plain version, ptxas's registers and spills of the mixer's and the
@@ -88,6 +93,19 @@ cores; a patch match at L = 100 ends inside a 64-query tile), the
 wrappers' branch rule must equal the library's on every shape the
 kernels take, and the tensor-core cases get the tensor-core bound, their
 achieved TFLOP/s and cuobjdump's LDL/STL and HGMMA counts.
+
+LightNet's stack (five launches of two layers, the pointwise convs on
+the tensor cores) is held at 8 bands [4,9,128,128], 4 bands
+[4,5,128,128] and a ragged [1,9,72,100]; the neighbourhood attention at
+[4,8,128,128], [1,8,72,100], 4 bands [4,4,128,128], C = 16 and 32, a
+31-wide window (two key chunks a row) and at C = 16, fs = 25 on its
+FP32-core branch. Both are launched REPEATS more times on the same
+inputs (same bits), print the tensor-core bound, count the mma.sync
+(HMMA) instructions in their kernels' SASS (which must not be 0), the
+attention's branch rule is held against the library's
+(`lgteun_neighborhood_attention_tc`) and LightNet's weight layout
+(`lightnet_fragments`) made on the card against the same made on the
+CPU, bit for bit.
 
 The two INNT searches pick, per query, the first maximum of a
 similarity; a query whose best value lies within 1e-5 of the next lower
@@ -132,10 +150,12 @@ import argparse
 import collections
 import contextlib
 import copy
+import hashlib
 import importlib
 import json
 import logging
 import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -175,8 +195,8 @@ BRANCHES = {**dict.fromkeys(ATTENTION, ("tc", "fp32")),
                             ("pair", "block512", "block256")),
             **dict.fromkeys(TAILS, ("tile", "wide")),
             "lgb_block": ("tc", "tile", "wide"),
-            **dict.fromkeys(("texture_match", "patch_match"), ("tc",
-                                                               "fp32"))}
+            **dict.fromkeys(("texture_match", "patch_match",
+                             "neighborhood_attention"), ("tc", "fp32"))}
 DROP_RATE = 0.1             # the kernel cases' dropout mask
 # a differentiable wrapper vs plain autograd on the card: the backward is
 # the same plain graph on the same saved inputs and the loss is linear in
@@ -330,7 +350,7 @@ SLICES = (
     ("unlg_former.py", {"ln_mixer_head": 5, "window_attention_windows": 5,
                         "block_tail": 5}, 5e-4, 2,
      {"LGTEUN_FUSED_ATTENTION": "v2"}, N_IMAGES),
-    ("lightnet.py", {"lightnet_stack": 3}, 1e-4, 2, {}, N_IMAGES),
+    ("lightnet.py", {"lightnet_stack": 5}, 1e-4, 2, {}, N_IMAGES),
     ("MDCUN.py", {"neighborhood_attention": 4}, 1e-3, 1, {}, N_IMAGES),
     ("INNT.py", {"texture_match": 1}, 5e-4, 1, {}, N_IMAGES),
     ("INNT.py", {"patch_match": 1}, 5e-4, 1, {"LGTEUN_FUSED_TM": "0"}, 16),
@@ -566,14 +586,35 @@ def kernel_cases(gen: torch.Generator):
     x = torch.cat([n(b, 1, hw, hw), lms], dim=1)
     yield ("lightnet_stack", f"{b}x{bands + 1}x{hw}x{hw}", lightnet_stack,
            lightnet_stack_ref, (x, lms, layers))
-    # MDCUN's blockNL at 8 bands, and one ragged shape for the borders
+    # the 4-band stack (5 input channels), and a ragged batch-1 image
+    for sb, sbands, sh_, sw in ((b, 4, hw, hw), (1, bands, 72, 100)):
+        slayers = []
+        for _n, cin, cout, _r in lightnet_layers(sbands):
+            span = []
+            for _branch in range(2):
+                span += [n(cout, cin, 1, 1, scale=(2 / cout) ** 0.5),
+                         0.1 * n(cout), n(cout, 1, 3, 3, scale=(2 / 9 / cout)
+                                          ** 0.5), 0.1 * n(cout)]
+            slayers.append(tuple(span))
+        slms = n(sb, sbands, sh_, sw)
+        sx = torch.cat([n(sb, 1, sh_, sw), slms], dim=1)
+        yield ("lightnet_stack", f"{sb}x{sbands + 1}x{sh_}x{sw}",
+               lightnet_stack, lightnet_stack_ref, (sx, slms, slayers))
+    # MDCUN's blockNL at 8 bands, one ragged shape for the borders, 4
+    # bands, C = 16 and 32 (tensor cores), a 31-wide window (two key
+    # chunks a row) and a 25-wide one at C = 16 (the FP32-core branch)
     from lgteun_tpu_torch.ops.nonlocal_kernel import (
         neighborhood_attention, neighborhood_attention_ref)
-    for shape in ((b, bands, hw, hw), (1, bands, 72, 100)):
-        na = (n(*shape),) + tuple(n(bands, bands, scale=bands ** -0.5)
-                                  for _ in range(4)) + (15,)
-        yield ("neighborhood_attention", "x".join(map(str, shape)),
-               neighborhood_attention, neighborhood_attention_ref, na)
+    for shape, fs in (((b, bands, hw, hw), 15), ((1, bands, 72, 100), 15),
+                      ((b, 4, hw, hw), 15), ((2, 16, 40, 56), 15),
+                      ((2, 32, 24, 40), 15), ((1, bands, 40, 40), 31),
+                      ((1, 16, 40, 40), 25)):
+        c = shape[1]
+        na = (n(*shape),) + tuple(n(c, c, scale=c ** -0.5)
+                                  for _ in range(4)) + (fs,)
+        yield ("neighborhood_attention", "x".join(map(str, shape))
+               + ("" if fs == 15 else f"-fs{fs}"), neighborhood_attention,
+               neighborhood_attention_ref, na)
 
     # INNT's searches at batch 4 (N = 256 patch-images an image, C =
     # n_feat / 2 = 4, side 24); a quarter of the images get the zero rims
@@ -801,11 +842,16 @@ def attention_shape(name: str, args) -> tuple:
 
 
 def search_branch(name: str, args) -> str:
-    """The branch ("tc" or "fp32") a search kernel takes for its args."""
+    """The branch ("tc" or "fp32") a search kernel or the neighbourhood
+    attention takes for its args."""
+    from lgteun_tpu_torch.ops.nonlocal_kernel import \
+        neighborhood_attention_branch
     from lgteun_tpu_torch.ops.patch_match_kernel import patch_match_branch
     from lgteun_tpu_torch.ops.texture_match_kernel import \
         texture_match_branch
     x = args[0]
+    if name == "neighborhood_attention":
+        return neighborhood_attention_branch(x.shape[1], args[5])
     if name == "texture_match":
         return texture_match_branch(x.shape[1], int(round(x.shape[2]
                                                           ** 0.5)))
@@ -820,17 +866,27 @@ def on_tensor_cores(name: str, args) -> bool:
     if name in ATTENTION:
         from lgteun_tpu_torch.ops.window_attention import attention_branch
         return attention_branch(*attention_shape(name, args)) == "tc"
-    if name in ("texture_match", "patch_match"):
+    if name in ("texture_match", "patch_match", "neighborhood_attention"):
         return search_branch(name, args) == "tc"
-    return False
+    return name == "lightnet_stack"
 
 
 def product_flops(name: str, args) -> float:
     """The operations of the products a kernel runs on the tensor cores,
     which kernel_flops counts among the rest: a tail's four (three for
     ln_ffn) 1x1 products; the window attention's qkv, logits and A.V;
-    the searches' R = ref_n . lr_n^T."""
+    the searches' R = ref_n . lr_n^T; LightNet's pointwise convs (both
+    branches of every layer); the neighbourhood attention's logits and
+    weighted sum over the fs^2 offsets."""
     x = args[0]
+    if name == "lightnet_stack":
+        from lgteun_tpu_torch.ops.lightnet_kernel import lightnet_layers
+        b, _, h, w = x.shape
+        return b * h * w * sum(2 * 2 * cin * cout for _n, cin, cout, _r in
+                               lightnet_layers(args[1].shape[1]))
+    if name == "neighborhood_attention":
+        b, c, h, w = x.shape
+        return b * h * w * args[5] ** 2 * 4 * c
     if name == "texture_match":
         nimg, c, q = x.shape
         return nimg * 2 * q * q * 9 * c
@@ -984,13 +1040,13 @@ def main() -> int:
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         if "-const" in shape:
-            # against the CPU plain version (pocketfft keeps those bins
-            # exactly zero at 2^a 3^b; cuFFT's are printed)
-            cpu = plain(*(a.cpu() for a in args))
-            cpu = tuple(t.cuda() for t in (cpu if isinstance(cpu, tuple)
-                                           else (cpu,)))
+            # against the CPU plain version, which keeps those bins
+            # exactly zero (the card's plain line is printed)
+            cpu, evidence = const_plane_cpu(name, shape, kernel, plain,
+                                            args, got, want)
             print(f"kernel {name:17s} {shape:14s} card plain vs CPU plain "
                   f"{rel_err(want, cpu)[0]:.3e}")
+            print(evidence)
             want = cpu
         if name in ("texture_match", "patch_match"):
             rel, ab = check_search(name, shape, got, want, args)
@@ -1033,7 +1089,8 @@ def main() -> int:
                   f"normalised vectors (the correlation alone, no first-max)"
                   f" {yard:.4f} ms (a yardstick only)")
             rec["by_shape"][shape]["bmm_ms"] = yard
-        if name in ("lgb_block", "window_attention") or (
+        if name in ("lgb_block", "window_attention", "lightnet_stack",
+                    "neighborhood_attention") or (
                 name == "ln_mixer_head" and "-" not in shape):
             same = all(all(map(torch.equal, as_tuple(kernel(*args)), got))
                        for _ in range(REPEATS))
@@ -1041,7 +1098,8 @@ def main() -> int:
                   f"on the same inputs bit-identical: {same}")
             if not same:
                 raise AssertionError(f"{name} {shape}: not deterministic")
-        if name in ("texture_match", "patch_match"):
+        if name in ("texture_match", "patch_match",
+                    "neighborhood_attention"):
             print(f"kernel {name:17s} {shape:14s} branch "
                   f"{search_branch(name, args)}")
         if on_tensor_cores(name, args):
@@ -1058,6 +1116,8 @@ def main() -> int:
 
     check_branches(wrappers)
     check_search_rule()
+    check_na_rule()
+    check_lightnet_layout(gen)
     check_lgb_grids(lgb_inputs)
     check_tail_layout(gen)
     check_fft_tables()
@@ -1109,6 +1169,90 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def digest(*tensors) -> str:
+    """A short hash of the tensors' bytes (on the host)."""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:10]
+
+
+def cpu_identity() -> str:
+    """The CPU side of the plain path: torch's kernel capability, MKL,
+    the thread count and the CPU model."""
+    fields = {}
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, value = ln.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    model = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model")
+        if k in fields) or platform.processor() or "unknown"
+    return (f"capability {torch.backends.cpu.get_cpu_capability()}, mkl "
+            f"{torch.backends.mkl.is_available()}, threads "
+            f"{torch.get_num_threads()}, {model}")
+
+
+def const_plane_cpu(name, shape, kernel, plain, args, got,
+                    card_plain) -> tuple:
+    """ROADMAP C.33: the CPU plain output of a constant-plane mixer case
+    and one line of evidence on it: hashes of the input, the kernel's
+    output, the card's and the CPU's plain output; the kernel's bits over
+    REPEATS more launches; the CPU side's identity; the plain version's
+    stages (the mixer's planes, their rfft2 with the exact zero bins, the
+    mixed spectrum, the output) in this first CPU run, in a second one
+    and in one on 1 thread, with the first stage where the second or the
+    1-thread run differs from the first; the planes' values off the
+    constant and the FFT library's own non-zero bins along it."""
+    from lgteun_tpu_torch.ops.norm import channel_layer_norm
+    from lgteun_tpu_torch.ops.spectral_kernel import (mixer_inverse,
+                                                      mixer_spectrum,
+                                                      plane_rfft2)
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    axis = -2 if shape.endswith("H") else -1
+
+    def run():
+        out = as_tuple(plain(*cpu_args))
+        x = cpu_args[0]
+        mix = cpu_args[3:] if name == "ln_mixer_head" else cpu_args[1:]
+        if name == "ln_mixer_head":
+            x = channel_layer_norm(x, cpu_args[1], cpu_args[2])[
+                :, x.shape[1] // 2:]
+        raw = torch.fft.rfft2(x)
+        z = plane_rfft2(x)
+        spec = mixer_spectrum(z, x.shape[-1], *mix)
+        stages = (x, z, spec, mixer_inverse(spec, x.shape[-1]), out[-1])
+        return out, stages, (int((x != x.narrow(axis, 0, 1)).sum()), int(
+            (raw.narrow(axis, 1, raw.shape[axis] - 1) != 0).sum()))
+
+    first, stages1, counts1 = run()
+    _, stages2, counts2 = run()
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        _, stages_t1, counts_t1 = run()
+    finally:
+        torch.set_num_threads(threads)
+    labels = ("planes", "rfft2", "spectrum", "stages' output", "output")
+
+    def differs(other):
+        return next((lab for lab, a, b in zip(labels, stages1, other)
+                     if not torch.equal(a, b)), "none")
+    hashes = {digest(*as_tuple(kernel(*args))) for _ in range(REPEATS)}
+    line = (f"c33 {name} {shape}: input {digest(args[0])} kernel "
+            f"{digest(*got)} card plain {digest(*card_plain)} cpu plain "
+            f"{digest(*first)}; kernel over {REPEATS} launches "
+            f"{'same bits' if hashes == {digest(*got)} else sorted(hashes)}; "
+            f"cpu {cpu_identity()}; first stage that differs from the first "
+            f"CPU run: a second run {differs(stages2)}, on 1 thread "
+            f"{differs(stages_t1)}; planes off the constant, the FFT "
+            f"library's non-zero bins along it: {counts1}, {counts2}, "
+            f"{counts_t1}; the stages give the plain output: "
+            f"{torch.equal(stages1[3], stages1[4])}")
+    return tuple(t.cuda() for t in first), line
 
 
 def as_tuple(out) -> tuple:
@@ -1183,17 +1327,26 @@ def check_lgb_grids(lgb_inputs: dict) -> None:
                                  f"the grid: {same}")
 
 
+# kernels whose products run as mma.sync on the tensor cores: their SASS
+# must hold HMMA instructions
+MMA_KERNELS = ("lightnet_group_kernel", "na_tc_kernel")
+
+
 def print_sass(lib_path) -> None:
     """Local-memory loads and stores (LDL / STL) in the SASS of the whole
     block's kernel (its calls, the mixer's plane and the tail's tile,
     included): in all, and between the attention's raising setmaxnreg and
-    the one that returns the registers (the window items' region); and in
-    the searches' tensor-core kernels, with their wgmma (HGMMA) count."""
+    the one that returns the registers (the window items' region); in
+    the searches' tensor-core kernels, with their wgmma (HGMMA) count;
+    and in LightNet's and the neighbourhood attention's kernels
+    (MMA_KERNELS), with their mma.sync (HMMA) count, which must not be
+    0."""
     import re
     from lgteun_tpu_torch.ops import _cuda
     cuobjdump = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
+    mma = collections.Counter()
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         head = fn.split("\n", 1)[0]
         search = next((k for k in ("tm_tc_kernel", "pm_tc_kernel")
@@ -1202,6 +1355,15 @@ def print_sass(lib_path) -> None:
             local = len(re.findall(r"\b(?:LDL|STL)\b", fn))
             print(f"sass {search}: LDL/STL {local}, HGMMA "
                   f"{len(re.findall(r'HGMMA', fn))}")
+            continue
+        tc = next((k for k in MMA_KERNELS if k in head), None)
+        if tc:
+            inst = re.search(r"ILi(\d+)E", head)
+            label = tc + (f"<{inst.group(1)}>" if inst else "")
+            local = len(re.findall(r"\b(?:LDL|STL)\b", fn))
+            hmma = len(re.findall(r"\bHMMA\b", fn))
+            mma[tc] += hmma
+            print(f"sass {label}: LDL/STL {local}, HMMA {hmma}")
             continue
         name = "lgb_block_kernel"
         if name not in head:
@@ -1218,6 +1380,9 @@ def print_sass(lib_path) -> None:
                 raised += inside
         print(f"sass {name}: LDL/STL {total}, of them {raised} in the "
               f"window items' raised-register regions")
+    missing = [k for k in MMA_KERNELS if not mma[k]]
+    if missing:
+        raise AssertionError(f"no mma.sync (HMMA) in the SASS of {missing}")
 
 
 def check_fft_tables() -> None:
@@ -1253,12 +1418,15 @@ def check_fft_tables() -> None:
 # smoke prints (the whole block calls the mixer's body as mixer_plane)
 PTXAS_NAMES = ("fft_mixer_pair_kernel", "fft_mixer_kernel", "mixer_plane",
                "fft_pass_generic", "lgb_block_kernel", "tm_tc_kernel",
-               "pm_tc_kernel")
+               "pm_tc_kernel", "lightnet_group_kernel", "na_tc_kernel",
+               "na_fp32_kernel")
 
 
 def print_ptxas(lib_path) -> None:
     """ptxas's registers, stack and spills of the FFT mixer's kernels and
-    functions and of the whole-block kernel, from the build's log."""
+    functions, of the whole-block kernel, of the searches' and LightNet's
+    tensor-core kernels and of the neighbourhood attention's two bodies,
+    from the build's log."""
     import re
     from lgteun_tpu_torch.ops import _cuda
     entry = None
@@ -1267,9 +1435,9 @@ def print_ptxas(lib_path) -> None:
                 "Function properties for" in line:
             mangled = line.split("'")[1] if "'" in line else line.split()[-1]
             name = next((k for k in PTXAS_NAMES if k in mangled), None)
-            threads = re.search(r"fft_mixer_kernelILi(\d+)E", mangled)
-            entry = name and name + (f"<{threads.group(1)}>" if threads
-                                     else "")
+            inst = re.search(r"(?:fft_mixer_kernel|na_tc_kernel|"
+                             r"na_fp32_kernel)ILi(\d+)E", mangled)
+            entry = name and name + (f"<{inst.group(1)}>" if inst else "")
         elif entry and ("spill" in line or "Used" in line):
             print(f"ptxas {entry}: {line.split(':', 1)[-1].strip()}")
 
@@ -1313,6 +1481,55 @@ def check_search_rule() -> None:
         if differ:
             raise AssertionError(f"{name}: the library's branch differs at "
                                  f"{differ[:5]}")
+
+
+def check_na_rule() -> None:
+    """The neighbourhood attention's branch rule in Python (which the
+    wrapper counts) equals the library's (which the C entry follows) on
+    every shape the kernel takes: C 1-32, odd fs 1-99 where a branch's
+    shared memory fits."""
+    from lgteun_tpu_torch.ops import _cuda
+    from lgteun_tpu_torch.ops.nonlocal_kernel import (
+        _SMEM_MAX, _smem_bytes, _tc_smem_bytes, neighborhood_attention_branch)
+    lib = _cuda.kernels()
+    shapes = [(c, fs) for c in range(1, 33) for fs in range(1, 100, 2)
+              if min(_smem_bytes(c, fs), _tc_smem_bytes(c, fs)) <= _SMEM_MAX]
+    differ = [sh for sh in shapes
+              if (neighborhood_attention_branch(*sh) == "tc")
+              != bool(lib.lgteun_neighborhood_attention_tc(*sh))]
+    n_tc = sum(neighborhood_attention_branch(*sh) == "tc" for sh in shapes)
+    print(f"kernel neighborhood_attention branch rule: {len(shapes)} shapes, "
+          f"{n_tc} tc, the library agrees on all but {len(differ)}")
+    if differ:
+        raise AssertionError(f"neighborhood_attention: the library's branch "
+                             f"differs at {differ[:5]}")
+
+
+def check_lightnet_layout(gen: torch.Generator) -> None:
+    """LightNet's weight layout (`lightnet_fragments`: the pointwise
+    weights split into TF32 hi/lo in the B fragments' order) made on the
+    card bit for bit against the same made on the CPU, at 4 and 8 bands,
+    with values over many binades."""
+    from lgteun_tpu_torch.ops.lightnet_kernel import (lightnet_fragments,
+                                                      lightnet_layers)
+    floats = 0
+    for bands in (4, 8):
+        table = lightnet_layers(bands)
+        layers = [tuple(torch.randn(*shp, generator=gen) * torch.exp2(
+            torch.randint(-40, 40, shp, generator=gen).float())
+            for shp in ((cout, cin, 1, 1), (cout,), (cout, 1, 3, 3),
+                        (cout,)) * 2) for _n, cin, cout, _r in table]
+        want, rows = lightnet_fragments(layers, table)
+        got, got_rows = lightnet_fragments(
+            [tuple(t.cuda() for t in layer) for layer in layers], table)
+        if not torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)) or \
+                not torch.equal(got_rows, rows):
+            raise AssertionError(f"lightnet_fragments at {bands} bands: the "
+                                 "card's bits differ from the CPU's")
+        floats += want.numel()
+    print(f"lightnet_fragments: 4 and 8 bands ({floats} floats) bit-equal "
+          "on the card and the CPU")
 
 
 def check_tail_layout(gen: torch.Generator) -> None:

@@ -8,41 +8,498 @@
 //   out[p]    = Ww ( sum_f att(p, f) g[p + f] ) + x[p]
 // with theta = Wt x, phi = Wp x, g = Wg x (bias-free 1x1 convs).
 //
-// What bounds it here: at C = 8 and fs = 15 a pixel takes 225 dot
-// products of length C, 225 exponentials and 225 scaled adds of C values
-// (about 3.9 K multiply-adds), all from shared memory; the input and
-// output are 64 B a pixel. It is bound by the FP32 cores and shared
-// memory reads, not by device memory. The TPU kernel kept a
-// [fs*fs, rows*W] logit scratch and two passes in VMEM; a register file
-// has no room for 225 logits a pixel.
+// What bounds it: at C = 8 and fs = 15 a pixel takes 225 dot products of
+// length C, 225 exponentials and 225 scaled adds of C values (about 3.9 K
+// multiply-adds); the input and output are 64 B a pixel. It is bound by
+// operations: at [4,8,128,128] 0.0084 ms at the FP32 rate, 0.0042 ms
+// with the logits and the weighted sum on the tensor cores (3xTF32 at 495
+// TFLOP/s, the rest at 67). This body takes 0.041 ms there and 0.010 ms
+// at [1,8,72,100] (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6), a
+// tenth of its bound: clock stamps (scripts/torch_kernel_ab.py
+// --stack-phases) put a block's time in staging phi and g (about 20 %),
+// the logits (22 %), the mask, maximum and exponentials (26 %) and P.g
+// (21 %), each bound by instruction issue around the products (the 3xTF32
+// split of every operand as loaded, the mask); the exponentials (16 a
+// lane a 32-key chunk, 2.1x the 225 needed a query) are about 8 us of
+// MUFU ex2 at [4,8,128,128] and do not bind. The earlier body (kept
+// below as the FP32-core branch) ran one thread a pixel over the
+// 225 offsets with a branch per offset on the running maximum, and
+// 16x16-pixel blocks: 0.0816 ms at [4,8,128,128] and 0.0722 ms at
+// [1,8,72,100], where its 35 blocks left most of the 132 SMs idle. The
+// TPU kernel kept a [fs*fs, rows*W] logit scratch and two passes in VMEM.
 //
-// Design: one block of 256 threads per (image, 16x16 output tile), one
-// thread per output pixel. The block first computes phi and g on the
-// tile plus a (fs/2)-pixel halo into shared memory, planar [C][E*E] with
-// E = 16 + fs - 1 (57.6 KB at C = 8, fs = 15), writing zeros outside the
-// image. An out-of-image neighbour is not skipped: it takes part in the
-// softmax with logit 0 and g = 0, as the reference's F.unfold padding
-// gives. Each thread keeps theta and the C accumulators in registers and
-// makes one pass over the offsets with a running-max (online) softmax,
-// so no logit is stored. Ragged tiles are masked, so any H, W work. The
-// channel count is a template bound (4, 8, 16 or 32) with the true C
-// masked, so theta and the accumulators stay in registers.
+// Design (tensor cores, `na_tc_kernel`): a warp takes a run of 16
+// queries along a row, a block 4 runs (4 rows x 16 columns: [1,8,72,100]
+// gives 126 blocks), or 8 where that grid still gives 3 blocks an SM (at
+// [4,8,128,128]: 512 blocks of 8, halving the staged halo rows a query
+// row). The block computes phi and g over its rows plus the fs - 1 halo
+// rows and over 32 nch key columns from x0 - r (nch = ceil((15 + fs) /
+// 32): the 16 windows of a run span 15 + fs keys) into shared memory as
+// [row][key][CP + 4] (CP: C rounded up to 8, 16 or 32; the stride keeps
+// both fragment loads conflict-free), zero outside the image and in the
+// padded channels, each thread's next pixels' loads in flight together
+// and each output channel's weight row (zero-padded to CP) read once for
+// them. Per neighbourhood row dy and chunk of 32 keys, the logits S[16 x
+// 32] = theta[16 x C] . phi[C x 32] are mma.sync m16n8k8 TF32 with the
+// 3xTF32 split (4 n-tiles, C / 8 k-steps; theta scaled by log2 e and its
+// fragments split once a run; every operand's lo part passed whole, the
+// tensor core reading it truncated); a key outside a query's window (key
+// - query outside [0, fs)) gets -inf from a mask made once a run, while
+// an out-of-image key keeps its logit 0 and its g = 0 (the reference's
+// F.unfold padding, ROADMAP C.12). Each query row's maximum over the
+// chunk is taken once (a quad shuffle), the running sum and the
+// accumulators are rescaled once, P = 2^(S - max) (ex2.approx) with no
+// branch per offset, and O[16 x C] += P[16 x 32] . g[32 x C] is a second
+// mma.sync chain in two accumulators (even and odd n-tiles), P passed
+// from the accumulator to the A fragment as {d0, d2, d1, d3} (key 8j + 2t
+// in k-slot t, 8j + 2t + 1 in k-slot t + 4; g read in that key order)
+// and split into hi/lo. At the end O / sum, and out = x + Ww O with each
+// lane's partial sums over its own channels added across the quad (x
+// prefetched before the loop). The four [C, C] weights stay FP32: the
+// projections (theta, phi, g and Ww's epilogue) run on the FP32 cores
+// from shared memory; nothing is split once per weight version.
+//
+// FP32 cores (`na_fp32_kernel`, the shapes whose tensor-core staging
+// exceeds shared memory: large fs at C >= 8): one block of 256 threads
+// per (image, 16x16 output tile), one thread per output pixel over the
+// offsets with a running-max softmax, phi and g staged over the tile
+// plus its halo. The channel count is a template bound (4, 8, 16 or 32)
+// with the true C masked. `lgteun_neighborhood_attention_tc` gives the
+// rule; the Python wrapper mirrors it and counts each branch.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tc_tf32.cuh"
+
+// Clock stamps of the tensor-core body's phases (thread 0 of each block,
+// warp 0's run), read by lgteun_read_na_stamps: only where
+// LGTEUN_NA_STAMPS (the blocks stamped) is defined, as
+// scripts/torch_kernel_ab.py --stack-phases does. Phases: 0 the weights
+// and phi / g staged (with the barrier), 1 theta's fragments, 2 the
+// logits' products, 3 mask, maximum, rescale and exponentials, 4 the
+// P.g products, 5 the epilogue; 6 the (row, chunk) steps; 7, 8 the
+// block's start and end on the global timer (ns); 9 its SM; 10 its
+// clocks.
+#ifdef LGTEUN_NA_STAMPS
+__device__ long long lgteun_na_stamps[LGTEUN_NA_STAMPS][11];
+extern "C" int lgteun_read_na_stamps(long long* h) {
+  return (int)cudaMemcpyFromSymbol(h, lgteun_na_stamps,
+                                   sizeof(lgteun_na_stamps));
+}
+#endif
+
 namespace {
+
+#ifdef LGTEUN_NA_STAMPS
+struct Stamps {
+  long long* ph;  // [11], then the last stamp
+  __device__ Stamps() {
+    __shared__ long long st[12];
+    ph = st;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 11; ++i) ph[i] = 0;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ph[7]));
+      ph[11] = ph[10] = clock64();
+    }
+  }
+  __device__ void at(int i) const {
+    if (threadIdx.x == 0) {
+      const long long n = clock64();
+      ph[i] += n - ph[11];
+      ph[6] += i == 2;
+      ph[11] = n;
+    }
+  }
+  __device__ void end() const {
+    if (threadIdx.x == 0 && blockIdx.x < LGTEUN_NA_STAMPS) {
+      unsigned sm;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+      ph[10] = clock64() - ph[10];
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ph[8]));
+      ph[9] = sm;
+      for (int i = 0; i < 11; ++i) lgteun_na_stamps[blockIdx.x][i] = ph[i];
+    }
+  }
+};
+#else
+struct Stamps {
+  __device__ void at(int) const {}
+  __device__ void end() const {}
+};
+#endif
+
+constexpr int kSmemMax = 232448;       // per-block shared memory on sm_90
+
+// ---------------------------------------------------------------- tc
+
+// 2^x on the MUFU unit (at most 2 ulp off; -inf gives +0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int kRuns = 4;               // 16-query runs (warps) a block:
+constexpr int kRunsWide = 8;           // 4, or 8 where the grid fills the card
+constexpr int kRun = 16;               // queries of a run
+constexpr int kKeys = 32;              // keys of a chunk: 4 n-tiles
+
+// the channel width of the template that takes C channels: 8, 16 or 32
+__host__ __device__ inline int na_cp(int C) {
+  return C <= 8 ? 8 : C <= 16 ? 16 : 32;
+}
+__host__ __device__ inline int na_stride(int C) { return na_cp(C) + 4; }
+__host__ __device__ inline int na_chunks(int fs) {
+  return (kRun + fs - 1 + kKeys - 1) / kKeys;
+}
+
+// floats of the tensor-core body's shared memory at `runs` runs a block:
+// the four weights zero-padded to [CP][CP], phi and g over the region
+__host__ inline size_t na_tc_floats(int C, int fs, int runs = kRuns) {
+  const size_t region =
+      (size_t)(runs + fs - 1) * kKeys * na_chunks(fs) * na_stride(C);
+  return 4 * (size_t)na_cp(C) * na_cp(C) + 2 * region;
+}
+
+template <int CP, int R>
+__global__ void __launch_bounds__(32 * R)
+na_tc_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+             const float* __restrict__ wp, const float* __restrict__ wg,
+             const float* __restrict__ ww, float* __restrict__ out, int C,
+             int H, int W, int fs, int runs_x, int rows_y) {
+  constexpr int kSteps = CP / 8;       // logits k-steps = P.g n-tiles
+  constexpr int kStr = CP + 4;         // channel stride of phi and g
+  extern __shared__ __align__(16) float smem[];
+  const int r = fs / 2, nch = na_chunks(fs);
+  const int rrows = R + fs - 1, ncols = kKeys * nch;
+  float* wsm = smem;                 // wt, wp, wg, ww: [4][CP][CP], 0-padded
+  float* phi = wsm + 4 * CP * CP;                     // [rrows][ncols][kStr]
+  float* gv = phi + (size_t)rrows * ncols * kStr;
+
+  const int run = blockIdx.x % runs_x;
+  const int ry = (blockIdx.x / runs_x) % rows_y;
+  const int b = blockIdx.x / (runs_x * rows_y);
+  const int y0 = ry * R, x0 = run * kRun;
+  const size_t HW = (size_t)H * W;
+  const float* xb = x + (size_t)b * C * HW;
+  const Stamps stamps;
+
+  for (int i = threadIdx.x; i < CP * CP; i += 32 * R) {
+    const int d = i / CP, c = i % CP;
+    const bool in = d < C && c < C;
+    wsm[i] = in ? wt[d * C + c] : 0.f;
+    wsm[CP * CP + i] = in ? wp[d * C + c] : 0.f;
+    wsm[2 * CP * CP + i] = in ? wg[d * C + c] : 0.f;
+    wsm[3 * CP * CP + i] = in ? ww[d * C + c] : 0.f;
+  }
+  __syncthreads();
+  const float* swt = wsm;
+  const float* swp = wsm + CP * CP;
+  const float* swg = wsm + 2 * CP * CP;
+  const float* sww = wsm + 3 * CP * CP;
+
+  // phi and g over the region; zero outside the image and past C: a
+  // warp's lanes take a row's 32 key columns of a chunk, kStage rows'
+  // loads in flight together, then each output channel's weight rows
+  // read once (float4) for those pixels
+  constexpr int kStage = 40 / CP;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int c0 = 0; c0 < nch; ++c0) {
+    const int col = kKeys * c0 + lane, gx = x0 - r + col;
+    const bool col_in = gx >= 0 && gx < W;
+    for (int row0 = warp; row0 < rrows; row0 += kStage * R) {
+      float xv[kStage][CP];
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int row = row0 + u * R, gy = y0 - r + row;
+        const bool inside = row < rrows && col_in && gy >= 0 && gy < H;
+#pragma unroll
+        for (int c = 0; c < CP; ++c)
+          xv[u][c] = (inside && c < C)
+                         ? __ldg(xb + c * HW + (size_t)gy * W + gx)
+                         : 0.f;
+      }
+#pragma unroll
+      for (int d = 0; d < CP; ++d) {
+        float wpd[CP], wgd[CP];
+#pragma unroll
+        for (int c = 0; c < CP; c += 4) {
+          *reinterpret_cast<float4*>(wpd + c) =
+              *reinterpret_cast<const float4*>(swp + d * CP + c);
+          *reinterpret_cast<float4*>(wgd + c) =
+              *reinterpret_cast<const float4*>(swg + d * CP + c);
+        }
+#pragma unroll
+        for (int u = 0; u < kStage; ++u) {
+          const int row = row0 + u * R;
+          float sp = 0.f, sg = 0.f;
+#pragma unroll
+          for (int c = 0; c < CP; ++c) {
+            sp = fmaf(wpd[c], xv[u][c], sp);
+            sg = fmaf(wgd[c], xv[u][c], sg);
+          }
+          if (row < rrows) {
+            phi[((size_t)row * ncols + col) * kStr + d] = sp;
+            gv[((size_t)row * ncols + col) * kStr + d] = sg;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  stamps.at(0);
+
+  const int gq = lane >> 2, tq = lane & 3;
+  const int y = y0 + warp;
+  if (y >= H) return;   // no barrier follows
+  constexpr float kLog2e = 1.4426950408889634f;
+
+  // theta of queries gq and gq + 8 at channels 8 ks + tq (+ 4): the A
+  // fragments of the logits, split once
+  uint32_t ah[kSteps][4], al[kSteps][4];
+  {
+    float th[2][2 * kSteps];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gx = x0 + gq + 8 * h;
+      float xv[CP];
+#pragma unroll
+      for (int c = 0; c < CP; ++c)
+        xv[c] = (gx < W && c < C) ? __ldg(xb + c * HW + (size_t)y * W + gx)
+                                  : 0.f;
+#pragma unroll
+      for (int i = 0; i < 2 * kSteps; ++i) {
+        const int d = 8 * (i / 2) + tq + 4 * (i % 2);
+        float s = 0.f;
+#pragma unroll
+        for (int c = 0; c < CP; ++c) s = fmaf(swt[d * CP + c], xv[c], s);
+        th[h][i] = s;
+      }
+    }
+    // in log2 units: the logits come out of the products scaled by
+    // log2 e, ready for ex2
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      split_tf32_trunc(th[0][2 * ks] * kLog2e, ah[ks][0], al[ks][0]);
+      split_tf32_trunc(th[1][2 * ks] * kLog2e, ah[ks][1], al[ks][1]);
+      split_tf32_trunc(th[0][2 * ks + 1] * kLog2e, ah[ks][2], al[ks][2]);
+      split_tf32_trunc(th[1][2 * ks + 1] * kLog2e, ah[ks][3], al[ks][3]);
+    }
+  }
+  // x at the channels this lane stores (d = tq + 4 i) of its two rows
+  float xo[CP / 4][2];
+#pragma unroll
+  for (int i = 0; i < CP / 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = tq + 4 * i, gx = x0 + gq + 8 * h;
+      xo[i][h] = d < C && gx < W ? __ldg(xb + d * HW + (size_t)y * W + gx)
+                                 : 0.f;
+    }
+  // the window masks of key chunks 0 and 1: bit 4 nt + e for element e
+  // of n-tile nt (query gq + 8 (e / 2), key 32 ch + 8 nt + 2 tq + e % 2)
+  const auto window = [&](int ch) {
+    uint32_t bits = 0;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = gq + 8 * (e >> 1);
+        const int key = kKeys * ch + 8 * nt + 2 * tq + (e & 1);
+        if (key >= q && key < q + fs) bits |= 1u << (4 * nt + e);
+      }
+    return bits;
+  };
+  const uint32_t win0 = window(0), win1 = window(1);
+  stamps.at(1);
+
+  // O in two accumulators (keys 8 nt.. of even and of odd n-tiles nt):
+  // two independent product chains
+  float o[2][kSteps][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j)
+      o[a][j][0] = o[a][j][1] = o[a][j][2] = o[a][j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  // the (row dy, chunk ch) steps in one loop
+  int dy = 0, ch = 0;
+  for (int step = 0; step < fs * nch; ++step) {
+    {
+      const float* prow = phi + (size_t)(warp + dy) * ncols * kStr;
+      const float* grow = gv + (size_t)(warp + dy) * ncols * kStr;
+      // logits of the chunk's 32 keys
+      float s[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        const float* pk = prow + (size_t)(kKeys * ch + 8 * nt + gq) * kStr;
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32_trunc(pk[8 * ks + tq], bh0, bl0);
+          split_tf32_trunc(pk[8 * ks + tq + 4], bh1, bl1);
+          mma3_sync(s[nt], ah[ks], al[ks], bh0, bh1, bl0, bl1);
+        }
+      }
+      stamps.at(2);
+      // the window mask (key - query in [0, fs))
+      const uint32_t win = ch == 0 ? win0 : ch == 1 ? win1 : window(ch);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = win >> (4 * nt + e) & 1u ? s[nt][e] : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+      float scale[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float mn = fmaxf(m[h], mx[h]);
+        scale[h] = ex2(m[h] - mn);   // 0 on the first chunk (m = -inf)
+        m[h] = mn;
+        l[h] *= scale[h];
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < kSteps; ++j) {
+          o[a][j][0] *= scale[0];
+          o[a][j][1] *= scale[0];
+          o[a][j][2] *= scale[1];
+          o[a][j][3] *= scale[1];
+        }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = ex2(s[nt][e] - m[e >> 1]);
+          l[e >> 1] += s[nt][e];
+        }
+      stamps.at(3);
+      // O += P . g: k-step nt takes keys 8 nt + 2 tq (slot tq) and
+      // 8 nt + 2 tq + 1 (slot tq + 4)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        uint32_t ph[4], pl[4];
+        split_tf32_trunc(s[nt][0], ph[0], pl[0]);
+        split_tf32_trunc(s[nt][2], ph[1], pl[1]);
+        split_tf32_trunc(s[nt][1], ph[2], pl[2]);
+        split_tf32_trunc(s[nt][3], ph[3], pl[3]);
+        const float* gk = grow + (size_t)(kKeys * ch + 8 * nt + 2 * tq) * kStr;
+#pragma unroll
+        for (int j = 0; j < kSteps; ++j) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32_trunc(gk[8 * j + gq], bh0, bl0);
+          split_tf32_trunc(gk[kStr + 8 * j + gq], bh1, bl1);
+          mma3_sync(o[nt & 1][j], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+      stamps.at(4);
+    }
+    if (++ch == nch) {
+      ch = 0;
+      ++dy;
+    }
+  }
+
+  // normalise; out = x + Ww O: each lane sums Ww over its own channels
+  // of O (8 j + 2 tq, + 1) for every output channel, the quad adds the
+  // four partial sums, and lane tq stores channels d = tq (mod 4)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = 1.f / l[h];
+  }
+  float ov[kSteps][4];
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ov[j][e] = (o[0][j][e] + o[1][j][e]) * l[e >> 1];
+  float* orow = out + (size_t)b * C * HW + (size_t)y * W;
+#pragma unroll
+  for (int d = 0; d < CP; ++d) {
+    if (d >= C) break;
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * tq + (e & 1);
+        part[e >> 1] = fmaf(sww[d * CP + c], ov[j][e], part[e >> 1]);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
+      const int gx = x0 + gq + 8 * h;
+      if ((d & 3) == tq && gx < W)
+        orow[(size_t)d * HW + gx] = xo[d >> 2][h] + part[h];
+    }
+  }
+  stamps.at(5);
+  stamps.end();
+}
+
+template <int CP, int R>
+int launch_na_tc_runs(const float* x, const float* wt, const float* wp,
+                      const float* wg, const float* ww, float* out, int B,
+                      int C, int H, int W, int fs, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * na_tc_floats(C, fs, R);
+  cudaError_t err = cudaFuncSetAttribute(
+      na_tc_kernel<CP, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // all of the SM's 228 KB as shared memory (four blocks of 56 KB at C 8)
+  err = cudaFuncSetAttribute(na_tc_kernel<CP, R>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int runs_x = (W + kRun - 1) / kRun, rows_y = (H + R - 1) / R;
+  na_tc_kernel<CP, R><<<B * rows_y * runs_x, 32 * R, smem, stream>>>(
+      x, wt, wp, wg, ww, out, C, H, W, fs, runs_x, rows_y);
+  return (int)cudaGetLastError();
+}
+
+// 8 runs a block where that grid still gives at least 3 blocks an SM of
+// the card's 132 (and its staging fits), else 4
+template <int CP>
+int launch_na_tc(const float* x, const float* wt, const float* wp,
+                 const float* wg, const float* ww, float* out, int B, int C,
+                 int H, int W, int fs, cudaStream_t stream) {
+  const int runs_x = (W + kRun - 1) / kRun;
+  const long wide = (long)B * ((H + kRunsWide - 1) / kRunsWide) * runs_x;
+  if (wide >= 3 * 132 &&
+      sizeof(float) * na_tc_floats(C, fs, kRunsWide) <= (size_t)kSmemMax)
+    return launch_na_tc_runs<CP, kRunsWide>(x, wt, wp, wg, ww, out, B, C, H,
+                                            W, fs, stream);
+  return launch_na_tc_runs<CP, kRuns>(x, wt, wp, wg, ww, out, B, C, H, W, fs,
+                                      stream);
+}
+
+// ---------------------------------------------------------------- fp32
 
 constexpr int kT = 16;                 // output tile edge
 constexpr int kThreads = kT * kT;      // one thread per output pixel
-constexpr int kSmemMax = 232448;       // per-block shared memory on sm_90
+
+__host__ inline size_t na_fp32_floats(int C, int fs) {
+  const size_t E = kT + 2 * (fs / 2);
+  return 2 * (size_t)C * E * E + 4 * (size_t)C * C;
+}
 
 template <int CM>
 __global__ void __launch_bounds__(kThreads)
-na_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-          const float* __restrict__ wp, const float* __restrict__ wg,
-          const float* __restrict__ ww, float* __restrict__ out, int C,
-          int H, int W, int fs, int tiles_x, int tiles_y) {
+na_fp32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+               const float* __restrict__ wp, const float* __restrict__ wg,
+               const float* __restrict__ ww, float* __restrict__ out, int C,
+               int H, int W, int fs, int tiles_x, int tiles_y) {
   extern __shared__ float smem[];
   const int r = fs / 2, E = kT + 2 * r, ne = E * E;
   float* phi = smem;                    // [C][E*E]
@@ -146,33 +603,50 @@ na_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 }
 
 template <int CM>
-int launch_na(const float* x, const float* wt, const float* wp,
-              const float* wg, const float* ww, float* out, int B, int C,
-              int H, int W, int fs, cudaStream_t stream) {
-  const int E = kT + 2 * (fs / 2);
-  const size_t smem = sizeof(float) * (2 * (size_t)C * E * E + 4 * C * C);
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+int launch_na_fp32(const float* x, const float* wt, const float* wp,
+                   const float* wg, const float* ww, float* out, int B, int C,
+                   int H, int W, int fs, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * na_fp32_floats(C, fs);
   const cudaError_t err = cudaFuncSetAttribute(
-      na_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      na_fp32_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (W + kT - 1) / kT, tiles_y = (H + kT - 1) / kT;
-  na_kernel<CM><<<B * tiles_x * tiles_y, kThreads, smem, stream>>>(
+  na_fp32_kernel<CM><<<B * tiles_x * tiles_y, kThreads, smem, stream>>>(
       x, wt, wp, wg, ww, out, C, H, W, fs, tiles_x, tiles_y);
   return (int)cudaGetLastError();
 }
 
+bool na_tc_fits(int C, int fs) {
+  return sizeof(float) * na_tc_floats(C, fs) <= (size_t)kSmemMax;
+}
+
 }  // namespace
 
+// 1 where lgteun_neighborhood_attention takes the tensor-core branch for
+// (C, fs), else 0 (not a launch; C <= 32, odd fs).
+extern "C" int lgteun_neighborhood_attention_tc(int C, int fs) {
+  return na_tc_fits(C, fs) ? 1 : 0;
+}
+
 // out = blockNL(x) on [B, C, H, W]; weights [C][C] as (out, in); odd fs;
-// C <= 32 (checked by the Python wrapper too).
+// C <= 32 (checked by the Python wrapper too): the tensor-core body where
+// its staging fits shared memory, else the FP32-core body.
 extern "C" int lgteun_neighborhood_attention(const float* x, const float* wt,
                                              const float* wp, const float* wg,
                                              const float* ww, float* out,
                                              int B, int C, int H, int W,
                                              int fs, cudaStream_t stream) {
-  if (C < 1 || fs < 1 || fs % 2 == 0) return (int)cudaErrorInvalidValue;
-  auto run = C <= 4 ? &launch_na<4> : C <= 8 ? &launch_na<8>
-             : C <= 16 ? &launch_na<16> : &launch_na<32>;
-  if (C > 32) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > 32 || fs < 1 || fs % 2 == 0)
+    return (int)cudaErrorInvalidValue;
+  if (na_tc_fits(C, fs)) {
+    auto run = C <= 8 ? &launch_na_tc<8> : C <= 16 ? &launch_na_tc<16>
+                                                   : &launch_na_tc<32>;
+    return run(x, wt, wp, wg, ww, out, B, C, H, W, fs, stream);
+  }
+  if (sizeof(float) * na_fp32_floats(C, fs) > (size_t)kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  auto run = C <= 4 ? &launch_na_fp32<4> : C <= 8 ? &launch_na_fp32<8>
+             : C <= 16 ? &launch_na_fp32<16> : &launch_na_fp32<32>;
   return run(x, wt, wp, wg, ww, out, B, C, H, W, fs, stream);
 }

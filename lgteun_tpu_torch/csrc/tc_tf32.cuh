@@ -1,9 +1,11 @@
 // Tensor-core primitives of the FP32-accurate products of the block tail
-// (block_tail.cuh), the window attention (window_attention_tc.cuh) and
-// the INNT searches (texture_match_tc.cuh): the TF32 rounding of the
-// 3xTF32 split, the warpgroup-wide wgmma m64nNk8 TF32 product (A from
-// registers, B from shared memory, FP32 accumulation) with its fences,
-// and the cp.async copies that stage weight slabs in shared memory.
+// (block_tail.cuh), the window attention (window_attention_tc.cuh), the
+// INNT searches (texture_match_tc.cuh), LightNet's stack (lightnet.cu) and
+// MDCUN's neighbourhood attention (neighborhood_attention.cu): the TF32
+// rounding of the 3xTF32 split, the warpgroup-wide wgmma m64nNk8 TF32
+// product (A from registers, B from shared memory, FP32 accumulation)
+// with its fences, the warp-wide mma.sync m16n8k8 TF32 product, and the
+// cp.async copies that stage weight slabs in shared memory.
 //
 // 3xTF32: an FP32 value a is a_hi = tf32_rna(a) plus a_lo = tf32_rna(a -
 // a_hi) (round to nearest, as cvt.rna.tf32); a product a.b is taken as
@@ -111,6 +113,18 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
   lo = tf32_rna(v - __uint_as_float(hi));
 }
 
+// v as hi = tf32(v) and lo = v - hi passed whole: mma.sync and wgmma read
+// a TF32 operand's top 19 bits and ignore the low 13, so lo enters the
+// product truncated (|lo - trunc(lo)| <= 2^-10 |lo| <= 2^-21 |v|, as
+// CUTLASS's 3xTF32 rounds its small part toward zero), two instructions
+// fewer than rounding it (LightNet's stack and the neighbourhood
+// attention, which split every operand as it is loaded).
+__device__ __forceinline__ void split_tf32_trunc(float v, uint32_t& hi,
+                                                 uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
 // d += A . B (3xTF32) for one k-step: A's hi/lo fragments, B's hi and lo
 // parts at bh / bl (two core matrices along K, 128 bytes apart), `sbo`
 // bytes between n-groups.
@@ -122,6 +136,32 @@ __device__ __forceinline__ void mma3(float (&d)[NJ][4], const uint32_t (&ah)[4],
   wgmma_tf32(d, al, dh);
   wgmma_tf32(d, ah, dl);
   wgmma_tf32(d, ah, dh);
+}
+
+// d += A . B for one warp, mma.sync m16n8k8 TF32 (FP32 accumulation):
+// lane 4g + t holds a = {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]},
+// b0 = B[t][g], b1 = B[t+4][g] and d = {D[g][2t], D[g][2t+1], D[g+8][2t],
+// D[g+8][2t+1]} (PTX ISA, "Matrix Fragments for mma.m16n8k8").
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A . B (3xTF32) for one warp and k-step of mma.sync m16n8k8: A's
+// hi/lo fragments, B's hi (bh0, bh1) and lo (bl0, bl1) fragments; the
+// passes in mma3's order (lo.hi, hi.lo, hi.hi).
+__device__ __forceinline__ void mma3_sync(float (&d)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          uint32_t bh0, uint32_t bh1,
+                                          uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
 }
 
 // Keep the compiler from moving reads or writes of an accumulator across
@@ -173,6 +213,15 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(dst), "l"(gmem) : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously, or 4 zero bytes where not
+// `valid` (gmem is then not read, but must be a valid address)
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(valid ? 4 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

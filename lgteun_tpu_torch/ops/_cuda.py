@@ -72,10 +72,14 @@ SIGNATURES = {
     "lgteun_ln_ffn_wide": [_P] * 13 + [_I] * 6 + [_F, _P],
     # w, N, K, n_pad, k_pad, cp, out, stream
     "lgteun_tail_fragments": [_P] + [_I] * 5 + [_P, _P],
-    # in, in_c, lms, wts, out, table (host), n, B, H, W, stream
+    # in, in_c, lms, wts, out, table (host), n, B, H, W, stream (wts as
+    # lightnet_kernel.lightnet_fragments)
     "lgteun_lightnet_group": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     # x, wt, wp, wg, ww, out, B, C, H, W, fs, stream
     "lgteun_neighborhood_attention": [_P] * 6 + [_I] * 5 + [_P],
+    # not a launch: 1 where the attention takes its tensor-core branch for
+    # (C, fs), else 0
+    "lgteun_neighborhood_attention_tc": [_I] * 2,
     # lr, ref, t, s, N, C, side, stream
     "lgteun_texture_match": [_P] * 4 + [_I] * 3 + [_P],
     # lr_n, ref_n, ref_u, t, s, N, L, K, stream

@@ -10,11 +10,14 @@ layers of `lightnet_layers` is
 with 1x1 pointwise convs PW and 3x3 depthwise convs DW (zero padding);
 the stack returns lms + x.
 
-`lightnet_stack` launches `csrc/lightnet.cu` (three launches of 4, 3 and
-3 layers; see the source note) for a CUDA tensor and runs
-`lightnet_stack_ref` for a CPU tensor. `layers` holds, per layer in
-table order, the torch conv tensors (pw1 [cout, cin, 1, 1], pb1 [cout],
-dw1 [cout, 1, 3, 3], db1 [cout], pw2, pb2, dw2, db2).
+`lightnet_stack` launches `csrc/lightnet.cu` (five launches of two
+layers, the pointwise convs on the tensor cores with the 3xTF32 split;
+see the source note) for a CUDA tensor and runs `lightnet_stack_ref` for
+a CPU tensor. `layers` holds, per layer in table order, the torch conv
+tensors (pw1 [cout, cin, 1, 1], pb1 [cout], dw1 [cout, 1, 3, 3], db1
+[cout], pw2, pb2, dw2, db2). The kernel reads them in its own layout
+(`lightnet_fragments`: the pointwise weights split into TF32 hi/lo parts
+in the mma.sync B fragments' order), made once per weight version.
 """
 
 from __future__ import annotations
@@ -25,13 +28,17 @@ import torch
 import torch.nn.functional as F
 
 from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops.ffn_kernel import tf32_split
 
-__all__ = ["lightnet_layers", "lightnet_stack", "lightnet_stack_ref"]
+__all__ = ["lightnet_layers", "lightnet_stack", "lightnet_stack_ref",
+           "lightnet_fragments", "group_smem"]
 
-_CHUNK = 8                          # csrc/lightnet.cu kChunk
-_TILE = 16                          # csrc/lightnet.cu kT
-_GROUPS = ((0, 4), (4, 7), (7, 10))  # layers per launch
-_SMEM_MAX = 232448                  # shared memory a block may use, bytes
+_CHUNK = 4                   # csrc/lightnet.cu kChunk
+_TILE = 16                   # csrc/lightnet.cu kT
+# layers per launch: two, so that a launch takes at most 112,256 bytes of
+# shared memory at 32 channels and two blocks fit an SM
+_GROUPS = ((0, 2), (2, 4), (4, 6), (6, 8), (8, 10))
+_SMEM_MAX = 232448           # shared memory a block may use, bytes
 
 
 def lightnet_layers(ms_chans: int):
@@ -64,72 +71,121 @@ def lightnet_stack_ref(x, lms, layers: Sequence[Sequence[torch.Tensor]]):
     return lms + x
 
 
+def _ceil8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
 def _layer_len(cin: int, coutp: int) -> int:
-    return 2 * coutp * (cin + 11)
+    """Floats of one layer in `lightnet_fragments`' layout."""
+    return 4 * coutp * _ceil8(cin) + 22 * coutp
 
 
-def _pack(layers, table, device):
-    """-> (weights, groups): the packed float32 buffer the kernel reads,
-    and per launch of `_GROUPS` (rows, layers, cout) with rows a CPU
-    int32 [n, 5] table of (cin, cout, coutp, relu, offset). Per layer at
-    `offset`: pw [cin][2][coutp], pb [2][coutp], dw [2][coutp][9],
-    db [2][coutp], branch 1 first; coutp is cout rounded up to the
-    kernel's chunk of 8, the padding zero. Raises unless the weights are
-    contiguous float32 tensors on `device` in `table`'s shapes and every
-    launch fits a block's shared memory (checked here, once per weight
-    version, not on every call)."""
-    flat = {f"weight{i}": t for i, t in
-            enumerate(t for layer in layers for t in layer)}
-    want = [shp for _n, cin, cout, _r in table for shp in
-            ((cout, cin, 1, 1), (cout,), (cout, 1, 3, 3), (cout,)) * 2]
-    if [tuple(t.shape) for t in flat.values()] != want:
-        raise ValueError(f"lightnet_stack: weights do not match "
-                         f"lightnet_layers({table[-1][2]})")
-    _cuda.check_cuda_f32("lightnet_stack", device, **flat)
+def lightnet_fragments(layers, table):
+    """-> (weights, rows): the weight layout csrc/lightnet.cu reads, on
+    the weights' device, and a CPU int32 [n, 5] table of (cin, cout,
+    coutp, relu, offset) per layer. Per layer at `offset` floats:
+
+    - frag [coutp/4][cinp/8][32][4]: for chunk q (4 output channels of
+      both branches) and k-step ks, lane 4g + t's mma.sync B fragments
+      {b0 hi, b1 hi, b0 lo, b1 lo} (`ffn_kernel.tf32_split`), b0 =
+      W[8 ks + t][g], b1 = W[8 ks + t + 4][g] with W[k][c] the pointwise
+      weight of input channel k and column c: branch c // 4, output
+      channel 4 q + c % 4;
+    - pb [coutp/4][8]: the pointwise biases in that column order;
+    - dw [2][coutp][9], db [2][coutp]: the depthwise taps and biases.
+
+    cinp and coutp are cin and cout rounded up to 8, the padding zero.
+    The same bits on any device (the split is integer arithmetic)."""
     parts, rows, off = [], [], 0
     for layer, (_n, cin, cout, relu) in zip(layers, table, strict=True):
         pw1, pb1, dw1, db1, pw2, pb2, dw2, db2 = layer
-        coutp = -(-cout // _CHUNK) * _CHUNK
-        pw = torch.zeros(cin, 2, coutp, device=device)
-        pb = torch.zeros(2, coutp, device=device)
-        dw = torch.zeros(2, coutp, 9, device=device)
-        db = torch.zeros(2, coutp, device=device)
-        for br, (w, bias, k, kb) in enumerate(((pw1, pb1, dw1, db1),
-                                               (pw2, pb2, dw2, db2))):
-            pw[:, br, :cout] = w.reshape(cout, cin).t()
-            pb[br, :cout] = bias
-            dw[br, :cout] = k.reshape(cout, 9)
-            db[br, :cout] = kb
-        parts += [pw.flatten(), pb.flatten(), dw.flatten(), db.flatten()]
+        dev = pw1.device
+        cinp, coutp = _ceil8(cin), _ceil8(cout)
+        w = torch.zeros(2, coutp, cinp, device=dev)
+        pb = torch.zeros(2, coutp, device=dev)
+        dw = torch.zeros(2, coutp, 9, device=dev)
+        db = torch.zeros(2, coutp, device=dev)
+        for br, (pw_, pb_, dw_, db_) in enumerate(((pw1, pb1, dw1, db1),
+                                                   (pw2, pb2, dw2, db2))):
+            w[br, :cout, :cin] = pw_.reshape(cout, cin)
+            pb[br, :cout] = pb_
+            dw[br, :cout] = dw_.reshape(cout, 9)
+            db[br, :cout] = db_
+        q = coutp // _CHUNK
+        # B [q][k][column], then [q][ks][half][t][g] -> [q][ks][g][t][half]
+        bmat = w.view(2, q, _CHUNK, cinp).permute(1, 3, 0, 2).reshape(
+            q, cinp, 2 * _CHUNK)
+        frag = torch.cat([part.reshape(q, cinp // 8, 2, 4, 8).permute(
+            0, 1, 4, 3, 2).reshape(q, cinp // 8, 32, 2)
+            for part in tf32_split(bmat.contiguous())], dim=-1)
+        pbc = pb.view(2, q, _CHUNK).permute(1, 0, 2)
+        parts += [frag.flatten(), pbc.flatten(), dw.flatten(), db.flatten()]
         rows.append((cin, cout, coutp, int(relu), off))
         off += _layer_len(cin, coutp)
-    rows = torch.tensor(rows, dtype=torch.int32)
-    groups, in_c = [], table[0][1]
+    return torch.cat(parts), torch.tensor(rows, dtype=torch.int32)
+
+
+def _groups(rows, table):
+    """Per launch of `_GROUPS`: (rows, layers, cout); raises unless each
+    launch fits a block's shared memory."""
+    groups = []
     for l0, l1 in _GROUPS:
-        smem = _group_smem(rows[l0:l1].tolist(), in_c)
+        smem = group_smem(rows[l0:l1].tolist())
         if smem > _SMEM_MAX:
             raise ValueError(f"lightnet_stack: layers {l0}..{l1 - 1} need "
                              f"{smem} B of shared memory (> {_SMEM_MAX}) "
                              f"at {table[-1][2]} bands")
-        in_c = table[l1 - 1][2]
-        groups.append((rows[l0:l1], l1 - l0, in_c))
-    return torch.cat(parts), groups
+        groups.append((rows[l0:l1], l1 - l0, table[l1 - 1][2]))
+    return groups
 
 
 def _packed(layers, table, device):
-    """`_pack`, made once per weight version."""
+    """(weights, groups): `lightnet_fragments` and the launches, made once
+    per weight version. Raises unless the weights are contiguous float32
+    tensors on `device` in `table`'s shapes (checked once per weight
+    version, not on every call)."""
     flat = [t for layer in layers for t in layer]
-    return _cuda.weight_layout("lightnet", flat,
-                               lambda: _pack(layers, table, device))
+
+    def make():
+        want = [shp for _n, cin, cout, _r in table for shp in
+                ((cout, cin, 1, 1), (cout,), (cout, 1, 3, 3), (cout,)) * 2]
+        if [tuple(t.shape) for t in flat] != want:
+            raise ValueError(f"lightnet_stack: weights do not match "
+                             f"lightnet_layers({table[-1][2]})")
+        _cuda.check_cuda_f32("lightnet_stack", device,
+                             **{f"weight{i}": t for i, t in enumerate(flat)})
+        weights, rows = lightnet_fragments(layers, table)
+        return weights, _groups(rows, table)
+    return _cuda.weight_layout("lightnet", flat, make)
 
 
-def _group_smem(rows, in_c: int) -> int:
-    """Bytes of shared memory one launch over `rows` takes (as
-    csrc/lightnet.cu::group_smem computes them)."""
-    r0 = _TILE + 2 * len(rows)
-    cmax = max([in_c] + [max(r[0], r[1]) for r in rows])
-    w_len = _layer_len(rows[-1][0], rows[-1][2]) + rows[-1][4] - rows[0][4]
-    return 4 * (w_len + 2 * cmax * r0 * r0 + 2 * _CHUNK * r0 * r0)
+def _act_stride(r: int) -> int:
+    """csrc/lightnet.cu::act_stride: an r x r region's channel stride
+    (its 16-pixel M-tiles rounded up to 8 or 24 mod 32 floats)."""
+    m = -(-r * r // 16) * 16
+    return m + (8 - m % 16) % 16
+
+
+def _p_stride(r0: int) -> int:
+    """csrc/lightnet.cu::p_stride."""
+    m = -(-r0 * r0 // 16) * 16
+    return m + (4 - m % 32) % 32
+
+
+def group_smem(rows) -> int:
+    """Bytes of shared memory one launch over `rows` (cin, cout, coutp,
+    relu, offset) takes, as csrc/lightnet.cu::group_smem computes them:
+    the two activation buffers (layer k's input in buffer k % 2, over its
+    region 16 + 2 (n - k) a side), the pointwise chunk P and a layer's
+    depthwise taps and biases."""
+    n = len(rows)
+    buf = [0, 0]
+    for k, r in enumerate(rows):
+        buf[k % 2] = max(buf[k % 2], _ceil8(r[0]) * _act_stride(
+            _TILE + 2 * (n - k)))
+    taps = max(20 * r[2] for r in rows)
+    return 4 * (buf[0] + buf[1] + 2 * _CHUNK * _p_stride(_TILE + 2 * n)
+                + taps)
 
 
 def lightnet_stack(x, lms, layers: Sequence[Sequence[torch.Tensor]]):

@@ -16,19 +16,33 @@ them: such a neighbour enters the softmax with logit 0 and adds
 nothing to the sum, so it dilutes the attention at the borders.
 
 `neighborhood_attention` launches `csrc/neighborhood_attention.cu` for a
-CUDA tensor and runs `neighborhood_attention_ref` for a CPU tensor.
+CUDA tensor and runs `neighborhood_attention_ref` for a CPU tensor. The
+kernel has two branches (`neighborhood_attention_branch`, the library's
+`lgteun_neighborhood_attention_tc`): "tc", the logits and the weighted
+sum of each 16-query run as mma.sync TF32 products with the 3xTF32 split
+(a block of 4 runs, or 8 where the grid fills the card, phi and g
+staged over its rows, the fs - 1 halo rows and 32-key chunks), wherever
+the 4-run staging fits a block's shared memory; "fp32", the earlier
+one-thread-a-pixel body, for the rest (large fs at C >= 8). The wrapper
+counts its launches by branch (`variants`).
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.nn.functional as F
 
 from lgteun_tpu_torch.ops import _cuda
 
-__all__ = ["neighborhood_attention", "neighborhood_attention_ref"]
+__all__ = ["neighborhood_attention", "neighborhood_attention_ref",
+           "neighborhood_attention_branch"]
 
-_TILE = 16                  # csrc/neighborhood_attention.cu kT
+_TILE = 16                  # csrc/neighborhood_attention.cu kT (fp32)
+_RUNS = 4                   # kRuns: 16-query runs a block (tc)
+_RUN = 16                   # kRun
+_KEYS = 32                  # kKeys: keys of a chunk
 _MAX_C = 32                 # largest channel count the kernel is built for
 _SMEM_MAX = 232448          # bytes of shared memory a block may use
 
@@ -46,9 +60,29 @@ def neighborhood_attention_ref(x, wt, wp, wg, ww, fs: int = 15):
 
 
 def _smem_bytes(c: int, fs: int) -> int:
-    """Shared memory of one block (csrc/neighborhood_attention.cu)."""
+    """Shared memory of one block of the FP32-core branch
+    (csrc/neighborhood_attention.cu::na_fp32_floats)."""
     e = _TILE + 2 * (fs // 2)
     return 4 * (2 * c * e * e + 4 * c * c)
+
+
+def _tc_smem_bytes(c: int, fs: int) -> int:
+    """Shared memory of one block of the tensor-core branch, at 4 runs a
+    block (csrc/neighborhood_attention.cu::na_tc_floats): the four
+    weights zero-padded to [CP][CP], phi and g over 4 + fs - 1 rows and
+    32-key chunks at a channel stride of CP + 4 (CP: C rounded up to 8,
+    16 or 32)."""
+    cp = 8 if c <= 8 else 16 if c <= 16 else 32
+    chunks = -(-(_RUN + fs - 1) // _KEYS)
+    region = (_RUNS + fs - 1) * _KEYS * chunks * (cp + 4)
+    return 4 * (4 * cp * cp + 2 * region)
+
+
+def neighborhood_attention_branch(c: int, fs: int) -> str:
+    """The branch the kernel takes for C channels and window fs: "tc"
+    where the tensor-core staging fits shared memory, else "fp32" (the
+    library's rule, `lgteun_neighborhood_attention_tc`)."""
+    return "tc" if _tc_smem_bytes(c, fs) <= _SMEM_MAX else "fp32"
 
 
 def neighborhood_attention(x, wt, wp, wg, ww, fs: int = 15):
@@ -61,7 +95,9 @@ def neighborhood_attention(x, wt, wp, wg, ww, fs: int = 15):
     b, c, h, w = x.shape
     mats = {"wt": wt, "wp": wp, "wg": wg, "ww": ww}
     bad = [k for k, m in mats.items() if tuple(m.shape) != (c, c)]
-    if bad or fs % 2 == 0 or c > _MAX_C or _smem_bytes(c, fs) > _SMEM_MAX:
+    branch = neighborhood_attention_branch(c, fs)
+    if bad or fs % 2 == 0 or c > _MAX_C or (
+            branch == "fp32" and _smem_bytes(c, fs) > _SMEM_MAX):
         raise ValueError(f"neighborhood_attention: need [C, C] weights, odd "
                          f"fs, C <= {_MAX_C} and at most {_SMEM_MAX} B of "
                          f"shared memory (x {tuple(x.shape)}, fs {fs}, "
@@ -71,7 +107,9 @@ def neighborhood_attention(x, wt, wp, wg, ww, fs: int = 15):
     _cuda.launch("lgteun_neighborhood_attention", x.device, x, wt, wp, wg,
                  ww, out, b, c, h, w, fs)
     neighborhood_attention.launches += 1
+    neighborhood_attention.variants[branch] += 1
     return out
 
 
 neighborhood_attention.launches = 0
+neighborhood_attention.variants = collections.Counter()

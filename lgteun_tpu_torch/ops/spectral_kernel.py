@@ -45,14 +45,42 @@ from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 
 __all__ = ["ln_mixer_head", "ln_mixer_head_ref", "global_mixer",
-           "global_mixer_ref", "fft_plan", "fft_pos", "fft_mixer_plan",
-           "fft_tables_ref", "fft_tables", "mixer_variant"]
+           "global_mixer_ref", "PLANE_ROUNDING", "plane_rfft2",
+           "mixer_spectrum",
+           "mixer_inverse", "fft_plan", "fft_pos",
+           "fft_mixer_plan", "fft_tables_ref", "fft_tables", "mixer_variant"]
 
 # shared memory one block may hold on the H100 (227 KB)
 FFT_SMEM_BYTES = 232_448
 FFT_MAX_PASS = 8          # fft_mixer.cuh: kFftMaxPass
 FFT_MAX_PRIME = 512       # kFftMaxPrime
 FFT_PLAN_FLOATS = 28      # kFftPlanFloats: the plan at the tables' head
+
+
+# a plane's rows (columns) count as equal within this share of its
+# largest value: float32 rounding apart
+PLANE_ROUNDING = 2.0 ** -20
+
+
+def plane_rfft2(x: torch.Tensor) -> torch.Tensor:
+    """rfft2 of the planes of [B, C, H, W] with the bins of a plane whose
+    rows (or columns) are all equal, within PLANE_ROUNDING of its largest
+    value, set exactly zero: every bin off H-bin 0 (off W-bin 0). Those
+    bins are zero in exact arithmetic, or rounding noise; a CPU run may
+    leave such a plane's rows a rounding apart or its FFT library noise
+    in those bins, differently on different hosts and runs, and the mixer
+    would carry the noise's phase into the output (ROADMAP C.33). The
+    kernel's butterflies give those zeros exactly on equal rows."""
+    z = torch.fft.rfft2(x, norm="backward")
+    h, half = z.shape[-2:]
+    tol = PLANE_ROUNDING * x.abs().amax((-2, -1), keepdim=True)
+    rows_equal = ((x - x[..., :1, :]).abs() <= tol).flatten(-2).all(-1)[
+        ..., None, None]
+    cols_equal = ((x - x[..., :, :1]).abs() <= tol).flatten(-2).all(-1)[
+        ..., None, None]
+    off_h0 = (torch.arange(h, device=x.device) != 0)[:, None]
+    off_w0 = (torch.arange(half, device=x.device) != 0)[None, :]
+    return z.masked_fill(rows_equal & off_h0 | cols_equal & off_w0, 0)
 
 
 def global_mixer_ref(x: torch.Tensor, amp_w: torch.Tensor,
@@ -62,7 +90,9 @@ def global_mixer_ref(x: torch.Tensor, amp_w: torch.Tensor,
     LGT.py:149-180, epsilons and zero-bin convention included).
 
     Written so that every FFT backend gives the same values as pocketfft
-    on the CPU: the self-conjugate bins of a real input are set exactly
+    on the CPU: the exact zero bins of planes constant along an axis are
+    exactly zero (`plane_rfft2`), the self-conjugate bins of a real input
+    are set exactly
     real (cuFFT can leave rounding noise there, which moves the phase
     across the branch cut), and the inverse is an explicit H inverse
     followed by a c2r along W that drops the imaginary parts of bins 0
@@ -72,8 +102,18 @@ def global_mixer_ref(x: torch.Tensor, amp_w: torch.Tensor,
     The gradient stays finite at exactly zero bins (a constant plane):
     the double `where` hands |z| and angle(z) a safe point there, as
     `lgteun_tpu/models/common/lgt.py:173-181` does (ROADMAP C.2)."""
-    h, w = x.shape[-2:]
-    z = torch.fft.rfft2(x, norm="backward")
+    w = x.shape[-1]
+    spec = mixer_spectrum(plane_rfft2(x), w, amp_w, amp_b, pha_w, pha_b)
+    return mixer_inverse(spec, w)
+
+
+def mixer_spectrum(z: torch.Tensor, w: int, amp_w: torch.Tensor,
+                   amp_b: torch.Tensor, pha_w: torch.Tensor,
+                   pha_b: torch.Tensor) -> torch.Tensor:
+    """The mixed half spectrum amp' e^(i pha') + (2e-8, 1e-8) of the
+    rfft2 `z` [B, C, H, W//2 + 1] of planes W wide (`global_mixer_ref`'s
+    middle)."""
+    h = z.shape[-2]
     re, im = z.real, z.imag.clone()
     for r in {0, h // 2} if h % 2 == 0 else {0}:
         for c in {0, w // 2} if w % 2 == 0 else {0}:
@@ -90,7 +130,14 @@ def global_mixer_ref(x: torch.Tensor, amp_w: torch.Tensor,
     pha = pha * col(pha_w) + col(pha_b)
     real = amp * torch.cos(pha) + 1e-8 + 1e-8
     imag = amp * torch.sin(pha) + 1e-8
-    mid = torch.fft.ifft(torch.complex(real, imag), dim=-2, norm="backward")
+    return torch.complex(real, imag)
+
+
+def mixer_inverse(spec: torch.Tensor, w: int) -> torch.Tensor:
+    """|irfft2| of the mixed half spectrum `spec` to planes W wide
+    (`global_mixer_ref`'s end): an explicit H inverse, then a c2r along
+    W that drops the imaginary parts of bins 0 and W/2."""
+    mid = torch.fft.ifft(spec, dim=-2, norm="backward")
     mid_im = mid.imag.clone()
     mid_im[..., 0] = 0.0
     if w % 2 == 0:

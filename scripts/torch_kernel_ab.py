@@ -1,7 +1,8 @@
 """A/B of two versions of the port's kernels on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_ab.py A B [--batch 4] [--sizes 128,64,144,72]
-                                       [--tol REL] [--only TEXT] [--innt]
+                                       [--tol REL] [--only TEXT]
+                                       [--innt] [--lightnet] [--mdcun]
     python3 scripts/torch_kernel_ab.py --mma-rate
     python3 scripts/torch_kernel_ab.py --phases [--batch 4]
     python3 scripts/torch_kernel_ab.py --b8-phases [CSRC]
@@ -27,7 +28,14 @@ window attention and the whole block take them; without it, the [3C][C]
 rows). The LGB cases are the mixer head, the global mixer,
 the window attention, the block tail with and without a seeded dropout
 mask and LN + FFN at every size, and the whole block (whose scratch is
-not compared) at 128^2 and 64^2.
+not compared) at 128^2 and 64^2. Then LightNet's stack (all its
+launches: [4,9,128,128], 4 bands [4,5,128,128], ragged [1,9,72,100]),
+its weights in the layout each library declares
+(`lgteun_lightnet_layout` 2: `lightnet_fragments`, five launches of two
+layers; without it: the packed FP32 rows and launches of 4, 3 and 3
+layers), and the neighbourhood attention at MDCUN's shapes
+([4,8,128,128], [1,8,72,100], [4,4,128,128]) and at C = 16 and 32
+(fs 13) (`--only lightnet`, `--only neighborhood`).
 The script checks that B's outputs equal A's bit for bit or, with `--tol
 REL`, that max|B - A| / max|A| <= REL (and prints that figure); for the
 two searches, whose picks may flip at float64 near ties (`chip_smoke.
@@ -75,9 +83,12 @@ B8_GRID_STAMPS. It runs `lgb_block` at 128^2/C32, 64^2/C64 and
 [B,128,64,64], batch 4 and 16, and prints each kind's clocks a block,
 its share and its share of the device time of an unstamped launch,
 beside the device times of B1, B2 and B3 (the level-2 chain) on the same
-inputs. `--only TEXT` runs the A/B cases whose label contains TEXT.
+inputs. `--only TEXT` runs the A/B cases whose label contains TEXT (or
+one of comma-separated TEXTs).
 `--innt` instead times INNT's eval forward (batch 16 and 1, with and
-without LGTEUN_FUSED_TM=0) with A's and B's searches in turns.
+without LGTEUN_FUSED_TM=0) with A's and B's searches in turns;
+`--lightnet` and `--mdcun` LightNet's and MDCUN's (each library's
+LightNet weights in its own layout).
 
 `--search-phases` shows where the INNT searches' time goes on their
 tensor-core branch (`csrc/texture_match_tc.cuh`, of CSRC, default the
@@ -149,14 +160,17 @@ LGB_WITHOUT_SCHEDULE = {
 
 def caller(dll: ctypes.CDLL, name: str, *args):
     """A no-argument function that launches C entry `name` of `dll` on
-    the current stream and raises on its error."""
+    the current stream and raises on its error. It holds `args`, so the
+    tensors whose pointers it passes (a host table too) live as long as
+    it does."""
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     fn = getattr(dll, name)
 
     def call():
         err = fn(*conv, torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"{name}: CUDA error {err}")
+            raise RuntimeError(f"{name} of {dll._name}: CUDA error {err}")
+    call.args = args
     return call
 
 
@@ -258,24 +272,120 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
     return cases
 
 
+def lightnet_packed_fp32(layers, table):
+    """(weights, groups) in the layout of a library without
+    `lgteun_lightnet_layout` (the FP32-core body): per layer at
+    `offset` floats pw [cin][2][coutp], pb [2][coutp], dw [2][coutp][9],
+    db [2][coutp] (coutp = cout rounded up to 8), launches of 4, 3 and 3
+    layers; groups as `lightnet_kernel._groups` gives them."""
+    parts, rows, off = [], [], 0
+    for layer, (_n, cin, cout, relu) in zip(layers, table, strict=True):
+        pw1, pb1, dw1, db1, pw2, pb2, dw2, db2 = layer
+        dev, coutp = pw1.device, -(-cout // 8) * 8
+        pw = torch.zeros(cin, 2, coutp, device=dev)
+        pb = torch.zeros(2, coutp, device=dev)
+        dw = torch.zeros(2, coutp, 9, device=dev)
+        db = torch.zeros(2, coutp, device=dev)
+        for br, (w, bias, k, kb) in enumerate(((pw1, pb1, dw1, db1),
+                                               (pw2, pb2, dw2, db2))):
+            pw[:, br, :cout] = w.reshape(cout, cin).t()
+            pb[br, :cout] = bias
+            dw[br, :cout] = k.reshape(cout, 9)
+            db[br, :cout] = kb
+        parts += [pw.flatten(), pb.flatten(), dw.flatten(), db.flatten()]
+        rows.append((cin, cout, coutp, int(relu), off))
+        off += 2 * coutp * (cin + 11)
+    rows = torch.tensor(rows, dtype=torch.int32)
+    groups = [(rows[a:b], b - a, table[b - 1][2])
+              for a, b in ((0, 4), (4, 7), (7, 10))]
+    return torch.cat(parts), groups
+
+
+def lightnet_weights(layers, table, lay: int):
+    """(weights, groups) of the stack in a library's layout `lay`."""
+    from lgteun_tpu_torch.ops import lightnet_kernel
+    if lay == 1:
+        return lightnet_packed_fp32(layers, table)
+    weights, rows = lightnet_kernel.lightnet_fragments(layers, table)
+    return weights, lightnet_kernel._groups(rows, table)
+
+
+def stack_cases(gen: torch.Generator) -> dict:
+    """label -> (C entry, inputs(layouts), output allocator, trailing
+    arguments, launcher) of LightNet's stack (8 bands [4,9,128,128], 4
+    bands [4,5,128,128], ragged [1,9,72,100]; `launcher(dll, lay, out)`
+    gives the calls of the launches of the library's layout and grouping,
+    in order) and of the
+    neighbourhood attention at MDCUN's shapes ([4,8,128,128],
+    [1,8,72,100], 4 bands [4,4,128,128]) and at C = 16 and 32 (fs 13)."""
+    from lgteun_tpu_torch.ops.lightnet_kernel import lightnet_layers
+
+    def n(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+    cases = {}
+    for b, bands, h, w in ((4, 8, 128, 128), (4, 4, 128, 128),
+                           (1, 8, 72, 100)):
+        table = lightnet_layers(bands)
+        layers = [tuple(t for _br in range(2) for t in (
+            n(cout, cin, 1, 1, scale=(2 / cout) ** 0.5), 0.1 * n(cout),
+            n(cout, 1, 3, 3, scale=(2 / 9 / cout) ** 0.5), 0.1 * n(cout)))
+            for _n, cin, cout, _r in table]
+        lms = n(b, bands, h, w)
+        x = torch.cat([n(b, 1, h, w), lms], dim=1)
+
+        def launcher(dll, lay, out, x=x, lms=lms, layers=layers,
+                     table=table, b=b, h=h, w=w):
+            weights, groups = lightnet_weights(layers, table, lay[4])
+            acts = [torch.empty(b, cout, h, w, device="cuda")
+                    for _rows, _n, cout in groups[:-1]] + [out[0]]
+            calls = [caller(dll, "lgteun_lightnet_group", act, act.shape[1],
+                            lms if k == len(groups) - 1 else None, weights,
+                            dst, rows, nl, b, h, w)
+                     for k, ((rows, nl, _c), act, dst) in enumerate(zip(
+                         groups, [x] + acts[:-1], acts))]
+            return calls
+        cases[f"lightnet_stack {b}x{bands + 1}x{h}x{w}"] = (
+            "lgteun_lightnet_group", None,
+            lambda b=b, bands=bands, h=h, w=w: (
+                torch.empty(b, bands, h, w, device="cuda"),), None, launcher)
+    # (C = 32 at fs 13: the FP32-core body of earlier versions takes no
+    # larger window there)
+    for shape, fs in (((4, 8, 128, 128), 15), ((1, 8, 72, 100), 15),
+                      ((4, 4, 128, 128), 15), ((2, 16, 40, 56), 15),
+                      ((2, 32, 24, 40), 13)):
+        c = shape[1]
+        args = (n(*shape),) + tuple(n(c, c, scale=c ** -0.5)
+                                    for _ in range(4))
+        label = "x".join(map(str, shape)) + ("" if fs == 15 else f"-fs{fs}")
+        cases[f"neighborhood_attention {label}"] = (
+            "lgteun_neighborhood_attention", lambda lay, args=args: args,
+            lambda shape=shape: (torch.empty(shape, device="cuda"),),
+            shape + (fs,), None)
+    return cases
+
+
 def layouts(dll: ctypes.CDLL) -> tuple:
-    """(tail, attention, tables, lgb): the layouts of the tails' matrices
-    and of the window attention's wqkv that `dll` takes, for a library
-    whose mixer entries take tables (`lgteun_fft_mixer_layout` 2) a
-    function (H, W) -> the tables, made by its `lgteun_fft_tables`, else
-    None, and the whole block's arguments (`lgteun_lgb_block_layout`, 1
-    without it; see lgb_cases)."""
+    """(tail, attention, tables, lgb, lightnet): the layouts of the tails'
+    matrices and of the window attention's wqkv that `dll` takes, for a
+    library whose mixer entries take tables (`lgteun_fft_mixer_layout` 2)
+    a function (H, W) -> the tables, made by its `lgteun_fft_tables`,
+    else None, the whole block's arguments (`lgteun_lgb_block_layout`, 1
+    without it; see lgb_cases) and LightNet's weights
+    (`lgteun_lightnet_layout` 2: `lightnet_fragments`; 1 without it: the
+    packed FP32 rows of `lightnet_packed_fp32`)."""
     got = []
     for entry, default in (("lgteun_block_tail_layout", 1),
                            ("lgteun_window_attention_layout", 1),
                            ("lgteun_fft_mixer_layout", 1),
-                           ("lgteun_lgb_block_layout", 1)):
+                           ("lgteun_lgb_block_layout", 1),
+                           ("lgteun_lightnet_layout", 1)):
         fn = getattr(dll, entry, None)
         if fn is not None:
             fn.restype = ctypes.c_int
         got.append(fn() if fn is not None else default)
     if got[2] != 2:
-        return got[0], got[1], None, got[3]
+        return got[0], got[1], None, got[3], got[4]
     from lgteun_tpu_torch.ops.spectral_kernel import fft_mixer_plan
     made = {}
 
@@ -285,7 +395,7 @@ def layouts(dll: ctypes.CDLL) -> tuple:
             made[h, w] = torch.empty(floats, device="cuda")
             caller(dll, "lgteun_fft_tables", made[h, w], floats, h, w)()
         return made[h, w]
-    return got[0], got[1], tables, got[3]
+    return got[0], got[1], tables, got[3], got[4]
 
 
 def rel_diff(a, b) -> float:
@@ -300,14 +410,6 @@ MMA_RATE_SRC = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include "tc_tf32.cuh"
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 template <int NA>
 __global__ void mma_loop(float* out, int iters) {
   const uint32_t a[4] = {threadIdx.x, threadIdx.x * 3u, threadIdx.x * 5u,
@@ -800,29 +902,117 @@ def search_phases(card: str, batch: int, tmp: str, src: str | None) -> None:
               f"start to last end {launch_ns / 1e6:.4f} ms  [{card}]")
 
 
-def innt_ab(card: str, libs: dict) -> None:
-    """INNT's eval forward (the shipped config, seeded weights, seeded WV-3
-    images) with library A's and B's searches in turns A B B A twice, with
-    and without LGTEUN_FUSED_TM=0: batch-16 ms (CUDA events, 10 calls),
-    batch-1 latency (median of 15 synchronised calls), device busy time
-    and the top device kernels (profiler) and max|A - B| of the output,
-    which near-tie picks may move."""
+LIGHTNET_PHASES = ("staging", "products", "barrier 1", "depthwise",
+                   "barrier 2")
+NA_PHASES = ("staging", "theta", "logits", "softmax", "P.g", "epilogue")
+
+
+def stack_phases(card: str, tmp: str, src: str | None) -> None:
+    """Print where LightNet's stack and the neighbourhood attention spend
+    their time (see --stack-phases): a copy of CSRC built with
+    LGTEUN_LIGHTNET_STAMPS and LGTEUN_NA_STAMPS; the stack at
+    [4,9,128,128], launch by launch, and the attention at [4,8,128,128]
+    and [1,8,72,100]: each phase's clocks a block (thread 0), its share,
+    that share of an unstamped launch's device time, the blocks' clock
+    rate, blocks an SM and the span from the first block's start to the
+    last one's end."""
+    from chip_smoke import device_profile
+    from lgteun_tpu_torch.ops import _cuda
+    dst = Path(tmp) / "csrc"
+    shutil.copytree(Path(src) if src else _cuda.CSRC, dst)
+    for name, macro in (("lightnet.cu", "LGTEUN_LIGHTNET_STAMPS"),
+                        ("neighborhood_attention.cu", "LGTEUN_NA_STAMPS")):
+        f = dst / name
+        f.write_text(f"#define {macro} {MAX_BLOCKS}\n" + f.read_text())
+    stamped = build(str(dst), tmp, "stackstamped")
+    plain = build(src, tmp, "stack") if src else _cuda.kernels()
+    gen = torch.Generator().manual_seed(19971118)
+    cases = stack_cases(gen)
+
+    def report(label, entry, cols, phases, run_plain, run_stamped, blocks):
+        whole = device_profile(run_plain, n=20)["busy_ms_per_call"]
+        for _ in range(3):
+            run_stamped()
+        torch.cuda.synchronize()
+        # this launch's blocks only: the rows past them hold an earlier
+        # launch's stamps
+        h = read_stamps(stamped, entry, blocks, cols, mean=False)
+        m = h.double().mean(0).tolist()
+        n = len(phases)
+        total = sum(m[:n])
+        parts = "  ".join(f"{p} {v:.0f} ({v / total:.3f}, "
+                          f"{v / total * whole:.4f} ms)"
+                          for p, v in zip(phases, m))
+        t0, t1, sm, clk = (cols - 4, cols - 3, cols - 2, cols - 1)
+        span = (h[:, t1] - h[:, t0]).double()
+        ghz = (h[:, clk].double() / span).mean().item()
+        per_sm = [int((h[:, sm] == k).sum()) for k in h[:, sm].unique()]
+        launch_ns = (h[:, t1].max() - h[:, t0].min()).item()
+        print(f"stack phases {label}: {whole:.4f} ms (device), {total:.0f} "
+              f"clocks a block (thread 0, mean of {len(h)} blocks, "
+              f"{m[n]:.0f} steps): {parts}; a block "
+              f"{span.mean().item() / 1e3:.2f} us at {ghz:.3f} GHz, "
+              f"{min(per_sm)}-{max(per_sm)} blocks an SM, first start to "
+              f"last end {launch_ns / 1e6:.4f} ms  [{card}]")
+
+    for label, (entry, ins, alloc, dims, launcher) in cases.items():
+        if label.startswith("lightnet_stack 4x9"):
+            out = alloc()
+            plain_calls = launcher(plain, layouts(plain), out)
+            stamped_calls = launcher(stamped, layouts(stamped), out)
+            for c in plain_calls:   # every launch's input, once
+                c()
+            b, _c, h, w = out[0].shape
+            tiles = b * -(-h // 16) * -(-w // 16)
+            for k, (cp, cs) in enumerate(zip(plain_calls, stamped_calls)):
+                report(f"{label} launch {k}", "lgteun_read_lightnet_stamps",
+                       10, LIGHTNET_PHASES, cp, cs, tiles)
+        elif label in ("neighborhood_attention 4x8x128x128",
+                       "neighborhood_attention 1x8x72x100"):
+            args = ins(None)
+            run = {tag: caller(dll, entry, *args, *alloc(), *dims)
+                   for tag, dll in (("plain", plain), ("stamped", stamped))}
+            # csrc/neighborhood_attention.cu::launch_na_tc's grid: 8 runs a
+            # block where that gives 3 blocks an SM, else 4
+            b, _c, h, w = dims[:4]
+            runs = -(-w // 16)
+            rows = 8 if b * -(-h // 8) * runs >= 3 * 132 else 4
+            report(label, "lgteun_read_na_stamps", 11, NA_PHASES,
+                   run["plain"], run["stamped"], b * -(-h // rows) * runs)
+
+
+def forward_ab(card: str, libs: dict, config: str, envs) -> None:
+    """A method's eval forward (the shipped config `config`, seeded
+    weights, seeded WV-3 images) with library A's and B's kernels in
+    turns A B B A twice, under each environment of `envs`: batch-16 ms
+    (CUDA events, 10 calls), batch-1 latency (median of 15 synchronised
+    calls), device busy time and the top device kernels (profiler) and
+    max|A - B| of the output (for INNT near-tie picks may move it). A
+    library without `lgteun_lightnet_layout` gets LightNet's weights in
+    its own packed FP32 layout (`lightnet_packed_fp32`)."""
     import statistics
     import time
     from chip_smoke import CONFIGS, SEED, SceneDataset, device_profile, \
         time_ms
     from lgteun_tpu_torch.config import load_config
     from lgteun_tpu_torch.data.pipeline import eval_batches
-    from lgteun_tpu_torch.ops import _cuda
+    from lgteun_tpu_torch.ops import _cuda, lightnet_kernel
     from lgteun_tpu_torch.registry import build_model
     from lgteun_tpu_torch.runner import Runner
     from unittest import mock
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    own = _cuda.kernels
+    own, own_packed = _cuda.kernels, lightnet_kernel._packed
+
+    def packed_for(lib):
+        if layouts(lib)[4] != 1:
+            return own_packed
+        return lambda layers, table, device: _cuda.weight_layout(
+            "lightnet_fp32", [t for layer in layers for t in layer],
+            lambda: lightnet_packed_fp32(layers, table))
     try:
-        for env in ({}, {"LGTEUN_FUSED_TM": "0"}):
-            cfg = load_config(os.path.join(CONFIGS, "INNT.py"))
+        for env in envs:
+            cfg = load_config(os.path.join(CONFIGS, config))
             with mock.patch.dict(os.environ, env):
                 method = build_model(cfg.model_type, cfg, device="cuda")
             runner = Runner(cfg, method, "cuda").init(SEED)
@@ -835,6 +1025,7 @@ def innt_ab(card: str, libs: dict) -> None:
                 {}, {}
             for tag in "ABBAABBA":
                 _cuda.kernels = (lambda lib: lambda: lib)(libs[tag])
+                lightnet_kernel._packed = packed_for(libs[tag])
                 for _ in range(3):
                     runner.predict(b16)
                 ms[tag].append(time_ms(lambda: runner.predict(b16), iters=10))
@@ -851,17 +1042,17 @@ def innt_ab(card: str, libs: dict) -> None:
                 p, med = prof[tag], statistics.median(ms[tag])
                 top = "; ".join(f"{share:.3f} {name[:40]}"
                                 for name, share in p["top"][:6])
-                print(f"innt {env} {tag}: batch-16 "
+                print(f"{cfg.model_type} {env} {tag}: batch-16 "
                       f"{[round(x, 3) for x in ms[tag]]} ms, median {med:.3f}"
                       f" = {16e3 / med:.1f} images/s; batch-1 median "
                       f"{statistics.median(lat[tag]):.3f} ms; device busy "
                       f"{p['busy_ms_per_call']:.3f} of "
                       f"{p['wall_ms_per_call']:.3f} ms (idle "
                       f"{p['idle_share']:.3f}); top: {top}  [{card}]")
-            print(f"innt {env}: max|B - A| of the batch-16 output "
-                  f"{(out['A'] - out['B']).abs().max().item():.3e}")
+            print(f"{cfg.model_type} {env}: max|B - A| of the batch-16 "
+                  f"output {(out['A'] - out['B']).abs().max().item():.3e}")
     finally:
-        _cuda.kernels = own
+        _cuda.kernels, lightnet_kernel._packed = own, own_packed
 
 
 def main() -> int:
@@ -881,6 +1072,11 @@ def main() -> int:
                     metavar="CSRC",
                     help="time the INNT searches' phases instead, in CSRC "
                          "(default: the port's csrc)")
+    ap.add_argument("--stack-phases", nargs="?", const="", default=None,
+                    metavar="CSRC",
+                    help="time LightNet's stack's and the neighbourhood "
+                         "attention's phases instead, in CSRC (default: the "
+                         "port's csrc)")
     ap.add_argument("--b8-only", type=int, default=0, choices=(0, 1, 2),
                     help="with --b8-phases: 1 times the LN and plane items "
                          "alone, 2 the tail items alone")
@@ -891,8 +1087,18 @@ def main() -> int:
     ap.add_argument("--innt", action="store_true",
                     help="time INNT's eval forward with A's and B's "
                          "searches instead of the kernel cases")
+    ap.add_argument("--lightnet", action="store_true",
+                    help="time LightNet's eval forward with A's and B's "
+                         "stack instead of the kernel cases")
+    ap.add_argument("--mdcun", action="store_true",
+                    help="time MDCUN's eval forward with A's and B's "
+                         "neighbourhood attention instead of the kernel "
+                         "cases")
     ap.add_argument("--only", default="", metavar="TEXT",
-                    help="run only the cases whose label contains TEXT")
+                    help="run only the cases whose label contains TEXT (or "
+                         "one of comma-separated TEXTs); with --innt, "
+                         "--lightnet or --mdcun, those cases and then the "
+                         "forwards")
     ap.add_argument("--tol", type=float, default=None, metavar="REL",
                     help="accept max|B - A| / max|A| <= REL (default: "
                          "bit-equal outputs)")
@@ -908,10 +1114,13 @@ def main() -> int:
     card = sh("nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader").splitlines()[0]
     if opts.mma_rate or opts.phases or opts.b8_phases is not None \
-            or opts.search_phases is not None:
+            or opts.search_phases is not None \
+            or opts.stack_phases is not None:
         with tempfile.TemporaryDirectory() as tmp:
             if opts.mma_rate:
                 mma_rate(card, tmp)
+            elif opts.stack_phases is not None:
+                stack_phases(card, tmp, opts.stack_phases or None)
             elif opts.search_phases is not None:
                 search_phases(card, opts.batch, tmp,
                               opts.search_phases or None)
@@ -924,8 +1133,12 @@ def main() -> int:
         ap.error("A and B are needed without --mma-rate or --phases")
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"A": build(opts.a, tmp, "a"), "B": build(opts.b, tmp, "b")}
-    if opts.innt:
-        innt_ab(card, libs)
+    forwards = [("INNT.py", ({}, {"LGTEUN_FUSED_TM": "0"}))] * opts.innt \
+        + [("lightnet.py", ({},))] * opts.lightnet \
+        + [("MDCUN.py", ({},))] * opts.mdcun
+    if forwards and not opts.only:
+        for config, envs in forwards:
+            forward_ab(card, libs, config, envs)
         return 0
     gen = torch.Generator().manual_seed(19971118)
     n, c, side = 256 * opts.batch, 4, 24
@@ -954,18 +1167,21 @@ def main() -> int:
     }
     cases.update(lgb_cases(opts.batch, map(int, opts.sizes.split(",")),
                            gen))
+    cases = {k: v + (None,) for k, v in cases.items()}
+    cases.update(stack_cases(gen))
     lays = {tag: layouts(dll) for tag, dll in libs.items()}
     failed = []
-    for label, (entry, ins, alloc, dims) in cases.items():
-        if opts.only not in label or not all(hasattr(dll, entry)
-                                             for dll in libs.values()):
+    for label, (entry, ins, alloc, dims, launcher) in cases.items():
+        if not any(t in label for t in opts.only.split(",")) or not all(
+                hasattr(dll, entry) for dll in libs.values()):
             continue
         outs, calls = {}, {}
         for tag, dll in libs.items():
             outs[tag] = alloc()
-            calls[tag] = caller(dll, entry, *ins(lays[tag]), *outs[tag],
-                                *(dims(lays[tag]) if callable(dims)
-                                  else dims))
+            calls[tag] = (lambda cs: lambda: [c() for c in cs])(
+                launcher(dll, lays[tag], outs[tag])) if launcher \
+                else caller(dll, entry, *ins(lays[tag]), *outs[tag],
+                            *(dims(lays[tag]) if callable(dims) else dims))
             if entry == "lgteun_lgb_block":   # counters zero at each launch
                 calls[tag] = (lambda call, counters: lambda: (
                     counters.zero_(), call()))(calls[tag], outs[tag][1])
@@ -1001,6 +1217,8 @@ def main() -> int:
               f"{verdict}, max|B - A| / max|A| {rel:.3e}  [{card}]")
         if not ok:
             failed.append(f"{label} ({rel:.3e})")
+    for config, envs in forwards:
+        forward_ab(card, libs, config, envs)
     if failed:
         raise AssertionError("B's outputs differ from A's"
                              + (f" beyond {opts.tol:g}" if opts.tol else "")

@@ -1,4 +1,5 @@
-"""The port's mended faults (ROADMAP C.14, C.27, C.28, C.29), on the CPU.
+"""The port's mended faults (ROADMAP C.14, C.27, C.28, C.29, C.33), on the
+CPU.
 
 - C.14: MDCUN's stage scalars and PReLU slopes load from a state_dict
   that holds them as [1] or as [] (the flax tree's form), stored as [1];
@@ -6,7 +7,11 @@
   compute (QNR, adversarial) instead of training without it;
 - C.28: one checkpoint loader takes a Runner checkpoint and a bare
   state_dict, in `Runner.load_checkpoint` and in the scene CLI;
-- C.29: `mixed_precision` and `remat` raise instead of being ignored.
+- C.29: `mixed_precision` and `remat` raise instead of being ignored;
+- C.33: the plain FFT mixer keeps the zero bins of planes constant along
+  an axis (within rounding) exactly zero whatever the FFT library leaves
+  there, so its output on them does not depend on the host or the thread
+  count.
 """
 
 import os
@@ -223,3 +228,108 @@ def test_shipped_config_flags_do_not_raise():
     Runner(cfg, build_model("UnlgFormer", cfg, device="cpu"), "cpu")
     cfg.extras.update(mixed_precision=False, remat=False)
     Runner(cfg, build_model("UnlgFormer", cfg, device="cpu"), "cpu")
+
+
+# ---------------------------------------------------------------- C.33
+
+def _noisy_rfft2(rfft2):
+    """An FFT library that leaves rounding noise (2^-30 of the plane's
+    scale) in every bin, as one on another host may in the zero bins."""
+    def noisy(x, *args, **kwargs):
+        z = rfft2(x, *args, **kwargs)
+        gen = torch.Generator().manual_seed(0)
+        scale = 2.0 ** -30 * x.abs().amax((-2, -1), keepdim=True)
+        noise = torch.complex(torch.randn(z.shape, generator=gen),
+                              torch.randn(z.shape, generator=gen))
+        return z + noise.to(z.dtype) * scale
+    return noisy
+
+
+def _constant_planes(axis, b=2, c=8, h=24, w=32, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (b, c, 1, w) if axis == "H" else (b, c, h, 1)
+    return torch.from_numpy(np.broadcast_to(
+        rng.standard_normal(shape), (b, c, h, w)).astype(np.float32))
+
+
+def _mixer_params(c, seed=1):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(c).astype(np.float32))
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("axis", ["H", "W"])
+def test_plane_rfft2_keeps_exact_zero_bins_on_any_backend(axis,
+                                                          monkeypatch):
+    """C.33: on planes constant along an axis, the plain mixer's spectrum
+    is exactly zero off that axis's bin 0, also through an FFT library
+    that leaves noise there; planes that are not constant keep every
+    bin."""
+    from lgteun_tpu_torch.ops.spectral_kernel import plane_rfft2
+    monkeypatch.setattr(torch.fft, "rfft2", _noisy_rfft2(torch.fft.rfft2))
+    x = _constant_planes(axis)
+    z = plane_rfft2(x)
+    off = z[..., 1:, :] if axis == "H" else z[..., :, 1:]
+    assert torch.all(off == 0)
+    kept = z[..., :1, :] if axis == "H" else z[..., :, :1]
+    assert torch.all(kept != 0)
+    y = x.clone()
+    y[:, :, 3, 5] += 1.0
+    assert torch.count_nonzero(plane_rfft2(y)) == z.numel()
+
+
+@pytest.mark.parametrize("axis", ["H", "W"])
+def test_plain_mixer_on_constant_planes_ignores_fft_noise(axis, monkeypatch):
+    """C.33: the mixer head's plain version on planes constant along an
+    axis gives within 1e-6 the same output through an FFT library that
+    leaves 2^-30 noise in its bins: the zero bins take no noise phase
+    (unmended, the phase scale carries it into the output at O(amp_b))."""
+    from lgteun_tpu_torch.ops.spectral_kernel import ln_mixer_head_ref
+    x = _constant_planes(axis, c=16)
+    ln = [torch.ones(16), torch.zeros(16)]
+    want = ln_mixer_head_ref(x, *ln, *_mixer_params(8))[1]
+    monkeypatch.setattr(torch.fft, "rfft2", _noisy_rfft2(torch.fft.rfft2))
+    got = ln_mixer_head_ref(x, *ln, *_mixer_params(8))[1]
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.parametrize("axis", ["H", "W"])
+def test_plain_mixer_on_planes_constant_within_rounding(axis):
+    """C.33: a constant plane whose values are a rounding apart here and
+    there (as a CPU LayerNorm's reductions may leave them) mixes as the
+    exact constant plane does, within 1e-6: its off-axis bins, rounding
+    noise, are zero and take no noise phase; a plane that is not
+    constant keeps them."""
+    from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer_ref,
+                                                      plane_rfft2)
+    x = _constant_planes(axis, c=8)
+    rng = np.random.default_rng(5)
+    bits = x.clone().view(torch.int32)
+    pick = torch.from_numpy(rng.random(x.shape) < 0.05)
+    bits[pick] += torch.from_numpy(rng.integers(-2, 3, x.shape).astype(
+        np.int32))[pick]
+    near = bits.view(torch.float32)
+    assert not torch.equal(near, x)
+    params = _mixer_params(8)
+    want = global_mixer_ref(x, *params)
+    got = global_mixer_ref(near, *params)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    z = plane_rfft2(near)
+    assert torch.all((z[..., 1:, :] if axis == "H" else z[..., :, 1:]) == 0)
+    y = near.clone()
+    y[:, :, 2, 3] += 1e-3
+    z = plane_rfft2(y)
+    assert torch.count_nonzero(z) == z.numel()
+
+
+@pytest.mark.parametrize("axis", ["H", "W"])
+def test_plain_mixer_on_constant_planes_same_bits_at_any_thread_count(axis):
+    """C.33: the mixer head's plain version on constant planes gives the
+    same bits on 1 thread and on 4."""
+    from lgteun_tpu_torch.ops.spectral_kernel import ln_mixer_head_ref
+    x = _constant_planes(axis, b=4, c=32, h=72, w=72)
+    args = [torch.ones(32), torch.zeros(32), *_mixer_params(16)]
+    one = ln_mixer_head_ref(x, *args)
+    torch.set_num_threads(4)
+    four = ln_mixer_head_ref(x, *args)
+    assert all(torch.equal(a, b) for a, b in zip(one, four))

@@ -132,13 +132,25 @@ def test_lightnet_roundtrip_is_exact_and_loads_strict(c):
 
 
 def _unpack_stack(x, lms, weights, groups):
-    """The stack computed from the packed buffer as csrc/lightnet.cu
-    reads it (whole image, no tiling): checks the packing layout."""
+    """The stack computed from the weight layout as csrc/lightnet.cu
+    reads it (whole image, no tiling): the pointwise weights as the sum
+    of their TF32 hi and lo parts from the lanes' B fragments (lane 4g +
+    t: b0 = W[8 ks + t][g], b1 = W[8 ks + t + 4][g], column g: branch
+    g // 4, channel 4 q + g % 4); checks the layout."""
     rows = torch.cat([g[0] for g in groups])
     for cin, cout, coutp, relu, off in rows.tolist():
-        pw = weights[off:off + cin * 2 * coutp].view(cin, 2, coutp)
-        at = off + cin * 2 * coutp
-        pb = weights[at:at + 2 * coutp].view(2, coutp)
+        ks = -(-cin // 8)
+        q = coutp // 4
+        frag = weights[off:off + q * ks * 128].view(q, ks, 8, 4, 4)
+        # [q][ks][g][t][b0h, b1h, b0l, b1l] -> W [q][k = 8 ks + 4 half + t][g]
+        part = lambda i: frag[..., i:i + 2].permute(0, 1, 4, 3, 2).reshape(
+            q, 8 * ks, 8)
+        wq = part(0) + part(2)   # hi + lo, columns in chunk order
+        pw = wq.view(q, 8 * ks, 2, 4).permute(1, 2, 0, 3).reshape(
+            8 * ks, 2, coutp)[:cin]
+        at = off + q * ks * 128
+        pb = weights[at:at + 2 * coutp].view(q, 2, 4).permute(1, 0, 2) \
+            .reshape(2, coutp)
         dw = weights[at + 2 * coutp:at + 20 * coutp].view(2, coutp, 3, 3)
         db = weights[at + 20 * coutp:at + 22 * coutp].view(2, coutp)
         y = 0
@@ -153,10 +165,11 @@ def _unpack_stack(x, lms, weights, groups):
 
 @pytest.mark.parametrize("c", [4, 8])
 def test_packed_weights_follow_the_kernel_layout(c):
-    """The packed buffer read as the kernel reads it reproduces the
-    plain stack; the launches are 4, 3 and 3 layers, each fits in a
-    block's shared memory; a new weight version repacks; weights of the
-    wrong shape are refused when packing."""
+    """The weight layout read as the kernel reads it reproduces the
+    plain stack; the launches are five of 2 layers, each fits in a
+    block's shared memory (at most 112,256 bytes: two blocks an SM); a
+    new weight version remakes the layout; weights of the wrong shape
+    are refused when it is made."""
     port = _port(c, flax_params(c, seed=3))
     x, lms, layers = _stack_args(port, *_inputs(c, 1, 8, seed=4))
     table = lightnet_layers(c)
@@ -165,17 +178,14 @@ def test_packed_weights_follow_the_kernel_layout(c):
         got = _unpack_stack(x, lms, weights, groups)
         want = lightnet_stack_ref(x, lms, layers)
     assert float((got - want).abs().max()) <= 1e-5
-    assert [(n, cout) for _rows, n, cout in groups] == [(4, 32), (3, 32),
-                                                        (3, c)]
-    in_c = c + 1
+    assert [(n, cout) for _rows, n, cout in groups] == [
+        (2, 20), (2, 32), (2, 32), (2, 16), (2, c)]
     for rows, _n, cout in groups:
         assert rows.dtype == torch.int32 and rows.shape[1] == 5
         assert all(off % 4 == 0 for off in rows[:, 4].tolist())
-        assert lightnet_kernel._group_smem(rows.tolist(), in_c) <= \
-            lightnet_kernel._SMEM_MAX
-        in_c = cout
+        assert lightnet_kernel.group_smem(rows.tolist()) <= 112_256
     with pytest.raises(ValueError, match="do not match"):
-        lightnet_kernel._pack(layers[:-1], table, x.device)
+        lightnet_kernel._packed(layers[:-1], table, x.device)
     with torch.inference_mode():
         assert lightnet_kernel._packed(layers, table, x.device)[0] is weights
     with torch.no_grad():

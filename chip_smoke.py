@@ -138,6 +138,22 @@ each path at batch 1 and at the eval batch, and over a few training
 steps at batch 4 and 16: device kernels per call, device busy time,
 idle share and each device kernel's share of the busy time.
 
+Then the reference's evaluation entry point (the `main` phase):
+`python -m lgteun_tpu_torch.main -c CONFIG --test-only --device cuda`
+(`main.cli`) on the shipped WV-3 configs of UnlgFormer (seeded init,
+level 2: 5 launches each of B1-B3 a forward, none of the others), GSA,
+SFIM and Wavelet, on a seeded synthetic WV-3 tree under
+`build/chip_smoke/main` (20 reduced-resolution scenes with targets, 20
+full-resolution ones without; 128^2 PAN, batch 16): every per-image
+metric the card scores on both splits (PSNR, SSIM, Q, SAM, ERGAS;
+D_lambda, D_s, QNR) held against the float64 oracle (`numpy_ref`, on the
+CPU, in a pool of processes) on the same saved prediction, every written
+TIFF against the rounded prediction (1 DN), both tags in
+`eval_curves.json`; the metric suite's ms/img at batch 16 on each split,
+the same suite on inputs with flat 8x8 and 32x32 windows (card vs CPU vs
+float64), and each classical method's batch-16 images/s and batch-1
+latency.
+
 Any failed phase raises (non-zero exit). With no CUDA device the script
 exits non-zero before printing any result. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it is the card's name and
@@ -257,6 +273,21 @@ SIXTEEN = (({"LGTEUN_FUSE_LEVEL": "1"}, {"window_attention": 5,
 # max|card - float64| - max|cpu plain - float64| of the 16-band model
 # (the 8-band paths' card-vs-CPU bound; see run_sixteen_bands)
 SIXTEEN_TOL = 5e-4
+
+# the main phase: `python -m lgteun_tpu_torch.main --test-only` on a
+# synthetic WV-3 tree of MAIN_IMAGES reduced-resolution scenes (with
+# targets) and MAIN_IMAGES full-resolution ones (without)
+MAIN_IMAGES = 20
+MAIN_CONFIGS = ("unlg_former.py", "GSA.py", "SFIM.py", "Wavelet.py")
+# UnlgFormer at level 2: launches per forward; the classical methods none
+MAIN_ROUTE = {"ln_mixer_head": 5, "window_attention": 5, "block_tail": 5}
+# card vs the float64 oracle (numpy_ref) on the same saved prediction:
+# the bounds tests/test_metrics.py holds the JAX metrics to
+MAIN_REF_RTOL = {"psnr": 1e-4, "ssim": 1e-4, "qindex": 1e-3, "sam": 1e-3,
+                 "ergas": 1e-4}
+MAIN_NO_REF_ATOL = {"d_lambda": 2e-4, "d_s": 2e-4, "qnr": 4e-4}
+MAIN_TAGS = {True: "reduced-res (ref)", False: "full-res (no-ref)"}
+DN_RANGE = 2.0 ** 11 - 0.5
 
 # name -> (module under lgteun_tpu_torch/ops holding the wrapper and its
 # plain version, the model module that calls it, CUDA source, the TPU
@@ -1150,6 +1181,10 @@ def main() -> int:
     run_grad_split(train_ds, card)
     run_train_variants(train_ds, card)
 
+    # 7. the evaluation entry point: main.cli --test-only, both splits,
+    #    UnlgFormer and the classical methods
+    run_main(card)
+
     kernels = []
     for name, (_op, _user, src, replaces, main_shape, no_library) in \
             KERNELS.items():
@@ -2004,7 +2039,7 @@ def run_training(card: str, profile: bool):
           f"{cfg.loss_cfg} batch {bs} drop_rate {drop} max_iter "
           f"{cfg.max_iter}")
     runner = Runner(cfg, train_method(cfg), "cuda", train_ds=train_ds,
-                    test_ds=test_ds).init(SEED).set_optim()
+                    test_ds_reduced=test_ds).init(SEED).set_optim()
     before = runner.test(test_ds)["psnr"][0]
     wrappers = reset_launches()
     t0 = time.perf_counter()
@@ -2223,6 +2258,277 @@ def run_train_variants(train_ds, card: str, steps: int = 3) -> None:
               f"forward {route}  [{card}]")
         if not np.isfinite(losses).all():
             raise AssertionError(f"train {env}: loss not finite")
+
+
+def write_main_tree(root: str) -> str:
+    """{root}/data/WV-3/test_reduce_res (MAIN_IMAGES seeded Wald scenes
+    with targets) and .../test_full_res (the LrMS and PAN of MAIN_IMAGES
+    other scenes, no target), written by the port's generator; returns
+    the data root."""
+    import shutil
+
+    from lgteun_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    made = make_synthetic_dataset(os.path.join(root, "made"), MAIN_IMAGES,
+                                  MAIN_IMAGES, bands=8, size=128,
+                                  seed=SEED + 5, sensor="WV3")
+    data = os.path.join(root, "data")
+    shutil.copytree(made["test"], os.path.join(data, "WV-3",
+                                               "test_reduce_res"))
+    full = os.path.join(data, "WV-3", "test_full_res")
+    os.makedirs(full)
+    for name in sorted(os.listdir(made["train"])):
+        if not name.endswith("_mul.tif"):
+            shutil.copy(os.path.join(made["train"], name), full)
+    return data
+
+
+def oracle_scores(ref: bool, pred: np.ndarray, a: np.ndarray,
+                  b: np.ndarray | None) -> dict:
+    """The float64 oracle of one saved prediction (normalised [H,W,C]):
+    ref, a = the target in DN (`numpy_ref.ref_evaluate`); no-ref, a = the
+    normalised LrMS, b = the normalised PAN [H,W,1]
+    (`oracle.no_ref_scores`: numpy_ref's D_lambda and D_s with each
+    window statistic filtered once, QNR as `numpy_ref.qnr` forms it).
+    Runs in a worker."""
+    sys.path.insert(0, REPO)
+    from lgteun_tpu_torch.metrics import numpy_ref, oracle
+
+    p = pred.astype(np.float64)
+    if ref:
+        return dict(zip(MAIN_REF_RTOL, numpy_ref.ref_evaluate(
+            p * DN_RANGE, a.astype(np.float64))))
+    return oracle.no_ref_scores(p, a, b)
+
+
+def flat_window_inputs(seed: int):
+    """8-band inputs with flat windows: a DN pair [2,128,128,8] with
+    saturated (2047.5) and zero 24x24 blocks in both and a block flat in
+    the prediction only; normalised no-ref inputs [1,...] with a
+    saturated 64x64 prediction block and constant LrMS and PAN blocks."""
+    rng = np.random.default_rng(seed)
+    gt = rng.uniform(0.0, DN_RANGE, (2, 128, 128, 8))
+    pred = np.clip(gt + rng.normal(0, 40.0, gt.shape), 0, DN_RANGE)
+    for a in (pred, gt):
+        a[:, 8:32, 8:32] = DN_RANGE
+        a[:, 40:64, 40:64] = 0.0
+    pred[:, 80:104, 80:104] = 1800.0
+    npred = rng.uniform(0, 1, (1, 128, 128, 8))
+    lrms = rng.uniform(0, 1, (1, 32, 32, 8))
+    pan = rng.uniform(0, 1, (1, 128, 128, 1))
+    npred[:, 16:80, 16:80] = 1.0
+    lrms[:, 4:20, 4:20] = 0.5
+    pan[:, 16:80, 16:80] = 0.75
+    return tuple(x.astype(np.float32) for x in (pred, gt, npred, lrms, pan))
+
+
+def metric_errors(card: dict, oracle: list, ref: bool) -> dict:
+    """{metric: worst |card - oracle| (relative for the reference
+    metrics)} over the images."""
+    errs = {}
+    for k in (MAIN_REF_RTOL if ref else MAIN_NO_REF_ATOL):
+        got = np.asarray(card[k], np.float64)
+        want = np.asarray([o[k] for o in oracle])
+        d = np.abs(got - want)
+        errs[k] = float((d / np.abs(want)).max() if ref else d.max())
+    return errs
+
+
+def check_metric_errors(tag: str, errs: dict, ref: bool) -> None:
+    bounds = MAIN_REF_RTOL if ref else MAIN_NO_REF_ATOL
+    bad = {k: v for k, v in errs.items() if not v <= bounds[k]}
+    if bad:
+        raise AssertionError(f"{tag}: card vs float64 oracle {bad} over "
+                             f"{bounds}")
+
+
+def run_main(card: str) -> None:
+    """`main.cli --test-only --device cuda` on each of MAIN_CONFIGS (from
+    a working directory under build/, where the configs' relative
+    work_dir and log_dir land); then the checks and timings of the
+    docstring's main phase."""
+    import concurrent.futures
+    import contextlib
+    import multiprocessing
+    import shutil
+
+    from lgteun_tpu_torch import main as port_main
+    from lgteun_tpu_torch.data.pipeline import eval_batches
+    from lgteun_tpu_torch.data.tiff import read_tiff
+    from lgteun_tpu_torch.metrics import numpy_ref
+    from lgteun_tpu_torch.metrics.torch_metrics import (no_ref_evaluate_batch,
+                                                        ref_evaluate_batch)
+    from lgteun_tpu_torch.runner import Runner
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "build", "chip_smoke", "main")
+    shutil.rmtree(root, ignore_errors=True)
+    data = write_main_tree(root)
+    env = {"LGTEUN_DATA_ROOT": data, "LGTEUN_DATA_INDEX": "2",
+           "LGTEUN_FUSE_LEVEL": "2", "LGTEUN_FUSED_ATTENTION": "1"}
+    keep_save = Runner._save_outputs
+    # (tag, ref, image scores the card logged, oracle arguments, the
+    # oracle's futures): a config's oracle runs in the pool (one core
+    # left to this process) while the next configs run on the card
+    jobs = []
+    timing = {}
+    pred, gt, npred, lrms, pan = flat_window_inputs(SEED + 6)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max(os.cpu_count() - 1, 1),
+        mp_context=multiprocessing.get_context("spawn"))
+    t_oracle = time.perf_counter()
+    flat_fut = pool.submit(oracle_scores, False, npred[0], lrms[0], pan[0])
+    try:
+        for config in MAIN_CONFIGS:
+            saved = {}
+
+            def record(self, outputs, iter_id, ref, saved=saved):
+                saved[ref] = outputs
+                return keep_save(self, outputs, iter_id, ref)
+
+            with mock.patch.dict(os.environ, env), contextlib.chdir(root), \
+                    mock.patch.object(Runner, "_save_outputs", record):
+                wrappers = reset_launches()
+                t0 = time.perf_counter()
+                runner = port_main.cli(["-c", os.path.join(CONFIGS, config),
+                                        "--test-only", "--device", "cuda"])
+                wall = time.perf_counter() - t0
+                counted = {k: fn.launches for k, fn in wrappers.items()}
+            cfg = runner.cfg
+            tag = f"main {cfg.model_type}"
+            forwards = 2 * -(-MAIN_IMAGES // cfg.eval_batch_size)
+            check_launches(tag, wrappers, MAIN_ROUTE if cfg.model_type ==
+                           "UnlgFormer" else {}, forwards)
+            print(f"{tag}: main.cli --test-only --device cuda in {wall:.2f} s "
+                  f"(the build and data excluded), {forwards} forwards, "
+                  f"launches { {k: v for k, v in counted.items() if v} }  "
+                  f"[{card}]")
+            out_root = os.path.join(root, cfg.work_dir, cfg.datas)
+            with open(os.path.join(out_root, "eval_curves.json")) as f:
+                curves = json.load(f)
+            for ref in (True, False):
+                want_keys = {f"{MAIN_TAGS[ref]}/{k}" for k in (
+                    MAIN_REF_RTOL if ref else MAIN_NO_REF_ATOL)}
+                if not want_keys <= set(curves):
+                    raise AssertionError(f"{tag}: eval_curves.json lacks "
+                                         f"{sorted(want_keys - set(curves))}")
+                ds = runner.test_ds_reduced if ref else runner.test_ds_full
+                scores = runner.image_scores[MAIN_TAGS[ref]]
+                ids = [i for chunk, _ in saved[ref] for i in chunk]
+                preds = np.concatenate([p for _, p in saved[ref]])
+                if ids != scores["image_id"] or len(ids) != MAIN_IMAGES:
+                    raise AssertionError(
+                        f"{tag}: saved {len(ids)} predictions for "
+                        f"{len(scores['image_id'])} scored images")
+                split = os.path.join(out_root, "test_out",
+                                     f"iter_{cfg.max_iter}",
+                                     "reduced" if ref else "full")
+                tif_err = max(float(np.abs(read_tiff(os.path.join(
+                    split, f"{i}_mul_hat.tif")).astype(np.float64)
+                    - np.clip(np.round(p.astype(np.float64) * DN_RANGE), 0,
+                              65535)).max())
+                    for i, p in zip(ids, preds))
+                print(f"{tag} {MAIN_TAGS[ref]}: {len(ids)} TIFFs under "
+                      f"{os.path.relpath(split, REPO)}, "
+                      f"max|TIFF - round(pred)| {tif_err:g} DN (bound 1); "
+                      + ", ".join(f"{k} {np.mean(scores[k]):.4f}" for k in (
+                          MAIN_REF_RTOL if ref else MAIN_NO_REF_ATOL)))
+                if not tif_err <= 1.0:
+                    raise AssertionError(f"{tag}: TIFF off by {tif_err} DN")
+                items = [ds[j] for j in range(len(ds))]
+                args = [(ref, p, it["target"] if ref else
+                         it["input_lr"] / np.float32(DN_RANGE),
+                         None if ref else
+                         it["input_pan"] / np.float32(DN_RANGE))
+                        for p, it in zip(preds, items)]
+                jobs.append((f"{tag} {MAIN_TAGS[ref]}", ref, scores, args,
+                             [pool.submit(oracle_scores, *a) for a in args]))
+            if cfg.model_type != "UnlgFormer":
+                timing[cfg.model_type] = runner
+    except BaseException:
+        pool.shutdown(cancel_futures=True)
+        raise
+
+    # every per-image metric's float64 oracle, before the timings below
+    # (which want an idle host)
+    with pool:
+        oracle = {tag: [f.result() for f in futs]
+                  for tag, _, _, _, futs in jobs}
+        flat_oracle = [flat_fut.result()] + [dict(zip(
+            MAIN_REF_RTOL, numpy_ref.ref_evaluate(
+                pred[i].astype(np.float64), gt[i].astype(np.float64))))
+            for i in range(2)]
+    oracle_s = time.perf_counter() - t_oracle
+
+    # the metric suite alone at batch 16 on the card, each split (on
+    # UnlgFormer's predictions: jobs 0 and 1)
+    for ref in (True, False):
+        args = jobs[0 if ref else 1][3][:16]
+        pred16, a16, b16 = (None if args[0][j] is None else torch.from_numpy(
+            np.stack([a[j] for a in args])).cuda() for j in (1, 2, 3))
+        if ref:
+            call = lambda: ref_evaluate_batch(pred16 * DN_RANGE, a16,
+                                              dynamic_range=DN_RANGE)
+        else:
+            call = lambda: no_ref_evaluate_batch(pred16, a16, b16)
+        ms = time_ms(call, iters=10)
+        print(f"main metric suite {MAIN_TAGS[ref]} batch 16: {ms:.3f} ms = "
+              f"{ms / 16:.4f} ms/img (CUDA events; TF32 off)  [{card}]")
+
+    # each classical method: batch-16 images/s and batch-1 latency
+    for name, runner in timing.items():
+        items = next(eval_batches(runner.test_ds_reduced, 16))[0]
+        b16 = runner.to_device(items)
+        b1 = runner.to_device({k: v[:1] for k, v in items.items()
+                               if k != "image_id"})
+        for _ in range(3):
+            runner.predict(b1)
+        lat = []
+        for _ in range(30):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.predict(b1)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        b16_ms = time_ms(lambda: runner.predict(b16), iters=10)
+        print(f"main {name}: batch-1 latency median "
+              f"{statistics.median(lat) * 1e3:.3f} ms (min "
+              f"{min(lat) * 1e3:.3f}); batch-16 {b16_ms:.3f} ms = "
+              f"{16 / (b16_ms / 1e3):.1f} images/s (the reference: 22-59 "
+              f"ms/img for its classical methods, numpy on an RTX 3090 "
+              f"host)  [{card}]")
+
+    # the flat-window inputs: card vs CPU (torch) vs float64
+    flat_ref = {dev: {k: v.cpu().numpy() for k, v in ref_evaluate_batch(
+        torch.from_numpy(pred).to(dev), torch.from_numpy(gt).to(dev),
+        dynamic_range=DN_RANGE).items()} for dev in ("cuda", "cpu")}
+    flat_no_ref = {dev: {k: v.cpu().numpy() for k, v in
+                         no_ref_evaluate_batch(*(torch.from_numpy(x).to(dev)
+                                                 for x in (npred, lrms,
+                                                           pan))).items()}
+                   for dev in ("cuda", "cpu")}
+    for tag, ref, scores, _, _ in jobs:
+        errs = metric_errors(scores, oracle[tag], ref)
+        print(f"{tag}: card vs float64 oracle on the saved predictions, "
+              f"worst over {MAIN_IMAGES} images ("
+              + ("relative" if ref else "absolute") + "): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"  [{card}]")
+        check_metric_errors(tag, errs, ref)
+    for dev in ("cuda", "cpu"):
+        errs = {**metric_errors(flat_ref[dev], flat_oracle[1:], True),
+                **metric_errors(flat_no_ref[dev], flat_oracle[:1], False)}
+        print(f"main flat windows ({dev}): vs float64, ref metrics relative"
+              f" / no-ref absolute: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"  [{card}]")
+        check_metric_errors(f"flat windows {dev}", {
+            k: v for k, v in errs.items() if k in MAIN_REF_RTOL}, True)
+        check_metric_errors(f"flat windows {dev}", {
+            k: v for k, v in errs.items() if k in MAIN_NO_REF_ATOL}, False)
+    print(f"main phase: {time.perf_counter() - t_phase:.1f} s; the float64 "
+          f"oracle {oracle_s:.1f} s from its first job to its last on "
+          f"{max(os.cpu_count() - 1, 1)} processes, beside the card's runs")
 
 
 if __name__ == "__main__":

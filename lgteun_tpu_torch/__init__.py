@@ -2,7 +2,9 @@
 
 The JAX package `lgteun_tpu` stays the reference; this package holds the
 port, slice by slice. It runs four eval paths: UnlgFormer (LGTEUN, K=2),
-lightnet, MDCUN and INNT; UnlgFormer's training (`runner.py`:
+lightnet, MDCUN and INNT; the training-free GSA, SFIM and Wavelet; the
+evaluation entry point (`python -m lgteun_tpu_torch.main`: the IQA
+metrics on both test splits, `metrics/`); UnlgFormer's training (`runner.py`:
 Adam/StepLR, l1, dropout, checkpoints; `data/`: the train iterator, the
 PSDataset reader and the synthetic Wald generator); and the whole-scene
 engine and its CLI (`parallel/scene.py`, `python -m

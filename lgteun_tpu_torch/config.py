@@ -70,6 +70,7 @@ class LossCfg:
 
 @dataclass
 class Config:
+    name: str = "run"
     model_type: str = "UnlgFormer"
     datas: str = "synthetic"
     ms_chans: int = 4
@@ -80,6 +81,8 @@ class Config:
     checkpoint: str | None = None
     pretrained: str | None = None
     work_dir: str = "runs"
+    log_dir: str | None = None
+    log_level: str = "INFO"
     # data
     train_set_cfg: LoaderCfg = field(default_factory=LoaderCfg)
     test_set0_cfg: LoaderCfg = field(default_factory=LoaderCfg)  # full-res

@@ -1,6 +1,6 @@
 """Wald-protocol synthetic dataset generator (a copy of
 `lgteun_tpu/data/synthetic.py`, numpy and scipy only, with the MTF
-filter design of `lgteun_tpu/metrics/numpy_ref.py::
+filter design of the port's `metrics/numpy_ref.py::
 mtf_kernel_from_alpha`): a seed gives the same TIFF triples as the JAX
 package's generator.
 
@@ -27,6 +27,7 @@ import numpy as np
 from scipy import ndimage, signal
 
 from lgteun_tpu_torch.data.tiff import write_tiff
+from lgteun_tpu_torch.metrics.numpy_ref import mtf_kernel_from_alpha
 
 __all__ = ["make_synthetic_scene", "make_synthetic_dataset", "SENSOR_GNYQ"]
 
@@ -41,32 +42,13 @@ SENSOR_GNYQ = {
 }
 
 
-def _mtf_kernel_from_alpha(alpha: float, n: int = 41) -> np.ndarray:
-    """Gaussian response, radial Kaiser window (beta 0.5) and the window
-    method's FIR design for the Gaussian std `alpha` (reference
-    metrics.py:190-236)."""
-    t = np.arange(-(n - 1) // 2, (n + 2) // 2, dtype=np.float64)
-    t1, t2 = np.meshgrid(t, t)
-    h = np.exp(-0.5 * (t1 / alpha) ** 2) * np.exp(-0.5 * (t2 / alpha) ** 2)
-    hd = h / h.max()
-    tk = t / float(n - 1)
-    t1k, t2k = np.meshgrid(tk, tk)
-    radius = np.sqrt(t1k * t1k + t2k * t2k)
-    w = np.interp(radius, tk, np.kaiser(n, 0.5))
-    w[radius > tk[-1]] = 0
-    w[radius < tk[0]] = 0
-    hd_r = np.rot90(np.fft.fftshift(np.rot90(hd, 2)), 2)
-    fir = np.rot90(np.fft.fftshift(np.fft.ifft2(hd_r)), 2) * w
-    return np.real(fir / fir.sum())
-
-
 def _mtf_fir(gnyq, ratio: int, n: int = 41) -> np.ndarray:
     """41-tap MTF lowpass for one Nyquist gain, alpha computed with
     `downgrade_images`' own arithmetic (float64 fcut against the gain
     table's dtype, reference model_based_utils.py:153, 206)."""
     fcut = 1 / np.double(ratio)
     alpha = np.sqrt(((n - 1) * (fcut / 2)) ** 2 / (-2 * np.log(gnyq)))
-    return _mtf_kernel_from_alpha(float(alpha), n)
+    return mtf_kernel_from_alpha(float(alpha), n)
 
 
 def _default_gaussian_kernel(ratio: int) -> np.ndarray:

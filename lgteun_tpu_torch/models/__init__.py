@@ -3,7 +3,9 @@ ported method into `lgteun_tpu_torch.registry.MODELS`."""
 
 import os
 
-from lgteun_tpu_torch.models.base import TorchMethod
+from lgteun_tpu_torch.models.base import ClassicalMethod, TorchMethod
+from lgteun_tpu_torch.models.classical import (gsa_fuse, sfim_fuse,
+                                               wavelet_fuse)
 from lgteun_tpu_torch.models.innt import GPPNNINNT
 from lgteun_tpu_torch.models.lgteun import LGTEUN
 from lgteun_tpu_torch.models.lightnet import LightNetModule
@@ -11,7 +13,8 @@ from lgteun_tpu_torch.models.mdcun import PanUnfolding
 from lgteun_tpu_torch.ops import fuse_level, windows_layout_attention
 from lgteun_tpu_torch.registry import MODELS
 
-__all__ = ["UnlgFormer", "lightnet", "MDCUN", "INNT", "TorchMethod"]
+__all__ = ["UnlgFormer", "lightnet", "MDCUN", "INNT", "GSA", "SFIM",
+           "Wavelet", "TorchMethod", "ClassicalMethod"]
 
 
 @MODELS.register()
@@ -70,3 +73,24 @@ class INNT(TorchMethod):
         return GPPNNINNT(
             ms_chans=self.cfg.ms_chans, n_feat=g_cfg.get("n_feat", 8),
             whole_chain=os.environ.get("LGTEUN_FUSED_TM", "1") == "1")
+
+
+@MODELS.register()
+class GSA(ClassicalMethod):
+    """Component substitution (reference models/GSA.py)."""
+
+    fuse_fn = staticmethod(gsa_fuse)
+
+
+@MODELS.register()
+class SFIM(ClassicalMethod):
+    """Smoothing-filter intensity modulation (reference models/SFIM.py)."""
+
+    fuse_fn = staticmethod(sfim_fuse)
+
+
+@MODELS.register()
+class Wavelet(ClassicalMethod):
+    """Wavelet substitution (reference models/Wavelet.py)."""
+
+    fuse_fn = staticmethod(wavelet_fuse)

@@ -16,6 +16,10 @@ layout, NHWC `input_lr` [B, h, w, C] and `input_pan` [B, 4h, 4w, 1]:
                                   "full_loss", as `Method.losses`
                                   (`lgteun_tpu/models/base.py:56-88`);
                                   `generator` draws the dropout masks
+
+A `ClassicalMethod` (GSA, SFIM, Wavelet) has no module and no
+parameters: `trainable` is False and `apply` is its fuse function on
+NHWC tensors on `self.device` (`lgteun_tpu/models/base.py:192-204`).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from lgteun_tpu_torch.config import Config
 from lgteun_tpu_torch.losses import build_loss_weights, reconstruction_loss
 from lgteun_tpu_torch.models.common.layers import init_parameters
 
-__all__ = ["TorchMethod"]
+__all__ = ["TorchMethod", "ClassicalMethod"]
 
 
 def _nchw(a, device: torch.device) -> torch.Tensor:
@@ -40,6 +44,8 @@ def _nchw(a, device: torch.device) -> torch.Tensor:
 
 class TorchMethod:
     """One core module on one device."""
+
+    trainable = True
 
     def __init__(self, cfg: Config, device):
         self.cfg = cfg
@@ -76,6 +82,13 @@ class TorchMethod:
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.module.parameters())
+
+    def state_dict(self) -> dict:
+        return self.module.state_dict()
+
+    @property
+    def training(self) -> bool:
+        return self.module.training
 
     def train(self, mode: bool = True) -> "TorchMethod":
         self.module.train(mode)
@@ -116,3 +129,42 @@ class TorchMethod:
             total = total + lcfg.w * parts[name]
         parts["full_loss"] = total
         return total, parts
+
+
+class ClassicalMethod:
+    """A training-free method: no module and no parameters, and of
+    `TorchMethod`'s surface what the Runner calls on such a method.
+    `fuse_fn(lrms, pan)` takes NHWC [B, h, w, C] and [B, H, W, 1] tensors
+    in [0, 1] and returns [B, H, W, C] clipped to [0, 1]."""
+
+    trainable = False
+    training = False
+    fuse_fn = None  # staticmethod set by a subclass
+
+    def __init__(self, cfg: Config, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+
+    def init_params(self, generator: torch.Generator) -> "ClassicalMethod":
+        return self
+
+    def load_state_dict(self, state_dict: dict, strict: bool = True):
+        if strict and state_dict:
+            raise ValueError(f"{type(self).__name__} has no parameters; "
+                             f"got {sorted(state_dict)[:4]}...")
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def train(self, mode: bool = True) -> "ClassicalMethod":
+        return self
+
+    def eval(self) -> "ClassicalMethod":
+        return self
+
+    @torch.inference_mode()
+    def apply(self, batch: dict) -> torch.Tensor:
+        lr, pan = (torch.as_tensor(batch[k], dtype=torch.float32,
+                                   device=self.device)
+                   for k in ("input_lr", "input_pan"))
+        return type(self).fuse_fn(lr, pan)

@@ -1,31 +1,51 @@
 """Runner of the port: training, eval and checkpoints (counterpart of
 `lgteun_tpu/runner.py`).
 
-    Runner(cfg, method, device, train_ds=..., test_ds=...)
+    Runner(cfg, method, device, train_ds=..., test_ds_full=...,
+           test_ds_reduced=...)
         .init()                 seeded torch-default init
         .set_optim()            Adam / AdamW / SGD / RMSprop + StepLR
         .train()                the iteration loop up to cfg.max_iter
-        .test(dataset)          PSNR and time per image (reduced res.)
+        .test(iter_id=, save=, ref=)
+                                the reduced-resolution split scored with
+                                PSNR, SSIM, Q, SAM, ERGAS (ref=True) or
+                                the full-resolution split with D_lambda,
+                                D_s, QNR (ref=False); `test(dataset)`
+                                scores a given split
+        .log_eval_curves()      {work_dir}/{datas}/eval_curves.json
         .save(iter) / .load_checkpoint(path) / .load_pretrained(path)
 
 `train()` (runner.py:350-463) draws batches from `train_iterator`
 (fast-forwarded to `last_iter`), runs `train_step` per iteration, logs
 the losses' means every `log_freq` iterations (and keeps them in
-`loss_log`), saves every `save_freq` and scores `test_ds` every
-`eval_freq`. Each step's dropout generator is
-seeded statelessly from (seed + 1, iteration), as the JAX Runner's
-`fold_in`, so a resumed run replays an uninterrupted one: bit for bit on
-the CPU; on a card up to the order of atomic adds in the backward of
-`F.interpolate`'s bicubic, which CUDA does not fix. StepLR at step s
-gives lr * gamma^floor(s / step_size), optax's `exponential_decay(...,
-staircase=True)`. A checkpoint is a `torch.save` of the reference-keyed
-state_dict, the optimizer's and scheduler's states and `iter_num`.
+`loss_log`), saves every `save_freq`, scores the reduced split every
+`eval_freq` and the full split every `test_freq`. Each step's dropout
+generator is seeded statelessly from (seed + 1, iteration), as the JAX
+Runner's `fold_in`, so a resumed run replays an uninterrupted one: bit
+for bit on the CPU; on a card up to the order of atomic adds in the
+backward of `F.interpolate`'s bicubic, which CUDA does not fix. StepLR
+at step s gives lr * gamma^floor(s / step_size), optax's
+`exponential_decay(..., staircase=True)`. A checkpoint is a `torch.save`
+of the reference-keyed state_dict, the optimizer's and scheduler's
+states and `iter_num`. A training-free method (`ClassicalMethod`) has no
+module: nothing to count, optimise or train, and an empty state_dict.
+
+`test` (runner.py:467-562) scores each eval batch on the device and
+keeps every metric sliced to the batch's real images: the reference
+metrics on the denormalised prediction and target with dynamic range
+2**bit_depth - 0.5, the no-reference ones on the normalised prediction,
+LrMS and PAN (also for a split without targets, which then takes the
+full-resolution tag; the JAX Runner keeps the tag asked for). It logs
+mean +- std and the forward's time per image in the JAX Runner's words,
+appends (iter, mean, std) to `eval_results[f"{tag}/{metric}"]`, keeps the
+per-image values in `image_scores[tag]`, and with `save` writes each
+prediction as a uint16 GeoTIFF (`REFERENCE_GEO`) under
+{work_dir}/{datas}/test_out/iter_{n}/{reduced|full}/{id}_mul_hat.tif.
 
 Left out: the JAX Runner's device prefetch and multi-step dispatch (TPU
 round-trip workarounds; `steps_per_dispatch` is read by nothing, which
 changes no number), `remat` and mixed precision (a config that sets
-either raises), the full metric suite,
-no-reference scoring (`test_freq`) and saving outputs.
+either raises).
 
 Numerics: the JAX scoring engine runs float32 at `highest` precision,
 while cuDNN runs float32 convolutions in TF32 by default. The Runner
@@ -35,6 +55,7 @@ built.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import time
@@ -45,7 +66,9 @@ import torch
 from lgteun_tpu_torch.config import Config, OptimCfg
 from lgteun_tpu_torch.data.pipeline import (data_denormalize, eval_batches,
                                             train_iterator)
-from lgteun_tpu_torch.metrics.torch_metrics import psnr_batch
+from lgteun_tpu_torch.data.tiff import REFERENCE_GEO, write_tiff
+from lgteun_tpu_torch.metrics.torch_metrics import (no_ref_evaluate_batch,
+                                                    ref_evaluate_batch)
 from lgteun_tpu_torch.models.base import TorchMethod
 
 __all__ = ["Runner", "make_optimizer", "read_checkpoint", "step_generator"]
@@ -96,7 +119,7 @@ class Runner:
 
     def __init__(self, cfg: Config, method: TorchMethod, device,
                  logger: logging.Logger | None = None, train_ds=None,
-                 test_ds=None):
+                 test_ds_full=None, test_ds_reduced=None):
         self.cfg = cfg
         self.method = method
         self.device = torch.device(device)
@@ -112,7 +135,10 @@ class Runner:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.logger = logger or logging.getLogger("lgteun_torch")
-        self.train_ds, self.test_ds = train_ds, test_ds
+        self.train_ds = train_ds
+        self.test_ds_full, self.test_ds_reduced = test_ds_full, test_ds_reduced
+        self.eval_results: dict[str, list] = {}  # tag/metric: (it, mean, std)
+        self.image_scores: dict[str, dict] = {}  # tag: {"image_id", metric}
         self.last_time_per_image = float("nan")
         self.last_iter = 0
         self.loss_log: list[tuple[int, dict]] = []  # (iter, loss means)
@@ -123,8 +149,9 @@ class Runner:
         """Seeded torch-default init of every parameter."""
         seed = self.cfg.seed if seed is None else seed
         self.method.init_params(torch.Generator().manual_seed(seed))
-        self.logger.info(f"Total params of module core_module: "
-                         f"{self.method.param_count():,}")
+        if self.method.trainable:
+            self.logger.info(f"Total params of module core_module: "
+                             f"{self.method.param_count():,}")
         return self
 
     def load(self, state_dict: dict) -> "Runner":
@@ -152,7 +179,9 @@ class Runner:
         default Adam lr 1e-4) and its StepLR; states restored by
         `load_checkpoint` are loaded into them, so init ->
         load_checkpoint -> set_optim resumes the moments and the
-        schedule."""
+        schedule. A training-free method has nothing to optimise."""
+        if not self.method.trainable:
+            return self
         ocfg = self.cfg.optim_cfg.get("core_module", OptimCfg())
         self.optimizer = make_optimizer(self.method.module.parameters(), ocfg)
         self.scheduler = torch.optim.lr_scheduler.StepLR(
@@ -179,6 +208,9 @@ class Runner:
     def train(self) -> "Runner":
         """Iterations last_iter .. cfg.max_iter on `train_ds`."""
         cfg = self.cfg
+        if not self.method.trainable:
+            self.logger.info("method is training-free; skipping train()")
+            return self
         if cfg.max_iter <= self.last_iter:
             self.logger.info("nothing to train (max_iter reached)")
             return self
@@ -211,8 +243,11 @@ class Runner:
                 if cfg.save_freq and iter_id % cfg.save_freq == 0:
                     self.save(iter_id)
                 if cfg.eval_freq and iter_id % cfg.eval_freq == 0 \
-                        and self.test_ds is not None:
-                    self.test(self.test_ds)
+                        and self.test_ds_reduced is not None:
+                    self.test(iter_id=iter_id, ref=True)
+                if cfg.test_freq and iter_id % cfg.test_freq == 0 \
+                        and self.test_ds_full is not None:
+                    self.test(iter_id=iter_id, ref=False)
         finally:
             self.last_iter = iter_id
             self.method.eval()
@@ -220,20 +255,31 @@ class Runner:
 
     # ------------------------------------------------------------- eval
 
-    def test(self, dataset) -> dict:
-        """Reduced-resolution evaluation -> {"psnr": (mean, std)}.
-        `dataset` yields PSDataset item dicts (NHWC `input_lr`,
-        `input_pan`, `target` in DN) and has `pairs` for the ids. The
-        module runs in eval mode and is put back in its mode after."""
+    def test(self, dataset=None, iter_id: int = 0, save: bool = False,
+             ref: bool = True) -> dict:
+        """Score `dataset`, or without it the reduced-resolution split
+        (ref=True) or the full-resolution one (ref=False) -> {metric:
+        (mean, std)}; {} when that split is not set. A split without
+        targets takes the no-reference metrics, and its scores, log lines
+        and outputs the full-resolution tag and folder (every batch has
+        the keys of the split's first item). `dataset` yields
+        PSDataset item dicts (NHWC `input_lr`, `input_pan`, `target` in
+        DN) and has `pairs` for the ids. The module runs in eval mode and
+        is put back in its mode after."""
+        ds = dataset if dataset is not None else (
+            self.test_ds_reduced if ref else self.test_ds_full)
+        if ds is None:
+            return {}
+        ref = ref and "target" in ds[0]
         cfg = self.cfg
-        training = self.method.module.training
+        training = self.method.training
         self.method.eval()
         bs = max(cfg.eval_batch_size, 1)
         dr = 2.0 ** cfg.bit_depth - 0.5
-        psnrs: list[float] = []
+        per_metric: dict[str, list] = {}
+        ids, outputs = [], []
         n_images, fwd_time = 0, 0.0
-        for batch, n_valid in eval_batches(dataset, bs,
-                                           bit_depth=cfg.bit_depth,
+        for batch, n_valid in eval_batches(ds, bs, bit_depth=cfg.bit_depth,
                                            normalize=cfg.norm_input):
             arrays = self.to_device(batch)
             t0 = time.perf_counter()
@@ -241,22 +287,67 @@ class Runner:
             self._sync()
             fwd_time += time.perf_counter() - t0
             n_images += n_valid
-            scores = psnr_batch(data_denormalize(pred, cfg.bit_depth),
-                                data_denormalize(arrays["target"],
-                                                 cfg.bit_depth),
-                                dynamic_range=dr)
-            psnrs.extend(scores[:n_valid].tolist())
+            if ref:
+                scores = ref_evaluate_batch(
+                    data_denormalize(pred, cfg.bit_depth),
+                    data_denormalize(arrays["target"], cfg.bit_depth),
+                    dynamic_range=dr)
+            else:
+                scores = no_ref_evaluate_batch(pred, arrays["input_lr"],
+                                               arrays["input_pan"])
+            for k, v in scores.items():
+                per_metric.setdefault(k, []).extend(v[:n_valid].tolist())
+            ids.extend(batch["image_id"][:n_valid])
+            if save:
+                outputs.append((batch["image_id"][:n_valid],
+                                pred[:n_valid].cpu().numpy()))
         self.method.train(training)
-        results = {"psnr": (float(np.mean(psnrs)), float(np.std(psnrs)))}
-        tag = "reduced-res (ref)"
+        results = {k: (float(np.mean(v)), float(np.std(v)))
+                   for k, v in per_metric.items()}
+        tag = "reduced-res (ref)" if ref else "full-res (no-ref)"
+        self.image_scores[tag] = {"image_id": ids, **per_metric}
         for k, (mean, std) in results.items():
-            self.logger.info(f"{tag} {k}: {mean:.4f} +- {std:.4f}")
+            self.eval_results.setdefault(f"{tag}/{k}", []).append(
+                (iter_id, mean, std))
+            self.logger.info(f"[iter {iter_id}] {tag} {k}: "
+                             f"{mean:.4f} +- {std:.4f}")
         self.last_time_per_image = fwd_time / max(n_images, 1)
         self.logger.info(
-            f"{tag} avg time per img: "
+            f"[iter {iter_id}] {tag} avg time per img: "
             f"{self.last_time_per_image * 1000:.3f} ms "
             f"({n_images} images, batch {bs}, {self.device})")
+        if save:
+            self._save_outputs(outputs, iter_id, ref)
         return results
+
+    def _save_outputs(self, outputs: list, iter_id: int, ref: bool) -> None:
+        """Each prediction as a uint16 GeoTIFF with the reference's fake
+        georeference (reference base_model.py:336-337 ->
+        dataset/utils.py:42-86): rounded DN, clipped to [0, 65535]."""
+        out_dir = os.path.join(self.cfg.work_dir, self.cfg.datas, "test_out",
+                               f"iter_{iter_id}",
+                               "reduced" if ref else "full")
+        os.makedirs(out_dir, exist_ok=True)
+        for image_ids, preds in outputs:
+            for image_id, pred in zip(image_ids, preds):
+                arr = np.clip(np.round(data_denormalize(
+                    pred, self.cfg.bit_depth)), 0, 65535).astype(np.uint16)
+                write_tiff(os.path.join(out_dir, f"{image_id}_mul_hat.tif"),
+                           arr, geo=REFERENCE_GEO)
+
+    def log_eval_curves(self) -> str:
+        """Log and write the accumulated metric curves to
+        {work_dir}/{datas}/eval_curves.json (reference
+        base_model.py:348-351)."""
+        for key, curve in self.eval_results.items():
+            pts = ", ".join(f"{it}:{m:.4f}" for it, m, _ in curve)
+            self.logger.info(f"eval curve {key}: {pts}")
+        out = os.path.join(self.cfg.work_dir, self.cfg.datas,
+                           "eval_curves.json")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(self.eval_results, f, indent=1)
+        return out
 
     # ------------------------------------------------------ checkpoints
 
@@ -266,7 +357,7 @@ class Runner:
         out = os.path.join(self.cfg.work_dir, self.cfg.datas, "train_out")
         os.makedirs(out, exist_ok=True)
         path = os.path.abspath(os.path.join(out, f"model_iter_{iter_id}.pt"))
-        payload = {"state_dict": self.method.module.state_dict(),
+        payload = {"state_dict": self.method.state_dict(),
                    "iter_num": iter_id}
         if self.optimizer is not None:
             payload["optimizer"] = self.optimizer.state_dict()

@@ -112,29 +112,41 @@ def test_runner_psnr_matches_jax_metric():
 
 
 def test_port_imports_no_jax(tmp_path):
-    """The port runs a forward of every registered method, and one
-    UnlgFormer training step on a synthetic dataset, in a fresh process
+    """The port runs a forward of every registered method, one UnlgFormer
+    training step on a synthetic dataset, the metric suite and the entry
+    point (`main.cli --test-only --device cpu` on GSA) in a fresh process
     without jax, flax or the JAX package."""
     code = textwrap.dedent("""
-        import sys, tempfile
+        import contextlib, io, os, sys, tempfile
         import numpy as np, torch
-        from lgteun_tpu_torch import losses
+        from lgteun_tpu_torch import losses, main
+        from lgteun_tpu_torch.metrics import (no_ref_evaluate_batch,
+                                              ref_evaluate_batch, numpy_ref,
+                                              oracle)
+        from lgteun_tpu_torch.models import classical
+        from lgteun_tpu_torch.ops import filters, interp23, wavelet
         from lgteun_tpu_torch.config import Config, LoaderCfg, LossCfg
         from lgteun_tpu_torch.data.dataset import PSDataset
         from lgteun_tpu_torch.data.synthetic import make_synthetic_dataset
         from lgteun_tpu_torch.ops import autograd
         from lgteun_tpu_torch.registry import MODELS, build_model
         from lgteun_tpu_torch.runner import Runner
-        batch = {"input_lr": np.zeros((1, 8, 8, 4), np.float32),
-                 "input_pan": np.zeros((1, 32, 32, 1), np.float32)}
-        for name in ("UnlgFormer", "lightnet", "MDCUN", "INNT"):
+        # not all zero: the classical methods divide by the PAN's spread
+        rng = np.random.default_rng(0)
+        batch = {"input_lr": rng.uniform(0, 1, (1, 8, 8, 4)).astype(
+                     np.float32),
+                 "input_pan": rng.uniform(0, 1, (1, 32, 32, 1)).astype(
+                     np.float32)}
+        for name in ("UnlgFormer", "lightnet", "MDCUN", "INNT", "GSA",
+                     "SFIM", "Wavelet"):
             cfg = Config(model_type=name, ms_chans=4,
                          model_cfg={"core_module": {"stage": 2}})
             m = build_model(name, cfg, device="cpu")
             m.init_params(torch.Generator().manual_seed(0))
             out = m.apply(batch)
             assert out.shape == (1, 32, 32, 4) and torch.isfinite(out).all()
-        assert sorted(MODELS._entries) == ["INNT", "MDCUN", "UnlgFormer",
+        assert sorted(MODELS._entries) == ["GSA", "INNT", "MDCUN", "SFIM",
+                                           "UnlgFormer", "Wavelet",
                                            "lightnet"]
         root = tempfile.mkdtemp(dir=sys.argv[1])
         data = make_synthetic_dataset(root, 2, 0, bands=4, size=32, seed=0)
@@ -145,6 +157,16 @@ def test_port_imports_no_jax(tmp_path):
         runner = Runner(cfg, build_model("UnlgFormer", cfg, device="cpu"),
                         "cpu", train_ds=PSDataset([data["train"]]))
         assert runner.init().train().last_iter == 1
+        with open(os.path.join(root, "gsa.py"), "w") as f:
+            f.write(f"model_type = 'GSA'\\nms_chans = 4\\n"
+                    f"work_dir = {root!r}\\nlog_dir = {root!r}\\n"
+                    f"test_set1_cfg = dict(dataset=dict("
+                    f"image_dirs=[{data['train']!r}]))\\n")
+        with contextlib.redirect_stdout(io.StringIO()):  # its log lines
+            gsa = main.cli(["-c", os.path.join(root, "gsa.py"),
+                            "--test-only", "--device", "cpu"])
+        assert set(gsa.image_scores["reduced-res (ref)"]) == {
+            "image_id", "psnr", "ssim", "qindex", "sam", "ergas"}
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "lgteun_tpu"))

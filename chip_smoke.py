@@ -23,7 +23,12 @@ its config's eval batch size, with random weights from a seed:
 - lightnet (WV-3, 8 bands): the SpanConv stack kernel (five launches);
 - MDCUN (WV-3, 8 bands, T=4): the neighbourhood-attention kernel;
 - INNT (WV-3, 8 bands, n_feat 8): the texture-match kernel, and in a
-  second pass with LGTEUN_FUSED_TM=0 the patch-match kernel.
+  second pass with LGTEUN_FUSED_TM=0 the patch-match kernel;
+- PanFormer (WV-3, 8 bands, n_feats 64, 8 heads of 8, window 4, 3 cross
+  blocks), SFIIN (WV-3, 8 bands) and MutInf (WV-3, 8 bands, the core
+  module): no kernel of the port (the JAX package runs them as plain
+  XLA), so every kernel's count must stay 0; PanFormer is also held
+  before its clamp, with the share of clamped values printed.
 
 Then a 16-band UnlgFormer (embed 64: blocks of C = 64 and, at the
 bottleneck, C = 128 on the wide tail tile) at levels 1, 2 and 3, batch 4:
@@ -53,7 +58,9 @@ LGTEUN_FUSED_ATTENTION=v2.
 
 For each path it checks that every forward went through its kernels
 (and launched no other), that the output agrees with a CPU run of the
-plain path, and times batch-1 latency and batch-16 throughput. It also
+plain path, and times batch-1 latency (printed beside the reference's
+batch-1 figure, paper Table 4 on an RTX 3090) and batch-16 throughput.
+It also
 prints where the card-vs-CPU difference of each path comes from: the
 card with the kernels, the card on the kernels' plain versions and the
 CPU plain path, each against a float64 run of the CPU plain path.
@@ -142,7 +149,11 @@ Then the reference's evaluation entry point (the `main` phase):
 `python -m lgteun_tpu_torch.main -c CONFIG --test-only --device cuda`
 (`main.cli`) on the shipped WV-3 configs of UnlgFormer (seeded init,
 level 2: 5 launches each of B1-B3 a forward, none of the others), GSA,
-SFIM and Wavelet, on a seeded synthetic WV-3 tree under
+SFIM, Wavelet, SFIIN and MutInf (seeded init, no launches) and PanFormer
+(no launches; from the checkpoint of 40 `Runner.train` iterations of its
+shipped config on the tree's training pairs: at its seeded init its
+fused image is uncorrelated with the scene, Q about 1e-5, which float32
+resolves only to about 1e-8), on a seeded synthetic WV-3 tree under
 `build/chip_smoke/main` (20 reduced-resolution scenes with targets, 20
 full-resolution ones without; 128^2 PAN, batch 16): every per-image
 metric the card scores on both splits (PSNR, SSIM, Q, SAM, ERGAS;
@@ -278,7 +289,8 @@ SIXTEEN_TOL = 5e-4
 # synthetic WV-3 tree of MAIN_IMAGES reduced-resolution scenes (with
 # targets) and MAIN_IMAGES full-resolution ones (without)
 MAIN_IMAGES = 20
-MAIN_CONFIGS = ("unlg_former.py", "GSA.py", "SFIM.py", "Wavelet.py")
+MAIN_CONFIGS = ("unlg_former.py", "GSA.py", "SFIM.py", "Wavelet.py",
+                "PanFormer.py", "SFIIN.py", "MutInf.py")
 # UnlgFormer at level 2: launches per forward; the classical methods none
 MAIN_ROUTE = {"ln_mixer_head": 5, "window_attention": 5, "block_tail": 5}
 # card vs the float64 oracle (numpy_ref) on the same saved prediction:
@@ -287,6 +299,13 @@ MAIN_REF_RTOL = {"psnr": 1e-4, "ssim": 1e-4, "qindex": 1e-3, "sam": 1e-3,
                  "ergas": 1e-4}
 MAIN_NO_REF_ATOL = {"d_lambda": 2e-4, "d_s": 2e-4, "qnr": 4e-4}
 MAIN_TAGS = {True: "reduced-res (ref)", False: "full-res (no-ref)"}
+# configs the main phase scores with a checkpoint of this many Runner.train
+# iterations of the shipped config (batch 4) on the tree's 20 training
+# pairs: PanFormer's seeded init fuses an image uncorrelated with the scene
+# (Q about 1e-5, where float32's Q, the card's as JAX's, resolves 1e-8:
+# MAIN_REF_RTOL's 1e-3 would measure that resolution); after 40
+# iterations its Q reads about 0.17 (H100, this phase)
+MAIN_TRAINED = {"PanFormer.py": 40}
 DN_RANGE = 2.0 ** 11 - 0.5
 
 # name -> (module under lgteun_tpu_torch/ops holding the wrapper and its
@@ -367,9 +386,10 @@ KERNELS = {
 # (config file, {kernel: launches per forward; every other kernel: 0},
 #  card-vs-CPU max-abs bound, images of the CPU comparison, environment
 #  of the method's build, images of the Runner.test run). The bounds:
-# UnlgFormer the port's 5e-4 (ROADMAP.md); lightnet 1e-4, MDCUN 1e-3 and
-# INNT 5e-4, those tests/test_torch_parity.py holds the JAX package to
-# against the reference.
+# UnlgFormer the port's 5e-4 (ROADMAP.md); lightnet 1e-4, MDCUN 1e-3,
+# INNT, PanFormer, SFIIN and MutInf 5e-4, those
+# tests/test_torch_parity.py holds the JAX package to against the
+# reference.
 SLICES = (
     ("unlg_former.py", {"ln_mixer_head": 5, "window_attention": 5,
                         "block_tail": 5}, 5e-4, 2, {}, N_IMAGES),
@@ -385,7 +405,14 @@ SLICES = (
     ("MDCUN.py", {"neighborhood_attention": 4}, 1e-3, 1, {}, N_IMAGES),
     ("INNT.py", {"texture_match": 1}, 5e-4, 1, {}, N_IMAGES),
     ("INNT.py", {"patch_match": 1}, 5e-4, 1, {"LGTEUN_FUSED_TM": "0"}, 16),
+    ("PanFormer.py", {}, 5e-4, 2, {}, N_IMAGES),
+    ("SFIIN.py", {}, 5e-4, 2, {}, N_IMAGES),
+    ("MutInf.py", {}, 5e-4, 2, {}, N_IMAGES),
 )
+# the reference's batch-1 time, ms an image (paper Table 4: WV-3, RTX 3090)
+REFERENCE_MS = {"UnlgFormer": 13.3, "lightnet": 1.9, "MDCUN": 174.7,
+                "INNT": 42.6, "PanFormer": 16.0, "SFIIN": 52.9,
+                "MutInf": 108.3}
 
 
 def kernel_fns(name: str):
@@ -949,12 +976,13 @@ def swapped_kernels(names, replace):
 
 def float64_forward(method, batch: dict) -> torch.Tensor:
     """The CPU plain path in float64 on a copy of `method`'s weights."""
-    module = copy.deepcopy(method.module).double()
+    double = copy.copy(method)
+    double.module = copy.deepcopy(method.module).double()
     nchw = lambda a: torch.from_numpy(np.asarray(a, np.float64)).permute(
         0, 3, 1, 2).contiguous()
     with torch.inference_mode():
-        return module(nchw(batch["input_lr"]),
-                      nchw(batch["input_pan"])).permute(0, 2, 3, 1)
+        return double.forward(nchw(batch["input_lr"]),
+                              nchw(batch["input_pan"])).permute(0, 2, 3, 1)
 
 
 def device_profile(call, n: int = 5) -> dict:
@@ -1828,17 +1856,24 @@ def run_slice(config: str, per_forward: dict, abs_tol: float, n_cmp: int,
         if not d_psnr <= PSNR_TOL_DB:
             raise AssertionError(f"{tag} output: PSNR differs by "
                                  f"{d_psnr:.5f} dB")
+    if cfg.model_type == "PanFormer":
+        check_unclamped(tag, method, cpu, first, abs_tol)
     # where that difference comes from (printed, not checked)
     # (on the plain versions the wrappers count no launch)
-    with swapped_kernels(per_forward, lambda name, fn: kernel_fns(name)[1]):
-        card_plain = runner.predict(runner.to_device(first)).cpu()
     exact = float64_forward(cpu, first)
     d = lambda a, b: (a.double() - b.double()).abs().max().item()
-    print(f"{tag} split: max|card kernels - card plain| "
-          f"{d(got, card_plain):.3e}  max|card plain - cpu plain| "
-          f"{d(card_plain, want):.3e}; vs float64 cpu plain: card kernels "
-          f"{d(got, exact):.3e}, card plain {d(card_plain, exact):.3e}, "
-          f"cpu plain {d(want, exact):.3e}")
+    if per_forward:
+        with swapped_kernels(per_forward,
+                             lambda name, fn: kernel_fns(name)[1]):
+            card_plain = runner.predict(runner.to_device(first)).cpu()
+        print(f"{tag} split: max|card kernels - card plain| "
+              f"{d(got, card_plain):.3e}  max|card plain - cpu plain| "
+              f"{d(card_plain, want):.3e}; vs float64 cpu plain: card "
+              f"kernels {d(got, exact):.3e}, card plain "
+              f"{d(card_plain, exact):.3e}, cpu plain {d(want, exact):.3e}")
+    else:
+        print(f"{tag} split (no kernel on this path): vs float64 cpu plain: "
+              f"card {d(got, exact):.3e}, cpu plain {d(want, exact):.3e}")
 
     # latency and throughput of the predict path
     items = next(eval_batches(ds, cfg.eval_batch_size))[0]
@@ -1858,7 +1893,8 @@ def run_slice(config: str, per_forward: dict, abs_tol: float, n_cmp: int,
     ips = cfg.eval_batch_size / (b16_ms / 1e3)
     print(f"{tag}: batch-1 latency median "
           f"{statistics.median(lat) * 1e3:.3f} ms (min {min(lat) * 1e3:.3f})"
-          f"; batch-{cfg.eval_batch_size} {b16_ms:.3f} ms = {ips:.1f} "
+          f" (the reference: {REFERENCE_MS[cfg.model_type]} ms/img, RTX "
+          f"3090); batch-{cfg.eval_batch_size} {b16_ms:.3f} ms = {ips:.1f} "
           f"images/s; Runner.test {runner.last_time_per_image * 1e3:.3f} "
           f"ms/img  [{card}]")
 
@@ -1868,6 +1904,28 @@ def run_slice(config: str, per_forward: dict, abs_tol: float, n_cmp: int,
             print_profile(f"{tag[6:]} {label}",
                           device_profile(lambda: runner.predict(batch)), card)
     return launches
+
+
+def check_unclamped(tag: str, method, cpu, batch: dict,
+                    abs_tol: float) -> None:
+    """PanFormer's tail before its clamp, card vs CPU plain on `batch`
+    (random weights leave much of the output clamped, where the clamped
+    output would hide a difference), and the share of clamped values."""
+    nchw = lambda a, dev: torch.as_tensor(np.asarray(a, np.float32)).permute(
+        0, 3, 1, 2).to(dev)
+    with torch.inference_mode():
+        got, want = (m.module.unclamped(nchw(batch["input_lr"], dev),
+                                        nchw(batch["input_pan"], dev)).cpu()
+                     for m, dev in ((method, "cuda"), (cpu, "cpu")))
+    err = (got - want).abs().max().item()
+    hi = method.module.hi
+    clamped = ((want < 0) | (want > hi)).double().mean().item()
+    print(f"{tag}: before the clamp max|card - cpu plain| {err:.3e} (max|cpu|"
+          f" {want.abs().max().item():.3f}, bound {abs_tol:g}); clamped share"
+          f" of the output {clamped:.3f}")
+    if not (torch.isfinite(got).all() and err <= abs_tol):
+        raise AssertionError(f"{tag} before the clamp: max-abs {err:.3e} > "
+                             f"{abs_tol}")
 
 
 def run_sixteen_bands(card: str) -> None:
@@ -2260,11 +2318,12 @@ def run_train_variants(train_ds, card: str, steps: int = 3) -> None:
             raise AssertionError(f"train {env}: loss not finite")
 
 
-def write_main_tree(root: str) -> str:
+def write_main_tree(root: str) -> tuple[str, str]:
     """{root}/data/WV-3/test_reduce_res (MAIN_IMAGES seeded Wald scenes
     with targets) and .../test_full_res (the LrMS and PAN of MAIN_IMAGES
     other scenes, no target), written by the port's generator; returns
-    the data root."""
+    the data root and the directory of those other scenes' triples (with
+    targets, the training pairs of MAIN_TRAINED)."""
     import shutil
 
     from lgteun_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -2280,7 +2339,36 @@ def write_main_tree(root: str) -> str:
     for name in sorted(os.listdir(made["train"])):
         if not name.endswith("_mul.tif"):
             shutil.copy(os.path.join(made["train"], name), full)
-    return data
+    return data, made["train"]
+
+
+def train_for_main(config: str, iters: int, train_dir: str, root: str,
+                   card: str) -> str:
+    """`iters` Runner.train iterations of `config` as shipped (optimiser,
+    schedule, loss, batch 4) on the card from its seeded init; returns
+    the checkpoint's path (under `root`)."""
+    from lgteun_tpu_torch.config import load_config
+    from lgteun_tpu_torch.data.dataset import PSDataset
+    from lgteun_tpu_torch.registry import build_model
+    from lgteun_tpu_torch.runner import Runner
+
+    cfg = load_config(config)
+    cfg.max_iter, cfg.log_freq = iters, iters // 4
+    cfg.save_freq = cfg.eval_freq = cfg.test_freq = 0
+    cfg.work_dir = os.path.join(root, "train", cfg.model_type)
+    runner = Runner(cfg, build_model(cfg.model_type, cfg, device="cuda"),
+                    "cuda", train_ds=PSDataset([train_dir])).init(cfg.seed)
+    t0 = time.perf_counter()
+    runner.set_optim().train()
+    wall = time.perf_counter() - t0
+    curve = [round(parts["rec_loss"], 5) for _, parts in runner.loss_log]
+    print(f"main {cfg.model_type}: {iters} training iterations (batch "
+          f"{cfg.train_set_cfg.batch_size}, {cfg.loss_cfg}) in {wall:.2f} s,"
+          f" l1 every {cfg.log_freq}: {curve}  [{card}]")
+    if not (np.isfinite(curve).all() and curve[-1] < curve[0]):
+        raise AssertionError(f"main {cfg.model_type}: l1 {curve} is not "
+                             "finite and falling")
+    return runner.save(iters)
 
 
 def oracle_scores(ref: bool, pred: np.ndarray, a: np.ndarray,
@@ -2363,9 +2451,14 @@ def run_main(card: str) -> None:
     t_phase = time.perf_counter()
     root = os.path.join(REPO, "build", "chip_smoke", "main")
     shutil.rmtree(root, ignore_errors=True)
-    data = write_main_tree(root)
+    data, train_dir = write_main_tree(root)
     env = {"LGTEUN_DATA_ROOT": data, "LGTEUN_DATA_INDEX": "2",
            "LGTEUN_FUSE_LEVEL": "2", "LGTEUN_FUSED_ATTENTION": "1"}
+    with mock.patch.dict(os.environ, env):
+        checkpoints = {c: train_for_main(os.path.join(CONFIGS, c), n,
+                                         train_dir, root, card)
+                       for c, n in MAIN_TRAINED.items()
+                       if c in MAIN_CONFIGS}
     keep_save = Runner._save_outputs
     # (tag, ref, image scores the card logged, oracle arguments, the
     # oracle's futures): a config's oracle runs in the pool (one core
@@ -2390,8 +2483,10 @@ def run_main(card: str) -> None:
                     mock.patch.object(Runner, "_save_outputs", record):
                 wrappers = reset_launches()
                 t0 = time.perf_counter()
-                runner = port_main.cli(["-c", os.path.join(CONFIGS, config),
-                                        "--test-only", "--device", "cuda"])
+                runner = port_main.cli(
+                    ["-c", os.path.join(CONFIGS, config), "--test-only",
+                     "--device", "cuda"] + (["--checkpoint", checkpoints[
+                         config]] if config in checkpoints else []))
                 wall = time.perf_counter() - t0
                 counted = {k: fn.launches for k, fn in wrappers.items()}
             cfg = runner.cfg
@@ -2443,7 +2538,7 @@ def run_main(card: str) -> None:
                         for p, it in zip(preds, items)]
                 jobs.append((f"{tag} {MAIN_TAGS[ref]}", ref, scores, args,
                              [pool.submit(oracle_scores, *a) for a in args]))
-            if cfg.model_type != "UnlgFormer":
+            if not runner.method.trainable:
                 timing[cfg.model_type] = runner
     except BaseException:
         pool.shutdown(cancel_futures=True)
@@ -2475,7 +2570,8 @@ def run_main(card: str) -> None:
         print(f"main metric suite {MAIN_TAGS[ref]} batch 16: {ms:.3f} ms = "
               f"{ms / 16:.4f} ms/img (CUDA events; TF32 off)  [{card}]")
 
-    # each classical method: batch-16 images/s and batch-1 latency
+    # each classical method: batch-16 images/s and batch-1 latency (the
+    # models' are the slices')
     for name, runner in timing.items():
         items = next(eval_batches(runner.test_ds_reduced, 16))[0]
         b16 = runner.to_device(items)

@@ -4,8 +4,11 @@ Each converter is the exact inverse of its counterpart in
 `lgteun_tpu/convert/torch_import.py` (which maps reference torch keys
 onto the flax tree): `lgteun_from_flax` of `convert_lgteun`,
 `lightnet_from_flax` of `convert_lightnet`, `mdcun_from_flax` of
-`convert_mdcun` and `innt_from_flax` of `convert_innt`, so e.g. `convert_state_dict("UnlgFormer",
-lgteun_from_flax(tree))` gives `tree` back bit for bit. Layouts:
+`convert_mdcun`, `innt_from_flax` of `convert_innt`, `panformer_from_flax`
+of `convert_panformer`, `sfiin_from_flax` of `convert_sfiin` and
+`mutinf_from_flax` of `convert_mutinf`, so e.g.
+`convert_state_dict("UnlgFormer", lgteun_from_flax(tree))` gives `tree`
+back bit for bit. Layouts:
 
 - conv kernels: flax HWIO [kh, kw, in/g, out] -> torch OIHW
 - pos_emb: flax [heads, S, S] -> torch [1, heads, S, S]
@@ -14,8 +17,12 @@ lgteun_from_flax(tree))` gives `tree` back bit for bit. Layouts:
 - the fused-FFN raw params (w1 [C, 4C], dw [3, 3, 1, 4C], ...) and
   MDCUN's non-local projections ([1, 1, C, C]) are HWIO kernels too
 - MDCUN's scalars and PReLU slopes: flax [] -> torch [1]
-- INNT's invertible 1x1 convs: the flax `lu` leaves, with the buffers
-  under `frozen_*`, -> `invconv.{p, sign_s, l, log_s, u}` as they are
+- the invertible 1x1 convs (INNT, SFIIN, MutInf): the flax `lu` leaves,
+  with the buffers under `frozen_*`, -> `invconv.{p, sign_s, l, log_s,
+  u}` as they are
+- PanFormer's Dense kernels: flax [in, out] -> torch Linear [out, in];
+  MutInf's CDC taps: flax [1, 5, in, out] -> torch [out, in, 1, 5] (the
+  generic kernel rule)
 
 Takes the flax `core_module` tree as nested dicts of numpy arrays (no jax
 import); returns {key: float32 torch.Tensor}.
@@ -23,11 +30,14 @@ import); returns {key: float32 torch.Tensor}.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
 __all__ = ["lgteun_from_flax", "lightnet_from_flax", "mdcun_from_flax",
-           "innt_from_flax"]
+           "innt_from_flax", "panformer_from_flax", "sfiin_from_flax",
+           "mutinf_from_flax"]
 
 
 def _hwio(k) -> np.ndarray:
@@ -242,10 +252,49 @@ def mdcun_from_flax(params: dict, seed: int = 0) -> dict:
     return _tensors(out)
 
 
+def _lu_rows(t_prefix: str, f_prefix: str) -> dict:
+    """An InvertibleConv1x1's `lu` leaves -> its buffers and parameters."""
+    return {f"{f_prefix}/lu/{f_leaf}": ([f"{t_prefix}.{t_leaf}"], _ident)
+            for f_leaf, t_leaf in (("frozen_p", "p"),
+                                   ("frozen_sign_s", "sign_s"), ("l", "l"),
+                                   ("log_s", "log_s"), ("u", "u"))}
+
+
+def _hin_rows(t_prefix: str, f_prefix: str) -> dict:
+    """A HIN conv block (INNT, MutInf)."""
+    table = {}
+    for leaf in ("identity", "conv_1", "conv_2"):
+        table.update(_conv_rows(f"{t_prefix}.{leaf}",
+                                f"{f_prefix}/{leaf}/Conv_0"))
+    table[f"{f_prefix}/in_gamma"] = ([f"{t_prefix}.norm.weight"], _ident)
+    table[f"{f_prefix}/in_beta"] = ([f"{t_prefix}.norm.bias"], _ident)
+    return table
+
+
+def _refine_rows(t_prefix: str, f_prefix: str, n_ca: int) -> dict:
+    table = {}
+    for leaf in ("conv_in", "conv_last"):
+        table.update(_conv_rows(f"{t_prefix}.{leaf}",
+                                f"{f_prefix}/{leaf}/Conv_0"))
+    for i in range(n_ca):
+        for t_leaf, f_leaf in (("process.0", "process0"),
+                               ("process.2", "process1"),
+                               ("conv_du.0", "du0"), ("conv_du.2", "du1")):
+            table.update(_conv_rows(f"{t_prefix}.process.{i}.{t_leaf}",
+                                    f"{f_prefix}/ca_{i}/{f_leaf}/Conv_0"))
+    return table
+
+
+def _indices(params: dict, prefix: str) -> list[int]:
+    """i of every top-level key `{prefix}_{i}`."""
+    return [int(m[1]) for k in params
+            if (m := re.fullmatch(rf"{prefix}_(\d+)", k))]
+
+
 def innt_from_flax(params: dict) -> dict:
     """flax GPPNNINNT tree -> reference-keyed state_dict of float32
     tensors (the inverse of `convert_innt`)."""
-    table = {}
+    table = _refine_rows("refine", "refine", 1)
     for t_leaf, f_leaf in (("conv_process.convms", "convms"),
                            ("conv_process.convpan", "convpan"),
                            ("conv_fusion.conv", "conv_fusion"),
@@ -253,29 +302,139 @@ def innt_from_flax(params: dict) -> dict:
                             "transform_fusion/fuse/trans0"),
                            ("transform_fusion.fuse.conv_trans.2",
                             "transform_fusion/fuse/trans1"),
-                           ("extract.fuse", "extract_fuse"),
-                           ("refine.conv_in", "refine/conv_in"),
-                           ("refine.conv_last", "refine/conv_last"),
-                           ("refine.process.0.process.0",
-                            "refine/ca_0/process0"),
-                           ("refine.process.0.process.2",
-                            "refine/ca_0/process1"),
-                           ("refine.process.0.conv_du.0", "refine/ca_0/du0"),
-                           ("refine.process.0.conv_du.2", "refine/ca_0/du1")):
+                           ("extract.fuse", "extract_fuse")):
         table.update(_conv_rows(t_leaf, f"{f_leaf}/Conv_0"))
-    blocks = sum(1 for k in params if k.startswith("inv_"))
-    for i in range(blocks):
+    for i in _indices(params, "inv"):
         t_op, f_op = f"extract.operations.{i}", f"inv_{i}"
-        for f_leaf, t_leaf in (("frozen_p", "p"), ("frozen_sign_s", "sign_s"),
-                               ("l", "l"), ("log_s", "log_s"), ("u", "u")):
-            table[f"{f_op}/invconv/lu/{f_leaf}"] = (
-                [f"{t_op}.invconv.{t_leaf}"], _ident)
+        table.update(_lu_rows(f"{t_op}.invconv", f"{f_op}/invconv"))
         for sub in ("F", "G", "H"):
             for blk in ("conv1", "conv2"):
-                t_hin, f_hin = f"{t_op}.{sub}.{blk}", f"{f_op}/{sub}/{blk}"
-                for leaf in ("identity", "conv_1", "conv_2"):
-                    table.update(_conv_rows(f"{t_hin}.{leaf}",
-                                            f"{f_hin}/{leaf}/Conv_0"))
-                table[f"{f_hin}/in_gamma"] = ([f"{t_hin}.norm.weight"], _ident)
-                table[f"{f_hin}/in_beta"] = ([f"{t_hin}.norm.bias"], _ident)
+                table.update(_hin_rows(f"{t_op}.{sub}.{blk}",
+                                       f"{f_op}/{sub}/{blk}"))
     return _tensors(_from_table(params, table, "INNT"))
+
+
+def _linear_rows(t_prefix: str, f_prefix: str, bias: bool = True) -> dict:
+    """A flax Dense under `f_prefix` -> an nn.Linear."""
+    table = {f"{f_prefix}/kernel": ([f"{t_prefix}.weight"],
+                                    lambda k: np.asarray(k).T)}
+    if bias:
+        table[f"{f_prefix}/bias"] = ([f"{t_prefix}.bias"], _ident)
+    return table
+
+
+def _swin_rows(t_mod: str, f_mod: str, node: dict) -> dict:
+    """A flax SwinModule -> the reference's SwinModule keys (the masks
+    are recomputed, not stored)."""
+    table = _linear_rows(f"{t_mod}.patch_partition.linear",
+                         f"{f_mod}/patch_partition/linear/Dense_0")
+    for key in node:
+        m = re.fullmatch(r"(regular|shifted)_(\d+)", key)
+        if not m:
+            continue
+        t_blk = f"{t_mod}.layers.{m[2]}.{int(m[1] == 'shifted')}"
+        f_blk = f"{f_mod}/{key}"
+        attn, mlp = f"{t_blk}.attention_block.fn", f"{t_blk}.mlp_block.fn"
+        for t_norm, f_norm in ((attn, "attn_norm"), (mlp, "mlp_norm")):
+            table[f"{f_blk}/{f_norm}/scale"] = ([f"{t_norm}.norm.weight"],
+                                                _ident)
+            table[f"{f_blk}/{f_norm}/bias"] = ([f"{t_norm}.norm.bias"],
+                                               _ident)
+        table[f"{f_blk}/attn/pos_embedding"] = (
+            [f"{attn}.fn.pos_embedding"], _ident)
+        for proj in ("to_qkv", "to_kv", "to_q"):
+            table.update(_linear_rows(f"{attn}.fn.{proj}",
+                                      f"{f_blk}/attn/{proj}/Dense_0",
+                                      bias=False))
+        table.update(_linear_rows(f"{attn}.fn.to_out",
+                                  f"{f_blk}/attn/to_out/Dense_0"))
+        table.update(_linear_rows(f"{mlp}.fn.net.0",
+                                  f"{f_blk}/mlp_fc1/Dense_0"))
+        table.update(_linear_rows(f"{mlp}.fn.net.2",
+                                  f"{f_blk}/mlp_fc2/Dense_0"))
+    return table
+
+
+def panformer_from_flax(params: dict) -> dict:
+    """flax CrossSwinTransformer tree -> reference-keyed state_dict of
+    float32 tensors (the inverse of `convert_panformer`)."""
+    table = {}
+    for i, t_idx in enumerate((0, 3, 6, 8)):
+        table.update(_conv_rows(f"HR_tail.{t_idx}", f"tail_conv{i}/Conv_0"))
+    groups = {"pan_enc": "pan_encoder", "ms_enc": "ms_encoder",
+              "pan_cross_ms": "pan_cross_ms", "ms_cross_pan": "ms_cross_pan"}
+    for key, node in params.items():
+        m = re.fullmatch(r"(\w+?)_(\d+)", key)
+        if m and m[1] in groups:
+            table.update(_swin_rows(f"{groups[m[1]]}.{m[2]}", key, node))
+    return _tensors(_from_table(params, table, "PanFormer"))
+
+
+def sfiin_from_flax(params: dict) -> dict:
+    """flax SFIINNet tree -> reference-keyed state_dict of float32 tensors
+    (the inverse of `convert_sfiin`)."""
+    table = _refine_rows("refine", "refine", 1)
+    for leaf in ("conv_p", "conv_p1", "fuse"):
+        table.update(_conv_rows(f"process.{leaf}", f"{leaf}/Conv_0"))
+    for i, t_blk in enumerate(("block", "block1", "block2", "block3",
+                               "block4")):
+        t_pre, f_pre = f"process.{t_blk}", f"block{i}"
+        for t_leaf, f_leaf in (
+                ("panprocess", "panprocess"), ("panpre", "panpre"),
+                ("spa_process.1", "spa_out"), ("spa_att.0", "spa_att0"),
+                ("spa_att.2", "spa_att1"), ("cha_att.0", "cha_att0"),
+                ("cha_att.2", "cha_att1"), ("post", "post"),
+                ("fre_process.pre1", "fre_process/pre1"),
+                ("fre_process.pre2", "fre_process/pre2"),
+                ("fre_process.amp_fuse.0", "fre_process/amp_fuse0"),
+                ("fre_process.amp_fuse.2", "fre_process/amp_fuse1"),
+                ("fre_process.pha_fuse.0", "fre_process/pha_fuse0"),
+                ("fre_process.pha_fuse.2", "fre_process/pha_fuse1"),
+                ("fre_process.post", "fre_process/post")):
+            table.update(_conv_rows(f"{t_pre}.{t_leaf}",
+                                    f"{f_pre}/{f_leaf}/Conv_0"))
+        t_inv, f_inv = f"{t_pre}.spa_process.0", f"{f_pre}/spa_inv"
+        table.update(_lu_rows(f"{t_inv}.invconv", f"{f_inv}/invconv"))
+        for sub in ("F", "G", "H"):
+            for leaf in ("conv1/identity", "conv1/conv_1", "conv1/conv_2",
+                         "conv2/identity", "conv2/conv_1", "conv2/conv_2",
+                         "conv3"):
+                table.update(_conv_rows(
+                    f"{t_inv}.{sub}.{leaf.replace('/', '.')}",
+                    f"{f_inv}/{sub}/{leaf}/Conv_0"))
+    return _tensors(_from_table(params, table, "SFIIN"))
+
+
+def mutinf_from_flax(params: dict) -> dict:
+    """flax GPPNNMutInf `core_module` tree -> reference-keyed state_dict of
+    float32 tensors (the inverse of `convert_mutinf`)."""
+    table = _refine_rows("refine", "refine", 2)
+    table.update(_conv_rows("interact.fuse", "interact_fuse/Conv_0"))
+    for grp in ("extract_pan", "extract_ms"):
+        table.update(_conv_rows(f"{grp}.conv", f"{grp}/conv/Conv_0"))
+        for blk in ("block1", "block2"):
+            t_blk, f_blk = f"{grp}.{blk}", f"{grp}/{blk}"
+            for t_leaf, f_leaf in (("process", "process"), ("Res.0", "res0"),
+                                   ("Res.2", "res1")):
+                table.update(_conv_rows(f"{t_blk}.{t_leaf}",
+                                        f"{f_blk}/{f_leaf}/Conv_0"))
+            for br in ("h_conv", "d_conv"):
+                table[f"{f_blk}/cdc/{br}/taps"] = (
+                    [f"{t_blk}.CDC.{br}.conv.weight"], _hwio)
+            table[f"{f_blk}/cdc/hp_branch"] = ([f"{t_blk}.CDC.HP_branch"],
+                                               _ident)
+    for i in _indices(params, "inv"):
+        t_op, f_op = f"interact.operations.{i}", f"inv_{i}"
+        table.update(_lu_rows(f"{t_op}.invconv", f"{f_op}/invconv"))
+        for sub in ("F", "G", "H"):
+            t_sub, f_sub = f"{t_op}.{sub}", f"{f_op}/{sub}"
+            for blk in ("conv1", "conv2"):
+                table.update(_hin_rows(f"{t_sub}.ops.{blk}",
+                                       f"{f_sub}/ops/{blk}"))
+            for t_leaf, f_leaf in (("ops.conv3", "ops/conv3"),
+                                   ("fusepool.1", "fusepool"),
+                                   ("fc1.0", "fc1"), ("fc2.0", "fc2"),
+                                   ("fc3.0", "fc3"), ("fuse", "fuse")):
+                table.update(_conv_rows(f"{t_sub}.{t_leaf}",
+                                        f"{f_sub}/{f_leaf}/Conv_0"))
+    return _tensors(_from_table(params, table, "MutInf"))

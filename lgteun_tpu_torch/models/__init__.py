@@ -3,6 +3,9 @@ ported method into `lgteun_tpu_torch.registry.MODELS`."""
 
 import os
 
+import torch
+
+from lgteun_tpu_torch.losses import build_loss_weights
 from lgteun_tpu_torch.models.base import ClassicalMethod, TorchMethod
 from lgteun_tpu_torch.models.classical import (gsa_fuse, sfim_fuse,
                                                wavelet_fuse)
@@ -10,11 +13,15 @@ from lgteun_tpu_torch.models.innt import GPPNNINNT
 from lgteun_tpu_torch.models.lgteun import LGTEUN
 from lgteun_tpu_torch.models.lightnet import LightNetModule
 from lgteun_tpu_torch.models.mdcun import PanUnfolding
+from lgteun_tpu_torch.models.mutinf import GPPNNMutInf
+from lgteun_tpu_torch.models.panformer import CrossSwinTransformer
+from lgteun_tpu_torch.models.sfiin import SFIINNet
 from lgteun_tpu_torch.ops import fuse_level, windows_layout_attention
 from lgteun_tpu_torch.registry import MODELS
 
-__all__ = ["UnlgFormer", "lightnet", "MDCUN", "INNT", "GSA", "SFIM",
-           "Wavelet", "TorchMethod", "ClassicalMethod"]
+__all__ = ["UnlgFormer", "lightnet", "MDCUN", "INNT", "PanFormer", "SFIIN",
+           "MutInf", "GSA", "SFIM", "Wavelet", "TorchMethod",
+           "ClassicalMethod"]
 
 
 @MODELS.register()
@@ -73,6 +80,71 @@ class INNT(TorchMethod):
         return GPPNNINNT(
             ms_chans=self.cfg.ms_chans, n_feat=g_cfg.get("n_feat", 8),
             whole_chain=os.environ.get("LGTEUN_FUSED_TM", "1") == "1")
+
+
+def _refuse_losses(cfg, names: tuple, what: str) -> None:
+    """Raise where `loss_cfg` weights one of `names`: the generic
+    `TorchMethod.losses` would train it as a plain L1 of the output."""
+    for name in build_loss_weights(cfg.loss_cfg):
+        if name in names:
+            raise NotImplementedError(
+                f"loss_cfg entry {name!r}: {what} is not ported yet "
+                "(ROADMAP A.7.5); the port trains only the output's "
+                "rec_loss for this method")
+
+
+@MODELS.register()
+class PanFormer(TorchMethod):
+    """PanFormer (reference models/panformer.py:111-153), eval and the
+    generic training (its shipped loss is `rec_loss` alone):
+    `model_cfg["core_module"]` may set n_feats (default 64), n_heads (4),
+    head_dim (16), win_size (4) and n_blocks (3)."""
+
+    def make_module(self):
+        g_cfg = dict(self.cfg.model_cfg.get("core_module", {}))
+        return CrossSwinTransformer(
+            ms_chans=self.cfg.ms_chans, n_feats=g_cfg.get("n_feats", 64),
+            n_heads=g_cfg.get("n_heads", 4),
+            head_dim=g_cfg.get("head_dim", 16),
+            win_size=g_cfg.get("win_size", 4),
+            n_blocks=g_cfg.get("n_blocks", 3),
+            norm_input=self.cfg.norm_input, bit_depth=self.cfg.bit_depth)
+
+
+@MODELS.register()
+class SFIIN(TorchMethod):
+    """SFIIN (reference models/SFIIN.py:343-408), eval path. Its
+    frequency losses are not ported: a config that weights them raises
+    in `losses`."""
+
+    def make_module(self):
+        return SFIINNet(ms_chans=self.cfg.ms_chans)
+
+    def losses(self, batch: dict, generator: torch.Generator | None = None):
+        _refuse_losses(self.cfg, ("fre_amp_rec_loss", "fre_pha_rec_loss"),
+                       "SFIIN's rfft2 amplitude / phase loss")
+        return super().losses(batch, generator)
+
+
+@MODELS.register()
+class MutInf(TorchMethod):
+    """MutInf (reference models/MutInf.py:452-505), eval path: the core
+    module (`model_cfg["core_module"]` may set n_feat, default 8). The
+    `mi` module and its ramped loss are not ported: a config that weights
+    `MI_rec_loss` raises in `losses`."""
+
+    def make_module(self):
+        g_cfg = dict(self.cfg.model_cfg.get("core_module", {}))
+        return GPPNNMutInf(ms_chans=self.cfg.ms_chans,
+                           n_feat=g_cfg.get("n_feat", 8))
+
+    def forward(self, ms, pan, generator=None):
+        return self.module(ms, pan)[0]
+
+    def losses(self, batch: dict, generator: torch.Generator | None = None):
+        _refuse_losses(self.cfg, ("MI_rec_loss",),
+                       "MutInf's mutual-information loss (the `mi` module)")
+        return super().losses(batch, generator)
 
 
 @MODELS.register()

@@ -1,7 +1,8 @@
 """Channel-attention refinement tail on [B, C, H, W] (counterpart of
-`lgteun_tpu/models/common/refine.py`; reference mz_refine.py:34-77).
-Torch-default conv init. `Refine2` and `DenseModule` come with their
-methods.
+`lgteun_tpu/models/common/refine.py`; reference mz_refine.py:34-117).
+Torch-default conv init. The JAX package's `Refine2` (MutInf's tail) is
+`Refine(..., n_ca=2)` here. Its `DenseModule` has no caller in any JAX
+model and is not ported.
 """
 
 from __future__ import annotations

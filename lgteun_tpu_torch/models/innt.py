@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lgteun_tpu_torch.models.common.inv_blocks import InvertibleConv1x1
+from lgteun_tpu_torch.models.common.inv_blocks import InvBlock
 from lgteun_tpu_torch.models.common.layers import Conv
 from lgteun_tpu_torch.models.common.refine import Refine
 from lgteun_tpu_torch.models.mutinf import _HINConvBlock, _XConv1
@@ -102,29 +102,6 @@ class _DenseBlockINNT(nn.Module):
         return F.leaky_relu(self.conv2(x1), 0.2)
 
 
-class _InvBlockINNT(nn.Module):
-    """Invertible 1x1 mixing, then the affine coupling
-    y1 = x1 + F(x2), y2 = x2 * exp(clamp * (2 sigmoid(H(y1)) - 1)) + G(y1)."""
-
-    def __init__(self, channel_num: int, channel_split_num: int,
-                 clamp: float = 0.8):
-        super().__init__()
-        s1, s2 = channel_split_num, channel_num - channel_split_num
-        self.split, self.clamp = s1, clamp
-        self.invconv = InvertibleConv1x1(channel_num)
-        self.F = _DenseBlockINNT(s2, s1)
-        self.G = _DenseBlockINNT(s1, s2)
-        self.H = _DenseBlockINNT(s1, s2)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.invconv(x)
-        x1, x2 = x[:, :self.split], x[:, self.split:]
-        y1 = x1 + self.F(x2)
-        s = self.clamp * (torch.sigmoid(self.H(y1)) * 2 - 1)
-        y2 = x2 * torch.exp(s) + self.G(y1)
-        return torch.cat([y1, y2], dim=1)
-
-
 class _FeatureExtract(nn.Module):
     """The InvBlock stack and its 1x1 fuse. The fuse takes the stack's
     input and the outputs of the blocks after the second only
@@ -133,7 +110,8 @@ class _FeatureExtract(nn.Module):
     def __init__(self, n_feat: int, block_num: int):
         super().__init__()
         self.operations = nn.ModuleList(
-            _InvBlockINNT(n_feat, n_feat // 2) for _ in range(block_num))
+            InvBlock(n_feat, n_feat // 2, subnet=_DenseBlockINNT)
+            for _ in range(block_num))
         self.fuse = _XConv1(n_feat * (block_num - 1), n_feat, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,8 @@ reflection, as numpy's "reflect" never needs more on these sizes): the
 largest window here, D_lambda's 32x32 box on a 32x32 LrMS, pads (16, 15).
 
 The rest of the JAX module (`pyr_down`, `box_filter`, `get_lp`/`get_hp`,
-`channel_pooling`, `calc_img_grad`) comes with SFIIN and MutInf.
+`channel_pooling`, `calc_img_grad`) has no caller in any JAX model and
+is not ported.
 """
 
 from __future__ import annotations

@@ -45,9 +45,8 @@ from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 
 __all__ = ["ln_mixer_head", "ln_mixer_head_ref", "global_mixer",
-           "global_mixer_ref", "PLANE_ROUNDING", "plane_rfft2",
-           "mixer_spectrum",
-           "mixer_inverse", "fft_plan", "fft_pos",
+           "global_mixer_ref", "PLANE_ROUNDING", "plane_rfft2", "amp_phase",
+           "mixer_spectrum", "mixer_inverse", "fft_plan", "fft_pos",
            "fft_mixer_plan", "fft_tables_ref", "fft_tables", "mixer_variant"]
 
 # shared memory one block may hold on the H100 (227 KB)
@@ -107,12 +106,13 @@ def global_mixer_ref(x: torch.Tensor, amp_w: torch.Tensor,
     return mixer_inverse(spec, w)
 
 
-def mixer_spectrum(z: torch.Tensor, w: int, amp_w: torch.Tensor,
-                   amp_b: torch.Tensor, pha_w: torch.Tensor,
-                   pha_b: torch.Tensor) -> torch.Tensor:
-    """The mixed half spectrum amp' e^(i pha') + (2e-8, 1e-8) of the
-    rfft2 `z` [B, C, H, W//2 + 1] of planes W wide (`global_mixer_ref`'s
-    middle)."""
+def amp_phase(z: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(|z|, angle(z)) of the rfft2 `z` [..., H, W//2 + 1] of real planes
+    W wide: the self-conjugate bins are set exactly real, with +0.0 as
+    their imaginary part where the FFT left -0.0 or rounding noise, so a
+    negative real part takes +pi (the branch of XLA's CPU FFT, which
+    leaves +0.0 there at power-of-two sides); exactly zero bins get 0 and
+    0 with a finite gradient (the double `where`)."""
     h = z.shape[-2]
     re, im = z.real, z.imag.clone()
     for r in {0, h // 2} if h % 2 == 0 else {0}:
@@ -125,6 +125,16 @@ def mixer_spectrum(z: torch.Tensor, w: int, amp_w: torch.Tensor,
     amp = torch.where(zero, torch.zeros_like(re),
                       torch.sqrt(re_s * re_s + im_s * im_s))
     pha = torch.where(zero, torch.zeros_like(re), torch.atan2(im_s, re_s))
+    return amp, pha
+
+
+def mixer_spectrum(z: torch.Tensor, w: int, amp_w: torch.Tensor,
+                   amp_b: torch.Tensor, pha_w: torch.Tensor,
+                   pha_b: torch.Tensor) -> torch.Tensor:
+    """The mixed half spectrum amp' e^(i pha') + (2e-8, 1e-8) of the
+    rfft2 `z` [B, C, H, W//2 + 1] of planes W wide (`global_mixer_ref`'s
+    middle)."""
+    amp, pha = amp_phase(z, w)
     col = lambda v: v[None, :, None, None]
     amp = amp * col(amp_w) + col(amp_b)
     pha = pha * col(pha_w) + col(pha_b)

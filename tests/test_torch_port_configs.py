@@ -15,7 +15,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("name", ["unlg_former", "lightnet", "MDCUN",
-                                  "INNT", "GSA", "SFIM", "Wavelet"])
+                                  "INNT", "PanFormer", "SFIIN", "MutInf",
+                                  "GSA", "SFIM", "Wavelet"])
 def test_port_config_copy_equals_jax_original(name):
     got = load_config(os.path.join(REPO, "lgteun_tpu_torch", "configs",
                                    f"{name}.py"))

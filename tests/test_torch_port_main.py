@@ -151,22 +151,23 @@ def _jax_main_scores(cfg_path, tree, out, monkeypatch):
     return scores
 
 
-def check_main_against_jax(model_type, data_root, tmp_path, monkeypatch):
-    """Run the port's main --test-only --device cpu on `model_type`
-    (UnlgFormer with converted flax weights) and check its log, curves,
-    TIFFs and per-image metrics against JAX `main`."""
-    if model_type == "UnlgFormer":
+def check_main_against_jax(model_type, data_root, tmp_path, monkeypatch,
+                           tree=None, from_flax=None):
+    """Run the port's main --test-only --device cpu on `model_type` and
+    check its log, curves, TIFFs and per-image metrics against JAX
+    `main`. A model with weights takes the flax `tree` (JAX's init_params
+    monkeypatched) and its conversion `from_flax(tree)` as the port's
+    --checkpoint, on the first two scenes of each split at batch 2."""
+    if tree is not None:
         data_root, n_images, batch = data_root / "pair", 2, 2
     else:
         n_images, batch = N_IMAGES, BATCH
     cfg_path = _config(tmp_path / "cfg.py", data_root, model_type, tmp_path,
                        batch=batch)
     args = ["-c", cfg_path, "--test-only", "--device", "cpu"]
-    tree = None
-    if model_type == "UnlgFormer":
-        tree = flax_params(BANDS, stage=1, seed=3)
+    if tree is not None:
         ckpt = tmp_path / "weights.pt"
-        torch.save(lgteun_from_flax(tree), ckpt)
+        torch.save(from_flax(tree), ckpt)
         args += ["--checkpoint", str(ckpt)]
     runner = port_main.cli(args)
 
@@ -221,8 +222,11 @@ def check_main_against_jax(model_type, data_root, tmp_path, monkeypatch):
 
 
 def test_main_test_only_matches_jax_main(data_root, tmp_path, monkeypatch):
-    """UnlgFormer; GSA through main: tests/test_torch_port_classical.py."""
-    check_main_against_jax("UnlgFormer", data_root, tmp_path, monkeypatch)
+    """UnlgFormer; GSA through main: tests/test_torch_port_classical.py;
+    SFIIN: tests/test_torch_port_sfiin.py."""
+    check_main_against_jax("UnlgFormer", data_root, tmp_path, monkeypatch,
+                           flax_params(BANDS, stage=1, seed=3),
+                           lgteun_from_flax)
 
 
 def test_main_without_device_asks_for_cuda(data_root, tmp_path,

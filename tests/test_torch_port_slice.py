@@ -137,15 +137,16 @@ def test_port_imports_no_jax(tmp_path):
                      np.float32),
                  "input_pan": rng.uniform(0, 1, (1, 32, 32, 1)).astype(
                      np.float32)}
-        for name in ("UnlgFormer", "lightnet", "MDCUN", "INNT", "GSA",
-                     "SFIM", "Wavelet"):
+        for name in ("UnlgFormer", "lightnet", "MDCUN", "INNT", "PanFormer",
+                     "SFIIN", "MutInf", "GSA", "SFIM", "Wavelet"):
             cfg = Config(model_type=name, ms_chans=4,
                          model_cfg={"core_module": {"stage": 2}})
             m = build_model(name, cfg, device="cpu")
             m.init_params(torch.Generator().manual_seed(0))
             out = m.apply(batch)
             assert out.shape == (1, 32, 32, 4) and torch.isfinite(out).all()
-        assert sorted(MODELS._entries) == ["GSA", "INNT", "MDCUN", "SFIM",
+        assert sorted(MODELS._entries) == ["GSA", "INNT", "MDCUN", "MutInf",
+                                           "PanFormer", "SFIIN", "SFIM",
                                            "UnlgFormer", "Wavelet",
                                            "lightnet"]
         root = tempfile.mkdtemp(dir=sys.argv[1])

@@ -11,9 +11,11 @@ block tail also with a seeded dropout mask, and the tails with and
 without the mask and LN + FFN at 144^2 / 72^2 too, at channel counts the
 tail kernel pads, 12 and 40, and on the wide tile at 96 and 128; the
 whole block at C = 128 too), holds the differentiable wrappers' forward
-and gradients (kernel forward, recompute backward) against plain autograd
-on the card, then drives each ported eval path through `Runner.test` at
-its config's eval batch size, with random weights from a seed:
+and gradients (kernel forward, recompute backward; B1-B6, and LightNet's
+stack, the neighbourhood attention and the two INNT searches, whose
+training calls it also times) against plain autograd on the card, then
+drives each ported eval path through `Runner.test` at its config's eval
+batch size, with random weights from a seed:
 
 - UnlgFormer (LGTEUN, WV-3, 8 bands, K=2): three kernels per LGB block
   (LGTEUN_FUSE_LEVEL 2, the default), then again at level 1 (window
@@ -54,7 +56,20 @@ step time and images/s at batch 4 and 16, a checkpoint saved and resumed
 against the uninterrupted run, one drop-0 step's loss and every
 gradient on the card against the CPU plain path (with a split line),
 and a few training steps at level 1, level 3 and with
-LGTEUN_FUSED_ATTENTION=v2.
+LGTEUN_FUSED_ATTENTION=v2. Then the rest of the zoo trains (`train
+<method>` lines): LightNet, MDCUN, INNT, SFIIN and MutInf, each
+`Runner.train` of its shipped config (optimisers, schedule, loss terms,
+batch 8 for LightNet and 4 for the rest) for ZOO_TRAIN_ITERS iterations
+on the same pairs: the loss curve (finite, rec_loss falling), launches
+per training forward (`lightnet_stack` 5, `neighborhood_attention` 4,
+`texture_match` 1), one step on 2 images against the CPU plain path
+(MutInf mid-ramp with injected noise; INNT's near-tie queries printed;
+SFIIN, whose phase gradients float32 resolves worse, held to float64 on
+both devices, its target bins across the phase's branch cut printed),
+MutInf's
+resume (two modules, two optimisers) and the median step time at the
+config's batch and at 16 with peak memory; then 3 steps of INNT with
+LGTEUN_FUSED_TM=0 (1 `patch_match` a forward).
 
 For each path it checks that every forward went through its kernels
 (and launched no other), that the output agrees with a CPU run of the
@@ -145,17 +160,21 @@ each path at batch 1 and at the eval batch, and over a few training
 steps at batch 4 and 16: device kernels per call, device busy time,
 idle share and each device kernel's share of the busy time.
 
-Then the reference's evaluation entry point (the `main` phase):
-`python -m lgteun_tpu_torch.main -c CONFIG --test-only --device cuda`
-(`main.cli`) on the shipped WV-3 configs of UnlgFormer (seeded init,
+Then the reference's entry point (the `main` phase), `python -m
+lgteun_tpu_torch.main -c CONFIG --device cuda` (`main.cli`): with
+--test-only on the shipped WV-3 configs of UnlgFormer (seeded init,
 level 2: 5 launches each of B1-B3 a forward, none of the others), GSA,
-SFIM, Wavelet, SFIIN and MutInf (seeded init, no launches) and PanFormer
-(no launches; from the checkpoint of 40 `Runner.train` iterations of its
-shipped config on the tree's training pairs: at its seeded init its
-fused image is uncorrelated with the scene, Q about 1e-5, which float32
-resolves only to about 1e-8), on a seeded synthetic WV-3 tree under
-`build/chip_smoke/main` (20 reduced-resolution scenes with targets, 20
-full-resolution ones without; 128^2 PAN, batch 16): every per-image
+SFIM and Wavelet; without it, training then scoring, on copies of the
+shipped configs of PanFormer, LightNet, MDCUN, INNT, SFIIN and MutInf
+with max_iter cut to 40 (launches a training and an eval forward: 5 of
+`lightnet_stack`, 4 of `neighborhood_attention`, 1 of `texture_match`,
+none for the others; the loss curve; the checkpoint holds every module,
+MutInf's `mi` too; PanFormer's seeded init besides fuses an image
+uncorrelated with the scene, Q about 1e-5, which float32 resolves only
+to about 1e-8), on a seeded synthetic WV-3 tree under
+`build/chip_smoke/main` (20 training pairs, 20 reduced-resolution scenes
+with targets, 20 full-resolution ones without; 128^2 PAN, batch 16):
+every per-image
 metric the card scores on both splits (PSNR, SSIM, Q, SAM, ERGAS;
 D_lambda, D_s, QNR) held against the float64 oracle (`numpy_ref`, on the
 CPU, in a pool of processes) on the same saved prediction, every written
@@ -230,7 +249,12 @@ DROP_RATE = 0.1             # the kernel cases' dropout mask
 # the outputs, so only the backward's own run-to-run order may differ
 GRAD_REL_TOL = 1e-5         # max|grad - plain grad| / max|plain grad|
 AUTOGRAD_SHAPES = ("4x32x128x128", "4x64x64x64", "4x16x128x128",
-                   "4x32x64x64", "1024x16x64", "256x32x64")
+                   "4x32x64x64", "1024x16x64", "256x32x64", "4x9x128x128",
+                   "4x8x128x128", "1024x4x576", "1024x576x36")
+# the kernels of the rest of the zoo (B9-B12), differentiable since the
+# zoo trains on the card
+ZOO_KERNELS = ("lightnet_stack", "neighborhood_attention", "texture_match",
+               "patch_match")
 TRAIN_IMAGES = 16           # synthetic WV-3 training pairs (and 4 test)
 TRAIN_ITERS = 50
 TRAIN_LOG = 10
@@ -257,6 +281,26 @@ RESUME_LOSS_REL = 1e-3
 TRAIN_GRAD_TOL = 1e-2
 GRAD_LEVEL = 1e-3
 GRAD_ATOL = 1e-5
+# the training blocks of the rest of the zoo: (config, {kernel: launches
+# per training forward; every other kernel 0}, environment of the build);
+# then INNT's patch-match route for a few steps
+ZOO_TRAIN = (("lightnet.py", {"lightnet_stack": 5}, {}),
+             ("MDCUN.py", {"neighborhood_attention": 4}, {}),
+             ("INNT.py", {"texture_match": 1}, {}),
+             ("SFIIN.py", {}, {}),
+             ("MutInf.py", {}, {}))
+ZOO_TRAIN_PM = ("INNT.py", {"patch_match": 1}, {"LGTEUN_FUSED_TM": "0"})
+ZOO_TRAIN_ITERS = 50
+ZOO_TIMED = 10              # timed steps at each batch
+ZOO_CPU_IMAGES = 2          # images of the card-vs-CPU step
+# SFIIN's step held to float64 (see zoo_grad_split): the two devices'
+# float64 steps within ZOO_F64_GRAD_TOL of a tensor's largest, and the
+# card's float32 step no farther from float64 than ZOO_F64_FACTOR x the
+# CPU's float32 step
+ZOO_F64_GRAD_TOL = 1e-6
+ZOO_F64_FACTOR = 2.0
+# UnlgFormer's training path: fuse level 2, the image-layout attention
+TRAIN_ENV = {"LGTEUN_FUSE_LEVEL": "2", "LGTEUN_FUSED_ATTENTION": "1"}
 # the training forward at level 2 (and at level 3, which trains through
 # level 2's chain): launches per forward
 TRAIN_ROUTE = {"ln_mixer_head": 5, "window_attention": 5,
@@ -290,22 +334,32 @@ SIXTEEN_TOL = 5e-4
 # targets) and MAIN_IMAGES full-resolution ones (without)
 MAIN_IMAGES = 20
 MAIN_CONFIGS = ("unlg_former.py", "GSA.py", "SFIM.py", "Wavelet.py",
-                "PanFormer.py", "SFIIN.py", "MutInf.py")
-# UnlgFormer at level 2: launches per forward; the classical methods none
-MAIN_ROUTE = {"ln_mixer_head": 5, "window_attention": 5, "block_tail": 5}
+                "PanFormer.py", "lightnet.py", "MDCUN.py", "INNT.py",
+                "SFIIN.py", "MutInf.py")
+# launches per forward (training and eval) by model; every other kernel,
+# and every kernel of a model not listed, 0 (UnlgFormer at level 2)
+MAIN_ROUTE = {"UnlgFormer": {"ln_mixer_head": 5, "window_attention": 5,
+                             "block_tail": 5},
+              "lightnet": {"lightnet_stack": 5},
+              "MDCUN": {"neighborhood_attention": 4},
+              "INNT": {"texture_match": 1}}
 # card vs the float64 oracle (numpy_ref) on the same saved prediction:
 # the bounds tests/test_metrics.py holds the JAX metrics to
 MAIN_REF_RTOL = {"psnr": 1e-4, "ssim": 1e-4, "qindex": 1e-3, "sam": 1e-3,
                  "ergas": 1e-4}
 MAIN_NO_REF_ATOL = {"d_lambda": 2e-4, "d_s": 2e-4, "qnr": 4e-4}
 MAIN_TAGS = {True: "reduced-res (ref)", False: "full-res (no-ref)"}
-# configs the main phase scores with a checkpoint of this many Runner.train
-# iterations of the shipped config (batch 4) on the tree's 20 training
-# pairs: PanFormer's seeded init fuses an image uncorrelated with the scene
-# (Q about 1e-5, where float32's Q, the card's as JAX's, resolves 1e-8:
-# MAIN_REF_RTOL's 1e-3 would measure that resolution); after 40
-# iterations its Q reads about 0.17 (H100, this phase)
-MAIN_TRAINED = {"PanFormer.py": 40}
+# configs the main phase trains through `main` (no --test-only) on the
+# tree's 20 training pairs, from a copy of the shipped config with
+# max_iter cut to MAIN_TRAIN_ITERS (its optimisers, schedule, loss terms
+# and batch as shipped), then scores: the rest of the zoo's training path
+# end to end. PanFormer needs it besides: its seeded init fuses an image
+# uncorrelated with the scene (Q about 1e-5, where float32's Q, the
+# card's as JAX's, resolves 1e-8: MAIN_REF_RTOL's 1e-3 would measure that
+# resolution); after 40 iterations its Q reads about 0.17 (H100)
+MAIN_TRAINED = ("PanFormer.py", "lightnet.py", "MDCUN.py", "INNT.py",
+                "SFIIN.py", "MutInf.py")
+MAIN_TRAIN_ITERS = 40
 DN_RANGE = 2.0 ** 11 - 0.5
 
 # name -> (module under lgteun_tpu_torch/ops holding the wrapper and its
@@ -1182,7 +1236,7 @@ def main() -> int:
     check_fft_tables()
 
     # 3. the differentiable wrappers against plain autograd
-    run_autograd(torch.Generator().manual_seed(SEED + 2))
+    run_autograd(torch.Generator().manual_seed(SEED + 2), card)
 
     # 4. each slice: shipped config, seeded weights, Runner.test
     #    (a kernel's launches are those of the first path that runs it)
@@ -1208,6 +1262,9 @@ def main() -> int:
     launches.setdefault("window_attention_rows", 0)   # on no model path
     run_grad_split(train_ds, card)
     run_train_variants(train_ds, card)
+    # 6b. the rest of the zoo trains: LightNet, MDCUN, INNT (B9-B12 through
+    #     their recompute entries), SFIIN and MutInf
+    run_zoo_training(train_ds, card, opts.profile)
 
     # 7. the evaluation entry point: main.cli --test-only, both splits,
     #    UnlgFormer and the classical methods
@@ -1997,26 +2054,33 @@ def run_sixteen_bands(card: str) -> None:
                                  f"float64, CPU float32 {d(want, exact):.3e}")
 
 
-def run_autograd(gen: torch.Generator) -> None:
-    """Each differentiable wrapper (B1-B6) at the main path's shapes:
-    its forward (KERNEL_REL_TOL) and the gradients of a loss linear in
-    its outputs, with respect to every input and weight (the dropout
-    mask excepted), against plain autograd through its plain version on
-    the card (GRAD_REL_TOL)."""
+def run_autograd(gen: torch.Generator, card: str) -> None:
+    """Each differentiable wrapper (B1-B6, and since the zoo trains
+    B9-B12) at the main path's shapes: its forward (KERNEL_REL_TOL; the
+    searches as `check_search` holds them, outside the float64 near
+    ties) and the gradients of a loss linear in its outputs, with
+    respect to every input and weight (the dropout mask excepted),
+    against plain autograd through its plain version on the card
+    (GRAD_REL_TOL). B9-B12 also print the training call's time (the
+    kernel forward, then the backward that recomputes the plain version)
+    beside the plain version's forward and backward."""
     names = ("ln_mixer_head", "window_attention", "block_tail",
              "block_tail_masked", "global_mixer", "ln_ffn",
-             "window_attention_windows")
+             "window_attention_windows") + ZOO_KERNELS
     for name, shape, kernel, plain, args in kernel_cases(gen):
         if name not in names or shape not in AUTOGRAD_SHAPES:
             continue
         leaf = lambda t: t.detach().clone().requires_grad_()
         args = [({k: leaf(v) for k, v in a.items()} if isinstance(a, dict)
+                 else [tuple(map(leaf, layer)) for layer in a]
+                 if isinstance(a, list)
                  else leaf(a) if isinstance(a, torch.Tensor) and not (
                      name == "block_tail_masked" and i == 3) else a)
                 for i, a in enumerate(args)]
         leaves = [t for a in args for t in (
-            a.values() if isinstance(a, dict) else [a])
-                  if isinstance(t, torch.Tensor) and t.requires_grad]
+            a.values() if isinstance(a, dict) else
+            [t for layer in a for t in layer] if isinstance(a, list)
+            else [a]) if isinstance(t, torch.Tensor) and t.requires_grad]
         weights = None
         results = []
         for fn in (kernel, plain):
@@ -2029,7 +2093,11 @@ def run_autograd(gen: torch.Generator) -> None:
             results.append(([o.detach() for o in outs],
                             torch.autograd.grad(loss, leaves)))
         (k_out, k_grads), (p_out, p_grads) = results
-        fwd, _ = rel_err(k_out, p_out)
+        if name in ("texture_match", "patch_match"):
+            fwd, _ = check_search(name, shape, k_out, p_out,
+                                  [a.detach() for a in args])
+        else:
+            fwd, _ = rel_err(k_out, p_out)
         grad = max(rel_err([g], [w])[0] for g, w in zip(k_grads, p_grads))
         print(f"autograd {name:24s} {shape:14s} forward rel err {fwd:.3e}  "
               f"grads of {len(leaves)} tensors rel err {grad:.3e} (bounds "
@@ -2037,15 +2105,27 @@ def run_autograd(gen: torch.Generator) -> None:
         if not (fwd <= KERNEL_REL_TOL and grad <= GRAD_REL_TOL):
             raise AssertionError(f"autograd {name} {shape}: forward {fwd:.3e}"
                                  f", grads {grad:.3e}")
+        if name in ZOO_KERNELS:
+            def step(fn):
+                outs = as_tuple(fn(*args))
+                return torch.autograd.grad(
+                    sum((o * w).sum() for o, w in zip(outs, weights)),
+                    leaves)
+            with torch.no_grad():
+                fwd_ms = time_ms(lambda: kernel(*args), iters=10)
+            train_ms, plain_ms = in_turns(lambda: step(plain),
+                                          lambda: step(kernel))
+            print(f"autograd {name:24s} {shape:14s} training call: kernel "
+                  f"forward {fwd_ms:.3f} ms, kernel forward + recompute "
+                  f"backward {train_ms:.3f} ms (the backward "
+                  f"{train_ms - fwd_ms:.3f}); plain forward + backward "
+                  f"{plain_ms:.3f} ms  [{card}]")
 
 
 def train_method(cfg, env: dict | None = None):
     """The shipped UnlgFormer on the card, built under `env` (fuse level
     2 and the image-layout attention unless it says otherwise)."""
-    from lgteun_tpu_torch.registry import build_model
-    base = {"LGTEUN_FUSE_LEVEL": "2", "LGTEUN_FUSED_ATTENTION": "1"}
-    with mock.patch.dict(os.environ, dict(base, **(env or {}))):
-        return build_model(cfg.model_type, cfg, device="cuda")
+    return zoo_method(cfg, dict(TRAIN_ENV, **(env or {})), "cuda")
 
 
 def reset_launches() -> dict:
@@ -2124,38 +2204,7 @@ def run_training(card: str, profile: bool):
 
     # resume: a checkpoint at TRAIN_ITERS, loaded into a new Runner; both
     # run RESUME_STEPS more iterations
-    path = runner.save(TRAIN_ITERS)
-    cfg.max_iter, cfg.log_freq = TRAIN_ITERS + RESUME_STEPS, 1
-    def resume():
-        r = Runner(cfg, train_method(cfg), "cuda", train_ds=train_ds)
-        return r.load_checkpoint(path).set_optim().train()
-
-    n0 = len(runner.loss_log)
-    runner.train()
-    resumed, again = resume(), resume()
-    losses = lambda r, n=0: [parts["full_loss"] for _, parts in
-                             r.loss_log[n:]]
-
-    def gap(r1, l1, r2, l2):
-        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(l1, l2))
-        s1, s2 = r1.method.module.state_dict(), r2.method.module.state_dict()
-        return loss_rel, max((s1[k] - s2[k]).abs().max().item() for k in s1)
-
-    a, b = losses(runner, n0), losses(resumed)
-    loss_rel, w_err = gap(runner, a, resumed, b)
-    spread = gap(resumed, b, again, losses(again))
-    lr = cfg.optim_cfg["core_module"].lr
-    print(f"resume: {RESUME_STEPS} steps after iteration {TRAIN_ITERS}: "
-          f"first step loss equal {a[0] == b[0]}, losses rel err "
-          f"{loss_rel:.3e} (bound {RESUME_LOSS_REL:g}), weights max-abs "
-          f"{w_err:.3e} (bound 2 lr x steps = {2 * lr * RESUME_STEPS:g}); "
-          f"two resumed runs: losses {spread[0]:.3e}, weights "
-          f"{spread[1]:.3e} (the bicubic backward's atomic adds are not "
-          f"ordered on CUDA)")
-    if len(a) != RESUME_STEPS or len(b) != RESUME_STEPS or a[0] != b[0] \
-            or not (loss_rel <= RESUME_LOSS_REL
-                    and w_err <= 2 * lr * RESUME_STEPS):
-        raise AssertionError("resumed run departs from the uninterrupted one")
+    check_resume(runner, cfg, TRAIN_ENV, train_ds, card)
 
     # step time at each batch: the device step (forward, backward, Adam)
     from lgteun_tpu_torch.ops.ffn_kernel import _fragments
@@ -2242,21 +2291,8 @@ def run_grad_split(train_ds, card: str) -> None:
         card_p = step(method)
     want = step(cpu)
     exact = step64(cpu)
-    scale = max(g.abs().max().item() for g in exact[1].values())
-    level = {k for k, g in exact[1].items()
-             if g.abs().max().item() >= GRAD_LEVEL * scale}
-
-    def diff(a, b):
-        """(|loss a - loss b|, the worst relative error among the tensors
-        above GRAD_LEVEL and its tensor, allclose of every tensor)."""
-        assert a[1].keys() == b[1].keys()
-        rel = {k: (a[1][k] - b[1][k]).abs().max().item()
-               / b[1][k].abs().max().item() for k in level}
-        worst = max(rel, key=rel.get)
-        close = all(((a[1][k] - b[1][k]).abs() <= TRAIN_GRAD_TOL
-                     * b[1][k].abs().max() + GRAD_ATOL * scale).all()
-                    for k in b[1])
-        return abs(a[0] - b[0]), rel[worst], worst, close
+    scale, level = grad_level(exact[1])
+    diff = lambda a, b: grad_diff(a, b, level, scale)
 
     loss_err, grad_err, worst, close = diff(card_k, want)
     print(f"train grads: drop-0 step on 2 images, loss {want[0]:.6f}, "
@@ -2281,6 +2317,29 @@ def run_grad_split(train_ds, card: str) -> None:
             and close):
         raise AssertionError(f"train grads: loss {loss_err:.3e}, gradients "
                              f"{grad_err:.3e}, allclose {close}")
+
+
+def grad_level(grads: dict) -> tuple[float, set]:
+    """(the largest gradient of all, the tensors whose largest value is
+    at least GRAD_LEVEL of it) of {name: gradient}."""
+    scale = max(g.abs().max().item() for g in grads.values())
+    return scale, {k for k, g in grads.items()
+                   if g.abs().max().item() >= GRAD_LEVEL * scale}
+
+
+def grad_diff(a, b, level: set, scale: float) -> tuple:
+    """Two steps' (loss, {name: gradient}): (|loss a - loss b|, the worst
+    relative error among the tensors in `level` and its tensor, allclose
+    of every tensor: |a - b| <= TRAIN_GRAD_TOL |b|max + GRAD_ATOL
+    scale)."""
+    assert a[1].keys() == b[1].keys()
+    rel = {k: (a[1][k] - b[1][k]).abs().max().item()
+           / b[1][k].abs().max().item() for k in level}
+    worst = max(rel, key=rel.get)
+    close = all(((a[1][k] - b[1][k]).abs() <= TRAIN_GRAD_TOL
+                 * b[1][k].abs().max() + GRAD_ATOL * scale).all()
+                for k in b[1])
+    return abs(a[0] - b[0]), rel[worst], worst, close
 
 
 def run_train_variants(train_ds, card: str, steps: int = 3) -> None:
@@ -2318,12 +2377,325 @@ def run_train_variants(train_ds, card: str, steps: int = 3) -> None:
             raise AssertionError(f"train {env}: loss not finite")
 
 
-def write_main_tree(root: str) -> tuple[str, str]:
+def zoo_method(cfg, env: dict, device: str):
+    """The shipped `cfg`'s method on `device`, built under `env`."""
+    from lgteun_tpu_torch.registry import build_model
+    with mock.patch.dict(os.environ, env):
+        return build_model(cfg.model_type, cfg, device=device)
+
+
+def run_zoo_training(train_ds, card: str, profile: bool) -> dict:
+    """The training blocks of LightNet, MDCUN, INNT, SFIIN and MutInf
+    (ZOO_TRAIN): `Runner.train` of the shipped config (its optimisers,
+    schedule, loss terms and batch) for ZOO_TRAIN_ITERS iterations on
+    the synthetic WV-3 pairs of `run_training`, the loss curve (finite,
+    the reconstruction term falling), the launches per training forward,
+    one step on the card against the CPU plain path (`zoo_grad_split`),
+    MutInf's resume (two modules, two optimisers) and the median step
+    time at the config's batch and at 16, with peak memory (and under
+    `profile` the step's top device ops and idle share); then a few
+    steps of INNT with LGTEUN_FUSED_TM=0 (patch match). Returns the
+    launches of each kernel in its block's train() run."""
+    from lgteun_tpu_torch.config import load_config
+    from lgteun_tpu_torch.data.pipeline import train_iterator
+    from lgteun_tpu_torch.runner import Runner
+
+    launches = {}
+    for config, route, env in ZOO_TRAIN:
+        cfg = load_config(os.path.join(CONFIGS, config))
+        tag = f"train {cfg.model_type}"
+        root = os.path.join(REPO, "build", "chip_smoke",
+                            f"train_{cfg.model_type}")
+        cfg.max_iter, cfg.log_freq, cfg.work_dir = (ZOO_TRAIN_ITERS,
+                                                    TRAIN_LOG, root)
+        cfg.save_freq = cfg.eval_freq = cfg.test_freq = 0
+        bs = cfg.train_set_cfg.batch_size
+        runner = Runner(cfg, zoo_method(cfg, env, "cuda"), "cuda",
+                        train_ds=train_ds).init(SEED).set_optim()
+        print(f"{tag}: {cfg.optim_cfg} {cfg.sched_cfg} {cfg.loss_cfg} batch "
+              f"{bs} max_iter {cfg.max_iter}; parameters "
+              f"{runner.method.param_counts()}")
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        runner.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = check_launches(tag, wrappers, route, ZOO_TRAIN_ITERS)
+        launches.update({k: counted[k] for k in route})
+        print(f"{tag}: {ZOO_TRAIN_ITERS} iterations in {wall:.2f} s "
+              f"({wall / ZOO_TRAIN_ITERS * 1e3:.2f} ms an iteration, data "
+              f"included); launches per training forward "
+              f"{ {k: counted[k] // ZOO_TRAIN_ITERS for k in route} }, "
+              f"every other kernel 0  [{card}]")
+        for it, parts in runner.loss_log:
+            print(f"{tag}: iter {it} " + ", ".join(
+                f"{k} {v:.6f}" for k, v in parts.items()))
+        rec = [parts["rec_loss"] for _, parts in runner.loss_log]
+        full = [parts["full_loss"] for _, parts in runner.loss_log]
+        if not (np.isfinite(rec + full).all() and rec[-1] < rec[0]):
+            raise AssertionError(f"{tag}: loss curve {runner.loss_log} is "
+                                 "not finite with a falling rec_loss")
+        if cfg.model_type == "MutInf":
+            check_resume(runner, cfg, env, train_ds, card)
+        zoo_grad_split(cfg, env, route, train_ds, card)
+        for bsz in (bs, 16):
+            batch = runner.to_device(next(train_iterator(
+                train_ds, bsz, bit_depth=cfg.bit_depth, seed=SEED)))
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for i in range(3 + ZOO_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runner.train_step(batch, i)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            med = statistics.median(times[3:])
+            print(f"{tag} step batch {bsz}: median {med * 1e3:.3f} ms (min "
+                  f"{min(times[3:]) * 1e3:.3f}) of {ZOO_TIMED} = "
+                  f"{bsz / med:.1f} images/s; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB"
+                  f"  [{card}]")
+            if profile:
+                print_profile(f"{tag[6:]} train step batch-{bsz}",
+                              device_profile(lambda: runner.train_step(
+                                  batch, 0), n=3), card)
+        del runner, batch
+        torch.cuda.empty_cache()
+
+    config, route, env = ZOO_TRAIN_PM
+    cfg = load_config(os.path.join(CONFIGS, config))
+    runner = Runner(cfg, zoo_method(cfg, env, "cuda"), "cuda").init(
+        SEED).set_optim()
+    batch = runner.to_device(next(train_iterator(
+        train_ds, cfg.train_set_cfg.batch_size, bit_depth=cfg.bit_depth,
+        seed=SEED + 4)))
+    runner.train_step(batch, 0)     # warm-up outside the count
+    wrappers = reset_launches()
+    losses = [runner.train_step(batch, i + 1)["full_loss"].item()
+              for i in range(3)]
+    counted = check_launches(f"train {cfg.model_type} {env}", wrappers,
+                             route, 3)
+    launches.update({k: counted[k] for k in route})
+    print(f"train {cfg.model_type} {env}: 3 steps, l1 "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; launches per forward "
+          f"{route}  [{card}]")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train {cfg.model_type} {env}: loss not "
+                             "finite")
+    return launches
+
+
+def check_resume(runner, cfg, env: dict, train_ds, card: str) -> None:
+    """A checkpoint of `runner` at its last iteration, loaded into a new
+    Runner (both modules' weights, both optimisers and schedulers); both
+    run RESUME_STEPS more iterations: the first resumed step's loss
+    equal, the later ones within RESUME_LOSS_REL, each module's weights
+    within 2 lr x steps of its own learning rate (the bicubic backward's
+    atomic adds are not ordered on CUDA; two resumed runs show the
+    card's own spread)."""
+    from lgteun_tpu_torch.runner import Runner
+    start = runner.last_iter
+    path = runner.save(start)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if set(payload.get("modules", {})) != set(
+            runner.method.module_names[1:]) or set(
+            payload.get("optimizers", {})) != set(runner.method.module_names):
+        raise AssertionError(f"resume: the checkpoint holds modules "
+                             f"{sorted(payload.get('modules', {}))} and "
+                             f"optimizers {sorted(payload.get('optimizers', {}))}")
+    cfg.max_iter, cfg.log_freq = start + RESUME_STEPS, 1
+
+    def resume():
+        r = Runner(cfg, zoo_method(cfg, env, "cuda"), "cuda",
+                   train_ds=train_ds)
+        return r.load_checkpoint(path).set_optim().train()
+
+    n0 = len(runner.loss_log)
+    runner.train()
+    resumed, again = resume(), resume()
+    losses = lambda r, n=0: [parts["full_loss"] for _, parts in
+                             r.loss_log[n:]]
+
+    def gap(r1, l1, r2, l2):
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(l1, l2))
+        w = {}
+        for name in r1.method.module_names:
+            s1 = r1.method.modules()[name].state_dict()
+            s2 = r2.method.modules()[name].state_dict()
+            w[name] = max((s1[k] - s2[k]).abs().max().item() for k in s1)
+        return loss_rel, w
+
+    a, b = losses(runner, n0), losses(resumed)
+    loss_rel, w_err = gap(runner, a, resumed, b)
+    spread = gap(resumed, b, again, losses(again))
+    lrs = {name: o.param_groups[0]["lr"]
+           for name, o in runner.optimizers.items()}
+    print(f"resume {cfg.model_type}: {RESUME_STEPS} steps after iteration "
+          f"{start} from a checkpoint of modules "
+          f"{list(runner.method.module_names)}: first step loss equal "
+          f"{a[0] == b[0]}, losses rel err {loss_rel:.3e} (bound "
+          f"{RESUME_LOSS_REL:g}), weights max-abs "
+          + ", ".join(f"{k} {v:.3e} (bound {2 * lrs[k] * RESUME_STEPS:g})"
+                      for k, v in w_err.items())
+          + f"; two resumed runs: losses {spread[0]:.3e}, weights "
+          + ", ".join(f"{k} {v:.3e}" for k, v in spread[1].items())
+          + f"  [{card}]")
+    if len(a) != RESUME_STEPS or len(b) != RESUME_STEPS or a[0] != b[0] \
+            or not loss_rel <= RESUME_LOSS_REL or any(
+                w_err[k] > 2 * lrs[k] * RESUME_STEPS for k in w_err):
+        raise AssertionError(f"resume {cfg.model_type}: the resumed run "
+                             "departs from the uninterrupted one")
+
+
+def zoo_grad_split(cfg, env: dict, route: dict, train_ds, card: str) -> None:
+    """One step (train mode; no dropout in these methods) from the same
+    weights on ZOO_CPU_IMAGES images at iteration max_iter / 2 (MutInf's
+    MI term mid-ramp, with noise drawn once on the CPU and injected on
+    both sides): the loss and every parameter's gradient of every module
+    on the card against the CPU plain path, held as `run_grad_split`
+    holds UnlgFormer's (TRAIN_GRAD_TOL of a tensor's largest above
+    GRAD_LEVEL of the largest of all, allclose with GRAD_ATOL below).
+
+    SFIIN is held another way: its phase terms (the model's own
+    frequency branch and the fre_pha loss) scale a bin's gradient by
+    1 / amplitude, so float32's rounding of the spectrum reaches the
+    gradients, and the CPU's float32 step itself misses TRAIN_GRAD_TOL
+    against float64. So the same step runs in float64 on both devices
+    (the card on the plain versions), which must agree to
+    ZOO_F64_GRAD_TOL (the same function, cuFFT against pocketfft), and
+    the card's float32 step must lie no farther from float64 than
+    ZOO_F64_FACTOR times the CPU's float32 step (or within
+    TRAIN_GRAD_TOL). Every method prints those float64 lines too, and
+    the card on the kernels' plain versions against the CPU, INNT's
+    float64 near-tie queries in the card's forward and SFIIN's target
+    bins that the two devices put on opposite sides of the phase's
+    branch cut (+pi against -pi: a 2 pi jump in that bin's term of the
+    fre_pha L1)."""
+    import math
+
+    import lgteun_tpu_torch.models as models_pkg
+    from lgteun_tpu_torch.data.pipeline import train_iterator
+    from lgteun_tpu_torch.models import base
+    from lgteun_tpu_torch.models.sfiin import spectrum_amp_phase
+    from lgteun_tpu_torch.runner import Runner
+
+    tag = f"train {cfg.model_type} grads"
+    method = zoo_method(cfg, env, "cuda")
+    Runner(cfg, method, "cuda", train_ds=train_ds).init(SEED + 3)
+    cpu = zoo_method(cfg, env, "cpu")
+    for name, module in method.modules().items():
+        cpu.load_module_state_dict(name, {k: v.cpu() for k, v in
+                                          module.state_dict().items()})
+    batch = next(train_iterator(train_ds, ZOO_CPU_IMAGES,
+                                bit_depth=cfg.bit_depth, seed=SEED + 3))
+    iter_id = cfg.max_iter // 2
+    gen = torch.Generator().manual_seed(SEED + 7)
+    kw = {"noise": tuple(torch.randn(ZOO_CPU_IMAGES, 4, generator=gen)
+                         for _ in range(2))} \
+        if cfg.model_type == "MutInf" else {}
+
+    def double(m):
+        """A float64 copy of method `m` (its modules copied)."""
+        d = copy.copy(m)
+        d.module = copy.deepcopy(m.module).double()
+        if "mi" in m.module_names:
+            d.mi = copy.deepcopy(m.mi).double()
+        return d
+
+    def step(m):
+        dtype = next(m.module.parameters()).dtype
+        nchw = lambda a, dev: torch.as_tensor(np.asarray(a)).to(
+            device=dev, dtype=dtype).permute(0, 3, 1, 2).contiguous()
+        m.train()
+        for module in m.modules().values():
+            module.zero_grad(set_to_none=True)
+        with mock.patch.object(models_pkg, "_nchw", nchw), \
+                mock.patch.object(base, "_nchw", nchw):
+            total, _ = m.losses(batch, None, iter_id, **kw)
+        total.backward()
+        return total.item(), {f"{name}.{k}": p.grad.detach().cpu().double()
+                              for name, module in m.modules().items()
+                              for k, p in module.named_parameters()
+                              if p.grad is not None}
+
+    searches = [k for k in route if k in ("texture_match", "patch_match")]
+    calls = []
+
+    def recorder(name, fn):
+        def call(*args):
+            calls.append((name, [a.detach() for a in args]))
+            return fn(*args)
+        return call
+
+    plain = lambda: swapped_kernels(route, lambda name, fn:
+                                    kernel_fns(name)[1])
+    t0 = time.perf_counter()
+    with swapped_kernels(searches, recorder):
+        card_k = step(method)
+    with plain():
+        card_p = step(method)
+        card_64 = step(double(method))
+    want = step(cpu)
+    exact = step(double(cpu))
+    cpu_s = time.perf_counter() - t0
+    scale, level = grad_level(exact[1])
+    diff = lambda a, b: grad_diff(a, b, level, scale)
+
+    loss_err, grad_err, worst, close = diff(card_k, want)
+    n_near = sum(int(near_ties(*search_inputs(k, args)).sum())
+                 for k, args in calls)
+    print(f"{tag}: step on {ZOO_CPU_IMAGES} images at iteration {iter_id}, "
+          f"loss {want[0]:.6f}, {len(want[1])} parameters with a gradient, "
+          f"{len(level)} of them above {GRAD_LEVEL:g} of the largest "
+          f"({scale:.4g}): |card - cpu plain| loss {loss_err:.3e}, worst "
+          f"gradient rel err {grad_err:.3e} ({worst}; bound "
+          f"{TRAIN_GRAD_TOL:g}), every tensor allclose (rtol "
+          f"{TRAIN_GRAD_TOL:g}, atol {GRAD_ATOL:g} x {scale:.4g}): {close}"
+          + (f"; float64 near-tie queries in the card's forward {n_near}"
+             if searches else "") + f" (the card's and the CPU's steps, "
+          f"float32 and float64, {cpu_s:.1f} s)  [{card}]")
+    splits = {"card plain vs cpu plain": (card_p, want),
+              "card float64 vs cpu float64": (card_64, exact),
+              "card kernels vs cpu float64": (card_k, exact),
+              "cpu plain vs cpu float64": (want, exact)}
+    d = {k: diff(*v) for k, v in splits.items()}
+    for k, (l_err, g_err, g_worst, _) in d.items():
+        print(f"{tag} split, {k}: loss {l_err:.3e}, worst rel err "
+              f"{g_err:.3e} ({g_worst})")
+    if cfg.model_type == "SFIIN":
+        pc, pp = (spectrum_amp_phase(base._nchw(batch["target"], m.device))
+                  [1].cpu() for m in (method, cpu))
+        flips = int(((pc - pp).abs() > math.pi).sum())
+        print(f"{tag}: target spectrum bins on opposite sides of the "
+              f"phase's branch cut, card vs CPU: {flips} of {pp.numel()} "
+              f"(each a 2 pi jump in its fre_pha_rec_loss term, weight "
+              f"0.1)")
+        card_f64 = d["card kernels vs cpu float64"][1]
+        cpu_f64 = d["cpu plain vs cpu float64"][1]
+        same = d["card float64 vs cpu float64"][1]
+        ok = same <= ZOO_F64_GRAD_TOL and card_f64 <= max(
+            TRAIN_GRAD_TOL, ZOO_F64_FACTOR * cpu_f64)
+        print(f"{tag}: held to float64: the two devices in float64 agree "
+              f"to {same:.3e} (bound {ZOO_F64_GRAD_TOL:g}); the card's "
+              f"float32 step {card_f64:.3e} from float64, the CPU's "
+              f"{cpu_f64:.3e} (bound max({TRAIN_GRAD_TOL:g}, "
+              f"{ZOO_F64_FACTOR:g} x the CPU's)): {ok}")
+        if not (ok and loss_err <= 5e-4 * abs(want[0])):
+            raise AssertionError(f"{tag}: float64 agreement {same:.3e}, "
+                                 f"card {card_f64:.3e} vs CPU "
+                                 f"{cpu_f64:.3e} from float64")
+    elif not (loss_err <= 5e-4 * abs(want[0])
+              and grad_err <= TRAIN_GRAD_TOL and close):
+        raise AssertionError(f"{tag}: loss {loss_err:.3e}, gradients "
+                             f"{grad_err:.3e} ({worst}), allclose {close}")
+
+
+def write_main_tree(root: str) -> str:
     """{root}/data/WV-3/test_reduce_res (MAIN_IMAGES seeded Wald scenes
-    with targets) and .../test_full_res (the LrMS and PAN of MAIN_IMAGES
-    other scenes, no target), written by the port's generator; returns
-    the data root and the directory of those other scenes' triples (with
-    targets, the training pairs of MAIN_TRAINED)."""
+    with targets), .../test_full_res (the LrMS and PAN of MAIN_IMAGES
+    other scenes, no target) and .../train_reduce_res (those other
+    scenes' triples, with targets: the training pairs of MAIN_TRAINED),
+    written by the port's generator; returns the data root."""
     import shutil
 
     from lgteun_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -2334,41 +2706,55 @@ def write_main_tree(root: str) -> tuple[str, str]:
     data = os.path.join(root, "data")
     shutil.copytree(made["test"], os.path.join(data, "WV-3",
                                                "test_reduce_res"))
+    shutil.copytree(made["train"], os.path.join(data, "WV-3",
+                                                "train_reduce_res"))
     full = os.path.join(data, "WV-3", "test_full_res")
     os.makedirs(full)
     for name in sorted(os.listdir(made["train"])):
         if not name.endswith("_mul.tif"):
             shutil.copy(os.path.join(made["train"], name), full)
-    return data, made["train"]
+    return data
 
 
-def train_for_main(config: str, iters: int, train_dir: str, root: str,
-                   card: str) -> str:
-    """`iters` Runner.train iterations of `config` as shipped (optimiser,
-    schedule, loss, batch 4) on the card from its seeded init; returns
-    the checkpoint's path (under `root`)."""
-    from lgteun_tpu_torch.config import load_config
-    from lgteun_tpu_torch.data.dataset import PSDataset
-    from lgteun_tpu_torch.registry import build_model
-    from lgteun_tpu_torch.runner import Runner
+def main_config(config: str, root: str) -> str:
+    """A copy of shipped `config` under {root}/configs with max_iter cut
+    to MAIN_TRAIN_ITERS (logged every quarter); returns its path."""
+    os.makedirs(os.path.join(root, "configs"), exist_ok=True)
+    path = os.path.join(root, "configs", config)
+    with open(os.path.join(CONFIGS, config)) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(text + f"\n# cut for the smoke run\nmax_iter = "
+                f"{MAIN_TRAIN_ITERS}\nlog_freq = {MAIN_TRAIN_ITERS // 4}\n")
+    return path
 
-    cfg = load_config(config)
-    cfg.max_iter, cfg.log_freq = iters, iters // 4
-    cfg.save_freq = cfg.eval_freq = cfg.test_freq = 0
-    cfg.work_dir = os.path.join(root, "train", cfg.model_type)
-    runner = Runner(cfg, build_model(cfg.model_type, cfg, device="cuda"),
-                    "cuda", train_ds=PSDataset([train_dir])).init(cfg.seed)
-    t0 = time.perf_counter()
-    runner.set_optim().train()
-    wall = time.perf_counter() - t0
-    curve = [round(parts["rec_loss"], 5) for _, parts in runner.loss_log]
-    print(f"main {cfg.model_type}: {iters} training iterations (batch "
-          f"{cfg.train_set_cfg.batch_size}, {cfg.loss_cfg}) in {wall:.2f} s,"
-          f" l1 every {cfg.log_freq}: {curve}  [{card}]")
-    if not (np.isfinite(curve).all() and curve[-1] < curve[0]):
-        raise AssertionError(f"main {cfg.model_type}: l1 {curve} is not "
-                             "finite and falling")
-    return runner.save(iters)
+
+def check_main_training(tag: str, runner, root: str, card: str) -> None:
+    """The training half of a `main` run without --test-only: the loss
+    curve finite with a falling rec_loss, and the checkpoint it saved at
+    max_iter holding every module of the method (MutInf's `mi` under its
+    name) and each module's optimizer state."""
+    cfg = runner.cfg
+    curve = [(it, round(parts["rec_loss"], 5), round(parts["full_loss"], 5))
+             for it, parts in runner.loss_log]
+    path = os.path.join(root, cfg.work_dir, cfg.datas, "train_out",
+                        f"model_iter_{cfg.max_iter}.pt")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    names = runner.method.module_names
+    print(f"{tag}: trained {runner.last_iter} iterations ({cfg.loss_cfg}), "
+          f"(iter, rec_loss, full_loss) {curve}; checkpoint "
+          f"{os.path.relpath(path, REPO)}: modules "
+          f"{['core_module', *sorted(payload.get('modules', {}))]}, "
+          f"optimizers {sorted(payload.get('optimizers', {}))}  [{card}]")
+    rec = [c[1] for c in curve]
+    if not (runner.last_iter == cfg.max_iter and np.isfinite(
+            [c[1:] for c in curve]).all() and rec[-1] < rec[0]):
+        raise AssertionError(f"{tag}: training curve {curve} is not finite "
+                             "with a falling rec_loss")
+    if set(payload.get("modules", {})) != set(names[1:]) or set(
+            payload.get("optimizers", {})) != set(names):
+        raise AssertionError(f"{tag}: the checkpoint lacks a module of "
+                             f"{names}")
 
 
 def oracle_scores(ref: bool, pred: np.ndarray, a: np.ndarray,
@@ -2451,14 +2837,10 @@ def run_main(card: str) -> None:
     t_phase = time.perf_counter()
     root = os.path.join(REPO, "build", "chip_smoke", "main")
     shutil.rmtree(root, ignore_errors=True)
-    data, train_dir = write_main_tree(root)
+    data = write_main_tree(root)
     env = {"LGTEUN_DATA_ROOT": data, "LGTEUN_DATA_INDEX": "2",
-           "LGTEUN_FUSE_LEVEL": "2", "LGTEUN_FUSED_ATTENTION": "1"}
-    with mock.patch.dict(os.environ, env):
-        checkpoints = {c: train_for_main(os.path.join(CONFIGS, c), n,
-                                         train_dir, root, card)
-                       for c, n in MAIN_TRAINED.items()
-                       if c in MAIN_CONFIGS}
+           "LGTEUN_FUSE_LEVEL": "2", "LGTEUN_FUSED_ATTENTION": "1",
+           "LGTEUN_FUSED_TM": "1"}
     keep_save = Runner._save_outputs
     # (tag, ref, image scores the card logged, oracle arguments, the
     # oracle's futures): a config's oracle runs in the pool (one core
@@ -2479,25 +2861,32 @@ def run_main(card: str) -> None:
                 saved[ref] = outputs
                 return keep_save(self, outputs, iter_id, ref)
 
+            trained = config in MAIN_TRAINED
+            args = ["-c", main_config(config, root) if trained else
+                    os.path.join(CONFIGS, config), "--device", "cuda"]
+            if not trained:
+                args.append("--test-only")
             with mock.patch.dict(os.environ, env), contextlib.chdir(root), \
                     mock.patch.object(Runner, "_save_outputs", record):
                 wrappers = reset_launches()
                 t0 = time.perf_counter()
-                runner = port_main.cli(
-                    ["-c", os.path.join(CONFIGS, config), "--test-only",
-                     "--device", "cuda"] + (["--checkpoint", checkpoints[
-                         config]] if config in checkpoints else []))
+                runner = port_main.cli(args)
                 wall = time.perf_counter() - t0
                 counted = {k: fn.launches for k, fn in wrappers.items()}
             cfg = runner.cfg
             tag = f"main {cfg.model_type}"
-            forwards = 2 * -(-MAIN_IMAGES // cfg.eval_batch_size)
-            check_launches(tag, wrappers, MAIN_ROUTE if cfg.model_type ==
-                           "UnlgFormer" else {}, forwards)
-            print(f"{tag}: main.cli --test-only --device cuda in {wall:.2f} s "
-                  f"(the build and data excluded), {forwards} forwards, "
-                  f"launches { {k: v for k, v in counted.items() if v} }  "
-                  f"[{card}]")
+            forwards = 2 * -(-MAIN_IMAGES // cfg.eval_batch_size) + (
+                MAIN_TRAIN_ITERS if trained else 0)
+            check_launches(tag, wrappers, MAIN_ROUTE.get(cfg.model_type, {}),
+                           forwards)
+            print(f"{tag}: main.cli {' '.join(args[2:])} in {wall:.2f} s "
+                  f"(the build and data excluded), {forwards} forwards"
+                  + (f" ({MAIN_TRAIN_ITERS} of them training, batch "
+                     f"{cfg.train_set_cfg.batch_size})" if trained else "")
+                  + f", launches { {k: v for k, v in counted.items() if v} }"
+                  f"  [{card}]")
+            if trained:
+                check_main_training(tag, runner, root, card)
             out_root = os.path.join(root, cfg.work_dir, cfg.datas)
             with open(os.path.join(out_root, "eval_curves.json")) as f:
                 curves = json.load(f)

@@ -24,8 +24,16 @@ back bit for bit. Layouts:
   MutInf's CDC taps: flax [1, 5, in, out] -> torch [out, in, 1, 5] (the
   generic kernel rule)
 
-Takes the flax `core_module` tree as nested dicts of numpy arrays (no jax
-import); returns {key: float32 torch.Tensor}.
+`mi_from_flax` carries MutInf's second module, the flax `MutualInfoReg`
+tree (JAX `params["mi"]`), to the port's `losses.MutualInfoReg`. It is
+not the inverse of `convert_mutual_info`: the JAX module flattens its
+encoder output in (h, w, c) order where the reference and the port
+flatten (c, h, w) (ROADMAP C.34), so the carry permutes the rows of each
+Dense kernel to (c, h, w) before the transpose, and the port computes
+with the carried weights what JAX computes with the tree.
+
+Takes the flax `core_module` tree (or `mi` tree) as nested dicts of numpy
+arrays (no jax import); returns {key: float32 torch.Tensor}.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import torch
 
 __all__ = ["lgteun_from_flax", "lightnet_from_flax", "mdcun_from_flax",
            "innt_from_flax", "panformer_from_flax", "sfiin_from_flax",
-           "mutinf_from_flax"]
+           "mutinf_from_flax", "mi_from_flax"]
 
 
 def _hwio(k) -> np.ndarray:
@@ -438,3 +446,30 @@ def mutinf_from_flax(params: dict) -> dict:
                 table.update(_conv_rows(f"{t_sub}.{t_leaf}",
                                         f"{f_sub}/{f_leaf}/Conv_0"))
     return _tensors(_from_table(params, table, "MutInf"))
+
+
+def mi_from_flax(params: dict) -> dict:
+    """flax MutualInfoReg tree -> the port's `MutualInfoReg` state_dict of
+    float32 tensors: conv kernels HWIO -> OIHW; each Dense kernel
+    [side * side * channels, latent], rows in (h, w, c) order, -> a
+    Linear weight [latent, channels * side * side] with its columns in
+    (c, h, w) order (ROADMAP C.34). `channels` is layer3's output width,
+    `side` the square side it implies."""
+    channels = np.asarray(params["layer3"]["kernel"]).shape[-1]
+
+    def dense(k):
+        k = np.asarray(k)
+        side = int(np.sqrt(k.shape[0] // channels))
+        if side * side * channels != k.shape[0]:
+            raise ValueError(f"mi_from_flax: a Dense of {k.shape[0]} inputs "
+                             f"is no square of {channels} channels")
+        return k.reshape(side, side, channels, -1).transpose(
+            2, 0, 1, 3).reshape(k.shape[0], -1).T
+
+    table = {}
+    for name in ("layer1", "layer2", "layer3", "layer4"):
+        table.update(_conv_rows(name, name))
+    for name in ("fc1_rgb3", "fc2_rgb3", "fc1_depth3", "fc2_depth3"):
+        table[f"{name}/kernel"] = ([f"{name}.weight"], dense)
+        table[f"{name}/bias"] = ([f"{name}.bias"], _ident)
+    return _tensors(_from_table(params, table, "MutInf mi"))

@@ -1,12 +1,14 @@
 """Port model registration: importing this package registers every
 ported method into `lgteun_tpu_torch.registry.MODELS`."""
 
+import math
 import os
 
 import torch
 
-from lgteun_tpu_torch.losses import build_loss_weights
-from lgteun_tpu_torch.models.base import ClassicalMethod, TorchMethod
+from lgteun_tpu_torch.losses import MutualInfoReg, reconstruction_loss
+from lgteun_tpu_torch.models.base import (ClassicalMethod, TorchMethod,
+                                          _nchw)
 from lgteun_tpu_torch.models.classical import (gsa_fuse, sfim_fuse,
                                                wavelet_fuse)
 from lgteun_tpu_torch.models.innt import GPPNNINNT
@@ -15,7 +17,7 @@ from lgteun_tpu_torch.models.lightnet import LightNetModule
 from lgteun_tpu_torch.models.mdcun import PanUnfolding
 from lgteun_tpu_torch.models.mutinf import GPPNNMutInf
 from lgteun_tpu_torch.models.panformer import CrossSwinTransformer
-from lgteun_tpu_torch.models.sfiin import SFIINNet
+from lgteun_tpu_torch.models.sfiin import SFIINNet, spectrum_amp_phase
 from lgteun_tpu_torch.ops import fuse_level, windows_layout_attention
 from lgteun_tpu_torch.registry import MODELS
 
@@ -47,8 +49,13 @@ class UnlgFormer(TorchMethod):
 
 @MODELS.register()
 class lightnet(TorchMethod):  # noqa: N801  (the reference's name)
-    """LightNet (reference models/lightnet.py:138-139), eval path: the
-    SpanConv stack runs as `lightnet_stack`."""
+    """LightNet (reference models/lightnet.py:138-139), eval and
+    training: the SpanConv stack runs as `lightnet_stack` in both. The
+    JAX package trains on its flax chain and takes its kernel only when
+    not training (lgteun_tpu/models/lightnet.py:170-172); the port trains
+    through the kernel's forward with the plain chain's backward
+    (`ops.autograd.recompute`), the same function, so that a card never
+    runs a plain forward."""
 
     def make_module(self):
         return LightNetModule(ms_chans=self.cfg.ms_chans)
@@ -56,7 +63,8 @@ class lightnet(TorchMethod):  # noqa: N801  (the reference's name)
 
 @MODELS.register()
 class MDCUN(TorchMethod):
-    """MDCUN (reference models/MDCUN.py:422-464), eval path:
+    """MDCUN (reference models/MDCUN.py:422-464), eval and training (the
+    neighbourhood attention's kernel forward, its plain backward):
     `model_cfg["core_module"]` may set `mid_channels` (default 64) and
     `T` stages (default 4)."""
 
@@ -69,28 +77,19 @@ class MDCUN(TorchMethod):
 
 @MODELS.register()
 class INNT(TorchMethod):
-    """INNT (reference models/INNT.py:393-450), eval path:
+    """INNT (reference models/INNT.py:393-450), eval and training:
     `model_cfg["core_module"]` may set `n_feat` (default 8). The texture
     transformer runs `texture_match` (whole chain) unless LGTEUN_FUSED_TM
     is "0" when the method is built, as in the JAX package
-    (lgteun_tpu/models/innt.py:57); then it runs `patch_match`."""
+    (lgteun_tpu/models/innt.py:57); then it runs `patch_match`. In
+    training either search's backward searches again in the plain
+    version (`ops.autograd.recompute`), as the JAX `custom_vjp`s do."""
 
     def make_module(self):
         g_cfg = dict(self.cfg.model_cfg.get("core_module", {}))
         return GPPNNINNT(
             ms_chans=self.cfg.ms_chans, n_feat=g_cfg.get("n_feat", 8),
             whole_chain=os.environ.get("LGTEUN_FUSED_TM", "1") == "1")
-
-
-def _refuse_losses(cfg, names: tuple, what: str) -> None:
-    """Raise where `loss_cfg` weights one of `names`: the generic
-    `TorchMethod.losses` would train it as a plain L1 of the output."""
-    for name in build_loss_weights(cfg.loss_cfg):
-        if name in names:
-            raise NotImplementedError(
-                f"loss_cfg entry {name!r}: {what} is not ported yet "
-                "(ROADMAP A.7.5); the port trains only the output's "
-                "rec_loss for this method")
 
 
 @MODELS.register()
@@ -113,38 +112,119 @@ class PanFormer(TorchMethod):
 
 @MODELS.register()
 class SFIIN(TorchMethod):
-    """SFIIN (reference models/SFIIN.py:343-408), eval path. Its
-    frequency losses are not ported: a config that weights them raises
-    in `losses`."""
+    """SFIIN (reference models/SFIIN.py:343-408), eval and training with
+    its frequency losses (`fre_amp_rec_loss`, `fre_pha_rec_loss`: the
+    configured loss between the rfft2 amplitudes and phases of output
+    and target, `models/sfiin.py::spectrum_amp_phase`)."""
 
     def make_module(self):
         return SFIINNet(ms_chans=self.cfg.ms_chans)
 
-    def losses(self, batch: dict, generator: torch.Generator | None = None):
-        _refuse_losses(self.cfg, ("fre_amp_rec_loss", "fre_pha_rec_loss"),
-                       "SFIIN's rfft2 amplitude / phase loss")
-        return super().losses(batch, generator)
+    def losses(self, batch: dict, generator: torch.Generator | None = None,
+               iter_id: int = 0):
+        """As the JAX `SFIIN.losses` (lgteun_tpu/models/sfiin.py:
+        128-158): `rec_loss` on the output, the two frequency losses on
+        its spectrum; any other weighted entry raises (`loss_weights`)
+        or, holding `rec_loss`, is skipped as JAX skips it."""
+        weights = self.loss_weights()
+        out = self.forward(_nchw(batch["input_lr"], self.device),
+                           _nchw(batch["input_pan"], self.device))
+        target = _nchw(batch["target"], self.device)
+        pairs = {"rec_loss": (out, target)}
+        if any("fre_" in name for name in weights):
+            (out_amp, out_pha), (tgt_amp, tgt_pha) = (
+                spectrum_amp_phase(out), spectrum_amp_phase(target))
+            pairs.update(fre_amp_rec_loss=(out_amp, tgt_amp),
+                         fre_pha_rec_loss=(out_pha, tgt_pha))
+        total = torch.zeros((), device=self.device)
+        parts = {}
+        for name, lcfg in weights.items():
+            if name in pairs:
+                parts[name] = reconstruction_loss(*pairs[name], lcfg.type)
+                total = total + lcfg.w * parts[name]
+        parts["full_loss"] = total
+        return total, parts
 
 
 @MODELS.register()
 class MutInf(TorchMethod):
-    """MutInf (reference models/MutInf.py:452-505), eval path: the core
-    module (`model_cfg["core_module"]` may set n_feat, default 8). The
-    `mi` module and its ramped loss are not ported: a config that weights
-    `MI_rec_loss` raises in `losses`."""
+    """MutInf (reference models/MutInf.py:452-505): the core module
+    (`model_cfg["core_module"]` may set n_feat, default 8) and the `mi`
+    module (`losses.MutualInfoReg` over the core's PAN and MS features),
+    each with its own optimiser (`optim_cfg["mi"]`, default Adam lr
+    1e-4). The heads' width follows the PAN side the method is built for
+    (`pan_size`, 128 by default; `init_params(sample_hw=...)` and a
+    loaded `mi` state_dict reset it), as the JAX Method's `sample_hw`."""
+
+    module_names = ("core_module", "mi")
+
+    def __init__(self, cfg, device):
+        super().__init__(cfg, device)
+        self.mi = self._make_mi(128)
 
     def make_module(self):
         g_cfg = dict(self.cfg.model_cfg.get("core_module", {}))
         return GPPNNMutInf(ms_chans=self.cfg.ms_chans,
                            n_feat=g_cfg.get("n_feat", 8))
 
+    def _make_mi(self, pan_size: int) -> MutualInfoReg:
+        """A `mi` module on the meta device for PAN side `pan_size` (two
+        stride-2 convs: the encoded side is pan_size // 4)."""
+        self.pan_size = pan_size
+        with torch.device("meta"):
+            mi = MutualInfoReg(input_channels=4, channels=4, latent_size=4,
+                               side=pan_size // 2 // 2)
+        return mi.train(self.module.training)
+
+    def modules(self) -> dict:
+        return {"core_module": self.module, "mi": self.mi}
+
+    def init_params(self, generator: torch.Generator, sample_hw=None):
+        if sample_hw is not None and sample_hw[1] != self.pan_size:
+            self.mi = self._make_mi(sample_hw[1])
+        return super().init_params(generator, sample_hw)
+
+    def load_module_state_dict(self, name: str, state_dict: dict,
+                               strict: bool = True):
+        """As `TorchMethod.load_module_state_dict`; a `mi` state_dict whose
+        heads are another width rebuilds `mi` for that PAN side first."""
+        if name == "mi":
+            side = math.isqrt(state_dict["fc1_rgb3.weight"].shape[1] // 4)
+            if side != self.pan_size // 2 // 2:
+                self.mi = self._make_mi(4 * side)
+        return super().load_module_state_dict(name, state_dict, strict)
+
     def forward(self, ms, pan, generator=None):
         return self.module(ms, pan)[0]
 
-    def losses(self, batch: dict, generator: torch.Generator | None = None):
-        _refuse_losses(self.cfg, ("MI_rec_loss",),
-                       "MutInf's mutual-information loss (the `mi` module)")
-        return super().losses(batch, generator)
+    def losses(self, batch: dict, generator: torch.Generator | None = None,
+               iter_id: int = 0, noise=None):
+        """As the JAX `MutInf.losses` (lgteun_tpu/models/mutinf.py:
+        241-266): `rec_loss` on hr, and `MI_rec_loss`, the loss of
+        mi = clip(MutualInfoReg(panf, mhrf), -1, 1) against 2 mi (|mi|
+        for l1) weighted by w * min(iter_id / max_iter, 1), the ramp in
+        float32. `noise` = (eps_a, eps_b) replaces the draws from
+        `generator`."""
+        weights = self.loss_weights()
+        hr, panf, mhrf = self.module(_nchw(batch["input_lr"], self.device),
+                                     _nchw(batch["input_pan"], self.device))
+        total = torch.zeros((), device=self.device)
+        parts = {}
+        if "rec_loss" in weights:
+            lcfg = weights["rec_loss"]
+            parts["rec_loss"] = reconstruction_loss(
+                hr, _nchw(batch["target"], self.device), lcfg.type)
+            total = total + lcfg.w * parts["rec_loss"]
+        if "MI_rec_loss" in weights:
+            lcfg = weights["MI_rec_loss"]
+            mi = self.mi(panf, mhrf, generator, noise).clamp(-1.0, 1.0)
+            parts["MI_rec_loss"] = reconstruction_loss(mi, 2.0 * mi,
+                                                       lcfg.type)
+            ramp = (torch.tensor(iter_id, dtype=torch.float32)
+                    / max(self.cfg.max_iter, 1)).clamp(max=1.0)
+            total = total + lcfg.w * ramp * parts["MI_rec_loss"]
+        parts["full_loss"] = total
+        return total, parts
 
 
 @MODELS.register()

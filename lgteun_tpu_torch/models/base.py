@@ -2,20 +2,28 @@
 `lgteun_tpu/models/base.py`).
 
 A `TorchMethod` owns one `nn.Module` (the reference's `core_module`) on
-an explicit device. The module is built on the meta device and gets
-storage from `init_params(generator)` (seeded torch-default init) or
-`load_state_dict` (reference-keyed weights). It starts in eval mode;
-`train()` / `eval()` switch it. Both entries keep the JAX Method's batch
-layout, NHWC `input_lr` [B, h, w, C] and `input_pan` [B, 4h, 4w, 1]:
+an explicit device, and a method that trains more than one (MutInf's
+`mi`) names them in `module_names` and returns them from `modules()`.
+Each module is built on the meta device and gets storage from
+`init_params(generator)` (seeded torch-default init) or
+`load_state_dict` (reference-keyed weights of the core module;
+`load_module_state_dict` for another). It starts in eval mode;
+`train()` / `eval()` switch every module. Both entries keep the JAX
+Method's batch layout, NHWC `input_lr` [B, h, w, C] and `input_pan`
+[B, 4h, 4w, 1]:
 
     apply(batch)                  inference (torch.inference_mode), NHWC
                                   [B, 4h, 4w, C] out
-    losses(batch, generator)      the training loss with its autograd
+    losses(batch, generator, iter_id)
+                                  the training loss with its autograd
                                   graph: weighted reconstruction losses
                                   against batch["target"] plus
                                   "full_loss", as `Method.losses`
                                   (`lgteun_tpu/models/base.py:56-88`);
                                   `generator` draws the dropout masks
+                                  (and MutInf's reparameterisation
+                                  noise), `iter_id` is the 0-based
+                                  iteration (MutInf's MI ramp)
 
 A `ClassicalMethod` (GSA, SFIM, Wavelet) has no module and no
 parameters: `trainable` is False and `apply` is its fuse function on
@@ -46,6 +54,7 @@ class TorchMethod:
     """One core module on one device."""
 
     trainable = True
+    module_names: tuple[str, ...] = ("core_module",)
 
     def __init__(self, cfg: Config, device):
         self.cfg = cfg
@@ -63,13 +72,23 @@ class TorchMethod:
         dropout (UnlgFormer) and ignored here."""
         return self.module(ms, pan)
 
-    def init_params(self, generator: torch.Generator) -> "TorchMethod":
-        """Allocate on `self.device` and draw every parameter from
-        `generator` (a CPU generator: the draws are made on the CPU and
-        copied, so a seed gives the same weights on every device)."""
-        self.module.to_empty(device="cpu")
-        init_parameters(self.module, generator)
-        self.module.to(self.device)
+    def modules(self) -> dict[str, nn.Module]:
+        """{name: module} of `module_names`, the core module first."""
+        return {"core_module": self.module}
+
+    def init_params(self, generator: torch.Generator,
+                    sample_hw: tuple[int, int] | None = None
+                    ) -> "TorchMethod":
+        """Allocate on `self.device` and draw every parameter of every
+        module, in `module_names` order, from `generator` (a CPU
+        generator: the draws are made on the CPU and copied, so a seed
+        gives the same weights on every device). `sample_hw` = (LrMS
+        side, PAN side) of the data, for a module whose widths follow
+        it (the JAX Method's argument)."""
+        for module in self.modules().values():
+            module.to_empty(device="cpu")
+            init_parameters(module, generator)
+            module.to(self.device)
         return self
 
     def load_state_dict(self, state_dict: dict, strict: bool = True):
@@ -80,10 +99,28 @@ class TorchMethod:
             self.module.to_empty(device=self.device)
         return self.module.load_state_dict(state_dict, strict=strict)
 
+    def load_module_state_dict(self, name: str, state_dict: dict,
+                               strict: bool = True):
+        """Weights of module `name` (the core module's are
+        `load_state_dict`'s)."""
+        if name == "core_module":
+            return self.load_state_dict(state_dict, strict)
+        module = self.modules()[name]
+        if any(p.is_meta for p in module.parameters()):
+            module.to_empty(device=self.device)
+        return module.load_state_dict(state_dict, strict=strict)
+
     def param_count(self) -> int:
+        """The core module's parameters."""
         return sum(p.numel() for p in self.module.parameters())
 
+    def param_counts(self) -> dict[str, int]:
+        """{module name: parameters}, as the JAX Method's."""
+        return {name: sum(p.numel() for p in m.parameters())
+                for name, m in self.modules().items()}
+
     def state_dict(self) -> dict:
+        """The core module's reference-keyed weights."""
         return self.module.state_dict()
 
     @property
@@ -91,7 +128,8 @@ class TorchMethod:
         return self.module.training
 
     def train(self, mode: bool = True) -> "TorchMethod":
-        self.module.train(mode)
+        for module in self.modules().values():
+            module.train(mode)
         return self
 
     def eval(self) -> "TorchMethod":
@@ -105,20 +143,30 @@ class TorchMethod:
         pan = _nchw(batch["input_pan"], self.device)
         return self.forward(ms, pan).permute(0, 2, 3, 1)
 
-    def losses(self, batch: dict, generator: torch.Generator | None = None):
-        """-> (total, {name: value}) with gradients; batch as `apply`'s
-        plus `target` [B, 4h, 4w, C]. Each weighted `loss_cfg` entry
-        whose name holds `rec_loss` is an output-vs-target
-        reconstruction; any other weighted entry (`QNR_loss`,
-        `*adv_loss*`) raises NotImplementedError rather than train
-        without it."""
+    def loss_weights(self) -> dict:
+        """The weighted `loss_cfg` entries; raises NotImplementedError for
+        one the port does not compute (`QNR_loss`, `*adv_loss*`: ROADMAP
+        A.8) rather than train without it. Every entry the port computes
+        has `rec_loss` in its name."""
         weights = build_loss_weights(self.cfg.loss_cfg)
         for name in weights:
             if "rec_loss" not in name:
                 raise NotImplementedError(
                     f"loss_cfg entry {name!r}: the port computes only the "
                     "*rec_loss* reconstruction terms; QNR and adversarial "
-                    "losses are not ported yet (ROADMAP A.7)")
+                    "losses are not ported yet (ROADMAP A.8, was A.7)")
+        return weights
+
+    def losses(self, batch: dict, generator: torch.Generator | None = None,
+               iter_id: int = 0):
+        """-> (total, {name: value}) with gradients; batch as `apply`'s
+        plus `target` [B, 4h, 4w, C]. Each weighted `loss_cfg` entry
+        whose name holds `rec_loss` is an output-vs-target
+        reconstruction; any other weighted entry (`QNR_loss`,
+        `*adv_loss*`) raises NotImplementedError rather than train
+        without it. `iter_id` is for a method whose loss follows the
+        iteration (MutInf)."""
+        weights = self.loss_weights()
         out = self.forward(_nchw(batch["input_lr"], self.device),
                            _nchw(batch["input_pan"], self.device), generator)
         target = _nchw(batch["target"], self.device)
@@ -145,8 +193,12 @@ class ClassicalMethod:
         self.cfg = cfg
         self.device = torch.device(device)
 
-    def init_params(self, generator: torch.Generator) -> "ClassicalMethod":
+    def init_params(self, generator: torch.Generator,
+                    sample_hw=None) -> "ClassicalMethod":
         return self
+
+    def modules(self) -> dict:
+        return {}
 
     def load_state_dict(self, state_dict: dict, strict: bool = True):
         if strict and state_dict:

@@ -9,9 +9,10 @@ MutInf.py:137-383).
     blocks 1..3; hr = Refine(n_ca=2)(fused) + m_hr
 
 `GPPNNMutInf` returns (hr, panf, mhrf) as the JAX module does; the eval
-path takes hr. The coupling subnets are re-initialised xavier-normal at
-scale 1 (the reference's `initialize()`, MutInf.py:279-293). The
-training-only `mi` module (`MutualInfoReg`) is not ported yet.
+path takes hr, training also panf and mhrf (the `mi` module,
+`losses.MutualInfoReg`). The coupling subnets are re-initialised
+xavier-normal at scale 1 (the reference's `initialize()`,
+MutInf.py:279-293).
 `_XConv1` and `_HINConvBlock` are INNT's too. The attribute names are the
 reference's (`extract_pan.block1.CDC.h_conv.conv.weight`,
 `interact.operations.0.F.fusepool.1.weight`, `refine.process.1...`).

@@ -22,6 +22,11 @@ semantics), so cuFFT gives what pocketfft does. The reference's
 epsilons are kept: +1e-8 on pre1 / pre2, then real + 1e-8 + 1e-8 and
 imag + 1e-8.
 
+Training adds the reference's frequency losses (SFIIN.py:359-408; JAX
+`models/sfiin.py:128-158`): the configured reconstruction loss between
+the amplitudes, and between the phases, of the rfft2 over H, W (norm
+"backward") of the output and of the target (`spectrum_amp_phase`).
+
 The attribute names are the reference's (`process.conv_p.weight`,
 `process.block3.fre_process.pha_fuse.2.bias`,
 `process.block.spa_process.0.invconv.p`, `refine.conv_last.weight`).
@@ -37,9 +42,10 @@ from lgteun_tpu_torch.models.common.layers import Conv
 from lgteun_tpu_torch.models.common.refine import Refine
 from lgteun_tpu_torch.ops.resize import resize_bicubic
 from lgteun_tpu_torch.ops.spectral_kernel import (amp_phase, mixer_inverse,
-                                                  plane_rfft2)
+                                                  plane_rfft2,
+                                                  safe_amp_phase)
 
-__all__ = ["FreProcess", "SpaFre", "SFIINNet"]
+__all__ = ["FreProcess", "SpaFre", "SFIINNet", "spectrum_amp_phase"]
 
 _BLOCKS = ("block", "block1", "block2", "block3", "block4")
 
@@ -133,3 +139,24 @@ class SFIINNet(nn.Module):
             feats.append(msf)
         fused = self.process.fuse(torch.cat(feats, dim=1))
         return self.refine(fused) + m_hr
+
+
+def spectrum_amp_phase(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(amplitude, phase) of torch.fft.rfft2(x) over H, W of x
+    [B, C, H, W], as the frequency losses take them (JAX `SFIIN.losses`
+    with `_safe_amp_pha`: 0 and 0, with a finite gradient, at exactly
+    zero bins).
+
+    Where H and W are powers of two it runs `amp_phase`, which sets the
+    self-conjugate bins exactly real (+0.0 imaginary, so a negative real
+    part takes +pi): XLA's CPU FFT leaves those bins so at such sides, so
+    the port gives JAX's values there on every device, and cuFFT's
+    rounding noise cannot move a target bin across the branch cut. At
+    other sides XLA's FFT leaves rounding noise in those bins (ROADMAP
+    C.22) and no rule reproduces it; there the FFT's own values go
+    through `safe_amp_phase`, the copy of `_safe_amp_pha`."""
+    h, w = x.shape[-2:]
+    z = torch.fft.rfft2(x, norm="backward")
+    if h & (h - 1) == 0 and w & (w - 1) == 0:
+        return amp_phase(z, w)
+    return safe_amp_phase(z.real, z.imag)

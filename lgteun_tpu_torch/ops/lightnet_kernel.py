@@ -12,8 +12,11 @@ the stack returns lms + x.
 
 `lightnet_stack` launches `csrc/lightnet.cu` (five launches of two
 layers, the pointwise convs on the tensor cores with the 3xTF32 split;
-see the source note) for a CUDA tensor and runs `lightnet_stack_ref` for
-a CPU tensor. `layers` holds, per layer in table order, the torch conv
+see the source note) for a CUDA tensor, differentiable there
+(`ops.autograd.recompute`: the kernel forward, the plain version's
+backward recomputed from the saved inputs, as the JAX package trains
+through its flax chain), and runs `lightnet_stack_ref` for a CPU
+tensor. `layers` holds, per layer in table order, the torch conv
 tensors (pw1 [cout, cin, 1, 1], pb1 [cout], dw1 [cout, 1, 3, 3], db1
 [cout], pw2, pb2, dw2, db2). The kernel reads them in its own layout
 (`lightnet_fragments`: the pointwise weights split into TF32 hi/lo parts
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.ffn_kernel import tf32_split
 
 __all__ = ["lightnet_layers", "lightnet_stack", "lightnet_stack_ref",
@@ -189,20 +193,36 @@ def group_smem(rows) -> int:
 
 
 def lightnet_stack(x, lms, layers: Sequence[Sequence[torch.Tensor]]):
-    """lms + stack(x): x [B, C+1, H, W] (pan then lms), lms [B, C, H, W]."""
-    if x.device.type == "cpu":
+    """lms + stack(x): x [B, C+1, H, W] (pan then lms), lms [B, C, H, W].
+    On a CUDA tensor the kernel's forward, differentiable through
+    `ops.autograd.recompute` (`_train_entry`)."""
+    if _cuda.plain_on_cpu("lightnet_stack", x):
         return lightnet_stack_ref(x, lms, layers)
-    if x.device.type != "cuda":
-        raise ValueError(f"lightnet_stack: unsupported device {x.device}")
     b, c5, h, w = x.shape
     if tuple(lms.shape) != (b, c5 - 1, h, w):
         raise ValueError(f"lightnet_stack: x {tuple(x.shape)}, lms "
                          f"{tuple(lms.shape)}")
+    return _train_entry(x, lms, layers)
+
+
+def _train_entry(x, lms, layers):
+    """`_stack_kernel` forward, `lightnet_stack_ref`'s backward recomputed
+    from the saved inputs: the 10 x 8 layer tensors pass through
+    `recompute` as flat positional tensors and are regrouped by layer on
+    either side."""
+    per = len(layers[0])
+    regroup = lambda flat: [flat[i:i + per]
+                            for i in range(0, len(flat), per)]
+    return recompute(
+        lambda x, lms, *flat: _stack_kernel(x, lms, regroup(flat)),
+        lambda x, lms, *flat: lightnet_stack_ref(x, lms, regroup(flat)),
+        x, lms, *(t for layer in layers for t in layer))
+
+
+def _stack_kernel(x, lms, layers):
+    """The five launches of `csrc/lightnet.cu` (no backward of its own)."""
+    b, c5, h, w = x.shape
     _cuda.check_cuda_f32("lightnet_stack", x.device, x=x, lms=lms)
-    if torch.is_grad_enabled() and any(t.requires_grad for layer in layers
-                                       for t in layer):
-        raise RuntimeError("lightnet_stack: a weight requires grad, but the "
-                           "kernel has no backward")
     weights, groups = _packed(layers, lightnet_layers(c5 - 1), x.device)
     act = x
     for k, (rows, n, cout) in enumerate(groups):

@@ -16,7 +16,10 @@ them: such a neighbour enters the softmax with logit 0 and adds
 nothing to the sum, so it dilutes the attention at the borders.
 
 `neighborhood_attention` launches `csrc/neighborhood_attention.cu` for a
-CUDA tensor and runs `neighborhood_attention_ref` for a CPU tensor. The
+CUDA tensor, differentiable there (`ops.autograd.recompute`: the kernel
+forward, the plain version's backward recomputed from the saved inputs,
+as the JAX `custom_vjp` recomputes its XLA chain), and runs
+`neighborhood_attention_ref` for a CPU tensor. The
 kernel has two branches (`neighborhood_attention_branch`, the library's
 `lgteun_neighborhood_attention_tc`): "tc", the logits and the weighted
 sum of each 16-query run as mma.sync TF32 products with the 3xTF32 split
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops.autograd import recompute
 
 __all__ = ["neighborhood_attention", "neighborhood_attention_ref",
            "neighborhood_attention_branch"]
@@ -86,12 +90,11 @@ def neighborhood_attention_branch(c: int, fs: int) -> str:
 
 
 def neighborhood_attention(x, wt, wp, wg, ww, fs: int = 15):
-    """x [B, C, H, W], weights [C, C] (out, in), odd fs."""
-    if x.device.type == "cpu":
+    """x [B, C, H, W], weights [C, C] (out, in), odd fs. On a CUDA tensor
+    the kernel's forward, differentiable through `ops.autograd.recompute`
+    (`_train_entry`)."""
+    if _cuda.plain_on_cpu("neighborhood_attention", x):
         return neighborhood_attention_ref(x, wt, wp, wg, ww, fs)
-    if x.device.type != "cuda":
-        raise ValueError(f"neighborhood_attention: unsupported device "
-                         f"{x.device}")
     b, c, h, w = x.shape
     mats = {"wt": wt, "wp": wp, "wg": wg, "ww": ww}
     bad = [k for k, m in mats.items() if tuple(m.shape) != (c, c)]
@@ -102,12 +105,29 @@ def neighborhood_attention(x, wt, wp, wg, ww, fs: int = 15):
                          f"fs, C <= {_MAX_C} and at most {_SMEM_MAX} B of "
                          f"shared memory (x {tuple(x.shape)}, fs {fs}, "
                          f"{_smem_bytes(c, fs)} B); bad: {bad}")
-    _cuda.check_cuda_f32("neighborhood_attention", x.device, x=x, **mats)
+    return _train_entry(x, wt, wp, wg, ww, fs)
+
+
+def _train_entry(x, wt, wp, wg, ww, fs: int):
+    """`_na_kernel` forward, `neighborhood_attention_ref`'s backward
+    recomputed from the saved inputs; `fs` rides in the closures."""
+    return recompute(lambda *t: _na_kernel(*t, fs),
+                     lambda *t: neighborhood_attention_ref(*t, fs),
+                     x, wt, wp, wg, ww)
+
+
+def _na_kernel(x, wt, wp, wg, ww, fs: int):
+    """One launch of `csrc/neighborhood_attention.cu` (no backward of its
+    own)."""
+    b, c, h, w = x.shape
+    _cuda.check_cuda_f32("neighborhood_attention", x.device, x=x, wt=wt,
+                         wp=wp, wg=wg, ww=ww)
     out = torch.empty_like(x)
     _cuda.launch("lgteun_neighborhood_attention", x.device, x, wt, wp, wg,
                  ww, out, b, c, h, w, fs)
     neighborhood_attention.launches += 1
-    neighborhood_attention.variants[branch] += 1
+    neighborhood_attention.variants[neighborhood_attention_branch(c, fs)] \
+        += 1
     return out
 
 

@@ -9,8 +9,9 @@ INNT.py:100-143 without the unfold, norm and fold around it:
     T[n, :, j] = ref_u[n, :, idx]
 
 `patch_match` launches `csrc/texture_match.cu` (the same search bodies
-as `texture_match`) for a CUDA tensor and runs `patch_match_ref` for a
-CPU tensor. Its branches ("tc": tensor cores where K <= SEARCH_KP and
+as `texture_match`) for a CUDA tensor, differentiable there
+(`ops.autograd.recompute`), and runs `patch_match_ref` for a CPU
+tensor. Its branches ("tc": tensor cores where K <= SEARCH_KP and
 the staged refs fit; "fp32" otherwise) are chosen by shape
 (`patch_match_branch`) and counted in `patch_match.variants`.
 """
@@ -22,6 +23,7 @@ import collections
 import torch
 
 from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.texture_match_kernel import SEARCH_KP, search_pad
 
 __all__ = ["patch_match", "patch_match_ref", "patch_match_branch"]
@@ -55,11 +57,11 @@ def patch_match_branch(k: int, ll: int) -> str:
 
 def patch_match(lr_n, ref_n, ref_u):
     """lr_n, ref_n [N, L, K], ref_u [N, K, L] f32 -> (T [N, K, L],
-    S [N, L])."""
-    if lr_n.device.type == "cpu":
+    S [N, L]). On a CUDA tensor the kernel's forward, differentiable
+    through `ops.autograd.recompute` (the backward searches again with
+    `patch_match_ref`, as the JAX package's `_fused_pm_bwd`)."""
+    if _cuda.plain_on_cpu("patch_match", lr_n):
         return patch_match_ref(lr_n, ref_n, ref_u)
-    if lr_n.device.type != "cuda":
-        raise ValueError(f"patch_match: unsupported device {lr_n.device}")
     n, ll, k = lr_n.shape
     if tuple(ref_n.shape) != (n, ll, k) or tuple(ref_u.shape) != (n, k, ll) \
             or k > _MAX_K or _smem_bytes(k, ll) > _SMEM_MAX:
@@ -68,6 +70,20 @@ def patch_match(lr_n, ref_n, ref_u):
                          f"{_SMEM_MAX} B of shared memory (lr_n "
                          f"{tuple(lr_n.shape)}, ref_n {tuple(ref_n.shape)}, "
                          f"ref_u {tuple(ref_u.shape)})")
+    return _train_entry(lr_n, ref_n, ref_u)
+
+
+def _train_entry(lr_n, ref_n, ref_u):
+    """`_pm_kernel` forward, `patch_match_ref`'s backward recomputed from
+    the saved inputs; three inputs, the raw unfold `ref_u` among them."""
+    return recompute(lambda *t: _pm_kernel(*t), patch_match_ref, lr_n,
+                     ref_n, ref_u)
+
+
+def _pm_kernel(lr_n, ref_n, ref_u):
+    """One launch of `csrc/texture_match.cu`'s patch match (no backward of
+    its own)."""
+    n, ll, k = lr_n.shape
     _cuda.check_cuda_f32("patch_match", lr_n.device, lr_n=lr_n, ref_n=ref_n,
                          ref_u=ref_u)
     t = torch.empty_like(ref_u)

@@ -46,6 +46,7 @@ from lgteun_tpu_torch.ops.norm import channel_layer_norm
 
 __all__ = ["ln_mixer_head", "ln_mixer_head_ref", "global_mixer",
            "global_mixer_ref", "PLANE_ROUNDING", "plane_rfft2", "amp_phase",
+           "safe_amp_phase",
            "mixer_spectrum", "mixer_inverse", "fft_plan", "fft_pos",
            "fft_mixer_plan", "fft_tables_ref", "fft_tables", "mixer_variant"]
 
@@ -118,7 +119,14 @@ def amp_phase(z: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
     for r in {0, h // 2} if h % 2 == 0 else {0}:
         for c in {0, w // 2} if w % 2 == 0 else {0}:
             im[..., r, c] = 0.0
-    im = im + 0.0
+    return safe_amp_phase(re, im + 0.0)
+
+
+def safe_amp_phase(re: torch.Tensor, im: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(|re + i im|, atan2(im, re)) as they are, 0 and 0 with a finite
+    gradient where both are exactly zero (the double `where` of the JAX
+    package's `_safe_amp_pha`, `lgteun_tpu/models/sfiin.py:33-41`)."""
     zero = (re == 0.0) & (im == 0.0)
     re_s = torch.where(zero, torch.ones_like(re), re)
     im_s = torch.where(zero, torch.zeros_like(im), im)

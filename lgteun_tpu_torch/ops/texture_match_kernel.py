@@ -11,8 +11,10 @@ version); reference INNT.py:100-143. Per patch-image:
     s[j]        = max_i R[i, j];  idx[j] = first i reaching it
     t           = fold3x3(ref_u[:, idx]) / 9         (raw ref sub-patches)
 
-`texture_match` launches `csrc/texture_match.cu` for a CUDA tensor and
-runs `texture_match_ref` for a CPU tensor. The kernel has two branches,
+`texture_match` launches `csrc/texture_match.cu` for a CUDA tensor,
+differentiable there (`ops.autograd.recompute`: the kernel forward, the
+plain version's backward recomputed from the saved inputs, search
+included), and runs `texture_match_ref` for a CPU tensor. The kernel has two branches,
 chosen by shape (`texture_match_branch`) and counted in
 `texture_match.variants`: "tc", the search on the tensor cores (wgmma
 TF32, 3xTF32 split, the first maximum from the accumulators), where 9C
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops.autograd import recompute
 
 __all__ = ["texture_match", "texture_match_ref", "row_normalize",
            "texture_match_branch", "search_pad", "SEARCH_KP", "SEARCH_TILE"]
@@ -92,19 +95,34 @@ def texture_match_branch(c: int, side: int) -> str:
 
 def texture_match(lr, ref):
     """lr, ref [N, C, side*side] f32 -> (t [N, C, side*side],
-    s [N, side*side])."""
-    if lr.device.type == "cpu":
+    s [N, side*side]). On a CUDA tensor the kernel's forward,
+    differentiable through `ops.autograd.recompute`: the backward runs
+    `texture_match_ref` again, whose search may pick another ref than
+    the kernel did at a float64 near tie, as the JAX package's
+    `_fused_tm_bwd` does."""
+    if _cuda.plain_on_cpu("texture_match", lr):
         return texture_match_ref(lr, ref)
-    if lr.device.type != "cuda":
-        raise ValueError(f"texture_match: unsupported device {lr.device}")
     n, c, q = lr.shape
-    side = _side(q)
+    _side(q)
     if tuple(ref.shape) != (n, c, q) or c > _MAX_C \
             or _smem_bytes(c, q) > _SMEM_MAX:
         raise ValueError(f"texture_match: need lr and ref of one shape, "
                          f"C <= {_MAX_C} and at most {_SMEM_MAX} B of shared "
                          f"memory (lr {tuple(lr.shape)}, ref "
                          f"{tuple(ref.shape)}, {_smem_bytes(c, q)} B)")
+    return _train_entry(lr, ref)
+
+
+def _train_entry(lr, ref):
+    """`_tm_kernel` forward, `texture_match_ref`'s backward recomputed
+    from the saved inputs; two outputs, (t, s)."""
+    return recompute(lambda *t: _tm_kernel(*t), texture_match_ref, lr, ref)
+
+
+def _tm_kernel(lr, ref):
+    """One launch of `csrc/texture_match.cu` (no backward of its own)."""
+    n, c, q = lr.shape
+    side = _side(q)
     _cuda.check_cuda_f32("texture_match", lr.device, lr=lr, ref=ref)
     t = torch.empty_like(lr)
     s = lr.new_empty(n, q)

@@ -4,7 +4,8 @@
     Runner(cfg, method, device, train_ds=..., test_ds_full=...,
            test_ds_reduced=...)
         .init()                 seeded torch-default init
-        .set_optim()            Adam / AdamW / SGD / RMSprop + StepLR
+        .set_optim()            per module: Adam / AdamW / SGD / RMSprop
+                                + StepLR
         .train()                the iteration loop up to cfg.max_iter
         .test(iter_id=, save=, ref=)
                                 the reduced-resolution split scored with
@@ -25,10 +26,18 @@ Runner's `fold_in`, so a resumed run replays an uninterrupted one: bit
 for bit on the CPU; on a card up to the order of atomic adds in the
 backward of `F.interpolate`'s bicubic, which CUDA does not fix. StepLR
 at step s gives lr * gamma^floor(s / step_size), optax's
-`exponential_decay(..., staircase=True)`. A checkpoint is a `torch.save`
-of the reference-keyed state_dict, the optimizer's and scheduler's
-states and `iter_num`. A training-free method (`ClassicalMethod`) has no
-module: nothing to count, optimise or train, and an empty state_dict.
+`exponential_decay(..., staircase=True)`. Every module of the method
+(`TorchMethod.module_names`: the core module, and MutInf's `mi`) has
+its own optimiser, `optim_cfg.get(name, OptimCfg())`, and its own
+StepLR, as the JAX Runner gives every module in `params` one
+(runner.py:160-184). A checkpoint is a `torch.save` of the core
+module's reference-keyed state_dict ("state_dict"), `iter_num`, the
+other modules' weights under their names ("modules") and each module's
+optimizer and scheduler states under its name ("optimizers",
+"schedulers"); a checkpoint written before the port trained more than
+one module (one "optimizer" and one "scheduler") resumes as the core
+module's. A training-free method (`ClassicalMethod`) has no module:
+nothing to count, optimise or train, and an empty state_dict.
 
 `test` (runner.py:467-562) scores each eval batch on the device and
 keeps every metric sliced to the batch's real images: the reference
@@ -102,14 +111,22 @@ def step_generator(seed: int, iter_id: int,
 
 
 def read_checkpoint(path: str, map_location) -> tuple:
-    """(state_dict, iter_num or None, {"optimizer", "scheduler"} or None)
-    of a Runner checkpoint (`Runner.save`: a dict with "state_dict" and
-    "iter_num") or of a bare state_dict, which gives (it, None, None)."""
+    """(core state_dict, iter_num or None, {"modules", "optimizers",
+    "schedulers"} or None) of a Runner checkpoint (`Runner.save`: a dict
+    with "state_dict" and "iter_num") or of a bare state_dict, which
+    gives (it, None, None). Each entry of the third maps a module's name
+    to its weights (the modules other than the core one), its optimizer
+    state or its scheduler state; a checkpoint with one "optimizer" and
+    one "scheduler" gives them as the core module's."""
     payload = torch.load(path, map_location=map_location, weights_only=True)
     if not isinstance(payload.get("state_dict"), dict):
         return payload, None, None
-    restored = ({k: payload[k] for k in ("optimizer", "scheduler")}
-                if "optimizer" in payload else None)
+    restored = {"modules": payload.get("modules", {}),
+                "optimizers": payload.get("optimizers", {}),
+                "schedulers": payload.get("schedulers", {})}
+    if "optimizer" in payload:
+        restored["optimizers"] = {"core_module": payload["optimizer"]}
+        restored["schedulers"] = {"core_module": payload["scheduler"]}
     return payload["state_dict"], int(payload["iter_num"]), restored
 
 
@@ -142,16 +159,38 @@ class Runner:
         self.last_time_per_image = float("nan")
         self.last_iter = 0
         self.loss_log: list[tuple[int, dict]] = []  # (iter, loss means)
-        self.optimizer = self.scheduler = None
+        self.optimizers: dict[str, torch.optim.Optimizer] = {}
+        self.schedulers: dict[str, torch.optim.lr_scheduler.StepLR] = {}
         self._restored = None   # optimizer/scheduler states to resume
 
+    @property
+    def optimizer(self) -> torch.optim.Optimizer | None:
+        """The core module's optimiser (None before `set_optim`)."""
+        return self.optimizers.get("core_module")
+
+    @property
+    def scheduler(self):
+        """The core module's StepLR (None before `set_optim`)."""
+        return self.schedulers.get("core_module")
+
     def init(self, seed: int | None = None) -> "Runner":
-        """Seeded torch-default init of every parameter."""
+        """Seeded torch-default init of every parameter of every module;
+        the sides of the first item of the first dataset given (train,
+        reduced, full) are the method's `sample_hw`, as in the JAX
+        Runner."""
         seed = self.cfg.seed if seed is None else seed
-        self.method.init_params(torch.Generator().manual_seed(seed))
+        sample_hw = None
+        for ds in (self.train_ds, self.test_ds_reduced, self.test_ds_full):
+            if ds is not None and len(ds) > 0:
+                item = ds[0]
+                sample_hw = (item["input_lr"].shape[0],
+                             item["input_pan"].shape[0])
+                break
+        self.method.init_params(torch.Generator().manual_seed(seed),
+                                sample_hw)
         if self.method.trainable:
-            self.logger.info(f"Total params of module core_module: "
-                             f"{self.method.param_count():,}")
+            for name, n in self.method.param_counts().items():
+                self.logger.info(f"Total params of module {name}: {n:,}")
         return self
 
     def load(self, state_dict: dict) -> "Runner":
@@ -175,34 +214,43 @@ class Runner:
     # ------------------------------------------------------------ train
 
     def set_optim(self) -> "Runner":
-        """The core module's optimiser (`optim_cfg["core_module"]`,
-        default Adam lr 1e-4) and its StepLR; states restored by
-        `load_checkpoint` are loaded into them, so init ->
-        load_checkpoint -> set_optim resumes the moments and the
-        schedule. A training-free method has nothing to optimise."""
+        """Each module's optimiser (`optim_cfg[name]`, default Adam lr
+        1e-4) and its StepLR; states restored by `load_checkpoint` are
+        loaded into them, so init -> load_checkpoint -> set_optim
+        resumes the moments and the schedule. A training-free method has
+        nothing to optimise."""
         if not self.method.trainable:
             return self
-        ocfg = self.cfg.optim_cfg.get("core_module", OptimCfg())
-        self.optimizer = make_optimizer(self.method.module.parameters(), ocfg)
-        self.scheduler = torch.optim.lr_scheduler.StepLR(
-            self.optimizer, step_size=self.cfg.sched_cfg.step_size,
-            gamma=self.cfg.sched_cfg.gamma)
+        self.optimizers, self.schedulers = {}, {}
+        for name, module in self.method.modules().items():
+            opt = make_optimizer(module.parameters(),
+                                 self.cfg.optim_cfg.get(name, OptimCfg()))
+            self.optimizers[name] = opt
+            self.schedulers[name] = torch.optim.lr_scheduler.StepLR(
+                opt, step_size=self.cfg.sched_cfg.step_size,
+                gamma=self.cfg.sched_cfg.gamma)
         if self._restored is not None:
-            self.optimizer.load_state_dict(self._restored["optimizer"])
-            self.scheduler.load_state_dict(self._restored["scheduler"])
+            for name, state in self._restored["optimizers"].items():
+                self.optimizers[name].load_state_dict(state)
+            for name, state in self._restored["schedulers"].items():
+                self.schedulers[name].load_state_dict(state)
             self._restored = None
         return self
 
     def train_step(self, batch: dict, iter_id: int) -> dict:
-        """One optimiser step on a device batch (`to_device`); returns the
-        loss parts, detached, on the device."""
+        """One step of every module's optimiser on a device batch
+        (`to_device`) at iteration `iter_id` (0-based); returns the loss
+        parts, detached, on the device."""
         gen = step_generator(self.cfg.seed + 1, iter_id, self.device)
         self.method.train()
-        _, parts = self.method.losses(batch, gen)
-        self.optimizer.zero_grad(set_to_none=True)
+        _, parts = self.method.losses(batch, gen, iter_id)
+        for opt in self.optimizers.values():
+            opt.zero_grad(set_to_none=True)
         parts["full_loss"].backward()
-        self.optimizer.step()
-        self.scheduler.step()
+        for opt in self.optimizers.values():
+            opt.step()
+        for sched in self.schedulers.values():
+            sched.step()
         return {k: v.detach() for k, v in parts.items()}
 
     def train(self) -> "Runner":
@@ -352,16 +400,24 @@ class Runner:
     # ------------------------------------------------------ checkpoints
 
     def save(self, iter_id: int) -> str:
-        """{work_dir}/{datas}/train_out/model_iter_{iter_id}.pt: weights,
-        optimizer and scheduler states and the iteration."""
+        """{work_dir}/{datas}/train_out/model_iter_{iter_id}.pt: the core
+        module's weights ("state_dict"), the other modules' ("modules"),
+        every optimizer and scheduler state by module name and the
+        iteration."""
         out = os.path.join(self.cfg.work_dir, self.cfg.datas, "train_out")
         os.makedirs(out, exist_ok=True)
         path = os.path.abspath(os.path.join(out, f"model_iter_{iter_id}.pt"))
         payload = {"state_dict": self.method.state_dict(),
                    "iter_num": iter_id}
-        if self.optimizer is not None:
-            payload["optimizer"] = self.optimizer.state_dict()
-            payload["scheduler"] = self.scheduler.state_dict()
+        extra = {name: m.state_dict() for name, m in
+                 self.method.modules().items() if name != "core_module"}
+        if extra:
+            payload["modules"] = extra
+        if self.optimizers:
+            payload["optimizers"] = {k: v.state_dict()
+                                     for k, v in self.optimizers.items()}
+            payload["schedulers"] = {k: v.state_dict()
+                                     for k, v in self.schedulers.items()}
         torch.save(payload, path)
         self.logger.info(f"saved checkpoint {path}")
         return path
@@ -369,17 +425,21 @@ class Runner:
     def load_checkpoint(self, path: str) -> "Runner":
         """Weights from a Runner checkpoint (`save`) or a bare state_dict
         (the CLI's form, `convert/from_jax.py`'s output). A Runner
-        checkpoint also restores last_iter and the optimizer and
-        scheduler states, so that train() resumes mid-schedule; a bare
-        state_dict sets neither."""
+        checkpoint also restores the other modules' weights, last_iter
+        and the optimizer and scheduler states, so that train() resumes
+        mid-schedule; a bare state_dict sets the core module's weights
+        alone."""
         state_dict, iter_num, restored = read_checkpoint(path, self.device)
         self.method.load_state_dict(state_dict, strict=True)
         if iter_num is not None:
             self.last_iter = iter_num
         if restored is not None:
-            self._restored = restored
-            if self.optimizer is not None:
-                self.set_optim()
+            for name, sd in restored["modules"].items():
+                self.method.load_module_state_dict(name, sd, strict=True)
+            if restored["optimizers"]:
+                self._restored = restored
+                if self.optimizers:
+                    self.set_optim()
         self.logger.info(f"loaded checkpoint {path} (iter {self.last_iter})")
         return self
 
@@ -387,5 +447,5 @@ class Runner:
         """Weights only: the iteration and optimizer state start anew."""
         self.load_checkpoint(path)
         self.last_iter, self._restored = 0, None
-        self.optimizer = self.scheduler = None
+        self.optimizers, self.schedulers = {}, {}
         return self

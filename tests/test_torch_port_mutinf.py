@@ -4,7 +4,7 @@ The central-difference convolution (taps scattered into the cross and
 diagonal 3x3 patterns), the multi-scale dense block, the invertible block
 over it, the edge feature extractor, the whole GPPNNMutInf (its three
 outputs), the weight converter both ways, the parameter count and the
-refused mutual-information loss. float32 inputs made with numpy from a
+seeded init of both modules with the mutual-information loss. float32 inputs made with numpy from a
 seed (conftest turns on jax_enable_x64); weights a seeded flax tree
 carried across by `mutinf_from_flax`.
 """
@@ -176,26 +176,47 @@ def test_mutinf_roundtrip_is_exact_and_param_count():
 
 
 def test_mutinf_seeded_init_and_mi_loss_refused():
-    """init_params draws a finite model (HP_branch 0, the LU factors of
-    an orthogonal matrix); the shipped config weights MI_rec_loss, whose
-    `mi` module is not ported: `losses` raises, naming it; rec_loss alone
-    trains, also after an inference call made the CDC tap index the
-    step saves."""
+    """(Named for the refusal it tested until the port computed the MI
+    loss.) init_params draws both modules from one generator: a finite
+    core (HP_branch 0, the LU factors of an orthogonal matrix) and the
+    `mi` module sized for the PAN side of `sample_hw` (heads of 4 x 8 x 8
+    at PAN 32: 5,152 parameters; 66,592 at the default 128), each of its
+    layers within torch's default bounds; the shipped config's losses
+    give rec_loss and MI_rec_loss, ramped by the iteration; rec_loss
+    alone trains, also after an inference call made the CDC tap index
+    the step saves."""
     cfg = load_config(os.path.join(REPO, "lgteun_tpu_torch", "configs",
                                    "MutInf.py"))
     port = build_model("MutInf", cfg, device="cpu")
-    port.init_params(torch.Generator().manual_seed(0))
+    assert port.param_counts()["mi"] == 66592
+    port.init_params(torch.Generator().manual_seed(0), (8, 32))
+    assert port.param_counts() == {"core_module": 119212, "mi": 5152}
     assert not port.module.extract_ms.block1.CDC.HP_branch.any()
     w = port.module.interact.operations[0].invconv.weight().detach()
     assert torch.allclose(w @ w.T, torch.eye(8), atol=1e-5)
+    for layer in port.mi.children():
+        bound = layer.weight[0].numel() ** -0.5
+        for t in (layer.weight, layer.bias):
+            assert t.abs().max() <= bound and t.std() > bound / 4
+    again = build_model("MutInf", cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0), (8, 32))
+    assert all(torch.equal(a, b) for a, b in zip(port.mi.parameters(),
+                                                 again.mi.parameters()))
     rng = np.random.default_rng(6)
     batch = {"input_lr": rng.uniform(0, 1, (1, 8, 8, 8)),
              "input_pan": rng.uniform(0, 1, (1, 32, 32, 1)),
              "target": rng.uniform(0, 1, (1, 32, 32, 8))}
     cdc._positions_on.cache_clear()
     assert torch.isfinite(port.apply(batch)).all()
-    with pytest.raises(NotImplementedError, match="MI_rec_loss.*A.7.5"):
-        port.losses(batch)
+    gen = torch.Generator().manual_seed(1)
+    for iter_id in (0, cfg.max_iter // 2, cfg.max_iter):
+        total, parts = port.losses(batch, gen, iter_id)
+        assert set(parts) == {"rec_loss", "MI_rec_loss", "full_loss"}
+        ramp = iter_id / cfg.max_iter
+        assert total.item() == pytest.approx(
+            parts["rec_loss"].item() + 0.1 * ramp
+            * parts["MI_rec_loss"].item(), rel=1e-6)
+        assert iter_id or total.item() == parts["rec_loss"].item()
     rec = _port(8, loss_cfg={"rec_loss": LossCfg("l1", 1.0)})
     rec.load_state_dict(port.state_dict())
     total, parts = rec.losses(batch)

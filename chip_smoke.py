@@ -184,6 +184,28 @@ the same suite on inputs with flat 8x8 and 32x32 windows (card vs CPU vs
 float64), and each classical method's batch-16 images/s and batch-1
 latency.
 
+UnlgFormer's bf16 storage modes (`LGTEUN_EVAL_DTYPE` = bf16res / bf16,
+`ops.storage_dtype`): after the float32 kernel checks, each bf16 entry
+of B1-B6 and B8 at the batch-4 path shapes (B1-B3 at 128^2 / C 32,
+64^2 / C 64, 144^2 and 72^2; the others at 128^2 and 64^2; B1 from
+float32 and bf16 x, B3 in each storage combination, B8 with its
+branches rounded from float32 and bf16 x) against its plain version's
+float32 value p (`bf16 ...` rows: within 2^-8 |p| + KERNEL_REL_TOL
+max|p|, 99 % of the elements equal to bf16(p); B8, which rounds inside,
+99 % within and bit-equal to the level-2 chain in the same storage) with
+its time beside the float32 entry's and its bytes bound; after the
+slices, the whole forward in both modes at levels 2, 1, 3 and v2 (batch
+4, seeded weights: launches, device kernels a forward, the drift's
+envelope, card vs CPU plain against the CPU plain path's own
+one-rounding spread, level 3 and v2 bit-equal to level 2), batch-1
+latency and batch-16 images/s at level 2 in turns with float32 storage,
+and the scene MP/s under bf16res at tile 144 / halo 8; after the
+training phases, the first training step's loss under bf16res (equal to
+float32 storage's) and the PSNR (float64 oracle, 16 held-out scenes) of
+800-iteration port-trained weights in float32 storage at level 2 and in
+each mode at levels 1, 2 and 3 (bf16res within 0.05 dB at levels 2 and
+3; see QUALITY_*).
+
 Any failed phase raises (non-zero exit). With no CUDA device the script
 exits non-zero before printing any result. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it is the card's name and
@@ -361,6 +383,68 @@ MAIN_TRAINED = ("PanFormer.py", "lightnet.py", "MDCUN.py", "INNT.py",
                 "SFIIN.py", "MutInf.py")
 MAIN_TRAIN_ITERS = 40
 DN_RANGE = 2.0 ** 11 - 0.5
+
+# bf16 storage (LGTEUN_EVAL_DTYPE, ops.storage_dtype): each bf16 entry
+# against its plain version's float32 result p before its last rounding:
+# every element within BF16_REL |p| + KERNEL_REL_TOL max|p|, and at least
+# BF16_EQUAL of the elements with |p| >= BF16_FLOOR max|p| equal to
+# bf16(p) bit for bit (a store that truncated would match about half)
+BF16 = torch.bfloat16
+BF16_REL = 2.0 ** -8
+BF16_EQUAL = 0.99
+BF16_FLOOR = 1e-3
+BF16_MODES = ("bf16res", "bf16")
+# the FFT mixer's outputs (B1's x2, B4): a plane whose float64 spectrum
+# has a bin within BF16_CUT x max|Z| of zero, or of the phase's branch
+# cut (negative real axis; the self-conjugate bins, exactly real in both
+# versions, aside), may take the other phase in the kernel's and the
+# plain version's float32 FFTs: the learned phase scale then moves the
+# whole plane past a rounding (ROADMAP C.9; one such plane of 64 read
+# 0.984 equal on an H100, PERF.md §6). Such planes are set aside from the
+# equal share, as the INNT searches' float64 near ties are (C.15), and
+# counted; at most BF16_CUT_SHARE of the planes may be
+BF16_CUT = 1e-6
+BF16_CUT_SHARE = 0.25
+# the bf16 forward of UnlgFormer at batch BF16_BATCH: (label, environment,
+# launches per forward); every other kernel 0, as in float32 storage
+BF16_BATCH = 4
+BF16_LEVELS = (
+    ("level 2", {"LGTEUN_FUSE_LEVEL": "2"},
+     {"ln_mixer_head": 5, "window_attention": 5, "block_tail": 5}),
+    ("level 1", {"LGTEUN_FUSE_LEVEL": "1"},
+     {"window_attention": 5, "global_mixer": 5, "ln_ffn": 5}),
+    ("level 3", {"LGTEUN_FUSE_LEVEL": "3"}, {"lgb_block": 5}),
+    ("v2", {"LGTEUN_FUSE_LEVEL": "2", "LGTEUN_FUSED_ATTENTION": "v2"},
+     {"ln_mixer_head": 5, "window_attention_windows": 5, "block_tail": 5}))
+# the drift of a bf16 mode from float32 storage (CPU plain path), as the
+# JAX package bounds its own (tests/test_lgteun.py): mean <= BF16_DRIFT_MEAN
+# and max <= BF16_DRIFT_MAX, times max|float32 output|
+BF16_DRIFT_MEAN = 5e-3
+BF16_DRIFT_MAX = 5e-2
+# card vs CPU plain in the same mode. Both modes are ill-conditioned at
+# the level of their drift (ROADMAP C.37): the CPU plain path itself
+# moves by 0.5-0.9 of the drift when its input moves by one float32
+# rounding (an H100 run, PERF.md §6), so a quarter of the drift cannot
+# hold between two float32 implementations. The card is held instead to that
+# spread: mean|card - cpu| <= BF16_SPREAD x the CPU's one-rounding
+# spread, and its own drift from its float32 output <= BF16_SPREAD x
+# the CPU's (a kernel that rounded worse than the plain version would
+# drift farther); level 3 and v2 on the card equal level 2 bit for bit
+# (the whole block and the [N, C, S] attention run level 2's device
+# code). The quarter is printed.
+BF16_CARD_CPU = 0.25
+BF16_SPREAD = 1.5
+# quality with trained weights: QUALITY_ITERS iterations of the shipped
+# config on QUALITY_TRAIN synthetic WV-3 pairs, then PSNR (float64
+# oracle) on QUALITY_SCENES held-out scenes; bf16res within
+# QUALITY_BUDGET_DB of float32 storage at levels 2 and 3. Level 1 rounds
+# the global mixer's input, as JAX's level 1 does (ROADMAP C.35), which
+# cost 0.26-0.33 dB on an H100 (PERF.md §6): printed beside the budget,
+# not held to it
+QUALITY_ITERS = 800
+QUALITY_TRAIN = 32
+QUALITY_SCENES = 16
+QUALITY_BUDGET_DB = 0.05
 
 # name -> (module under lgteun_tpu_torch/ops holding the wrapper and its
 # plain version, the model module that calls it, CUDA source, the TPU
@@ -1110,6 +1194,458 @@ class SceneDataset:
         return self.items[i]
 
 
+def bf16_equal_share(got: torch.Tensor, p: torch.Tensor,
+                     keep: torch.Tensor | None = None) -> tuple:
+    """(share of the elements with |p| >= BF16_FLOOR max|p| (and, given
+    `keep`, of the [B, C] planes it keeps) whose bf16 value equals
+    bf16(p) bit for bit, their count)."""
+    big = p.abs() >= BF16_FLOOR * p.abs().max()
+    if keep is not None:
+        big &= keep[..., None, None]
+    same = got.view(torch.int16) == p.to(BF16).view(torch.int16)
+    n = int(big.sum())
+    return (float((same & big).sum()) / max(n, 1), n)
+
+
+def mixer_cut_planes(planes: torch.Tensor) -> torch.Tensor:
+    """[B, C] True where the float64 spectrum of the mixer's input plane
+    has a bin within BF16_CUT max|Z| of zero or of the negative real axis
+    (the self-conjugate bins aside): see BF16_CUT."""
+    z = torch.fft.rfft2(planes.double())
+    h, half = z.shape[-2:]
+    tol = BF16_CUT * z.abs().amax((-2, -1), keepdim=True)
+    near = (z.abs() <= tol) | ((z.real < 0) & (z.imag.abs() <= tol))
+    for r in {0, h // 2} if h % 2 == 0 else {0}:
+        for c in {0, half - 1}:
+            near[..., r, c] = False
+    return near.flatten(-2).any(-1)
+
+
+def bf16_kernel_cases(gen: torch.Generator):
+    """(name, shape, storage label, kernel call, the plain version's
+    float32 result before its last rounding, the tensors for the bytes
+    bound, the float32 case's shape) per bf16 entry at the main path's
+    batch-4 shapes: B1-B3 at 128^2 / C 32, 64^2 / C 64 and the scene
+    tiles' 144^2 / 72^2; B4-B6 and B8 at 128^2 / 64^2."""
+    from lgteun_tpu_torch.ops.ffn_kernel import (block_tail, block_tail_ref,
+                                                 ln_ffn, ln_ffn_ref)
+    from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block, lgb_block_ref
+    from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
+                                                      global_mixer_ref,
+                                                      ln_mixer_head,
+                                                      ln_mixer_head_ref)
+    from lgteun_tpu_torch.ops.window_attention import (
+        window_attention, window_attention_ref, window_attention_windows,
+        window_attention_windows_ref, window_partition)
+    f32 = torch.float32
+
+    def n(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+    b = KERNEL_BATCH
+    for c, hw in BLOCK_SHAPES + ((32, 144), (64, 72)):
+        c2, c4 = c // 2, 4 * c
+        shape = f"{b}x{c}x{hw}x{hw}"
+        x = n(b, c, hw, hw)
+        xb = x.to(BF16)
+        hw_ = (1 + 0.1 * n(c), 0.1 * n(c), n(c2), 0.1 * n(c2), n(c2),
+               0.1 * n(c2))
+        for xs in (x, xb):
+            label = f"{str(xs.dtype)[6:]}>bf16"
+            yield ("ln_mixer_head", shape, label,
+                   lambda xs=xs: ln_mixer_head(*(xs,) + hw_, out_dtype=BF16),
+                   lambda xs=xs: ln_mixer_head_ref(*(xs,) + hw_,
+                                                   out_dtype=f32),
+                   (xs,) + hw_, shape)
+        y1 = n(b, c2, hw, hw).to(BF16)
+        attn = (n(3 * c2, c2, scale=c2 ** -0.5), 0.1 * n(3 * c2),
+                n(2, 64, 64))
+        yield ("window_attention", shape, "bf16",
+               lambda: window_attention(y1, *attn, 2, 8),
+               lambda: window_attention_ref(y1, *attn, 2, 8, out_dtype=f32),
+               (y1,) + attn + (2, 8), shape)
+        ffn = {"ln_w": 1 + 0.1 * n(c), "ln_b": 0.1 * n(c),
+               "w1": n(c4, c, scale=c ** -0.5), "b1": 0.1 * n(c4),
+               "w2": n(c4, c4, scale=c4 ** -0.5), "b2": 0.1 * n(c4),
+               "dw": n(c4, 3, 3, scale=1 / 3), "bdw": 0.1 * n(c4),
+               "w3": n(c, c4, scale=c4 ** -0.5), "b3": 0.1 * n(c)}
+        proj = (n(c, c, scale=c ** -0.5), 0.1 * n(c))
+        x1, x2 = n(b, c2, hw, hw), n(b, c2, hw, hw)
+        for xs, br in ((x, BF16), (xb, BF16), (xb, f32)):
+            t = (xs, x1.to(br), x2.to(br)) + proj + (ffn,)
+            yield ("block_tail", shape,
+                   f"{str(xs.dtype)[6:]},{str(br)[6:]}",
+                   lambda t=t: block_tail(*t),
+                   lambda t=t: block_tail_ref(*t, out_dtype=f32), t, shape)
+        if (c, hw) not in BLOCK_SHAPES:
+            continue
+        gshape = f"{b}x{c2}x{hw}x{hw}"
+        mix = hw_[2:]
+        yield ("global_mixer", gshape, "bf16",
+               lambda: global_mixer(y1, *mix),
+               lambda: global_mixer_ref(y1, *mix, out_dtype=f32),
+               (y1,) + mix, gshape)
+        yield ("ln_ffn", shape, "bf16", lambda: ln_ffn(xb, ffn),
+               lambda: ln_ffn_ref(xb, ffn, out_dtype=f32), (xb, ffn), shape)
+        xt = window_partition(y1, 8)
+        wshape = "x".join(map(str, xt.shape))
+        yield ("window_attention_windows", wshape, "bf16",
+               lambda: window_attention_windows(xt, *attn, 2),
+               lambda: window_attention_windows_ref(xt, *attn, 2,
+                                                    out_dtype=f32),
+               (xt,) + attn + (2,), wshape)
+        blk = dict(zip(("ln_w", "ln_b", "amp_w", "amp_b", "pha_w", "pha_b"),
+                       hw_), wqkv=attn[0], bqkv=attn[1], pos=attn[2],
+                   proj_w=proj[0], proj_b=proj[1], ffn=ffn)
+        for xs in (x, xb):
+            yield ("lgb_block", shape, f"{str(xs.dtype)[6:]},round",
+                   lambda xs=xs: lgb_block(xs, blk, branch_dtype=BF16),
+                   lambda xs=xs: lgb_block_ref(xs, blk, branch_dtype=BF16,
+                                               out_dtype=f32),
+                   (xs, blk), shape)
+
+
+def run_bf16_kernels(gen: torch.Generator, record: dict, card: str) -> None:
+    """Each bf16 entry of B1-B6 and B8 against its plain version on the
+    card (BF16_REL and BF16_EQUAL), its time beside the float32 entry's
+    at the same shape, and its bytes bound (each tensor's own element
+    size); the rows go into `record[name]["bf16"]`. The whole block
+    rounds its branches inside: it is also held to the level-2 chain on
+    the card in the same storage (`level2_chain`, the same device
+    code)."""
+    from lgteun_tpu_torch.ops.norm import channel_layer_norm
+    wrappers = reset_launches()
+    failures = []
+    for name, shape, label, kernel, plain, tensors, f32_shape in \
+            bf16_kernel_cases(gen):
+        got, p = as_tuple(kernel()), as_tuple(plain())
+        worst, shares, within = 0.0, [], []
+        # the mixer's input planes in float64, for its outputs' share
+        cut = None
+        if name in ("ln_mixer_head", "global_mixer"):
+            x = tensors[0].double()
+            if name == "ln_mixer_head":
+                x = channel_layer_norm(x, tensors[1].double(),
+                                       tensors[2].double())[:, x.shape[1]
+                                                            // 2:]
+            cut = mixer_cut_planes(x)
+        for i, (g, w) in enumerate(zip(got, p)):
+            if g.dtype not in (BF16, torch.float32) or g.shape != w.shape:
+                raise AssertionError(f"bf16 {name} {shape} {label}: output "
+                                     f"{g.dtype} {tuple(g.shape)}")
+            scale = w.abs().max().item()
+            over = ((g.float() - w).abs() - BF16_REL * w.abs()
+                    - KERNEL_REL_TOL * scale)
+            worst = max(worst, over.max().item() / max(scale, 1e-30))
+            within.append(float((over <= 0).float().mean()))
+            if g.dtype == BF16:
+                mixed = cut is not None and i == len(got) - 1
+                shares.append(bf16_equal_share(
+                    g, w, ~cut if mixed else None)[0])
+        ok = all(v >= BF16_EQUAL for v in shares)
+        if cut is not None:
+            ok = ok and cut.float().mean().item() <= BF16_CUT_SHARE
+        ok = ok and (min(within) >= BF16_EQUAL if name == "lgb_block"
+                     else worst <= 0)
+        if not ok:
+            failures.append(f"{name} {shape} {label}")
+        if name == "lgb_block":
+            x, blk = tensors
+            chain = level2_chain(x, blk, BF16)
+            d = (got[0].float() - chain.float()).abs().max().item()
+            print(f"kernel {name:17s} {shape:14s} bf16 {label:14s} vs the "
+                  f"level-2 chain in the same storage: max-abs {d:.3e}, "
+                  f"bit-equal {torch.equal(got[0], chain)}")
+        bound_ms, bound_by = bound(name, tensors, got)
+        # CUPTI has dropped events of a short window (a B1 call read 0.0017
+        # ms, below its bound, once on an H100): trace again then
+        for _attempt in range(3):
+            ms = device_profile(kernel, n=20)["busy_ms_per_call"]
+            if ms >= bound_ms:
+                break
+        else:
+            raise AssertionError(f"bf16 {name} {shape} {label}: device "
+                                 f"time {ms:.4f} ms below its bound")
+        plain_ms = time_ms(plain)
+        f32_ms = record.get(name, {}).get("by_shape", {}).get(
+            f32_shape, {}).get("ms", float("nan"))
+        equal = ", ".join(f"{v:.5f}" for v in shares) or "(float32 out)"
+        if cut is not None:
+            equal += (f" (mixer planes set aside: {int(cut.sum())} of "
+                      f"{cut.numel()}, BF16_CUT)")
+        print(f"kernel {name:17s} {shape:14s} bf16 {label:14s} "
+              f"{'ok' if ok else 'FAILED'}: |k - p| beyond {BF16_REL:.3e} "
+              f"|p| + {KERNEL_REL_TOL:g} max|p| at most {worst:.3e} max|p| "
+              f"(within: {', '.join(f'{v:.5f}' for v in within)}); equal "
+              f"to bf16(p) {equal}  kernel {ms:.4f} ms (float32 entry "
+              f"{f32_ms:.4f})  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} "
+              f"ms ({bound_by}; roofline share {bound_ms / ms:.3f})  [{card}]")
+        rec = record.setdefault(name, {}).setdefault("bf16", {})
+        rec[f"{shape} {label}"] = {"ms": ms, "float32_ms": f32_ms,
+                                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                   "bound_by": bound_by,
+                                   "equal_share": shares, "within": within,
+                                   "worst": worst}
+    print("bf16 entries launched: "
+          + ", ".join(f"{k} {fn.launches}" for k, fn in wrappers.items()
+                      if fn.launches))
+    if failures:
+        raise AssertionError(f"bf16 entries off their plain versions: "
+                             f"{failures}")
+
+
+def bf16_methods(cfg, env: dict):
+    """UnlgFormer on the card and on the CPU under `env`, the card's with
+    seeded weights (Runner.init) and the CPU's a copy of them."""
+    from lgteun_tpu_torch.registry import build_model
+    from lgteun_tpu_torch.runner import Runner
+    with mock.patch.dict(os.environ, env):
+        method = build_model(cfg.model_type, cfg, device="cuda")
+        cpu = build_model(cfg.model_type, cfg, device="cpu")
+    runner = Runner(cfg, method, "cuda").init(SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         method.module.state_dict().items()})
+    return runner, cpu
+
+
+def run_bf16_forward(card: str, profile: bool) -> None:
+    """UnlgFormer's eval forward in each bf16 mode at each of BF16_LEVELS
+    (seeded weights, batch BF16_BATCH): launches per forward, device
+    kernels per forward, the mode's drift from float32 storage (the CPU
+    plain path's; BF16_DRIFT_*), card vs the CPU plain path in the same
+    mode against the CPU plain path's own spread when its input moves by
+    one float32 rounding (BF16_SPREAD; the quarter of the drift,
+    BF16_CARD_CPU, printed), and level 3 and v2 bit-equal to level 2 on
+    the card. Then batch-1 latency and batch-16 images/s at level 2 in
+    each mode (float32 storage in the same turns), and the scene
+    engine's MP/s under bf16res at tile 144 / halo 8."""
+    from lgteun_tpu_torch.config import load_config
+    from lgteun_tpu_torch.data.pipeline import eval_batches
+    from lgteun_tpu_torch.parallel.scene import fuse_scene
+
+    cfg = load_config(os.path.join(CONFIGS, "unlg_former.py"))
+    ds = SceneDataset(16, cfg.ms_chans, SEED)
+    first = {k: v[:BF16_BATCH] for k, v in next(eval_batches(
+        ds, BF16_BATCH))[0].items() if k != "image_id"}
+    bumped = {k: (v * (1 + 2.0 ** -23)).astype(np.float32)
+              for k, v in first.items()}
+    base = {"LGTEUN_EVAL_DTYPE": "", "LGTEUN_FUSED_ATTENTION": "1"}
+    runner, cpu = bf16_methods(cfg, dict(base, LGTEUN_FUSE_LEVEL="2"))
+    ref_card = runner.predict(runner.to_device(first)).cpu()
+    ref = cpu.apply(first)
+    scale = ref.abs().max().item()
+    failures = []
+    for mode in BF16_MODES:
+        level2 = None
+        for label, env, per_forward in BF16_LEVELS:
+            tag = f"bf16 {mode} {label}"
+            runner, cpu = bf16_methods(cfg, dict(base, LGTEUN_EVAL_DTYPE=mode,
+                                                 **env))
+            batch = runner.to_device(first)
+            runner.predict(batch)
+            torch.cuda.synchronize()
+            wrappers = reset_launches()
+            got = runner.predict(batch)
+            torch.cuda.synchronize()
+            counted = check_launches(tag, wrappers, per_forward, 1)
+            got = got.cpu()
+            want, moved = cpu.apply(first), cpu.apply(bumped)
+            if got.dtype != torch.float32 or not torch.isfinite(got).all():
+                raise AssertionError(f"{tag}: output {got.dtype} not finite "
+                                     "float32")
+            drift = (want - ref).abs()
+            card_drift = (got - ref_card).abs()
+            gap = (got - want).abs().mean().item()
+            spread = (moved - want).abs().mean().item()
+            kernels = device_profile(lambda: runner.predict(batch),
+                                     n=3)["kernels_per_call"]
+            level2 = got if level2 is None else level2
+            same = torch.equal(got, level2)
+            d_mean = drift.mean().item()
+            print(f"{tag}: launches per forward "
+                  f"{ {k: counted[k] for k in per_forward} }, "
+                  f"{kernels:g} device kernels a forward; drift from float32 "
+                  f"(cpu plain) mean {d_mean:.3e} max "
+                  f"{drift.max().item():.3e} (scale {scale:.3f}; card "
+                  f"mean {card_drift.mean().item():.3e} max "
+                  f"{card_drift.max().item():.3e}); mean|card - cpu plain| "
+                  f"{gap:.3e} = {gap / spread:.3f} of the cpu plain path's "
+                  f"own spread at a one-rounding input change ({spread:.3e}"
+                  f"; bound {BF16_SPREAD}) = {gap / d_mean:.3f} of the drift"
+                  f" (the quarter, {BF16_CARD_CPU}, "
+                  f"{'met' if gap <= BF16_CARD_CPU * d_mean else 'not met'})"
+                  f"; bit-equal to level 2 on the card: {same}  [{card}]")
+            if not (d_mean <= BF16_DRIFT_MEAN * scale
+                    and drift.max().item() <= BF16_DRIFT_MAX * scale):
+                failures.append(f"{tag}: drift outside the envelope")
+            if not (gap <= BF16_SPREAD * spread and card_drift.mean().item()
+                    <= BF16_SPREAD * d_mean):
+                failures.append(f"{tag}: card vs cpu {gap:.3e}, card drift "
+                                f"{card_drift.mean().item():.3e}")
+            if label in ("level 3", "v2") and not same:
+                failures.append(f"{tag}: not level 2's bits")
+            if profile and label == "level 2":
+                print_profile(f"bf16 {mode} level 2 batch-{BF16_BATCH}",
+                              device_profile(lambda: runner.predict(batch)),
+                              card)
+
+    # speed at level 2: float32, bf16res, bf16 storage in turns
+    items = next(eval_batches(ds, cfg.eval_batch_size))[0]
+    runners = {}
+    for mode in ("",) + BF16_MODES:
+        runners[mode] = bf16_methods(cfg, dict(
+            base, LGTEUN_EVAL_DTYPE=mode, LGTEUN_FUSE_LEVEL="2"))[0]
+    b1 = runners[""].to_device({k: v[:1] for k, v in items.items()
+                                if k != "image_id"})
+    b16 = runners[""].to_device(items)
+    lat, ips = collections.defaultdict(list), collections.defaultdict(list)
+    for mode in ("",) + BF16_MODES + BF16_MODES[::-1] + ("",):
+        run = runners[mode]
+        for _ in range(3):
+            run.predict(b1)
+        for _ in range(15):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.predict(b1)
+            torch.cuda.synchronize()
+            lat[mode].append(time.perf_counter() - t0)
+        ips[mode].append(cfg.eval_batch_size / (time_ms(
+            lambda: run.predict(b16), iters=10) / 1e3))
+    for mode in ("",) + BF16_MODES:
+        print(f"bf16 speed {mode or 'float32'} level 2: batch-1 latency "
+              f"median {statistics.median(lat[mode]) * 1e3:.3f} ms; batch-"
+              f"{cfg.eval_batch_size} {statistics.mean(ips[mode]):.1f} "
+              f"images/s (turns {', '.join(f'{v:.1f}' for v in ips[mode])})"
+              f"  [{card}]")
+        if profile:
+            print_profile(f"bf16 {mode or 'float32'} level 2 batch-"
+                          f"{cfg.eval_batch_size}", device_profile(
+                              lambda: runners[mode].predict(b16)), card)
+
+    # the scene engine under bf16res at tile 144 / halo 8
+    sc = 2.0 ** cfg.bit_depth - 0.5
+    lr, pan = synthetic_scene(SCENE, cfg.ms_chans, SEED)
+    lr_d = torch.from_numpy(lr / sc).cuda()
+    pan_d = torch.from_numpy(pan / sc).cuda()
+    for mode in ("", "bf16res"):
+        method = runners[mode].method
+        run = lambda: fuse_scene(method, lr_d, pan_d, tile=144, halo=8,
+                                 batch=SCENE_BATCH)
+        run()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("bf16 scene: output not finite")
+        print(f"bf16 scene {mode or 'float32'} {SCENE}x{SCENE} tile 144 halo "
+              f"8: {SCENE * SCENE / statistics.median(times) / 1e6:.2f} MP/s "
+              f"(median of 3)  [{card}]")
+    if failures:
+        raise AssertionError(f"bf16 forward: {failures}")
+
+
+def run_bf16_quality(card: str) -> None:
+    """Port-trained weights (QUALITY_ITERS iterations of the shipped
+    config, batch 4, on QUALITY_TRAIN synthetic WV-3 pairs), then PSNR
+    with the float64 oracle (metrics/numpy_ref) on QUALITY_SCENES
+    held-out scenes: float32 storage at level 2, bf16res and bf16 at
+    levels 1, 2 and 3; bf16res within QUALITY_BUDGET_DB of float32 at
+    levels 2 and 3 (level 1's and bf16's are printed: see QUALITY_*).
+    Also: the first training step under
+    LGTEUN_EVAL_DTYPE=bf16res has the loss of float32 storage, bit for
+    bit (training ignores the mode)."""
+    from lgteun_tpu_torch.config import load_config
+    from lgteun_tpu_torch.data.dataset import PSDataset
+    from lgteun_tpu_torch.data.pipeline import (data_denormalize,
+                                                eval_batches, train_iterator)
+    from lgteun_tpu_torch.data.synthetic import make_synthetic_dataset
+    from lgteun_tpu_torch.metrics import numpy_ref
+    from lgteun_tpu_torch.runner import Runner
+
+    cfg = load_config(os.path.join(CONFIGS, "unlg_former.py"))
+    root = os.path.join(REPO, "build", "chip_smoke", "quality")
+    dirs = make_synthetic_dataset(root, QUALITY_TRAIN, QUALITY_SCENES,
+                                  bands=cfg.ms_chans, size=128,
+                                  seed=SEED + 7, sensor="WV3")
+    train_ds = PSDataset([dirs["train"]], bit_depth=cfg.bit_depth)
+    test_ds = PSDataset([dirs["test"]], bit_depth=cfg.bit_depth)
+
+    # training ignores the mode: the first step's loss, bit for bit
+    losses = {}
+    batch = next(train_iterator(train_ds, cfg.train_set_cfg.batch_size,
+                                bit_depth=cfg.bit_depth, seed=SEED))
+    for mode in ("", "bf16res"):
+        runner = Runner(cfg, train_method(cfg, {"LGTEUN_EVAL_DTYPE": mode}),
+                        "cuda").init(SEED).set_optim()
+        losses[mode] = runner.train_step(runner.to_device(batch), 0)
+    a, b = losses[""]["full_loss"], losses["bf16res"]["full_loss"]
+    same = torch.equal(a, b)
+    print(f"bf16 train: first step's loss float32 storage {a.item():.9g}, "
+          f"under LGTEUN_EVAL_DTYPE=bf16res {b.item():.9g}; bit-equal "
+          f"{same}")
+    if not same:
+        raise AssertionError("bf16 train: the mode changed a training step")
+
+    cfg.max_iter, cfg.log_freq, cfg.work_dir = QUALITY_ITERS, 200, root
+    cfg.save_freq = cfg.eval_freq = cfg.test_freq = 0
+    runner = Runner(cfg, train_method(cfg), "cuda", train_ds=train_ds).init(
+        SEED).set_optim()
+    t0 = time.perf_counter()
+    runner.train()
+    torch.cuda.synchronize()
+    print(f"bf16 quality: {QUALITY_ITERS} iterations at batch "
+          f"{cfg.train_set_cfg.batch_size} on {len(train_ds)} synthetic WV-3 "
+          f"pairs in {time.perf_counter() - t0:.1f} s; l1 "
+          f"{runner.loss_log[0][1]['rec_loss']:.5f} -> "
+          f"{runner.loss_log[-1][1]['rec_loss']:.5f}  [{card}]")
+    state = {k: v.detach().clone() for k, v in
+             runner.method.module.state_dict().items()}
+    dr = 2.0 ** cfg.bit_depth - 0.5
+
+    def score(env: dict) -> float:
+        method = train_method(cfg, env)
+        method.load_state_dict(state)
+        method.eval()
+        vals = []
+        for b, n_valid in eval_batches(test_ds, cfg.eval_batch_size,
+                                       bit_depth=cfg.bit_depth):
+            pred = method.apply({k: torch.from_numpy(v).cuda() for k, v in
+                                 b.items() if k != "image_id"})
+            pred = data_denormalize(pred, cfg.bit_depth).double().cpu()
+            tgt = data_denormalize(torch.from_numpy(b["target"]),
+                                   cfg.bit_depth).double()
+            vals += [numpy_ref.psnr(pred[i].numpy(), tgt[i].numpy(),
+                                    dynamic_range=dr)
+                     for i in range(n_valid)]
+        return float(np.mean(vals))
+
+    base = score({"LGTEUN_FUSE_LEVEL": "2", "LGTEUN_EVAL_DTYPE": ""})
+    failures = []
+    print(f"bf16 quality: float32 storage level 2 PSNR {base:.5f} dB "
+          f"(float64 oracle, {QUALITY_SCENES} scenes)")
+    for mode in BF16_MODES:
+        for level in ("1", "2", "3"):
+            got = score({"LGTEUN_FUSE_LEVEL": level,
+                         "LGTEUN_EVAL_DTYPE": mode})
+            delta = got - base
+            held = mode == "bf16res" and level != "1"
+            where = "in" if abs(delta) <= QUALITY_BUDGET_DB else "outside"
+            print(f"bf16 quality: {mode} level {level} PSNR {got:.5f} dB, "
+                  f"delta {delta:+.5f} dB"
+                  + (f" (budget {QUALITY_BUDGET_DB})" if held else
+                     f" (printed: {where} the {QUALITY_BUDGET_DB} dB budget, "
+                     "not held to it)")
+                  + f"  [{card}]")
+            if held and not abs(delta) <= QUALITY_BUDGET_DB:
+                failures.append(f"bf16res level {level} {delta:+.5f} dB")
+    if failures:
+        raise AssertionError(f"bf16 quality: {failures}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1122,6 +1658,12 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from lgteun_tpu_torch.ops import _cuda
 
+    # float32 storage everywhere but in the bf16 phases, which set the
+    # mode themselves
+    mode = os.environ.pop("LGTEUN_EVAL_DTYPE", None)
+    if mode is not None:
+        print(f"LGTEUN_EVAL_DTYPE={mode!r} ignored: the bf16 phases run "
+              "each storage mode themselves")
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="%(message)s")
     card = sh("nvidia-smi", "--query-gpu=name,power.limit",
@@ -1228,6 +1770,8 @@ def main() -> int:
                                           tflops=tflops)
 
     check_branches(wrappers)
+    # 2b. the bf16 storage entries against their plain versions
+    run_bf16_kernels(torch.Generator().manual_seed(SEED + 5), record, card)
     check_search_rule()
     check_na_rule()
     check_lightnet_layout(gen)
@@ -1250,6 +1794,8 @@ def main() -> int:
 
     # 4b. a 16-band UnlgFormer (the wide tail at its bottleneck)
     run_sixteen_bands(card)
+    # 4c. UnlgFormer's bf16 storage modes at every level
+    run_bf16_forward(card, opts.profile)
 
     # 5. the scene engine, then the CLI on the same scene
     method = run_scene(card, opts.profile)
@@ -1265,6 +1811,8 @@ def main() -> int:
     # 6b. the rest of the zoo trains: LightNet, MDCUN, INNT (B9-B12 through
     #     their recompute entries), SFIIN and MutInf
     run_zoo_training(train_ds, card, opts.profile)
+    # 6c. bf16 storage with port-trained weights; training ignores it
+    run_bf16_quality(card)
 
     # 7. the evaluation entry point: main.cli --test-only, both splits,
     #    UnlgFormer and the classical methods
@@ -1282,7 +1830,8 @@ def main() -> int:
                         "bound_ms": full["bound_ms"],
                         "bound_by": full["bound_by"], "library_ms": None,
                         "library": f"none: {no_library}",
-                        "by_shape": rec["by_shape"]})
+                        "by_shape": rec["by_shape"],
+                        "bf16_by_shape": rec.get("bf16", {})})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1397,14 +1946,16 @@ def cufft_ms(planes: torch.Tensor) -> float:
                           n=20)["busy_ms_per_call"]
 
 
-def level2_chain(x, blk):
+def level2_chain(x, blk, storage=None):
     """The level-2 chain B1 -> B2 -> B3 on the whole block's inputs (2
-    heads, 8x8 windows): what `lgb_block` computes in three launches."""
+    heads, 8x8 windows): what `lgb_block` computes in three launches;
+    `storage`: the branches' dtype (None: x's)."""
     from lgteun_tpu_torch.ops.ffn_kernel import block_tail
     from lgteun_tpu_torch.ops.spectral_kernel import ln_mixer_head
     from lgteun_tpu_torch.ops.window_attention import window_attention
     y1, x2 = ln_mixer_head(x, *(blk[k] for k in ("ln_w", "ln_b", "amp_w",
-                                                 "amp_b", "pha_w", "pha_b")))
+                                                 "amp_b", "pha_w", "pha_b")),
+                           out_dtype=storage)
     x1 = window_attention(y1, blk["wqkv"], blk["bqkv"], blk["pos"], 2, 8)
     return block_tail(x, x1, x2, blk["proj_w"], blk["proj_b"], blk["ffn"])
 

@@ -66,11 +66,12 @@ __host__ __device__ constexpr int tail_wg(int kNT) { return kNT == 2 ? 2 : 4; }
 
 // The weights come as __restrict__ pointers, not as a TailWeights
 // parameter, which measured 2 % slower on an H100
-// (scripts/torch_kernel_ab.py).
-template <int kNT, bool kProj, bool kMask>
+// (scripts/torch_kernel_ab.py). TX: the storage type of x and out, TB of
+// x1 and x2 (loads.cuh).
+template <int kNT, bool kProj, bool kMask, class TX, class TB>
 __global__ void __launch_bounds__(128 * tail_wg(kNT), kNT == 2 ? 2 : 1)
-block_tail_kernel(const float* __restrict__ x, const float* __restrict__ x1,
-                  const float* __restrict__ x2,
+block_tail_kernel(const TX* __restrict__ x, const TB* __restrict__ x1,
+                  const TB* __restrict__ x2,
                   const float* __restrict__ mask,  // [B][C][H][W] or null
                   const float* __restrict__ wpT,  // TF32 slabs
                   const float* __restrict__ bp,
@@ -83,7 +84,7 @@ block_tail_kernel(const float* __restrict__ x, const float* __restrict__ x1,
                   const float* __restrict__ dw,   // [C4][3][3]
                   const float* __restrict__ bdw,
                   const float* __restrict__ w3T,  // TF32 slabs
-                  const float* __restrict__ b3, float* __restrict__ out,
+                  const float* __restrict__ b3, TX* __restrict__ out,
                   int C, int H, int W, float eps) {
   extern __shared__ __align__(16) float sm[];
   const TailWeights wt{wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T,
@@ -97,11 +98,11 @@ block_tail_kernel(const float* __restrict__ x, const float* __restrict__ x1,
 // The wide tile (CP = 128, four warpgroups, one block an SM): persistent,
 // each block walks the tiles t = blockIdx.x, + gridDim.x, ... with its h1
 // in its own slot of `scratch` (tail_h1_floats(128) floats a block).
-template <bool kProj, bool kMask>
+template <bool kProj, bool kMask, class TX, class TB>
 __global__ void __launch_bounds__(kTcThreads, 1)
-block_tail_wide_kernel(const float* __restrict__ x,
-                       const float* __restrict__ x1,
-                       const float* __restrict__ x2,
+block_tail_wide_kernel(const TX* __restrict__ x,
+                       const TB* __restrict__ x1,
+                       const TB* __restrict__ x2,
                        const float* __restrict__ mask,
                        const float* __restrict__ wpT,
                        const float* __restrict__ bp,
@@ -114,7 +115,7 @@ block_tail_wide_kernel(const float* __restrict__ x,
                        const float* __restrict__ dw,
                        const float* __restrict__ bdw,
                        const float* __restrict__ w3T,
-                       const float* __restrict__ b3, float* __restrict__ out,
+                       const float* __restrict__ b3, TX* __restrict__ out,
                        float* __restrict__ scratch, int B, int C, int H,
                        int W, float eps) {
   extern __shared__ __align__(16) float sm[];
@@ -129,37 +130,37 @@ block_tail_wide_kernel(const float* __restrict__ x,
   }
 }
 
-template <int kNT, bool kProj, bool kMask>
-int launch_tc(const float* x, const float* x1, const float* x2,
-              const float* mask, const TailWeights& wt, float* out, int B,
+template <int kNT, bool kProj, bool kMask, class TX, class TB>
+int launch_tc(const TX* x, const TB* x1, const TB* x2,
+              const float* mask, const TailWeights& wt, TX* out, int B,
               int C, int H, int W, float eps, cudaStream_t stream) {
   const size_t smem = block_tail_tc_smem(16 * kNT);
   const cudaError_t err = cudaFuncSetAttribute(
-      block_tail_kernel<kNT, kProj, kMask>,
+      block_tail_kernel<kNT, kProj, kMask, TX, TB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = B * (H / kTailT) * (W / kTailT);
-  block_tail_kernel<kNT, kProj, kMask>
+  block_tail_kernel<kNT, kProj, kMask, TX, TB>
       <<<blocks, 128 * tail_wg(kNT), smem, stream>>>(
           x, x1, x2, mask, wt.wpT, wt.bp, wt.ln_w, wt.ln_b, wt.w1T, wt.b1,
           wt.w2T, wt.b2, wt.dw, wt.bdw, wt.w3T, wt.b3, out, C, H, W, eps);
   return (int)cudaGetLastError();
 }
 
-template <bool kProj, bool kMask>
-int launch_wide(const float* x, const float* x1, const float* x2,
-                const float* mask, const TailWeights& wt, float* out,
+template <bool kProj, bool kMask, class TX, class TB>
+int launch_wide(const TX* x, const TB* x1, const TB* x2,
+                const float* mask, const TailWeights& wt, TX* out,
                 float* scratch, int slots, int B, int C, int C4, int H,
                 int W, float eps, cudaStream_t stream) {
   if (C4 != 4 * C || C % 4 || tail_tc_width(C) != 128 || slots < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = block_tail_tc_smem(128);
   const cudaError_t err = cudaFuncSetAttribute(
-      block_tail_wide_kernel<kProj, kMask>,
+      block_tail_wide_kernel<kProj, kMask, TX, TB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = B * (H / kTailT) * (W / kTailT);
-  block_tail_wide_kernel<kProj, kMask>
+  block_tail_wide_kernel<kProj, kMask, TX, TB>
       <<<tiles < slots ? tiles : slots, kTcThreads, smem, stream>>>(
           x, x1, x2, mask, wt.wpT, wt.bp, wt.ln_w, wt.ln_b, wt.w1T, wt.b1,
           wt.w2T, wt.b2, wt.dw, wt.bdw, wt.w3T, wt.b3, out, scratch, B, C, H,
@@ -167,9 +168,9 @@ int launch_wide(const float* x, const float* x1, const float* x2,
   return (int)cudaGetLastError();
 }
 
-template <bool kProj, bool kMask>
-int launch_block_tail(const float* x, const float* x1, const float* x2,
-                      const float* mask, const TailWeights& wt, float* out,
+template <bool kProj, bool kMask, class TX, class TB>
+int launch_block_tail(const TX* x, const TB* x1, const TB* x2,
+                      const float* mask, const TailWeights& wt, TX* out,
                       int B, int C, int C4, int H, int W, float eps,
                       cudaStream_t stream) {
   if (C4 != 4 * C || C % 4) return (int)cudaErrorInvalidValue;
@@ -187,6 +188,7 @@ int launch_block_tail(const float* x, const float* x1, const float* x2,
 
 }  // namespace
 
+#ifndef LGTEUN_BF16_UNIT
 // out = block tail of (x, x1, x2) on [B, C, H, W], the proj output times
 // `mask` [B, C, H, W] unless mask is null; C % 4 == 0, C <= 64 (wider:
 // lgteun_block_tail_wide), C4 = 4C,
@@ -242,8 +244,9 @@ extern "C" int lgteun_ln_ffn(const float* x, const float* ln_w,
                              cudaStream_t stream) {
   const TailWeights wt{nullptr, nullptr, ln_w, ln_b, w1T, b1, w2T, b2, dw,
                        bdw, w3T, b3};
-  return launch_block_tail<false, false>(x, nullptr, nullptr, nullptr, wt, out,
-                                         B, C, C4, H, W, eps, stream);
+  return launch_block_tail<false, false>(x, (const float*)nullptr,
+                                         (const float*)nullptr, nullptr, wt,
+                                         out, B, C, C4, H, W, eps, stream);
 }
 
 // The same for 64 < C <= 128 on the wide tile (scratch and slots as for
@@ -259,11 +262,14 @@ extern "C" int lgteun_ln_ffn_wide(const float* x, const float* ln_w,
                                   cudaStream_t stream) {
   const TailWeights wt{nullptr, nullptr, ln_w, ln_b, w1T, b1, w2T, b2, dw,
                        bdw, w3T, b3};
-  return launch_wide<false, false>(x, nullptr, nullptr, nullptr, wt, out,
+  return launch_wide<false, false>(x, (const float*)nullptr,
+                                   (const float*)nullptr, nullptr, wt, out,
                                    scratch, slots, B, C, C4, H, W, eps,
                                    stream);
 }
+#endif  // LGTEUN_BF16_UNIT
 
+#ifndef LGTEUN_BF16_UNIT
 namespace {
 
 __global__ void tail_fragments_kernel(const float* __restrict__ w, int N,
@@ -314,3 +320,117 @@ extern "C" int lgteun_tail_fragments(const float* w, int N, int K, int n_pad,
 // mma.sync fragment slabs; the [in][out] rows of earlier versions had no
 // such entry).
 extern "C" int lgteun_block_tail_layout() { return 3; }
+#else  // LGTEUN_BF16_UNIT: block_tail_bf16.cu
+
+// The bf16 storage entries (LGTEUN_EVAL_DTYPE, loads.cuh): activations
+// upcast as loaded, math in float, out rounded once to nearest even. Each
+// takes the arguments of the float32 entry without _bf16 (no mask: the
+// masked tail is training's, float32 only), then the storage flags.
+
+namespace {
+
+// The proj tail on x (and out) of storage type TX and x1, x2 of TB, on the
+// tile or (kWide) the wide tile.
+template <bool kWide, class TX, class TB>
+int tail_bf16(const void* x, const void* x1, const void* x2,
+              const TailWeights& wt, void* out, float* scratch, int slots,
+              int B, int C, int C4, int H, int W, float eps,
+              cudaStream_t stream) {
+  const TX* xt = static_cast<const TX*>(x);
+  const TB* x1t = static_cast<const TB*>(x1);
+  const TB* x2t = static_cast<const TB*>(x2);
+  TX* outt = static_cast<TX*>(out);
+  if constexpr (kWide)
+    return launch_wide<true, false>(xt, x1t, x2t, nullptr, wt, outt,
+                                    scratch, slots, B, C, C4, H, W, eps,
+                                    stream);
+  else
+    return launch_block_tail<true, false>(xt, x1t, x2t, nullptr, wt, outt,
+                                          B, C, C4, H, W, eps, stream);
+}
+
+// tail_bf16 for the storage flags (0: float, 1: __nv_bfloat16) of x (and
+// out) and of x1/x2; both float is the float32 entry's.
+template <bool kWide>
+int tail_bf16_any(const void* x, const void* x1, const void* x2,
+                  const TailWeights& wt, void* out, float* scratch,
+                  int slots, int B, int C, int C4, int H, int W, int x_bf16,
+                  int br_bf16, float eps, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  if (x_bf16 && br_bf16)
+    return tail_bf16<kWide, bf, bf>(x, x1, x2, wt, out, scratch, slots, B,
+                                    C, C4, H, W, eps, stream);
+  if (x_bf16)
+    return tail_bf16<kWide, bf, float>(x, x1, x2, wt, out, scratch, slots,
+                                       B, C, C4, H, W, eps, stream);
+  if (br_bf16)
+    return tail_bf16<kWide, float, bf>(x, x1, x2, wt, out, scratch, slots,
+                                       B, C, C4, H, W, eps, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// lgteun_block_tail, no mask: x and out bf16 where x_bf16, x1 and x2
+// where br_bf16 (at least one of them; both float: lgteun_block_tail).
+extern "C" int lgteun_block_tail_bf16(
+    const void* x, const void* x1, const void* x2, const float* wpT,
+    const float* bp, const float* ln_w, const float* ln_b, const float* w1T,
+    const float* b1, const float* w2T, const float* b2, const float* dw,
+    const float* bdw, const float* w3T, const float* b3, void* out, int B,
+    int C, int C4, int H, int W, int x_bf16, int br_bf16, float eps,
+    cudaStream_t stream) {
+  const TailWeights wt{wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T,
+                       b3};
+  return tail_bf16_any<false>(x, x1, x2, wt, out, nullptr, 0, B, C, C4, H,
+                              W, x_bf16, br_bf16, eps, stream);
+}
+
+// lgteun_block_tail_wide, no mask, with the storage flags.
+extern "C" int lgteun_block_tail_wide_bf16(
+    const void* x, const void* x1, const void* x2, const float* wpT,
+    const float* bp, const float* ln_w, const float* ln_b, const float* w1T,
+    const float* b1, const float* w2T, const float* b2, const float* dw,
+    const float* bdw, const float* w3T, const float* b3, void* out,
+    float* scratch, int slots, int B, int C, int C4, int H, int W,
+    int x_bf16, int br_bf16, float eps, cudaStream_t stream) {
+  const TailWeights wt{wpT, bp, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T,
+                       b3};
+  return tail_bf16_any<true>(x, x1, x2, wt, out, scratch, slots, B, C, C4,
+                             H, W, x_bf16, br_bf16, eps, stream);
+}
+
+// lgteun_ln_ffn on bf16 x and out.
+extern "C" int lgteun_ln_ffn_bf16(const __nv_bfloat16* x, const float* ln_w,
+                                  const float* ln_b, const float* w1T,
+                                  const float* b1, const float* w2T,
+                                  const float* b2, const float* dw,
+                                  const float* bdw, const float* w3T,
+                                  const float* b3, __nv_bfloat16* out, int B,
+                                  int C, int C4, int H, int W, float eps,
+                                  cudaStream_t stream) {
+  const TailWeights wt{nullptr, nullptr, ln_w, ln_b, w1T, b1, w2T, b2, dw,
+                       bdw, w3T, b3};
+  return launch_block_tail<false, false>(
+      x, (const __nv_bfloat16*)nullptr, (const __nv_bfloat16*)nullptr,
+      nullptr, wt, out, B, C, C4, H, W, eps, stream);
+}
+
+// lgteun_ln_ffn_wide on bf16 x and out.
+extern "C" int lgteun_ln_ffn_wide_bf16(const __nv_bfloat16* x,
+                                       const float* ln_w, const float* ln_b,
+                                       const float* w1T, const float* b1,
+                                       const float* w2T, const float* b2,
+                                       const float* dw, const float* bdw,
+                                       const float* w3T, const float* b3,
+                                       __nv_bfloat16* out, float* scratch,
+                                       int slots, int B, int C, int C4,
+                                       int H, int W, float eps,
+                                       cudaStream_t stream) {
+  const TailWeights wt{nullptr, nullptr, ln_w, ln_b, w1T, b1, w2T, b2, dw,
+                       bdw, w3T, b3};
+  return launch_wide<false, false>(
+      x, (const __nv_bfloat16*)nullptr, (const __nv_bfloat16*)nullptr,
+      nullptr, wt, out, scratch, slots, B, C, C4, H, W, eps, stream);
+}
+#endif  // LGTEUN_BF16_UNIT

@@ -219,9 +219,11 @@ struct TilePair {
   }
 };
 
-// Tile ti of image b (kNT = CP / 16). x/out [B, C, H, W]; x1/x2 [B, C/2,
-// H, W] (kProj); mask [B, C, H, W] (kMask); kCoherent: see loads.cuh (x,
-// the block's input, is read through __ldg in every caller).
+// Tile ti of image b (kNT = CP / 16). x/out [B, C, H, W], both of storage
+// type TX; x1/x2 [B, C/2, H, W] (kProj), of storage type TB (loads.cuh:
+// upcast as loaded, out rounded once as stored); mask [B, C, H, W]
+// (kMask, float); kCoherent: see loads.cuh (x, the block's input, is read
+// through __ldg in every caller).
 // wt's matrices are TF32 slabs (wpT [1][CP/32 slabs], w1T [4][CP/32],
 // w2T [4][4CP/32], w3T [1][4CP/32]); vectors as given ([C], [4C]); dw
 // [4C][3][3]. 128 kWG threads; sm holds block_tail_tc_smem(CP) bytes,
@@ -229,11 +231,11 @@ struct TilePair {
 // this block's alone; unused below CP = 128). Group: the threads that run
 // the tile (TileBlock, or TilePair with kWG = 2).
 template <int kNT, bool kProj, bool kMask, bool kCoherent = false,
-          int kWG = 4, class Group = TileBlock>
+          int kWG = 4, class Group = TileBlock, class TX, class TB>
 __device__ __forceinline__ void block_tail_tile_tc(
-    const float* __restrict__ x, const float* __restrict__ x1,
-    const float* __restrict__ x2, const float* __restrict__ mask,
-    const TailWeights& wt, float* __restrict__ out, float* sm, float* h1g,
+    const TX* __restrict__ x, const TB* __restrict__ x1,
+    const TB* __restrict__ x2, const float* __restrict__ mask,
+    const TailWeights& wt, TX* __restrict__ out, float* sm, float* h1g,
     int C, int H, int W, float eps, int b, int ti) {
   constexpr int CP = 16 * kNT, HP = 4 * CP;
   constexpr int kThreads = 128 * kWG;
@@ -317,7 +319,8 @@ __device__ __forceinline__ void block_tail_tile_tc(
     float xv = 0.f, cv = 0.f, mv = 0.f;
     if (c < C && inside(p)) {
       const size_t off = (size_t)(y0 + p / kTailHT) * W + (x0 + p % kTailHT);
-      xv = __ldg(x + ((size_t)b * C + c) * HW + off);  // never written
+      xv = load_act<false>(x + ((size_t)b * C + c) * HW + off);  // never
+                                                                 // written
       if (kProj)
         cv = load_act<kCoherent>(
             c < C2 ? x1 + ((size_t)b * C2 + c) * HW + off
@@ -451,8 +454,9 @@ __device__ __forceinline__ void block_tail_tile_tc(
   Group::sync();
   for (int i = tid; i < C * kTailNI; i += kThreads) {
     const int c = i / kTailNI, pi = i % kTailNI;
-    out[((size_t)b * C + c) * HW + (size_t)(y0 + 1 + pi / kTailT) * W +
-        (x0 + 1 + pi % kTailT)] = xmi[pi * LDC + c] + __ldg(wt.b3 + c);
+    store_act(out + ((size_t)b * C + c) * HW +
+                  (size_t)(y0 + 1 + pi / kTailT) * W + (x0 + 1 + pi % kTailT),
+              xmi[pi * LDC + c] + __ldg(wt.b3 + c));
   }
 }
 

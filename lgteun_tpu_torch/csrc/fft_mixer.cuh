@@ -60,6 +60,8 @@
 
 #include <utility>
 
+#include "loads.cuh"
+
 namespace {
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
@@ -368,14 +370,23 @@ struct FftGroups {
   }
 };
 
+// T itself, in a context where it is not deduced (a null gin or gout
+// keeps its default pair type).
+template <class T>
+struct FftSame {
+  using type = T;
+};
+
 // One radix-R pass over span L of n-point lines: forward (DIF: DFT, then
 // the twiddles w_L^(jk)) or inverse (DIT: the conjugate twiddles, then the
 // inverse DFT). `tw` holds w_n^i for i < n; gin / gout are the plane's
-// rows as float2 (n a row) for kFftLoad / kFftStore.
-template <int R, bool kInv, int kIo>
+// rows as pairs (n a row; loads.cuh: float2, or bf16 pairs) for kFftLoad
+// / kFftStore.
+template <int R, bool kInv, int kIo, class GI = float2, class GO = float2>
 __device__ __forceinline__ void fft_pass(float2* A, const FftLines ln,
                                          int n, int L, const float2* tw,
-                                         const float2* gin, float2* gout,
+                                         const typename FftSame<GI>::type* gin,
+                                         typename FftSame<GO>::type* gout,
                                          float norm) {
   const int s = L / R, twstep = n / L;
   const int groups = ln.count * (n / R);
@@ -393,7 +404,7 @@ __device__ __forceinline__ void fft_pass(float2* A, const FftLines ln,
     float2 v[R];
 #pragma unroll
     for (int t = 0; t < R; ++t)
-      v[t] = kIo == kFftLoad ? __ldcg(gin + line * n + e0 + s * t)
+      v[t] = kIo == kFftLoad ? load_pair(gin + line * n + e0 + s * t)
                              : base[t * step];
     if (!kInv) {
       dft<R>(v, w);
@@ -413,8 +424,8 @@ __device__ __forceinline__ void fft_pass(float2* A, const FftLines ln,
 #pragma unroll
     for (int t = 0; t < R; ++t) {
       if (kIo == kFftStore)
-        gout[line * n + e0 + s * t] =
-            make_float2(fabsf(v[t].x * norm), fabsf(v[t].y * norm));
+        store_pair(gout + line * n + e0 + s * t,
+                   make_float2(fabsf(v[t].x * norm), fabsf(v[t].y * norm)));
       else
         base[t * step] = v[t];
     }
@@ -480,16 +491,17 @@ __device__ __noinline__ void fft_pass_generic(float2* A, const FftLines ln,
 // fft_pass for the radix r of a plan (kFftLoad / kFftStore only for the
 // register radices: the mixer reads and writes global memory in separate
 // sweeps otherwise).
-template <bool kInv, int kIo>
+template <bool kInv, int kIo, class GI = float2, class GO = float2>
 __device__ __forceinline__ void fft_pass_any(int r, float2* A,
                                              const FftLines& ln, int n,
                                              int L, const float2* tw,
-                                             const float2* gin, float2* gout,
+                                             const typename FftSame<GI>::type* gin,
+                                             typename FftSame<GO>::type* gout,
                                              float norm) {
   switch (r) {
 #define LGTEUN_RADIX(R)                                              \
   case R:                                                            \
-    fft_pass<R, kInv, kIo>(A, ln, n, L, tw, gin, gout, norm);        \
+    fft_pass<R, kInv, kIo, GI, GO>(A, ln, n, L, tw, gin, gout, norm); \
     break;
     LGTEUN_RADIX(2) LGTEUN_RADIX(4) LGTEUN_RADIX(8) LGTEUN_RADIX(16)
     LGTEUN_RADIX(3) LGTEUN_RADIX(5) LGTEUN_RADIX(7) LGTEUN_RADIX(9)
@@ -554,14 +566,15 @@ struct FftPlane {
   }
 
   // W forward and split of rows [r0, r0 + nr); in2: the plane's rows as
-  // N complex values each
-  __device__ __forceinline__ void rows_forward(const float2* in2, int r0,
+  // N complex values each (pairs of the storage type, loads.cuh)
+  template <class GI>
+  __device__ __forceinline__ void rows_forward(const GI* in2, int r0,
                                                int nr) const {
     const int N = get(plan().row.n), ld = get(plan().ld);
     const bool fused = this->fused();
     const float2* tw_row = twiddles(plan().tw_row);
     float2* Ar = A + r0 * ld;
-    const float2* inr = in2 + r0 * N;
+    const GI* inr = in2 + r0 * N;
     FftLines rows{nr, ld, 1, false};
 
     // W forward: the N-point FFT of each row read as complex, its first
@@ -569,15 +582,15 @@ struct FftPlane {
     // neighbouring elements)
     if (!fused) {
       for (int i = threadIdx.x; i < nr * N; i += blockDim.x)
-        Ar[i / N * ld + i % N] = __ldcg(inr + i);
+        Ar[i / N * ld + i % N] = load_pair(inr + i);
       __syncthreads();
     }
     for (int i = 0, L = N, passes = get(plan().row.npass); i < passes; ++i) {
       const int r = get(plan().row.radix[i]);
       rows.line_fast = i > 0 && L / r < 16;
       if (i == 0 && fused)
-        fft_pass_any<false, kFftLoad>(r, Ar, rows, N, L, tw_row, inr,
-                                      nullptr, 0.f);
+        fft_pass_any<false, kFftLoad, GI>(r, Ar, rows, N, L, tw_row, inr,
+                                          nullptr, 0.f);
       else
         fft_pass_any<false, kFftShared>(r, Ar, rows, N, L, tw_row, nullptr,
                                         nullptr, 0.f);
@@ -653,11 +666,13 @@ struct FftPlane {
   }
 
   // c2r, W inverse and |.| / (H W) into out2 for rows [r0, r0 + nr)
-  __device__ __forceinline__ void rows_inverse(float2* out2, int r0,
+  // (pairs of the storage type, rounded once as stored)
+  template <class GO>
+  __device__ __forceinline__ void rows_inverse(GO* out2, int r0,
                                                int nr) const {
     const int N = get(plan().row.n), ld = get(plan().ld);
     float2* Ar = A + r0 * ld;
-    float2* outr = out2 + r0 * N;
+    GO* outr = out2 + r0 * N;
     FftLines rows{nr, ld, 1, false};
     const float2* tw_half = twiddles(plan().tw_half);
     const int* pos = reinterpret_cast<const int*>(twiddles(plan().pos_row));
@@ -694,8 +709,8 @@ struct FftPlane {
       L *= r;
       rows.line_fast = i > 0 && L / r < 16;
       if (i == 0 && fused) {
-        fft_pass_any<true, kFftStore>(r, Ar, rows, N, L, tw_row, nullptr,
-                                      outr, norm);
+        fft_pass_any<true, kFftStore, float2, GO>(r, Ar, rows, N, L, tw_row,
+                                                  nullptr, outr, norm);
       } else {
         fft_pass_any<true, kFftShared>(r, Ar, rows, N, L, tw_row, nullptr,
                                        nullptr, 0.f);
@@ -705,29 +720,33 @@ struct FftPlane {
     if (!fused)
       for (int i = threadIdx.x; i < nr * N; i += blockDim.x) {
         const float2 z = Ar[i / N * ld + i % N];
-        outr[i] = make_float2(fabsf(z.x * norm), fabsf(z.y * norm));
+        store_pair(outr + i, make_float2(fabsf(z.x * norm), fabsf(z.y * norm)));
       }
   }
 };
 
-// out = global mixer of the plane `in` (both [H, W] floats, 8-byte
-// aligned; they may alias, and `in` may have been written earlier in the
-// same launch: it is read through L2), with the channel's affine (aw, ab)
-// on the amplitude and (pw, pb) on the phase. `sm` holds fft_mixer_smem(H,
-// W) bytes; `tab` the tables of fft_tables_kernel for (H, W).
-__device__ __forceinline__ void fft_mixer_plane(const float* in, float* out,
+// out = global mixer of the plane `in` (both [H, W] of their storage
+// types, loads.cuh, aligned to a pair; they may alias, and `in` may have
+// been written earlier in the same launch: it is read through L2), with
+// the channel's affine (aw, ab) on the amplitude and (pw, pb) on the
+// phase. `sm` holds fft_mixer_smem(H, W) bytes; `tab` the tables of
+// fft_tables_kernel for (H, W).
+template <class TI, class TO>
+__device__ __forceinline__ void fft_mixer_plane(const TI* in, TO* out,
                                                 float2* sm, const float* tab,
                                                 float aw, float ab, float pw,
                                                 float pb) {
+  using PI = typename PairOf<TI>::type;
+  using PO = typename PairOf<TO>::type;
   const FftPlane plane(tab, sm);
   plane.load_plan();
   __syncthreads();
   const int H = plane.get(plane.plan().col.n);
-  plane.rows_forward(reinterpret_cast<const float2*>(in), 0, H);
+  plane.rows_forward(reinterpret_cast<const PI*>(in), 0, H);
   __syncthreads();
   plane.columns(0, plane.get(plane.plan().row.n) + 1, aw, ab, pw, pb);
   __syncthreads();
-  plane.rows_inverse(reinterpret_cast<float2*>(out), 0, H);
+  plane.rows_inverse(reinterpret_cast<PO*>(out), 0, H);
 }
 
 // The same on a cluster of two blocks, each with its own copy of the
@@ -735,9 +754,12 @@ __device__ __forceinline__ void fft_mixer_plane(const float* in, float* out,
 // H/2) and half of the columns, and after each part hands the other block
 // the values it will read (its columns of my rows, then its rows of my
 // columns) through distributed shared memory.
+template <class TI, class TO>
 __device__ __forceinline__ void fft_mixer_plane_pair(
-    const float* in, float* out, float2* sm, const float* tab, float aw,
+    const TI* in, TO* out, float2* sm, const float* tab, float aw,
     float ab, float pw, float pb) {
+  using PI = typename PairOf<TI>::type;
+  using PO = typename PairOf<TO>::type;
   cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -751,7 +773,7 @@ __device__ __forceinline__ void fft_mixer_plane_pair(
   const int nc = rank ? N + 1 - half : half;
   float2* A = plane.A;
   float2* peer = cluster.map_shared_rank(A, rank ^ 1);
-  plane.rows_forward(reinterpret_cast<const float2*>(in), rank * hr, hr);
+  plane.rows_forward(reinterpret_cast<const PI*>(in), rank * hr, hr);
   __syncthreads();
   // my rows of the other block's columns
   const int pc0 = rank ? 0 : half, pnc = N + 1 - nc;
@@ -770,20 +792,22 @@ __device__ __forceinline__ void fft_mixer_plane_pair(
     peer[i] = A[i];
   }
   cluster.sync();
-  plane.rows_inverse(reinterpret_cast<float2*>(out), rank * hr, hr);
+  plane.rows_inverse(reinterpret_cast<PO*>(out), rank * hr, hr);
 }
 
 // y1 = LN(x)[:C/2], y2 = LN(x)[C/2:] at the kP pixels p + k stride of
 // image b (k < kP; those at or past `end` computed on a pixel inside and
-// not stored; [B, C, H*W] in, [B, C/2, H*W] out). Each pixel's arithmetic
+// not stored; [B, C, H*W] in, [B, C/2, H*W] out). x and y1 in their
+// storage types (loads.cuh), y2 float: the mixer takes the LN's float
+// value, whatever y1 is stored as. Each pixel's arithmetic
 // is the same for any kP; the kP loads of a channel are independent, so
 // their latencies overlap (kP = 4 in lgb_block.cu's LN items, on one
 // 512-thread block an SM).
-template <int kP>
+template <int kP, class TX, class TY>
 __device__ __forceinline__ void ln_split_pixels(
-    const float* x, const float* ln_w, const float* ln_b, float* y1,
+    const TX* x, const float* ln_w, const float* ln_b, TY* y1,
     float* y2, int C, int HW, int b, int p, int stride, int end, float eps) {
-  const float* xb = x + (size_t)b * C * HW;
+  const TX* xb = x + (size_t)b * C * HW;
   int q[kP];
   float mu[kP], var[kP], r[kP];
 #pragma unroll
@@ -794,7 +818,7 @@ __device__ __forceinline__ void ln_split_pixels(
   for (int c = 0; c < C; ++c) {
     float v[kP];
 #pragma unroll
-    for (int k = 0; k < kP; ++k) v[k] = xb[(size_t)c * HW + q[k]];
+    for (int k = 0; k < kP; ++k) v[k] = load_plain(xb + (size_t)c * HW + q[k]);
 #pragma unroll
     for (int k = 0; k < kP; ++k) mu[k] += v[k];
   }
@@ -803,7 +827,7 @@ __device__ __forceinline__ void ln_split_pixels(
   for (int c = 0; c < C; ++c) {
     float v[kP];
 #pragma unroll
-    for (int k = 0; k < kP; ++k) v[k] = xb[(size_t)c * HW + q[k]];
+    for (int k = 0; k < kP; ++k) v[k] = load_plain(xb + (size_t)c * HW + q[k]);
 #pragma unroll
     for (int k = 0; k < kP; ++k) {
       const float d = v[k] - mu[k];
@@ -816,13 +840,19 @@ __device__ __forceinline__ void ln_split_pixels(
   for (int c = 0; c < C; ++c) {
     float v[kP];
 #pragma unroll
-    for (int k = 0; k < kP; ++k) v[k] = xb[(size_t)c * HW + q[k]];
-    float* o = c < C2 ? y1 + ((size_t)b * C2 + c) * HW
-                      : y2 + ((size_t)b * C2 + (c - C2)) * HW;
+    for (int k = 0; k < kP; ++k) v[k] = load_plain(xb + (size_t)c * HW + q[k]);
+    TY* o1 = y1 + ((size_t)b * C2 + c) * HW;
+    float* o2 = y2 + ((size_t)b * C2 + (c - C2)) * HW;
     const float w = ln_w[c], bias = ln_b[c];
 #pragma unroll
     for (int k = 0; k < kP; ++k)
-      if (p + k * stride < end) o[q[k]] = (v[k] - mu[k]) * r[k] * w + bias;
+      if (p + k * stride < end) {
+        const float y = (v[k] - mu[k]) * r[k] * w + bias;
+        if (c < C2)
+          store_act(o1 + q[k], y);
+        else
+          o2[q[k]] = y;
+      }
   }
 }
 

@@ -88,6 +88,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "block_tail.cuh"
 #include "fft_mixer.cuh"
 #include "window_attention.cuh"
@@ -98,7 +100,9 @@
 // stamped) is defined, as scripts/torch_kernel_ab.py --b8-phases does.
 // Kinds: 0 LN, 1 planes, 2 windows, 3 tails, 4 waits, 5 taking an item;
 // then the count of each.
-#ifdef LGTEUN_LGB_STAMPS
+// (The bf16 unit, lgb_block_bf16.cu, is never stamped: its own copy of the
+// array and of the reader would clash with this unit's at link time.)
+#if defined(LGTEUN_LGB_STAMPS) && !defined(LGTEUN_BF16_UNIT)
 __device__ long long lgteun_lgb_stamps[LGTEUN_LGB_STAMPS][12];
 extern "C" int lgteun_read_lgb_stamps(long long* h) {
   return (int)cudaMemcpyFromSymbol(h, lgteun_lgb_stamps,
@@ -167,8 +171,11 @@ struct LgbSchedule {
   int ln, planes, windows, tails, ln_px, pairs, per_item;
 };
 
+// TX: the storage type of x and out (loads.cuh); the scratch is float.
+template <class TX>
 struct LgbBlockArgs {
-  const float *x, *ln_w, *ln_b, *amp_w, *amp_b, *pha_w, *pha_b;
+  const TX* x;
+  const float *ln_w, *ln_b, *amp_w, *amp_b, *pha_w, *pha_b;
   const float* fft_tab;  // the mixer's tables (lgteun_fft_tables)
   const float *wqkv, *bqkv, *pos;
   TailWeights tail;
@@ -178,7 +185,7 @@ struct LgbBlockArgs {
                         // [B] each (counter())
   int attn;             // the tensor-core attention's shape, -1: FP32 core
   int attn_w;           // floats of its weight fragments
-  float* out;
+  TX* out;
   int B, C, H, W, heads, win;
   float scale, eps;
   int tile_floats;      // floats of one tail tile's shared memory
@@ -215,7 +222,8 @@ __device__ __forceinline__ int load_acquire(const int* p) {
 // 1 + b image b's LN items done, 1 + B + b its planes, 1 + 2B + b its
 // window items.
 constexpr int kCounterPad = 32;
-__device__ __forceinline__ int* counter(const LgbBlockArgs& a, int k) {
+template <class TX>
+__device__ __forceinline__ int* counter(const LgbBlockArgs<TX>& a, int k) {
   return a.counters + k * kCounterPad;
 }
 
@@ -263,12 +271,21 @@ __device__ __forceinline__ void idle_barrier(bool arrive) {
 
 // The mixer of one plane in place, as a call of its own: inlined, its
 // passes shared one register allocation with the window attention and the
-// tail, and ptxas spilled more of both.
+// tail, and ptxas spilled more of both. TO: float, or Bf16InF32 where the
+// branches are rounded (the plane read as float, written rounded).
+template <class TO>
 __device__ __noinline__ void mixer_plane(float* plane, float2* sm,
                                          const float* tab, float aw,
                                          float ab, float pw, float pb) {
-  fft_mixer_plane(plane, plane, sm, tab, aw, ab, pw, pb);
+  fft_mixer_plane(static_cast<const float*>(plane),
+                  reinterpret_cast<TO*>(plane), sm, tab, aw, ab, pw, pb);
 }
+
+// The storage of the branch tensors y1, x2, x1 in the scratch: float, or,
+// with kRound, float slots holding bf16-rounded values, so that level 3
+// rounds where level 2 stores bf16 (loads.cuh).
+template <bool kRound>
+using Branch = std::conditional_t<kRound, Bf16InF32, float>;
 
 // The next item of the list, for every thread of the block. Before the
 // tail, thread 0 keeps the item after it reserved (`pre`; -1: none), so
@@ -291,7 +308,8 @@ __device__ __forceinline__ int take(int* slot, int* head, int& pre,
 // The window items from `it` on (every block's items come in list order)
 // on the FP32-core body, one window an item on the whole block: returns
 // the first item after them.
-__device__ __forceinline__ int window_items_fp32(const LgbBlockArgs& a,
+template <class TX, bool kRound>
+__device__ __forceinline__ int window_items_fp32(const LgbBlockArgs<TX>& a,
                                                  float* sm, int* slot,
                                                  int& pre, int it, int e_pl,
                                                  int e_win, Stamps& st) {
@@ -301,9 +319,10 @@ __device__ __forceinline__ int window_items_fp32(const LgbBlockArgs& a,
     wait_for(counter(a, 1 + b), a.s.ln);
     st.at(4);
     if (kRunWindows)
-      window_attention_window<true>(a.y1, a.wqkv, a.bqkv, a.pos, a.x1, sm,
-                                    a.C / 2, a.H, a.W, a.heads, a.win,
-                                    a.scale, b, j);
+      window_attention_window<true>(
+          static_cast<const float*>(a.y1), a.wqkv, a.bqkv, a.pos,
+          reinterpret_cast<Branch<kRound>*>(a.x1), sm, a.C / 2, a.H, a.W,
+          a.heads, a.win, a.scale, b, j);
     st.at(2);
     release(counter(a, 1 + 2 * a.B + b));
   }
@@ -311,8 +330,9 @@ __device__ __forceinline__ int window_items_fp32(const LgbBlockArgs& a,
 }
 
 // The same on B2's tensor-core body (HDP, CP: its padded widths).
-template <int HDP, int CP>
-__device__ __forceinline__ int window_items(const LgbBlockArgs& a, float* sm,
+template <int HDP, int CP, class TX, bool kRound>
+__device__ __forceinline__ int window_items(const LgbBlockArgs<TX>& a,
+                                            float* sm,
                                             int* slot, int& pre, int it,
                                             int e_pl, int e_win, Stamps& st) {
   if (it >= e_win) return it;
@@ -342,7 +362,9 @@ __device__ __forceinline__ int window_items(const LgbBlockArgs& a, float* sm,
            p += kAttnWG) {
         if (!fixed) attention_pos(pos, a.pos, p % a.heads);
         window_attention_head_tc<HDP, CP, true>(
-            a.y1, sm, a.bqkv, a.x1, kv, pos, C2, C2 / a.heads, p % a.heads,
+            static_cast<const float*>(a.y1), sm, a.bqkv,
+            reinterpret_cast<Branch<kRound>*>(a.x1), kv, pos, C2,
+            C2 / a.heads, p % a.heads,
             a.scale, ImageWindow::of(b * nwin + p / a.heads, C2, a.H, a.W, 8),
             wg);
       }
@@ -369,10 +391,10 @@ __device__ __forceinline__ int window_items(const LgbBlockArgs& a, float* sm,
 // A tile as a call of its own: inlined, it shared one register
 // allocation with the values that live through the tail loop, and ptxas
 // spilled inside it (1.04-1.10x slower at 128^2/C32 and 64^2/C64).
-template <int kNT, int kWG, class Group>
-__device__ __noinline__ void tail_tile(const float* x, const float* x1,
+template <int kNT, int kWG, class Group, class TX>
+__device__ __noinline__ void tail_tile(const TX* x, const float* x1,
                                        const float* x2, TailWeights wt,
-                                       float* out, float* sm, float* h1,
+                                       TX* out, float* sm, float* h1,
                                        int C, int H, int W, float eps, int b,
                                        int t) {
   if (kRunTails)
@@ -398,8 +420,9 @@ __device__ __forceinline__ int take_pair(int* slot, int* head) {
 // takes the next. Else the block runs tile after tile on its four
 // warpgroups (the wide tile, kNT = 8, with its h1 in this block's slot of
 // the scratch).
-template <int kNT>
-__device__ __forceinline__ void tail_items(const LgbBlockArgs& a, float* sm,
+template <int kNT, class TX>
+__device__ __forceinline__ void tail_items(const LgbBlockArgs<TX>& a,
+                                           float* sm,
                                            int* slot, int it, int e_win,
                                            int items, Stamps& st) {
   if constexpr (kNT == 2) {
@@ -416,8 +439,10 @@ __device__ __forceinline__ void tail_items(const LgbBlockArgs& a, float* sm,
       }
       TilePair::sync();
       st.at(4);
-      tail_tile<2, 2, TilePair>(a.x, a.x1, a.x2, a.tail, a.out, psm, nullptr,
-                                a.C, a.H, a.W, a.eps, b, t);
+      tail_tile<2, 2, TilePair>(a.x, static_cast<const float*>(a.x1),
+                                static_cast<const float*>(a.x2), a.tail,
+                                a.out, psm, nullptr, a.C, a.H, a.W, a.eps, b,
+                                t);
       st.at(3);
     }
   } else {
@@ -429,7 +454,8 @@ __device__ __forceinline__ void tail_items(const LgbBlockArgs& a, float* sm,
                counter(a, 1 + 2 * a.B + b), a.s.windows);
       st.at(4);
       tail_tile<kNT, 4, TileBlock>(
-          a.x, a.x1, a.x2, a.tail, a.out, sm,
+          a.x, static_cast<const float*>(a.x1),
+          static_cast<const float*>(a.x2), a.tail, a.out, sm,
           kNT == 8 ? a.h1 + blockIdx.x * tail_h1_floats(128) : nullptr, a.C,
           a.H, a.W, a.eps, b, t);
       st.at(3);
@@ -439,9 +465,13 @@ __device__ __forceinline__ void tail_items(const LgbBlockArgs& a, float* sm,
 
 // A block's items come in list order, so it walks the kinds in turn, one
 // loop each, and the window and tail loops are picked by shape once: what
-// the compiler keeps for one loop is not held through the others'.
+// the compiler keeps for one loop is not held through the others'. TX: the
+// storage type of x and out; kRound: y1, x2 and x1 rounded to bf16 as
+// stored (Branch).
+template <class TX, bool kRound>
 __global__ void __launch_bounds__(kThreads, 1)
-lgb_block_kernel(LgbBlockArgs a) {
+lgb_block_kernel(LgbBlockArgs<TX> a) {
+  Branch<kRound>* y1 = reinterpret_cast<Branch<kRound>*>(a.y1);
   extern __shared__ __align__(16) float sm[];
   int* slot = reinterpret_cast<int*>(sm + a.smem_item);
   Stamps st;
@@ -457,10 +487,10 @@ lgb_block_kernel(LgbBlockArgs a) {
     const int p1 = min(HW, p0 + a.s.ln_px);
     for (int p = p0 + threadIdx.x; p < p1 && kRunPlanes; p += kLnPx * kThreads)
       if (a.s.ln_px <= kThreads)  // one pixel a thread
-        ln_split_pixels<1>(a.x, a.ln_w, a.ln_b, a.y1, a.x2, a.C, HW, b, p,
+        ln_split_pixels<1>(a.x, a.ln_w, a.ln_b, y1, a.x2, a.C, HW, b, p,
                            kThreads, p1, a.eps);
       else
-        ln_split_pixels<kLnPx>(a.x, a.ln_w, a.ln_b, a.y1, a.x2, a.C, HW, b,
+        ln_split_pixels<kLnPx>(a.x, a.ln_w, a.ln_b, y1, a.x2, a.C, HW, b,
                                p, kThreads, p1, a.eps);
     st.at(0);
     release(counter(a, 1 + b));
@@ -472,7 +502,8 @@ lgb_block_kernel(LgbBlockArgs a) {
     wait_for(counter(a, 1 + b), a.s.ln);
     st.at(4);
     if (kRunPlanes)
-      mixer_plane(a.x2 + (size_t)i * HW, reinterpret_cast<float2*>(sm),
+      mixer_plane<Branch<kRound>>(a.x2 + (size_t)i * HW,
+                                  reinterpret_cast<float2*>(sm),
                   a.fft_tab, a.amp_w[c], a.amp_b[c], a.pha_w[c], a.pha_b[c]);
     st.at(1);
     release(counter(a, 1 + a.B + b));
@@ -480,7 +511,7 @@ lgb_block_kernel(LgbBlockArgs a) {
   switch (a.attn) {
 #define LGTEUN_SHAPE(i)                                                      \
   case i:                                                                    \
-    it = window_items<kAttnShapes[i][0], kAttnShapes[i][1]>(       \
+    it = window_items<kAttnShapes[i][0], kAttnShapes[i][1], TX, kRound>( \
         a, sm, slot, pre, it, e_pl, e_win, st);                          \
     break;
     LGTEUN_SHAPE(0) LGTEUN_SHAPE(1) LGTEUN_SHAPE(2) LGTEUN_SHAPE(3)
@@ -488,7 +519,8 @@ lgb_block_kernel(LgbBlockArgs a) {
     LGTEUN_SHAPE(8)
 #undef LGTEUN_SHAPE
     default:
-      it = window_items_fp32(a, sm, slot, pre, it, e_pl, e_win, st);
+      it = window_items_fp32<TX, kRound>(a, sm, slot, pre, it, e_pl, e_win,
+                                         st);
   }
   if (a.C <= 32)
     tail_items<2>(a, sm, slot, it, e_win, items, st);
@@ -501,10 +533,13 @@ lgb_block_kernel(LgbBlockArgs a) {
 
 }  // namespace
 
-// out = one LGB block of x, both [B, C, H, W]. C % 4 == 0, C <= 128, C4 =
-// 4C, H and W divisible by win and 8, win*win <= 64, C/2 divisible by
-// heads, the mixer plane within shared memory (checked by the Python
-// wrapper). Weights: wqkv as lgteun_attention_fragments lays it out where
+namespace {
+
+// out = one LGB block of x, both [B, C, H, W] of storage type TX (with
+// kRound, y1, x2 and x1 rounded to bf16 where level 2 stores them). C % 4
+// == 0, C <= 128, C4 = 4C, H and W divisible by win and 8, win*win <= 64,
+// C/2 divisible by heads, the mixer plane within shared memory (checked by
+// the Python wrapper). Weights: wqkv as lgteun_attention_fragments lays it out where
 // attention_tc_takes(C/2, heads, win) and 4 % heads == 0, else [3C/2][C/2]
 // (out, in); pos [heads][S][S]; the tail's as in lgteun_block_tail (TF32
 // slabs of width tail_tc_width(C)); fft_tables: lgteun_fft_tables of (H,
@@ -513,17 +548,18 @@ lgb_block_kernel(LgbBlockArgs a) {
 // the launch; sched: the work list's 7 numbers in host memory (LgbSchedule,
 // lgb_schedule), checked here; blocks: the grid (0: every block that
 // fits, one an SM; fewer only to exercise the work list).
-extern "C" int lgteun_lgb_block(
-    const float* x, const float* ln_w, const float* ln_b, const float* amp_w,
+template <class TX, bool kRound>
+int launch_lgb_block(
+    const TX* x, const float* ln_w, const float* ln_b, const float* amp_w,
     const float* amp_b, const float* pha_w, const float* pha_b,
     const float* fft_tables, const float* wqkv, const float* bqkv,
     const float* pos, const float* wpT, const float* bp, const float* fln_w,
     const float* fln_b, const float* w1T, const float* b1, const float* w2T,
     const float* b2, const float* dw, const float* bdw, const float* w3T,
-    const float* b3, float* scratch, int* counters, float* out, int B, int C,
+    const float* b3, float* scratch, int* counters, TX* out, int B, int C,
     int C4, int H, int W, int heads, int win, const int* sched, int blocks,
     float scale, float eps, cudaStream_t stream) {
-  LgbBlockArgs a;
+  LgbBlockArgs<TX> a;
   a.x = x;
   a.ln_w = ln_w;
   a.ln_b = ln_b;
@@ -592,7 +628,8 @@ extern "C" int lgteun_lgb_block(
   smem = sizeof(float) * (size_t)a.smem_item + 16;
 
   cudaError_t err = cudaFuncSetAttribute(
-      lgb_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lgb_block_kernel<TX, kRound>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
@@ -605,26 +642,83 @@ extern "C" int lgteun_lgb_block(
                                     dev)) != cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, lgb_block_kernel, kThreads, smem)) != cudaSuccess)
+           &per_sm, lgb_block_kernel<TX, kRound>, kThreads, smem)) !=
+      cudaSuccess)
     return (int)err;
   // one block an SM with 128 registers a thread: the attention's
   // setmaxnreg shares out exactly those 65,536, and the wide tile's h1
   // slots (one an SM in the scratch) count on it too
   cudaFuncAttributes fa;
-  if ((err = cudaFuncGetAttributes(&fa, lgb_block_kernel)) != cudaSuccess)
+  if ((err = cudaFuncGetAttributes(&fa, lgb_block_kernel<TX, kRound>)) !=
+      cudaSuccess)
     return (int)err;
   if (per_sm != 1 || (kRunWindows && fa.numRegs != 128))
     return (int)cudaErrorInvalidConfiguration;
   if (blocks == 0) blocks = sms;
   if (blocks > sms) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((void*)lgb_block_kernel, dim3(blocks),
+  err = cudaLaunchCooperativeKernel((void*)lgb_block_kernel<TX, kRound>,
+                                    dim3(blocks),
                                     dim3(kThreads), params, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#ifndef LGTEUN_BF16_UNIT
+// out = one LGB block of x, both [B, C, H, W]. C % 4 == 0, C <= 128, C4 =
+// 4C, H and W divisible by win and 8, win*win <= 64, C/2 divisible by
+// heads, the mixer plane within shared memory (checked by the Python
+// wrapper). Arguments: see launch_lgb_block.
+extern "C" int lgteun_lgb_block(
+    const float* x, const float* ln_w, const float* ln_b, const float* amp_w,
+    const float* amp_b, const float* pha_w, const float* pha_b,
+    const float* fft_tables, const float* wqkv, const float* bqkv,
+    const float* pos, const float* wpT, const float* bp, const float* fln_w,
+    const float* fln_b, const float* w1T, const float* b1, const float* w2T,
+    const float* b2, const float* dw, const float* bdw, const float* w3T,
+    const float* b3, float* scratch, int* counters, float* out, int B, int C,
+    int C4, int H, int W, int heads, int win, const int* sched, int blocks,
+    float scale, float eps, cudaStream_t stream) {
+  return launch_lgb_block<float, false>(
+      x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b, fft_tables, wqkv, bqkv, pos,
+      wpT, bp, fln_w, fln_b, w1T, b1, w2T, b2, dw, bdw, w3T, b3, scratch,
+      counters, out, B, C, C4, H, W, heads, win, sched, blocks, scale, eps,
+      stream);
 }
 
 // The arguments lgteun_lgb_block takes: 2, the work list's numbers in
 // host memory, zeroed counters and a block count after `win` (earlier
 // versions, without this entry: one counter the kernel zeroed itself).
 extern "C" int lgteun_lgb_block_layout() { return 2; }
+#else  // LGTEUN_BF16_UNIT: lgb_block_bf16.cu
+
+// The bf16 storage entry (LGTEUN_EVAL_DTYPE, loads.cuh): the arguments of
+// lgteun_lgb_block, x and out float (x_bf16 0) or __nv_bfloat16 (1); y1,
+// x2 and x1 rounded to bf16 in the scratch as level 2 stores them, so that
+// the block computes level 2's function in either storage mode.
+extern "C" int lgteun_lgb_block_bf16(
+    const void* x, const float* ln_w, const float* ln_b, const float* amp_w,
+    const float* amp_b, const float* pha_w, const float* pha_b,
+    const float* fft_tables, const float* wqkv, const float* bqkv,
+    const float* pos, const float* wpT, const float* bp, const float* fln_w,
+    const float* fln_b, const float* w1T, const float* b1, const float* w2T,
+    const float* b2, const float* dw, const float* bdw, const float* w3T,
+    const float* b3, float* scratch, int* counters, void* out, int B, int C,
+    int C4, int H, int W, int heads, int win, const int* sched, int blocks,
+    int x_bf16, float scale, float eps, cudaStream_t stream) {
+  if (x_bf16)
+    return launch_lgb_block<__nv_bfloat16, true>(
+        static_cast<const __nv_bfloat16*>(x), ln_w, ln_b, amp_w, amp_b,
+        pha_w, pha_b, fft_tables, wqkv, bqkv, pos, wpT, bp, fln_w, fln_b,
+        w1T, b1, w2T, b2, dw, bdw, w3T, b3, scratch, counters,
+        static_cast<__nv_bfloat16*>(out), B, C, C4, H, W, heads, win, sched,
+        blocks, scale, eps, stream);
+  return launch_lgb_block<float, true>(
+      static_cast<const float*>(x), ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
+      fft_tables, wqkv, bqkv, pos, wpT, bp, fln_w, fln_b, w1T, b1, w2T, b2,
+      dw, bdw, w3T, b3, scratch, counters, static_cast<float*>(out), B, C,
+      C4, H, W, heads, win, sched, blocks, scale, eps, stream);
+}
+#endif  // LGTEUN_BF16_UNIT

@@ -39,9 +39,11 @@ namespace {
 
 constexpr int kThreadsLN = 256;
 
+// x, y1 in their storage types (loads.cuh), y2 float.
+template <class TX, class TY>
 __global__ void __launch_bounds__(kThreadsLN)
-ln_split_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
-                const float* __restrict__ ln_b, float* __restrict__ y1,
+ln_split_kernel(const TX* __restrict__ x, const float* __restrict__ ln_w,
+                const float* __restrict__ ln_b, TY* __restrict__ y1,
                 float* __restrict__ y2, int C, int HW, float eps) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= HW) return;
@@ -55,9 +57,9 @@ ln_split_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
 // registers a thread spilled and were no faster); 512 threads, one block
 // an SM, where there are fewer planes than SMs. Both allow 128 registers
 // a thread, as lgb_block.cu does.
-template <int kThreads, int kBlocksPerSM>
+template <int kThreads, int kBlocksPerSM, class TI, class TO>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-fft_mixer_kernel(const float* in, float* out, const float* __restrict__ amp_w,
+fft_mixer_kernel(const TI* in, TO* out, const float* __restrict__ amp_w,
                  const float* __restrict__ amp_b,
                  const float* __restrict__ pha_w,
                  const float* __restrict__ pha_b,
@@ -72,8 +74,9 @@ fft_mixer_kernel(const float* in, float* out, const float* __restrict__ amp_w,
 
 // The same with a cluster of two blocks on each plane
 // (fft_mixer_plane_pair), where twice the planes still fit on the SMs.
+template <class TI, class TO>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(512, 1)
-fft_mixer_pair_kernel(const float* in, float* out,
+fft_mixer_pair_kernel(const TI* in, TO* out,
                       const float* __restrict__ amp_w,
                       const float* __restrict__ amp_b,
                       const float* __restrict__ pha_w,
@@ -111,9 +114,9 @@ __global__ void fft_tables_kernel(float* __restrict__ tab, FftMixerPlan p) {
 
 // kernel: one of the fft_mixer kernels, launched with `blocks` blocks of
 // `threads` on the planes.
-template <class Kernel>
+template <class Kernel, class TI, class TO>
 cudaError_t launch_fft_mixer_kernel(Kernel* kernel, int blocks, int threads,
-                                    const float* in, float* out,
+                                    const TI* in, TO* out,
                                     const float* amp_w, const float* amp_b,
                                     const float* pha_w, const float* pha_b,
                                     const float* tables, int C, int HW,
@@ -130,14 +133,17 @@ cudaError_t launch_fft_mixer_kernel(Kernel* kernel, int blocks, int threads,
   return cudaGetLastError();
 }
 
-// Launch fft_mixer_kernel on B * C planes; checks the lengths it takes.
-int launch_fft_mixer(const float* in, float* out, const float* amp_w,
+// Launch fft_mixer_kernel on B * C planes of storage types TI -> TO
+// (loads.cuh); checks the lengths it takes and the pairs' alignment.
+template <class TI, class TO>
+int launch_fft_mixer(const TI* in, TO* out, const float* amp_w,
                      const float* amp_b, const float* pha_w,
                      const float* pha_b, const float* tables, int B, int C,
                      int H, int W, cudaStream_t stream) {
   FftMixerPlan p;
-  if (!fft_mixer_plan(H, W, &p) || (reinterpret_cast<size_t>(in) |
-                                    reinterpret_cast<size_t>(out)) % 8)
+  if (!fft_mixer_plan(H, W, &p) ||
+      reinterpret_cast<size_t>(in) % (2 * sizeof(TI)) ||
+      reinterpret_cast<size_t>(out) % (2 * sizeof(TO)))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -147,16 +153,19 @@ int launch_fft_mixer(const float* in, float* out, const float* amp_w,
   const size_t smem = fft_mixer_smem(H, W);
   const int planes = B * C;
   if (2 * planes <= sms)
-    return (int)launch_fft_mixer_kernel(fft_mixer_pair_kernel, 2 * planes,
+    return (int)launch_fft_mixer_kernel(fft_mixer_pair_kernel<TI, TO>,
+                                        2 * planes,
                                         512, in, out, amp_w, amp_b, pha_w,
                                         pha_b, tables, C, H * W, smem,
                                         stream);
   if (planes <= sms)
-    return (int)launch_fft_mixer_kernel(fft_mixer_kernel<512, 1>, planes,
+    return (int)launch_fft_mixer_kernel(fft_mixer_kernel<512, 1, TI, TO>,
+                                        planes,
                                         512, in, out, amp_w, amp_b, pha_w,
                                         pha_b, tables, C, H * W, smem,
                                         stream);
-  return (int)launch_fft_mixer_kernel(fft_mixer_kernel<256, 2>, planes, 256,
+  return (int)launch_fft_mixer_kernel(fft_mixer_kernel<256, 2, TI, TO>,
+                                      planes, 256,
                                       in, out, amp_w, amp_b, pha_w, pha_b,
                                       tables, C, H * W, smem, stream);
 }
@@ -191,8 +200,8 @@ extern "C" int lgteun_ln_mixer_head(const float* x, const float* ln_w,
                                     cudaStream_t stream) {
   const int HW = H * W;
   const dim3 grid_ln((HW + kThreadsLN - 1) / kThreadsLN, B);
-  ln_split_kernel<<<grid_ln, kThreadsLN, 0, stream>>>(x, ln_w, ln_b, y1, x2,
-                                                      C, HW, eps);
+  ln_split_kernel<float, float><<<grid_ln, kThreadsLN, 0, stream>>>(
+      x, ln_w, ln_b, y1, x2, C, HW, eps);
   return launch_fft_mixer(x2, x2, amp_w, amp_b, pha_w, pha_b, tables, B,
                           C / 2, H, W, stream);
 }
@@ -203,6 +212,46 @@ extern "C" int lgteun_global_mixer(const float* x, const float* amp_w,
                                    const float* pha_b, const float* tables,
                                    float* out, int B, int C, int H, int W,
                                    cudaStream_t stream) {
+  return launch_fft_mixer(x, out, amp_w, amp_b, pha_w, pha_b, tables, B, C,
+                          H, W, stream);
+}
+
+// The bf16 storage entries (LGTEUN_EVAL_DTYPE, loads.cuh): activations as
+// __nv_bfloat16, math in float, one rounding to nearest even on store.
+
+// lgteun_ln_mixer_head with y1 and x2 stored as bf16, x as float (x_bf16
+// 0) or bf16 (1). The mixer takes the LN's float value: y2 (float, [B,
+// C/2, H, W]) holds it between the LN and the mixer.
+extern "C" int lgteun_ln_mixer_head_bf16(
+    const void* x, const float* ln_w, const float* ln_b, const float* amp_w,
+    const float* amp_b, const float* pha_w, const float* pha_b,
+    const float* tables, __nv_bfloat16* y1, __nv_bfloat16* x2, float* y2,
+    int B, int C, int H, int W, int x_bf16, float eps, cudaStream_t stream) {
+  const int HW = H * W;
+  const dim3 grid_ln((HW + kThreadsLN - 1) / kThreadsLN, B);
+  if (x_bf16)
+    ln_split_kernel<__nv_bfloat16, __nv_bfloat16>
+        <<<grid_ln, kThreadsLN, 0, stream>>>(
+            static_cast<const __nv_bfloat16*>(x), ln_w, ln_b, y1, y2, C, HW,
+            eps);
+  else
+    ln_split_kernel<float, __nv_bfloat16><<<grid_ln, kThreadsLN, 0, stream>>>(
+        static_cast<const float*>(x), ln_w, ln_b, y1, y2, C, HW, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_fft_mixer(static_cast<const float*>(y2), x2, amp_w, amp_b,
+                          pha_w, pha_b, tables, B, C / 2, H, W, stream);
+}
+
+// lgteun_global_mixer on bf16 in and out.
+extern "C" int lgteun_global_mixer_bf16(const __nv_bfloat16* x,
+                                        const float* amp_w,
+                                        const float* amp_b,
+                                        const float* pha_w,
+                                        const float* pha_b,
+                                        const float* tables,
+                                        __nv_bfloat16* out, int B, int C,
+                                        int H, int W, cudaStream_t stream) {
   return launch_fft_mixer(x, out, amp_w, amp_b, pha_w, pha_b, tables, B, C,
                           H, W, stream);
 }

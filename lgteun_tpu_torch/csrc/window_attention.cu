@@ -42,13 +42,14 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <class Layout>
+// TS: the storage type of x and out (loads.cuh).
+template <class Layout, class TS>
 __global__ void __launch_bounds__(kThreads)
-window_attention_kernel(const float* __restrict__ x,
+window_attention_kernel(const TS* __restrict__ x,
                         const float* __restrict__ wqkv,  // [3C][C] out, in
                         const float* __restrict__ bqkv,  // [3C]
                         const float* __restrict__ pos,   // [heads][S][S]
-                        float* __restrict__ out, int C, int H, int W,
+                        TS* __restrict__ out, int C, int H, int W,
                         int heads, int win, float scale) {
   extern __shared__ float sm[];
   window_attention_body<false>(x, wqkv, bqkv, pos, out, sm, C, heads, win,
@@ -56,22 +57,23 @@ window_attention_kernel(const float* __restrict__ x,
                                Layout::of(blockIdx.x, C, H, W, win));
 }
 
-template <class Layout>
-int launch_fp32(const float* x, const float* wqkv, const float* bqkv,
-           const float* pos, float* out, int windows, int C, int H, int W,
+template <class Layout, class TS>
+int launch_fp32(const TS* x, const float* wqkv, const float* bqkv,
+           const float* pos, TS* out, int windows, int C, int H, int W,
            int heads, int win, float scale, cudaStream_t stream) {
   const size_t smem = window_attention_smem(C, heads, win);
   const cudaError_t err = cudaFuncSetAttribute(
-      window_attention_kernel<Layout>,
+      window_attention_kernel<Layout, TS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  window_attention_kernel<Layout><<<windows, kThreads, smem, stream>>>(
+  window_attention_kernel<Layout, TS><<<windows, kThreads, smem, stream>>>(
       x, wqkv, bqkv, pos, out, C, H, W, heads, win, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+#ifndef LGTEUN_BF16_UNIT
 // The FP32-core body. out = window MHSA of x, both [B, C, H, W]; H, W
 // divisible by win, win*win <= 64, C divisible by heads (checked by the
 // Python wrapper); wqkv [3C][C] (out, in).
@@ -100,6 +102,7 @@ extern "C" int lgteun_window_attention_rows_fp32(
   return launch_fp32<TokenMajor>(x, wqkv, bqkv, pos, out, N, C, 0, 0, heads, win,
                             scale, stream);
 }
+#endif  // LGTEUN_BF16_UNIT
 
 namespace {
 
@@ -114,13 +117,13 @@ constexpr int kTcWG = 2;  // warpgroups a block of the tensor-core kernel
 // (warpgroups of the grid) / heads, ... (the grid's warpgroups are a
 // multiple of the heads). wf: the weight fragments (attention_fragments),
 // copied to shared memory once.
-template <int HDP, int CP, class Layout>
+template <int HDP, int CP, class Layout, class TS>
 __global__ void __launch_bounds__(128 * kTcWG, 1)
-window_attention_tc_kernel(const float* __restrict__ x,
+window_attention_tc_kernel(const TS* __restrict__ x,
                            const float* __restrict__ wf,
                            const float* __restrict__ bqkv,  // [3C]
                            const float* __restrict__ pos,   // [heads][64][64]
-                           float* __restrict__ out, int windows, int C,
+                           TS* __restrict__ out, int windows, int C,
                            int H, int W, int heads, float scale) {
   extern __shared__ __align__(16) float sm[];
   const int nf = heads * 6 * HDP * CP;
@@ -140,11 +143,11 @@ window_attention_tc_kernel(const float* __restrict__ x,
 
 int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
 
-template <int HDP, int CP, class Layout>
-int launch_tc_shape(const float* x, const float* wf, const float* bqkv,
-                    const float* pos, float* out, int windows, int C, int H,
+template <int HDP, int CP, class Layout, class TS>
+int launch_tc_shape(const TS* x, const float* wf, const float* bqkv,
+                    const float* pos, TS* out, int windows, int C, int H,
                     int W, int heads, float scale, cudaStream_t stream) {
-  auto kernel = window_attention_tc_kernel<HDP, CP, Layout>;
+  auto kernel = window_attention_tc_kernel<HDP, CP, Layout, TS>;
   const size_t smem = attention_tc_smem(C, heads, kTcWG);
   // the attribute and the occupancy, looked up once per device and size,
   // not at every launch
@@ -177,15 +180,16 @@ int launch_tc_shape(const float* x, const float* wf, const float* bqkv,
   return (int)cudaGetLastError();
 }
 
-template <class Layout>
-int launch_tc(const float* x, const float* wf, const float* bqkv,
-              const float* pos, float* out, int windows, int C, int H, int W,
+template <class Layout, class TS>
+int launch_tc(const TS* x, const float* wf, const float* bqkv,
+              const float* pos, TS* out, int windows, int C, int H, int W,
               int heads, int win, float scale, cudaStream_t stream) {
   if (!attention_tc_takes(C, heads, win)) return (int)cudaErrorInvalidValue;
   const int hdp = attn_pad(C / heads), cp = attn_pad(C);
 #define LGTEUN_TC_SHAPE(H_, C_)                                              \
   if (hdp == H_ && cp == C_)                                                 \
-    return launch_tc_shape<H_, C_, Layout>(x, wf, bqkv, pos, out, windows, C, \
+    return launch_tc_shape<H_, C_, Layout, TS>(x, wf, bqkv, pos, out,        \
+                                              windows, C,                    \
                                            H, W, heads, scale, stream);
   LGTEUN_TC_SHAPE(8, 8)
   LGTEUN_TC_SHAPE(8, 16)
@@ -227,6 +231,7 @@ __global__ void attention_fragments_kernel(const float* __restrict__ w,
 
 }  // namespace
 
+#ifndef LGTEUN_BF16_UNIT
 // The tensor-core body. out = window MHSA of x, both [B, C, H, W]; H, W
 // divisible by 8, the shape taken by attention_tc_takes(C, heads, win)
 // (checked by the Python wrapper and here); wf: wqkv as
@@ -284,3 +289,43 @@ extern "C" int lgteun_attention_fragments(const float* w, int C, int heads,
 // attention_tc_takes the shape (earlier versions, without this entry: the
 // [3C][C] rows, which the *_fp32 entries take).
 extern "C" int lgteun_window_attention_layout() { return 2; }
+#else  // LGTEUN_BF16_UNIT: window_attention_bf16.cu
+
+// The bf16 storage entries (LGTEUN_EVAL_DTYPE, loads.cuh): x and out as
+// __nv_bfloat16, math in float (the tensor-core body's 3xTF32 products
+// included), one rounding to nearest even on store. Arguments as the
+// float32 entries of the same name without _bf16.
+extern "C" int lgteun_window_attention_bf16(
+    const __nv_bfloat16* x, const float* wf, const float* bqkv,
+    const float* pos, __nv_bfloat16* out, int B, int C, int H, int W,
+    int heads, int win, float scale, cudaStream_t stream) {
+  return launch_tc<ImageWindow>(x, wf, bqkv, pos, out,
+                                B * (H / win) * (W / win), C, H, W, heads,
+                                win, scale, stream);
+}
+
+extern "C" int lgteun_window_attention_bf16_fp32(
+    const __nv_bfloat16* x, const float* wqkv, const float* bqkv,
+    const float* pos, __nv_bfloat16* out, int B, int C, int H, int W,
+    int heads, int win, float scale, cudaStream_t stream) {
+  return launch_fp32<ImageWindow>(x, wqkv, bqkv, pos, out,
+                                  B * (H / win) * (W / win), C, H, W, heads,
+                                  win, scale, stream);
+}
+
+extern "C" int lgteun_window_attention_windows_bf16(
+    const __nv_bfloat16* x, const float* wf, const float* bqkv,
+    const float* pos, __nv_bfloat16* out, int N, int C, int heads, int win,
+    float scale, cudaStream_t stream) {
+  return launch_tc<ChannelMajor>(x, wf, bqkv, pos, out, N, C, 0, 0, heads,
+                                 win, scale, stream);
+}
+
+extern "C" int lgteun_window_attention_windows_bf16_fp32(
+    const __nv_bfloat16* x, const float* wqkv, const float* bqkv,
+    const float* pos, __nv_bfloat16* out, int N, int C, int heads, int win,
+    float scale, cudaStream_t stream) {
+  return launch_fp32<ChannelMajor>(x, wqkv, bqkv, pos, out, N, C, 0, 0,
+                                   heads, win, scale, stream);
+}
+#endif  // LGTEUN_BF16_UNIT

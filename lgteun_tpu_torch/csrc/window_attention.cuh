@@ -74,12 +74,13 @@ struct TokenMajor {
   __device__ size_t at(int c, int s) const { return base + (size_t)s * C + c; }
 };
 
-// One window in layout `lay`. x/out in that layout; wqkv [3C][C] (out, in);
-// bqkv [3C]; pos [heads][S][S]; kCoherent: see loads.cuh.
-template <bool kCoherent, class Layout>
+// One window in layout `lay`. x/out in that layout, each in its storage
+// type (loads.cuh); wqkv [3C][C] (out, in); bqkv [3C]; pos [heads][S][S];
+// kCoherent: see loads.cuh.
+template <bool kCoherent, class Layout, class TI, class TO>
 __device__ __forceinline__ void window_attention_body(
-    const float* x, const float* wqkv, const float* bqkv, const float* pos,
-    float* out, float* sm, int C, int heads, int win, float scale,
+    const TI* x, const float* wqkv, const float* bqkv, const float* pos,
+    TO* out, float* sm, int C, int heads, int win, float scale,
     const Layout& lay) {
   const int S = win * win, PS = S + 1, hd = C / heads;
   const int XS = Layout::kTokenInner ? S : PS;  // row stride of xs
@@ -143,22 +144,22 @@ __device__ __forceinline__ void window_attention_body(
     float acc = 0.f;
     for (int j = 0; j < S; ++j) acc = fmaf(r[j], v[j], acc);
     if (Layout::kTokenInner)
-      out[lay.at(c, qi)] = acc * rinv[h * S + qi];
+      store_act(out + lay.at(c, qi), acc * rinv[h * S + qi]);
     else
       xs[c * XS + qi] = acc * rinv[h * S + qi];
   }
   if (!Layout::kTokenInner) {
     __syncthreads();
     for (int i = threadIdx.x; i < C * S; i += blockDim.x)
-      out[lay.at(i % C, i / C)] = xs[(i % C) * XS + i / C];
+      store_act(out + lay.at(i % C, i / C), xs[(i % C) * XS + i / C]);
   }
 }
 
 // Window wi of image b. x/out [B, C, H, W].
-template <bool kCoherent>
+template <bool kCoherent, class TI, class TO>
 __device__ __forceinline__ void window_attention_window(
-    const float* x, const float* wqkv, const float* bqkv, const float* pos,
-    float* out, float* sm, int C, int H, int W, int heads, int win,
+    const TI* x, const float* wqkv, const float* bqkv, const float* pos,
+    TO* out, float* sm, int C, int H, int W, int heads, int win,
     float scale, int b, int wi) {
   const int nwin = (H / win) * (W / win);
   window_attention_body<kCoherent>(

@@ -115,14 +115,16 @@ __device__ __forceinline__ void attention_load_weights(
 }
 
 // Head h of one window on the calling warpgroup (wg: its index in the
-// block). x/out in layout `lay`; wf: the weight fragments in shared memory;
+// block). x/out in layout `lay`, each in its storage type (loads.cuh); wf:
+// the weight fragments in shared memory;
 // bqkv [3C] in global memory; kv: the warpgroup's staging (attn_kv_floats
 // (HDP) floats of shared memory); pos: attention_pos of head h; kCoherent:
 // see loads.cuh. C and hd = C / heads within CP and HDP.
-template <int HDP, int CP, bool kCoherent, class Layout>
+template <int HDP, int CP, bool kCoherent, class Layout, class TI,
+          class TO>
 __device__ __forceinline__ void window_attention_head_tc(
-    const float* x, const float* wf, const float* __restrict__ bqkv,
-    float* out, float* kv, const float (&pos)[8][4], int C, int hd, int h,
+    const TI* x, const float* wf, const float* __restrict__ bqkv,
+    TO* out, float* kv, const float (&pos)[8][4], int C, int hd, int h,
     float scale, const Layout& lay, int wg) {
   constexpr int NJ = HDP / 8, KS = CP / 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -293,7 +295,8 @@ __device__ __forceinline__ void window_attention_head_tc(
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int d = 8 * j + 2 * t + (q & 1), s = row0 + g + 8 * (q >> 1);
-      if (d < hd) out[lay.at(h * hd + d, s)] = o[j][q] * (q < 2 ? r0 : r1);
+      if (d < hd)
+        store_act(out + lay.at(h * hd + d, s), o[j][q] * (q < 2 ? r0 : r1));
     }
 }
 

@@ -18,7 +18,8 @@ from lgteun_tpu_torch.models.mdcun import PanUnfolding
 from lgteun_tpu_torch.models.mutinf import GPPNNMutInf
 from lgteun_tpu_torch.models.panformer import CrossSwinTransformer
 from lgteun_tpu_torch.models.sfiin import SFIINNet, spectrum_amp_phase
-from lgteun_tpu_torch.ops import fuse_level, windows_layout_attention
+from lgteun_tpu_torch.ops import (fuse_level, storage_dtype,
+                                  windows_layout_attention)
 from lgteun_tpu_torch.registry import MODELS
 
 __all__ = ["UnlgFormer", "lightnet", "MDCUN", "INNT", "PanFormer", "SFIIN",
@@ -34,14 +35,19 @@ class UnlgFormer(TorchMethod):
     `drop_rate` (default 0.1) after each mixer proj in training. Each LGB
     block runs as `LGTEUN_FUSE_LEVEL` and `LGTEUN_FUSED_ATTENTION` say
     when the method is built (`ops.fuse_level`,
-    `ops.windows_layout_attention`)."""
+    `ops.windows_layout_attention`), and its eval forward stores its
+    activations as `LGTEUN_EVAL_DTYPE` says then (`ops.storage_dtype`:
+    "bf16res" or "bf16"; the output is float32)."""
+
+    bf16_storage = True
 
     def make_module(self):
         g_cfg = dict(self.cfg.model_cfg.get("core_module", {}))
         return LGTEUN(ms_chans=self.cfg.ms_chans,
                       stage=g_cfg.get("stage", 5), level=fuse_level(),
                       drop_rate=g_cfg.get("drop_rate", 0.1),
-                      windows=windows_layout_attention())
+                      windows=windows_layout_attention(),
+                      storage=storage_dtype())
 
     def forward(self, ms, pan, generator=None):
         return self.module(ms, pan, generator)

@@ -25,6 +25,12 @@ Method's batch layout, NHWC `input_lr` [B, h, w, C] and `input_pan`
                                   noise), `iter_id` is the 0-based
                                   iteration (MutInf's MI ramp)
 
+`LGTEUN_EVAL_DTYPE=bf16` (`ops.storage_dtype`) is UnlgFormer's bf16
+storage mode, the one method with `bf16_storage`; building any other
+method under it raises, as the JAX package's blanket bf16 autocast of
+the rest of the zoo (`lgteun_tpu/models/base.py:163-189`) is not ported
+yet (ROADMAP A.5.1). "bf16res" changes nothing for them, as in JAX.
+
 A `ClassicalMethod` (GSA, SFIM, Wavelet) has no module and no
 parameters: `trainable` is False and `apply` is its fuse function on
 NHWC tensors on `self.device` (`lgteun_tpu/models/base.py:192-204`).
@@ -39,6 +45,7 @@ from torch import nn
 from lgteun_tpu_torch.config import Config
 from lgteun_tpu_torch.losses import build_loss_weights, reconstruction_loss
 from lgteun_tpu_torch.models.common.layers import init_parameters
+from lgteun_tpu_torch.ops import storage_dtype
 
 __all__ = ["TorchMethod", "ClassicalMethod"]
 
@@ -55,8 +62,15 @@ class TorchMethod:
 
     trainable = True
     module_names: tuple[str, ...] = ("core_module",)
+    bf16_storage = False   # takes LGTEUN_EVAL_DTYPE=bf16 (module docstring)
 
     def __init__(self, cfg: Config, device):
+        if not self.bf16_storage and storage_dtype() == (torch.bfloat16,
+                                                         False):
+            raise NotImplementedError(
+                f"{type(self).__name__}: LGTEUN_EVAL_DTYPE=bf16 is "
+                "UnlgFormer's storage mode; the blanket bf16 autocast of "
+                "the other methods is not ported (ROADMAP A.5.1)")
         self.cfg = cfg
         self.device = torch.device(device)
         with torch.device("meta"):

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
@@ -40,10 +41,20 @@ class Conv(nn.Conv2d):
 
 
 class PointConv(Conv):
-    """1x1 conv (reference `point_conv`)."""
+    """1x1 conv (reference `point_conv`). On a bfloat16 input (the bf16
+    storage mode's inter-scale convs, `ops.storage_dtype`) it runs as the
+    JAX package's `_pointconv_cm` with a storage dtype: operands rounded
+    to bfloat16, the product and the bias in float32, one rounding of the
+    result to bfloat16."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(in_ch, out_ch, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        w = self.weight.to(torch.bfloat16).float()
+        return F.conv2d(x.float(), w, self.bias).to(torch.bfloat16)
 
 
 class DepConv(Conv):
@@ -74,13 +85,16 @@ class ChannelLayerNorm(nn.Module):
 class Resample(nn.Module):
     """`sampling` as a parameter-free module (it holds an index in the
     reference's nn.Sequential containers, which the state_dict keys
-    count)."""
+    count). A bfloat16 input is upcast, resampled in float32 and rounded
+    once to bfloat16."""
 
     def __init__(self, s_factor: float):
         super().__init__()
         self.s_factor = s_factor
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return sampling(x.float(), self.s_factor).to(x.dtype)
         return sampling(x, self.s_factor)
 
 

@@ -24,6 +24,33 @@ LGB block runs is chosen by `LGTEUN_FUSE_LEVEL` when the method is built
                        x = ln_ffn(x + proj([x1; x2]))
     level 3            x = lgb_block(x)              the block in one kernel
 
+Storage (`LGTEUN_EVAL_DTYPE`, `ops.storage_dtype`, read when the method
+is built and passed down as `storage`): an eval forward keeps the tensors
+between the kernels in bfloat16, as `lgteun_tpu/models/lgteun_fast.py::
+_lgt_cm` / `_lgb_cm` do; every kernel upcasts as it loads, computes in
+float32 and rounds once as it stores. "bf16res": the mixer branches y1,
+x1, x2 are bfloat16, the residual stream x and the rest of the trunk
+float32. "bf16": the trunk after the patch embed is bfloat16 too (the
+inter-scale resamples and 1x1 convs round once, `layers.PointConv`).
+Each level computes what the same JAX level computes in that mode:
+
+    level 2  ln_mixer_head gives y1, x2 in bfloat16 (the mixer fed the
+             float32 LN); window_attention(y1) gives x1 in bfloat16;
+             block_tail writes x's dtype
+    level 1  y = LN(x) in x's dtype, both halves rounded to bfloat16
+             before their mixers (so the global mixer's input is rounded:
+             level 1 is not level 2's function, ROADMAP C.35), the proj in
+             float32 on the upcast [x1; x2], x + proj rounded to x's dtype
+             (JAX promotes the "bf16" stream to float32 there, ROADMAP
+             C.36; the port keeps it bfloat16), ln_ffn in x's dtype
+    level 3  lgb_block in x's dtype, y1, x2, x1 rounded to bfloat16 where
+             level 2 stores them: level 2's function (ROADMAP C.8)
+
+The patch embed, the tail (on the upcast stream) and the residual add are
+float32, and so is the output. A training forward (`module.training`)
+runs float32 storage, as JAX's does; a bf16 eval forward that records a
+gradient raises (the bf16 entries have no backward).
+
 With `LGTEUN_FUSED_ATTENTION=v2` (`ops.windows_layout_attention`, read
 when the method is built) levels 1 and 2 run the local mixer as the JAX
 module path's `LocalMixer` does with that flag (`lgteun_tpu/models/
@@ -68,6 +95,7 @@ from lgteun_tpu_torch.models.common.layers import (
     Resample,
     trunc_normal_,
 )
+from lgteun_tpu_torch.ops import upcast
 from lgteun_tpu_torch.ops.ffn_kernel import (block_tail, block_tail_masked,
                                              ln_ffn)
 from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block
@@ -251,7 +279,11 @@ class LGB(nn.Module):
         return (draw < keep).to(x.dtype) * (1.0 / keep)
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                storage: torch.dtype | None = None) -> torch.Tensor:
+        """x in the stream's dtype (float32, or bfloat16 in the "bf16"
+        mode); `storage`: the mixer branches' dtype (bfloat16 in either
+        bf16 mode, else None: x's)."""
         heads, win = self.heads, self.win
         for i, (mix_res, _) in enumerate(self.blocks):
             eps = mix_res.fn.norm.eps
@@ -260,20 +292,24 @@ class LGB(nn.Module):
             mask = self._drop_mask(x, generator)
             if (self.level >= 3 and mask is None
                     and not torch.is_grad_enabled()):
-                x = lgb_block(x, blk, heads, win, eps)
+                x = lgb_block(x, blk, heads, win, eps, storage)
             elif self.level == 1:
                 y = channel_layer_norm(x, blk["ln_w"], blk["ln_b"], eps)
                 c2 = x.shape[1] // 2
-                x1 = self._local_mixer(y[:, :c2].contiguous(), blk)
-                x2 = global_mixer(y[:, c2:].contiguous(), *mixer)
-                mixed = F.conv2d(torch.cat([x1, x2], dim=1),
+                y1, y2 = y[:, :c2], y[:, c2:]
+                if storage is not None:
+                    y1, y2 = y1.to(storage), y2.to(storage)
+                x1 = self._local_mixer(y1.contiguous(), blk)
+                x2 = global_mixer(y2.contiguous(), *mixer)
+                mixed = F.conv2d(upcast(torch.cat([x1, x2], dim=1)),
                                  blk["proj_w"][:, :, None, None],
                                  blk["proj_b"])
-                x = x + (mixed if mask is None else mixed * mask)
+                x = (upcast(x) + (mixed if mask is None else mixed * mask)
+                     ).to(x.dtype)
                 x = ln_ffn(x, blk["ffn"], eps=eps)
             else:
                 y1, x2 = ln_mixer_head(x, blk["ln_w"], blk["ln_b"], *mixer,
-                                       eps=eps)
+                                       eps=eps, out_dtype=storage)
                 x1 = self._local_mixer(y1, blk)
                 tail = (blk["proj_w"], blk["proj_b"], blk["ffn"])
                 x = (block_tail(x, x1, x2, *tail, eps=eps) if mask is None
@@ -302,8 +338,9 @@ class LGT(nn.Module):
     def __init__(self, in_ch: int, embed: int, win: int = 8,
                  num_block: Sequence[int] = (2, 1), heads: int = 2,
                  level: int = 2, drop_rate: float = 0.1,
-                 windows: bool = False):
+                 windows: bool = False, storage: tuple = (None, False)):
         super().__init__()
+        self.storage = storage   # (sdtype, res_f32): ops.storage_dtype
         self.patch_embed = _PatchEmbed(in_ch, embed)
         scales = len(num_block)
         lgb = lambda c, n: LGB(c, n, win, heads, level, drop_rate, windows)
@@ -328,14 +365,25 @@ class LGT(nn.Module):
 
     def forward(self, z: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        sdtype, res_f32 = (None, False) if self.training else self.storage
+        if sdtype is not None and torch.is_grad_enabled() and (
+                z.requires_grad
+                or any(p.requires_grad for p in self.parameters())):
+            raise RuntimeError(
+                "LGT: bf16 storage (LGTEUN_EVAL_DTYPE) is an eval mode "
+                "without a backward: run the eval forward with gradients "
+                "off (torch.no_grad / inference_mode); training runs "
+                "float32 storage")
         fea = self.patch_embed(z)
+        if sdtype is not None and not res_f32:
+            fea = fea.to(sdtype)
         skips = []
         for lgb, down in self.encoder_layers:
-            fea = lgb(fea, generator)
+            fea = lgb(fea, generator, sdtype)
             skips.append(fea)
             fea = down(fea)
-        fea = self.bottleneck(fea, generator)
+        fea = self.bottleneck(fea, generator, sdtype)
         for up, fuse, lgb in self.decoder_layers:
             fea = fuse(torch.cat([up(fea), skips.pop()], dim=1))
-            fea = lgb(fea, generator)
-        return self.tail(fea) + z
+            fea = lgb(fea, generator, sdtype)
+        return self.tail(upcast(fea)) + z

@@ -35,7 +35,7 @@ class LGTEUN(nn.Module):
 
     def __init__(self, ms_chans: int, stage: int = 2, window_size: int = 8,
                  num_heads: int = 2, level: int = 2, drop_rate: float = 0.1,
-                 windows: bool = False):
+                 windows: bool = False, storage: tuple = (None, False)):
         super().__init__()
         c = ms_chans
         self.stage = stage
@@ -49,7 +49,7 @@ class LGTEUN(nn.Module):
             nn.Parameter(torch.empty(())) for _ in range(stage))
         self.prior_module = nn.ModuleList(
             LGT(c, c * 4, window_size, (2, 1), num_heads, level, drop_rate,
-                windows)
+                windows, storage)
             for _ in range(stage))
 
     @torch.no_grad()

@@ -3,6 +3,8 @@ tensor) and plain resize. Import the submodules directly."""
 
 import os as _os
 
+import torch as _torch
+
 
 def fuse_level() -> int:
     """How each LGB block of the LGT prior is computed (env
@@ -37,3 +39,38 @@ def windows_layout_attention() -> bool:
     path does. Every other value, the JAX package's "0" (its XLA path)
     included, reads as the default: a card always runs kernels."""
     return _os.environ.get("LGTEUN_FUSED_ATTENTION", "1") == "v2"
+
+
+def storage_dtype() -> tuple:
+    """UnlgFormer's activation storage between the kernels of its eval
+    forward (env LGTEUN_EVAL_DTYPE, parsed as `lgteun_tpu/models/
+    lgteun_fast.py::_storage_dtype`; read when a method is built) ->
+    (sdtype, res_f32):
+
+      unset, any other value  (None, False): float32 storage
+      "bf16"                  (torch.bfloat16, False): every tensor
+                              between the kernels is bf16, the LGB
+                              residual stream and the inter-scale convs
+                              included
+      "bf16res"               (torch.bfloat16, True): only the mixer
+                              branches (y1, x1, x2) are bf16; the
+                              residual stream, the inter-scale convs and
+                              resamples and the block outputs stay
+                              float32 (the serving mode)
+
+    Math inside a kernel is float32 in every mode; every store rounds
+    once to nearest even. The unfolding steps, the patch embed and the
+    tail are float32, the output is float32, and training runs float32
+    storage (`models/common/lgt.py`)."""
+    mode = _os.environ.get("LGTEUN_EVAL_DTYPE")
+    if mode == "bf16":
+        return _torch.bfloat16, False
+    if mode == "bf16res":
+        return _torch.bfloat16, True
+    return None, False
+
+
+def upcast(t: _torch.Tensor) -> _torch.Tensor:
+    """t as the input of float32 math: a bfloat16 tensor upcast (exactly),
+    any other as it is (a float64 tensor stays float64)."""
+    return t.float() if t.dtype == _torch.bfloat16 else t

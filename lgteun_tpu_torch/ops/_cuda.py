@@ -25,7 +25,8 @@ import torch
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "ptxas_log",
            "kernels", "launch", "plain_on_cpu", "check_cuda_f32",
-           "weight_layout"]
+           "check_cuda", "check_eval_storage", "storage_flag",
+           "STORAGE", "weight_layout"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lgteun_tpu_torch"
@@ -33,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the activation dtypes of the storage entries (ops.storage_dtype)
+STORAGE = (torch.float32, torch.bfloat16)
 # C entry -> argtypes; each returns cudaGetLastError() after its launches
 SIGNATURES = {
     # x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b, tables, y1, x2, B, C, H, W,
@@ -42,6 +45,29 @@ SIGNATURES = {
     "lgteun_global_mixer": [_P] * 7 + [_I] * 4 + [_P],
     # tables, floats, H, W, stream
     "lgteun_fft_tables": [_P] + [_I] * 3 + [_P],
+    # The bf16 storage entries (ops.storage_dtype): the float32 entry's
+    # arguments, activations of the storage types its flags name (0
+    # float32, 1 bfloat16; `storage_flag`), weights float32.
+    # x, 6 weights, tables, y1, x2 (bf16), y2 (float32 [B, C/2, H, W]), B,
+    # C, H, W, x_bf16, eps, stream
+    "lgteun_ln_mixer_head_bf16": [_P] * 11 + [_I] * 5 + [_F, _P],
+    # x, amp_w, amp_b, pha_w, pha_b, tables, out (bf16), B, C, H, W, stream
+    "lgteun_global_mixer_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    "lgteun_window_attention_bf16": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "lgteun_window_attention_bf16_fp32": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "lgteun_window_attention_windows_bf16": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "lgteun_window_attention_windows_bf16_fp32":
+        [_P] * 5 + [_I] * 4 + [_F, _P],
+    # lgteun_block_tail's arguments without the mask, then x_bf16, br_bf16
+    # (x1/x2) before eps
+    "lgteun_block_tail_bf16": [_P] * 16 + [_I] * 7 + [_F, _P],
+    "lgteun_block_tail_wide_bf16": [_P] * 17 + [_I] * 8 + [_F, _P],
+    "lgteun_ln_ffn_bf16": [_P] * 12 + [_I] * 5 + [_F, _P],
+    "lgteun_ln_ffn_wide_bf16": [_P] * 13 + [_I] * 6 + [_F, _P],
+    # lgteun_lgb_block's arguments with x_bf16 after blocks (y1, x2, x1
+    # rounded to bf16 in the scratch)
+    "lgteun_lgb_block_bf16": [_P] * 26 + [_I] * 7 + [_P, _I, _I, _F, _F,
+                                                     _P],
     # x, ln_w, ln_b, w1T, b1, w2T, b2, dw, bdw, w3T, b3, out, B, C, C4, H,
     # W, eps, stream (the matrices as TF32 slabs, ffn_kernel.tail_fragments)
     "lgteun_ln_ffn": [_P] * 12 + [_I] * 5 + [_F, _P],
@@ -183,16 +209,38 @@ def check_cuda_f32(name: str, device: torch.device, **tensors) -> None:
     `device` and none needs a gradient: a kernel has no backward of its
     own, and the wrappers that are differentiable launch it inside
     `ops.autograd.recompute`, where gradients are off."""
+    check_cuda(name, device, (torch.float32,), **tensors)
+
+
+def check_cuda(name: str, device: torch.device, dtypes: tuple,
+               **tensors) -> None:
+    """`check_cuda_f32` with the dtypes `dtypes` accepted (the bf16
+    storage entries take their activations as float32 or bfloat16)."""
+    names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
     for key, t in tensors.items():
-        if t.device != device or t.dtype != torch.float32 \
+        if t.device != device or t.dtype not in dtypes \
                 or not t.is_contiguous():
             raise ValueError(
-                f"{name}: {key} must be a contiguous float32 tensor on "
+                f"{name}: {key} must be a contiguous {names} tensor on "
                 f"{device}, got {t.dtype} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(f"{name}: {key} requires grad, but the "
                                "kernel has no backward")
+
+
+def check_eval_storage(name: str, *tensors) -> None:
+    """Raise if a wrapper takes its bfloat16 storage path while a gradient
+    is recorded through `tensors`: bf16 storage is an eval mode, and its
+    entries have no backward (training runs float32 storage)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: bfloat16 storage has no backward; "
+                           "training runs float32 storage")
+
+
+def storage_flag(t: torch.Tensor) -> int:
+    """A bf16 entry's storage flag of tensor t: 1 bfloat16, 0 float32."""
+    return int(t.dtype == torch.bfloat16)
 
 
 # Weights in a kernel's own layout, made once per weight version. Key:

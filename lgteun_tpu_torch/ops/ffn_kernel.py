@@ -30,6 +30,14 @@ each block (`tail_variant`; each wrapper counts its launches of either in
 FeedForward's weights in torch conv layout: ln_w/ln_b [C], w1 [4C, C],
 b1 [4C], w2 [4C, 4C], b2 [4C], dw [4C, 3, 3], bdw [4C], w3 [C, 4C],
 b3 [C].
+
+Storage (`ops.storage_dtype`): `block_tail` takes x (and gives out) as
+float32 or bfloat16 and x1, x2 as float32 or bfloat16, every
+combination; `ln_ffn` takes and gives one dtype. A bfloat16 tensor is
+upcast as loaded, all math is float32, and out is rounded once to
+nearest even as stored; the plain versions spell that out (`out_dtype`:
+the result's dtype, default x's). The bfloat16 entries are for eval (no
+backward); `block_tail_masked` (training's) takes float32 only.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ import collections
 import torch
 import torch.nn.functional as F
 
-from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops import _cuda, upcast
 from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 
@@ -61,25 +69,27 @@ def _pw(t, wt, bias):
     return F.conv2d(t, wt[:, :, None, None], bias)
 
 
-def ln_ffn_ref(x, ffn: dict, eps: float = 1e-5):
-    """Plain version of x + FFN(LN(x))."""
+def ln_ffn_ref(x, ffn: dict, eps: float = 1e-5, out_dtype=None):
+    """Plain version of x + FFN(LN(x)), of `out_dtype` (default x's)."""
+    out_dtype = out_dtype or x.dtype
+    x = upcast(x)
     y = channel_layer_norm(x, ffn["ln_w"], ffn["ln_b"], eps)
     h = F.gelu(_pw(y, ffn["w1"], ffn["b1"]), approximate="none")
     h = _pw(h, ffn["w2"], ffn["b2"])
     h = F.conv2d(h, ffn["dw"][:, None], ffn["bdw"], padding=1,
                  groups=h.shape[1])
     h = F.gelu(h, approximate="none")
-    return x + _pw(h, ffn["w3"], ffn["b3"])
+    return (x + _pw(h, ffn["w3"], ffn["b3"])).to(out_dtype)
 
 
 def block_tail_ref(x, x1, x2, proj_w, proj_b, ffn: dict,
-                   eps: float = 1e-5, mask=None):
+                   eps: float = 1e-5, mask=None, out_dtype=None):
     """Plain version. proj_w [C, C] (out, in), proj_b [C]; mask
-    [B, C, H, W] or None."""
-    mixed = _pw(torch.cat([x1, x2], dim=1), proj_w, proj_b)
+    [B, C, H, W] or None; the result of `out_dtype` (default x's)."""
+    mixed = _pw(torch.cat([upcast(x1), upcast(x2)], dim=1), proj_w, proj_b)
     if mask is not None:
         mixed = mixed * mask
-    return ln_ffn_ref(x + mixed, ffn, eps)
+    return ln_ffn_ref(upcast(x) + mixed, ffn, eps, out_dtype or x.dtype)
 
 
 def block_tail_masked_ref(x, x1, x2, mask, proj_w, proj_b, ffn: dict,
@@ -127,7 +137,8 @@ def _launch_tail(entry: str, wrapper, x, args: tuple, dims: tuple) -> None:
     (B, C, C4, H, W, eps); count the launch and its variant."""
     variant = tail_variant(x.shape[1])
     if variant == "wide":
-        entry += "_wide"
+        bf16 = entry.endswith("_bf16")
+        entry = entry.removesuffix("_bf16") + "_wide" + "_bf16" * bf16
         args += _wide_scratch(x.device)
     _cuda.launch(entry, x.device, *args, *dims)
     wrapper.launches += 1
@@ -181,11 +192,13 @@ def _ffn_shapes(c: int, c4: int) -> dict:
             "w3": (c, c4), "b3": (c,)}
 
 
-def check_tail_args(name: str, x, got: dict, want: dict) -> None:
+def check_tail_args(name: str, x, got: dict, want: dict,
+                    storage: tuple = ()) -> None:
     """Raise unless x [B, C, H, W] and the tensors of `got` suit the tail
     kernel: shapes as in `want`, C % 4 == 0 and C <= TAIL_MAX_WIDTH, a 4C
-    hidden width, H and W divisible by 8, contiguous float32 on x's CUDA
-    device."""
+    hidden width, H and W divisible by 8, contiguous on x's CUDA device,
+    the tensors named in `storage` ("x" or keys of `got`) float32 or
+    bfloat16, the others float32."""
     b, c, h, w = x.shape
     c4 = got["w1"].shape[0]
     bad = [k for k, shp in want.items() if tuple(got[k].shape) != shp]
@@ -193,7 +206,11 @@ def check_tail_args(name: str, x, got: dict, want: dict) -> None:
         raise ValueError(f"{name}: need C % 4 == 0, C <= {TAIL_MAX_WIDTH}, "
                          f"4C hidden and H, W divisible by 8 (x "
                          f"{tuple(x.shape)}); bad: {bad}")
-    _cuda.check_cuda_f32(name, x.device, x=x, **got)
+    tensors = dict(got, x=x)
+    _cuda.check_cuda(name, x.device, _cuda.STORAGE,
+                     **{k: tensors[k] for k in storage})
+    _cuda.check_cuda_f32(name, x.device, **{
+        k: v for k, v in tensors.items() if k not in storage})
 
 
 def tail_weights(ffn: dict) -> tuple:
@@ -213,9 +230,13 @@ def _split(t):
 
 
 def _tail(name, wrapper, tensors, eps):
-    """The differentiable launch of the block tail; `tensors` are x, x1,
-    x2, proj_w, proj_b, the FFN's weights in FFN_KEYS order and, for the
-    masked variant, the mask (which gets no gradient)."""
+    """The launch of the block tail, differentiable in float32 storage;
+    `tensors` are x, x1, x2, proj_w, proj_b, the FFN's weights in
+    FFN_KEYS order and, for the masked variant, the mask (which gets no
+    gradient). A bfloat16 x, x1 or x2 takes the bf16 entry (no mask, no
+    gradient)."""
+    bf16 = any(t.dtype == torch.bfloat16 for t in tensors[:3])
+
     def kernel(*t):
         (x, x1, x2, proj_w, proj_b), ffn, mask = _split(t)
         b, c, h, w = x.shape
@@ -225,17 +246,30 @@ def _tail(name, wrapper, tensors, eps):
                     x2=(b, c // 2, h, w), proj_w=(c, c), proj_b=(c,))
         if mask is not None:
             got["mask"], want["mask"] = mask, (b, c, h, w)
-        check_tail_args(name, x, got, want)
+        if x1.dtype != x2.dtype:
+            raise ValueError(f"{name}: x1 and x2 must share a dtype, got "
+                             f"{x1.dtype} and {x2.dtype}")
+        check_tail_args(name, x, got, want,
+                        ("x", "x1", "x2") if mask is None else ())
         out = torch.empty_like(x)
-        _launch_tail("lgteun_block_tail", wrapper, x, (
-            x, x1, x2, mask, _fragments(proj_w, c), proj_b,
-            *tail_weights(ffn), out), (b, c, c4, h, w, eps))
+        weights = (_fragments(proj_w, c), proj_b, *tail_weights(ffn))
+        if bf16:
+            _launch_tail("lgteun_block_tail_bf16", wrapper, x, (
+                x, x1, x2, *weights, out), (b, c, c4, h, w,
+                                            _cuda.storage_flag(x),
+                                            _cuda.storage_flag(x1), eps))
+        else:
+            _launch_tail("lgteun_block_tail", wrapper, x, (
+                x, x1, x2, mask, *weights, out), (b, c, c4, h, w, eps))
         return out
 
     def plain(*t):
         (x, x1, x2, proj_w, proj_b), ffn, mask = _split(t)
         return block_tail_ref(x, x1, x2, proj_w, proj_b, ffn, eps, mask)
 
+    if bf16:
+        _cuda.check_eval_storage(name, *tensors)
+        return kernel(*tensors)
     return recompute(kernel, plain, *tensors)
 
 
@@ -270,18 +304,25 @@ def ln_ffn(x, ffn: dict, eps: float = 1e-5):
     if _cuda.plain_on_cpu("ln_ffn", x):
         return ln_ffn_ref(x, ffn, eps)
 
+    ffn_t = tuple(ffn[k] for k in FFN_KEYS)
+    bf16 = x.dtype == torch.bfloat16
+
     def kernel(x, *ffn_t):
         ffn = dict(zip(FFN_KEYS, ffn_t))
         b, c, h, w = x.shape
         c4 = ffn["w1"].shape[0]
-        check_tail_args("ln_ffn", x, ffn, _ffn_shapes(c, c4))
+        check_tail_args("ln_ffn", x, ffn, _ffn_shapes(c, c4), ("x",))
         out = torch.empty_like(x)
-        _launch_tail("lgteun_ln_ffn", ln_ffn, x,
-                     (x, *tail_weights(ffn), out), (b, c, c4, h, w, eps))
+        _launch_tail("lgteun_ln_ffn_bf16" if bf16 else "lgteun_ln_ffn",
+                     ln_ffn, x, (x, *tail_weights(ffn), out),
+                     (b, c, c4, h, w, eps))
         return out
 
+    if bf16:
+        _cuda.check_eval_storage("ln_ffn", x, *ffn_t)
+        return kernel(x, *ffn_t)
     return recompute(kernel, lambda x, *t: ln_ffn_ref(
-        x, dict(zip(FFN_KEYS, t)), eps), x, *(ffn[k] for k in FFN_KEYS))
+        x, dict(zip(FFN_KEYS, t)), eps), x, *ffn_t)
 
 
 ln_ffn.launches = 0

@@ -26,6 +26,15 @@ attention branch and by tail variant.
 amp_w/amp_b/pha_w/pha_b [C/2], wqkv [3C/2, C/2] (out, in), bqkv [3C/2],
 pos [heads, win^2, win^2], proj_w [C, C] (out, in), proj_b [C], and
 `ffn`, the FeedForward's dict of `ops/ffn_kernel.py`.
+
+Storage (`ops.storage_dtype`): x (and out) float32 or bfloat16, upcast as
+loaded, math float32, out rounded once as stored. `branch_dtype`
+bfloat16 rounds y1, x2 and x1 to bfloat16 where level 2 stores them in
+that dtype (the kernel keeps them in float32 scratch, rounded), so that
+the block computes level 2's function in either storage mode; the JAX
+package's block kernel skips that rounding (ROADMAP C.8). The kernel
+takes x float32 with no branch rounding (float32 storage) or either
+dtype with it; the plain version takes any combination.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import collections
 
 import torch
 
-from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops import _cuda, upcast
 from lgteun_tpu_torch.ops.ffn_kernel import (_WIDE_SLOT, _ffn_shapes,
                                              _fragments, block_tail_ref,
                                              check_tail_args, tail_variant,
@@ -52,13 +61,16 @@ _MIXER = ("ln_w", "ln_b", "amp_w", "amp_b", "pha_w", "pha_b")
 
 
 def lgb_block_ref(x, blk: dict, heads: int = 2, win: int = 8,
-                  eps: float = 1e-5):
-    """Plain version: the three plain stages in turn."""
-    y1, x2 = ln_mixer_head_ref(x, *(blk[k] for k in _MIXER), eps)
+                  eps: float = 1e-5, branch_dtype=None, out_dtype=None):
+    """Plain version: the three plain stages in turn, y1, x2 and x1 of
+    `branch_dtype` (default: unrounded, the dtype of x's math), the result
+    of `out_dtype` (default x's dtype)."""
+    branch = branch_dtype or upcast(x).dtype
+    y1, x2 = ln_mixer_head_ref(x, *(blk[k] for k in _MIXER), eps, branch)
     x1 = window_attention_ref(y1, blk["wqkv"], blk["bqkv"], blk["pos"],
-                              heads, win)
+                              heads, win, branch)
     return block_tail_ref(x, x1, x2, blk["proj_w"], blk["proj_b"],
-                          blk["ffn"], eps)
+                          blk["ffn"], eps, out_dtype=out_dtype or x.dtype)
 
 
 def lgb_attention_branch(c2: int, heads: int, win: int) -> str:
@@ -145,12 +157,12 @@ def lgb_item_needs(s: dict, kind: str, image: int) -> dict:
 
 
 def lgb_block(x, blk: dict, heads: int = 2, win: int = 8,
-              eps: float = 1e-5):
-    """One LGB block on [B, C, H, W] -> [B, C, H, W] (same contract as
-    `lgb_block_ref`)."""
+              eps: float = 1e-5, branch_dtype=None):
+    """One LGB block on [B, C, H, W] -> [B, C, H, W] of x's dtype (same
+    contract as `lgb_block_ref`; no gradient)."""
     if x.device.type == "cpu":
-        return lgb_block_ref(x, blk, heads, win, eps)
-    out = _launch(x, blk, heads, win, eps, 0)
+        return lgb_block_ref(x, blk, heads, win, eps, branch_dtype)
+    out = _launch(x, blk, heads, win, eps, 0, branch_dtype)
     branch = lgb_attention_branch(x.shape[1] // 2, heads, win)
     lgb_block.launches += 1
     lgb_block.variants[branch] += 1
@@ -158,12 +170,19 @@ def lgb_block(x, blk: dict, heads: int = 2, win: int = 8,
     return out
 
 
-def _launch(x, blk: dict, heads: int, win: int, eps: float, blocks: int):
+def _launch(x, blk: dict, heads: int, win: int, eps: float, blocks: int,
+            branch_dtype=None):
     """Check the arguments and launch the kernel on a grid of `blocks`
     blocks (0: one an SM, as `lgb_block` runs it; fewer only to exercise
     the work list: its output is the same bit for bit); return out."""
     if x.device.type != "cuda":
         raise ValueError(f"lgb_block: unsupported device {x.device}")
+    if branch_dtype not in (None, torch.bfloat16) or (
+            branch_dtype is None and x.dtype == torch.bfloat16):
+        raise ValueError(
+            "lgb_block: takes (x, branch_dtype) as (float32, None), "
+            f"(float32, bfloat16) or (bfloat16, bfloat16), got ({x.dtype}, "
+            f"{branch_dtype})")
     b, c, h, w = x.shape
     c2, c4, s = c // 2, blk["ffn"]["w1"].shape[0], win * win
     if h % win or w % win or c2 % heads or s > 64:
@@ -181,7 +200,8 @@ def _launch(x, blk: dict, heads: int, win: int, eps: float, blocks: int):
                          **{k: blk[k] for k in mixer})
     check_tail_args("lgb_block", x, dict(blk["ffn"], proj_w=blk["proj_w"],
                                          proj_b=blk["proj_b"]),
-                    dict(_ffn_shapes(c, c4), proj_w=(c, c), proj_b=(c,)))
+                    dict(_ffn_shapes(c, c4), proj_w=(c, c), proj_b=(c,)),
+                    ("x",))
     branch = lgb_attention_branch(c2, heads, win)
     wqkv = (_wqkv_fragments(blk["wqkv"], heads) if branch == "tc"
             else blk["wqkv"])
@@ -189,7 +209,7 @@ def _launch(x, blk: dict, heads: int, win: int, eps: float, blocks: int):
     slots = (torch.cuda.get_device_properties(x.device).multi_processor_count
              if tail_variant(c) == "wide" else 0)
     scratch = torch.empty(3 * b * c2 * h * w + slots * _WIDE_SLOT,
-                          device=x.device, dtype=x.dtype)
+                          device=x.device, dtype=torch.float32)
     # the list's head and each image's LN, plane and window counts, one
     # 128-byte line each: zero before the launch (nothing in the kernel
     # zeroes them)
@@ -199,11 +219,14 @@ def _launch(x, blk: dict, heads: int, win: int, eps: float, blocks: int):
                                                      win)),
                          dtype=torch.int32)   # host memory, read at launch
     out = torch.empty_like(x)
-    _cuda.launch("lgteun_lgb_block", x.device, x,
-                 *(blk[k] for k in _MIXER), fft_tables(h, w, x.device), wqkv,
-                 blk["bqkv"], blk["pos"], _fragments(blk["proj_w"], c),
-                 blk["proj_b"], *tail_weights(blk["ffn"]), scratch, counters,
-                 out, b, c, c4, h, w, heads, win, sched, blocks,
+    rounded = branch_dtype is not None
+    _cuda.launch("lgteun_lgb_block_bf16" if rounded else "lgteun_lgb_block",
+                 x.device, x, *(blk[k] for k in _MIXER),
+                 fft_tables(h, w, x.device), wqkv, blk["bqkv"], blk["pos"],
+                 _fragments(blk["proj_w"], c), blk["proj_b"],
+                 *tail_weights(blk["ffn"]), scratch, counters, out, b, c, c4,
+                 h, w, heads, win, sched, blocks,
+                 *((_cuda.storage_flag(x),) if rounded else ()),
                  (c2 // heads) ** -0.5, eps)
     return out
 

@@ -27,6 +27,16 @@ and for `chip_smoke.py`, which holds the card's tables to them. The
 wrappers count their launches by the block layout the kernel picks
 (`mixer_variant`, `variants`).
 
+Storage (`ops.storage_dtype`): x may be float32 or bfloat16, and the
+head's y1 and x2 float32 or bfloat16 (`out_dtype`; default x's dtype:
+(float32, float32), (float32, bfloat16) or (bfloat16, bfloat16)); the
+mixer alone takes and gives one dtype. A bfloat16 input is upcast as
+loaded, all math is float32 (the mixer is fed the LN's float32 value,
+as the JAX head kernel does, ROADMAP C.35), and each output is rounded
+once to nearest even as stored; the plain versions spell that out. The
+bfloat16 entries are for eval: given a tensor that needs a gradient
+they raise (training runs float32 storage).
+
 Branch cut: bins with exactly zero imaginary part and a negative real
 part have phase +-pi by the sign of that zero, and the learned phase
 scale turns the 2*pi ambiguity into a value change. The kernel and the
@@ -40,7 +50,7 @@ import collections
 
 import torch
 
-from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops import _cuda, upcast
 from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 
@@ -85,9 +95,11 @@ def plane_rfft2(x: torch.Tensor) -> torch.Tensor:
 
 def global_mixer_ref(x: torch.Tensor, amp_w: torch.Tensor,
                      amp_b: torch.Tensor, pha_w: torch.Tensor,
-                     pha_b: torch.Tensor) -> torch.Tensor:
+                     pha_b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """Plain FFT amp/phase mixer on [B, C, H, W] (reference
-    LGT.py:149-180, epsilons and zero-bin convention included).
+    LGT.py:149-180, epsilons and zero-bin convention included); a
+    bfloat16 x upcast, the result rounded once to `out_dtype` (default
+    x's dtype).
 
     Written so that every FFT backend gives the same values as pocketfft
     on the CPU: the exact zero bins of planes constant along an axis are
@@ -103,8 +115,9 @@ def global_mixer_ref(x: torch.Tensor, amp_w: torch.Tensor,
     the double `where` hands |z| and angle(z) a safe point there, as
     `lgteun_tpu/models/common/lgt.py:173-181` does (ROADMAP C.2)."""
     w = x.shape[-1]
-    spec = mixer_spectrum(plane_rfft2(x), w, amp_w, amp_b, pha_w, pha_b)
-    return mixer_inverse(spec, w)
+    spec = mixer_spectrum(plane_rfft2(upcast(x)), w, amp_w, amp_b, pha_w,
+                          pha_b)
+    return mixer_inverse(spec, w).to(out_dtype or x.dtype)
 
 
 def amp_phase(z: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -165,11 +178,15 @@ def mixer_inverse(spec: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def ln_mixer_head_ref(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
-                      eps: float = 1e-5):
-    """Plain version of the mixer head -> (y1, x2), each [B, C/2, H, W]."""
-    y = channel_layer_norm(x, ln_w, ln_b, eps)
+                      eps: float = 1e-5, out_dtype=None):
+    """Plain version of the mixer head -> (y1, x2), each [B, C/2, H, W]
+    of `out_dtype` (default x's dtype): the LN of the upcast x in
+    float32, the mixer fed its float32 value, each output rounded once."""
+    out_dtype = out_dtype or x.dtype
+    y = channel_layer_norm(upcast(x), ln_w, ln_b, eps)
     c2 = x.shape[1] // 2
-    return y[:, :c2], global_mixer_ref(y[:, c2:], amp_w, amp_b, pha_w, pha_b)
+    return y[:, :c2].to(out_dtype), global_mixer_ref(
+        y[:, c2:], amp_w, amp_b, pha_w, pha_b, out_dtype)
 
 
 def fft_plan(n: int) -> list[int] | None:
@@ -311,12 +328,18 @@ def _check_plane(name: str, x: torch.Tensor) -> None:
 
 
 def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
-                  eps: float = 1e-5):
-    """Mixer head on [B, C, H, W] -> (y1, x2), each [B, C/2, H, W].
-    ln_w/ln_b: [C]; amp_w/amp_b/pha_w/pha_b: [C/2]."""
+                  eps: float = 1e-5, out_dtype=None):
+    """Mixer head on [B, C, H, W] -> (y1, x2), each [B, C/2, H, W] of
+    `out_dtype` (default x's dtype; module docstring). ln_w/ln_b: [C];
+    amp_w/amp_b/pha_w/pha_b: [C/2]."""
+    out_dtype = out_dtype or x.dtype
     if _cuda.plain_on_cpu("ln_mixer_head", x):
         return ln_mixer_head_ref(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
-                                 eps)
+                                 eps, out_dtype)
+    weights = (ln_w, ln_b, amp_w, amp_b, pha_w, pha_b)
+    bf16 = torch.bfloat16 in (x.dtype, out_dtype)
+    if bf16:
+        _cuda.check_eval_storage("ln_mixer_head", x, *weights)
 
     def kernel(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b):
         b, c, h, w = x.shape
@@ -329,20 +352,39 @@ def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
                 p.shape != (c2,) for p in (amp_w, amp_b, pha_w, pha_b)):
             raise ValueError("ln_mixer_head: parameter shapes do not match "
                              "C")
-        _cuda.check_cuda_f32("ln_mixer_head", x.device, x=x, ln_w=ln_w,
+        _cuda.check_cuda_f32("ln_mixer_head", x.device, ln_w=ln_w,
                              ln_b=ln_b, amp_w=amp_w, amp_b=amp_b,
                              pha_w=pha_w, pha_b=pha_b)
-        y1 = torch.empty((b, c2, h, w), device=x.device, dtype=x.dtype)
-        x2 = torch.empty_like(y1)
-        _cuda.launch("lgteun_ln_mixer_head", x.device, x, ln_w, ln_b, amp_w,
-                     amp_b, pha_w, pha_b, fft_tables(h, w, x.device), y1, x2,
-                     b, c, h, w, eps)
+        tables = fft_tables(h, w, x.device)
+        if bf16:
+            _cuda.check_cuda("ln_mixer_head", x.device, _cuda.STORAGE,
+                             x=x)
+            if out_dtype != torch.bfloat16:
+                raise ValueError(
+                    "ln_mixer_head: takes (x, y1/x2) as (float32, float32), "
+                    "(float32, bfloat16) or (bfloat16, bfloat16), got "
+                    f"({x.dtype}, {out_dtype})")
+            y1 = torch.empty((b, c2, h, w), device=x.device,
+                             dtype=torch.bfloat16)
+            x2 = torch.empty_like(y1)
+            y2 = torch.empty(y1.shape, device=x.device)
+            _cuda.launch("lgteun_ln_mixer_head_bf16", x.device, x, *weights,
+                         tables, y1, x2, y2, b, c, h, w,
+                         _cuda.storage_flag(x), eps)
+        else:
+            _cuda.check_cuda_f32("ln_mixer_head", x.device, x=x)
+            y1 = torch.empty((b, c2, h, w), device=x.device, dtype=x.dtype)
+            x2 = torch.empty_like(y1)
+            _cuda.launch("lgteun_ln_mixer_head", x.device, x, *weights,
+                         tables, y1, x2, b, c, h, w, eps)
         ln_mixer_head.launches += 1
         ln_mixer_head.variants[mixer_variant(b * c2, x.device)] += 1
         return y1, x2
 
-    return recompute(kernel, lambda *t: ln_mixer_head_ref(*t, eps), x, ln_w,
-                     ln_b, amp_w, amp_b, pha_w, pha_b)
+    if bf16:
+        return kernel(x, *weights)
+    return recompute(kernel, lambda *t: ln_mixer_head_ref(*t, eps), x,
+                     *weights)
 
 
 ln_mixer_head.launches = 0
@@ -350,27 +392,36 @@ ln_mixer_head.variants = collections.Counter()
 
 
 def global_mixer(x, amp_w, amp_b, pha_w, pha_b):
-    """FFT amp/phase mixer on [B, C, H, W] -> [B, C, H, W] (same
-    contract as `global_mixer_ref`); amp_w/amp_b/pha_w/pha_b: [C]."""
+    """FFT amp/phase mixer on [B, C, H, W] -> [B, C, H, W] of x's dtype
+    (same contract as `global_mixer_ref`); amp_w/amp_b/pha_w/pha_b:
+    [C]."""
     if _cuda.plain_on_cpu("global_mixer", x):
         return global_mixer_ref(x, amp_w, amp_b, pha_w, pha_b)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        _cuda.check_eval_storage("global_mixer", x, amp_w, amp_b, pha_w,
+                                 pha_b)
 
     def kernel(x, amp_w, amp_b, pha_w, pha_b):
         b, c, h, w = x.shape
         _check_plane("global_mixer", x)
         if any(p.shape != (c,) for p in (amp_w, amp_b, pha_w, pha_b)):
             raise ValueError("global_mixer: parameter shapes do not match C")
-        _cuda.check_cuda_f32("global_mixer", x.device, x=x, amp_w=amp_w,
+        _cuda.check_cuda("global_mixer", x.device, _cuda.STORAGE, x=x)
+        _cuda.check_cuda_f32("global_mixer", x.device, amp_w=amp_w,
                              amp_b=amp_b, pha_w=pha_w, pha_b=pha_b)
-        if x.data_ptr() % 8:  # the kernel reads the rows as float2
+        if x.data_ptr() % (2 * x.element_size()):  # rows read as pairs
             x = x.clone()
         out = torch.empty_like(x)
-        _cuda.launch("lgteun_global_mixer", x.device, x, amp_w, amp_b, pha_w,
+        _cuda.launch("lgteun_global_mixer_bf16" if bf16 else
+                     "lgteun_global_mixer", x.device, x, amp_w, amp_b, pha_w,
                      pha_b, fft_tables(h, w, x.device), out, b, c, h, w)
         global_mixer.launches += 1
         global_mixer.variants[mixer_variant(b * c, x.device)] += 1
         return out
 
+    if bf16:
+        return kernel(x, amp_w, amp_b, pha_w, pha_b)
     return recompute(kernel, global_mixer_ref, x, amp_w, amp_b, pha_w, pha_b)
 
 

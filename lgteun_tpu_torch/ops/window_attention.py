@@ -27,6 +27,14 @@ wrapper counts its launches in `launches` and by branch in `variants`.
 the card (`ops.autograd.recompute`: the kernel forward, the plain
 version's backward). The weights keep torch's layout: wqkv [3C, C] (out,
 in, the to_qkv conv weight), bqkv [3C], pos [heads, S, S].
+
+Storage (`ops.storage_dtype`): `window_attention` and
+`window_attention_windows` take x as float32 or bfloat16 and give out in
+x's dtype; a bfloat16 x is upcast as loaded, all math (the products'
+3xTF32 split included) is float32, and out is rounded once to nearest
+even as stored. The plain versions spell that out (`out_dtype`: the
+result's dtype, default x's). The bfloat16 entries are for eval (no
+backward); `window_attention_rows` (on no path) takes float32 only.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import collections
 import torch
 import torch.nn.functional as F
 
-from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops import _cuda, upcast
 from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.ffn_kernel import tf32_split
 
@@ -63,29 +71,35 @@ def window_unpartition(xt, win: int, h: int, w: int):
             .permute(0, 3, 1, 4, 2, 5).reshape(b, c, h, w))
 
 
-def window_attention_rows_ref(xw, wqkv, bqkv, pos, heads: int):
-    """Plain version on [N, S, C] windows -> [N, S, C]."""
+def window_attention_rows_ref(xw, wqkv, bqkv, pos, heads: int,
+                              out_dtype=None):
+    """Plain version on [N, S, C] windows -> [N, S, C] of `out_dtype`
+    (default xw's; module docstring)."""
     n, s, c = xw.shape
     hd = c // heads
-    qkv = torch.einsum("nsc,dc->nsd", xw, wqkv) + bqkv
+    out_dtype = out_dtype or xw.dtype
+    qkv = torch.einsum("nsc,dc->nsd", upcast(xw), wqkv) + bqkv
     q, k, v = (t.reshape(n, s, heads, hd).transpose(1, 2)
                for t in qkv.split(c, dim=-1))
     sim = torch.einsum("nhid,nhjd->nhij", q * hd ** -0.5, k) + pos[None]
     out = torch.einsum("nhij,nhjd->nhid", torch.softmax(sim, dim=-1), v)
-    return out.transpose(1, 2).reshape(n, s, c)
+    return out.transpose(1, 2).reshape(n, s, c).to(out_dtype)
 
 
-def window_attention_windows_ref(xt, wqkv, bqkv, pos, heads: int):
+def window_attention_windows_ref(xt, wqkv, bqkv, pos, heads: int,
+                                 out_dtype=None):
     """Plain version on [N, C, S] windows -> [N, C, S]."""
     return window_attention_rows_ref(xt.transpose(1, 2), wqkv, bqkv, pos,
-                                     heads).transpose(1, 2)
+                                     heads, out_dtype).transpose(1, 2)
 
 
-def window_attention_ref(y, wqkv, bqkv, pos, heads: int, win: int):
+def window_attention_ref(y, wqkv, bqkv, pos, heads: int, win: int,
+                         out_dtype=None):
     """Plain version on [B, C, H, W] -> [B, C, H, W]."""
     h, w = y.shape[-2:]
     return window_unpartition(window_attention_windows_ref(
-        window_partition(y, win), wqkv, bqkv, pos, heads), win, h, w)
+        window_partition(y, win), wqkv, bqkv, pos, heads, out_dtype), win,
+        h, w)
 
 
 def attention_pad(v: int) -> int:
@@ -161,7 +175,8 @@ def _launch(entry: str, wrapper, x, wqkv, bqkv, pos, out, dims: tuple,
     wrapper.variants[branch] += 1
 
 
-def _check(name, x, c, heads, win, wqkv, bqkv, pos):
+def _check(name, x, c, heads, win, wqkv, bqkv, pos,
+           dtypes=_cuda.STORAGE):
     s = win * win
     if c % heads or s > 64:
         raise ValueError(f"{name}: need C divisible by {heads} and win <= 8, "
@@ -169,7 +184,22 @@ def _check(name, x, c, heads, win, wqkv, bqkv, pos):
     if (wqkv.shape != (3 * c, c) or bqkv.shape != (3 * c,)
             or pos.shape != (heads, s, s)):
         raise ValueError(f"{name}: parameter shapes do not match")
-    _cuda.check_cuda_f32(name, x.device, x=x, wqkv=wqkv, bqkv=bqkv, pos=pos)
+    _cuda.check_cuda(name, x.device, dtypes, x=x)
+    _cuda.check_cuda_f32(name, x.device, wqkv=wqkv, bqkv=bqkv, pos=pos)
+
+
+def _storage_entry(entry: str, x) -> str:
+    """`entry`, or its bf16 storage twin for a bfloat16 x."""
+    return entry + "_bf16" if x.dtype == torch.bfloat16 else entry
+
+
+def _eval_or_recompute(name, kernel, plain, x, *weights):
+    """`kernel` on a bfloat16 x (eval only: no gradient may be recorded),
+    else differentiable through `recompute`."""
+    if x.dtype == torch.bfloat16:
+        _cuda.check_eval_storage(name, x, *weights)
+        return kernel(x, *weights)
+    return recompute(kernel, plain, x, *weights)
 
 
 def window_attention(y, wqkv, bqkv, pos, heads: int, win: int):
@@ -185,13 +215,14 @@ def window_attention(y, wqkv, bqkv, pos, heads: int, win: int):
     def kernel(y, wqkv, bqkv, pos):
         _check("window_attention", y, c, heads, win, wqkv, bqkv, pos)
         out = torch.empty_like(y)
-        _launch("lgteun_window_attention", window_attention, y, wqkv, bqkv,
-                pos, out, (b, c, h, w, heads, win, (c // heads) ** -0.5), c,
-                heads, win)
+        _launch(_storage_entry("lgteun_window_attention", y),
+                window_attention, y, wqkv, bqkv, pos, out,
+                (b, c, h, w, heads, win, (c // heads) ** -0.5), c, heads, win)
         return out
 
-    return recompute(kernel, lambda *t: window_attention_ref(*t, heads, win),
-                     y, wqkv, bqkv, pos)
+    return _eval_or_recompute(
+        "window_attention", kernel,
+        lambda *t: window_attention_ref(*t, heads, win), y, wqkv, bqkv, pos)
 
 
 window_attention.launches = 0
@@ -199,17 +230,18 @@ window_attention.variants = collections.Counter()
 
 
 def _launch_windows(entry, wrapper, x, wqkv, bqkv, pos, heads,
-                    channel_dim):
-    """Launch `entry` (or its FP32-core twin) on the windows of x ([N, C,
-    S] or [N, S, C]) and count it on `wrapper`."""
+                    channel_dim, dtypes=_cuda.STORAGE):
+    """Launch `entry` (or its FP32-core twin, or their bf16 storage twins
+    for a bfloat16 x) on the windows of x ([N, C, S] or [N, S, C]) and
+    count it on `wrapper`."""
     name = wrapper.__name__
     n, c, s = x.shape[0], x.shape[channel_dim], x.shape[3 - channel_dim]
     win = int(round(s ** 0.5))
     if win * win != s:
         raise ValueError(f"{name}: S must be a square, got {tuple(x.shape)}")
-    _check(name, x, c, heads, win, wqkv, bqkv, pos)
+    _check(name, x, c, heads, win, wqkv, bqkv, pos, dtypes)
     out = torch.empty_like(x)
-    _launch(entry, wrapper, x, wqkv, bqkv, pos, out,
+    _launch(_storage_entry(entry, x), wrapper, x, wqkv, bqkv, pos, out,
             (n, c, heads, win, (c // heads) ** -0.5), c, heads, win)
     return out
 
@@ -224,9 +256,10 @@ def window_attention_windows(xt, wqkv, bqkv, pos, heads: int):
                                window_attention_windows, xt, wqkv, bqkv,
                                pos, heads, 1)
 
-    return recompute(kernel,
-                     lambda *t: window_attention_windows_ref(*t, heads),
-                     xt, wqkv, bqkv, pos)
+    return _eval_or_recompute(
+        "window_attention_windows", kernel,
+        lambda *t: window_attention_windows_ref(*t, heads), xt, wqkv, bqkv,
+        pos)
 
 
 window_attention_windows.launches = 0
@@ -240,7 +273,7 @@ def window_attention_rows(xw, wqkv, bqkv, pos, heads: int):
         return window_attention_rows_ref(xw, wqkv, bqkv, pos, heads)
     return _launch_windows("lgteun_window_attention_rows",
                            window_attention_rows, xw, wqkv, bqkv, pos, heads,
-                           2)
+                           2, (torch.float32,))
 
 
 window_attention_rows.launches = 0

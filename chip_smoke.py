@@ -203,8 +203,19 @@ and the scene MP/s under bf16res at tile 144 / halo 8; after the
 training phases, the first training step's loss under bf16res (equal to
 float32 storage's) and the PSNR (float64 oracle, 16 held-out scenes) of
 800-iteration port-trained weights in float32 storage at level 2 and in
-each mode at levels 1, 2 and 3 (bf16res within 0.05 dB at levels 2 and
-3; see QUALITY_*).
+each mode at levels 1, 2 and 3 (bf16res within 0.05 dB at every level;
+see QUALITY_*). The bf16 rows also hold B4 from float32 x (the level-1
+prior's mixer, ROADMAP C.35) and the bf16 entries of INNT's two
+searches (both branches, the transferred values outside the float64
+near ties) and of MDCUN's attention. The rest of the zoo under
+`LGTEUN_EVAL_DTYPE=bf16` (`bf16 zoo ...` lines, after UnlgFormer's
+modes): LightNet (its bf16 tap path, no kernel), MDCUN, INNT on both
+search routes, PanFormer, SFIIN (the blanket cast) and MutInf (float32,
+as in JAX) at batch 4 with seeded weights: launches a forward, the
+drift's envelope (CPU plain path), card vs CPU plain in the mode against
+the CPU's own spread at a one-step input change (BF16_ZOO_*), MutInf's
+bits equal to float32's, and batch-1 latency and batch-16 images/s in
+turns with float32 (printed only).
 
 Any failed phase raises (non-zero exit). With no CUDA device the script
 exits non-zero before printing any result. The last line of stdout is
@@ -437,10 +448,27 @@ BF16_SPREAD = 1.5
 # quality with trained weights: QUALITY_ITERS iterations of the shipped
 # config on QUALITY_TRAIN synthetic WV-3 pairs, then PSNR (float64
 # oracle) on QUALITY_SCENES held-out scenes; bf16res within
-# QUALITY_BUDGET_DB of float32 storage at levels 2 and 3. Level 1 rounds
-# the global mixer's input, as JAX's level 1 does (ROADMAP C.35), which
-# cost 0.26-0.33 dB on an H100 (PERF.md §6): printed beside the budget,
-# not held to it
+# QUALITY_BUDGET_DB of float32 storage at levels 1, 2 and 3 (level 1
+# once rounded the global mixer's input, as JAX's level-1 mirror does,
+# which cost 0.26-0.33 dB on an H100, PERF.md §6; mended since, ROADMAP
+# C.35)
+# the rest of the zoo under LGTEUN_EVAL_DTYPE=bf16 (`run_bf16_zoo`):
+# (config, environment of the build, launches per forward (every other
+# kernel 0), images of the CPU comparison). LightNet runs its bf16 tap
+# path (plain torch, as JAX's XLA path), no kernel; MDCUN and INNT reach
+# the bf16 entries of B12 and B10 / B11; MutInf stays float32 (JAX's
+# never casts). The card is held to the CPU plain path in the mode as
+# UnlgFormer's modes are (BF16_SPREAD of the CPU's own spread), the
+# spread taken at a one-bf16-step input change (`bf16_step`): the cast
+# rounds the inputs, so a float32 rounding of them is lost
+BF16_ZOO = (("lightnet.py", {}, {}, 2),
+            ("MDCUN.py", {}, {"neighborhood_attention": 4}, 1),
+            ("INNT.py", {"LGTEUN_FUSED_TM": "1"}, {"texture_match": 1}, 1),
+            ("INNT.py", {"LGTEUN_FUSED_TM": "0"}, {"patch_match": 1}, 1),
+            ("PanFormer.py", {}, {}, 2),
+            ("SFIIN.py", {}, {}, 2),
+            ("MutInf.py", {}, {}, 2))
+BF16_ZOO_TIMED = 5
 QUALITY_ITERS = 800
 QUALITY_TRAIN = 32
 QUALITY_SCENES = 16
@@ -1285,6 +1313,12 @@ def bf16_kernel_cases(gen: torch.Generator):
                lambda: global_mixer(y1, *mix),
                lambda: global_mixer_ref(y1, *mix, out_dtype=f32),
                (y1,) + mix, gshape)
+        # the level-1 prior's mixer: the float32 LN in, bf16 out (C.35)
+        x2f = n(b, c2, hw, hw)
+        yield ("global_mixer", gshape, "float32>bf16",
+               lambda: global_mixer(x2f, *mix, out_dtype=BF16),
+               lambda: global_mixer_ref(x2f, *mix, out_dtype=f32),
+               (x2f,) + mix, gshape)
         yield ("ln_ffn", shape, "bf16", lambda: ln_ffn(xb, ffn),
                lambda: ln_ffn_ref(xb, ffn, out_dtype=f32), (xb, ffn), shape)
         xt = window_partition(y1, 8)
@@ -1304,15 +1338,59 @@ def bf16_kernel_cases(gen: torch.Generator):
                                                out_dtype=f32),
                    (xs, blk), shape)
 
+    # INNT's searches and MDCUN's attention on bf16, as the blanket cast
+    # (LGTEUN_EVAL_DTYPE=bf16) gives them their inputs: each search on both
+    # branches (tc: C 4 / K 36 at side 24; fp32: C 8 / K 72), the
+    # attention at 8 and 4 bands (its weights bf16 too: the wrapper upcasts
+    # them)
+    from lgteun_tpu_torch.ops.nonlocal_kernel import (
+        neighborhood_attention, neighborhood_attention_ref)
+    from lgteun_tpu_torch.ops.patch_match_kernel import (patch_match,
+                                                         patch_match_ref)
+    from lgteun_tpu_torch.ops.texture_match_kernel import (
+        row_normalize, texture_match, texture_match_ref)
+
+    def patch_images(nimg, c, side=24):
+        x = n(nimg, c, side, side)
+        x[: nimg // 4, :, :8] = 0
+        x[: nimg // 4, :, :, :8] = 0
+        return x.reshape(nimg, c, side * side).to(BF16)
+
+    for nimg, c in ((256 * b, 4), (64, 8)):
+        shape = f"{nimg}x{c}x576"
+        tm = (patch_images(nimg, c), patch_images(nimg, c))
+        yield ("texture_match", shape, "bf16",
+               lambda tm=tm: texture_match(*tm),
+               lambda tm=tm: texture_match_ref(*tm, out_dtype=f32), tm,
+               shape)
+    for nimg, c in ((256 * b, 4), (64, 8)):
+        shape = f"{nimg}x576x{9 * c}"
+        lr_u, ref_u = (F.unfold(patch_images(nimg, c).view(nimg, c, 24, 24),
+                                3, padding=1) for _ in range(2))
+        pm = (row_normalize(lr_u, 1).transpose(1, 2).contiguous(),
+              row_normalize(ref_u, 1).transpose(1, 2).contiguous(), ref_u)
+        yield ("patch_match", shape, "bf16", lambda pm=pm: patch_match(*pm),
+               lambda pm=pm: patch_match_ref(*pm, out_dtype=f32), pm, shape)
+    for c in (8, 4):
+        shape = f"{b}x{c}x128x128"
+        na = (n(b, c, 128, 128).to(BF16),) + tuple(
+            n(c, c, scale=c ** -0.5).to(BF16) for _ in range(4))
+        yield ("neighborhood_attention", shape, "bf16",
+               lambda na=na: neighborhood_attention(*na),
+               lambda na=na: neighborhood_attention_ref(*na, out_dtype=f32),
+               na + (15,), shape)
+
 
 def run_bf16_kernels(gen: torch.Generator, record: dict, card: str) -> None:
-    """Each bf16 entry of B1-B6 and B8 against its plain version on the
-    card (BF16_REL and BF16_EQUAL), its time beside the float32 entry's
-    at the same shape, and its bytes bound (each tensor's own element
-    size); the rows go into `record[name]["bf16"]`. The whole block
-    rounds its branches inside: it is also held to the level-2 chain on
-    the card in the same storage (`level2_chain`, the same device
-    code)."""
+    """Each bf16 entry of B1-B6, B8 and B10-B12 (B4 also float32 in,
+    bf16 out) against its plain version on the card (BF16_REL and
+    BF16_EQUAL; the searches' transferred values outside the float64
+    near ties' footprint, `near_tie_mask`, as their float32 entries are
+    held), its time beside the float32 entry's at the same shape, and
+    its bytes bound (each tensor's own element size); the rows go into
+    `record[name]["bf16"]`. The whole block rounds its branches inside:
+    it is also held to the level-2 chain on the card in the same storage
+    (`level2_chain`, the same device code)."""
     from lgteun_tpu_torch.ops.norm import channel_layer_norm
     wrappers = reset_launches()
     failures = []
@@ -1329,10 +1407,22 @@ def run_bf16_kernels(gen: torch.Generator, record: dict, card: str) -> None:
                                        tensors[2].double())[:, x.shape[1]
                                                             // 2:]
             cut = mixer_cut_planes(x)
+        # the searches' picks may differ at float64 near ties of the
+        # (upcast) inputs: their transferred values are held elsewhere
+        keep, near = None, ""
+        if name in ("texture_match", "patch_match"):
+            mask, n_near = near_tie_mask(name, tensors, p[0])
+            keep = ~mask
+            near = (f"; near-tie queries {n_near}, transferred values set "
+                    f"aside {int(mask.sum())} of {mask.numel()}")
+            if mask.sum() > NEAR_TIE_MAX_SHARE * mask.numel():
+                failures.append(f"{name} {shape} {label}: near ties")
         for i, (g, w) in enumerate(zip(got, p)):
             if g.dtype not in (BF16, torch.float32) or g.shape != w.shape:
                 raise AssertionError(f"bf16 {name} {shape} {label}: output "
                                      f"{g.dtype} {tuple(g.shape)}")
+            if keep is not None and i == 0:
+                g, w = g[keep], w[keep]
             scale = w.abs().max().item()
             over = ((g.float() - w).abs() - BF16_REL * w.abs()
                     - KERNEL_REL_TOL * scale)
@@ -1369,7 +1459,8 @@ def run_bf16_kernels(gen: torch.Generator, record: dict, card: str) -> None:
         plain_ms = time_ms(plain)
         f32_ms = record.get(name, {}).get("by_shape", {}).get(
             f32_shape, {}).get("ms", float("nan"))
-        equal = ", ".join(f"{v:.5f}" for v in shares) or "(float32 out)"
+        equal = (", ".join(f"{v:.5f}" for v in shares) or "(float32 out)"
+                 ) + near
         if cut is not None:
             equal += (f" (mixer planes set aside: {int(cut.sum())} of "
                       f"{cut.numel()}, BF16_CUT)")
@@ -1395,8 +1486,9 @@ def run_bf16_kernels(gen: torch.Generator, record: dict, card: str) -> None:
 
 
 def bf16_methods(cfg, env: dict):
-    """UnlgFormer on the card and on the CPU under `env`, the card's with
-    seeded weights (Runner.init) and the CPU's a copy of them."""
+    """cfg's method (UnlgFormer, or another of the zoo) on the card and on
+    the CPU under `env`, the card's with seeded weights (Runner.init) and
+    the CPU's a copy of them."""
     from lgteun_tpu_torch.registry import build_model
     from lgteun_tpu_torch.runner import Runner
     with mock.patch.dict(os.environ, env):
@@ -1548,13 +1640,127 @@ def run_bf16_forward(card: str, profile: bool) -> None:
         raise AssertionError(f"bf16 forward: {failures}")
 
 
+def run_bf16_zoo(card: str) -> None:
+    """Each of BF16_ZOO under LGTEUN_EVAL_DTYPE=bf16 on the card, seeded
+    weights, batch BF16_BATCH: the kernels launched a forward (every
+    other counter 0), finite float32 output, the mode's drift from
+    float32 (the CPU plain path's) inside BF16_DRIFT_*, card vs CPU plain
+    in the mode within BF16_SPREAD of the CPU plain path's own spread at
+    a one-bf16-step input change (BF16_ZOO_STEP), the card's own drift
+    within BF16_SPREAD of the CPU's; MutInf bit-equal to its float32
+    output. Then batch-1 latency and batch-16 images/s, float32 and
+    bf16 in turns (printed only)."""
+    from lgteun_tpu_torch.config import load_config
+    from lgteun_tpu_torch.data.pipeline import eval_batches
+
+    failures = []
+    for config, env, per_forward, n_cmp in BF16_ZOO:
+        cfg = load_config(os.path.join(CONFIGS, config))
+        tag = f"bf16 zoo {cfg.model_type}" + "".join(
+            f" ({k}={v})" for k, v in env.items())
+        ds = SceneDataset(cfg.eval_batch_size, cfg.ms_chans, SEED)
+        items = next(eval_batches(ds, cfg.eval_batch_size))[0]
+        first = {k: v[:BF16_BATCH] for k, v in items.items()
+                 if k != "image_id"}
+        cmp_ = {k: v[:n_cmp] for k, v in first.items()}
+        stepped = {k: bf16_step(v) for k, v in cmp_.items()}
+        runs = {}
+        for mode in ("", "bf16"):
+            runs[mode] = bf16_methods(cfg, dict(env, LGTEUN_EVAL_DTYPE=mode))
+        runner, cpu = runs["bf16"]
+        batch = runner.to_device(first)
+        runner.predict(batch)
+        torch.cuda.synchronize()
+        wrappers = reset_launches()
+        got = runner.predict(batch)
+        torch.cuda.synchronize()
+        counted = check_launches(tag, wrappers, per_forward, 1)
+        got = got.cpu()
+        ref_card = runs[""][0].predict(batch).cpu()
+        if got.dtype != torch.float32 or not torch.isfinite(got).all():
+            raise AssertionError(f"{tag}: output {got.dtype} not finite "
+                                 "float32")
+        if cfg.model_type == "MutInf":
+            same = torch.equal(got, ref_card)
+            print(f"{tag}: launches {sum(counted.values())}, float32 as in "
+                  f"JAX (eval_dtype {runner.method.eval_dtype}); bit-equal to "
+                  f"its float32 output: {same}  [{card}]")
+            if not same:
+                failures.append(f"{tag}: not float32's bits")
+        else:
+            ref = runs[""][1].apply(cmp_)
+            want, moved = cpu.apply(cmp_), cpu.apply(stepped)
+            scale = ref.abs().max().item()
+            drift = (want - ref).abs()
+            card_drift = (got - ref_card).abs()
+            d_mean = drift.mean().item()
+            gap = (got[:n_cmp] - want).abs().mean().item()
+            spread = (moved - want).abs().mean().item()
+            print(f"{tag}: launches per forward "
+                  f"{ {k: counted[k] for k in per_forward} }; drift from "
+                  f"float32 (cpu plain, {n_cmp} image(s)) mean {d_mean:.3e}"
+                  f" max {drift.max().item():.3e} (scale {scale:.3f}; card "
+                  f"mean {card_drift.mean().item():.3e} max "
+                  f"{card_drift.max().item():.3e}); mean|card - cpu plain| "
+                  f"{gap:.3e} = {gap / max(spread, 1e-30):.3f} of the cpu "
+                  f"plain path's own spread at a one-bf16-step input change"
+                  f" ({spread:.3e}; bound {BF16_SPREAD}) = "
+                  f"{gap / max(d_mean, 1e-30):.3f} of the drift  [{card}]")
+            if not (d_mean <= BF16_DRIFT_MEAN * scale
+                    and drift.max().item() <= BF16_DRIFT_MAX * scale):
+                failures.append(f"{tag}: drift outside the envelope")
+            if not (gap <= BF16_SPREAD * spread and card_drift.mean().item()
+                    <= BF16_SPREAD * d_mean):
+                failures.append(f"{tag}: card vs cpu {gap:.3e} (spread "
+                                f"{spread:.3e}), card drift "
+                                f"{card_drift.mean().item():.3e}")
+
+        # speed: float32 and bf16 in turns (printed only)
+        b1 = runner.to_device({k: v[:1] for k, v in items.items()
+                               if k != "image_id"})
+        b16 = runner.to_device(items)
+        lat, ips = collections.defaultdict(list), collections.defaultdict(
+            list)
+        for mode in ("", "bf16", "bf16", ""):
+            run = runs[mode][0]
+            for _ in range(2):
+                run.predict(b1)
+            for _ in range(BF16_ZOO_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run.predict(b1)
+                torch.cuda.synchronize()
+                lat[mode].append(time.perf_counter() - t0)
+            ips[mode].append(cfg.eval_batch_size / (time_ms(
+                lambda: run.predict(b16), iters=3, warmup=1) / 1e3))
+        print(f"{tag} speed: batch-1 latency median float32 "
+              f"{statistics.median(lat['']) * 1e3:.3f} ms, bf16 "
+              f"{statistics.median(lat['bf16']) * 1e3:.3f} ms; batch-"
+              f"{cfg.eval_batch_size} images/s float32 "
+              f"{statistics.mean(ips['']):.1f}, bf16 "
+              f"{statistics.mean(ips['bf16']):.1f} (turns float32 "
+              f"{', '.join(f'{v:.1f}' for v in ips[''])}, bf16 "
+              f"{', '.join(f'{v:.1f}' for v in ips['bf16'])})  [{card}]")
+    if failures:
+        raise AssertionError(f"bf16 zoo: {failures}")
+
+
+def bf16_step(a: np.ndarray) -> np.ndarray:
+    """Each value of a non-negative float32 array moved to the next
+    bfloat16 value above its own rounding: the blanket cast rounds the
+    inputs to bf16, so a float32 rounding of them is lost, and one bf16
+    step is the cast's own input rounding."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(BF16)
+    return (t.view(torch.int16) + 1).view(BF16).float().numpy()
+
+
 def run_bf16_quality(card: str) -> None:
     """Port-trained weights (QUALITY_ITERS iterations of the shipped
     config, batch 4, on QUALITY_TRAIN synthetic WV-3 pairs), then PSNR
     with the float64 oracle (metrics/numpy_ref) on QUALITY_SCENES
     held-out scenes: float32 storage at level 2, bf16res and bf16 at
     levels 1, 2 and 3; bf16res within QUALITY_BUDGET_DB of float32 at
-    levels 2 and 3 (level 1's and bf16's are printed: see QUALITY_*).
+    every level (bf16's are printed: see QUALITY_*).
     Also: the first training step under
     LGTEUN_EVAL_DTYPE=bf16res has the loss of float32 storage, bit for
     bit (training ignores the mode)."""
@@ -1632,7 +1838,7 @@ def run_bf16_quality(card: str) -> None:
             got = score({"LGTEUN_FUSE_LEVEL": level,
                          "LGTEUN_EVAL_DTYPE": mode})
             delta = got - base
-            held = mode == "bf16res" and level != "1"
+            held = mode == "bf16res"
             where = "in" if abs(delta) <= QUALITY_BUDGET_DB else "outside"
             print(f"bf16 quality: {mode} level {level} PSNR {got:.5f} dB, "
                   f"delta {delta:+.5f} dB"
@@ -1796,6 +2002,8 @@ def main() -> int:
     run_sixteen_bands(card)
     # 4c. UnlgFormer's bf16 storage modes at every level
     run_bf16_forward(card, opts.profile)
+    # 4d. the rest of the zoo under LGTEUN_EVAL_DTYPE=bf16
+    run_bf16_zoo(card)
 
     # 5. the scene engine, then the CLI on the same scene
     method = run_scene(card, opts.profile)
@@ -2022,15 +2230,16 @@ def print_sass(lib_path) -> None:
         head = fn.split("\n", 1)[0]
         search = next((k for k in ("tm_tc_kernel", "pm_tc_kernel")
                        if k in head), None)
+        bf16 = "<bf16>" if "nv_bfloat16" in head else ""
         if search:
             local = len(re.findall(r"\b(?:LDL|STL)\b", fn))
-            print(f"sass {search}: LDL/STL {local}, HGMMA "
+            print(f"sass {search}{bf16}: LDL/STL {local}, HGMMA "
                   f"{len(re.findall(r'HGMMA', fn))}")
             continue
         tc = next((k for k in MMA_KERNELS if k in head), None)
         if tc:
             inst = re.search(r"ILi(\d+)E", head)
-            label = tc + (f"<{inst.group(1)}>" if inst else "")
+            label = tc + (f"<{inst.group(1)}>" if inst else "") + bf16
             local = len(re.findall(r"\b(?:LDL|STL)\b", fn))
             hmma = len(re.findall(r"\bHMMA\b", fn))
             mma[tc] += hmma
@@ -2108,7 +2317,8 @@ def print_ptxas(lib_path) -> None:
             name = next((k for k in PTXAS_NAMES if k in mangled), None)
             inst = re.search(r"(?:fft_mixer_kernel|na_tc_kernel|"
                              r"na_fp32_kernel)ILi(\d+)E", mangled)
-            entry = name and name + (f"<{inst.group(1)}>" if inst else "")
+            entry = name and name + (f"<{inst.group(1)}>" if inst else "") \
+                + ("<bf16>" if "nv_bfloat16" in mangled else "")
         elif entry and ("spill" in line or "Used" in line):
             print(f"ptxas {entry}: {line.split(':', 1)[-1].strip()}")
 

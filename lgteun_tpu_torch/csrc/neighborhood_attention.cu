@@ -66,10 +66,24 @@
 // plus its halo. The channel count is a template bound (4, 8, 16 or 32)
 // with the true C masked. `lgteun_neighborhood_attention_tc` gives the
 // rule; the Python wrapper mirrors it and counts each branch.
+//
+// bf16 storage (LGTEUN_EVAL_DTYPE=bf16, MDCUN's eval forward in the
+// blanket cast, loads.cuh): x and out are __nv_bfloat16, x upcast exactly
+// as loaded (the residual adds the upcast x, as the Pallas kernel's
+// `out + x_slab` does, nonlocal_kernel.py:115-116), all math the float32
+// entry's, out rounded once to nearest even as stored (:161); the four
+// weights stay float (the wrapper upcasts the cast's bf16 matrices,
+// exactly). Both bodies take it; the entry is built in a unit of its
+// own, neighborhood_attention_bf16.cu, which defines LGTEUN_BF16_UNIT and
+// includes this file.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "loads.cuh"
+#ifdef LGTEUN_BF16_UNIT
+#undef LGTEUN_NA_STAMPS   // the float32 unit declares the stamps
+#endif
 #include "tc_tf32.cuh"
 
 // Clock stamps of the tensor-core body's phases (thread 0 of each block,
@@ -162,11 +176,12 @@ __host__ inline size_t na_tc_floats(int C, int fs, int runs = kRuns) {
   return 4 * (size_t)na_cp(C) * na_cp(C) + 2 * region;
 }
 
-template <int CP, int R>
+// T: the storage type of x and out (float or __nv_bfloat16).
+template <int CP, int R, class T>
 __global__ void __launch_bounds__(32 * R)
-na_tc_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+na_tc_kernel(const T* __restrict__ x, const float* __restrict__ wt,
              const float* __restrict__ wp, const float* __restrict__ wg,
-             const float* __restrict__ ww, float* __restrict__ out, int C,
+             const float* __restrict__ ww, T* __restrict__ out, int C,
              int H, int W, int fs, int runs_x, int rows_y) {
   constexpr int kSteps = CP / 8;       // logits k-steps = P.g n-tiles
   constexpr int kStr = CP + 4;         // channel stride of phi and g
@@ -182,7 +197,7 @@ na_tc_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   const int b = blockIdx.x / (runs_x * rows_y);
   const int y0 = ry * R, x0 = run * kRun;
   const size_t HW = (size_t)H * W;
-  const float* xb = x + (size_t)b * C * HW;
+  const T* xb = x + (size_t)b * C * HW;
   const Stamps stamps;
 
   for (int i = threadIdx.x; i < CP * CP; i += 32 * R) {
@@ -217,7 +232,7 @@ na_tc_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 #pragma unroll
         for (int c = 0; c < CP; ++c)
           xv[u][c] = (inside && c < C)
-                         ? __ldg(xb + c * HW + (size_t)gy * W + gx)
+                         ? load_act<false>(xb + c * HW + (size_t)gy * W + gx)
                          : 0.f;
       }
 #pragma unroll
@@ -266,8 +281,9 @@ na_tc_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       float xv[CP];
 #pragma unroll
       for (int c = 0; c < CP; ++c)
-        xv[c] = (gx < W && c < C) ? __ldg(xb + c * HW + (size_t)y * W + gx)
-                                  : 0.f;
+        xv[c] = (gx < W && c < C)
+                    ? load_act<false>(xb + c * HW + (size_t)y * W + gx)
+                    : 0.f;
 #pragma unroll
       for (int i = 0; i < 2 * kSteps; ++i) {
         const int d = 8 * (i / 2) + tq + 4 * (i % 2);
@@ -294,8 +310,9 @@ na_tc_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int d = tq + 4 * i, gx = x0 + gq + 8 * h;
-      xo[i][h] = d < C && gx < W ? __ldg(xb + d * HW + (size_t)y * W + gx)
-                                 : 0.f;
+      xo[i][h] = d < C && gx < W
+                     ? load_act<false>(xb + d * HW + (size_t)y * W + gx)
+                     : 0.f;
     }
   // the window masks of key chunks 0 and 1: bit 4 nt + e for element e
   // of n-tile nt (query gq + 8 (e / 2), key 32 ch + 8 nt + 2 tq + e % 2)
@@ -423,7 +440,7 @@ na_tc_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       ov[j][e] = (o[0][j][e] + o[1][j][e]) * l[e >> 1];
-  float* orow = out + (size_t)b * C * HW + (size_t)y * W;
+  T* orow = out + (size_t)b * C * HW + (size_t)y * W;
 #pragma unroll
   for (int d = 0; d < CP; ++d) {
     if (d >= C) break;
@@ -441,38 +458,38 @@ na_tc_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
       const int gx = x0 + gq + 8 * h;
       if ((d & 3) == tq && gx < W)
-        orow[(size_t)d * HW + gx] = xo[d >> 2][h] + part[h];
+        store_act(orow + (size_t)d * HW + gx, xo[d >> 2][h] + part[h]);
     }
   }
   stamps.at(5);
   stamps.end();
 }
 
-template <int CP, int R>
-int launch_na_tc_runs(const float* x, const float* wt, const float* wp,
-                      const float* wg, const float* ww, float* out, int B,
+template <int CP, int R, class T>
+int launch_na_tc_runs(const T* x, const float* wt, const float* wp,
+                      const float* wg, const float* ww, T* out, int B,
                       int C, int H, int W, int fs, cudaStream_t stream) {
   const size_t smem = sizeof(float) * na_tc_floats(C, fs, R);
   cudaError_t err = cudaFuncSetAttribute(
-      na_tc_kernel<CP, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      na_tc_kernel<CP, R, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   // all of the SM's 228 KB as shared memory (four blocks of 56 KB at C 8)
-  err = cudaFuncSetAttribute(na_tc_kernel<CP, R>,
+  err = cudaFuncSetAttribute(na_tc_kernel<CP, R, T>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const int runs_x = (W + kRun - 1) / kRun, rows_y = (H + R - 1) / R;
-  na_tc_kernel<CP, R><<<B * rows_y * runs_x, 32 * R, smem, stream>>>(
+  na_tc_kernel<CP, R, T><<<B * rows_y * runs_x, 32 * R, smem, stream>>>(
       x, wt, wp, wg, ww, out, C, H, W, fs, runs_x, rows_y);
   return (int)cudaGetLastError();
 }
 
 // 8 runs a block where that grid still gives at least 3 blocks an SM of
 // the card's 132 (and its staging fits), else 4
-template <int CP>
-int launch_na_tc(const float* x, const float* wt, const float* wp,
-                 const float* wg, const float* ww, float* out, int B, int C,
+template <int CP, class T>
+int launch_na_tc(const T* x, const float* wt, const float* wp,
+                 const float* wg, const float* ww, T* out, int B, int C,
                  int H, int W, int fs, cudaStream_t stream) {
   const int runs_x = (W + kRun - 1) / kRun;
   const long wide = (long)B * ((H + kRunsWide - 1) / kRunsWide) * runs_x;
@@ -480,8 +497,8 @@ int launch_na_tc(const float* x, const float* wt, const float* wp,
       sizeof(float) * na_tc_floats(C, fs, kRunsWide) <= (size_t)kSmemMax)
     return launch_na_tc_runs<CP, kRunsWide>(x, wt, wp, wg, ww, out, B, C, H,
                                             W, fs, stream);
-  return launch_na_tc_runs<CP, kRuns>(x, wt, wp, wg, ww, out, B, C, H, W, fs,
-                                      stream);
+  return launch_na_tc_runs<CP, kRuns>(x, wt, wp, wg, ww, out, B, C, H, W,
+                                      fs, stream);
 }
 
 // ---------------------------------------------------------------- fp32
@@ -494,11 +511,11 @@ __host__ inline size_t na_fp32_floats(int C, int fs) {
   return 2 * (size_t)C * E * E + 4 * (size_t)C * C;
 }
 
-template <int CM>
+template <int CM, class T>
 __global__ void __launch_bounds__(kThreads)
-na_fp32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+na_fp32_kernel(const T* __restrict__ x, const float* __restrict__ wt,
                const float* __restrict__ wp, const float* __restrict__ wg,
-               const float* __restrict__ ww, float* __restrict__ out, int C,
+               const float* __restrict__ ww, T* __restrict__ out, int C,
                int H, int W, int fs, int tiles_x, int tiles_y) {
   extern __shared__ float smem[];
   const int r = fs / 2, E = kT + 2 * r, ne = E * E;
@@ -510,7 +527,7 @@ na_fp32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   const int b = blockIdx.x / (tiles_x * tiles_y);
   const int y0 = (tile / tiles_x) * kT, x0 = (tile % tiles_x) * kT;
   const size_t HW = (size_t)H * W;
-  const float* xb = x + (size_t)b * C * HW;
+  const T* xb = x + (size_t)b * C * HW;
 
   for (int i = threadIdx.x; i < C * C; i += blockDim.x) {
     wsm[i] = wt[i];
@@ -531,7 +548,8 @@ na_fp32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
     float xv[CM];
 #pragma unroll
     for (int c = 0; c < CM; ++c)
-      xv[c] = (inside && c < C) ? xb[c * HW + (size_t)gy * W + gx] : 0.f;
+      xv[c] = (inside && c < C) ? load_plain(xb + c * HW + (size_t)gy * W + gx)
+                                : 0.f;
 #pragma unroll
     for (int d = 0; d < CM; ++d) {
       if (d >= C) break;
@@ -555,7 +573,7 @@ na_fp32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   float xv[CM], th[CM], acc[CM];
 #pragma unroll
   for (int c = 0; c < CM; ++c) {
-    xv[c] = c < C ? xb[c * HW + at] : 0.f;
+    xv[c] = c < C ? load_plain(xb + c * HW + at) : 0.f;
     acc[c] = 0.f;
   }
 #pragma unroll
@@ -598,21 +616,21 @@ na_fp32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 #pragma unroll
     for (int c = 0; c < CM; ++c)
       if (c < C) s = fmaf(sww[d * C + c], acc[c] * inv, s);
-    out[((size_t)b * C + d) * HW + at] = s;
+    store_act(out + ((size_t)b * C + d) * HW + at, s);
   }
 }
 
-template <int CM>
-int launch_na_fp32(const float* x, const float* wt, const float* wp,
-                   const float* wg, const float* ww, float* out, int B, int C,
+template <int CM, class T>
+int launch_na_fp32(const T* x, const float* wt, const float* wp,
+                   const float* wg, const float* ww, T* out, int B, int C,
                    int H, int W, int fs, cudaStream_t stream) {
   const size_t smem = sizeof(float) * na_fp32_floats(C, fs);
   const cudaError_t err = cudaFuncSetAttribute(
-      na_fp32_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      na_fp32_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (W + kT - 1) / kT, tiles_y = (H + kT - 1) / kT;
-  na_fp32_kernel<CM><<<B * tiles_x * tiles_y, kThreads, smem, stream>>>(
+  na_fp32_kernel<CM, T><<<B * tiles_x * tiles_y, kThreads, smem, stream>>>(
       x, wt, wp, wg, ww, out, C, H, W, fs, tiles_x, tiles_y);
   return (int)cudaGetLastError();
 }
@@ -621,8 +639,29 @@ bool na_tc_fits(int C, int fs) {
   return sizeof(float) * na_tc_floats(C, fs) <= (size_t)kSmemMax;
 }
 
+// blockNL of x [B, C, H, W] of storage type T into out: the tensor-core
+// body where its staging fits shared memory, else the FP32-core body.
+template <class T>
+int neighborhood_attention(const T* x, const float* wt, const float* wp,
+                           const float* wg, const float* ww, T* out, int B,
+                           int C, int H, int W, int fs, cudaStream_t stream) {
+  if (C < 1 || C > 32 || fs < 1 || fs % 2 == 0)
+    return (int)cudaErrorInvalidValue;
+  if (na_tc_fits(C, fs)) {
+    auto run = C <= 8 ? &launch_na_tc<8, T> : C <= 16 ? &launch_na_tc<16, T>
+                                                      : &launch_na_tc<32, T>;
+    return run(x, wt, wp, wg, ww, out, B, C, H, W, fs, stream);
+  }
+  if (sizeof(float) * na_fp32_floats(C, fs) > (size_t)kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  auto run = C <= 4 ? &launch_na_fp32<4, T> : C <= 8 ? &launch_na_fp32<8, T>
+             : C <= 16 ? &launch_na_fp32<16, T> : &launch_na_fp32<32, T>;
+  return run(x, wt, wp, wg, ww, out, B, C, H, W, fs, stream);
+}
+
 }  // namespace
 
+#ifndef LGTEUN_BF16_UNIT
 // 1 where lgteun_neighborhood_attention takes the tensor-core branch for
 // (C, fs), else 0 (not a launch; C <= 32, odd fs).
 extern "C" int lgteun_neighborhood_attention_tc(int C, int fs) {
@@ -637,16 +676,18 @@ extern "C" int lgteun_neighborhood_attention(const float* x, const float* wt,
                                              const float* ww, float* out,
                                              int B, int C, int H, int W,
                                              int fs, cudaStream_t stream) {
-  if (C < 1 || C > 32 || fs < 1 || fs % 2 == 0)
-    return (int)cudaErrorInvalidValue;
-  if (na_tc_fits(C, fs)) {
-    auto run = C <= 8 ? &launch_na_tc<8> : C <= 16 ? &launch_na_tc<16>
-                                                   : &launch_na_tc<32>;
-    return run(x, wt, wp, wg, ww, out, B, C, H, W, fs, stream);
-  }
-  if (sizeof(float) * na_fp32_floats(C, fs) > (size_t)kSmemMax)
-    return (int)cudaErrorInvalidValue;
-  auto run = C <= 4 ? &launch_na_fp32<4> : C <= 8 ? &launch_na_fp32<8>
-             : C <= 16 ? &launch_na_fp32<16> : &launch_na_fp32<32>;
-  return run(x, wt, wp, wg, ww, out, B, C, H, W, fs, stream);
+  return neighborhood_attention(x, wt, wp, wg, ww, out, B, C, H, W, fs,
+                                stream);
 }
+#else  // LGTEUN_BF16_UNIT: neighborhood_attention_bf16.cu
+
+// lgteun_neighborhood_attention with x and out __nv_bfloat16 (upcast as
+// loaded, rounded once as stored), the weights float.
+extern "C" int lgteun_neighborhood_attention_bf16(
+    const __nv_bfloat16* x, const float* wt, const float* wp,
+    const float* wg, const float* ww, __nv_bfloat16* out, int B, int C,
+    int H, int W, int fs, cudaStream_t stream) {
+  return neighborhood_attention(x, wt, wp, wg, ww, out, B, C, H, W, fs,
+                                stream);
+}
+#endif  // LGTEUN_BF16_UNIT

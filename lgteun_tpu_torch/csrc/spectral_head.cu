@@ -243,15 +243,21 @@ extern "C" int lgteun_ln_mixer_head_bf16(
                           pha_w, pha_b, tables, B, C / 2, H, W, stream);
 }
 
-// lgteun_global_mixer on bf16 in and out.
-extern "C" int lgteun_global_mixer_bf16(const __nv_bfloat16* x,
-                                        const float* amp_w,
+// lgteun_global_mixer with out stored as bf16, x as float (x_bf16 0:
+// the level-1 prior feeds the float LN, as the head's mixer takes it) or
+// bf16 (1).
+extern "C" int lgteun_global_mixer_bf16(const void* x, const float* amp_w,
                                         const float* amp_b,
                                         const float* pha_w,
                                         const float* pha_b,
                                         const float* tables,
                                         __nv_bfloat16* out, int B, int C,
-                                        int H, int W, cudaStream_t stream) {
-  return launch_fft_mixer(x, out, amp_w, amp_b, pha_w, pha_b, tables, B, C,
-                          H, W, stream);
+                                        int H, int W, int x_bf16,
+                                        cudaStream_t stream) {
+  if (x_bf16)
+    return launch_fft_mixer(static_cast<const __nv_bfloat16*>(x), out,
+                            amp_w, amp_b, pha_w, pha_b, tables, B, C, H, W,
+                            stream);
+  return launch_fft_mixer(static_cast<const float*>(x), out, amp_w, amp_b,
+                          pha_w, pha_b, tables, B, C, H, W, stream);
 }

@@ -58,10 +58,28 @@
 // output pixel and channel, the nine raw ref values its 3x3
 // neighbourhood of queries chose, in the (ky, kx) order F.fold uses, with
 // 2-D bounds on both the query and the ref neighbour, then divides by 9.
+//
+// bf16 storage (LGTEUN_EVAL_DTYPE=bf16, INNT's eval forward in the blanket
+// cast, loads.cuh): the inputs are __nv_bfloat16, upcast exactly as they
+// are loaded (texture_match's planes into shared memory as float), all
+// math is the float32 entries' (the normalised vectors are not exact in
+// TF32, so the 3xTF32 split stays), and t and s are rounded once to
+// nearest even as they are stored (patch_match's t copies bf16 values,
+// exact). The Pallas kernels upcast their loads and round once on store
+// the same way (texture_match_kernel.py:112-113, :193;
+// patch_match_kernel.py:77, :108). Those entries are built in a unit of
+// their own, texture_match_bf16.cu, which defines LGTEUN_BF16_UNIT and
+// includes this file.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
+#include "loads.cuh"
+#ifdef LGTEUN_BF16_UNIT
+#undef LGTEUN_SEARCH_STAMPS   // the float32 unit declares the stamps
+#endif
 #include "texture_match_tc.cuh"
 
 namespace {
@@ -199,6 +217,18 @@ __device__ __forceinline__ void load_planes(const float* __restrict__ lr,
   __syncthreads();
 }
 
+// The same from bf16 planes, upcast as loaded (a plane holds them as
+// float).
+__device__ __forceinline__ void load_planes(
+    const __nv_bfloat16* __restrict__ lr, const __nv_bfloat16* __restrict__ ref,
+    float* lr_s, float* ref_s, int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    lr_s[e] = load_act<false>(lr + e);
+    ref_s[e] = load_act<false>(ref + e);
+  }
+  __syncthreads();
+}
+
 // Ref pixel i of a side x side image as (row << 16) | column: what the
 // searches record for the fold.
 __device__ __forceinline__ int pack_pixel(int i, int side) {
@@ -208,10 +238,12 @@ __device__ __forceinline__ int pack_pixel(int i, int side) {
 // fold: out[c, y, x] = sum over (ky, kx) of the raw ref value at offset
 // (ky-1, kx-1) from the ref pixel chosen by query (y-ky+1, x-kx+1)
 // (`chosen`, pack_pixel), where both lie in the image; then / 9. One
-// pixel a thread, every channel (C <= 8) summed in (ky, kx) order.
+// pixel a thread, every channel (C <= 8) summed in (ky, kx) order; out
+// of storage type T, rounded once as stored.
+template <class T>
 __device__ __forceinline__ void fold_chosen(const float* ref_s,
                                             const int* chosen,
-                                            float* __restrict__ out, int C,
+                                            T* __restrict__ out, int C,
                                             int side) {
   const int Q = side * side;
   for (int p = threadIdx.x; p < Q; p += blockDim.x) {
@@ -234,15 +266,15 @@ __device__ __forceinline__ void fold_chosen(const float* ref_s,
     }
 #pragma unroll
     for (int c = 0; c < 8; ++c)
-      if (c < C) out[c * Q + p] = acc[c] / 9.f;
+      if (c < C) store_act(out + c * Q + p, acc[c] / 9.f);
   }
 }
 
-template <int KP>
+// T: the storage type of lr, ref, t and s (float or __nv_bfloat16).
+template <int KP, class T>
 __global__ void __launch_bounds__(max_threads<KP>(), min_blocks<KP>())
-tm_kernel(const float* __restrict__ lr, const float* __restrict__ ref,
-          float* __restrict__ t_out, float* __restrict__ s_out, int C,
-          int side) {
+tm_kernel(const T* __restrict__ lr, const T* __restrict__ ref,
+          T* __restrict__ t_out, T* __restrict__ s_out, int C, int side) {
   constexpr int QPT = queries_per_thread<KP>();
   extern __shared__ float4 smem_raw[];
   const int Q = side * side;
@@ -284,7 +316,7 @@ tm_kernel(const float* __restrict__ lr, const float* __restrict__ ref,
       const int j = j0 + t * blockDim.x + threadIdx.x;
       if (j < Q) {
         idx[j] = pack_pixel(arg[t], side);
-        s_out[(size_t)blockIdx.x * Q + j] = best[t];
+        store_act(s_out + (size_t)blockIdx.x * Q + j, best[t]);
       }
     }
   }
@@ -292,20 +324,20 @@ tm_kernel(const float* __restrict__ lr, const float* __restrict__ ref,
   fold_chosen(ref_s, idx, t_out + base, C, side);
 }
 
-template <int KP>
+template <int KP, class T>
 __global__ void __launch_bounds__(max_threads<KP>(), min_blocks<KP>())
-pm_kernel(const float* __restrict__ lr_n, const float* __restrict__ ref_n,
-          const float* __restrict__ ref_u, float* __restrict__ t_out,
-          float* __restrict__ s_out, int L, int K) {
+pm_kernel(const T* __restrict__ lr_n, const T* __restrict__ ref_n,
+          const T* __restrict__ ref_u, T* __restrict__ t_out,
+          T* __restrict__ s_out, int L, int K) {
   constexpr int QPT = queries_per_thread<KP>();
   extern __shared__ float4 smem_raw[];
   float* rn = reinterpret_cast<float*>(smem_raw);   // [L][KP]
   const size_t base = (size_t)blockIdx.x * L * K;
-  const float* lrb = lr_n + base;
-  const float* rub = ref_u + base;
+  const T* lrb = lr_n + base;
+  const T* rub = ref_u + base;
   for (int e = threadIdx.x; e < L * KP; e += blockDim.x) {
     const int i = e / KP, k = e % KP;
-    rn[e] = k < K ? ref_n[base + (size_t)i * K + k] : 0.f;
+    rn[e] = k < K ? load_plain(ref_n + base + (size_t)i * K + k) : 0.f;
   }
   __syncthreads();
 
@@ -316,7 +348,8 @@ pm_kernel(const float* __restrict__ lr_n, const float* __restrict__ ref_n,
       const int j = j0 + t * blockDim.x + threadIdx.x;
 #pragma unroll
       for (int k = 0; k < KP; ++k)
-        q[t][k] = (j < L && k < K) ? lrb[(size_t)j * K + k] : 0.f;
+        q[t][k] = (j < L && k < K) ? load_plain(lrb + (size_t)j * K + k)
+                                   : 0.f;
     }
     float best[QPT];
     int arg[QPT];
@@ -325,8 +358,8 @@ pm_kernel(const float* __restrict__ lr_n, const float* __restrict__ ref_n,
     for (int t = 0; t < QPT; ++t) {
       const int j = j0 + t * blockDim.x + threadIdx.x;
       if (j >= L) continue;
-      s_out[(size_t)blockIdx.x * L + j] = best[t];
-      for (int k = 0; k < K; ++k)
+      store_act(s_out + (size_t)blockIdx.x * L + j, best[t]);
+      for (int k = 0; k < K; ++k)   // a copy of T values: exact
         t_out[base + (size_t)k * L + j] = rub[(size_t)k * L + arg[t]];
     }
   }
@@ -363,9 +396,10 @@ struct QueryPixel {
   float nrm;
 };
 
+template <class T>
 __global__ void __launch_bounds__(kSearchWarpgroups * 128, 1)
-tm_tc_kernel(const float* __restrict__ lr, const float* __restrict__ ref,
-             float* __restrict__ t_out, float* __restrict__ s_out, int C,
+tm_tc_kernel(const T* __restrict__ lr, const T* __restrict__ ref,
+             T* __restrict__ t_out, T* __restrict__ s_out, int C,
              int side) {
   extern __shared__ float4 smem_raw[];
   const int Q = side * side, QP = search_pad(Q);
@@ -412,7 +446,7 @@ tm_tc_kernel(const float* __restrict__ lr, const float* __restrict__ ref,
     kdx[m] = o % 3 - 1;
     koff[m] = kc[m] * Q + kdy[m] * side + kdx[m];
   }
-  float* s = s_out + (size_t)blockIdx.x * Q;
+  T* s = s_out + (size_t)blockIdx.x * Q;
   search_tc(
       hi, lo, Q,
       [&](int j) {
@@ -427,7 +461,7 @@ tm_tc_kernel(const float* __restrict__ lr, const float* __restrict__ ref,
       [](const QueryPixel& r, float v) { return normalize(v, r.nrm); },
       [&](int j, float v, int i) {
         idx[j] = pack_pixel(i, side);
-        s[j] = v;
+        store_act(s + j, v);
       },
       [](int) {}, st);
   __syncthreads();
@@ -437,10 +471,11 @@ tm_tc_kernel(const float* __restrict__ lr, const float* __restrict__ ref,
   st.end();
 }
 
+template <class T>
 __global__ void __launch_bounds__(kSearchWarpgroups * 128, 1)
-pm_tc_kernel(const float* __restrict__ lr_n, const float* __restrict__ ref_n,
-             const float* __restrict__ ref_u, float* __restrict__ t_out,
-             float* __restrict__ s_out, int L, int K) {
+pm_tc_kernel(const T* __restrict__ lr_n, const T* __restrict__ ref_n,
+             const T* __restrict__ ref_u, T* __restrict__ t_out,
+             T* __restrict__ s_out, int L, int K) {
   extern __shared__ float4 smem_raw[];
   const int LP = search_pad(L);
   float* hi = reinterpret_cast<float*>(smem_raw);   // staged refs
@@ -448,21 +483,23 @@ pm_tc_kernel(const float* __restrict__ lr_n, const float* __restrict__ ref_n,
   int* idx = reinterpret_cast<int*>(lo + (size_t)LP * kSearchKP);  // [L]
   const SearchStamps st;
   const size_t base = (size_t)blockIdx.x * L * K;
-  const float* lrb = lr_n + base;
-  const float* rnb = ref_n + base;
-  const float* rub = ref_u + base;
+  const T* lrb = lr_n + base;
+  const T* rnb = ref_n + base;
+  const T* rub = ref_u + base;
 
   // items (k-quad kq, ref i), k-quad-major, so that consecutive threads
   // stage consecutive refs; four items a thread in flight, each one
-  // 16-byte load where the rows are 16-byte aligned
+  // 16-byte load where float rows are 16-byte aligned (bf16 rows: four
+  // loads, each upcast)
   const int items = kSearchKQ * LP;
-  const bool quads = K % 4 == 0 && (reinterpret_cast<size_t>(rnb) & 15) == 0;
+  const bool quads = std::is_same<T, float>::value && K % 4 == 0 &&
+                     (reinterpret_cast<size_t>(rnb) & 15) == 0;
   for (int e0 = threadIdx.x; e0 < items; e0 += 4 * blockDim.x) {
     float v[4][4];
 #pragma unroll
     for (int h = 0; h < 4; ++h) {
       const int e = e0 + h * blockDim.x, kq = e / LP, i = e - kq * LP;
-      const float* r = rnb + (size_t)i * K + 4 * kq;
+      const T* r = rnb + (size_t)i * K + 4 * kq;
       const bool row = e < items && i < L;
       if (quads) {
         const float4 x = row && 4 * kq < K
@@ -475,7 +512,7 @@ pm_tc_kernel(const float* __restrict__ lr_n, const float* __restrict__ ref_n,
       } else {
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          v[h][u] = row && 4 * kq + u < K ? __ldg(r + u) : 0.f;
+          v[h][u] = row && 4 * kq + u < K ? load_act<false>(r + u) : 0.f;
       }
     }
 #pragma unroll
@@ -489,17 +526,17 @@ pm_tc_kernel(const float* __restrict__ lr_n, const float* __restrict__ ref_n,
   st.at(0);
 
   const int t = threadIdx.x & 3, wg = threadIdx.x >> 7;
-  float* s = s_out + (size_t)blockIdx.x * L;
+  T* s = s_out + (size_t)blockIdx.x * L;
   search_tc(
       hi, lo, L, [&](int j) { return lrb + (size_t)j * K; },
-      [&](const float* r, int m) -> float {
+      [&](const T* r, int m) -> float {
         const int k = 4 * m + t;
-        return k < K ? __ldg(r + k) : 0.f;
+        return k < K ? load_act<false>(r + k) : 0.f;
       },
-      [](const float*, float v) { return v; },
+      [](const T*, float v) { return v; },
       [&](int j, float v, int i) {
         idx[j] = i;
-        s[j] = v;
+        store_act(s + j, v);
       },
       [&](int tile) {
         // T[:, j] = ref_u[:, idx[j]] for the tile's queries, by its
@@ -513,12 +550,14 @@ pm_tc_kernel(const float* __restrict__ lr_n, const float* __restrict__ ref_n,
           for (int h = 0; h < 6; ++h) {
             const int e = e0 + 128 * h, j = j0 + (e & 63);
             v[h] = e < n && j < L
-                       ? __ldg(rub + (size_t)(e >> 6) * L + idx[j]) : 0.f;
+                       ? load_act<false>(rub + (size_t)(e >> 6) * L + idx[j])
+                       : 0.f;
           }
 #pragma unroll
           for (int h = 0; h < 6; ++h) {
             const int e = e0 + 128 * h, j = j0 + (e & 63);
-            if (e < n && j < L) t_out[base + (size_t)(e >> 6) * L + j] = v[h];
+            if (e < n && j < L)   // a T value and back: exact
+              store_act(t_out + base + (size_t)(e >> 6) * L + j, v[h]);
           }
         }
       },
@@ -536,34 +575,36 @@ int block_threads(int queries, int qpt, int max_threads) {
   return (threads + 31) / 32 * 32;
 }
 
-template <int KP>
-int launch_tm(const float* lr, const float* ref, float* t, float* s, int N,
-              int C, int side, cudaStream_t stream) {
+template <int KP, class T>
+int launch_tm(const T* lr, const T* ref, T* t, T* s, int N, int C, int side,
+              cudaStream_t stream) {
   const int Q = side * side;
   const size_t smem = sizeof(float) * ((size_t)Q * KP + 2 * (size_t)C * Q
                                        + Q);
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      tm_kernel<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      tm_kernel<KP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads =
       block_threads(Q, queries_per_thread<KP>(), max_threads<KP>());
-  tm_kernel<KP><<<N, threads, smem, stream>>>(lr, ref, t, s, C, side);
+  tm_kernel<KP, T><<<N, threads, smem, stream>>>(lr, ref, t, s, C, side);
   return (int)cudaGetLastError();
 }
 
-template <int KP>
-int launch_pm(const float* lr_n, const float* ref_n, const float* ref_u,
-              float* t, float* s, int N, int L, int K, cudaStream_t stream) {
+template <int KP, class T>
+int launch_pm(const T* lr_n, const T* ref_n, const T* ref_u, T* t, T* s,
+              int N, int L, int K, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)L * KP;
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      pm_kernel<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      pm_kernel<KP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads =
       block_threads(L, queries_per_thread<KP>(), max_threads<KP>());
-  pm_kernel<KP><<<N, threads, smem, stream>>>(lr_n, ref_n, ref_u, t, s, L,
-                                               K);
+  pm_kernel<KP, T><<<N, threads, smem, stream>>>(lr_n, ref_n, ref_u, t, s,
+                                                  L, K);
   return (int)cudaGetLastError();
 }
 
@@ -574,36 +615,37 @@ int search_tc_threads(int L) {
   return 128 * (tiles < kSearchWarpgroups ? tiles : kSearchWarpgroups);
 }
 
-int launch_tm_tc(const float* lr, const float* ref, float* t, float* s,
-                 int N, int C, int side, cudaStream_t stream) {
+template <class T>
+int launch_tm_tc(const T* lr, const T* ref, T* t, T* s, int N, int C,
+                 int side, cudaStream_t stream) {
   const size_t smem = tm_tc_smem(C, side);
   const cudaError_t err = cudaFuncSetAttribute(
-      tm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      tm_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  tm_tc_kernel<<<N, search_tc_threads(side * side), smem, stream>>>(
+  tm_tc_kernel<T><<<N, search_tc_threads(side * side), smem, stream>>>(
       lr, ref, t, s, C, side);
   return (int)cudaGetLastError();
 }
 
-int launch_pm_tc(const float* lr_n, const float* ref_n, const float* ref_u,
-                 float* t, float* s, int N, int L, int K,
-                 cudaStream_t stream) {
+template <class T>
+int launch_pm_tc(const T* lr_n, const T* ref_n, const T* ref_u, T* t, T* s,
+                 int N, int L, int K, cudaStream_t stream) {
   const size_t smem = pm_tc_smem(L);
   const cudaError_t err = cudaFuncSetAttribute(
-      pm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      pm_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  pm_tc_kernel<<<N, search_tc_threads(L), smem, stream>>>(
+  pm_tc_kernel<T><<<N, search_tc_threads(L), smem, stream>>>(
       lr_n, ref_n, ref_u, t, s, L, K);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// (t, s) = texture match of lr, ref [N, C, side*side]; t [N, C,
-// side*side], s [N, side*side]; 1 <= C <= 8.
-extern "C" int lgteun_texture_match(const float* lr, const float* ref,
-                                    float* t, float* s, int N, int C,
-                                    int side, cudaStream_t stream) {
+// The texture match of lr, ref [N, C, side*side] of storage type T into
+// t [N, C, side*side] and s [N, side*side]; 1 <= C <= 8.
+template <class T>
+int texture_match(const T* lr, const T* ref, T* t, T* s, int N, int C,
+                  int side, cudaStream_t stream) {
   if (N < 0 || C < 1 || C > 8 || side < 1) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   if (tm_tc_takes(C, side))
@@ -612,17 +654,36 @@ extern "C" int lgteun_texture_match(const float* lr, const float* ref,
                      : launch_tm<72>(lr, ref, t, s, N, C, side, stream);
 }
 
-// (T, S) = patch match of lr_n, ref_n [N, L, K] and ref_u [N, K, L];
-// T [N, K, L], S [N, L]; 1 <= K <= 72.
-extern "C" int lgteun_patch_match(const float* lr_n, const float* ref_n,
-                                  const float* ref_u, float* t, float* s,
-                                  int N, int L, int K, cudaStream_t stream) {
+// The patch match of lr_n, ref_n [N, L, K] and ref_u [N, K, L] of storage
+// type T into T [N, K, L] and S [N, L]; 1 <= K <= 72.
+template <class T>
+int patch_match(const T* lr_n, const T* ref_n, const T* ref_u, T* t, T* s,
+                int N, int L, int K, cudaStream_t stream) {
   if (N < 0 || L < 1 || K < 1 || K > 72) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   if (pm_tc_takes(K, L))
     return launch_pm_tc(lr_n, ref_n, ref_u, t, s, N, L, K, stream);
   return K <= 36 ? launch_pm<36>(lr_n, ref_n, ref_u, t, s, N, L, K, stream)
                  : launch_pm<72>(lr_n, ref_n, ref_u, t, s, N, L, K, stream);
+}
+
+}  // namespace
+
+#ifndef LGTEUN_BF16_UNIT
+// (t, s) = texture match of lr, ref [N, C, side*side]; t [N, C,
+// side*side], s [N, side*side]; 1 <= C <= 8.
+extern "C" int lgteun_texture_match(const float* lr, const float* ref,
+                                    float* t, float* s, int N, int C,
+                                    int side, cudaStream_t stream) {
+  return texture_match(lr, ref, t, s, N, C, side, stream);
+}
+
+// (T, S) = patch match of lr_n, ref_n [N, L, K] and ref_u [N, K, L];
+// T [N, K, L], S [N, L]; 1 <= K <= 72.
+extern "C" int lgteun_patch_match(const float* lr_n, const float* ref_n,
+                                  const float* ref_u, float* t, float* s,
+                                  int N, int L, int K, cudaStream_t stream) {
+  return patch_match(lr_n, ref_n, ref_u, t, s, N, L, K, stream);
 }
 
 // 1 where lgteun_texture_match runs the tensor-core branch for C channels
@@ -636,3 +697,25 @@ extern "C" int lgteun_texture_match_tc(int C, int side) {
 extern "C" int lgteun_patch_match_tc(int K, int L) {
   return pm_tc_takes(K, L) ? 1 : 0;
 }
+#else  // LGTEUN_BF16_UNIT: texture_match_bf16.cu
+
+// The bf16 storage entries: lgteun_texture_match and lgteun_patch_match
+// with every tensor __nv_bfloat16 (upcast as loaded, rounded once as
+// stored), on the same branches by the same rule.
+extern "C" int lgteun_texture_match_bf16(const __nv_bfloat16* lr,
+                                         const __nv_bfloat16* ref,
+                                         __nv_bfloat16* t, __nv_bfloat16* s,
+                                         int N, int C, int side,
+                                         cudaStream_t stream) {
+  return texture_match(lr, ref, t, s, N, C, side, stream);
+}
+
+extern "C" int lgteun_patch_match_bf16(const __nv_bfloat16* lr_n,
+                                       const __nv_bfloat16* ref_n,
+                                       const __nv_bfloat16* ref_u,
+                                       __nv_bfloat16* t, __nv_bfloat16* s,
+                                       int N, int L, int K,
+                                       cudaStream_t stream) {
+  return patch_match(lr_n, ref_n, ref_u, t, s, N, L, K, stream);
+}
+#endif  // LGTEUN_BF16_UNIT

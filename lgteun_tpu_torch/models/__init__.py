@@ -8,12 +8,14 @@ import torch
 
 from lgteun_tpu_torch.losses import MutualInfoReg, reconstruction_loss
 from lgteun_tpu_torch.models.base import (ClassicalMethod, TorchMethod,
-                                          _nchw)
+                                          _nchw, swapped)
 from lgteun_tpu_torch.models.classical import (gsa_fuse, sfim_fuse,
                                                wavelet_fuse)
 from lgteun_tpu_torch.models.innt import GPPNNINNT
 from lgteun_tpu_torch.models.lgteun import LGTEUN
-from lgteun_tpu_torch.models.lightnet import LightNetModule
+from lgteun_tpu_torch.models.lightnet import (LightNetModule,
+                                              lightnet_fast_forward,
+                                              tap_dtype)
 from lgteun_tpu_torch.models.mdcun import PanUnfolding
 from lgteun_tpu_torch.models.mutinf import GPPNNMutInf
 from lgteun_tpu_torch.models.panformer import CrossSwinTransformer
@@ -61,10 +63,30 @@ class lightnet(TorchMethod):  # noqa: N801  (the reference's name)
     not training (lgteun_tpu/models/lightnet.py:170-172); the port trains
     through the kernel's forward with the plain chain's backward
     (`ops.autograd.recompute`), the same function, so that a card never
-    runs a plain forward."""
+    runs a plain forward.
+
+    Under `LGTEUN_LIGHTNET_DTYPE=bf16`, or `LGTEUN_EVAL_DTYPE=bf16` with
+    LGTEUN_LIGHTNET_DTYPE unset (`lightnet.tap_dtype`, read when the
+    method is built), `apply` runs the bf16 tap path instead, as JAX's
+    `lightnet.apply` does on the TPU (`lightnet_fast_forward`; no blanket
+    cast, no kernel). "bf16res" leaves it float32 (ROADMAP C.39)."""
+
+    bf16_cast = False
+
+    def __init__(self, cfg, device):
+        super().__init__(cfg, device)
+        self.tap_dtype = tap_dtype()
 
     def make_module(self):
         return LightNetModule(ms_chans=self.cfg.ms_chans)
+
+    def eval_forward(self, ms, pan):
+        if self.tap_dtype is None or self.training:
+            return self.forward(ms, pan)
+        cast, _ = self.cast_parameters(self.tap_dtype, ms, pan)
+        with swapped(self.module, cast):
+            return lightnet_fast_forward(self.module, ms, pan,
+                                         self.tap_dtype)
 
 
 @MODELS.register()
@@ -160,9 +182,12 @@ class MutInf(TorchMethod):
     each with its own optimiser (`optim_cfg["mi"]`, default Adam lr
     1e-4). The heads' width follows the PAN side the method is built for
     (`pan_size`, 128 by default; `init_params(sample_hw=...)` and a
-    loaded `mi` state_dict reset it), as the JAX Method's `sample_hw`."""
+    loaded `mi` state_dict reset it), as the JAX Method's `sample_hw`.
+    `LGTEUN_EVAL_DTYPE=bf16` leaves it float32: JAX's MutInf overrides
+    `apply` and never casts (lgteun_tpu/models/mutinf.py:235-239)."""
 
     module_names = ("core_module", "mi")
+    bf16_cast = False
 
     def __init__(self, cfg, device):
         super().__init__(cfg, device)

@@ -25,11 +25,25 @@ Method's batch layout, NHWC `input_lr` [B, h, w, C] and `input_pan`
                                   noise), `iter_id` is the 0-based
                                   iteration (MutInf's MI ramp)
 
-`LGTEUN_EVAL_DTYPE=bf16` (`ops.storage_dtype`) is UnlgFormer's bf16
-storage mode, the one method with `bf16_storage`; building any other
-method under it raises, as the JAX package's blanket bf16 autocast of
-the rest of the zoo (`lgteun_tpu/models/base.py:163-189`) is not ported
-yet (ROADMAP A.5.1). "bf16res" changes nothing for them, as in JAX.
+`LGTEUN_EVAL_DTYPE=bf16` (`ops.storage_dtype`, read when the method is
+built) is UnlgFormer's bf16 storage mode (`bf16_storage`). For every
+other DL method it is the JAX package's blanket cast
+(`lgteun_tpu/models/base.py:163-189`): `apply` runs the eval forward on
+a bfloat16 copy of the module's floating parameters (made once per
+weight version; the float32 parameters stay the ones that train and
+checkpoint) and on bfloat16 inputs, and returns float32. Buffers are
+not cast: a tensor that JAX builds inside the module as a float32
+constant (PanFormer's window masks) stays float32 and promotes the
+stream as JAX's does (INNT's and SFIIN's invertible 1x1 conv keep their
+permutation and signs as buffers, exact in bfloat16). Where an operand
+of a conv, linear layer, matmul or norm is float32 and the other
+bfloat16, both are promoted to float32, as flax's `promote_dtype` and
+jnp's promotion do (`jax_promotion`); elementwise ops promote on their
+own. A bf16 forward that records a gradient raises. MutInf opts out
+(`bf16_cast` False): JAX's MutInf overrides `apply` and never casts
+(`lgteun_tpu/models/mutinf.py:235-239`), so it runs float32 under the
+mode. LightNet runs its own bf16 path (`models/lightnet.py`).
+"bf16res" changes nothing for these methods, as in JAX.
 
 A `ClassicalMethod` (GSA, SFIM, Wavelet) has no module and no
 parameters: `trainable` is False and `apply` is its fuse function on
@@ -38,16 +52,59 @@ NHWC tensors on `self.device` (`lgteun_tpu/models/base.py:192-204`).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.overrides import TorchFunctionMode
 
 from lgteun_tpu_torch.config import Config
 from lgteun_tpu_torch.losses import build_loss_weights, reconstruction_loss
 from lgteun_tpu_torch.models.common.layers import init_parameters
 from lgteun_tpu_torch.ops import storage_dtype
 
-__all__ = ["TorchMethod", "ClassicalMethod"]
+__all__ = ["TorchMethod", "ClassicalMethod", "jax_promotion", "swapped"]
+
+# the zoo's ops whose float operands torch requires to share one dtype,
+# where jnp / flax promote them to the wider one (elementwise ops and cat
+# promote in torch too)
+_PROMOTED = {F.conv2d, F.linear, F.layer_norm, F.instance_norm,
+             torch.matmul}
+
+
+def _cast(a, dtype, made: dict):
+    """Argument `a` of a promoted op in float dtype `dtype`."""
+    if not isinstance(a, torch.Tensor) or not a.is_floating_point() \
+            or a.dtype == dtype:
+        return a
+    t = made.get((id(a), dtype))
+    return a.to(dtype) if t is None else t
+
+
+class jax_promotion(TorchFunctionMode):  # noqa: N801  (a context manager)
+    """Inside it, the ops of `_PROMOTED` promote a bfloat16 operand to
+    float32 where another is float32, as jnp and flax's layers do (torch
+    raises on the mixed dtypes); every other op runs as it is. `made`:
+    {(id(t), dtype): t in dtype} made beforehand (the cast parameters'
+    float32 values, so that a promoted weight costs no launch)."""
+
+    def __init__(self, made: dict | None = None):
+        super().__init__()
+        self.made = made or {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in _PROMOTED:
+            dtypes = {a.dtype for a in (*args, *kwargs.values())
+                      if isinstance(a, torch.Tensor) and a.is_floating_point()}
+            if len(dtypes) > 1:
+                dtype = functools.reduce(torch.promote_types, dtypes)
+                args = tuple(_cast(a, dtype, self.made) for a in args)
+                kwargs = {k: _cast(v, dtype, self.made)
+                          for k, v in kwargs.items()}
+        return func(*args, **kwargs)
 
 
 def _nchw(a, device: torch.device) -> torch.Tensor:
@@ -62,17 +119,17 @@ class TorchMethod:
 
     trainable = True
     module_names: tuple[str, ...] = ("core_module",)
-    bf16_storage = False   # takes LGTEUN_EVAL_DTYPE=bf16 (module docstring)
+    bf16_storage = False   # LGTEUN_EVAL_DTYPE is its storage mode
+    bf16_cast = True       # else "bf16" is the blanket cast (docstring)
 
     def __init__(self, cfg: Config, device):
-        if not self.bf16_storage and storage_dtype() == (torch.bfloat16,
-                                                         False):
-            raise NotImplementedError(
-                f"{type(self).__name__}: LGTEUN_EVAL_DTYPE=bf16 is "
-                "UnlgFormer's storage mode; the blanket bf16 autocast of "
-                "the other methods is not ported (ROADMAP A.5.1)")
         self.cfg = cfg
         self.device = torch.device(device)
+        # the blanket cast's dtype, or None
+        self.eval_dtype = (torch.bfloat16 if self.bf16_cast
+                           and not self.bf16_storage and storage_dtype()
+                           == (torch.bfloat16, False) else None)
+        self._cast_params = (None, {}, {})
         with torch.device("meta"):
             self.module = self.make_module()
         self.module.eval()
@@ -152,10 +209,50 @@ class TorchMethod:
     @torch.inference_mode()
     def apply(self, batch: dict) -> torch.Tensor:
         """batch (NHWC numpy arrays or tensors) -> fused HrMS, NHWC, on
-        `self.device`."""
+        `self.device` (float32)."""
         ms = _nchw(batch["input_lr"], self.device)
         pan = _nchw(batch["input_pan"], self.device)
-        return self.forward(ms, pan).permute(0, 2, 3, 1)
+        return self.eval_forward(ms, pan).permute(0, 2, 3, 1)
+
+    def eval_forward(self, ms: torch.Tensor, pan: torch.Tensor
+                     ) -> torch.Tensor:
+        """`forward` as `apply` runs it: under the blanket cast
+        (`eval_dtype`, outside training) on the bfloat16 copy of the
+        parameters and bfloat16 ms, pan, the output upcast to
+        float32."""
+        dtype = self.eval_dtype
+        if dtype is None or self.training:
+            return self.forward(ms, pan)
+        cast, made = self.cast_parameters(dtype, ms, pan)
+        with swapped(self.module, cast), jax_promotion(made):
+            out = self.forward(ms.to(dtype), pan.to(dtype))
+        return out.float()
+
+    def cast_parameters(self, dtype: torch.dtype, *inputs) -> tuple:
+        """({name: the module's parameter in `dtype`}, {(id(cast), float32):
+        its float32 value}), made once per weight version; raises if a
+        gradient would be recorded through `inputs` or the parameters (a
+        cast forward is an eval mode without a backward)."""
+        params = dict(self.module.named_parameters())
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (*inputs, *params.values())):
+            raise RuntimeError(
+                f"{type(self).__name__}: the bf16 eval forward "
+                "(LGTEUN_EVAL_DTYPE=bf16) is an eval mode without a "
+                "backward: run it with gradients off (torch.no_grad / "
+                "inference_mode); training runs float32")
+        key = (dtype,) + tuple((p.data_ptr(), p._version)
+                               for p in params.values())
+        if self._cast_params[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                cast = {name: p.detach().to(dtype) if p.is_floating_point()
+                        else p for name, p in params.items()}
+                # each cast value upcast again (exact), for the ops where
+                # it meets a float32 operand
+                made = {(id(t), torch.float32): t.float()
+                        for t in cast.values() if t.dtype == dtype}
+                self._cast_params = (key, cast, made)
+        return self._cast_params[1:]
 
     def loss_weights(self) -> dict:
         """The weighted `loss_cfg` entries; raises NotImplementedError for
@@ -191,6 +288,27 @@ class TorchMethod:
             total = total + lcfg.w * parts[name]
         parts["full_loss"] = total
         return total, parts
+
+
+class swapped:  # noqa: N801  (a context manager)
+    """Module `module`'s parameters named in `tensors` replaced by those
+    tensors while inside, the parameters put back on leaving."""
+
+    def __init__(self, module: nn.Module, tensors: dict):
+        self.module, self.tensors, self.saved = module, tensors, []
+
+    def __enter__(self):
+        for name, t in self.tensors.items():
+            owner, _, leaf = name.rpartition(".")
+            mod = self.module.get_submodule(owner)
+            self.saved.append((mod, leaf, mod._parameters[leaf]))
+            mod._parameters[leaf] = t
+        return self
+
+    def __exit__(self, *exc):
+        for mod, leaf, p in reversed(self.saved):
+            mod._parameters[leaf] = p
+        self.saved = []
 
 
 class ClassicalMethod:

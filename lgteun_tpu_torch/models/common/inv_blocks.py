@@ -52,9 +52,14 @@ class InvertibleConv1x1(nn.Module):
         self.u.copy_(torch.triu(u, 1))
 
     def weight(self) -> torch.Tensor:
+        """w in the parameters' dtype, or float32 where they are bfloat16
+        (the blanket cast): the strict-triangle mask is a float32
+        constant, as JAX's `l_mask` (`lgteun_tpu/models/common/
+        inv_blocks.py:61`), so it promotes l and u there."""
         c = self.log_s.shape[0]
-        lower = torch.tril(torch.ones(c, c, device=self.l.device,
-                                      dtype=self.l.dtype), -1)
+        lower = torch.tril(torch.ones(
+            c, c, device=self.l.device,
+            dtype=torch.promote_types(self.l.dtype, torch.float32)), -1)
         l = self.l * lower + torch.eye(c, device=lower.device,
                                        dtype=lower.dtype)
         u = self.u * lower.T + torch.diag(self.sign_s * torch.exp(self.log_s))

@@ -37,12 +37,17 @@ Each level computes what the same JAX level computes in that mode:
     level 2  ln_mixer_head gives y1, x2 in bfloat16 (the mixer fed the
              float32 LN); window_attention(y1) gives x1 in bfloat16;
              block_tail writes x's dtype
-    level 1  y = LN(x) in x's dtype, both halves rounded to bfloat16
-             before their mixers (so the global mixer's input is rounded:
-             level 1 is not level 2's function, ROADMAP C.35), the proj in
-             float32 on the upcast [x1; x2], x + proj rounded to x's dtype
-             (JAX promotes the "bf16" stream to float32 there, ROADMAP
-             C.36; the port keeps it bfloat16), ln_ffn in x's dtype
+    level 1  y = LN(x) in float32 (a bfloat16 x upcast); y1 rounded to
+             bfloat16 for the local mixer, as the head stores it; the
+             global mixer fed the float32 second half, its output x2
+             rounded once to bfloat16 (`global_mixer(..., out_dtype=)`);
+             the proj in float32 on the upcast [x1; x2], x + proj rounded
+             to x's dtype (JAX promotes the "bf16" stream to float32
+             there, ROADMAP C.36; the port keeps it bfloat16), ln_ffn in
+             x's dtype. Under bf16res that is level 2's function, as
+             JAX's B1 -> B2 -> B3 chain computes it (JAX's level-1 mirror
+             off the TPU rounds the mixer's input instead; the port does
+             not copy that, ROADMAP C.35)
     level 3  lgb_block in x's dtype, y1, x2, x1 rounded to bfloat16 where
              level 2 stores them: level 2's function (ROADMAP C.8)
 
@@ -294,13 +299,13 @@ class LGB(nn.Module):
                     and not torch.is_grad_enabled()):
                 x = lgb_block(x, blk, heads, win, eps, storage)
             elif self.level == 1:
-                y = channel_layer_norm(x, blk["ln_w"], blk["ln_b"], eps)
+                y = channel_layer_norm(upcast(x), blk["ln_w"], blk["ln_b"],
+                                       eps)
                 c2 = x.shape[1] // 2
-                y1, y2 = y[:, :c2], y[:, c2:]
-                if storage is not None:
-                    y1, y2 = y1.to(storage), y2.to(storage)
+                y1 = y[:, :c2] if storage is None else y[:, :c2].to(storage)
                 x1 = self._local_mixer(y1.contiguous(), blk)
-                x2 = global_mixer(y2.contiguous(), *mixer)
+                x2 = global_mixer(y[:, c2:].contiguous(), *mixer,
+                                  out_dtype=storage)
                 mixed = F.conv2d(upcast(torch.cat([x1, x2], dim=1)),
                                  blk["proj_w"][:, :, None, None],
                                  blk["proj_b"])

@@ -13,19 +13,30 @@ point_wise_1.weight`, `belly_conv.1.conv2.depth_wise_2.bias`, ...).
 
 Init: kaiming-normal (fan_out) conv weights and zero biases (reference
 lightnet.py:113-117), drawn from an explicit generator.
+
+The bf16 tap path (`lightnet_fast_forward`, counterpart of
+`lgteun_tpu/models/lightnet.py:87-143`): the JAX package's bf16
+LightNet on the TPU runs the stack as plain XLA in NCHW, not its
+kernel: each pointwise conv, each of the nine depthwise taps' multiply
+and add, each bias add and ReLU on bf16 tensors with bf16 weights, one
+rounding an op; the upsampled lms stays float32 and the output is lms +
+the stack's float32 upcast. Here it is the same chain of plain torch
+ops, each rounding to the dtype it is given (`tap_dtype`).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lgteun_tpu_torch.ops.lightnet_kernel import lightnet_stack
 from lgteun_tpu_torch.ops.resize import sample_scale as sampling
 
-__all__ = ["LightNetModule"]
+__all__ = ["LightNetModule", "lightnet_fast_forward", "tap_dtype"]
 
 
 class _SpanConv(nn.Module):
@@ -89,3 +100,66 @@ class LightNetModule(nn.Module):
         lms = sampling(sampling(ms, 2), 2)
         x = torch.cat([pan, lms], dim=1)
         return lightnet_stack(x, lms, [s.weights() for s in self.spans()])
+
+
+def tap_dtype() -> torch.dtype | None:
+    """torch.bfloat16 where LightNet's eval forward takes the bf16 tap
+    path (env LGTEUN_LIGHTNET_DTYPE, else LGTEUN_EVAL_DTYPE, equal to
+    "bf16"; read when the method is built), else None (the kernel,
+    float32). JAX's `lightnet.apply` tests `"bf16" in` the same value
+    (`lgteun_tpu/models/lightnet.py:172-174`), so "bf16res" puts its
+    LightNet on the bf16 path too; bf16res is UnlgFormer's mixer-branch
+    mode and `_eval_dtype` tests == "bf16", so here it leaves LightNet
+    float32 (ROADMAP C.39)."""
+    mode = (os.environ.get("LGTEUN_LIGHTNET_DTYPE")
+            or os.environ.get("LGTEUN_EVAL_DTYPE"))
+    return torch.bfloat16 if mode == "bf16" else None
+
+
+def _pw_nchw(x, conv: nn.Conv2d, dtype):
+    """1x1 conv, then the bias add (two roundings, as the JAX einsum and
+    add)."""
+    y = F.conv2d(x, conv.weight.to(dtype))
+    return y + conv.bias.to(dtype)[None, :, None, None]
+
+
+def _dw_nchw(x, conv: nn.Conv2d, dtype):
+    """3x3 depthwise conv as 9 shifted scaled adds in (dy, dx) order,
+    then the bias add."""
+    h, w = x.shape[-2:]
+    xp = F.pad(x, (1, 1, 1, 1))
+    kern = conv.weight.to(dtype)
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            piece = xp[:, :, dy:dy + h, dx:dx + w] * kern[:, 0, dy, dx][
+                None, :, None, None]
+            acc = piece if acc is None else acc + piece
+    return acc + conv.bias.to(dtype)[None, :, None, None]
+
+
+def _span_nchw(x, span: _SpanConv, dtype):
+    a = _dw_nchw(_pw_nchw(x, span.point_wise_1, dtype), span.depth_wise_1,
+                 dtype)
+    b = _dw_nchw(_pw_nchw(x, span.point_wise_2, dtype), span.depth_wise_2,
+                 dtype)
+    return a + b
+
+
+def lightnet_fast_forward(module: LightNetModule, ms: torch.Tensor,
+                          pan: torch.Tensor,
+                          dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
+    """The tap path (module docstring): ms [B, C, h, w] + pan [B, 1, 4h,
+    4w] float32 -> [B, C, 4h, 4w] float32, the stack in `dtype`."""
+    lms = sampling(sampling(ms, 2), 2)
+    x = torch.cat([pan, lms], dim=1).to(dtype)
+    spans = module.spans()
+    for span in spans[:3]:
+        x = _span_nchw(x, span, dtype)
+    x = F.relu(x)
+    for conv1, conv2 in (spans[3:5], spans[5:7]):
+        x = _span_nchw(F.relu(_span_nchw(x, conv1, dtype)), conv2, dtype)
+    for span in spans[7:]:
+        x = _span_nchw(x, span, dtype)
+    return lms + x.to(lms.dtype)

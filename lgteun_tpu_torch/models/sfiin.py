@@ -27,6 +27,16 @@ Training adds the reference's frequency losses (SFIIN.py:359-408; JAX
 the amplitudes, and between the phases, of the rfft2 over H, W (norm
 "backward") of the output and of the target (`spectrum_amp_phase`).
 
+Under the blanket cast (`LGTEUN_EVAL_DTYPE=bf16`, `models/base.py`) the
+FFT follows the JAX package's TPU path: its matmul DFT takes the bf16
+features to float32 and gives float32 (`lgteun_tpu/ops/fft.py:129`,
+`:149-150`, `:183`, `:201-202`; torch.fft has no bfloat16 either), so
+FreProcess upcasts before `plane_rfft2`; from there the amplitudes,
+phases and the branch's output are float32 and the stream promotes as
+JAX's does (the convs after it take float32 inputs with bfloat16
+weights: both float32, `base.jax_promotion`), as does the invertible
+1x1 conv's float32 mask (`common/inv_blocks.py`).
+
 The attribute names are the reference's (`process.conv_p.weight`,
 `process.block3.fre_process.pha_fuse.2.bias`,
 `process.block.spa_process.0.invconv.p`, `refine.conv_last.weight`).
@@ -40,6 +50,7 @@ from torch import nn
 from lgteun_tpu_torch.models.common.inv_blocks import InvBlock
 from lgteun_tpu_torch.models.common.layers import Conv
 from lgteun_tpu_torch.models.common.refine import Refine
+from lgteun_tpu_torch.ops import upcast
 from lgteun_tpu_torch.ops.resize import resize_bicubic
 from lgteun_tpu_torch.ops.spectral_kernel import (amp_phase, mixer_inverse,
                                                   plane_rfft2,
@@ -68,8 +79,10 @@ class FreProcess(nn.Module):
 
     def forward(self, msf: torch.Tensor, panf: torch.Tensor) -> torch.Tensor:
         w = msf.shape[-1]
-        ms_amp, ms_pha = amp_phase(plane_rfft2(self.pre1(msf) + 1e-8), w)
-        pan_amp, pan_pha = amp_phase(plane_rfft2(self.pre2(panf) + 1e-8), w)
+        ms_amp, ms_pha = amp_phase(
+            plane_rfft2(upcast(self.pre1(msf) + 1e-8)), w)
+        pan_amp, pan_pha = amp_phase(
+            plane_rfft2(upcast(self.pre2(panf) + 1e-8)), w)
         amp = self.amp_fuse(torch.cat([ms_amp, pan_amp], dim=1))
         pha = self.pha_fuse(torch.cat([ms_pha, pan_pha], dim=1))
         real = amp * torch.cos(pha) + 1e-8 + 1e-8

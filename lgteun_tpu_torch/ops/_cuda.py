@@ -51,8 +51,9 @@ SIGNATURES = {
     # x, 6 weights, tables, y1, x2 (bf16), y2 (float32 [B, C/2, H, W]), B,
     # C, H, W, x_bf16, eps, stream
     "lgteun_ln_mixer_head_bf16": [_P] * 11 + [_I] * 5 + [_F, _P],
-    # x, amp_w, amp_b, pha_w, pha_b, tables, out (bf16), B, C, H, W, stream
-    "lgteun_global_mixer_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    # x, amp_w, amp_b, pha_w, pha_b, tables, out (bf16), B, C, H, W,
+    # x_bf16, stream
+    "lgteun_global_mixer_bf16": [_P] * 7 + [_I] * 5 + [_P],
     "lgteun_window_attention_bf16": [_P] * 5 + [_I] * 6 + [_F, _P],
     "lgteun_window_attention_bf16_fp32": [_P] * 5 + [_I] * 6 + [_F, _P],
     "lgteun_window_attention_windows_bf16": [_P] * 5 + [_I] * 4 + [_F, _P],
@@ -103,6 +104,8 @@ SIGNATURES = {
     "lgteun_lightnet_group": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     # x, wt, wp, wg, ww, out, B, C, H, W, fs, stream
     "lgteun_neighborhood_attention": [_P] * 6 + [_I] * 5 + [_P],
+    # the same with x and out bf16 (weights float32)
+    "lgteun_neighborhood_attention_bf16": [_P] * 6 + [_I] * 5 + [_P],
     # not a launch: 1 where the attention takes its tensor-core branch for
     # (C, fs), else 0
     "lgteun_neighborhood_attention_tc": [_I] * 2,
@@ -110,6 +113,9 @@ SIGNATURES = {
     "lgteun_texture_match": [_P] * 4 + [_I] * 3 + [_P],
     # lr_n, ref_n, ref_u, t, s, N, L, K, stream
     "lgteun_patch_match": [_P] * 5 + [_I] * 3 + [_P],
+    # the same with every tensor bf16
+    "lgteun_texture_match_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    "lgteun_patch_match_bf16": [_P] * 5 + [_I] * 3 + [_P],
     # not launches: 1 where the search above takes its tensor-core branch
     # for (C, side) / (K, L), else 0
     "lgteun_texture_match_tc": [_I] * 2,

@@ -28,6 +28,17 @@ staged over its rows, the fs - 1 halo rows and 32-key chunks), wherever
 the 4-run staging fits a block's shared memory; "fp32", the earlier
 one-thread-a-pixel body, for the rest (large fs at C >= 8). The wrapper
 counts its launches by branch (`variants`).
+
+Storage (MDCUN's eval forward under `LGTEUN_EVAL_DTYPE=bf16`, the JAX
+package's blanket cast): x may be bfloat16, and then out is too. x is
+upcast exactly, all math is float32, the residual adds the upcast x, and
+out is rounded once to nearest even as stored, as the Pallas kernel does
+(`lgteun_tpu/ops/nonlocal_kernel.py:115-116`, `:161`). The cast's
+bfloat16 weights are upcast to float32 by the wrapper (exact; [C, C]
+each), so the kernel's weights stay float. `neighborhood_attention_ref(
+..., out_dtype=)` spells that out. The bfloat16 entry is for eval: it
+raises under a recorded gradient. The upcast weights are made once per
+weight version (`_cuda.weight_layout`).
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ import collections
 import torch
 import torch.nn.functional as F
 
-from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops import _cuda, upcast
 from lgteun_tpu_torch.ops.autograd import recompute
 
 __all__ = ["neighborhood_attention", "neighborhood_attention_ref",
@@ -51,8 +62,13 @@ _MAX_C = 32                 # largest channel count the kernel is built for
 _SMEM_MAX = 232448          # bytes of shared memory a block may use
 
 
-def neighborhood_attention_ref(x, wt, wp, wg, ww, fs: int = 15):
-    """Plain version with F.unfold (mirrors the reference's blockNL)."""
+def neighborhood_attention_ref(x, wt, wp, wg, ww, fs: int = 15,
+                               out_dtype=None):
+    """Plain version with F.unfold (mirrors the reference's blockNL); a
+    bfloat16 x and weights upcast, the result rounded once to
+    `out_dtype` (default x's dtype)."""
+    out_dtype = out_dtype or x.dtype
+    x, wt, wp, wg, ww = map(upcast, (x, wt, wp, wg, ww))
     b, c, h, w = x.shape
     pw = lambda t, m: F.conv2d(t, m[:, :, None, None])
     theta, phi, g = pw(x, wt), pw(x, wp), pw(x, wg)
@@ -60,7 +76,7 @@ def neighborhood_attention_ref(x, wt, wp, wg, ww, fs: int = 15):
         b, c, fs * fs, h, w)
     att = torch.einsum("bchw,bcfhw->bfhw", theta, unfold(phi)).softmax(dim=1)
     out = torch.einsum("bfhw,bcfhw->bchw", att, unfold(g))
-    return pw(out, ww) + x
+    return (pw(out, ww) + x).to(out_dtype)
 
 
 def _smem_bytes(c: int, fs: int) -> int:
@@ -90,9 +106,10 @@ def neighborhood_attention_branch(c: int, fs: int) -> str:
 
 
 def neighborhood_attention(x, wt, wp, wg, ww, fs: int = 15):
-    """x [B, C, H, W], weights [C, C] (out, in), odd fs. On a CUDA tensor
-    the kernel's forward, differentiable through `ops.autograd.recompute`
-    (`_train_entry`)."""
+    """x [B, C, H, W] f32 or bf16 (the result of x's dtype), weights
+    [C, C] (out, in), odd fs. On a CUDA tensor the kernel's forward,
+    differentiable through `ops.autograd.recompute` (`_train_entry`;
+    float32)."""
     if _cuda.plain_on_cpu("neighborhood_attention", x):
         return neighborhood_attention_ref(x, wt, wp, wg, ww, fs)
     b, c, h, w = x.shape
@@ -105,6 +122,11 @@ def neighborhood_attention(x, wt, wp, wg, ww, fs: int = 15):
                          f"fs, C <= {_MAX_C} and at most {_SMEM_MAX} B of "
                          f"shared memory (x {tuple(x.shape)}, fs {fs}, "
                          f"{_smem_bytes(c, fs)} B); bad: {bad}")
+    if x.dtype == torch.bfloat16:
+        _cuda.check_eval_storage("neighborhood_attention", x, wt, wp, wg, ww)
+        mats = _cuda.weight_layout("na_float32", (wt, wp, wg, ww), lambda: [
+            upcast(m).contiguous() for m in (wt, wp, wg, ww)])
+        return _na_kernel(x, *mats, fs)
     return _train_entry(x, wt, wp, wg, ww, fs)
 
 
@@ -118,12 +140,17 @@ def _train_entry(x, wt, wp, wg, ww, fs: int):
 
 def _na_kernel(x, wt, wp, wg, ww, fs: int):
     """One launch of `csrc/neighborhood_attention.cu` (no backward of its
-    own)."""
+    own): the float32 entry, or the bf16 one on a bf16 x (weights
+    float32)."""
     b, c, h, w = x.shape
-    _cuda.check_cuda_f32("neighborhood_attention", x.device, x=x, wt=wt,
-                         wp=wp, wg=wg, ww=ww)
+    bf16 = x.dtype == torch.bfloat16
+    _cuda.check_cuda("neighborhood_attention", x.device,
+                     (torch.bfloat16,) if bf16 else (torch.float32,), x=x)
+    _cuda.check_cuda_f32("neighborhood_attention", x.device, wt=wt, wp=wp,
+                         wg=wg, ww=ww)
     out = torch.empty_like(x)
-    _cuda.launch("lgteun_neighborhood_attention", x.device, x, wt, wp, wg,
+    _cuda.launch("lgteun_neighborhood_attention_bf16" if bf16 else
+                 "lgteun_neighborhood_attention", x.device, x, wt, wp, wg,
                  ww, out, b, c, h, w, fs)
     neighborhood_attention.launches += 1
     neighborhood_attention.variants[neighborhood_attention_branch(c, fs)] \

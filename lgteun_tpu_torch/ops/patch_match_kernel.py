@@ -14,6 +14,15 @@ as `texture_match`) for a CUDA tensor, differentiable there
 tensor. Its branches ("tc": tensor cores where K <= SEARCH_KP and
 the staged refs fit; "fp32" otherwise) are chosen by shape
 (`patch_match_branch`) and counted in `patch_match.variants`.
+
+Storage (INNT's eval forward on the LGTEUN_FUSED_TM=0 route under
+`LGTEUN_EVAL_DTYPE=bf16`): lr_n, ref_n and ref_u may all be bfloat16;
+then T and S are bfloat16 too. The inputs are upcast exactly, the search
+runs in float32, S is rounded once to nearest even and T copies the
+bfloat16 ref values, as the Pallas kernel stores them
+(`lgteun_tpu/ops/patch_match_kernel.py:77`, `:108`);
+`patch_match_ref(..., out_dtype=)` spells that out. The bfloat16 entry
+is for eval: it raises under a recorded gradient.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ import collections
 
 import torch
 
-from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops import _cuda, upcast
 from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.texture_match_kernel import SEARCH_KP, search_pad
 
@@ -32,12 +41,15 @@ _MAX_K = 72                 # longest sub-patch vector the kernel is built for
 _SMEM_MAX = 232448          # bytes of shared memory a block may use
 
 
-def patch_match_ref(lr_n, ref_n, ref_u):
-    """Plain version with bmm / max / gather."""
+def patch_match_ref(lr_n, ref_n, ref_u, out_dtype=None):
+    """Plain version with bmm / max / gather; bfloat16 inputs upcast,
+    (T, S) rounded once to `out_dtype` (default lr_n's dtype)."""
+    out_dtype = out_dtype or lr_n.dtype
+    lr_n, ref_n, ref_u = upcast(lr_n), upcast(ref_n), upcast(ref_u)
     r = torch.bmm(ref_n, lr_n.transpose(1, 2))    # [N, L(ref), L(query)]
     s, idx = r.max(dim=1)
     t = torch.gather(ref_u, 2, idx[:, None, :].expand(-1, ref_u.shape[1], -1))
-    return t, s
+    return t.to(out_dtype), s.to(out_dtype)
 
 
 def _smem_bytes(k: int, ll: int) -> int:
@@ -56,10 +68,11 @@ def patch_match_branch(k: int, ll: int) -> str:
 
 
 def patch_match(lr_n, ref_n, ref_u):
-    """lr_n, ref_n [N, L, K], ref_u [N, K, L] f32 -> (T [N, K, L],
-    S [N, L]). On a CUDA tensor the kernel's forward, differentiable
-    through `ops.autograd.recompute` (the backward searches again with
-    `patch_match_ref`, as the JAX package's `_fused_pm_bwd`)."""
+    """lr_n, ref_n [N, L, K], ref_u [N, K, L] f32 (or all bf16) ->
+    (T [N, K, L], S [N, L]) of lr_n's dtype. On a CUDA tensor the
+    kernel's forward, differentiable through `ops.autograd.recompute`
+    (float32; the backward searches again with `patch_match_ref`, as the
+    JAX package's `_fused_pm_bwd`)."""
     if _cuda.plain_on_cpu("patch_match", lr_n):
         return patch_match_ref(lr_n, ref_n, ref_u)
     n, ll, k = lr_n.shape
@@ -70,6 +83,9 @@ def patch_match(lr_n, ref_n, ref_u):
                          f"{_SMEM_MAX} B of shared memory (lr_n "
                          f"{tuple(lr_n.shape)}, ref_n {tuple(ref_n.shape)}, "
                          f"ref_u {tuple(ref_u.shape)})")
+    if lr_n.dtype == torch.bfloat16:
+        _cuda.check_eval_storage("patch_match", lr_n, ref_n, ref_u)
+        return _pm_kernel(lr_n, ref_n, ref_u)
     return _train_entry(lr_n, ref_n, ref_u)
 
 
@@ -82,14 +98,16 @@ def _train_entry(lr_n, ref_n, ref_u):
 
 def _pm_kernel(lr_n, ref_n, ref_u):
     """One launch of `csrc/texture_match.cu`'s patch match (no backward of
-    its own)."""
+    its own): the float32 entry, or the bf16 one on bf16 inputs."""
     n, ll, k = lr_n.shape
-    _cuda.check_cuda_f32("patch_match", lr_n.device, lr_n=lr_n, ref_n=ref_n,
-                         ref_u=ref_u)
+    bf16 = lr_n.dtype == torch.bfloat16
+    _cuda.check_cuda("patch_match", lr_n.device,
+                     (torch.bfloat16,) if bf16 else (torch.float32,),
+                     lr_n=lr_n, ref_n=ref_n, ref_u=ref_u)
     t = torch.empty_like(ref_u)
     s = lr_n.new_empty(n, ll)
-    _cuda.launch("lgteun_patch_match", lr_n.device, lr_n, ref_n, ref_u, t, s,
-                 n, ll, k)
+    _cuda.launch("lgteun_patch_match_bf16" if bf16 else "lgteun_patch_match",
+                 lr_n.device, lr_n, ref_n, ref_u, t, s, n, ll, k)
     patch_match.launches += 1
     patch_match.variants[patch_match_branch(k, ll)] += 1
     return t, s

@@ -28,14 +28,15 @@ wrappers count their launches by the block layout the kernel picks
 (`mixer_variant`, `variants`).
 
 Storage (`ops.storage_dtype`): x may be float32 or bfloat16, and the
-head's y1 and x2 float32 or bfloat16 (`out_dtype`; default x's dtype:
-(float32, float32), (float32, bfloat16) or (bfloat16, bfloat16)); the
-mixer alone takes and gives one dtype. A bfloat16 input is upcast as
-loaded, all math is float32 (the mixer is fed the LN's float32 value,
-as the JAX head kernel does, ROADMAP C.35), and each output is rounded
-once to nearest even as stored; the plain versions spell that out. The
-bfloat16 entries are for eval: given a tensor that needs a gradient
-they raise (training runs float32 storage).
+head's y1 and x2, and the mixer's output, float32 or bfloat16
+(`out_dtype`; default x's dtype: (float32, float32), (float32, bfloat16)
+or (bfloat16, bfloat16)). A bfloat16 input is upcast as loaded, all math
+is float32 (the mixer is fed the LN's float32 value, as the JAX head
+kernel does; the level-1 prior feeds `global_mixer` the float32 LN with
+a bfloat16 output for the same function, ROADMAP C.35), and each output
+is rounded once to nearest even as stored; the plain versions spell
+that out. The bfloat16 entries are for eval: given a tensor that needs
+a gradient they raise (training runs float32 storage).
 
 Branch cut: bins with exactly zero imaginary part and a negative real
 part have phase +-pi by the sign of that zero, and the learned phase
@@ -391,13 +392,15 @@ ln_mixer_head.launches = 0
 ln_mixer_head.variants = collections.Counter()
 
 
-def global_mixer(x, amp_w, amp_b, pha_w, pha_b):
-    """FFT amp/phase mixer on [B, C, H, W] -> [B, C, H, W] of x's dtype
-    (same contract as `global_mixer_ref`); amp_w/amp_b/pha_w/pha_b:
-    [C]."""
+def global_mixer(x, amp_w, amp_b, pha_w, pha_b, out_dtype=None):
+    """FFT amp/phase mixer on [B, C, H, W] -> [B, C, H, W] of `out_dtype`
+    (default x's dtype; same contract as `global_mixer_ref`): (float32,
+    float32), (float32, bfloat16) or (bfloat16, bfloat16);
+    amp_w/amp_b/pha_w/pha_b: [C]."""
+    out_dtype = out_dtype or x.dtype
     if _cuda.plain_on_cpu("global_mixer", x):
-        return global_mixer_ref(x, amp_w, amp_b, pha_w, pha_b)
-    bf16 = x.dtype == torch.bfloat16
+        return global_mixer_ref(x, amp_w, amp_b, pha_w, pha_b, out_dtype)
+    bf16 = torch.bfloat16 in (x.dtype, out_dtype)
     if bf16:
         _cuda.check_eval_storage("global_mixer", x, amp_w, amp_b, pha_w,
                                  pha_b)
@@ -410,12 +413,21 @@ def global_mixer(x, amp_w, amp_b, pha_w, pha_b):
         _cuda.check_cuda("global_mixer", x.device, _cuda.STORAGE, x=x)
         _cuda.check_cuda_f32("global_mixer", x.device, amp_w=amp_w,
                              amp_b=amp_b, pha_w=pha_w, pha_b=pha_b)
+        if bf16 and out_dtype != torch.bfloat16:
+            raise ValueError(
+                "global_mixer: takes (x, out) as (float32, float32), "
+                "(float32, bfloat16) or (bfloat16, bfloat16), got "
+                f"({x.dtype}, {out_dtype})")
         if x.data_ptr() % (2 * x.element_size()):  # rows read as pairs
             x = x.clone()
-        out = torch.empty_like(x)
-        _cuda.launch("lgteun_global_mixer_bf16" if bf16 else
-                     "lgteun_global_mixer", x.device, x, amp_w, amp_b, pha_w,
-                     pha_b, fft_tables(h, w, x.device), out, b, c, h, w)
+        out = torch.empty(x.shape, device=x.device, dtype=out_dtype)
+        args = (x, amp_w, amp_b, pha_w, pha_b, fft_tables(h, w, x.device),
+                out, b, c, h, w)
+        if bf16:
+            _cuda.launch("lgteun_global_mixer_bf16", x.device, *args,
+                         _cuda.storage_flag(x))
+        else:
+            _cuda.launch("lgteun_global_mixer", x.device, *args)
         global_mixer.launches += 1
         global_mixer.variants[mixer_variant(b * c, x.device)] += 1
         return out

@@ -20,6 +20,17 @@ chosen by shape (`texture_match_branch`) and counted in
 TF32, 3xTF32 split, the first maximum from the accumulators), where 9C
 <= SEARCH_KP and its shared memory fits (INNT's C = 4 at side 24), and
 "fp32", the search on the FP32 cores, for every other shape.
+
+Storage (INNT's eval forward under `LGTEUN_EVAL_DTYPE=bf16`, the JAX
+package's blanket cast): lr and ref may be bfloat16, wherever float32 is
+taken; then t and s are bfloat16 too. The inputs are upcast exactly, the
+normalisation, search and transfer run in float32 (the kernel's 3xTF32
+split stays: the normalised vectors are not exact in TF32), and t and s
+are rounded once to nearest even as stored, as the Pallas kernel does
+(`lgteun_tpu/ops/texture_match_kernel.py:112-113`, `:193`).
+`texture_match_ref` spells that out (`out_dtype`: the float32 value
+before the rounding with torch.float32). The bfloat16 entry is for
+eval: it raises under a recorded gradient.
 """
 
 from __future__ import annotations
@@ -30,7 +41,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from lgteun_tpu_torch.ops import _cuda
+from lgteun_tpu_torch.ops import _cuda, upcast
 from lgteun_tpu_torch.ops.autograd import recompute
 
 __all__ = ["texture_match", "texture_match_ref", "row_normalize",
@@ -55,8 +66,12 @@ def _side(q: int) -> int:
     return side
 
 
-def texture_match_ref(lr, ref):
-    """Plain version with F.unfold / bmm / max / gather / F.fold."""
+def texture_match_ref(lr, ref, out_dtype=None):
+    """Plain version with F.unfold / bmm / max / gather / F.fold; bfloat16
+    inputs upcast, (t, s) rounded once to `out_dtype` (default lr's
+    dtype)."""
+    out_dtype = out_dtype or lr.dtype
+    lr, ref = upcast(lr), upcast(ref)
     n, c, q = lr.shape
     side = _side(q)
     unfold = lambda v: F.unfold(v.reshape(n, c, side, side), 3, padding=1)
@@ -66,7 +81,7 @@ def texture_match_ref(lr, ref):
     s, idx = r.max(dim=1)
     t_u = torch.gather(ref_u, 2, idx[:, None, :].expand(-1, 9 * c, -1))
     t = F.fold(t_u, (side, side), 3, padding=1) / 9.0
-    return t.reshape(n, c, q), s
+    return t.reshape(n, c, q).to(out_dtype), s.to(out_dtype)
 
 
 def _smem_bytes(c: int, q: int) -> int:
@@ -94,12 +109,12 @@ def texture_match_branch(c: int, side: int) -> str:
 
 
 def texture_match(lr, ref):
-    """lr, ref [N, C, side*side] f32 -> (t [N, C, side*side],
-    s [N, side*side]). On a CUDA tensor the kernel's forward,
-    differentiable through `ops.autograd.recompute`: the backward runs
-    `texture_match_ref` again, whose search may pick another ref than
-    the kernel did at a float64 near tie, as the JAX package's
-    `_fused_tm_bwd` does."""
+    """lr, ref [N, C, side*side] f32 (or both bf16) -> (t [N, C,
+    side*side], s [N, side*side]) of lr's dtype. On a CUDA tensor the
+    kernel's forward, differentiable through `ops.autograd.recompute`
+    (float32): the backward runs `texture_match_ref` again, whose search
+    may pick another ref than the kernel did at a float64 near tie, as
+    the JAX package's `_fused_tm_bwd` does."""
     if _cuda.plain_on_cpu("texture_match", lr):
         return texture_match_ref(lr, ref)
     n, c, q = lr.shape
@@ -110,6 +125,9 @@ def texture_match(lr, ref):
                          f"C <= {_MAX_C} and at most {_SMEM_MAX} B of shared "
                          f"memory (lr {tuple(lr.shape)}, ref "
                          f"{tuple(ref.shape)}, {_smem_bytes(c, q)} B)")
+    if lr.dtype == torch.bfloat16:
+        _cuda.check_eval_storage("texture_match", lr, ref)
+        return _tm_kernel(lr, ref)
     return _train_entry(lr, ref)
 
 
@@ -120,13 +138,18 @@ def _train_entry(lr, ref):
 
 
 def _tm_kernel(lr, ref):
-    """One launch of `csrc/texture_match.cu` (no backward of its own)."""
+    """One launch of `csrc/texture_match.cu` (no backward of its own): the
+    float32 entry, or the bf16 one on bf16 lr and ref."""
     n, c, q = lr.shape
     side = _side(q)
-    _cuda.check_cuda_f32("texture_match", lr.device, lr=lr, ref=ref)
+    bf16 = lr.dtype == torch.bfloat16
+    _cuda.check_cuda("texture_match", lr.device,
+                     (torch.bfloat16,) if bf16 else (torch.float32,),
+                     lr=lr, ref=ref)
     t = torch.empty_like(lr)
     s = lr.new_empty(n, q)
-    _cuda.launch("lgteun_texture_match", lr.device, lr, ref, t, s, n, c,
+    _cuda.launch("lgteun_texture_match_bf16" if bf16 else
+                 "lgteun_texture_match", lr.device, lr, ref, t, s, n, c,
                  side)
     texture_match.launches += 1
     texture_match.variants[texture_match_branch(c, side)] += 1

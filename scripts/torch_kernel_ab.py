@@ -11,7 +11,8 @@
 A and B are two versions either of `lgteun_tpu_torch/csrc/
 texture_match.cu` (the INNT searches `lgteun_texture_match` and
 `lgteun_patch_match`, at INNT's shapes: N = 256 patch-images an image,
-C = 4, side 24, a quarter of the images with PatchFusion's zero rims),
+C = 4, side 24, a quarter of the images with PatchFusion's zero rims;
+and 64 patch-images at C = 8, which the FP32-core body takes),
 or of the whole `lgteun_tpu_torch/csrc` directory (then also the LGB
 kernels at the UnlgFormer block shapes and the scene engine's 144^2 /
 72^2: every case whose C entry both versions have; `--sizes` picks the
@@ -34,8 +35,9 @@ its weights in the layout each library declares
 (`lgteun_lightnet_layout` 2: `lightnet_fragments`, five launches of two
 layers; without it: the packed FP32 rows and launches of 4, 3 and 3
 layers), and the neighbourhood attention at MDCUN's shapes
-([4,8,128,128], [1,8,72,100], [4,4,128,128]) and at C = 16 and 32
-(fs 13) (`--only lightnet`, `--only neighborhood`).
+([4,8,128,128], [1,8,72,100], [4,4,128,128]), at C = 16 and 32 (fs 13)
+and on its FP32-core branch ([1,16,40,40], fs 25) (`--only lightnet`,
+`--only neighborhood`).
 The script checks that B's outputs equal A's bit for bit or, with `--tol
 REL`, that max|B - A| / max|A| <= REL (and prints that figure); for the
 two searches, whose picks may flip at float64 near ties (`chip_smoke.
@@ -351,9 +353,10 @@ def stack_cases(gen: torch.Generator) -> dict:
                 torch.empty(b, bands, h, w, device="cuda"),), None, launcher)
     # (C = 32 at fs 13: the FP32-core body of earlier versions takes no
     # larger window there)
+    # (and C = 16 at fs 25: the FP32-core branch of the redesigned body)
     for shape, fs in (((4, 8, 128, 128), 15), ((1, 8, 72, 100), 15),
                       ((4, 4, 128, 128), 15), ((2, 16, 40, 56), 15),
-                      ((2, 32, 24, 40), 13)):
+                      ((2, 32, 24, 40), 13), ((1, 16, 40, 40), 25)):
         c = shape[1]
         args = (n(*shape),) + tuple(n(c, c, scale=c ** -0.5)
                                     for _ in range(4))
@@ -1144,27 +1147,32 @@ def main() -> int:
     n, c, side = 256 * opts.batch, 4, 24
     q = side * side
 
-    def images():
+    def images(n, c):
         x = torch.randn(n, c, side, side, generator=gen)
         x[: n // 4, :, :8] = 0
         x[: n // 4, :, :, :8] = 0
         return x.reshape(n, c, q).cuda()
 
-    lr, ref = images(), images()
-    unf = lambda v: F.unfold(v.view(n, c, side, side), 3, padding=1)
-    ref_u = unf(ref)
-    lr_n = row_normalize(unf(lr), 1).transpose(1, 2).contiguous()
-    ref_n = row_normalize(ref_u, 1).transpose(1, 2).contiguous()
-    cases = {
-        f"texture_match {n}x{c}x{q}": (
-            "lgteun_texture_match", lambda lay: (lr, ref),
-            lambda: (torch.empty(n, c, q, device="cuda"),
-                     torch.empty(n, q, device="cuda")), (n, c, side)),
-        f"patch_match {n}x{q}x{9 * c}": (
-            "lgteun_patch_match", lambda lay: (lr_n, ref_n, ref_u),
-            lambda: (torch.empty(n, 9 * c, q, device="cuda"),
-                     torch.empty(n, q, device="cuda")), (n, q, 9 * c)),
-    }
+    # INNT's searches (C 4: the tensor cores), and at C 8 (K 72) on the
+    # FP32-core body
+    cases = {}
+    for n, c in ((n, c), (64, 8)):
+        lr, ref = images(n, c), images(n, c)
+        unf = lambda v, n=n, c=c: F.unfold(v.view(n, c, side, side), 3,
+                                           padding=1)
+        ref_u = unf(ref)
+        lr_n = row_normalize(unf(lr), 1).transpose(1, 2).contiguous()
+        ref_n = row_normalize(ref_u, 1).transpose(1, 2).contiguous()
+        cases[f"texture_match {n}x{c}x{q}"] = (
+            "lgteun_texture_match", lambda lay, a=(lr, ref): a,
+            lambda n=n, c=c: (torch.empty(n, c, q, device="cuda"),
+                              torch.empty(n, q, device="cuda")),
+            (n, c, side))
+        cases[f"patch_match {n}x{q}x{9 * c}"] = (
+            "lgteun_patch_match", lambda lay, a=(lr_n, ref_n, ref_u): a,
+            lambda n=n, c=c: (torch.empty(n, 9 * c, q, device="cuda"),
+                              torch.empty(n, q, device="cuda")),
+            (n, q, 9 * c))
     cases.update(lgb_cases(opts.batch, map(int, opts.sizes.split(",")),
                            gen))
     cases = {k: v + (None,) for k, v in cases.items()}
@@ -1206,7 +1214,8 @@ def main() -> int:
                   f"s max|B - A| / max|A| {rel:.3e}")
             ok = picks and rel <= (opts.tol if opts.tol is not None
                                    else KERNEL_REL_TOL)
-            verdict = f"picks equal and s within the bound {ok}"
+            verdict = (f"picks equal and s within the bound {ok} (outputs "
+                       f"bit-equal {same})")
         a1, b1, b2, a2 = (time_ms(calls[t]) for t in "ABBA")
         dev = {t: device_profile(calls[t], n=20)["busy_ms_per_call"]
                for t in "AB"}

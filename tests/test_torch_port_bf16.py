@@ -19,11 +19,13 @@ jax_enable_x64: arrays are cast to float32 by hand).
 Model contract (4 bands, 8^2 LrMS / 32^2 PAN, K = 2, weights from
 `test_torch_port_convert.flax_params`): the drift of a mode from float32
 storage stays inside the JAX package's envelope (mean <= 5e-3, max <=
-5e-2 of max|out|, tests/test_lgteun.py); the level-1 prior computes JAX
-level 1's function (ROADMAP C.35: both round the global mixer's input);
-level 3 computes level 2's. The "bf16" stream stays bfloat16 at every
-level (JAX's level 1 promotes it to float32 after a block, C.36, which
-the port does not copy). Training ignores the mode.
+5e-2 of max|out|, tests/test_lgteun.py); the level-1 prior computes
+level 2's function, JAX's B1 -> B2 -> B3 chain (ROADMAP C.35: it feeds
+the global mixer the float32 LN and rounds only its output, where JAX's
+level-1 mirror off the TPU rounds the mixer's input); level 3 computes
+level 2's. The "bf16" stream stays bfloat16 at every level (JAX's level
+1 promotes it to float32 after a block, C.36, which the port does not
+copy). Training ignores the mode.
 
 The bf16 modes are ill-conditioned across blocks: a rounding that lands
 on the other side in two float32 implementations moves a block's output
@@ -63,7 +65,8 @@ from lgteun_tpu_torch.ops import _cuda, storage_dtype
 from lgteun_tpu_torch.ops.ffn_kernel import (block_tail, block_tail_ref,
                                              ln_ffn_ref)
 from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block_ref
-from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer_ref,
+from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
+                                                  global_mixer_ref,
                                                   ln_mixer_head,
                                                   ln_mixer_head_ref)
 from lgteun_tpu_torch.ops.window_attention import (window_attention,
@@ -372,10 +375,12 @@ def test_level1_bf16res_matches_jax(monkeypatch, jax_modes, jax_stack):
     """The whole forward at level 1 under bf16res vs JAX's: inside the
     envelope, about as far from float32 as JAX's (within 1.5x), and
     nearer JAX's bf16res than JAX's bf16 (so the test tells the modes
-    apart); one LGB stack at level 1 on the same input (JAX's mirror,
-    `_lgb_cm`) within a quarter of JAX's drift there (module docstring:
-    the whole forward's own one-rounding spread is about that
-    quarter)."""
+    apart); one LGB stack at level 1 on the same input within a quarter
+    of the drift of JAX's B1 -> B2 -> B3 chain (interpret mode, block by
+    block, as `test_level2_block_bf16res_matches_jax_chain` holds one
+    block at level 2), the function level 1 computes since ROADMAP C.35
+    was mended (module docstring: the whole forward's own one-rounding
+    spread is about that quarter)."""
     tree, batch = _model_case()
     f32_out = _port(tree, monkeypatch).apply(batch).numpy()
     scale = np.abs(f32_out).max()
@@ -389,14 +394,23 @@ def test_level1_bf16res_matches_jax(monkeypatch, jax_modes, jax_stack):
     assert near < _drift(got, jax_modes["bf16"])[0]
     assert _drift(got, jax_modes["bf16"])[0] > 0.25 * jax_drift
 
-    # one stack on one input: JAX's _lgb_cm vs the port's LGB
-    x, want, _, _ = jax_stack
+    # one stack on one input: JAX's chain, block by block, vs the port's
+    # level-1 LGB
+    x = jax_stack[0]
+    params = jax.tree.map(jnp.asarray, tree["prior_1"]["enc_lgb_0"])
+    want = jnp.asarray(x)
+    for i in range(2):
+        mx = params[f"mixer_{i}"]
+        want = _jax_chain(want, {
+            "norm": params[f"norm_mix_{i}"], "local": mx["local"],
+            "global": mx["global"], "proj": mx["proj"],
+            "ffn": lgteun_fast._ffn_flat(params[f"ffn_{i}"])}, jnp.bfloat16)
+    want = np.asarray(want)
     stack = port.module.prior_module[1].encoder_layers[0][0]
     with torch.no_grad():
         got = stack(torch.from_numpy(x), None, BF16).numpy()
         ref = stack(torch.from_numpy(x)).numpy()
-    assert _drift(got, want["bf16res"])[0] <= 0.25 * _drift(
-        want["bf16res"], ref)[0]
+    assert _drift(got, want)[0] <= 0.25 * _drift(want, ref)[0]
 
 
 def test_levels_inside_envelope(monkeypatch):
@@ -435,10 +449,12 @@ def test_levels_inside_envelope(monkeypatch):
 
 
 def test_c35_level1_rounds_the_mixer_input(monkeypatch, jax_stack):
-    """ROADMAP C.35: under bf16res JAX's level 1 (its mirror) and the
-    port's round the global mixer's input to bf16; the port's level 2
-    feeds the mixer the float32 LN, as JAX's head kernel does, and only
-    rounds its output."""
+    """ROADMAP C.35 (mended): under bf16res JAX's level-1 mirror rounds
+    the global mixer's input to bf16; the port's level 1 feeds the mixer
+    the float32 LN and rounds only its output (`global_mixer(...,
+    out_dtype=bf16)`), as JAX's head kernel B1 and the port's level 2
+    do: on the same x the level-1 mixer's x2 is the head's bit for
+    bit."""
     tree, batch = _model_case()
     seen = jax_stack[2]
     assert len(seen) == 2 and all(np.array_equal(
@@ -447,10 +463,12 @@ def test_c35_level1_rounds_the_mixer_input(monkeypatch, jax_stack):
 
     mixer_in = []
     monkeypatch.setattr(lgt, "global_mixer",
-                        lambda x, *p: mixer_in.append(x) or global_mixer_ref(
-                            x, *p))
+                        lambda x, *p, out_dtype=None: mixer_in.append(x)
+                        or global_mixer_ref(x, *p, out_dtype))
     _port(tree, monkeypatch, "bf16res", "1").apply(batch)
-    assert len(mixer_in) == 5 and all(t.dtype == BF16 for t in mixer_in)
+    assert len(mixer_in) == 5 and all(t.dtype == torch.float32
+                                      for t in mixer_in)
+    assert not all(torch.equal(t, t.to(BF16).float()) for t in mixer_in)
 
     rng = np.random.default_rng(50)
     x = torch.from_numpy(f32(rng, 1, 8, 16, 16))
@@ -460,6 +478,8 @@ def test_c35_level1_rounds_the_mixer_input(monkeypatch, jax_stack):
     _, x2 = ln_mixer_head(x, *params, out_dtype=BF16)
     ln = lgt.channel_layer_norm(x, params[0], params[1])
     assert torch.equal(x2, global_mixer_ref(ln[:, 4:], *params[2:]).to(BF16))
+    assert torch.equal(x2, global_mixer(ln[:, 4:].contiguous(), *params[2:],
+                                        out_dtype=BF16))
     assert not torch.equal(x2, global_mixer_ref(ln[:, 4:].to(BF16),
                                                 *params[2:]))
 
@@ -496,23 +516,6 @@ def test_training_forward_ignores_mode(monkeypatch):
     port = _port(tree, monkeypatch, "bf16res")
     with pytest.raises(RuntimeError, match="eval mode without a backward"):
         port.forward(ms, pan)
-
-
-@pytest.mark.parametrize("model_type,cfg", [
-    ("lightnet", {}), ("MDCUN", {"T": 1, "mid_channels": 8}),
-    ("INNT", {}), ("PanFormer", {}), ("SFIIN", {}), ("MutInf", {})])
-def test_other_methods_raise_under_bf16(model_type, cfg, monkeypatch):
-    """`bf16` is UnlgFormer's storage mode: building another DL method
-    under it raises, naming the ROADMAP item that ports JAX's blanket
-    autocast; `bf16res` changes nothing for them (JAX's `_eval_dtype`
-    tests == "bf16"), and the classical methods ignore the variable."""
-    config = Config(ms_chans=4, model_cfg={"core_module": cfg})
-    monkeypatch.setenv("LGTEUN_EVAL_DTYPE", "bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5.1"):
-        build_model(model_type, config, device="cpu")
-    build_model("GSA", config, device="cpu")
-    monkeypatch.setenv("LGTEUN_EVAL_DTYPE", "bf16res")
-    build_model(model_type, config, device="cpu")
 
 
 def test_entries_name_their_dtypes():

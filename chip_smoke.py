@@ -217,6 +217,23 @@ the CPU's own spread at a one-step input change (BF16_ZOO_*), MutInf's
 bits equal to float32's, and batch-1 latency and batch-16 images/s in
 turns with float32 (printed only).
 
+The JAX Runner's other training modes (after the zoo's training
+blocks): `remat` (the loss inside torch.utils.checkpoint; UnlgFormer at
+level 2 with dropout and MDCUN at batch 16, LightNet and INNT at their
+training batch: the first loss bit-equal to the run without it, the
+kernels launched twice a step, parameters within REMAT_* after 3 steps,
+step ms and peak GiB in turns); `mixed_precision` (UnlgFormer's
+selective bf16 blocks, B4 the only kernel; the blanket cast of LightNet,
+MDCUN, INNT on both routes, PanFormer, SFIIN and MutInf: a drop-0 step
+card vs CPU plain within MIXED_SPREAD of the CPU's own spread, 50
+iterations with the rec_loss falling, float32 masters and Adam states,
+step ms and peak in turns with float32); adversarial training
+(UnlgFormer + PatchDiscriminator(64, 3, IN) with LSGAN, LightNet with
+GAN, LSGAN and WGAN-GP; one drop-0 step of both networks card vs CPU
+plain at the training bounds, both networks moving over ADV_STEPS steps,
+step ms) and a `QNR_loss` step; and, beside the autograd rows, the bf16
+training entries of B10-B12 against plain autograd of their refs.
+
 Any failed phase raises (non-zero exit). With no CUDA device the script
 exits non-zero before printing any result. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it is the card's name and
@@ -1381,6 +1398,41 @@ def bf16_kernel_cases(gen: torch.Generator):
                na + (15,), shape)
 
 
+def bf16_outputs(name: str, tensors, got, p, cut=None) -> tuple:
+    """A bf16 entry's outputs `got` against its plain version's float32
+    outputs `p` on the card: (the worst excess of |got - p| over BF16_REL
+    |p| + KERNEL_REL_TOL max|p|, of max|p|; each bf16 output's share
+    equal to bf16(p) (`bf16_equal_share`, the last output's mixer planes
+    `cut` set aside); each output's share within the bound; the near-tie
+    note; whether the near ties stay within NEAR_TIE_MAX_SHARE)."""
+    worst, shares, within = 0.0, [], []
+    # the searches' picks may differ at float64 near ties of the
+    # (upcast) inputs: their transferred values are held elsewhere
+    keep, near, ties_ok = None, "", True
+    if name in ("texture_match", "patch_match"):
+        mask, n_near = near_tie_mask(name, tensors, p[0])
+        keep = ~mask
+        near = (f"; near-tie queries {n_near}, transferred values set "
+                f"aside {int(mask.sum())} of {mask.numel()}")
+        ties_ok = mask.sum() <= NEAR_TIE_MAX_SHARE * mask.numel()
+    for i, (g, w) in enumerate(zip(got, p)):
+        if g.dtype not in (BF16, torch.float32) or g.shape != w.shape:
+            raise AssertionError(f"bf16 {name}: output {g.dtype} "
+                                 f"{tuple(g.shape)}")
+        if keep is not None and i == 0:
+            g, w = g[keep], w[keep]
+        scale = w.abs().max().item()
+        over = ((g.float() - w).abs() - BF16_REL * w.abs()
+                - KERNEL_REL_TOL * scale)
+        worst = max(worst, over.max().item() / max(scale, 1e-30))
+        within.append(float((over <= 0).float().mean()))
+        if g.dtype == BF16:
+            mixed = cut is not None and i == len(got) - 1
+            shares.append(bf16_equal_share(
+                g, w, ~cut if mixed else None)[0])
+    return worst, shares, within, near, ties_ok
+
+
 def run_bf16_kernels(gen: torch.Generator, record: dict, card: str) -> None:
     """Each bf16 entry of B1-B6, B8 and B10-B12 (B4 also float32 in,
     bf16 out) against its plain version on the card (BF16_REL and
@@ -1397,7 +1449,6 @@ def run_bf16_kernels(gen: torch.Generator, record: dict, card: str) -> None:
     for name, shape, label, kernel, plain, tensors, f32_shape in \
             bf16_kernel_cases(gen):
         got, p = as_tuple(kernel()), as_tuple(plain())
-        worst, shares, within = 0.0, [], []
         # the mixer's input planes in float64, for its outputs' share
         cut = None
         if name in ("ln_mixer_head", "global_mixer"):
@@ -1407,31 +1458,10 @@ def run_bf16_kernels(gen: torch.Generator, record: dict, card: str) -> None:
                                        tensors[2].double())[:, x.shape[1]
                                                             // 2:]
             cut = mixer_cut_planes(x)
-        # the searches' picks may differ at float64 near ties of the
-        # (upcast) inputs: their transferred values are held elsewhere
-        keep, near = None, ""
-        if name in ("texture_match", "patch_match"):
-            mask, n_near = near_tie_mask(name, tensors, p[0])
-            keep = ~mask
-            near = (f"; near-tie queries {n_near}, transferred values set "
-                    f"aside {int(mask.sum())} of {mask.numel()}")
-            if mask.sum() > NEAR_TIE_MAX_SHARE * mask.numel():
-                failures.append(f"{name} {shape} {label}: near ties")
-        for i, (g, w) in enumerate(zip(got, p)):
-            if g.dtype not in (BF16, torch.float32) or g.shape != w.shape:
-                raise AssertionError(f"bf16 {name} {shape} {label}: output "
-                                     f"{g.dtype} {tuple(g.shape)}")
-            if keep is not None and i == 0:
-                g, w = g[keep], w[keep]
-            scale = w.abs().max().item()
-            over = ((g.float() - w).abs() - BF16_REL * w.abs()
-                    - KERNEL_REL_TOL * scale)
-            worst = max(worst, over.max().item() / max(scale, 1e-30))
-            within.append(float((over <= 0).float().mean()))
-            if g.dtype == BF16:
-                mixed = cut is not None and i == len(got) - 1
-                shares.append(bf16_equal_share(
-                    g, w, ~cut if mixed else None)[0])
+        worst, shares, within, near, ties_ok = bf16_outputs(
+            name, tensors, got, p, cut)
+        if not ties_ok:
+            failures.append(f"{name} {shape} {label}: near ties")
         ok = all(v >= BF16_EQUAL for v in shares)
         if cut is not None:
             ok = ok and cut.float().mean().item() <= BF16_CUT_SHARE
@@ -1985,8 +2015,10 @@ def main() -> int:
     check_tail_layout(gen)
     check_fft_tables()
 
-    # 3. the differentiable wrappers against plain autograd
+    # 3. the differentiable wrappers against plain autograd, and the bf16
+    #    training entries of B10-B12
     run_autograd(torch.Generator().manual_seed(SEED + 2), card)
+    run_bf16_train_entries(torch.Generator().manual_seed(SEED + 8), card)
 
     # 4. each slice: shipped config, seeded weights, Runner.test
     #    (a kernel's launches are those of the first path that runs it)
@@ -2019,7 +2051,13 @@ def main() -> int:
     # 6b. the rest of the zoo trains: LightNet, MDCUN, INNT (B9-B12 through
     #     their recompute entries), SFIIN and MutInf
     run_zoo_training(train_ds, card, opts.profile)
-    # 6c. bf16 storage with port-trained weights; training ignores it
+    # 6c. the JAX Runner's other training modes: remat, mixed_precision
+    #     (UnlgFormer's selective mode and the zoo's blanket cast) and
+    #     adversarial training (with the QNR loss)
+    run_remat(train_ds, card)
+    run_mixed(train_ds, card)
+    run_adversarial(train_ds, card)
+    # 6d. bf16 storage with port-trained weights; training ignores it
     run_bf16_quality(card)
 
     # 7. the evaluation entry point: main.cli --test-only, both splits,
@@ -3775,6 +3813,580 @@ def run_main(card: str) -> None:
     print(f"main phase: {time.perf_counter() - t_phase:.1f} s; the float64 "
           f"oracle {oracle_s:.1f} s from its first job to its last on "
           f"{max(os.cpu_count() - 1, 1)} processes, beside the card's runs")
+
+
+
+# ------------------------------------------------------ training modes
+
+# remat: (config, batch or None for the config's, launches a forward;
+# every other kernel 0); the checkpoint's replay launches them again
+REMAT = (("unlg_former.py", 16, TRAIN_ROUTE),
+         ("MDCUN.py", 16, {"neighborhood_attention": 4}),
+         ("lightnet.py", None, {"lightnet_stack": 5}),
+         ("INNT.py", None, {"texture_match": 1}))
+# a bf16 gradient of B10-B12's training entries vs plain autograd: one
+# rounding step of bf16 (a float32 sum in another order, then rounded;
+# a step is at most 2^-7 of the value)
+BF16_GRAD_STEP = 2.0 ** -7
+MODE_STEPS = 3              # steps checked with and without a mode
+MODE_TIMED = 5              # timed steps a turn (turns A B B A)
+# remat vs the run without it after MODE_STEPS steps: each loss within
+# REMAT_LOSS_REL (ROADMAP C.24: the backward's atomics in an unfixed
+# order), and each parameter tensor within REMAT_PARAM_REL as a relative
+# norm, |diff| / |p|, over the elements whose gradient is not near zero:
+# Adam's step is lr * m / sqrt(v), which turns a sign flip of a
+# rounding-level gradient into an lr-sized move (INNT's two runs without
+# remat differ by 0.21-0.44 of a bias's largest), so the elements whose
+# sqrt(v) after the steps is below REMAT_NEAR_ZERO of their tensor's
+# largest are counted and set aside. The largest element's move is
+# printed, not bounded: on UnlgFormer two runs without remat differ by
+# 4.7e-4-9.5e-4 of a weight's largest (a few hundredths of an lr step on
+# one element), at the 1e-3 itself, where the norm reads 4e-5-7e-5
+REMAT_LOSS_REL = 1e-3
+REMAT_PARAM_REL = 1e-3
+REMAT_NEAR_ZERO = 1e-3
+# mixed_precision: (config, environment, launches a training forward);
+# UnlgFormer selective (B4 only), the rest the blanket cast
+MIXED = (("unlg_former.py", {}, {"global_mixer": 5}),
+         ("lightnet.py", {}, {}),
+         ("MDCUN.py", {}, {"neighborhood_attention": 4}),
+         ("INNT.py", {}, {"texture_match": 1}),
+         ("INNT.py", {"LGTEUN_FUSED_TM": "0"}, {"patch_match": 1}),
+         ("PanFormer.py", {}, {}),
+         ("SFIIN.py", {}, {}),
+         ("MutInf.py", {}, {}))
+MIXED_BATCH = 4
+MIXED_ITERS = 50
+MIXED_SPREAD = 1.5          # card vs CPU within this x the CPU's spread
+# adversarial: (config, gan type, discriminator) and its weight
+ADV_DISC = dict(type="PatchDiscriminator", n_feats=64, n_layers=3,
+                norm_type="IN")
+ADV = (("unlg_former.py", "LSGAN"), ("lightnet.py", "GAN"),
+       ("lightnet.py", "LSGAN"), ("lightnet.py", "WGAN-GP"))
+ADV_W = 1e-3
+ADV_STEPS = 20
+# the discriminator's float32 gradients against float64, of each tensor's
+# largest: float32 resolves a weight that feeds an instance norm only so
+# far, on either device (an H100 read up to 3.5e-2 on the card and 2.3e-2
+# on the CPU, one step of PatchDiscriminator(64, 3) at 128^2)
+ADV_D_F32_TOL = 1e-1
+
+
+def mode_cfg(config: str, drop0: bool = False, **extras):
+    """The shipped `config` with `extras` (remat, mixed_precision), the
+    dropout at 0 where `drop0` (a card-vs-CPU step: the two devices'
+    generators draw other masks)."""
+    from lgteun_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(CONFIGS, config))
+    cfg.extras.update(extras)
+    cfg.save_freq = cfg.eval_freq = cfg.test_freq = 0
+    if drop0 and "core_module" in cfg.model_cfg:
+        cfg.model_cfg = copy.deepcopy(cfg.model_cfg)
+        cfg.model_cfg["core_module"]["drop_rate"] = 0.0
+    return cfg
+
+
+def mode_runner(cfg, env: dict, device: str, train_ds=None, like=None):
+    """A Runner of `cfg` on `device`, seeded (SEED) or with the weights of
+    Runner `like` in every module."""
+    from lgteun_tpu_torch.runner import Runner
+    method = zoo_method(cfg, env, device)
+    runner = Runner(cfg, method, device, train_ds=train_ds)
+    if like is None:
+        runner.init(SEED)
+    else:
+        method.init_params(torch.Generator().manual_seed(SEED), (32, 128))
+        for name, module in like.method.modules().items():
+            method.load_module_state_dict(name, {
+                k: v.to(device) for k, v in module.state_dict().items()})
+    return runner.set_optim()
+
+
+def step_grads(runner, batch: dict, iter_id: int = 0) -> tuple:
+    """(loss, every module's gradients as one float64 CPU vector) of the
+    step's loss at `iter_id` (no optimiser step; remat and the cast as the
+    Runner runs them)."""
+    runner.method.train()
+    for module in runner.method.modules().values():
+        module.zero_grad(set_to_none=True)
+    total, _ = runner._losses(batch, iter_id)
+    total.backward()
+    grads = [p.grad.detach().double().cpu().flatten()
+             for module in runner.method.modules().values()
+             for p in module.parameters() if p.grad is not None]
+    return total.item(), torch.cat(grads)
+
+
+def turns_ms(runners: dict, batch_of: dict) -> tuple[dict, dict]:
+    """Median step ms and peak GiB of each Runner of `runners` {label:
+    runner}, in turns A B B A of MODE_TIMED steps (peak: the largest
+    `max_memory_allocated` over its steps, every runner's weights and
+    optimiser states resident)."""
+    times, peaks = collections.defaultdict(list), collections.defaultdict(
+        float)
+    labels = list(runners)
+    for label in labels + labels[::-1]:
+        runner, batch = runners[label], batch_of[label]
+        for i in range(MODE_TIMED):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runner.train_step(batch, 10 + i)
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+            peaks[label] = max(peaks[label],
+                               torch.cuda.max_memory_allocated() / 2 ** 30)
+    return ({k: statistics.median(v) * 1e3 for k, v in times.items()},
+            dict(peaks))
+
+
+def flat_params(runner) -> dict:
+    return {f"{m}.{k}": v.detach().double().cpu()
+            for m, mod in runner.method.modules().items()
+            for k, v in mod.state_dict().items() if v.is_floating_point()}
+
+
+def adam_rms(runner) -> dict:
+    """{flat key: sqrt of Adam's second moment} of each parameter that
+    `runner`'s optimisers have stepped."""
+    out = {}
+    for m, mod in runner.method.modules().items():
+        state = runner.optimizers[m].state
+        for k, p in mod.named_parameters():
+            if p in state:
+                out[f"{m}.{k}"] = state[p]["exp_avg_sq"].sqrt().double().cpu()
+    return out
+
+
+def param_gap(a: dict, b: dict,
+              rms: dict) -> tuple[dict, dict, int, int]:
+    """Over the elements whose sqrt(v) in `rms` is at least
+    REMAT_NEAR_ZERO of their tensor's largest (a key that `rms` lacks
+    keeps every element): ({key: |a - b| / |a|}, {key: max|a - b| /
+    max|a|}, the elements set aside, all elements)."""
+    norm, peak, aside, total = {}, {}, 0, 0
+    for k in a:
+        keep = torch.ones_like(a[k], dtype=torch.bool)
+        if k in rms:
+            keep = rms[k] >= REMAT_NEAR_ZERO * rms[k].max()
+        d = (a[k] - b[k])[keep]
+        norm[k] = (d.norm() / a[k][keep].norm().clamp(min=1e-30)).item()
+        peak[k] = (d.abs().max() / a[k].abs().max().clamp(min=1e-30)
+                   ).item() if d.numel() else 0.0
+        aside += int((~keep).sum())
+        total += keep.numel()
+    return norm, peak, aside, total
+
+
+def run_remat(train_ds, card: str) -> None:
+    """`remat=True` (the loss inside torch.utils.checkpoint) on the card
+    for each of REMAT from the same seeded weights as two runs without
+    it: the first step's loss bit-equal, each loss within REMAT_LOSS_REL,
+    each parameter tensor after MODE_STEPS steps within REMAT_PARAM_REL
+    as a relative norm where its gradient is not near zero (`param_gap`;
+    the largest element's move and the runs' spread without remat
+    printed beside), the kernels launched twice a step (the forward,
+    then the backward's replay), and step ms and peak GiB in turns with
+    a run without remat."""
+    from lgteun_tpu_torch.data.pipeline import train_iterator
+
+    failures = []
+    for config, bsz, route in REMAT:
+        cfg = mode_cfg(config)
+        bsz = bsz or cfg.train_set_cfg.batch_size
+        env = TRAIN_ENV if cfg.model_type == "UnlgFormer" else {}
+        tag = f"remat {cfg.model_type} batch {bsz}"
+        runners, losses, counts = {}, {}, {}
+        for label, remat in (("plain", False), ("again", False),
+                             ("remat", True)):
+            cfg_r = mode_cfg(config, remat=remat)
+            runners[label] = mode_runner(cfg_r, env, "cuda")
+            batch = runners[label].to_device(next(train_iterator(
+                train_ds, bsz, bit_depth=cfg.bit_depth, seed=SEED + 11)))
+            wrappers = reset_launches()
+            losses[label] = [runners[label].train_step(batch, i)[
+                "full_loss"].item() for i in range(MODE_STEPS)]
+            counts[label] = check_launches(
+                f"{tag} remat={remat}", wrappers,
+                {k: n * (2 if remat else 1) for k, n in route.items()},
+                MODE_STEPS)
+        a, b, c = (flat_params(runners[k])
+                   for k in ("plain", "remat", "again"))
+        rms = adam_rms(runners["plain"])
+        rel, moves, aside, total = param_gap(a, b, rms)
+        own, own_moves, _, _ = param_gap(a, c, rms)
+        worst = max(rel.values())
+        bad = worst > REMAT_PARAM_REL
+        loss_rel = max(abs(x - y) / abs(x) for x, y in zip(
+            losses["plain"], losses["remat"]))
+        del runners["again"]
+        ms, peak = turns_ms(runners, {"plain": batch, "remat": batch})
+        same = losses["plain"][0] == losses["remat"][0]
+        print(f"{tag}: first loss {losses['plain'][0]!r} / "
+              f"{losses['remat'][0]!r} bit-equal {same}; losses "
+              f"{losses['plain']} / {losses['remat']} (worst relative "
+              f"{loss_rel:.3e}, bound {REMAT_LOSS_REL:g}; a second run "
+              f"without remat {losses['again']}); parameters after "
+              f"{MODE_STEPS} steps, where the gradient is not near zero "
+              f"(set aside {aside} of {total} elements with sqrt(v) below "
+              f"{REMAT_NEAR_ZERO:g} of their tensor's largest): worst "
+              f"tensor's |diff| / |p| {worst:.3e} ({max(rel, key=rel.get)}"
+              f"; bound {REMAT_PARAM_REL:g}), largest element's max|diff| / "
+              f"max|p| {max(moves.values()):.3e}; two runs without remat "
+              f"{max(own.values()):.3e} and {max(own_moves.values()):.3e};"
+              f" launches "
+              f"a step { {k: counts['remat'][k] // MODE_STEPS for k in route}}"
+              f" (2x a forward); step {ms['plain']:.3f} ms / remat "
+              f"{ms['remat']:.3f} ms ({ms['remat'] / ms['plain']:.3f}x); "
+              f"peak {peak['plain']:.2f} / {peak['remat']:.2f} GiB  [{card}]")
+        if not (same and loss_rel <= REMAT_LOSS_REL and not bad):
+            failures.append(f"{tag}: first loss equal {same}, losses "
+                            f"{loss_rel:.3e}, parameters {worst:.3e}")
+        del runners
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"remat: {failures}")
+
+
+def nudge_f32(a: np.ndarray) -> np.ndarray:
+    """Each value moved one float32 step up: the selective mode keeps the
+    inputs float32, so its spread is taken at a float32 rounding."""
+    return np.nextafter(a.astype(np.float32), np.float32(np.inf))
+
+
+def run_mixed(train_ds, card: str) -> None:
+    """`mixed_precision=True` on the card for each of MIXED: UnlgFormer's
+    selective mode (batch MIXED_BATCH and 16) and the blanket cast of the
+    rest (batch MIXED_BATCH). One drop-0 step's loss and gradients (every
+    module) on the card against the CPU plain path in the mode on one
+    image, within MIXED_SPREAD x the CPU's own spread at a one-step input
+    change (one bf16 step where the cast rounds the inputs, one float32
+    step under the selective mode: ROADMAP C.37's form) and the loss
+    within a bf16 step; the launches a training forward (every other
+    kernel 0: no B1-B3, B5 or B8 under the selective mode); MIXED_ITERS
+    iterations of `Runner.train` with a finite loss whose `rec_loss`
+    window mean falls; step ms and peak GiB in turns with float32."""
+    from lgteun_tpu_torch.data.pipeline import train_iterator
+
+    failures = []
+    for config, env, route in MIXED:
+        cfg = mode_cfg(config, drop0=True, mixed_precision=True)
+        selective = cfg.model_type == "UnlgFormer"
+        env = dict(TRAIN_ENV, **env) if selective else env
+        tag = (f"mixed {cfg.model_type}"
+               + "".join(f" ({k}={v})" for k, v in env.items()
+                         if k == "LGTEUN_FUSED_TM")
+               + (" selective" if selective else " blanket"))
+        card_r = mode_runner(cfg, env, "cuda")
+        cpu_r = mode_runner(cfg, env, "cpu", like=card_r)
+        one = next(train_iterator(train_ds, 1, bit_depth=cfg.bit_depth,
+                                  seed=SEED + 12))
+        nudge = nudge_f32 if selective else bf16_step
+        moved = {k: nudge(v) if k != "target" else v for k, v in one.items()}
+        wrappers = reset_launches()
+        card_l, card_g = step_grads(card_r, card_r.to_device(one))
+        counted = check_launches(tag, wrappers, route, 1)
+        cpu_l, cpu_g = step_grads(cpu_r, cpu_r.to_device(one))
+        moved_l, moved_g = step_grads(cpu_r, cpu_r.to_device(moved))
+        gap = (card_g - cpu_g).abs().mean().item()
+        spread = (moved_g - cpu_g).abs().mean().item()
+        dtypes = {str(p.dtype) for m in card_r.method.modules().values()
+                  for p in m.parameters()}
+        print(f"{tag}: launches a training forward "
+              f"{ {k: counted[k] for k in route} } (every other 0); loss "
+              f"card {card_l:.6f} cpu {cpu_l:.6f} (moved input "
+              f"{moved_l:.6f}); gradients mean|card - cpu| {gap:.3e} = "
+              f"{gap / max(spread, 1e-30):.3f} of the cpu's own spread at a "
+              f"one-{'float32' if selective else 'bf16'}-step input change "
+              f"({spread:.3e}; bound {MIXED_SPREAD}); blanket cast "
+              f"{card_r.blanket}; master dtypes {sorted(dtypes)}  [{card}]")
+        if not (gap <= MIXED_SPREAD * spread
+                and abs(card_l - cpu_l) <= 2 ** -8 * abs(cpu_l)
+                and dtypes == {"torch.float32"}):
+            failures.append(f"{tag}: card vs cpu {gap:.3e} (spread "
+                            f"{spread:.3e}), loss {card_l} / {cpu_l}")
+        del cpu_r
+
+        # MIXED_ITERS iterations of the shipped config (its dropout) in
+        # the mode
+        cfg_t = mode_cfg(config, mixed_precision=True)
+        cfg_t.max_iter, cfg_t.log_freq = MIXED_ITERS, TRAIN_LOG
+        cfg_t.work_dir = os.path.join(REPO, "build", "chip_smoke",
+                                      f"mixed_{cfg.model_type}")
+        runner = mode_runner(cfg_t, env, "cuda", train_ds=train_ds)
+        cfg_t.train_set_cfg.batch_size = MIXED_BATCH
+        runner.train()
+        rec = [parts["rec_loss"] for _, parts in runner.loss_log]
+        full = [parts["full_loss"] for _, parts in runner.loss_log]
+        print(f"{tag}: {MIXED_ITERS} iterations at batch {MIXED_BATCH}: "
+              f"rec_loss {', '.join(f'{v:.6f}' for v in rec)}  [{card}]")
+        if not (np.isfinite(rec + full).all() and rec[-1] < rec[0]):
+            failures.append(f"{tag}: loss curve {runner.loss_log}")
+        if not all(p.dtype == torch.float32 and all(
+                v.dtype == torch.float32 for k, v in st.items() if k != "step")
+                for opt in runner.optimizers.values()
+                for g in opt.param_groups for p in g["params"]
+                for st in [opt.state.get(p, {})]):
+            failures.append(f"{tag}: a master or Adam state not float32")
+        del runner
+
+        # speed in turns with float32 (its own seeded weights)
+        f32_r = mode_runner(mode_cfg(config, drop0=True), env, "cuda")
+        for bsz in ((MIXED_BATCH, 16) if selective else (MIXED_BATCH,)):
+            batch = card_r.to_device(next(train_iterator(
+                train_ds, bsz, bit_depth=cfg.bit_depth, seed=SEED + 13)))
+            ms, peak = turns_ms({"float32": f32_r, "mixed": card_r},
+                                {"float32": batch, "mixed": batch})
+            print(f"{tag} step batch {bsz}: float32 {ms['float32']:.3f} ms, "
+                  f"mixed {ms['mixed']:.3f} ms "
+                  f"({ms['float32'] / ms['mixed']:.3f}x); peak "
+                  f"{peak['float32']:.2f} / {peak['mixed']:.2f} GiB  [{card}]")
+        del card_r, f32_r
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"mixed: {failures}")
+
+
+@contextlib.contextmanager
+def float64_batches():
+    """Inside it, the models and the Runner take NHWC batches to NCHW
+    float64 (a float64 copy of a method)."""
+    import lgteun_tpu_torch.models as models_pkg
+    from lgteun_tpu_torch import runner as runner_mod
+    from lgteun_tpu_torch.models import base
+
+    nchw = lambda a, dev: torch.as_tensor(np.asarray(a) if not isinstance(
+        a, torch.Tensor) else a).to(device=dev, dtype=torch.float64).permute(
+        0, 3, 1, 2).contiguous()
+    with mock.patch.object(models_pkg, "_nchw", nchw), \
+            mock.patch.object(base, "_nchw", nchw), \
+            mock.patch.object(runner_mod, "_nchw", nchw):
+        yield
+
+
+def fixed_eps(eps: torch.Tensor):
+    """`runner.gan_d_loss` with WGAN-GP's eps given (the same values on
+    both devices, whose generators draw other numbers)."""
+    from lgteun_tpu_torch import losses
+
+    def call(*args, **kwargs):
+        kwargs.pop("generator", None)
+        return losses.gan_d_loss(*args, eps=eps.to(args[1].device),
+                                 **kwargs)
+    return call
+
+
+def run_adversarial(train_ds, card: str) -> None:
+    """Adversarial training (`Runner._adversarial_step`) on the card for
+    each of ADV with a PatchDiscriminator(64, 3, IN) and adv weight ADV_W:
+    one drop-0 step (batch 2) of both networks from the same weights (one
+    WGAN-GP eps on every run) on the card and on the CPU plain path, each
+    in float32 and in float64 (the card's float64 run on the kernels'
+    plain versions): the two float64 steps agree within ZOO_F64_GRAD_TOL
+    (the same function on both devices), the card's float32 loss parts
+    within 5e-4 of float64's, its generator's gradients within the
+    training bounds of float64's and its discriminator's within
+    ADV_D_F32_TOL (float32 resolves the gradient of a weight that feeds an
+    instance norm only to a few 1e-2 of its largest on either device: the
+    norm's backward has zero mean a channel, so the weight gradient is a
+    sum that cancels; card vs CPU float32 printed); the launches of the
+    generator's one forward a step; ADV_STEPS steps at the config's batch
+    in which both networks move; the step ms. Then a `QNR_loss` step of
+    LightNet (l1 + 0.1 QNR) the same way."""
+    from lgteun_tpu_torch import runner as runner_mod
+    from lgteun_tpu_torch.config import LossCfg
+    from lgteun_tpu_torch.data.pipeline import train_iterator
+
+    failures = []
+    cases = [(c, g, {"adv_loss": LossCfg(g, ADV_W)}) for c, g in ADV]
+    cases.append(("lightnet.py", None, {"QNR_loss": LossCfg("qnr", 0.1)}))
+    for config, gan_type, extra in cases:
+        cfg = mode_cfg(config, drop0=True)
+        cfg.loss_cfg = {**cfg.loss_cfg, **extra}
+        if gan_type:
+            cfg.model_cfg = {**cfg.model_cfg, "discriminator": ADV_DISC}
+        env = TRAIN_ENV if cfg.model_type == "UnlgFormer" else {}
+        tag = (f"adversarial {cfg.model_type} {gan_type}" if gan_type
+               else f"qnr {cfg.model_type}")
+        route = ({"ln_mixer_head": 5, "window_attention": 5,
+                  "block_tail": 5} if cfg.model_type == "UnlgFormer"
+                 else {"lightnet_stack": 5})
+        card_r = mode_runner(cfg, env, "cuda", train_ds=train_ds)
+        runs = {"cpu": mode_runner(cfg, env, "cpu", like=card_r),
+                "cpu64": mode_runner(cfg, env, "cpu", like=card_r),
+                "card64": mode_runner(cfg, env, "cuda", like=card_r)}
+        for key in ("cpu64", "card64"):
+            for module in runs[key].method.modules().values():
+                module.double()
+        two = next(train_iterator(train_ds, 2, bit_depth=cfg.bit_depth,
+                                  seed=SEED + 14))
+        eps = torch.rand((2, 1, 1, 1),
+                         generator=torch.Generator().manual_seed(SEED))
+
+        def one_step(r):
+            r.method.train()
+            with mock.patch.object(runner_mod, "gan_d_loss", fixed_eps(eps)):
+                parts = r.train_step(r.to_device(two), 0)
+            grads = {f"{m}.{k}": p.grad.detach().cpu().double()
+                     for m, mod in r.method.modules().items()
+                     for k, p in mod.named_parameters() if p.grad is not None}
+            return {k: v.item() for k, v in parts.items()}, grads
+
+        wrappers = reset_launches()
+        card_p, card_g = one_step(card_r)
+        check_launches(tag, wrappers, route, 1)
+        cpu_p, cpu_g = one_step(runs["cpu"])
+        with float64_batches():
+            exact_p, exact_g = one_step(runs["cpu64"])
+            with swapped_kernels(route, lambda name, fn: kernel_fns(name)[1]):
+                _, card64_g = one_step(runs["card64"])
+        del runs
+        scale, level = grad_level(exact_g)
+        rel = lambda g, k: ((g[k] - exact_g[k]).abs().max() / exact_g[
+            k].abs().max().clamp(min=1e-300)).item()
+        same = max(rel(card64_g, k) for k in level)
+        card_64 = {k: rel(card_g, k) for k in level}
+        cpu_64 = {k: rel(cpu_g, k) for k in level}
+        bound = {k: ADV_D_F32_TOL if k.startswith("discriminator.")
+                 else TRAIN_GRAD_TOL for k in level}
+        beyond = [k for k in level if card_64[k] > bound[k]] + [
+            k for k in exact_g if k not in level and (
+                card_g[k] - exact_g[k]).abs().max().item()
+            > TRAIN_GRAD_TOL * exact_g[k].abs().max().item()
+            + GRAD_ATOL * scale]
+        loss_rel = max(abs(card_p[k] - exact_p[k]) / max(abs(exact_p[k]),
+                                                         1e-30)
+                       for k in exact_p)
+        _, vs_cpu, worst, _ = grad_diff((0.0, card_g), (0.0, cpu_g), level,
+                                        scale)
+        far = max(card_64, key=card_64.get)
+        gen_worst = max([v for k, v in card_64.items()
+                         if k.startswith("core")] or [0.0])
+        print(f"{tag}: one step (2 images, drop 0): parts "
+              f"{ {k: round(v, 6) for k, v in card_p.items()} }, card vs "
+              f"float64 worst relative {loss_rel:.3e}; gradients of "
+              f"{sorted({k.split('.')[0] for k in exact_g})}: card float64 "
+              f"vs cpu float64 {same:.3e} (bound {ZOO_F64_GRAD_TOL:g}); vs "
+              f"float64, card float32 worst {card_64[far]:.3e} ({far}), cpu "
+              f"float32 worst {max(cpu_64.values()):.3e} "
+              f"({max(cpu_64, key=cpu_64.get)}); generator worst card "
+              f"{gen_worst:.3e}"
+              f" (bound {TRAIN_GRAD_TOL:g}), discriminator bound "
+              f"{ADV_D_F32_TOL:g}; beyond: {beyond}; card vs cpu float32 "
+              f"worst {vs_cpu:.3e} ({worst}); launches a step {route}  "
+              f"[{card}]")
+        if not (loss_rel <= 5e-4 and same <= ZOO_F64_GRAD_TOL
+                and not beyond):
+            failures.append(f"{tag}: loss {loss_rel:.3e}, float64 "
+                            f"{same:.3e}, tensors {beyond}")
+        bsz = cfg.train_set_cfg.batch_size
+        before = flat_params(card_r)
+        batch = card_r.to_device(next(train_iterator(
+            train_ds, bsz, bit_depth=cfg.bit_depth, seed=SEED + 15)))
+        times, last = [], None
+        for i in range(ADV_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = card_r.train_step(batch, 1 + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        after = flat_params(card_r)
+        moved = {m: max((after[k] - before[k]).abs().max().item()
+                        for k in before if k.startswith(m + "."))
+                 for m in card_r.method.modules()}
+        finite = all(np.isfinite(v.item()) for v in last.values())
+        print(f"{tag}: {ADV_STEPS} steps at batch {bsz}: median "
+              f"{statistics.median(times[3:]) * 1e3:.3f} ms; largest "
+              f"parameter move {moved}; last parts "
+              f"{ {k: round(v.item(), 6) for k, v in last.items()} }  "
+              f"[{card}]")
+        if not (finite and all(v > 0 for v in moved.values())):
+            failures.append(f"{tag}: moved {moved}, finite {finite}")
+        del card_r
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"adversarial: {failures}")
+
+
+def run_bf16_train_entries(gen: torch.Generator, card: str) -> None:
+    """The bf16 training entries of B10-B12 (the blanket cast's
+    training) at their batch-4 shapes on bf16 inputs and weights: the
+    gradients of a loss linear in the outputs against plain autograd of
+    `*_ref` on the same bf16 inputs (the backward is that graph): bit-equal,
+    within GRAD_REL_TOL, or every element within one bf16 step
+    (BF16_GRAD_STEP), since the searches' backward scatter-adds in an
+    order CUDA does not fix and then rounds to bf16 (two plain runs are
+    printed); the outputs bf16 and within PR 16's bound of the plain
+    version's float32 outputs (`bf16_outputs`, as the bf16 eval entries
+    are held); and the training call's time (kernel forward + recompute
+    backward) beside the plain version's forward + backward."""
+    names = ("neighborhood_attention", "texture_match", "patch_match")
+    for name, shape, kernel, plain, args in kernel_cases(gen):
+        if name not in names or shape not in AUTOGRAD_SHAPES:
+            continue
+        args = [a.detach().to(BF16).requires_grad_()
+                if isinstance(a, torch.Tensor) and a.is_floating_point()
+                else a for a in args]
+        leaves = [a for a in args if isinstance(a, torch.Tensor)]
+        weights = None
+        results = []
+        for fn in (kernel, plain):
+            outs = as_tuple(fn(*args))
+            if weights is None:
+                weights = [torch.randn(o.shape, generator=gen).cuda()
+                           for o in outs]
+            loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+            results.append(([o.detach() for o in outs],
+                            torch.autograd.grad(loss, leaves)))
+        (k_out, k_grads), (p_out, p_grads) = results
+        again = torch.autograd.grad(sum(
+            (o.float() * w).sum() for o, w in zip(as_tuple(plain(*args)),
+                                                  weights)), leaves)
+        equal = all(torch.equal(g, w) for g, w in zip(k_grads, p_grads))
+        grad = max(rel_err([g.float()], [w.float()])[0]
+                   for g, w in zip(k_grads, p_grads))
+        spread = max(rel_err([g.float()], [w.float()])[0]
+                     for g, w in zip(again, p_grads))
+        one_step = all(((g.float() - w.float()).abs() <= BF16_GRAD_STEP * (
+            torch.maximum(g.float().abs(), w.float().abs())
+            + 1e-4 * w.float().abs().max())).all()
+            for g, w in zip(k_grads, p_grads))
+        same_out = sum(torch.equal(a, b) for a, b in zip(k_out, p_out))
+        with torch.no_grad():
+            p32 = as_tuple(plain(*[a.detach() if isinstance(a, torch.Tensor)
+                                   else a for a in args],
+                                 out_dtype=torch.float32))
+        worst, shares, _within, near, ties_ok = bf16_outputs(
+            name, [a.detach() for a in leaves], k_out, p32)
+        out_ok = (all(o.dtype == BF16 for o in k_out) and worst <= 0
+                  and ties_ok and all(v >= BF16_EQUAL for v in shares))
+
+        def step(fn):
+            outs = as_tuple(fn(*args))
+            return torch.autograd.grad(
+                sum((o.float() * w).sum() for o, w in zip(outs, weights)),
+                leaves)
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: kernel(*args), iters=10)
+        train_ms, plain_ms = in_turns(lambda: step(plain),
+                                      lambda: step(kernel))
+        print(f"autograd {name + ' bf16':24s} {shape:14s} grads of "
+              f"{len(leaves)} bf16 tensors bit-equal to plain autograd of "
+              f"the ref: {equal} (rel err {grad:.3e}; two plain runs "
+              f"{spread:.3e}; every element within a bf16 step {one_step})"
+              f"; outputs {[str(o.dtype) for o in k_out]}, "
+              f"{same_out}/{len(k_out)} bit-equal to the plain forward; "
+              f"against its float32 outputs: |k - p| beyond {BF16_REL:.3e} "
+              f"|p| + {KERNEL_REL_TOL:g} max|p| at most {worst:.3e} max|p|, "
+              f"equal to bf16(p) {', '.join(f'{v:.5f}' for v in shares)}"
+              f"{near}; training call: kernel forward {fwd_ms:.3f} ms, "
+              f"kernel forward + recompute backward {train_ms:.3f} ms; "
+              f"plain forward + backward "
+              f"{plain_ms:.3f} ms  [{card}]")
+        if not ((equal or grad <= GRAD_REL_TOL or one_step) and out_ok):
+            raise AssertionError(f"autograd {name} bf16 {shape}: grads "
+                                 f"{grad:.3e}, outputs {worst:.3e} "
+                                 f"{shares} ties {ties_ok}")
 
 
 if __name__ == "__main__":

@@ -32,8 +32,17 @@ flatten (c, h, w) (ROADMAP C.34), so the carry permutes the rows of each
 Dense kernel to (c, h, w) before the transpose, and the port computes
 with the carried weights what JAX computes with the tree.
 
-Takes the flax `core_module` tree (or `mi` tree) as nested dicts of numpy
-arrays (no jax import); returns {key: float32 torch.Tensor}.
+`discriminator_from_flax` carries the adversarial discriminator (JAX
+`params["discriminator"]`: a Pixel-, Patch- or VGGDiscriminator tree) to
+`models/common/discriminators.py`: conv kernels HWIO -> OIHW, the
+instance norms' `scale` -> `weight`, and a VGG's Dense kernels [in, out]
+-> Linear [out, in], fc0's rows permuted from the NHWC flatten (h, w, c)
+of the JAX module to the port's (c, h, w) (ROADMAP C.42), as
+`mi_from_flax` does.
+
+Takes the flax `core_module` tree (or `mi` / `discriminator` tree) as
+nested dicts of numpy arrays (no jax import); returns {key: float32
+torch.Tensor}.
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ import torch
 
 __all__ = ["lgteun_from_flax", "lightnet_from_flax", "mdcun_from_flax",
            "innt_from_flax", "panformer_from_flax", "sfiin_from_flax",
-           "mutinf_from_flax", "mi_from_flax"]
+           "mutinf_from_flax", "mi_from_flax", "discriminator_from_flax"]
 
 
 def _hwio(k) -> np.ndarray:
@@ -473,3 +482,35 @@ def mi_from_flax(params: dict) -> dict:
         table[f"{name}/kernel"] = ([f"{name}.weight"], dense)
         table[f"{name}/bias"] = ([f"{name}.bias"], _ident)
     return _tensors(_from_table(params, table, "MutInf mi"))
+
+
+def discriminator_from_flax(params: dict) -> dict:
+    """flax Pixel/Patch/VGGDiscriminator tree -> the port's discriminator
+    state_dict of float32 tensors (module docstring). A VGG's fc0 input
+    is the flatten of 512 channels on a square side."""
+    table = {}
+    for path, val in _flat(params).items():
+        layer, *rest = path.split("/")
+        if rest == ["Conv_0", "kernel"]:
+            table[path] = ([f"{layer}.weight"], _hwio)
+        elif rest == ["Conv_0", "bias"] or rest == ["bias"]:
+            table[path] = ([f"{layer}.bias"], _ident)
+        elif rest == ["scale"]:
+            table[path] = ([f"{layer}.weight"], _ident)
+        elif rest == ["kernel"] and layer == "fc0":
+            table[path] = (["fc0.weight"], _nhwc_rows_t)
+        elif rest == ["kernel"]:
+            table[path] = ([f"{layer}.weight"], lambda k: np.asarray(k).T)
+    return _tensors(_from_table(params, table, "discriminator"))
+
+
+def _nhwc_rows_t(k, channels: int = 512) -> np.ndarray:
+    """A Dense kernel [side * side * channels, out] on an NHWC flatten ->
+    a Linear weight [out, channels * side * side] on the NCHW flatten."""
+    k = np.asarray(k)
+    side = int(np.sqrt(k.shape[0] // channels))
+    if side * side * channels != k.shape[0]:
+        raise ValueError(f"discriminator_from_flax: fc0 of {k.shape[0]} "
+                         f"inputs is no square of {channels} channels")
+    return k.reshape(side, side, channels, -1).transpose(2, 0, 1, 3).reshape(
+        k.shape[0], -1).T

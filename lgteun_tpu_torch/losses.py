@@ -1,9 +1,13 @@
-"""Training losses of the port (counterpart of `lgteun_tpu/losses.py:39-135,
-192`): the mean L1/L2 reconstruction loss, the zero-weight skipping of
-the reference's `get_loss_module` (reference losses.py:222-249) and
+"""Training losses of the port (counterpart of `lgteun_tpu/losses.py`):
+the mean L1/L2 reconstruction loss, the zero-weight skipping of the
+reference's `get_loss_module` (reference losses.py:222-249), the
+no-reference QNR loss (`qnr_loss`, reference losses.py:141-153),
 MutInf's mutual-information regulariser (`MutualInfoReg`, reference
-losses.py:162-219). The QNR and adversarial losses are not ported
-(ROADMAP A.8)."""
+losses.py:162-219) and the adversarial losses (`gan_d_loss`,
+`gan_g_loss`): the reference steps its discriminator inside the loss
+forward (reference losses.py:68-137); here, as in the JAX package, that
+is two losses that the Runner's two-optimiser step takes in turn
+(`runner.py::Runner._adversarial_step`)."""
 
 from __future__ import annotations
 
@@ -11,7 +15,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["reconstruction_loss", "build_loss_weights", "MutualInfoReg"]
+from lgteun_tpu_torch.metrics.torch_metrics import (d_lambda_global,
+                                                    d_s_global)
+from lgteun_tpu_torch.ops.resize import resize_bicubic
+
+__all__ = ["reconstruction_loss", "build_loss_weights", "qnr_loss",
+           "MutualInfoReg", "gan_d_loss", "gan_g_loss"]
 
 
 def reconstruction_loss(out: torch.Tensor, gt: torch.Tensor,
@@ -22,6 +31,21 @@ def reconstruction_loss(out: torch.Tensor, gt: torch.Tensor,
     if loss_type == "l2":
         return ((out - gt) ** 2).mean()
     raise ValueError(f"unknown reconstruction loss {loss_type!r}")
+
+
+def qnr_loss(pan: torch.Tensor, ms: torch.Tensor, out: torch.Tensor,
+             pan_l: torch.Tensor | None = None) -> torch.Tensor:
+    """1 - (1 - D_lambda)(1 - D_s) of NHWC batches, differentiable
+    (`lgteun_tpu/losses.py:48-57`). Without `pan_l`, PAN is resized
+    bicubic x1/4 with align_corners=True, the reference's `down_sample`
+    (reference losses.py:152), not the dataset's degraded PAN."""
+    if pan_l is None:
+        h, w = pan.shape[1:3]
+        pan_l = resize_bicubic(pan.permute(0, 3, 1, 2), (h // 4, w // 4),
+                               align_corners=True).permute(0, 2, 3, 1)
+    dl = d_lambda_global(ms, out)
+    ds = d_s_global(ms, pan, pan_l, out)
+    return 1.0 - (1.0 - dl) * (1.0 - ds)
 
 
 def build_loss_weights(loss_cfg: dict) -> dict:
@@ -114,3 +138,59 @@ class MutualInfoReg(nn.Module):
         pa, pb = torch.sigmoid(z_a), torch.sigmoid(z_b)
         return (_bce_sum(pa, pb.detach()) + _bce_sum(pb, pa.detach())
                 - bi_kld)
+
+
+# ---------------------------------------------------------------------------
+# adversarial losses (the two-optimiser form of reference losses.py:43-138)
+# ---------------------------------------------------------------------------
+
+def _bce_flipped(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """mean BCE of sigmoid(logits), clipped to [1e-7, 1 - 1e-7], against
+    a constant target."""
+    p = torch.sigmoid(logits).clamp(1e-7, 1 - 1e-7)
+    return -(target * torch.log(p) + (1 - target) * torch.log(1 - p)).mean()
+
+
+def gan_d_loss(d_apply, fake: torch.Tensor, real: torch.Tensor,
+               gan_type: str = "GAN", eps: torch.Tensor | None = None,
+               generator: torch.Generator | None = None,
+               gp_w: float = 10.0) -> torch.Tensor:
+    """The discriminator's loss on detached `fake` and `real`
+    (`lgteun_tpu/losses.py:147-175`); `d_apply(x)` gives the logits of
+    NCHW images. "GAN" keeps the reference's inverted labels (real scored
+    against 0, fake against 1, the sum negated; reference
+    losses.py:86-91). "WGAN-GP" adds gp_w x the mean of (|grad| - 1)^2 at
+    eps x real + (1 - eps) x fake, eps [B, 1, 1, 1] uniform (drawn from
+    `generator` unless given), the gradient made with create_graph so
+    that the penalty trains the discriminator."""
+    fake, real = fake.detach(), real.detach()
+    d_fake, d_real = d_apply(fake), d_apply(real)
+    if gan_type == "GAN":
+        return -(_bce_flipped(d_real, 0.0) + _bce_flipped(d_fake, 1.0))
+    if gan_type == "LSGAN":
+        return (((d_real - 1.0) ** 2).mean() + (d_fake ** 2).mean()) / 2.0
+    if gan_type == "WGAN-GP":
+        if eps is None:
+            eps = torch.rand((real.shape[0], 1, 1, 1), generator=generator,
+                             device=real.device)
+        hat = (fake * (1 - eps) + real * eps).requires_grad_()
+        grads, = torch.autograd.grad(d_apply(hat).sum(), hat,
+                                     create_graph=True)
+        gnorm = torch.sqrt((grads.flatten(1) ** 2).sum(dim=1) + 1e-12)
+        return (d_fake - d_real).mean() + gp_w * ((gnorm - 1.0) ** 2).mean()
+    raise ValueError(f"unknown gan type {gan_type!r}")
+
+
+def gan_g_loss(d_apply, fake: torch.Tensor,
+               gan_type: str = "GAN") -> torch.Tensor:
+    """The generator's adversarial term (reference losses.py:129-137);
+    `d_apply` must hold the discriminator's weights fixed (the caller
+    gives detached ones), so that only the generator gets a gradient."""
+    d_fake = d_apply(fake)
+    if gan_type == "GAN":
+        return _bce_flipped(d_fake, 1.0)
+    if gan_type == "LSGAN":
+        return ((d_fake - 1.0) ** 2).mean()
+    if gan_type == "WGAN-GP":
+        return -d_fake.mean()
+    raise ValueError(f"unknown gan type {gan_type!r}")

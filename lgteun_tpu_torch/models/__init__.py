@@ -6,7 +6,8 @@ import os
 
 import torch
 
-from lgteun_tpu_torch.losses import MutualInfoReg, reconstruction_loss
+from lgteun_tpu_torch.losses import (MutualInfoReg, build_loss_weights,
+                                     reconstruction_loss)
 from lgteun_tpu_torch.models.base import (ClassicalMethod, TorchMethod,
                                           _nchw, swapped)
 from lgteun_tpu_torch.models.classical import (gsa_fuse, sfim_fuse,
@@ -39,9 +40,18 @@ class UnlgFormer(TorchMethod):
     when the method is built (`ops.fuse_level`,
     `ops.windows_layout_attention`), and its eval forward stores its
     activations as `LGTEUN_EVAL_DTYPE` says then (`ops.storage_dtype`:
-    "bf16res" or "bf16"; the output is float32)."""
+    "bf16res" or "bf16"; the output is float32).
+
+    `mixed_precision` training is selective, inside the module
+    (`handles_mixed`; `lgteun_tpu/models/__init__.py:28-47`): each LGB
+    block of a training forward runs the local mixer, the proj and the
+    LN-FFN on bfloat16 operands and keeps the LNs, the global mixer, the
+    residual stream, the trunk and the unfolding steps float32
+    (`common/lgt.py`). The eval forward stays the float32 kernels', as
+    the JAX package's TPU eval path (`lgteun_fast_forward`) is."""
 
     bf16_storage = True
+    handles_mixed = True
 
     def make_module(self):
         g_cfg = dict(self.cfg.model_cfg.get("core_module", {}))
@@ -49,7 +59,9 @@ class UnlgFormer(TorchMethod):
                       stage=g_cfg.get("stage", 5), level=fuse_level(),
                       drop_rate=g_cfg.get("drop_rate", 0.1),
                       windows=windows_layout_attention(),
-                      storage=storage_dtype())
+                      storage=storage_dtype(),
+                      mixed=(torch.bfloat16
+                             if self.cfg.get("mixed_precision") else None))
 
     def forward(self, ms, pan, generator=None):
         return self.module(ms, pan, generator)
@@ -149,12 +161,12 @@ class SFIIN(TorchMethod):
         return SFIINNet(ms_chans=self.cfg.ms_chans)
 
     def losses(self, batch: dict, generator: torch.Generator | None = None,
-               iter_id: int = 0):
+               iter_id: int = 0, with_output: bool = False):
         """As the JAX `SFIIN.losses` (lgteun_tpu/models/sfiin.py:
         128-158): `rec_loss` on the output, the two frequency losses on
-        its spectrum; any other weighted entry raises (`loss_weights`)
-        or, holding `rec_loss`, is skipped as JAX skips it."""
-        weights = self.loss_weights()
+        its spectrum; any other weighted entry (`QNR_loss` among them) is
+        skipped as JAX skips it."""
+        weights = build_loss_weights(self.cfg.loss_cfg)
         out = self.forward(_nchw(batch["input_lr"], self.device),
                            _nchw(batch["input_pan"], self.device))
         target = _nchw(batch["target"], self.device)
@@ -171,7 +183,7 @@ class SFIIN(TorchMethod):
                 parts[name] = reconstruction_loss(*pairs[name], lcfg.type)
                 total = total + lcfg.w * parts[name]
         parts["full_loss"] = total
-        return total, parts
+        return (total, parts, out) if with_output else (total, parts)
 
 
 @MODELS.register()
@@ -208,7 +220,8 @@ class MutInf(TorchMethod):
         return mi.train(self.module.training)
 
     def modules(self) -> dict:
-        return {"core_module": self.module, "mi": self.mi}
+        return {"core_module": self.module, "mi": self.mi,
+                **self._disc_modules()}
 
     def init_params(self, generator: torch.Generator, sample_hw=None):
         if sample_hw is not None and sample_hw[1] != self.pan_size:
@@ -229,14 +242,14 @@ class MutInf(TorchMethod):
         return self.module(ms, pan)[0]
 
     def losses(self, batch: dict, generator: torch.Generator | None = None,
-               iter_id: int = 0, noise=None):
+               iter_id: int = 0, with_output: bool = False, noise=None):
         """As the JAX `MutInf.losses` (lgteun_tpu/models/mutinf.py:
         241-266): `rec_loss` on hr, and `MI_rec_loss`, the loss of
         mi = clip(MutualInfoReg(panf, mhrf), -1, 1) against 2 mi (|mi|
         for l1) weighted by w * min(iter_id / max_iter, 1), the ramp in
-        float32. `noise` = (eps_a, eps_b) replaces the draws from
-        `generator`."""
-        weights = self.loss_weights()
+        float32; any other entry is skipped, as JAX skips it. `noise` =
+        (eps_a, eps_b) replaces the draws from `generator`."""
+        weights = build_loss_weights(self.cfg.loss_cfg)
         hr, panf, mhrf = self.module(_nchw(batch["input_lr"], self.device),
                                      _nchw(batch["input_pan"], self.device))
         total = torch.zeros((), device=self.device)
@@ -255,7 +268,7 @@ class MutInf(TorchMethod):
                     / max(self.cfg.max_iter, 1)).clamp(max=1.0)
             total = total + lcfg.w * ramp * parts["MI_rec_loss"]
         parts["full_loss"] = total
-        return total, parts
+        return (total, parts, hr) if with_output else (total, parts)
 
 
 @MODELS.register()

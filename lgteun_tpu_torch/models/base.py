@@ -14,16 +14,39 @@ Method's batch layout, NHWC `input_lr` [B, h, w, C] and `input_pan`
 
     apply(batch)                  inference (torch.inference_mode), NHWC
                                   [B, 4h, 4w, C] out
-    losses(batch, generator, iter_id)
+    losses(batch, generator, iter_id, with_output=False)
                                   the training loss with its autograd
-                                  graph: weighted reconstruction losses
-                                  against batch["target"] plus
-                                  "full_loss", as `Method.losses`
+                                  graph: the weighted `*rec_loss*`
+                                  entries against batch["target"], a
+                                  weighted `QNR_loss` (no reference),
+                                  and "full_loss", as `Method.losses`
                                   (`lgteun_tpu/models/base.py:56-88`);
                                   `generator` draws the dropout masks
                                   (and MutInf's reparameterisation
                                   noise), `iter_id` is the 0-based
-                                  iteration (MutInf's MI ramp)
+                                  iteration (MutInf's MI ramp);
+                                  `with_output` also returns the NCHW
+                                  output, so that the adversarial step
+                                  makes one generator forward
+
+Adversarial training (`lgteun_tpu/models/base.py:95-144`): a weighted
+`loss_cfg` entry whose name holds `adv_loss` gives the method a second
+module, "discriminator" (`model_cfg["discriminator"]`: its `type`,
+PatchDiscriminator by default with instance norm, and its arguments;
+`models/common/discriminators.py`), which the Runner trains with its own
+optimiser in its two-optimiser step (`runner.py`). The entry's `type` is
+the GAN kind ("GAN", "LSGAN", "WGAN-GP"), `w` the generator term's
+weight and `gp_w` WGAN-GP's penalty weight; `losses` itself leaves the
+adversarial term to the Runner.
+
+Training under `mixed_precision` (`runner.py`): a method with
+`handles_mixed` (UnlgFormer) runs it inside its module; every other runs
+`losses` inside `training_cast`, the JAX Runner's blanket cast
+(`lgteun_tpu/runner.py:187-229`): a differentiable bfloat16 copy of
+every module's floating parameters (the gradients reach the float32
+masters), bfloat16 inputs and the ops promoted as `jax_promotion` says.
+LightNet and MutInf train under it too: their eval opt-outs below are
+the JAX package's `apply`, not its Runner's cast.
 
 `LGTEUN_EVAL_DTYPE=bf16` (`ops.storage_dtype`, read when the method is
 built) is UnlgFormer's bf16 storage mode (`bf16_storage`). For every
@@ -52,7 +75,9 @@ NHWC tensors on `self.device` (`lgteun_tpu/models/base.py:192-204`).
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import math
 
 import numpy as np
 import torch
@@ -61,7 +86,9 @@ from torch import nn
 from torch.overrides import TorchFunctionMode
 
 from lgteun_tpu_torch.config import Config
-from lgteun_tpu_torch.losses import build_loss_weights, reconstruction_loss
+from lgteun_tpu_torch.losses import (build_loss_weights, qnr_loss,
+                                     reconstruction_loss)
+from lgteun_tpu_torch.models.common import discriminators
 from lgteun_tpu_torch.models.common.layers import init_parameters
 from lgteun_tpu_torch.ops import storage_dtype
 
@@ -86,9 +113,12 @@ def _cast(a, dtype, made: dict):
 class jax_promotion(TorchFunctionMode):  # noqa: N801  (a context manager)
     """Inside it, the ops of `_PROMOTED` promote a bfloat16 operand to
     float32 where another is float32, as jnp and flax's layers do (torch
-    raises on the mixed dtypes); every other op runs as it is. `made`:
-    {(id(t), dtype): t in dtype} made beforehand (the cast parameters'
-    float32 values, so that a promoted weight costs no launch)."""
+    raises on the mixed dtypes); a bfloat16 conv or linear layer adds its
+    bias after the product, rounding each, as flax's `Conv` and `Dense`
+    do (torch's bf16 conv adds it before its one rounding); every other
+    op runs as it is. `made`: {(id(t), dtype): t in dtype} made
+    beforehand (the cast parameters' float32 values, so that a promoted
+    weight costs no launch)."""
 
     def __init__(self, made: dict | None = None):
         super().__init__()
@@ -104,14 +134,34 @@ class jax_promotion(TorchFunctionMode):  # noqa: N801  (a context manager)
                 args = tuple(_cast(a, dtype, self.made) for a in args)
                 kwargs = {k: _cast(v, dtype, self.made)
                           for k, v in kwargs.items()}
+            if func in (F.conv2d, F.linear):
+                return _bias_after(func, args, kwargs)
         return func(*args, **kwargs)
 
 
+def _bias_after(func, args: tuple, kwargs: dict):
+    """conv2d / linear with a bfloat16 bias added after the product."""
+    args, kwargs = list(args), dict(kwargs)
+    bias = args[2] if len(args) > 2 else kwargs.get("bias")
+    if bias is None or bias.dtype != torch.bfloat16:
+        return func(*args, **kwargs)
+    if len(args) > 2:
+        args[2] = None
+    else:
+        kwargs["bias"] = None
+    out = func(*args, **kwargs)
+    if func is F.conv2d:
+        return out + bias.view(-1, *([1] * (out.dim() - 2)))
+    return out + bias
+
+
 def _nchw(a, device: torch.device) -> torch.Tensor:
+    """NHWC array or tensor -> NCHW on `device`, float32 (a bfloat16
+    tensor, the blanket cast's input, stays bfloat16)."""
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(a, dtype=np.float32))
-    return t.to(device=device, dtype=torch.float32).permute(
-        0, 3, 1, 2).contiguous()
+    dtype = torch.bfloat16 if t.dtype == torch.bfloat16 else torch.float32
+    return t.to(device=device, dtype=dtype).permute(0, 3, 1, 2).contiguous()
 
 
 class TorchMethod:
@@ -121,6 +171,7 @@ class TorchMethod:
     module_names: tuple[str, ...] = ("core_module",)
     bf16_storage = False   # LGTEUN_EVAL_DTYPE is its storage mode
     bf16_cast = True       # else "bf16" is the blanket cast (docstring)
+    handles_mixed = False  # its module runs mixed_precision training
 
     def __init__(self, cfg: Config, device):
         self.cfg = cfg
@@ -133,9 +184,41 @@ class TorchMethod:
         with torch.device("meta"):
             self.module = self.make_module()
         self.module.eval()
+        self.adv_name = self.adv_cfg = self.disc = None
+        for name, lcfg in build_loss_weights(cfg.loss_cfg).items():
+            if "adv_loss" in name:
+                self.adv_name, self.adv_cfg = name, lcfg
+                self.module_names = (*type(self).module_names,
+                                     "discriminator")
+                break
 
     def make_module(self) -> nn.Module:
         raise NotImplementedError
+
+    def _make_discriminator(self, pan_size: int) -> nn.Module:
+        """The discriminator of `model_cfg["discriminator"]` on the meta
+        device, for HrMS of side `pan_size` (the width of a VGG's fc0).
+        It is built once, where that side is known: by `init_params`
+        (`sample_hw`, else 32, the JAX Method's default sample side) or
+        by the first load of its weights (the side of their fc0)."""
+        dcfg = dict(self.cfg.model_cfg.get("discriminator", {}))
+        kind = dcfg.pop("type", "PatchDiscriminator")
+        table = {"PatchDiscriminator": discriminators.PatchDiscriminator,
+                 "PixelDiscriminator": discriminators.PixelDiscriminator,
+                 "VGGDiscriminator": discriminators.VGGDiscriminator}
+        if kind not in table:
+            raise KeyError(f"no such discriminator {kind!r}; available: "
+                           f"{sorted(table)}")
+        if kind == "VGGDiscriminator":
+            dcfg["in_size"] = pan_size
+        else:
+            dcfg.setdefault("norm_type", "IN")
+        with torch.device("meta"):
+            disc = table[kind](self.cfg.ms_chans, **dcfg)
+        return disc.train(self.module.training)
+
+    def _disc_modules(self) -> dict:
+        return {} if self.disc is None else {"discriminator": self.disc}
 
     def forward(self, ms: torch.Tensor, pan: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -145,7 +228,7 @@ class TorchMethod:
 
     def modules(self) -> dict[str, nn.Module]:
         """{name: module} of `module_names`, the core module first."""
-        return {"core_module": self.module}
+        return {"core_module": self.module, **self._disc_modules()}
 
     def init_params(self, generator: torch.Generator,
                     sample_hw: tuple[int, int] | None = None
@@ -156,6 +239,9 @@ class TorchMethod:
         gives the same weights on every device). `sample_hw` = (LrMS
         side, PAN side) of the data, for a module whose widths follow
         it (the JAX Method's argument)."""
+        if self.adv_name is not None and self.disc is None:
+            self.disc = self._make_discriminator(
+                32 if sample_hw is None else sample_hw[1])
         for module in self.modules().values():
             module.to_empty(device="cpu")
             init_parameters(module, generator)
@@ -176,6 +262,12 @@ class TorchMethod:
         `load_state_dict`'s)."""
         if name == "core_module":
             return self.load_state_dict(state_dict, strict)
+        if name == "discriminator" and self.disc is None:
+            side = 1
+            if "fc0.weight" in state_dict:
+                side = math.isqrt(state_dict["fc0.weight"].shape[1]
+                                  // discriminators.VGG_FEATS[-1])
+            self.disc = self._make_discriminator(32 * side)
         module = self.modules()[name]
         if any(p.is_meta for p in module.parameters()):
             module.to_empty(device=self.device)
@@ -254,40 +346,50 @@ class TorchMethod:
                 self._cast_params = (key, cast, made)
         return self._cast_params[1:]
 
-    def loss_weights(self) -> dict:
-        """The weighted `loss_cfg` entries; raises NotImplementedError for
-        one the port does not compute (`QNR_loss`, `*adv_loss*`: ROADMAP
-        A.8) rather than train without it. Every entry the port computes
-        has `rec_loss` in its name."""
-        weights = build_loss_weights(self.cfg.loss_cfg)
-        for name in weights:
-            if "rec_loss" not in name:
-                raise NotImplementedError(
-                    f"loss_cfg entry {name!r}: the port computes only the "
-                    "*rec_loss* reconstruction terms; QNR and adversarial "
-                    "losses are not ported yet (ROADMAP A.8, was A.7)")
-        return weights
-
     def losses(self, batch: dict, generator: torch.Generator | None = None,
-               iter_id: int = 0):
-        """-> (total, {name: value}) with gradients; batch as `apply`'s
-        plus `target` [B, 4h, 4w, C]. Each weighted `loss_cfg` entry
-        whose name holds `rec_loss` is an output-vs-target
-        reconstruction; any other weighted entry (`QNR_loss`,
-        `*adv_loss*`) raises NotImplementedError rather than train
-        without it. `iter_id` is for a method whose loss follows the
-        iteration (MutInf)."""
-        weights = self.loss_weights()
-        out = self.forward(_nchw(batch["input_lr"], self.device),
-                           _nchw(batch["input_pan"], self.device), generator)
-        target = _nchw(batch["target"], self.device)
+               iter_id: int = 0, with_output: bool = False):
+        """-> (total, {name: value}) with gradients, and the NCHW output
+        with `with_output`; batch as `apply`'s plus `target` [B, 4h, 4w,
+        C]. Each weighted `loss_cfg` entry whose name holds `rec_loss` is
+        an output-vs-target reconstruction, one holding `QNR_loss` is
+        1 - QNR of the output against the batch's LrMS and PAN (the PAN
+        bicubic-downsampled, `losses.qnr_loss`); any other entry is no
+        term of this total (the adversarial one is the Runner's).
+        `iter_id` is for a method whose loss follows the iteration
+        (MutInf)."""
+        ms = _nchw(batch["input_lr"], self.device)
+        pan = _nchw(batch["input_pan"], self.device)
+        out = self.forward(ms, pan, generator)
         total = torch.zeros((), device=self.device)
         parts = {}
-        for name, lcfg in weights.items():
-            parts[name] = reconstruction_loss(out, target, lcfg.type)
-            total = total + lcfg.w * parts[name]
+        for name, lcfg in build_loss_weights(self.cfg.loss_cfg).items():
+            if "rec_loss" in name:
+                value = reconstruction_loss(
+                    out, _nchw(batch["target"], self.device), lcfg.type)
+            elif "QNR_loss" in name:
+                nhwc = lambda t: t.permute(0, 2, 3, 1)
+                value = qnr_loss(nhwc(pan), nhwc(ms), nhwc(out))
+            else:
+                continue
+            total = total + lcfg.w * value
+            parts[name] = value
         parts["full_loss"] = total
-        return total, parts
+        return (total, parts, out) if with_output else (total, parts)
+
+    @contextlib.contextmanager
+    def training_cast(self, dtype: torch.dtype):
+        """Inside it, every module's floating parameters are a `dtype`
+        copy made with gradients (`.to(dtype)`, so that a backward reaches
+        the float32 parameters, as the JAX Runner's `cast16` of its
+        params is differentiable) and the ops promote as `jax_promotion`
+        says; the float32 parameters are put back on leaving."""
+        with contextlib.ExitStack() as stack:
+            for module in self.modules().values():
+                stack.enter_context(swapped(module, {
+                    name: p.to(dtype) for name, p in module.named_parameters()
+                    if p.is_floating_point()}))
+            stack.enter_context(jax_promotion())
+            yield
 
 
 class swapped:  # noqa: N801  (a context manager)
@@ -319,6 +421,8 @@ class ClassicalMethod:
 
     trainable = False
     training = False
+    handles_mixed = False
+    adv_name = None
     fuse_fn = None  # staticmethod set by a subclass
 
     def __init__(self, cfg: Config, device):

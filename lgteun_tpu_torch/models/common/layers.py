@@ -18,7 +18,8 @@ from torch import nn
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 from lgteun_tpu_torch.ops.resize import sample_scale as sampling
 
-__all__ = ["Conv", "PointConv", "DepConv", "ChannelLayerNorm", "Resample",
+__all__ = ["Conv", "PointConv", "point_conv_mixed", "DepConv",
+           "ChannelLayerNorm", "Resample",
            "sampling", "trunc_normal_", "init_parameters"]
 
 
@@ -57,6 +58,18 @@ class PointConv(Conv):
         return F.conv2d(x.float(), w, self.bias).to(torch.bfloat16)
 
 
+def point_conv_mixed(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """A 1x1 conv as flax's `Conv(dtype=bf16)` computes it (the JAX
+    package's `PointConv(dtype=)`, `lgteun_tpu/models/common/layers.py:
+    36-78`; UnlgFormer's selective `mixed_precision` proj): x, weight
+    [out, in, 1, 1] and bias cast to `dtype`, the product rounded to
+    `dtype`, then the bias add in `dtype` (rounded again). The product is
+    float32 on the rounded operands."""
+    y = F.conv2d(x.to(dtype).float(), weight.to(dtype).float()).to(dtype)
+    return y + bias.to(dtype)[None, :, None, None]
+
+
 class DepConv(Conv):
     """Depthwise kxk conv, zero padding k//2 (reference `dep_conv`)."""
 
@@ -85,16 +98,14 @@ class ChannelLayerNorm(nn.Module):
 class Resample(nn.Module):
     """`sampling` as a parameter-free module (it holds an index in the
     reference's nn.Sequential containers, which the state_dict keys
-    count). A bfloat16 input is upcast, resampled in float32 and rounded
-    once to bfloat16."""
+    count). A bfloat16 input is resampled in float32 and rounded once
+    (`ops.resize`)."""
 
     def __init__(self, s_factor: float):
         super().__init__()
         self.s_factor = s_factor
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.bfloat16:
-            return sampling(x.float(), self.s_factor).to(x.dtype)
         return sampling(x, self.s_factor)
 
 

@@ -74,6 +74,22 @@ rng=None). The whole-block kernel has no backward and no mask, so level
 drawn. Every other wrapper is differentiable on the card (its kernel
 forward with the plain version's backward, `ops.autograd`).
 
+Selective `mixed_precision` training (`mixed`, bfloat16 when the config
+sets `mixed_precision`; UnlgFormer's `handles_mixed`): a training forward
+runs each block as the JAX flax module with `dtype=bf16` does
+(`lgteun_tpu/models/common/lgt.py:113-118, 205-212, 266-269`), whatever
+the level: the float32 LN; the local half as JAX's bf16-operand
+composition (`window_attention_mixed`); the global half float32 through
+`global_mixer`, B4's training entry (its function is the float32
+mixer's, so a card runs the kernel, not a plain version); the proj on
+bf16 operands (`layers.point_conv_mixed`); the dropout in bfloat16 (x /
+keep where kept, as flax's `Dropout`); the float32 residual; then the
+LN-FFN on bf16 operands (`ln_ffn_mixed`). No kernel computes the local
+half, the proj or the LN-FFN in that form in either package (JAX routes
+mixed training away from its float32 kernels), so those three are plain
+torch by design. The patch embed, the resamples, the inter-scale convs
+and the tail stay float32. The eval forward is the float32 one.
+
 The JAX fast path also tests shapes for the TPU's lanes (H*W % 128,
 W % 128, window-pair parity: `lgteun_tpu/models/lgteun_fast.py:251,
 273, 315, 347-355`), leaves the mixer to XLA at level 1 and has a level
@@ -98,16 +114,18 @@ from lgteun_tpu_torch.models.common.layers import (
     DepConv,
     PointConv,
     Resample,
+    point_conv_mixed,
     trunc_normal_,
 )
 from lgteun_tpu_torch.ops import upcast
 from lgteun_tpu_torch.ops.ffn_kernel import (block_tail, block_tail_masked,
-                                             ln_ffn)
+                                             ln_ffn, ln_ffn_mixed)
 from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
                                                   ln_mixer_head)
 from lgteun_tpu_torch.ops.window_attention import (window_attention,
+                                                   window_attention_mixed,
                                                    window_attention_windows,
                                                    window_partition,
                                                    window_unpartition)
@@ -210,10 +228,10 @@ class LGB(nn.Module):
 
     def __init__(self, ch: int, num_blocks: int, win: int = 8,
                  heads: int = 2, level: int = 2, drop_rate: float = 0.1,
-                 windows: bool = False):
+                 windows: bool = False, mixed: torch.dtype | None = None):
         super().__init__()
         self.win, self.heads, self.level = win, heads, level
-        self.drop_rate, self.windows = drop_rate, windows
+        self.drop_rate, self.windows, self.mixed = drop_rate, windows, mixed
         self.blocks = nn.ModuleList(
             nn.ModuleList([
                 _Residual(_PreNorm(ch, LGMixer(ch, win, heads))),
@@ -295,7 +313,9 @@ class LGB(nn.Module):
             blk = self._params(i)
             mixer = [blk[k] for k in ("amp_w", "amp_b", "pha_w", "pha_b")]
             mask = self._drop_mask(x, generator)
-            if (self.level >= 3 and mask is None
+            if self.mixed is not None and self.training:
+                x = self._mixed_block(x, blk, mask, eps)
+            elif (self.level >= 3 and mask is None
                     and not torch.is_grad_enabled()):
                 x = lgb_block(x, blk, heads, win, eps, storage)
             elif self.level == 1:
@@ -321,6 +341,25 @@ class LGB(nn.Module):
                      else block_tail_masked(x, x1, x2, mask, *tail, eps=eps))
         return x
 
+    def _mixed_block(self, x: torch.Tensor, blk: dict, mask, eps: float):
+        """One block of selective `mixed_precision` training on the
+        float32 stream x (module docstring): the local half, the proj
+        and the LN-FFN run JAX's bf16-operand compositions, which no
+        kernel computes; the global half runs B4."""
+        dt, c2 = self.mixed, x.shape[1] // 2
+        y = channel_layer_norm(x, blk["ln_w"], blk["ln_b"], eps)
+        x1 = window_attention_mixed(y[:, :c2], blk["wqkv"], blk["bqkv"],
+                                    blk["pos"], self.heads, self.win, dt)
+        x2 = global_mixer(y[:, c2:].contiguous(), blk["amp_w"],
+                          blk["amp_b"], blk["pha_w"], blk["pha_b"])
+        mixed = point_conv_mixed(torch.cat([x1.float(), x2], dim=1),
+                                 blk["proj_w"][:, :, None, None],
+                                 blk["proj_b"], dt)
+        if mask is not None:
+            mixed = torch.where(mask != 0, mixed / (1.0 - self.drop_rate),
+                                torch.zeros_like(mixed))
+        return ln_ffn_mixed(x + mixed.float(), blk["ffn"], eps, dt)
+
 
 class _PatchEmbed(nn.Module):
     """depthwise 1x1 + point conv + channel LN (reference LGT.py:64-88,
@@ -343,12 +382,14 @@ class LGT(nn.Module):
     def __init__(self, in_ch: int, embed: int, win: int = 8,
                  num_block: Sequence[int] = (2, 1), heads: int = 2,
                  level: int = 2, drop_rate: float = 0.1,
-                 windows: bool = False, storage: tuple = (None, False)):
+                 windows: bool = False, storage: tuple = (None, False),
+                 mixed: torch.dtype | None = None):
         super().__init__()
         self.storage = storage   # (sdtype, res_f32): ops.storage_dtype
         self.patch_embed = _PatchEmbed(in_ch, embed)
         scales = len(num_block)
-        lgb = lambda c, n: LGB(c, n, win, heads, level, drop_rate, windows)
+        lgb = lambda c, n: LGB(c, n, win, heads, level, drop_rate, windows,
+                               mixed)
         ch = embed
         enc = []
         for i in range(scales - 1):

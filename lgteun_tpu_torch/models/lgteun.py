@@ -11,7 +11,10 @@ Z and returns only the last one, so the earlier priors are dead code.
 They keep their parameters (checkpoints carry them) but are not run:
 torch has no dead-code elimination, and running them would double the
 prior's cost for outputs the reference throws away. In training they get
-no gradient (`.grad` stays None; JAX's is exactly zero).
+no gradient (`.grad` stays None; JAX's is exactly zero). `mixed`
+(bfloat16 under `mixed_precision`) reaches the priors' LGB blocks
+(`common/lgt.py`); the unfolding steps stay float32, as JAX's
+(`lgteun_tpu/models/lgteun.py:78-103`).
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ class LGTEUN(nn.Module):
 
     def __init__(self, ms_chans: int, stage: int = 2, window_size: int = 8,
                  num_heads: int = 2, level: int = 2, drop_rate: float = 0.1,
-                 windows: bool = False, storage: tuple = (None, False)):
+                 windows: bool = False, storage: tuple = (None, False),
+                 mixed: torch.dtype | None = None):
         super().__init__()
         c = ms_chans
         self.stage = stage
@@ -49,7 +53,7 @@ class LGTEUN(nn.Module):
             nn.Parameter(torch.empty(())) for _ in range(stage))
         self.prior_module = nn.ModuleList(
             LGT(c, c * 4, window_size, (2, 1), num_heads, level, drop_rate,
-                windows, storage)
+                windows, storage, mixed)
             for _ in range(stage))
 
     @torch.no_grad()

@@ -97,9 +97,42 @@ class LightNetModule(nn.Module):
         return [*self.head_conv, *belly, *self.tail_conv]
 
     def forward(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
+        if ms.dtype == torch.bfloat16:
+            return self._module_forward(ms, pan)
         lms = sampling(sampling(ms, 2), 2)
         x = torch.cat([pan, lms], dim=1)
         return lightnet_stack(x, lms, [s.weights() for s in self.spans()])
+
+    def _module_forward(self, ms: torch.Tensor,
+                        pan: torch.Tensor) -> torch.Tensor:
+        """The forward on bfloat16 inputs and weights (the JAX Runner's
+        blanket `mixed_precision` cast) as the JAX package's flax module
+        computes it (`lgteun_tpu/models/lightnet.py:65-80`): each resize
+        in float32, rounded once; each conv rounded, then its bias add.
+        JAX trains LightNet on this module, never on its kernel or its
+        tap path (`:165-167`), so no kernel of either package computes
+        this function: these are plain torch ops by design, not a plain
+        version standing in for `lightnet_stack` (float32 only)."""
+        lms = sampling(sampling(ms, 2), 2)
+
+        def conv(x, c):
+            return F.conv2d(x, c.weight, padding=c.padding,
+                            groups=c.groups) + c.bias[None, :, None, None]
+
+        def span(x, s):
+            return (conv(conv(x, s.point_wise_1), s.depth_wise_1)
+                    + conv(conv(x, s.point_wise_2), s.depth_wise_2))
+
+        spans = self.spans()
+        x = torch.cat([pan, lms], dim=1)
+        for s in spans[:3]:
+            x = span(x, s)
+        x = F.relu(x)
+        for conv1, conv2 in (spans[3:5], spans[5:7]):
+            x = span(F.relu(span(x, conv1)), conv2)
+        for s in spans[7:]:
+            x = span(x, s)
+        return lms + x
 
 
 def tap_dtype() -> torch.dtype | None:

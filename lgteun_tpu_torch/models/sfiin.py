@@ -167,9 +167,11 @@ def spectrum_amp_phase(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     rounding noise cannot move a target bin across the branch cut. At
     other sides XLA's FFT leaves rounding noise in those bins (ROADMAP
     C.22) and no rule reproduces it; there the FFT's own values go
-    through `safe_amp_phase`, the copy of `_safe_amp_pha`."""
+    through `safe_amp_phase`, the copy of `_safe_amp_pha`. A bfloat16 x
+    (the blanket `mixed_precision` cast's target) is upcast first, as the
+    JAX package's matmul DFT takes bf16 to float32 (module docstring)."""
     h, w = x.shape[-2:]
-    z = torch.fft.rfft2(x, norm="backward")
+    z = torch.fft.rfft2(upcast(x), norm="backward")
     if h & (h - 1) == 0 and w & (w - 1) == 0:
         return amp_phase(z, w)
     return safe_amp_phase(z.real, z.imag)

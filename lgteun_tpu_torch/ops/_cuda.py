@@ -25,7 +25,7 @@ import torch
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "ptxas_log",
            "kernels", "launch", "plain_on_cpu", "check_cuda_f32",
-           "check_cuda", "check_eval_storage", "storage_flag",
+           "check_cuda", "check_eval_storage", "records_grad", "storage_flag",
            "STORAGE", "weight_layout"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -235,11 +235,17 @@ def check_cuda(name: str, device: torch.device, dtypes: tuple,
                                "kernel has no backward")
 
 
+def records_grad(*tensors) -> bool:
+    """True when autograd records a gradient through any of `tensors`."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def check_eval_storage(name: str, *tensors) -> None:
     """Raise if a wrapper takes its bfloat16 storage path while a gradient
-    is recorded through `tensors`: bf16 storage is an eval mode, and its
-    entries have no backward (training runs float32 storage)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    is recorded through `tensors`: UnlgFormer's bf16 storage is an eval
+    mode, and the entries of B1-B6 and B8 have no backward (training runs
+    float32 storage)."""
+    if records_grad(*tensors):
         raise RuntimeError(f"{name}: bfloat16 storage has no backward; "
                            "training runs float32 storage")
 

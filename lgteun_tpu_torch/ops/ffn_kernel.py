@@ -52,7 +52,8 @@ from lgteun_tpu_torch.ops.autograd import recompute
 from lgteun_tpu_torch.ops.norm import channel_layer_norm
 
 __all__ = ["block_tail", "block_tail_ref", "block_tail_masked",
-           "block_tail_masked_ref", "ln_ffn", "ln_ffn_ref", "FFN_KEYS",
+           "block_tail_masked_ref", "ln_ffn", "ln_ffn_ref", "ln_ffn_mixed",
+           "bf16_operands", "FFN_KEYS",
            "tf32_round", "tf32_split", "tail_fragments", "tail_width",
            "tail_variant", "TAIL_MAX_WIDTH"]
 
@@ -80,6 +81,37 @@ def ln_ffn_ref(x, ffn: dict, eps: float = 1e-5, out_dtype=None):
                  groups=h.shape[1])
     h = F.gelu(h, approximate="none")
     return (x + _pw(h, ffn["w3"], ffn["b3"])).to(out_dtype)
+
+
+def bf16_operands(t: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """t rounded to `dtype` and upcast to float32 again (exact): an
+    operand of a float32 product of bf16 operands, JAX's `einsum(...,
+    preferred_element_type=jnp.float32)` on `dtype` inputs, whose
+    backward rounds the gradient to `dtype` as JAX's does."""
+    return t.to(dtype).float()
+
+
+def ln_ffn_mixed(x, ffn: dict, eps: float = 1e-5, dtype=torch.bfloat16):
+    """x + FFN(LN(x)) as JAX's `ln_ffn_xla(..., dtype=bf16)` computes it
+    (`lgteun_tpu/ops/ffn_kernel.py:47-86`), UnlgFormer's selective
+    `mixed_precision` training: the LN, the GELUs, the bias adds and the
+    residual float32; each 1x1 product a float32 product of `dtype`
+    operands; the depthwise 3x3 wholly in `dtype` (one rounding of its
+    output, as flax's `Conv(dtype=bf16)` gives), then upcast and its bias
+    added in float32. x float32 [B, C, H, W]. Plain torch: no kernel of
+    either package computes this function (JAX routes mixed training
+    away from its float32 kernels, `lgteun_tpu/models/common/lgt.py:
+    266-269`), so this is not a plain version standing in for `ln_ffn`."""
+    r = lambda t: bf16_operands(t, dtype)
+    mm = lambda t, w, b: F.conv2d(r(t), r(w)[:, :, None, None]) + b[
+        None, :, None, None]
+    y = channel_layer_norm(x, ffn["ln_w"], ffn["ln_b"], eps)
+    h = F.gelu(mm(y, ffn["w1"], ffn["b1"]))
+    h = mm(h, ffn["w2"], ffn["b2"])
+    h = F.conv2d(r(h), r(ffn["dw"])[:, None], padding=1,
+                 groups=h.shape[1]).to(dtype).float()
+    h = F.gelu(h + ffn["bdw"][None, :, None, None])
+    return x + mm(h, ffn["w3"], ffn["b3"])
 
 
 def block_tail_ref(x, x1, x2, proj_w, proj_b, ffn: dict,

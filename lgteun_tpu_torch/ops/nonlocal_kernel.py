@@ -36,9 +36,16 @@ out is rounded once to nearest even as stored, as the Pallas kernel does
 (`lgteun_tpu/ops/nonlocal_kernel.py:115-116`, `:161`). The cast's
 bfloat16 weights are upcast to float32 by the wrapper (exact; [C, C]
 each), so the kernel's weights stay float. `neighborhood_attention_ref(
-..., out_dtype=)` spells that out. The bfloat16 entry is for eval: it
-raises under a recorded gradient. The upcast weights are made once per
-weight version (`_cuda.weight_layout`).
+..., out_dtype=)` spells that out. In eval the upcast weights are made
+once per weight version (`_cuda.weight_layout`). Under a recorded
+gradient (the zoo's blanket `mixed_precision` training, as the JAX
+package trains MDCUN through its kernel's `custom_vjp` on bf16 operands,
+`lgteun_tpu/ops/nonlocal_kernel.py:119-137`) the bf16 entry trains as
+the float32 one does: the kernel forward, the plain version's backward
+recomputed from the saved bf16 inputs (`_train_entry`). The weights'
+upcast then happens inside the recorded function, in the kernel's
+closure and again in the plain version, so that the bf16 weights, and
+through their cast the float32 masters, get their gradients.
 """
 
 from __future__ import annotations
@@ -107,9 +114,9 @@ def neighborhood_attention_branch(c: int, fs: int) -> str:
 
 def neighborhood_attention(x, wt, wp, wg, ww, fs: int = 15):
     """x [B, C, H, W] f32 or bf16 (the result of x's dtype), weights
-    [C, C] (out, in), odd fs. On a CUDA tensor the kernel's forward,
-    differentiable through `ops.autograd.recompute` (`_train_entry`;
-    float32)."""
+    [C, C] (out, in) of x's dtype or float32, odd fs. On a CUDA tensor
+    the kernel's forward, differentiable through `ops.autograd.recompute`
+    (`_train_entry`) in either dtype."""
     if _cuda.plain_on_cpu("neighborhood_attention", x):
         return neighborhood_attention_ref(x, wt, wp, wg, ww, fs)
     b, c, h, w = x.shape
@@ -122,8 +129,8 @@ def neighborhood_attention(x, wt, wp, wg, ww, fs: int = 15):
                          f"fs, C <= {_MAX_C} and at most {_SMEM_MAX} B of "
                          f"shared memory (x {tuple(x.shape)}, fs {fs}, "
                          f"{_smem_bytes(c, fs)} B); bad: {bad}")
-    if x.dtype == torch.bfloat16:
-        _cuda.check_eval_storage("neighborhood_attention", x, wt, wp, wg, ww)
+    if x.dtype == torch.bfloat16 and not _cuda.records_grad(
+            x, wt, wp, wg, ww):
         mats = _cuda.weight_layout("na_float32", (wt, wp, wg, ww), lambda: [
             upcast(m).contiguous() for m in (wt, wp, wg, ww)])
         return _na_kernel(x, *mats, fs)
@@ -132,8 +139,9 @@ def neighborhood_attention(x, wt, wp, wg, ww, fs: int = 15):
 
 def _train_entry(x, wt, wp, wg, ww, fs: int):
     """`_na_kernel` forward, `neighborhood_attention_ref`'s backward
-    recomputed from the saved inputs; `fs` rides in the closures."""
-    return recompute(lambda *t: _na_kernel(*t, fs),
+    recomputed from the saved inputs; `fs` rides in the closures, and
+    bf16 weights are upcast in both (float32 ones pass as they are)."""
+    return recompute(lambda x, *w: _na_kernel(x, *map(upcast, w), fs),
                      lambda *t: neighborhood_attention_ref(*t, fs),
                      x, wt, wp, wg, ww)
 

@@ -21,8 +21,13 @@ then T and S are bfloat16 too. The inputs are upcast exactly, the search
 runs in float32, S is rounded once to nearest even and T copies the
 bfloat16 ref values, as the Pallas kernel stores them
 (`lgteun_tpu/ops/patch_match_kernel.py:77`, `:108`);
-`patch_match_ref(..., out_dtype=)` spells that out. The bfloat16 entry
-is for eval: it raises under a recorded gradient.
+`patch_match_ref(..., out_dtype=)` spells that out. Under a recorded
+gradient (the zoo's blanket `mixed_precision` training) the bf16 entry
+trains as the float32 one: its forward, `patch_match_ref`'s backward on
+the saved bf16 inputs. JAX's Pallas kernel refuses a bf16 output
+(ROADMAP C.40), so this route cannot train under the cast on JAX's TPU
+(`lgteun_tpu/models/innt.py:55-95`); the port's entry rounds S once on
+store, as the texture match does.
 """
 
 from __future__ import annotations
@@ -83,9 +88,6 @@ def patch_match(lr_n, ref_n, ref_u):
                          f"{_SMEM_MAX} B of shared memory (lr_n "
                          f"{tuple(lr_n.shape)}, ref_n {tuple(ref_n.shape)}, "
                          f"ref_u {tuple(ref_u.shape)})")
-    if lr_n.dtype == torch.bfloat16:
-        _cuda.check_eval_storage("patch_match", lr_n, ref_n, ref_u)
-        return _pm_kernel(lr_n, ref_n, ref_u)
     return _train_entry(lr_n, ref_n, ref_u)
 
 

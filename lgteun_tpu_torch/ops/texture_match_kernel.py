@@ -29,8 +29,10 @@ split stays: the normalised vectors are not exact in TF32), and t and s
 are rounded once to nearest even as stored, as the Pallas kernel does
 (`lgteun_tpu/ops/texture_match_kernel.py:112-113`, `:193`).
 `texture_match_ref` spells that out (`out_dtype`: the float32 value
-before the rounding with torch.float32). The bfloat16 entry is for
-eval: it raises under a recorded gradient.
+before the rounding with torch.float32). Under a recorded gradient
+(the zoo's blanket `mixed_precision` training) the bf16 entry trains as
+the float32 one: its forward, `texture_match_ref`'s backward on the
+saved bf16 inputs (`_train_entry`).
 """
 
 from __future__ import annotations
@@ -125,15 +127,15 @@ def texture_match(lr, ref):
                          f"C <= {_MAX_C} and at most {_SMEM_MAX} B of shared "
                          f"memory (lr {tuple(lr.shape)}, ref "
                          f"{tuple(ref.shape)}, {_smem_bytes(c, q)} B)")
-    if lr.dtype == torch.bfloat16:
-        _cuda.check_eval_storage("texture_match", lr, ref)
-        return _tm_kernel(lr, ref)
     return _train_entry(lr, ref)
 
 
 def _train_entry(lr, ref):
     """`_tm_kernel` forward, `texture_match_ref`'s backward recomputed
-    from the saved inputs; two outputs, (t, s)."""
+    from the saved inputs; two outputs, (t, s); float32 or bf16 (the
+    blanket `mixed_precision` training, as JAX trains its kernel's
+    `custom_vjp` on bf16 operands, `lgteun_tpu/ops/
+    texture_match_kernel.py:157-175`)."""
     return recompute(lambda *t: _tm_kernel(*t), texture_match_ref, lr, ref)
 
 

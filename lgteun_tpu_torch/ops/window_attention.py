@@ -46,9 +46,9 @@ import torch.nn.functional as F
 
 from lgteun_tpu_torch.ops import _cuda, upcast
 from lgteun_tpu_torch.ops.autograd import recompute
-from lgteun_tpu_torch.ops.ffn_kernel import tf32_split
+from lgteun_tpu_torch.ops.ffn_kernel import bf16_operands, tf32_split
 
-__all__ = ["window_attention", "window_attention_ref",
+__all__ = ["window_attention", "window_attention_ref", "window_attention_mixed",
            "window_attention_windows", "window_attention_windows_ref",
            "window_attention_rows", "window_attention_rows_ref",
            "window_partition", "window_unpartition", "attention_branch",
@@ -100,6 +100,40 @@ def window_attention_ref(y, wqkv, bqkv, pos, heads: int, win: int,
     return window_unpartition(window_attention_windows_ref(
         window_partition(y, win), wqkv, bqkv, pos, heads, out_dtype), win,
         h, w)
+
+
+def window_attention_mixed(y, wqkv, bqkv, pos, heads: int, win: int,
+                           dtype=torch.bfloat16):
+    """JAX's `window_attention_xla(..., dtype=bf16)` (`lgteun_tpu/ops/
+    window_attention.py:33-60`) on [B, C, H, W] float32 -> [B, C, H, W]
+    of `dtype`: UnlgFormer's selective `mixed_precision` training. The
+    windows, wqkv and bqkv rounded to `dtype`; qkv the product rounded to
+    `dtype` plus the rounded bias (rounded again); q scaled in `dtype`;
+    the logits a float32 product of the `dtype` q and k, plus pos in
+    float32; the softmax float32, rounded to `dtype`; attn . v a float32
+    product, rounded to `dtype`. Each product is float32 on rounded
+    operands (`ffn_kernel.bf16_operands`), which is what JAX's bf16
+    einsum computes (float32 products with `preferred_element_type`, or
+    one rounding of them without). Plain torch: no kernel of either
+    package computes this function (JAX's kernels are float32 only and
+    its mixed training runs this XLA composition, `lgteun_tpu/models/
+    common/lgt.py:113-118`), so this is not a plain version standing in
+    for `window_attention`."""
+    r = bf16_operands
+    h, w = y.shape[-2:]
+    xw = window_partition(y, win).transpose(1, 2)      # [N, S, C]
+    n, s, c = xw.shape
+    hd = c // heads
+    qkv = torch.einsum("nsc,dc->nsd", r(xw, dtype), r(wqkv, dtype)).to(
+        dtype) + bqkv.to(dtype)
+    q, k, v = (t.reshape(n, s, heads, hd).transpose(1, 2)
+               for t in qkv.split(c, dim=-1))
+    sim = torch.einsum("nhid,nhjd->nhij", (q * hd ** -0.5).float(),
+                       k.float()) + pos[None]
+    attn = torch.softmax(sim, dim=-1).to(dtype)
+    out = torch.einsum("nhij,nhjd->nhid", attn.float(), v.float()).to(dtype)
+    out = out.transpose(1, 2).reshape(n, s, c).transpose(1, 2)
+    return window_unpartition(out, win, h, w)
 
 
 def attention_pad(v: int) -> int:

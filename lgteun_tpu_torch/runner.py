@@ -51,10 +51,31 @@ per-image values in `image_scores[tag]`, and with `save` writes each
 prediction as a uint16 GeoTIFF (`REFERENCE_GEO`) under
 {work_dir}/{datas}/test_out/iter_{n}/{reduced|full}/{id}_mul_hat.tif.
 
+The training step (`train_step`; `lgteun_tpu/runner.py:187-338`) takes
+the JAX Runner's three modes:
+
+- `remat` (`cfg.get("remat")`): the loss runs inside
+  `torch.utils.checkpoint` (non-reentrant), as JAX wraps it in
+  `jax.checkpoint`: the backward recomputes the forward instead of
+  keeping its activations. The checkpointed function makes its dropout
+  generator from (seed + 1, iteration) itself on every call, so the
+  replay draws the masks (and MutInf's noise) of the forward; an
+  explicit generator is not among the states that `preserve_rng_state`
+  restores. The parameters follow the run without remat bit for bit.
+- `mixed_precision`: a method with `handles_mixed` (UnlgFormer) runs it
+  inside its module; every other runs `losses` under
+  `TorchMethod.training_cast(bfloat16)` on bfloat16 copies of the
+  batch's floating tensors, and the total goes back to float32. The
+  parameters, their gradients, the optimiser states and the schedules
+  stay float32.
+- adversarial training (a method with a discriminator, `adv_loss` in
+  its `loss_cfg`): `_adversarial_step`, the JAX Runner's alternating
+  two-optimiser step. `mixed_precision` then logs a warning and the
+  step runs float32, and `remat` is not applied, as in JAX.
+
 Left out: the JAX Runner's device prefetch and multi-step dispatch (TPU
 round-trip workarounds; `steps_per_dispatch` is read by nothing, which
-changes no number), `remat` and mixed precision (a config that sets
-either raises).
+changes no number).
 
 Numerics: the JAX scoring engine runs float32 at `highest` precision,
 while cuDNN runs float32 convolutions in TF32 by default. The Runner
@@ -71,14 +92,17 @@ import time
 
 import numpy as np
 import torch
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from lgteun_tpu_torch.config import Config, OptimCfg
 from lgteun_tpu_torch.data.pipeline import (data_denormalize, eval_batches,
                                             train_iterator)
 from lgteun_tpu_torch.data.tiff import REFERENCE_GEO, write_tiff
+from lgteun_tpu_torch.losses import gan_d_loss, gan_g_loss
 from lgteun_tpu_torch.metrics.torch_metrics import (no_ref_evaluate_batch,
                                                     ref_evaluate_batch)
-from lgteun_tpu_torch.models.base import TorchMethod
+from lgteun_tpu_torch.models.base import TorchMethod, _nchw
 
 __all__ = ["Runner", "make_optimizer", "read_checkpoint", "step_generator"]
 
@@ -143,15 +167,24 @@ class Runner:
         if method.device != self.device:
             raise ValueError(f"method is on {method.device}, runner on "
                              f"{self.device}")
-        for flag, item in (("mixed_precision", "A.5.5"), ("remat", "A.5.4")):
-            if cfg.get(flag):
-                raise NotImplementedError(
-                    f"config sets {flag}=True, which the port does not "
-                    f"implement yet (ROADMAP {item}); unset it to train in "
-                    "float32")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # a bf16 GEMM accumulates and reduces in float32 (the mixed paths'
+        # float32 products of bf16 operands, JAX's preferred_element_type)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
         self.logger = logger or logging.getLogger("lgteun_torch")
+        self.adversarial = method.adv_name is not None
+        self.remat = bool(cfg.get("remat", False))
+        mixed = bool(cfg.get("mixed_precision", False))
+        if mixed and self.adversarial:
+            self.logger.warning("mixed_precision=True is not implemented for "
+                                "adversarial training; the GAN step runs in "
+                                "f32")
+        # the blanket cast's dtype, or None
+        self.blanket = (torch.bfloat16 if mixed and not self.adversarial
+                        and not method.handles_mixed
+                        else None)
         self.train_ds = train_ds
         self.test_ds_full, self.test_ds_reduced = test_ds_full, test_ds_reduced
         self.eval_results: dict[str, list] = {}  # tag/metric: (it, mean, std)
@@ -237,21 +270,80 @@ class Runner:
             self._restored = None
         return self
 
+    def _losses(self, batch: dict, iter_id: int) -> tuple:
+        """(total, parts) of the step at `iter_id`, its dropout generator
+        made here from (seed + 1, iter_id), so that a remat replay draws
+        the same masks; under the blanket cast on bfloat16 copies of the
+        parameters and of the batch's floating tensors, the total
+        float32."""
+        gen = step_generator(self.cfg.seed + 1, iter_id, self.device)
+        if self.blanket is None:
+            return self.method.losses(batch, gen, iter_id)
+        cast = {k: v.to(self.blanket) if v.is_floating_point() else v
+                for k, v in batch.items()}
+        with self.method.training_cast(self.blanket):
+            total, parts = self.method.losses(cast, gen, iter_id)
+        return total.float(), parts
+
     def train_step(self, batch: dict, iter_id: int) -> dict:
         """One step of every module's optimiser on a device batch
         (`to_device`) at iteration `iter_id` (0-based); returns the loss
         parts, detached, on the device."""
-        gen = step_generator(self.cfg.seed + 1, iter_id, self.device)
         self.method.train()
-        _, parts = self.method.losses(batch, gen, iter_id)
-        for opt in self.optimizers.values():
-            opt.zero_grad(set_to_none=True)
-        parts["full_loss"].backward()
-        for opt in self.optimizers.values():
-            opt.step()
+        if self.adversarial:
+            parts = self._adversarial_step(batch, iter_id)
+        else:
+            if self.remat:
+                total, parts = checkpoint(self._losses, batch, iter_id,
+                                          use_reentrant=False)
+            else:
+                total, parts = self._losses(batch, iter_id)
+            for opt in self.optimizers.values():
+                opt.zero_grad(set_to_none=True)
+            total.backward()
+            for opt in self.optimizers.values():
+                opt.step()
         for sched in self.schedulers.values():
             sched.step()
         return {k: v.detach() for k, v in parts.items()}
+
+    def _adversarial_step(self, batch: dict, iter_id: int) -> dict:
+        """The JAX Runner's alternating step (`lgteun_tpu/runner.py:
+        270-338`; reference losses.py:68-137): one generator forward
+        (`losses(..., with_output=True)`); the discriminator's loss on the
+        detached output and the target, its backward and its optimiser's
+        step; the generator's adversarial term against the updated
+        discriminator, whose weights it holds fixed (detached, so they get
+        no gradient from it); the generator's backward and the step of
+        every other module's optimiser. Log parts `<adv>_G` and
+        `<adv>_D`; the WGAN-GP eps comes from the step's generator, after
+        the forward's draws."""
+        method, adv = self.method, self.method.adv_cfg
+        gen = step_generator(self.cfg.seed + 1, iter_id, self.device)
+        total, parts, out = method.losses(batch, gen, iter_id,
+                                          with_output=True)
+        d_opt = self.optimizers["discriminator"]
+        d_opt.zero_grad(set_to_none=True)
+        d_loss = gan_d_loss(method.disc, out,
+                            _nchw(batch["target"], self.device), adv.type,
+                            generator=gen, gp_w=adv.gp_w)
+        d_loss.backward()
+        d_opt.step()
+        fixed = {k: v.detach() for k, v in method.disc.named_parameters()}
+        g_adv = gan_g_loss(lambda x: functional_call(method.disc, fixed,
+                                                     (x,)), out, adv.type)
+        total = total + adv.w * g_adv
+        parts[f"{method.adv_name}_G"] = g_adv
+        parts[f"{method.adv_name}_D"] = d_loss
+        parts["full_loss"] = total
+        g_opts = [o for k, o in self.optimizers.items()
+                  if k != "discriminator"]
+        for opt in g_opts:
+            opt.zero_grad(set_to_none=True)
+        total.backward()
+        for opt in g_opts:
+            opt.step()
+        return parts
 
     def train(self) -> "Runner":
         """Iterations last_iter .. cfg.max_iter on `train_ds`."""

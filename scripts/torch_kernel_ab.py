@@ -37,7 +37,10 @@ layers; without it: the packed FP32 rows and launches of 4, 3 and 3
 layers), and the neighbourhood attention at MDCUN's shapes
 ([4,8,128,128], [1,8,72,100], [4,4,128,128]), at C = 16 and 32 (fs 13)
 and on its FP32-core branch ([1,16,40,40], fs 25) (`--only lightnet`,
-`--only neighborhood`).
+`--only neighborhood`). The searches and the neighbourhood attention also
+run their bf16 entries on the same values rounded to bf16 (cases `bf16
+...`, `--only bf16`; the zoo's blanket cast in eval and training), held
+bit-equal like the LGB cases.
 The script checks that B's outputs equal A's bit for bit or, with `--tol
 REL`, that max|B - A| / max|A| <= REL (and prints that figure); for the
 two searches, whose picks may flip at float64 near ties (`chip_smoke.
@@ -364,6 +367,13 @@ def stack_cases(gen: torch.Generator) -> dict:
         cases[f"neighborhood_attention {label}"] = (
             "lgteun_neighborhood_attention", lambda lay, args=args: args,
             lambda shape=shape: (torch.empty(shape, device="cuda"),),
+            shape + (fs,), None)
+        # the bf16 entry (x and out bf16, the weights float32)
+        bf = (args[0].to(torch.bfloat16),) + args[1:]
+        cases[f"bf16 neighborhood_attention {label}"] = (
+            "lgteun_neighborhood_attention_bf16", lambda lay, a=bf: a,
+            lambda shape=shape: (torch.empty(shape, device="cuda",
+                                             dtype=torch.bfloat16),),
             shape + (fs,), None)
     return cases
 
@@ -1172,6 +1182,23 @@ def main() -> int:
             "lgteun_patch_match", lambda lay, a=(lr_n, ref_n, ref_u): a,
             lambda n=n, c=c: (torch.empty(n, 9 * c, q, device="cuda"),
                               torch.empty(n, q, device="cuda")),
+            (n, q, 9 * c))
+        # their bf16 entries (the zoo's blanket cast) on the same values
+        h = lambda *t: tuple(v.to(torch.bfloat16) for v in t)
+        cases[f"bf16 texture_match {n}x{c}x{q}"] = (
+            "lgteun_texture_match_bf16", lambda lay, a=h(lr, ref): a,
+            lambda n=n, c=c: (torch.empty(n, c, q, device="cuda",
+                                          dtype=torch.bfloat16),
+                              torch.empty(n, q, device="cuda",
+                                          dtype=torch.bfloat16)),
+            (n, c, side))
+        cases[f"bf16 patch_match {n}x{q}x{9 * c}"] = (
+            "lgteun_patch_match_bf16",
+            lambda lay, a=h(lr_n, ref_n, ref_u): a,
+            lambda n=n, c=c: (torch.empty(n, 9 * c, q, device="cuda",
+                                          dtype=torch.bfloat16),
+                              torch.empty(n, q, device="cuda",
+                                          dtype=torch.bfloat16)),
             (n, q, 9 * c))
     cases.update(lgb_cases(opts.batch, map(int, opts.sizes.split(",")),
                            gen))

@@ -3,11 +3,13 @@ CPU.
 
 - C.14: MDCUN's stage scalars and PReLU slopes load from a state_dict
   that holds them as [1] or as [] (the flax tree's form), stored as [1];
-- C.27: `TorchMethod.losses` raises on a weighted loss entry it does not
-  compute (QNR, adversarial) instead of training without it;
+- C.27 (retired: the QNR and adversarial losses train, tests/
+  test_torch_port_gan.py): an entry of weight 0 is no term of the loss;
 - C.28: one checkpoint loader takes a Runner checkpoint and a bare
   state_dict, in `Runner.load_checkpoint` and in the scene CLI;
-- C.29: `mixed_precision` and `remat` raise instead of being ignored;
+- C.29 (retired: `mixed_precision` and `remat` train, tests/
+  test_torch_port_remat.py, test_torch_port_mixed*.py): the shipped
+  config sets neither flag, and a Runner takes either set to False;
 - C.33: the plain FFT mixer keeps the zero bins of planes constant along
   an axis (within rounding) exactly zero whatever the FFT library leaves
   there, so its output on them does not depend on the host or the thread
@@ -105,17 +107,6 @@ def _unlg(loss_cfg, **kw):
     return cfg, build_model("UnlgFormer", cfg, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["QNR_loss", "adv_loss"])
-def test_unported_weighted_loss_raises(name):
-    """A weighted QNR or adversarial entry raises, naming the entry and
-    ROADMAP A.7, rather than training without that term."""
-    _, method = _unlg({"rec_loss": LossCfg("l1", 1.0),
-                       name: LossCfg("l1", 0.1)})
-    method.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match=rf"{name}.*A\.7"):
-        method.losses(_batch(np.random.default_rng(1), 4))
-
-
 def test_zero_weight_loss_entry_is_skipped():
     """An entry of weight 0 is no term of the loss: the total equals the
     l1 alone, and no part is reported for it."""
@@ -207,17 +198,6 @@ def test_load_checkpoint_takes_a_bare_state_dict(tmp_path):
 
 
 # ---------------------------------------------------------------- C.29
-
-@pytest.mark.parametrize("flag,item", [("mixed_precision", "A.5.5"),
-                                       ("remat", "A.5.4")])
-def test_unported_config_flag_raises(flag, item):
-    """A config that sets mixed_precision or remat raises, naming its
-    ROADMAP item, instead of training in float32 without remat."""
-    cfg, method = _unlg({"rec_loss": LossCfg("l1", 1.0)},
-                        extras={flag: True})
-    with pytest.raises(NotImplementedError, match=rf"{flag}.*{item}"):
-        Runner(cfg, method, "cpu")
-
 
 def test_shipped_config_flags_do_not_raise():
     """The shipped config sets neither flag (steps_per_dispatch stays

@@ -234,6 +234,24 @@ plain at the training bounds, both networks moving over ADV_STEPS steps,
 step ms) and a `QNR_loss` step; and, beside the autograd rows, the bf16
 training entries of B10-B12 against plain autograd of their refs.
 
+Last, data parallelism (the `mesh` phase, `parallel/mesh.py`): the
+shipped UnlgFormer (level 2, dropout 0.1, batch 4) on a process group of
+one rank under NCCL (a file:// rendezvous under `build/chip_smoke/mesh`)
+against the Runner without a group from the same weights on the same
+batches: the first loss bit-equal, 3 losses and the parameters within
+the remat bounds (the card's own spread, two runs without a group,
+printed), the launches a training forward unchanged, and the step ms at
+batch 4 and 16 in turns (the cost of the all-reduces). Then two ranks
+spawned on the one card under gloo (`parallel/ranks.py::spawn`; NCCL
+refuses two ranks on one device), each with its rows of every batch,
+against one rank in this process: 3 Adam steps (parameters by
+tests/test_multichip.py's criterion, the ranks bit-equal), `Runner.test`
+at eval batch 16 (per-image scores in order), a MutInf step mid-ramp and
+its `mi` regulariser before the clip (loss parts, gradients); the
+iteration ms of both, the two ranks time-sliced on one card (no
+speed-up). A rank that fails fails the phase. Each phase prints the
+seconds since the start when it ends.
+
 Any failed phase raises (non-zero exit). With no CUDA device the script
 exits non-zero before printing any result. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it is the card's name and
@@ -1910,6 +1928,11 @@ def main() -> int:
     print(sh(_cuda.find_nvcc(), "--version").splitlines()[-1])
     print(f"card: {card}")
 
+    started = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        print(f"phase {name} done at {time.perf_counter() - started:.1f} s")
+
     # 1. build
     t0 = time.perf_counter()
     lib_path = _cuda.build_library()
@@ -2014,11 +2037,13 @@ def main() -> int:
     check_lgb_grids(lgb_inputs)
     check_tail_layout(gen)
     check_fft_tables()
+    phase_done("kernels")
 
     # 3. the differentiable wrappers against plain autograd, and the bf16
     #    training entries of B10-B12
     run_autograd(torch.Generator().manual_seed(SEED + 2), card)
     run_bf16_train_entries(torch.Generator().manual_seed(SEED + 8), card)
+    phase_done("autograd")
 
     # 4. each slice: shipped config, seeded weights, Runner.test
     #    (a kernel's launches are those of the first path that runs it)
@@ -2030,16 +2055,19 @@ def main() -> int:
         for k in per_forward:
             launches.setdefault(k, counted[k])
 
+    phase_done("slices")
     # 4b. a 16-band UnlgFormer (the wide tail at its bottleneck)
     run_sixteen_bands(card)
     # 4c. UnlgFormer's bf16 storage modes at every level
     run_bf16_forward(card, opts.profile)
     # 4d. the rest of the zoo under LGTEUN_EVAL_DTYPE=bf16
     run_bf16_zoo(card)
+    phase_done("bf16")
 
     # 5. the scene engine, then the CLI on the same scene
     method = run_scene(card, opts.profile)
     run_cli(method, card)
+    phase_done("scene")
 
     # 6. training: Runner.train on a synthetic dataset, resume, card vs
     #    CPU gradients, the other routes' training steps
@@ -2048,21 +2076,29 @@ def main() -> int:
     launches.setdefault("window_attention_rows", 0)   # on no model path
     run_grad_split(train_ds, card)
     run_train_variants(train_ds, card)
+    phase_done("training")
     # 6b. the rest of the zoo trains: LightNet, MDCUN, INNT (B9-B12 through
     #     their recompute entries), SFIIN and MutInf
     run_zoo_training(train_ds, card, opts.profile)
+    phase_done("zoo training")
     # 6c. the JAX Runner's other training modes: remat, mixed_precision
     #     (UnlgFormer's selective mode and the zoo's blanket cast) and
     #     adversarial training (with the QNR loss)
     run_remat(train_ds, card)
     run_mixed(train_ds, card)
     run_adversarial(train_ds, card)
+    phase_done("training modes")
     # 6d. bf16 storage with port-trained weights; training ignores it
     run_bf16_quality(card)
+    phase_done("bf16 quality")
 
     # 7. the evaluation entry point: main.cli --test-only, both splits,
     #    UnlgFormer and the classical methods
     run_main(card)
+    phase_done("main")
+    # 8. data parallelism: NCCL at world 1, two gloo ranks on the card
+    run_mesh(train_ds, card)
+    phase_done("mesh")
 
     kernels = []
     for name, (_op, _user, src, replaces, main_shape, no_library) in \
@@ -4306,6 +4342,258 @@ def run_adversarial(train_ds, card: str) -> None:
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"adversarial: {failures}")
+
+
+# data parallelism (the `mesh` phase): steps of the shipped UnlgFormer
+# held on a process group against the Runner without one; Adam's eps of
+# the two-rank runs held by `params_equivalent` (tests/test_multichip.py:
+# at 1e-8 the first update is lr * sign(g) for every element)
+MESH_STEPS = 3
+MESH_ADAM_EPS = 1e-3
+# one step on two ranks vs one (tests/test_torch_port_mesh.py): each
+# gradient within MESH_GRAD_REL of its tensor's largest plus
+# MESH_GRAD_ATOL of the step's largest, each loss part within
+# MESH_PART_REL
+MESH_GRAD_REL, MESH_GRAD_ATOL, MESH_PART_REL = 1e-4, 1e-5, 1e-5
+
+
+def params_equivalent(got: dict, want: dict, lr: float) -> tuple:
+    """tests/test_multichip.py::_assert_params_equivalent's criterion on
+    {key: tensor} dicts: (the share of elements beyond 2e-6 + 1e-4 |want|,
+    the mean |got - want| over lr); equivalent below 0.005 and 0.05."""
+    a = torch.cat([torch.as_tensor(got[k]).double().flatten()
+                   for k in sorted(want)])
+    b = torch.cat([torch.as_tensor(want[k]).double().flatten()
+                   for k in sorted(want)])
+    dev = (a - b).abs()
+    return ((dev > 2e-6 + 1e-4 * b.abs()).double().mean().item(),
+            dev.mean().item() / lr)
+
+
+def grads_within(got: dict, want: dict) -> tuple[float, list]:
+    """(the worst gradient gap over MESH_GRAD_REL x its tensor's largest +
+    MESH_GRAD_ATOL x the step's largest, the tensors beyond 1)."""
+    largest = max(float(np.abs(v).max()) for v in want.values()
+                  if v is not None)
+    worst, beyond = 0.0, []
+    for k, w in want.items():
+        if w is None or got[k] is None:
+            if (w is None) != (got[k] is None):
+                beyond.append(k)
+            continue
+        share = float(np.abs(got[k] - w).max()) / (
+            MESH_GRAD_REL * float(np.abs(w).max()) + MESH_GRAD_ATOL * largest)
+        worst = max(worst, share)
+        if share > 1:
+            beyond.append(k)
+    return worst, beyond
+
+
+def run_mesh(train_ds, card: str) -> None:
+    """Data parallelism (`parallel/mesh.py`, the Runner on a mesh): the
+    shipped UnlgFormer (level 2, dropout 0.1) on a process group of one
+    rank under NCCL (file:// rendezvous) against the Runner without one,
+    from the same seeded weights on the same batches: the first loss
+    bit-equal, MESH_STEPS losses and the parameters as two runs without a
+    group agree (the remat bounds: the bicubic backward's atomics, C.24),
+    the kernel launches a training forward unchanged, and the step ms at
+    batch 4 and 16 in turns (the cost of the reductions). Then two ranks
+    spawned on the one card under gloo (NCCL refuses two ranks on one
+    device), each rank's rows of every batch, against one rank in this
+    process: MESH_STEPS Adam steps (eps MESH_ADAM_EPS; `params_equivalent`,
+    both ranks bit-equal), `Runner.test` at the eval batch (the per-image
+    scores), a MutInf step at iteration 3 of 4 and its `mi` regulariser
+    alone (loss parts, gradients); the step ms of both, the two ranks
+    sharing one card (no speed-up)."""
+    import dataclasses as dc
+
+    from lgteun_tpu_torch.config import OptimCfg
+    from lgteun_tpu_torch.data.pipeline import train_iterator
+    from lgteun_tpu_torch.parallel import ranks
+    from lgteun_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from lgteun_tpu_torch.runner import Runner
+
+    failures = []
+    root = os.path.join(REPO, "build", "chip_smoke", "mesh")
+    os.makedirs(root, exist_ok=True)
+    rendezvous = os.path.join(root, "nccl_rendezvous")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    cfg = mode_cfg("unlg_former.py")
+    mesh = make_mesh(device="cuda", init_method=f"file://{rendezvous}")
+    try:
+        # the Runner without a group, given a mesh of one rank (one made
+        # by default would join this process's group)
+        alone = lambda: Runner(cfg, train_method(cfg), "cuda",
+                               mesh=Mesh(device=torch.device("cuda")))
+        runners = {"no group": alone(), "again": alone(),
+                   "nccl": Runner(cfg, zoo_method(cfg, TRAIN_ENV,
+                                                  str(mesh.device)),
+                                  mesh.device, mesh=mesh)}
+        it = train_iterator(train_ds, cfg.train_set_cfg.batch_size,
+                            bit_depth=cfg.bit_depth, seed=SEED + 16)
+        batches = [next(it) for _ in range(MESH_STEPS)]
+        losses, counts = {}, {}
+        for label, runner in runners.items():
+            runner.init(SEED).set_optim()
+            wrappers = reset_launches()
+            losses[label] = [runner.train_step(b, i)["full_loss"].item()
+                             for i, b in enumerate(batches)]
+            counts[label] = check_launches(f"mesh {label}", wrappers,
+                                           TRAIN_ROUTE, MESH_STEPS)
+        a, b, c = (flat_params(runners[k])
+                   for k in ("no group", "nccl", "again"))
+        rms = adam_rms(runners["no group"])
+        rel, moves, aside, total = param_gap(a, b, rms)
+        own, _, _, _ = param_gap(a, c, rms)
+        equal = sum(torch.equal(a[k], b[k]) for k in a)
+        same = losses["nccl"][0] == losses["no group"][0]
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(
+            losses["nccl"], losses["no group"]))
+        print(f"mesh nccl world 1: backend {mesh.backend}, world "
+              f"{mesh.world}, rank {mesh.rank} on {mesh.device}; "
+              f"{MESH_STEPS} steps (batch {cfg.train_set_cfg.batch_size}, "
+              f"dropout): first loss bit-equal to the Runner without a "
+              f"group {same} ({losses['nccl'][0]!r}); losses "
+              f"{losses['nccl']} / {losses['no group']} (worst relative "
+              f"{loss_rel:.3e}; a second run without a group "
+              f"{losses['again']}); parameters bit-equal {equal} of "
+              f"{len(a)} tensors, worst |diff| / |p| {max(rel.values()):.3e}"
+              f" (set aside {aside} of {total} near-zero elements; two runs "
+              f"without a group {max(own.values()):.3e}; bound "
+              f"{REMAT_PARAM_REL:g}); launches a training forward "
+              f"{ {k: counts['nccl'][k] // MESH_STEPS for k in TRAIN_ROUTE} }"
+              f", the same as without a group "
+              f"{counts['nccl'] == counts['no group']}  [{card}]")
+        if not (same and loss_rel <= REMAT_LOSS_REL
+                and max(rel.values()) <= REMAT_PARAM_REL
+                and counts["nccl"] == counts["no group"]):
+            failures.append(f"nccl world 1: first loss {same}, losses "
+                            f"{loss_rel:.3e}, parameters "
+                            f"{max(rel.values()):.3e}")
+        del runners["again"]
+        for bsz in TRAIN_BATCHES:
+            batch = runners["nccl"].to_device(next(train_iterator(
+                train_ds, bsz, bit_depth=cfg.bit_depth, seed=SEED + 17)))
+            ms, _ = turns_ms(runners, {k: batch for k in runners})
+            print(f"mesh step batch {bsz}: without a process group "
+                  f"{ms['no group']:.3f} ms, NCCL world 1 {ms['nccl']:.3f} "
+                  f"ms ({ms['nccl'] / ms['no group']:.3f}x: a loss "
+                  f"all-reduce and one gradient all-reduce a step)  "
+                  f"[{card}]")
+        del runners
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+
+    # two ranks on the one card (gloo) against one rank in this process:
+    # run_training's synthetic train/ and test/ splits
+    train_dir = train_ds.image_dirs[0]
+    dirs = {"train": train_dir,
+            "test": os.path.join(os.path.dirname(train_dir), "test")}
+
+    def mesh_cfg(config: str, work: str, **kw):
+        c = mode_cfg(config)
+        c.optim_cfg = {name: dc.replace(c.optim_cfg.get(name, OptimCfg()),
+                                        eps=MESH_ADAM_EPS)
+                       for name in ("core_module", "mi")}
+        c.train_set_cfg.dataset.image_dirs = [dirs["train"]]
+        c.test_set1_cfg.dataset.image_dirs = [dirs["test"]]
+        c.test_set0_cfg.dataset.image_dirs = []
+        c.log_freq, c.work_dir = 1, os.path.join(root, work)
+        for k, v in kw.items():
+            setattr(c, k, v)
+        return c
+
+    unlg = mesh_cfg("unlg_former.py", "unlg", max_iter=MESH_STEPS)
+    mutinf = mesh_cfg("MutInf.py", "mutinf", max_iter=4)
+    mi_batch = next(train_iterator(train_ds, mutinf.train_set_cfg.batch_size,
+                                   bit_depth=mutinf.bit_depth,
+                                   seed=SEED + 18))
+    jobs = [(ranks.train_job, dict(cfg=unlg, stops=(1,))),
+            (ranks.test_job, dict(cfg=unlg, save=False)),
+            (ranks.train_job, dict(cfg=mutinf, start=3)),
+            (ranks.mi_job, dict(cfg=mutinf, batch=mi_batch, iter_id=2))]
+    with mock.patch.dict(os.environ, TRAIN_ENV):
+        one = [job(make_mesh(device="cuda"), **copy.deepcopy(kw))
+               for job, kw in jobs]
+        t0 = time.perf_counter()
+        two = ranks.spawn(jobs, 2, os.path.join(root, "spawn"),
+                          device="cuda")
+        spawn_s = time.perf_counter() - t0
+    r0, r1 = two
+    lr = unlg.optim_cfg["core_module"].lr
+    bits = all(np.array_equal(r0[0]["state"][k], r1[0]["state"][k])
+               for k in r0[0]["state"])
+    share, mean_dev = params_equivalent(r0[0]["state"], one[0]["state"], lr)
+    loss_gaps = [abs(x[1]["full_loss"] - y[1]["full_loss"])
+                 / abs(y[1]["full_loss"])
+                 for x, y in zip(r0[0]["loss_log"], one[0]["loss_log"])]
+    # an iteration's wall time after the first (which takes each new
+    # process's one-time costs: CUDA context, library handles)
+    steady = lambda r: r[0]["seconds"][MESH_STEPS] / (MESH_STEPS - 1) * 1e3
+    print(f"mesh gloo 2 ranks on one card: {MESH_STEPS} steps of the shipped "
+          f"UnlgFormer (batch {unlg.train_set_cfg.batch_size}: 2 rows a "
+          f"rank, dropout; Adam eps {MESH_ADAM_EPS:g}) against one rank: "
+          f"ranks bit-equal {bits}; elements beyond 2e-6 + 1e-4 |p| "
+          f"{share:.5f} (bound 0.005), mean |diff| / lr {mean_dev:.3e} "
+          f"(bound 0.05); first loss relative {loss_gaps[0]:.3e} (bound "
+          f"{MESH_PART_REL:g}), the later ones (after Adam steps) "
+          f"{max(loss_gaps):.3e} (bound {REMAT_LOSS_REL:g}); iterations 2-"
+          f"{MESH_STEPS} of train() {steady(r0):.1f} / {steady(r1):.1f} ms "
+          f"an iteration on the two ranks sharing the card (two processes "
+          f"time-sliced on one device; gloo, host-staged collectives), one "
+          f"rank {steady(one):.1f} ms (data included; not a speed-up: one "
+          f"card); the spawn {spawn_s:.1f} s  [{card}]")
+    if not (bits and share < 0.005 and mean_dev < 0.05
+            and loss_gaps[0] <= MESH_PART_REL
+            and max(loss_gaps) <= REMAT_LOSS_REL):
+        failures.append(f"gloo 2 ranks: bits {bits}, share {share}, mean "
+                        f"{mean_dev}, losses {loss_gaps}")
+    # each per-image score against one rank's, relative (SSIM and Q, in
+    # [-1, 1], absolute), within its float32 accuracy against float64
+    # (MAIN_REF_RTOL): the forward at 8 rows is not the forward at 16 to
+    # the bit wherever a library picks its algorithm by batch size
+    tag = "reduced-res (ref)"
+    want = one[1]["image_scores"][tag]
+    unit = ("ssim", "qindex")
+    score_gap = {k: max(max(abs(x - y) / max(abs(y), 1.0 if k in unit
+                                             else 1e-30)
+                            for x, y in zip(r[1]["image_scores"][tag][k], v))
+                        for r in two)
+                 for k, v in want.items() if k != "image_id"}
+    ids_ok = all(r[1]["image_scores"][tag]["image_id"] == want["image_id"]
+                 for r in two)
+    print(f"mesh gloo 2 ranks: Runner.test of {len(want['image_id'])} "
+          f"images at eval batch {unlg.eval_batch_size} (8 rows a rank): "
+          f"ids in order {ids_ok}; per-image scores against one rank, worst "
+          f"{ {k: f'{v:.2e}' for k, v in score_gap.items()} } (bounds "
+          f"{MAIN_REF_RTOL}); time per image "
+          f"{r0[1]['time_per_image'][True] * 1e3:.3f} / one rank "
+          f"{one[1]['time_per_image'][True] * 1e3:.3f} ms  [{card}]")
+    if not (ids_ok and all(v <= MAIN_REF_RTOL[k]
+                           for k, v in score_gap.items())):
+        failures.append(f"gloo 2 ranks test: {score_gap}")
+    (_, got), = r0[2]["loss_log"]
+    (_, ref), = one[2]["loss_log"]
+    part_gap = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+                   for k in ref)
+    worst, beyond = grads_within(r0[3]["grads"], one[3]["grads"])
+    mi_gap = abs(r0[3]["value"] - one[3]["value"]) / abs(one[3]["value"])
+    mi_bits = r0[3]["value"] == r1[3]["value"]
+    print(f"mesh gloo 2 ranks: MutInf step at iteration 3 of 4, parts "
+          f"{ {k: round(v, 6) for k, v in got.items()} } (worst relative "
+          f"to one rank {part_gap:.3e}, bound {MESH_PART_REL:g}); its `mi` "
+          f"regulariser before the clip {r0[3]['value']:.6f} / one rank "
+          f"{one[3]['value']:.6f} (relative {mi_gap:.3e}; the ranks equal "
+          f"{mi_bits}), gradients worst {worst:.3f} of the bound, beyond "
+          f"{beyond}  [{card}]")
+    if not (part_gap <= MESH_PART_REL and mi_gap <= MESH_PART_REL
+            and mi_bits and not beyond):
+        failures.append(f"gloo 2 ranks MutInf: parts {part_gap}, mi "
+                        f"{mi_gap}, gradients {beyond}")
+    if failures:
+        raise AssertionError(f"mesh: {failures}")
 
 
 def run_bf16_train_entries(gen: torch.Generator, card: str) -> None:

@@ -6,9 +6,10 @@ lightnet, MDCUN and INNT; the training-free GSA, SFIM and Wavelet; the
 evaluation entry point (`python -m lgteun_tpu_torch.main`: the IQA
 metrics on both test splits, `metrics/`); UnlgFormer's training (`runner.py`:
 Adam/StepLR, l1, dropout, checkpoints; `data/`: the train iterator, the
-PSDataset reader and the synthetic Wald generator); and the whole-scene
+PSDataset reader and the synthetic Wald generator); the whole-scene
 engine and its CLI (`parallel/scene.py`, `python -m
-lgteun_tpu_torch.fuse`), with
+lgteun_tpu_torch.fuse`); and data-parallel training, eval and scene
+fusion over ranks launched with torchrun (`parallel/mesh.py`), with
 
 - plain PyTorch for what the JAX package left to XLA: the unfolding
   steps, resamples and the convs outside the kernels;

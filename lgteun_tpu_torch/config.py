@@ -6,9 +6,10 @@ Python, executed as in `lgteun_tpu/config.py::load_config`; its
 module-level names become attributes. The fields below keep that
 Config's names, types and defaults (`lgteun_tpu/config.py:28-128`); the
 loader configs, `sched_cfg`, and each entry of `optim_cfg` and
-`loss_cfg` become their dataclasses. Every other name, the TPU-only
-`steps_per_dispatch`, `remat` and `mixed_precision` among them, is kept
-in `extras`.
+`loss_cfg` become their dataclasses. Every other name is kept in
+`extras`: `remat` and `mixed_precision`, which the Runner reads with
+`get`, and the TPU-only `steps_per_dispatch`, of which the Runner warns
+when it is not 1.
 """
 
 from __future__ import annotations
@@ -100,6 +101,9 @@ class Config:
     loss_cfg: dict[str, LossCfg] = field(default_factory=dict)
     model_cfg: dict[str, dict] = field(default_factory=dict)
     eval_batch_size: int = 16
+    # data-parallel ranks: {} every rank of the launch, {"data": n} n of
+    # them (the launch's world size; `parallel/mesh.py::make_mesh`)
+    mesh_shape: dict[str, int] = field(default_factory=dict)
     extras: dict[str, Any] = field(default_factory=dict)
 
     def get(self, key, default=None):

@@ -7,7 +7,10 @@ losses.py:162-219) and the adversarial losses (`gan_d_loss`,
 `gan_g_loss`): the reference steps its discriminator inside the loss
 forward (reference losses.py:68-137); here, as in the JAX package, that
 is two losses that the Runner's two-optimiser step takes in turn
-(`runner.py::Runner._adversarial_step`)."""
+(`runner.py::Runner._adversarial_step`). Under a data-parallel step's
+generator (`parallel.mesh.ShardGenerator`) each loss is the global
+batch's value (`parallel.mesh.batch_mean` / `batch_sum` / `batch_rows`)
+and its draws are the rank's rows of the global draw."""
 
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from torch import nn
 from lgteun_tpu_torch.metrics.torch_metrics import (d_lambda_global,
                                                     d_s_global)
 from lgteun_tpu_torch.ops.resize import resize_bicubic
+from lgteun_tpu_torch.parallel import mesh
 
 __all__ = ["reconstruction_loss", "build_loss_weights", "qnr_loss",
            "MutualInfoReg", "gan_d_loss", "gan_g_loss"]
@@ -34,17 +38,21 @@ def reconstruction_loss(out: torch.Tensor, gt: torch.Tensor,
 
 
 def qnr_loss(pan: torch.Tensor, ms: torch.Tensor, out: torch.Tensor,
-             pan_l: torch.Tensor | None = None) -> torch.Tensor:
+             pan_l: torch.Tensor | None = None,
+             generator=None) -> torch.Tensor:
     """1 - (1 - D_lambda)(1 - D_s) of NHWC batches, differentiable
     (`lgteun_tpu/losses.py:48-57`). Without `pan_l`, PAN is resized
     bicubic x1/4 with align_corners=True, the reference's `down_sample`
-    (reference losses.py:152), not the dataset's degraded PAN."""
+    (reference losses.py:152), not the dataset's degraded PAN. D_lambda
+    and D_s are |differences| of batch means of per-image Q, no sum over
+    the images: under a data-parallel step's generator they are taken on
+    the global batch's per-image values (`parallel.mesh.batch_rows`)."""
     if pan_l is None:
         h, w = pan.shape[1:3]
         pan_l = resize_bicubic(pan.permute(0, 3, 1, 2), (h // 4, w // 4),
                                align_corners=True).permute(0, 2, 3, 1)
-    dl = d_lambda_global(ms, out)
-    ds = d_s_global(ms, pan, pan_l, out)
+    dl = d_lambda_global(ms, out, generator)
+    ds = d_s_global(ms, pan, pan_l, out, generator)
     return 1.0 - (1.0 - dl) * (1.0 - ds)
 
 
@@ -92,7 +100,10 @@ class MutualInfoReg(nn.Module):
 
     The noise eps [B, latent] of each branch is drawn from `generator`
     (a on its own, then b), or given as `noise` = (eps_a, eps_b) for a
-    parity test, as the JAX module's `noise=`."""
+    parity test, as the JAX module's `noise=`. Under a data-parallel
+    step's generator (`parallel.mesh`) eps is the rank's rows of the
+    global batch's draw, and the value is the global batch's: the BCE
+    sums summed over the ranks, the KL means their global means."""
 
     def __init__(self, input_channels: int = 4, channels: int = 4,
                  latent_size: int = 4, side: int = 32):
@@ -123,8 +134,8 @@ class MutualInfoReg(nn.Module):
         mu_b, logvar_b = (torch.tanh(self.fc1_depth3(fb)),
                           torch.tanh(self.fc2_depth3(fb)))
         if noise is None:
-            eps_a, eps_b = (torch.randn(mu.shape, generator=generator,
-                                        device=mu.device)
+            eps_a, eps_b = (mesh.draw(torch.randn, mu.shape, generator,
+                                      mu.device)
                             for mu in (mu_a, mu_b))
         else:
             eps_a, eps_b = (torch.as_tensor(e, dtype=mu_a.dtype,
@@ -136,19 +147,23 @@ class MutualInfoReg(nn.Module):
         bi_kld = (_kl_normal(mu_a, sa, mu_b, sb).mean()
                   + _kl_normal(mu_b, sb, mu_a, sa).mean())
         pa, pb = torch.sigmoid(z_a), torch.sigmoid(z_b)
-        return (_bce_sum(pa, pb.detach()) + _bce_sum(pb, pa.detach())
-                - bi_kld)
+        bce = _bce_sum(pa, pb.detach()) + _bce_sum(pb, pa.detach())
+        return (mesh.batch_sum(bce, generator)
+                - mesh.batch_mean(bi_kld, generator))
 
 
 # ---------------------------------------------------------------------------
 # adversarial losses (the two-optimiser form of reference losses.py:43-138)
 # ---------------------------------------------------------------------------
 
-def _bce_flipped(logits: torch.Tensor, target: float) -> torch.Tensor:
+def _bce_flipped(logits: torch.Tensor, target: float,
+                 generator=None) -> torch.Tensor:
     """mean BCE of sigmoid(logits), clipped to [1e-7, 1 - 1e-7], against
-    a constant target."""
+    a constant target (the global batch's mean under a data-parallel
+    step's generator)."""
     p = torch.sigmoid(logits).clamp(1e-7, 1 - 1e-7)
-    return -(target * torch.log(p) + (1 - target) * torch.log(1 - p)).mean()
+    return mesh.batch_mean(-(target * torch.log(p) + (1 - target)
+                             * torch.log(1 - p)).mean(), generator)
 
 
 def gan_d_loss(d_apply, fake: torch.Tensor, real: torch.Tensor,
@@ -162,35 +177,41 @@ def gan_d_loss(d_apply, fake: torch.Tensor, real: torch.Tensor,
     losses.py:86-91). "WGAN-GP" adds gp_w x the mean of (|grad| - 1)^2 at
     eps x real + (1 - eps) x fake, eps [B, 1, 1, 1] uniform (drawn from
     `generator` unless given), the gradient made with create_graph so
-    that the penalty trains the discriminator."""
+    that the penalty trains the discriminator. Under a data-parallel
+    step's generator (`parallel.mesh`) every mean is the global batch's
+    and eps the rank's rows of the global draw."""
     fake, real = fake.detach(), real.detach()
     d_fake, d_real = d_apply(fake), d_apply(real)
+    mean = lambda t: mesh.batch_mean(t.mean(), generator)
     if gan_type == "GAN":
-        return -(_bce_flipped(d_real, 0.0) + _bce_flipped(d_fake, 1.0))
+        return -(_bce_flipped(d_real, 0.0, generator)
+                 + _bce_flipped(d_fake, 1.0, generator))
     if gan_type == "LSGAN":
-        return (((d_real - 1.0) ** 2).mean() + (d_fake ** 2).mean()) / 2.0
+        return (mean((d_real - 1.0) ** 2) + mean(d_fake ** 2)) / 2.0
     if gan_type == "WGAN-GP":
         if eps is None:
-            eps = torch.rand((real.shape[0], 1, 1, 1), generator=generator,
-                             device=real.device)
+            eps = mesh.draw(torch.rand, (real.shape[0], 1, 1, 1), generator,
+                            real.device)
         hat = (fake * (1 - eps) + real * eps).requires_grad_()
         grads, = torch.autograd.grad(d_apply(hat).sum(), hat,
                                      create_graph=True)
         gnorm = torch.sqrt((grads.flatten(1) ** 2).sum(dim=1) + 1e-12)
-        return (d_fake - d_real).mean() + gp_w * ((gnorm - 1.0) ** 2).mean()
+        return mean(d_fake - d_real) + gp_w * mean((gnorm - 1.0) ** 2)
     raise ValueError(f"unknown gan type {gan_type!r}")
 
 
-def gan_g_loss(d_apply, fake: torch.Tensor,
-               gan_type: str = "GAN") -> torch.Tensor:
+def gan_g_loss(d_apply, fake: torch.Tensor, gan_type: str = "GAN",
+               generator: torch.Generator | None = None) -> torch.Tensor:
     """The generator's adversarial term (reference losses.py:129-137);
     `d_apply` must hold the discriminator's weights fixed (the caller
-    gives detached ones), so that only the generator gets a gradient."""
+    gives detached ones), so that only the generator gets a gradient.
+    `generator`: the step's, whose shard (`parallel.mesh`) makes the mean
+    the global batch's."""
     d_fake = d_apply(fake)
     if gan_type == "GAN":
-        return _bce_flipped(d_fake, 1.0)
+        return _bce_flipped(d_fake, 1.0, generator)
     if gan_type == "LSGAN":
-        return ((d_fake - 1.0) ** 2).mean()
+        return mesh.batch_mean(((d_fake - 1.0) ** 2).mean(), generator)
     if gan_type == "WGAN-GP":
-        return -d_fake.mean()
+        return -mesh.batch_mean(d_fake.mean(), generator)
     raise ValueError(f"unknown gan type {gan_type!r}")

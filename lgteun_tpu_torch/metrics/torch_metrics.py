@@ -13,7 +13,8 @@ into the channel axis; D_s degrades the PAN with the 41x41 MTF filter
 
 The differentiable whole-image family (`qindex_global`,
 `d_lambda_global`, `d_s_global`; reference metrics.py:336-397, eps 1e-8)
-is plain autograd, for the QNR loss.
+is plain autograd, for the QNR loss; a data-parallel step's generator
+makes its batch means the global batch's (`parallel.mesh.batch_rows`).
 
 Numerics: float32, as on the TPU. cuDNN runs float32 convolutions in
 TF32 by default, which moves SSIM and Q by about 1e-3: a caller outside
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 from lgteun_tpu_torch.metrics.numpy_ref import (_SAT_GNYQ, DYNAMIC_RANGE,
                                                 mtf_kernel)
 from lgteun_tpu_torch.ops.filters import depthwise_conv2d, filter2d_reflect101
+from lgteun_tpu_torch.parallel.mesh import batch_rows
 
 __all__ = [
     "psnr_batch", "ssim_batch", "qindex_batch", "sam_batch", "ergas_batch",
@@ -207,9 +209,11 @@ def no_ref_evaluate_batch(pred: torch.Tensor, lrms: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def qindex_global(a: torch.Tensor, b: torch.Tensor,
-                  eps: float = 1e-8) -> torch.Tensor:
+                  eps: float = 1e-8, generator=None) -> torch.Tensor:
     """Whole-image Q index of [B, H, W] pairs -> scalar (mean over the
-    batch); `QIndex_torch` (reference metrics.py:336-355)."""
+    batch); `QIndex_torch` (reference metrics.py:336-355). Under a
+    data-parallel step's generator (`parallel.mesh.batch_rows`) the mean
+    is over the global batch's per-image values."""
     dims = (1, 2)
     ea, eb = a.mean(dim=dims), b.mean(dim=dims)
     ea2, eb2 = (a * a).mean(dim=dims), (b * b).mean(dim=dims)
@@ -217,31 +221,33 @@ def qindex_global(a: torch.Tensor, b: torch.Tensor,
     var_a = ea2 - ea * ea
     var_b = eb2 - eb * eb
     cov = eab - ea * eb
-    return (4 * cov * ea * eb / ((var_a + var_b) * (ea ** 2 + eb ** 2)
-                                 + eps)).mean()
+    q = 4 * cov * ea * eb / ((var_a + var_b) * (ea ** 2 + eb ** 2) + eps)
+    return batch_rows(q, generator).mean()
 
 
-def d_lambda_global(lrms: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+def d_lambda_global(lrms: torch.Tensor, pred: torch.Tensor,
+                    generator=None) -> torch.Tensor:
     """Differentiable D_lambda over NHWC batches: `D_lambda_torch`'s
     double loop over ordered band pairs (reference metrics.py:358-376)."""
     c = pred.shape[-1]
+    q = lambda a, b: qindex_global(a, b, generator=generator)
     total = 0.0
     for i in range(c):
         for j in range(c):
             if i != j:
-                total = total + (qindex_global(pred[..., i], pred[..., j])
-                                 - qindex_global(lrms[..., i],
-                                                 lrms[..., j])).abs()
+                total = total + (q(pred[..., i], pred[..., j])
+                                 - q(lrms[..., i], lrms[..., j])).abs()
     return total / c / (c - 1)
 
 
 def d_s_global(lrms: torch.Tensor, pan: torch.Tensor, lpan: torch.Tensor,
-               pred: torch.Tensor) -> torch.Tensor:
+               pred: torch.Tensor, generator=None) -> torch.Tensor:
     """Differentiable D_s, `D_s_torch` (reference metrics.py:379-397);
     NHWC inputs, `pan` and `lpan` with one channel."""
     c = pred.shape[-1]
+    q = lambda a, b: qindex_global(a, b, generator=generator)
     total = 0.0
     for i in range(c):
-        total = total + (qindex_global(pred[..., i], pan[..., 0])
-                         - qindex_global(lrms[..., i], lpan[..., 0])).abs()
+        total = total + (q(pred[..., i], pan[..., 0])
+                         - q(lrms[..., i], lpan[..., 0])).abs()
     return total / c

@@ -23,6 +23,7 @@ from lgteun_tpu_torch.models.panformer import CrossSwinTransformer
 from lgteun_tpu_torch.models.sfiin import SFIINNet, spectrum_amp_phase
 from lgteun_tpu_torch.ops import (fuse_level, storage_dtype,
                                   windows_layout_attention)
+from lgteun_tpu_torch.parallel.mesh import batch_mean
 from lgteun_tpu_torch.registry import MODELS
 
 __all__ = ["UnlgFormer", "lightnet", "MDCUN", "INNT", "PanFormer", "SFIIN",
@@ -180,7 +181,8 @@ class SFIIN(TorchMethod):
         parts = {}
         for name, lcfg in weights.items():
             if name in pairs:
-                parts[name] = reconstruction_loss(*pairs[name], lcfg.type)
+                parts[name] = batch_mean(reconstruction_loss(
+                    *pairs[name], lcfg.type), generator)
                 total = total + lcfg.w * parts[name]
         parts["full_loss"] = total
         return (total, parts, out) if with_output else (total, parts)
@@ -248,7 +250,10 @@ class MutInf(TorchMethod):
         mi = clip(MutualInfoReg(panf, mhrf), -1, 1) against 2 mi (|mi|
         for l1) weighted by w * min(iter_id / max_iter, 1), the ramp in
         float32; any other entry is skipped, as JAX skips it. `noise` =
-        (eps_a, eps_b) replaces the draws from `generator`."""
+        (eps_a, eps_b) replaces the draws from `generator`. Under a
+        data-parallel step's generator mi is the global batch's (a sum of
+        BCE sums and a mean KL, `losses.MutualInfoReg`) before its
+        clip."""
         weights = build_loss_weights(self.cfg.loss_cfg)
         hr, panf, mhrf = self.module(_nchw(batch["input_lr"], self.device),
                                      _nchw(batch["input_pan"], self.device))
@@ -256,8 +261,9 @@ class MutInf(TorchMethod):
         parts = {}
         if "rec_loss" in weights:
             lcfg = weights["rec_loss"]
-            parts["rec_loss"] = reconstruction_loss(
-                hr, _nchw(batch["target"], self.device), lcfg.type)
+            parts["rec_loss"] = batch_mean(reconstruction_loss(
+                hr, _nchw(batch["target"], self.device), lcfg.type),
+                generator)
             total = total + lcfg.w * parts["rec_loss"]
         if "MI_rec_loss" in weights:
             lcfg = weights["MI_rec_loss"]

@@ -91,6 +91,7 @@ from lgteun_tpu_torch.losses import (build_loss_weights, qnr_loss,
 from lgteun_tpu_torch.models.common import discriminators
 from lgteun_tpu_torch.models.common.layers import init_parameters
 from lgteun_tpu_torch.ops import storage_dtype
+from lgteun_tpu_torch.parallel.mesh import batch_mean
 
 __all__ = ["TorchMethod", "ClassicalMethod", "jax_promotion", "swapped"]
 
@@ -356,7 +357,11 @@ class TorchMethod:
         bicubic-downsampled, `losses.qnr_loss`); any other entry is no
         term of this total (the adversarial one is the Runner's).
         `iter_id` is for a method whose loss follows the iteration
-        (MutInf)."""
+        (MutInf). Under a data-parallel step's generator
+        (`parallel.mesh.ShardGenerator`: the batch is the rank's rows)
+        every part is the global batch's value, and the rank's backward
+        reaches its own rows (`mesh.batch_mean`, `batch_sum`,
+        `batch_rows`)."""
         ms = _nchw(batch["input_lr"], self.device)
         pan = _nchw(batch["input_pan"], self.device)
         out = self.forward(ms, pan, generator)
@@ -364,11 +369,13 @@ class TorchMethod:
         parts = {}
         for name, lcfg in build_loss_weights(self.cfg.loss_cfg).items():
             if "rec_loss" in name:
-                value = reconstruction_loss(
-                    out, _nchw(batch["target"], self.device), lcfg.type)
+                value = batch_mean(reconstruction_loss(
+                    out, _nchw(batch["target"], self.device), lcfg.type),
+                    generator)
             elif "QNR_loss" in name:
                 nhwc = lambda t: t.permute(0, 2, 3, 1)
-                value = qnr_loss(nhwc(pan), nhwc(ms), nhwc(out))
+                value = qnr_loss(nhwc(pan), nhwc(ms), nhwc(out),
+                                 generator=generator)
             else:
                 continue
             total = total + lcfg.w * value

@@ -69,9 +69,11 @@ _lgb_cm` draws one per block from its rng (a different random stream:
 torch's, not JAX's). At level 2 the mask goes into `block_tail_masked`;
 at level 1 it multiplies the proj output in plain torch before
 `ln_ffn`. Without a generator no mask is drawn (as the JAX path's
-rng=None). The whole-block kernel has no backward and no mask, so level
-3 runs level 2's chain whenever a gradient is recorded or a mask is
-drawn. Every other wrapper is differentiable on the card (its kernel
+rng=None). Under a data-parallel step's `parallel.mesh.ShardGenerator`
+the mask is the rank's rows of the mask drawn at the global batch's
+shape (`mesh.draw`): the one-rank run's masks, split over the ranks.
+The whole-block kernel has no backward and no mask, so level 3 runs
+level 2's chain whenever a gradient is recorded or a mask is drawn. Every other wrapper is differentiable on the card (its kernel
 forward with the plain version's backward, `ops.autograd`).
 
 Selective `mixed_precision` training (`mixed`, bfloat16 when the config
@@ -129,6 +131,7 @@ from lgteun_tpu_torch.ops.window_attention import (window_attention,
                                                    window_attention_windows,
                                                    window_partition,
                                                    window_unpartition)
+from lgteun_tpu_torch.parallel import mesh
 
 __all__ = ["LocalMixer", "GlobalMixer", "LGMixer", "FeedForward", "LGB",
            "LGT"]
@@ -298,7 +301,7 @@ class LGB(nn.Module):
                 and generator is not None):
             return None
         keep = 1.0 - self.drop_rate
-        draw = torch.rand(x.shape, generator=generator, device=x.device)
+        draw = mesh.draw(torch.rand, x.shape, generator, x.device)
         return (draw < keep).to(x.dtype) * (1.0 / keep)
 
     def forward(self, x: torch.Tensor,

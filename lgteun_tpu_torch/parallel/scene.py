@@ -1,4 +1,4 @@
-"""Tiled whole-scene fusion on one device (counterpart of
+"""Tiled whole-scene fusion (counterpart of
 `lgteun_tpu/parallel/scene.py::fuse_scene`, the JAX package's
 production large-strip path).
 
@@ -17,8 +17,11 @@ is two parity groups per axis, each laid out by a pad and a reshape.
 
 Everything runs on the method's device: reflect padding, tile
 extraction as strided views (`Tensor.unfold`), the chunks of `batch`
-tiles, the ramp weighting and the overlap-add. One eager pass per call;
-no mesh.
+tiles, the ramp weighting and the overlap-add. One eager pass per call.
+With a `mesh` (`parallel/mesh.py`; JAX's `mesh=`, which shards each tile
+batch over the `data` axis) every rank fuses its rows of each chunk, the
+fused tiles are gathered in rank order, and every rank blends and
+returns the whole scene.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from lgteun_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 
 __all__ = ["fuse_scene", "cosine_ramp_weights"]
 
@@ -120,14 +125,16 @@ def _as_tensor(a, device: torch.device) -> torch.Tensor:
 
 @torch.inference_mode()
 def fuse_scene(method, ms, pan, *, tile: int = 128, halo: int = 16,
-               batch: int = 32) -> torch.Tensor:
+               batch: int = 32, mesh: Mesh | None = None) -> torch.Tensor:
     """Fuse one large scene: LrMS [h/4, w/4, C] + PAN [h, w] or
     [h, w, 1] (numpy or tensors, normalised) -> HrMS [h, w, C] on the
     method's device, tiled through `method.apply`.
 
     tile/halo/batch: PAN-grid tile size, per-side blend halo
-    (stride = tile - 2*halo), and tiles per forward. tile, halo and the
-    scene size must be multiples of 4, and 0 <= halo <= tile/4."""
+    (stride = tile - 2*halo), and tiles per forward (over all ranks of
+    `mesh`, each of which fuses batch / W of them). tile, halo and the
+    scene size must be multiples of 4, 0 <= halo <= tile/4, and batch a
+    multiple of the mesh's world size."""
     device = method.device
     ms, pan = _as_tensor(ms, device), _as_tensor(pan, device)
     if pan.ndim == 2:
@@ -142,6 +149,9 @@ def fuse_scene(method, ms, pan, *, tile: int = 128, halo: int = 16,
     if tuple(ms.shape[:2]) != (h // SCALE, w // SCALE):
         raise ValueError(f"LrMS {tuple(ms.shape[:2])} does not match PAN/"
                          f"{SCALE} = {(h // SCALE, w // SCALE)}")
+    if mesh is not None and batch % mesh.world:
+        raise ValueError("batch must divide by the mesh axis size")
+    mine = slice(0, batch) if mesh is None else mesh.rows(batch)
 
     stride = tile - 2 * halo
     ny = max(1, -(-(h - tile) // stride) + 1)
@@ -155,9 +165,10 @@ def fuse_scene(method, ms, pan, *, tile: int = 128, halo: int = 16,
     if n_pad:  # every forward has `batch` tiles (one shape)
         pan_t = torch.cat([pan_t, pan_t[:n_pad]])
         ms_t = torch.cat([ms_t, ms_t[:n_pad]])
-    out = torch.cat([method.apply({"input_lr": ms_t[i:i + batch],
-                                   "input_pan": pan_t[i:i + batch]})
-                     for i in range(0, n + n_pad, batch)])
+    out = torch.cat([all_gather_rows(method.apply(
+        {"input_lr": ms_t[i:i + batch][mine],
+         "input_pan": pan_t[i:i + batch][mine]}), mesh)
+        for i in range(0, n + n_pad, batch)])
     out = out[:n].reshape(ny, nx, tile, tile, -1)
     wy = torch.from_numpy(cosine_ramp_weights(ny, tile, stride)).to(device)
     wx = torch.from_numpy(cosine_ramp_weights(nx, tile, stride)).to(device)

@@ -73,9 +73,38 @@ the JAX Runner's three modes:
   two-optimiser step. `mixed_precision` then logs a warning and the
   step runs float32, and `remat` is not applied, as in JAX.
 
+Data parallelism (`mesh`, `parallel/mesh.py`; the JAX Runner's mesh,
+runner.py:116-140, 373-375): the Runner runs on one rank of a `Mesh`
+(by default `make_mesh(cfg.mesh_shape)`: one rank without a launcher,
+with no collective, bit-equal to the Runner before it had a mesh; under
+`torchrun` every rank of the launch). A run over W ranks computes what
+the one-rank run computes, up to the order of the gradient sums:
+
+- `train()`: every rank draws the same global batch from the same
+  seeded `train_iterator` and `train_step` keeps the rank's rows
+  (`shard_batch`: rows [r*B/W, (r+1)*B/W), or the whole batch on every
+  rank when B % W != 0, as JAX's `_put_batch` replicates it). The
+  step's generator is a `ShardGenerator` (the same seed on every rank,
+  the rank's rows named), through which the dropout masks, MutInf's
+  noise and WGAN-GP's eps are the rank's rows of the one-rank draws and
+  every loss part is the global batch's value whose backward reaches the
+  rank's rows. Before each optimiser's `step()` its module's gradients
+  are SUM-reduced (`all_reduce_grads`; the adversarial step reduces the
+  discriminator's, then the generator side's); a replicated batch's
+  gradients are averaged. The logged parts are the global batch's.
+- `init`, `load`, `load_checkpoint`: every rank; the weights are then
+  broadcast from rank 0 (`replicated`).
+- `save`, `log_eval_curves`, the log: rank 0, `save` followed by a
+  barrier.
+- `test()`: each rank scores its rows of each eval batch; the per-image
+  scores are gathered in order, so `eval_results` and `image_scores` are
+  the one-rank run's; with `save` each rank writes the TIFFs of its own
+  real rows (rank 0 all of a replicated batch), each once; the time per
+  image is the slowest rank's forward time over the global count.
+
 Left out: the JAX Runner's device prefetch and multi-step dispatch (TPU
-round-trip workarounds; `steps_per_dispatch` is read by nothing, which
-changes no number).
+round-trip workarounds; `steps_per_dispatch` changes no number, and the
+Runner warns when a config sets it to another value than 1).
 
 Numerics: the JAX scoring engine runs float32 at `highest` precision,
 while cuDNN runs float32 convolutions in TF32 by default. The Runner
@@ -103,6 +132,11 @@ from lgteun_tpu_torch.losses import gan_d_loss, gan_g_loss
 from lgteun_tpu_torch.metrics.torch_metrics import (no_ref_evaluate_batch,
                                                     ref_evaluate_batch)
 from lgteun_tpu_torch.models.base import TorchMethod, _nchw
+from lgteun_tpu_torch.parallel.mesh import (Mesh, Shard, ShardGenerator,
+                                            all_gather_rows,
+                                            all_reduce_grads,
+                                            check_mesh_shape, make_mesh,
+                                            replicated, shard_batch)
 
 __all__ = ["Runner", "make_optimizer", "read_checkpoint", "step_generator"]
 
@@ -126,12 +160,15 @@ def make_optimizer(params, ocfg: OptimCfg) -> torch.optim.Optimizer:
     raise ValueError(f"unknown optimiser {ocfg.type!r}")
 
 
-def step_generator(seed: int, iter_id: int,
-                   device: torch.device) -> torch.Generator:
-    """A generator on `device` seeded from (seed, iter_id) alone."""
+def step_generator(seed: int, iter_id: int, device: torch.device,
+                   shard: Shard | None = None) -> torch.Generator:
+    """A generator on `device` seeded from (seed, iter_id) alone; with a
+    `shard`, the `ShardGenerator` of the rank's rows (the same seed)."""
     state = np.random.SeedSequence([seed, iter_id]).generate_state(
         1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state) >> 1)
+    gen = (torch.Generator(device=device) if shard is None
+           else ShardGenerator(device, shard))
+    return gen.manual_seed(int(state) >> 1)
 
 
 def read_checkpoint(path: str, map_location) -> tuple:
@@ -154,19 +191,35 @@ def read_checkpoint(path: str, map_location) -> tuple:
     return payload["state_dict"], int(payload["iter_num"]), restored
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether a and b name one device ("cuda" is the current card)."""
+    index = lambda d: (torch.cuda.current_device() if d.index is None
+                       and d.type == "cuda" else d.index)
+    return a.type == b.type and index(a) == index(b)
+
+
 class Runner:
     """Owns the train/eval/checkpoint lifecycle of one TorchMethod on one
-    device."""
+    device, one rank of `mesh` (module docstring)."""
 
     def __init__(self, cfg: Config, method: TorchMethod, device,
                  logger: logging.Logger | None = None, train_ds=None,
-                 test_ds_full=None, test_ds_reduced=None):
+                 test_ds_full=None, test_ds_reduced=None,
+                 mesh: Mesh | None = None):
         self.cfg = cfg
         self.method = method
         self.device = torch.device(device)
         if method.device != self.device:
             raise ValueError(f"method is on {method.device}, runner on "
                              f"{self.device}")
+        if mesh is None:
+            mesh = make_mesh(cfg.mesh_shape, device=self.device)
+        else:
+            check_mesh_shape(cfg.mesh_shape, mesh.world)
+        if not _same_device(mesh.device, self.device):
+            raise ValueError(f"the mesh's rank is on {mesh.device}, the "
+                             f"runner on {self.device}")
+        self.mesh = mesh
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         # a bf16 GEMM accumulates and reduces in float32 (the mixed paths'
@@ -174,6 +227,15 @@ class Runner:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
             = False
         self.logger = logger or logging.getLogger("lgteun_torch")
+        if mesh.rank:
+            # rank 0 logs; the others only their warnings and errors
+            self.logger = self.logger.getChild(f"rank{mesh.rank}")
+            self.logger.setLevel(logging.WARNING)
+        if cfg.get("steps_per_dispatch", 1) != 1:
+            self.logger.warning(
+                f"steps_per_dispatch={cfg.get('steps_per_dispatch')} is the "
+                "JAX Runner's TPU dispatch setting; the port dispatches each "
+                "step, which changes no number")
         self.adversarial = method.adv_name is not None
         self.remat = bool(cfg.get("remat", False))
         mixed = bool(cfg.get("mixed_precision", False))
@@ -195,6 +257,7 @@ class Runner:
         self.optimizers: dict[str, torch.optim.Optimizer] = {}
         self.schedulers: dict[str, torch.optim.lr_scheduler.StepLR] = {}
         self._restored = None   # optimizer/scheduler states to resume
+        self.last_outputs: list[str] = []  # TIFFs this rank last wrote
 
     @property
     def optimizer(self) -> torch.optim.Optimizer | None:
@@ -221,6 +284,7 @@ class Runner:
                 break
         self.method.init_params(torch.Generator().manual_seed(seed),
                                 sample_hw)
+        replicated(self.method.modules().values(), self.mesh)
         if self.method.trainable:
             for name, n in self.method.param_counts().items():
                 self.logger.info(f"Total params of module {name}: {n:,}")
@@ -229,11 +293,15 @@ class Runner:
     def load(self, state_dict: dict) -> "Runner":
         """Reference-keyed weights (strict)."""
         self.method.load_state_dict(state_dict, strict=True)
+        replicated(self.method.modules().values(), self.mesh)
         return self
 
     def to_device(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
-                    self.device)
+        """The batch's arrays (or tensors) as float32 tensors on the
+        runner's device, the image ids left out."""
+        return {k: v.to(self.device, torch.float32)
+                if isinstance(v, torch.Tensor) else torch.from_numpy(
+                    np.ascontiguousarray(v, np.float32)).to(self.device)
                 for k, v in batch.items() if k != "image_id"}
 
     def predict(self, batch: dict) -> torch.Tensor:
@@ -270,13 +338,15 @@ class Runner:
             self._restored = None
         return self
 
-    def _losses(self, batch: dict, iter_id: int) -> tuple:
-        """(total, parts) of the step at `iter_id`, its dropout generator
-        made here from (seed + 1, iter_id), so that a remat replay draws
-        the same masks; under the blanket cast on bfloat16 copies of the
-        parameters and of the batch's floating tensors, the total
-        float32."""
-        gen = step_generator(self.cfg.seed + 1, iter_id, self.device)
+    def _losses(self, batch: dict, iter_id: int,
+                shard: Shard | None = None) -> tuple:
+        """(total, parts) of the step at `iter_id` on the rank's rows of
+        the global batch (`shard`; None: the batch is all of it), its
+        dropout generator made here from (seed + 1, iter_id), so that a
+        remat replay draws the same masks; under the blanket cast on
+        bfloat16 copies of the parameters and of the batch's floating
+        tensors, the total float32."""
+        gen = step_generator(self.cfg.seed + 1, iter_id, self.device, shard)
         if self.blanket is None:
             return self.method.losses(batch, gen, iter_id)
         cast = {k: v.to(self.blanket) if v.is_floating_point() else v
@@ -286,28 +356,43 @@ class Runner:
         return total.float(), parts
 
     def train_step(self, batch: dict, iter_id: int) -> dict:
-        """One step of every module's optimiser on a device batch
-        (`to_device`) at iteration `iter_id` (0-based); returns the loss
-        parts, detached, on the device."""
+        """One step of every module's optimiser on the global batch
+        (arrays, or tensors such as `to_device` gives) at iteration
+        `iter_id` (0-based): the rank takes its rows (`shard_batch`) to
+        its device; returns the loss parts, the global batch's, detached,
+        on the device."""
+        n = len(next(v for k, v in batch.items() if k != "image_id"))
+        shard = self.mesh.shard(n)
+        batch = self.to_device(shard_batch(batch, self.mesh))
         self.method.train()
         if self.adversarial:
-            parts = self._adversarial_step(batch, iter_id)
+            parts = self._adversarial_step(batch, iter_id, shard)
         else:
             if self.remat:
                 total, parts = checkpoint(self._losses, batch, iter_id,
-                                          use_reentrant=False)
+                                          shard, use_reentrant=False)
             else:
-                total, parts = self._losses(batch, iter_id)
+                total, parts = self._losses(batch, iter_id, shard)
             for opt in self.optimizers.values():
                 opt.zero_grad(set_to_none=True)
             total.backward()
+            self._reduce_grads(self.optimizers, shard)
             for opt in self.optimizers.values():
                 opt.step()
         for sched in self.schedulers.values():
             sched.step()
         return {k: v.detach() for k, v in parts.items()}
 
-    def _adversarial_step(self, batch: dict, iter_id: int) -> dict:
+    def _reduce_grads(self, names, shard: Shard | None) -> None:
+        """The gradients of modules `names` summed over the ranks (a
+        sharded step), or averaged (a replicated batch: every rank has
+        the whole batch's gradient); nothing on one rank."""
+        modules = self.method.modules()
+        all_reduce_grads([modules[k] for k in names], self.mesh,
+                         average=shard is None)
+
+    def _adversarial_step(self, batch: dict, iter_id: int,
+                          shard: Shard | None = None) -> dict:
         """The JAX Runner's alternating step (`lgteun_tpu/runner.py:
         270-338`; reference losses.py:68-137): one generator forward
         (`losses(..., with_output=True)`); the discriminator's loss on the
@@ -317,9 +402,10 @@ class Runner:
         no gradient from it); the generator's backward and the step of
         every other module's optimiser. Log parts `<adv>_G` and
         `<adv>_D`; the WGAN-GP eps comes from the step's generator, after
-        the forward's draws."""
+        the forward's draws. On a mesh the discriminator's gradients are
+        reduced before its step, the other modules' before theirs."""
         method, adv = self.method, self.method.adv_cfg
-        gen = step_generator(self.cfg.seed + 1, iter_id, self.device)
+        gen = step_generator(self.cfg.seed + 1, iter_id, self.device, shard)
         total, parts, out = method.losses(batch, gen, iter_id,
                                           with_output=True)
         d_opt = self.optimizers["discriminator"]
@@ -328,21 +414,23 @@ class Runner:
                             _nchw(batch["target"], self.device), adv.type,
                             generator=gen, gp_w=adv.gp_w)
         d_loss.backward()
+        self._reduce_grads(["discriminator"], shard)
         d_opt.step()
         fixed = {k: v.detach() for k, v in method.disc.named_parameters()}
         g_adv = gan_g_loss(lambda x: functional_call(method.disc, fixed,
-                                                     (x,)), out, adv.type)
+                                                     (x,)), out, adv.type,
+                           generator=gen)
         total = total + adv.w * g_adv
         parts[f"{method.adv_name}_G"] = g_adv
         parts[f"{method.adv_name}_D"] = d_loss
         parts["full_loss"] = total
-        g_opts = [o for k, o in self.optimizers.items()
-                  if k != "discriminator"]
-        for opt in g_opts:
-            opt.zero_grad(set_to_none=True)
+        g_names = [k for k in self.optimizers if k != "discriminator"]
+        for k in g_names:
+            self.optimizers[k].zero_grad(set_to_none=True)
         total.backward()
-        for opt in g_opts:
-            opt.step()
+        self._reduce_grads(g_names, shard)
+        for k in g_names:
+            self.optimizers[k].step()
         return parts
 
     def train(self) -> "Runner":
@@ -366,8 +454,7 @@ class Runner:
         window: list[dict] = []
         try:
             while iter_id < cfg.max_iter:
-                window.append(self.train_step(self.to_device(next(it)),
-                                              iter_id))
+                window.append(self.train_step(next(it), iter_id))
                 iter_id += 1
                 if iter_id % cfg.log_freq == 0:
                     means = {k: float(torch.stack([p[k] for p in window])
@@ -405,7 +492,8 @@ class Runner:
         the keys of the split's first item). `dataset` yields
         PSDataset item dicts (NHWC `input_lr`, `input_pan`, `target` in
         DN) and has `pairs` for the ids. The module runs in eval mode and
-        is put back in its mode after."""
+        is put back in its mode after. On a mesh each rank scores its
+        rows of each batch (module docstring)."""
         ds = dataset if dataset is not None else (
             self.test_ds_reduced if ref else self.test_ds_full)
         if ds is None:
@@ -419,9 +507,14 @@ class Runner:
         per_metric: dict[str, list] = {}
         ids, outputs = [], []
         n_images, fwd_time = 0, 0.0
+        shard = self.mesh.shard(bs)
+        # the batch rows this rank scores and, with `save`, writes
+        first = 0 if shard is None else shard.start
+        writes = shard is not None or self.mesh.rank == 0
         for batch, n_valid in eval_batches(ds, bs, bit_depth=cfg.bit_depth,
                                            normalize=cfg.norm_input):
-            arrays = self.to_device(batch)
+            local = shard_batch(batch, self.mesh)
+            arrays = self.to_device(local)
             t0 = time.perf_counter()
             pred = self.predict(arrays)
             self._sync()
@@ -435,12 +528,18 @@ class Runner:
             else:
                 scores = no_ref_evaluate_batch(pred, arrays["input_lr"],
                                                arrays["input_pan"])
+            if shard is not None:
+                names = list(scores)
+                rows = all_gather_rows(torch.stack(
+                    [scores[k] for k in names], dim=1), self.mesh)
+                scores = {k: rows[:, i] for i, k in enumerate(names)}
             for k, v in scores.items():
                 per_metric.setdefault(k, []).extend(v[:n_valid].tolist())
             ids.extend(batch["image_id"][:n_valid])
-            if save:
-                outputs.append((batch["image_id"][:n_valid],
-                                pred[:n_valid].cpu().numpy()))
+            mine = max(0, min(n_valid - first, len(pred)))
+            if save and writes and mine:
+                outputs.append((local["image_id"][:mine],
+                                pred[:mine].cpu().numpy()))
         self.method.train(training)
         results = {k: (float(np.mean(v)), float(np.std(v)))
                    for k, v in per_metric.items()}
@@ -451,29 +550,37 @@ class Runner:
                 (iter_id, mean, std))
             self.logger.info(f"[iter {iter_id}] {tag} {k}: "
                              f"{mean:.4f} +- {std:.4f}")
-        self.last_time_per_image = fwd_time / max(n_images, 1)
+        self.last_time_per_image = (self.mesh.reduce_max(fwd_time)
+                                    / max(n_images, 1))
+        ranks = f", {self.mesh.world} ranks" if self.mesh.world > 1 else ""
         self.logger.info(
             f"[iter {iter_id}] {tag} avg time per img: "
             f"{self.last_time_per_image * 1000:.3f} ms "
-            f"({n_images} images, batch {bs}, {self.device})")
+            f"({n_images} images, batch {bs}, {self.device}{ranks})")
         if save:
-            self._save_outputs(outputs, iter_id, ref)
+            self.last_outputs = self._save_outputs(outputs, iter_id, ref)
+            self.mesh.barrier()
         return results
 
-    def _save_outputs(self, outputs: list, iter_id: int, ref: bool) -> None:
+    def _save_outputs(self, outputs: list, iter_id: int,
+                      ref: bool) -> list[str]:
         """Each prediction as a uint16 GeoTIFF with the reference's fake
         georeference (reference base_model.py:336-337 ->
-        dataset/utils.py:42-86): rounded DN, clipped to [0, 65535]."""
+        dataset/utils.py:42-86): rounded DN, clipped to [0, 65535]; the
+        paths written."""
         out_dir = os.path.join(self.cfg.work_dir, self.cfg.datas, "test_out",
                                f"iter_{iter_id}",
                                "reduced" if ref else "full")
         os.makedirs(out_dir, exist_ok=True)
+        paths = []
         for image_ids, preds in outputs:
             for image_id, pred in zip(image_ids, preds):
                 arr = np.clip(np.round(data_denormalize(
                     pred, self.cfg.bit_depth)), 0, 65535).astype(np.uint16)
-                write_tiff(os.path.join(out_dir, f"{image_id}_mul_hat.tif"),
-                           arr, geo=REFERENCE_GEO)
+                paths.append(os.path.join(out_dir,
+                                          f"{image_id}_mul_hat.tif"))
+                write_tiff(paths[-1], arr, geo=REFERENCE_GEO)
+        return paths
 
     def log_eval_curves(self) -> str:
         """Log and write the accumulated metric curves to
@@ -484,9 +591,10 @@ class Runner:
             self.logger.info(f"eval curve {key}: {pts}")
         out = os.path.join(self.cfg.work_dir, self.cfg.datas,
                            "eval_curves.json")
-        os.makedirs(os.path.dirname(out), exist_ok=True)
-        with open(out, "w") as f:
-            json.dump(self.eval_results, f, indent=1)
+        if self.mesh.rank == 0:
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            with open(out, "w") as f:
+                json.dump(self.eval_results, f, indent=1)
         return out
 
     # ------------------------------------------------------ checkpoints
@@ -495,10 +603,17 @@ class Runner:
         """{work_dir}/{datas}/train_out/model_iter_{iter_id}.pt: the core
         module's weights ("state_dict"), the other modules' ("modules"),
         every optimizer and scheduler state by module name and the
-        iteration."""
+        iteration. Rank 0 writes it; every rank returns after it is
+        written."""
         out = os.path.join(self.cfg.work_dir, self.cfg.datas, "train_out")
-        os.makedirs(out, exist_ok=True)
         path = os.path.abspath(os.path.join(out, f"model_iter_{iter_id}.pt"))
+        if self.mesh.rank == 0:
+            self._write_checkpoint(path, iter_id)
+        self.mesh.barrier()
+        return path
+
+    def _write_checkpoint(self, path: str, iter_id: int) -> None:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
         payload = {"state_dict": self.method.state_dict(),
                    "iter_num": iter_id}
         extra = {name: m.state_dict() for name, m in
@@ -512,7 +627,6 @@ class Runner:
                                      for k, v in self.schedulers.items()}
         torch.save(payload, path)
         self.logger.info(f"saved checkpoint {path}")
-        return path
 
     def load_checkpoint(self, path: str) -> "Runner":
         """Weights from a Runner checkpoint (`save`) or a bare state_dict
@@ -528,6 +642,8 @@ class Runner:
         if restored is not None:
             for name, sd in restored["modules"].items():
                 self.method.load_module_state_dict(name, sd, strict=True)
+        replicated(self.method.modules().values(), self.mesh)
+        if restored is not None:
             if restored["optimizers"]:
                 self._restored = restored
                 if self.optimizers:

@@ -249,8 +249,17 @@ tests/test_multichip.py's criterion, the ranks bit-equal), `Runner.test`
 at eval batch 16 (per-image scores in order), a MutInf step mid-ramp and
 its `mi` regulariser before the clip (loss parts, gradients); the
 iteration ms of both, the two ranks time-sliced on one card (no
-speed-up). A rank that fails fails the phase. Each phase prints the
-seconds since the start when it ends.
+speed-up). A rank that fails fails the phase. The same spawn runs the
+`space` phase's jobs (`parallel/spatial.py`, height-sharded eval
+forwards; `space_jobs`, `run_space`): the shipped UnlgFormer (level 2,
+seeded) at pan 128² and 240² on {"space": 2} and at 128², batch 2, on
+{"data": 1, "space": 2}, LightNet at pan 1024², SFIM and Wavelet on a
+1024² U(0.1, 0.9) scene and SFIM on the WV-3 scene, each rank's rows
+gathered and held to the whole forward on the card within 1e-5 of
+max|out| (SFIM on WV-3 to float64: within 2x the whole forward's
+distance), each rank's B1, B2, B3 and B9 launches a forward counted and
+checked, and the ms of a sharded forward on each rank beside the whole
+forward's. Each phase prints the seconds since the start when it ends.
 
 Any failed phase raises (non-zero exit). With no CUDA device the script
 exits non-zero before printing any result. The last line of stdout is
@@ -681,22 +690,24 @@ def kernel_cases(gen: torch.Generator):
 
     b = KERNEL_BATCH
 
-    def lgb_args(c, hw, x=None):
+    def lgb_args(c, hw, x=None, width=None, batch=b):
         """The args of ln_mixer_head (on x, if given), window_attention,
         block_tail and the FFN weights for an LGB block of C channels at
-        hw^2."""
+        hw x width (width hw if None), `batch` images."""
         c2, c4 = c // 2, 4 * c
-        head = (n(b, c, hw, hw) if x is None else x, 1 + 0.1 * n(c),
+        plane = (hw, width or hw)
+        head = (n(batch, c, *plane) if x is None else x, 1 + 0.1 * n(c),
                 0.1 * n(c), n(c2), 0.1 * n(c2), n(c2), 0.1 * n(c2))
-        attn = (n(b, c2, hw, hw), n(3 * c2, c2, scale=c2 ** -0.5),
+        attn = (n(batch, c2, *plane), n(3 * c2, c2, scale=c2 ** -0.5),
                 0.1 * n(3 * c2), n(2, 64, 64), 2, 8)
         ffn = {"ln_w": 1 + 0.1 * n(c), "ln_b": 0.1 * n(c),
                "w1": n(c4, c, scale=c ** -0.5), "b1": 0.1 * n(c4),
                "w2": n(c4, c4, scale=c4 ** -0.5), "b2": 0.1 * n(c4),
                "dw": n(c4, 3, 3, scale=1 / 3), "bdw": 0.1 * n(c4),
                "w3": n(c, c4, scale=c4 ** -0.5), "b3": 0.1 * n(c)}
-        tail = (n(b, c, hw, hw), n(b, c2, hw, hw), n(b, c2, hw, hw),
-                n(c, c, scale=c ** -0.5), 0.1 * n(c), ffn)
+        tail = (n(batch, c, *plane), n(batch, c2, *plane),
+                n(batch, c2, *plane), n(c, c, scale=c ** -0.5), 0.1 * n(c),
+                ffn)
         return head, attn, ffn, tail
 
     for c, hw in BLOCK_SHAPES:
@@ -739,6 +750,20 @@ def kernel_cases(gen: torch.Generator):
         yield "block_tail_masked", shape, block_tail_masked, \
             block_tail_masked_ref, tail[:3] + (dropout_mask(tail[0]),) + \
             tail[3:]
+    # the spatial path's shapes (`parallel/spatial.py`, two ranks, batch
+    # 1): B1 on the whole 240^2 plane; B2 and B3 on a rank's window strip
+    # (its rows rounded out to the 8-row grid plus a band): 72 rows of
+    # 128 at C 32 (a 128^2 image), 72 rows of 120 at C 64 (240^2's
+    # bottleneck)
+    head, _, _, _ = lgb_args(32, 240, batch=1)
+    yield ("ln_mixer_head", "1x32x240x240", ln_mixer_head,
+           ln_mixer_head_ref, head)
+    for c, rows, width in ((32, 72, 128), (64, 72, 120)):
+        _, attn, _, tail = lgb_args(c, rows, width=width, batch=1)
+        shape = f"1x{c}x{rows}x{width}"
+        yield ("window_attention", shape, window_attention,
+               window_attention_ref, attn)
+        yield "block_tail", shape, block_tail, block_tail_ref, tail
     # the window attention at head widths 4 (C/2 = 8, padded to 8) and 32
     # (a 16-band model's bottleneck) on the tensor cores, and on 4x4
     # windows (S = 16), which the FP32-core branch runs; in each layout
@@ -845,8 +870,11 @@ def kernel_cases(gen: torch.Generator):
     x = torch.cat([n(b, 1, hw, hw), lms], dim=1)
     yield ("lightnet_stack", f"{b}x{bands + 1}x{hw}x{hw}", lightnet_stack,
            lightnet_stack_ref, (x, lms, layers))
-    # the 4-band stack (5 input channels), and a ragged batch-1 image
-    for sb, sbands, sh_, sw in ((b, 4, hw, hw), (1, bands, 72, 100)):
+    # the 4-band stack (5 input channels), a ragged batch-1 image, and a
+    # rank's strip of a 1024^2 scene on two ranks (`parallel/spatial.py`:
+    # 512 rows and a 10-row halo)
+    for sb, sbands, sh_, sw in ((b, 4, hw, hw), (1, bands, 72, 100),
+                                (1, bands, 522, 1024)):
         slayers = []
         for _n, cin, cout, _r in lightnet_layers(sbands):
             span = []
@@ -2096,9 +2124,15 @@ def main() -> int:
     #    UnlgFormer and the classical methods
     run_main(card)
     phase_done("main")
-    # 8. data parallelism: NCCL at world 1, two gloo ranks on the card
-    run_mesh(train_ds, card)
+    # 8. data parallelism: NCCL at world 1, two gloo ranks on the card;
+    #    the same spawn runs the space phase's height-sharded forwards
+    space = space_jobs()
+    space_results = run_mesh(train_ds, card, space)
     phase_done("mesh")
+    # 9. height-sharded eval forwards (`parallel/spatial.py`) against the
+    #    whole forward on the card
+    run_space(space, space_results, card)
+    phase_done("space")
 
     kernels = []
     for name, (_op, _user, src, replaces, main_shape, no_library) in \
@@ -4389,7 +4423,7 @@ def grads_within(got: dict, want: dict) -> tuple[float, list]:
     return worst, beyond
 
 
-def run_mesh(train_ds, card: str) -> None:
+def run_mesh(train_ds, card: str, extra_jobs: list = ()) -> list:
     """Data parallelism (`parallel/mesh.py`, the Runner on a mesh): the
     shipped UnlgFormer (level 2, dropout 0.1) on a process group of one
     rank under NCCL (file:// rendezvous) against the Runner without one,
@@ -4404,7 +4438,8 @@ def run_mesh(train_ds, card: str) -> None:
     both ranks bit-equal), `Runner.test` at the eval batch (the per-image
     scores), a MutInf step at iteration 3 of 4 and its `mi` regulariser
     alone (loss parts, gradients); the step ms of both, the two ranks
-    sharing one card (no speed-up)."""
+    sharing one card (no speed-up). The spawn also runs `extra_jobs`
+    (the space phase's), whose results it returns by rank."""
     import dataclasses as dc
 
     from lgteun_tpu_torch.config import OptimCfg
@@ -4518,9 +4553,10 @@ def run_mesh(train_ds, card: str) -> None:
         one = [job(make_mesh(device="cuda"), **copy.deepcopy(kw))
                for job, kw in jobs]
         t0 = time.perf_counter()
-        two = ranks.spawn(jobs, 2, os.path.join(root, "spawn"),
-                          device="cuda")
+        two = ranks.spawn(jobs + list(extra_jobs), 2,
+                          os.path.join(root, "spawn"), device="cuda")
         spawn_s = time.perf_counter() - t0
+    extra = [r[len(jobs):] for r in two]
     r0, r1 = two
     lr = unlg.optim_cfg["core_module"].lr
     bits = all(np.array_equal(r0[0]["state"][k], r1[0]["state"][k])
@@ -4594,6 +4630,147 @@ def run_mesh(train_ds, card: str) -> None:
                         f"{mi_gap}, gradients {beyond}")
     if failures:
         raise AssertionError(f"mesh: {failures}")
+    return extra
+
+
+# height-sharded eval forwards (the `space` phase): each case's output
+# within SPACE_REL of max|out| of the whole forward's
+# (tests/test_spatial.py's 1e-5), its launches a forward on each rank
+SPACE_REL = 1e-5
+SPACE_TIMED = 5     # timed forwards a case, on the ranks and whole
+SPACE_ROUTE = {"UnlgFormer": {"ln_mixer_head": 5, "window_attention": 5,
+                              "block_tail": 5},
+               "lightnet": {"lightnet_stack": 5}, "SFIM": {}, "Wavelet": {}}
+
+
+def space_jobs() -> list:
+    """The space phase's `ranks.spatial_job`s, [(job, kwargs)]: the
+    shipped UnlgFormer (seeded) at pan 128^2 and 240^2 on {"space": 2}
+    and at 128^2, batch 2, on {"data": 1, "space": 2} (the batch over
+    `data`), LightNet (seeded) at pan 1024^2: crops of the seeded
+    synthetic WV-3 scene, normalised; SFIM and Wavelet on a 1024^2 scene
+    of U(0.1, 0.9) values, as tests/test_spatial.py's large scene, and
+    SFIM on the WV-3 scene too (its float32 conditioning there:
+    `run_space`)."""
+    from lgteun_tpu_torch.parallel import ranks
+
+    lr, pan = synthetic_scene(SCENE, 8, SEED + 19)
+    lr, pan = lr / DN_RANGE, pan[..., None] / DN_RANGE
+    rng = np.random.default_rng(SEED + 20)
+    uniform = {"input_lr": rng.uniform(0.1, 0.9, (1, SCENE // 4, SCENE // 4,
+                                                  8)).astype(np.float32),
+               "input_pan": rng.uniform(0.1, 0.9, (1, SCENE, SCENE, 1)
+                                        ).astype(np.float32)}
+
+    def batch(side, corners=((0, 0),)):
+        return {"input_lr": np.stack([lr[y // 4:(y + side) // 4,
+                                         x // 4:(x + side) // 4]
+                                      for y, x in corners]),
+                "input_pan": np.stack([pan[y:y + side, x:x + side]
+                                       for y, x in corners])}
+
+    def case(name, config, b, axis=None):
+        cfg = mode_cfg(config)
+        cfg.seed = SEED
+        return dict(name=name, method=cfg.model_type, cfg=cfg,
+                    weights=None, batch=b, batch_axis=axis)
+
+    space = [case("UnlgFormer 128", "unlg_former.py", batch(128)),
+             case("UnlgFormer 240", "unlg_former.py", batch(240)),
+             case("LightNet 1024", "lightnet.py", batch(SCENE)),
+             case("SFIM 1024", "SFIM.py", uniform),
+             case("Wavelet 1024", "Wavelet.py", uniform),
+             dict(case("SFIM 1024 WV-3", "SFIM.py", batch(SCENE)),
+                  envelope=True)]
+    hybrid = [case("UnlgFormer 128 x2", "unlg_former.py",
+                   batch(128, ((0, 0), (256, 384))), "data")]
+    return [(ranks.spatial_job, dict(mesh_shape={"space": 2}, cases=space,
+                                     timed=SPACE_TIMED)),
+            (ranks.spatial_job, dict(mesh_shape={"data": 1, "space": 2},
+                                     cases=hybrid, timed=SPACE_TIMED))]
+
+
+def run_space(jobs: list, results: list, card: str) -> None:
+    """Height-sharded eval forwards (`parallel/spatial.py`, the `space`
+    phase): the jobs of `space_jobs`, run by the mesh phase's spawn of
+    two gloo ranks sharing the card, against the whole forward of the
+    same seeded method on the same batch in this process: each output
+    within SPACE_REL of max|out| (bit-equality printed), `gather_h` on
+    rank 0 equal to the ranks' rows in order, each rank's launches of
+    B1-B3 and B9 a forward (SPACE_ROUTE; every other LGB entry 0), and
+    the ms of a sharded forward on each rank (the two ranks time-sliced
+    on one card: no speed-up) beside the whole forward's alone.
+
+    SFIM divides by the box lowpass of its histogram-matched PAN, which
+    comes near 0 on the dark bands of the WV-3 scene: there the float32
+    whole forward lies about 1e-4 from float64, and the other order of
+    the sharded sums moves its output by as much. That case (`envelope`)
+    is held to float64 instead: the sharded output's distance within
+    2x the whole float32 forward's."""
+    from lgteun_tpu_torch.models.classical import sfim_fuse
+    from lgteun_tpu_torch.parallel.ranks import SPATIAL_WRAPPERS
+
+    failures = []
+    for job, (_, kw) in enumerate(jobs):
+        shape = kw["mesh_shape"]
+        for case in kw["cases"]:
+            name = case["name"]
+            r0, r1 = (r[job][name] for r in results)
+            method = zoo_method(case["cfg"], TRAIN_ENV, "cuda")
+            method.init_params(torch.Generator().manual_seed(
+                case["cfg"].seed))
+            method.eval()
+            want = method.apply(case["batch"])
+            whole_ms = time_ms(lambda: method.apply(case["batch"]),
+                               iters=SPACE_TIMED, warmup=1)
+            want = want.cpu().numpy()
+            got = r0["whole"]
+            # the ranks' rows in rank order: H, then (hybrid) the batch
+            rows = np.concatenate([r0["rows"], r1["rows"]], axis=1)
+            scale = float(np.abs(want).max())
+            diff = float(np.abs(got - want).max())
+            bits = bool(np.array_equal(got, want))
+            route = dict.fromkeys(SPATIAL_WRAPPERS, 0)
+            route.update(SPACE_ROUTE[case["method"]])
+            counts = [r0["launches"], r1["launches"]]
+            fired = [{n: c for n, c in launched.items() if c}
+                     for launched in counts]
+            print(f"space {name} on {shape} {list(want.shape)}: against the "
+                  f"whole forward max|diff| {diff:.3e} = "
+                  f"{diff / scale:.3e} of max|out| {scale:.4f} (bound "
+                  f"{SPACE_REL:g}), bit-equal {bits}; gather_h = the "
+                  f"ranks' rows {np.array_equal(rows, got)}; launches a "
+                  f"forward rank 0 {fired[0]}, rank 1 {fired[1]}"
+                  f" (want {SPACE_ROUTE[case['method']]}); collectives a "
+                  f"forward {r0['exchanges']}; sharded forward "
+                  f"{r0['ms']:.3f} / {r1['ms']:.3f} ms on the two ranks "
+                  f"(wall; time-sliced on one card, gloo host-staged "
+                  f"halos), the whole forward alone {whole_ms:.3f} ms (CUDA "
+                  f"events)  [{card}]")
+            close = diff <= SPACE_REL * scale
+            if case.get("envelope"):
+                exact = sfim_fuse(*(torch.as_tensor(
+                    case["batch"][key], dtype=torch.float64, device="cuda")
+                    for key in ("input_lr", "input_pan"))).cpu().numpy()
+                own = float(np.abs(want - exact).max())
+                far = float(np.abs(got - exact).max())
+                close = far <= 2 * own
+                print(f"space {name}: float64 forward on the card: the "
+                      f"whole float32 forward {own:.3e} from it, the "
+                      f"sharded {far:.3e} (bound 2x the whole's)  [{card}]")
+            if not (got.shape == want.shape and np.isfinite(got).all()
+                    and close and np.array_equal(rows, got)
+                    and all(c == route for c in counts)):
+                failures.append(f"{name}: diff {diff:.3e} of {scale:.3e}, "
+                                f"launches {counts}")
+            del method
+        torch.cuda.empty_cache()
+        print(f"space {shape}: a 1-row halo exchange of a [1, 8, 1, 128] "
+              f"tensor alone {results[0][job]['exchange_ms']:.3f} / "
+              f"{results[1][job]['exchange_ms']:.3f} ms on the two ranks "
+              f"(gloo, host-staged, two contexts on one card)  [{card}]")
+    if failures:
+        raise AssertionError(f"space: {failures}")
 
 
 def run_bf16_train_entries(gen: torch.Generator, card: str) -> None:

@@ -28,9 +28,12 @@ WORLD_SIZE, LOCAL_RANK in the environment) each rank runs on
 `cuda:LOCAL_RANK` (`--device cpu`: the CPU, gloo), joins the process
 group (`parallel.mesh.make_mesh`: NCCL where every rank has its own
 card, gloo where ranks share one) and trains and scores data-parallel
-(`runner.py`); the config's `mesh_shape` must be {} or {"data": N}.
+(`runner.py`); the config's `mesh_shape` is {} or {"data": D},
+{"space": S}, {"data": D, "space": S} with D * S the world size (the
+ranks of a space group hold the same rows, as JAX's P("data")).
 Only rank 0 writes the log file, the checkpoints, `eval_curves.json` and
-its info lines; each rank writes the TIFFs of the images it scored. The
+its info lines; each rank writes the TIFFs of the images it scored (the
+first rank of each space group). The
 process group ends when `main` returns or raises.
 """
 

@@ -23,7 +23,8 @@ from lgteun_tpu_torch.ops.interp23 import interp23_upsample
 from lgteun_tpu_torch.ops.resize import resize_bicubic
 from lgteun_tpu_torch.ops.wavelet import haar_wavedec2, haar_waverec2
 
-__all__ = ["sfim_fuse", "gsa_fuse", "wavelet_fuse", "lstsq_min_norm"]
+__all__ = ["sfim_fuse", "gsa_fuse", "wavelet_fuse", "wavelet_inject",
+           "lstsq_min_norm"]
 
 
 def sfim_fuse(lrms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
@@ -100,7 +101,14 @@ def wavelet_fuse(lrms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
     """Additive wavelet substitution (IGARSS'01): level-2 Haar
     decomposition of the PAN; each band keeps its own interp23
     approximation coefficients and takes the PAN's details."""
-    u_hs = interp23_upsample(lrms, pan.shape[-3] // lrms.shape[-3])
+    return wavelet_inject(
+        interp23_upsample(lrms, pan.shape[-3] // lrms.shape[-3]), pan)
+
+
+def wavelet_inject(u_hs: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
+    """`wavelet_fuse` from the upsampled LrMS u_hs [B, H, W, C]: each
+    band's level-2 Haar approximation with the PAN's details. Local to
+    any strip of rows that starts and ends on a multiple of 4."""
     c = u_hs.shape[-1]
     pan_coeffs = haar_wavedec2(pan.permute(0, 3, 1, 2), level=2)
     hs_coeffs = haar_wavedec2(u_hs.permute(0, 3, 1, 2), level=2)

@@ -59,11 +59,16 @@ def interp23_matrix(n_in: int, ratio: int) -> np.ndarray:
     return m_total
 
 
-def interp23_upsample(x: torch.Tensor, ratio: int = 4) -> torch.Tensor:
+def interp23_upsample(x: torch.Tensor, ratio: int = 4,
+                      rows: slice | None = None) -> torch.Tensor:
     """interp23 upsample of NHWC [..., h, w, C] by `ratio` (a power of
-    two) -> [..., h * ratio, w * ratio, C], in the dtype of `x`."""
+    two) -> [..., h * ratio, w * ratio, C], in the dtype of `x`; with
+    `rows` only those output rows (the rows of the H matrix; a rank's
+    strip of a height-sharded forward, `parallel/spatial.py`)."""
     h, w = x.shape[-3], x.shape[-2]
     mh, mw = (torch.as_tensor(interp23_matrix(n, ratio), dtype=x.dtype,
                               device=x.device) for n in (h, w))
+    if rows is not None:
+        mh = mh[rows]
     y = mh @ x.movedim(-1, -3) @ mw.T
     return y.movedim(-3, -1)

@@ -50,9 +50,21 @@ Runner without a mesh.
 
 Backends: NCCL where every rank has its own card, gloo on the CPU and
 where ranks share a card (NCCL refuses two ranks on one device; gloo's
-collectives run on host copies of CUDA tensors). The `space` axis of the
-JAX mesh (height-sharded scenes, `lgteun_tpu/parallel/spatial.py`) is not
-ported (ROADMAP A.9.2), and `make_mesh` refuses it.
+collectives run on host copies of CUDA tensors).
+
+The `space` axis (height-sharded eval forwards, `parallel/spatial.py`):
+`mesh_shape` {"space": s} or {"data": d, "space": s} with d * s the world
+size lays the ranks out as JAX's `make_mesh` reshapes its devices, a
+d x s grid in row-major order, so rank r = i * s + j holds data index i
+and space index j. Every rank of a space group holds the same batch
+rows (JAX's P("data") sharding), so `rows`, `shard` and the data
+collectives above (`all_reduce_grads`, `all_gather_rows`, `batch_mean`,
+...) run over the rank's `data_group` (None where d is 1: no collective);
+`replicated`, `barrier` and `reduce_max` over the whole world. A Runner on
+such a mesh trains and scores as the JAX Runner does: the forward is
+the whole image's on every rank of a space group (the space axis shards
+only `parallel.spatial.run_spatially_sharded`'s eval forwards), and the
+gradients are SUM-reduced over the data group alone.
 """
 
 from __future__ import annotations
@@ -77,29 +89,44 @@ def launcher() -> tuple[int, int, int]:
             int(env.get("LOCAL_RANK", 0)))
 
 
-def check_mesh_shape(mesh_shape: dict | None, world: int) -> None:
-    """Raise unless `mesh_shape` ({} or {"data": world}) fits a world of
-    `world` ranks: nothing of a config's mesh is ignored."""
+def check_mesh_shape(mesh_shape: dict | None, world: int
+                     ) -> tuple[int, int]:
+    """(data, space) sizes of `mesh_shape` on a world of `world` ranks:
+    {} is (world, 1), {"data": d} (d, 1), {"space": s} (1, s); raise
+    unless data * space is the world size, or for another axis or the
+    axes in another order (nothing of a config's mesh is ignored)."""
     mesh_shape = dict(mesh_shape or {})
-    other = sorted(set(mesh_shape) - {"data"})
+    other = sorted(set(mesh_shape) - {"data", "space"})
     if other:
         raise ValueError(
-            f"mesh_shape axes {other} are not ported: the port shards the "
-            "batch over 'data' only; the 'space' axis (height-sharded "
-            "scenes, lgteun_tpu/parallel/spatial.py) is ROADMAP A.9.2")
-    if "data" in mesh_shape and mesh_shape["data"] != world:
+            f"mesh_shape axes {other} are not ported: the port's mesh has "
+            "a 'data' axis and a 'space' axis")
+    if list(mesh_shape) == ["space", "data"]:
         raise ValueError(
-            f"mesh_shape data={mesh_shape['data']} but the launcher gave "
-            f"world size {world}: launch {mesh_shape['data']} ranks "
-            "(python -m torch.distributed.run --nproc_per_node N ...) or "
-            "leave mesh_shape empty")
+            "mesh_shape lists 'space' before 'data': the port lays ranks "
+            "out data-major (rank = data index * space + space index); "
+            "write {'data': d, 'space': s}")
+    space = int(mesh_shape.get("space", 1))
+    data = int(mesh_shape.get("data", 1 if "space" in mesh_shape
+                              else world))
+    if data < 1 or space < 1 or data * space != world:
+        raise ValueError(
+            f"mesh_shape data={data} x space={space} needs {data * space} "
+            f"ranks, but the launcher gave world size {world}: launch "
+            f"{data * space} ranks (python -m torch.distributed.run "
+            "--nproc_per_node N ...) or leave mesh_shape empty")
+    return data, space
 
 
 @dataclass
 class Mesh:
-    """One rank of a data-parallel run. `group` is None for one rank
-    without a launcher (no process group, no collective); `owned` says
-    that `make_mesh` made the process group and `close` ends it."""
+    """One rank of a run over `world` ranks laid out as a data x space
+    grid (module docstring). `group` is None for one rank without a
+    launcher (no process group, no collective); `owned` says that
+    `make_mesh` made the process group and `close` ends it.
+    `data_group` is the rank's group along `data` (the whole `group`
+    without a space axis; None where the data axis has one rank) and
+    `space_group` its group along `space` (None where space is 1)."""
 
     rank: int = 0
     world: int = 1
@@ -107,20 +134,43 @@ class Mesh:
     group: object = None
     backend: str | None = None
     owned: bool = False
+    space_world: int = 1
+    data_group: object = None
+    space_group: object = None
+
+    def __post_init__(self):
+        if self.space_world == 1 and self.data_group is None:
+            self.data_group = self.group
+
+    @property
+    def data_world(self) -> int:
+        return self.world // self.space_world
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.space_world
+
+    @property
+    def space_rank(self) -> int:
+        return self.rank % self.space_world
+
+    def space_peer(self, j: int) -> int:
+        """The global rank of space index j in the rank's space group."""
+        return self.data_rank * self.space_world + j
 
     def rows(self, n: int) -> slice | None:
-        """The rank's rows of a batch of n, or None when n % world (every
-        rank keeps all n)."""
-        if n % self.world:
+        """The rank's rows of a batch of n (split over the data axis), or
+        None when n % data_world (every rank keeps all n)."""
+        if n % self.data_world:
             return None
-        per = n // self.world
-        return slice(self.rank * per, (self.rank + 1) * per)
+        per = n // self.data_world
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
 
     def shard(self, n: int) -> "Shard | None":
-        """The rank's `Shard` of a batch of n; None without a process
-        group or when the batch is replicated (n % world)."""
+        """The rank's `Shard` of a batch of n; None without a data group
+        or when the batch is replicated (n % data_world)."""
         rows = self.rows(n)
-        if self.group is None or rows is None:
+        if self.data_group is None or rows is None:
             return None
         return Shard(self, rows.start, rows.stop, n)
 
@@ -200,6 +250,30 @@ def _resolve_device(device, local_rank: int, local_world: int,
     return device, backend
 
 
+def _subgroups(rank: int, data: int, space: int) -> tuple:
+    """(data group, space group) of `rank` on a data x space grid of the
+    default group: every rank makes every subgroup, in one order (a
+    collective); a group of one rank is None, a group of every rank the
+    default group."""
+    world = dist.group.WORLD
+    mine = {}
+    for axis, groups in (
+            ("data", [[i * space + j for i in range(data)]
+                      for j in range(space)]),
+            ("space", [[i * space + j for j in range(space)]
+                       for i in range(data)])):
+        for ranks in groups:
+            if len(ranks) == 1:
+                group = None
+            elif len(ranks) == data * space:
+                group = world
+            else:
+                group = dist.new_group(ranks)
+            if rank in ranks:
+                mine[axis] = group
+    return mine["data"], mine["space"]
+
+
 def make_mesh(mesh_shape: dict | None = None, *, device="cpu",
               backend: str | None = None,
               init_method: str | None = None) -> Mesh:
@@ -208,10 +282,13 @@ def make_mesh(mesh_shape: dict | None = None, *, device="cpu",
     process group, the Runner's path without collectives. Otherwise the
     default process group (made here from RANK / WORLD_SIZE and
     MASTER_ADDR / MASTER_PORT, or `init_method`, e.g. a file:// one; a
-    group already made is used as it is). `mesh_shape` {} is the whole
-    world; {"data": n} must be the world size, and any other axis raises
-    (`check_mesh_shape`). `backend` None: NCCL where each local rank has
-    its own card, gloo otherwise (`_resolve_device`)."""
+    group already made is used as it is, so a second mesh of another
+    shape can be laid over it). `mesh_shape` {} is the whole world on
+    `data`; {"data": d}, {"space": s} or {"data": d, "space": s} must
+    multiply to the world size (`check_mesh_shape`), and a space axis
+    makes the rank's data and space subgroups (`dist.new_group`, on
+    every rank in the same order). `backend` None: NCCL where each local
+    rank has its own card, gloo otherwise (`_resolve_device`)."""
     rank, world, local_rank = launcher()
     launched = ("WORLD_SIZE" in os.environ or init_method is not None
                 or dist.is_initialized())
@@ -221,7 +298,7 @@ def make_mesh(mesh_shape: dict | None = None, *, device="cpu",
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     owned = not dist.is_initialized()
     if owned:
-        check_mesh_shape(mesh_shape, world)
+        data, space = check_mesh_shape(mesh_shape, world)
         device, backend = _resolve_device(device, local_rank, local_world,
                                           backend)
         if device.type == "cuda":
@@ -230,20 +307,26 @@ def make_mesh(mesh_shape: dict | None = None, *, device="cpu",
                                 world_size=world, rank=rank)
     else:
         rank, world = dist.get_rank(), dist.get_world_size()
-        check_mesh_shape(mesh_shape, world)
+        data, space = check_mesh_shape(mesh_shape, world)
         device, _ = _resolve_device(device, local_rank, local_world, backend)
         backend = dist.get_backend()
+    if space == 1:
+        return Mesh(rank=rank, world=world, device=device,
+                    group=dist.group.WORLD, backend=backend, owned=owned)
+    data_group, space_group = _subgroups(rank, data, space)
     return Mesh(rank=rank, world=world, device=device,
-                group=dist.group.WORLD, backend=backend, owned=owned)
+                group=dist.group.WORLD, backend=backend, owned=owned,
+                space_world=space, data_group=data_group,
+                space_group=space_group)
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:
     """The rank's rows of every entry of `batch` (arrays, tensors, the
-    image ids); the batch itself when its size does not divide the world
-    (replicated) or on one rank."""
+    image ids); the batch itself when its size does not divide the data
+    axis (replicated) or on one data rank."""
     n = len(next(v for k, v in batch.items() if k != "image_id"))
     rows = mesh.rows(n)
-    if rows is None or mesh.world == 1:
+    if rows is None or mesh.data_world == 1:
         return batch
     return {k: v[rows] for k, v in batch.items()}
 
@@ -252,10 +335,11 @@ def _host_staged(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     return t.cpu() if mesh.backend != "nccl" and t.is_cuda else t
 
 
-def _all_reduce_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """SUM all-reduce of `t` in place (through a host copy under gloo)."""
+def _all_reduce_(t: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:
+    """SUM all-reduce of `t` in place over `group` (the data group by
+    default), through a host copy under gloo."""
     src = _host_staged(mesh, t)
-    dist.all_reduce(src, group=mesh.group)
+    dist.all_reduce(src, group=mesh.data_group if group is None else group)
     if src is not t:
         t.copy_(src)
     return t
@@ -281,9 +365,10 @@ def all_reduce_grads(modules, mesh: Mesh, average: bool = False) -> None:
     """One SUM all-reduce a module of its gradients, as one flat buffer
     (the parameters without a gradient, the same on every rank since
     every rank runs the same graph, are left out); `average` divides the
-    sum by the world size (a replicated batch: every rank computed the
-    whole batch's gradient)."""
-    if mesh.group is None:
+    sum by the data axis's size (a replicated batch: every rank computed
+    the whole batch's gradient). Over the data group: the ranks of a
+    space group hold the same rows."""
+    if mesh.data_group is None:
         return
     for module in modules:
         grads = [p.grad for p in module.parameters() if p.grad is not None]
@@ -291,19 +376,20 @@ def all_reduce_grads(modules, mesh: Mesh, average: bool = False) -> None:
             continue
         flat = _all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh)
         if average:
-            flat /= mesh.world
+            flat /= mesh.data_world
         for g, part in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(part.view_as(g))
 
 
 def all_gather_rows(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """Every rank's `t` (the same shape on every rank), concatenated
-    along dim 0 in rank order, on t's device; `t` itself on one rank."""
-    if mesh is None or mesh.group is None:
+    """Every data rank's `t` (the same shape on every rank), concatenated
+    along dim 0 in data order, on t's device; `t` itself on one data
+    rank."""
+    if mesh is None or mesh.data_group is None:
         return t
     src = _host_staged(mesh, t).contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.world)]
-    dist.all_gather(parts, src, group=mesh.group)
+    parts = [torch.empty_like(src) for _ in range(mesh.data_world)]
+    dist.all_gather(parts, src, group=mesh.data_group)
     return torch.cat(parts).to(t.device)
 
 

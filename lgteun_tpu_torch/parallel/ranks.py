@@ -28,6 +28,14 @@ same function called in the caller's process with `make_mesh()`:
     mi_job       MutInf's `mi` regulariser before MutInf.losses clips it
                  (the one loss term that sums over the batch): its value
                  and reduced gradients on the rank's rows of a batch
+    spatial_job  `parallel.spatial.run_spatially_sharded` of each case on a
+                 mesh of another shape laid over the rank's group (a
+                 `space` axis): the rank's rows, the gathered output, the
+                 kernel launches of one forward and its time
+
+`train_job` also takes a `mesh_shape` to lay over the group (e.g.
+{"data": 1, "space": 2}: every rank of the space group holds the whole
+batch).
 
 A config is passed as the port's `Config` (a picklable dataclass) whose
 dataset directories exist on disk; the kernels' environment switches
@@ -49,7 +57,7 @@ import torch.multiprocessing as mp
 from lgteun_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 __all__ = ["spawn", "train_job", "resume_job", "test_job", "scene_job",
-           "cli_job", "mi_job"]
+           "cli_job", "mi_job", "spatial_job", "SPATIAL_WRAPPERS"]
 
 
 # seconds after which spawned ranks still running (a collective that one
@@ -62,6 +70,7 @@ def spawn(jobs: list, world: int, workdir: str, *,
     """Run `jobs` [(job, kwargs), ...] on `world` local ranks on `device`
     (module docstring), each with one intra-op thread; [rank][job]
     results. Raises TimeoutError after SPAWN_TIMEOUT seconds."""
+    workdir = os.path.abspath(workdir)   # a file:// URL takes no relative path
     os.makedirs(workdir, exist_ok=True)
     rendezvous = os.path.join(workdir, "rendezvous")
     if os.path.exists(rendezvous):
@@ -131,14 +140,18 @@ def _grads(runner) -> dict:
 
 
 def train_job(mesh: Mesh, cfg, start: int = 0, stops: tuple = (),
-              weights: dict | None = None) -> dict:
+              weights: dict | None = None,
+              mesh_shape: dict | None = None) -> dict:
     """`Runner.train` of `cfg` from iteration `start` (the iterator
     fast-forwarded as a resume does; fresh optimisers) to cfg.max_iter,
     pausing after each iteration of `stops` to read the gradients the
     last step's optimisers took (reduced over the ranks; a pause sets
     cfg.max_iter, which MutInf's ramp reads). "seconds": {stop: the wall
     time of the train() call that ended there, the device synchronised}
-    (a first stop takes the process's one-time costs)."""
+    (a first stop takes the process's one-time costs). `mesh_shape`: a
+    mesh of that shape over the rank's group in place of `mesh`."""
+    if mesh_shape is not None:
+        mesh = make_mesh(mesh_shape, device=mesh.device)
     runner = _runner(mesh, cfg, weights)
     runner.set_optim()
     runner.last_iter = start
@@ -247,3 +260,91 @@ def mi_job(mesh: Mesh, cfg, batch: dict, noise: tuple | None = None,
     all_reduce_grads(method.modules().values(), mesh,
                      average=shard is None)
     return {"value": value.item(), "grads": _grads(runner)}
+
+
+# the wrappers whose launches `spatial_job` counts: B1-B3 and B9 on the
+# spatial path, the other LGB entries (which it must not launch)
+SPATIAL_WRAPPERS = ("ln_mixer_head", "window_attention", "block_tail",
+                    "lightnet_stack", "global_mixer",
+                    "window_attention_windows", "ln_ffn", "lgb_block")
+
+
+def _spatial_wrappers() -> dict:
+    from lgteun_tpu_torch.ops.ffn_kernel import block_tail, ln_ffn
+    from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block
+    from lgteun_tpu_torch.ops.lightnet_kernel import lightnet_stack
+    from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
+                                                      ln_mixer_head)
+    from lgteun_tpu_torch.ops.window_attention import (
+        window_attention, window_attention_windows)
+
+    found = {fn.__name__: fn for fn in (
+        ln_mixer_head, window_attention, block_tail, lightnet_stack,
+        global_mixer, window_attention_windows, ln_ffn, lgb_block)}
+    return {name: found[name] for name in SPATIAL_WRAPPERS}
+
+
+def spatial_job(mesh: Mesh, mesh_shape: dict, cases: list,
+                timed: int = 0) -> dict:
+    """`run_spatially_sharded` of each case on a mesh of `mesh_shape`
+    laid over the rank's group. A case is a dict: "name", "method" (a
+    registered model type), "cfg" (the port's Config), "weights"
+    (reference-keyed numpy, or None: seeded with cfg.seed), "batch"
+    (NHWC numpy), "batch_axis" (None or "data"). {name: {"rows": the
+    rank's rows of the output, "whole": `gather_h` of every rank's (on
+    rank 0; None on the others), "launches": {wrapper: launches of one
+    forward}, "exchanges": the collectives of one forward by kind
+    (`spatial.EXCHANGES`), "ms": the mean of `timed` forwards after a
+    barrier (None at 0)}}; with `timed`, also "exchange_ms": the mean ms
+    of `timed` 1-row halo exchanges of a [1, 8, 1, 128] tensor alone."""
+    from lgteun_tpu_torch.parallel import spatial
+    from lgteun_tpu_torch.parallel.spatial import (gather_h,
+                                                   run_spatially_sharded)
+    from lgteun_tpu_torch.registry import build_model
+
+    mesh = make_mesh(mesh_shape, device=mesh.device)
+    # FP32 convolutions and products, as the Runner sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = _spatial_wrappers()
+    out = {}
+    for case in cases:
+        cfg, axis = case["cfg"], case.get("batch_axis")
+        method = build_model(case["method"], cfg, mesh.device)
+        if case.get("weights") is None:
+            method.init_params(torch.Generator().manual_seed(cfg.seed))
+        else:
+            method.load_state_dict({k: torch.as_tensor(v) for k, v in
+                                    case["weights"].items()})
+        method.eval()
+        run = lambda: run_spatially_sharded(method, case["batch"], mesh,
+                                            batch_axis=axis)
+        for fn in wrappers.values():
+            fn.launches = 0
+        spatial.EXCHANGES.clear()
+        rows = run()
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        exchanges = dict(spatial.EXCHANGES)
+        whole = gather_h(rows, mesh, batch_axis=axis)
+        ms = _mean_ms(mesh, run, timed) if timed else None
+        out[case["name"]] = {"rows": rows.cpu().numpy(),
+                             "whole": (whole.cpu().numpy() if mesh.rank == 0
+                                       else None),
+                             "launches": launches, "exchanges": exchanges,
+                             "ms": ms}
+    if timed:
+        probe = torch.ones(1, 8, 1, 128, device=mesh.device)
+        out["exchange_ms"] = _mean_ms(
+            mesh, lambda: spatial.halo_rows(probe, 1, 1, mesh, "zero"), timed)
+    return out
+
+
+def _mean_ms(mesh: Mesh, call, n: int) -> float:
+    """The mean wall ms of n calls after a barrier, the device synced."""
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    return (time.perf_counter() - t0) / n * 1e3

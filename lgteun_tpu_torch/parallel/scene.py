@@ -131,10 +131,10 @@ def fuse_scene(method, ms, pan, *, tile: int = 128, halo: int = 16,
     method's device, tiled through `method.apply`.
 
     tile/halo/batch: PAN-grid tile size, per-side blend halo
-    (stride = tile - 2*halo), and tiles per forward (over all ranks of
-    `mesh`, each of which fuses batch / W of them). tile, halo and the
-    scene size must be multiples of 4, 0 <= halo <= tile/4, and batch a
-    multiple of the mesh's world size."""
+    (stride = tile - 2*halo), and tiles per forward (over the W ranks of
+    `mesh`'s data axis, each of which fuses batch / W of them). tile,
+    halo and the scene size must be multiples of 4, 0 <= halo <= tile/4,
+    and batch a multiple of W."""
     device = method.device
     ms, pan = _as_tensor(ms, device), _as_tensor(pan, device)
     if pan.ndim == 2:
@@ -149,7 +149,7 @@ def fuse_scene(method, ms, pan, *, tile: int = 128, halo: int = 16,
     if tuple(ms.shape[:2]) != (h // SCALE, w // SCALE):
         raise ValueError(f"LrMS {tuple(ms.shape[:2])} does not match PAN/"
                          f"{SCALE} = {(h // SCALE, w // SCALE)}")
-    if mesh is not None and batch % mesh.world:
+    if mesh is not None and batch % mesh.data_world:
         raise ValueError("batch must divide by the mesh axis size")
     mine = slice(0, batch) if mesh is None else mesh.rows(batch)
 

@@ -101,6 +101,13 @@ the one-rank run computes, up to the order of the gradient sums:
   the one-rank run's; with `save` each rank writes the TIFFs of its own
   real rows (rank 0 all of a replicated batch), each once; the time per
   image is the slowest rank's forward time over the global count.
+- A mesh with a `space` axis (`mesh_shape` {"data": d, "space": s}): the
+  batch rows go over `data` as above and every rank of a space group
+  holds the same rows and runs the whole forward, as the JAX Runner's
+  P("data") batch sharding leaves the space axis replicated; gradients
+  and scores reduce over the data group alone, and the first rank of
+  each space group writes its TIFFs. Height-sharded eval forwards are
+  `parallel/spatial.py`'s.
 
 Left out: the JAX Runner's device prefetch and multi-step dispatch (TPU
 round-trip workarounds; `steps_per_dispatch` changes no number, and the
@@ -214,8 +221,12 @@ class Runner:
                              f"{self.device}")
         if mesh is None:
             mesh = make_mesh(cfg.mesh_shape, device=self.device)
-        else:
-            check_mesh_shape(cfg.mesh_shape, mesh.world)
+        elif cfg.mesh_shape and check_mesh_shape(
+                cfg.mesh_shape, mesh.world) != (mesh.data_world,
+                                                mesh.space_world):
+            raise ValueError(
+                f"mesh_shape {cfg.mesh_shape} but the mesh given is data="
+                f"{mesh.data_world} x space={mesh.space_world}")
         if not _same_device(mesh.device, self.device):
             raise ValueError(f"the mesh's rank is on {mesh.device}, the "
                              f"runner on {self.device}")
@@ -510,7 +521,8 @@ class Runner:
         shard = self.mesh.shard(bs)
         # the batch rows this rank scores and, with `save`, writes
         first = 0 if shard is None else shard.start
-        writes = shard is not None or self.mesh.rank == 0
+        writes = self.mesh.space_rank == 0 and (
+            shard is not None or self.mesh.data_rank == 0)
         for batch, n_valid in eval_batches(ds, bs, bit_depth=cfg.bit_depth,
                                            normalize=cfg.norm_input):
             local = shard_batch(batch, self.mesh)

@@ -73,6 +73,7 @@ from test_multichip import _assert_params_equivalent  # noqa: E402
 from test_torch_port_convert import flax_params  # noqa: E402
 
 BANDS, SIDE, BATCH, LR = 4, 64, 4, 1e-3
+SPACE_SHAPE = {"data": 1, "space": 2}
 # Adam's eps in the runs held by `_assert_params_equivalent`: 1e-3, as
 # tests/test_multichip.py::_cfg gives the JAX package's equivalence runs
 # (at 1e-8 the first update is lr * sign(g) for every element, so a
@@ -207,7 +208,12 @@ def unlg(data, tree, scene_tree, tmp_path_factory):
         ]
 
     one = [job(make_mesh(), **kw) for job, kw in jobs("one")]
-    two = ranks.spawn(jobs("two"), 2, str(root / "spawn"))
+    # and, on the two ranks only, the first job on a {"data": 1, "space":
+    # 2} mesh laid over them (its one-rank twin is job 0)
+    space = (ranks.train_job, dict(
+        cfg=_cfg(data, root / "two" / "space", mesh_shape=SPACE_SHAPE),
+        stops=(1,), weights=weights, mesh_shape=SPACE_SHAPE))
+    two = ranks.spawn(jobs("two") + [space], 2, str(root / "spawn"))
     return {"one": one, "two": two, "root": root, "weights": weights}
 
 
@@ -262,6 +268,23 @@ def test_shard_batch_replicates_as_the_jax_runner():
         got = shard_batch(batch, Mesh(rank=r, world=2))
         assert np.array_equal(got["input_lr"], batch["input_lr"])
     assert Mesh(rank=1, world=2).shard(3) is None
+
+
+def test_space_mesh_runner_step_equals_one_rank(unlg):
+    """A Runner on a {"data": 1, "space": 2} mesh over two spawned ranks
+    (the JAX Runner's P("data") batch sharding: both ranks of the space
+    group hold the whole batch; the gradients reduce over the data group
+    alone, here one rank, so not at all): the parameters after 3 steps,
+    the gradients of step 1 and the loss log of each rank equal the
+    one-rank run's bit for bit."""
+    one = unlg["one"][0]
+    for rank in unlg["two"]:
+        got = rank[6]
+        _ranks_bit_equal(got["state"], one["state"])
+        assert got["loss_log"] == one["loss_log"]
+        for k, g in one["grads"][1].items():
+            assert (g is None) == (got["grads"][1][k] is None), k
+            assert g is None or np.array_equal(got["grads"][1][k], g), k
 
 
 # ------------------------------------------------------------------- (b)
@@ -632,12 +655,17 @@ def test_main_cli_two_ranks(unlg):
 
 def test_mesh_refusals(data):
     """mesh_shape is never ignored: a data axis other than the world
-    size names both numbers, a `space` axis names ROADMAP A.9.2; a
-    scene batch must divide by the ranks."""
+    size names both numbers, and so does a data x space grid of another
+    size than the world (the `space` axis is ported: {"space": 1} and
+    {"data": 1, "space": 1} fit one rank); a scene batch must divide by
+    the ranks."""
     with pytest.raises(ValueError, match=r"data=2 .*world size 1"):
         make_mesh({"data": 2})
-    with pytest.raises(ValueError, match="A.9.2"):
+    with pytest.raises(ValueError, match=r"data=1 x space=2 .*world size 1"):
         make_mesh({"data": 1, "space": 2})
+    for shape in ({"space": 1}, {"data": 1, "space": 1}):
+        mesh = make_mesh(shape)
+        assert (mesh.world, mesh.data_world, mesh.space_world) == (1, 1, 1)
     make_mesh({"data": 1})
     cfg = _cfg(data, "unused", mesh_shape={"data": 8})
     with pytest.raises(ValueError, match=r"data=8 .*world size 1"):

@@ -259,7 +259,20 @@ gathered and held to the whole forward on the card within 1e-5 of
 max|out| (SFIM on WV-3 to float64: within 2x the whole forward's
 distance), each rank's B1, B2, B3 and B9 launches a forward counted and
 checked, and the ms of a sharded forward on each rank beside the whole
-forward's. Each phase prints the seconds since the start when it ends.
+forward's. Since the zoo's strips also: the shipped MDCUN (4 B12 a
+forward) and INNT on both routes (1 B10, or 1 B11 with
+LGTEUN_FUSED_TM=0; the whole forward's float64 near-tie queries
+printed, and a case over the bound with near ties held by PSNR against
+the scene's target instead, as the INNT slice is) at pan 128² and 256²,
+UnlgFormer at 128² at fuse levels 1 (5 each of B2, B4, B5), 2, 3 (5 B8)
+and v2 (5 B6) in float32, bf16res and bf16, and level 1 float32 at
+240²: each against the whole forward of the same switches, every
+rank's launches of every kernel checked, the collectives a forward by
+kind; and kernel cases at the strips' shapes (B4 1x16x240x240, B5 /
+B6 on the window strips, B8 1x32x128x128, B12 on a 256² image's rank
+rows and 7-row halo 1x8x135x256, B10 / B11 on a rank's share of 512
+patch-images). Each phase prints the seconds since the start when it
+ends.
 
 Any failed phase raises (non-zero exit). With no CUDA device the script
 exits non-zero before printing any result. The last line of stdout is
@@ -758,12 +771,27 @@ def kernel_cases(gen: torch.Generator):
     head, _, _, _ = lgb_args(32, 240, batch=1)
     yield ("ln_mixer_head", "1x32x240x240", ln_mixer_head,
            ln_mixer_head_ref, head)
+    # and at level 1 B4 on the whole 240^2 plane's LN half, B5 and (v2)
+    # B6 on the same strips; at level 3 B8 on the whole 128^2 plane
+    yield ("global_mixer", "1x16x240x240", global_mixer, global_mixer_ref,
+           (n(1, 16, 240, 240),) + head[3:])
     for c, rows, width in ((32, 72, 128), (64, 72, 120)):
-        _, attn, _, tail = lgb_args(c, rows, width=width, batch=1)
+        _, attn, ffn, tail = lgb_args(c, rows, width=width, batch=1)
         shape = f"1x{c}x{rows}x{width}"
         yield ("window_attention", shape, window_attention,
                window_attention_ref, attn)
         yield "block_tail", shape, block_tail, block_tail_ref, tail
+        yield "ln_ffn", shape, ln_ffn, ln_ffn_ref, (tail[0], ffn)
+        xt = window_partition(attn[0], 8)
+        yield ("window_attention_windows", "x".join(map(str, xt.shape)),
+               window_attention_windows, window_attention_windows_ref,
+               (xt,) + attn[1:5])
+    head, attn, ffn, tail = lgb_args(32, 128, batch=1)
+    blk = dict(zip(("ln_w", "ln_b", "amp_w", "amp_b", "pha_w", "pha_b"),
+                   head[1:]), wqkv=attn[1], bqkv=attn[2], pos=attn[3],
+               proj_w=tail[3], proj_b=tail[4], ffn=ffn)
+    yield "lgb_block", "1x32x128x128", lgb_block, lgb_block_ref, (head[0],
+                                                                  blk)
     # the window attention at head widths 4 (C/2 = 8, padded to 8) and 32
     # (a 16-band model's bottleneck) on the tensor cores, and on 4x4
     # windows (S = 16), which the FP32-core branch runs; in each layout
@@ -895,7 +923,10 @@ def kernel_cases(gen: torch.Generator):
     for shape, fs in (((b, bands, hw, hw), 15), ((1, bands, 72, 100), 15),
                       ((b, 4, hw, hw), 15), ((2, 16, 40, 56), 15),
                       ((2, 32, 24, 40), 15), ((1, bands, 40, 40), 31),
-                      ((1, 16, 40, 40), 25)):
+                      ((1, 16, 40, 40), 25),
+                      # a rank's rows of a 256^2 image on two ranks and
+                      # the 7-row halo (`parallel/spatial.py`)
+                      ((1, bands, 135, 256), 15)):
         c = shape[1]
         na = (n(*shape),) + tuple(n(c, c, scale=c ** -0.5)
                                   for _ in range(4)) + (fs,)
@@ -921,6 +952,11 @@ def kernel_cases(gen: torch.Generator):
     yield ("texture_match", f"{nimg}x{c}x{side * side}", texture_match,
            texture_match_ref, (patch_images(nimg, c, side),
                                patch_images(nimg, c, side)))
+    # a rank's share of a 256^2 image's 1024 patch-images on two ranks
+    # (`parallel/spatial.py`)
+    yield ("texture_match", f"512x{c}x{side * side}", texture_match,
+           texture_match_ref, (patch_images(512, c, side),
+                               patch_images(512, c, side)))
     yield ("texture_match", "64x8x64", texture_match, texture_match_ref,
            (n(64, 8, 64), n(64, 8, 64)))
     # C = 8 at side 24: the FP32-core branch (hi/lo refs would not fit)
@@ -939,6 +975,8 @@ def kernel_cases(gen: torch.Generator):
     pm = pm_args(nimg, c, side)
     yield ("patch_match", f"{nimg}x{side * side}x{9 * c}", patch_match,
            patch_match_ref, pm)
+    yield ("patch_match", f"512x{side * side}x{9 * c}", patch_match,
+           patch_match_ref, pm_args(512, c, side))
     # L = 100, not a multiple of the 64-query tile; K = 72 (C = 8): the
     # FP32-core branch
     yield ("patch_match", "256x100x36", patch_match, patch_match_ref,
@@ -2570,18 +2608,20 @@ def dropout_mask(x: torch.Tensor, seed: int = SEED) -> torch.Tensor:
         x.dtype) * (1.0 / keep)
 
 
-def synthetic_scene(side: int, bands: int, seed: int):
+def synthetic_scene(side: int, bands: int, seed: int,
+                    target_too: bool = False):
     """A seeded WV-3-shaped scene in 11-bit DN: a smooth 8-band target
     (a 32-pixel grid of band levels plus N(0, 40) texture), its 4x4
     block mean as LrMS [side/4, side/4, bands] and its band mean as PAN
-    [side, side]; float32."""
+    [side, side]; float32. With `target_too`, (lr, pan, target)."""
     rng = np.random.default_rng(seed)
     coarse = rng.uniform(200, 1800, (side // 32, side // 32, bands))
     target = np.repeat(np.repeat(coarse, 32, 0), 32, 1) + rng.normal(
         0, 40, (side, side, bands))
     target = np.clip(target, 0, 2047).astype(np.float32)
     lr = target.reshape(side // 4, 4, side // 4, 4, bands).mean(axis=(1, 3))
-    return lr.astype(np.float32), target.mean(axis=-1).astype(np.float32)
+    out = lr.astype(np.float32), target.mean(axis=-1).astype(np.float32)
+    return (*out, target) if target_too else out
 
 
 def unlgformer(device: str):
@@ -4640,7 +4680,20 @@ SPACE_REL = 1e-5
 SPACE_TIMED = 5     # timed forwards a case, on the ranks and whole
 SPACE_ROUTE = {"UnlgFormer": {"ln_mixer_head": 5, "window_attention": 5,
                               "block_tail": 5},
-               "lightnet": {"lightnet_stack": 5}, "SFIM": {}, "Wavelet": {}}
+               "lightnet": {"lightnet_stack": 5}, "SFIM": {}, "Wavelet": {},
+               "MDCUN": {"neighborhood_attention": 4},
+               "INNT": {"texture_match": 1}}
+# UnlgFormer's other forms on strips: (LGTEUN_FUSE_LEVEL,
+# LGTEUN_FUSED_ATTENTION) -> launches a forward, in each storage mode
+SPACE_FORMS = {("1", "1"): {"window_attention": 5, "global_mixer": 5,
+                            "ln_ffn": 5},
+               ("2", "1"): SPACE_ROUTE["UnlgFormer"],
+               ("3", "1"): {"lgb_block": 5},
+               ("1", "v2"): {"window_attention_windows": 5,
+                             "global_mixer": 5, "ln_ffn": 5},
+               ("2", "v2"): {"ln_mixer_head": 5,
+                             "window_attention_windows": 5,
+                             "block_tail": 5}}
 
 
 def space_jobs() -> list:
@@ -4651,10 +4704,14 @@ def space_jobs() -> list:
     synthetic WV-3 scene, normalised; SFIM and Wavelet on a 1024^2 scene
     of U(0.1, 0.9) values, as tests/test_spatial.py's large scene, and
     SFIM on the WV-3 scene too (its float32 conditioning there:
-    `run_space`)."""
+    `run_space`). Since the MDCUN, INNT and UnlgFormer forms' strips: the
+    shipped MDCUN and INNT (both routes) at pan 128^2 and 256^2, and
+    UnlgFormer at 128^2 at fuse levels 1, 2, 3 and v2 (levels 1, 2) in
+    float32, bf16res and bf16 (level 1 float32 at 240^2 too), on
+    {"space": 2}; each case's "route" is its launches a forward."""
     from lgteun_tpu_torch.parallel import ranks
 
-    lr, pan = synthetic_scene(SCENE, 8, SEED + 19)
+    lr, pan, target = synthetic_scene(SCENE, 8, SEED + 19, target_too=True)
     lr, pan = lr / DN_RANGE, pan[..., None] / DN_RANGE
     rng = np.random.default_rng(SEED + 20)
     uniform = {"input_lr": rng.uniform(0.1, 0.9, (1, SCENE // 4, SCENE // 4,
@@ -4667,13 +4724,23 @@ def space_jobs() -> list:
                                          x // 4:(x + side) // 4]
                                       for y, x in corners]),
                 "input_pan": np.stack([pan[y:y + side, x:x + side]
-                                       for y, x in corners])}
+                                       for y, x in corners]),
+                "target": np.stack([target[y:y + side, x:x + side]
+                                    for y, x in corners]) / DN_RANGE}
 
-    def case(name, config, b, axis=None):
+    def case(name, config, b, axis=None, env=None, route=None):
         cfg = mode_cfg(config)
         cfg.seed = SEED
         return dict(name=name, method=cfg.model_type, cfg=cfg,
-                    weights=None, batch=b, batch_axis=axis)
+                    weights=None, batch=b, batch_axis=axis, env=env or {},
+                    route=route or SPACE_ROUTE[cfg.model_type])
+
+    def form(side, lvl, att, mode):
+        env = {"LGTEUN_FUSE_LEVEL": lvl, "LGTEUN_FUSED_ATTENTION": att,
+               "LGTEUN_EVAL_DTYPE": mode}
+        return case(f"UnlgFormer {side} L{lvl}{' v2' * (att == 'v2')} "
+                    f"{mode or 'float32'}", "unlg_former.py", batch(side),
+                    env=env, route=SPACE_FORMS[lvl, att])
 
     space = [case("UnlgFormer 128", "unlg_former.py", batch(128)),
              case("UnlgFormer 240", "unlg_former.py", batch(240)),
@@ -4682,6 +4749,16 @@ def space_jobs() -> list:
              case("Wavelet 1024", "Wavelet.py", uniform),
              dict(case("SFIM 1024 WV-3", "SFIM.py", batch(SCENE)),
                   envelope=True)]
+    for side in (128, 256):
+        space.append(case(f"MDCUN {side}", "MDCUN.py", batch(side)))
+        space.append(case(f"INNT {side}", "INNT.py", batch(side)))
+        space.append(case(f"INNT {side} FUSED_TM=0", "INNT.py", batch(side),
+                          env={"LGTEUN_FUSED_TM": "0"},
+                          route={"patch_match": 1}))
+    space += [form(128, lvl, att, mode) for lvl, att in SPACE_FORMS
+              for mode in ("", "bf16res", "bf16")
+              if (lvl, att, mode) != ("2", "1", "")]
+    space.append(form(240, "1", "1", ""))
     hybrid = [case("UnlgFormer 128 x2", "unlg_former.py",
                    batch(128, ((0, 0), (256, 384))), "data")]
     return [(ranks.spatial_job, dict(mesh_shape={"space": 2}, cases=space,
@@ -4690,14 +4767,34 @@ def space_jobs() -> list:
                                      cases=hybrid, timed=SPACE_TIMED))]
 
 
+def space_near_ties(method, batch: dict) -> int:
+    """The float64 near-tie queries of an INNT forward's search on the
+    card (`near_ties`): where another summation order of its inputs may
+    pick another sub-patch (ROADMAP C.15)."""
+    names = ("texture_match", "patch_match")
+    calls = []
+
+    def recorder(name, fn):
+        def call(*args):
+            calls.append((name, args))
+            return fn(*args)
+        return call
+
+    with swapped_kernels(names, recorder):
+        method.apply(batch)
+    return sum(int(near_ties(*search_inputs(k, args)).sum())
+               for k, args in calls)
+
+
 def run_space(jobs: list, results: list, card: str) -> None:
     """Height-sharded eval forwards (`parallel/spatial.py`, the `space`
     phase): the jobs of `space_jobs`, run by the mesh phase's spawn of
     two gloo ranks sharing the card, against the whole forward of the
-    same seeded method on the same batch in this process: each output
-    within SPACE_REL of max|out| (bit-equality printed), `gather_h` on
-    rank 0 equal to the ranks' rows in order, each rank's launches of
-    B1-B3 and B9 a forward (SPACE_ROUTE; every other LGB entry 0), and
+    same seeded method (built under the case's switches) on the same
+    batch in this process: each output within SPACE_REL of max|out|
+    (bit-equality printed), `gather_h` on rank 0 equal to the ranks' rows
+    in order, each rank's launches of every kernel a forward (the case's
+    route; any other kernel 0), the collectives a forward by kind, and
     the ms of a sharded forward on each rank (the two ranks time-sliced
     on one card: no speed-up) beside the whole forward's alone.
 
@@ -4706,7 +4803,14 @@ def run_space(jobs: list, results: list, card: str) -> None:
     whole forward lies about 1e-4 from float64, and the other order of
     the sharded sums moves its output by as much. That case (`envelope`)
     is held to float64 instead: the sharded output's distance within
-    2x the whole float32 forward's."""
+    2x the whole float32 forward's. INNT's searches pick a first maximum:
+    the float64 near-tie queries of the whole forward are printed, and
+    where a case misses SPACE_REL with near ties (another summation
+    order of the strips' convs or of m_hr may flip one, ROADMAP C.15),
+    its PSNR against the scene's target is held within PSNR_TOL_DB of
+    the whole forward's, as the INNT slice is."""
+    from lgteun_tpu_torch.data.pipeline import data_denormalize
+    from lgteun_tpu_torch.metrics.torch_metrics import psnr_batch
     from lgteun_tpu_torch.models.classical import sfim_fuse
     from lgteun_tpu_torch.parallel.ranks import SPATIAL_WRAPPERS
 
@@ -4716,12 +4820,15 @@ def run_space(jobs: list, results: list, card: str) -> None:
         for case in kw["cases"]:
             name = case["name"]
             r0, r1 = (r[job][name] for r in results)
-            method = zoo_method(case["cfg"], TRAIN_ENV, "cuda")
+            method = zoo_method(case["cfg"], {**TRAIN_ENV, **case["env"]},
+                                "cuda")
             method.init_params(torch.Generator().manual_seed(
                 case["cfg"].seed))
             method.eval()
-            want = method.apply(case["batch"])
-            whole_ms = time_ms(lambda: method.apply(case["batch"]),
+            inputs = {k: v for k, v in case["batch"].items()
+                      if k != "target"}
+            want = method.apply(inputs)
+            whole_ms = time_ms(lambda: method.apply(inputs),
                                iters=SPACE_TIMED, warmup=1)
             want = want.cpu().numpy()
             got = r0["whole"]
@@ -4731,7 +4838,7 @@ def run_space(jobs: list, results: list, card: str) -> None:
             diff = float(np.abs(got - want).max())
             bits = bool(np.array_equal(got, want))
             route = dict.fromkeys(SPATIAL_WRAPPERS, 0)
-            route.update(SPACE_ROUTE[case["method"]])
+            route.update(case["route"])
             counts = [r0["launches"], r1["launches"]]
             fired = [{n: c for n, c in launched.items() if c}
                      for launched in counts]
@@ -4741,7 +4848,7 @@ def run_space(jobs: list, results: list, card: str) -> None:
                   f"{SPACE_REL:g}), bit-equal {bits}; gather_h = the "
                   f"ranks' rows {np.array_equal(rows, got)}; launches a "
                   f"forward rank 0 {fired[0]}, rank 1 {fired[1]}"
-                  f" (want {SPACE_ROUTE[case['method']]}); collectives a "
+                  f" (want {case['route']}); collectives a "
                   f"forward {r0['exchanges']}; sharded forward "
                   f"{r0['ms']:.3f} / {r1['ms']:.3f} ms on the two ranks "
                   f"(wall; time-sliced on one card, gloo host-staged "
@@ -4750,7 +4857,7 @@ def run_space(jobs: list, results: list, card: str) -> None:
             close = diff <= SPACE_REL * scale
             if case.get("envelope"):
                 exact = sfim_fuse(*(torch.as_tensor(
-                    case["batch"][key], dtype=torch.float64, device="cuda")
+                    inputs[key], dtype=torch.float64, device="cuda")
                     for key in ("input_lr", "input_pan"))).cpu().numpy()
                 own = float(np.abs(want - exact).max())
                 far = float(np.abs(got - exact).max())
@@ -4758,13 +4865,29 @@ def run_space(jobs: list, results: list, card: str) -> None:
                 print(f"space {name}: float64 forward on the card: the "
                       f"whole float32 forward {own:.3e} from it, the "
                       f"sharded {far:.3e} (bound 2x the whole's)  [{card}]")
+            if case["method"] == "INNT":
+                n_near = space_near_ties(method, inputs)
+                note = ""
+                if not close and n_near:
+                    score = lambda pred: psnr_batch(
+                        data_denormalize(torch.from_numpy(pred), 11),
+                        data_denormalize(torch.from_numpy(
+                            case["batch"]["target"]), 11),
+                        dynamic_range=DN_RANGE).item()
+                    d_psnr = abs(score(got) - score(want))
+                    close = d_psnr <= PSNR_TOL_DB
+                    note = (f"; over the bound with near ties: |psnr sharded"
+                            f" - psnr whole| {d_psnr:.5f} dB (bound "
+                            f"{PSNR_TOL_DB} dB)")
+                print(f"space {name}: float64 near-tie queries of the whole "
+                      f"forward's search {n_near}{note}  [{card}]")
             if not (got.shape == want.shape and np.isfinite(got).all()
                     and close and np.array_equal(rows, got)
                     and all(c == route for c in counts)):
                 failures.append(f"{name}: diff {diff:.3e} of {scale:.3e}, "
                                 f"launches {counts}")
             del method
-        torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
         print(f"space {shape}: a 1-row halo exchange of a [1, 8, 1, 128] "
               f"tensor alone {results[0][job]['exchange_ms']:.3f} / "
               f"{results[1][job]['exchange_ms']:.3f} ms on the two ranks "

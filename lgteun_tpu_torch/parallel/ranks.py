@@ -49,6 +49,7 @@ import os
 import pickle
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -262,25 +263,30 @@ def mi_job(mesh: Mesh, cfg, batch: dict, noise: tuple | None = None,
     return {"value": value.item(), "grads": _grads(runner)}
 
 
-# the wrappers whose launches `spatial_job` counts: B1-B3 and B9 on the
-# spatial path, the other LGB entries (which it must not launch)
+# the wrappers whose launches `spatial_job` counts: every kernel on a
+# height-sharded path (B1-B6, B8-B12)
 SPATIAL_WRAPPERS = ("ln_mixer_head", "window_attention", "block_tail",
                     "lightnet_stack", "global_mixer",
-                    "window_attention_windows", "ln_ffn", "lgb_block")
+                    "window_attention_windows", "ln_ffn", "lgb_block",
+                    "neighborhood_attention", "texture_match", "patch_match")
 
 
 def _spatial_wrappers() -> dict:
     from lgteun_tpu_torch.ops.ffn_kernel import block_tail, ln_ffn
     from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block
     from lgteun_tpu_torch.ops.lightnet_kernel import lightnet_stack
+    from lgteun_tpu_torch.ops.nonlocal_kernel import neighborhood_attention
+    from lgteun_tpu_torch.ops.patch_match_kernel import patch_match
     from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
                                                       ln_mixer_head)
+    from lgteun_tpu_torch.ops.texture_match_kernel import texture_match
     from lgteun_tpu_torch.ops.window_attention import (
         window_attention, window_attention_windows)
 
     found = {fn.__name__: fn for fn in (
         ln_mixer_head, window_attention, block_tail, lightnet_stack,
-        global_mixer, window_attention_windows, ln_ffn, lgb_block)}
+        global_mixer, window_attention_windows, ln_ffn, lgb_block,
+        neighborhood_attention, texture_match, patch_match)}
     return {name: found[name] for name in SPATIAL_WRAPPERS}
 
 
@@ -290,7 +296,9 @@ def spatial_job(mesh: Mesh, mesh_shape: dict, cases: list,
     laid over the rank's group. A case is a dict: "name", "method" (a
     registered model type), "cfg" (the port's Config), "weights"
     (reference-keyed numpy, or None: seeded with cfg.seed), "batch"
-    (NHWC numpy), "batch_axis" (None or "data"). {name: {"rows": the
+    (NHWC numpy), "batch_axis" (None or "data"), and optionally "env"
+    (the switches read when the method is built: LGTEUN_FUSE_LEVEL,
+    LGTEUN_FUSED_ATTENTION, LGTEUN_EVAL_DTYPE, LGTEUN_FUSED_TM). {name: {"rows": the
     rank's rows of the output, "whole": `gather_h` of every rank's (on
     rank 0; None on the others), "launches": {wrapper: launches of one
     forward}, "exchanges": the collectives of one forward by kind
@@ -310,7 +318,8 @@ def spatial_job(mesh: Mesh, mesh_shape: dict, cases: list,
     out = {}
     for case in cases:
         cfg, axis = case["cfg"], case.get("batch_axis")
-        method = build_model(case["method"], cfg, mesh.device)
+        with mock.patch.dict(os.environ, case.get("env", {})):
+            method = build_model(case["method"], cfg, mesh.device)
         if case.get("weights") is None:
             method.init_params(torch.Generator().manual_seed(cfg.seed))
         else:

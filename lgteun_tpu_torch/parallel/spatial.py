@@ -23,13 +23,14 @@ operation written out:
 
 `method` is what JAX's `fn` was: a `TorchMethod` or `ClassicalMethod`
 (the Runner's), or a bare module, and its forward is chosen by the type
-of module it holds (`LGTEUN`, `LightNetModule`) or, for a classical
-method, by its fuse function (SFIM, Wavelet). The JAX module's jit cache
-(`_JITTED`) has no counterpart: these forwards are eager, and nothing is
-traced or compiled per function.
+of module it holds (`LGTEUN`, `LightNetModule`, `PanUnfolding`,
+`GPPNNINNT`) or, for a classical method, by its fuse function (SFIM,
+Wavelet). The JAX module's jit cache (`_JITTED`) has no counterpart:
+these forwards are eager, and nothing is traced or compiled per
+function.
 
-The halo primitives (NCHW strips, H at dim -2, over the rank's
-`space_group`):
+The collectives (NCHW strips, H at dim -2, over the rank's
+`space_group`); these three are the only ones a forward runs:
 
     halo_rows(x, above, below, mesh, edge)
                      `above` rows of the rank above and `below` rows of
@@ -37,17 +38,32 @@ The halo primitives (NCHW strips, H at dim -2, over the rank's
                      at the image's own top and bottom `edge` gives
                      "zero": zero rows (a conv's zero padding), "none": no
                      rows (a resample clamps its taps at the real edge;
-                     LightNet's stack zero-pads each layer there), "wrap":
-                     the rows of the far end (SFIM's circular box filter)
+                     a conv pads there itself), "wrap": the rows of the
+                     far end (SFIM's circular box filter)
     all_gather_h(x, mesh, dim=-2)
                      the whole plane, in rank order
     space_sum(t, mesh)
                      a SUM all-reduce (global statistics)
 
 Under gloo with CUDA tensors (ranks sharing one card) every exchange is
-staged through host copies, as `mesh._host_staged` does. `EXCHANGES`
-counts the collectives each primitive runs, by kind ("halo", "gather",
-"sum"), as the kernel wrappers count their launches.
+staged through host copies, as `mesh._host_staged` does. A bfloat16
+tensor is exchanged bit for bit as its bytes, a uint8 view (never
+upcast), so no exchange depends on a backend's bfloat16 support (gloo
+refuses int16). `EXCHANGES` counts the
+collectives each primitive runs, by kind ("halo", "gather", "sum"), as
+the kernel wrappers count their launches.
+
+A `Strip` is rows [lo, hi) of a plane, every one of them the whole
+forward's value: the rank's rows and the rows of its neighbours that a
+halo brought in (`strip_of`). An operation on it keeps the rows it can
+still compute exactly and drops the rest, so one deep halo serves a
+chain of operations without a global one inside (ROADMAP C.10's
+argument for LightNet's B9): a chain of k 3x3 convs (`Strip.chain`,
+each conv zero-padding along H as the whole forward does: exact at the
+image's own edges, wrong only in the k rows next to a neighbour's, which
+are dropped), a bicubic or bilinear resample (`Strip.resample`: the
+output rows whose taps lie in the strip), a max-pool on its grid and a
+nearest upsample (`Strip.rescale`). `Strip.own` is the rank's rows.
 
 Each forward, per operation (the rank holds rows [a, b) of H):
 
@@ -55,7 +71,8 @@ Each forward, per operation (the rank holds rows [a, b) of H):
   "none" at the edges; a strip of a downsample by q starts on a multiple
   of q (its halo is 2 rounded up to q), so each local output row maps to
   the global row's source coordinate and taps, and the strip's output is
-  the global output's rows bit for bit;
+  the global output's rows bit for bit; bilinear ones
+  (`resample_rows(mode="bilinear")`) the same on 1 row;
 - a k x k conv (`DepConv`): a "zero" halo of k // 2 rows, then the conv
   unpadded along H;
 - 1x1 convs, the channel LN, the patch embed: local;
@@ -71,26 +88,77 @@ Each forward, per operation (the rank holds rows [a, b) of H):
   the rank's rows with a "none" halo of 10 rows (its ten depthwise
   layers: the kernel zeroes outside its input on each, ROADMAP C.10, so
   the rows it gets wrong stay inside the halo), cropped;
-- UnlgFormer (`LGTEUN`, fuse level 2, float32): the unfolding steps'
-  x4 resample of ms, D, DT (resamples and 3x3 `DepConv`s as above), R
-  and RT (1x1); in the prior each LGB block all-gathers its input x and
-  runs B1 `ln_mixer_head` on the whole plane on every rank (the FFT mixer
-  is global over the plane: exact, and redundant; a distributed FFT is
-  ROADMAP A.9.3), then B2 `window_attention` on the strip of y1 from
-  rows a and b rounded out to the 8-row window grid plus one window band
-  on each side (windows stay fixed in the global grid), B3 `block_tail`
-  on the same strip of x, x1, x2 (its FFN's 3x3 depthwise conv needs 1
-  row, and the strip is a multiple of 8 rows), cropped to [a, b).
+- UnlgFormer (`LGTEUN`, every fuse level, `LGTEUN_FUSED_ATTENTION=v2`,
+  float32 and both bf16 storage modes, `storage` passed down as
+  `LGB.forward` takes it): the unfolding steps' x4 resample of ms, D, DT
+  (resamples and 3x3 `DepConv`s as above), R and RT (1x1). In the prior
+  each LGB block all-gathers its input x (a bfloat16 stream in the "bf16"
+  mode) and runs the mixer on the whole plane on every rank (the FFT
+  mixer is global over the plane: exact, and redundant; a distributed
+  FFT is ROADMAP A.9.3): at level 2 B1 `ln_mixer_head`, then the local
+  mixer (B2 `window_attention`, or B6 on the strip's windows under v2)
+  on the strip of y1 from rows a and b rounded out to the 8-row window
+  grid plus one window band on each side (windows stay fixed in the
+  global grid), B3 `block_tail` on the same strip of x, x1, x2 (its
+  FFN's 3x3 depthwise conv needs 1 row, and the strip is a multiple of
+  8 rows), cropped to [a, b); at level 1 the LN of the whole plane, B4
+  `global_mixer` on its second half, the local mixer on the strip of the
+  first, the proj and residual on the strip, B5 `ln_ffn` on the strip
+  (its 3x3 depthwise conv inside the band), cropped. At level 3 the
+  blocks are replicated, not sharded: B8 `lgb_block` computes a whole
+  block, its global mixer included, in one launch, so each LGB
+  all-gathers its input once and every rank runs its blocks on the
+  whole plane, then keeps its rows (JAX's GSPMD replicates a Pallas call
+  it cannot partition in the same way); the unfolding steps and the
+  resamples and convs between the LGBs stay sharded.
+- MDCUN (`PanUnfolding`): one PAN halo of 16 rows (`PAN_HALO`) serves the
+  high-pass pyramid (each x1/q bicubic strip starts on a multiple of q =
+  2, 4, 8 and keeps the 2 rows its x q upsample back needs) and the
+  spatial attention's PAN; the x4 bilinear `x` on a 1-row halo; each
+  stage takes one halo of 12 rows (`STAGE_HALO`) of its dense inputs
+  and x, which serves `conv_u` and `rm1` (two and eight 3x3 convs;
+  AttSpatial's channel max / mean are local), B12 `neighborhood_attention` on x's rows
+  within 7 of the rank's (the kernel zero-pads phi and g outside its
+  input, ROADMAP C.12: only the dropped rows see that), and the down
+  resampler (3x3 conv, ReLU, MaxPool2d(4) on the 4-row grid, two 3x3
+  convs at 1/4 resolution); one halo of 12 rows of the v side and nl;
+  the up resampler on a 2-row halo at 1/4 resolution (3x3 conv, ReLU,
+  nearest x4, two 3x3 convs); the stage update is elementwise, with ms
+  on the rank's 1/4 rows.
+- INNT (`GPPNNINNT`): m_hr, the bicubic align_corners=True x4 of ms,
+  from the gathered LrMS for the rank's rows and 2 more each side
+  (`bicubic_rows`: its source coordinate y (h - 1) / (H - 1) is not on
+  the strip grid; summed in float64, within the whole float32 op's own
+  rounding, ROADMAP C.20's 2e-5); `convpan` on a
+  2-row PAN halo, `convms`, `conv_fusion`; then `PatchFusion`: mhrf and
+  panf all-gathered (the two halves of n_feat, each n_feat / 2 channels
+  at full resolution), the rank's contiguous share of the N = B L
+  scrambled patch-images built from strided slices of the padded plane
+  (`scrambled_patches`: each patch-image is a block of rows of the
+  24 x 24 / stride-8 unfold, read through the reference's plain view,
+  ROADMAP C.16; the whole unfold is never made), `TransformerFusion` on
+  the share (B10 `texture_match`, or B11 `patch_match` with its 3x3
+  unfold and fold under LGTEUN_FUSED_TM=0, and `conv_trans`: local to
+  each patch-image), the fused patch-images all-gathered (every rank's
+  share padded to the largest, a ragged last share trimmed: 4 N C 576
+  bytes arrive on each rank in float32, (s - 1) / s of them from the
+  others), and the fold of only the patch rows that reach the rank's
+  rows (`fold_rows`). `_FeatureExtract`: each InvBlock takes one 8-row
+  halo (its 1x1 invertible conv is local; F, then H and G, are chains
+  of four 3x3 convs with two instance norms of whole-plane statistics
+  each, `instance_norm_rows`: population variance, eps 1e-5, two
+  passes; H's and G's sums share each all-reduce); `Refine` one 3-row
+  halo, the CALayer's mean all-reduced.
 
 Refused with a ValueError that names ROADMAP A.9.3 (never by gathering
 the input and running the whole forward): a method without a sharded
-forward (GSA, MDCUN, INNT, PanFormer, SFIIN, MutInf), UnlgFormer at a
-fuse level other than 2 or with LGTEUN_FUSED_ATTENTION=v2, either bf16
-storage mode (and LightNet's bf16 tap path, the zoo's blanket cast), an
-H that the space size does not divide, Wavelet on strips that are not a
-multiple of 4 rows, a halo deeper than a neighbour's strip, and a call
-with gradients on (an input that requires a gradient, or a module in
-training mode): these are eval forwards.
+forward (GSA, PanFormer, SFIIN, MutInf), the zoo's blanket bf16 cast
+(MDCUN and INNT under LGTEUN_EVAL_DTYPE=bf16) and LightNet's bf16 tap
+path, an H that the space size does not divide, Wavelet on strips that
+are not a multiple of 4 rows, a halo deeper than a neighbour's strip
+(a deep halo needs strips of at least its depth: 16 PAN rows a rank for
+MDCUN), and a call with gradients on (an input that requires a
+gradient, or a module in training mode): these are eval forwards.
 """
 
 from __future__ import annotations
@@ -108,24 +176,33 @@ from lgteun_tpu_torch.models.base import ClassicalMethod, TorchMethod, _nchw
 from lgteun_tpu_torch.models.classical import (sfim_fuse, wavelet_fuse,
                                                wavelet_inject)
 from lgteun_tpu_torch.models.common.layers import Resample
+from lgteun_tpu_torch.models.innt import _PAD, _PATCH, _STRIDE, GPPNNINNT
 from lgteun_tpu_torch.models.lgteun import LGTEUN
 from lgteun_tpu_torch.models.lightnet import LightNetModule
-from lgteun_tpu_torch.ops.ffn_kernel import block_tail
+from lgteun_tpu_torch.models.mdcun import PanUnfolding
+from lgteun_tpu_torch.ops import upcast
+from lgteun_tpu_torch.ops.ffn_kernel import block_tail, ln_ffn
 from lgteun_tpu_torch.ops.filters import depthwise_conv2d
 from lgteun_tpu_torch.ops.interp23 import interp23_upsample
+from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block
 from lgteun_tpu_torch.ops.lightnet_kernel import lightnet_stack
+from lgteun_tpu_torch.ops.norm import channel_layer_norm
 from lgteun_tpu_torch.ops.resize import sample_scale
-from lgteun_tpu_torch.ops.spectral_kernel import ln_mixer_head
+from lgteun_tpu_torch.ops.spectral_kernel import global_mixer, ln_mixer_head
 from lgteun_tpu_torch.parallel.mesh import (Mesh, _all_reduce_,
                                             _host_staged, all_gather_rows)
 
 __all__ = ["SpatialSharding", "spatial_sharding", "run_spatially_sharded",
            "gather_h", "halo_rows", "edge_rows", "all_gather_h",
            "space_sum", "resample_rows", "conv_rows", "window_strip",
-           "EDGES", "RESAMPLE_HALO", "EXCHANGES"]
+           "Strip", "strip_of", "bicubic_rows", "instance_norm_rows",
+           "scrambled_patches", "fold_rows", "EDGES", "PAN_HALO",
+           "STAGE_HALO", "EXCHANGES"]
 
 EDGES = ("zero", "none", "wrap")
-RESAMPLE_HALO = 2   # source rows a bicubic tap reaches beyond a strip
+PAN_HALO = 16       # MDCUN's PAN strip: the x1/8 pyramid level and back
+STAGE_HALO = 12     # MDCUN's stage strip: the down resampler's depth
+_TAPS = {"bicubic": (1, 2), "bilinear": (0, 1)}  # rows below / above a tap
 _QUEUE = "ROADMAP A.9.3"
 EXCHANGES = collections.Counter()   # collectives run, by kind
 
@@ -181,6 +258,16 @@ def spatial_sharding(mesh: Mesh, batch_axis: str | None = None,
 
 # ------------------------------------------------------------ primitives
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """t as an exchange carries it: a bfloat16 tensor as its bytes (a
+    uint8 view, its last dimension doubled)."""
+    return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
+
+
+def _unbits(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t.view(dtype) if dtype == torch.bfloat16 else t
+
+
 def edge_rows(mesh: Mesh, above: int, below: int,
               edge: str) -> tuple[int, int]:
     """The rows `halo_rows` puts above and below the rank's strip."""
@@ -216,7 +303,7 @@ def halo_rows(x: torch.Tensor, above: int, below: int, mesh: Mesh,
         if wrap:
             top, bottom = x[..., h - above:, :], x[..., :below, :]
     else:
-        staged = _host_staged(mesh, x)
+        staged = _bits(_host_staged(mesh, x))
         ops, got = [], {}
 
         def p2p(op, t, peer, tag):
@@ -233,14 +320,14 @@ def halo_rows(x: torch.Tensor, above: int, below: int, mesh: Mesh,
             if n and dst is not None:
                 p2p(dist.isend, rows.contiguous(), dst, tag)
             if n and src is not None:
-                got[key] = staged.new_empty((*x.shape[:-2], n, x.shape[-1]))
+                got[key] = staged.new_empty((*x.shape[:-2], n, staged.shape[-1]))
                 p2p(dist.irecv, got[key], src, tag)
         if ops:
             EXCHANGES["halo"] += 1
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
-        top, bottom = (got[k].to(x.device) if k in got else None
-                       for k in ("top", "bottom"))
+        top, bottom = (_unbits(got[k], x.dtype).to(x.device) if k in got
+                       else None for k in ("top", "bottom"))
     if edge == "zero":
         zeros = lambda n: x.new_zeros((*x.shape[:-2], n, x.shape[-1]))
         top = zeros(above) if top is None else top
@@ -253,11 +340,11 @@ def all_gather_h(x: torch.Tensor, mesh: Mesh, dim: int = -2) -> torch.Tensor:
     order, on x's device; x itself without a space group."""
     if mesh.space_group is None:
         return x
-    src = _host_staged(mesh, x).contiguous()
+    src = _bits(_host_staged(mesh, x).contiguous())
     parts = [torch.empty_like(src) for _ in range(mesh.space_world)]
     EXCHANGES["gather"] += 1
     dist.all_gather(parts, src, group=mesh.space_group)
-    return torch.cat(parts, dim=dim).to(x.device)
+    return _unbits(torch.cat(parts, dim=dim), x.dtype).to(x.device)
 
 
 def space_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -268,25 +355,20 @@ def space_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _all_reduce_(t.contiguous(), mesh, group=mesh.space_group)
 
 
-def resample_rows(x: torch.Tensor, factor: float,
-                  mesh: Mesh) -> torch.Tensor:
-    """`sample_scale(x, factor)` (bicubic, align_corners False) of the
-    rank's rows of x [B, C, h, W]: the rank's rows of the whole plane's
-    resample (module docstring)."""
+def resample_rows(x: torch.Tensor, factor: float, mesh: Mesh,
+                  mode: str = "bicubic") -> torch.Tensor:
+    """`sample_scale(x, factor, mode)` (bicubic or bilinear,
+    align_corners False) of the rank's rows of x [B, C, h, W]: a halo of
+    the taps' reach (2 or 1 source rows; a x1/q downsample's rounded up
+    to q, so that its strip starts on its grid), the rank's rows of the
+    whole plane's resample (module docstring)."""
     if factor == 1:
         return x
-    h = x.shape[-2]
-    halo = RESAMPLE_HALO
+    halo = max(_TAPS[mode])
     if factor < 1:
         q = round(1 / factor)
-        if h % q:
-            raise _refuse(f"a x1/{q} resample of strips of {h} rows: a "
-                          f"strip must start on a multiple of {q}")
         halo = -(-halo // q) * q
-    top, _ = edge_rows(mesh, halo, halo, "none")
-    y = sample_scale(halo_rows(x, halo, halo, mesh, "none"), factor)
-    start, n = round(top * factor), round(h * factor)
-    return y[..., start:start + n, :]
+    return strip_of(x, halo, mesh).resample(factor, mode).own(mesh)
 
 
 def conv_rows(conv: nn.Conv2d, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -319,63 +401,282 @@ def window_strip(a: int, b: int, h: int, win: int) -> tuple[int, int]:
             min(h, -(-b // win) * win + win))
 
 
+# ---------------------------------------------------------------- strips
+
+def _own(mesh: Mesh, h: int) -> tuple[int, int]:
+    """The rank's rows [a, b) of a plane of h rows."""
+    per = h // mesh.space_world
+    return mesh.space_rank * per, (mesh.space_rank + 1) * per
+
+
+@dataclass
+class Strip:
+    """Rows [lo, hi) of a plane of `h` rows (H at dim -2 of `t`), each of
+    them the whole forward's value (module docstring)."""
+
+    t: torch.Tensor
+    lo: int
+    hi: int
+    h: int
+
+    def rows(self, lo: int, hi: int) -> torch.Tensor:
+        """Rows [lo, hi) of the plane, which the strip must hold."""
+        if lo < self.lo or hi > self.hi:
+            raise _refuse(f"rows [{lo}, {hi}) of a strip of [{self.lo}, "
+                          f"{self.hi}): the halo was too shallow for the "
+                          "operations on it")
+        return self.t[..., lo - self.lo:hi - self.lo, :]
+
+    def crop(self, lo: int, hi: int) -> "Strip":
+        return Strip(self.rows(lo, hi), lo, hi, self.h)
+
+    def own(self, mesh: Mesh) -> torch.Tensor:
+        """The rank's rows."""
+        return self.rows(*_own(mesh, self.h))
+
+    def map(self, fn) -> "Strip":
+        """An operation on each pixel (or each row) alone."""
+        return Strip(fn(self.t), self.lo, self.hi, self.h)
+
+    def chain(self, fn, depth: int) -> "Strip":
+        """fn, which keeps H and zero-pads along H at the strip's ends (a
+        chain of `depth` 3x3 convs, or a window of radius `depth`): the
+        `depth` rows next to each end that is not the image's are wrong
+        after it and dropped."""
+        lo = self.lo + (depth if self.lo > 0 else 0)
+        hi = self.hi - (depth if self.hi < self.h else 0)
+        return Strip(fn(self.t.contiguous()), self.lo, self.hi,
+                     self.h).crop(lo, hi)
+
+    def resample(self, factor: float, mode: str = "bicubic") -> "Strip":
+        """`sample_scale(., factor, mode)` (align_corners False): the
+        output rows whose taps lie in the strip or are clamped at the
+        image's own edge; a downsample's strip must start on its grid."""
+        if factor < 1:
+            q = round(1 / factor)
+            if self.lo % q or (self.hi % q and self.hi != self.h):
+                raise _refuse(f"a x1/{q} resample of rows [{self.lo}, "
+                              f"{self.hi}): a strip must start on a "
+                              f"multiple of {q}")
+        y = sample_scale(self.t, factor, mode)
+        start = round(self.lo * factor)
+        # each output row's source coordinate, as torch computes it
+        src = (np.arange(start, start + y.shape[-2]) + 0.5) / factor - 0.5
+        if mode == "bilinear":   # a linear source index is clamped at 0
+            src = np.maximum(src, 0.0)
+        base = np.floor(src).astype(np.int64)
+        below, above = _TAPS[mode]
+        ok = (((base - below >= self.lo) | (self.lo == 0))
+              & ((base + above < self.hi) | (self.hi == self.h)))
+        kept = np.flatnonzero(ok)
+        return Strip(y, start, start + y.shape[-2],
+                     round(self.h * factor)).crop(
+            start + int(kept[0]), start + int(kept[-1]) + 1)
+
+    def rescale(self, layer: nn.Module) -> "Strip":
+        """`nn.MaxPool2d(k)` (the strip cut to the k-row grid first) or
+        `nn.Upsample(scale_factor=k)` (nearest) of the strip."""
+        if isinstance(layer, nn.MaxPool2d):
+            k = layer.kernel_size
+            lo, hi = -(-self.lo // k) * k, self.hi // k * k
+            return Strip(layer(self.rows(lo, hi)), lo // k, hi // k,
+                         self.h // k)
+        k = int(layer.scale_factor)
+        if layer.mode != "nearest":
+            raise _refuse(f"no height-sharded form of {layer.mode} "
+                          "nn.Upsample")
+        return Strip(layer(self.t), self.lo * k, self.hi * k, self.h * k)
+
+    @staticmethod
+    def cat(strips: list, dim: int = 1) -> "Strip":
+        """The strips' common rows, concatenated along `dim`."""
+        lo = max(s.lo for s in strips)
+        hi = min(s.hi for s in strips)
+        return Strip(torch.cat([s.rows(lo, hi) for s in strips], dim=dim),
+                     lo, hi, strips[0].h)
+
+    def split(self, n: int) -> tuple["Strip", "Strip"]:
+        """Channels [:n] and [n:]."""
+        return (self.map(lambda t: t[:, :n]), self.map(lambda t: t[:, n:]))
+
+
+def strip_of(x: torch.Tensor, depth: int, mesh: Mesh) -> Strip:
+    """The rank's rows x [..., h, W] with `depth` rows of each neighbour
+    ("none" at the image's edges): one halo exchange."""
+    h = x.shape[-2] * mesh.space_world
+    a, b = _own(mesh, h)
+    top, bottom = edge_rows(mesh, depth, depth, "none")
+    return Strip(halo_rows(x, depth, depth, mesh, "none"), a - top,
+                 b + bottom, h)
+
+
+_CUBIC_A = -0.75
+
+
+def _cubic_weights(t: torch.Tensor) -> list[torch.Tensor]:
+    """torch's bicubic tap weights (a = -0.75) at fraction t."""
+    a = _CUBIC_A
+    far = lambda x: ((a * x - 5 * a) * x + 8 * a) * x - 4 * a
+    near = lambda x: ((a + 2) * x - (a + 3)) * x * x + 1
+    return [far(t + 1), near(t), near(1 - t), far(2 - t)]
+
+
+def bicubic_rows(x: torch.Tensor, out_hw: tuple[int, int], lo: int,
+                 hi: int) -> torch.Tensor:
+    """Rows [lo, hi) of `resize_bicubic(x, out_hw, align_corners=True)`
+    of the whole plane x [B, C, h, w]: each row from its own source
+    coordinate y (h - 1) / (H - 1) (in float32, as torch computes it)
+    and four clamped taps of x, then the columns by `F.interpolate` (its
+    rows left as they are). The taps and weights are the whole op's; the
+    sums run in float64 and round once, so the rows lie within the whole
+    float32 op's own rounding of it (ROADMAP C.20)."""
+    h = x.shape[-2]
+    big_h, big_w = out_hw
+    scale = torch.tensor((h - 1) / (big_h - 1) if big_h > 1 else 0.0,
+                         dtype=torch.float32, device=x.device)
+    src = scale * torch.arange(lo, hi, dtype=torch.float32, device=x.device)
+    base = torch.floor(src)
+    weights = _cubic_weights(src - base)
+    base = base.long()
+    x64 = x.double()
+    out = None
+    for k, wk in enumerate(weights):
+        term = x64[..., (base - 1 + k).clamp(0, h - 1), :] * wk.double()[
+            :, None]
+        out = term if out is None else out + term
+    return F.interpolate(out, size=(hi - lo, big_w), mode="bicubic",
+                         align_corners=True).to(x.dtype)
+
+
+def instance_norm_rows(parts: list, mesh: Mesh) -> list:
+    """[(norm, strip)] -> each strip through its `nn.InstanceNorm2d`
+    (affine; population variance) with the statistics of the whole
+    plane: the rank's rows summed, all-reduced, in two passes (the means,
+    then the squared deviations from them), every part's sums in one
+    all-reduce a pass; the strip's other rows normalised by the same
+    statistics."""
+    own = [s.own(mesh) for _, s in parts]
+    counts = [o.shape[-2] * mesh.space_world * o.shape[-1] for o in own]
+    widths = [o.shape[1] for o in own]
+    total = lambda ts: torch.split(space_sum(torch.cat(
+        [t.sum(dim=(2, 3)) for t in ts], dim=1), mesh), widths, dim=1)
+    means = [s / n for s, n in zip(total(own), counts)]
+    dev = total([(o - m[:, :, None, None]) ** 2 for o, m in zip(own, means)])
+    out = []
+    for (norm, s), m, d, n in zip(parts, means, dev, counts):
+        inv = torch.rsqrt(d / n + norm.eps)
+        out.append(s.map(lambda t, m=m, inv=inv, norm=norm: (
+            t - m[:, :, None, None]) * inv[:, :, None, None]
+            * norm.weight[None, :, None, None]
+            + norm.bias[None, :, None, None]))
+    return out
+
+
+def scrambled_patches(x: torch.Tensor, n0: int, n1: int) -> torch.Tensor:
+    """Patch-images [n0, n1) of `PatchFusion`'s scramble of x [B, C, H,
+    W]: the 24 x 24 / stride-8 / padding-8 unfold [B, C 576, L] read as
+    [B L, C, 24, 24] by a plain view (ROADMAP C.16), built without the
+    whole unfold: patch-image n is flat elements [n C 576, (n + 1) C 576)
+    of the unfold, and element (f, l) of it, f = (c, kh, kw), l = (ph,
+    pw), is the padded plane's pixel (c, 8 ph + kh, 8 pw + kw)."""
+    b, c, h, w = x.shape
+    k, st, p = _PATCH, _STRIDE, _PAD
+    lw = (w + 2 * p - k) // st + 1
+    length = ((h + 2 * p - k) // st + 1) * lw
+    per = c * k * k
+    g = torch.arange(n0 * per, n1 * per, device=x.device)
+    img, rem = g // (per * length), g % (per * length)
+    f, l = rem // length, rem % length
+    row = l // lw * st + f // k % k
+    col = l % lw * st + f % k
+    xp = F.pad(x, (p, p, p, p))
+    idx = ((img * c + f // (k * k)) * (h + 2 * p) + row) * (w + 2 * p) + col
+    return xp.reshape(-1)[idx].view(n1 - n0, c, k, k)
+
+
+def fold_rows(cols: torch.Tensor, out_hw: tuple[int, int], a: int,
+              b: int) -> torch.Tensor:
+    """Rows [a, b) of `PatchFusion`'s fold (`fold_patches(cols, out_hw,
+    24, 8, 8)`, overlaps summed) of cols [B, C 576, L]: the fold of only
+    the patch rows that reach them, each row's contributions added in
+    the whole fold's order."""
+    k, st, p = _PATCH, _STRIDE, _PAD
+    h, w = out_hw
+    lh = (h + 2 * p - k) // st + 1
+    lw = (w + 2 * p - k) // st + 1
+    ph0 = max(0, -(-(a + p - k + 1) // st))
+    ph1 = min(lh - 1, (b - 1 + p) // st)
+    top = ph0 * st - p       # the first output row of the partial fold
+    part = F.fold(cols[..., ph0 * lw:(ph1 + 1) * lw],
+                  ((ph1 - ph0) * st + k, w), k, padding=(0, p), stride=st)
+    return part[..., a - top:b - top, :]
+
+
 # -------------------------------------------------------------- forwards
 
-def _lgb(lgb, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """LGB at fuse level 2 on the rank's rows (module docstring)."""
+def _lgb(lgb, x: torch.Tensor, mesh: Mesh,
+         storage: torch.dtype | None = None) -> torch.Tensor:
+    """`LGB.forward(x, storage=storage)` (eval) on the rank's rows, at
+    the LGB's level (module docstring)."""
     h = x.shape[-2]
     a = mesh.space_rank * h
+    if lgb.level >= 3:       # replicated blocks: one gather, every block
+        whole = all_gather_h(x, mesh)
+        for i, (mix_res, _) in enumerate(lgb.blocks):
+            whole = lgb_block(whole, lgb._params(i), lgb.heads, lgb.win,
+                              mix_res.fn.norm.eps, storage)
+        return whole[..., a:a + h, :]
     lo, hi = window_strip(a, a + h, h * mesh.space_world, lgb.win)
     strip = lambda t: t[..., lo:hi, :].contiguous()
     for i, (mix_res, _) in enumerate(lgb.blocks):
         eps = mix_res.fn.norm.eps
         blk = lgb._params(i)
+        mixer = [blk[k] for k in ("amp_w", "amp_b", "pha_w", "pha_b")]
         whole = all_gather_h(x, mesh)
-        y1, x2 = ln_mixer_head(whole, blk["ln_w"], blk["ln_b"],
-                               *(blk[k] for k in ("amp_w", "amp_b",
-                                                  "pha_w", "pha_b")),
-                               eps=eps)
-        x1 = lgb._local_mixer(strip(y1), blk)
-        out = block_tail(strip(whole), x1, strip(x2), blk["proj_w"],
-                         blk["proj_b"], blk["ffn"], eps=eps)
+        if lgb.level == 1:
+            y = channel_layer_norm(upcast(whole), blk["ln_w"], blk["ln_b"],
+                                   eps)
+            c2 = x.shape[1] // 2
+            y1 = y[:, :c2] if storage is None else y[:, :c2].to(storage)
+            x1 = lgb._local_mixer(strip(y1), blk)
+            x2 = global_mixer(y[:, c2:].contiguous(), *mixer,
+                              out_dtype=storage)
+            mixed = F.conv2d(upcast(torch.cat([x1, strip(x2)], dim=1)),
+                             blk["proj_w"][:, :, None, None], blk["proj_b"])
+            out = ln_ffn((upcast(strip(whole)) + mixed).to(x.dtype),
+                         blk["ffn"], eps=eps)
+        else:
+            y1, x2 = ln_mixer_head(whole, blk["ln_w"], blk["ln_b"], *mixer,
+                                   eps=eps, out_dtype=storage)
+            x1 = lgb._local_mixer(strip(y1), blk)
+            out = block_tail(strip(whole), x1, strip(x2), blk["proj_w"],
+                             blk["proj_b"], blk["ffn"], eps=eps)
         x = out[..., a - lo:a - lo + h, :]
     return x
 
 
 def _lgt(lgt, z: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`LGT.forward` (eval, in its storage mode) on the rank's rows."""
+    sdtype, res_f32 = lgt.storage
     fea = lgt.patch_embed(z)
+    if sdtype is not None and not res_f32:
+        fea = fea.to(sdtype)
     skips = []
     for lgb, down in lgt.encoder_layers:
-        fea = _lgb(lgb, fea, mesh)
+        fea = _lgb(lgb, fea, mesh, sdtype)
         skips.append(fea)
         fea = _sequence(down, fea, mesh)
-    fea = _lgb(lgt.bottleneck, fea, mesh)
+    fea = _lgb(lgt.bottleneck, fea, mesh, sdtype)
     for up, fuse, lgb in lgt.decoder_layers:
         fea = fuse(torch.cat([_sequence(up, fea, mesh), skips.pop()], dim=1))
-        fea = _lgb(lgb, fea, mesh)
-    return _sequence(lgt.tail, fea, mesh) + z
-
-
-def _check_lgteun(module: LGTEUN) -> None:
-    prior = module.prior_module[module.stage - 1]
-    lgbs = [lgb for lgb, _ in prior.encoder_layers]
-    lgbs += [prior.bottleneck] + [lgb for *_, lgb in prior.decoder_layers]
-    if prior.storage != (None, False):
-        raise _refuse("UnlgFormer's bf16 storage modes (LGTEUN_EVAL_DTYPE) "
-                      "have no height-sharded forward")
-    if any(lgb.windows for lgb in lgbs):
-        raise _refuse("UnlgFormer with LGTEUN_FUSED_ATTENTION=v2 has no "
-                      "height-sharded forward")
-    levels = sorted({lgb.level for lgb in lgbs})
-    if levels != [2]:
-        raise _refuse(f"UnlgFormer at LGTEUN_FUSE_LEVEL {levels}: only "
-                      "level 2 is height-sharded")
+        fea = _lgb(lgb, fea, mesh, sdtype)
+    return _sequence(lgt.tail, upcast(fea), mesh) + z
 
 
 def lgteun_rows(module: LGTEUN, ms: torch.Tensor, pan: torch.Tensor,
                 mesh: Mesh) -> torch.Tensor:
-    """`LGTEUN.forward` (eval, level 2, float32) on the rank's rows of
-    ms [B, C, h, w] and pan [B, 1, 4h, 4w]."""
+    """`LGTEUN.forward` (eval; any fuse level, v2, any storage mode) on
+    the rank's rows of ms [B, C, h, w] and pan [B, 1, 4h, 4w]."""
     z = resample_rows(ms, 4, mesh)
     for eta in module.eta:
         ms_term = _sequence(module.DT, _sequence(module.D, z, mesh) - ms,
@@ -393,13 +694,187 @@ def lightnet_rows(module: LightNetModule, ms: torch.Tensor,
                       "height-sharded")
     spans = module.spans()
     lms = resample_rows(resample_rows(ms, 2, mesh), 2, mesh)
-    x = torch.cat([pan, lms], dim=1)
+    weights = [s.weights() for s in spans]
     depth = len(spans)   # one 3x3 depthwise conv a span on each branch
-    top, _ = edge_rows(mesh, depth, depth, "none")
-    xh = halo_rows(x, depth, depth, mesh, "none")
-    out = lightnet_stack(xh, xh[:, 1:].contiguous(),
-                         [s.weights() for s in spans])
-    return out[..., top:top + x.shape[-2], :]
+    return strip_of(torch.cat([pan, lms], dim=1), depth, mesh).chain(
+        lambda x: lightnet_stack(x, x[:, 1:].contiguous(), weights),
+        depth).own(mesh)
+
+
+def _mdcun_gates(module: PanUnfolding, feat: Strip, pan: Strip,
+                 mesh: Mesh) -> torch.Tensor:
+    """The rank's rows of `rm1`'s gates of `_denoise(feat)`: the first
+    four bands folded into the batch beside the PAN, AttSpatial's eight
+    3x3 convs on the strip."""
+    b = feat.t.shape[0]
+    pairs = Strip.cat([feat.map(lambda t: t[:, :4].transpose(0, 1).reshape(
+        4 * b, 1, *t.shape[2:])), pan.map(lambda t: t.repeat(4, 1, 1, 1))])
+    return pairs.chain(module.rm1, 8).own(mesh)
+
+
+def _mdcun_decode(module: PanUnfolding, feat: Strip, pan: Strip,
+                  pan_hp: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The rank's rows of `_denoise(feat, pan, pan_hp) + feat`."""
+    b = feat.t.shape[0]
+    gates = _mdcun_gates(module, feat, pan, mesh)
+    decoded = pan_hp + gates.reshape(4, b, *gates.shape[2:]).transpose(
+        0, 1) * pan_hp
+    if feat.t.shape[1] > 4:
+        decoded = module.conv1x1(decoded)
+    return decoded + feat.own(mesh)
+
+
+def _mdcun_down(res, x: Strip, mesh: Mesh) -> torch.Tensor:
+    """The rank's 1/4 rows of `_Resampler` (down) of the strip x."""
+    y = x.chain(res.body, 1).rescale(res.tail[0])
+    return y.chain(res.tail[1:], 2).own(mesh)
+
+
+def _mdcun_up(res, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The rank's rows of `_Resampler` (up) of its 1/4 rows x."""
+    y = strip_of(x, 2, mesh).chain(res.body, 1).rescale(res.tail[0])
+    return y.chain(res.tail[1:], 2).own(mesh)
+
+
+def mdcun_rows(module: PanUnfolding, ms: torch.Tensor, pan: torch.Tensor,
+               mesh: Mesh) -> torch.Tensor:
+    """`PanUnfolding.forward` (MDCUN, float32) on the rank's rows of ms
+    [B, C, h, w] and pan [B, 1, 4h, 4w] (module docstring)."""
+    pan_s = strip_of(pan, PAN_HALO, mesh)
+    a, b = _own(mesh, pan_s.h)
+    hps = [pan_s.rows(a, b) - pan_s.resample(1 / q).resample(q).rows(a, b)
+           for q in (2, 4, 8)]
+    pan_hp = module.hf_pan(torch.cat(hps, dim=1))
+    x = resample_rows(ms, 4, mesh, mode="bilinear")
+    c = x.shape[1]
+    uk_list: list[torch.Tensor] = []
+    vk_list: list[torch.Tensor] = []
+    for i in range(module.stages):
+        us = strip_of(torch.cat(uk_list + [x], dim=1), STAGE_HALO, mesh)
+        xs = us.map(lambda t: t[:, -c:])
+        decode_u = _mdcun_decode(module, us.chain(module.conv_u[i], 2),
+                                 pan_s, pan_hp, mesh)
+        uk_list.append(decode_u)
+        near = module.NLBlock.fs // 2
+        nl = xs.crop(max(a - near, 0), min(b + near, xs.h)).chain(
+            module.NLBlock, near).own(mesh)
+        vs = strip_of(torch.cat(vk_list + [nl], dim=1), STAGE_HALO, mesh)
+        decode_v = _mdcun_decode(module, vs.chain(module.conv_u[i], 2),
+                                 pan_s, pan_hp, mesh)
+        vk_list.append(decode_v)
+        down_x = _mdcun_down(module.conv_down, xs, mesh)
+        down_nl = _mdcun_down(module.conv_down,
+                              vs.map(lambda t: t[:, -c:]), mesh)
+        x = x - module.delta[i] * (
+            _mdcun_up(module.conv_up, down_x - ms
+                      + module.u[i] * (down_nl - ms), mesh)
+            + module.eta[i] * (x - decode_u)
+            + module.gama[i] * (nl - decode_v))
+    return x
+
+
+def _hin_rows(pairs: list, mesh: Mesh) -> list:
+    """[(_HINConvBlock, strip)] -> each block on its strip (two 3x3 convs,
+    the instance norm between them with whole-plane statistics), in
+    lockstep so that the blocks' sums share each all-reduce."""
+    first = [s.chain(blk.conv_1, 1) for blk, s in pairs]
+    halves = [f.split(blk.norm.num_features) for (blk, _), f in
+              zip(pairs, first)]
+    normed = instance_norm_rows([(blk.norm, n) for (blk, _), (n, _) in
+                                 zip(pairs, halves)], mesh)
+    out = []
+    for (blk, s), n, (_, rest) in zip(pairs, normed, halves):
+        y = Strip.cat([n, rest]).map(
+            lambda t, blk=blk: F.leaky_relu(t, blk.relu_slope))
+        y = y.chain(blk.conv_2, 1)
+        ident = s.map(blk.identity).rows(y.lo, y.hi)
+        out.append(y.map(lambda t, blk=blk, ident=ident: F.leaky_relu(
+            t, blk.relu_slope) + ident))
+    return out
+
+
+def _dense_rows(blocks: list, strips: list, mesh: Mesh) -> list:
+    """INNT's `_DenseBlockINNT`s, each on its strip, in lockstep."""
+    act = lambda s: s.map(lambda t: F.leaky_relu(t, 0.2))
+    x1 = [act(s) for s in _hin_rows([(blk.conv1, s) for blk, s in
+                                     zip(blocks, strips)], mesh)]
+    return [act(s) for s in _hin_rows([(blk.conv2, s) for blk, s in
+                                       zip(blocks, x1)], mesh)]
+
+
+def _invblock_rows(op, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`InvBlock.forward` (INNT's subnets) on the rank's rows: one halo
+    of 8 rows, F's four 3x3 convs, then H's and G's."""
+    x1, x2 = strip_of(x, 8, mesh).map(op.invconv).split(op.split)
+    f, = _dense_rows([op.F], [x2], mesh)
+    y1 = f.map(lambda t: x1.rows(f.lo, f.hi) + t)
+    hs, gs = _dense_rows([op.H, op.G], [y1, y1], mesh)
+    s = op.clamp * (torch.sigmoid(hs.own(mesh)) * 2 - 1)
+    y2 = x2.own(mesh) * torch.exp(s) + gs.own(mesh)
+    return torch.cat([y1.own(mesh), y2], dim=1)
+
+
+def _refine_rows(refine, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`Refine.forward` on the rank's rows: one halo of 3 rows (conv_in,
+    then each CALayer's two convs for its mean, or conv_last)."""
+    x = strip_of(x, 3, mesh).chain(refine.conv_in, 1)
+    for ca in refine.process:
+        y = x.chain(ca.process, 2).own(mesh)
+        n = y.shape[-2] * mesh.space_world * y.shape[-1]
+        y = space_sum(y.sum(dim=(2, 3), keepdim=True), mesh) / n
+        x = x.map(lambda t, y=y, ca=ca: ca.conv_du(y) * y + t)
+    return x.chain(refine.conv_last, 1).own(mesh)
+
+
+def _patch_fusion_rows(pf, msf: torch.Tensor, panf: torch.Tensor,
+                       mesh: Mesh) -> torch.Tensor:
+    """`PatchFusion.forward(msf, panf)` on the rank's rows from the whole
+    planes: the rank's share of the patch-images searched, every share
+    all-gathered, the rank's rows folded (module docstring)."""
+    b, c, h, w = msf.shape
+    lh = (h + 2 * _PAD - _PATCH) // _STRIDE + 1
+    length = lh * ((w + 2 * _PAD - _PATCH) // _STRIDE + 1)
+    n, s = b * length, mesh.space_world
+    per = -(-n // s)
+    n0 = min(n, mesh.space_rank * per)
+    n1 = min(n, n0 + per)
+    fused = msf.new_zeros(per, c, _PATCH, _PATCH)
+    if n1 > n0:
+        fused[:n1 - n0] = pf.fuse(scrambled_patches(msf, n0, n1),
+                                  scrambled_patches(panf, n0, n1))
+    fused = all_gather_h(fused, mesh, dim=0)[:n]
+    a = mesh.space_rank * (h // s)
+    return fold_rows(fused.reshape(b, c * _PATCH * _PATCH, length), (h, w),
+                     a, a + h // s)
+
+
+def innt_rows(module: GPPNNINNT, ms: torch.Tensor, pan: torch.Tensor,
+              mesh: Mesh) -> torch.Tensor:
+    """`GPPNNINNT.forward` (INNT, float32, either search) on the rank's
+    rows of ms [B, C, h, w] and pan [B, 1, 4h, 4w] (module
+    docstring)."""
+    big_h, big_w = pan.shape[-2] * mesh.space_world, pan.shape[-1]
+    a, b = _own(mesh, big_h)
+    lo, hi = max(a - 2, 0), min(b + 2, big_h)
+    m_hr = Strip(bicubic_rows(all_gather_h(ms, mesh), (big_h, big_w), lo,
+                              hi), lo, hi, big_h)
+    cp = module.conv_process
+    feats = Strip.cat([m_hr.chain(cp.convms, 1),
+                       strip_of(pan, 2, mesh).chain(cp.convpan, 1)])
+    conv_f = feats.chain(module.conv_fusion.conv, 1).own(mesh)
+    whole = all_gather_h(feats.own(mesh), mesh)
+    half = whole.shape[1] // 2
+    trans_f = _patch_fusion_rows(module.transform_fusion, whole[:, :half],
+                                 whole[:, half:], mesh)
+    x = torch.cat([conv_f, trans_f], dim=1)
+    extract = module.extract
+    outs = [x]
+    for i, op in enumerate(extract.operations):
+        x = _invblock_rows(op, x, mesh)
+        if i > 1:
+            outs.append(x)
+    hr = extract.fuse(torch.cat(outs, dim=1))
+    return _refine_rows(module.refine, hr, mesh) + m_hr.own(mesh)
 
 
 def _interp23_rows(lrms: torch.Tensor, ratio: int,
@@ -442,7 +917,8 @@ def wavelet_rows(lrms: torch.Tensor, pan: torch.Tensor,
         _interp23_rows(lrms, pan.shape[-3] // lrms.shape[-3], mesh), pan)
 
 
-_MODULES = {LGTEUN: lgteun_rows, LightNetModule: lightnet_rows}
+_MODULES = {LGTEUN: lgteun_rows, LightNetModule: lightnet_rows,
+            PanUnfolding: mdcun_rows, GPPNNINNT: innt_rows}
 _CLASSICAL = {sfim_fuse: sfim_rows, wavelet_fuse: wavelet_rows}
 
 
@@ -465,13 +941,11 @@ def _sharded_forward(method) -> tuple:
             method.eval_dtype is not None
             or getattr(method, "tap_dtype", None) is not None):
         raise _refuse(f"{type(method).__name__} under LGTEUN_EVAL_DTYPE / "
-                      "LGTEUN_LIGHTNET_DTYPE=bf16 has no height-sharded "
-                      "forward")
+                      "LGTEUN_LIGHTNET_DTYPE=bf16 (the blanket cast, the "
+                      "tap path) has no height-sharded forward")
     if module.training:
         raise _refuse("a module in training mode: the height-sharded "
                       "forwards are eval forwards without gradients")
-    if isinstance(module, LGTEUN):
-        _check_lgteun(module)
     return fwd, next(module.parameters()).device, module
 
 

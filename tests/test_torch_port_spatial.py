@@ -22,8 +22,10 @@ bound; one intra-op thread here as in each rank, where every case but
 SFIM, whose sums run in another order, is bit-equal).
 
 Without spawning: the strip geometry of each operation, with the
-collectives emulated from the whole tensor (`_emulated`), and every
-refusal of `run_spatially_sharded`.
+collectives emulated from the whole tensor (`_emulated`), and the
+refusals of `run_spatially_sharded` (MDCUN, INNT and UnlgFormer's other
+fuse levels, v2 and bf16 storage modes are sharded since: their tests are
+tests/test_torch_port_spatial_zoo.py).
 """
 
 import os
@@ -458,25 +460,11 @@ def _method(model_type, env=None, monkeypatch=None, **model_cfg):
     return method.eval()
 
 
-@pytest.mark.parametrize("model_type", ["GSA", "MDCUN", "INNT", "PanFormer",
-                                        "SFIIN", "MutInf"])
+@pytest.mark.parametrize("model_type", ["GSA", "PanFormer", "SFIIN",
+                                        "MutInf"])
 def test_refuses_a_method_without_a_sharded_forward(model_type):
     with pytest.raises(ValueError, match=r"A\.9\.3"):
         spatial.run_spatially_sharded(_method(model_type), _batch(1, 0),
-                                      _mesh(0, 2))
-
-
-@pytest.mark.parametrize("env", [{"LGTEUN_FUSE_LEVEL": "1"},
-                                 {"LGTEUN_FUSE_LEVEL": "3"},
-                                 {"LGTEUN_FUSED_ATTENTION": "v2"},
-                                 {"LGTEUN_EVAL_DTYPE": "bf16res"},
-                                 {"LGTEUN_EVAL_DTYPE": "bf16"}])
-def test_refuses_unported_unlgformer_modes(env, monkeypatch):
-    method = _method("UnlgFormer", env, monkeypatch, stage=1)
-    with pytest.raises(ValueError, match=r"A\.9\.3"):
-        spatial.run_spatially_sharded(method, _batch(1, 0), _mesh(0, 2))
-    with pytest.raises(ValueError, match=r"A\.9\.3"):
-        spatial.run_spatially_sharded(method.module, _batch(1, 0),
                                       _mesh(0, 2))
 
 

@@ -225,8 +225,8 @@ kernels launched twice a step, parameters within REMAT_* after 3 steps,
 step ms and peak GiB in turns); `mixed_precision` (UnlgFormer's
 selective bf16 blocks, B4 the only kernel; the blanket cast of LightNet,
 MDCUN, INNT on both routes, PanFormer, SFIIN and MutInf: a drop-0 step
-card vs CPU plain within MIXED_SPREAD of the CPU's own spread, 50
-iterations with the rec_loss falling, float32 masters and Adam states,
+card vs CPU plain within MIXED_SPREAD of the CPU's own spread,
+MIXED_ITERS iterations with the rec_loss falling, float32 masters and Adam states,
 step ms and peak in turns with float32); adversarial training
 (UnlgFormer + PatchDiscriminator(64, 3, IN) with LSGAN, LightNet with
 GAN, LSGAN and WGAN-GP; one drop-0 step of both networks card vs CPU
@@ -271,8 +271,23 @@ rank's launches of every kernel checked, the collectives a forward by
 kind; and kernel cases at the strips' shapes (B4 1x16x240x240, B5 /
 B6 on the window strips, B8 1x32x128x128, B12 on a 256² image's rank
 rows and 7-row halo 1x8x135x256, B10 / B11 on a rank's share of 512
-patch-images). Each phase prints the seconds since the start when it
-ends.
+patch-images). Then the `large` phase (planes above 240², where B1 and
+B4 run the FFT mixer's global route and B8 runs level 2's chain): B1 at
+1x32x256², 1x32x1024², 1x64x512², B4 at 1x16x264² (odd parts 3, 11),
+1x16x1024², 1x4x2048², 1x4x1024x2048, their constant-plane cases at
+256² against the CPU plain version, B2 and B3 at 1x32x1024², each
+against its plain version (1e-4) with device ms, plain ms, bound, share
+and a cuFFT yardstick, the route's bits over 8 more launches, the route
+forced on 128² / 240² planes against the one-block body, the bf16
+entries at 256², the tables at 1024² / 2048²; the shipped UnlgFormer at
+pan 512², levels 1, 2, 3 and v2, against the CPU plain path (5e-4) with
+its launches a forward, whole 1024² and 2048² tiles (ms, MP/s, peak
+GiB), B1's training entry's gradients at 256², `fuse_scene` on the 1024²
+scene at tile 256 (MP/s, a crop against the CPU plain path) and the CLI
+with --tile 0 against one whole forward (1 DN), and height-sharded 512²
+forwards (level 2 float32, level 1 bf16res; run by the mesh phase's
+spawn) against the whole forward. Each phase prints the seconds since
+the start when it ends.
 
 Any failed phase raises (non-zero exit). With no CUDA device the script
 exits non-zero before printing any result. The last line of stdout is
@@ -2163,14 +2178,24 @@ def main() -> int:
     run_main(card)
     phase_done("main")
     # 8. data parallelism: NCCL at world 1, two gloo ranks on the card;
-    #    the same spawn runs the space phase's height-sharded forwards
-    space = space_jobs()
-    space_results = run_mesh(train_ds, card, space)
+    #    the same spawn runs the space and large phases' height-sharded
+    #    forwards
+    space, large = space_jobs(), large_space_jobs()
+    results = run_mesh(train_ds, card, space + large)
     phase_done("mesh")
     # 9. height-sharded eval forwards (`parallel/spatial.py`) against the
     #    whole forward on the card
-    run_space(space, space_results, card)
+    run_space(space, [r[:len(space)] for r in results], card)
     phase_done("space")
+    # 10. planes above 240^2: the mixer's global route, B8 by shape, whole
+    #     tiles, the scene at tile 256 and whole, sharded 512^2 forwards
+    launches[LARGE_ROUTE[0]], large_record = run_large(
+        card, large, [r[len(space):] for r in results])
+    for name, rec in large_record.items():
+        mine = record.setdefault(name, {"max_abs_err": 0.0, "by_shape": {}})
+        mine["max_abs_err"] = max(mine["max_abs_err"], rec["max_abs_err"])
+        mine["by_shape"].update(rec["by_shape"])
+    phase_done("large")
 
     kernels = []
     for name, (_op, _user, src, replaces, main_shape, no_library) in \
@@ -2186,6 +2211,18 @@ def main() -> int:
                         "library": f"none: {no_library}",
                         "by_shape": rec["by_shape"],
                         "bf16_by_shape": rec.get("bf16", {})})
+    # the mixer's global route (B1 and B4 above 240^2), a route of its own
+    name, src, replaces, main_shape, no_library = LARGE_ROUTE
+    rec = record[name]
+    full = rec["by_shape"][main_shape]
+    kernels.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": rec["max_abs_err"], "ms": full["ms"],
+                    "plain_ms": full["plain_ms"],
+                    "bound_ms": full["bound_ms"],
+                    "bound_by": full["bound_by"], "library_ms": None,
+                    "library": f"none: {no_library}",
+                    "by_shape": rec["by_shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2411,18 +2448,18 @@ def print_sass(lib_path) -> None:
         raise AssertionError(f"no mma.sync (HMMA) in the SASS of {missing}")
 
 
-def check_fft_tables() -> None:
+def check_fft_tables(sizes=TABLE_SIZES) -> None:
     """The FFT mixer's tables as the card makes them (lgteun_fft_tables)
-    against their plain version (fft_tables_ref, in long double): the
-    plan at their head and the positions bit-equal (the kernel's plan is
-    the Python mirror's), the twiddles within 6e-8 with the same exact
-    zeros."""
+    at each (H, W) of `sizes` against their plain version
+    (fft_tables_ref, in long double): the plan at their head and the
+    positions bit-equal (the kernel's plan is the Python mirror's), the
+    twiddles within 6e-8 with the same exact zeros."""
     from lgteun_tpu_torch.ops.spectral_kernel import (FFT_PLAN_FLOATS,
                                                       fft_mixer_plan,
                                                       fft_tables,
                                                       fft_tables_ref)
     worst, head = 0.0, FFT_PLAN_FLOATS
-    for h, w in TABLE_SIZES:
+    for h, w in sizes:
         got = fft_tables(h, w, torch.device("cuda")).cpu()
         want = fft_tables_ref(h, w)
         k = fft_mixer_plan(h, w)["pos_row"]
@@ -2435,7 +2472,7 @@ def check_fft_tables() -> None:
                 not torch.equal(bits(got[k:]), bits(want[k:])):
             raise AssertionError(f"fft tables {h}x{w}: the card's differ from "
                                  f"the plain ones (twiddles {err:.2e})")
-    print(f"fft_tables: {len(TABLE_SIZES)} sizes, plan and positions "
+    print(f"fft_tables: {len(sizes)} sizes, plan and positions "
           f"bit-equal to the plain tables, twiddles within {worst:.2e} with "
           "the same exact zeros")
 
@@ -2443,14 +2480,16 @@ def check_fft_tables() -> None:
 # functions of the FFT mixer and the whole block whose ptxas report the
 # smoke prints (the whole block calls the mixer's body as mixer_plane)
 PTXAS_NAMES = ("fft_mixer_pair_kernel", "fft_mixer_kernel", "mixer_plane",
-               "fft_pass_generic", "lgb_block_kernel", "tm_tc_kernel",
+               "fft_pass_generic", "fft_rows_forward_kernel",
+               "fft_columns_kernel", "fft_rows_inverse_kernel",
+               "lgb_block_kernel", "tm_tc_kernel",
                "pm_tc_kernel", "lightnet_group_kernel", "na_tc_kernel",
                "na_fp32_kernel")
 
 
 def print_ptxas(lib_path) -> None:
     """ptxas's registers, stack and spills of the FFT mixer's kernels and
-    functions, of the whole-block kernel, of the searches' and LightNet's
+    functions (its global route's three too), of the whole-block kernel, of the searches' and LightNet's
     tensor-core kernels and of the neighbourhood attention's two bodies,
     from the build's log."""
     import re
@@ -3939,7 +3978,7 @@ REMAT = (("unlg_former.py", 16, TRAIN_ROUTE),
 # a step is at most 2^-7 of the value)
 BF16_GRAD_STEP = 2.0 ** -7
 MODE_STEPS = 3              # steps checked with and without a mode
-MODE_TIMED = 5              # timed steps a turn (turns A B B A)
+MODE_TIMED = 3              # timed steps a turn (turns A B B A)
 # remat vs the run without it after MODE_STEPS steps: each loss within
 # REMAT_LOSS_REL (ROADMAP C.24: the backward's atomics in an unfixed
 # order), and each parameter tensor within REMAT_PARAM_REL as a relative
@@ -3966,7 +4005,7 @@ MIXED = (("unlg_former.py", {}, {"global_mixer": 5}),
          ("SFIIN.py", {}, {}),
          ("MutInf.py", {}, {}))
 MIXED_BATCH = 4
-MIXED_ITERS = 50
+MIXED_ITERS = 20
 MIXED_SPREAD = 1.5          # card vs CPU within this x the CPU's spread
 # adversarial: (config, gan type, discriminator) and its weight
 ADV_DISC = dict(type="PatchDiscriminator", n_feats=64, n_layers=3,
@@ -3974,7 +4013,7 @@ ADV_DISC = dict(type="PatchDiscriminator", n_feats=64, n_layers=3,
 ADV = (("unlg_former.py", "LSGAN"), ("lightnet.py", "GAN"),
        ("lightnet.py", "LSGAN"), ("lightnet.py", "WGAN-GP"))
 ADV_W = 1e-3
-ADV_STEPS = 20
+ADV_STEPS = 10
 # the discriminator's float32 gradients against float64, of each tensor's
 # largest: float32 resolves a weight that feeds an instance norm only so
 # far, on either device (an H100 read up to 3.5e-2 on the card and 2.3e-2
@@ -4975,6 +5014,537 @@ def run_bf16_train_entries(gen: torch.Generator, card: str) -> None:
             raise AssertionError(f"autograd {name} bf16 {shape}: grads "
                                  f"{grad:.3e}, outputs {worst:.3e} "
                                  f"{shares} ties {ties_ok}")
+
+
+# ------------------------------------------------------------------ large
+
+# The `large` phase: planes above 240^2 (ROADMAP A.12). The FFT mixer of
+# B1 and B4 takes the global route there (`spectral_kernel.mixer_route`),
+# and B8 runs level 2's chain (`lgb_block_kernel.lgb_route`).
+LARGE_HEAD = ((1, 32, 256, 256), (1, 32, 1024, 1024), (1, 64, 512, 512))
+# odd parts 3 and 11 at 264^2; a 2048^2 plane; a non-square one
+LARGE_MIXER = ((1, 16, 264, 264), (1, 16, 1024, 1024), (1, 4, 2048, 2048),
+               (1, 4, 1024, 2048))
+LARGE_CONST = 256           # the constant-plane and bf16 cases' side
+LARGE_BLOCK = (1, 32, 1024, 1024)   # B2 and B3 at a whole 1024^2 tile
+LARGE_TABLES = ((1024, 1024), (2048, 2048))
+# the global route forced (`lgteun_global_mixer_global_route`) on planes
+# the one-block body takes, against that body
+LARGE_SAME_BODY = ((4, 16, 128, 128), (1, 4, 240, 240))
+LARGE_SIDE = 512            # UnlgFormer's PAN side at every level
+LARGE_FORMS = {             # (level, attention) -> launches a forward
+    ("2", "1"): {"ln_mixer_head": 5, "window_attention": 5,
+                 "block_tail": 5},
+    ("1", "1"): {"window_attention": 5, "global_mixer": 5, "ln_ffn": 5},
+    # every block's planes (512^2 and the 256^2 bottleneck) above B8's:
+    # level 2's chain
+    ("3", "1"): {"ln_mixer_head": 5, "window_attention": 5,
+                 "block_tail": 5},
+    ("2", "v2"): {"ln_mixer_head": 5, "window_attention_windows": 5,
+                  "block_tail": 5}}
+LARGE_TILES = (1024, 2048)  # whole tiles, UnlgFormer level 2, batch 1
+LARGE_TIMED = 3             # timed calls of each large case
+LARGE_TILING = (256, 16, 480)   # fuse_scene's tile, halo, crop
+LARGE_GRAD = (1, 32, 256, 256)  # B1's training entry
+# the global route in the `kernels` line: (source, replaces, main shape)
+LARGE_ROUTE = ("fft_mixer_global",
+               "lgteun_tpu_torch/csrc/spectral_head.cu",
+               "lgteun_tpu/ops/spectral_kernel.py:221",
+               "global_mixer 1x16x1024x1024",
+               "FFT + amp/phase affine + inverse FFT is no single call")
+
+
+def large_kernel_cases(gen: torch.Generator):
+    """(name, shape, kernel, plain, args) of the large phase's cases:
+    B1 and B4 on the global route at LARGE_HEAD / LARGE_MIXER, their
+    constant-plane cases at LARGE_CONST, B2 and B3 at LARGE_BLOCK."""
+    from lgteun_tpu_torch.ops.ffn_kernel import block_tail, block_tail_ref
+    from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
+                                                      global_mixer_ref,
+                                                      ln_mixer_head,
+                                                      ln_mixer_head_ref)
+    from lgteun_tpu_torch.ops.window_attention import (window_attention,
+                                                       window_attention_ref)
+
+    def n(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+    def head_w(c):
+        c2 = c // 2
+        return (1 + 0.1 * n(c), 0.1 * n(c), n(c2), 0.1 * n(c2), n(c2),
+                0.1 * n(c2))
+
+    def mix_w(c):
+        return (n(c), 0.1 * n(c), n(c), 0.1 * n(c))
+
+    label = lambda shape: "x".join(map(str, shape))
+    for shape in LARGE_HEAD:
+        yield ("ln_mixer_head", label(shape), ln_mixer_head,
+               ln_mixer_head_ref, (n(*shape),) + head_w(shape[1]))
+    for shape in LARGE_MIXER:
+        yield ("global_mixer", label(shape), global_mixer, global_mixer_ref,
+               (n(*shape),) + mix_w(shape[1]))
+    hw = LARGE_CONST
+    for axis in "HW":
+        const = lambda c: (n(1, c, 1, hw) if axis == "H" else n(1, c, hw, 1)
+                           ).expand(1, c, hw, hw).contiguous()
+        yield ("ln_mixer_head", f"1x32x{hw}x{hw}-const{axis}", ln_mixer_head,
+               ln_mixer_head_ref, (const(32),) + head_w(32))
+        yield ("global_mixer", f"1x16x{hw}x{hw}-const{axis}", global_mixer,
+               global_mixer_ref, (const(16),) + mix_w(16))
+    b, c, h, w = LARGE_BLOCK
+    c2, c4 = c // 2, 4 * c
+    yield ("window_attention", label(LARGE_BLOCK), window_attention,
+           window_attention_ref,
+           (n(b, c2, h, w), n(3 * c2, c2, scale=c2 ** -0.5), 0.1 * n(3 * c2),
+            n(2, 64, 64), 2, 8))
+    ffn = {"ln_w": 1 + 0.1 * n(c), "ln_b": 0.1 * n(c),
+           "w1": n(c4, c, scale=c ** -0.5), "b1": 0.1 * n(c4),
+           "w2": n(c4, c4, scale=c4 ** -0.5), "b2": 0.1 * n(c4),
+           "dw": n(c4, 3, 3, scale=1 / 3), "bdw": 0.1 * n(c4),
+           "w3": n(c, c4, scale=c4 ** -0.5), "b3": 0.1 * n(c)}
+    yield ("block_tail", label(LARGE_BLOCK), block_tail, block_tail_ref,
+           (n(b, c, h, w), n(b, c2, h, w), n(b, c2, h, w),
+            n(c, c, scale=c ** -0.5), 0.1 * n(c), ffn))
+
+
+def large_turns(plain, kernel) -> tuple[float, float]:
+    """(kernel ms, plain ms) by CUDA events, LARGE_TIMED calls each,
+    timed plain, kernel, kernel, plain."""
+    timed = lambda f: time_ms(f, iters=LARGE_TIMED, warmup=1)
+    p1, k1, k2, p2 = (timed(f) for f in (plain, kernel, kernel, plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def large_device_ms(call, bound_ms: float, event_ms: float) -> tuple:
+    """(device ms a call of `call`, its source): the profiler's busy time
+    over LARGE_TIMED calls, traced again (up to 3 times) where it falls
+    below `bound_ms`, or below half of `event_ms` (CUDA events around
+    LARGE_TIMED calls) where that is above 1 ms and so not the host's.
+    CUPTI dropped a long call's events here (B3 at 1024^2 read 0.76 ms of
+    its 3.5 ms in one run and no device time at all in another): where
+    no trace holds, the events' time is the device time, so labelled."""
+    for _attempt in range(3):
+        with contextlib.suppress(RuntimeError):   # no device activity
+            ms = device_profile(call, n=LARGE_TIMED)["busy_ms_per_call"]
+            if ms >= bound_ms and (event_ms < 1.0 or ms >= 0.5 * event_ms):
+                return ms, "device"
+    return event_ms, "CUDA events: the profiler lost the device time"
+
+
+def large_profile(tag: str, call, card: str) -> None:
+    """`print_profile` of two calls of `call`, or a line saying that the
+    profiler recorded no device activity (printed, not a failure: the
+    profile is not a check)."""
+    try:
+        print_profile(tag, device_profile(call, n=2), card)
+    except RuntimeError as err:
+        print(f"profile {tag}: not measured ({err})")
+
+
+def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
+    """The kernel cases of the large phase against their plain versions
+    on the card (KERNEL_REL_TOL; the constant planes against the CPU
+    plain version, as the kernels phase holds them), each with its
+    device ms, plain ms, bytes or operations bound and share, the mixer
+    cases with the cuFFT rfft2 + irfft2 yardstick and their bits over
+    REPEATS more launches; the launches by layout ("global" for every
+    mixer case); the global route forced on planes the one-block body
+    takes against that body; the bf16 entries of B1 and B4 at
+    LARGE_CONST under PR 15's bound over every plane. The route's rows go
+    into `record["fft_mixer_global"]` (by wrapper and shape), B2's and
+    B3's into theirs."""
+    from lgteun_tpu_torch.ops import _cuda
+    from lgteun_tpu_torch.ops.spectral_kernel import (fft_mixer_plan,
+                                                      fft_tables,
+                                                      global_mixer,
+                                                      global_mixer_ref,
+                                                      ln_mixer_head,
+                                                      ln_mixer_head_ref,
+                                                      mixer_route)
+    wrappers = reset_launches()
+    failures = []
+    route_rec = record.setdefault(LARGE_ROUTE[0], {"max_abs_err": 0.0,
+                                                   "by_shape": {}})
+    for name, shape, kernel, plain, args in large_kernel_cases(gen):
+        got, want = as_tuple(kernel(*args)), as_tuple(plain(*args))
+        if "-const" in shape:
+            cpu, evidence = const_plane_cpu(name, shape, kernel, plain,
+                                            args, got, want)
+            print(f"large {name:17s} {shape:18s} card plain vs CPU plain "
+                  f"{rel_err(want, cpu)[0]:.3e}")
+            print(evidence)
+            want = cpu
+        rel, ab = rel_err(got, want)
+        event_ms, plain_ms = large_turns(lambda: plain(*args),
+                                         lambda: kernel(*args))
+        bound_ms, bound_by = bound(name, args, want)
+        ms, source = large_device_ms(lambda: kernel(*args), bound_ms,
+                                     event_ms)
+        mixer = name in ("ln_mixer_head", "global_mixer")
+        line = (f"large {name:17s} {shape:18s} rel err {rel:.3e} (max-abs "
+                f"{ab:.3e})  kernel {ms:.4f} ms ({source}; events "
+                f"{event_ms:.4f})  plain {plain_ms:.4f} ms  bound "
+                f"{bound_ms:.4f} ms ({bound_by}; roofline share "
+                f"{bound_ms / ms:.3f})")
+        row = {"rel_err": rel, "ms": ms, "ms_source": source,
+               "event_ms": event_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if mixer:
+            x = args[0]
+            planes = x.shape[0] * x.shape[1] // (2 if name == "ln_mixer_head"
+                                                 else 1)
+            route = mixer_route(*x.shape[-2:], planes,
+                                head=name == "ln_mixer_head")
+            line += (f"  route {route['route']}: {route['launches']} "
+                     f"launches, scratch {route['scratch_bytes'] / 2**20:.1f}"
+                     f" MiB, {route['cols']} columns a block")
+            if "-" not in shape:
+                planes = mixer_planes(name, args)
+                fft = lambda: torch.fft.irfft2(torch.fft.rfft2(planes),
+                                               s=planes.shape[-2:])
+                yard, ysource = large_device_ms(fft, 0.0, time_ms(
+                    fft, iters=LARGE_TIMED, warmup=1))
+                line += (f"  cuFFT rfft2 + irfft2 on the same planes "
+                         f"{yard:.4f} ms ({ysource}; a yardstick only)")
+                row["cufft_ms"] = yard
+            same = all(all(map(torch.equal, as_tuple(kernel(*args)), got))
+                       for _ in range(REPEATS))
+            line += f"  {REPEATS} more launches bit-identical: {same}"
+            if not same:
+                failures.append(f"{name} {shape}: not deterministic")
+            route_rec["max_abs_err"] = max(route_rec["max_abs_err"], ab)
+            route_rec["by_shape"][f"{name} {shape}"] = row
+        else:
+            rec = record.setdefault(name, {"max_abs_err": 0.0,
+                                           "by_shape": {}})
+            rec["max_abs_err"] = max(rec["max_abs_err"], ab)
+            rec["by_shape"][shape] = row
+        print(line + f"  [{card}]")
+        if not rel <= KERNEL_REL_TOL:
+            failures.append(f"{name} {shape}: rel err {rel:.3e}")
+    for name in ("ln_mixer_head", "global_mixer"):
+        got = dict(wrappers[name].variants)
+        print(f"large {name:17s} launches by layout {got}")
+        if set(got) != {"global"}:
+            failures.append(f"{name}: layouts {got}, want only global")
+
+    # the global route on planes the one-block body also takes
+    gen_same = torch.Generator().manual_seed(SEED + 31)
+    for shape in LARGE_SAME_BODY:
+        b, c, h, w = shape
+        x = torch.randn(*shape, generator=gen_same).cuda()
+        mix = tuple(torch.randn(c, generator=gen_same).cuda() * s
+                    for s in (1.0, 0.1, 1.0, 0.1))
+        body = global_mixer(x, *mix)
+        routed = torch.empty_like(x)
+        scratch = torch.empty(b * c * fft_mixer_plan(h, w)["ld"] * h * 2,
+                              device="cuda")
+        _cuda.launch("lgteun_global_mixer_global_route", x.device, x, *mix,
+                     fft_tables(h, w, x.device), scratch, routed, b, c, h, w)
+        rel = rel_err([routed], [body])[0]
+        print(f"large global route forced at {'x'.join(map(str, shape))} "
+              f"against the one-block body: rel err {rel:.3e}, bit-equal "
+              f"{torch.equal(routed, body)}; against the plain version "
+              f"{rel_err([routed], [global_mixer_ref(x, *mix)])[0]:.3e}")
+        if not rel <= KERNEL_REL_TOL:
+            failures.append(f"forced route {shape}: {rel:.3e}")
+
+    # the bf16 entries on the global route (PR 15's bound)
+    hw, f32 = LARGE_CONST, torch.float32
+    gen_bf = torch.Generator().manual_seed(SEED + 32)
+    nb = lambda *s, scale=1.0: (torch.randn(*s, generator=gen_bf)
+                                * scale).cuda()
+    c, c2 = 32, 16
+    head = (1 + 0.1 * nb(c), 0.1 * nb(c), nb(c2), 0.1 * nb(c2), nb(c2),
+            0.1 * nb(c2))
+    x, xp = nb(1, c, hw, hw), nb(1, c2, hw, hw)
+    cases = []
+    for xs in (x, x.to(BF16)):
+        cases.append(("ln_mixer_head", f"{str(xs.dtype)[6:]}>bf16", xs,
+                      lambda xs=xs: ln_mixer_head(xs, *head, out_dtype=BF16),
+                      lambda xs=xs: ln_mixer_head_ref(xs, *head,
+                                                      out_dtype=f32)))
+    for xs in (xp, xp.to(BF16)):
+        cases.append(("global_mixer", f"{str(xs.dtype)[6:]}>bf16", xs,
+                      lambda xs=xs: global_mixer(xs, *head[2:],
+                                                 out_dtype=BF16),
+                      lambda xs=xs: global_mixer_ref(xs, *head[2:],
+                                                     out_dtype=f32)))
+    from lgteun_tpu_torch.ops.norm import channel_layer_norm
+    for name, lab, xs, kernel, plain in cases:
+        got, p = as_tuple(kernel()), as_tuple(plain())
+        planes = xs.double()
+        if name == "ln_mixer_head":
+            planes = channel_layer_norm(planes, head[0].double(),
+                                        head[1].double())[:, c2:]
+        # every plane counts: a 256^2 plane is likelier than the kernels
+        # phase's to hold a bin near zero or the branch cut (the planes
+        # that bf16_outputs would set aside are printed, not set aside)
+        cut = mixer_cut_planes(planes)
+        worst, shares, within, _near, _ok = bf16_outputs(
+            name, (xs,) + (head if name == "ln_mixer_head" else head[2:]),
+            got, p)
+        ok = worst <= 0 and all(v >= BF16_EQUAL for v in shares)
+        ms, source = large_device_ms(kernel, 0.0, time_ms(
+            kernel, iters=LARGE_TIMED, warmup=1))
+        print(f"large {name:17s} 1x{xs.shape[1]}x{hw}x{hw} bf16 {lab:14s} "
+              f"{'ok' if ok else 'FAILED'}: |k - p| beyond {BF16_REL:.3e} "
+              f"|p| + {KERNEL_REL_TOL:g} max|p| at most {worst:.3e} max|p|; "
+              f"equal to bf16(p) {', '.join(f'{v:.5f}' for v in shares)} "
+              f"over every plane (planes with a bin within BF16_CUT of zero "
+              f"or the cut: {int(cut.sum())} of {cut.numel()})  kernel "
+              f"{ms:.4f} ms ({source})  [{card}]")
+        route_rec["by_shape"][f"{name} 1x{xs.shape[1]}x{hw}x{hw} {lab}"] = {
+            "ms": ms, "worst": worst, "equal_share": shares}
+        if not ok:
+            failures.append(f"bf16 {name} {lab}")
+    if failures:
+        raise AssertionError(f"large kernels: {failures}")
+
+
+def large_method(env: dict, device: str):
+    """The shipped UnlgFormer (WV-3, 8 bands), seeded (SEED), built
+    under `env` on `device`, in eval mode."""
+    cfg = mode_cfg("unlg_former.py")
+    method = zoo_method(cfg, {**TRAIN_ENV, **env}, device)
+    method.init_params(torch.Generator().manual_seed(SEED))
+    method.eval()
+    return method
+
+
+def large_batch(side: int, seed: int) -> dict:
+    """A crop of the seeded synthetic WV-3 scene at PAN side `side` (batch
+    1), normalised."""
+    lr, pan = synthetic_scene(max(side, SCENE), 8, seed)
+    return {"input_lr": (lr[None, :side // 4, :side // 4] / DN_RANGE),
+            "input_pan": (pan[None, :side, :side, None] / DN_RANGE)}
+
+
+def run_large_forwards(card: str) -> int:
+    """UnlgFormer at PAN LARGE_SIDE^2, batch 1, at each of LARGE_FORMS:
+    launches a forward (the route; every other kernel 0) and the output
+    against the CPU plain path (level 2's, the function every level
+    computes) within 5e-4, with the split line at level 2; then whole
+    LARGE_TILES tiles at level 2: median ms of LARGE_TIMED forwards,
+    MP/s and peak GiB. Returns the level-2 forward's calls of the global
+    route (both wrappers)."""
+    batch = large_batch(LARGE_SIDE, SEED + 33)
+    cpu = large_method({}, "cpu")
+    with torch.inference_mode():
+        want = cpu.apply(batch)
+    state = {k: v.cpu() for k, v in cpu.module.state_dict().items()}
+    failures, routed = [], 0
+    for (lvl, att), route in LARGE_FORMS.items():
+        tag = (f"large UnlgFormer {LARGE_SIDE}^2 level {lvl}"
+               f"{' v2' if att == 'v2' else ''}")
+        method = large_method({"LGTEUN_FUSE_LEVEL": lvl,
+                               "LGTEUN_FUSED_ATTENTION": att}, "cuda")
+        method.module.load_state_dict(state)
+        method.apply(batch)
+        torch.cuda.synchronize()
+        wrappers = reset_launches()
+        got = method.apply(batch).cpu()
+        counted = {k: fn.launches for k, fn in wrappers.items()
+                   if fn.launches}
+        layouts = {k: dict(wrappers[k].variants) for k in
+                   ("ln_mixer_head", "global_mixer") if wrappers[k].launches}
+        if (lvl, att) == ("2", "1"):
+            routed = sum(wrappers[k].variants["global"] for k in
+                         ("ln_mixer_head", "global_mixer"))
+        err = (got - want).abs().max().item()
+        ms = time_ms(lambda: method.apply(batch), iters=LARGE_TIMED,
+                     warmup=1)
+        print(f"{tag}: launches a forward {counted} (want {route}), mixer "
+              f"layouts {layouts}; max|card - cpu plain| {err:.3e} (bound "
+              f"5e-4; max|cpu| {want.abs().max().item():.3f}); {ms:.3f} ms "
+              f"a forward  [{card}]")
+        if (lvl, att) == ("2", "1"):
+            names = tuple(route)
+            with swapped_kernels(names, lambda name, fn: kernel_fns(name)[1]):
+                card_plain = method.apply(batch).cpu()
+            print(f"{tag} split: max|card kernels - card plain| "
+                  f"{(got - card_plain).abs().max().item():.3e}  max|card "
+                  f"plain - cpu plain| "
+                  f"{(card_plain - want).abs().max().item():.3e}")
+            large_profile(tag, lambda: method.apply(batch), card)
+        if counted != route or not err <= 5e-4 or not bool(
+                torch.isfinite(got).all()):
+            failures.append(f"{tag}: launches {counted}, err {err:.3e}")
+        del method
+    # whole tiles
+    method = large_method({}, "cuda")
+    method.module.load_state_dict(state)
+    for side in LARGE_TILES:
+        tile = large_batch(side, SEED + 34)
+        out = method.apply(tile)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(LARGE_TIMED):
+            t0 = time.perf_counter()
+            out = method.apply(tile)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(times)
+        ok = tuple(out.shape) == (1, side, side, 8) and bool(
+            torch.isfinite(out).all())
+        print(f"large UnlgFormer whole tile {side}x{side}x8 (level 2, batch "
+              f"1): {med * 1e3:.2f} ms median of {LARGE_TIMED} = "
+              f"{side * side / med / 1e6:.2f} MP/s, peak {peak:.2f} GiB, "
+              f"finite {ok}  [{card}]")
+        large_profile(f"large UnlgFormer whole tile {side}",
+                      lambda: method.apply(tile), card)
+        if not ok:
+            failures.append(f"whole tile {side}")
+        del out
+    del method
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"large forwards: {failures}")
+    return routed
+
+
+def run_large_grad(card: str) -> None:
+    """B1's training entry on the global route at LARGE_GRAD: forward and
+    the gradients of a loss linear in its outputs against plain autograd
+    on the card (KERNEL_REL_TOL, GRAD_REL_TOL)."""
+    from lgteun_tpu_torch.ops.spectral_kernel import (ln_mixer_head,
+                                                      ln_mixer_head_ref)
+    gen = torch.Generator().manual_seed(SEED + 35)
+    b, c, h, w = LARGE_GRAD
+    c2 = c // 2
+    n = lambda *s: torch.randn(*s, generator=gen).cuda()
+    args = tuple(a.requires_grad_() for a in (
+        n(b, c, h, w), 1 + 0.1 * n(c), 0.1 * n(c), n(c2), 0.1 * n(c2),
+        n(c2), 0.1 * n(c2)))
+    weights = [torch.randn(b, c2, h, w, generator=gen).cuda()
+               for _ in range(2)]
+    results = []
+    for fn in (ln_mixer_head, ln_mixer_head_ref):
+        outs = fn(*args)
+        loss = sum((o * wt).sum() for o, wt in zip(outs, weights))
+        results.append(([o.detach() for o in outs],
+                        torch.autograd.grad(loss, args)))
+    (k_out, k_grads), (p_out, p_grads) = results
+    fwd = rel_err(k_out, p_out)[0]
+    grad = max(rel_err([g], [p])[0] for g, p in zip(k_grads, p_grads))
+    print(f"large autograd ln_mixer_head {'x'.join(map(str, LARGE_GRAD))} "
+          f"(global route): forward rel err {fwd:.3e}  grads of {len(args)} "
+          f"tensors rel err {grad:.3e} (bounds {KERNEL_REL_TOL:g}, "
+          f"{GRAD_REL_TOL:g})  [{card}]")
+    if not (fwd <= KERNEL_REL_TOL and grad <= GRAD_REL_TOL):
+        raise AssertionError(f"large autograd: forward {fwd:.3e}, grads "
+                             f"{grad:.3e}")
+
+
+def run_large_scene(card: str) -> None:
+    """`fuse_scene` on the seeded 1024^2 WV-3 scene at LARGE_TILING
+    (256^2 tiles: the mixer's global route, batch SCENE_BATCH): MP/s
+    (median of 3), a crop against the CPU plain path within 5e-4 (its
+    tiles in one forward); then `python -m lgteun_tpu_torch.fuse --tile
+    0` on the scene's TIFFs against `method.apply` on the whole scene
+    within 1 DN."""
+    from lgteun_tpu_torch import fuse
+    from lgteun_tpu_torch.data.tiff import read_tiff, write_tiff
+    from lgteun_tpu_torch.parallel.scene import fuse_scene
+    from lgteun_tpu_torch.runner import Runner
+
+    tile, halo, crop = LARGE_TILING
+    cfg, method = unlgformer("cuda")
+    Runner(cfg, method, "cuda").init(SEED)
+    _, cpu = unlgformer("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         method.module.state_dict().items()})
+    lr, pan = synthetic_scene(SCENE, cfg.ms_chans, SEED)
+    lr_n, pan_n = lr / DN_RANGE, pan / DN_RANGE
+    lr_d, pan_d = torch.from_numpy(lr_n).cuda(), torch.from_numpy(pan_n).cuda()
+    run = lambda: fuse_scene(method, lr_d, pan_d, tile=tile, halo=halo,
+                             batch=SCENE_BATCH)
+    out = run()
+    torch.cuda.synchronize()
+    wrappers = reset_launches()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counted = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    med = statistics.median(times)
+    ok = tuple(out.shape) == (SCENE, SCENE, 8) and bool(
+        torch.isfinite(out).all())
+    print(f"large scene {SCENE}x{SCENE}x8 tile {tile} halo {halo} batch "
+          f"{SCENE_BATCH}: {med * 1e3:.2f} ms median of 3 = "
+          f"{SCENE * SCENE / med / 1e6:.2f} MP/s, launches in 3 scenes "
+          f"{counted}, mixer layouts {dict(wrappers['ln_mixer_head'].variants)}"
+          f"  [{card}]")
+    lc, pc = lr_n[:crop // 4, :crop // 4], pan_n[:crop, :crop]
+    n_crop = (-(-(crop - tile) // (tile - 2 * halo)) + 1) ** 2
+    got = fuse_scene(method, lc, pc, tile=tile, halo=halo,
+                     batch=n_crop).cpu()
+    want = fuse_scene(cpu, lc, pc, tile=tile, halo=halo, batch=n_crop)
+    err = (got - want).abs().max().item()
+    print(f"large scene tile {tile}: {crop}x{crop} crop ({n_crop} tiles in "
+          f"one forward) max|card - cpu plain| {err:.3e} (bound 5e-4)")
+    # the CLI on the whole scene in one forward
+    out_dir = os.path.join(REPO, "build", "chip_smoke", "large")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {k: os.path.join(out_dir, f"{k}.tif") for k in ("lr", "pan",
+                                                            "fused")}
+    write_tiff(paths["lr"], np.round(lr).astype(np.uint16))
+    write_tiff(paths["pan"], np.round(pan).astype(np.uint16))
+    fuse.cli(["--lr", paths["lr"], "--pan", paths["pan"], "-o",
+              paths["fused"], "--tile", "0", "--device", "cuda"])
+    cli_out = read_tiff(paths["fused"]).astype(np.float64)
+    whole = method.apply({"input_lr": (np.round(lr) / DN_RANGE)[None],
+                          "input_pan": (np.round(pan) / DN_RANGE)[None, ...,
+                                                                  None]})
+    whole = np.clip(np.round(whole[0].cpu().numpy() * DN_RANGE), 0, 2047)
+    dn = float(np.abs(cli_out - whole).max())
+    print(f"large cli --tile 0: {paths['fused']} {cli_out.shape} max|cli - "
+          f"method.apply on the whole scene| {dn:g} DN (bound 1)  [{card}]")
+    if not (ok and err <= 5e-4 and cli_out.shape == (SCENE, SCENE, 8)
+            and dn <= 1.0):
+        raise AssertionError(f"large scene: crop {err:.3e}, cli {dn} DN")
+
+
+def large_space_jobs() -> list:
+    """The large phase's height-sharded cases, run by the mesh phase's
+    spawn: UnlgFormer (seeded) at PAN LARGE_SIDE^2 on {"space": 2}, level
+    2 float32 and level 1 bf16res (B1 / B4 on the gathered whole plane:
+    the global route)."""
+    from lgteun_tpu_torch.parallel import ranks
+    batch = large_batch(LARGE_SIDE, SEED + 36)
+    cases = []
+    for lvl, mode in (("2", ""), ("1", "bf16res")):
+        cfg = mode_cfg("unlg_former.py")
+        cfg.seed = SEED
+        cases.append(dict(
+            name=f"UnlgFormer {LARGE_SIDE} L{lvl} {mode or 'float32'}",
+            method=cfg.model_type, cfg=cfg, weights=None, batch=batch,
+            batch_axis=None,
+            env={"LGTEUN_FUSE_LEVEL": lvl, "LGTEUN_FUSED_ATTENTION": "1",
+                 "LGTEUN_EVAL_DTYPE": mode},
+            route=LARGE_FORMS[lvl, "1"]))
+    return [(ranks.spatial_job, dict(mesh_shape={"space": 2}, cases=cases,
+                                     timed=SPACE_TIMED))]
+
+
+def run_large(card: str, space_jobs_: list, space_results: list) -> tuple:
+    """The `large` phase (module docstring): (the level-2 forward's calls
+    of the global route, its `launches`; the kernel cases' rows by
+    kernel, as main's `record` holds them)."""
+    record = {}
+    run_large_kernels(torch.Generator().manual_seed(SEED + 30), record,
+                      card)
+    check_fft_tables(LARGE_TABLES)
+    routed = run_large_forwards(card)
+    run_large_grad(card)
+    run_large_scene(card)
+    run_space(space_jobs_, space_results, card)
+    return routed, record
 
 
 if __name__ == "__main__":

@@ -51,6 +51,16 @@
 // Shared memory: the half spectrum [H][ld] of float2, ld = N + 1 rounded
 // up to odd, so that threads on neighbouring rows hit distinct banks;
 // column passes give neighbouring threads neighbouring columns.
+//
+// A plane whose half spectrum does not fit one block's shared memory
+// (fft_mixer_smem > kFftSmemBytes, e.g. above 240 x 240) takes the
+// global-memory route (fft_global_plan, spectral_head.cu): the same plan,
+// tables and parts (FftPlane), but the half spectrum [H][ld] lies in a
+// device scratch between three launches: (a) the W forward and split of
+// a range of rows a block, (b) the H forward, amp/phase and H inverse of
+// a range of columns a block, staged in shared memory, (c) the c2r and W
+// inverse of a range of rows a block. Each value takes the arithmetic it
+// takes in one block.
 
 #pragma once
 
@@ -190,6 +200,48 @@ inline size_t fft_mixer_smem(int H, int W) {
   const int N = W / 2;
   return sizeof(float) * kFftPlanFloats +
          sizeof(float2) * (size_t)H * ((N + 1) % 2 ? N + 1 : N + 2);
+}
+
+// Shared memory one block may hold on the H100 (227 KB): a plane whose
+// fft_mixer_smem exceeds it takes the global-memory route.
+constexpr size_t kFftSmemBytes = 232448;
+// The global route's blocks hold at most half of it (two blocks an SM),
+// and a column block at most kFftGlobalCols columns.
+constexpr size_t kFftGlobalSmem = kFftSmemBytes / 2;
+constexpr int kFftGlobalCols = 31;
+
+// The global route of an H x W plane: `rows` rows a block of parts (a)
+// and (c), `row_blocks` such blocks a plane; `cols` columns a block of
+// part (b), staged in shared memory with an odd row pitch `pitch`,
+// `col_blocks` such blocks a plane; the shared memory of each (the plan,
+// then the rows or columns). The scratch holds [planes][H][ld] float2.
+// False where there is no plan, or one row or one column of the half
+// spectrum exceeds kFftGlobalSmem (W above 29,026 or H above 14,514).
+struct FftGlobalPlan {
+  int rows, row_blocks, cols, pitch, col_blocks;
+  size_t smem_rows, smem_cols;
+};
+
+inline bool fft_global_plan(int H, int W, FftGlobalPlan* g) {
+  FftMixerPlan p;
+  if (!fft_mixer_plan(H, W, &p)) return false;
+  const size_t head = sizeof(float) * kFftPlanFloats;
+  const size_t row = sizeof(float2) * (size_t)p.ld;
+  const size_t col = sizeof(float2) * (size_t)H;
+  if (head + row > kFftGlobalSmem || head + col > kFftGlobalSmem)
+    return false;
+  const int N = W / 2;
+  const size_t rows = (kFftGlobalSmem - head) / row;
+  g->rows = rows < (size_t)H ? (int)rows : H;
+  g->row_blocks = (H + g->rows - 1) / g->rows;
+  size_t cols = (kFftGlobalSmem - head) / col;
+  if (cols > (size_t)kFftGlobalCols) cols = kFftGlobalCols;
+  g->pitch = cols % 2 ? (int)cols : (int)cols - 1;
+  g->cols = g->pitch < N + 1 ? g->pitch : N + 1;
+  g->col_blocks = (N + 1 + g->cols - 1) / g->cols;
+  g->smem_rows = head + row * g->rows;
+  g->smem_cols = head + col * g->pitch;
+  return true;
 }
 
 // exp(-2 pi i j / n) in double, exact zeros kept exact (+0).
@@ -626,10 +678,18 @@ struct FftPlane {
   // H forward, amp/phase and H inverse of columns [c0, c0 + nc)
   __device__ __forceinline__ void columns(int c0, int nc, float aw, float ab,
                                           float pw, float pb) const {
+    columns_in(A + c0, get(plan().ld), c0, nc, aw, ab, pw, pb);
+  }
+
+  // The same on columns held at Ac: column c0 + c, position q at Ac[q *
+  // ld + c] (the half spectrum itself, or a range of its columns staged
+  // with pitch ld by the global route)
+  __device__ __forceinline__ void columns_in(float2* Ac, int ld, int c0,
+                                             int nc, float aw, float ab,
+                                             float pw, float pb) const {
     const int N = get(plan().row.n), H = get(plan().col.n);
-    const int ld = get(plan().ld), passes = get(plan().col.npass);
+    const int passes = get(plan().col.npass);
     const float2* tw_col = twiddles(plan().tw_col);
-    float2* Ac = A + c0;
     const FftLines cols{nc, 1, ld, true};
 
     // H forward on the columns

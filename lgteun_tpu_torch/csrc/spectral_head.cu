@@ -23,9 +23,19 @@
 //     wave; 512 threads a block where the planes are fewer than the SMs),
 //     read from `in` and written to `out` (the head passes x2 as both),
 //     the real rows transformed as N = W/2 complex points, the passes in
-//     registers, one barrier a pass. Any even H, W with odd prime factors
-//     <= 512 whose half spectrum fits in shared memory (fft_mixer_smem <=
-//     232,448 bytes), so up to 240 x 240.
+//     registers, one barrier a pass. It takes a plane whose half spectrum
+//     fits in shared memory (fft_mixer_smem <= 232,448 bytes: up to 240 x
+//     240).
+//  2g. the global-memory route, for every larger plane (any even H, W
+//     with odd prime factors <= 512, up to H 14,514 and W 29,026): the
+//     half spectrum [planes][H][ld] in a scratch the caller passes, and
+//     three launches of 256-thread blocks, two an SM, on the parts of
+//     FftPlane: fft_rows_forward_kernel (a range of rows a block: W
+//     forward and split), fft_columns_kernel (a range of columns a block,
+//     staged in shared memory: H forward, amp/phase, H inverse) and
+//     fft_rows_inverse_kernel (a range of rows: c2r, W inverse, |.| into
+//     `out`). The same plan, tables and butterflies as the one-block body;
+//     launch_fft_mixer picks the route by the plane's shape.
 //  3. fft_tables_kernel: the twiddle and position tables of one (H, W),
 //     made once per size by the wrapper (`lgteun_fft_tables`) and read by
 //     every plane of every launch.
@@ -90,6 +100,141 @@ fft_mixer_pair_kernel(const TI* in, TO* out,
                        pha_w[c], pha_b[c]);
 }
 
+// The global route (fft_global_plan), part (a): W forward and split of
+// rows [r0, r0 + rows) of one plane a block, into spec [planes][H][ld]
+// (bins 0..N-1 at fft_pos(row, k), N at N, as the one-block body holds
+// them).
+template <class TI>
+__global__ void __launch_bounds__(256, 2)
+fft_rows_forward_kernel(const TI* in, float2* __restrict__ spec,
+                        const float* __restrict__ tables, int rows,
+                        int row_blocks) {
+  using PI = typename PairOf<TI>::type;
+  extern __shared__ float2 smem[];
+  const FftPlane plane(tables, smem);
+  plane.load_plan();
+  __syncthreads();
+  const int H = plane.get(plane.plan().col.n);
+  const int N = plane.get(plane.plan().row.n);
+  const int ld = plane.get(plane.plan().ld);
+  const int p = blockIdx.x / row_blocks;
+  const int r0 = (blockIdx.x - p * row_blocks) * rows;
+  const int nr = min(rows, H - r0);
+  const PI* in2 = reinterpret_cast<const PI*>(in + (size_t)p * H * (2 * N));
+  plane.rows_forward(in2 + (size_t)r0 * N, 0, nr);
+  __syncthreads();
+  float2* dst = spec + ((size_t)p * H + r0) * ld;
+  for (int i = threadIdx.x; i < nr * (N + 1); i += blockDim.x) {
+    const int r = i / (N + 1), k = i - r * (N + 1);
+    dst[r * ld + k] = plane.A[r * ld + k];
+  }
+}
+
+// Part (b): columns [c0, c0 + cols) of one plane a block, staged in
+// shared memory with row pitch `pitch`: H forward, amp/phase (channel
+// plane % C), H inverse, back into spec.
+__global__ void __launch_bounds__(256, 2)
+fft_columns_kernel(float2* __restrict__ spec,
+                   const float* __restrict__ amp_w,
+                   const float* __restrict__ amp_b,
+                   const float* __restrict__ pha_w,
+                   const float* __restrict__ pha_b,
+                   const float* __restrict__ tables, int C, int cols,
+                   int pitch, int col_blocks) {
+  extern __shared__ float2 smem[];
+  const FftPlane plane(tables, smem);
+  plane.load_plan();
+  __syncthreads();
+  const int H = plane.get(plane.plan().col.n);
+  const int N = plane.get(plane.plan().row.n);
+  const int ld = plane.get(plane.plan().ld);
+  const int p = blockIdx.x / col_blocks, c = p % C;
+  const int c0 = (blockIdx.x - p * col_blocks) * cols;
+  const int nc = min(cols, N + 1 - c0);
+  float2* src = spec + (size_t)p * H * ld + c0;
+  for (int i = threadIdx.x; i < H * nc; i += blockDim.x) {
+    const int q = i / nc, k = i - q * nc;
+    plane.A[q * pitch + k] = src[(size_t)q * ld + k];
+  }
+  __syncthreads();
+  plane.columns_in(plane.A, pitch, c0, nc, amp_w[c], amp_b[c], pha_w[c],
+                   pha_b[c]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < H * nc; i += blockDim.x) {
+    const int q = i / nc, k = i - q * nc;
+    src[(size_t)q * ld + k] = plane.A[q * pitch + k];
+  }
+}
+
+// Part (c): c2r, W inverse and |.| / (H W) of rows [r0, r0 + rows) of one
+// plane a block, from spec into out (rounded once to TO as stored).
+template <class TO>
+__global__ void __launch_bounds__(256, 2)
+fft_rows_inverse_kernel(const float2* __restrict__ spec, TO* out,
+                        const float* __restrict__ tables, int rows,
+                        int row_blocks) {
+  using PO = typename PairOf<TO>::type;
+  extern __shared__ float2 smem[];
+  const FftPlane plane(tables, smem);
+  plane.load_plan();
+  __syncthreads();
+  const int H = plane.get(plane.plan().col.n);
+  const int N = plane.get(plane.plan().row.n);
+  const int ld = plane.get(plane.plan().ld);
+  const int p = blockIdx.x / row_blocks;
+  const int r0 = (blockIdx.x - p * row_blocks) * rows;
+  const int nr = min(rows, H - r0);
+  const float2* src = spec + ((size_t)p * H + r0) * ld;
+  for (int i = threadIdx.x; i < nr * (N + 1); i += blockDim.x) {
+    const int r = i / (N + 1), k = i - r * (N + 1);
+    plane.A[r * ld + k] = src[r * ld + k];
+  }
+  __syncthreads();
+  PO* out2 = reinterpret_cast<PO*>(out + (size_t)p * H * (2 * N));
+  plane.rows_inverse(out2 + (size_t)r0 * N, 0, nr);
+}
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// The global route on B * C planes: parts (a), (b), (c) in three launches
+// on `scratch` (B C H ld float2, fft_global_plan).
+template <class TI, class TO>
+int launch_fft_mixer_global(const TI* in, TO* out, const float* amp_w,
+                            const float* amp_b, const float* pha_w,
+                            const float* pha_b, const float* tables,
+                            float* scratch, int B, int C, int H, int W,
+                            cudaStream_t stream) {
+  FftGlobalPlan g;
+  const long long planes = (long long)B * C;
+  if (!fft_global_plan(H, W, &g) || scratch == nullptr ||
+      planes * g.row_blocks > 0x7fffffffLL ||
+      planes * g.col_blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  float2* spec = reinterpret_cast<float2*>(scratch);
+  cudaError_t err = allow_smem(fft_rows_forward_kernel<TI>, g.smem_rows);
+  if (err == cudaSuccess) err = allow_smem(fft_columns_kernel, g.smem_cols);
+  if (err == cudaSuccess)
+    err = allow_smem(fft_rows_inverse_kernel<TO>, g.smem_rows);
+  if (err != cudaSuccess) return (int)err;
+  const int row_grid = (int)(planes * g.row_blocks);
+  fft_rows_forward_kernel<TI><<<row_grid, 256, g.smem_rows, stream>>>(
+      in, spec, tables, g.rows, g.row_blocks);
+  fft_columns_kernel<<<(int)(planes * g.col_blocks), 256, g.smem_cols,
+                       stream>>>(spec, amp_w, amp_b, pha_w, pha_b, tables,
+                                 C, g.cols, g.pitch, g.col_blocks);
+  fft_rows_inverse_kernel<TO><<<row_grid, 256, g.smem_rows, stream>>>(
+      spec, out, tables, g.rows, g.row_blocks);
+  return (int)cudaGetLastError();
+}
+
 // The tables of plan p (fft_mixer.cuh, FftMixerPlan), the plan first.
 __global__ void fft_tables_kernel(float* __restrict__ tab, FftMixerPlan p) {
   const int N = p.row.n, H = p.col.n;
@@ -133,18 +278,25 @@ cudaError_t launch_fft_mixer_kernel(Kernel* kernel, int blocks, int threads,
   return cudaGetLastError();
 }
 
-// Launch fft_mixer_kernel on B * C planes of storage types TI -> TO
-// (loads.cuh); checks the lengths it takes and the pairs' alignment.
+// Launch the mixer on B * C planes of storage types TI -> TO (loads.cuh):
+// one block (or a cluster of two) a plane where its half spectrum fits in
+// shared memory, else the global route on `scratch` (`global_route`
+// takes it at any size: the checks that hold it to the one-block body);
+// checks the lengths it takes and the pairs' alignment.
 template <class TI, class TO>
 int launch_fft_mixer(const TI* in, TO* out, const float* amp_w,
                      const float* amp_b, const float* pha_w,
-                     const float* pha_b, const float* tables, int B, int C,
-                     int H, int W, cudaStream_t stream) {
+                     const float* pha_b, const float* tables,
+                     float* scratch, int B, int C, int H, int W,
+                     cudaStream_t stream, bool global_route = false) {
   FftMixerPlan p;
   if (!fft_mixer_plan(H, W, &p) ||
       reinterpret_cast<size_t>(in) % (2 * sizeof(TI)) ||
       reinterpret_cast<size_t>(out) % (2 * sizeof(TO)))
     return (int)cudaErrorInvalidValue;
+  if (global_route || fft_mixer_smem(H, W) > kFftSmemBytes)
+    return launch_fft_mixer_global(in, out, amp_w, amp_b, pha_w, pha_b,
+                                   tables, scratch, B, C, H, W, stream);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -185,35 +337,51 @@ extern "C" int lgteun_fft_tables(float* tables, int floats, int H, int W,
   return (int)cudaGetLastError();
 }
 
-// The layout of the mixer entries' arguments: 2, they take the tables of
-// lgteun_fft_tables after pha_b (earlier versions: none).
-extern "C" int lgteun_fft_mixer_layout() { return 2; }
+// The layout of the mixer entries' arguments: 3, they take the tables of
+// lgteun_fft_tables and the global route's scratch (null where the
+// planes fit in shared memory) after pha_b (2: the tables only; earlier
+// versions: none).
+extern "C" int lgteun_fft_mixer_layout() { return 3; }
 
 // y1, x2 = LN(x)[:, :C/2], global_mixer(LN(x)[:, C/2:]) on [B, C, H, W].
-// H and W even, the plane within shared memory (checked by the wrapper).
+// H and W even, odd prime factors <= 512 (checked by the wrapper);
+// scratch: B (C/2) H ld float2 where the planes take the global route.
 extern "C" int lgteun_ln_mixer_head(const float* x, const float* ln_w,
                                     const float* ln_b, const float* amp_w,
                                     const float* amp_b, const float* pha_w,
                                     const float* pha_b, const float* tables,
-                                    float* y1, float* x2, int B, int C,
-                                    int H, int W, float eps,
+                                    float* scratch, float* y1, float* x2,
+                                    int B, int C, int H, int W, float eps,
                                     cudaStream_t stream) {
   const int HW = H * W;
   const dim3 grid_ln((HW + kThreadsLN - 1) / kThreadsLN, B);
   ln_split_kernel<float, float><<<grid_ln, kThreadsLN, 0, stream>>>(
       x, ln_w, ln_b, y1, x2, C, HW, eps);
-  return launch_fft_mixer(x2, x2, amp_w, amp_b, pha_w, pha_b, tables, B,
-                          C / 2, H, W, stream);
+  return launch_fft_mixer(x2, x2, amp_w, amp_b, pha_w, pha_b, tables,
+                          scratch, B, C / 2, H, W, stream);
 }
 
-// out = global_mixer(x) on [B, C, H, W]; per-channel affine [C] each.
+// out = global_mixer(x) on [B, C, H, W]; per-channel affine [C] each;
+// scratch as for lgteun_ln_mixer_head (B C H ld float2).
 extern "C" int lgteun_global_mixer(const float* x, const float* amp_w,
                                    const float* amp_b, const float* pha_w,
                                    const float* pha_b, const float* tables,
-                                   float* out, int B, int C, int H, int W,
-                                   cudaStream_t stream) {
-  return launch_fft_mixer(x, out, amp_w, amp_b, pha_w, pha_b, tables, B, C,
-                          H, W, stream);
+                                   float* scratch, float* out, int B, int C,
+                                   int H, int W, cudaStream_t stream) {
+  return launch_fft_mixer(x, out, amp_w, amp_b, pha_w, pha_b, tables,
+                          scratch, B, C, H, W, stream);
+}
+
+// lgteun_global_mixer on the global route at any size the route takes,
+// planes that fit in shared memory too: for the checks that hold the
+// route to the one-block body (not on a model path).
+extern "C" int lgteun_global_mixer_global_route(
+    const float* x, const float* amp_w, const float* amp_b,
+    const float* pha_w, const float* pha_b, const float* tables,
+    float* scratch, float* out, int B, int C, int H, int W,
+    cudaStream_t stream) {
+  return launch_fft_mixer(x, out, amp_w, amp_b, pha_w, pha_b, tables,
+                          scratch, B, C, H, W, stream, true);
 }
 
 // The bf16 storage entries (LGTEUN_EVAL_DTYPE, loads.cuh): activations as
@@ -225,8 +393,9 @@ extern "C" int lgteun_global_mixer(const float* x, const float* amp_w,
 extern "C" int lgteun_ln_mixer_head_bf16(
     const void* x, const float* ln_w, const float* ln_b, const float* amp_w,
     const float* amp_b, const float* pha_w, const float* pha_b,
-    const float* tables, __nv_bfloat16* y1, __nv_bfloat16* x2, float* y2,
-    int B, int C, int H, int W, int x_bf16, float eps, cudaStream_t stream) {
+    const float* tables, float* scratch, __nv_bfloat16* y1,
+    __nv_bfloat16* x2, float* y2, int B, int C, int H, int W, int x_bf16,
+    float eps, cudaStream_t stream) {
   const int HW = H * W;
   const dim3 grid_ln((HW + kThreadsLN - 1) / kThreadsLN, B);
   if (x_bf16)
@@ -240,7 +409,8 @@ extern "C" int lgteun_ln_mixer_head_bf16(
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_fft_mixer(static_cast<const float*>(y2), x2, amp_w, amp_b,
-                          pha_w, pha_b, tables, B, C / 2, H, W, stream);
+                          pha_w, pha_b, tables, scratch, B, C / 2, H, W,
+                          stream);
 }
 
 // lgteun_global_mixer with out stored as bf16, x as float (x_bf16 0:
@@ -251,13 +421,14 @@ extern "C" int lgteun_global_mixer_bf16(const void* x, const float* amp_w,
                                         const float* pha_w,
                                         const float* pha_b,
                                         const float* tables,
-                                        __nv_bfloat16* out, int B, int C,
-                                        int H, int W, int x_bf16,
-                                        cudaStream_t stream) {
+                                        float* scratch, __nv_bfloat16* out,
+                                        int B, int C, int H, int W,
+                                        int x_bf16, cudaStream_t stream) {
   if (x_bf16)
     return launch_fft_mixer(static_cast<const __nv_bfloat16*>(x), out,
-                            amp_w, amp_b, pha_w, pha_b, tables, B, C, H, W,
-                            stream);
+                            amp_w, amp_b, pha_w, pha_b, tables, scratch, B,
+                            C, H, W, stream);
   return launch_fft_mixer(static_cast<const float*>(x), out, amp_w, amp_b,
-                          pha_w, pha_b, tables, B, C, H, W, stream);
+                          pha_w, pha_b, tables, scratch, B, C, H, W,
+                          stream);
 }

@@ -38,22 +38,26 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 STORAGE = (torch.float32, torch.bfloat16)
 # C entry -> argtypes; each returns cudaGetLastError() after its launches
 SIGNATURES = {
-    # x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b, tables, y1, x2, B, C, H, W,
-    # eps, stream (tables: lgteun_fft_tables of (H, W))
-    "lgteun_ln_mixer_head": [_P] * 10 + [_I] * 4 + [_F, _P],
-    # x, amp_w, amp_b, pha_w, pha_b, tables, out, B, C, H, W, stream
-    "lgteun_global_mixer": [_P] * 7 + [_I] * 4 + [_P],
+    # x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b, tables, scratch, y1, x2, B,
+    # C, H, W, eps, stream (tables: lgteun_fft_tables of (H, W); scratch:
+    # the global route's half spectra, spectral_kernel.mixer_route, or null)
+    "lgteun_ln_mixer_head": [_P] * 11 + [_I] * 4 + [_F, _P],
+    # x, amp_w, amp_b, pha_w, pha_b, tables, scratch, out, B, C, H, W,
+    # stream
+    "lgteun_global_mixer": [_P] * 8 + [_I] * 4 + [_P],
+    # the same, on the global route at any size (checks only)
+    "lgteun_global_mixer_global_route": [_P] * 8 + [_I] * 4 + [_P],
     # tables, floats, H, W, stream
     "lgteun_fft_tables": [_P] + [_I] * 3 + [_P],
     # The bf16 storage entries (ops.storage_dtype): the float32 entry's
     # arguments, activations of the storage types its flags name (0
     # float32, 1 bfloat16; `storage_flag`), weights float32.
-    # x, 6 weights, tables, y1, x2 (bf16), y2 (float32 [B, C/2, H, W]), B,
-    # C, H, W, x_bf16, eps, stream
-    "lgteun_ln_mixer_head_bf16": [_P] * 11 + [_I] * 5 + [_F, _P],
-    # x, amp_w, amp_b, pha_w, pha_b, tables, out (bf16), B, C, H, W,
-    # x_bf16, stream
-    "lgteun_global_mixer_bf16": [_P] * 7 + [_I] * 5 + [_P],
+    # x, 6 weights, tables, scratch, y1, x2 (bf16), y2 (float32 [B, C/2,
+    # H, W]), B, C, H, W, x_bf16, eps, stream
+    "lgteun_ln_mixer_head_bf16": [_P] * 12 + [_I] * 5 + [_F, _P],
+    # x, amp_w, amp_b, pha_w, pha_b, tables, scratch, out (bf16), B, C, H,
+    # W, x_bf16, stream
+    "lgteun_global_mixer_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "lgteun_window_attention_bf16": [_P] * 5 + [_I] * 6 + [_F, _P],
     "lgteun_window_attention_bf16_fp32": [_P] * 5 + [_I] * 6 + [_F, _P],
     "lgteun_window_attention_windows_bf16": [_P] * 5 + [_I] * 4 + [_F, _P],

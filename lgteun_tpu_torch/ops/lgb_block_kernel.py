@@ -22,6 +22,17 @@ take tiles on their own), or the wide tile above 64 channels (with one h1
 slot an SM in the scratch). `lgb_block.variants` counts the launches by
 attention branch and by tail variant.
 
+B8 holds each mixer plane's half spectrum in one block's shared memory
+(the FFT mixer's one-block body), so it takes the planes B1 takes on
+that route (up to 240 x 240). For a larger plane `lgb_block` runs the
+block as level 2's chain instead, chosen by shape before any launch
+(`lgb_route`): `ln_mixer_head` (on the mixer's global route), then
+`window_attention`, then `block_tail`, each counted under its own name.
+That chain computes B8's function (the same LN, mixer, attention and
+tail, the branches rounded to `branch_dtype` where level 2 stores them),
+as the JAX package's level 3 keeps the 3-kernel path where its
+megakernel does not take a shape.
+
 `blk` holds the block's weights: ln_w/ln_b [C] (the mixer's LN),
 amp_w/amp_b/pha_w/pha_b [C/2], wqkv [3C/2, C/2] (out, in), bqkv [3C/2],
 pos [heads, win^2, win^2], proj_w [C, C] (out, in), proj_b [C], and
@@ -45,17 +56,22 @@ import torch
 
 from lgteun_tpu_torch.ops import _cuda, upcast
 from lgteun_tpu_torch.ops.ffn_kernel import (_WIDE_SLOT, _ffn_shapes,
-                                             _fragments, block_tail_ref,
+                                             _fragments, block_tail,
+                                             block_tail_ref,
                                              check_tail_args, tail_variant,
                                              tail_weights, tail_width)
 from lgteun_tpu_torch.ops.spectral_kernel import (_check_plane, fft_tables,
-                                                  ln_mixer_head_ref)
+                                                  ln_mixer_head,
+                                                  ln_mixer_head_ref,
+                                                  mixer_route)
 from lgteun_tpu_torch.ops.window_attention import (_wqkv_fragments,
                                                    attention_branch,
+                                                   window_attention,
                                                    window_attention_ref)
 
 __all__ = ["lgb_block", "lgb_block_ref", "lgb_attention_branch",
-           "lgb_schedule", "lgb_work_list", "lgb_item_needs", "KINDS"]
+           "lgb_route", "lgb_schedule", "lgb_work_list", "lgb_item_needs",
+           "KINDS"]
 
 _MIXER = ("ln_w", "ln_b", "amp_w", "amp_b", "pha_w", "pha_b")
 
@@ -71,6 +87,17 @@ def lgb_block_ref(x, blk: dict, heads: int = 2, win: int = 8,
                               heads, win, branch)
     return block_tail_ref(x, x1, x2, blk["proj_w"], blk["proj_b"],
                           blk["ffn"], eps, out_dtype=out_dtype or x.dtype)
+
+
+def lgb_route(h: int, w: int) -> str:
+    """How `lgb_block` runs a block on H x W planes: "block" (B8, one
+    launch) where the mixer's half spectrum fits one block's shared
+    memory, else "chain" (B1 on its global route, B2, B3: level 2's
+    chain); None where the mixer takes no route."""
+    route = mixer_route(h, w)
+    if route is None:
+        return None
+    return "block" if route["route"] == "smem" else "chain"
 
 
 def lgb_attention_branch(c2: int, heads: int, win: int) -> str:
@@ -159,15 +186,33 @@ def lgb_item_needs(s: dict, kind: str, image: int) -> dict:
 def lgb_block(x, blk: dict, heads: int = 2, win: int = 8,
               eps: float = 1e-5, branch_dtype=None):
     """One LGB block on [B, C, H, W] -> [B, C, H, W] of x's dtype (same
-    contract as `lgb_block_ref`; no gradient)."""
+    contract as `lgb_block_ref`; no gradient): B8, or level 2's chain
+    where the planes are larger than B8 takes (`lgb_route`)."""
     if x.device.type == "cpu":
         return lgb_block_ref(x, blk, heads, win, eps, branch_dtype)
+    if lgb_route(*x.shape[-2:]) == "chain":
+        _check_branch(x, branch_dtype)
+        y1, x2 = ln_mixer_head(x, *(blk[k] for k in _MIXER), eps=eps,
+                               out_dtype=branch_dtype)
+        x1 = window_attention(y1, blk["wqkv"], blk["bqkv"], blk["pos"],
+                              heads, win)
+        return block_tail(x, x1, x2, blk["proj_w"], blk["proj_b"],
+                          blk["ffn"], eps)
     out = _launch(x, blk, heads, win, eps, 0, branch_dtype)
     branch = lgb_attention_branch(x.shape[1] // 2, heads, win)
     lgb_block.launches += 1
     lgb_block.variants[branch] += 1
     lgb_block.variants[tail_variant(x.shape[1])] += 1
     return out
+
+
+def _check_branch(x, branch_dtype) -> None:
+    if branch_dtype not in (None, torch.bfloat16) or (
+            branch_dtype is None and x.dtype == torch.bfloat16):
+        raise ValueError(
+            "lgb_block: takes (x, branch_dtype) as (float32, None), "
+            f"(float32, bfloat16) or (bfloat16, bfloat16), got ({x.dtype}, "
+            f"{branch_dtype})")
 
 
 def _launch(x, blk: dict, heads: int, win: int, eps: float, blocks: int,
@@ -177,18 +222,17 @@ def _launch(x, blk: dict, heads: int, win: int, eps: float, blocks: int,
     the work list: its output is the same bit for bit); return out."""
     if x.device.type != "cuda":
         raise ValueError(f"lgb_block: unsupported device {x.device}")
-    if branch_dtype not in (None, torch.bfloat16) or (
-            branch_dtype is None and x.dtype == torch.bfloat16):
-        raise ValueError(
-            "lgb_block: takes (x, branch_dtype) as (float32, None), "
-            f"(float32, bfloat16) or (bfloat16, bfloat16), got ({x.dtype}, "
-            f"{branch_dtype})")
+    _check_branch(x, branch_dtype)
     b, c, h, w = x.shape
     c2, c4, s = c // 2, blk["ffn"]["w1"].shape[0], win * win
     if h % win or w % win or c2 % heads or s > 64:
         raise ValueError(f"lgb_block: need H, W divisible by {win}, C/2 by "
                          f"{heads} and win <= 8, got {tuple(x.shape)}")
-    _check_plane("lgb_block", x)
+    if _check_plane("lgb_block", x)["route"] != "smem":
+        raise ValueError(f"lgb_block: B8 holds a plane's half spectrum in "
+                         f"shared memory (up to 240 x 240; larger planes "
+                         f"run level 2's chain, lgb_route), got "
+                         f"{tuple(x.shape)}")
     mixer = dict(ln_w=(c,), ln_b=(c,), amp_w=(c2,), amp_b=(c2,),
                  pha_w=(c2,), pha_b=(c2,), wqkv=(3 * c2, c2),
                  bqkv=(3 * c2,), pos=(heads, s, s))

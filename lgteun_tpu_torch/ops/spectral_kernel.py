@@ -14,18 +14,23 @@ and `fused_global_mixer_cm` (Pallas), and of `ln_mixer_head_xla_cm` and
 `ln_mixer_head` and `global_mixer` launch `csrc/spectral_head.cu` for a
 CUDA tensor, differentiable there (`ops.autograd.recompute`: the kernel
 forward, the plain version's backward), and run `ln_mixer_head_ref` /
-`global_mixer_ref` for a CPU tensor. The kernel holds one plane's half
-spectrum in shared memory, so it takes any even H, W whose odd prime
-factors are at most 512 and whose half spectrum fits: 112 + 8 * H * ld
-bytes (the plan, then the half spectrum) <= 232,448 (the H100's shared
-memory a block), ld = W/2 + 1 rounded up to odd, e.g. 240 x 240; beyond
-that the wrappers raise. Its plan, twiddle and position tables are made
-once per (H, W) and device (`fft_tables`).
-`fft_plan` / `fft_mixer_plan` mirror the kernel's plan
-(`csrc/fft_mixer.cuh`) and `fft_tables_ref` its tables, for the tests
-and for `chip_smoke.py`, which holds the card's tables to them. The
-wrappers count their launches by the block layout the kernel picks
-(`mixer_variant`, `variants`).
+`global_mixer_ref` for a CPU tensor. The kernel takes any even H, W
+whose odd prime factors are at most 512, by one of two routes chosen by
+the plane's shape (`mixer_route`): where the half spectrum fits one
+block's shared memory, 112 + 8 * H * ld bytes (the plan, then the half
+spectrum) <= 232,448 (the H100's), ld = W/2 + 1 rounded up to odd (up to
+240 x 240), one block (or a cluster of two) holds a plane; above that,
+the global route keeps the half spectra in a scratch the wrapper
+allocates and runs the same plan in three launches over ranges of rows
+and columns (`fft_global_plan`; up to H 14,514 and W 29,026). Odd sides
+and odd primes above 512 are refused. Its plan, twiddle and position
+tables are made once per (H, W) and device (`fft_tables`).
+`fft_plan` / `fft_mixer_plan` / `fft_global_plan` mirror the kernel's
+plans (`csrc/fft_mixer.cuh`) and `fft_tables_ref` its tables, for the
+tests and for `chip_smoke.py`, which holds the card's tables to them. The
+wrappers count their launches by the layout the kernel picks
+(`mixer_variant`, `variants`: "pair", "block512", "block256" or
+"global").
 
 Storage (`ops.storage_dtype`): x may be float32 or bfloat16, and the
 head's y1 and x2, and the mixer's output, float32 or bfloat16
@@ -59,10 +64,16 @@ __all__ = ["ln_mixer_head", "ln_mixer_head_ref", "global_mixer",
            "global_mixer_ref", "PLANE_ROUNDING", "plane_rfft2", "amp_phase",
            "safe_amp_phase",
            "mixer_spectrum", "mixer_inverse", "fft_plan", "fft_pos",
-           "fft_mixer_plan", "fft_tables_ref", "fft_tables", "mixer_variant"]
+           "fft_mixer_plan", "fft_global_plan", "mixer_route",
+           "fft_tables_ref", "fft_tables", "mixer_variant"]
 
 # shared memory one block may hold on the H100 (227 KB)
 FFT_SMEM_BYTES = 232_448
+# the global route's blocks: at most half of it (two an SM), and at most
+# FFT_GLOBAL_COLS columns a column block (fft_mixer.cuh: kFftGlobalSmem,
+# kFftGlobalCols)
+FFT_GLOBAL_SMEM = FFT_SMEM_BYTES // 2
+FFT_GLOBAL_COLS = 31
 FFT_MAX_PASS = 8          # fft_mixer.cuh: kFftMaxPass
 FFT_MAX_PRIME = 512       # kFftMaxPrime
 FFT_PLAN_FLOATS = 28      # kFftPlanFloats: the plan at the tables' head
@@ -249,6 +260,57 @@ def fft_mixer_plan(h: int, w: int) -> dict | None:
             "smem": 4 * FFT_PLAN_FLOATS + 8 * h * ld}
 
 
+def fft_global_plan(h: int, w: int) -> dict | None:
+    """The global route's plan of an H x W plane (`fft_mixer.cuh::
+    fft_global_plan`): `rows` rows a block of the row parts (a) and (c)
+    and `row_blocks` such blocks a plane, `cols` columns a block of the
+    column part (b), staged with the odd row pitch `pitch`, and
+    `col_blocks` such blocks a plane; each block's shared memory
+    (`smem_rows`, `smem_cols`) and the scratch a plane (`plane_bytes`, its
+    half spectrum [H][ld] float2). None where there is no plan or one row
+    (W above 29,026) or one column (H above 14,514) of the half spectrum
+    does not fit FFT_GLOBAL_SMEM."""
+    plan = fft_mixer_plan(h, w)
+    if plan is None:
+        return None
+    head, row, col = 4 * FFT_PLAN_FLOATS, 8 * plan["ld"], 8 * h
+    if head + row > FFT_GLOBAL_SMEM or head + col > FFT_GLOBAL_SMEM:
+        return None
+    n = w // 2
+    rows = min(h, (FFT_GLOBAL_SMEM - head) // row)
+    cols = min(FFT_GLOBAL_COLS, (FFT_GLOBAL_SMEM - head) // col)
+    pitch = cols if cols % 2 else cols - 1
+    cols = min(pitch, n + 1)
+    return {"rows": rows, "row_blocks": -(-h // rows), "cols": cols,
+            "pitch": pitch, "col_blocks": -(-(n + 1) // cols),
+            "smem_rows": head + row * rows, "smem_cols": head + col * pitch,
+            "plane_bytes": 8 * h * plan["ld"]}
+
+
+def mixer_route(h: int, w: int, planes: int = 1, head: bool = False
+                ) -> dict | None:
+    """How the kernel runs the mixer of `planes` H x W planes
+    (`spectral_head.cu::launch_fft_mixer`), chosen by shape before any
+    launch: `route` "smem" (one block or a cluster of two a plane, its
+    half spectrum in shared memory) or "global" (three launches on a
+    scratch); `launches` of kernels a call (the head's LN split counts
+    one more with `head`), `scratch_bytes` the wrapper allocates (0 on
+    "smem"), and the global route's `cols` (the column-range width) and
+    `rows` (None on "smem"). None where no route takes the plane."""
+    plan = fft_mixer_plan(h, w)
+    if plan is None:
+        return None
+    if plan["smem"] <= FFT_SMEM_BYTES:
+        return {"route": "smem", "launches": 1 + head, "scratch_bytes": 0,
+                "cols": None, "rows": None}
+    g = fft_global_plan(h, w)
+    if g is None:
+        return None
+    return {"route": "global", "launches": 3 + head,
+            "scratch_bytes": planes * g["plane_bytes"], "cols": g["cols"],
+            "rows": g["rows"]}
+
+
 def fft_tables_ref(h: int, w: int) -> torch.Tensor:
     """The kernel's tables of an H x W plane as float32 [floats]: the
     plan as the struct FftMixerPlan lays it out (int32 bits: per FftPlan
@@ -303,29 +365,46 @@ def fft_tables(h: int, w: int, device: torch.device) -> torch.Tensor:
 fft_tables.launches = 0
 
 
-def mixer_variant(planes: int, device: torch.device) -> str:
-    """The launch the kernel picks for `planes` planes
-    (`spectral_head.cu::launch_fft_mixer`): "pair" (a cluster of two
-    512-thread blocks a plane) where twice the planes fit on the SMs,
-    "block512" (one 512-thread block a plane) where the planes do, else
-    "block256" (256-thread blocks, two an SM)."""
+def mixer_variant(planes: int, device: torch.device, h: int, w: int
+                  ) -> str:
+    """The launch the kernel picks for `planes` H x W planes
+    (`spectral_head.cu::launch_fft_mixer`): "global" (the global route)
+    where a plane's half spectrum does not fit in shared memory, else
+    "pair" (a cluster of two 512-thread blocks a plane) where twice the
+    planes fit on the SMs, "block512" (one 512-thread block a plane)
+    where the planes do, else "block256" (256-thread blocks, two an
+    SM)."""
+    if mixer_route(h, w)["route"] == "global":
+        return "global"
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return ("pair" if 2 * planes <= sms else
             "block512" if planes <= sms else "block256")
 
 
-def _check_plane(name: str, x: torch.Tensor) -> None:
-    """Raise unless the mixer kernel takes x's [H, W] planes."""
-    h, w = x.shape[-2:]
-    plan = fft_mixer_plan(h, w)
-    if plan is None or plan["smem"] > FFT_SMEM_BYTES:
-        smem = f"{plan['smem']} bytes" if plan else "no plan"
+def _check_plane(name: str, x: torch.Tensor) -> dict:
+    """Raise unless the mixer kernel takes x's [H, W] planes; return the
+    route (`mixer_route`) of its B x C planes."""
+    b, c, h, w = x.shape
+    route = mixer_route(h, w, b * c)
+    if route is not None:
+        return route
+    if fft_mixer_plan(h, w) is None:
         raise ValueError(
-            f"{name}: the FFT kernel holds one plane's half spectrum in "
-            f"shared memory and needs even H, W with odd prime factors <= "
-            f"{FFT_MAX_PRIME} and 112 + 8 * H * ld <= {FFT_SMEM_BYTES} bytes "
-            f"(ld = W/2 + 1 rounded up to odd), got {tuple(x.shape)} "
-            f"({smem})")
+            f"{name}: the FFT kernel needs even H, W whose odd prime "
+            f"factors are at most {FFT_MAX_PRIME}, got {tuple(x.shape)}")
+    raise ValueError(
+        f"{name}: one row or column of the half spectrum must fit "
+        f"{FFT_GLOBAL_SMEM} bytes of shared memory (H <= 14514, W <= "
+        f"29026), got {tuple(x.shape)}")
+
+
+def _scratch(route: dict, device: torch.device):
+    """The global route's scratch of `route` (`mixer_route`) on `device`,
+    or None (a null pointer) on the shared-memory route."""
+    if route["route"] != "global":
+        return None
+    return torch.empty(route["scratch_bytes"] // 4, device=device,
+                       dtype=torch.float32)
 
 
 def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
@@ -348,7 +427,7 @@ def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
         if c % 2:
             raise ValueError(f"ln_mixer_head: need even C, got "
                              f"{tuple(x.shape)}")
-        _check_plane("ln_mixer_head", x)
+        route = _check_plane("ln_mixer_head", x[:, :c2])
         if ln_w.shape != (c,) or ln_b.shape != (c,) or any(
                 p.shape != (c2,) for p in (amp_w, amp_b, pha_w, pha_b)):
             raise ValueError("ln_mixer_head: parameter shapes do not match "
@@ -357,6 +436,7 @@ def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
                              ln_b=ln_b, amp_w=amp_w, amp_b=amp_b,
                              pha_w=pha_w, pha_b=pha_b)
         tables = fft_tables(h, w, x.device)
+        scratch = _scratch(route, x.device)
         if bf16:
             _cuda.check_cuda("ln_mixer_head", x.device, _cuda.STORAGE,
                              x=x)
@@ -370,16 +450,16 @@ def ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b,
             x2 = torch.empty_like(y1)
             y2 = torch.empty(y1.shape, device=x.device)
             _cuda.launch("lgteun_ln_mixer_head_bf16", x.device, x, *weights,
-                         tables, y1, x2, y2, b, c, h, w,
+                         tables, scratch, y1, x2, y2, b, c, h, w,
                          _cuda.storage_flag(x), eps)
         else:
             _cuda.check_cuda_f32("ln_mixer_head", x.device, x=x)
             y1 = torch.empty((b, c2, h, w), device=x.device, dtype=x.dtype)
             x2 = torch.empty_like(y1)
             _cuda.launch("lgteun_ln_mixer_head", x.device, x, *weights,
-                         tables, y1, x2, b, c, h, w, eps)
+                         tables, scratch, y1, x2, b, c, h, w, eps)
         ln_mixer_head.launches += 1
-        ln_mixer_head.variants[mixer_variant(b * c2, x.device)] += 1
+        ln_mixer_head.variants[mixer_variant(b * c2, x.device, h, w)] += 1
         return y1, x2
 
     if bf16:
@@ -407,7 +487,7 @@ def global_mixer(x, amp_w, amp_b, pha_w, pha_b, out_dtype=None):
 
     def kernel(x, amp_w, amp_b, pha_w, pha_b):
         b, c, h, w = x.shape
-        _check_plane("global_mixer", x)
+        route = _check_plane("global_mixer", x)
         if any(p.shape != (c,) for p in (amp_w, amp_b, pha_w, pha_b)):
             raise ValueError("global_mixer: parameter shapes do not match C")
         _cuda.check_cuda("global_mixer", x.device, _cuda.STORAGE, x=x)
@@ -422,14 +502,14 @@ def global_mixer(x, amp_w, amp_b, pha_w, pha_b, out_dtype=None):
             x = x.clone()
         out = torch.empty(x.shape, device=x.device, dtype=out_dtype)
         args = (x, amp_w, amp_b, pha_w, pha_b, fft_tables(h, w, x.device),
-                out, b, c, h, w)
+                _scratch(route, x.device), out, b, c, h, w)
         if bf16:
             _cuda.launch("lgteun_global_mixer_bf16", x.device, *args,
                          _cuda.storage_flag(x))
         else:
             _cuda.launch("lgteun_global_mixer", x.device, *args)
         global_mixer.launches += 1
-        global_mixer.variants[mixer_variant(b * c, x.device)] += 1
+        global_mixer.variants[mixer_variant(b * c, x.device, h, w)] += 1
         return out
 
     if bf16:

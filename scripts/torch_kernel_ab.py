@@ -200,7 +200,7 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
         return (torch.randn(*shape, generator=gen) * scale).cuda()
 
     def mixer(lay, hw):
-        return () if lay[2] is None else (lay[2](hw, hw),)
+        return () if lay[2] is None else (lay[2](hw, hw),) + lay[2].scratch
 
     cases = {}
     channels = {128: 32, 64: 64, 144: 32, 72: 64}
@@ -381,9 +381,9 @@ def stack_cases(gen: torch.Generator) -> dict:
 def layouts(dll: ctypes.CDLL) -> tuple:
     """(tail, attention, tables, lgb, lightnet): the layouts of the tails'
     matrices and of the window attention's wqkv that `dll` takes, for a
-    library whose mixer entries take tables (`lgteun_fft_mixer_layout` 2)
-    a function (H, W) -> the tables, made by its `lgteun_fft_tables`,
-    else None, the whole block's arguments (`lgteun_lgb_block_layout`, 1
+    library whose mixer entries take tables (`lgteun_fft_mixer_layout` 2,
+    or 3: then a scratch after them, passed as null) a function (H, W) ->
+    the tables, made by its `lgteun_fft_tables`, else None, the whole block's arguments (`lgteun_lgb_block_layout`, 1
     without it; see lgb_cases) and LightNet's weights
     (`lgteun_lightnet_layout` 2: `lightnet_fragments`; 1 without it: the
     packed FP32 rows of `lightnet_packed_fp32`)."""
@@ -397,7 +397,7 @@ def layouts(dll: ctypes.CDLL) -> tuple:
         if fn is not None:
             fn.restype = ctypes.c_int
         got.append(fn() if fn is not None else default)
-    if got[2] != 2:
+    if got[2] < 2:
         return got[0], got[1], None, got[3], got[4]
     from lgteun_tpu_torch.ops.spectral_kernel import fft_mixer_plan
     made = {}
@@ -408,6 +408,9 @@ def layouts(dll: ctypes.CDLL) -> tuple:
             made[h, w] = torch.empty(floats, device="cuda")
             caller(dll, "lgteun_fft_tables", made[h, w], floats, h, w)()
         return made[h, w]
+    # layout 3: a scratch after the tables (null: the A/B sizes fit in
+    # shared memory)
+    tables.scratch = (None,) if got[2] >= 3 else ()
     return got[0], got[1], tables, got[3], got[4]
 
 

@@ -238,19 +238,25 @@ def test_new_wrappers_run_plain_version_on_cpu():
                                       ((1, 4, 72, 80), True),
                                       ((1, 4, 176, 176), True),
                                       ((1, 4, 240, 240), True),
-                                      ((1, 4, 248, 248), False),
+                                      ((1, 4, 248, 248), True),
                                       ((1, 4, 72, 71), False),
-                                      ((1, 4, 8, 8208), False)])
+                                      ((1, 4, 8, 8208), True),
+                                      ((1, 4, 2062, 2062), False),
+                                      ((1, 4, 1042, 16), False),
+                                      ((1, 4, 16, 2 * 2 * 523), False)])
 def test_mixer_kernel_size_limit(shape, ok):
-    """The card's mixer takes every even H, W (odd prime factors <= 512)
-    whose plan and half spectrum H x (W/2 + 1, rounded up to odd) fit one
-    block's 232,448 bytes of shared memory (240^2 does, 248^2 does not),
-    and raises naming that limit otherwise."""
+    """The card's mixer takes every even H, W whose odd prime factors are
+    at most 512: where the plan and half spectrum H x (W/2 + 1, rounded up
+    to odd) fit one block's 232,448 bytes of shared memory (240^2) in one
+    block, above that (248^2, 8 x 8208) on its global route; it raises
+    naming those limits for an odd side or an odd prime above 512 (1031,
+    521, 523)."""
     x = torch.empty(shape, device="meta")
     if ok:
         _check_plane("global_mixer", x)
     else:
-        with pytest.raises(ValueError, match="232448 bytes"):
+        with pytest.raises(ValueError, match="odd prime factors are at "
+                                             "most 512"):
             _check_plane("global_mixer", x)
 
 

@@ -1472,14 +1472,15 @@ def bf16_kernel_cases(gen: torch.Generator):
         x[: nimg // 4, :, :, :8] = 0
         return x.reshape(nimg, c, side * side).to(BF16)
 
-    for nimg, c in ((256 * b, 4), (64, 8)):
+    # (512 patch-images: a rank's share of a height-sharded forward)
+    for nimg, c in ((256 * b, 4), (64, 8), (SPACE_SHARE, 4)):
         shape = f"{nimg}x{c}x576"
         tm = (patch_images(nimg, c), patch_images(nimg, c))
         yield ("texture_match", shape, "bf16",
                lambda tm=tm: texture_match(*tm),
                lambda tm=tm: texture_match_ref(*tm, out_dtype=f32), tm,
                shape)
-    for nimg, c in ((256 * b, 4), (64, 8)):
+    for nimg, c in ((256 * b, 4), (64, 8), (SPACE_SHARE, 4)):
         shape = f"{nimg}x576x{9 * c}"
         lr_u, ref_u = (F.unfold(patch_images(nimg, c).view(nimg, c, 24, 24),
                                 3, padding=1) for _ in range(2))
@@ -1487,9 +1488,11 @@ def bf16_kernel_cases(gen: torch.Generator):
               row_normalize(ref_u, 1).transpose(1, 2).contiguous(), ref_u)
         yield ("patch_match", shape, "bf16", lambda pm=pm: patch_match(*pm),
                lambda pm=pm: patch_match_ref(*pm, out_dtype=f32), pm, shape)
-    for c in (8, 4):
-        shape = f"{b}x{c}x128x128"
-        na = (n(b, c, 128, 128).to(BF16),) + tuple(
+    # (and a strip of a height-sharded forward: 128 rows and a 7-row halo)
+    for xshape in ((b, 8, 128, 128), (b, 4, 128, 128), SPACE_STRIP):
+        c = xshape[1]
+        shape = "x".join(map(str, xshape))
+        na = (n(*xshape).to(BF16),) + tuple(
             n(c, c, scale=c ** -0.5).to(BF16) for _ in range(4))
         yield ("neighborhood_attention", shape, "bf16",
                lambda na=na: neighborhood_attention(*na),
@@ -4721,7 +4724,13 @@ SPACE_ROUTE = {"UnlgFormer": {"ln_mixer_head": 5, "window_attention": 5,
                               "block_tail": 5},
                "lightnet": {"lightnet_stack": 5}, "SFIM": {}, "Wavelet": {},
                "MDCUN": {"neighborhood_attention": 4},
-               "INNT": {"texture_match": 1}}
+               "INNT": {"texture_match": 1}, "GSA": {}, "MutInf": {},
+               "SFIIN": {}, "PanFormer": {}}
+# the bf16 entries at a rank's shapes: B12 on a strip of MDCUN's 256^2
+# forward on two ranks (its 128 rows and a 7-row halo), B10 / B11 on a
+# share of INNT's patch-images
+SPACE_STRIP = (1, 8, 135, 256)
+SPACE_SHARE = 512
 # UnlgFormer's other forms on strips: (LGTEUN_FUSE_LEVEL,
 # LGTEUN_FUSED_ATTENTION) -> launches a forward, in each storage mode
 SPACE_FORMS = {("1", "1"): {"window_attention": 5, "global_mixer": 5,
@@ -4747,7 +4756,12 @@ def space_jobs() -> list:
     shipped MDCUN and INNT (both routes) at pan 128^2 and 256^2, and
     UnlgFormer at 128^2 at fuse levels 1, 2, 3 and v2 (levels 1, 2) in
     float32, bf16res and bf16 (level 1 float32 at 240^2 too), on
-    {"space": 2}; each case's "route" is its launches a forward."""
+    {"space": 2}. Since the rest of the zoo's strips: GSA, MutInf, SFIIN
+    and PanFormer at 128^2 and 256^2, MDCUN and INNT (both routes) under
+    LGTEUN_EVAL_DTYPE=bf16 at 128^2 and 256^2, PanFormer and SFIIN under
+    it at 128^2, and LightNet's tap path at 512^2 (the cast forms held by
+    `space_cast_close`); each case's "route" is its launches a
+    forward."""
     from lgteun_tpu_torch.parallel import ranks
 
     lr, pan, target = synthetic_scene(SCENE, 8, SEED + 19, target_too=True)
@@ -4772,7 +4786,8 @@ def space_jobs() -> list:
         cfg.seed = SEED
         return dict(name=name, method=cfg.model_type, cfg=cfg,
                     weights=None, batch=b, batch_axis=axis, env=env or {},
-                    route=route or SPACE_ROUTE[cfg.model_type])
+                    route=(SPACE_ROUTE[cfg.model_type] if route is None
+                           else route))
 
     def form(side, lvl, att, mode):
         env = {"LGTEUN_FUSE_LEVEL": lvl, "LGTEUN_FUSED_ATTENTION": att,
@@ -4798,6 +4813,25 @@ def space_jobs() -> list:
               for mode in ("", "bf16res", "bf16")
               if (lvl, att, mode) != ("2", "1", "")]
     space.append(form(240, "1", "1", ""))
+    # the rest of the zoo (ROADMAP A.9.3): float32, the blanket cast
+    # (held by `cast`: the whole cast forward's own spread) and LightNet's
+    # tap path
+    bf16 = {"LGTEUN_EVAL_DTYPE": "bf16"}
+    for side in (128, 256):
+        space += [case(f"{m} {side}", f"{m}.py", batch(side))
+                  for m in ("GSA", "MutInf", "SFIIN", "PanFormer")]
+        space += [dict(case(f"MDCUN {side} bf16", "MDCUN.py", batch(side),
+                            env=bf16), cast=True),
+                  dict(case(f"INNT {side} bf16", "INNT.py", batch(side),
+                            env=bf16), cast=True),
+                  dict(case(f"INNT {side} bf16 FUSED_TM=0", "INNT.py",
+                            batch(side), env={**bf16, "LGTEUN_FUSED_TM": "0"},
+                            route={"patch_match": 1}), cast=True)]
+    space += [dict(case(f"{m} 128 bf16", f"{m}.py", batch(128), env=bf16),
+                   cast=True) for m in ("PanFormer", "SFIIN")]
+    space.append(dict(case("LightNet 512 tap path", "lightnet.py",
+                           batch(512), env={"LGTEUN_LIGHTNET_DTYPE": "bf16"},
+                           route={}), cast=True))
     hybrid = [case("UnlgFormer 128 x2", "unlg_former.py",
                    batch(128, ((0, 0), (256, 384))), "data")]
     return [(ranks.spatial_job, dict(mesh_shape={"space": 2}, cases=space,
@@ -4823,6 +4857,36 @@ def space_near_ties(method, batch: dict) -> int:
         method.apply(batch)
     return sum(int(near_ties(*search_inputs(k, args)).sum())
                for k, args in calls)
+
+
+def space_cast_close(name: str, case: dict, method, inputs: dict,
+                     got: np.ndarray, want: np.ndarray, card: str) -> bool:
+    """A cast form's sharded output against its whole forward on the
+    card, as the rest of the zoo under bf16 is held (`run_bf16_zoo`):
+    mean|sharded - whole| within BF16_SPREAD of the whole forward's own
+    spread at a one-bf16-step input change (`bf16_step`), and the
+    sharded output's drift from the float32 whole forward inside
+    BF16_DRIFT_*."""
+    moved = method.apply({k: bf16_step(v) for k, v in inputs.items()})
+    env = {k: v for k, v in case["env"].items()
+           if k not in ("LGTEUN_EVAL_DTYPE", "LGTEUN_LIGHTNET_DTYPE")}
+    f32 = zoo_method(case["cfg"], {**TRAIN_ENV, **env}, "cuda")
+    f32.init_params(torch.Generator().manual_seed(case["cfg"].seed))
+    ref = f32.eval().apply(inputs).cpu().numpy()
+    spread = float(np.abs(moved.cpu().numpy() - want).mean())
+    gap = float(np.abs(got - want).mean())
+    scale = float(np.abs(ref).max())
+    drift = np.abs(got - ref)
+    print(f"space {name}: mean|sharded - whole| {gap:.3e} = "
+          f"{gap / max(spread, 1e-30):.3f} of the whole cast forward's own "
+          f"spread at a one-bf16-step input change ({spread:.3e}; bound "
+          f"{BF16_SPREAD}); drift from the float32 whole forward mean "
+          f"{drift.mean() / scale:.3e} max {drift.max() / scale:.3e} of "
+          f"max|out| {scale:.4f} (bounds {BF16_DRIFT_MEAN:g}, "
+          f"{BF16_DRIFT_MAX:g})  [{card}]")
+    return bool(gap <= BF16_SPREAD * spread
+                and drift.mean() <= BF16_DRIFT_MEAN * scale
+                and drift.max() <= BF16_DRIFT_MAX * scale)
 
 
 def run_space(jobs: list, results: list, card: str) -> None:
@@ -4894,6 +4958,9 @@ def run_space(jobs: list, results: list, card: str) -> None:
                   f"halos), the whole forward alone {whole_ms:.3f} ms (CUDA "
                   f"events)  [{card}]")
             close = diff <= SPACE_REL * scale
+            if case.get("cast"):
+                close = bits or space_cast_close(name, case, method, inputs,
+                                                 got, want, card)
             if case.get("envelope"):
                 exact = sfim_fuse(*(torch.as_tensor(
                     inputs[key], dtype=torch.float64, device="cuda")

@@ -1,6 +1,7 @@
 """Port model registration: importing this package registers every
 ported method into `lgteun_tpu_torch.registry.MODELS`."""
 
+import contextlib
 import math
 import os
 
@@ -93,13 +94,28 @@ class lightnet(TorchMethod):  # noqa: N801  (the reference's name)
     def make_module(self):
         return LightNetModule(ms_chans=self.cfg.ms_chans)
 
+    def taps(self) -> bool:
+        """True where the eval forward takes the tap path."""
+        return self.tap_dtype is not None and not self.training
+
     def eval_forward(self, ms, pan):
-        if self.tap_dtype is None or self.training:
+        with self.eval_cast(ms, pan) as (ms, pan):
+            if self.taps():
+                return lightnet_fast_forward(self.module, ms, pan,
+                                             self.tap_dtype)
             return self.forward(ms, pan)
+
+    @contextlib.contextmanager
+    def eval_cast(self, ms, pan):
+        """The tap path's context: the module holds the `tap_dtype` copy
+        of its parameters (ms and pan stay float32: the stack's input is
+        cast inside the path)."""
+        if not self.taps():
+            yield ms, pan
+            return
         cast, _ = self.cast_parameters(self.tap_dtype, ms, pan)
         with swapped(self.module, cast):
-            return lightnet_fast_forward(self.module, ms, pan,
-                                         self.tap_dtype)
+            yield ms, pan
 
 
 @MODELS.register()

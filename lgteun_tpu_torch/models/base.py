@@ -309,17 +309,26 @@ class TorchMethod:
 
     def eval_forward(self, ms: torch.Tensor, pan: torch.Tensor
                      ) -> torch.Tensor:
-        """`forward` as `apply` runs it: under the blanket cast
-        (`eval_dtype`, outside training) on the bfloat16 copy of the
-        parameters and bfloat16 ms, pan, the output upcast to
+        """`forward` as `apply` runs it: inside `eval_cast`, the output
         float32."""
+        with self.eval_cast(ms, pan) as (ms, pan):
+            return self.forward(ms, pan).float()
+
+    @contextlib.contextmanager
+    def eval_cast(self, ms: torch.Tensor, pan: torch.Tensor):
+        """The blanket cast of an eval forward, which the whole forward
+        (`eval_forward`) and the height-sharded one (`parallel/
+        spatial.py`) both run inside: under `eval_dtype`, outside
+        training, the module holds the bfloat16 copy of its parameters
+        and the ops promote as `jax_promotion` says; yields (ms, pan) as
+        the forward takes them (bfloat16 there, else as they are)."""
         dtype = self.eval_dtype
         if dtype is None or self.training:
-            return self.forward(ms, pan)
+            yield ms, pan
+            return
         cast, made = self.cast_parameters(dtype, ms, pan)
         with swapped(self.module, cast), jax_promotion(made):
-            out = self.forward(ms.to(dtype), pan.to(dtype))
-        return out.float()
+            yield ms.to(dtype), pan.to(dtype)
 
     def cast_parameters(self, dtype: torch.dtype, *inputs) -> tuple:
         """({name: the module's parameter in `dtype`}, {(id(cast), float32):

@@ -88,11 +88,15 @@ def _shift_masks(window_size: int) -> tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=None)
 def _window_mask(window_size: int, nw_h: int, nw_w: int,
-                 device: torch.device) -> torch.Tensor:
-    """[nw_h * nw_w, w², w²] mask of the shifted windows on `device`."""
+                 device: torch.device, last: bool = True) -> torch.Tensor:
+    """[nw_h * nw_w, w², w²] mask of the shifted windows on `device`:
+    the left/right mask on every band's last window, the upper/lower one
+    on the last band where it is the plane's (`last`; False for a strip
+    above it, `parallel/spatial.py`)."""
     ul, lr = _shift_masks(window_size)
     mask = np.zeros((nw_h * nw_w,) + ul.shape, np.float32)
-    mask[-nw_w:] += ul
+    if last:
+        mask[-nw_w:] += ul
     mask[nw_w - 1::nw_w] += lr
     with torch.inference_mode(False):
         return torch.tensor(mask, device=device)
@@ -151,10 +155,21 @@ class WindowAttention(nn.Module):
     def forward(self, x: torch.Tensor, y: torch.Tensor | None = None
                 ) -> torch.Tensor:
         w, d = self.window_size, self.window_size // 2
-        if self.shifted:
-            x = torch.roll(x, (-d, -d), dims=(1, 2))
-            if self.cross_attn and y is not None:
-                y = torch.roll(y, (-d, -d), dims=(1, 2))
+        if not self.shifted:
+            return self.attend(x, y)
+        x = torch.roll(x, (-d, -d), dims=(1, 2))
+        if self.cross_attn and y is not None:
+            y = torch.roll(y, (-d, -d), dims=(1, 2))
+        out = self.attend(x, y, _window_mask(w, x.shape[1] // w,
+                                             x.shape[2] // w, x.device))
+        return torch.roll(out, (d, d), dims=(1, 2))
+
+    def attend(self, x: torch.Tensor, y: torch.Tensor | None = None,
+               mask: torch.Tensor | None = None) -> torch.Tensor:
+        """The attention of x's windows (q from y where cross), NHWC in
+        and out, `mask` added to the logits: the forward without its
+        rolls."""
+        w = self.window_size
         b, n_h, n_w, _ = x.shape
         nw_h, nw_w = n_h // w, n_w // w
         if self.cross_attn:
@@ -171,16 +186,13 @@ class WindowAttention(nn.Module):
         q, k, v = map(to_windows, (q, k, v))
         dots = torch.matmul(q, k.transpose(-2, -1)) * self.head_dim ** -0.5
         dots = dots + self.pos_embedding[_relative_index_on(w, x.device)]
-        if self.shifted:
-            dots = dots + _window_mask(w, nw_h, nw_w, x.device)
+        if mask is not None:
+            dots = dots + mask
         out = torch.matmul(dots.softmax(dim=-1), v)
         out = out.reshape(b, self.heads, nw_h, nw_w, w, w, self.head_dim)
         out = out.permute(0, 2, 4, 3, 5, 1, 6).reshape(
             b, n_h, n_w, self.heads * self.head_dim)
-        out = self.to_out(out)
-        if self.shifted:
-            out = torch.roll(out, (d, d), dims=(1, 2))
-        return out
+        return self.to_out(out)
 
 
 class _PreNorm(nn.Module):

@@ -36,7 +36,8 @@ from torch import nn
 from lgteun_tpu_torch.ops.lightnet_kernel import lightnet_stack
 from lgteun_tpu_torch.ops.resize import sample_scale as sampling
 
-__all__ = ["LightNetModule", "lightnet_fast_forward", "tap_dtype"]
+__all__ = ["LightNetModule", "lightnet_fast_forward", "tap_stack",
+           "tap_dtype"]
 
 
 class _SpanConv(nn.Module):
@@ -186,7 +187,14 @@ def lightnet_fast_forward(module: LightNetModule, ms: torch.Tensor,
     """The tap path (module docstring): ms [B, C, h, w] + pan [B, 1, 4h,
     4w] float32 -> [B, C, 4h, 4w] float32, the stack in `dtype`."""
     lms = sampling(sampling(ms, 2), 2)
-    x = torch.cat([pan, lms], dim=1).to(dtype)
+    x = tap_stack(module, torch.cat([pan, lms], dim=1).to(dtype), dtype)
+    return lms + x.to(lms.dtype)
+
+
+def tap_stack(module: LightNetModule, x: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The tap path's ten SpanConvs on x = cat(pan, lms) in `dtype`; each
+    depthwise conv zero-pads its own input along H and W."""
     spans = module.spans()
     for span in spans[:3]:
         x = _span_nchw(x, span, dtype)
@@ -195,4 +203,4 @@ def lightnet_fast_forward(module: LightNetModule, ms: torch.Tensor,
         x = _span_nchw(F.relu(_span_nchw(x, conv1, dtype)), conv2, dtype)
     for span in spans[7:]:
         x = _span_nchw(x, span, dtype)
-    return lms + x.to(lms.dtype)
+    return x

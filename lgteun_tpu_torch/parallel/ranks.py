@@ -298,13 +298,15 @@ def spatial_job(mesh: Mesh, mesh_shape: dict, cases: list,
     (reference-keyed numpy, or None: seeded with cfg.seed), "batch"
     (NHWC numpy), "batch_axis" (None or "data"), and optionally "env"
     (the switches read when the method is built: LGTEUN_FUSE_LEVEL,
-    LGTEUN_FUSED_ATTENTION, LGTEUN_EVAL_DTYPE, LGTEUN_FUSED_TM). {name: {"rows": the
-    rank's rows of the output, "whole": `gather_h` of every rank's (on
-    rank 0; None on the others), "launches": {wrapper: launches of one
-    forward}, "exchanges": the collectives of one forward by kind
-    (`spatial.EXCHANGES`), "ms": the mean of `timed` forwards after a
-    barrier (None at 0)}}; with `timed`, also "exchange_ms": the mean ms
-    of `timed` 1-row halo exchanges of a [1, 8, 1, 128] tensor alone."""
+    LGTEUN_FUSED_ATTENTION, LGTEUN_EVAL_DTYPE, LGTEUN_FUSED_TM,
+    LGTEUN_LIGHTNET_DTYPE, each set only while the method is built).
+    {name: {"rows": the rank's rows of the output, "whole": `gather_h`
+    of every rank's (on rank 0; None on the others), "launches":
+    {wrapper: launches of one forward}, "exchanges": the collectives of
+    one forward by kind (`spatial.EXCHANGES`), "ms": the mean of `timed`
+    forwards after a barrier (None at 0)}}; with `timed`, also
+    "exchange_ms": the mean ms of `timed` 1-row halo exchanges of a
+    [1, 8, 1, 128] tensor alone."""
     from lgteun_tpu_torch.parallel import spatial
     from lgteun_tpu_torch.parallel.spatial import (gather_h,
                                                    run_spatially_sharded)

@@ -24,13 +24,23 @@ operation written out:
 `method` is what JAX's `fn` was: a `TorchMethod` or `ClassicalMethod`
 (the Runner's), or a bare module, and its forward is chosen by the type
 of module it holds (`LGTEUN`, `LightNetModule`, `PanUnfolding`,
-`GPPNNINNT`) or, for a classical method, by its fuse function (SFIM,
-Wavelet). The JAX module's jit cache (`_JITTED`) has no counterpart:
-these forwards are eager, and nothing is traced or compiled per
-function.
+`GPPNNINNT`, `GPPNNMutInf`, `SFIINNet`, `CrossSwinTransformer`) or, for
+a classical method, by its fuse function (SFIM, Wavelet, GSA), so every
+registered method shards, as JAX's GSPMD shards any function. A
+`TorchMethod`'s forward runs inside its `eval_cast`, as its whole
+forward does: under LGTEUN_EVAL_DTYPE=bf16 the zoo's blanket cast (the
+bfloat16 copy of the parameters, `jax_promotion`, bfloat16 ms and pan;
+MutInf opts out and runs float32), and LightNet's bf16 tap path under
+LGTEUN_LIGHTNET_DTYPE=bf16 (`lightnet_tap_rows`). The JAX module's jit
+cache (`_JITTED`) has no counterpart: these forwards are eager, and
+nothing is traced or compiled per function.
 
 The collectives (NCHW strips, H at dim -2, over the rank's
-`space_group`); these three are the only ones a forward runs:
+`space_group`); these three are the only ones a forward runs (a mean
+over H x W, `space_mean`, all-reduces float32 partial sums, a bfloat16
+tensor's upcast, and rounds once, as torch's bfloat16 mean accumulates
+in float32; so do the instance norms; bfloat16 partials are never
+summed):
 
     halo_rows(x, above, below, mesh, edge)
                      `above` rows of the rank above and `below` rows of
@@ -149,21 +159,71 @@ Each forward, per operation (the rank holds rows [a, b) of H):
   each, `instance_norm_rows`: population variance, eps 1e-5, two
   passes; H's and G's sums share each all-reduce); `Refine` one 3-row
   halo, the CALayer's mean all-reduced.
+- MDCUN and INNT under the blanket cast: the same forwards in bfloat16,
+  B12's bf16 entry on x's strip (4 launches a forward), B10's or B11's
+  on the rank's share (1); m_hr's float64 sums round to float32 and then
+  to bfloat16, as the whole cast forward's float32 resize rounds.
+- LightNet's tap path: the resamples as above, the bf16 stack of plain
+  taps on the same 10-row "none" halo (each depthwise conv zero-pads its
+  input), cropped.
+- GSA: the LrMS gathered (interp23's rows, and the low-resolution design
+  whole), the PAN's x1/4 bicubic on a strip on its grid, gathered
+  ([B, 1, h, w]: small); alpha by `lstsq_min_norm` of the gathered
+  design on every rank (the same bits on each); every mean, cov and
+  var_i0 from all-reduced sums, centred first where the whole op
+  centres.
+- MutInf (`GPPNNMutInf`, the HrMS it returns first): m_hr by
+  `bicubic_rows` on the rank's rows and 6 more each side; the two
+  `_FeatureExtract`s (a 1x1, two edge blocks of three 3x3 convs deep,
+  CDC's five-tap 3x3 beside) on one 6-row halo each; each InvBlock's
+  `_DenseBlockMscale`s (F, then H and G in lockstep) take x at 1/2 and
+  1/4 from the bilinear downsample of the rank's own rows (its taps lie
+  inside a strip on the scale's grid), the dense block (two HIN blocks,
+  a 3x3 over the dense concat: five 3x3 convs) at each scale on one
+  halo of 5 rows (1x) or 6 (1/2, 1/4: one more for the bilinear way back
+  up), where the neighbours' strips hold that many, else a halo before
+  each of its three stages (`_reach`); the instance norms of every block
+  and scale in one all-reduce a pass, the pooled gate's mean in one;
+  `Refine` (two CALayers) as INNT's. A rank takes a multiple of 4 PAN
+  rows, at least 8.
+- SFIIN: m_hr as MutInf's (1 row each side), `conv_p` on it, `conv_p1` on a
+  1-row PAN halo; each `SpaFre`: `panprocess` on a 1-row halo, msf and
+  panf all-gathered in one collective, `FreProcess` on the whole planes
+  on every rank (its FFT is global: exact, and redundant, as B1's
+  gathered plane), the spatial branch (the InvBlock, five 3x3 convs for
+  F and for H / G, then a 1x1), `spa_att` and `post` on a strip of the
+  gathered planes (13 rows each side), the channel mean and population
+  contrast from all-reduced sums, two passes; `fuse`, `Refine`.
+- PanFormer (`CrossSwinTransformer`; NHWC inside): the patch merges
+  local; regular windows local; a shifted block rolls the plane up by
+  d = w / 2 first (a "wrap" halo of d rows from the rank below, x's and,
+  in a cross block, y's in one exchange; the roll along W is local),
+  takes the upper/lower mask only on the image's last band of windows
+  (the rank that holds it: a strip's mask is built for its place in the
+  global grid), and rolls back down after (a "wrap" halo of d rows from
+  the rank above); `HR_tail` (3x3 convs around two PixelShuffles) on one
+  2-row halo at the ms grid (1 + 1/2 + 1/4 + 1/4 rows), the clamp last.
+  A rank's feature rows must be whole windows: a multiple of 4 w PAN
+  rows (16 at the shipped window 4).
 
 Refused with a ValueError that names ROADMAP A.9.3 (never by gathering
-the input and running the whole forward): a method without a sharded
-forward (GSA, PanFormer, SFIIN, MutInf), the zoo's blanket bf16 cast
-(MDCUN and INNT under LGTEUN_EVAL_DTYPE=bf16) and LightNet's bf16 tap
-path, an H that the space size does not divide, Wavelet on strips that
-are not a multiple of 4 rows, a halo deeper than a neighbour's strip
-(a deep halo needs strips of at least its depth: 16 PAN rows a rank for
-MDCUN), and a call with gradients on (an input that requires a
-gradient, or a module in training mode): these are eval forwards.
+the input and running the whole forward): an H that the space size does
+not divide, strips off a method's grid (Wavelet's not a multiple of 4
+rows, MutInf's not starting on the 1/4 grid, PanFormer's not whole
+windows), a halo deeper than a neighbour's strip (a deep halo needs
+strips of at least its depth: 16 PAN rows a rank for MDCUN, 8 for
+MutInf), and a call with gradients on (an input that requires a
+gradient, or a module in training mode): these are eval forwards. A
+module of no registered method has no sharded forward and is refused
+too.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -173,13 +233,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from lgteun_tpu_torch.models.base import ClassicalMethod, TorchMethod, _nchw
-from lgteun_tpu_torch.models.classical import (sfim_fuse, wavelet_fuse,
+from lgteun_tpu_torch.models.classical import (gsa_fuse, lstsq_min_norm,
+                                               sfim_fuse, wavelet_fuse,
                                                wavelet_inject)
 from lgteun_tpu_torch.models.common.layers import Resample
+from lgteun_tpu_torch.models.common.swin import _window_mask
 from lgteun_tpu_torch.models.innt import _PAD, _PATCH, _STRIDE, GPPNNINNT
 from lgteun_tpu_torch.models.lgteun import LGTEUN
-from lgteun_tpu_torch.models.lightnet import LightNetModule
+from lgteun_tpu_torch.models.lightnet import LightNetModule, tap_stack
 from lgteun_tpu_torch.models.mdcun import PanUnfolding
+from lgteun_tpu_torch.models.mutinf import GPPNNMutInf
+from lgteun_tpu_torch.models.panformer import CrossSwinTransformer
+from lgteun_tpu_torch.models.sfiin import _BLOCKS, SFIINNet
 from lgteun_tpu_torch.ops import upcast
 from lgteun_tpu_torch.ops.ffn_kernel import block_tail, ln_ffn
 from lgteun_tpu_torch.ops.filters import depthwise_conv2d
@@ -194,8 +259,9 @@ from lgteun_tpu_torch.parallel.mesh import (Mesh, _all_reduce_,
 
 __all__ = ["SpatialSharding", "spatial_sharding", "run_spatially_sharded",
            "gather_h", "halo_rows", "edge_rows", "all_gather_h",
-           "space_sum", "resample_rows", "conv_rows", "window_strip",
-           "Strip", "strip_of", "bicubic_rows", "instance_norm_rows",
+           "space_sum", "space_mean", "resample_rows", "conv_rows",
+           "window_strip", "Strip", "strip_of", "bicubic_rows",
+           "instance_norm_rows",
            "scrambled_patches", "fold_rows", "EDGES", "PAN_HALO",
            "STAGE_HALO", "EXCHANGES"]
 
@@ -260,8 +326,9 @@ def spatial_sharding(mesh: Mesh, batch_axis: str | None = None,
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """t as an exchange carries it: a bfloat16 tensor as its bytes (a
-    uint8 view, its last dimension doubled)."""
-    return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
+    uint8 view of its contiguous copy, its last dimension doubled)."""
+    return (t.contiguous().view(torch.uint8) if t.dtype == torch.bfloat16
+            else t)
 
 
 def _unbits(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -474,13 +541,17 @@ class Strip:
             start + int(kept[0]), start + int(kept[-1]) + 1)
 
     def rescale(self, layer: nn.Module) -> "Strip":
-        """`nn.MaxPool2d(k)` (the strip cut to the k-row grid first) or
-        `nn.Upsample(scale_factor=k)` (nearest) of the strip."""
+        """`nn.MaxPool2d(k)` (the strip cut to the k-row grid first),
+        `nn.Upsample(scale_factor=k)` (nearest) or `nn.PixelShuffle(k)`
+        of the strip."""
         if isinstance(layer, nn.MaxPool2d):
             k = layer.kernel_size
             lo, hi = -(-self.lo // k) * k, self.hi // k * k
             return Strip(layer(self.rows(lo, hi)), lo // k, hi // k,
                          self.h // k)
+        if isinstance(layer, nn.PixelShuffle):
+            k = layer.upscale_factor
+            return Strip(layer(self.t), self.lo * k, self.hi * k, self.h * k)
         k = int(layer.scale_factor)
         if layer.mode != "nearest":
             raise _refuse(f"no height-sharded form of {layer.mode} "
@@ -544,8 +615,10 @@ def bicubic_rows(x: torch.Tensor, out_hw: tuple[int, int], lo: int,
         term = x64[..., (base - 1 + k).clamp(0, h - 1), :] * wk.double()[
             :, None]
         out = term if out is None else out + term
+    # float32 first: a bfloat16 x (the blanket cast) rounds as the whole
+    # op's float32 resize does, twice
     return F.interpolate(out, size=(hi - lo, big_w), mode="bicubic",
-                         align_corners=True).to(x.dtype)
+                         align_corners=True).float().to(x.dtype)
 
 
 def instance_norm_rows(parts: list, mesh: Mesh) -> list:
@@ -555,7 +628,7 @@ def instance_norm_rows(parts: list, mesh: Mesh) -> list:
     then the squared deviations from them), every part's sums in one
     all-reduce a pass; the strip's other rows normalised by the same
     statistics."""
-    own = [s.own(mesh) for _, s in parts]
+    own = [upcast(s.own(mesh)) for _, s in parts]
     counts = [o.shape[-2] * mesh.space_world * o.shape[-1] for o in own]
     widths = [o.shape[1] for o in own]
     total = lambda ts: torch.split(space_sum(torch.cat(
@@ -566,10 +639,19 @@ def instance_norm_rows(parts: list, mesh: Mesh) -> list:
     for (norm, s), m, d, n in zip(parts, means, dev, counts):
         inv = torch.rsqrt(d / n + norm.eps)
         out.append(s.map(lambda t, m=m, inv=inv, norm=norm: (
-            t - m[:, :, None, None]) * inv[:, :, None, None]
-            * norm.weight[None, :, None, None]
-            + norm.bias[None, :, None, None]))
+            (upcast(t) - m[:, :, None, None]) * inv[:, :, None, None]
+            * upcast(norm.weight)[None, :, None, None]
+            + upcast(norm.bias)[None, :, None, None]).to(t.dtype)))
     return out
+
+
+def space_mean(t: torch.Tensor, mesh: Mesh, n: int) -> torch.Tensor:
+    """The mean over H and W of the whole plane of n pixels from the
+    rank's rows t [B, C, h, W]: float32 partial sums (a bfloat16 t
+    upcast), all-reduced, then rounded once to t's dtype, as torch's
+    bfloat16 mean accumulates in float32 and rounds once."""
+    total = space_sum(upcast(t).sum(dim=(2, 3), keepdim=True), mesh)
+    return (total / n).to(t.dtype)
 
 
 def scrambled_patches(x: torch.Tensor, n0: int, n1: int) -> torch.Tensor:
@@ -689,9 +771,6 @@ def lgteun_rows(module: LGTEUN, ms: torch.Tensor, pan: torch.Tensor,
 def lightnet_rows(module: LightNetModule, ms: torch.Tensor,
                   pan: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """`LightNetModule.forward` (float32, B9) on the rank's rows."""
-    if ms.dtype != torch.float32:
-        raise _refuse(f"LightNet on {ms.dtype}: only the float32 stack is "
-                      "height-sharded")
     spans = module.spans()
     lms = resample_rows(resample_rows(ms, 2, mesh), 2, mesh)
     weights = [s.weights() for s in spans]
@@ -699,6 +778,20 @@ def lightnet_rows(module: LightNetModule, ms: torch.Tensor,
     return strip_of(torch.cat([pan, lms], dim=1), depth, mesh).chain(
         lambda x: lightnet_stack(x, x[:, 1:].contiguous(), weights),
         depth).own(mesh)
+
+
+def lightnet_tap_rows(module: LightNetModule, ms: torch.Tensor,
+                      pan: torch.Tensor, mesh: Mesh,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """`lightnet_fast_forward` (the bf16 tap path, the stack in `dtype`)
+    on the rank's rows: the resamples as `lightnet_rows`, the stack on
+    the same 10-row "none" halo (each depthwise conv zero-pads its
+    input, so the rows it gets wrong stay inside the halo), cropped."""
+    lms = resample_rows(resample_rows(ms, 2, mesh), 2, mesh)
+    depth = len(module.spans())
+    x = strip_of(torch.cat([pan, lms], dim=1).to(dtype), depth, mesh)
+    stack = x.chain(lambda t: tap_stack(module, t, dtype), depth)
+    return lms + stack.own(mesh).to(lms.dtype)
 
 
 def _mdcun_gates(module: PanUnfolding, feat: Strip, pan: Strip,
@@ -820,8 +913,8 @@ def _refine_rows(refine, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     x = strip_of(x, 3, mesh).chain(refine.conv_in, 1)
     for ca in refine.process:
         y = x.chain(ca.process, 2).own(mesh)
-        n = y.shape[-2] * mesh.space_world * y.shape[-1]
-        y = space_sum(y.sum(dim=(2, 3), keepdim=True), mesh) / n
+        y = space_mean(y, mesh, y.shape[-2] * mesh.space_world
+                       * y.shape[-1])
         x = x.map(lambda t, y=y, ca=ca: ca.conv_du(y) * y + t)
     return x.chain(refine.conv_last, 1).own(mesh)
 
@@ -848,16 +941,24 @@ def _patch_fusion_rows(pf, msf: torch.Tensor, panf: torch.Tensor,
                      a, a + h // s)
 
 
+def _m_hr(ms: torch.Tensor, pan: torch.Tensor, depth: int,
+          mesh: Mesh) -> Strip:
+    """m_hr, the bicubic align_corners=True resize of ms to the PAN's
+    size, on the rank's rows and `depth` more each side, from the
+    gathered LrMS (`bicubic_rows`)."""
+    big_h, big_w = pan.shape[-2] * mesh.space_world, pan.shape[-1]
+    a, b = _own(mesh, big_h)
+    lo, hi = max(a - depth, 0), min(b + depth, big_h)
+    return Strip(bicubic_rows(all_gather_h(ms, mesh), (big_h, big_w), lo,
+                              hi), lo, hi, big_h)
+
+
 def innt_rows(module: GPPNNINNT, ms: torch.Tensor, pan: torch.Tensor,
               mesh: Mesh) -> torch.Tensor:
     """`GPPNNINNT.forward` (INNT, float32, either search) on the rank's
     rows of ms [B, C, h, w] and pan [B, 1, 4h, 4w] (module
     docstring)."""
-    big_h, big_w = pan.shape[-2] * mesh.space_world, pan.shape[-1]
-    a, b = _own(mesh, big_h)
-    lo, hi = max(a - 2, 0), min(b + 2, big_h)
-    m_hr = Strip(bicubic_rows(all_gather_h(ms, mesh), (big_h, big_w), lo,
-                              hi), lo, hi, big_h)
+    m_hr = _m_hr(ms, pan, 2, mesh)
     cp = module.conv_process
     feats = Strip.cat([m_hr.chain(cp.convms, 1),
                        strip_of(pan, 2, mesh).chain(cp.convpan, 1)])
@@ -875,6 +976,235 @@ def innt_rows(module: GPPNNINNT, ms: torch.Tensor, pan: torch.Tensor,
             outs.append(x)
     hr = extract.fuse(torch.cat(outs, dim=1))
     return _refine_rows(module.refine, hr, mesh) + m_hr.own(mesh)
+
+
+def _reach(s: Strip, depth: int, ahead: int, mesh: Mesh) -> Strip:
+    """s where it holds `depth` rows beyond the rank's at each end that
+    is not the image's; else the rank's rows of s with a new halo,
+    `ahead` rows deep (one exchange for the operations ahead) where the
+    neighbours' strips hold that many, else `depth`."""
+    a, b = _own(mesh, s.h)
+    if s.lo <= max(a - depth, 0) and s.hi >= min(b + depth, s.h):
+        return s
+    own = s.own(mesh)
+    return strip_of(own, ahead if ahead <= own.shape[-2] else depth, mesh)
+
+
+_SCALES = (1, 2, 4)     # MutInf's multi-scale dense block: 1x, 1/2, 1/4
+
+
+def _mscale_rows(blocks: list, x: torch.Tensor, mesh: Mesh) -> list:
+    """MutInf's `_DenseBlockMscale`s, each of the rank's rows x, in
+    lockstep (every block's and scale's instance-norm sums in one
+    all-reduce a pass, the pooled sums in one): x at 1/2 and 1/4 by the
+    bilinear downsample of the rank's own rows (its taps stay inside a
+    strip that starts on the scale's grid), the dense block at each scale
+    on a halo of its five 3x3 convs and, below 1x, one row more for the
+    bilinear way back up: one halo a scale where the neighbours' strips
+    hold it, else a halo before each stage (HIN block, HIN block, the
+    3x3 over the dense concat), so that a rank takes 8 PAN rows."""
+    h = x.shape[-2] * mesh.space_world
+    own = Strip(x, *_own(mesh, h), h)
+    act = lambda st: st.map(lambda t: F.leaky_relu(t, 0.2))
+    parts = [(blk.ops, q) for blk in blocks for q in _SCALES]
+    up = lambda q: int(q > 1)
+    # one strip a scale: the blocks share their input
+    xs = {q: _reach(own if q == 1 else own.resample(1 / q, "bilinear"), 2,
+                    5 + up(q), mesh) for q in _SCALES}
+    x1 = [act(st) for st in _hin_rows([(ops.conv1, xs[q])
+                                      for ops, q in parts], mesh)]
+    x1 = [_reach(st, 2, 3 + up(q), mesh) for st, (_, q) in zip(x1, parts)]
+    x2 = [act(st) for st in _hin_rows([(ops.conv2, st) for st, (ops, _) in
+                                       zip(x1, parts)], mesh)]
+    outs = []
+    for (ops, q), a1, a2 in zip(parts, x1, x2):
+        cat = _reach(Strip.cat([xs[q], a1, a2]), 1 + up(q), 1 + up(q), mesh)
+        y = act(cat.chain(ops.conv3, 1))
+        outs.append(y.own(mesh) if q == 1 else
+                    y.resample(q, "bilinear").own(mesh))
+    per = [outs[i:i + len(_SCALES)] for i in range(0, len(outs),
+                                                   len(_SCALES))]
+    pooled = space_mean(torch.cat([o1 + o2 + o4 for o1, o2, o4 in per],
+                                  dim=1), mesh, h * x.shape[-1])
+    result = []
+    for blk, (o1, o2, o4), att in zip(blocks, per, torch.split(
+            pooled, [o[0].shape[1] for o in per], dim=1)):
+        att = blk.fusepool[1:](att)
+        result.append(blk.fuse(torch.cat([o1 * blk.fc1(att),
+                                          o2 * blk.fc2(att),
+                                          o4 * blk.fc3(att)], dim=1)))
+    return result
+
+
+def mutinf_rows(module: GPPNNMutInf, ms: torch.Tensor, pan: torch.Tensor,
+                mesh: Mesh) -> torch.Tensor:
+    """`GPPNNMutInf.forward`'s HrMS (MutInf, eval) on the rank's rows of
+    ms [B, C, h, w] and pan [B, 1, 4h, 4w] (module docstring)."""
+    m_hr = _m_hr(ms, pan, 6, mesh)
+    panf = strip_of(pan, 6, mesh).chain(module.extract_pan, 6).own(mesh)
+    x = torch.cat([panf, m_hr.chain(module.extract_ms, 6).own(mesh)], dim=1)
+    outs = []
+    for i, op in enumerate(module.interact.operations):
+        x = op.invconv(x)
+        x1, x2 = x[:, :op.split], x[:, op.split:]
+        f, = _mscale_rows([op.F], x2, mesh)
+        y1 = x1 + f
+        hs, gs = _mscale_rows([op.H, op.G], y1, mesh)
+        s = op.clamp * (torch.sigmoid(hs) * 2 - 1)
+        x = torch.cat([y1, x2 * torch.exp(s) + gs], dim=1)
+        if i >= 1:
+            outs.append(x)
+    fused = module.interact.fuse(torch.cat(outs, dim=1))
+    return _refine_rows(module.refine, fused, mesh) + m_hr.own(mesh)
+
+
+_SPA_DEPTH = 10     # SFIIN's InvBlock: F, then H and G, five 3x3 each
+
+
+def _spafre_rows(blk, msf: torch.Tensor, pan: torch.Tensor,
+                 mesh: Mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """`SpaFre.forward` on the rank's rows: `panprocess` on a 1-row halo;
+    msf and panf all-gathered (one collective), `FreProcess` on the whole
+    planes on every rank (its FFT is global: exact, and redundant), the
+    spatial branch (InvBlock, 1x1), `spa_att` and `post` on a strip of
+    the gathered planes; the channel mean and contrast over H x W from
+    all-reduced sums, two passes."""
+    panpre = conv_rows(blk.panprocess, pan, mesh)
+    panf = blk.panpre(panpre)
+    c = msf.shape[1]
+    whole = all_gather_h(torch.cat([msf, panf], dim=1), mesh)
+    h = whole.shape[-2]
+    a, b = _own(mesh, h)
+    fre = blk.fre_process(whole[:, :c], whole[:, c:])
+    depth = _SPA_DEPTH + 2 + 1
+    lo, hi = max(a - depth, 0), min(b + depth, h)
+    spa = Strip(whole[..., lo:hi, :], lo, hi, h).chain(blk.spa_process,
+                                                       _SPA_DEPTH)
+    fre_at = lambda st: fre[..., st.lo:st.hi, :]
+    att = Strip(spa.t - fre_at(spa), spa.lo, spa.hi, h).chain(blk.spa_att,
+                                                              2)
+    spa = spa.crop(att.lo, att.hi)
+    cat_f = att.map(lambda t: torch.cat([fre_at(att) * t + spa.t,
+                                         fre_at(att)], dim=1))
+    own = cat_f.own(mesh)
+    n = h * own.shape[-1]
+    mean = space_mean(own, mesh, n)
+    contrast = space_mean((own - mean).square(), mesh, n).sqrt()
+    gate = blk.cha_att(contrast + mean)
+    cha = cat_f.map(lambda t: gate * t).chain(blk.post, 1).own(mesh)
+    return cha + msf, panpre
+
+
+def sfiin_rows(module: SFIINNet, ms: torch.Tensor, pan: torch.Tensor,
+               mesh: Mesh) -> torch.Tensor:
+    """`SFIINNet.forward` (SFIIN, eval) on the rank's rows of ms
+    [B, C, h, w] and pan [B, 1, 4h, 4w] (module docstring)."""
+    proc = module.process
+    m_hr = _m_hr(ms, pan, 1, mesh)
+    msf = m_hr.chain(proc.conv_p, 1).own(mesh)
+    panf = conv_rows(proc.conv_p1, pan, mesh)
+    feats = []
+    for name in _BLOCKS:
+        msf, panf = _spafre_rows(getattr(proc, name), msf, panf, mesh)
+        feats.append(msf)
+    fused = proc.fuse(torch.cat(feats, dim=1))
+    return _refine_rows(module.refine, fused, mesh) + m_hr.own(mesh)
+
+
+def _halo_nhwc(x: torch.Tensor, above: int, below: int, mesh: Mesh,
+               edge: str) -> torch.Tensor:
+    """`halo_rows` of an NHWC x."""
+    return halo_rows(x.permute(0, 3, 1, 2), above, below, mesh,
+                     edge).permute(0, 2, 3, 1)
+
+
+def _window_attention_rows(attn, x: torch.Tensor, y: torch.Tensor | None,
+                           mesh: Mesh) -> torch.Tensor:
+    """`WindowAttention.forward(x, y)` on the rank's rows (NHWC, a
+    multiple of the window; W whole): regular windows are local; shifted
+    ones roll the plane up by d = w // 2 first (d rows of the rank below
+    come in, the first rows of the image at its bottom: a "wrap" halo,
+    with y's rows where the block is cross), take the upper/lower mask
+    on the image's last band of windows only, and roll back down after
+    (d rows of the rank above, "wrap"); the roll along W is local."""
+    if not attn.shifted:
+        return attn.attend(x, y)
+    w, d = attn.window_size, attn.window_size // 2
+    h, cx = x.shape[1], x.shape[-1]
+    cross = attn.cross_attn and y is not None
+    t = torch.cat([x, y], dim=-1) if cross else x
+    t = torch.roll(_halo_nhwc(t, 0, d, mesh, "wrap")[:, d:], -d, dims=2)
+    x, y = (t[..., :cx], t[..., cx:]) if cross else (t, y)
+    mask = _window_mask(w, h // w, x.shape[2] // w, x.device,
+                        mesh.space_rank == mesh.space_world - 1)
+    out = attn.attend(x, y, mask)
+    return torch.roll(_halo_nhwc(out, d, 0, mesh, "wrap")[:, :h], d, dims=2)
+
+
+def _swin_rows(swin, x: torch.Tensor, mesh: Mesh,
+               y: torch.Tensor | None = None) -> torch.Tensor:
+    """`SwinModule.forward(x, y)` on the rank's rows (NHWC): the patch
+    merge is local (the rank's rows a multiple of its factor), each
+    block's LN and MLP too."""
+    x = swin.patch_partition(x)
+    if y is not None:
+        y = swin.patch_partition(y)
+    for block in (blk for pair in swin.layers for blk in pair):
+        pre = block.attention_block.fn
+        x = _window_attention_rows(pre.fn, pre.norm(x), y, mesh) + x
+        x = block.mlp_block(x)
+    return x
+
+
+def _tail_rows(seq: nn.Sequential, x: torch.Tensor,
+               mesh: Mesh) -> torch.Tensor:
+    """PanFormer's `HR_tail` (3x3 convs, PixelShuffles, ReLUs) on the
+    rank's rows: one halo of the convs' reach at x's grid (a conv at k
+    times x's resolution reaches 1 / k of x's rows: 1 + 1/2 + 1/4 + 1/4
+    = 2 rows)."""
+    reach, k = 0.0, 1
+    for layer in seq:
+        if isinstance(layer, nn.Conv2d):
+            reach += layer.kernel_size[0] // 2 / k
+        elif isinstance(layer, nn.PixelShuffle):
+            k *= layer.upscale_factor
+    st = strip_of(x, math.ceil(reach), mesh)
+    for layer in seq:
+        if isinstance(layer, nn.Conv2d):
+            st = st.chain(layer, layer.kernel_size[0] // 2)
+        elif isinstance(layer, nn.PixelShuffle):
+            st = st.rescale(layer)
+        else:
+            st = st.map(layer)
+    return st.own(mesh)
+
+
+def panformer_rows(module: CrossSwinTransformer, ms: torch.Tensor,
+                   pan: torch.Tensor, mesh: Mesh,
+                   clamp: bool = True) -> torch.Tensor:
+    """`CrossSwinTransformer.forward` (PanFormer, eval; `unclamped` with
+    clamp False) on the rank's rows of ms [B, C, h, w] and pan [B, 1, 4h,
+    4w]: each rank's feature rows must be whole windows, so a rank takes
+    a multiple of 4 w PAN rows (16 at the shipped window 4)."""
+    win = module.pan_encoder[0].layers[0][0].attention_block.fn.fn \
+        .window_size
+    if pan.shape[-2] % (4 * win):
+        raise _refuse(f"PanFormer on strips of {pan.shape[-2]} PAN rows: "
+                      f"its windows need a multiple of {4 * win} (two "
+                      f"x1/2 merges, then {win}-row windows)")
+    nhwc = lambda t: t.permute(0, 2, 3, 1)
+    pan_feat = nhwc(pan)
+    for swin in module.pan_encoder:
+        pan_feat = _swin_rows(swin, pan_feat, mesh)
+    ms_feat = nhwc(ms)
+    for swin in module.ms_encoder:
+        ms_feat = _swin_rows(swin, ms_feat, mesh)
+    for pan_cross, ms_cross in zip(module.pan_cross_ms, module.ms_cross_pan):
+        pan_feat, ms_feat = (_swin_rows(pan_cross, pan_feat, mesh, ms_feat),
+                             _swin_rows(ms_cross, ms_feat, mesh, pan_feat))
+    x = torch.cat([pan_feat, ms_feat], dim=-1).permute(0, 3, 1, 2)
+    out = _tail_rows(module.HR_tail, x, mesh)
+    return out.clamp(0.0, module.hi) if clamp else out
 
 
 def _interp23_rows(lrms: torch.Tensor, ratio: int,
@@ -917,9 +1247,57 @@ def wavelet_rows(lrms: torch.Tensor, pan: torch.Tensor,
         _interp23_rows(lrms, pan.shape[-3] // lrms.shape[-3], mesh), pan)
 
 
+def gsa_rows(lrms: torch.Tensor, pan: torch.Tensor,
+             mesh: Mesh) -> torch.Tensor:
+    """`gsa_fuse` on the rank's rows of NHWC lrms and pan: the LrMS
+    gathered (interp23's rows, and the low-resolution design whole); the
+    PAN's x1/ratio bicubic on the rank's rows (a strip on its grid), then
+    gathered; alpha by `lstsq_min_norm` of the gathered design on every
+    rank (the same bits on each); every mean over H x W, cov and var_i0
+    from all-reduced sums, centred first where the whole op centres."""
+    b, hh, ww, c = lrms.shape
+    whole = all_gather_h(lrms, mesh, dim=1)
+    hh = whole.shape[1]
+    h, w = pan.shape[1], pan.shape[2]
+    ratio = h * mesh.space_world // hh
+    n_pix = h * mesh.space_world * w
+    rows = slice(mesh.space_rank * h, (mesh.space_rank + 1) * h)
+    u_hs = interp23_upsample(whole, ratio, rows=rows)
+    mean = lambda t, dims: space_sum(t.sum(dim=dims, keepdim=True),
+                                     mesh) / n_pix
+    means = mean(u_hs, (1, 2))
+    image_lr = u_hs - means
+    image_lr_lp = whole - whole.mean(dim=(1, 2), keepdim=True)
+    image_hr = pan - mean(pan, (1, 2, 3))
+    image_hr0 = all_gather_h(resample_rows(image_hr.permute(0, 3, 1, 2),
+                                           1 / ratio, mesh), mesh)
+    ones = lambda n: torch.ones(b, n, 1, dtype=lrms.dtype,
+                                device=lrms.device)
+    design = torch.cat([image_lr_lp.reshape(b, hh * ww, c), ones(hh * ww)],
+                       -1)
+    alpha = lstsq_min_norm(design, image_hr0.reshape(b, hh * ww, 1))
+    design_hr = torch.cat([image_lr.reshape(b, h * w, c), ones(h * w)], -1)
+    intensity = (design_hr @ alpha).reshape(b, h * w)
+    i0 = intensity - mean(intensity, 1)
+    i0_centered = i0 - mean(i0, 1)
+    bands = image_lr.reshape(b, h * w, c)
+    bands_centered = bands - mean(bands, 1)
+    cov_var = space_sum(torch.cat([
+        (i0_centered[:, None, :] @ bands_centered)[:, 0],
+        (i0_centered * i0_centered).sum(dim=1, keepdim=True)], dim=1), mesh)
+    g = (cov_var[:, :c] / (n_pix - 1)) / (cov_var[:, c:] / n_pix)
+    delta = image_hr - i0.reshape(b, h, w, 1)
+    fused = image_lr + g[:, None, None, :] * delta
+    fused = fused - mean(fused, (1, 2)) + means
+    return fused.clamp(0.0, 1.0)
+
+
 _MODULES = {LGTEUN: lgteun_rows, LightNetModule: lightnet_rows,
-            PanUnfolding: mdcun_rows, GPPNNINNT: innt_rows}
-_CLASSICAL = {sfim_fuse: sfim_rows, wavelet_fuse: wavelet_rows}
+            PanUnfolding: mdcun_rows, GPPNNINNT: innt_rows,
+            GPPNNMutInf: mutinf_rows, SFIINNet: sfiin_rows,
+            CrossSwinTransformer: panformer_rows}
+_CLASSICAL = {sfim_fuse: sfim_rows, wavelet_fuse: wavelet_rows,
+              gsa_fuse: gsa_rows}
 
 
 def _sharded_forward(method) -> tuple:
@@ -937,12 +1315,8 @@ def _sharded_forward(method) -> tuple:
     if fwd is None:
         raise _refuse(f"{type(method).__name__} ({type(module).__name__}) "
                       "has no height-sharded forward")
-    if isinstance(method, TorchMethod) and (
-            method.eval_dtype is not None
-            or getattr(method, "tap_dtype", None) is not None):
-        raise _refuse(f"{type(method).__name__} under LGTEUN_EVAL_DTYPE / "
-                      "LGTEUN_LIGHTNET_DTYPE=bf16 (the blanket cast, the "
-                      "tap path) has no height-sharded forward")
+    if getattr(method, "taps", lambda: False)():
+        fwd = functools.partial(lightnet_tap_rows, dtype=method.tap_dtype)
     if module.training:
         raise _refuse("a module in training mode: the height-sharded "
                       "forwards are eval forwards without gradients")
@@ -970,9 +1344,13 @@ def run_spatially_sharded(method, batch: dict, mesh: Mesh,
                                        device=device)
                        for k in ("input_lr", "input_pan"))
             return fwd(lr, pan, mesh)
-        out = fwd(module, _nchw(local["input_lr"], device),
-                  _nchw(local["input_pan"], device), mesh)
-        return out.permute(0, 2, 3, 1)
+        ms, pan = (_nchw(local[k], device) for k in ("input_lr",
+                                                     "input_pan"))
+        cast = (method.eval_cast(ms, pan) if isinstance(method, TorchMethod)
+                else contextlib.nullcontext((ms, pan)))
+        with cast as (ms, pan):
+            out = fwd(module, ms, pan, mesh)
+        return out.float().permute(0, 2, 3, 1)
 
 
 def gather_h(out: torch.Tensor, mesh: Mesh,

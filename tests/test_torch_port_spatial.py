@@ -25,7 +25,9 @@ Without spawning: the strip geometry of each operation, with the
 collectives emulated from the whole tensor (`_emulated`), and the
 refusals of `run_spatially_sharded` (MDCUN, INNT and UnlgFormer's other
 fuse levels, v2 and bf16 storage modes are sharded since: their tests are
-tests/test_torch_port_spatial_zoo.py).
+tests/test_torch_port_spatial_zoo.py; the rest of the zoo, the blanket
+bf16 cast and LightNet's tap path since: tests/test_torch_port_spatial_
+rest.py, and here each of them on two ranks run as threads).
 """
 
 import os
@@ -61,6 +63,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_port_convert import flax_params  # noqa: E402
 from test_torch_port_lightnet import (  # noqa: E402
     flax_params as lightnet_flax_params)
+from test_torch_port_spatial_zoo import _Ranks  # noqa: E402
 
 BANDS = 4
 JAX_ATOL = {"UnlgFormer": 5e-4, "lightnet": 1e-4, "SFIM": 1e-5,
@@ -460,19 +463,35 @@ def _method(model_type, env=None, monkeypatch=None, **model_cfg):
     return method.eval()
 
 
+def _on_two_ranks(method, batch, monkeypatch):
+    """`run_spatially_sharded` of `method` on two ranks run as threads
+    (`_Ranks`), the rows gathered."""
+    rows = _Ranks(2, monkeypatch).run(
+        lambda j, mesh: spatial.run_spatially_sharded(method, batch, mesh))
+    return torch.cat(rows, dim=1)
+
+
 @pytest.mark.parametrize("model_type", ["GSA", "PanFormer", "SFIIN",
                                         "MutInf"])
-def test_refuses_a_method_without_a_sharded_forward(model_type):
-    with pytest.raises(ValueError, match=r"A\.9\.3"):
-        spatial.run_spatially_sharded(_method(model_type), _batch(1, 0),
-                                      _mesh(0, 2))
+def test_runs_the_rest_of_the_zoo_sharded(model_type, monkeypatch):
+    """GSA, PanFormer, SFIIN and MutInf (seeded, shipped widths) on two
+    ranks: the unsharded forward's output within 1e-5 of max|out|
+    (their forwards: tests/test_torch_port_spatial_rest.py)."""
+    method, batch = _method(model_type), _batch(1, 0)
+    want = method.apply(batch)
+    got = _on_two_ranks(method, batch, monkeypatch)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=PORT_ATOL * float(want.abs().max()))
 
 
-def test_refuses_lightnet_bf16_tap_path(monkeypatch):
+def test_runs_lightnet_bf16_tap_path_sharded(monkeypatch):
+    """LightNet's bf16 tap path on two ranks (the stack on the same
+    10-row halo as B9's): the unsharded tap path bit for bit."""
     method = _method("lightnet", {"LGTEUN_LIGHTNET_DTYPE": "bf16"},
                      monkeypatch)
-    with pytest.raises(ValueError, match=r"A\.9\.3"):
-        spatial.run_spatially_sharded(method, _batch(1, 0), _mesh(0, 2))
+    batch = _batch(1, 0)
+    assert torch.equal(_on_two_ranks(method, batch, monkeypatch),
+                       method.apply(batch))
 
 
 def test_refuses_an_h_the_space_size_does_not_divide():

@@ -8,8 +8,11 @@ metrics on both test splits, `metrics/`); UnlgFormer's training (`runner.py`:
 Adam/StepLR, l1, dropout, checkpoints; `data/`: the train iterator, the
 PSDataset reader and the synthetic Wald generator); the whole-scene
 engine and its CLI (`parallel/scene.py`, `python -m
-lgteun_tpu_torch.fuse`); and data-parallel training, eval and scene
-fusion over ranks launched with torchrun (`parallel/mesh.py`), with
+lgteun_tpu_torch.fuse`); data-parallel training, eval and scene
+fusion over ranks launched with torchrun (`parallel/mesh.py`); and the
+reference's released checkpoints, read without its code
+(`convert/from_reference.py`), with the native TIFF codec (`native/`)
+and the host utilities (`utils/`) beside them, with
 
 - plain PyTorch for what the JAX package left to XLA: the unfolding
   steps, resamples and the convs outside the kernels;

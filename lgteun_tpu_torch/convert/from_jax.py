@@ -38,7 +38,11 @@ with the carried weights what JAX computes with the tree.
 instance norms' `scale` -> `weight`, and a VGG's Dense kernels [in, out]
 -> Linear [out, in], fc0's rows permuted from the NHWC flatten (h, w, c)
 of the JAX module to the port's (c, h, w) (ROADMAP C.42), as
-`mi_from_flax` does.
+`mi_from_flax` does. `blocks_from_flax` carries the other blocks of
+that file (ResBlock, ResChAttnBlock, SFTLayer) and `DenseModule` by the
+same rules, `refine_from_flax` a Refine / Refine2 tail and
+`vgg_feat_from_flax` a VGGFeat to torchvision's `features[0:12]` keys
+(the inverse of JAX's `convert_vgg_feat`).
 
 Takes the flax `core_module` tree (or `mi` / `discriminator` tree) as
 nested dicts of numpy arrays (no jax import); returns {key: float32
@@ -54,7 +58,8 @@ import torch
 
 __all__ = ["lgteun_from_flax", "lightnet_from_flax", "mdcun_from_flax",
            "innt_from_flax", "panformer_from_flax", "sfiin_from_flax",
-           "mutinf_from_flax", "mi_from_flax", "discriminator_from_flax"]
+           "mutinf_from_flax", "mi_from_flax", "discriminator_from_flax",
+           "blocks_from_flax", "refine_from_flax", "vgg_feat_from_flax"]
 
 
 def _hwio(k) -> np.ndarray:
@@ -484,12 +489,14 @@ def mi_from_flax(params: dict) -> dict:
     return _tensors(_from_table(params, table, "MutInf mi"))
 
 
-def discriminator_from_flax(params: dict) -> dict:
-    """flax Pixel/Patch/VGGDiscriminator tree -> the port's discriminator
-    state_dict of float32 tensors (module docstring). A VGG's fc0 input
-    is the flatten of 512 channels on a square side."""
+def _layer_rows(params: dict, fc0=None) -> dict:
+    """Table rows of a flax module whose layers sit at its top level:
+    `layer/Conv_0/{kernel, bias}` -> `layer.{weight, bias}` (HWIO ->
+    OIHW), a norm's `layer/{scale, bias}` -> `layer.{weight, bias}`, a
+    Dense `layer/{kernel, bias}` -> a Linear's (`fc0` if given transforms
+    fc0's kernel)."""
     table = {}
-    for path, val in _flat(params).items():
+    for path in _flat(params):
         layer, *rest = path.split("/")
         if rest == ["Conv_0", "kernel"]:
             table[path] = ([f"{layer}.weight"], _hwio)
@@ -497,11 +504,43 @@ def discriminator_from_flax(params: dict) -> dict:
             table[path] = ([f"{layer}.bias"], _ident)
         elif rest == ["scale"]:
             table[path] = ([f"{layer}.weight"], _ident)
-        elif rest == ["kernel"] and layer == "fc0":
-            table[path] = (["fc0.weight"], _nhwc_rows_t)
+        elif rest == ["kernel"] and layer == "fc0" and fc0 is not None:
+            table[path] = (["fc0.weight"], fc0)
         elif rest == ["kernel"]:
             table[path] = ([f"{layer}.weight"], lambda k: np.asarray(k).T)
-    return _tensors(_from_table(params, table, "discriminator"))
+    return table
+
+
+def discriminator_from_flax(params: dict) -> dict:
+    """flax Pixel/Patch/VGGDiscriminator tree -> the port's discriminator
+    state_dict of float32 tensors (module docstring). A VGG's fc0 input
+    is the flatten of 512 channels on a square side."""
+    return _tensors(_from_table(params, _layer_rows(params, _nhwc_rows_t),
+                                "discriminator"))
+
+
+def blocks_from_flax(params: dict) -> dict:
+    """flax ResBlock / ResChAttnBlock / SFTLayer / DenseModule tree -> the
+    port's state_dict (`models/common/discriminators.py`, `refine.py`:
+    the same layer names)."""
+    return _tensors(_from_table(params, _layer_rows(params), "block"))
+
+
+def refine_from_flax(params: dict, n_ca: int) -> dict:
+    """flax Refine / Refine2 tree -> the port's `Refine` keys
+    (`conv_in`, `process.i.{process, conv_du}.j`, `conv_last`)."""
+    table = {path.lstrip("/"): ([k.lstrip(".") for k in keys], tf)
+             for path, (keys, tf) in _refine_rows("", "", n_ca).items()}
+    return _tensors(_from_table(params, table, "Refine"))
+
+
+def vgg_feat_from_flax(params: dict) -> dict:
+    """flax VGGFeat tree -> torchvision `features[0:12]` keys (the inverse
+    of JAX's `convert_vgg_feat`: convs at 0, 2, 5, 7, 10)."""
+    table = {}
+    for idx in (0, 2, 5, 7, 10):
+        table.update(_conv_rows(str(idx), f"conv{idx}/Conv_0"))
+    return _tensors(_from_table(params, table, "VGGFeat"))
 
 
 def _nhwc_rows_t(k, channels: int = 512) -> np.ndarray:

@@ -1,6 +1,8 @@
 """Pan-sharpening dataset: directory scan and eagerly cached samples (a
-copy of `lgteun_tpu/data/dataset.py`, numpy and scipy only; TIFFs are
-read by the port's `data/tiff.py`).
+copy of `lgteun_tpu/data/dataset.py`, numpy and scipy only). TIFFs are
+read by the native codec (`lgteun_tpu_torch/native`) where it builds and
+takes the file, else by the Python codec (`data/tiff.py`); `CODEC_READS`
+counts the files each read.
 
 A directory holds `{id}_lr.tif` [h, w, C], `{id}_pan.tif` [H, W] and
 optionally `{id}_mul.tif` [H, W, C] ground truth; samples are keyed by
@@ -16,14 +18,30 @@ the `*_pan.tif` files (reference ps_dataset.py:38-42). Each sample:
 
 from __future__ import annotations
 
+import collections
 import os
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from lgteun_tpu_torch.data.tiff import read_tiff
+from lgteun_tpu_torch.data.tiff import read_tiff as read_tiff_python
+from lgteun_tpu_torch.native import read_tiff_native
 
-__all__ = ["PSDataset", "scan_pairs"]
+__all__ = ["PSDataset", "scan_pairs", "read_tiff", "CODEC_READS"]
+
+# files read by each codec ("native", "python") since the process began
+CODEC_READS: collections.Counter = collections.Counter()
+
+
+def read_tiff(path: str) -> np.ndarray:
+    """The native codec's decode of `path` where the library builds and
+    takes the file (uint16), else the Python codec's."""
+    arr = read_tiff_native(path)
+    if arr is not None:
+        CODEC_READS["native"] += 1
+        return arr
+    CODEC_READS["python"] += 1
+    return read_tiff_python(path)
 
 
 def scan_pairs(image_dirs: list[str]) -> list[tuple[str, str]]:

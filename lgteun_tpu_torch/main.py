@@ -132,10 +132,6 @@ def build_runner(cfg: Config, device, logger=None,
 def main(cfg: Config, logger: logging.Logger, device="cuda") -> Runner:
     """One run of `cfg` on `device` ("cuda": under a launcher the rank's
     card), data-parallel over the launch's ranks (module docstring)."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} asked for, but torch sees no "
-                           "CUDA device; pass --device cpu to run the plain "
-                           "versions on the CPU")
     mesh = make_mesh(cfg.mesh_shape, device=device)
     try:
         set_random_seed(cfg.seed)
@@ -170,7 +166,10 @@ def cli(argv=None) -> Runner:
     parser.add_argument("--checkpoint", default=None,
                         help="a Runner checkpoint or a reference-keyed "
                              "torch state_dict file (overrides the "
-                             "config's)")
+                             "config's); a reference checkpoint (a pickle "
+                             "of whole modules) is converted first with "
+                             "python -m lgteun_tpu_torch.convert."
+                             "from_reference")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "plain versions of the kernels)")

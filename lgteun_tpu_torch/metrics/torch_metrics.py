@@ -34,7 +34,9 @@ import torch.nn.functional as F
 
 from lgteun_tpu_torch.metrics.numpy_ref import (_SAT_GNYQ, DYNAMIC_RANGE,
                                                 mtf_kernel)
-from lgteun_tpu_torch.ops.filters import depthwise_conv2d, filter2d_reflect101
+from lgteun_tpu_torch.ops.filters import (depthwise_conv2d,
+                                          filter2d_reflect101,
+                                          gaussian_kernel_1d)
 from lgteun_tpu_torch.parallel.mesh import batch_rows
 
 __all__ = [
@@ -128,9 +130,7 @@ def qindex_batch(pred: torch.Tensor, gt: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _ssim_window_np() -> np.ndarray:
     """11x11 Gaussian, sigma 1.5 (reference metrics.py:136-137)."""
-    x = np.arange(11, dtype=np.float64) - 5.0
-    k = np.exp(-(x * x) / (2.0 * 1.5 * 1.5))
-    k /= k.sum()
+    k = gaussian_kernel_1d(11, 1.5)
     return np.outer(k, k)
 
 

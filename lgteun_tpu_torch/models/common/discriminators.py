@@ -25,8 +25,29 @@ Every parameter has a seeded torch-default init (`reset_from`):
 U(+-1/sqrt(fan_in)) for conv and linear weights and biases, ones and
 zeros for a norm.
 
-`ResBlock`, `ResChAttnBlock`, `SFTLayer`, `mean_shift` and `VGGFeat` of
-the JAX module have no caller there but a test; they are not ported.
+The blocks of the same reference file (JAX `:108-237`):
+
+    ResBlock        conv0-norm0-relu-conv1-norm1 + x (reference
+                    modules.py:50-66)
+    ResChAttnBlock  c1a-n1a-relu-c1b-n1b, a channel attention (the mean,
+                    fc0 to C / 2, relu, fc1, sigmoid) a, c2 of cat(a * y,
+                    y) and n2, + x (reference modules.py:69-108)
+    SFTLayer        features * (scale + 1) + shift, each of scale and
+                    shift two 1x1 convs of the conditions with LeakyReLU
+                    0.1 between (reference modules.py:263-276)
+    mean_shift      the frozen per-channel affine x / std + sign *
+                    rgb_range * mean / std (reference modules.py:169-180)
+    VGGFeat         torchvision vgg19 `features[0:12]` after the ImageNet
+                    mean_shift, read at relu1_1, relu2_1 and relu3_1
+                    (reference modules.py:182-223)
+
+The first three take the JAX module's layer names (the JAX package maps
+no reference keys to them, and the repository records none); `VGGFeat`
+is an `nn.Sequential` whose
+state_dict is torchvision's `features[0:12]` one (weights at 0, 2, 5, 7,
+10), so a torchvision state_dict loads as it is and
+`convert/from_jax.py::vgg_feat_from_flax` is the inverse of JAX's
+`convert_vgg_feat`. The 3x3 convs pad 1; "BN" raises as above.
 """
 
 from __future__ import annotations
@@ -38,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["PixelDiscriminator", "PatchDiscriminator", "VGGDiscriminator",
+           "ResBlock", "ResChAttnBlock", "SFTLayer", "mean_shift", "VGGFeat",
            "same_pad", "vgg_side"]
 
 _SLOPE = 0.2
@@ -193,3 +215,99 @@ class VGGDiscriminator(nn.Module):
             x = F.leaky_relu(conv(F.pad(x, (wl, wr, ht, hb))), _SLOPE)
         x = F.leaky_relu(self.fc0(x.flatten(1)), _SLOPE)
         return self.fc1(x)
+
+
+class ResBlock(nn.Module):
+    """conv0-norm0-relu-conv1-norm1 + x on n_feats channels."""
+
+    def __init__(self, n_feats: int, norm_type: str | None = "IN"):
+        super().__init__()
+        self.conv0 = _Conv(n_feats, n_feats, 3, padding=1)
+        self.norm0 = _norm(norm_type, n_feats)
+        self.conv1 = _Conv(n_feats, n_feats, 3, padding=1)
+        self.norm1 = _norm(norm_type, n_feats)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.norm0(self.conv0(x)))
+        return self.norm1(self.conv1(y)) + x
+
+
+class ResChAttnBlock(nn.Module):
+    """The residual channel-attention block (module docstring)."""
+
+    def __init__(self, n_feats: int, norm_type: str | None = "IN"):
+        super().__init__()
+        self.c1a = _Conv(n_feats, n_feats, 3, padding=1)
+        self.n1a = _norm(norm_type, n_feats)
+        self.c1b = _Conv(n_feats, n_feats, 3, padding=1)
+        self.n1b = _norm(norm_type, n_feats)
+        self.fc0 = _Linear(n_feats, n_feats // 2)
+        self.fc1 = _Linear(n_feats // 2, n_feats)
+        self.c2 = _Conv(2 * n_feats, n_feats, 3, padding=1)
+        self.n2 = _norm(norm_type, n_feats)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.n1b(self.c1b(F.relu(self.n1a(self.c1a(x)))))
+        attn = torch.sigmoid(self.fc1(F.relu(self.fc0(y.mean(dim=(2, 3))))))
+        z = self.c2(torch.cat([attn[:, :, None, None] * y, y], dim=1))
+        return self.n2(z) + x
+
+
+class SFTLayer(nn.Module):
+    """Spatial feature transform of n_feats-channel features by
+    cond_ch-channel conditions (default n_feats)."""
+
+    def __init__(self, n_feats: int = 32, cond_ch: int | None = None):
+        super().__init__()
+        cond_ch = n_feats if cond_ch is None else cond_ch
+        self.scale0 = _Conv(cond_ch, n_feats // 2, 1)
+        self.scale1 = _Conv(n_feats // 2, n_feats, 1)
+        self.shift0 = _Conv(cond_ch, n_feats // 2, 1)
+        self.shift1 = _Conv(n_feats // 2, n_feats, 1)
+
+    def forward(self, features: torch.Tensor,
+                conditions: torch.Tensor) -> torch.Tensor:
+        s = self.scale1(F.leaky_relu(self.scale0(conditions), 0.1))
+        t = self.shift1(F.leaky_relu(self.shift0(conditions), 0.1))
+        return features * (s + 1.0) + t
+
+
+def mean_shift(x: torch.Tensor, rgb_range: float, rgb_mean, rgb_std,
+               sign: int = -1) -> torch.Tensor:
+    """x / std + sign * rgb_range * mean / std, per channel of
+    [B, C, H, W]."""
+    mean = torch.as_tensor(rgb_mean, dtype=x.dtype,
+                           device=x.device)[:, None, None]
+    std = torch.as_tensor(rgb_std, dtype=x.dtype,
+                          device=x.device)[:, None, None]
+    return x / std + sign * rgb_range * mean / std
+
+
+class VGGFeat(nn.Sequential):
+    """vgg19 `features[0:12]` (module docstring): [B, 3, H, W] ->
+    (relu1_1 [B, 64, H, W], relu2_1 [B, 128, H/2, W/2], relu3_1
+    [B, 256, H/4, W/4]), after the ImageNet mean_shift when
+    `shift_enable`."""
+
+    def __init__(self, rgb_range: float = 1.0, shift_enable: bool = True):
+        layers = []
+        for conv in ((3, 64), (64, 64), None, (64, 128), (128, 128), None,
+                     (128, 256)):
+            if conv is None:
+                layers.append(nn.MaxPool2d(2, 2))
+            else:
+                layers += [_Conv(*conv, 3, padding=1), nn.ReLU()]
+        super().__init__(*layers)
+        self.rgb_range, self.shift_enable = rgb_range, shift_enable
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        if self.shift_enable:
+            x = mean_shift(x, self.rgb_range, (0.485, 0.456, 0.406),
+                           tuple(s * self.rgb_range
+                                 for s in (0.229, 0.224, 0.225)))
+        levels = []
+        for i, layer in enumerate(self):
+            x = layer(x)
+            if i in (1, 6, 11):
+                levels.append(x)
+        return tuple(levels)

@@ -1,18 +1,23 @@
-"""Channel-attention refinement tail on [B, C, H, W] (counterpart of
-`lgteun_tpu/models/common/refine.py`; reference mz_refine.py:34-117).
-Torch-default conv init. The JAX package's `Refine2` (MutInf's tail) is
-`Refine(..., n_ca=2)` here. Its `DenseModule` has no caller in any JAX
-model and is not ported.
+"""Channel-attention refinement tails on [B, C, H, W] (counterpart of
+`lgteun_tpu/models/common/refine.py`; reference mz_refine.py:16-117).
+Torch-default conv init.
+
+    CALayer      conv3x3-relu-conv3x3 -> mean -> squeeze/excite
+    Refine       conv_in -> n_ca CALayers -> conv_last
+    Refine2      Refine with two CALayers (MutInf's tail)
+    DenseModule  three chained 3x3 convs (LeakyReLU 0.2) and a 1x1 conv
+                 over the concat of the input and the three
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lgteun_tpu_torch.models.common.layers import Conv
 
-__all__ = ["CALayer", "Refine"]
+__all__ = ["CALayer", "Refine", "Refine2", "DenseModule"]
 
 
 class CALayer(nn.Module):
@@ -45,3 +50,29 @@ class Refine(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv_last(self.process(self.conv_in(x)))
+
+
+class Refine2(Refine):
+    """Refine with two CALayers (reference mz_refine.py:100-117)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch, n_ca=2)
+
+
+class DenseModule(nn.Module):
+    """conv1 -> conv2 -> conv3 (3x3, LeakyReLU 0.2 after each), then the
+    1x1 conv4 of cat(x, the three): C -> C (reference
+    mz_refine.py:16-31)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv1 = Conv(ch, ch, 3)
+        self.conv2 = Conv(ch, ch, 3)
+        self.conv3 = Conv(ch, ch, 3)
+        self.conv4 = Conv(4 * ch, ch, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = F.leaky_relu(self.conv1(x), 0.2)
+        b = F.leaky_relu(self.conv2(a), 0.2)
+        d = F.leaky_relu(self.conv3(b), 0.2)
+        return self.conv4(torch.cat([x, a, b, d], dim=1))

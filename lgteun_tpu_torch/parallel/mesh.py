@@ -76,6 +76,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "Shard", "ShardGenerator", "launcher", "make_mesh",
+           "require_device",
            "check_mesh_shape", "shard_batch", "replicated",
            "all_reduce_grads", "all_gather_rows", "draw", "batch_mean",
            "batch_sum", "batch_rows"]
@@ -274,10 +275,21 @@ def _subgroups(rank: int, data: int, space: int) -> tuple:
     return mine["data"], mine["space"]
 
 
-def make_mesh(mesh_shape: dict | None = None, *, device="cpu",
+def require_device(device) -> None:
+    """Raise where `device` is a card and torch sees none: an entry point
+    runs on the CPU only when asked for it."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} asked for, but torch "
+                           "sees no CUDA device; pass --device cpu "
+                           "(device=\"cpu\") to run the plain versions on "
+                           "the CPU")
+
+
+def make_mesh(mesh_shape: dict | None = None, *, device="cuda",
               backend: str | None = None,
               init_method: str | None = None) -> Mesh:
-    """The rank's mesh. Without a launcher (no WORLD_SIZE in the
+    """The rank's mesh on `device` (the card unless the caller asks for
+    the CPU; `require_device`). Without a launcher (no WORLD_SIZE in the
     environment, no `init_method`, no process group yet): one rank, no
     process group, the Runner's path without collectives. Otherwise the
     default process group (made here from RANK / WORLD_SIZE and
@@ -289,6 +301,7 @@ def make_mesh(mesh_shape: dict | None = None, *, device="cpu",
     makes the rank's data and space subgroups (`dist.new_group`, on
     every rank in the same order). `backend` None: NCCL where each local
     rank has its own card, gloo otherwise (`_resolve_device`)."""
+    require_device(device)
     rank, world, local_rank = launcher()
     launched = ("WORLD_SIZE" in os.environ or init_method is not None
                 or dist.is_initialized())

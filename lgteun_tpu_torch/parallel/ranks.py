@@ -1,7 +1,7 @@
 """Data-parallel runs on local ranks without a launcher, and the Runner
 jobs that the port's multi-rank checks run.
 
-    spawn(jobs, world, workdir, device="cpu")
+    spawn(jobs, world, workdir, device="cuda")
 
 starts `world` processes (`torch.multiprocessing.spawn`: the spawn start
 method, so each child imports only what unpickling its entry needs: this
@@ -13,7 +13,7 @@ every `(job, kwargs)` of `jobs` as `job(mesh, **kwargs)` and writes its
 results; it returns [rank][job] results. A rank that raises fails the
 call (the other ranks are ended). Each job is a function of this module
 and returns plain data (numpy arrays), so that the one-rank run is the
-same function called in the caller's process with `make_mesh()`:
+same function called in the caller's process with `make_mesh(device=)`:
 
     train_job    Runner.train of a config from seeded (or given) weights:
                  every module's parameters and buffers, the loss log and
@@ -55,7 +55,7 @@ import numpy as np
 import torch
 import torch.multiprocessing as mp
 
-from lgteun_tpu_torch.parallel.mesh import Mesh, make_mesh
+from lgteun_tpu_torch.parallel.mesh import Mesh, make_mesh, require_device
 
 __all__ = ["spawn", "train_job", "resume_job", "test_job", "scene_job",
            "cli_job", "mi_job", "spatial_job", "SPATIAL_WRAPPERS"]
@@ -67,10 +67,13 @@ SPAWN_TIMEOUT = 900.0
 
 
 def spawn(jobs: list, world: int, workdir: str, *,
-          device="cpu") -> list[list]:
+          device="cuda") -> list[list]:
     """Run `jobs` [(job, kwargs), ...] on `world` local ranks on `device`
-    (module docstring), each with one intra-op thread; [rank][job]
-    results. Raises TimeoutError after SPAWN_TIMEOUT seconds."""
+    (module docstring; the cards unless the caller asks for the CPU),
+    each with one intra-op thread; [rank][job] results. Raises where
+    `device` is a card and there is none (`mesh.require_device`), and
+    TimeoutError after SPAWN_TIMEOUT seconds."""
+    require_device(device)
     workdir = os.path.abspath(workdir)   # a file:// URL takes no relative path
     os.makedirs(workdir, exist_ok=True)
     rendezvous = os.path.join(workdir, "rendezvous")

@@ -124,6 +124,8 @@ from __future__ import annotations
 import json
 import logging
 import os
+import pickle
+import re
 import time
 
 import numpy as np
@@ -185,8 +187,22 @@ def read_checkpoint(path: str, map_location) -> tuple:
     gives (it, None, None). Each entry of the third maps a module's name
     to its weights (the modules other than the core one), its optimizer
     state or its scheduler state; a checkpoint with one "optimizer" and
-    one "scheduler" gives them as the core module's."""
-    payload = torch.load(path, map_location=map_location, weights_only=True)
+    one "scheduler" gives them as the core module's. A file that
+    `torch.load(weights_only=True)` refuses (the reference's pickle of
+    whole modules) raises a ValueError that names its converter."""
+    try:
+        payload = torch.load(path, map_location=map_location,
+                             weights_only=True)
+    except pickle.UnpicklingError as e:
+        named = re.search(r"GLOBAL (\S+)", str(e))
+        raise ValueError(
+            f"{path} is neither a Runner checkpoint nor a state_dict: "
+            "torch.load(weights_only=True) refused it"
+            + (f" (it names {named.group(1)})" if named else "") + ". A "
+            "reference checkpoint (a pickle of whole modules) is "
+            "converted first: python -m "
+            "lgteun_tpu_torch.convert.from_reference --model-type X "
+            f"--torch-ckpt {path} --out OUT.pt") from e
     if not isinstance(payload.get("state_dict"), dict):
         return payload, None, None
     restored = {"modules": payload.get("modules", {}),

@@ -207,13 +207,14 @@ def unlg(data, tree, scene_tree, tmp_path_factory):
                                        "cpu"])),
         ]
 
-    one = [job(make_mesh(), **kw) for job, kw in jobs("one")]
+    one = [job(make_mesh(device="cpu"), **kw) for job, kw in jobs("one")]
     # and, on the two ranks only, the first job on a {"data": 1, "space":
     # 2} mesh laid over them (its one-rank twin is job 0)
     space = (ranks.train_job, dict(
         cfg=_cfg(data, root / "two" / "space", mesh_shape=SPACE_SHAPE),
         stops=(1,), weights=weights, mesh_shape=SPACE_SHAPE))
-    two = ranks.spawn(jobs("two") + [space], 2, str(root / "spawn"))
+    two = ranks.spawn(jobs("two") + [space], 2, str(root / "spawn"),
+                      device="cpu")
     return {"one": one, "two": two, "root": root, "weights": weights}
 
 
@@ -447,8 +448,8 @@ def traps(data, tmp_path_factory):
                 extras={"mixed_precision": True}))),
         ]
 
-    one = [job(make_mesh(), **kw) for job, kw in jobs("one")]
-    two = ranks.spawn(jobs("two"), 2, str(root / "spawn"))
+    one = [job(make_mesh(device="cpu"), **kw) for job, kw in jobs("one")]
+    two = ranks.spawn(jobs("two"), 2, str(root / "spawn"), device="cpu")
     return one, two
 
 
@@ -660,13 +661,13 @@ def test_mesh_refusals(data):
     {"data": 1, "space": 1} fit one rank); a scene batch must divide by
     the ranks."""
     with pytest.raises(ValueError, match=r"data=2 .*world size 1"):
-        make_mesh({"data": 2})
+        make_mesh({"data": 2}, device="cpu")
     with pytest.raises(ValueError, match=r"data=1 x space=2 .*world size 1"):
-        make_mesh({"data": 1, "space": 2})
+        make_mesh({"data": 1, "space": 2}, device="cpu")
     for shape in ({"space": 1}, {"data": 1, "space": 1}):
-        mesh = make_mesh(shape)
+        mesh = make_mesh(shape, device="cpu")
         assert (mesh.world, mesh.data_world, mesh.space_world) == (1, 1, 1)
-    make_mesh({"data": 1})
+    make_mesh({"data": 1}, device="cpu")
     cfg = _cfg(data, "unused", mesh_shape={"data": 8})
     with pytest.raises(ValueError, match=r"data=8 .*world size 1"):
         Runner(cfg, build_model("UnlgFormer", cfg, device="cpu"), "cpu")

@@ -126,7 +126,8 @@ def spawned(trees, tmp_path_factory):
         cases=[cases["space4", m] for m in SPACE4])),
         (ranks.spatial_job, dict(mesh_shape={"data": 2, "space": 2},
                                  cases=[cases["hybrid", "UnlgFormer"]]))]
-    out = ranks.spawn(jobs, 4, str(tmp_path_factory.mktemp("spatial")))
+    out = ranks.spawn(jobs, 4, str(tmp_path_factory.mktemp("spatial")),
+                      device="cpu")
     return out, cases
 
 

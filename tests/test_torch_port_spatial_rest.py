@@ -187,7 +187,7 @@ def spawned(trees, tmp_path_factory):
     cases = {name: _case(name, trees) for name in CASES}
     out = ranks.spawn([(ranks.spatial_job, dict(
         mesh_shape={"space": 4}, cases=list(cases.values())))], 4,
-        str(tmp_path_factory.mktemp("spatial_rest")))
+        str(tmp_path_factory.mktemp("spatial_rest")), device="cpu")
     return [r[0] for r in out], cases
 
 

@@ -289,18 +289,27 @@ kind; and kernel cases at the strips' shapes (B4 1x16x240x240, B5 /
 B6 on the window strips, B8 1x32x128x128, B12 on a 256² image's rank
 rows and 7-row halo 1x8x135x256, B10 / B11 on a rank's share of 512
 patch-images). Then the `large` phase (planes above 240², where B1 and
-B4 run the FFT mixer's global route and B8 runs level 2's chain): B1 at
-1x32x256², 1x32x1024², 1x64x512², B4 at 1x16x264² (odd parts 3, 11),
-1x16x1024², 1x4x2048², 1x4x1024x2048, their constant-plane cases at
-256² against the CPU plain version, B2 and B3 at 1x32x1024², each
-against its plain version (1e-4) with device ms, plain ms, bound, share
-and a cuFFT yardstick, the route's bits over 8 more launches, the route
-forced on 128² / 240² planes against the one-block body, the bf16
-entries at 256², the tables at 1024² / 2048²; the shipped UnlgFormer at
-pan 512², levels 1, 2, 3 and v2, against the CPU plain path (5e-4) with
-its launches a forward, whole 1024² and 2048² tiles (ms, MP/s, peak
-GiB), B1's training entry's gradients at 256², `fuse_scene` on the 1024²
-scene at tile 256 (MP/s, a crop against the CPU plain path) and the CLI
+B4 run the FFT mixer's cluster route up to 512² and 1024x512 and its
+global route above, and B8 runs level 2's chain): B1 at 1x32x256²,
+1x32x1024², 1x64x512² and the tile-256 scene's batch 32x32x256², B4 at
+1x16x264² (odd parts 3, 11), 1x16x1024², 1x4x2048², 1x4x1024x2048,
+1x4x1024x512 (a cluster of 16) and 32x16x256², their constant-plane
+cases at 256² against the CPU plain version, B2 and B3 at 1x32x1024²,
+each against its plain version (1e-4) with device ms, plain ms, bound,
+share and a cuFFT yardstick, its route and cluster size (each case's
+first launch counted on the route the mirror names), the bits over 8
+more launches; on every cluster shape the global route forced on the
+same inputs, bit-equal and timed beside it (the route's time before
+this route); the cluster route forced at 2, 4, 8 and 16 blocks and the
+global route forced on 128² / 240² planes, bit-equal to the one-block
+body; the library's route of each (H, W, planes) against the mirror's;
+the bf16 entries at 256², the tables at 1024² / 2048²; the shipped
+UnlgFormer at pan 512², levels 1, 2, 3 and v2, against the CPU plain
+path (5e-4) with its launches a forward by route (5 on the cluster
+route), whole 1024² and 2048² tiles (ms, MP/s, peak GiB, launches by
+route: 4 global + 1 cluster, 5 global), B1's training entry's gradients
+at 256², `fuse_scene` on the 1024² scene at tile 256 (MP/s, 4 cluster
+launches a forward, a crop against the CPU plain path) and the CLI
 with --tile 0 against one whole forward (1 DN), and height-sharded 512²
 forwards (level 2 float32, level 1 bf16res; run by the mesh phase's
 spawn) against the whole forward. Each phase prints the seconds since
@@ -2213,10 +2222,18 @@ def main() -> int:
     #    whole forward on the card
     run_space(space, [r[:len(space)] for r in results], card)
     phase_done("space")
-    # 10. planes above 240^2: the mixer's global route, B8 by shape, whole
-    #     tiles, the scene at tile 256 and whole, sharded 512^2 forwards
-    launches[LARGE_ROUTE[0]], large_record = run_large(
+    # 10. planes above 240^2: the mixer's cluster and global routes, B8 by
+    #     shape, whole tiles, the scene at tile 256 and whole, sharded
+    #     512^2 forwards
+    large_routes, large_record = run_large(
         card, large, [r[len(space):] for r in results])
+    # a route's launches on the path that runs it: the cluster's in a
+    # level-2 forward at PAN 512^2, the global route's on a whole 1024^2
+    # tile
+    launches["fft_mixer_cluster"] = large_routes[
+        f"large UnlgFormer {LARGE_SIDE}^2 level 2"]["cluster"]
+    launches["fft_mixer_global"] = large_routes[
+        "large UnlgFormer whole tile 1024"]["global"]
     for name, rec in large_record.items():
         mine = record.setdefault(name, {"max_abs_err": 0.0, "by_shape": {}})
         mine["max_abs_err"] = max(mine["max_abs_err"], rec["max_abs_err"])
@@ -2237,18 +2254,23 @@ def main() -> int:
                         "library": f"none: {no_library}",
                         "by_shape": rec["by_shape"],
                         "bf16_by_shape": rec.get("bf16", {})})
-    # the mixer's global route (B1 and B4 above 240^2), a route of its own
-    name, src, replaces, main_shape, no_library = LARGE_ROUTE
-    rec = record[name]
-    full = rec["by_shape"][main_shape]
-    kernels.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": rec["max_abs_err"], "ms": full["ms"],
-                    "plain_ms": full["plain_ms"],
-                    "bound_ms": full["bound_ms"],
-                    "bound_by": full["bound_by"], "library_ms": None,
-                    "library": f"none: {no_library}",
-                    "by_shape": rec["by_shape"]})
+    # the mixer's cluster and global routes (B1 and B4 above 240^2), each
+    # a route of its own
+    for name, (src, replaces, main_shape, no_library) in \
+            LARGE_ROUTES.items():
+        rec = record[name]
+        full = rec["by_shape"][main_shape]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": rec["max_abs_err"], "ms": full["ms"],
+                        "plain_ms": full["plain_ms"],
+                        "bound_ms": full["bound_ms"],
+                        "bound_by": full["bound_by"], "library_ms": None,
+                        "library": f"none: {no_library}",
+                        "launches_a_forward_by_path": {
+                            path: routes.get(name[len("fft_mixer_"):], 0)
+                            for path, routes in large_routes.items()},
+                        "by_shape": rec["by_shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2505,7 +2527,8 @@ def check_fft_tables(sizes=TABLE_SIZES) -> None:
 
 # functions of the FFT mixer and the whole block whose ptxas report the
 # smoke prints (the whole block calls the mixer's body as mixer_plane)
-PTXAS_NAMES = ("fft_mixer_pair_kernel", "fft_mixer_kernel", "mixer_plane",
+PTXAS_NAMES = ("fft_mixer_pair_kernel", "fft_mixer_cluster_kernel",
+               "fft_mixer_kernel", "mixer_plane",
                "fft_pass_generic", "fft_rows_forward_kernel",
                "fft_columns_kernel", "fft_rows_inverse_kernel",
                "lgb_block_kernel", "tm_tc_kernel",
@@ -2515,7 +2538,8 @@ PTXAS_NAMES = ("fft_mixer_pair_kernel", "fft_mixer_kernel", "mixer_plane",
 
 def print_ptxas(lib_path) -> None:
     """ptxas's registers, stack and spills of the FFT mixer's kernels and
-    functions (its global route's three too), of the whole-block kernel, of the searches' and LightNet's
+    functions (its cluster route's and global route's too), of the
+    whole-block kernel, of the searches' and LightNet's
     tensor-core kernels and of the neighbourhood attention's two bodies,
     from the build's log."""
     import re
@@ -5323,18 +5347,25 @@ def run_bf16_train_entries(gen: torch.Generator, card: str) -> None:
 # ------------------------------------------------------------------ large
 
 # The `large` phase: planes above 240^2 (ROADMAP A.12). The FFT mixer of
-# B1 and B4 takes the global route there (`spectral_kernel.mixer_route`),
-# and B8 runs level 2's chain (`lgb_block_kernel.lgb_route`).
-LARGE_HEAD = ((1, 32, 256, 256), (1, 32, 1024, 1024), (1, 64, 512, 512))
-# odd parts 3 and 11 at 264^2; a 2048^2 plane; a non-square one
+# B1 and B4 takes its cluster route there up to 512^2 and its global route
+# above (`spectral_kernel.mixer_route`), and B8 runs level 2's chain
+# (`lgb_block_kernel.lgb_route`).
+# 1x32x256^2 / 1x64x512^2: cluster; 1x32x1024^2: global; 32x32x256^2:
+# `fuse --tile 256`'s batch of 32 tiles (cluster)
+LARGE_HEAD = ((1, 32, 256, 256), (1, 32, 1024, 1024), (1, 64, 512, 512),
+              (32, 32, 256, 256))
+# odd parts 3 and 11 at 264^2; a 2048^2 plane; two non-square ones (the
+# second on a cluster of 16); the tile-256 scene's batch (level 1)
 LARGE_MIXER = ((1, 16, 264, 264), (1, 16, 1024, 1024), (1, 4, 2048, 2048),
-               (1, 4, 1024, 2048))
+               (1, 4, 1024, 2048), (1, 4, 1024, 512), (32, 16, 256, 256))
 LARGE_CONST = 256           # the constant-plane and bf16 cases' side
 LARGE_BLOCK = (1, 32, 1024, 1024)   # B2 and B3 at a whole 1024^2 tile
 LARGE_TABLES = ((1024, 1024), (2048, 2048))
-# the global route forced (`lgteun_global_mixer_global_route`) on planes
-# the one-block body takes, against that body
+# the cluster route forced at each size and the global route forced
+# (`lgteun_global_mixer_cluster_route`, `_global_route`) on planes the
+# one-block body takes, against that body
 LARGE_SAME_BODY = ((4, 16, 128, 128), (1, 4, 240, 240))
+LARGE_CLUSTERS = (2, 4, 8, 16)
 LARGE_SIDE = 512            # UnlgFormer's PAN side at every level
 LARGE_FORMS = {             # (level, attention) -> launches a forward
     ("2", "1"): {"ln_mixer_head": 5, "window_attention": 5,
@@ -5346,22 +5377,36 @@ LARGE_FORMS = {             # (level, attention) -> launches a forward
                  "block_tail": 5},
     ("2", "v2"): {"ln_mixer_head": 5, "window_attention_windows": 5,
                   "block_tail": 5}}
+# a forward's mixer launches by route at PAN LARGE_SIDE^2 (every form)
+# and on whole LARGE_TILES tiles (level 2: four blocks on the tile's side,
+# the bottleneck on half of it)
+LARGE_ROUTES_A_FORWARD = {512: {"cluster": 5}, 1024: {"global": 4,
+                                                      "cluster": 1},
+                          2048: {"global": 5}}
 LARGE_TILES = (1024, 2048)  # whole tiles, UnlgFormer level 2, batch 1
 LARGE_TIMED = 3             # timed calls of each large case
 LARGE_TILING = (256, 16, 480)   # fuse_scene's tile, halo, crop
 LARGE_GRAD = (1, 32, 256, 256)  # B1's training entry
-# the global route in the `kernels` line: (source, replaces, main shape)
-LARGE_ROUTE = ("fft_mixer_global",
-               "lgteun_tpu_torch/csrc/spectral_head.cu",
-               "lgteun_tpu/ops/spectral_kernel.py:221",
-               "global_mixer 1x16x1024x1024",
-               "FFT + amp/phase affine + inverse FFT is no single call")
+# the mixer's two routes in the `kernels` line: name -> (source,
+# replaces, main shape, why no library call computes it)
+LARGE_ROUTES = {
+    "fft_mixer_cluster": ("lgteun_tpu_torch/csrc/fft_mixer.cuh",
+                          "lgteun_tpu/ops/spectral_kernel.py:281",
+                          "ln_mixer_head 32x32x256x256",
+                          "LN + FFT + amp/phase affine + inverse FFT is no "
+                          "single call"),
+    "fft_mixer_global": ("lgteun_tpu_torch/csrc/spectral_head.cu",
+                         "lgteun_tpu/ops/spectral_kernel.py:221",
+                         "global_mixer 1x16x1024x1024",
+                         "FFT + amp/phase affine + inverse FFT is no "
+                         "single call")}
 
 
 def large_kernel_cases(gen: torch.Generator):
     """(name, shape, kernel, plain, args) of the large phase's cases:
-    B1 and B4 on the global route at LARGE_HEAD / LARGE_MIXER, their
-    constant-plane cases at LARGE_CONST, B2 and B3 at LARGE_BLOCK."""
+    B1 and B4 at LARGE_HEAD / LARGE_MIXER (the cluster and the global
+    route), their constant-plane cases at LARGE_CONST, B2 and B3 at
+    LARGE_BLOCK."""
     from lgteun_tpu_torch.ops.ffn_kernel import block_tail, block_tail_ref
     from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
                                                       global_mixer_ref,
@@ -5446,32 +5491,109 @@ def large_profile(tag: str, call, card: str) -> None:
         print(f"profile {tag}: not measured ({err})")
 
 
+def mixer_route_of(name: str, x: torch.Tensor) -> dict:
+    """`mixer_route` of a B1 (`name` "ln_mixer_head": the second half of
+    the channels) or B4 call on x, on this card's SMs."""
+    from lgteun_tpu_torch.ops.spectral_kernel import mixer_route
+    head = name == "ln_mixer_head"
+    planes = x.shape[0] * x.shape[1] // (2 if head else 1)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return mixer_route(*x.shape[-2:], planes, head=head, sms=sms)
+
+
+def forced_global(name: str, args) -> tuple:
+    """The outputs of the B1 or B4 case `name` on `args` with its mixer
+    forced onto the global route (`lgteun_ln_mixer_head_global_route`,
+    `lgteun_global_mixer_global_route`; checks only)."""
+    from lgteun_tpu_torch.ops import _cuda
+    from lgteun_tpu_torch.ops.spectral_kernel import (fft_global_plan,
+                                                      fft_tables)
+    x = args[0]
+    b, c, h, w = x.shape
+    planes = b * c // (2 if name == "ln_mixer_head" else 1)
+    scratch = torch.empty(planes * fft_global_plan(h, w)["plane_bytes"] // 4,
+                          device=x.device)
+    tables = fft_tables(h, w, x.device)
+    if name == "ln_mixer_head":
+        y1 = torch.empty(b, c // 2, h, w, device=x.device)
+        x2 = torch.empty_like(y1)
+        _cuda.launch("lgteun_ln_mixer_head_global_route", x.device, x,
+                     *args[1:], tables, scratch, y1, x2, b, c, h, w, 1e-5)
+        return y1, x2
+    out = torch.empty_like(x)
+    _cuda.launch("lgteun_global_mixer_global_route", x.device, x, *args[1:],
+                 tables, scratch, out, b, c, h, w)
+    return (out,)
+
+
+def check_mixer_route_rule() -> None:
+    """The mixer's route in Python (`mixer_route`: which route, and the
+    cluster's size, that the wrappers count and the scratch follows)
+    equals the library's (`lgteun_fft_mixer_route`, which the launches
+    follow) on even squares 2-4096, a 62-step grid of sides 64-2046 and
+    1, 16 and 512 planes on this card's SMs."""
+    from lgteun_tpu_torch.ops import _cuda
+    from lgteun_tpu_torch.ops.spectral_kernel import mixer_route
+    lib = _cuda.kernels()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(h, h) for h in range(2, 4098, 2)] + [
+        (h, w) for h in range(64, 2048, 62) for w in range(64, 2048, 62)]
+    code = {"smem": 0, "global": -1}
+    differ, counts = [], collections.Counter()
+    for h, w in shapes:
+        for planes in (1, 16, 512):
+            r = mixer_route(h, w, planes, sms=sms)
+            want = -2 if r is None else code.get(r["route"], r["k"])
+            counts[want] += 1
+            if lib.lgteun_fft_mixer_route(h, w, planes, sms) != want:
+                differ.append((h, w, planes))
+    print(f"large mixer route rule: {len(shapes)} shapes x 3 plane counts "
+          f"on {sms} SMs, by route (0 one block, K a cluster, -1 global, "
+          f"-2 none) {dict(sorted(counts.items()))}; the library agrees on "
+          f"all but {len(differ)}")
+    if differ:
+        raise AssertionError(f"mixer route rule differs at {differ[:5]}")
+
+
 def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
     """The kernel cases of the large phase against their plain versions
     on the card (KERNEL_REL_TOL; the constant planes against the CPU
     plain version, as the kernels phase holds them), each with its
     device ms, plain ms, bytes or operations bound and share, the mixer
-    cases with the cuFFT rfft2 + irfft2 yardstick and their bits over
-    REPEATS more launches; the launches by layout ("global" for every
-    mixer case); the global route forced on planes the one-block body
-    takes against that body; the bf16 entries of B1 and B4 at
-    LARGE_CONST under PR 15's bound over every plane. The route's rows go
-    into `record["fft_mixer_global"]` (by wrapper and shape), B2's and
-    B3's into theirs."""
+    cases with their route (each case's first launch counted on the
+    route the mirror names), the cuFFT rfft2 + irfft2 yardstick and
+    their bits over REPEATS more launches; on each cluster case the
+    global route forced on the same inputs, bit-equal and timed (the
+    time before the cluster route); the cluster route forced at each of
+    LARGE_CLUSTERS and the global route forced on planes the one-block
+    body takes, bit-equal to that body; the route rule; the bf16
+    entries of B1 and B4 at LARGE_CONST under the bf16 entries' bound
+    (BF16_REL) over every plane. The mixer rows go into `record["fft_mixer_cluster"]` or
+    `record["fft_mixer_global"]` by route (by wrapper and shape), B2's
+    and B3's into theirs."""
     from lgteun_tpu_torch.ops import _cuda
-    from lgteun_tpu_torch.ops.spectral_kernel import (fft_mixer_plan,
-                                                      fft_tables,
+    from lgteun_tpu_torch.ops.spectral_kernel import (fft_tables,
                                                       global_mixer,
                                                       global_mixer_ref,
                                                       ln_mixer_head,
-                                                      ln_mixer_head_ref,
-                                                      mixer_route)
+                                                      ln_mixer_head_ref)
     wrappers = reset_launches()
     failures = []
-    route_rec = record.setdefault(LARGE_ROUTE[0], {"max_abs_err": 0.0,
-                                                   "by_shape": {}})
+    route_recs = {name: record.setdefault(name, {"max_abs_err": 0.0,
+                                                 "by_shape": {}})
+                  for name in LARGE_ROUTES}
     for name, shape, kernel, plain, args in large_kernel_cases(gen):
+        mixer = name in ("ln_mixer_head", "global_mixer")
+        if mixer:
+            route = mixer_route_of(name, args[0])
+            before = collections.Counter(wrappers[name].variants)
         got, want = as_tuple(kernel(*args)), as_tuple(plain(*args))
+        if mixer:
+            first = dict(collections.Counter(wrappers[name].variants)
+                         - before)
+            if first != {route["route"]: 1}:
+                failures.append(f"{name} {shape}: launched {first}, the "
+                                f"mirror names {route['route']}")
         if "-const" in shape:
             cpu, evidence = const_plane_cpu(name, shape, kernel, plain,
                                             args, got, want)
@@ -5485,7 +5607,6 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
         bound_ms, bound_by = bound(name, args, want)
         ms, source = large_device_ms(lambda: kernel(*args), bound_ms,
                                      event_ms)
-        mixer = name in ("ln_mixer_head", "global_mixer")
         line = (f"large {name:17s} {shape:18s} rel err {rel:.3e} (max-abs "
                 f"{ab:.3e})  kernel {ms:.4f} ms ({source}; events "
                 f"{event_ms:.4f})  plain {plain_ms:.4f} ms  bound "
@@ -5495,14 +5616,13 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
                "event_ms": event_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by}
         if mixer:
-            x = args[0]
-            planes = x.shape[0] * x.shape[1] // (2 if name == "ln_mixer_head"
-                                                 else 1)
-            route = mixer_route(*x.shape[-2:], planes,
-                                head=name == "ln_mixer_head")
-            line += (f"  route {route['route']}: {route['launches']} "
-                     f"launches, scratch {route['scratch_bytes'] / 2**20:.1f}"
-                     f" MiB, {route['cols']} columns a block")
+            row.update(launches_a_call=route["launches"], k=route["k"])
+            line += (f"  route {route['route']}"
+                     + (f" k {route['k']}" if route["k"] else "")
+                     + f": {route['launches']} launches a call, scratch "
+                     f"{route['scratch_bytes'] / 2**20:.1f} MiB, "
+                     f"{route['rows']} rows and {route['cols']} columns a "
+                     f"block")
             if "-" not in shape:
                 planes = mixer_planes(name, args)
                 fft = lambda: torch.fft.irfft2(torch.fft.rfft2(planes),
@@ -5512,13 +5632,28 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
                 line += (f"  cuFFT rfft2 + irfft2 on the same planes "
                          f"{yard:.4f} ms ({ysource}; a yardstick only)")
                 row["cufft_ms"] = yard
+            if route["route"] == "cluster" and "-" not in shape:
+                routed = forced_global(name, args)
+                same_bits = all(map(torch.equal, routed, got))
+                g_ms, g_source = large_device_ms(
+                    lambda: forced_global(name, args), bound_ms,
+                    time_ms(lambda: forced_global(name, args),
+                            iters=LARGE_TIMED, warmup=1))
+                line += (f"  global route forced: {g_ms:.4f} ms ({g_source}"
+                         f"; share {bound_ms / g_ms:.3f}), bit-equal "
+                         f"{same_bits}; cluster / global {ms / g_ms:.3f}")
+                row.update(global_ms=g_ms, global_bit_equal=same_bits)
+                if not same_bits:
+                    failures.append(f"{name} {shape}: the cluster route "
+                                    f"differs from the global route")
             same = all(all(map(torch.equal, as_tuple(kernel(*args)), got))
                        for _ in range(REPEATS))
             line += f"  {REPEATS} more launches bit-identical: {same}"
             if not same:
                 failures.append(f"{name} {shape}: not deterministic")
-            route_rec["max_abs_err"] = max(route_rec["max_abs_err"], ab)
-            route_rec["by_shape"][f"{name} {shape}"] = row
+            rec = route_recs[f"fft_mixer_{route['route']}"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], ab)
+            rec["by_shape"][f"{name} {shape}"] = row
         else:
             rec = record.setdefault(name, {"max_abs_err": 0.0,
                                            "by_shape": {}})
@@ -5530,10 +5665,12 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
     for name in ("ln_mixer_head", "global_mixer"):
         got = dict(wrappers[name].variants)
         print(f"large {name:17s} launches by layout {got}")
-        if set(got) != {"global"}:
-            failures.append(f"{name}: layouts {got}, want only global")
+        if set(got) != {"cluster", "global"}:
+            failures.append(f"{name}: layouts {got}, want cluster and "
+                            f"global")
 
-    # the global route on planes the one-block body also takes
+    # the routes forced on planes the one-block body also takes: the
+    # cluster at every size, the global route
     gen_same = torch.Generator().manual_seed(SEED + 31)
     for shape in LARGE_SAME_BODY:
         b, c, h, w = shape
@@ -5541,20 +5678,31 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
         mix = tuple(torch.randn(c, generator=gen_same).cuda() * s
                     for s in (1.0, 0.1, 1.0, 0.1))
         body = global_mixer(x, *mix)
-        routed = torch.empty_like(x)
-        scratch = torch.empty(b * c * fft_mixer_plan(h, w)["ld"] * h * 2,
-                              device="cuda")
-        _cuda.launch("lgteun_global_mixer_global_route", x.device, x, *mix,
-                     fft_tables(h, w, x.device), scratch, routed, b, c, h, w)
+        plain_err = lambda out: rel_err([out], [global_mixer_ref(x, *mix)])[0]
+        tag = "x".join(map(str, shape))
+        for k in LARGE_CLUSTERS:
+            routed = torch.empty_like(x)
+            _cuda.launch("lgteun_global_mixer_cluster_route", x.device, x,
+                         *mix, fft_tables(h, w, x.device), routed, b, c, h,
+                         w, k)
+            same = torch.equal(routed, body)
+            print(f"large cluster route forced at {tag} on {k} blocks "
+                  f"against the one-block body: bit-equal {same} (rel err "
+                  f"{rel_err([routed], [body])[0]:.3e}); against the plain "
+                  f"version {plain_err(routed):.3e}")
+            if not same:
+                failures.append(f"forced cluster {shape} k {k}")
+        routed = forced_global("global_mixer", (x,) + mix)[0]
         rel = rel_err([routed], [body])[0]
-        print(f"large global route forced at {'x'.join(map(str, shape))} "
-              f"against the one-block body: rel err {rel:.3e}, bit-equal "
+        print(f"large global route forced at {tag} against the one-block "
+              f"body: rel err {rel:.3e}, bit-equal "
               f"{torch.equal(routed, body)}; against the plain version "
-              f"{rel_err([routed], [global_mixer_ref(x, *mix)])[0]:.3e}")
+              f"{plain_err(routed):.3e}")
         if not rel <= KERNEL_REL_TOL:
             failures.append(f"forced route {shape}: {rel:.3e}")
+    check_mixer_route_rule()
 
-    # the bf16 entries on the global route (PR 15's bound)
+    # the bf16 entries on the cluster route (the bf16 entries' bound)
     hw, f32 = LARGE_CONST, torch.float32
     gen_bf = torch.Generator().manual_seed(SEED + 32)
     nb = lambda *s, scale=1.0: (torch.randn(*s, generator=gen_bf)
@@ -5599,7 +5747,8 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
               f"over every plane (planes with a bin within BF16_CUT of zero "
               f"or the cut: {int(cut.sum())} of {cut.numel()})  kernel "
               f"{ms:.4f} ms ({source})  [{card}]")
-        route_rec["by_shape"][f"{name} 1x{xs.shape[1]}x{hw}x{hw} {lab}"] = {
+        rec = route_recs[f"fft_mixer_{mixer_route_of(name, xs)['route']}"]
+        rec["by_shape"][f"{name} 1x{xs.shape[1]}x{hw}x{hw} {lab}"] = {
             "ms": ms, "worst": worst, "equal_share": shares}
         if not ok:
             failures.append(f"bf16 {name} {lab}")
@@ -5625,20 +5774,31 @@ def large_batch(side: int, seed: int) -> dict:
             "input_pan": (pan[None, :side, :side, None] / DN_RANGE)}
 
 
-def run_large_forwards(card: str) -> int:
+def mixer_routes(wrappers: dict) -> dict:
+    """The mixer's launches by route ("cluster", "global", and "smem" for
+    the one-block layouts) in both wrappers since `wrappers` were reset."""
+    got = collections.Counter()
+    for name in ("ln_mixer_head", "global_mixer"):
+        for layout, n in wrappers[name].variants.items():
+            got[layout if layout in ("cluster", "global") else "smem"] += n
+    return dict(got)
+
+
+def run_large_forwards(card: str) -> dict:
     """UnlgFormer at PAN LARGE_SIDE^2, batch 1, at each of LARGE_FORMS:
-    launches a forward (the route; every other kernel 0) and the output
-    against the CPU plain path (level 2's, the function every level
-    computes) within 5e-4, with the split line at level 2; then whole
-    LARGE_TILES tiles at level 2: median ms of LARGE_TIMED forwards,
-    MP/s and peak GiB. Returns the level-2 forward's calls of the global
-    route (both wrappers)."""
+    launches a forward (the route; every other kernel 0; the mixer's by
+    route, LARGE_ROUTES_A_FORWARD) and the output against the CPU plain
+    path (level 2's, the function every level computes) within 5e-4,
+    with the split line at level 2; then whole LARGE_TILES tiles at
+    level 2: median ms of LARGE_TIMED forwards, MP/s, peak GiB and the
+    mixer's launches a forward by route. Returns the mixer's launches a
+    forward by path and route ({path: {route: n}})."""
     batch = large_batch(LARGE_SIDE, SEED + 33)
     cpu = large_method({}, "cpu")
     with torch.inference_mode():
         want = cpu.apply(batch)
     state = {k: v.cpu() for k, v in cpu.module.state_dict().items()}
-    failures, routed = [], 0
+    failures, routed = [], {}
     for (lvl, att), route in LARGE_FORMS.items():
         tag = (f"large UnlgFormer {LARGE_SIDE}^2 level {lvl}"
                f"{' v2' if att == 'v2' else ''}")
@@ -5653,9 +5813,7 @@ def run_large_forwards(card: str) -> int:
                    if fn.launches}
         layouts = {k: dict(wrappers[k].variants) for k in
                    ("ln_mixer_head", "global_mixer") if wrappers[k].launches}
-        if (lvl, att) == ("2", "1"):
-            routed = sum(wrappers[k].variants["global"] for k in
-                         ("ln_mixer_head", "global_mixer"))
+        routes = routed[tag] = mixer_routes(wrappers)
         err = (got - want).abs().max().item()
         ms = time_ms(lambda: method.apply(batch), iters=LARGE_TIMED,
                      warmup=1)
@@ -5672,9 +5830,11 @@ def run_large_forwards(card: str) -> int:
                   f"plain - cpu plain| "
                   f"{(card_plain - want).abs().max().item():.3e}")
             large_profile(tag, lambda: method.apply(batch), card)
-        if counted != route or not err <= 5e-4 or not bool(
+        if counted != route or routes != LARGE_ROUTES_A_FORWARD[
+                LARGE_SIDE] or not err <= 5e-4 or not bool(
                 torch.isfinite(got).all()):
-            failures.append(f"{tag}: launches {counted}, err {err:.3e}")
+            failures.append(f"{tag}: launches {counted}, mixer routes "
+                            f"{routes}, err {err:.3e}")
         del method
     # whole tiles
     method = large_method({}, "cuda")
@@ -5684,6 +5844,7 @@ def run_large_forwards(card: str) -> int:
         out = method.apply(tile)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        wrappers = reset_launches()
         times = []
         for _ in range(LARGE_TIMED):
             t0 = time.perf_counter()
@@ -5692,16 +5853,19 @@ def run_large_forwards(card: str) -> int:
             times.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         med = statistics.median(times)
+        tag = f"large UnlgFormer whole tile {side}"
+        routes = routed[tag] = {k: n // LARGE_TIMED for k, n in
+                                mixer_routes(wrappers).items()}
         ok = tuple(out.shape) == (1, side, side, 8) and bool(
             torch.isfinite(out).all())
         print(f"large UnlgFormer whole tile {side}x{side}x8 (level 2, batch "
               f"1): {med * 1e3:.2f} ms median of {LARGE_TIMED} = "
               f"{side * side / med / 1e6:.2f} MP/s, peak {peak:.2f} GiB, "
-              f"finite {ok}  [{card}]")
-        large_profile(f"large UnlgFormer whole tile {side}",
-                      lambda: method.apply(tile), card)
-        if not ok:
-            failures.append(f"whole tile {side}")
+              f"finite {ok}; mixer launches a forward by route {routes} "
+              f"(want {LARGE_ROUTES_A_FORWARD[side]})  [{card}]")
+        large_profile(tag, lambda: method.apply(tile), card)
+        if not ok or routes != LARGE_ROUTES_A_FORWARD[side]:
+            failures.append(f"whole tile {side}: routes {routes}")
         del out
     del method
     torch.cuda.empty_cache()
@@ -5711,7 +5875,7 @@ def run_large_forwards(card: str) -> int:
 
 
 def run_large_grad(card: str) -> None:
-    """B1's training entry on the global route at LARGE_GRAD: forward and
+    """B1's training entry on the cluster route at LARGE_GRAD: forward and
     the gradients of a loss linear in its outputs against plain autograd
     on the card (KERNEL_REL_TOL, GRAD_REL_TOL)."""
     from lgteun_tpu_torch.ops.spectral_kernel import (ln_mixer_head,
@@ -5735,7 +5899,7 @@ def run_large_grad(card: str) -> None:
     fwd = rel_err(k_out, p_out)[0]
     grad = max(rel_err([g], [p])[0] for g, p in zip(k_grads, p_grads))
     print(f"large autograd ln_mixer_head {'x'.join(map(str, LARGE_GRAD))} "
-          f"(global route): forward rel err {fwd:.3e}  grads of {len(args)} "
+          f"(cluster route): forward rel err {fwd:.3e}  grads of {len(args)} "
           f"tensors rel err {grad:.3e} (bounds {KERNEL_REL_TOL:g}, "
           f"{GRAD_REL_TOL:g})  [{card}]")
     if not (fwd <= KERNEL_REL_TOL and grad <= GRAD_REL_TOL):
@@ -5745,11 +5909,13 @@ def run_large_grad(card: str) -> None:
 
 def run_large_scene(card: str) -> None:
     """`fuse_scene` on the seeded 1024^2 WV-3 scene at LARGE_TILING
-    (256^2 tiles: the mixer's global route, batch SCENE_BATCH): MP/s
-    (median of 3), a crop against the CPU plain path within 5e-4 (its
-    tiles in one forward); then `python -m lgteun_tpu_torch.fuse --tile
-    0` on the scene's TIFFs against `method.apply` on the whole scene
-    within 1 DN."""
+    (256^2 tiles, batch SCENE_BATCH: four of a forward's five B1 calls
+    on the mixer's cluster route, the bottleneck's on one block): MP/s
+    (median of 3) and the mixer's launches a forward by route, a crop
+    against the CPU plain path within 5e-4 (its tiles in one forward);
+    then `python -m lgteun_tpu_torch.fuse --tile 0` on the scene's TIFFs
+    against `method.apply` on the whole scene within 1 DN. Returns the
+    mixer's launches a forward by route."""
     from lgteun_tpu_torch import fuse
     from lgteun_tpu_torch.data.tiff import read_tiff, write_tiff
     from lgteun_tpu_torch.parallel.scene import fuse_scene
@@ -5776,14 +5942,20 @@ def run_large_scene(card: str) -> None:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counted = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    forwards = counted.get("ln_mixer_head", 0) // 5
+    routes = {k: n // max(forwards, 1) for k, n in
+              mixer_routes(wrappers).items()}
     med = statistics.median(times)
-    ok = tuple(out.shape) == (SCENE, SCENE, 8) and bool(
-        torch.isfinite(out).all())
+    ok = (tuple(out.shape) == (SCENE, SCENE, 8) and bool(
+        torch.isfinite(out).all()) and forwards > 0
+        and routes == {"cluster": 4, "smem": 1}
+        and sum(mixer_routes(wrappers).values()) == 5 * forwards)
     print(f"large scene {SCENE}x{SCENE}x8 tile {tile} halo {halo} batch "
           f"{SCENE_BATCH}: {med * 1e3:.2f} ms median of 3 = "
           f"{SCENE * SCENE / med / 1e6:.2f} MP/s, launches in 3 scenes "
-          f"{counted}, mixer layouts {dict(wrappers['ln_mixer_head'].variants)}"
-          f"  [{card}]")
+          f"{counted} ({forwards} forwards), mixer layouts "
+          f"{dict(wrappers['ln_mixer_head'].variants)}, a forward by route "
+          f"{routes} (want cluster 4, smem 1)  [{card}]")
     lc, pc = lr_n[:crop // 4, :crop // 4], pan_n[:crop, :crop]
     n_crop = (-(-(crop - tile) // (tile - 2 * halo)) + 1) ** 2
     got = fuse_scene(method, lc, pc, tile=tile, halo=halo,
@@ -5811,14 +5983,16 @@ def run_large_scene(card: str) -> None:
           f"method.apply on the whole scene| {dn:g} DN (bound 1)  [{card}]")
     if not (ok and err <= 5e-4 and cli_out.shape == (SCENE, SCENE, 8)
             and dn <= 1.0):
-        raise AssertionError(f"large scene: crop {err:.3e}, cli {dn} DN")
+        raise AssertionError(f"large scene: crop {err:.3e}, cli {dn} DN, "
+                             f"routes {routes}")
+    return routes
 
 
 def large_space_jobs() -> list:
     """The large phase's height-sharded cases, run by the mesh phase's
     spawn: UnlgFormer (seeded) at PAN LARGE_SIDE^2 on {"space": 2}, level
     2 float32 and level 1 bf16res (B1 / B4 on the gathered whole plane:
-    the global route)."""
+    the cluster route)."""
     from lgteun_tpu_torch.parallel import ranks
     batch = large_batch(LARGE_SIDE, SEED + 36)
     cases = []
@@ -5837,16 +6011,16 @@ def large_space_jobs() -> list:
 
 
 def run_large(card: str, space_jobs_: list, space_results: list) -> tuple:
-    """The `large` phase (module docstring): (the level-2 forward's calls
-    of the global route, its `launches`; the kernel cases' rows by
-    kernel, as main's `record` holds them)."""
+    """The `large` phase (module docstring): (the mixer's launches a
+    forward by path and route; the kernel cases' rows by kernel, as
+    main's `record` holds them)."""
     record = {}
     run_large_kernels(torch.Generator().manual_seed(SEED + 30), record,
                       card)
     check_fft_tables(LARGE_TABLES)
     routed = run_large_forwards(card)
     run_large_grad(card)
-    run_large_scene(card)
+    routed[f"large scene tile {LARGE_TILING[0]}"] = run_large_scene(card)
     run_space(space_jobs_, space_results, card)
     return routed, record
 

@@ -54,13 +54,20 @@
 //
 // A plane whose half spectrum does not fit one block's shared memory
 // (fft_mixer_smem > kFftSmemBytes, e.g. above 240 x 240) takes the
-// global-memory route (fft_global_plan, spectral_head.cu): the same plan,
-// tables and parts (FftPlane), but the half spectrum [H][ld] lies in a
-// device scratch between three launches: (a) the W forward and split of
-// a range of rows a block, (b) the H forward, amp/phase and H inverse of
-// a range of columns a block, staged in shared memory, (c) the c2r and W
-// inverse of a range of rows a block. Each value takes the arithmetic it
-// takes in one block.
+// cluster route where the shared memory of a thread-block cluster of K
+// blocks holds it (fft_cluster_plan, K = 2 to 16: up to 512^2 and 1024 x
+// 512): one launch, block k holding rows [k rows, (k + 1) rows) of the
+// half spectrum, its range of columns gathered from every block's rows
+// through distributed shared memory a chunk at a time
+// (fft_mixer_plane_cluster). A plane no cluster holds (1024^2 and up)
+// takes the global-memory route (fft_global_plan, spectral_head.cu): the
+// half spectrum [H][ld] lies in a device scratch between three launches:
+// (a) the W forward and split of a range of rows a block, (b) the H
+// forward, amp/phase and H inverse of a range of columns a block, staged
+// in shared memory, (c) the c2r and W inverse of a range of rows a block.
+// Both run the same plan, tables and parts (FftPlane), so each value
+// takes the arithmetic it takes in one block (fft_mixer_route picks the
+// route).
 
 #pragma once
 
@@ -242,6 +249,75 @@ inline bool fft_global_plan(int H, int W, FftGlobalPlan* g) {
   g->smem_rows = head + row * g->rows;
   g->smem_cols = head + col * g->pitch;
   return true;
+}
+
+// The largest cluster the route takes: 8 blocks are portable, 16 need
+// cudaFuncAttributeNonPortableClusterSizeAllowed (the H100 has them).
+constexpr int kFftMaxCluster = 16;
+
+// The cluster route of an H x W plane on k blocks: `rows` rows of the
+// half spectrum a block (block j: [j rows, (j + 1) rows) of H), `cols` of
+// its N + 1 columns a block likewise, run `chunk` columns at a time,
+// staged with the odd row pitch `pitch`; each block's shared memory (the
+// plan, its rows, the stage). False where there is no plan, or a block's
+// rows and one staged column exceed kFftSmemBytes.
+struct FftClusterPlan {
+  int k, rows, cols, chunk, pitch;
+  size_t smem;
+};
+
+inline bool fft_cluster_plan(int H, int W, int k, FftClusterPlan* c) {
+  FftMixerPlan p;
+  if (k < 1 || !fft_mixer_plan(H, W, &p)) return false;
+  const int N = W / 2, rows = (H + k - 1) / k;
+  const size_t mine = sizeof(float) * kFftPlanFloats +
+                      sizeof(float2) * (size_t)rows * p.ld;
+  const size_t col = sizeof(float2) * (size_t)H;
+  if (mine + col > kFftSmemBytes) return false;
+  // the widest stage that fits, odd (the pitch is the chunk rounded up
+  // to odd), at most N + 2
+  size_t fit = (kFftSmemBytes - mine) / col;
+  if (fit > (size_t)N + 2) fit = N + 2;
+  const int widest = fit % 2 ? (int)fit : (int)fit - 1;
+  c->k = k;
+  c->rows = rows;
+  c->cols = (N + 1 + k - 1) / k;
+  const int chunks = (c->cols + widest - 1) / widest;
+  c->chunk = (c->cols + chunks - 1) / chunks;
+  c->pitch = c->chunk | 1;
+  c->smem = mine + col * c->pitch;
+  return true;
+}
+
+// The routes of the mixer of one H x W plane, chosen by its shape: the
+// one-block body where its half spectrum fits (kFftSmem), else a cluster
+// of the smallest K (a power of two up to kFftMaxCluster) whose blocks
+// hold it (the value K), else the global route (kFftGlobal); kFftNone
+// where there is no plan or the global route refuses a larger plane (the
+// cluster route takes no plane the global route refuses).
+constexpr int kFftNone = -2, kFftGlobal = -1, kFftSmem = 0;
+
+inline int fft_mixer_route(int H, int W) {
+  FftMixerPlan p;
+  FftGlobalPlan g;
+  FftClusterPlan c;
+  if (!fft_mixer_plan(H, W, &p)) return kFftNone;
+  if (fft_mixer_smem(H, W) <= kFftSmemBytes) return kFftSmem;
+  if (!fft_global_plan(H, W, &g)) return kFftNone;
+  for (int k = 2; k <= kFftMaxCluster; k *= 2)
+    if (fft_cluster_plan(H, W, k, &c)) return k;
+  return kFftGlobal;
+}
+
+// The cluster size a launch of `planes` planes on `sms` SMs takes: the
+// smallest k that holds a plane (fft_mixer_route), doubled while the
+// clusters still take at most half of the SMs (one block an SM). Fewer
+// blocks leave SMs idle where the planes are few; more split a plane
+// thinner than a block's threads (on the H100 at 256^2-512^2, 1 to 512
+// planes, half of the SMs timed best).
+inline int fft_cluster_size(int k, long long planes, int sms) {
+  while (2 * k <= kFftMaxCluster && planes * 4 * k <= sms) k *= 2;
+  return k;
 }
 
 // exp(-2 pi i j / n) in double, exact zeros kept exact (+0).
@@ -584,10 +660,12 @@ __device__ __forceinline__ float2 mix_bin(float2 z, bool self_conj, float aw,
 }
 
 // One plane's mixer in three parts over ranges of rows or of columns, so
-// that one block runs all of it (fft_mixer_plane) or a cluster of two
-// blocks splits it (fft_mixer_plane_pair). A part begins after, and ends
-// before, a point where its caller synchronises. The plan stays in the
-// tables (FftMixerPlan).
+// that one block runs all of it (fft_mixer_plane), a cluster of two
+// blocks splits it (fft_mixer_plane_pair), a cluster of K blocks that
+// hold it once between them splits it (fft_mixer_plane_cluster) or
+// three launches do (the global route, spectral_head.cu). A part begins
+// after, and ends before, a point where its caller synchronises. The
+// plan stays in the tables (FftMixerPlan).
 struct FftPlane {
   // the tables, and shared memory: the plan's copy, then the half
   // spectrum; every value of the plan is read where it is used
@@ -683,7 +761,7 @@ struct FftPlane {
 
   // The same on columns held at Ac: column c0 + c, position q at Ac[q *
   // ld + c] (the half spectrum itself, or a range of its columns staged
-  // with pitch ld by the global route)
+  // with pitch ld by the cluster or the global route)
   __device__ __forceinline__ void columns_in(float2* Ac, int ld, int c0,
                                              int nc, float aw, float ab,
                                              float pw, float pb) const {
@@ -853,6 +931,66 @@ __device__ __forceinline__ void fft_mixer_plane_pair(
   }
   cluster.sync();
   plane.rows_inverse(reinterpret_cast<PO*>(out), rank * hr, hr);
+}
+
+// The plane on a cluster of blocks that together hold its half
+// spectrum once (fft_cluster_plan: `rows`, `cols`, `chunk`, `pitch`):
+// block `rank` keeps rows [rank rows, (rank + 1) rows) at the head of its
+// half spectrum (`sm`: the plan, the rows, then a stage of H x pitch).
+// It runs the W forward and split of its rows; after the cluster syncs,
+// its columns [rank cols, (rank + 1) cols) `chunk` at a time: gathered
+// from every block's rows through distributed shared memory into the
+// stage, the H forward, amp/phase and H inverse there, scattered back
+// (each block reads and writes only its own columns of the others'
+// rows); after the cluster syncs again, the c2r and W inverse of its
+// rows. `in` and `out` may alias: a block writes only its own rows of
+// `out`, after every block has read its rows of `in`.
+template <class TI, class TO>
+__device__ __forceinline__ void fft_mixer_plane_cluster(
+    const TI* in, TO* out, float2* sm, const float* tab, int rows, int cols,
+    int chunk, int pitch, float aw, float ab, float pw, float pb) {
+  using PI = typename PairOf<TI>::type;
+  using PO = typename PairOf<TO>::type;
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const FftPlane plane(tab, sm);
+  const int rank = (int)cluster.block_rank();
+  plane.load_plan();
+  __syncthreads();
+  const int H = plane.get(plane.plan().col.n);
+  const int N = plane.get(plane.plan().row.n);
+  const int ld = plane.get(plane.plan().ld);
+  const int r0 = min(rank * rows, H), nr = min(rows, H - r0);
+  plane.rows_forward(reinterpret_cast<const PI*>(in) + (size_t)r0 * N, 0,
+                     nr);
+  float2* stage = plane.A + rows * ld;
+  const int c_end = min((rank + 1) * cols, N + 1);
+  const FftDiv rows_div(rows);
+  cluster.sync();  // every block's rows are in its shared memory
+  for (int c0 = rank * cols; c0 < c_end; c0 += chunk) {
+    const int nc = min(chunk, c_end - c0);
+    const FftDiv nc_div(nc);
+    // row q of the stage is row q - j rows of block j = q / rows; the
+    // remote loads of a thread are independent, so unrolled they overlap
+#pragma unroll 4
+    for (int t = threadIdx.x; t < H * nc; t += blockDim.x) {
+      const int q = nc_div(t), c = t - q * nc, j = rows_div(q);
+      stage[q * pitch + c] =
+          cluster.map_shared_rank(plane.A, j)[(q - j * rows) * ld + c0 + c];
+    }
+    __syncthreads();
+    plane.columns_in(stage, pitch, c0, nc, aw, ab, pw, pb);
+    __syncthreads();
+#pragma unroll 4
+    for (int t = threadIdx.x; t < H * nc; t += blockDim.x) {
+      const int q = nc_div(t), c = t - q * nc, j = rows_div(q);
+      cluster.map_shared_rank(plane.A, j)[(q - j * rows) * ld + c0 + c] =
+          stage[q * pitch + c];
+    }
+    __syncthreads();  // the stage is read before the next chunk fills it
+  }
+  cluster.sync();  // every block's columns are back in their rows
+  plane.rows_inverse(reinterpret_cast<PO*>(out) + (size_t)r0 * N, 0, nr);
 }
 
 // y1 = LN(x)[:C/2], y2 = LN(x)[C/2:] at the kP pixels p + k stride of

@@ -26,16 +26,28 @@
 //     registers, one barrier a pass. It takes a plane whose half spectrum
 //     fits in shared memory (fft_mixer_smem <= 232,448 bytes: up to 240 x
 //     240).
-//  2g. the global-memory route, for every larger plane (any even H, W
-//     with odd prime factors <= 512, up to H 14,514 and W 29,026): the
-//     half spectrum [planes][H][ld] in a scratch the caller passes, and
-//     three launches of 256-thread blocks, two an SM, on the parts of
-//     FftPlane: fft_rows_forward_kernel (a range of rows a block: W
-//     forward and split), fft_columns_kernel (a range of columns a block,
-//     staged in shared memory: H forward, amp/phase, H inverse) and
-//     fft_rows_inverse_kernel (a range of rows: c2r, W inverse, |.| into
-//     `out`). The same plan, tables and butterflies as the one-block body;
-//     launch_fft_mixer picks the route by the plane's shape.
+//  2c. the cluster route, for a larger plane whose half spectrum the
+//     shared memory of a thread-block cluster holds (fft_cluster_plan:
+//     the smallest K of 2, 4, 8, 16 whose blocks each hold H / K rows of
+//     it and a stage of columns; up to 512^2 at K = 8 and 1024 x 512 at
+//     K = 16): fft_mixer_cluster_kernel, one launch, one cluster of K
+//     512-thread blocks a plane, one block an SM. Each block runs the W
+//     forward of its rows, then its N / K columns a chunk at a time,
+//     gathered from the other blocks' rows through distributed shared
+//     memory and scattered back, then the W inverse of its rows: the half
+//     spectrum never leaves the cluster's shared memory, where the global
+//     route crossed HBM with it four times between three launches.
+//  2g. the global-memory route, for a plane no cluster holds (1024^2 and
+//     up; any even H, W with odd prime factors <= 512, up to H 14,514 and
+//     W 29,026): the half spectrum [planes][H][ld] in a scratch the
+//     caller passes, and three launches of 256-thread blocks, two an SM,
+//     on the parts of FftPlane: fft_rows_forward_kernel (a range of rows
+//     a block: W forward and split), fft_columns_kernel (a range of
+//     columns a block, staged in shared memory: H forward, amp/phase, H
+//     inverse) and fft_rows_inverse_kernel (a range of rows: c2r, W
+//     inverse, |.| into `out`). Every route runs the same plan, tables and
+//     butterflies as the one-block body; launch_fft_mixer picks the route
+//     by the plane's shape (fft_mixer_route).
 //  3. fft_tables_kernel: the twiddle and position tables of one (H, W),
 //     made once per size by the wrapper (`lgteun_fft_tables`) and read by
 //     every plane of every launch.
@@ -98,6 +110,30 @@ fft_mixer_pair_kernel(const TI* in, TO* out,
   const size_t off = (size_t)plane * HW;
   fft_mixer_plane_pair(in + off, out + off, smem, tables, amp_w[c], amp_b[c],
                        pha_w[c], pha_b[c]);
+}
+
+// The cluster route (fft_cluster_plan): one plane a cluster of K blocks
+// (K from the launch's cluster dimension), each holding its share of the
+// half spectrum (fft_mixer_plane_cluster); 512 threads, one block an SM.
+constexpr int kFftClusterThreads = 512;
+
+template <class TI, class TO>
+__global__ void __launch_bounds__(kFftClusterThreads, 1)
+fft_mixer_cluster_kernel(const TI* in, TO* out,
+                         const float* __restrict__ amp_w,
+                         const float* __restrict__ amp_b,
+                         const float* __restrict__ pha_w,
+                         const float* __restrict__ pha_b,
+                         const float* __restrict__ tables, int C, int HW,
+                         int rows, int cols, int chunk, int pitch) {
+  extern __shared__ float2 smem[];
+  const int plane =
+      blockIdx.x / (int)cooperative_groups::this_cluster().num_blocks();
+  const int c = plane % C;
+  const size_t off = (size_t)plane * HW;
+  fft_mixer_plane_cluster(in + off, out + off, smem, tables, rows, cols,
+                          chunk, pitch, amp_w[c], amp_b[c], pha_w[c],
+                          pha_b[c]);
 }
 
 // The global route (fft_global_plan), part (a): W forward and split of
@@ -235,6 +271,52 @@ int launch_fft_mixer_global(const TI* in, TO* out, const float* amp_w,
   return (int)cudaGetLastError();
 }
 
+// The cluster route on B * C planes: one launch of B C clusters of k
+// blocks (fft_cluster_plan). Clusters above 8 blocks are allowed as
+// non-portable; a k whose clusters cannot be resident
+// (cudaOccupancyMaxActiveClusters 0) is refused, and so is a launch the
+// runtime refuses: the error goes back to the caller, no other route is
+// taken.
+template <class TI, class TO>
+int launch_fft_mixer_cluster(const TI* in, TO* out, const float* amp_w,
+                             const float* amp_b, const float* pha_w,
+                             const float* pha_b, const float* tables, int B,
+                             int C, int H, int W, int k,
+                             cudaStream_t stream) {
+  FftClusterPlan plan;
+  const long long blocks = (long long)B * C * k;
+  if (k < 2 || k > kFftMaxCluster || (k & (k - 1)) ||
+      !fft_cluster_plan(H, W, k, &plan) || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  auto* kernel = fft_mixer_cluster_kernel<TI, TO>;
+  cudaError_t err = allow_smem(kernel, plan.smem);
+  if (err == cudaSuccess && k > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = (unsigned)k;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kFftClusterThreads);
+  cfg.dynamicSmemBytes = plan.smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  int resident = 0;
+  err = cudaOccupancyMaxActiveClusters(&resident, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (resident < 1) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, in, out, amp_w, amp_b, pha_w,
+                           pha_b, tables, C, H * W, plan.rows, plan.cols,
+                           plan.chunk, plan.pitch);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // The tables of plan p (fft_mixer.cuh, FftMixerPlan), the plan first.
 __global__ void fft_tables_kernel(float* __restrict__ tab, FftMixerPlan p) {
   const int N = p.row.n, H = p.col.n;
@@ -278,32 +360,54 @@ cudaError_t launch_fft_mixer_kernel(Kernel* kernel, int blocks, int threads,
   return cudaGetLastError();
 }
 
-// Launch the mixer on B * C planes of storage types TI -> TO (loads.cuh):
-// one block (or a cluster of two) a plane where its half spectrum fits in
-// shared memory, else the global route on `scratch` (`global_route`
-// takes it at any size: the checks that hold it to the one-block body);
-// checks the lengths it takes and the pairs' alignment.
+// The SMs of the current device, or 0 with the error in *err.
+inline int device_sms(cudaError_t* err) {
+  int dev = 0, sms = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Launch the mixer on B * C planes of storage types TI -> TO (loads.cuh)
+// by the route of their shape (fft_mixer_route): one block (or a cluster
+// of two) a plane where its half spectrum fits in shared memory, else a
+// cluster of blocks that holds it (its size by fft_cluster_size), else
+// the global route on `scratch`. `route` other than kFftByShape forces a
+// route at any size that route takes (kFftGlobal, or a cluster of that
+// many blocks): the checks that hold the routes to each other and to the
+// one-block body. Checks the lengths it takes and the pairs' alignment.
+constexpr int kFftByShape = -3;
+
 template <class TI, class TO>
 int launch_fft_mixer(const TI* in, TO* out, const float* amp_w,
                      const float* amp_b, const float* pha_w,
                      const float* pha_b, const float* tables,
                      float* scratch, int B, int C, int H, int W,
-                     cudaStream_t stream, bool global_route = false) {
+                     cudaStream_t stream, int route = kFftByShape) {
   FftMixerPlan p;
   if (!fft_mixer_plan(H, W, &p) ||
       reinterpret_cast<size_t>(in) % (2 * sizeof(TI)) ||
       reinterpret_cast<size_t>(out) % (2 * sizeof(TO)))
     return (int)cudaErrorInvalidValue;
-  if (global_route || fft_mixer_smem(H, W) > kFftSmemBytes)
+  const int planes = B * C;
+  cudaError_t err = cudaSuccess;
+  if (route == kFftByShape) {
+    route = fft_mixer_route(H, W);
+    if (route > kFftSmem) route = fft_cluster_size(route, planes,
+                                                   device_sms(&err));
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (route == kFftNone) return (int)cudaErrorInvalidValue;
+  if (route == kFftGlobal)
     return launch_fft_mixer_global(in, out, amp_w, amp_b, pha_w, pha_b,
                                    tables, scratch, B, C, H, W, stream);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (route != kFftSmem)
+    return launch_fft_mixer_cluster(in, out, amp_w, amp_b, pha_w, pha_b,
+                                    tables, B, C, H, W, route, stream);
+  const int sms = device_sms(&err);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = fft_mixer_smem(H, W);
-  const int planes = B * C;
   if (2 * planes <= sms)
     return (int)launch_fft_mixer_kernel(fft_mixer_pair_kernel<TI, TO>,
                                         2 * planes,
@@ -320,6 +424,25 @@ int launch_fft_mixer(const TI* in, TO* out, const float* amp_w,
                                       planes, 256,
                                       in, out, amp_w, amp_b, pha_w, pha_b,
                                       tables, C, H * W, smem, stream);
+}
+
+// The LN split into y1 and y2 (float), then the mixer of y2 into x2 (x2
+// may be y2) by `route` (launch_fft_mixer).
+template <class TX, class TY>
+int ln_mixer_head(const TX* x, const float* ln_w, const float* ln_b,
+                  const float* amp_w, const float* amp_b, const float* pha_w,
+                  const float* pha_b, const float* tables, float* scratch,
+                  TY* y1, float* y2, TY* x2, int B, int C, int H, int W,
+                  float eps, cudaStream_t stream, int route = kFftByShape) {
+  const int HW = H * W;
+  const dim3 grid_ln((HW + kThreadsLN - 1) / kThreadsLN, B);
+  ln_split_kernel<TX, TY><<<grid_ln, kThreadsLN, 0, stream>>>(
+      x, ln_w, ln_b, y1, y2, C, HW, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_fft_mixer(static_cast<const float*>(y2), x2, amp_w, amp_b,
+                          pha_w, pha_b, tables, scratch, B, C / 2, H, W,
+                          stream, route);
 }
 
 }  // namespace
@@ -339,9 +462,17 @@ extern "C" int lgteun_fft_tables(float* tables, int floats, int H, int W,
 
 // The layout of the mixer entries' arguments: 3, they take the tables of
 // lgteun_fft_tables and the global route's scratch (null where the
-// planes fit in shared memory) after pha_b (2: the tables only; earlier
+// planes take another route) after pha_b (2: the tables only; earlier
 // versions: none).
 extern "C" int lgteun_fft_mixer_layout() { return 3; }
+
+// Not a launch: the route a launch of `planes` H x W planes on `sms` SMs
+// takes (fft_mixer_route, fft_cluster_size): 0 the one-block body, K >=
+// 2 a cluster of K blocks, -1 the global route, -2 none.
+extern "C" int lgteun_fft_mixer_route(int H, int W, int planes, int sms) {
+  const int route = fft_mixer_route(H, W);
+  return route > kFftSmem ? fft_cluster_size(route, planes, sms) : route;
+}
 
 // y1, x2 = LN(x)[:, :C/2], global_mixer(LN(x)[:, C/2:]) on [B, C, H, W].
 // H and W even, odd prime factors <= 512 (checked by the wrapper);
@@ -353,12 +484,21 @@ extern "C" int lgteun_ln_mixer_head(const float* x, const float* ln_w,
                                     float* scratch, float* y1, float* x2,
                                     int B, int C, int H, int W, float eps,
                                     cudaStream_t stream) {
-  const int HW = H * W;
-  const dim3 grid_ln((HW + kThreadsLN - 1) / kThreadsLN, B);
-  ln_split_kernel<float, float><<<grid_ln, kThreadsLN, 0, stream>>>(
-      x, ln_w, ln_b, y1, x2, C, HW, eps);
-  return launch_fft_mixer(x2, x2, amp_w, amp_b, pha_w, pha_b, tables,
-                          scratch, B, C / 2, H, W, stream);
+  return ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b, tables,
+                       scratch, y1, x2, x2, B, C, H, W, eps, stream);
+}
+
+// lgteun_ln_mixer_head with its mixer on the global route at any size
+// the route takes: for the checks that hold the cluster route to it and
+// the timings beside it (not on a model path).
+extern "C" int lgteun_ln_mixer_head_global_route(
+    const float* x, const float* ln_w, const float* ln_b,
+    const float* amp_w, const float* amp_b, const float* pha_w,
+    const float* pha_b, const float* tables, float* scratch, float* y1,
+    float* x2, int B, int C, int H, int W, float eps, cudaStream_t stream) {
+  return ln_mixer_head(x, ln_w, ln_b, amp_w, amp_b, pha_w, pha_b, tables,
+                       scratch, y1, x2, x2, B, C, H, W, eps, stream,
+                       kFftGlobal);
 }
 
 // out = global_mixer(x) on [B, C, H, W]; per-channel affine [C] each;
@@ -374,14 +514,28 @@ extern "C" int lgteun_global_mixer(const float* x, const float* amp_w,
 
 // lgteun_global_mixer on the global route at any size the route takes,
 // planes that fit in shared memory too: for the checks that hold the
-// route to the one-block body (not on a model path).
+// route to the one-block body and to the cluster route (not on a model
+// path).
 extern "C" int lgteun_global_mixer_global_route(
     const float* x, const float* amp_w, const float* amp_b,
     const float* pha_w, const float* pha_b, const float* tables,
     float* scratch, float* out, int B, int C, int H, int W,
     cudaStream_t stream) {
   return launch_fft_mixer(x, out, amp_w, amp_b, pha_w, pha_b, tables,
-                          scratch, B, C, H, W, stream, true);
+                          scratch, B, C, H, W, stream, kFftGlobal);
+}
+
+// lgteun_global_mixer on a cluster of k blocks (2, 4, 8 or 16) at any
+// size whose shares that many blocks hold, planes that fit one block too:
+// for the checks that hold the cluster route to the one-block body (not
+// on a model path).
+extern "C" int lgteun_global_mixer_cluster_route(
+    const float* x, const float* amp_w, const float* amp_b,
+    const float* pha_w, const float* pha_b, const float* tables,
+    float* out, int B, int C, int H, int W, int k, cudaStream_t stream) {
+  if (k < 2) return (int)cudaErrorInvalidValue;
+  return launch_fft_mixer(x, out, amp_w, amp_b, pha_w, pha_b, tables,
+                          nullptr, B, C, H, W, stream, k);
 }
 
 // The bf16 storage entries (LGTEUN_EVAL_DTYPE, loads.cuh): activations as
@@ -396,21 +550,13 @@ extern "C" int lgteun_ln_mixer_head_bf16(
     const float* tables, float* scratch, __nv_bfloat16* y1,
     __nv_bfloat16* x2, float* y2, int B, int C, int H, int W, int x_bf16,
     float eps, cudaStream_t stream) {
-  const int HW = H * W;
-  const dim3 grid_ln((HW + kThreadsLN - 1) / kThreadsLN, B);
   if (x_bf16)
-    ln_split_kernel<__nv_bfloat16, __nv_bfloat16>
-        <<<grid_ln, kThreadsLN, 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(x), ln_w, ln_b, y1, y2, C, HW,
-            eps);
-  else
-    ln_split_kernel<float, __nv_bfloat16><<<grid_ln, kThreadsLN, 0, stream>>>(
-        static_cast<const float*>(x), ln_w, ln_b, y1, y2, C, HW, eps);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_fft_mixer(static_cast<const float*>(y2), x2, amp_w, amp_b,
-                          pha_w, pha_b, tables, scratch, B, C / 2, H, W,
-                          stream);
+    return ln_mixer_head(static_cast<const __nv_bfloat16*>(x), ln_w, ln_b,
+                         amp_w, amp_b, pha_w, pha_b, tables, scratch, y1, y2,
+                         x2, B, C, H, W, eps, stream);
+  return ln_mixer_head(static_cast<const float*>(x), ln_w, ln_b, amp_w,
+                       amp_b, pha_w, pha_b, tables, scratch, y1, y2, x2, B, C,
+                       H, W, eps, stream);
 }
 
 // lgteun_global_mixer with out stored as bf16, x as float (x_bf16 0:

@@ -47,6 +47,14 @@ SIGNATURES = {
     "lgteun_global_mixer": [_P] * 8 + [_I] * 4 + [_P],
     # the same, on the global route at any size (checks only)
     "lgteun_global_mixer_global_route": [_P] * 8 + [_I] * 4 + [_P],
+    "lgteun_ln_mixer_head_global_route": [_P] * 11 + [_I] * 4 + [_F, _P],
+    # x, amp_w, amp_b, pha_w, pha_b, tables, out, B, C, H, W, k, stream: on
+    # a cluster of k blocks at any size they hold (checks only)
+    "lgteun_global_mixer_cluster_route": [_P] * 7 + [_I] * 5 + [_P],
+    # not a launch: the route of a launch of `planes` (H, W) planes on
+    # `sms` SMs: 0 one block, K >= 2 a cluster of K, -1 global, -2 none
+    # (H, W, planes, sms; spectral_kernel.mixer_route)
+    "lgteun_fft_mixer_route": [_I] * 4,
     # tables, floats, H, W, stream
     "lgteun_fft_tables": [_P] + [_I] * 3 + [_P],
     # The bf16 storage entries (ops.storage_dtype): the float32 entry's

@@ -92,8 +92,8 @@ def lgb_block_ref(x, blk: dict, heads: int = 2, win: int = 8,
 def lgb_route(h: int, w: int) -> str:
     """How `lgb_block` runs a block on H x W planes: "block" (B8, one
     launch) where the mixer's half spectrum fits one block's shared
-    memory, else "chain" (B1 on its global route, B2, B3: level 2's
-    chain); None where the mixer takes no route."""
+    memory, else "chain" (B1 on its cluster or global route, B2, B3:
+    level 2's chain); None where the mixer takes no route."""
     route = mixer_route(h, w)
     if route is None:
         return None

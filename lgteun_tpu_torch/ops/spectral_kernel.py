@@ -15,22 +15,27 @@ and `fused_global_mixer_cm` (Pallas), and of `ln_mixer_head_xla_cm` and
 CUDA tensor, differentiable there (`ops.autograd.recompute`: the kernel
 forward, the plain version's backward), and run `ln_mixer_head_ref` /
 `global_mixer_ref` for a CPU tensor. The kernel takes any even H, W
-whose odd prime factors are at most 512, by one of two routes chosen by
-the plane's shape (`mixer_route`): where the half spectrum fits one
+whose odd prime factors are at most 512, by one of three routes chosen
+by the plane's shape (`mixer_route`): where the half spectrum fits one
 block's shared memory, 112 + 8 * H * ld bytes (the plan, then the half
 spectrum) <= 232,448 (the H100's), ld = W/2 + 1 rounded up to odd (up to
-240 x 240), one block (or a cluster of two) holds a plane; above that,
-the global route keeps the half spectra in a scratch the wrapper
-allocates and runs the same plan in three launches over ranges of rows
-and columns (`fft_global_plan`; up to H 14,514 and W 29,026). Odd sides
-and odd primes above 512 are refused. Its plan, twiddle and position
-tables are made once per (H, W) and device (`fft_tables`).
-`fft_plan` / `fft_mixer_plan` / `fft_global_plan` mirror the kernel's
-plans (`csrc/fft_mixer.cuh`) and `fft_tables_ref` its tables, for the
-tests and for `chip_smoke.py`, which holds the card's tables to them. The
-wrappers count their launches by the layout the kernel picks
-(`mixer_variant`, `variants`: "pair", "block512", "block256" or
-"global").
+240 x 240), one block (or a cluster of two) holds a plane ("smem");
+above that, a thread-block cluster of the smallest K of 2, 4, 8, 16
+whose blocks each hold H / K rows of the half spectrum and a stage of
+columns runs it in one launch ("cluster", `fft_cluster_plan`: 256^2 and
+264^2 at K = 2, 512^2 at K = 8, 1024 x 512 at K = 16); a plane no
+cluster holds (1024^2 and up) takes the global route, which keeps the
+half spectra in a scratch the wrapper allocates and runs the same plan
+in three launches over ranges of rows and columns ("global",
+`fft_global_plan`; up to H 14,514 and W 29,026). Odd sides and odd
+primes above 512 are refused. Its plan, twiddle and position tables are
+made once per (H, W) and device (`fft_tables`). `fft_plan` /
+`fft_mixer_plan` / `fft_cluster_plan` / `fft_global_plan` mirror the
+kernel's plans (`csrc/fft_mixer.cuh`) and `fft_tables_ref` its tables,
+for the tests and for `chip_smoke.py`, which holds the card's tables and
+routes to them. The wrappers count their launches by the layout the
+kernel picks (`mixer_variant`, `variants`: "pair", "block512",
+"block256", "cluster" or "global").
 
 Storage (`ops.storage_dtype`): x may be float32 or bfloat16, and the
 head's y1 and x2, and the mixer's output, float32 or bfloat16
@@ -64,7 +69,8 @@ __all__ = ["ln_mixer_head", "ln_mixer_head_ref", "global_mixer",
            "global_mixer_ref", "PLANE_ROUNDING", "plane_rfft2", "amp_phase",
            "safe_amp_phase",
            "mixer_spectrum", "mixer_inverse", "fft_plan", "fft_pos",
-           "fft_mixer_plan", "fft_global_plan", "mixer_route",
+           "fft_mixer_plan", "fft_cluster_plan", "fft_global_plan",
+           "cluster_size", "mixer_route",
            "fft_tables_ref", "fft_tables", "mixer_variant"]
 
 # shared memory one block may hold on the H100 (227 KB)
@@ -74,6 +80,10 @@ FFT_SMEM_BYTES = 232_448
 # kFftGlobalCols)
 FFT_GLOBAL_SMEM = FFT_SMEM_BYTES // 2
 FFT_GLOBAL_COLS = 31
+# the cluster route's sizes (fft_mixer.cuh: kFftMaxCluster; 16 is a
+# non-portable cluster size, which the H100 has)
+FFT_CLUSTERS = (2, 4, 8, 16)
+H100_SMS = 132            # streaming multiprocessors of the H100 SXM
 FFT_MAX_PASS = 8          # fft_mixer.cuh: kFftMaxPass
 FFT_MAX_PRIME = 512       # kFftMaxPrime
 FFT_PLAN_FLOATS = 28      # kFftPlanFloats: the plan at the tables' head
@@ -287,28 +297,78 @@ def fft_global_plan(h: int, w: int) -> dict | None:
             "plane_bytes": 8 * h * plan["ld"]}
 
 
-def mixer_route(h: int, w: int, planes: int = 1, head: bool = False
-                ) -> dict | None:
-    """How the kernel runs the mixer of `planes` H x W planes
-    (`spectral_head.cu::launch_fft_mixer`), chosen by shape before any
-    launch: `route` "smem" (one block or a cluster of two a plane, its
-    half spectrum in shared memory) or "global" (three launches on a
-    scratch); `launches` of kernels a call (the head's LN split counts
-    one more with `head`), `scratch_bytes` the wrapper allocates (0 on
-    "smem"), and the global route's `cols` (the column-range width) and
-    `rows` (None on "smem"). None where no route takes the plane."""
+def fft_cluster_plan(h: int, w: int, k: int) -> dict | None:
+    """The cluster route's plan of an H x W plane on k blocks
+    (`fft_mixer.cuh::fft_cluster_plan`): `rows` rows of the half spectrum
+    a block and `cols` of its N + 1 columns a block (block j: [j rows, (j
+    + 1) rows), [j cols, (j + 1) cols), clipped), its columns run
+    `chunk` at a time (`chunks` of them) staged with the odd row pitch
+    `pitch`, and each block's shared memory `smem` (the plan, its rows,
+    the stage). None where there is no plan, or a block's rows and one
+    staged column exceed FFT_SMEM_BYTES."""
+    plan = fft_mixer_plan(h, w)
+    if plan is None or k < 1:
+        return None
+    n, rows = w // 2, -(-h // k)
+    mine = 4 * FFT_PLAN_FLOATS + 8 * rows * plan["ld"]
+    if mine + 8 * h > FFT_SMEM_BYTES:
+        return None
+    # the widest stage that fits, odd, at most N + 2
+    fit = min((FFT_SMEM_BYTES - mine) // (8 * h), n + 2)
+    widest = fit if fit % 2 else fit - 1
+    cols = -(-(n + 1) // k)
+    chunks = -(-cols // widest)
+    chunk = -(-cols // chunks)
+    return {"k": k, "rows": rows, "cols": cols, "chunk": chunk,
+            "chunks": chunks, "pitch": chunk | 1,
+            "smem": mine + 8 * h * (chunk | 1)}
+
+
+def cluster_size(k: int, planes: int, sms: int = H100_SMS) -> int:
+    """The cluster size a launch of `planes` planes on `sms` SMs takes
+    (`fft_mixer.cuh::fft_cluster_size`): from the smallest k that holds a
+    plane, doubled (up to the largest of FFT_CLUSTERS) while the
+    clusters still take at most half of the SMs, one block an SM."""
+    while 2 * k <= FFT_CLUSTERS[-1] and planes * 4 * k <= sms:
+        k *= 2
+    return k
+
+
+def mixer_route(h: int, w: int, planes: int = 1, head: bool = False,
+                sms: int = H100_SMS) -> dict | None:
+    """How the kernel runs the mixer of `planes` H x W planes on `sms`
+    SMs (`spectral_head.cu::launch_fft_mixer`, `fft_mixer.cuh::
+    fft_mixer_route`), chosen by shape before any launch: `route` "smem"
+    (one block or a cluster of two a plane, its half spectrum in shared
+    memory), "cluster" (one launch, a cluster of `k` blocks a plane that
+    hold its half spectrum between them: the smallest k of FFT_CLUSTERS
+    that does, made larger by `cluster_size` where the planes are few)
+    or "global" (three launches on a scratch); `launches` of kernels a
+    call (the head's LN split counts one more with `head`),
+    `scratch_bytes` the wrapper allocates (0 but on "global"), the rows
+    and columns a block (`rows`, `cols`: the cluster's or the global
+    route's ranges; None on "smem") and `k` (None but on "cluster").
+    None where no route takes the plane: no plan, or a plane above one
+    block that the global route refuses (the cluster route takes none of
+    those)."""
     plan = fft_mixer_plan(h, w)
     if plan is None:
         return None
     if plan["smem"] <= FFT_SMEM_BYTES:
         return {"route": "smem", "launches": 1 + head, "scratch_bytes": 0,
-                "cols": None, "rows": None}
+                "cols": None, "rows": None, "k": None}
     g = fft_global_plan(h, w)
     if g is None:
         return None
+    for k in FFT_CLUSTERS:
+        if fft_cluster_plan(h, w, k) is not None:
+            c = fft_cluster_plan(h, w, cluster_size(k, planes, sms))
+            return {"route": "cluster", "launches": 1 + head,
+                    "scratch_bytes": 0, "cols": c["cols"], "rows": c["rows"],
+                    "k": c["k"]}
     return {"route": "global", "launches": 3 + head,
             "scratch_bytes": planes * g["plane_bytes"], "cols": g["cols"],
-            "rows": g["rows"]}
+            "rows": g["rows"], "k": None}
 
 
 def fft_tables_ref(h: int, w: int) -> torch.Tensor:
@@ -368,14 +428,15 @@ fft_tables.launches = 0
 def mixer_variant(planes: int, device: torch.device, h: int, w: int
                   ) -> str:
     """The launch the kernel picks for `planes` H x W planes
-    (`spectral_head.cu::launch_fft_mixer`): "global" (the global route)
-    where a plane's half spectrum does not fit in shared memory, else
-    "pair" (a cluster of two 512-thread blocks a plane) where twice the
-    planes fit on the SMs, "block512" (one 512-thread block a plane)
-    where the planes do, else "block256" (256-thread blocks, two an
-    SM)."""
-    if mixer_route(h, w)["route"] == "global":
-        return "global"
+    (`spectral_head.cu::launch_fft_mixer`): "cluster" or "global" (those
+    routes) where a plane's half spectrum does not fit one block's shared
+    memory, else "pair" (a cluster of two 512-thread blocks a plane, each
+    with the whole half spectrum) where twice the planes fit on the SMs,
+    "block512" (one 512-thread block a plane) where the planes do, else
+    "block256" (256-thread blocks, two an SM)."""
+    route = mixer_route(h, w)["route"]
+    if route != "smem":
+        return route
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return ("pair" if 2 * planes <= sms else
             "block512" if planes <= sms else "block256")

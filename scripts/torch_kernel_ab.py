@@ -7,6 +7,7 @@
     python3 scripts/torch_kernel_ab.py --phases [--batch 4]
     python3 scripts/torch_kernel_ab.py --b8-phases [CSRC]
     python3 scripts/torch_kernel_ab.py --search-phases [CSRC] [--batch 4]
+    python3 scripts/torch_kernel_ab.py --cluster-sizes
 
 A and B are two versions either of `lgteun_tpu_torch/csrc/
 texture_match.cu` (the INNT searches `lgteun_texture_match` and
@@ -17,7 +18,10 @@ or of the whole `lgteun_tpu_torch/csrc` directory (then also the LGB
 kernels at the UnlgFormer block shapes and the scene engine's 144^2 /
 72^2: every case whose C entry both versions have; `--sizes` picks the
 planes, e.g. 128,64 for a version whose mixer takes only powers of
-two). Each is built with
+two, or 256,264,512 (C 32) for the mixer's routes above one block:
+`--only mixer` runs its two entries there, each library given the
+global route's scratch, which a version that runs those planes on a
+thread-block cluster ignores). Each is built with
 the port's nvcc flags into a shared library of its own; both run on the
 same inputs, each tail's matrices in the layout its library declares
 (`lgteun_block_tail_layout` 3: TF32 slabs in wgmma's core-matrix order,
@@ -94,6 +98,13 @@ one of comma-separated TEXTs).
 without LGTEUN_FUSED_TM=0) with A's and B's searches in turns;
 `--lightnet` and `--mdcun` LightNet's and MDCUN's (each library's
 LightNet weights in its own layout).
+
+`--cluster-sizes` times the FFT mixer's cluster route (the port's
+csrc) forced at each cluster size of 2, 4, 8, 16 that holds the plane,
+the global route forced on the same planes and the route the launch
+picks by shape, by the profiler's device time, at 256^2, 264^2, 384^2,
+512^2 and 1024x512 and 1 to 512 planes (CLUSTER_SHAPES); every forced
+output must equal the route by shape bit for bit.
 
 `--search-phases` shows where the INNT searches' time goes on their
 tensor-core branch (`csrc/texture_match_tc.cuh`, of CSRC, default the
@@ -199,11 +210,15 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
     def n(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).cuda()
 
-    def mixer(lay, hw):
-        return () if lay[2] is None else (lay[2](hw, hw),) + lay[2].scratch
+    def mixer(lay, hw, planes):
+        return () if lay[2] is None else (lay[2](hw, hw),) + \
+            lay[2].scratch(hw, planes)
 
     cases = {}
-    channels = {128: 32, 64: 64, 144: 32, 72: 64}
+    # C 32 on the UnlgFormer block's planes (128^2, and 256^2 / 512^2 at
+    # PAN 256^2 / 512^2: the mixer's cluster route; 264^2 its odd radices)
+    # and the scene engine's 144^2, C 64 at 64^2 and 72^2
+    channels = {128: 32, 64: 64, 144: 32, 72: 64, 256: 32, 264: 32, 512: 32}
     for hw in sizes:
         c = channels[hw]
         b, c2, c4 = batch, c // 2, 4 * c
@@ -215,16 +230,17 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
         head = (1 + 0.1 * n(c), 0.1 * n(c)) + mix
         cases[f"ln_mixer_head {tag}"] = (
             "lgteun_ln_mixer_head",
-            lambda lay, x=x, head=head, hw=hw: (x,) + head + mixer(lay, hw),
+            lambda lay, x=x, head=head, hw=hw, p=b * c2: (x,) + head
+            + mixer(lay, hw, p),
             lambda half=half: (half(), half()), (b, c, hw, hw, 1e-5))
         cases[f"global_mixer {b}x{c2}x{hw}x{hw}"] = (
             "lgteun_global_mixer",
-            lambda lay, x=n(b, c2, hw, hw), mix=mix, hw=hw: (x,) + mix
-            + mixer(lay, hw),
+            lambda lay, x=n(b, c2, hw, hw), mix=mix, hw=hw, p=b * c2: (x,)
+            + mix + mixer(lay, hw, p),
             lambda half=half: (half(),), (b, c2, hw, hw))
-        # the whole block at the block shapes, the window attention and
-        # the tails at the scene engine's too
-        block = hw not in (144, 72)
+        # the whole block at the block shapes (B8 takes planes up to
+        # 240^2), the window attention and the tails at the others too
+        block = hw in (128, 64)
         wqkv = n(3 * c2, c2, scale=c2 ** -0.5)
         rest = (0.1 * n(3 * c2), n(2, 64, 64))
         attn = {1: (wqkv,) + rest, 2: (_wqkv_fragments(wqkv, 2),) + rest}
@@ -261,7 +277,7 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
             cases[f"lgb_block {tag}"] = (
                 "lgteun_lgb_block",
                 lambda lay, x=x, head=head, attn=attn, mats=mats, bp=bp,
-                ffn=ffn, hw=hw: (x,) + head + mixer(lay, hw) + attn[lay[1]]
+                ffn=ffn, hw=hw: (x,) + head + mixer(lay, hw, 0) + attn[lay[1]]
                 + (mats[lay[0]]["p"], bp) + ffn[lay[0]],
                 # the scratch's size bound now, not at the call (after the
                 # loop, b, c2 and hw would be the last size's)
@@ -382,8 +398,9 @@ def layouts(dll: ctypes.CDLL) -> tuple:
     """(tail, attention, tables, lgb, lightnet): the layouts of the tails'
     matrices and of the window attention's wqkv that `dll` takes, for a
     library whose mixer entries take tables (`lgteun_fft_mixer_layout` 2,
-    or 3: then a scratch after them, passed as null) a function (H, W) ->
-    the tables, made by its `lgteun_fft_tables`, else None, the whole block's arguments (`lgteun_lgb_block_layout`, 1
+    or 3: then a scratch after them, `tables.scratch(hw, planes)`) a
+    function (H, W) -> the tables, made by its `lgteun_fft_tables`, else
+    None, the whole block's arguments (`lgteun_lgb_block_layout`, 1
     without it; see lgb_cases) and LightNet's weights
     (`lgteun_lightnet_layout` 2: `lightnet_fragments`; 1 without it: the
     packed FP32 rows of `lightnet_packed_fp32`)."""
@@ -399,7 +416,9 @@ def layouts(dll: ctypes.CDLL) -> tuple:
         got.append(fn() if fn is not None else default)
     if got[2] < 2:
         return got[0], got[1], None, got[3], got[4]
-    from lgteun_tpu_torch.ops.spectral_kernel import fft_mixer_plan
+    from lgteun_tpu_torch.ops.spectral_kernel import (FFT_SMEM_BYTES,
+                                                      fft_global_plan,
+                                                      fft_mixer_plan)
     made = {}
 
     def tables(h, w):
@@ -408,9 +427,17 @@ def layouts(dll: ctypes.CDLL) -> tuple:
             made[h, w] = torch.empty(floats, device="cuda")
             caller(dll, "lgteun_fft_tables", made[h, w], floats, h, w)()
         return made[h, w]
-    # layout 3: a scratch after the tables (null: the A/B sizes fit in
-    # shared memory)
-    tables.scratch = (None,) if got[2] >= 3 else ()
+    def scratch(hw, planes):
+        """Layout 3: the global route's scratch after the tables, for
+        `planes` hw^2 planes above one block's shared memory (a version
+        whose route there is the cluster's ignores it), else null."""
+        if got[2] < 3:
+            return ()
+        if planes == 0 or fft_mixer_plan(hw, hw)["smem"] <= FFT_SMEM_BYTES:
+            return (None,)
+        return (torch.empty(planes * fft_global_plan(hw, hw)["plane_bytes"]
+                            // 4, device="cuda"),)
+    tables.scratch = scratch
     return got[0], got[1], tables, got[3], got[4]
 
 
@@ -1071,6 +1098,66 @@ def forward_ab(card: str, libs: dict, config: str, envs) -> None:
         _cuda.kernels, lightnet_kernel._packed = own, own_packed
 
 
+# the cluster route's sizes timed by --cluster-sizes: B4 on [B, C, H, W]
+# (16 planes at batch 1 is B1's at C 32; the tile-256 scene's batch 32)
+CLUSTER_SHAPES = ((1, 16, 256, 256), (1, 32, 256, 256), (4, 16, 256, 256),
+                  (32, 16, 256, 256), (1, 16, 264, 264), (1, 16, 512, 512),
+                  (1, 32, 512, 512), (4, 16, 512, 512), (1, 4, 1024, 512),
+                  (1, 8, 384, 384))
+
+
+def cluster_sizes(card: str) -> None:
+    """The FFT mixer's cluster route (the port's csrc) forced at each
+    cluster size that holds the plane (`lgteun_global_mixer_cluster_
+    route`), beside the global route forced on the same planes and the
+    route the launch picks by shape (`spectral_kernel.mixer_route`):
+    device ms by the profiler, each forced output bit-equal to the route
+    by shape, at CLUSTER_SHAPES."""
+    from chip_smoke import device_profile
+    from lgteun_tpu_torch.ops import _cuda
+    from lgteun_tpu_torch.ops.spectral_kernel import (FFT_CLUSTERS,
+                                                      fft_cluster_plan,
+                                                      fft_global_plan,
+                                                      fft_tables,
+                                                      global_mixer,
+                                                      mixer_route)
+    gen = torch.Generator().manual_seed(3)
+    n = lambda *s: torch.randn(*s, generator=gen).cuda()
+    dev = lambda f: device_profile(f, n=20)["busy_ms_per_call"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    failed = []
+    for shape in CLUSTER_SHAPES:
+        b, c, h, w = shape
+        x, mix = n(*shape), (n(c), 0.1 * n(c), n(c), 0.1 * n(c))
+        by_shape = global_mixer(x, *mix)
+        tab, out = fft_tables(h, w, x.device), torch.empty_like(x)
+        scratch = torch.empty(b * c * fft_global_plan(h, w)["plane_bytes"]
+                              // 4, device="cuda")
+        calls = {"global": lambda: _cuda.launch(
+            "lgteun_global_mixer_global_route", x.device, x, *mix, tab,
+            scratch, out, b, c, h, w)}
+        for k in FFT_CLUSTERS:
+            if fft_cluster_plan(h, w, k) is not None:
+                calls[f"k {k}"] = lambda k=k: _cuda.launch(
+                    "lgteun_global_mixer_cluster_route", x.device, x, *mix,
+                    tab, out, b, c, h, w, k)
+        row = []
+        for tag, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            same = torch.equal(out, by_shape)
+            row.append(f"{tag} {dev(call):.4f}{'' if same else ' DIFFERS'}")
+            if not same:
+                failed.append(f"{shape} {tag}")
+        k = mixer_route(h, w, b * c, sms=sms)["k"]
+        row.append(f"by shape (k {k}) "
+                   f"{dev(lambda: global_mixer(x, *mix)):.4f}")
+        print(f"cluster sizes {'x'.join(map(str, shape))} ({b * c} planes): "
+              f"device ms {' | '.join(row)}  [{card}]")
+    if failed:
+        raise AssertionError(f"forced routes differ: {failed}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("a", nargs="?")
@@ -1093,13 +1180,16 @@ def main() -> int:
                     help="time LightNet's stack's and the neighbourhood "
                          "attention's phases instead, in CSRC (default: the "
                          "port's csrc)")
+    ap.add_argument("--cluster-sizes", action="store_true",
+                    help="time the FFT mixer's cluster route forced at each "
+                         "cluster size instead, beside the global route")
     ap.add_argument("--b8-only", type=int, default=0, choices=(0, 1, 2),
                     help="with --b8-phases: 1 times the LN and plane items "
                          "alone, 2 the tail items alone")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--sizes", default="128,64,144,72",
-                    help="H = W of the LGB cases (C 32 at 128 and 144, "
-                         "C 64 at 64 and 72)")
+                    help="H = W of the LGB cases (C 32 at 128, 144, 256, "
+                         "264 and 512, C 64 at 64 and 72)")
     ap.add_argument("--innt", action="store_true",
                     help="time INNT's eval forward with A's and B's "
                          "searches instead of the kernel cases")
@@ -1129,6 +1219,11 @@ def main() -> int:
 
     card = sh("nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader").splitlines()[0]
+    if opts.cluster_sizes:
+        from lgteun_tpu_torch.ops import _cuda
+        _cuda.build_library()
+        cluster_sizes(card)
+        return 0
     if opts.mma_rate or opts.phases or opts.b8_phases is not None \
             or opts.search_phases is not None \
             or opts.stack_phases is not None:

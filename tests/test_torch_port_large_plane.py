@@ -3,17 +3,20 @@ B8's route by shape), on the CPU.
 
 Above 240 x 240 a plane's half spectrum no longer fits one block's
 shared memory, so `ln_mixer_head` (B1) and `global_mixer` (B4) run the
-mixer's global route on the card (`csrc/spectral_head.cu`): the same
-plan, tables and butterflies as the one-block body, the half spectrum
-[H][ld] in a scratch between three launches over ranges of rows and of
-columns; and `lgb_block` (B8) runs level 2's chain there. These tests
-hold the route's Python mirror (`mixer_route`, `fft_global_plan`), an
+mixer on a thread-block cluster where one holds the plane (up to 512^2
+and 1024 x 512: `test_torch_port_cluster_route.py`) and on the global
+route above (`csrc/spectral_head.cu`): the same plan, tables and
+butterflies as the one-block body, the half spectrum [H][ld] in a
+scratch between three launches over ranges of rows and of columns (the
+card also forces it on smaller planes, against the other routes); and
+`lgb_block` (B8) runs level 2's chain there. These tests hold the
+global route's Python mirror (`mixer_route`, `fft_global_plan`), an
 emulation of its three parts in float32 (`test_torch_port_fft_plan.py`'s
 passes, on the route's row and column ranges) against the one-block
 emulation bit for bit and against `global_mixer_ref`, the plain mixer and
 head against the JAX package's plain mixer at 256^2, a narrow UnlgFormer
 at PAN 256^2 against JAX's channel-major forward (5e-4), and the level-3
-launch mix by shape. The card runs the route against the plain versions
+launch mix by shape. The card runs the routes against the plain versions
 in `chip_smoke.py`'s `large` phase.
 """
 
@@ -58,12 +61,15 @@ from test_torch_port_ops import f32, max_err  # noqa: E402
 
 PARAMS = (0.9, 0.05, 1.3, 0.1)  # amp_w, amp_b, pha_w, pha_b
 
-# (H, W) -> (route, rows, cols) of the mirror: the one-block body up to
-# 240^2, the global route above it
+# (H, W) -> (route by shape, the global route's rows and cols a block):
+# the one-block body up to 240^2, a cluster to 264^2 here
+# (`test_torch_port_cluster_route.py`), the global route above it; the
+# global plan at every size it takes (forced on the cluster's planes by
+# `lgteun_global_mixer_global_route` and `_head_global_route`)
 ROUTES = {(240, 240): ("smem", None, None),
-          (248, 248): ("global", 116, 31),
-          (256, 256): ("global", 112, 31),
-          (264, 264): ("global", 109, 31),
+          (248, 248): ("cluster", 116, 31),
+          (256, 256): ("cluster", 112, 31),
+          (264, 264): ("cluster", 109, 31),
           (1000, 1000): ("global", 28, 13),
           (1024, 1024): ("global", 28, 13),
           (2048, 2048): ("global", 14, 7),
@@ -72,12 +78,14 @@ ROUTES = {(240, 240): ("smem", None, None),
 
 @pytest.mark.parametrize("hw", sorted(ROUTES))
 def test_route_mirror(hw):
-    """Which route, launches, scratch and the range widths: the one-block
-    body where the plan and half spectrum fit 232,448 bytes, else three
-    launches (the head one more, its LN split) on a scratch of the planes'
-    half spectra [H][ld] float2; the row and column ranges as large as
-    half of the shared memory allows (two blocks an SM; at most 31
-    columns, an odd pitch), covering the plane."""
+    """Which route, launches, scratch and the global plan's range widths:
+    the one-block body where the plan and half spectrum fit 232,448
+    bytes; else one launch (the head one more, its LN split) and no
+    scratch on a cluster, or three launches on a scratch of the planes'
+    half spectra [H][ld] float2 on the global route; the global route's
+    row and column ranges as large as half of the shared memory allows
+    (two blocks an SM; at most 31 columns, an odd pitch), covering the
+    plane."""
     h, w = hw
     route, rows, cols = ROUTES[hw]
     plan, n = fft_mixer_plan(h, w), w // 2
@@ -85,15 +93,21 @@ def test_route_mirror(hw):
     head = mixer_route(h, w, planes=16, head=True)
     assert got["route"] == route
     assert (plan["smem"] <= FFT_SMEM_BYTES) == (route == "smem")
-    assert (got["rows"], got["cols"]) == (rows, cols)
     if route == "smem":
+        assert (got["rows"], got["cols"]) == (None, None)
         assert (got["launches"], head["launches"]) == (1, 2)
         assert got["scratch_bytes"] == 0
         return
-    assert (got["launches"], head["launches"]) == (3, 4)
-    assert got["scratch_bytes"] == 16 * 8 * h * plan["ld"]
+    if route == "cluster":
+        assert (got["launches"], head["launches"]) == (1, 2)
+        assert got["scratch_bytes"] == 0
+    else:
+        assert (got["rows"], got["cols"]) == (rows, cols)
+        assert (got["launches"], head["launches"]) == (3, 4)
+        assert got["scratch_bytes"] == 16 * 8 * h * plan["ld"]
     g, hd = fft_global_plan(h, w), 4 * FFT_PLAN_FLOATS
     assert g["rows"] == rows and g["cols"] == cols
+    assert g["plane_bytes"] == 8 * h * plan["ld"]
     assert g["smem_rows"] == hd + 8 * plan["ld"] * rows <= FFT_GLOBAL_SMEM
     assert rows == h or g["smem_rows"] + 8 * plan["ld"] > FFT_GLOBAL_SMEM
     assert g["pitch"] % 2 == 1 and cols <= g["pitch"] <= FFT_GLOBAL_COLS
@@ -165,12 +179,16 @@ def emulate_global(x, prm=PARAMS):
 
 @pytest.mark.parametrize("hw", [(256, 256), (264, 520)])
 def test_emulated_route_matches_plain(hw):
-    """float32: the route's three parts give the one-block body's
+    """float32: the global route's three parts give the one-block body's
     emulated output bit for bit (each value takes the same arithmetic),
     within 1e-5 of `global_mixer_ref` (as the one-block emulation is
-    held); 264 x 520 runs radix 11 and 13 on the generic pass."""
+    held); 264 x 520 runs radix 11 and 13 on the generic pass. Both
+    sizes take a cluster by shape: the card forces the global route on
+    them (`lgteun_global_mixer_global_route`) and holds it bit-equal to
+    the cluster route there."""
     h, w = hw
-    assert mixer_route(h, w)["route"] == "global"
+    assert mixer_route(h, w)["route"] == "cluster"
+    assert fft_global_plan(h, w) is not None
     x = _plane(h, w, seed=4)
     prm = torch.tensor(PARAMS, dtype=torch.float64)
     want = global_mixer_ref(x[None, None], *(v.view(1) for v in prm))[0, 0]
@@ -183,10 +201,10 @@ def test_emulated_route_matches_plain(hw):
 @pytest.mark.parametrize("axis", ["H", "W"])
 def test_emulated_route_keeps_exact_zeros(axis):
     """A float32 256^2 plane constant along H (equal rows) or along W
-    (constant rows): after the route's row ranges and column ranges every
-    bin that is zero in exact arithmetic is exactly zero, and the output
-    matches the plain version (which zeroes them, `plane_rfft2`) at a
-    non-integer phase scale."""
+    (constant rows): after the global route's row ranges and column
+    ranges (forced there on the card) every bin that is zero in exact
+    arithmetic is exactly zero, and the output matches the plain version
+    (which zeroes them, `plane_rfft2`) at a non-integer phase scale."""
     h = w = 256
     n = w // 2
     rng = np.random.default_rng(5)

@@ -5358,13 +5358,39 @@ LARGE_HEAD = ((1, 32, 256, 256), (1, 32, 1024, 1024), (1, 64, 512, 512),
 # second on a cluster of 16); the tile-256 scene's batch (level 1)
 LARGE_MIXER = ((1, 16, 264, 264), (1, 16, 1024, 1024), (1, 4, 2048, 2048),
                (1, 4, 1024, 2048), (1, 4, 1024, 512), (32, 16, 256, 256))
+# odd sides and prime factors above 512 (ROADMAP A.12.2) on each route
+# by shape: one block (15x21; 521 rows: fft_pass_prime), a cluster (W/2
+# = 521; 255x257; the strip's bottleneck, 4168 = 8 x 521), the global
+# route (1023x1025; the strip's full resolution, 8336 = 16 x 521; 2062 =
+# 2 x 1031); the largest prime the limits take, 14,503, as H (the global
+# route) and as odd W (a cluster of 16)
+LARGE_ODD = (("global_mixer", (2, 8, 15, 21)),
+             ("global_mixer", (1, 4, 521, 64)),
+             ("global_mixer", (1, 4, 64, 1042)),
+             ("global_mixer", (1, 16, 255, 257)),
+             ("ln_mixer_head", (1, 64, 4168, 64)),
+             ("global_mixer", (1, 4, 1023, 1025)),
+             ("ln_mixer_head", (1, 32, 8336, 128)),
+             ("global_mixer", (1, 4, 2062, 2062)),
+             ("global_mixer", (1, 1, 14503, 16)),
+             ("global_mixer", (1, 1, 16, 14503)))
 LARGE_CONST = 256           # the constant-plane and bf16 cases' side
+# B4's constant planes at odd sides and at a factor of 521
+LARGE_CONST_ODD = ((1, 16, 255, 257), (1, 4, 521, 64))
+# the bf16 entries' planes: LARGE_CONST^2, odd sides, a factor of 521
+LARGE_BF16 = ((LARGE_CONST, LARGE_CONST), (255, 257), (521, 64))
+# UnlgFormer on a strip (PAN H x W, LrMS a quarter): its full-resolution
+# planes (H = 16 x 521) on the global route, the bottleneck's on a
+# cluster; a forward's mixer launches by route at every level
+LARGE_STRIP = (8336, 128)
+LARGE_STRIP_ROUTES = {"global": 4, "cluster": 1}
 LARGE_BLOCK = (1, 32, 1024, 1024)   # B2 and B3 at a whole 1024^2 tile
 LARGE_TABLES = ((1024, 1024), (2048, 2048))
 # the cluster route forced at each size and the global route forced
 # (`lgteun_global_mixer_cluster_route`, `_global_route`) on planes the
 # one-block body takes, against that body
-LARGE_SAME_BODY = ((4, 16, 128, 128), (1, 4, 240, 240))
+LARGE_SAME_BODY = ((4, 16, 128, 128), (1, 4, 240, 240), (2, 8, 15, 21),
+                   (1, 4, 521, 64))
 LARGE_CLUSTERS = (2, 4, 8, 16)
 LARGE_SIDE = 512            # UnlgFormer's PAN side at every level
 LARGE_FORMS = {             # (level, attention) -> launches a forward
@@ -5433,6 +5459,17 @@ def large_kernel_cases(gen: torch.Generator):
     for shape in LARGE_MIXER:
         yield ("global_mixer", label(shape), global_mixer, global_mixer_ref,
                (n(*shape),) + mix_w(shape[1]))
+    for name, shape in LARGE_ODD:
+        head = name == "ln_mixer_head"
+        yield (name, label(shape), ln_mixer_head if head else global_mixer,
+               ln_mixer_head_ref if head else global_mixer_ref,
+               (n(*shape),) + (head_w if head else mix_w)(shape[1]))
+    for b, c, h, w in LARGE_CONST_ODD:
+        for axis in "HW":
+            x = (n(b, c, 1, w) if axis == "H" else n(b, c, h, 1)).expand(
+                b, c, h, w).contiguous()
+            yield ("global_mixer", f"{label((b, c, h, w))}-const{axis}",
+                   global_mixer, global_mixer_ref, (x,) + mix_w(c))
     hw = LARGE_CONST
     for axis in "HW":
         const = lambda c: (n(1, c, 1, hw) if axis == "H" else n(1, c, hw, 1)
@@ -5530,14 +5567,25 @@ def check_mixer_route_rule() -> None:
     """The mixer's route in Python (`mixer_route`: which route, and the
     cluster's size, that the wrappers count and the scratch follows)
     equals the library's (`lgteun_fft_mixer_route`, which the launches
-    follow) on even squares 2-4096, a 62-step grid of sides 64-2046 and
-    1, 16 and 512 planes on this card's SMs."""
+    follow) on even squares 2-4096, a 62-step grid of sides 64-2046, a
+    grid of odd and even sides 3-2097, sides with a factor 521 or 1031,
+    the largest sides and one past them, and 1, 16 and 512 planes on this
+    card's SMs."""
     from lgteun_tpu_torch.ops import _cuda
-    from lgteun_tpu_torch.ops.spectral_kernel import mixer_route
+    from lgteun_tpu_torch.ops.spectral_kernel import (FFT_MAX_H, FFT_MAX_W,
+                                                      FFT_MAX_W_ODD,
+                                                      mixer_route)
     lib = _cuda.kernels()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    primes = [521 * k for k in (1, 2, 3, 8, 16)] + [1031, 2062]
     shapes = [(h, h) for h in range(2, 4098, 2)] + [
-        (h, w) for h in range(64, 2048, 62) for w in range(64, 2048, 62)]
+        (h, w) for h in range(64, 2048, 62) for w in range(64, 2048, 62)] + [
+        (h, w) for h in range(3, 2100, 97) for w in range(4, 2100, 89)] + [
+        (h, w) for h in primes for w in (15, 64, 128, 257, 1042)] + [
+        (w, h) for h in primes for w in (15, 64, 128, 257)] + [
+        (FFT_MAX_H + d, 2) for d in (0, 1)] + [
+        (2, FFT_MAX_W + d) for d in (0, 2)] + [
+        (3, FFT_MAX_W_ODD + d) for d in (0, 2)]
     code = {"smem": 0, "global": -1}
     differ, counts = [], collections.Counter()
     for h, w in shapes:
@@ -5553,6 +5601,64 @@ def check_mixer_route_rule() -> None:
           f"all but {len(differ)}")
     if differ:
         raise AssertionError(f"mixer route rule differs at {differ[:5]}")
+
+
+def large_bf16(nb, h: int, w: int, rec_of, card: str) -> list:
+    """The bf16 entries of B1 (C 32) and B4 (C 16) on H x W planes, x
+    float32 and bf16, each against the plain version's float32 value
+    under the bf16 entries' bound (BF16_REL) over every plane; the rows
+    go into `rec_of(name, route)`. Returns the failures."""
+    from lgteun_tpu_torch.ops.norm import channel_layer_norm
+    from lgteun_tpu_torch.ops.spectral_kernel import (global_mixer,
+                                                      global_mixer_ref,
+                                                      ln_mixer_head,
+                                                      ln_mixer_head_ref)
+    f32, failures = torch.float32, []
+    c, c2 = 32, 16
+    head = (1 + 0.1 * nb(c), 0.1 * nb(c), nb(c2), 0.1 * nb(c2), nb(c2),
+            0.1 * nb(c2))
+    x, xp = nb(1, c, h, w), nb(1, c2, h, w)
+    cases = []
+    for xs in (x, x.to(BF16)):
+        cases.append(("ln_mixer_head", f"{str(xs.dtype)[6:]}>bf16", xs,
+                      lambda xs=xs: ln_mixer_head(xs, *head, out_dtype=BF16),
+                      lambda xs=xs: ln_mixer_head_ref(xs, *head,
+                                                      out_dtype=f32)))
+    for xs in (xp, xp.to(BF16)):
+        cases.append(("global_mixer", f"{str(xs.dtype)[6:]}>bf16", xs,
+                      lambda xs=xs: global_mixer(xs, *head[2:],
+                                                 out_dtype=BF16),
+                      lambda xs=xs: global_mixer_ref(xs, *head[2:],
+                                                     out_dtype=f32)))
+    for name, lab, xs, kernel, plain in cases:
+        got, p = as_tuple(kernel()), as_tuple(plain())
+        planes = xs.double()
+        if name == "ln_mixer_head":
+            planes = channel_layer_norm(planes, head[0].double(),
+                                        head[1].double())[:, c2:]
+        # every plane counts: a 256^2 plane is likelier than the kernels
+        # phase's to hold a bin near zero or the branch cut (the planes
+        # that bf16_outputs would set aside are printed, not set aside)
+        cut = mixer_cut_planes(planes)
+        worst, shares, within, _near, _ok = bf16_outputs(
+            name, (xs,) + (head if name == "ln_mixer_head" else head[2:]),
+            got, p)
+        ok = worst <= 0 and all(v >= BF16_EQUAL for v in shares)
+        ms, source = large_device_ms(kernel, 0.0, time_ms(
+            kernel, iters=LARGE_TIMED, warmup=1))
+        print(f"large {name:17s} 1x{xs.shape[1]}x{h}x{w} bf16 {lab:14s} "
+              f"{'ok' if ok else 'FAILED'}: |k - p| beyond {BF16_REL:.3e} "
+              f"|p| + {KERNEL_REL_TOL:g} max|p| at most {worst:.3e} max|p|; "
+              f"equal to bf16(p) {', '.join(f'{v:.5f}' for v in shares)} "
+              f"over every plane (planes with a bin within BF16_CUT of zero "
+              f"or the cut: {int(cut.sum())} of {cut.numel()})  kernel "
+              f"{ms:.4f} ms ({source})  [{card}]")
+        rec = rec_of(name, mixer_route_of(name, xs)["route"])
+        rec["by_shape"][f"{name} 1x{xs.shape[1]}x{h}x{w} {lab}"] = {
+            "ms": ms, "worst": worst, "equal_share": shares}
+        if not ok:
+            failures.append(f"bf16 {name} {lab}")
+    return failures
 
 
 def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
@@ -5582,6 +5688,14 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
     route_recs = {name: record.setdefault(name, {"max_abs_err": 0.0,
                                                  "by_shape": {}})
                   for name in LARGE_ROUTES}
+
+    def rec_of(name: str, route: str) -> dict:
+        """The record of a mixer case: its route's, or on the one-block
+        body the wrapper's own."""
+        if route == "smem":
+            return record.setdefault(name, {"max_abs_err": 0.0,
+                                            "by_shape": {}})
+        return route_recs[f"fft_mixer_{route}"]
     for name, shape, kernel, plain, args in large_kernel_cases(gen):
         mixer = name in ("ln_mixer_head", "global_mixer")
         if mixer:
@@ -5589,8 +5703,9 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
             before = collections.Counter(wrappers[name].variants)
         got, want = as_tuple(kernel(*args)), as_tuple(plain(*args))
         if mixer:
-            first = dict(collections.Counter(wrappers[name].variants)
-                         - before)
+            first = {layout if layout in ("cluster", "global") else "smem": n
+                     for layout, n in (collections.Counter(
+                         wrappers[name].variants) - before).items()}
             if first != {route["route"]: 1}:
                 failures.append(f"{name} {shape}: launched {first}, the "
                                 f"mirror names {route['route']}")
@@ -5632,7 +5747,7 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
                 line += (f"  cuFFT rfft2 + irfft2 on the same planes "
                          f"{yard:.4f} ms ({ysource}; a yardstick only)")
                 row["cufft_ms"] = yard
-            if route["route"] == "cluster" and "-" not in shape:
+            if route["route"] in ("cluster", "smem") and "-" not in shape:
                 routed = forced_global(name, args)
                 same_bits = all(map(torch.equal, routed, got))
                 g_ms, g_source = large_device_ms(
@@ -5651,7 +5766,7 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
             line += f"  {REPEATS} more launches bit-identical: {same}"
             if not same:
                 failures.append(f"{name} {shape}: not deterministic")
-            rec = route_recs[f"fft_mixer_{route['route']}"]
+            rec = rec_of(name, route["route"])
             rec["max_abs_err"] = max(rec["max_abs_err"], ab)
             rec["by_shape"][f"{name} {shape}"] = row
         else:
@@ -5665,7 +5780,7 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
     for name in ("ln_mixer_head", "global_mixer"):
         got = dict(wrappers[name].variants)
         print(f"large {name:17s} launches by layout {got}")
-        if set(got) != {"cluster", "global"}:
+        if not {"cluster", "global"} <= set(got):
             failures.append(f"{name}: layouts {got}, want cluster and "
                             f"global")
 
@@ -5702,56 +5817,13 @@ def run_large_kernels(gen: torch.Generator, record: dict, card: str) -> None:
             failures.append(f"forced route {shape}: {rel:.3e}")
     check_mixer_route_rule()
 
-    # the bf16 entries on the cluster route (the bf16 entries' bound)
-    hw, f32 = LARGE_CONST, torch.float32
+    # the bf16 entries on the cluster route at LARGE_BF16 (the bf16
+    # entries' bound)
     gen_bf = torch.Generator().manual_seed(SEED + 32)
     nb = lambda *s, scale=1.0: (torch.randn(*s, generator=gen_bf)
                                 * scale).cuda()
-    c, c2 = 32, 16
-    head = (1 + 0.1 * nb(c), 0.1 * nb(c), nb(c2), 0.1 * nb(c2), nb(c2),
-            0.1 * nb(c2))
-    x, xp = nb(1, c, hw, hw), nb(1, c2, hw, hw)
-    cases = []
-    for xs in (x, x.to(BF16)):
-        cases.append(("ln_mixer_head", f"{str(xs.dtype)[6:]}>bf16", xs,
-                      lambda xs=xs: ln_mixer_head(xs, *head, out_dtype=BF16),
-                      lambda xs=xs: ln_mixer_head_ref(xs, *head,
-                                                      out_dtype=f32)))
-    for xs in (xp, xp.to(BF16)):
-        cases.append(("global_mixer", f"{str(xs.dtype)[6:]}>bf16", xs,
-                      lambda xs=xs: global_mixer(xs, *head[2:],
-                                                 out_dtype=BF16),
-                      lambda xs=xs: global_mixer_ref(xs, *head[2:],
-                                                     out_dtype=f32)))
-    from lgteun_tpu_torch.ops.norm import channel_layer_norm
-    for name, lab, xs, kernel, plain in cases:
-        got, p = as_tuple(kernel()), as_tuple(plain())
-        planes = xs.double()
-        if name == "ln_mixer_head":
-            planes = channel_layer_norm(planes, head[0].double(),
-                                        head[1].double())[:, c2:]
-        # every plane counts: a 256^2 plane is likelier than the kernels
-        # phase's to hold a bin near zero or the branch cut (the planes
-        # that bf16_outputs would set aside are printed, not set aside)
-        cut = mixer_cut_planes(planes)
-        worst, shares, within, _near, _ok = bf16_outputs(
-            name, (xs,) + (head if name == "ln_mixer_head" else head[2:]),
-            got, p)
-        ok = worst <= 0 and all(v >= BF16_EQUAL for v in shares)
-        ms, source = large_device_ms(kernel, 0.0, time_ms(
-            kernel, iters=LARGE_TIMED, warmup=1))
-        print(f"large {name:17s} 1x{xs.shape[1]}x{hw}x{hw} bf16 {lab:14s} "
-              f"{'ok' if ok else 'FAILED'}: |k - p| beyond {BF16_REL:.3e} "
-              f"|p| + {KERNEL_REL_TOL:g} max|p| at most {worst:.3e} max|p|; "
-              f"equal to bf16(p) {', '.join(f'{v:.5f}' for v in shares)} "
-              f"over every plane (planes with a bin within BF16_CUT of zero "
-              f"or the cut: {int(cut.sum())} of {cut.numel()})  kernel "
-              f"{ms:.4f} ms ({source})  [{card}]")
-        rec = route_recs[f"fft_mixer_{mixer_route_of(name, xs)['route']}"]
-        rec["by_shape"][f"{name} 1x{xs.shape[1]}x{hw}x{hw} {lab}"] = {
-            "ms": ms, "worst": worst, "equal_share": shares}
-        if not ok:
-            failures.append(f"bf16 {name} {lab}")
+    for h, w in LARGE_BF16:
+        failures += large_bf16(nb, h, w, rec_of, card)
     if failures:
         raise AssertionError(f"large kernels: {failures}")
 
@@ -5988,6 +6060,111 @@ def run_large_scene(card: str) -> None:
     return routes
 
 
+def strip_scene(h: int, w: int, bands: int, seed: int):
+    """`synthetic_scene`'s recipe on an h x w strip (h, w multiples of
+    4): LrMS [h/4, w/4, bands] and PAN [h, w] in 11-bit DN, float32."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(200, 1800, (-(-h // 32), -(-w // 32), bands))
+    target = np.repeat(np.repeat(coarse, 32, 0), 32, 1)[:h, :w] + rng.normal(
+        0, 40, (h, w, bands))
+    target = np.clip(target, 0, 2047).astype(np.float32)
+    lr = target.reshape(h // 4, 4, w // 4, 4, bands).mean(axis=(1, 3))
+    return lr.astype(np.float32), target.mean(axis=-1).astype(np.float32)
+
+
+def run_large_strip(card: str) -> dict:
+    """UnlgFormer (the shipped WV-3 config, seeded as `fuse` seeds it) on
+    the LARGE_STRIP strip, whose full-resolution planes have a prime
+    factor 521 (ROADMAP A.12.2): `python -m lgteun_tpu_torch.fuse --tile
+    0` on its TIFFs against `method.apply` on the same inputs within 1
+    DN, with the mixer's launches by route; then a direct forward at
+    levels 2, 3 and 1: level 2 within 5e-4 of the CPU plain path, level 3
+    bit-equal to level 2, level 1 within 5e-4 of both; each with its
+    launches a forward, the mixer's by route (LARGE_STRIP_ROUTES), and
+    its ms. Returns the mixer's launches a forward by route at level 2."""
+    from lgteun_tpu_torch import fuse
+    from lgteun_tpu_torch.data.tiff import read_tiff, write_tiff
+    from lgteun_tpu_torch.runner import Runner
+    h, w = LARGE_STRIP
+    cfg, method = unlgformer("cuda")
+    Runner(cfg, method, "cuda").init(SEED)
+    state = {k: v.cpu() for k, v in method.module.state_dict().items()}
+    lr, pan = strip_scene(h, w, cfg.ms_chans, SEED + 37)
+    lr, pan = np.round(lr), np.round(pan)
+    batch = {"input_lr": (lr / DN_RANGE)[None],
+             "input_pan": (pan / DN_RANGE)[None, ..., None]}
+    failures = []
+    # the CLI on the strip's TIFFs, in one forward
+    out_dir = os.path.join(REPO, "build", "chip_smoke", "strip")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {k: os.path.join(out_dir, f"{k}.tif") for k in ("lr", "pan",
+                                                            "fused")}
+    write_tiff(paths["lr"], lr.astype(np.uint16))
+    write_tiff(paths["pan"], pan.astype(np.uint16))
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    fuse.cli(["--lr", paths["lr"], "--pan", paths["pan"], "-o",
+              paths["fused"], "--tile", "0", "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    cli_routes = mixer_routes(wrappers)
+    cli_out = read_tiff(paths["fused"]).astype(np.float64)
+    whole = np.clip(np.round(method.apply(batch)[0].cpu().numpy()
+                             * DN_RANGE), 0, 2047)
+    dn = float(np.abs(cli_out - whole).max())
+    print(f"large strip cli --tile 0: PAN {h}x{w}, LrMS {h // 4}x{w // 4}: "
+          f"{paths['fused']} {cli_out.shape} in {cli_s:.2f} s (with the "
+          f"build of the method); max|cli - method.apply| {dn:g} DN (bound "
+          f"1); mixer launches by route {cli_routes} (want "
+          f"{LARGE_STRIP_ROUTES})  [{card}]")
+    if not (cli_out.shape == (h, w, cfg.ms_chans) and dn <= 1.0
+            and cli_routes == LARGE_STRIP_ROUTES):
+        failures.append(f"cli: {cli_out.shape}, {dn} DN, {cli_routes}")
+    del method
+    cpu = large_method({}, "cpu")
+    cpu.module.load_state_dict(state)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = cpu.apply(batch)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    outs, routed = {}, {}
+    for lvl in ("2", "3", "1"):
+        method = large_method({"LGTEUN_FUSE_LEVEL": lvl,
+                               "LGTEUN_FUSED_ATTENTION": "1"}, "cuda")
+        method.module.load_state_dict(state)
+        method.apply(batch)
+        torch.cuda.synchronize()
+        wrappers = reset_launches()
+        got = outs[lvl] = method.apply(batch).cpu()
+        counted = {k: fn.launches for k, fn in wrappers.items()
+                   if fn.launches}
+        routes = routed[lvl] = mixer_routes(wrappers)
+        ms = time_ms(lambda: method.apply(batch), iters=LARGE_TIMED,
+                     warmup=1)
+        err = (got - want).abs().max().item()
+        vs2 = (got - outs["2"]).abs().max().item()
+        print(f"large strip UnlgFormer PAN {h}x{w} level {lvl}: launches a "
+              f"forward {counted}, mixer by route {routes}; max|card - cpu "
+              f"plain| {err:.3e} (bound 5e-4; max|cpu| "
+              f"{want.abs().max().item():.3f}; the CPU forward "
+              f"{cpu_s:.1f} s); max|level {lvl} - level 2| {vs2:.3e}, "
+              f"bit-equal {torch.equal(got, outs['2'])}; {ms:.3f} ms a "
+              f"forward = {h * w / ms / 1e3:.2f} MP/s  [{card}]")
+        ok = (tuple(got.shape) == (1, h, w, cfg.ms_chans)
+              and bool(torch.isfinite(got).all()) and err <= 5e-4
+              and routes == LARGE_STRIP_ROUTES
+              and (torch.equal(got, outs["2"]) if lvl == "3"
+                   else vs2 <= 5e-4))
+        if not ok:
+            failures.append(f"level {lvl}: err {err:.3e}, vs level 2 "
+                            f"{vs2:.3e}, routes {routes}")
+        del method
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"large strip: {failures}")
+    return routed["2"]
+
+
 def large_space_jobs() -> list:
     """The large phase's height-sharded cases, run by the mesh phase's
     spawn: UnlgFormer (seeded) at PAN LARGE_SIDE^2 on {"space": 2}, level
@@ -6021,6 +6198,8 @@ def run_large(card: str, space_jobs_: list, space_results: list) -> tuple:
     routed = run_large_forwards(card)
     run_large_grad(card)
     routed[f"large scene tile {LARGE_TILING[0]}"] = run_large_scene(card)
+    routed[f"large strip {LARGE_STRIP[0]}x{LARGE_STRIP[1]} level 2"] = \
+        run_large_strip(card)
     run_space(space_jobs_, space_results, card)
     return routed, record
 

@@ -589,8 +589,11 @@ int launch_lgb_block(
   a.scale = scale;
   a.eps = eps;
   const int cp = tail_tc_width(C);
+  // B8's planes: even sides, prime factors at most kFftMaxPrime (odd
+  // sides and the line buffer run level 2's chain, lgb_route)
   FftMixerPlan fft;
-  if (!fft_mixer_plan(H, W, &fft) || !cp || C4 != 4 * C || blocks < 0)
+  if (!fft_mixer_plan(H, W, &fft) || H % 2 || W % 2 ||
+      fft_mixer_gbuf(fft) || !cp || C4 != 4 * C || blocks < 0)
     return (int)cudaErrorInvalidValue;
 
   a.attn = -1;

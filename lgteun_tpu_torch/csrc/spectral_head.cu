@@ -15,17 +15,20 @@
 // Design (the TPU kernel's DFT-as-matmul, polynomial atan2 and sin/cos are
 // not carried over; the FFT itself is in fft_mixer.cuh):
 //  1. ln_split_kernel (head only): one thread per pixel; reads the C
-//     channels (coalesced across pixels), writes y1 and the normalised
-//     second half into x2, which step 2 transforms in place.
+//     channels (coalesced across pixels) once where a plane has 2^16
+//     pixels or more (up to 64 held in registers, a kernel for each bound
+//     16, 32, 64), else three times, which timed faster on the model's
+//     tiles; writes y1 and the normalised second half into y2, which
+//     step 2 transforms.
 //  2. fft_mixer_kernel: one block per (image, channel) plane, its half
 //     spectrum in shared memory (H (W/2 + 1) complex values, 66.6 KB at
 //     128^2: two 256-thread blocks an SM, so batch 16 at 128^2 is one
 //     wave; 512 threads a block where the planes are fewer than the SMs),
 //     read from `in` and written to `out` (the head passes x2 as both),
 //     the real rows transformed as N = W/2 complex points, the passes in
-//     registers, one barrier a pass. It takes a plane whose half spectrum
-//     fits in shared memory (fft_mixer_smem <= 232,448 bytes: up to 240 x
-//     240).
+//     registers, one barrier a pass (odd W: W complex points, fft_mixer.cuh).
+//     It takes a plane whose half spectrum fits in shared memory
+//     (fft_mixer_smem <= 232,448 bytes: up to 240 x 240).
 //  2c. the cluster route, for a larger plane whose half spectrum the
 //     shared memory of a thread-block cluster holds (fft_cluster_plan:
 //     the smallest K of 2, 4, 8, 16 whose blocks each hold H / K rows of
@@ -38,16 +41,30 @@
 //     spectrum never leaves the cluster's shared memory, where the global
 //     route crossed HBM with it four times between three launches.
 //  2g. the global-memory route, for a plane no cluster holds (1024^2 and
-//     up; any even H, W with odd prime factors <= 512, up to H 14,514 and
-//     W 29,026): the half spectrum [planes][H][ld] in a scratch the
-//     caller passes, and three launches of 256-thread blocks, two an SM,
-//     on the parts of FftPlane: fft_rows_forward_kernel (a range of rows
-//     a block: W forward and split), fft_columns_kernel (a range of
-//     columns a block, staged in shared memory: H forward, amp/phase, H
-//     inverse) and fft_rows_inverse_kernel (a range of rows: c2r, W
-//     inverse, |.| into `out`). Every route runs the same plan, tables and
-//     butterflies as the one-block body; launch_fft_mixer picks the route
-//     by the plane's shape (fft_mixer_route).
+//     up; any H <= 14,514 and W <= 29,026, odd W <= 14,513, at any
+//     factorization): the half spectrum in a scratch the caller passes,
+//     stored column by column ([planes][W/2 + 1][H]), and three launches
+//     on the parts of FftPlaneOf: fft_rows_forward_kernel (a range of rows
+//     a block: W forward and split, written out column-wise, each column
+//     of the block's rows one run), fft_columns_kernel (a range of
+//     columns a block: one contiguous run of the scratch in and out,
+//     staged column by column; H forward, amp/phase, H inverse) and
+//     fft_rows_inverse_kernel (a range of rows read back column-wise:
+//     c2r, W inverse, |.| into `out`); 256-thread blocks, two an SM,
+//     where a row (a column) fits half of the shared memory, else 512,
+//     one an SM; the lines a block split evenly over whole waves
+//     (fft_global_split); the scratch staged with cp.async, every copy
+//     of a thread in flight at once; parts (b) and (c) launched as
+//     programmatic dependents of the part before. Every route runs the
+//     same plan, tables and butterflies as the one-block body;
+//     launch_fft_mixer picks the route by the plane's shape
+//     (fft_mixer_route).
+//  2a. every route's kernels in two forms (FftPlaneOf): planes of even
+//     width whose radices are at most kFftMaxPrime, the model's tiles
+//     among them, here; planes of odd width or with a larger radix in
+//     spectral_head_any.cu (fft_mixer_any), so that the first form
+//     holds none of the second's code (compiled in, its calls raised
+//     every kernel's stack from 32-80 bytes to 288-568 and its spills).
 //  3. fft_tables_kernel: the twiddle and position tables of one (H, W),
 //     made once per size by the wrapper (`lgteun_fft_tables`) and read by
 //     every plane of every launch.
@@ -60,17 +77,91 @@
 namespace {
 
 constexpr int kThreadsLN = 256;
+// The pixels a plane needs for the LN split to hold its channels in
+// registers (ln_split_held): on an NVIDIA H100 80GB HBM3 at 700.00 W it
+// took B1's split from 0.149 to 0.100 ms at [1,32,1024²] and was faster
+// from 256² up, but 15-83 % slower at the model's tiles, 64²-144² at
+// batch 4 (scripts/torch_kernel_ab.py against the three reads).
+constexpr int kLnHeldPixels = 1 << 16;
 
-// x, y1 in their storage types (loads.cuh), y2 float.
-template <class TX, class TY>
+// ln_split_pixels<1> on pixel p of image b with its C <= kMaxC channels
+// read once and held in registers (the same sums in the same order, so
+// the same bits): ln_split_pixels reads x three times, once for the
+// mean, once for the variance and once for the output.
+template <int kMaxC, class TX, class TY>
+__device__ __forceinline__ void ln_split_held(
+    const TX* x, const float* ln_w, const float* ln_b, TY* y1, float* y2,
+    int C, int HW, int b, int p, float eps) {
+  const TX* xb = x + (size_t)b * C * HW + p;
+  float v[kMaxC];
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c)
+    if (c < C) v[c] = load_plain(xb + (size_t)c * HW);
+  float mu = 0.f, var = 0.f;
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c)
+    if (c < C) mu += v[c];
+  mu /= (float)C;
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c)
+    if (c < C) {
+      const float d = v[c] - mu;
+      var += d * d;
+    }
+  const float r = rsqrtf(var / (float)C + eps);
+  const int C2 = C / 2;
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c)
+    if (c < C) {
+      const float y = (v[c] - mu) * r * ln_w[c] + ln_b[c];
+      if (c < C2)
+        store_act(y1 + ((size_t)b * C2 + c) * HW + p, y);
+      else
+        y2[((size_t)b * C2 + (c - C2)) * HW + p] = y;
+    }
+}
+
+// x, y1 in their storage types (loads.cuh), y2 float; kMaxC > 0: the C
+// <= kMaxC channels held in registers (ln_split_held; a kernel of its
+// own for each kMaxC, so that fewer channels keep fewer registers and
+// more threads in flight), 0: read three times (ln_split_pixels).
+template <int kMaxC, class TX, class TY>
 __global__ void __launch_bounds__(kThreadsLN)
 ln_split_kernel(const TX* __restrict__ x, const float* __restrict__ ln_w,
                 const float* __restrict__ ln_b, TY* __restrict__ y1,
                 float* __restrict__ y2, int C, int HW, float eps) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= HW) return;
-  ln_split_pixels<1>(x, ln_w, ln_b, y1, y2, C, HW, blockIdx.y, p, 0, HW,
-                    eps);
+  if constexpr (kMaxC > 0)
+    ln_split_held<kMaxC>(x, ln_w, ln_b, y1, y2, C, HW, blockIdx.y, p, eps);
+  else
+    ln_split_pixels<1>(x, ln_w, ln_b, y1, y2, C, HW, blockIdx.y, p, 0, HW,
+                      eps);
+}
+
+// 8 bytes global -> shared, asynchronously (the global route's staging:
+// every copy of a thread in flight at once), and the wait for them.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Programmatic dependent launch (Hopper) between the global route's
+// parts: a part lets the next one launch once all its blocks have begun,
+// so that the next part's blocks take the SMs its last wave leaves idle
+// and load their plan meanwhile; the next part waits for the whole of
+// the previous one, its writes visible, before it reads the scratch.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_prerequisites() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // `in` and `out` may alias (no __restrict__): every plane is read whole
@@ -79,7 +170,7 @@ ln_split_kernel(const TX* __restrict__ x, const float* __restrict__ ln_w,
 // registers a thread spilled and were no faster); 512 threads, one block
 // an SM, where there are fewer planes than SMs. Both allow 128 registers
 // a thread, as lgb_block.cu does.
-template <int kThreads, int kBlocksPerSM, class TI, class TO>
+template <int kThreads, int kBlocksPerSM, class TI, class TO, bool kAny>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fft_mixer_kernel(const TI* in, TO* out, const float* __restrict__ amp_w,
                  const float* __restrict__ amp_b,
@@ -90,13 +181,13 @@ fft_mixer_kernel(const TI* in, TO* out, const float* __restrict__ amp_w,
   const int plane = blockIdx.x;   // b * C + c
   const int c = plane % C;
   const size_t off = (size_t)plane * HW;
-  fft_mixer_plane(in + off, out + off, smem, tables, amp_w[c], amp_b[c],
-                  pha_w[c], pha_b[c]);
+  fft_mixer_plane<TI, TO, kAny>(in + off, out + off, smem, tables, amp_w[c],
+                                amp_b[c], pha_w[c], pha_b[c]);
 }
 
 // The same with a cluster of two blocks on each plane
 // (fft_mixer_plane_pair), where twice the planes still fit on the SMs.
-template <class TI, class TO>
+template <class TI, class TO, bool kAny>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(512, 1)
 fft_mixer_pair_kernel(const TI* in, TO* out,
                       const float* __restrict__ amp_w,
@@ -108,8 +199,8 @@ fft_mixer_pair_kernel(const TI* in, TO* out,
   const int plane = blockIdx.x / 2;   // b * C + c
   const int c = plane % C;
   const size_t off = (size_t)plane * HW;
-  fft_mixer_plane_pair(in + off, out + off, smem, tables, amp_w[c], amp_b[c],
-                       pha_w[c], pha_b[c]);
+  fft_mixer_plane_pair<TI, TO, kAny>(in + off, out + off, smem, tables,
+                                     amp_w[c], amp_b[c], pha_w[c], pha_b[c]);
 }
 
 // The cluster route (fft_cluster_plan): one plane a cluster of K blocks
@@ -117,7 +208,7 @@ fft_mixer_pair_kernel(const TI* in, TO* out,
 // half spectrum (fft_mixer_plane_cluster); 512 threads, one block an SM.
 constexpr int kFftClusterThreads = 512;
 
-template <class TI, class TO>
+template <class TI, class TO, bool kAny>
 __global__ void __launch_bounds__(kFftClusterThreads, 1)
 fft_mixer_cluster_kernel(const TI* in, TO* out,
                          const float* __restrict__ amp_w,
@@ -131,45 +222,51 @@ fft_mixer_cluster_kernel(const TI* in, TO* out,
       blockIdx.x / (int)cooperative_groups::this_cluster().num_blocks();
   const int c = plane % C;
   const size_t off = (size_t)plane * HW;
-  fft_mixer_plane_cluster(in + off, out + off, smem, tables, rows, cols,
-                          chunk, pitch, amp_w[c], amp_b[c], pha_w[c],
-                          pha_b[c]);
+  fft_mixer_plane_cluster<TI, TO, kAny>(in + off, out + off, smem, tables,
+                                        rows, cols, chunk, pitch, amp_w[c],
+                                        amp_b[c], pha_w[c], pha_b[c]);
 }
 
 // The global route (fft_global_plan), part (a): W forward and split of
-// rows [r0, r0 + rows) of one plane a block, into spec [planes][H][ld]
-// (bins 0..N-1 at fft_pos(row, k), N at N, as the one-block body holds
-// them).
-template <class TI>
-__global__ void __launch_bounds__(256, 2)
+// rows [r0, r0 + rows) of one plane a block, written column by column
+// into spec [planes][W/2 + 1][H] (column c of the half spectrum as the
+// one-block body holds it: bins 0..N-1 at fft_pos(row, k), N at N; odd W
+// bin k at k): consecutive threads on consecutive rows of a column, so
+// each column of the block's rows is one run of rows x 8 bytes.
+template <int kThreads, int kBlocks, class TI, bool kAny>
+__global__ void __launch_bounds__(kThreads, kBlocks)
 fft_rows_forward_kernel(const TI* in, float2* __restrict__ spec,
                         const float* __restrict__ tables, int rows,
                         int row_blocks) {
-  using PI = typename PairOf<TI>::type;
   extern __shared__ float2 smem[];
-  const FftPlane plane(tables, smem);
+  launch_dependents();
+  FftPlaneOf<kAny> plane(tables, smem);
   plane.load_plan();
   __syncthreads();
-  const int H = plane.get(plane.plan().col.n);
-  const int N = plane.get(plane.plan().row.n);
-  const int ld = plane.get(plane.plan().ld);
+  const int H = plane.get(plane.plan().col.n), W = plane.width();
+  const int ld = plane.get(plane.plan().ld), half = plane.cols();
   const int p = blockIdx.x / row_blocks;
   const int r0 = (blockIdx.x - p * row_blocks) * rows;
   const int nr = min(rows, H - r0);
-  const PI* in2 = reinterpret_cast<const PI*>(in + (size_t)p * H * (2 * N));
-  plane.rows_forward(in2 + (size_t)r0 * N, 0, nr);
+  plane.buf = plane.A + rows * ld;
+  plane.rows_forward(in + ((size_t)p * H + r0) * W, plane.A, nr);
   __syncthreads();
-  float2* dst = spec + ((size_t)p * H + r0) * ld;
-  for (int i = threadIdx.x; i < nr * (N + 1); i += blockDim.x) {
-    const int r = i / (N + 1), k = i - r * (N + 1);
-    dst[r * ld + k] = plane.A[r * ld + k];
+  float2* dst = spec + (size_t)p * half * H + r0;
+  const FftDiv nr_div(nr);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nr * half; i += blockDim.x) {
+    const int c = nr_div(i), r = i - c * nr;
+    dst[(size_t)c * H + r] = plane.A[r * ld + c];
   }
 }
 
-// Part (b): columns [c0, c0 + cols) of one plane a block, staged in
-// shared memory with row pitch `pitch`: H forward, amp/phase (channel
-// plane % C), H inverse, back into spec.
-__global__ void __launch_bounds__(256, 2)
+// Part (b): columns [c0, c0 + cols) of one plane a block: one contiguous
+// run of cols x H values of spec, staged column by column with the odd
+// pitch `pitch` (each column's passes on neighbouring elements, as a
+// row's): H forward, amp/phase (channel plane % C), H inverse, back into
+// spec the same way.
+template <int kThreads, int kBlocks, bool kAny>
+__global__ void __launch_bounds__(kThreads, kBlocks)
 fft_columns_kernel(float2* __restrict__ spec,
                    const float* __restrict__ amp_w,
                    const float* __restrict__ amp_b,
@@ -178,56 +275,73 @@ fft_columns_kernel(float2* __restrict__ spec,
                    const float* __restrict__ tables, int C, int cols,
                    int pitch, int col_blocks) {
   extern __shared__ float2 smem[];
-  const FftPlane plane(tables, smem);
+  launch_dependents();
+  FftPlaneOf<kAny> plane(tables, smem);
   plane.load_plan();
   __syncthreads();
-  const int H = plane.get(plane.plan().col.n);
-  const int N = plane.get(plane.plan().row.n);
-  const int ld = plane.get(plane.plan().ld);
+  const int H = plane.get(plane.plan().col.n), half = plane.cols();
   const int p = blockIdx.x / col_blocks, c = p % C;
   const int c0 = (blockIdx.x - p * col_blocks) * cols;
-  const int nc = min(cols, N + 1 - c0);
-  float2* src = spec + (size_t)p * H * ld + c0;
-  for (int i = threadIdx.x; i < H * nc; i += blockDim.x) {
-    const int q = i / nc, k = i - q * nc;
-    plane.A[q * pitch + k] = src[(size_t)q * ld + k];
+  const int nc = min(cols, half - c0);
+  plane.buf = plane.A + cols * pitch;
+  float2* src = spec + ((size_t)p * half + c0) * H;
+  const FftDiv h_div(H);
+  wait_for_prerequisites();
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nc * H; i += blockDim.x) {
+    const int k = h_div(i);
+    cp_async8(plane.A + k * pitch + i - k * H, src + i);
   }
+  cp_async_wait_all();
   __syncthreads();
-  plane.columns_in(plane.A, pitch, c0, nc, amp_w[c], amp_b[c], pha_w[c],
+  plane.columns_in(plane.A, pitch, 1, c0, nc, amp_w[c], amp_b[c], pha_w[c],
                    pha_b[c]);
   __syncthreads();
-  for (int i = threadIdx.x; i < H * nc; i += blockDim.x) {
-    const int q = i / nc, k = i - q * nc;
-    src[(size_t)q * ld + k] = plane.A[q * pitch + k];
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nc * H; i += blockDim.x) {
+    const int k = h_div(i);
+    src[i] = plane.A[k * pitch + i - k * H];
   }
 }
 
-// Part (c): c2r, W inverse and |.| / (H W) of rows [r0, r0 + rows) of one
-// plane a block, from spec into out (rounded once to TO as stored).
-template <class TO>
-__global__ void __launch_bounds__(256, 2)
+// Part (c): rows [r0, r0 + rows) of one plane a block read back column by
+// column from spec, then the c2r, W inverse and |.| / (H W) into out
+// (rounded once to TO as stored).
+template <int kThreads, int kBlocks, class TO, bool kAny>
+__global__ void __launch_bounds__(kThreads, kBlocks)
 fft_rows_inverse_kernel(const float2* __restrict__ spec, TO* out,
                         const float* __restrict__ tables, int rows,
                         int row_blocks) {
-  using PO = typename PairOf<TO>::type;
   extern __shared__ float2 smem[];
-  const FftPlane plane(tables, smem);
+  FftPlaneOf<kAny> plane(tables, smem);
   plane.load_plan();
   __syncthreads();
-  const int H = plane.get(plane.plan().col.n);
-  const int N = plane.get(plane.plan().row.n);
-  const int ld = plane.get(plane.plan().ld);
+  const int H = plane.get(plane.plan().col.n), W = plane.width();
+  const int ld = plane.get(plane.plan().ld), half = plane.cols();
   const int p = blockIdx.x / row_blocks;
   const int r0 = (blockIdx.x - p * row_blocks) * rows;
   const int nr = min(rows, H - r0);
-  const float2* src = spec + ((size_t)p * H + r0) * ld;
-  for (int i = threadIdx.x; i < nr * (N + 1); i += blockDim.x) {
-    const int r = i / (N + 1), k = i - r * (N + 1);
-    plane.A[r * ld + k] = src[r * ld + k];
+  plane.buf = plane.A + rows * ld;
+  const float2* src = spec + (size_t)p * half * H + r0;
+  const FftDiv nr_div(nr);
+  wait_for_prerequisites();
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nr * half; i += blockDim.x) {
+    const int c = nr_div(i), r = i - c * nr;
+    cp_async8(plane.A + r * ld + c, src + (size_t)c * H + r);
   }
+  cp_async_wait_all();
   __syncthreads();
-  PO* out2 = reinterpret_cast<PO*>(out + (size_t)p * H * (2 * N));
-  plane.rows_inverse(out2 + (size_t)r0 * N, 0, nr);
+  plane.rows_inverse(out + ((size_t)p * H + r0) * W, plane.A, nr);
+}
+
+// The SMs of the current device, or 0 with the error in *err.
+inline int device_sms(cudaError_t* err) {
+  int dev = 0, sms = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
 }
 
 template <class Kernel>
@@ -240,9 +354,69 @@ cudaError_t allow_smem(Kernel* kernel, size_t smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
+// The parts of the global route at kThreads threads a block, kBlocks an
+// SM (fft_global_plan's row_threads / col_threads: 256 and 2, or 512 and
+// 1).
+template <int kThreads, int kBlocks, bool kAny, class TI>
+cudaError_t launch_rows_forward(const TI* in, float2* spec,
+                                const float* tables, const FftGlobalPlan& g,
+                                int grid, cudaStream_t stream) {
+  auto* kernel = fft_rows_forward_kernel<kThreads, kBlocks, TI, kAny>;
+  const cudaError_t err = allow_smem(kernel, g.smem_rows);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, g.smem_rows, stream>>>(in, spec, tables, g.rows,
+                                                  g.row_blocks);
+  return cudaGetLastError();
+}
+
+// A launch of `kernel` that may begin before the previous kernel of the
+// stream ends (programmatic dependent launch: the kernel waits for it
+// with griddepcontrol.wait before reading what it wrote).
+template <class Kernel, class... Args>
+cudaError_t launch_dependent(Kernel* kernel, int grid, int threads,
+                             size_t smem, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int kThreads, int kBlocks, bool kAny>
+cudaError_t launch_columns(float2* spec, const float* amp_w,
+                           const float* amp_b, const float* pha_w,
+                           const float* pha_b, const float* tables, int C,
+                           const FftGlobalPlan& g, int grid,
+                           cudaStream_t stream) {
+  auto* kernel = fft_columns_kernel<kThreads, kBlocks, kAny>;
+  const cudaError_t err = allow_smem(kernel, g.smem_cols);
+  if (err != cudaSuccess) return err;
+  return launch_dependent(kernel, grid, kThreads, g.smem_cols, stream, spec,
+                          amp_w, amp_b, pha_w, pha_b, tables, C, g.cols,
+                          g.pitch, g.col_blocks);
+}
+
+template <int kThreads, int kBlocks, bool kAny, class TO>
+cudaError_t launch_rows_inverse(const float2* spec, TO* out,
+                                const float* tables, const FftGlobalPlan& g,
+                                int grid, cudaStream_t stream) {
+  auto* kernel = fft_rows_inverse_kernel<kThreads, kBlocks, TO, kAny>;
+  const cudaError_t err = allow_smem(kernel, g.smem_rows);
+  if (err != cudaSuccess) return err;
+  return launch_dependent(kernel, grid, kThreads, g.smem_rows, stream, spec,
+                          out, tables, g.rows, g.row_blocks);
+}
+
 // The global route on B * C planes: parts (a), (b), (c) in three launches
-// on `scratch` (B C H ld float2, fft_global_plan).
-template <class TI, class TO>
+// on `scratch` (B C (W/2 + 1) H float2, fft_global_plan).
+template <bool kAny, class TI, class TO>
 int launch_fft_mixer_global(const TI* in, TO* out, const float* amp_w,
                             const float* amp_b, const float* pha_w,
                             const float* pha_b, const float* tables,
@@ -250,25 +424,34 @@ int launch_fft_mixer_global(const TI* in, TO* out, const float* amp_w,
                             cudaStream_t stream) {
   FftGlobalPlan g;
   const long long planes = (long long)B * C;
-  if (!fft_global_plan(H, W, &g) || scratch == nullptr ||
+  cudaError_t err = cudaSuccess;
+  const int sms = device_sms(&err);
+  if (err != cudaSuccess) return (int)err;
+  if (!fft_global_plan(H, W, planes, sms, &g) || scratch == nullptr ||
       planes * g.row_blocks > 0x7fffffffLL ||
       planes * g.col_blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   float2* spec = reinterpret_cast<float2*>(scratch);
-  cudaError_t err = allow_smem(fft_rows_forward_kernel<TI>, g.smem_rows);
-  if (err == cudaSuccess) err = allow_smem(fft_columns_kernel, g.smem_cols);
-  if (err == cudaSuccess)
-    err = allow_smem(fft_rows_inverse_kernel<TO>, g.smem_rows);
-  if (err != cudaSuccess) return (int)err;
   const int row_grid = (int)(planes * g.row_blocks);
-  fft_rows_forward_kernel<TI><<<row_grid, 256, g.smem_rows, stream>>>(
-      in, spec, tables, g.rows, g.row_blocks);
-  fft_columns_kernel<<<(int)(planes * g.col_blocks), 256, g.smem_cols,
-                       stream>>>(spec, amp_w, amp_b, pha_w, pha_b, tables,
-                                 C, g.cols, g.pitch, g.col_blocks);
-  fft_rows_inverse_kernel<TO><<<row_grid, 256, g.smem_rows, stream>>>(
-      spec, out, tables, g.rows, g.row_blocks);
-  return (int)cudaGetLastError();
+  const int col_grid = (int)(planes * g.col_blocks);
+  const bool rows2 = g.row_threads == 256, cols2 = g.col_threads == 256;
+  err = rows2 ? launch_rows_forward<256, 2, kAny>(in, spec, tables, g,
+                                                row_grid, stream)
+              : launch_rows_forward<512, 1, kAny>(in, spec, tables, g,
+                                                row_grid, stream);
+  if (err == cudaSuccess)
+    err = cols2 ? launch_columns<256, 2, kAny>(spec, amp_w, amp_b, pha_w,
+                                               pha_b, tables, C, g, col_grid,
+                                               stream)
+                : launch_columns<512, 1, kAny>(spec, amp_w, amp_b, pha_w,
+                                               pha_b, tables, C, g, col_grid,
+                                               stream);
+  if (err == cudaSuccess)
+    err = rows2 ? launch_rows_inverse<256, 2, kAny>(spec, out, tables, g,
+                                                    row_grid, stream)
+                : launch_rows_inverse<512, 1, kAny>(spec, out, tables, g,
+                                                    row_grid, stream);
+  return (int)err;
 }
 
 // The cluster route on B * C planes: one launch of B C clusters of k
@@ -277,7 +460,7 @@ int launch_fft_mixer_global(const TI* in, TO* out, const float* amp_w,
 // (cudaOccupancyMaxActiveClusters 0) is refused, and so is a launch the
 // runtime refuses: the error goes back to the caller, no other route is
 // taken.
-template <class TI, class TO>
+template <bool kAny, class TI, class TO>
 int launch_fft_mixer_cluster(const TI* in, TO* out, const float* amp_w,
                              const float* amp_b, const float* pha_w,
                              const float* pha_b, const float* tables, int B,
@@ -288,7 +471,7 @@ int launch_fft_mixer_cluster(const TI* in, TO* out, const float* amp_w,
   if (k < 2 || k > kFftMaxCluster || (k & (k - 1)) ||
       !fft_cluster_plan(H, W, k, &plan) || blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  auto* kernel = fft_mixer_cluster_kernel<TI, TO>;
+  auto* kernel = fft_mixer_cluster_kernel<TI, TO, kAny>;
   cudaError_t err = allow_smem(kernel, plan.smem);
   if (err == cudaSuccess && k > 8)
     err = cudaFuncSetAttribute(
@@ -317,9 +500,11 @@ int launch_fft_mixer_cluster(const TI* in, TO* out, const float* amp_w,
   return (int)cudaGetLastError();
 }
 
+#ifndef LGTEUN_FFT_ANY_UNIT
 // The tables of plan p (fft_mixer.cuh, FftMixerPlan), the plan first.
 __global__ void fft_tables_kernel(float* __restrict__ tab, FftMixerPlan p) {
-  const int N = p.row.n, H = p.col.n;
+  const int n = p.row.n, H = p.col.n;
+  const bool even = p.w % 2 == 0;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     for (int i = 0; i < kFftPlanFloats; ++i) tab[i] = 0.f;  // the padding
     *reinterpret_cast<FftMixerPlan*>(tab) = p;
@@ -328,16 +513,17 @@ __global__ void fft_tables_kernel(float* __restrict__ tab, FftMixerPlan p) {
   float2* tw_half = reinterpret_cast<float2*>(tab + p.tw_half);
   float2* tw_col = reinterpret_cast<float2*>(tab + p.tw_col);
   int* pos = reinterpret_cast<int*>(tab + p.pos_row);
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i <= N || i < H;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i <= n || i < H;
        i += gridDim.x * blockDim.x) {
-    if (i < N) {
-      tw_row[i] = fft_twiddle(i, N);
+    if (i < n) {
+      tw_row[i] = fft_twiddle(i, n);
       pos[i] = fft_pos(p.row, i);
     }
-    if (i <= N) tw_half[i] = fft_twiddle(i, 2 * N);
+    if (even && i <= n) tw_half[i] = fft_twiddle(i, 2 * n);
     if (i < H) tw_col[i] = fft_twiddle(i, H);
   }
 }
+#endif  // LGTEUN_FFT_ANY_UNIT
 
 // kernel: one of the fft_mixer kernels, launched with `blocks` blocks of
 // `threads` on the planes.
@@ -360,15 +546,6 @@ cudaError_t launch_fft_mixer_kernel(Kernel* kernel, int blocks, int threads,
   return cudaGetLastError();
 }
 
-// The SMs of the current device, or 0 with the error in *err.
-inline int device_sms(cudaError_t* err) {
-  int dev = 0, sms = 0;
-  *err = cudaGetDevice(&dev);
-  if (*err == cudaSuccess)
-    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
 // Launch the mixer on B * C planes of storage types TI -> TO (loads.cuh)
 // by the route of their shape (fft_mixer_route): one block (or a cluster
 // of two) a plane where its half spectrum fits in shared memory, else a
@@ -376,20 +553,16 @@ inline int device_sms(cudaError_t* err) {
 // the global route on `scratch`. `route` other than kFftByShape forces a
 // route at any size that route takes (kFftGlobal, or a cluster of that
 // many blocks): the checks that hold the routes to each other and to the
-// one-block body. Checks the lengths it takes and the pairs' alignment.
+// one-block body. kAny: the kernels of planes of odd width or with a
+// radix above kFftMaxPrime (FftPlaneOf).
 constexpr int kFftByShape = -3;
 
-template <class TI, class TO>
-int launch_fft_mixer(const TI* in, TO* out, const float* amp_w,
-                     const float* amp_b, const float* pha_w,
-                     const float* pha_b, const float* tables,
-                     float* scratch, int B, int C, int H, int W,
-                     cudaStream_t stream, int route = kFftByShape) {
-  FftMixerPlan p;
-  if (!fft_mixer_plan(H, W, &p) ||
-      reinterpret_cast<size_t>(in) % (2 * sizeof(TI)) ||
-      reinterpret_cast<size_t>(out) % (2 * sizeof(TO)))
-    return (int)cudaErrorInvalidValue;
+template <bool kAny, class TI, class TO>
+int launch_fft_mixer_routes(const TI* in, TO* out, const float* amp_w,
+                            const float* amp_b, const float* pha_w,
+                            const float* pha_b, const float* tables,
+                            float* scratch, int B, int C, int H, int W,
+                            cudaStream_t stream, int route) {
   const int planes = B * C;
   cudaError_t err = cudaSuccess;
   if (route == kFftByShape) {
@@ -400,30 +573,82 @@ int launch_fft_mixer(const TI* in, TO* out, const float* amp_w,
   }
   if (route == kFftNone) return (int)cudaErrorInvalidValue;
   if (route == kFftGlobal)
-    return launch_fft_mixer_global(in, out, amp_w, amp_b, pha_w, pha_b,
-                                   tables, scratch, B, C, H, W, stream);
+    return launch_fft_mixer_global<kAny>(in, out, amp_w, amp_b, pha_w, pha_b,
+                                         tables, scratch, B, C, H, W, stream);
   if (route != kFftSmem)
-    return launch_fft_mixer_cluster(in, out, amp_w, amp_b, pha_w, pha_b,
-                                    tables, B, C, H, W, route, stream);
+    return launch_fft_mixer_cluster<kAny>(in, out, amp_w, amp_b, pha_w,
+                                          pha_b, tables, B, C, H, W, route,
+                                          stream);
   const int sms = device_sms(&err);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = fft_mixer_smem(H, W);
   if (2 * planes <= sms)
-    return (int)launch_fft_mixer_kernel(fft_mixer_pair_kernel<TI, TO>,
+    return (int)launch_fft_mixer_kernel(fft_mixer_pair_kernel<TI, TO, kAny>,
                                         2 * planes,
                                         512, in, out, amp_w, amp_b, pha_w,
                                         pha_b, tables, C, H * W, smem,
                                         stream);
   if (planes <= sms)
-    return (int)launch_fft_mixer_kernel(fft_mixer_kernel<512, 1, TI, TO>,
-                                        planes,
-                                        512, in, out, amp_w, amp_b, pha_w,
-                                        pha_b, tables, C, H * W, smem,
-                                        stream);
-  return (int)launch_fft_mixer_kernel(fft_mixer_kernel<256, 2, TI, TO>,
+    return (int)launch_fft_mixer_kernel(
+        fft_mixer_kernel<512, 1, TI, TO, kAny>, planes, 512, in, out, amp_w,
+        amp_b, pha_w, pha_b, tables, C, H * W, smem, stream);
+  return (int)launch_fft_mixer_kernel(fft_mixer_kernel<256, 2, TI, TO, kAny>,
                                       planes, 256,
                                       in, out, amp_w, amp_b, pha_w, pha_b,
                                       tables, C, H * W, smem, stream);
+}
+
+}  // namespace
+
+// launch_fft_mixer_routes<true> for the storage types the entries take:
+// the kernels of planes of odd width or with a radix above kFftMaxPrime,
+// built in spectral_head_any.cu, a unit of their own, so that nvcc
+// compiles them beside the rest, in parallel.
+#define LGTEUN_FFT_MIXER_ANY(TI, TO)                                        \
+  int fft_mixer_any(const TI* in, TO* out, const float* amp_w,              \
+                    const float* amp_b, const float* pha_w,                 \
+                    const float* pha_b, const float* tables,                \
+                    float* scratch, int B, int C, int H, int W,             \
+                    cudaStream_t stream, int route)
+LGTEUN_FFT_MIXER_ANY(float, float);
+LGTEUN_FFT_MIXER_ANY(float, __nv_bfloat16);
+LGTEUN_FFT_MIXER_ANY(__nv_bfloat16, __nv_bfloat16);
+
+#ifdef LGTEUN_FFT_ANY_UNIT
+#define LGTEUN_FFT_MIXER_ANY_BODY(TI, TO)                                   \
+  LGTEUN_FFT_MIXER_ANY(TI, TO) {                                            \
+    return launch_fft_mixer_routes<true>(in, out, amp_w, amp_b, pha_w,      \
+                                         pha_b, tables, scratch, B, C, H,   \
+                                         W, stream, route);                 \
+  }
+LGTEUN_FFT_MIXER_ANY_BODY(float, float)
+LGTEUN_FFT_MIXER_ANY_BODY(float, __nv_bfloat16)
+LGTEUN_FFT_MIXER_ANY_BODY(__nv_bfloat16, __nv_bfloat16)
+#undef LGTEUN_FFT_MIXER_ANY_BODY
+#else  // the mixer's entries
+
+namespace {
+
+// launch_fft_mixer_routes on the kernels of the planes' kind. Checks the
+// lengths it takes and the pairs' alignment.
+template <class TI, class TO>
+int launch_fft_mixer(const TI* in, TO* out, const float* amp_w,
+                     const float* amp_b, const float* pha_w,
+                     const float* pha_b, const float* tables,
+                     float* scratch, int B, int C, int H, int W,
+                     cudaStream_t stream, int route = kFftByShape) {
+  FftMixerPlan p;
+  // even W reads and writes the rows as pairs
+  if (!fft_mixer_plan(H, W, &p) ||
+      (W % 2 == 0 && (reinterpret_cast<size_t>(in) % (2 * sizeof(TI)) ||
+                      reinterpret_cast<size_t>(out) % (2 * sizeof(TO)))))
+    return (int)cudaErrorInvalidValue;
+  if (W % 2 || fft_mixer_gbuf(p))
+    return fft_mixer_any(in, out, amp_w, amp_b, pha_w, pha_b, tables,
+                         scratch, B, C, H, W, stream, route);
+  return launch_fft_mixer_routes<false>(in, out, amp_w, amp_b, pha_w, pha_b,
+                                        tables, scratch, B, C, H, W, stream,
+                                        route);
 }
 
 // The LN split into y1 and y2 (float), then the mixer of y2 into x2 (x2
@@ -436,8 +661,12 @@ int ln_mixer_head(const TX* x, const float* ln_w, const float* ln_b,
                   float eps, cudaStream_t stream, int route = kFftByShape) {
   const int HW = H * W;
   const dim3 grid_ln((HW + kThreadsLN - 1) / kThreadsLN, B);
-  ln_split_kernel<TX, TY><<<grid_ln, kThreadsLN, 0, stream>>>(
-      x, ln_w, ln_b, y1, y2, C, HW, eps);
+  auto* ln = HW < kLnHeldPixels ? ln_split_kernel<0, TX, TY>
+             : C <= 16            ? ln_split_kernel<16, TX, TY>
+             : C <= 32            ? ln_split_kernel<32, TX, TY>
+             : C <= 64            ? ln_split_kernel<64, TX, TY>
+                                  : ln_split_kernel<0, TX, TY>;
+  ln<<<grid_ln, kThreadsLN, 0, stream>>>(x, ln_w, ln_b, y1, y2, C, HW, eps);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_fft_mixer(static_cast<const float*>(y2), x2, amp_w, amp_b,
@@ -449,22 +678,24 @@ int ln_mixer_head(const TX* x, const float* ln_w, const float* ln_b,
 
 // The plan, twiddles and positions of the mixer of an H x W plane into
 // `tables` (`floats` floats; cudaErrorInvalidValue if that is fewer than
-// the plan's 28 + 5 (W/2) + 2 H + 2, or the size is not taken).
+// the plan's 28 + 5 (W/2) + 2 H + 2 for even W, 28 + 3 W + 2 H for odd
+// W, or the size is not taken).
 extern "C" int lgteun_fft_tables(float* tables, int floats, int H, int W,
                                  cudaStream_t stream) {
   FftMixerPlan p;
   if (!fft_mixer_plan(H, W, &p) || floats < p.floats)
     return (int)cudaErrorInvalidValue;
-  const int n = (W / 2 + 1 > H ? W / 2 + 1 : H);
+  const int n = (p.row.n + 1 > H ? p.row.n + 1 : H);
   fft_tables_kernel<<<(n + 255) / 256, 256, 0, stream>>>(tables, p);
   return (int)cudaGetLastError();
 }
 
-// The layout of the mixer entries' arguments: 3, they take the tables of
+// The layout of the mixer entries' arguments: 4, they take the tables of
 // lgteun_fft_tables and the global route's scratch (null where the
-// planes take another route) after pha_b (2: the tables only; earlier
+// planes take another route; [planes][W/2 + 1][H] float2) after pha_b
+// (3: a scratch of [planes][H][ld] float2; 2: the tables only; earlier
 // versions: none).
-extern "C" int lgteun_fft_mixer_layout() { return 3; }
+extern "C" int lgteun_fft_mixer_layout() { return 4; }
 
 // Not a launch: the route a launch of `planes` H x W planes on `sms` SMs
 // takes (fft_mixer_route, fft_cluster_size): 0 the one-block body, K >=
@@ -475,8 +706,9 @@ extern "C" int lgteun_fft_mixer_route(int H, int W, int planes, int sms) {
 }
 
 // y1, x2 = LN(x)[:, :C/2], global_mixer(LN(x)[:, C/2:]) on [B, C, H, W].
-// H and W even, odd prime factors <= 512 (checked by the wrapper);
-// scratch: B (C/2) H ld float2 where the planes take the global route.
+// 2 <= H <= 14,514, 2 <= W <= 29,026 (odd W <= 14,513), any factors
+// (checked by the wrapper); scratch: B (C/2) (W/2 + 1) H float2 where the
+// planes take the global route.
 extern "C" int lgteun_ln_mixer_head(const float* x, const float* ln_w,
                                     const float* ln_b, const float* amp_w,
                                     const float* amp_b, const float* pha_w,
@@ -502,7 +734,7 @@ extern "C" int lgteun_ln_mixer_head_global_route(
 }
 
 // out = global_mixer(x) on [B, C, H, W]; per-channel affine [C] each;
-// scratch as for lgteun_ln_mixer_head (B C H ld float2).
+// scratch as for lgteun_ln_mixer_head (B C (W/2 + 1) H float2).
 extern "C" int lgteun_global_mixer(const float* x, const float* amp_w,
                                    const float* amp_b, const float* pha_w,
                                    const float* pha_b, const float* tables,
@@ -578,3 +810,5 @@ extern "C" int lgteun_global_mixer_bf16(const void* x, const float* amp_w,
                           pha_w, pha_b, tables, scratch, B, C, H, W,
                           stream);
 }
+
+#endif  // LGTEUN_FFT_ANY_UNIT

@@ -12,7 +12,9 @@
 - the scene runs through `parallel.scene.fuse_scene`: overlapping tiles
   at the model's native size, fused in batches on `--device` (the card
   by default), cosine-blended seams; `--tile 0` fuses the whole scene in
-  one forward;
+  one forward (UnlgFormer: PAN sides multiples of 16, each factor of any
+  size; the FFT mixer's planes up to H 14,514 and W 29,026, odd W
+  14,513, `ops.spectral_kernel`);
 - `--checkpoint` takes a Runner checkpoint (`Runner.save`) or a
   reference-keyed torch state_dict file (what `convert/from_jax.py`
   produces, saved with `torch.save`), both through
@@ -46,8 +48,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "seeded-init weights)")
     p.add_argument("--tile", type=int, default=128,
                    help="0 = fuse the whole scene in ONE forward (no "
-                        "tiling); DL methods should keep their native "
-                        "training tile")
+                        "tiling; on the card UnlgFormer's FFT mixer takes "
+                        "planes up to H 14514 and W 29026, odd W 14513, of "
+                        "any factorization, so a PAN of sides that are "
+                        "multiples of 16 up to 14512 x 29024); DL "
+                        "methods should keep their native training tile")
     p.add_argument("--halo", type=int, default=16)
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--bit-depth", type=int, default=11,

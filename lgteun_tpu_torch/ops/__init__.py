@@ -21,11 +21,12 @@ def fuse_level() -> int:
     retry ladder; here a CPU tensor already takes every wrapper's plain
     version, and a card always runs kernels. The JAX package also tests
     shapes (TPU lane alignment) and leaves the mixer to XLA at level 1;
-    the port's kernels take every plane of even sides whose odd prime
-    factors are at most 512 (the FFT mixer above 240 x 240 on its global
-    route; level 3's `lgb_block` there as level 2's chain, by shape), so
-    no level runs a plain version on a card, and the wrappers raise on
-    any other plane."""
+    the port's kernels take every plane with H up to 14,514 and W up to
+    29,026 (odd W 14,513) at any factorization (the FFT mixer above 240 x
+    240 on its cluster or global route; level 3's `lgb_block` there, and
+    on odd sides or prime factors above 512, as level 2's chain, by
+    shape), so no level runs a plain version on a card, and the wrappers
+    raise beyond those sides."""
     try:
         level = int(_os.environ.get("LGTEUN_FUSE_LEVEL", "2"))
     except ValueError:

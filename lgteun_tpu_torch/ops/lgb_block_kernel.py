@@ -24,9 +24,12 @@ attention branch and by tail variant.
 
 B8 holds each mixer plane's half spectrum in one block's shared memory
 (the FFT mixer's one-block body), so it takes the planes B1 takes on
-that route (up to 240 x 240). For a larger plane `lgb_block` runs the
-block as level 2's chain instead, chosen by shape before any launch
-(`lgb_route`): `ln_mixer_head` (on the mixer's global route), then
+that route (up to 240 x 240; even sides whose prime factors are at most
+512: B8's own kernel is not widened to the rest). For a larger plane, or
+one B8 does not take (an odd side or a prime factor above 512 that one
+block holds), `lgb_block` runs the block as level 2's chain instead,
+chosen by shape before any launch (`lgb_route`): `ln_mixer_head` (on the
+mixer's cluster or global route), then
 `window_attention`, then `block_tail`, each counted under its own name.
 That chain computes B8's function (the same LN, mixer, attention and
 tail, the branches rounded to `branch_dtype` where level 2 stores them),
@@ -60,7 +63,9 @@ from lgteun_tpu_torch.ops.ffn_kernel import (_WIDE_SLOT, _ffn_shapes,
                                              block_tail_ref,
                                              check_tail_args, tail_variant,
                                              tail_weights, tail_width)
-from lgteun_tpu_torch.ops.spectral_kernel import (_check_plane, fft_tables,
+from lgteun_tpu_torch.ops.spectral_kernel import (FFT_MAX_PRIME,
+                                                  _check_plane,
+                                                  fft_mixer_plan, fft_tables,
                                                   ln_mixer_head,
                                                   ln_mixer_head_ref,
                                                   mixer_route)
@@ -92,12 +97,16 @@ def lgb_block_ref(x, blk: dict, heads: int = 2, win: int = 8,
 def lgb_route(h: int, w: int) -> str:
     """How `lgb_block` runs a block on H x W planes: "block" (B8, one
     launch) where the mixer's half spectrum fits one block's shared
-    memory, else "chain" (B1 on its cluster or global route, B2, B3:
-    level 2's chain); None where the mixer takes no route."""
+    memory and B8's mixer takes the plane (even sides, prime factors at
+    most FFT_MAX_PRIME: B8 is not widened to odd sides or the line
+    buffer), else "chain" (B1 on its route by shape, B2, B3: level 2's
+    chain); None where the mixer takes no route."""
     route = mixer_route(h, w)
     if route is None:
         return None
-    return "block" if route["route"] == "smem" else "chain"
+    block = (route["route"] == "smem" and h % 2 == 0 and w % 2 == 0
+             and fft_mixer_plan(h, w)["gbuf"] == 0)
+    return "block" if block else "chain"
 
 
 def lgb_attention_branch(c2: int, heads: int, win: int) -> str:
@@ -187,7 +196,7 @@ def lgb_block(x, blk: dict, heads: int = 2, win: int = 8,
               eps: float = 1e-5, branch_dtype=None):
     """One LGB block on [B, C, H, W] -> [B, C, H, W] of x's dtype (same
     contract as `lgb_block_ref`; no gradient): B8, or level 2's chain
-    where the planes are larger than B8 takes (`lgb_route`)."""
+    where B8 does not take the planes (`lgb_route`)."""
     if x.device.type == "cpu":
         return lgb_block_ref(x, blk, heads, win, eps, branch_dtype)
     if lgb_route(*x.shape[-2:]) == "chain":
@@ -228,10 +237,12 @@ def _launch(x, blk: dict, heads: int, win: int, eps: float, blocks: int,
     if h % win or w % win or c2 % heads or s > 64:
         raise ValueError(f"lgb_block: need H, W divisible by {win}, C/2 by "
                          f"{heads} and win <= 8, got {tuple(x.shape)}")
-    if _check_plane("lgb_block", x)["route"] != "smem":
+    _check_plane("lgb_block", x)
+    if lgb_route(h, w) != "block":
         raise ValueError(f"lgb_block: B8 holds a plane's half spectrum in "
-                         f"shared memory (up to 240 x 240; larger planes "
-                         f"run level 2's chain, lgb_route), got "
+                         f"shared memory (up to 240 x 240; even sides, "
+                         f"prime factors at most {FFT_MAX_PRIME}; other "
+                         f"planes run level 2's chain, lgb_route), got "
                          f"{tuple(x.shape)}")
     mixer = dict(ln_w=(c,), ln_b=(c,), amp_w=(c2,), amp_b=(c2,),
                  pha_w=(c2,), pha_b=(c2,), wqkv=(3 * c2, c2),

@@ -14,28 +14,34 @@ and `fused_global_mixer_cm` (Pallas), and of `ln_mixer_head_xla_cm` and
 `ln_mixer_head` and `global_mixer` launch `csrc/spectral_head.cu` for a
 CUDA tensor, differentiable there (`ops.autograd.recompute`: the kernel
 forward, the plain version's backward), and run `ln_mixer_head_ref` /
-`global_mixer_ref` for a CPU tensor. The kernel takes any even H, W
-whose odd prime factors are at most 512, by one of three routes chosen
-by the plane's shape (`mixer_route`): where the half spectrum fits one
-block's shared memory, 112 + 8 * H * ld bytes (the plan, then the half
-spectrum) <= 232,448 (the H100's), ld = W/2 + 1 rounded up to odd (up to
-240 x 240), one block (or a cluster of two) holds a plane ("smem");
-above that, a thread-block cluster of the smallest K of 2, 4, 8, 16
-whose blocks each hold H / K rows of the half spectrum and a stage of
-columns runs it in one launch ("cluster", `fft_cluster_plan`: 256^2 and
-264^2 at K = 2, 512^2 at K = 8, 1024 x 512 at K = 16); a plane no
-cluster holds (1024^2 and up) takes the global route, which keeps the
-half spectra in a scratch the wrapper allocates and runs the same plan
-in three launches over ranges of rows and columns ("global",
-`fft_global_plan`; up to H 14,514 and W 29,026). Odd sides and odd
-primes above 512 are refused. Its plan, twiddle and position tables are
-made once per (H, W) and device (`fft_tables`). `fft_plan` /
-`fft_mixer_plan` / `fft_cluster_plan` / `fft_global_plan` mirror the
-kernel's plans (`csrc/fft_mixer.cuh`) and `fft_tables_ref` its tables,
-for the tests and for `chip_smoke.py`, which holds the card's tables and
-routes to them. The wrappers count their launches by the layout the
-kernel picks (`mixer_variant`, `variants`: "pair", "block512",
-"block256", "cluster" or "global").
+`global_mixer_ref` for a CPU tensor. The kernel takes every H from 2 to
+14,514 and every W from 2 to 29,026 (odd W to 14,513), at any
+factorization (FFT_MAX_H, FFT_MAX_W, FFT_MAX_W_ODD; `_check_plane`
+raises beyond them), by one of three routes chosen by the plane's shape
+(`mixer_route`): where the half spectrum fits one block's shared memory,
+112 + 8 * (H * ld + gbuf) bytes (the plan, the half spectrum, the line
+buffer of a radix above 512) <= 232,448 (the H100's), ld = W/2 + 1
+rounded up to odd (odd W: ld = W; up to 240 x 240), one block (or a
+cluster of two) holds a plane ("smem"); above that, a thread-block
+cluster of the smallest K of 2, 4, 8, 16 whose blocks each hold H / K
+rows of the half spectrum and a stage of columns runs it in one launch
+("cluster", `fft_cluster_plan`: 256^2 and 264^2 at K = 2, 512^2 at K =
+8, 1024 x 512 at K = 16); a plane no cluster holds (1024^2 and up) takes
+the global route, which keeps the half spectra in a scratch the wrapper
+allocates, column by column, and runs the same plan in three launches
+over ranges of rows and columns ("global", `fft_global_plan`). Even W
+reads a row as W/2 complex points; odd W transforms it as W complex
+points with imaginary part 0; a prime factor above 512 takes a direct
+pass, its twiddles in a line buffer of that length in shared memory
+(planes of odd width or with such a factor run kernels of their own,
+`csrc/spectral_head_any.cu`). Its plan, twiddle and position tables are
+made once per (H, W) and device (`fft_tables`).
+`fft_plan` / `fft_mixer_plan` / `fft_cluster_plan` / `fft_global_plan`
+mirror the kernel's plans (`csrc/fft_mixer.cuh`) and `fft_tables_ref`
+its tables, for the tests and for `chip_smoke.py`, which holds the
+card's tables and routes to them. The wrappers count their launches by
+the layout the kernel picks (`mixer_variant`, `variants`: "pair",
+"block512", "block256", "cluster" or "global").
 
 Storage (`ops.storage_dtype`): x may be float32 or bfloat16, and the
 head's y1 and x2, and the mixer's output, float32 or bfloat16
@@ -70,22 +76,25 @@ __all__ = ["ln_mixer_head", "ln_mixer_head_ref", "global_mixer",
            "safe_amp_phase",
            "mixer_spectrum", "mixer_inverse", "fft_plan", "fft_pos",
            "fft_mixer_plan", "fft_cluster_plan", "fft_global_plan",
+           "global_split",
            "cluster_size", "mixer_route",
            "fft_tables_ref", "fft_tables", "mixer_variant"]
 
 # shared memory one block may hold on the H100 (227 KB)
 FFT_SMEM_BYTES = 232_448
-# the global route's blocks: at most half of it (two an SM), and at most
-# FFT_GLOBAL_COLS columns a column block (fft_mixer.cuh: kFftGlobalSmem,
-# kFftGlobalCols)
+# two blocks an SM hold half of it each (fft_mixer.cuh: kFftGlobalSmem)
 FFT_GLOBAL_SMEM = FFT_SMEM_BYTES // 2
-FFT_GLOBAL_COLS = 31
 # the cluster route's sizes (fft_mixer.cuh: kFftMaxCluster; 16 is a
 # non-portable cluster size, which the H100 has)
 FFT_CLUSTERS = (2, 4, 8, 16)
 H100_SMS = 132            # streaming multiprocessors of the H100 SXM
 FFT_MAX_PASS = 8          # fft_mixer.cuh: kFftMaxPass
-FFT_MAX_PRIME = 512       # kFftMaxPrime
+# kFftMaxPrime: a larger radix takes fft_pass_prime, its twiddles in a
+# line buffer of shared memory (`gbuf`)
+FFT_MAX_PRIME = 512
+# kFftMaxH, kFftMaxW, kFftMaxWOdd: the largest sides, at any
+# factorization (the global route holds a row and a column of each)
+FFT_MAX_H, FFT_MAX_W, FFT_MAX_W_ODD = 14_514, 29_026, 14_513
 FFT_PLAN_FLOATS = 28      # kFftPlanFloats: the plan at the tables' head
 
 
@@ -226,6 +235,8 @@ def fft_plan(n: int) -> list[int] | None:
             m //= r
     q = 11
     while m > 1 and len(odd) <= FFT_MAX_PASS:
+        if q * q > m:     # m is prime: the kernel's loop reaches q = m
+            q = m
         while m % q == 0 and len(odd) <= FFT_MAX_PASS:
             odd.append(q)
             m //= q
@@ -250,73 +261,108 @@ def fft_pos(radices: list[int], n: int, k: int) -> int:
 
 def fft_mixer_plan(h: int, w: int) -> dict | None:
     """The kernel's plan of an H x W plane (`fft_mixer.cuh::
-    fft_mixer_plan`): row radices (N = W/2 points), column radices, row
-    pitch ld (float2), the position qh of H-bin H/2, the tables' float
-    offsets and size (the plan itself first), and the shared memory; None
-    where the kernel refuses the size (odd H or W, or a plan it has no
-    passes for)."""
-    if h < 2 or w < 2 or h % 2 or w % 2:
+    fft_mixer_plan`): row radices (n = W/2 points for even W, W for odd
+    W), column radices, row pitch ld (float2), the position qh of H-bin
+    H/2 (-1 for odd H), the tables' float offsets and size (the plan
+    itself first), the line buffer `gbuf` (the largest radix above
+    FFT_MAX_PRIME, else 0), the width `w` and one block's shared memory;
+    None beyond FFT_MAX_H, FFT_MAX_W and FFT_MAX_W_ODD (or below 2)."""
+    if not (2 <= h <= FFT_MAX_H and 2 <= w <= (FFT_MAX_W_ODD if w % 2
+                                                 else FFT_MAX_W)):
         return None
-    n = w // 2
+    n = w if w % 2 else w // 2
     row, col = fft_plan(n), fft_plan(h)
-    if row is None or col is None or max(row + col) > FFT_MAX_PRIME:
+    if row is None or col is None:
         return None
-    ld = n + 1 if (n + 1) % 2 else n + 2
+    ld = w if w % 2 else n + 1 if (n + 1) % 2 else n + 2
+    gbuf = max([r for r in row + col if r > FFT_MAX_PRIME], default=0)
     tw_half = FFT_PLAN_FLOATS + 2 * n
-    tw_col = tw_half + 2 * n + 2
-    return {"row": row, "col": col, "ld": ld, "qh": fft_pos(col, h, h // 2),
+    tw_col = tw_half + (0 if w % 2 else 2 * n + 2)
+    return {"row": row, "col": col, "ld": ld,
+            "qh": -1 if h % 2 else fft_pos(col, h, h // 2),
             "tw_row": FFT_PLAN_FLOATS, "tw_half": tw_half, "tw_col": tw_col,
             "pos_row": tw_col + 2 * h, "floats": tw_col + 2 * h + n,
-            "smem": 4 * FFT_PLAN_FLOATS + 8 * h * ld}
+            "w": w, "gbuf": gbuf,
+            "smem": 4 * FFT_PLAN_FLOATS + 8 * (h * ld + gbuf)}
 
 
-def fft_global_plan(h: int, w: int) -> dict | None:
-    """The global route's plan of an H x W plane (`fft_mixer.cuh::
-    fft_global_plan`): `rows` rows a block of the row parts (a) and (c)
-    and `row_blocks` such blocks a plane, `cols` columns a block of the
-    column part (b), staged with the odd row pitch `pitch`, and
-    `col_blocks` such blocks a plane; each block's shared memory
-    (`smem_rows`, `smem_cols`) and the scratch a plane (`plane_bytes`, its
-    half spectrum [H][ld] float2). None where there is no plan or one row
-    (W above 29,026) or one column (H above 14,514) of the half spectrum
-    does not fit FFT_GLOBAL_SMEM."""
+# fft_mixer.cuh: kFftBlockLines, a global-route block's own cost in lines
+FFT_BLOCK_LINES = 2
+
+
+def global_split(n: int, most: int, planes: int, slots: int) -> int:
+    """Lines a block of a plane's n rows (or columns) on the global route
+    (`fft_mixer.cuh::fft_global_split`): of the block counts from the
+    fewest (`most` lines a block) up to four times that, the one whose
+    waves of `slots` resident blocks (rounded up) times a block's lines
+    plus FFT_BLOCK_LINES is least."""
+    fewest = -(-n // most)
+    best, best_cost = fewest, None
+    for nb in range(fewest, min(4 * fewest, n) + 1):
+        cost = -(-planes * nb // slots) * (-(-n // nb) + FFT_BLOCK_LINES)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = nb, cost
+    return -(-n // best)
+
+
+def fft_global_plan(h: int, w: int, planes: int = 1,
+                    sms: int = H100_SMS) -> dict | None:
+    """The global route's plan of `planes` H x W planes on `sms` SMs
+    (`fft_mixer.cuh::fft_global_plan`): `rows` rows a block of the row
+    parts (a) and (c), `row_blocks` such blocks a plane, of
+    `row_threads` threads (256, two blocks an SM, where a row and the
+    line buffer fit FFT_GLOBAL_SMEM, else 512, one an SM); `cols` columns
+    a block of the column part (b), `col_blocks` such blocks a plane, of
+    `col_threads` threads (the same rule), each column staged with the
+    odd pitch `pitch` (H rounded up to odd); the lines a block as many as
+    the shared memory holds (`most_rows`, `most_cols`), split evenly over
+    the waves (`global_split`); each block's shared memory (`smem_rows`,
+    `smem_cols`) and the scratch a plane (`plane_bytes`: its half
+    spectrum column by column, [W/2 + 1][H] float2). None where there is
+    no plan."""
     plan = fft_mixer_plan(h, w)
     if plan is None:
         return None
-    head, row, col = 4 * FFT_PLAN_FLOATS, 8 * plan["ld"], 8 * h
-    if head + row > FFT_GLOBAL_SMEM or head + col > FFT_GLOBAL_SMEM:
+    head = 4 * FFT_PLAN_FLOATS + 8 * plan["gbuf"]
+    row, pitch, half = 8 * plan["ld"], h | 1, w // 2 + 1
+    col = 8 * pitch
+    if head + max(row, col) > FFT_SMEM_BYTES:
         return None
-    n = w // 2
-    rows = min(h, (FFT_GLOBAL_SMEM - head) // row)
-    cols = min(FFT_GLOBAL_COLS, (FFT_GLOBAL_SMEM - head) // col)
-    pitch = cols if cols % 2 else cols - 1
-    cols = min(pitch, n + 1)
-    return {"rows": rows, "row_blocks": -(-h // rows), "cols": cols,
-            "pitch": pitch, "col_blocks": -(-(n + 1) // cols),
-            "smem_rows": head + row * rows, "smem_cols": head + col * pitch,
-            "plane_bytes": 8 * h * plan["ld"]}
+    rows2, cols2 = head + row <= FFT_GLOBAL_SMEM, head + col <= FFT_GLOBAL_SMEM
+    most_rows = min(h, ((FFT_GLOBAL_SMEM if rows2 else FFT_SMEM_BYTES)
+                        - head) // row)
+    most_cols = min(half, ((FFT_GLOBAL_SMEM if cols2 else FFT_SMEM_BYTES)
+                           - head) // col)
+    rows = global_split(h, most_rows, planes, 2 * sms if rows2 else sms)
+    cols = global_split(half, most_cols, planes, 2 * sms if cols2 else sms)
+    return {"rows": rows, "row_blocks": -(-h // rows),
+            "row_threads": 256 if rows2 else 512, "most_rows": most_rows,
+            "cols": cols, "pitch": pitch, "col_blocks": -(-half // cols),
+            "col_threads": 256 if cols2 else 512, "most_cols": most_cols,
+            "smem_rows": head + row * rows, "smem_cols": head + col * cols,
+            "plane_bytes": 8 * half * h}
 
 
 def fft_cluster_plan(h: int, w: int, k: int) -> dict | None:
     """The cluster route's plan of an H x W plane on k blocks
     (`fft_mixer.cuh::fft_cluster_plan`): `rows` rows of the half spectrum
-    a block and `cols` of its N + 1 columns a block (block j: [j rows, (j
-    + 1) rows), [j cols, (j + 1) cols), clipped), its columns run
+    a block and `cols` of its W/2 + 1 columns a block (block j: [j rows,
+    (j + 1) rows), [j cols, (j + 1) cols), clipped), its columns run
     `chunk` at a time (`chunks` of them) staged with the odd row pitch
     `pitch`, and each block's shared memory `smem` (the plan, its rows,
-    the stage). None where there is no plan, or a block's rows and one
-    staged column exceed FFT_SMEM_BYTES."""
+    the stage, the line buffer). None where there is no plan, or a
+    block's rows and one staged column exceed FFT_SMEM_BYTES."""
     plan = fft_mixer_plan(h, w)
     if plan is None or k < 1:
         return None
-    n, rows = w // 2, -(-h // k)
-    mine = 4 * FFT_PLAN_FLOATS + 8 * rows * plan["ld"]
+    half, rows = w // 2 + 1, -(-h // k)
+    mine = 4 * FFT_PLAN_FLOATS + 8 * (rows * plan["ld"] + plan["gbuf"])
     if mine + 8 * h > FFT_SMEM_BYTES:
         return None
-    # the widest stage that fits, odd, at most N + 2
-    fit = min((FFT_SMEM_BYTES - mine) // (8 * h), n + 2)
+    # the widest stage that fits, odd, at most W/2 + 2
+    fit = min((FFT_SMEM_BYTES - mine) // (8 * h), half + 1)
     widest = fit if fit % 2 else fit - 1
-    cols = -(-(n + 1) // k)
+    cols = -(-half // k)
     chunks = -(-cols // widest)
     chunk = -(-cols // chunks)
     return {"k": k, "rows": rows, "cols": cols, "chunk": chunk,
@@ -348,16 +394,15 @@ def mixer_route(h: int, w: int, planes: int = 1, head: bool = False,
     `scratch_bytes` the wrapper allocates (0 but on "global"), the rows
     and columns a block (`rows`, `cols`: the cluster's or the global
     route's ranges; None on "smem") and `k` (None but on "cluster").
-    None where no route takes the plane: no plan, or a plane above one
-    block that the global route refuses (the cluster route takes none of
-    those)."""
+    None where no route takes the plane: no plan (beyond FFT_MAX_H,
+    FFT_MAX_W, FFT_MAX_W_ODD)."""
     plan = fft_mixer_plan(h, w)
     if plan is None:
         return None
     if plan["smem"] <= FFT_SMEM_BYTES:
         return {"route": "smem", "launches": 1 + head, "scratch_bytes": 0,
                 "cols": None, "rows": None, "k": None}
-    g = fft_global_plan(h, w)
+    g = fft_global_plan(h, w, planes, sms)
     if g is None:
         return None
     for k in FFT_CLUSTERS:
@@ -374,20 +419,20 @@ def mixer_route(h: int, w: int, planes: int = 1, head: bool = False,
 def fft_tables_ref(h: int, w: int) -> torch.Tensor:
     """The kernel's tables of an H x W plane as float32 [floats]: the
     plan as the struct FftMixerPlan lays it out (int32 bits: per FftPlan
-    n, npass, 8 radices; then ld, qh, the five offsets; zero padding),
-    row twiddles w_N^j, half twiddles w_W^k (k <= N), column twiddles
+    n, npass, 8 radices; then ld, qh, the five offsets, W), row twiddles
+    w_n^j, half twiddles w_W^k (k <= n; even W only), column twiddles
     w_H^j (interleaved re, im; computed in long double, exact zeros
     snapped) and the row positions fft_pos (int32 bits)."""
     import numpy as np
     plan = fft_mixer_plan(h, w)
-    n = w // 2
+    n = w if w % 2 else w // 2
     out = np.zeros(plan["floats"], np.float32)
     head = []
     for radices, length in ((plan["row"], n), (plan["col"], h)):
         head += [length, len(radices)] + radices + [0] * (
             FFT_MAX_PASS - len(radices))
     head += [plan[k] for k in ("ld", "qh", "tw_row", "tw_half", "tw_col",
-                               "pos_row", "floats")]
+                               "pos_row", "floats", "w")]
     out[:len(head)] = np.array(head, np.int32).view(np.float32)
 
     def tw(count, length):   # in long double, then rounded
@@ -398,7 +443,8 @@ def fft_tables_ref(h: int, w: int) -> torch.Tensor:
         return np.stack([c, s], 1).astype(np.float32).reshape(-1)
 
     out[plan["tw_row"]:plan["tw_row"] + 2 * n] = tw(n, n)
-    out[plan["tw_half"]:plan["tw_half"] + 2 * n + 2] = tw(n + 1, w)
+    if w % 2 == 0:
+        out[plan["tw_half"]:plan["tw_half"] + 2 * n + 2] = tw(n + 1, w)
     out[plan["tw_col"]:plan["tw_col"] + 2 * h] = tw(h, h)
     pos = np.array([fft_pos(plan["row"], n, k) for k in range(n)], np.int32)
     out[plan["pos_row"]:] = pos.view(np.float32)
@@ -449,14 +495,9 @@ def _check_plane(name: str, x: torch.Tensor) -> dict:
     route = mixer_route(h, w, b * c)
     if route is not None:
         return route
-    if fft_mixer_plan(h, w) is None:
-        raise ValueError(
-            f"{name}: the FFT kernel needs even H, W whose odd prime "
-            f"factors are at most {FFT_MAX_PRIME}, got {tuple(x.shape)}")
     raise ValueError(
-        f"{name}: one row or column of the half spectrum must fit "
-        f"{FFT_GLOBAL_SMEM} bytes of shared memory (H <= 14514, W <= "
-        f"29026), got {tuple(x.shape)}")
+        f"{name}: the FFT kernel takes 2 <= H <= {FFT_MAX_H} and 2 <= W <= "
+        f"{FFT_MAX_W} (odd W <= {FFT_MAX_W_ODD}), got {tuple(x.shape)}")
 
 
 def _scratch(route: dict, device: torch.device):

@@ -105,7 +105,10 @@ Each forward, per operation (the rank holds rows [a, b) of H):
   each LGB block all-gathers its input x (a bfloat16 stream in the "bf16"
   mode) and runs the mixer on the whole plane on every rank (the FFT
   mixer is global over the plane: exact, and redundant; a distributed
-  FFT is ROADMAP A.9.3): at level 2 B1 `ln_mixer_head`, then the local
+  FFT is ROADMAP A.9.3; so B1, B4 and B8 take every plane the whole
+  forward takes, odd sides and prime factors above 512 included, by the
+  route of the whole plane's shape, with no change here): at level 2 B1
+  `ln_mixer_head`, then the local
   mixer (B2 `window_attention`, or B6 on the strip's windows under v2)
   on the strip of y1 from rows a and b rounded out to the 8-row window
   grid plus one window band on each side (windows stay fixed in the

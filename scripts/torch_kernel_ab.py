@@ -8,6 +8,7 @@
     python3 scripts/torch_kernel_ab.py --b8-phases [CSRC]
     python3 scripts/torch_kernel_ab.py --search-phases [CSRC] [--batch 4]
     python3 scripts/torch_kernel_ab.py --cluster-sizes
+    python3 scripts/torch_kernel_ab.py --global-parts [CSRC]
 
 A and B are two versions either of `lgteun_tpu_torch/csrc/
 texture_match.cu` (the INNT searches `lgteun_texture_match` and
@@ -106,6 +107,12 @@ picks by shape, by the profiler's device time, at 256^2, 264^2, 384^2,
 512^2 and 1024x512 and 1 to 512 planes (CLUSTER_SHAPES); every forced
 output must equal the route by shape bit for bit.
 
+`--global-parts` times the FFT mixer's global route (of CSRC, default
+the port's csrc) forced on B1 at [1,32,1024^2] and B4 at [1,16,1024^2],
+[1,4,2048^2] and [1,4,1024x2048] (GLOBAL_SHAPES) kernel by kernel: the
+LN split and each launch of the route, by the profiler's device time,
+beside cuFFT's rfft2 + irfft2 on the mixed planes.
+
 `--search-phases` shows where the INNT searches' time goes on their
 tensor-core branch (`csrc/texture_match_tc.cuh`, of CSRC, default the
 port's): a copy built with LGTEUN_SEARCH_STAMPS, whose kernels add up
@@ -121,8 +128,10 @@ between them.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -216,9 +225,11 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
 
     cases = {}
     # C 32 on the UnlgFormer block's planes (128^2, and 256^2 / 512^2 at
-    # PAN 256^2 / 512^2: the mixer's cluster route; 264^2 its odd radices)
-    # and the scene engine's 144^2, C 64 at 64^2 and 72^2
-    channels = {128: 32, 64: 64, 144: 32, 72: 64, 256: 32, 264: 32, 512: 32}
+    # PAN 256^2 / 512^2: the mixer's cluster route; 264^2 its odd radices;
+    # 1024^2 a whole tile's, the global route) and the scene engine's
+    # 144^2, C 64 at 64^2 and 72^2, C 8 at 2048^2 (the global route)
+    channels = {128: 32, 64: 64, 144: 32, 72: 64, 256: 32, 264: 32, 512: 32,
+                1024: 32, 2048: 8}
     for hw in sizes:
         c = channels[hw]
         b, c2, c4 = batch, c // 2, 4 * c
@@ -238,6 +249,8 @@ def lgb_cases(batch: int, sizes, gen: torch.Generator) -> dict:
             lambda lay, x=n(b, c2, hw, hw), mix=mix, hw=hw, p=b * c2: (x,)
             + mix + mixer(lay, hw, p),
             lambda half=half: (half(),), (b, c2, hw, hw))
+        if hw >= 1024:   # the mixer's global route alone
+            continue
         # the whole block at the block shapes (B8 takes planes up to
         # 240^2), the window attention and the tails at the others too
         block = hw in (128, 64)
@@ -417,7 +430,6 @@ def layouts(dll: ctypes.CDLL) -> tuple:
     if got[2] < 2:
         return got[0], got[1], None, got[3], got[4]
     from lgteun_tpu_torch.ops.spectral_kernel import (FFT_SMEM_BYTES,
-                                                      fft_global_plan,
                                                       fft_mixer_plan)
     made = {}
 
@@ -435,8 +447,9 @@ def layouts(dll: ctypes.CDLL) -> tuple:
             return ()
         if planes == 0 or fft_mixer_plan(hw, hw)["smem"] <= FFT_SMEM_BYTES:
             return (None,)
-        return (torch.empty(planes * fft_global_plan(hw, hw)["plane_bytes"]
-                            // 4, device="cuda"),)
+        # as large as any version's: [planes][H][ld] float2
+        return (torch.empty(planes * 2 * hw * fft_mixer_plan(hw, hw)["ld"],
+                            device="cuda"),)
     tables.scratch = scratch
     return got[0], got[1], tables, got[3], got[4]
 
@@ -1158,6 +1171,75 @@ def cluster_sizes(card: str) -> None:
         raise AssertionError(f"forced routes differ: {failed}")
 
 
+# the FFT mixer's global route timed part by part by --global-parts: B1
+# (its LN split and the mixer on the second half of the channels) and B4
+# on [B, C, H, W] (the four shapes of PERF.md §6 rows 1 and 4)
+GLOBAL_SHAPES = (("ln_mixer_head", (1, 32, 1024, 1024)),
+                 ("global_mixer", (1, 16, 1024, 1024)),
+                 ("global_mixer", (1, 4, 2048, 2048)),
+                 ("global_mixer", (1, 4, 1024, 2048)))
+
+
+def global_parts(card: str, tmp: str, src: str | None) -> None:
+    """The FFT mixer's global route (of csrc CSRC, default the port's)
+    forced at GLOBAL_SHAPES (`lgteun_ln_mixer_head_global_route`,
+    `lgteun_global_mixer_global_route`): the device ms a call of each of
+    its kernels by name (torch.profiler over 20 calls, the kernels' own
+    intervals), the call's busy ms, and cuFFT's rfft2 + irfft2 on the
+    mixed planes beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import device_profile
+    from lgteun_tpu_torch.ops import _cuda
+    from lgteun_tpu_torch.ops.spectral_kernel import fft_mixer_plan
+    dll = build(src or str(_cuda.CSRC), tmp, "parts")
+    gen = torch.Generator().manual_seed(7)
+    n = lambda *s: torch.randn(*s, generator=gen).cuda()
+    for entry, (b, c, h, w) in GLOBAL_SHAPES:
+        head = entry == "ln_mixer_head"
+        c2 = c // 2 if head else c
+        plan = fft_mixer_plan(h, w)
+        tab = torch.empty(plan["floats"], device="cuda")
+        caller(dll, "lgteun_fft_tables", tab, plan["floats"], h, w)()
+        # as large as any version's scratch: [planes][H][ld] float2
+        scratch = torch.empty(b * c2 * 2 * h * plan["ld"], device="cuda")
+        x = n(b, c, h, w)
+        mix = (n(c2), 0.1 * n(c2), n(c2), 0.1 * n(c2))
+        if head:
+            y1, x2 = (torch.empty(b, c2, h, w, device="cuda")
+                      for _ in range(2))
+            call = caller(dll, "lgteun_ln_mixer_head_global_route", x,
+                          1 + 0.1 * n(c), 0.1 * n(c), *mix, tab, scratch,
+                          y1, x2, b, c, h, w, 1e-5)
+        else:
+            call = caller(dll, "lgteun_global_mixer_global_route", x, *mix,
+                          tab, scratch, torch.empty_like(x), b, c, h, w)
+        call()
+        torch.cuda.synchronize()
+        iters = 20
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        parts = collections.Counter()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = re.search(r"(\w+)(<[^()]*>)?\(", e.name)
+                parts[name.group(1) if name else e.name[:40]] += (
+                    e.time_range.end - e.time_range.start) / iters / 1e3
+        planes = (x[:, c2:] if head else x).contiguous()
+        fft = lambda: torch.fft.irfft2(torch.fft.rfft2(planes),
+                                       s=planes.shape[-2:])
+        busy = device_profile(call, n=iters)["busy_ms_per_call"]
+        yard = device_profile(fft, n=iters)["busy_ms_per_call"]
+        print(f"global parts {entry} {b}x{c}x{h}x{w}: busy {busy:.4f} ms a "
+              f"call; by kernel "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              + f"; cuFFT rfft2 + irfft2 {yard:.4f} ms  [{card}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("a", nargs="?")
@@ -1183,13 +1265,19 @@ def main() -> int:
     ap.add_argument("--cluster-sizes", action="store_true",
                     help="time the FFT mixer's cluster route forced at each "
                          "cluster size instead, beside the global route")
+    ap.add_argument("--global-parts", nargs="?", const="", default=None,
+                    metavar="CSRC",
+                    help="time the FFT mixer's global route kernel by "
+                         "kernel instead, in CSRC (default: the port's "
+                         "csrc)")
     ap.add_argument("--b8-only", type=int, default=0, choices=(0, 1, 2),
                     help="with --b8-phases: 1 times the LN and plane items "
                          "alone, 2 the tail items alone")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--sizes", default="128,64,144,72",
                     help="H = W of the LGB cases (C 32 at 128, 144, 256, "
-                         "264 and 512, C 64 at 64 and 72)")
+                         "264, 512 and 1024, C 64 at 64 and 72, C 8 at "
+                         "2048)")
     ap.add_argument("--innt", action="store_true",
                     help="time INNT's eval forward with A's and B's "
                          "searches instead of the kernel cases")
@@ -1223,6 +1311,10 @@ def main() -> int:
         from lgteun_tpu_torch.ops import _cuda
         _cuda.build_library()
         cluster_sizes(card)
+        return 0
+    if opts.global_parts is not None:
+        with tempfile.TemporaryDirectory() as tmp:
+            global_parts(card, tmp, opts.global_parts or None)
         return 0
     if opts.mma_rate or opts.phases or opts.b8_phases is not None \
             or opts.search_phases is not None \

@@ -62,8 +62,8 @@ ROUTES = {(240, 240): ("smem", None, None, None),
           (264, 264): ("cluster", 2, 132, 67),
           (512, 512): ("cluster", 8, 64, 33),
           (1024, 512): ("cluster", 16, 64, 17),
-          (1000, 1000): ("global", None, 28, 13),
-          (1024, 1024): ("global", None, 28, 13)}
+          (1000, 1000): ("global", None, 28, 14),
+          (1024, 1024): ("global", None, 27, 13)}
 
 
 @pytest.mark.parametrize("hw", sorted(ROUTES))

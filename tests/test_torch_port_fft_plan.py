@@ -69,15 +69,18 @@ def _twiddles(count, length, dtype):
 
 def _tables(h, w, dtype):
     """(row, half, column twiddles, row positions): in float32 the
-    kernel's tables (`fft_tables_ref`), in float64 the same in float64."""
-    plan, n = fft_mixer_plan(h, w), w // 2
+    kernel's tables (`fft_tables_ref`), in float64 the same in float64
+    (odd W: the row twiddles of W points, no half twiddles)."""
+    plan = fft_mixer_plan(h, w)
+    n = w if w % 2 else w // 2
+    half = 0 if w % 2 else n + 1
     if dtype == torch.float32:
         tab = fft_tables_ref(h, w)
         part = lambda off, cnt: tab[off:off + 2 * cnt].view(cnt, 2)
-        tw = (part(plan["tw_row"], n), part(plan["tw_half"], n + 1),
+        tw = (part(plan["tw_row"], n), part(plan["tw_half"], half),
               part(plan["tw_col"], h))
     else:
-        tw = (_twiddles(n, n, dtype), _twiddles(n + 1, w, dtype),
+        tw = (_twiddles(n, n, dtype), _twiddles(half, w, dtype),
               _twiddles(h, h, dtype))
     pos = torch.tensor([fft_pos(plan["row"], n, k) for k in range(n)])
     return tw + (pos,)
@@ -159,12 +162,16 @@ def idft(v, roots):
     return conj(dft(conj(v), roots))
 
 
-def fft_pass(a, n, span, r, tw, inverse):
+def fft_pass(a, n, span, r, tw, inverse, dit=None):
     """One pass of radix r over span `span` of the lines a [lines, n, 2]:
-    group (b, j) holds elements b span + j + s t (s = span / r); forward
-    the DFT, then w_span^(jk) = tw[j k n / span] for j, k >= 1; inverse
-    the conjugate twiddles, then the inverse DFT. Radices above 9 take
-    fft_pass_generic's formulas (one output at a time)."""
+    group (b, j) holds elements b span + j + s t (s = span / r); the
+    twiddles w_span^(jk) = tw[j k n / span] for j, k >= 1 (conjugate
+    inverse) after the DFT in decimation in frequency (`dit` False; the
+    default forward) or before it in decimation in time (`dit` True; the
+    default inverse); inverse the inverse DFT. Radices above 9 take
+    fft_pass_generic's formulas (one output at a time; fft_pass_prime, on
+    a radix above 512, computes the same terms in the same order)."""
+    dit = inverse if dit is None else dit
     s = span // r
     b = torch.arange(n // span)[:, None, None]
     j = torch.arange(s)[None, :, None]
@@ -175,38 +182,42 @@ def fft_pass(a, n, span, r, tw, inverse):
     roots = [tw[e * (n // r)] for e in range(1, (r - 1) // 2 + 1)]
     if r in REGISTER_RADICES:
         mask = ((j >= 1) & (k >= 1))[..., None]
-        if inverse:
-            v = idft(torch.where(mask, cmulc(v, twv), v), roots)
-        else:
-            v = dft(v, roots)
-            v = torch.where(mask, cmul(v, twv), v)
+        turn = cmulc if inverse else cmul
+        if dit:
+            v = torch.where(mask, turn(v, twv), v)
+        v = idft(v, roots) if inverse else dft(v, roots)
+        if not dit:
+            v = torch.where(mask, turn(v, twv), v)
     else:
-        v = _generic_pass(v, tw, n, r, twv, inverse)
+        v = _generic_pass(v, tw, n, r, twv, inverse, dit, (j >= 1)[..., None])
     out = a.clone()
     out[:, idx] = v
     return out
 
 
-def _generic_pass(v, tw, n, r, twv, inverse):
-    """fft_pass_generic on the groups v [lines, nb, s, r, 2]."""
-    x = v.unbind(-2)
+def _generic_pass(v, tw, n, r, twv, inverse, dit, jmask):
+    """fft_pass_generic (fft_generic_output) on the groups v [lines, nb,
+    s, r, 2], every output at once, the terms in the kernel's order;
+    jmask: j >= 1 [1, s, 1, 1]."""
     rs = n // r
-    out = []
-    for k in range(r):
-        acc = torch.zeros_like(x[0])
-        if inverse:
-            for t in range(r):
-                y = cmulc(x[t], twv[..., t, :])
-                acc = acc + cmulc(y, tw[t * k % r * rs])
-        elif k == 0:
-            for t in range(r):
-                acc = acc + x[t]
-        else:
-            for t in range(1, r):
-                acc = acc + cmul(x[t] - x[0], tw[t * k % r * rs])
-            acc = cmul(acc, twv[..., k, :])
-        out.append(acc)
-    return torch.stack(out, -2)
+    ks = torch.arange(r)
+    if dit:   # x'_t = w_L^(jt) x_t (forward where j >= 1; inverse always)
+        v = cmulc(v, twv) if inverse else torch.where(jmask, cmul(v, twv), v)
+    acc = torch.zeros_like(v)
+    if inverse:
+        for t in range(r):
+            acc = acc + cmulc(v[..., t:t + 1, :], tw[t * ks % r * rs])
+        return acc if dit else torch.where(jmask, cmulc(acc, twv), acc)
+    for t in range(1, r):
+        acc = acc + cmul(v[..., t:t + 1, :] - v[..., :1, :],
+                         tw[t * ks % r * rs])
+    if not dit:
+        acc = cmul(acc, twv)
+    acc0 = torch.zeros_like(v[..., 0, :])
+    for t in range(r):
+        acc0 = acc0 + v[..., t, :]
+    acc[..., 0, :] = acc0
+    return acc
 
 
 def mix_bin(z, self_conj, prm):
@@ -278,38 +289,86 @@ def rows_inverse(z, plan, tw_row):
     return z
 
 
+def rows_forward(x, plan, tw_row, tw_half, pos):
+    """The W forward of the rows x [h, W] -> (the row transform [h, n,
+    2], the half spectrum [h, W/2 + 1, 2] in the kernel's layout). Even
+    W: the rows as n = W/2 complex points, the passes in frequency, the
+    split. Odd W: each row as W complex points (imaginary part 0) put at
+    their digit-reversed positions pos, the passes in time in reverse
+    order (natural order out), bins 0..(W-1)/2 kept."""
+    h, w = x.shape
+    if w % 2 == 0:
+        n, span = w // 2, w // 2
+        z = x.reshape(h, n, 2)
+        for r in plan["row"]:
+            z = fft_pass(z, n, span, r, tw_row, False)
+            span //= r
+        return z, split(z, tw_half, pos)
+    z = torch.zeros(h, w, 2, dtype=x.dtype)
+    z[:, pos, 0] = x
+    span = 1
+    for r in reversed(plan["row"]):
+        span *= r
+        z = fft_pass(z, w, span, r, tw_row, False, dit=True)
+    return z, z[:, :w // 2 + 1].clone()
+
+
+def rows_back(half, plan, tw_row, tw_half, pos, norm):
+    """The W inverse of the half spectrum rows [h, W/2 + 1, 2] -> |x| *
+    norm [h, W]. Even W: the c2r combination and the inverse passes. Odd
+    W: the hermitian extension X[W-k] = conj X[k] with Im X[0] dropped,
+    the inverse passes in frequency (digit-reversed out), x[t] = Re
+    z'[pos[t]]."""
+    h, m = half.shape[:2]
+    w = plan["w"]
+    if w % 2 == 0:
+        z = rows_inverse(combine(half, tw_half, pos), plan, tw_row)
+        return (z * norm).abs().reshape(h, w)
+    z = torch.empty(h, w, 2, dtype=half.dtype)
+    z[:, :m] = half
+    z[:, 0, 1] = 0
+    z[:, m:] = conj(half[:, 1:]).flip(1)
+    span = w
+    for r in plan["row"]:
+        z = fft_pass(z, w, span, r, tw_row, True, dit=False)
+        span //= r
+    return (z[:, pos, 0] * norm).abs()
+
+
+def edge_bins(plan, h, c0, nc):
+    """The self-conjugate bins of columns [c0, c0 + nc) [nc, h]: W-bins 0
+    and W/2 (even W: column n) times H-bins 0 and H/2 (position qh; none
+    for odd H), as the plain version's `amp_phase` sets them real."""
+    w = plan["w"]
+    q = torch.arange(h).view(1, h)
+    c = torch.arange(c0, c0 + nc).view(nc, 1)
+    wh = -1 if w % 2 else w // 2
+    return ((c == 0) | (c == wh)) & ((q == 0) | (q == plan["qh"]))
+
+
 def emulate(x, prm=PARAMS):
     """The kernel's mixer on one plane x [H, W] (float32 or float64),
-    stage by stage: rows (forward, position order), half (the split),
-    spec (after the H forward passes, column layout [n + 1, H] in
-    position order), out."""
+    stage by stage: rows (forward, position order; odd W natural order),
+    half (the half spectrum), spec (after the H forward passes, column
+    layout [W/2 + 1, H] in position order), out."""
     h, w = x.shape
-    n, dtype = w // 2, x.dtype
+    dtype = x.dtype
     plan = fft_mixer_plan(h, w)
     tw_row, tw_half, tw_col, pos = _tables(h, w, dtype)
     st = {}
-    z, span = x.reshape(h, n, 2), n
-    for r in plan["row"]:
-        z = fft_pass(z, n, span, r, tw_row, False)
-        span //= r
-    st["rows"] = z
-    st["half"] = half = split(z, tw_half, pos)
-    cols, span = half.transpose(0, 1), h
+    st["rows"], st["half"] = rows_forward(x, plan, tw_row, tw_half, pos)
+    cols, span = st["half"].transpose(0, 1), h
     for r in plan["col"]:
         cols = fft_pass(cols, h, span, r, tw_col, False)
         span //= r
     st["spec"] = cols
-    q = torch.arange(h).view(1, h)
-    c = torch.arange(n + 1).view(n + 1, 1)
-    edge = ((c == 0) | (c == n)) & ((q == 0) | (q == plan["qh"]))
-    cols = mix_bin(cols, edge, prm)
+    cols = mix_bin(cols, edge_bins(plan, h, 0, w // 2 + 1), prm)
     for r in reversed(plan["col"]):
         span *= r
         cols = fft_pass(cols, h, span, r, tw_col, True)
-    z = rows_inverse(combine(cols.transpose(0, 1), tw_half, pos), plan,
-                     tw_row)
     norm = torch.tensor(1.0 / (h * w), dtype=dtype)
-    st["out"] = (z * norm).abs().reshape(h, w)
+    st["out"] = rows_back(cols.transpose(0, 1), plan, tw_row, tw_half, pos,
+                          norm)
     return st
 
 

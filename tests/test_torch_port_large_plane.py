@@ -38,8 +38,9 @@ from lgteun_tpu_torch.convert.from_jax import lgteun_from_flax
 from lgteun_tpu_torch.models.common import lgt
 from lgteun_tpu_torch.ops import lgb_block_kernel
 from lgteun_tpu_torch.ops.lgb_block_kernel import lgb_block, lgb_route
-from lgteun_tpu_torch.ops.spectral_kernel import (FFT_GLOBAL_COLS,
-                                                  FFT_GLOBAL_SMEM,
+from lgteun_tpu_torch.ops.spectral_kernel import (FFT_GLOBAL_SMEM,
+                                                  FFT_MAX_H, FFT_MAX_W,
+                                                  FFT_MAX_W_ODD,
                                                   FFT_PLAN_FLOATS,
                                                   FFT_SMEM_BYTES,
                                                   _check_plane,
@@ -53,42 +54,44 @@ from lgteun_tpu_torch.registry import build_model
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_port_convert import flax_params  # noqa: E402
 from test_torch_port_fft_plan import (_complex, _plane, _positions,  # noqa
-                                      _rel, _tables, combine, emulate,
-                                      fft_pass, mix_bin, rows_inverse,
-                                      split)
+                                      _rel, _tables, edge_bins, emulate,
+                                      fft_pass, mix_bin, rows_back,
+                                      rows_forward)
 from test_torch_port_lgb_engines import _mixer_params  # noqa: E402
 from test_torch_port_ops import f32, max_err  # noqa: E402
 
 PARAMS = (0.9, 0.05, 1.3, 0.1)  # amp_w, amp_b, pha_w, pha_b
 
-# (H, W) -> (route by shape, the global route's rows and cols a block):
-# the one-block body up to 240^2, a cluster to 264^2 here
-# (`test_torch_port_cluster_route.py`), the global route above it; the
-# global plan at every size it takes (forced on the cluster's planes by
-# `lgteun_global_mixer_global_route` and `_head_global_route`)
+# (H, W) -> (route by shape of 16 planes, the global route's rows and
+# cols a block for 16 planes on the H100's 132 SMs): the one-block body up
+# to 240^2, a cluster to 264^2 here (`test_torch_port_cluster_route.py`),
+# the global route above it; the global plan at every size it takes
+# (forced on the cluster's planes by `lgteun_global_mixer_global_route`
+# and `_head_global_route`)
 ROUTES = {(240, 240): ("smem", None, None),
-          (248, 248): ("cluster", 116, 31),
-          (256, 256): ("cluster", 112, 31),
-          (264, 264): ("cluster", 109, 31),
-          (1000, 1000): ("global", 28, 13),
-          (1024, 1024): ("global", 28, 13),
+          (248, 248): ("cluster", 21, 11),
+          (256, 256): ("cluster", 22, 11),
+          (264, 264): ("cluster", 22, 12),
+          (1000, 1000): ("global", 21, 11),
+          (1024, 1024): ("global", 21, 11),
           (2048, 2048): ("global", 14, 7),
-          (1024, 2048): ("global", 14, 13)}
+          (1024, 2048): ("global", 13, 13)}
 
 
 @pytest.mark.parametrize("hw", sorted(ROUTES))
 def test_route_mirror(hw):
-    """Which route, launches, scratch and the global plan's range widths:
-    the one-block body where the plan and half spectrum fit 232,448
-    bytes; else one launch (the head one more, its LN split) and no
-    scratch on a cluster, or three launches on a scratch of the planes'
-    half spectra [H][ld] float2 on the global route; the global route's
-    row and column ranges as large as half of the shared memory allows
-    (two blocks an SM; at most 31 columns, an odd pitch), covering the
+    """Which route, launches, scratch and the global plan's range widths
+    for 16 planes: the one-block body where the plan and half spectrum
+    fit 232,448 bytes; else one launch (the head one more, its LN split)
+    and no scratch on a cluster, or three launches on a scratch of the
+    planes' half spectra [W/2 + 1][H] float2 on the global route; the
+    global route's row and column ranges at most as large as half of the
+    shared memory holds (two blocks an SM; the columns staged with the odd
+    pitch H | 1), split evenly over the waves of 264 blocks, covering the
     plane."""
     h, w = hw
     route, rows, cols = ROUTES[hw]
-    plan, n = fft_mixer_plan(h, w), w // 2
+    plan, half = fft_mixer_plan(h, w), w // 2 + 1
     got = mixer_route(h, w, planes=16)
     head = mixer_route(h, w, planes=16, head=True)
     assert got["route"] == route
@@ -104,76 +107,103 @@ def test_route_mirror(hw):
     else:
         assert (got["rows"], got["cols"]) == (rows, cols)
         assert (got["launches"], head["launches"]) == (3, 4)
-        assert got["scratch_bytes"] == 16 * 8 * h * plan["ld"]
-    g, hd = fft_global_plan(h, w), 4 * FFT_PLAN_FLOATS
+        assert got["scratch_bytes"] == 16 * 8 * h * half
+    g, hd = fft_global_plan(h, w, 16), 4 * FFT_PLAN_FLOATS
     assert g["rows"] == rows and g["cols"] == cols
-    assert g["plane_bytes"] == 8 * h * plan["ld"]
-    assert g["smem_rows"] == hd + 8 * plan["ld"] * rows <= FFT_GLOBAL_SMEM
-    assert rows == h or g["smem_rows"] + 8 * plan["ld"] > FFT_GLOBAL_SMEM
-    assert g["pitch"] % 2 == 1 and cols <= g["pitch"] <= FFT_GLOBAL_COLS
-    assert g["smem_cols"] == hd + 8 * h * g["pitch"] <= FFT_GLOBAL_SMEM
-    assert (g["pitch"] == FFT_GLOBAL_COLS
-            or hd + 8 * h * (g["pitch"] + 2) > FFT_GLOBAL_SMEM)
+    assert g["plane_bytes"] == 8 * h * half
+    assert (g["row_threads"], g["col_threads"]) == (256, 256)
+    most, most_c = g["most_rows"], g["most_cols"]
+    assert hd + 8 * plan["ld"] * most <= FFT_GLOBAL_SMEM
+    assert most == h or hd + 8 * plan["ld"] * (most + 1) > FFT_GLOBAL_SMEM
+    assert g["smem_rows"] == hd + 8 * plan["ld"] * rows and rows <= most
+    assert g["pitch"] == h | 1
+    assert hd + 8 * g["pitch"] * most_c <= FFT_GLOBAL_SMEM
+    assert most_c == half or hd + 8 * g["pitch"] * (most_c + 1) > \
+        FFT_GLOBAL_SMEM
+    assert g["smem_cols"] == hd + 8 * g["pitch"] * cols and cols <= most_c
     assert g["row_blocks"] * rows >= h > (g["row_blocks"] - 1) * rows
-    assert g["col_blocks"] * cols >= n + 1 > (g["col_blocks"] - 1) * cols
+    assert g["col_blocks"] * cols >= half > (g["col_blocks"] - 1) * cols
 
 
-@pytest.mark.parametrize("hw", [(256, 255), (255, 256), (2062, 2062),
-                                (2 * 1031, 64), (64, 4 * 1031)])
+# planes the mixer refused before it took odd sides and prime factors
+# above 512 (ROADMAP A.12.2) -> (route of 2 planes, launches, scratch
+# bytes); B8 takes none of them (level 2's chain)
+NEWLY_TAKEN = {(256, 255): ("cluster", 1, 0), (255, 256): ("cluster", 1, 0),
+               (2062, 2062): ("global", 3, 2 * 8 * 2062 * 1032),
+               (2 * 1031, 64): ("cluster", 1, 0),
+               (64, 4 * 1031): ("cluster", 1, 0)}
+
+
+@pytest.mark.parametrize("hw", sorted(NEWLY_TAKEN))
 def test_route_refusals(hw):
-    """No route takes an odd side or an odd prime factor above 512 (a
-    side of 2 x 1031, or W/2 = 2 x 1031); `_check_plane` raises naming
-    those limits only."""
+    """An odd side or an odd prime factor above 512 (a side of 2 x 1031,
+    or W/2 = 2 x 1031), once refused, now has a route: the one the
+    mirror names, its launches and its scratch (the global route's
+    [W/2 + 1][H] float2 a plane); `_check_plane` returns it, and B8
+    runs level 2's chain there."""
+    route, launches, scratch = NEWLY_TAKEN[hw]
+    got = mixer_route(*hw, planes=2)
+    assert (got["route"], got["launches"], got["scratch_bytes"]) == (
+        route, launches, scratch)
+    assert _check_plane("global_mixer", torch.empty(
+        1, 2, *hw, device="meta")) == got
+    assert lgb_route(*hw) == "chain"
+
+
+@pytest.mark.parametrize("hw", [(FFT_MAX_H + 1, 2), (2, FFT_MAX_W + 2),
+                                (3, FFT_MAX_W_ODD + 2), (1, 16), (16, 1),
+                                (FFT_MAX_H + 2, FFT_MAX_W)])
+def test_refusals_beyond_the_limits(hw):
+    """Beyond H 14,514 and W 29,026 (odd W 14,513), or below 2, no route
+    takes a plane; `_check_plane` raises naming those limits; at the
+    limits every route rule still finds one."""
     assert mixer_route(*hw) is None and lgb_route(*hw) is None
-    with pytest.raises(ValueError, match=r"even H, W whose odd prime "
-                                         r"factors are at most 512"):
+    with pytest.raises(ValueError, match=r"2 <= H <= 14514 and 2 <= W <= "
+                                         r"29026 \(odd W <= 14513\)"):
         _check_plane("global_mixer", torch.empty(1, 2, *hw, device="meta"))
+    for h, w in ((FFT_MAX_H, 2), (2, FFT_MAX_W), (3, FFT_MAX_W_ODD),
+                 (FFT_MAX_H, FFT_MAX_W)):
+        assert mixer_route(h, w) is not None
 
 
-def emulate_global(x, prm=PARAMS):
+def emulate_global(x, prm=PARAMS, planes=1):
     """The global route on one plane x [H, W], part by part: (a) each
-    range of `rows` rows through the W forward passes and the split into
-    the scratch [H][ld] (bins 0..N-1 at their positions, N at N; the
-    padding is never read), (b) each range of `cols` columns staged with
-    row pitch `pitch`, through the H forward passes, the amp/phase mixer
-    and the H inverse passes, back into the scratch, (c) each range of
-    rows through the c2r and the W inverse passes. Returns (out, the
-    spectrum after the H forward passes [N + 1, H] in position order)."""
+    range of `rows` rows through the W forward (and the split) into the
+    scratch, stored column by column [W/2 + 1][H]; (b) each range of
+    `cols` columns, one run of the scratch, through the H forward
+    passes, the amp/phase mixer and the H inverse passes, back into the
+    scratch; (c) each range of rows read back column-wise through the W
+    inverse. The ranges those of `planes` planes. Returns (out, the
+    spectrum after the H forward passes [W/2 + 1, H] in position
+    order)."""
     h, w = x.shape
-    n, dtype = w // 2, x.dtype
-    plan, g = fft_mixer_plan(h, w), fft_global_plan(h, w)
+    dtype, half = x.dtype, w // 2 + 1
+    plan, g = fft_mixer_plan(h, w), fft_global_plan(h, w, planes)
     tw_row, tw_half, tw_col, pos = _tables(h, w, dtype)
-    scratch = torch.full((h, plan["ld"], 2), float("nan"), dtype=dtype)
+    scratch = torch.full((half, h, 2), float("nan"), dtype=dtype)
     for r0 in range(0, h, g["rows"]):
-        z, span = x[r0:r0 + g["rows"]].reshape(-1, n, 2), n
-        for r in plan["row"]:
-            z = fft_pass(z, n, span, r, tw_row, False)
-            span //= r
-        scratch[r0:r0 + len(z), :n + 1] = split(z, tw_half, pos)
-    spec = torch.empty(n + 1, h, 2, dtype=dtype)
-    q = torch.arange(h).view(1, h)
-    for c0 in range(0, n + 1, g["cols"]):
-        nc = min(g["cols"], n + 1 - c0)
-        stage = torch.full((h, g["pitch"], 2), float("nan"), dtype=dtype)
-        stage[:, :nc] = scratch[:, c0:c0 + nc]
-        cols, span = stage[:, :nc].transpose(0, 1), h
+        _, part = rows_forward(x[r0:r0 + g["rows"]], plan, tw_row, tw_half,
+                               pos)
+        scratch[:, r0:r0 + len(part)] = part.transpose(0, 1)
+    spec = torch.empty(half, h, 2, dtype=dtype)
+    for c0 in range(0, half, g["cols"]):
+        cols, span = scratch[c0:c0 + g["cols"]], h
+        nc = len(cols)
         for r in plan["col"]:
             cols = fft_pass(cols, h, span, r, tw_col, False)
             span //= r
         spec[c0:c0 + nc] = cols
-        c = torch.arange(c0, c0 + nc).view(nc, 1)
-        edge = ((c == 0) | (c == n)) & ((q == 0) | (q == plan["qh"]))
-        cols = mix_bin(cols, edge, prm)
+        cols = mix_bin(cols, edge_bins(plan, h, c0, nc), prm)
         for r in reversed(plan["col"]):
             span *= r
             cols = fft_pass(cols, h, span, r, tw_col, True)
-        scratch[:, c0:c0 + nc] = cols.transpose(0, 1)
+        scratch[c0:c0 + nc] = cols
     out = torch.empty(h, w, dtype=dtype)
     norm = torch.tensor(1.0 / (h * w), dtype=dtype)
     for r0 in range(0, h, g["rows"]):
-        part = scratch[r0:r0 + g["rows"], :n + 1]
-        z = rows_inverse(combine(part, tw_half, pos), plan, tw_row)
-        out[r0:r0 + len(z)] = (z * norm).abs().reshape(-1, w)
+        part = scratch[:, r0:r0 + g["rows"]].transpose(0, 1)
+        out[r0:r0 + len(part)] = rows_back(part, plan, tw_row, tw_half, pos,
+                                           norm)
     return out, spec
 
 

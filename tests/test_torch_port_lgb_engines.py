@@ -239,24 +239,30 @@ def test_new_wrappers_run_plain_version_on_cpu():
                                       ((1, 4, 176, 176), True),
                                       ((1, 4, 240, 240), True),
                                       ((1, 4, 248, 248), True),
-                                      ((1, 4, 72, 71), False),
+                                      ((1, 4, 72, 71), True),
                                       ((1, 4, 8, 8208), True),
-                                      ((1, 4, 2062, 2062), False),
-                                      ((1, 4, 1042, 16), False),
-                                      ((1, 4, 16, 2 * 2 * 523), False)])
+                                      ((1, 4, 2062, 2062), True),
+                                      ((1, 4, 1042, 16), True),
+                                      ((1, 4, 16, 2 * 2 * 523), True),
+                                      ((1, 4, 14515, 2), False),
+                                      ((1, 4, 2, 29028), False),
+                                      ((1, 4, 3, 14515), False),
+                                      ((1, 4, 1, 16), False)])
 def test_mixer_kernel_size_limit(shape, ok):
-    """The card's mixer takes every even H, W whose odd prime factors are
-    at most 512: where the plan and half spectrum H x (W/2 + 1, rounded up
-    to odd) fit one block's 232,448 bytes of shared memory (240^2) in one
-    block, above that (248^2, 8 x 8208) on its global route; it raises
-    naming those limits for an odd side or an odd prime above 512 (1031,
-    521, 523)."""
+    """The card's mixer takes every H from 2 to 14,514 and W from 2 to
+    29,026 (odd W to 14,513) at any factorization: where the plan and
+    half spectrum H x (W/2 + 1, rounded up to odd; odd W: W) fit one
+    block's 232,448 bytes of shared memory (240^2) in one block, above
+    that (248^2, 8 x 8208) on a cluster or its global route, odd sides
+    (72 x 71) and odd primes above 512 (1031, 521, 523) through the line
+    buffer; it raises naming those limits beyond them."""
     x = torch.empty(shape, device="meta")
     if ok:
         _check_plane("global_mixer", x)
     else:
-        with pytest.raises(ValueError, match="odd prime factors are at "
-                                             "most 512"):
+        with pytest.raises(ValueError, match=r"2 <= H <= 14514 and 2 <= W "
+                                             r"<= 29026 \(odd W <= "
+                                             r"14513\)"):
             _check_plane("global_mixer", x)
 
 
